@@ -1,0 +1,436 @@
+#!/usr/bin/env python3
+"""Quickest proof that the PyTorch/CUDA port starts and is right on a GPU.
+
+Run from the repository root on a machine with one NVIDIA Hopper card:
+
+    python3 chip_smoke.py
+
+It imports ``tempestmodel_tpu_torch`` only (never jax, never the JAX
+package), builds the hand-written CUDA kernels from ``csrc/`` with nvcc,
+and runs these phases, each printing one JSON line:
+
+1. device   the card's name and power limit as nvidia-smi gives them;
+2. build    every kernel source compiled and loaded, with the seconds;
+3. kernel   each kernel against its plain PyTorch version on the card at
+            the flagship shapes, float32 and float64, with times;
+4. slice    the Strang-HEVI step at small size in float64 on the card,
+            kernel path against plain path, 1e-11 relative per field;
+5. flagship the main path at full width: UMJS baroclinic wave, ne30 p4
+            nz30 float32, ``first_step`` and a few ``step``s through
+            ``make_fast_step``; finite fields, launch counts, ms/step;
+6. kernels  one line listing every kernel with its time, bound, plain
+            version's time and launches on the flagship run.
+
+With ``--profile PATH`` it also traces three flagship steps with
+torch.profiler and writes the device time by kernel to the JSON file PATH.
+
+Any failure raises: the exit code is then non-zero and no result line is
+printed.  Without a CUDA device the script exits with code 1 at once.  The
+last line is ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import torch
+
+# published peaks of one H100 SXM (NVIDIA data sheet): device memory rate
+# and float32 / float64 rates outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+
+# flagship configuration (the UMJS baroclinic wave of the JAX package's
+# bench: ne30, p=4, 30 levels, float32, one device)
+NE, ORDER, NZ, DT, NU = 30, 4, 30, 100.0, 1.0e15
+FLAGSHIP_STEPS = 5
+SEED = 0
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def bound_ms(nbytes, flops, dtype):
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def rel_err(got, want):
+    scale = float(want.abs().max()) + 1e-300
+    return float((got - want).abs().max()) / scale
+
+
+def randn(shape, dtype, gen, dev):
+    return torch.randn(shape, dtype=dtype, device=dev, generator=gen)
+
+
+def make_bands(n, q, ncol, dtype, gen, dev):
+    """Diagonally dominant banded systems with the out-of-range entries
+    zero (the layout contract of the solver)."""
+    b = 2 * q + 1
+    bands = randn((n, b, ncol), dtype, gen, dev)
+    bands[:, q, :] += 4.0 * b
+    rows = torch.arange(n, device=dev)[:, None]
+    cols = rows + torch.arange(b, device=dev)[None, :] - q
+    valid = ((cols >= 0) & (cols < n)).to(dtype)
+    bands *= valid[:, :, None]
+    rhs = randn((n, ncol), dtype, gen, dev)
+    return bands.contiguous(), rhs.contiguous()
+
+
+def dense_from_bands(bands, q):
+    n, b, ncol = bands.shape
+    dense = torch.zeros((ncol, n, n), dtype=bands.dtype, device=bands.device)
+    for d in range(b):
+        off = d - q
+        diag = torch.diagonal(dense, offset=off, dim1=1, dim2=2)
+        lo, hi = max(0, -off), min(n, n - off)
+        diag.copy_(bands[lo:hi, d, :].T)
+    return dense
+
+
+def check_kernels(fg, dev):
+    """Phase 3: every kernel against its plain version at the flagship
+    shapes; returns {name: row of the kernels line (without launches)}."""
+    from tempestmodel_tpu_torch.fast import dss_cuda
+    from tempestmodel_tpu_torch.ops import cuda_banded
+    from tempestmodel_tpu_torch.kernels.timing import time_cuda
+
+    K, P, A = fg.nz, 6, fg.A
+    n, ncol = 3 * fg.nz + 1, 6 * fg.A * fg.A
+    q = 4
+    rows = {}
+    dss_tol = {torch.float32: 1e-6, torch.float64: 1e-13}
+    band_tol = {torch.float32: 1e-4, torch.float64: 1e-10}
+    ncopies = 8          # 8 x 10.4 MB (f32) inputs cycle through the L2
+
+    for dtype in (torch.float64, torch.float32):
+        tag = "f32" if dtype == torch.float32 else "f64"
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        imult = fg.inv_mult.to(dtype).contiguous()
+        rot = fg.e_rot.to(dtype).contiguous()
+        esize = torch.empty((), dtype=dtype).element_size()
+        nfield = K * P * A * A
+
+        # --- dss_scalar (level and interface fields) --------------------
+        xs = [randn((K, P, A, A), dtype, gen, dev) for _ in range(ncopies)]
+        xw = randn((K + 1, P, A, A), dtype, gen, dev)
+        err = 0.0
+        for x in (xs[0], xw):
+            got = dss_cuda.dss_scalar(x, imult, fg.dss_links, fg.p,
+                                      table=fg.dss_table)
+            torch.cuda.synchronize()
+            want = dss_cuda.dss_scalar_plain(x, imult, fg.dss_links, fg.p)
+            e = float((got - want).abs().max()) / float(want.abs().max())
+            err = max(err, e)
+        if not err <= dss_tol[dtype]:
+            raise RuntimeError(f"dss_scalar {tag}: max-abs err/scale {err} "
+                               f"> {dss_tol[dtype]}")
+        ms = time_cuda(lambda x: dss_cuda.dss_scalar(
+            x, imult, fg.dss_links, fg.p, table=fg.dss_table),
+            [(x,) for x in xs], reps=40, queued=True)
+        plain_ms = time_cuda(lambda x: dss_cuda.dss_scalar_plain(
+            x, imult, fg.dss_links, fg.p), [(x,) for x in xs], reps=8)
+        bnd, by = bound_ms((2 * nfield + imult.numel()) * esize
+                           + fg.dss_table.numel() * 4, 5 * nfield, dtype)
+        row = {"name": "dss_scalar", "route": "cuda",
+               "source": "tempestmodel_tpu_torch/csrc/dss.cu",
+               "replaces": "tempestmodel_tpu/fast/dss_pallas.py:474",
+               "shape": [K, P, A, A], "max_abs_err": err, "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+               "library_ms": None}
+        emit({"phase": "kernel", "dtype": tag, "tol": dss_tol[dtype], **row})
+        if dtype == torch.float32:
+            rows["dss_scalar"] = row
+
+        # --- dss_vector ---------------------------------------------------
+        us = xs
+        vs = [randn((K, P, A, A), dtype, gen, dev) for _ in range(ncopies)]
+        gu, gv = dss_cuda.dss_vector(us[0], vs[0], imult, rot, fg.dss_links,
+                                     fg.p, table=fg.dss_table)
+        torch.cuda.synchronize()
+        wu, wv = dss_cuda.dss_vector_plain(us[0], vs[0], imult, rot,
+                                           fg.dss_links, fg.p)
+        scale = max(float(wu.abs().max()), float(wv.abs().max()))
+        err = max(float((gu - wu).abs().max()),
+                  float((gv - wv).abs().max())) / scale
+        if not err <= dss_tol[dtype]:
+            raise RuntimeError(f"dss_vector {tag}: max-abs err/scale {err} "
+                               f"> {dss_tol[dtype]}")
+        ms = time_cuda(lambda u, v: dss_cuda.dss_vector(
+            u, v, imult, rot, fg.dss_links, fg.p, table=fg.dss_table),
+            list(zip(us, vs)), reps=40, queued=True)
+        plain_ms = time_cuda(lambda u, v: dss_cuda.dss_vector_plain(
+            u, v, imult, rot, fg.dss_links, fg.p), list(zip(us, vs)), reps=8)
+        bnd, by = bound_ms((4 * nfield + imult.numel() + rot.numel()) * esize
+                           + fg.dss_table.numel() * 4, 16 * nfield, dtype)
+        row = {"name": "dss_vector", "route": "cuda",
+               "source": "tempestmodel_tpu_torch/csrc/dss.cu",
+               "replaces": "tempestmodel_tpu/fast/dss_pallas.py:489",
+               "shape": [K, P, A, A], "max_abs_err": err, "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+               "library_ms": None}
+        emit({"phase": "kernel", "dtype": tag, "tol": dss_tol[dtype], **row})
+        if dtype == torch.float32:
+            rows["dss_vector"] = row
+        del xs, us, vs, xw
+
+        # --- banded_solve ---------------------------------------------------
+        bands, rhs = make_bands(n, q, ncol, dtype, gen, dev)
+        got = cuda_banded.banded_solve(bands, rhs, q)
+        torch.cuda.synchronize()
+        want = cuda_banded.banded_solve_plain(bands, rhs, q)
+        err = rel_err(got, want)
+        # ragged width (not a multiple of the block) and other bandwidths
+        for qq, nn, nc in ((1, 17, 1001), (2, 25, 130), (8, 40, 257)):
+            b2, r2 = make_bands(nn, qq, nc, dtype, gen, dev)
+            g2 = cuda_banded.banded_solve(b2, r2, qq)
+            torch.cuda.synchronize()
+            err = max(err, rel_err(
+                g2, cuda_banded.banded_solve_plain(b2, r2, qq)))
+        if not err <= band_tol[dtype]:
+            raise RuntimeError(f"banded_solve {tag}: rel err {err} "
+                               f"> {band_tol[dtype]}")
+        ms = time_cuda(lambda: cuda_banded.banded_solve(bands, rhs, q),
+                       [()], reps=10, queued=True)
+        plain_ms = time_cuda(
+            lambda: cuda_banded.banded_solve_plain(bands, rhs, q), [()],
+            reps=2, warmup=1)
+        # the library yardstick: one dense batched solve of the same
+        # systems (timed here, used nowhere in the port)
+        dense = dense_from_bands(bands, q)
+        lib_x = torch.linalg.solve(dense, rhs.T.contiguous()).T
+        lib_err = rel_err(lib_x, want)
+        library_ms = time_cuda(
+            lambda: torch.linalg.solve(dense, rhs.T), [()], reps=2, warmup=1)
+        del dense, lib_x
+        nb = (bands.numel() + 2 * rhs.numel()) * esize
+        flops = n * ncol * (q * (2 * q + 3) + 2 * q + 1)
+        bnd, by = bound_ms(nb, flops, dtype)
+        row = {"name": "banded_solve", "route": "cuda",
+               "source": "tempestmodel_tpu_torch/csrc/banded.cu",
+               "replaces": "tempestmodel_tpu/ops/pallas_banded.py:185",
+               "shape": [n, 2 * q + 1, ncol], "max_abs_err": err, "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+               "library_ms": library_ms, "library_rel_err": lib_err}
+        emit({"phase": "kernel", "dtype": tag, "tol": band_tol[dtype], **row})
+        if dtype == torch.float32:
+            rows["banded_solve"] = row
+        del bands, rhs, got, want
+        torch.cuda.empty_cache()
+    return rows
+
+
+def check_slice(dev):
+    """Phase 4: 3 steps at ne4 p4 nz8 in float64 on the card, the path
+    with kernels against the path with the plain versions."""
+    import tempestmodel_tpu_torch as tm
+    from tempestmodel_tpu_torch import fast
+    from tempestmodel_tpu_torch.models import nh_model
+    from tempestmodel_tpu_torch.testcases.nonhydro_sphere import (
+        BaroclinicWaveUMJS)
+
+    tc = BaroclinicWaveUMJS(pert="exp")
+    cfg = tm.ModelConfig(
+        grid_kind=tm.GridKind.CUBED_SPHERE, ne=4, order=4, nz=8,
+        ztop=tc.ztop, dt=200.0, hyperdiffusion=True, nu_scalar=1e15,
+        nu_div=1e15, nu_vort=1e15, vertical_solver="pallas",
+        dtype=torch.float64)
+    geom = nh_model.build_nh_sphere_geometry(cfg, ztop=tc.ztop)
+    state = tc.initial_state(geom, cfg.constants, dtype=torch.float64,
+                             device=dev)
+    outs = []
+    for plain in (False, True):
+        first, step = fast.make_fast_step(cfg, geom, device=dev, plain=plain)
+        X, c = first(fast.pack_state(state, device=dev))
+        for _ in range(2):
+            X, c = step(X, c)
+        torch.cuda.synchronize()
+        outs.append(X)
+    errs = {k: rel_err(outs[0][k], outs[1][k]) for k in outs[0]}
+    emit({"phase": "slice", "config": "ne4 p4 nz8 f64, 3 steps",
+          "rel_err": errs, "tol": 1e-11})
+    bad = {k: e for k, e in errs.items() if not e < 1e-11}
+    if bad:
+        raise RuntimeError(f"kernel path != plain path: {bad}")
+    for k, v in outs[0].items():
+        if not bool(torch.isfinite(v).all()):
+            raise RuntimeError(f"slice: non-finite {k}")
+
+
+def profile_steps(step, X, carry, nsteps, out_path):
+    """Optional (``--profile PATH``): device time by kernel over ``nsteps``
+    steady steps, from torch.profiler; written to ``out_path`` and printed
+    as one JSON line."""
+    import os
+    from torch.profiler import profile, ProfilerActivity
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(nsteps):
+            X, carry = step(X, carry)
+        torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    rows = []
+    for e in prof.key_averages():
+        # kernels only: an operator row repeats its kernels' device time
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0.0)
+        if dev_us > 0:
+            rows.append({"name": e.key[:100], "calls": e.count,
+                         "device_ms_per_step": dev_us / 1e3 / nsteps})
+    rows.sort(key=lambda r: -r["device_ms_per_step"])
+    total = sum(r["device_ms_per_step"] for r in rows)
+    summary = {"phase": "profile", "steps": nsteps,
+               "wall_ms_per_step_under_profiler": wall_ms / nsteps,
+               "device_ms_per_step": total,
+               "device_launches_per_step":
+                   sum(r["calls"] for r in rows) / nsteps,
+               "top": rows[:25]}
+    os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
+    with open(out_path, "w") as fh:
+        json.dump(dict(summary, all=rows), fh, indent=1)
+    emit(summary)
+
+
+def main():
+    args = sys.argv[1:]
+    profile_path = None
+    if args[:1] == ["--profile"] and len(args) == 2:
+        profile_path = args[1]
+    elif args:
+        print("usage: chip_smoke.py [--profile PATH]", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 1
+    import tempestmodel_tpu_torch as tm
+    from tempestmodel_tpu_torch import fast
+    from tempestmodel_tpu_torch.kernels import build, counts
+    from tempestmodel_tpu_torch.models import nh_model
+    from tempestmodel_tpu_torch.testcases.nonhydro_sphere import (
+        BaroclinicWaveUMJS)
+
+    dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
+
+    # 1. device -----------------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True, timeout=60).stdout.strip().splitlines()[0].strip()
+    kind = torch.cuda.get_device_name(0)
+    emit({"phase": "device", "nvidia_smi": smi, "kind": kind,
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+
+    # 2. build ------------------------------------------------------------
+    info = build.build_all(verbose=True)
+    emit({"phase": "build", "seconds": info["seconds"],
+          "built": info["built"], "libraries": len(info["libraries"])})
+
+    # flagship geometry and state (host numpy, then tensors on the card)
+    tc = BaroclinicWaveUMJS(pert="exp")
+    cfg = tm.ModelConfig(
+        grid_kind=tm.GridKind.CUBED_SPHERE, ne=NE, order=ORDER, nz=NZ,
+        ztop=tc.ztop, dt=DT, hyperdiffusion=True, nu_scalar=NU, nu_div=NU,
+        nu_vort=NU, vertical_solver="pallas", dtype=torch.float32)
+    t0 = time.perf_counter()
+    geom = nh_model.build_nh_sphere_geometry(cfg, ztop=tc.ztop)
+    state = tc.initial_state(geom, cfg.constants, dtype=cfg.dtype, device=dev)
+    fg = fast.build_fast_geometry(geom, dtype=cfg.dtype, device=dev)
+    emit({"phase": "setup", "host_geometry_and_state_s":
+          time.perf_counter() - t0})
+
+    # 3. kernels against their plain versions -----------------------------
+    rows = check_kernels(fg, dev)
+    del fg
+
+    # 4. the slice at small size, kernel path against plain path ----------
+    check_slice(dev)
+
+    # 5. the main path at full width --------------------------------------
+    t0 = time.perf_counter()
+    first_step, step = fast.make_fast_step(cfg, geom, device=dev)
+    X0 = fast.pack_state(state, device=dev)
+    make_s = time.perf_counter() - t0
+    # warm-up outside the counted run (library handles, allocator)
+    Xw, cw = first_step(X0)
+    Xw, cw = step(Xw, cw)
+    torch.cuda.synchronize()
+    del Xw, cw
+
+    counts.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    X, carry = first_step(X0)
+    torch.cuda.synchronize()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    ev0.record()
+    for _ in range(FLAGSHIP_STEPS):
+        X, carry = step(X, carry)
+    ev1.record()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / FLAGSHIP_STEPS
+    ms_per_step = ev0.elapsed_time(ev1) / FLAGSHIP_STEPS
+    launches = dict(counts.launch_counts)
+
+    ncalls = FLAGSHIP_STEPS + 1            # first_step + steps
+    want = {"dss_scalar": 21 * ncalls, "dss_vector": 7 * ncalls,
+            "banded_solve": FLAGSHIP_STEPS + 2}
+    if launches != want:
+        raise RuntimeError(f"launch counts {launches} != expected {want}")
+    for k, v in X.items():
+        nzk = NZ + (1 if k == "W" else 0)
+        if tuple(v.shape) != (nzk, 6, NE * ORDER, NE * ORDER):
+            raise RuntimeError(f"flagship: {k} has shape {tuple(v.shape)}")
+        if v.dtype != torch.float32 or not bool(torch.isfinite(v).all()):
+            raise RuntimeError(f"flagship: {k} is not finite float32")
+    # the wave must have stayed near its balanced start: density and
+    # rho*theta move by a small fraction over a few steps
+    drift = {k: rel_err(X[k], X0[k]) for k in ("Rho", "Rt")}
+    if not all(d < 1e-2 for d in drift.values()):
+        raise RuntimeError(f"flagship: state drifted {drift}")
+    npts = 6 * (NE * ORDER) ** 2 * NZ
+    emit({"phase": "flagship",
+          "config": f"UMJS ne{NE} p{ORDER} nz{NZ} f32 dt{DT:g} nu{NU:g}",
+          "steps": FLAGSHIP_STEPS, "ms_per_step": ms_per_step,
+          "wall_ms_per_step": wall_ms,
+          "gridpoint_steps_per_s": npts / (ms_per_step * 1e-3),
+          "launches": launches,
+          "launches_per_step": {"dss_scalar": 21, "dss_vector": 7,
+                                "banded_solve": 1},
+          "make_fast_step_s": make_s, "drift": drift,
+          "peak_device_GiB": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "card": smi})
+
+    if profile_path is not None:
+        profile_steps(step, X, carry, 3, profile_path)
+
+    # 6. the kernels line, the card, the result ---------------------------
+    kernels = []
+    for name in ("dss_scalar", "dss_vector", "banded_solve"):
+        row = dict(rows[name])
+        row["launches"] = launches[name]
+        kernels.append(row)
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
+    print(smi, flush=True)
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,308 @@
+// Direct stiffness summation (DSS) on the cubed sphere, one launch per field.
+//
+// Replaces the TPU kernels `dss_scalar` (`_scalar_kernel`) and `dss_vector`
+// (`_vector_kernel`) of tempestmodel_tpu/fast/dss_pallas.py.  Those are
+// shaped by the TPU: masked rolls for the element pair sums, a flip matrix
+// and a matrix-unit dot to reverse an edge line, read-modify-write of edge
+// rows with a deferred flush of the lane-axis edges, z-blocks resident in
+// on-chip memory.  None of that is carried over.  Here the operation is a
+// GATHER: one thread per output node (k, panel, a, b), b fastest so the
+// loads and the store of a warp are coalesced.  The grid is (blocks over
+// one (A, B) slab, panel, blocks of 5 levels): a thread finds its node with
+// one 32-bit division, works out ONCE what is the same on every level (its
+// element-boundary partners, its edge links, the rotation coefficients) and
+// then walks 5 consecutive levels, whose loads are independent of one
+// another.  On each level a thread
+//   1. forms the pair-summed value s at its own node from at most 4 raw
+//      reads (the node plus its coincident copies across an element
+//      boundary in a, then the same in b on the a-summed values),
+//   2. if the node lies on a panel edge, adds the neighbour panel's
+//      PAIR-SUMMED value at the mapped position of the coincident edge
+//      (reversed where `flip`); a cube-corner node lies on two edges and
+//      receives two contributions; for the covariant (U, V) pair the
+//      neighbour values are rotated by the 2x2 matrix stored per link and
+//      per position along the DESTINATION edge,
+//   3. multiplies by the inverse multiplicity and writes a fresh output.
+// No atomics and no read-modify-write: the result is the same on every run.
+//
+// Bound on an H100 (3.35 TB/s): bytes.  The function must read each field
+// once and write it once (the 2-D tables are negligible); at (30, 6, 120,
+// 120) float32 that is 2 x 10.4 MB = 20.7 MB, about 6.2 us for a scalar and
+// 12.4 us for the vector pair.  The extra reads of step 1-2 hit lines that
+// neighbouring threads load anyway (L1/L2), so the design moves close to
+// the minimum through device memory; arithmetic is a handful of adds.
+//
+// Plain C interface (no PyTorch header): pointers and the stream arrive as
+// integers, the launch goes to the given stream, nothing synchronises or
+// allocates, and each entry point returns cudaGetLastError().
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int EDGE_LEFT = 0, EDGE_RIGHT = 1, EDGE_BOTTOM = 2;  // EDGE_TOP = 3
+// Block size and levels per thread; kernels/tune_dss.py sweeps them
+// with -D flags.  (128, 5) was the fastest pair for float32 at (30, 6, 120,
+// 120) on an H100.
+#ifndef DSS_THREADS
+#define DSS_THREADS 128
+#endif
+#ifndef DSS_LEVELS
+#define DSS_LEVELS 5
+#endif
+constexpr int THREADS = DSS_THREADS;
+constexpr int LEVELS = DSS_LEVELS;  // consecutive levels handled by one thread
+
+// The raw nodes whose sum is the pair-summed value at (a, b) of one (A, B)
+// panel slab, as offsets into the slab: the node itself, its coincident
+// copy across an element boundary along a (o_a), along b (o_b), and the
+// diagonal one (o_ab); -1 where there is none.
+struct PairNodes {
+  int o, o_a, o_b, o_ab;
+};
+
+__device__ __forceinline__ PairNodes pair_nodes(int a, int b, int A, int B,
+                                                int p) {
+  int a2 = -1, b2 = -1;
+  const int ra = a % p, rb = b % p;
+  if (ra == p - 1 && a < A - 1) a2 = a + 1;
+  else if (ra == 0 && a > 0) a2 = a - 1;
+  if (rb == p - 1 && b < B - 1) b2 = b + 1;
+  else if (rb == 0 && b > 0) b2 = b - 1;
+  PairNodes n;
+  n.o = a * B + b;
+  n.o_a = (a2 >= 0) ? a2 * B + b : -1;
+  n.o_b = (b2 >= 0) ? a * B + b2 : -1;
+  n.o_ab = (a2 >= 0 && b2 >= 0) ? a2 * B + b2 : -1;
+  return n;
+}
+
+// Pair-summed value: a first, then b on the a-summed values.
+template <typename T>
+__device__ __forceinline__ T pair_sum(const T* __restrict__ f,
+                                      const PairNodes& n) {
+  T s = f[n.o];
+  if (n.o_a >= 0) s += f[n.o_a];
+  if (n.o_b >= 0) {
+    T s2 = f[n.o_b];
+    if (n.o_ab >= 0) s2 += f[n.o_ab];
+    s += s2;
+  }
+  return s;
+}
+
+// (a, b) of position j along edge `e` of a panel.
+__device__ __forceinline__ void edge_node(int e, int j, int A, int B, int& a,
+                                          int& b) {
+  if (e == EDGE_LEFT) { a = 0; b = j; }
+  else if (e == EDGE_RIGHT) { a = A - 1; b = j; }
+  else if (e == EDGE_BOTTOM) { a = j; b = 0; }
+  else { a = j; b = B - 1; }  // EDGE_TOP
+}
+
+// What a node on panel edges receives: at most two neighbour nodes (a cube
+// corner lies on two edges), each with its panel, its pair nodes, and the
+// link index and position that select the rotation coefficients.  The same
+// on every level, so a thread works it out once.
+struct EdgeTerms {
+  int count;
+  int panel[2];
+  PairNodes nodes[2];
+  int link[2];
+  int pos[2];
+};
+
+// table[(panel * 4 + edge) * 4 + {0,1,2,3}] = neighbour panel, neighbour
+// edge, flip, index of the link (row of the rotation table).  Edges are
+// visited in the order of the link list (left, right, bottom, top), which
+// is the plain version's order of summation.
+__device__ __forceinline__ EdgeTerms edge_terms(const int* __restrict__ table,
+                                                int pa, int a, int b, int A,
+                                                int B, int p) {
+  EdgeTerms t = {};
+  const bool on_edge[4] = {a == 0, a == A - 1, b == 0, b == B - 1};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    if (!on_edge[e] || t.count == 2) continue;
+    const int i = (e < 2) ? b : a;  // position along the destination edge
+    const int* row = table + (pa * 4 + e) * 4;
+    const int j = row[2] ? (A - 1 - i) : i;
+    int na, nb;
+    edge_node(row[1], j, A, B, na, nb);
+    // constant indices keep the struct in registers
+    const int slot = t.count;
+    const PairNodes nodes = pair_nodes(na, nb, A, B, p);
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      if (n == slot) {
+        t.panel[n] = row[0];
+        t.nodes[n] = nodes;
+        t.link[n] = row[3];
+        t.pos[n] = i;
+      }
+    }
+    ++t.count;
+  }
+  return t;
+}
+
+// Grid: (blocks over one (A, B) slab, panel, blocks of LEVELS levels).
+template <typename T>
+__global__ void dss_scalar_kernel(const T* __restrict__ x,
+                                  const T* __restrict__ imult,
+                                  const int* __restrict__ table,
+                                  T* __restrict__ out, int K, int P, int A,
+                                  int B, int p) {
+  const int node = blockIdx.x * blockDim.x + threadIdx.x;
+  if (node >= A * B) return;
+  const int a = node / B;
+  const int b = node - a * B;
+  const int pa = blockIdx.y;
+  const long long slab = (long long)A * B;
+
+  const PairNodes own = pair_nodes(a, b, A, B, p);
+  const EdgeTerms et = edge_terms(table, pa, a, b, A, B, p);
+  const T w = imult[pa * slab + node];
+
+  // all the levels' loads first (a level past the end re-reads the last
+  // one), then the stores: the loads of different levels overlap
+  const int k0 = blockIdx.z * LEVELS;
+  T s[LEVELS];
+#pragma unroll
+  for (int kk = 0; kk < LEVELS; ++kk) {
+    const int k = min(k0 + kk, K - 1);
+    const T* level = x + (long long)k * P * slab;
+    s[kk] = pair_sum(level + pa * slab, own);
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+      if (n < et.count)
+        s[kk] += pair_sum(level + et.panel[n] * slab, et.nodes[n]);
+  }
+#pragma unroll
+  for (int kk = 0; kk < LEVELS; ++kk) {
+    const int k = k0 + kk;
+    if (k < K) out[((long long)k * P + pa) * slab + node] = s[kk] * w;
+  }
+}
+
+template <typename T>
+__global__ void dss_vector_kernel(const T* __restrict__ u,
+                                  const T* __restrict__ v,
+                                  const T* __restrict__ imult,
+                                  const T* __restrict__ rot,
+                                  const int* __restrict__ table,
+                                  T* __restrict__ uo, T* __restrict__ vo,
+                                  int K, int P, int A, int B, int p,
+                                  int nlinks) {
+  const int node = blockIdx.x * blockDim.x + threadIdx.x;
+  if (node >= A * B) return;
+  const int a = node / B;
+  const int b = node - a * B;
+  const int pa = blockIdx.y;
+  const long long slab = (long long)A * B;
+
+  const PairNodes own = pair_nodes(a, b, A, B, p);
+  const EdgeTerms et = edge_terms(table, pa, a, b, A, B, p);
+  const T w = imult[pa * slab + node];
+  // rot is (4, nlinks, A): [r00, r01, r10, r11] at the destination position
+  T r[2][4] = {};
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+    if (n < et.count) {
+      const long long base = (long long)et.link[n] * A + et.pos[n];
+      const long long stride = (long long)nlinks * A;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) r[n][c] = rot[base + c * stride];
+    }
+  }
+
+  const int k0 = blockIdx.z * LEVELS;
+  T su[LEVELS], sv[LEVELS];
+#pragma unroll
+  for (int kk = 0; kk < LEVELS; ++kk) {
+    const int k = min(k0 + kk, K - 1);
+    const long long off = (long long)k * P * slab;
+    su[kk] = pair_sum(u + off + pa * slab, own);
+    sv[kk] = pair_sum(v + off + pa * slab, own);
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      if (n < et.count) {
+        const T lu = pair_sum(u + off + et.panel[n] * slab, et.nodes[n]);
+        const T lv = pair_sum(v + off + et.panel[n] * slab, et.nodes[n]);
+        su[kk] += r[n][0] * lu + r[n][1] * lv;
+        sv[kk] += r[n][2] * lu + r[n][3] * lv;
+      }
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < LEVELS; ++kk) {
+    const int k = k0 + kk;
+    if (k < K) {
+      const long long o = ((long long)k * P + pa) * slab + node;
+      uo[o] = su[kk] * w;
+      vo[o] = sv[kk] * w;
+    }
+  }
+}
+
+template <typename T>
+int launch_scalar(const void* x, const void* imult, const void* table,
+                  void* out, int K, int P, int A, int B, int p, void* stream) {
+  if (K > 0 && P > 0 && A > 0 && B > 0) {
+    const dim3 grid((unsigned)((A * B + THREADS - 1) / THREADS), (unsigned)P,
+                    (unsigned)((K + LEVELS - 1) / LEVELS));
+    dss_scalar_kernel<T><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+        (const T*)x, (const T*)imult, (const int*)table, (T*)out, K, P, A, B,
+        p);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_vector(const void* u, const void* v, const void* imult,
+                  const void* rot, const void* table, void* uo, void* vo,
+                  int K, int P, int A, int B, int p, int nlinks,
+                  void* stream) {
+  if (K > 0 && P > 0 && A > 0 && B > 0) {
+    const dim3 grid((unsigned)((A * B + THREADS - 1) / THREADS), (unsigned)P,
+                    (unsigned)((K + LEVELS - 1) / LEVELS));
+    dss_vector_kernel<T><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+        (const T*)u, (const T*)v, (const T*)imult, (const T*)rot,
+        (const int*)table, (T*)uo, (T*)vo, K, P, A, B, p, nlinks);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+int dss_scalar_f32(const void* x, const void* imult, const void* table,
+                   void* out, int K, int P, int A, int B, int p,
+                   void* stream) {
+  return launch_scalar<float>(x, imult, table, out, K, P, A, B, p, stream);
+}
+
+int dss_scalar_f64(const void* x, const void* imult, const void* table,
+                   void* out, int K, int P, int A, int B, int p,
+                   void* stream) {
+  return launch_scalar<double>(x, imult, table, out, K, P, A, B, p, stream);
+}
+
+int dss_vector_f32(const void* u, const void* v, const void* imult,
+                   const void* rot, const void* table, void* uo, void* vo,
+                   int K, int P, int A, int B, int p, int nlinks,
+                   void* stream) {
+  return launch_vector<float>(u, v, imult, rot, table, uo, vo, K, P, A, B, p,
+                              nlinks, stream);
+}
+
+int dss_vector_f64(const void* u, const void* v, const void* imult,
+                   const void* rot, const void* table, void* uo, void* vo,
+                   int K, int P, int A, int B, int p, int nlinks,
+                   void* stream) {
+  return launch_vector<double>(u, v, imult, rot, table, uo, vo, K, P, A, B, p,
+                               nlinks, stream);
+}
+
+}  // extern "C"

@@ -1,0 +1,203 @@
+"""Cubed-sphere DSS, one launch per field: the CUDA kernels' wrappers and
+their plain versions.
+
+Counterpart of the JAX package's ``fast/dss_pallas.py`` (``dss_scalar``,
+``dss_vector``).  DSS (direct stiffness summation) replaces every group of
+coincident GLL nodes by its mean: interior element pair sums inside each
+panel (along a, then b), plus the 24 panel-edge link lines taken from the
+PAIR-SUMMED neighbour panel (reversed where ``flip``; rotated by the
+per-node 2x2 covariant transform for the (U, V) pair), times the inverse
+multiplicity.  A cube-corner node lies on two edges and receives two
+contributions.
+
+The kernels (``csrc/dss.cu``) are gathers with one thread per output node;
+see the note there for the design and the bound on the card.  Fields are
+z-first ``(K, 6, A, B)``.
+
+``dss_scalar`` / ``dss_vector`` launch the kernel for CUDA tensors — or
+raise — and run the plain version only for tensors that lie on the CPU.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..grid.geometry import EDGE_LEFT, EDGE_RIGHT, EDGE_BOTTOM, EDGE_TOP
+from ..kernels import build
+from ..kernels.counts import launch_counts
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def _pair_sum_plain(f, p: int):
+    """Interior element pair sums along axes 2 (a) and 3 (b) of a
+    (K, P, A, B) field.  Works on a copy, written in place."""
+    f = f.clone()
+    s = f[:, :, p - 1:-1:p] + f[:, :, p::p]
+    f[:, :, p - 1:-1:p] = s
+    f[:, :, p::p] = s
+    s = f[:, :, :, p - 1:-1:p] + f[:, :, :, p::p]
+    f[:, :, :, p - 1:-1:p] = s
+    f[:, :, :, p::p] = s
+    return f
+
+
+def _edge_view(f, panel: int, edge: int):
+    """(K, L) view of one panel edge of a (K, P, A, B) field."""
+    if edge == EDGE_LEFT:
+        return f[:, panel, 0, :]
+    if edge == EDGE_RIGHT:
+        return f[:, panel, -1, :]
+    if edge == EDGE_BOTTOM:
+        return f[:, panel, :, 0]
+    if edge == EDGE_TOP:
+        return f[:, panel, :, -1]
+    raise ValueError(edge)
+
+
+def dss_scalar_plain(f, imult, links, p: int):
+    """Plain PyTorch DSS of a scalar (K, P, A, B) field."""
+    s = _pair_sum_plain(f, p)
+    # every neighbour line is taken from the PRE-edge-sum panel sums
+    out = s.clone()
+    for (pa, e, qa, qe, flip) in links:
+        line = _edge_view(s, qa, qe)
+        if flip:
+            line = line.flip(-1)
+        _edge_view(out, pa, e).add_(line)            # in place on `out`
+    return out * imult[None]
+
+
+def dss_vector_plain(u, v, imult, rot, links, p: int):
+    """Plain PyTorch DSS of a covariant (U, V) pair; ``rot`` is
+    ``(4, nlinks, A)`` = [r00, r01, r10, r11] along each destination edge."""
+    su = _pair_sum_plain(u, p)
+    sv = _pair_sum_plain(v, p)
+    ou, ov = su.clone(), sv.clone()
+    for i, (pa, e, qa, qe, flip) in enumerate(links):
+        lu = _edge_view(su, qa, qe)
+        lv = _edge_view(sv, qa, qe)
+        if flip:
+            lu, lv = lu.flip(-1), lv.flip(-1)
+        _edge_view(ou, pa, e).add_(rot[0, i][None] * lu + rot[1, i][None] * lv)
+        _edge_view(ov, pa, e).add_(rot[2, i][None] * lu + rot[3, i][None] * lv)
+    w = imult[None]
+    return ou * w, ov * w
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def link_table(links, npanels: int = 6) -> np.ndarray:
+    """Per-(panel, edge) lookup of the link list: an int32 ``(npanels*4, 4)``
+    array of (neighbour panel, neighbour edge, flip, link index).  Raises
+    unless every (panel, edge) is the destination of exactly one link."""
+    table = np.full((npanels * 4, 4), -1, np.int32)
+    for i, (pa, e, qa, qe, flip) in enumerate(links):
+        row = pa * 4 + e
+        if table[row, 0] != -1:
+            raise ValueError(f"two links end on panel {pa} edge {e}")
+        table[row] = (qa, qe, int(bool(flip)), i)
+    if (table < 0).any():
+        raise ValueError("a panel edge has no link")
+    return table
+
+
+def _check_field(name, f, ref=None):
+    if f.dim() != 4:
+        raise ValueError(f"{name} must be (K, P, A, B), got {tuple(f.shape)}")
+    if f.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{name}: dtype {f.dtype} is not float32/float64")
+    if not f.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if ref is not None and (f.shape != ref.shape or f.dtype != ref.dtype
+                            or f.device != ref.device):
+        raise ValueError(f"{name} does not match the first field")
+
+
+def _check_common(f, imult, links, p, wrap, table):
+    K, P, A, B = f.shape
+    if tuple(wrap) != (False, False):
+        raise NotImplementedError("periodic wrap (Cartesian grids) is not "
+                                  "ported; wrap must be (False, False)")
+    if A != B or A % p != 0:
+        raise ValueError(f"panels must be square with A % p == 0, got "
+                         f"A={A} B={B} p={p}")
+    if K > 5 * 65535 or P > 65535 or A * B >= 2 ** 31:
+        raise ValueError(f"field too large for the kernel's grid: "
+                         f"K={K}, P={P}, A*B={A * B}")
+    if len(links) != 4 * P:
+        raise ValueError(f"{len(links)} links for {P} panels")
+    if tuple(imult.shape) != (P, A, B) or imult.dtype != f.dtype \
+            or imult.device != f.device or not imult.is_contiguous():
+        raise ValueError("inv_mult must be a contiguous (P, A, B) tensor of "
+                         "the field's dtype and device")
+    if f.device.type == "cuda":
+        if table is None:
+            table = torch.as_tensor(link_table(links, P), device=f.device)
+        if tuple(table.shape) != (4 * P, 4) or table.dtype != torch.int32 \
+                or table.device != f.device or not table.is_contiguous():
+            raise ValueError("link table must be a contiguous int32 "
+                             "(4*P, 4) tensor on the field's device")
+    return table
+
+
+def dss_scalar(f, imult, links, p: int, wrap=(False, False), table=None):
+    """DSS of a scalar (K, P, A, B) field; one kernel launch.
+
+    ``table``: the device copy of ``link_table(links)`` (built once with the
+    geometry; made on the fly when absent)."""
+    _check_field("f", f)
+    table = _check_common(f, imult, links, p, wrap, table)
+    if f.device.type == "cpu":
+        return dss_scalar_plain(f, imult, links, p)
+    if f.device.type != "cuda":
+        raise ValueError(f"unsupported device {f.device}")
+    K, P, A, B = f.shape
+    lib = build.library("dss")
+    fn = lib.dss_scalar_f32 if f.dtype == torch.float32 else lib.dss_scalar_f64
+    with torch.cuda.device(f.device):
+        out = torch.empty_like(f)
+        err = fn(f.data_ptr(), imult.data_ptr(), table.data_ptr(),
+                 out.data_ptr(), K, P, A, B, p,
+                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"dss_scalar kernel launch failed "
+                           f"(cudaGetLastError = {err})")
+    launch_counts["dss_scalar"] += 1
+    return out
+
+
+def dss_vector(u, v, imult, rot, links, p: int, wrap=(False, False),
+               table=None):
+    """DSS of a covariant vector pair (K, P, A, B) x 2; one kernel launch."""
+    _check_field("u", u)
+    _check_field("v", v, ref=u)
+    table = _check_common(u, imult, links, p, wrap, table)
+    K, P, A, B = u.shape
+    if tuple(rot.shape) != (4, len(links), A) or rot.dtype != u.dtype \
+            or rot.device != u.device or not rot.is_contiguous():
+        raise ValueError("rot must be a contiguous (4, nlinks, A) tensor of "
+                         "the fields' dtype and device")
+    if u.device.type == "cpu":
+        return dss_vector_plain(u, v, imult, rot, links, p)
+    if u.device.type != "cuda":
+        raise ValueError(f"unsupported device {u.device}")
+    lib = build.library("dss")
+    fn = lib.dss_vector_f32 if u.dtype == torch.float32 else lib.dss_vector_f64
+    with torch.cuda.device(u.device):
+        uo = torch.empty_like(u)
+        vo = torch.empty_like(v)
+        err = fn(u.data_ptr(), v.data_ptr(), imult.data_ptr(),
+                 rot.data_ptr(), table.data_ptr(), uo.data_ptr(),
+                 vo.data_ptr(), K, P, A, B, p, len(links),
+                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"dss_vector kernel launch failed "
+                           f"(cudaGetLastError = {err})")
+    launch_counts["dss_vector"] += 1
+    return uo, vo

@@ -1,0 +1,775 @@
+"""Z-first engine: geometry, DSS, tendencies, Strang stepper.
+
+Counterpart of the JAX package's ``fast/engine.py``, for the cubed sphere
+on one device.  The execution shape is that package's:
+
+  state dict {U,V,Rt,W,Rho} of (6, A, B, nz[+1])
+    ->  fast state dict of (nz[+1], 6, A, B)   ("z-first")
+
+so that vertical column operators are clean leading-axis GEMMs, horizontal
+derivatives are dense block-diagonal (A, A) GEMMs over the whole field,
+DSS is one hand-written kernel per field (``fast/dss_cuda``), and the
+implicit solve ends in the hand-written banded kernel
+(``ops/cuda_banded``).  The step runs eagerly: there is no jit.
+
+Not ported yet (they wait in the roadmap, none is declared unnecessary):
+Cartesian grids and the (a, b)-swapped layout, tracers, the device-mesh
+engine, ``make_fast_multistep``, IMEX, and the fused stage / nu4 /
+implicit kernels with the (U, V, W) DSS that needs the fused stage.
+
+Where the JAX code writes ``x.at[i].set(v)``, this one writes in place on
+a fresh tensor (a clone or a new result), never on an argument.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from .._device import resolve_device, np_dtype
+from ..config import (ModelConfig, GridKind, VerticalStaggering,
+                      ExplicitSubScheme)
+from ..constants import PhysicalConstants
+from ..grid.geometry import CubedSphereGeometry
+from ..models import nonhydro
+from . import dss_cuda
+
+FIELDS = ("U", "V", "Rt", "Rho", "W")
+
+
+def pack_state(state, device=None):
+    """Reference layout (6,A,B,nz[+1]) -> z-first (nz[+1],6,A,B), as
+    contiguous tensors on ``device`` (default ``cuda``; raises when
+    absent).  Values may be tensors or numpy arrays; the dtype is kept."""
+    dev = resolve_device(device)
+    return {k: torch.as_tensor(state[k]).to(dev).movedim(-1, 0).contiguous()
+            for k in FIELDS}
+
+
+def unpack_state(d, nz: int = None):
+    """Z-first fast state -> reference-layout state dict (same device)."""
+    return {k: d[k].movedim(0, -1).contiguous() for k in FIELDS}
+
+
+def tree_map(f, *trees):
+    return {k: f(*(t[k] for t in trees)) for k in trees[0]}
+
+
+# ---------------------------------------------------------------------------
+# Fast geometry (host-precomputed, z-first layout)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class FastGeometry:
+    """Precomputed tensors for the z-first engine, all on one device
+    (plain object; closed over by the step functions)."""
+    nz: int
+    p: int
+    ne: int
+    A: int
+    vo: int
+    is_xz: bool
+    delta: float
+    reference_length: float
+    dss_links: tuple     # (panel, edge, nbr_panel, nbr_edge, flip) x 24
+    # dense (A, A) horizontal operators along the first (a) axis
+    DA: Any          # strong derivative: out_i = sum_s DA[i,s] f_s
+    Sd: Any          # stiffness/delta:   weak_div = -(Sd@fa + fb@Sd^T)
+    DA_elem: Any     # (p, p) raw GLL derivative matrix D[s, i]
+    S_elem: Any      # (p, p) raw stiffness matrix S[i, s]
+    # vertical column operators (same matrices as CubedSphereGeometry)
+    interp_n2i: Any
+    interp_i2n: Any
+    diff_n2n: Any
+    diff_n2i: Any
+    diff_i2n: Any
+    diff_i2i: Any
+    diffdiff_i2i: Any
+    penalty_left: Any
+    penalty_right: Any
+    wscat_left: Any
+    wscat_right: Any
+    # metric terms, z-first
+    c2_aa: Any       # (6, A, B)
+    c2_ab: Any
+    c2_ba: Any
+    c2_bb: Any
+    jac2d: Any       # (6, A, B)
+    fj: Any          # coriolis * jac2d (6, A, B)
+    inv_mult: Any    # (6, A, B)
+    jac3d: Any       # (nz, 6, A, B)
+    jac3d_int: Any   # (nz+1, 6, A, B)
+    con_a_xi: Any    # (nz, 6, A, B)
+    con_b_xi: Any
+    con_xi_xi: Any
+    con_a_xi_int: Any    # (nz+1, 6, A, B)
+    con_b_xi_int: Any
+    con_xi_xi_int: Any
+    deriv_r_a: Any   # (nz, 6, A, B)   dDaR on levels
+    deriv_r_b: Any
+    deriv_r_xi_int: Any  # (nz+1, 6, A, B) dDxR on interfaces
+    rayleigh_lev: Any
+    rayleigh_int: Any
+    e_rot: Any       # (4, 24, A): [r00, r01, r10, r11] covariant transform
+    dss_table: Any = None   # int32 (24, 4) device lookup of dss_links
+    #                       # (``dss_cuda.link_table``), read by the kernels
+    area3d: Any = None   # (nz, 6, A, B) z-first (tracer positivity filters)
+    # (B, B) operators along the second (b) axis — equal to DA/Sd on a
+    # square block; they differ when the engine runs on a rectangular
+    # per-device block of a sharded mesh (A, B are then LOCAL extents)
+    B: int = 0
+    DA_b: Any = None
+    Sd_b: Any = None
+    # Separable Gal-Chen metric factorization (``grid/geometry.py``
+    # vert_metric): con_a_xi[k] = s_k * Ca, con_b_xi[k] = s_k * Cb,
+    # con_xi_xi[k] = E + s_k^2 * F, deriv_r_a[k] = s_k * dZs/da,
+    # jac3d[k] = jacl (z-constant), with s = 1 - reta.  Lets the hot
+    # kernels read O(A*B) 2-D terrain fields + an O(nz) profile instead
+    # of full (nz, 6, A, B) metric tensors (kept for the fused kernels
+    # still to be ported; nothing on the current path reads them).
+    # ``sep_ok`` is set only after numerical verification at build.
+    sep_ok: bool = False
+    s_lev: Any = None     # (nz, 1)
+    s_int: Any = None     # (nz+1, 1)
+    # stacked [interp_n2i; diff_n2i]: the implicit prep reads U/V once
+    # for both operators
+    n2i_stack: Any = None         # (2*(nz+1), nz)
+    sep_ca: Any = None    # (6, A, B) each
+    sep_cb: Any = None
+    sep_e: Any = None
+    sep_f: Any = None
+    sep_da: Any = None
+    sep_db: Any = None
+    sep_jacl: Any = None
+    # grid family: 6 cubed-sphere panels with edge links (the Cartesian
+    # one-panel family with periodic wrap-sums is not ported yet; the
+    # fields are kept so the two FastGeometry classes stay field-compatible)
+    npanels: int = 6
+    wrap: tuple = (False, False)
+    xz_zero: str = None
+    ab_swapped: bool = False
+    nu_delta: float = None
+
+
+def _extract_separable_metric(geom):
+    """(s_lev, s_int, {2-D fields}) if the Gal-Chen factorization holds
+    numerically (relative residual < 1e-10 in fp64), else None."""
+    f64 = np.float64
+    jac = np.asarray(geom.jac3d, f64)          # (6, A, B, nz)
+    jac_i = np.asarray(geom.jac3d_int, f64)
+    if not (np.allclose(jac, jac[..., 0:1], rtol=1e-12, atol=0.0)
+            and np.allclose(jac_i, jac_i[..., 0:1], rtol=1e-12, atol=0.0)
+            and np.allclose(jac[..., 0], jac_i[..., 0], rtol=1e-12)):
+        return None
+    # s profiles from the deriv_r ratio at the point of max |dZs/da|;
+    # flat terrain -> all terrain metrics vanish identically
+    dr_a = np.asarray(geom.deriv_r, f64)[..., 0]       # (6, A, B, nz)
+    dr_a_i = np.asarray(geom.deriv_r_int, f64)[..., 0]
+    ca3 = np.asarray(geom.con_a_xi, f64)
+    cb3 = np.asarray(geom.con_b_xi, f64)
+    cx3 = np.asarray(geom.con_xi_xi, f64)
+    ca3_i = np.asarray(geom.con_a_xi_int, f64)
+    cb3_i = np.asarray(geom.con_b_xi_int, f64)
+    cx3_i = np.asarray(geom.con_xi_xi_int, f64)
+    dxr3 = np.asarray(geom.deriv_r_int, f64)[..., 2]   # (6, A, B, nz+1)
+    if not np.allclose(dxr3, dxr3[..., 0:1], rtol=1e-12, atol=0.0):
+        return None
+    dxr2 = dxr3[..., 0]                                # (6, A, B)
+
+    flat = np.argmax(np.abs(dr_a_i[..., 0]))
+    ij = np.unravel_index(flat, dr_a_i[..., 0].shape)
+    denom = dr_a_i[ij][0]
+    if abs(denom) < 1e-14:
+        # flat terrain: all terrain metrics vanish
+        s_lev = np.zeros(ca3.shape[-1])
+        s_int = np.zeros(ca3_i.shape[-1])
+        if (np.abs(ca3).max() > 0 or np.abs(cb3).max() > 0
+                or np.abs(dr_a).max() > 0):
+            return None
+        zero2 = np.zeros(dxr2.shape)
+        two_d = dict(sep_ca=zero2, sep_cb=zero2,
+                     sep_e=1.0 / (dxr2 * dxr2), sep_f=zero2,
+                     sep_da=zero2, sep_db=zero2, sep_jacl=jac[..., 0])
+        # con_xi_xi must then be exactly E on every level
+        if not (np.allclose(cx3, (1.0 / (dxr2 * dxr2))[..., None],
+                            rtol=1e-10)
+                and np.allclose(cx3_i, (1.0 / (dxr2 * dxr2))[..., None],
+                                rtol=1e-10)):
+            return None
+        return s_lev, s_int, two_d
+
+    s_int = dr_a_i[ij] / denom                         # (nz+1,), s[0]-normed
+    s_lev = dr_a[ij] / denom
+    k0 = 0                                             # reference interface
+    ca2 = ca3_i[..., k0] / s_int[k0]
+    cb2 = cb3_i[..., k0] / s_int[k0]
+    da2 = dr_a_i[..., k0] / s_int[k0]
+    db2 = np.asarray(geom.deriv_r_int, f64)[..., 1][..., k0] / s_int[k0]
+    e2 = 1.0 / (dxr2 * dxr2)
+    f2 = -(ca2 * da2 + cb2 * db2) / dxr2
+
+    def ok(full, recon):
+        scale = np.abs(full).max() + 1e-300
+        return np.abs(full - recon).max() <= 1e-10 * max(scale, 1e-30)
+
+    sl = s_lev.reshape((1, 1, 1, -1))
+    si = s_int.reshape((1, 1, 1, -1))
+    if not (ok(ca3, sl * ca2[..., None]) and ok(ca3_i, si * ca2[..., None])
+            and ok(cb3, sl * cb2[..., None])
+            and ok(cb3_i, si * cb2[..., None])
+            and ok(cx3, e2[..., None] + sl * sl * f2[..., None])
+            and ok(cx3_i, e2[..., None] + si * si * f2[..., None])
+            and ok(dr_a, sl * da2[..., None])
+            and ok(np.asarray(geom.deriv_r, f64)[..., 1],
+                   sl * db2[..., None])):
+        return None
+    two_d = dict(sep_ca=ca2, sep_cb=cb2, sep_e=e2, sep_f=f2,
+                 sep_da=da2, sep_db=db2, sep_jacl=jac[..., 0])
+    return s_lev, s_int, two_d
+
+
+def build_fast_geometry(geom: CubedSphereGeometry,
+                        dtype=torch.float32, device=None) -> FastGeometry:
+    """Z-first engine geometry as tensors on ``device`` (default ``cuda``;
+    raises when absent).  All arithmetic is host numpy float64; only the
+    final cast builds tensors."""
+    dev = resolve_device(device)
+    npdt = np_dtype(dtype)
+    nz, p, ne = geom.nz, geom.p, geom.ne
+    A = ne * p
+    f64 = np.float64
+
+    D = np.asarray(geom.deriv, f64)
+    S = np.asarray(geom.stiff, f64)
+    delta = float(geom.delta)
+    DA = np.kron(np.eye(ne), D.T) / delta
+    Sd = np.kron(np.eye(ne), S) / delta
+
+    def c(a):
+        return torch.as_tensor(np.ascontiguousarray(a, dtype=npdt),
+                               device=dev)
+
+    def zf(a):
+        return c(np.moveaxis(np.asarray(a, f64), -1, 0))
+
+    n_edges = len(geom.edge_meta)
+    e_rot = np.zeros((4, n_edges, A), f64)
+    mats = np.asarray(geom.edge_mats, f64)          # (6, 4, A, 2, 2)
+    for i, (pa, e, qa, qe, flip) in enumerate(geom.edge_meta):
+        M = mats[pa, e]                              # (A, 2, 2)
+        e_rot[0, i] = M[:, 0, 0]
+        e_rot[1, i] = M[:, 0, 1]
+        e_rot[2, i] = M[:, 1, 0]
+        e_rot[3, i] = M[:, 1, 1]
+
+    con2d = np.asarray(geom.con2d, f64)
+    cor = np.asarray(geom.coriolis, f64)
+    j2 = np.asarray(geom.jac2d, f64)
+
+    n2i_stack = np.concatenate([np.asarray(geom.interp_n2i, f64),
+                                np.asarray(geom.diff_n2i, f64)], axis=0)
+
+    # --- separable-metric extraction (verified numerically) -----------
+    sep = _extract_separable_metric(geom)
+    sep_fields = {}
+    if sep is not None:
+        s_lev, s_int, two_d = sep
+        sep_fields = dict(
+            sep_ok=True,
+            s_lev=c(s_lev.reshape(-1, 1)),
+            s_int=c(s_int.reshape(-1, 1)),
+            **{k: c(v) for k, v in two_d.items()})
+
+    return FastGeometry(
+        **sep_fields,
+        n2i_stack=c(n2i_stack),
+        nz=nz, p=p, ne=ne, A=A, B=A, vo=geom.vo, is_xz=False, delta=delta,
+        reference_length=float(geom.reference_length),
+        dss_links=tuple(geom.edge_meta),
+        DA=c(DA), Sd=c(Sd), DA_b=c(DA), Sd_b=c(Sd), DA_elem=D, S_elem=S,
+        interp_n2i=c(geom.interp_n2i), interp_i2n=c(geom.interp_i2n),
+        diff_n2n=c(geom.diff_n2n), diff_n2i=c(geom.diff_n2i),
+        diff_i2n=c(geom.diff_i2n), diff_i2i=c(geom.diff_i2i),
+        diffdiff_i2i=c(geom.diffdiff_i2i),
+        penalty_left=(None if geom.penalty_left is None
+                      else c(geom.penalty_left)),
+        penalty_right=(None if geom.penalty_right is None
+                       else c(geom.penalty_right)),
+        wscat_left=(None if geom.wscat_left is None
+                    else c(geom.wscat_left)),
+        wscat_right=(None if geom.wscat_right is None
+                     else c(geom.wscat_right)),
+        c2_aa=c(con2d[..., 0, 0]), c2_ab=c(con2d[..., 0, 1]),
+        c2_ba=c(con2d[..., 1, 0]), c2_bb=c(con2d[..., 1, 1]),
+        jac2d=c(j2), fj=c(cor * j2),
+        inv_mult=c(geom.inv_mult),
+        jac3d=zf(geom.jac3d), jac3d_int=zf(geom.jac3d_int),
+        con_a_xi=zf(geom.con_a_xi), con_b_xi=zf(geom.con_b_xi),
+        con_xi_xi=zf(geom.con_xi_xi),
+        con_a_xi_int=zf(geom.con_a_xi_int),
+        con_b_xi_int=zf(geom.con_b_xi_int),
+        con_xi_xi_int=zf(geom.con_xi_xi_int),
+        area3d=zf(geom.area3d),
+        deriv_r_a=zf(np.asarray(geom.deriv_r, f64)[..., 0]),
+        deriv_r_b=zf(np.asarray(geom.deriv_r, f64)[..., 1]),
+        deriv_r_xi_int=zf(np.asarray(geom.deriv_r_int, f64)[..., 2]),
+        rayleigh_lev=zf(geom.rayleigh_lev),
+        rayleigh_int=zf(geom.rayleigh_int),
+        e_rot=c(e_rot),
+        dss_table=torch.as_tensor(dss_cuda.link_table(geom.edge_meta),
+                                  device=dev),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Horizontal operators (dense (A, A), z-batched)
+# ---------------------------------------------------------------------------
+
+# Written as broadcast matmuls, not einsums: ``DA @ f`` contracts the a axis
+# and ``f @ DA_b^T`` the b axis, and both return CONTIGUOUS (K, P, A, B)
+# results (an einsum may hand back a permuted view, which the DSS kernels
+# refuse).
+
+def hderiv_a(f, fg: FastGeometry):
+    return torch.matmul(fg.DA, f)
+
+
+def hderiv_b(f, fg: FastGeometry):
+    return torch.matmul(f, fg.DA_b.T)
+
+
+def hweak_div(fa, fb, fg: FastGeometry):
+    """Variational divergence (positive = divergence)."""
+    wa = torch.matmul(fg.Sd, fa)
+    wb = torch.matmul(fb, fg.Sd_b.T)
+    return -(wa + wb)
+
+
+def hweak_grad(f, fg: FastGeometry):
+    """(-Sd @ f, -f @ Sd^T): weak gradients along a and b."""
+    return (-torch.matmul(fg.Sd, f), -torch.matmul(f, fg.Sd_b.T))
+
+
+def colop(M, f):
+    """Vertical column operator over the leading z axis: one
+    ``(K, L) @ (L, rest)`` product on the flattened trailing axes (a view
+    of a contiguous field)."""
+    return (M @ f.reshape(f.shape[0], -1)).reshape(
+        (M.shape[0],) + tuple(f.shape[1:]))
+
+
+# ---------------------------------------------------------------------------
+# DSS (hand-written kernels; see fast/dss_cuda.py)
+# ---------------------------------------------------------------------------
+
+def apply_dss(d, fg: FastGeometry, rayleigh=None, plain: bool = False):
+    """DSS of the full fast state (U/V rotate as a covariant pair).
+
+    Four launches (vector pair + 3 scalars), the JAX package's unfused
+    branch.  Whether one launch for all five fields is faster on this card
+    is not measured yet (``dss_state`` waits in the roadmap).
+
+    ``plain=True`` runs the kernels' plain PyTorch versions whatever the
+    device: it exists so that a run can hold the kernel path against the
+    plain path on the card.  The default launches the kernels for CUDA
+    tensors (or raises) and runs the plain versions for CPU tensors."""
+    if plain:
+        u, v = dss_cuda.dss_vector_plain(d["U"], d["V"], fg.inv_mult,
+                                         fg.e_rot, fg.dss_links, fg.p)
+        out = {"U": u, "V": v}
+        for k in ("W", "Rt", "Rho"):
+            out[k] = dss_cuda.dss_scalar_plain(d[k], fg.inv_mult,
+                                               fg.dss_links, fg.p)
+    else:
+        u, v = dss_cuda.dss_vector(d["U"], d["V"], fg.inv_mult, fg.e_rot,
+                                   fg.dss_links, fg.p, wrap=fg.wrap,
+                                   table=fg.dss_table)
+        out = {"U": u, "V": v}
+        for k in ("W", "Rt", "Rho"):
+            out[k] = dss_cuda.dss_scalar(d[k], fg.inv_mult, fg.dss_links,
+                                         fg.p, wrap=fg.wrap,
+                                         table=fg.dss_table)
+    if rayleigh is not None:
+        out = apply_rayleigh(out, *rayleigh)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Nonhydrostatic tendencies (LOR staggering)
+# ---------------------------------------------------------------------------
+
+def horizontal_tendency(d, fg: FastGeometry, constants: PhysicalConstants):
+    """Horizontal tendencies of the five fields (LOR staggering), with the
+    vertical penalty upwinding of U/V folded into the U/V rows."""
+    nz = fg.nz
+    u, v = d["U"], d["V"]
+    rt, rho, w = d["Rt"], d["Rho"], d["W"]
+
+    w_n = colop(fg.interp_i2n, w)
+
+    c_aa, c_ab = fg.c2_aa[None], fg.c2_ab[None]
+    c_ba, c_bb = fg.c2_ba[None], fg.c2_bb[None]
+    con_ua = c_aa * u + c_ab * v + fg.con_a_xi * w_n
+    con_ub = c_ba * u + c_bb * v + fg.con_b_xi * w_n
+    con_ux = fg.con_a_xi * u + fg.con_b_xi * v + fg.con_xi_xi * w_n
+
+    ke = 0.5 * (con_ua * u + con_ub * v + con_ux * w_n)
+    exner = nonhydro.exner_from_rhotheta(rt, constants)
+
+    du_dxi = colop(fg.diff_n2n, u)
+    dv_dxi = colop(fg.diff_n2n, v)
+
+    dv_da = hderiv_a(v, fg)
+    du_db = hderiv_b(u, fg)
+    dwn_da = hderiv_a(w_n, fg)
+    dwn_db = hderiv_b(w_n, fg)
+
+    jzeta_a = dwn_db - dv_dxi
+    jzeta_b = du_dxi - dwn_da
+    jzeta_x = dv_da - du_db
+
+    ucz_a = con_ub * jzeta_x - con_ux * jzeta_b
+    ucz_b = con_ux * jzeta_a - con_ua * jzeta_x
+    ucz_x = -con_ua * dwn_da - con_ub * dwn_db
+
+    base_a = fg.jac3d * con_ua
+    base_b = fg.jac3d * con_ub
+    div_rho = hweak_div(base_a * rho, base_b * rho, fg)
+    div_rt = hweak_div(base_a * rt, base_b * rt, fg)
+
+    dke_a = hderiv_a(ke, fg)
+    dke_b = hderiv_b(ke, fg)
+    dpi_a = hderiv_a(exner, fg)
+    dpi_b = hderiv_b(exner, fg)
+
+    theta = rt / rho
+    fj = fg.fj[None]
+
+    dU = (ucz_a + fj * con_ub
+          - (dpi_a * theta + dke_a + constants.g * fg.deriv_r_a))
+    dV = (ucz_b - fj * con_ua
+          - (dpi_b * theta + dke_b + constants.g * fg.deriv_r_b))
+    dRho = -div_rho / fg.jac3d
+    dRt = -div_rt / fg.jac3d
+
+    dW = colop(fg.interp_n2i, ucz_x)      # a fresh tensor
+    dW[0] = 0.0                           # written in place
+    dW[-1] = 0.0
+
+    # --- vertical explicit penalty upwinding of U/V (per unit dt) --------
+    u_i = colop(fg.interp_n2i, u)
+    v_i = colop(fg.interp_n2i, v)
+    xid = (fg.con_a_xi_int * u_i + fg.con_b_xi_int * v_i
+           + fg.con_xi_xi_int * w)
+    xid[0] = 0.0                          # xid is a fresh tensor
+    xid[-1] = 0.0
+    vo = fg.vo
+    if fg.penalty_left is not None and nz // vo > 1:
+        wb = torch.abs(xid[vo:nz:vo])                        # (nfe-1, ...)
+        wl = colop(fg.wscat_left, wb)
+        wr = colop(fg.wscat_right, wb)
+        dU = dU + colop(fg.penalty_left, u) * wl \
+            + colop(fg.penalty_right, u) * wr
+        dV = dV + colop(fg.penalty_left, v) * wl \
+            + colop(fg.penalty_right, v) * wr
+
+    return {"U": dU, "V": dV, "Rt": dRt, "Rho": dRho, "W": dW}
+
+
+def apply_w_boundary(d, fg: FastGeometry):
+    """Diagnostic bottom W from u^xi(surface) = 0.  Writes row 0 of
+    ``d["W"]`` IN PLACE: the caller passes a state it has just made."""
+    u0 = colop(fg.interp_n2i[0:1], d["U"])[0]
+    v0 = colop(fg.interp_n2i[0:1], d["V"])[0]
+    w0 = -(fg.con_a_xi_int[0] * u0 + fg.con_b_xi_int[0] * v0) \
+        / fg.con_xi_xi_int[0]
+    d["W"][0] = w0
+    return d
+
+
+# ---------------------------------------------------------------------------
+# Hyperdiffusion tail (nu4 / nu2)
+# ---------------------------------------------------------------------------
+
+def scalar_laplacian(f, jac, fg: FastGeometry):
+    da = hderiv_a(f, fg)
+    db = hderiv_b(f, fg)
+    c_aa, c_ab = fg.c2_aa[None], fg.c2_ab[None]
+    c_ba, c_bb = fg.c2_ba[None], fg.c2_bb[None]
+    ga = jac * (c_aa * da + c_ab * db)
+    gb = jac * (c_ba * da + c_bb * db)
+    return hweak_div(ga, gb, fg) / jac
+
+
+def vector_hyperdiff_update(u, v, nu_div, nu_vort, fg: FastGeometry):
+    c_aa, c_ab = fg.c2_aa[None], fg.c2_ab[None]
+    c_ba, c_bb = fg.c2_ba[None], fg.c2_bb[None]
+    j2 = fg.jac2d[None]
+    con_u = c_aa * u + c_ab * v
+    con_v = c_ba * u + c_bb * v
+    div = (hderiv_a(j2 * con_u, fg) + hderiv_b(j2 * con_v, fg)) / j2
+    curl = (hderiv_a(v, fg) - hderiv_b(u, fg)) / j2
+    wda_div, wdb_div = hweak_grad(div, fg)
+    wda_curl, wdb_curl = hweak_grad(curl, fg)
+    du = nu_div * wda_div - nu_vort * j2 * (
+        c_ba * wda_curl + c_bb * wdb_curl)
+    dv = nu_div * wdb_div + nu_vort * j2 * (
+        c_aa * wda_curl + c_ab * wdb_curl)
+    return du, dv
+
+
+def apply_rayleigh(d, fac, ref_term):
+    """X <- fac * X + (1 - fac) * Xref with ref_term = (1 - fac) * Xref.
+    fac has Rho rows = 1, so Rho is never damped."""
+    return tree_map(lambda x, f, r: f * x + r, d, fac, ref_term)
+
+
+def step_after_subcycle(d, dt, cfg: ModelConfig, fg: FastGeometry,
+                        rayleigh=None, dss_fn=None):
+    """nu4/nu2 hyperviscosity + DSS (+ optional Rayleigh) Strang tail.
+
+    ``dss_fn(d, rayleigh=None)``: full-state DSS with an optional Rayleigh
+    finish."""
+    if dss_fn is None:
+        dss_fn = lambda ds, rayleigh=None: apply_dss(ds, fg, rayleigh)
+
+    if not cfg.hyperdiffusion or (
+            cfg.nu_scalar == 0 and cfg.nu_div == 0 and cfg.nu_vort == 0):
+        out = d
+        if rayleigh is not None:
+            out = dict(out, **apply_rayleigh(
+                {k: out[k] for k in FIELDS}, *rayleigh))
+        return out
+
+    scale = ((fg.nu_delta if fg.nu_delta is not None else fg.delta)
+             / fg.reference_length) ** 3.2 \
+        if cfg.hypervis_order == 4 else 1.0
+    nu_s = cfg.nu_scalar * scale
+    nu_d = cfg.nu_div * scale
+    nu_v = cfg.nu_vort * scale
+
+    if cfg.hypervis_order == 2:
+        du, dv = vector_hyperdiff_update(
+            d["U"], d["V"], cfg.nu_div, cfg.nu_vort, fg)
+        out = {
+            "U": d["U"] - dt * du, "V": d["V"] - dt * dv,
+            "Rt": d["Rt"] + dt * nu_s * scalar_laplacian(
+                d["Rt"], fg.jac3d, fg),
+            "Rho": d["Rho"] + dt * nu_s * scalar_laplacian(
+                d["Rho"], fg.jac3d, fg),
+            "W": d["W"] + dt * nu_s * scalar_laplacian(
+                d["W"], fg.jac3d_int, fg),
+        }
+        return dss_fn(out, rayleigh=rayleigh)
+
+    # order 4: Lap pass -> DSS -> -dt * nu_local * Lap pass -> DSS
+    wu, wv = vector_hyperdiff_update(d["U"], d["V"], 1.0, 1.0, fg)
+    work = {
+        "U": -wu, "V": -wv,
+        "Rt": scalar_laplacian(d["Rt"], fg.jac3d, fg),
+        "Rho": scalar_laplacian(d["Rho"], fg.jac3d, fg),
+        "W": scalar_laplacian(d["W"], fg.jac3d_int, fg),
+    }
+    work = dss_fn(work)
+
+    du, dv = vector_hyperdiff_update(work["U"], work["V"], nu_d, nu_v, fg)
+    out = {
+        "U": d["U"] + dt * du, "V": d["V"] + dt * dv,
+        "Rt": d["Rt"] - dt * nu_s * scalar_laplacian(
+            work["Rt"], fg.jac3d, fg),
+        "Rho": d["Rho"] - dt * nu_s * scalar_laplacian(
+            work["Rho"], fg.jac3d, fg),
+        "W": d["W"] - dt * nu_s * scalar_laplacian(
+            work["W"], fg.jac3d_int, fg),
+    }
+    return dss_fn(out, rayleigh=rayleigh)
+
+
+# ---------------------------------------------------------------------------
+# Strang-HEVI stepper
+# ---------------------------------------------------------------------------
+
+def fast_engine_supported(cfg: ModelConfig, has_tracers: bool = False,
+                          mesh=None, geom=None) -> bool:
+    """The configurations this engine covers: the cubed sphere on one
+    device, LOR staggering, Strang-HEVI, no tracers.  (The JAX package's
+    engine also covers periodic Cartesian grids, tracers and a device
+    mesh; those wait in the roadmap.)"""
+    from ..config import TimestepSchemeType
+    return (cfg.grid_kind == GridKind.CUBED_SPHERE
+            and mesh is None and not has_tracers
+            and cfg.vertical_staggering == VerticalStaggering.LORENZ
+            and cfg.timescheme == TimestepSchemeType.STRANG
+            and not cfg.explicit_vertical
+            and cfg.vertical_solver in ("banded", "pallas")
+            and cfg.nu_uniform_scalar == 0.0
+            and cfg.nu_uniform_vector == 0.0
+            and cfg.upwind_thermo)
+
+
+def _rayleigh_terms(cfg: ModelConfig, geom, ref_state, fg):
+    """(fac, ref_term) z-first damping tensors on the device of ``fg``, or
+    None (host precompute; the reference's 10-cycle implicit Rayleigh
+    factor).  ``ref_state``: reference-layout dict of tensors or arrays."""
+    if not (cfg.rayleigh_damping and ref_state is not None):
+        return None
+    n_cycles = 10
+    dt = cfg.dt
+    dev = fg.inv_mult.device
+
+    def fac_of(r):
+        f = (1.0 / (1.0 + dt * np.asarray(r, np.float64)
+                    / n_cycles)) ** n_cycles
+        return np.moveaxis(f, -1, 0)
+
+    fac_lev = fac_of(geom.rayleigh_lev)
+    fac_int = fac_of(geom.rayleigh_int)
+    fac = {"U": fac_lev, "V": fac_lev, "Rt": fac_lev,
+           "Rho": np.ones_like(fac_lev), "W": fac_int}
+    npdt = np_dtype(cfg.dtype)
+    fac = {k: torch.as_tensor(np.ascontiguousarray(v, dtype=npdt), device=dev)
+           for k, v in fac.items()}
+    ref_zf = pack_state({k: torch.as_tensor(v).to(cfg.dtype)
+                         for k, v in ref_state.items()}, device=dev)
+    ref_term = tree_map(lambda f, r: (1.0 - f) * r, fac, ref_zf)
+    return (fac, ref_term)
+
+
+def _strang_fns(cfg: ModelConfig, fg: FastGeometry, rayleigh, dss_fn,
+                implicit_fn):
+    """The Strang-HEVI step on z-first state, parameterized over the DSS
+    and implicit-solve implementations.
+
+    Returns (first_fn, step_fn): first_fn(d) -> (d, carry),
+    step_fn(d, carry) -> (d, carry).  Neither changes its arguments.
+    """
+    constants = cfg.constants
+    dt = cfg.dt
+    oc = cfg.off_centering
+
+    def axpy(base, tend, dt_s):
+        return tree_map(lambda b, t: b + dt_s * t, base, tend)
+
+    def comb(*coeff_states):
+        coeffs, states = zip(*coeff_states)
+        return tree_map(
+            lambda *xs: sum(c * x for c, x in zip(coeffs, xs)), *states)
+
+    def stage(base, ueval, dt_s):
+        """base: state dict or 2-term ((c1, d1), (c2, d2)) combination."""
+        bb = comb(*base) if isinstance(base, tuple) else base
+        tend = horizontal_tendency(ueval, fg, constants)
+        upd = axpy({k: bb[k] for k in FIELDS}, tend, dt_s)   # fresh tensors
+        upd = apply_w_boundary(upd, fg)
+        return dss_fn(upd)
+
+    def erk(X0):
+        scheme = cfg.explicit_scheme
+        if scheme == ExplicitSubScheme.FORWARD_EULER:
+            return stage(X0, X0, dt)
+        if scheme == ExplicitSubScheme.RK4:
+            u1 = stage(X0, X0, 0.5 * dt)
+            u2 = stage(X0, u1, 0.5 * dt)
+            u3 = stage(X0, u2, dt)
+            base = comb((-1.0 / 3.0, X0), (1.0 / 3.0, u1),
+                        (2.0 / 3.0, u2), (1.0 / 3.0, u3))
+            return stage(base, u3, dt / 6.0)
+        if scheme == ExplicitSubScheme.SSPRK3:
+            u1 = stage(X0, X0, dt)
+            u2 = stage(((0.75, X0), (0.25, u1)), u1, 0.25 * dt)
+            return stage(((1.0 / 3.0, X0), (2.0 / 3.0, u2)),
+                         u2, 2.0 * dt / 3.0)
+        if scheme == ExplicitSubScheme.KGU35:
+            u1 = stage(X0, X0, dt / 5.0)
+            u2 = stage(X0, u1, dt / 5.0)
+            u3 = stage(X0, u2, dt / 3.0)
+            u2b = stage(X0, u3, 2.0 * dt / 3.0)
+            return stage(((-0.25, X0), (1.25, u1)), u2b, 0.75 * dt)
+        if scheme == ExplicitSubScheme.SSPRK53:
+            c1 = 0.377268915331368
+            c3 = 0.242995220537396
+            c4 = 0.238458932846290
+            c5 = 0.287632146308408
+            u1 = stage(X0, X0, c1 * dt)
+            u2 = stage(u1, u1, c1 * dt)
+            u3 = stage(((0.355909775063327, X0),
+                        (0.644090224936674, u2)), u2, c3 * dt)
+            u0b = stage(((0.367933791638137, X0),
+                         (0.632066208361863, u3)), u3, c4 * dt)
+            return stage(((0.762406163401431, u0b),
+                          (0.237593836598569, u2)), u0b, c5 * dt)
+        raise ValueError(f"unsupported explicit scheme {scheme}")
+
+    def tail(X):
+        u4 = erk(X)
+        u1 = step_after_subcycle(u4, dt, cfg, fg, rayleigh=rayleigh,
+                                 dss_fn=dss_fn)
+        u0 = implicit_fn(u1, 0.5 * (1.0 + oc) * dt)
+        if oc != 0.0:
+            u0 = comb((0.5 * (2.0 - oc), u0), (0.5 * oc, u1))
+        # the LOR implicit solve only updates (Rt, W, Rho); U and V pass
+        # through unchanged, so the Strang carryover is identically zero
+        # there — carry only the updated fields (the reference carries 5
+        # instance buffers; two are provably no-ops)
+        carry = {k: u0[k] - u1[k] for k in ("Rt", "W", "Rho")}
+        return u0, carry
+
+    def first_fn(d):
+        return tail(implicit_fn(d, 0.5 * dt))
+
+    def step_fn(d, carry):
+        X0 = dict(d)
+        for k in carry:
+            X0[k] = d[k] + carry[k]
+        return tail(X0)
+
+    return first_fn, step_fn
+
+
+def make_fast_step(cfg: ModelConfig, geom: CubedSphereGeometry,
+                   ref_state=None, mesh=None, ntracers: int = 0,
+                   device=None, plain: bool = False):
+    """(first_step, step) on the fast state: step(d, carry) -> (d, carry).
+
+    The state tensors must lie on ``device`` (default ``cuda``; raises when
+    absent).  The step runs eagerly.  With ``cfg.vertical_solver ==
+    "pallas"`` the implicit solve goes through the hand-written banded
+    kernel; the DSS always goes through the hand-written DSS kernels.
+    ``plain=True`` swaps every kernel for its plain PyTorch version on the
+    same device (a check of the kernel path, not a fallback: nothing
+    selects it automatically).
+    """
+    from . import implicit as fimp
+
+    if mesh is not None or ntracers:
+        raise NotImplementedError(
+            "the device-mesh engine and tracers are not ported yet")
+    if not fast_engine_supported(cfg):
+        raise NotImplementedError(
+            "configuration outside the z-first engine's envelope "
+            "(see fast_engine_supported)")
+    dev = resolve_device(device)
+    constants = cfg.constants
+    fg = build_fast_geometry(geom, dtype=cfg.dtype, device=dev)
+
+    q = nonhydro.estimate_bandwidth(geom, constants)
+    statics = fimp.statics_to_device(
+        nonhydro.band_assembly_statics(geom, q), cfg.dtype, dev)
+    use_pallas = cfg.vertical_solver == "pallas"
+    rayleigh = _rayleigh_terms(cfg, geom, ref_state, fg)
+    saux = fimp.static_aux(fg)
+
+    def implicit_fn(d, dti):
+        return fimp.vertical_implicit(
+            d, fg, constants, dti, q, statics,
+            newton_iters=cfg.newton_iterations, use_pallas=use_pallas,
+            ref_jacobian=(cfg.jacobian_mode == "reference"), saux=saux,
+            plain=plain)
+
+    return _strang_fns(
+        cfg, fg, rayleigh,
+        lambda d, rayleigh=None: apply_dss(d, fg, rayleigh, plain=plain),
+        implicit_fn)

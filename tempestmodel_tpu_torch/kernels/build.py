@@ -1,0 +1,131 @@
+"""Build and load the hand-written CUDA kernels under ``csrc/``.
+
+Each ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
+shared library under ``tempestmodel_tpu_torch/_build/`` (a git-ignored
+directory) at first use, keyed by a hash of all the sources and the flags,
+and loaded with ``ctypes``.  The sources include no PyTorch header (a plain
+C interface), so a build takes seconds; all sources compile in parallel.
+Only the sources in the package are built and nothing is downloaded.
+
+Nothing here runs at import: the first kernel launch (or an explicit
+``build_all()``) triggers the build.  A build or load failure raises — no
+caller gives way to a plain PyTorch version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+
+_PKG = pathlib.Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_PTR = ctypes.c_void_p
+_INT = ctypes.c_int
+_I64 = ctypes.c_longlong
+
+# C entry points of each source: name -> argtypes (every one returns int,
+# the value of cudaGetLastError()).  Pointers and the stream are c_void_p:
+# without argtypes ctypes would pass them as 32-bit ints and cut them.
+_DSS_SCALAR = [_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _PTR]
+_DSS_VECTOR = [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
+               _INT, _INT, _INT, _INT, _INT, _INT, _PTR]
+_BANDED = [_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _I64, _INT, _PTR]
+SIGNATURES = {
+    "dss": {"dss_scalar_f32": _DSS_SCALAR, "dss_scalar_f64": _DSS_SCALAR,
+            "dss_vector_f32": _DSS_VECTOR, "dss_vector_f64": _DSS_VECTOR},
+    "banded": {"banded_solve_f32": _BANDED, "banded_solve_f64": _BANDED},
+}
+
+_libs: dict = {}      # source stem -> loaded ctypes library (per process)
+
+
+def nvcc_path() -> str:
+    exe = shutil.which("nvcc")
+    if exe:
+        return exe
+    for home in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
+                 "/usr/local/cuda"):
+        if home and (pathlib.Path(home) / "bin" / "nvcc").exists():
+            return str(pathlib.Path(home) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found (looked on PATH, $CUDA_HOME, "
+                       "/usr/local/cuda): the CUDA kernels cannot be built")
+
+
+def sources() -> list:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _lib_path(stem: str, tag: str) -> pathlib.Path:
+    return BUILD_DIR / f"lib{stem}-{tag}.so"
+
+
+def build_all(verbose: bool = False) -> dict:
+    """Compile every source that has no up-to-date library (one ``nvcc``
+    per source, all started together), load them all, and return
+    ``{"seconds": wall time of the compile, "built": [stems compiled now],
+    "libraries": [paths]}``."""
+    tag = _source_hash()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = []
+    for src in sources():
+        out = _lib_path(src.stem, tag)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(src)]
+        procs.append((src.stem, tmp, out, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failures = []
+    for stem, tmp, out, cmd, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"{' '.join(cmd)}\n{log}")
+            continue
+        os.replace(tmp, out)          # atomic: a reader never sees half a file
+        if verbose:
+            print(f"[build] {stem}:\n{log}", flush=True)
+    if failures:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
+    seconds = time.perf_counter() - t0
+    for src in sources():
+        _load(src.stem, tag)
+    return {"seconds": seconds, "built": [p[0] for p in procs],
+            "libraries": [str(_lib_path(s.stem, tag)) for s in sources()]}
+
+
+def _load(stem: str, tag: str):
+    if stem in _libs:
+        return _libs[stem]
+    lib = ctypes.CDLL(str(_lib_path(stem, tag)))
+    for name, argtypes in SIGNATURES[stem].items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    _libs[stem] = lib
+    return lib
+
+
+def library(stem: str):
+    """The loaded library of ``csrc/<stem>.cu``, building first if needed."""
+    if stem not in _libs:
+        build_all()
+    return _libs[stem]

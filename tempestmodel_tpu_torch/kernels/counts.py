@@ -1,0 +1,15 @@
+"""Launch counts of the hand-written kernels.
+
+Each wrapper adds one to its entry exactly where it launches its kernel and
+nowhere else, so a run can show that a path went through the kernels
+(``chip_smoke.py`` sets the counts to 0 before the flagship steps and reads
+them after)."""
+
+from __future__ import annotations
+
+launch_counts = {"dss_scalar": 0, "dss_vector": 0, "banded_solve": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0

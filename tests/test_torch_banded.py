@@ -1,0 +1,116 @@
+"""The port's plain banded solve vs the JAX Pallas kernel (interpret mode)
+and vs a dense solve; the wrapper's checks; the CUDA kernel on a card."""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from tempestmodel_tpu.ops.pallas_banded import banded_solve_pallas
+from tempestmodel_tpu_torch.ops import cuda_banded
+from tempestmodel_tpu_torch.kernels.counts import launch_counts
+
+
+def _random_banded(n, q, ncol, seed=0):
+    """Diagonally dominant banded systems, (n, 2q+1, ncol), numpy."""
+    rng = np.random.default_rng(seed)
+    b = 2 * q + 1
+    bands = rng.standard_normal((n, b, ncol))
+    bands[:, q, :] += 2.0 * b
+    rows = np.arange(n)
+    for d in range(b):
+        col = rows + d - q
+        bands[(col < 0) | (col >= n), d, :] = 0.0
+    return bands, rng.standard_normal((n, ncol))
+
+
+def _dense_solve(bands, rhs, q):
+    n, b, ncol = bands.shape
+    X = np.zeros((n, ncol))
+    for c in range(ncol):
+        A = np.zeros((n, n))
+        for d in range(b):
+            for i in range(n):
+                j = i + d - q
+                if 0 <= j < n:
+                    A[i, j] = bands[i, d, c]
+        X[:, c] = np.linalg.solve(A, rhs[:, c])
+    return X
+
+
+# ncol = 24 divides the Pallas column tile; 21 is ragged for the port
+@pytest.mark.parametrize("q,ncol", [(1, 24), (2, 24), (4, 24), (4, 21)])
+def test_plain_banded_matches_pallas_and_dense(q, ncol):
+    n = 3 * 10 + 1
+    bands, rhs = _random_banded(n, q, ncol, seed=q)
+    x = cuda_banded.banded_solve_plain(
+        torch.from_numpy(bands), torch.from_numpy(rhs), q).numpy()
+    np.testing.assert_allclose(x, _dense_solve(bands, rhs, q),
+                               rtol=1e-10, atol=1e-12)
+    if ncol % 8 == 0:
+        x_pl = np.asarray(banded_solve_pallas(
+            jnp.asarray(bands), jnp.asarray(rhs), q, col_tile=8,
+            interpret=True))
+        np.testing.assert_allclose(x, x_pl, rtol=1e-10, atol=1e-12)
+
+
+def test_wrapper_runs_plain_on_cpu_and_counts_nothing():
+    bands, rhs = _random_banded(13, 2, 7)
+    tb, tr = torch.from_numpy(bands), torch.from_numpy(rhs)
+    before = launch_counts["banded_solve"]
+    x = cuda_banded.banded_solve(tb, tr, 2)
+    assert launch_counts["banded_solve"] == before
+    torch.testing.assert_close(
+        x, cuda_banded.banded_solve_plain(tb, tr, 2), rtol=0, atol=0)
+
+
+def test_wrapper_float32_on_cpu():
+    bands, rhs = _random_banded(16, 4, 9)
+    x = cuda_banded.banded_solve(torch.from_numpy(bands).float(),
+                                 torch.from_numpy(rhs).float(), 4)
+    assert x.dtype == torch.float32
+    np.testing.assert_allclose(x.numpy(), _dense_solve(bands, rhs, 4),
+                               rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["q_too_large", "shape", "dtype",
+                                  "contiguity", "mixed_dtype"])
+def test_wrapper_raises_on_what_the_kernel_does_not_take(case):
+    bands, rhs = _random_banded(12, 2, 6)
+    tb, tr = torch.from_numpy(bands), torch.from_numpy(rhs)
+    if case == "q_too_large":
+        big = torch.zeros((12, 19, 6), dtype=torch.float64)
+        with pytest.raises(ValueError):
+            cuda_banded.banded_solve(big, tr, 9)
+    elif case == "shape":
+        with pytest.raises(ValueError):
+            cuda_banded.banded_solve(tb, tr[:-1], 2)
+    elif case == "dtype":
+        with pytest.raises(TypeError):
+            cuda_banded.banded_solve(tb.to(torch.int64),
+                                     tr.to(torch.int64), 2)
+    elif case == "contiguity":
+        with pytest.raises(ValueError):
+            cuda_banded.banded_solve(tb, tr.T.contiguous().T, 2)
+    else:
+        with pytest.raises(TypeError):
+            cuda_banded.banded_solve(tb, tr.float(), 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
+                                       (torch.float32, 1e-4)])
+def test_cuda_kernel_matches_plain(dtype, tol):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no interpret mode")
+    for q, n, ncol in ((4, 31, 1000), (1, 9, 33), (8, 40, 257)):
+        bands, rhs = _random_banded(n, q, ncol, seed=q)
+        tb = torch.from_numpy(bands).to("cuda", dtype)
+        tr = torch.from_numpy(rhs).to("cuda", dtype)
+        before = launch_counts["banded_solve"]
+        x = cuda_banded.banded_solve(tb, tr, q)
+        torch.cuda.synchronize()
+        assert launch_counts["banded_solve"] == before + 1
+        want = cuda_banded.banded_solve_plain(tb, tr, q)
+        err = float((x - want).abs().max() / want.abs().max())
+        assert err < tol

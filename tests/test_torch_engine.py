@@ -1,0 +1,173 @@
+"""The port's z-first engine vs the JAX package's: the horizontal
+tendency, the hyperdiffusion tail, the full-state DSS, and the slice as a
+whole (3 steps of ``make_fast_step``, both Jacobian modes), float64."""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from tempestmodel_tpu import fast as j_fast
+from tempestmodel_tpu.fast import engine as j_engine
+from tempestmodel_tpu_torch import fast as t_fast, convert
+from tempestmodel_tpu_torch.fast import engine as t_engine
+from tempestmodel_tpu_torch.kernels.counts import launch_counts
+import tempestmodel_tpu_torch as tt
+
+from torch_port_common import (build_pair, initial_states, CPU, FIELDS,
+                               fast_geometry_fields_numpy, random_fast_state,
+                               rel_err)
+
+
+@pytest.fixture(scope="module")
+def pair():
+    return build_pair()
+
+
+@pytest.fixture(scope="module")
+def fgs(pair):
+    jcfg, jgeom, tcfg, tgeom = pair
+    jfg = j_engine.build_fast_geometry(jgeom, dtype=jnp.float64)
+    tfg = convert.fast_geometry_from_numpy(
+        fast_geometry_fields_numpy(jfg), device=CPU, dtype=torch.float64)
+    d = random_fast_state(jfg.nz, jfg.A, seed=11)
+    # a smooth-ish state keeps the comparison away from cancellation noise
+    jd = {k: jnp.asarray(v) for k, v in d.items()}
+    td = {k: torch.from_numpy(v.copy()) for k, v in d.items()}
+    return jfg, tfg, jd, td, d
+
+
+def test_horizontal_tendency(pair, fgs):
+    jcfg, _, tcfg, _ = pair
+    jfg, tfg, jd, td, d = fgs
+    jt = jax.jit(lambda x: j_engine.horizontal_tendency(
+        x, jfg, jcfg.constants))(jd)
+    ttend = t_engine.horizontal_tendency(td, tfg, tcfg.constants)
+    for k in FIELDS:
+        assert ttend[k].is_contiguous(), k
+        assert rel_err(ttend[k].numpy(), jt[k]) < 1e-12, k
+    for k, v in td.items():
+        np.testing.assert_array_equal(v.numpy(), d[k])
+
+
+def test_apply_w_boundary(fgs):
+    jfg, tfg, jd, td, _ = fgs
+    jw = j_engine.apply_w_boundary(jd, jfg)["W"]
+    tw = t_engine.apply_w_boundary(
+        {k: v.clone() for k, v in td.items()}, tfg)["W"]
+    assert rel_err(tw.numpy(), jw) < 1e-13
+
+
+def test_apply_dss_full_state(fgs):
+    jfg, tfg, jd, td, _ = fgs
+    jo = j_engine.apply_dss(jd, jfg)
+    before = dict(launch_counts)
+    to = t_engine.apply_dss(td, tfg)
+    tp = t_engine.apply_dss(td, tfg, plain=True)
+    assert dict(launch_counts) == before     # CPU tensors: no launch
+    for k in FIELDS:
+        np.testing.assert_allclose(to[k].numpy(), np.asarray(jo[k]), rtol=0,
+                                   atol=1e-13 * float(np.abs(jo[k]).max()))
+        assert torch.equal(to[k], tp[k])
+
+
+@pytest.mark.parametrize("order", [4, 2])
+def test_step_after_subcycle(pair, fgs, order):
+    jcfg, _, tcfg, _ = pair
+    jfg, tfg, jd, td, _ = fgs
+    jc = jcfg.with_(hypervis_order=order)
+    tc = tcfg.with_(hypervis_order=order)
+    jo = jax.jit(lambda x: j_engine.step_after_subcycle(
+        x, jc.dt, jc, jfg))(jd)
+    to = t_engine.step_after_subcycle(td, tc.dt, tc, tfg)
+    for k in FIELDS:
+        assert rel_err(to[k].numpy(), jo[k]) < 1e-12, k
+
+
+def test_fast_engine_supported_predicate(pair):
+    _, _, tcfg, _ = pair
+    assert t_engine.fast_engine_supported(tcfg)
+    assert not t_engine.fast_engine_supported(
+        tcfg.with_(grid_kind=tt.GridKind.CARTESIAN_XZ))
+    assert not t_engine.fast_engine_supported(tcfg.with_(upwind_thermo=False))
+    assert not t_engine.fast_engine_supported(tcfg, has_tracers=True)
+
+
+def _run_jax(jcfg, jgeom, js, nsteps):
+    first, step = j_fast.make_fast_step(jcfg, jgeom)
+    X, c = first(j_fast.pack_state(js))
+    for _ in range(nsteps - 1):
+        X, c = step(X, c)
+    return j_fast.unpack_state(X, jcfg.nz)
+
+
+def _run_torch(tcfg, tgeom, state_np, nsteps, **kw):
+    first, step = t_fast.make_fast_step(tcfg, tgeom, device=CPU, **kw)
+    X0 = convert.state_from_numpy(state_np, device=CPU, dtype=torch.float64)
+    keep = {k: v.clone() for k, v in X0.items()}
+    X, c = first(X0)
+    for k in X0:                                  # the input is left alone
+        assert torch.equal(X0[k], keep[k]), k
+    for _ in range(nsteps - 1):
+        X, c = step(X, c)
+    return t_fast.unpack_state(X)
+
+
+@pytest.mark.parametrize("mode", ["exact", "reference"])
+def test_three_steps_match_jax(pair, mode):
+    """The slice as a whole: bit-identical initial state (JAX's, carried
+    across as numpy), 3 Strang-HEVI steps, 1e-11 relative per field."""
+    jcfg, jgeom, tcfg, tgeom = pair
+    js, _ = initial_states(jcfg, jgeom, tcfg, tgeom)
+    state_np = {k: np.asarray(v) for k, v in js.items()}
+    want = _run_jax(jcfg.with_(jacobian_mode=mode), jgeom, js, 3)
+    got = _run_torch(tcfg.with_(jacobian_mode=mode), tgeom, state_np, 3)
+    for k in FIELDS:
+        assert rel_err(got[k].numpy(), want[k]) < 1e-11, k
+
+
+def test_rayleigh_and_off_centering(pair):
+    """Rayleigh damping terms and the off-centred implicit combination run
+    and stay finite; damping leaves Rho alone."""
+    _, _, tcfg, _ = pair
+    from tempestmodel_tpu_torch.models import nh_model
+    from tempestmodel_tpu_torch.testcases.nonhydro_sphere import (
+        BaroclinicWaveUMJS)
+    tc = BaroclinicWaveUMJS(pert="exp", rayleigh=True)
+    cfg = tcfg.with_(rayleigh_damping=True, off_centering=0.1, ne=2, nz=6)
+    geom = nh_model.build_nh_sphere_geometry(
+        cfg, ztop=tc.ztop, rayleigh=tc.rayleigh_strength)
+    ref = tc.reference_state(geom, cfg.constants, device=CPU)
+    state = tc.initial_state(geom, cfg.constants, device=CPU)
+    fg = t_engine.build_fast_geometry(geom, dtype=torch.float64, device=CPU)
+    fac, ref_term = t_engine._rayleigh_terms(cfg, geom, ref, fg)
+    assert torch.equal(fac["Rho"], torch.ones_like(fac["Rho"]))
+    assert float(fac["U"].min()) < 1.0
+    assert float(ref_term["Rho"].abs().max()) == 0.0
+    first, step = t_fast.make_fast_step(cfg, geom, ref_state=ref, device=CPU)
+    X, c = first(t_fast.pack_state(state, device=CPU))
+    X, c = step(X, c)
+    for k in FIELDS:
+        assert bool(torch.isfinite(X[k]).all()), k
+
+
+@pytest.mark.gpu
+def test_kernel_path_matches_plain_path_on_the_card(pair):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no interpret mode")
+    _, _, tcfg, tgeom = pair
+    from tempestmodel_tpu_torch.testcases.nonhydro_sphere import (
+        BaroclinicWaveUMJS)
+    state = BaroclinicWaveUMJS(pert="exp").initial_state(
+        tgeom, tcfg.constants, device="cuda")
+    outs = []
+    for plain in (False, True):
+        first, step = t_fast.make_fast_step(tcfg, tgeom, device="cuda",
+                                            plain=plain)
+        X, c = first(t_fast.pack_state(state, device="cuda"))
+        X, c = step(X, c)
+        outs.append(X)
+    for k in FIELDS:
+        assert rel_err(outs[0][k].cpu().numpy(),
+                       outs[1][k].cpu().numpy()) < 1e-11, k

@@ -1,0 +1,78 @@
+"""The port never imports jax or the JAX package, and its entry points
+refuse to run without a CUDA device unless the caller asks for the CPU."""
+
+import pathlib
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import tempestmodel_tpu_torch as tt
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+
+def _module_names():
+    names = ["tempestmodel_tpu_torch"]
+    for m in pkgutil.walk_packages(tt.__path__, "tempestmodel_tpu_torch."):
+        names.append(m.name)
+    return names
+
+
+def test_every_module_imports_without_jax():
+    names = _module_names()
+    assert len(names) > 15
+    code = (
+        "import importlib, sys\n"
+        f"names = {names!r}\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'jaxlib' or m == 'tempestmodel_tpu'"
+        " or m.startswith('tempestmodel_tpu.')]\n"
+        "assert not bad, bad\n"
+        "assert 'triton' not in sys.modules\n"
+        "print('clean', len(names))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "clean" in out.stdout
+
+
+def test_chip_smoke_imports_no_jax():
+    src = (ROOT / "chip_smoke.py").read_text()
+    assert "import jax" not in src
+    assert "tempestmodel_tpu " not in src and "tempestmodel_tpu." not in src
+
+
+def test_tf32_is_off_after_import():
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_entry_points_need_a_cuda_device_unless_cpu_is_named():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device exists")
+    from tempestmodel_tpu_torch import fast
+    from tempestmodel_tpu_torch.models import nh_model
+    from tempestmodel_tpu_torch.testcases.nonhydro_sphere import (
+        BaroclinicWaveUMJS)
+    cfg = tt.ModelConfig(grid_kind=tt.GridKind.CUBED_SPHERE, ne=2, order=4,
+                         nz=4, ztop=30000.0, dtype=torch.float64)
+    geom = nh_model.build_nh_sphere_geometry(cfg)
+    tc = BaroclinicWaveUMJS()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tc.initial_state(geom, cfg.constants)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fast.build_fast_geometry(geom, dtype=torch.float64)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fast.make_fast_step(cfg, geom)
+    state = tc.initial_state(geom, cfg.constants, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fast.pack_state(state)
+    X = fast.pack_state(state, device="cpu")
+    assert X["W"].shape == (5, 6, 8, 8)
+    fg = fast.build_fast_geometry(geom, dtype=torch.float64, device="cpu")
+    assert fg.inv_mult.device.type == "cpu"

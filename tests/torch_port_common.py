@@ -1,0 +1,99 @@
+"""Shared set-up of the ``test_torch_*`` files: the same configuration
+built by the JAX package (the reference) and by the PyTorch port, on the
+CPU in float64.  Data crosses between the two as numpy arrays only."""
+
+import dataclasses
+
+import numpy as np
+import jax.numpy as jnp
+import torch
+
+import tempestmodel_tpu as tj
+import tempestmodel_tpu_torch as tt
+from tempestmodel_tpu.models import nh_model as j_nh_model
+from tempestmodel_tpu.testcases.nonhydro_sphere import (
+    BaroclinicWaveUMJS as JaxUMJS)
+from tempestmodel_tpu_torch.models import nh_model as t_nh_model
+from tempestmodel_tpu_torch.testcases.nonhydro_sphere import (
+    BaroclinicWaveUMJS as TorchUMJS)
+
+# the shapes here are tiny and the suite runs several worker processes: one
+# intra-op thread each keeps the workers from oversubscribing the cores
+torch.set_num_threads(1)
+
+CPU = torch.device("cpu")
+FIELDS = ("U", "V", "Rt", "Rho", "W")
+
+# the configuration of tests/test_fast_engine.py
+BASE = dict(ne=4, order=4, nz=8, ztop=30000.0, dt=200.0,
+            hyperdiffusion=True, nu_scalar=1e15, nu_div=1e15, nu_vort=1e15)
+
+
+def jax_config(**kw):
+    return tj.ModelConfig(grid_kind=tj.GridKind.CUBED_SPHERE,
+                          vertical_solver="banded", dtype=jnp.float64,
+                          **{**BASE, **kw})
+
+
+def torch_config(**kw):
+    return tt.ModelConfig(grid_kind=tt.GridKind.CUBED_SPHERE,
+                          vertical_solver="pallas", dtype=torch.float64,
+                          **{**BASE, **kw})
+
+
+def build_pair(**kw):
+    """(jcfg, jgeom, tcfg, tgeom) for one configuration."""
+    jcfg, tcfg = jax_config(**kw), torch_config(**kw)
+    jgeom = j_nh_model.build_nh_sphere_geometry(jcfg, ztop=jcfg.ztop)
+    tgeom = t_nh_model.build_nh_sphere_geometry(tcfg, ztop=tcfg.ztop)
+    return jcfg, jgeom, tcfg, tgeom
+
+
+def initial_states(jcfg, jgeom, tcfg, tgeom):
+    js = JaxUMJS(pert="exp").initial_state(jgeom, jcfg.constants,
+                                           dtype=jnp.float64)
+    ts = TorchUMJS(pert="exp").initial_state(tgeom, tcfg.constants,
+                                             dtype=torch.float64, device=CPU)
+    return js, ts
+
+
+def fast_geometry_fields_numpy(jfg):
+    """The fields of a JAX ``FastGeometry`` as numpy arrays / scalars."""
+    out = {}
+    for f in dataclasses.fields(jfg):
+        v = getattr(jfg, f.name)
+        if v is None or isinstance(v, (int, float, bool, str, tuple)):
+            out[f.name] = v
+        else:
+            out[f.name] = np.asarray(v)
+    return out
+
+
+def rel_err(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    return np.max(np.abs(got - want)) / (np.max(np.abs(want)) + 1e-300)
+
+
+def random_fast_state(nz, A, seed=0):
+    """Seeded z-first state with positive Rt/Rho, as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    d = {k: rng.standard_normal((nz + (1 if k == "W" else 0), 6, A, A))
+         for k in FIELDS}
+    d["Rho"] = 1.0 + 0.1 * np.abs(d["Rho"])
+    d["Rt"] = 300.0 * d["Rho"] * (1.0 + 0.01 * d["Rt"])
+    d["W"] = 0.01 * d["W"]        # keeps a second Newton iterate physical
+    return d
+
+
+def perturbed_umjs_state(jcfg, jgeom, seed=0):
+    """The balanced UMJS start in z-first layout with small seeded noise
+    (numpy): near enough to balance for a Newton solve with a long step."""
+    rng = np.random.default_rng(seed)
+    js = JaxUMJS(pert="exp").initial_state(jgeom, jcfg.constants,
+                                           dtype=jnp.float64)
+    d = {k: np.ascontiguousarray(np.moveaxis(np.asarray(js[k]), -1, 0))
+         for k in FIELDS}
+    for k in ("U", "V", "Rt", "Rho"):
+        d[k] = d[k] * (1.0 + 1e-3 * rng.standard_normal(d[k].shape))
+    d["W"] = 0.01 * rng.standard_normal(d["W"].shape)
+    return d
