@@ -11,18 +11,22 @@ and runs these phases, each printing one JSON line:
 
 1. device   the card's name and power limit as nvidia-smi gives them;
 2. build    every kernel source compiled and loaded, with the seconds;
-3. kernel   each kernel against its plain PyTorch version on the card at
-            the flagship shapes, float32 and float64, with times;
-4. slice    the Strang-HEVI step at small size in float64 on the card,
-            kernel path against plain path, 1e-11 relative per field;
-5. flagship the main path at full width: UMJS baroclinic wave, ne30 p4
-            nz30 float32, ``first_step`` and a few ``step``s through
-            ``make_fast_step``; finite fields, launch counts, ms/step;
+3. kernel   each of the six kernels against its plain PyTorch version on
+            the card at the flagship shapes, float32 and float64, with times;
+4. slice    the Strang-HEVI step at small size in float64 on the card three
+            ways — fused kernel path, unfused kernel path, plain path — each
+            pair to 1e-11 relative per field;
+5. flagship the main paths at full width: UMJS baroclinic wave, ne30 p4
+            nz30 float32, through ``make_fast_step``: the fused path
+            (``first_step`` and 5 ``step``s), then the unfused path
+            (``fused=False``, ``first_step`` and 2 ``step``s); finite fields,
+            launch counts, ms/step of both;
 6. kernels  one line listing every kernel with its time, bound, plain
-            version's time and launches on the flagship run.
+            version's time and launches on the flagship runs.
 
-With ``--profile PATH`` it also traces three flagship steps with
-torch.profiler and writes the device time by kernel to the JSON file PATH.
+With ``--profile PATH`` it also traces three steps of each flagship path
+with torch.profiler and writes the device time by kernel to the JSON file
+PATH.
 
 Any failure raises: the exit code is then non-zero and no result line is
 printed.  Without a CUDA device the script exits with code 1 at once.  The
@@ -32,6 +36,7 @@ last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -46,8 +51,16 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 # flagship configuration (the UMJS baroclinic wave of the JAX package's
 # bench: ne30, p=4, 30 levels, float32, one device)
 NE, ORDER, NZ, DT, NU = 30, 4, 30, 100.0, 1.0e15
-FLAGSHIP_STEPS = 5
+FLAGSHIP_STEPS = 5          # on the fused path
+UNFUSED_STEPS = 2
 SEED = 0
+# kernel launches per ``step`` (``first_step`` has one implicit solve more)
+FUSED_PER_STEP = {"fused_stage": 5, "dss_uvw": 5, "dss_scalar": 16,
+                  "dss_vector": 2, "fused_implicit_update": 1,
+                  "banded_solve": 0}
+UNFUSED_PER_STEP = {"fused_stage": 0, "dss_uvw": 0, "dss_scalar": 21,
+                    "dss_vector": 7, "fused_implicit_update": 0,
+                    "banded_solve": 1}
 
 
 def emit(obj):
@@ -95,7 +108,190 @@ def dense_from_bands(bands, q):
     return dense
 
 
-def check_kernels(fg, dev):
+def max_rel_err(gots, wants):
+    return max(rel_err(g, w) for g, w in zip(gots, wants))
+
+
+def check_fused_kernels(cfg, geom, state, dtype, rows, dev):
+    """Phase 3, second half: ``dss_uvw``, ``fused_stage`` and
+    ``fused_implicit_update`` against their plain versions at the flagship
+    shapes in ``dtype``.  The geometry gets a terrain-like metric (the
+    flagship's terrain is flat, which would hide every terrain term) and
+    the stage and DSS inputs are random; the implicit update starts from the
+    balanced flagship state with per-mille noise, as a step does."""
+    import dataclasses
+    from tempestmodel_tpu_torch import fast
+    from tempestmodel_tpu_torch.fast import (dss_cuda, stage_cuda,
+                                             implicit_cuda, implicit as fimp)
+    from tempestmodel_tpu_torch.kernels import synthetic
+    from tempestmodel_tpu_torch.kernels.timing import time_cuda
+    from tempestmodel_tpu_torch.models import nonhydro
+
+    tag = "f32" if dtype == torch.float32 else "f64"
+    f32 = dtype == torch.float32
+    esize = 4 if f32 else 8
+    consts = cfg.constants
+    # the geometry in the kernels' own dtype (a float32 geometry cast up
+    # would carry float32 rounding in the plain version's dense operators)
+    fgt = synthetic.terrain_like(
+        fast.build_fast_geometry(geom, dtype=dtype, device=dev), seed=SEED)
+    K, P, A = fgt.nz, 6, fgt.A
+    nlev, nint, n2d = K * P * A * A, (K + 1) * P * A * A, P * A * A
+    ue = synthetic.random_state(fgt, seed=1)
+    b1 = synthetic.random_state(fgt, seed=2)
+    b2 = synthetic.random_state(fgt, seed=3)
+
+    # --- fused_stage: one base and two, both metric forms ---------------
+    stage_tol = 1e-4 if f32 else 1e-11
+    sst = stage_cuda.stage_statics(fgt)
+    fg3d = dataclasses.replace(fgt, sep_ok=False)       # full 3-D metric
+    sst3d = stage_cuda.stage_statics(fg3d)
+    if not sst.use_sep or sst3d.use_sep:
+        raise RuntimeError("stage statics chose the wrong metric form")
+    err = 0.0
+    for g, st in ((fgt, sst), (fg3d, sst3d)):
+        for base in (b1, ((0.3, b1), (0.7, b2))):
+            got, gwf = stage_cuda.fused_stage(base, ue, 12.5, g, consts,
+                                              defer_w=True, statics=st)
+            torch.cuda.synchronize()
+            want, wwf = stage_cuda.fused_stage_plain(base, ue, 12.5, g,
+                                                     consts, defer_w=True)
+            err = max(err, max_rel_err(
+                [got[k] for k in stage_cuda.STATE4] + [gwf["dW"]],
+                [want[k] for k in stage_cuda.STATE4] + [wwf["dW"]]))
+    if not err <= stage_tol:
+        raise RuntimeError(f"fused_stage {tag}: rel err {err} > {stage_tol}")
+    two = ((0.3, b1), (0.7, b2))
+    for name, base, nbase in (("fused_stage", b1, 4),
+                              ("fused_stage_two_base", two, 8)):
+        tb, c1, x1, c2, x2 = stage_cuda._split_base(base)
+        ms = time_cuda(lambda: stage_cuda._fused_stage_cuda(
+            tb, c1, x1, c2, x2, ue, 12.5, fgt, consts, sst), [()], reps=20,
+            queued=True)
+        wrapper_ms = time_cuda(lambda: stage_cuda.fused_stage(
+            base, ue, 12.5, fgt, consts, defer_w=True, statics=sst), [()],
+            reps=20)
+        plain_ms = time_cuda(lambda: stage_cuda.fused_stage_plain(
+            base, ue, 12.5, fgt, consts, defer_w=True), [()], reps=3,
+            warmup=1)
+        # reads: 4 level + 1 interface evaluation fields, the base fields,
+        # the 12 2-D metric fields and the table; writes 5 level fields
+        nb = ((4 + nbase + 5) * nlev + nint + 12 * n2d
+              + sst.tab.numel()) * esize
+        bnd, by = bound_ms(nb, 400 * nlev, dtype)
+        row = {"name": name, "route": "cuda",
+               "source": "tempestmodel_tpu_torch/csrc/stage.cu",
+               "replaces": "tempestmodel_tpu/fast/stage_pallas.py:440",
+               "shape": [K, P, A, A], "max_abs_err": err, "ms": ms,
+               "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+               "bound_ms": bnd, "bound_by": by, "library_ms": None}
+        emit({"phase": "kernel", "dtype": tag, "tol": stage_tol, **row})
+        if f32:
+            rows[name] = row
+
+    # --- dss_uvw: the W finish of that stage, two bases and one ---------
+    dss_tol = 1e-6 if f32 else 1e-13
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    upd, wf = stage_cuda.fused_stage(two, ue, 12.5, fgt, consts,
+                                     defer_w=True, statics=sst)
+    # surface metric rows with every term present (flat terrain has zeros)
+    wf = dict(wf, cax0=randn((P, A, A), dtype, gen, dev),
+              cbx0=randn((P, A, A), dtype, gen, dev),
+              cxx0=1.0 + randn((P, A, A), dtype, gen, dev).abs())
+    err = 0.0
+    for w in (wf, dict(wf, bw2=None)):
+        got = dss_cuda.dss_uvw(upd["U"], upd["V"], fgt.inv_mult, fgt.e_rot,
+                               fgt.dss_links, fgt.p, w, table=fgt.dss_table)
+        torch.cuda.synchronize()
+        want = dss_cuda.dss_uvw_plain(upd["U"], upd["V"], fgt.inv_mult,
+                                      fgt.e_rot, fgt.dss_links, fgt.p, w)
+        # the bottom row on its own: it is assembled from U, V of the node
+        # being gathered, on panel edges from the partner panel
+        err = max(err, max_rel_err(got + (got[2][0],), want + (want[2][0],)))
+    if not err <= dss_tol:
+        raise RuntimeError(f"dss_uvw {tag}: rel err {err} > {dss_tol}")
+    ms = time_cuda(lambda: dss_cuda.dss_uvw(
+        upd["U"], upd["V"], fgt.inv_mult, fgt.e_rot, fgt.dss_links, fgt.p,
+        wf, table=fgt.dss_table), [()], reps=40, queued=True)
+    plain_ms = time_cuda(lambda: dss_cuda.dss_uvw_plain(
+        upd["U"], upd["V"], fgt.inv_mult, fgt.e_rot, fgt.dss_links, fgt.p,
+        wf), [()], reps=4)
+    # reads U, V, bw1, bw2, dW and the 2-D tables; writes U, V, W
+    nb = (4 * nlev + 4 * nint + 4 * n2d + fgt.e_rot.numel()) * esize \
+        + fgt.dss_table.numel() * 4
+    bnd, by = bound_ms(nb, 16 * nlev + 12 * nint, dtype)
+    row = {"name": "dss_uvw", "route": "cuda",
+           "source": "tempestmodel_tpu_torch/csrc/dss.cu",
+           "replaces": "tempestmodel_tpu/fast/dss_pallas.py:453",
+           "shape": [K, P, A, A], "max_abs_err": err, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+           "library_ms": None}
+    emit({"phase": "kernel", "dtype": tag, "tol": dss_tol, **row})
+    if f32:
+        rows["dss_uvw"] = row
+    del upd, wf, got, want, ue, b1, b2
+
+    # --- fused_implicit_update: both Jacobian modes, time term on/off ----
+    imp_tol = 2e-3 if f32 else 1e-10
+    q = nonhydro.estimate_bandwidth(geom, consts)
+    statics = fimp.statics_to_device(
+        nonhydro.band_assembly_statics(geom, q), dtype, dev)
+    ist = implicit_cuda.implicit_statics(statics, fgt)
+    if not implicit_cuda.fused_supported(ist):
+        raise RuntimeError("the flagship is outside the fused implicit "
+                           "update's envelope")
+    d = fast.pack_state({k: v.to(dtype) for k, v in state.items()},
+                        device=dev)
+    for k in ("U", "V", "Rt", "Rho"):
+        d[k] = d[k] * (1.0 + 1e-3 * randn(d[k].shape, dtype, gen, dev))
+    d["W"] = 0.01 * randn(d["W"].shape, dtype, gen, dev)
+    x0, aux = fimp._prep_aux(d, fgt, None, interfaces=False)
+    x1 = tuple((p * 1.001).contiguous() for p in x0)
+    dt_imp = 0.5 * DT
+    err = 0.0
+    for ref_j in (False, True):
+        for time_term in (False, True):
+            xs = x1 if time_term else x0
+            got = implicit_cuda.fused_implicit_update(
+                xs, x0, aux, ist, dt_imp, consts, ref_jacobian=ref_j,
+                newton_time_term=time_term)
+            torch.cuda.synchronize()
+            want = implicit_cuda.fused_implicit_update_plain(
+                xs, x0, aux, ist, dt_imp, consts, ref_jacobian=ref_j,
+                newton_time_term=time_term)
+            err = max(err, max_rel_err(got, want))
+            del got, want
+    if not err <= imp_tol:
+        raise RuntimeError(f"fused_implicit_update {tag}: rel err {err} > "
+                           f"{imp_tol}")
+    ncol = x0[0].shape[1]
+    ms = time_cuda(lambda: implicit_cuda.fused_implicit_update(
+        x0, x0, aux, ist, dt_imp, consts), [()], reps=10, queued=True)
+    ms_time = time_cuda(lambda: implicit_cuda.fused_implicit_update(
+        x1, x0, aux, ist, dt_imp, consts, newton_time_term=True), [()],
+        reps=10, queued=True)
+    plain_ms = time_cuda(lambda: implicit_cuda.fused_implicit_update_plain(
+        x0, x0, aux, ist, dt_imp, consts), [()], reps=2, warmup=1)
+    # reads rt, w, rho, u_n, v_n, 9 metric fields, c2 and the table;
+    # writes the three increments
+    nb = ((4 + 4 + 2) * K * ncol + (1 + 5 + 1) * (K + 1) * ncol + 4 * ncol
+          + ist.tab.numel()) * esize
+    n = 3 * K + 1
+    flops = ncol * (n * (q * (2 * q + 3) + 2 * q + 1) + (K + 1) * 400)
+    bnd, by = bound_ms(nb, flops, dtype)
+    row = {"name": "fused_implicit_update", "route": "cuda",
+           "source": "tempestmodel_tpu_torch/csrc/implicit.cu",
+           "replaces": "tempestmodel_tpu/fast/pallas_implicit.py:597",
+           "shape": [K, ncol], "max_abs_err": err, "ms": ms,
+           "ms_with_time_term": ms_time, "plain_ms": plain_ms,
+           "bound_ms": bnd, "bound_by": by, "library_ms": None}
+    emit({"phase": "kernel", "dtype": tag, "tol": imp_tol, **row})
+    if f32:
+        rows["fused_implicit_update"] = row
+    torch.cuda.empty_cache()
+
+
+def check_kernels(fg, cfg, geom, state, dev):
     """Phase 3: every kernel against its plain version at the flagship
     shapes; returns {name: row of the kernels line (without launches)}."""
     from tempestmodel_tpu_torch.fast import dss_cuda
@@ -224,14 +420,18 @@ def check_kernels(fg, dev):
             rows["banded_solve"] = row
         del bands, rhs, got, want
         torch.cuda.empty_cache()
+
+        check_fused_kernels(cfg, geom, state, dtype, rows, dev)
     return rows
 
 
 def check_slice(dev):
-    """Phase 4: 3 steps at ne4 p4 nz8 in float64 on the card, the path
-    with kernels against the path with the plain versions."""
+    """Phase 4: 3 steps at ne4 p4 nz8 in float64 on the card three ways:
+    the fused path with kernels, the unfused path with kernels, and the
+    path with the plain versions; each pair to 1e-11 relative per field."""
     import tempestmodel_tpu_torch as tm
     from tempestmodel_tpu_torch import fast
+    from tempestmodel_tpu_torch.kernels import counts
     from tempestmodel_tpu_torch.models import nh_model
     from tempestmodel_tpu_torch.testcases.nonhydro_sphere import (
         BaroclinicWaveUMJS)
@@ -245,30 +445,43 @@ def check_slice(dev):
     geom = nh_model.build_nh_sphere_geometry(cfg, ztop=tc.ztop)
     state = tc.initial_state(geom, cfg.constants, dtype=torch.float64,
                              device=dev)
-    outs = []
-    for plain in (False, True):
-        first, step = fast.make_fast_step(cfg, geom, device=dev, plain=plain)
+    outs = {}
+    for name, kw in (("fused", {}), ("unfused", {"fused": False}),
+                     ("plain", {"plain": True})):
+        counts.reset_launch_counts()
+        first, step = fast.make_fast_step(cfg, geom, device=dev, **kw)
         X, c = first(fast.pack_state(state, device=dev))
         for _ in range(2):
             X, c = step(X, c)
         torch.cuda.synchronize()
-        outs.append(X)
-    errs = {k: rel_err(outs[0][k], outs[1][k]) for k in outs[0]}
+        outs[name] = X
+        launched = {k for k, v in counts.launch_counts.items() if v}
+        want = {"fused": {k for k, v in FUSED_PER_STEP.items() if v},
+                "unfused": {k for k, v in UNFUSED_PER_STEP.items() if v},
+                "plain": set()}[name]
+        if launched != want:
+            raise RuntimeError(f"slice, {name} path launched {launched}, "
+                               f"expected {want}")
+    errs = {}
+    for a, b in (("fused", "unfused"), ("fused", "plain"),
+                 ("unfused", "plain")):
+        errs[f"{a}_vs_{b}"] = {k: rel_err(outs[a][k], outs[b][k])
+                               for k in outs[a]}
     emit({"phase": "slice", "config": "ne4 p4 nz8 f64, 3 steps",
           "rel_err": errs, "tol": 1e-11})
-    bad = {k: e for k, e in errs.items() if not e < 1e-11}
-    if bad:
-        raise RuntimeError(f"kernel path != plain path: {bad}")
-    for k, v in outs[0].items():
+    bad = {p: {k: e for k, e in d.items() if not e < 1e-11}
+           for p, d in errs.items()}
+    if any(bad.values()):
+        raise RuntimeError(f"paths disagree: {bad}")
+    for k, v in outs["fused"].items():
         if not bool(torch.isfinite(v).all()):
             raise RuntimeError(f"slice: non-finite {k}")
 
 
-def profile_steps(step, X, carry, nsteps, out_path):
+def profile_steps(step, X, carry, nsteps, path_name):
     """Optional (``--profile PATH``): device time by kernel over ``nsteps``
-    steady steps, from torch.profiler; written to ``out_path`` and printed
-    as one JSON line."""
-    import os
+    steady steps of one flagship path, from torch.profiler; printed as one
+    JSON line and returned."""
     from torch.profiler import profile, ProfilerActivity
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -291,16 +504,14 @@ def profile_steps(step, X, carry, nsteps, out_path):
                          "device_ms_per_step": dev_us / 1e3 / nsteps})
     rows.sort(key=lambda r: -r["device_ms_per_step"])
     total = sum(r["device_ms_per_step"] for r in rows)
-    summary = {"phase": "profile", "steps": nsteps,
+    summary = {"phase": "profile", "path": path_name, "steps": nsteps,
                "wall_ms_per_step_under_profiler": wall_ms / nsteps,
                "device_ms_per_step": total,
                "device_launches_per_step":
                    sum(r["calls"] for r in rows) / nsteps,
                "top": rows[:25]}
-    os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
-    with open(out_path, "w") as fh:
-        json.dump(dict(summary, all=rows), fh, indent=1)
     emit(summary)
+    return dict(summary, all=rows)
 
 
 def main():
@@ -353,76 +564,97 @@ def main():
           time.perf_counter() - t0})
 
     # 3. kernels against their plain versions -----------------------------
-    rows = check_kernels(fg, dev)
+    rows = check_kernels(fg, cfg, geom, state, dev)
     del fg
 
-    # 4. the slice at small size, kernel path against plain path ----------
+    # 4. the slice at small size, three ways ------------------------------
     check_slice(dev)
 
-    # 5. the main path at full width --------------------------------------
-    t0 = time.perf_counter()
-    first_step, step = fast.make_fast_step(cfg, geom, device=dev)
+    # 5. the main paths at full width -------------------------------------
     X0 = fast.pack_state(state, device=dev)
-    make_s = time.perf_counter() - t0
-    # warm-up outside the counted run (library handles, allocator)
-    Xw, cw = first_step(X0)
-    Xw, cw = step(Xw, cw)
-    torch.cuda.synchronize()
-    del Xw, cw
-
-    counts.reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    X, carry = first_step(X0)
-    torch.cuda.synchronize()
-    ev0 = torch.cuda.Event(enable_timing=True)
-    ev1 = torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    ev0.record()
-    for _ in range(FLAGSHIP_STEPS):
-        X, carry = step(X, carry)
-    ev1.record()
-    torch.cuda.synchronize()
-    wall_ms = 1e3 * (time.perf_counter() - t0) / FLAGSHIP_STEPS
-    ms_per_step = ev0.elapsed_time(ev1) / FLAGSHIP_STEPS
-    launches = dict(counts.launch_counts)
-
-    ncalls = FLAGSHIP_STEPS + 1            # first_step + steps
-    want = {"dss_scalar": 21 * ncalls, "dss_vector": 7 * ncalls,
-            "banded_solve": FLAGSHIP_STEPS + 2}
-    if launches != want:
-        raise RuntimeError(f"launch counts {launches} != expected {want}")
-    for k, v in X.items():
-        nzk = NZ + (1 if k == "W" else 0)
-        if tuple(v.shape) != (nzk, 6, NE * ORDER, NE * ORDER):
-            raise RuntimeError(f"flagship: {k} has shape {tuple(v.shape)}")
-        if v.dtype != torch.float32 or not bool(torch.isfinite(v).all()):
-            raise RuntimeError(f"flagship: {k} is not finite float32")
-    # the wave must have stayed near its balanced start: density and
-    # rho*theta move by a small fraction over a few steps
-    drift = {k: rel_err(X[k], X0[k]) for k in ("Rho", "Rt")}
-    if not all(d < 1e-2 for d in drift.values()):
-        raise RuntimeError(f"flagship: state drifted {drift}")
     npts = 6 * (NE * ORDER) ** 2 * NZ
-    emit({"phase": "flagship",
-          "config": f"UMJS ne{NE} p{ORDER} nz{NZ} f32 dt{DT:g} nu{NU:g}",
-          "steps": FLAGSHIP_STEPS, "ms_per_step": ms_per_step,
-          "wall_ms_per_step": wall_ms,
-          "gridpoint_steps_per_s": npts / (ms_per_step * 1e-3),
-          "launches": launches,
-          "launches_per_step": {"dss_scalar": 21, "dss_vector": 7,
-                                "banded_solve": 1},
-          "make_fast_step_s": make_s, "drift": drift,
-          "peak_device_GiB": torch.cuda.max_memory_allocated() / 2 ** 30,
-          "card": smi})
+    launches, profiles = {}, {}
+    for path, kw, nsteps, per_step in (
+            ("fused", {}, FLAGSHIP_STEPS, FUSED_PER_STEP),
+            ("unfused", {"fused": False}, UNFUSED_STEPS, UNFUSED_PER_STEP)):
+        t0 = time.perf_counter()
+        first_step, step = fast.make_fast_step(cfg, geom, device=dev, **kw)
+        make_s = time.perf_counter() - t0
+        # warm-up outside the counted run (library handles, allocator)
+        Xw, cw = first_step(X0)
+        Xw, cw = step(Xw, cw)
+        torch.cuda.synchronize()
+        del Xw, cw
+
+        counts.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        X, carry = first_step(X0)
+        torch.cuda.synchronize()
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        ev0.record()
+        for _ in range(nsteps):
+            X, carry = step(X, carry)
+        ev1.record()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / nsteps
+        ms_per_step = ev0.elapsed_time(ev1) / nsteps
+        launches[path] = dict(counts.launch_counts)
+
+        # first_step + steps, and one more implicit solve in first_step
+        want = {k: v * (nsteps + 1) for k, v in per_step.items()}
+        for k in ("fused_implicit_update", "banded_solve"):
+            want[k] += 1 if per_step[k] else 0
+        if launches[path] != want:
+            raise RuntimeError(f"{path} path: launch counts "
+                               f"{launches[path]} != expected {want}")
+        for k, v in X.items():
+            nzk = NZ + (1 if k == "W" else 0)
+            if tuple(v.shape) != (nzk, 6, NE * ORDER, NE * ORDER):
+                raise RuntimeError(f"flagship: {k} has shape "
+                                   f"{tuple(v.shape)}")
+            if v.dtype != torch.float32 or not bool(torch.isfinite(v).all()):
+                raise RuntimeError(f"flagship: {k} is not finite float32")
+        # the wave must have stayed near its balanced start: density and
+        # rho*theta move by a small fraction over a few steps
+        drift = {k: rel_err(X[k], X0[k]) for k in ("Rho", "Rt")}
+        if not all(d < 1e-2 for d in drift.values()):
+            raise RuntimeError(f"flagship: state drifted {drift}")
+        emit({"phase": "flagship", "path": path,
+              "config": f"UMJS ne{NE} p{ORDER} nz{NZ} f32 dt{DT:g} nu{NU:g}",
+              "steps": nsteps, "ms_per_step": ms_per_step,
+              "wall_ms_per_step": wall_ms,
+              "gridpoint_steps_per_s": npts / (ms_per_step * 1e-3),
+              "launches": launches[path], "launches_per_step": per_step,
+              "make_fast_step_s": make_s, "drift": drift,
+              "peak_device_GiB": torch.cuda.max_memory_allocated() / 2 ** 30,
+              "card": smi})
+        if profile_path is not None:
+            profiles[path] = profile_steps(step, X, carry, 3, path)
+        del first_step, step, X, carry
 
     if profile_path is not None:
-        profile_steps(step, X, carry, 3, profile_path)
+        os.makedirs(os.path.dirname(os.path.abspath(profile_path)),
+                    exist_ok=True)
+        with open(profile_path, "w") as fh:
+            json.dump(profiles, fh, indent=1)
 
     # 6. the kernels line, the card, the result ---------------------------
+    # launches: the fused run's count; for the kernel that only the unfused
+    # path runs, that run's
     kernels = []
-    for name in ("dss_scalar", "dss_vector", "banded_solve"):
+    for name in ("dss_scalar", "dss_vector", "banded_solve", "dss_uvw",
+                 "fused_stage", "fused_implicit_update"):
         row = dict(rows[name])
-        row["launches"] = launches[name]
+        row["launches"] = launches["fused"][name] or launches["unfused"][name]
+        row["launches_unfused_path"] = launches["unfused"][name]
+        if row["launches"] < 1:
+            raise RuntimeError(f"{name} was launched on neither path")
+        if name == "fused_stage":
+            two = rows["fused_stage_two_base"]
+            row.update(ms_two_base=two["ms"], bound_ms_two_base=two["bound_ms"],
+                       plain_ms_two_base=two["plain_ms"])
         kernels.append(row)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)

@@ -1,4 +1,5 @@
-// Direct stiffness summation (DSS) on the cubed sphere, one launch per field.
+// Direct stiffness summation (DSS) on the cubed sphere, one launch per field
+// (or one for U, V and W together with the stage's W finish: `dss_uvw`).
 //
 // Replaces the TPU kernels `dss_scalar` (`_scalar_kernel`) and `dss_vector`
 // (`_vector_kernel`) of tempestmodel_tpu/fast/dss_pallas.py.  Those are
@@ -32,6 +33,19 @@
 // neighbouring threads load anyway (L1/L2), so the design moves close to
 // the minimum through device memory; arithmetic is a handful of adds.
 //
+// `dss_uvw` replaces the TPU kernel `dss_uvw` (`_uvw_kernel`) of that same
+// file, dss_pallas.py: the DSS of U, V (rotated pair) and W in one launch, with the stage's
+// W finish folded in.  W is never stored before its DSS: wherever the
+// gather reads a raw W value (its own node, an element-boundary partner, an
+// edge partner on another panel) it ASSEMBLES that value from the stage's
+// outputs — base-W terms plus dt_s * dW on interior interfaces, and at
+// interface 0 the diagnostic bottom value from u^xi(surface) = 0, taken from
+// the post-stage pre-DSS U, V at levels 0 and 1 OF THE NODE BEING READ with
+// that node's surface metric.  Inputs are never overwritten, so the order of
+// blocks does not matter.  Bound: bytes (U, V, bw1[, bw2], dW read once; U,
+// V, W written once): 6 or 7 fields at (30|31, 6, 120, 120) float32, about
+// 64-75 MB, 19-22 us at 3.35 TB/s.
+//
 // Plain C interface (no PyTorch header): pointers and the stream arrive as
 // integers, the launch goes to the given stream, nothing synchronises or
 // allocates, and each entry point returns cudaGetLastError().
@@ -49,6 +63,16 @@ constexpr int EDGE_LEFT = 0, EDGE_RIGHT = 1, EDGE_BOTTOM = 2;  // EDGE_TOP = 3
 #endif
 #ifndef DSS_LEVELS
 #define DSS_LEVELS 5
+#endif
+// The same pair for dss_uvw, which holds three fields a level in registers
+// and gathers W from up to four operands; kernels/tune_fused.py sweeps it.
+// (128, 2) was the fastest pair at (30 | 31, 6, 120, 120) on an H100, in
+// float32 and in float64.
+#ifndef UVW_THREADS
+#define UVW_THREADS 128
+#endif
+#ifndef UVW_LEVELS
+#define UVW_LEVELS 2
 #endif
 constexpr int THREADS = DSS_THREADS;
 constexpr int LEVELS = DSS_LEVELS;  // consecutive levels handled by one thread
@@ -245,6 +269,164 @@ __global__ void dss_vector_kernel(const T* __restrict__ u,
   }
 }
 
+// The raw (pre-DSS) W of the stage finish, assembled where it is read.
+template <typename T>
+struct WFinish {
+  const T* bw1;
+  const T* bw2;  // null for a single base: W base is then bw1, unscaled
+  const T* dw;
+  const T* u;
+  const T* v;
+  const T* cax0;
+  const T* cbx0;
+  const T* cxx0;
+  T dt_s, cb1, cb2, c00, c01;
+  int nz;
+  long long slab;   // A * B
+  long long level;  // P * A * B
+
+  // interface k, panel pn, node offset o inside the panel slab.  BOTTOM is
+  // k == 0: a level's gathers all take the same branch, chosen once a level.
+  template <bool BOTTOM>
+  __device__ __forceinline__ T at(int k, int pn, int o) const {
+    const long long i = (long long)pn * slab + o;
+    if (BOTTOM) {
+      const T u0 = c00 * u[i] + c01 * u[level + i];
+      const T v0 = c00 * v[i] + c01 * v[level + i];
+      return -(cax0[i] * u0 + cbx0[i] * v0) / cxx0[i];
+    }
+    const long long j = (long long)k * level + i;
+    T w = bw2 ? cb1 * bw1[j] + cb2 * bw2[j] : bw1[j];
+    if (k < nz) w += dt_s * dw[j];
+    return w;
+  }
+
+  template <bool BOTTOM>
+  __device__ __forceinline__ T pair_sum(int k, int pn,
+                                        const PairNodes& n) const {
+    T s = at<BOTTOM>(k, pn, n.o);
+    if (n.o_a >= 0) s += at<BOTTOM>(k, pn, n.o_a);
+    if (n.o_b >= 0) {
+      T s2 = at<BOTTOM>(k, pn, n.o_b);
+      if (n.o_ab >= 0) s2 += at<BOTTOM>(k, pn, n.o_ab);
+      s += s2;
+    }
+    return s;
+  }
+
+  // the pair-summed W at the thread's own node plus its edge partners'
+  template <bool BOTTOM>
+  __device__ __forceinline__ T gather(int k, int pa, const PairNodes& own,
+                                      const EdgeTerms& et) const {
+    T s = pair_sum<BOTTOM>(k, pa, own);
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+      if (n < et.count) s += pair_sum<BOTTOM>(k, et.panel[n], et.nodes[n]);
+    return s;
+  }
+};
+
+// U, V have nz levels, W nz + 1 interfaces; the grid's z blocks cover nz + 1.
+template <typename T>
+__global__ void dss_uvw_kernel(WFinish<T> wf, const T* __restrict__ imult,
+                               const T* __restrict__ rot,
+                               const int* __restrict__ table,
+                               T* __restrict__ uo, T* __restrict__ vo,
+                               T* __restrict__ wo, int P, int A, int B, int p,
+                               int nlinks) {
+  const int node = blockIdx.x * blockDim.x + threadIdx.x;
+  if (node >= A * B) return;
+  const int a = node / B;
+  const int b = node - a * B;
+  const int pa = blockIdx.y;
+  const long long slab = wf.slab;
+  const int nz = wf.nz;
+
+  const PairNodes own = pair_nodes(a, b, A, B, p);
+  const EdgeTerms et = edge_terms(table, pa, a, b, A, B, p);
+  const T w = imult[pa * slab + node];
+  T r[2][4] = {};
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+    if (n < et.count) {
+      const long long base = (long long)et.link[n] * A + et.pos[n];
+      const long long stride = (long long)nlinks * A;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) r[n][c] = rot[base + c * stride];
+    }
+  }
+
+  constexpr int LEVELS = UVW_LEVELS;
+  const int k0 = blockIdx.z * LEVELS;
+  T su[LEVELS], sv[LEVELS], sw[LEVELS];
+#pragma unroll
+  for (int kk = 0; kk < LEVELS; ++kk) {
+    const int kw = min(k0 + kk, nz);       // interface of W
+    const int k = min(k0 + kk, nz - 1);    // level of U, V
+    const long long off = (long long)k * wf.level;
+    su[kk] = pair_sum(wf.u + off + pa * slab, own);
+    sv[kk] = pair_sum(wf.v + off + pa * slab, own);
+    // only the first level of the first block can be the bottom interface
+    sw[kk] = (kk == 0 && kw == 0) ? wf.template gather<true>(kw, pa, own, et)
+                                  : wf.template gather<false>(kw, pa, own, et);
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      if (n < et.count) {
+        const T lu = pair_sum(wf.u + off + et.panel[n] * slab, et.nodes[n]);
+        const T lv = pair_sum(wf.v + off + et.panel[n] * slab, et.nodes[n]);
+        su[kk] += r[n][0] * lu + r[n][1] * lv;
+        sv[kk] += r[n][2] * lu + r[n][3] * lv;
+      }
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < LEVELS; ++kk) {
+    const int k = k0 + kk;
+    const long long o = (long long)k * wf.level + pa * slab + node;
+    if (k < nz) {
+      uo[o] = su[kk] * w;
+      vo[o] = sv[kk] * w;
+    }
+    if (k <= nz) wo[o] = sw[kk] * w;
+  }
+}
+
+template <typename T>
+int launch_uvw(const void* u, const void* v, const void* bw1, const void* bw2,
+               const void* dw, const void* cax0, const void* cbx0,
+               const void* cxx0, const void* imult, const void* rot,
+               const void* table, void* uo, void* vo, void* wo, double dt_s,
+               double cb1, double cb2, double c00, double c01, int nz, int P,
+               int A, int B, int p, int nlinks, void* stream) {
+  if (nz < 2) return -1;  // the bottom row reads levels 0 and 1
+  if (P > 0 && A > 0 && B > 0) {
+    WFinish<T> wf;
+    wf.bw1 = (const T*)bw1;
+    wf.bw2 = (const T*)bw2;
+    wf.dw = (const T*)dw;
+    wf.u = (const T*)u;
+    wf.v = (const T*)v;
+    wf.cax0 = (const T*)cax0;
+    wf.cbx0 = (const T*)cbx0;
+    wf.cxx0 = (const T*)cxx0;
+    wf.dt_s = (T)dt_s;
+    wf.cb1 = (T)cb1;
+    wf.cb2 = (T)cb2;
+    wf.c00 = (T)c00;
+    wf.c01 = (T)c01;
+    wf.nz = nz;
+    wf.slab = (long long)A * B;
+    wf.level = (long long)P * A * B;
+    const dim3 grid((unsigned)((A * B + UVW_THREADS - 1) / UVW_THREADS),
+                    (unsigned)P,
+                    (unsigned)((nz + 1 + UVW_LEVELS - 1) / UVW_LEVELS));
+    dss_uvw_kernel<T><<<grid, UVW_THREADS, 0, (cudaStream_t)stream>>>(
+        wf, (const T*)imult, (const T*)rot, (const int*)table, (T*)uo, (T*)vo,
+        (T*)wo, P, A, B, p, nlinks);
+  }
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_scalar(const void* x, const void* imult, const void* table,
                   void* out, int K, int P, int A, int B, int p, void* stream) {
@@ -303,6 +485,30 @@ int dss_vector_f64(const void* u, const void* v, const void* imult,
                    void* stream) {
   return launch_vector<double>(u, v, imult, rot, table, uo, vo, K, P, A, B, p,
                                nlinks, stream);
+}
+
+// bw2 may be null (single base).  Returns cudaGetLastError(), or -1 when
+// nz < 2.
+int dss_uvw_f32(const void* u, const void* v, const void* bw1, const void* bw2,
+                const void* dw, const void* cax0, const void* cbx0,
+                const void* cxx0, const void* imult, const void* rot,
+                const void* table, void* uo, void* vo, void* wo, double dt_s,
+                double cb1, double cb2, double c00, double c01, int nz, int P,
+                int A, int B, int p, int nlinks, void* stream) {
+  return launch_uvw<float>(u, v, bw1, bw2, dw, cax0, cbx0, cxx0, imult, rot,
+                           table, uo, vo, wo, dt_s, cb1, cb2, c00, c01, nz, P,
+                           A, B, p, nlinks, stream);
+}
+
+int dss_uvw_f64(const void* u, const void* v, const void* bw1, const void* bw2,
+                const void* dw, const void* cax0, const void* cbx0,
+                const void* cxx0, const void* imult, const void* rot,
+                const void* table, void* uo, void* vo, void* wo, double dt_s,
+                double cb1, double cb2, double c00, double c01, int nz, int P,
+                int A, int B, int p, int nlinks, void* stream) {
+  return launch_uvw<double>(u, v, bw1, bw2, dw, cax0, cbx0, cxx0, imult, rot,
+                            table, uo, vo, wo, dt_s, cb1, cb2, c00, c01, nz, P,
+                            A, B, p, nlinks, stream);
 }
 
 }  // extern "C"

@@ -9,17 +9,25 @@ on the 6 cubed-sphere panels.  Execution shape:
 
 - **vertical column operators** contract the LEADING level axis — clean
   ``(K, nz) @ (nz, 6*A*B)`` GEMMs, no layout churn;
-- **horizontal derivatives** are dense block-diagonal ``(A, A)`` GEMMs over
-  the whole field (``engine.horizontal_tendency``, plain tensor code);
+- **the explicit stage** as one hand-written CUDA kernel (``stage_cuda``):
+  vertical stencils, element-local horizontal derivatives from
+  shared-memory tiles, the tendencies, the RK base combination and the axpy;
+  on the unfused path the same stage is plain tensor code with dense
+  block-diagonal ``(A, A)`` GEMMs (``engine.horizontal_tendency``);
 - **DSS as hand-written CUDA kernels** (``dss_cuda``): a gather with one
   thread per node, one launch per field (the (U, V) pair in one launch
-  with the covariant rotation);
-- **the implicit solve** (``implicit``): column aux -> residual -> analytic
-  banded Jacobian in plain tensor code, then the hand-written banded LU
-  kernel (``ops/cuda_banded``), one thread per column.
+  with the covariant rotation; on the fused path W joins that launch with
+  the stage's W finish folded in);
+- **the implicit solve** (``implicit``): on the fused path each Newton
+  iteration is one hand-written kernel (``implicit_cuda``: residual,
+  analytic banded Jacobian and banded LU, one thread per column); on the
+  unfused path the residual and the Jacobian are plain tensor code and the
+  solve is the hand-written banded LU kernel (``ops/cuda_banded``).
 
-The fused stage, nu4 and implicit kernels of the JAX package, tracers,
-Cartesian grids and the device-mesh engine are not ported yet.
+``make_fast_step`` chooses between the two paths by predicates on the
+configuration (``fused=False`` forces the unfused one).  The fused nu4
+kernels of the JAX package, tracers, Cartesian grids and the device-mesh
+engine are not ported yet.
 """
 
 from .engine import (FastGeometry, build_fast_geometry, pack_state,

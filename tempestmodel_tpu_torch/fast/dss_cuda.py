@@ -2,7 +2,7 @@
 their plain versions.
 
 Counterpart of the JAX package's ``fast/dss_pallas.py`` (``dss_scalar``,
-``dss_vector``).  DSS (direct stiffness summation) replaces every group of
+``dss_vector``, ``dss_uvw``).  DSS (direct stiffness summation) replaces every group of
 coincident GLL nodes by its mean: interior element pair sums inside each
 panel (along a, then b), plus the 24 panel-edge link lines taken from the
 PAIR-SUMMED neighbour panel (reversed where ``flip``; rotated by the
@@ -14,8 +14,14 @@ The kernels (``csrc/dss.cu``) are gathers with one thread per output node;
 see the note there for the design and the bound on the card.  Fields are
 z-first ``(K, 6, A, B)``.
 
-``dss_scalar`` / ``dss_vector`` launch the kernel for CUDA tensors — or
-raise — and run the plain version only for tensors that lie on the CPU.
+``dss_uvw`` is the DSS of U, V and W in one launch with the explicit
+stage's W finish folded in (``w_finish_plain`` says what that is): W is
+assembled from the stage's outputs wherever the gather reads it and is never
+stored before its DSS.
+
+``dss_scalar`` / ``dss_vector`` / ``dss_uvw`` launch the kernel for CUDA
+tensors — or raise — and run the plain version only for tensors that lie on
+the CPU.
 """
 
 from __future__ import annotations
@@ -86,6 +92,33 @@ def dss_vector_plain(u, v, imult, rot, links, p: int):
         _edge_view(ov, pa, e).add_(rot[2, i][None] * lu + rot[3, i][None] * lv)
     w = imult[None]
     return ou * w, ov * w
+
+
+def w_finish_plain(u, v, wf):
+    """The W of an explicit stage from its deferred finish ``wf`` (the dict
+    that ``fused_stage(defer_w=True)`` returns): W = base + dt_s * dW with
+    dW masked to the interior interfaces, base = ``bw1`` or ``cb1 * bw1 +
+    cb2 * bw2``, and the diagnostic bottom row from u^xi(surface) = 0 with
+    the post-stage, pre-DSS ``u``, ``v`` at levels 0 and 1.  Returns a fresh
+    tensor."""
+    dW = wf["dW"].clone()
+    dW[0] = 0.0
+    dW[-1] = 0.0
+    base = wf["bw1"] if wf.get("bw2") is None else (
+        wf["cb1"] * wf["bw1"] + wf["cb2"] * wf["bw2"])
+    w = base + wf["dt_s"] * dW
+    u0 = wf["c00"] * u[0] + wf["c01"] * u[1]
+    v0 = wf["c00"] * v[0] + wf["c01"] * v[1]
+    w[0] = -(wf["cax0"] * u0 + wf["cbx0"] * v0) / wf["cxx0"]
+    return w
+
+
+def dss_uvw_plain(u, v, imult, rot, links, p: int, w_finish):
+    """Plain PyTorch version of ``dss_uvw``: the W finish, then the vector
+    DSS of (U, V) and the scalar DSS of W."""
+    w = w_finish_plain(u, v, w_finish)
+    uo, vo = dss_vector_plain(u, v, imult, rot, links, p)
+    return uo, vo, dss_scalar_plain(w, imult, links, p)
 
 
 # ---------------------------------------------------------------------------
@@ -201,3 +234,72 @@ def dss_vector(u, v, imult, rot, links, p: int, wrap=(False, False),
                            f"(cudaGetLastError = {err})")
     launch_counts["dss_vector"] += 1
     return uo, vo
+
+
+def _check_w_finish(wf, u):
+    K, P, A, B = u.shape
+    for key in ("bw1", "dW"):
+        _check_field(key, wf[key])
+    bw2 = wf.get("bw2")
+    fields = [wf["bw1"], wf["dW"]] + ([] if bw2 is None else [bw2])
+    if bw2 is not None:
+        _check_field("bw2", bw2)
+    for f in fields:
+        if tuple(f.shape) != (K + 1, P, A, B) or f.dtype != u.dtype \
+                or f.device != u.device:
+            raise ValueError("bw1, bw2 and dW must be (K+1, P, A, B) tensors "
+                             "of the fields' dtype and device")
+    for key in ("cax0", "cbx0", "cxx0"):
+        m = wf[key]
+        if tuple(m.shape) != (P, A, B) or m.dtype != u.dtype \
+                or m.device != u.device or not m.is_contiguous():
+            raise ValueError(f"{key} must be a contiguous (P, A, B) tensor "
+                             f"of the fields' dtype and device")
+    if K < 2:
+        raise ValueError("the bottom row reads levels 0 and 1: K >= 2")
+
+
+def dss_uvw(u, v, imult, rot, links, p: int, w_finish, wrap=(False, False),
+            table=None):
+    """DSS of (U, V, W) in one kernel launch with the W stage finish folded
+    in; returns ``(u, v, w)``.  ``w_finish``: see ``w_finish_plain``."""
+    _check_field("u", u)
+    _check_field("v", v, ref=u)
+    table = _check_common(u, imult, links, p, wrap, table)
+    K, P, A, B = u.shape
+    if tuple(rot.shape) != (4, len(links), A) or rot.dtype != u.dtype \
+            or rot.device != u.device or not rot.is_contiguous():
+        raise ValueError("rot must be a contiguous (4, nlinks, A) tensor of "
+                         "the fields' dtype and device")
+    _check_w_finish(w_finish, u)
+    if u.device.type == "cpu":
+        return dss_uvw_plain(u, v, imult, rot, links, p, w_finish)
+    if u.device.type != "cuda":
+        raise ValueError(f"unsupported device {u.device}")
+    return _dss_uvw_cuda(u, v, imult, rot, table, p, len(links), w_finish)
+
+
+def _dss_uvw_cuda(u, v, imult, rot, table, p, nlinks, wf):
+    K, P, A, B = u.shape
+    bw2 = wf.get("bw2")
+    lib = build.library("dss")
+    fn = lib.dss_uvw_f32 if u.dtype == torch.float32 else lib.dss_uvw_f64
+    with torch.cuda.device(u.device):
+        uo = torch.empty_like(u)
+        vo = torch.empty_like(v)
+        wo = torch.empty_like(wf["dW"])
+        err = fn(u.data_ptr(), v.data_ptr(), wf["bw1"].data_ptr(),
+                 None if bw2 is None else bw2.data_ptr(),
+                 wf["dW"].data_ptr(), wf["cax0"].data_ptr(),
+                 wf["cbx0"].data_ptr(), wf["cxx0"].data_ptr(),
+                 imult.data_ptr(), rot.data_ptr(), table.data_ptr(),
+                 uo.data_ptr(), vo.data_ptr(), wo.data_ptr(),
+                 float(wf["dt_s"]), float(wf.get("cb1", 1.0)),
+                 float(wf.get("cb2", 0.0)), float(wf["c00"]),
+                 float(wf["c01"]), K, P, A, B, p, nlinks,
+                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"dss_uvw kernel launch failed "
+                           f"(cudaGetLastError = {err})")
+    launch_counts["dss_uvw"] += 1
+    return uo, vo, wo

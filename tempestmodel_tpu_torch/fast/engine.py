@@ -6,16 +6,21 @@ on one device.  The execution shape is that package's:
   state dict {U,V,Rt,W,Rho} of (6, A, B, nz[+1])
     ->  fast state dict of (nz[+1], 6, A, B)   ("z-first")
 
-so that vertical column operators are clean leading-axis GEMMs, horizontal
-derivatives are dense block-diagonal (A, A) GEMMs over the whole field,
-DSS is one hand-written kernel per field (``fast/dss_cuda``), and the
-implicit solve ends in the hand-written banded kernel
-(``ops/cuda_banded``).  The step runs eagerly: there is no jit.
+so that vertical column operators are clean leading-axis GEMMs and DSS is
+one hand-written kernel per field (``fast/dss_cuda``).  ``make_fast_step``
+has two paths, chosen by predicates on the configuration.  The fused path
+(the flagship's) runs each explicit stage as one hand-written kernel
+(``fast/stage_cuda``), folds the stage's W finish into the (U, V, W) DSS
+launch, and does each Newton iteration of the implicit solve in one
+hand-written kernel (``fast/implicit_cuda``).  The unfused path takes the
+horizontal derivatives as dense block-diagonal (A, A) GEMMs over the whole
+field, assembles the banded Jacobian in plain tensor code and ends in the
+hand-written banded kernel (``ops/cuda_banded``).  The nu4 tail is plain
+tensor code on both.  The step runs eagerly: there is no jit.
 
 Not ported yet (they wait in the roadmap, none is declared unnecessary):
 Cartesian grids and the (a, b)-swapped layout, tracers, the device-mesh
-engine, ``make_fast_multistep``, IMEX, and the fused stage / nu4 /
-implicit kernels with the (U, V, W) DSS that needs the fused stage.
+engine, ``make_fast_multistep``, IMEX, and the fused nu4 kernels.
 
 Where the JAX code writes ``x.at[i].set(v)``, this one writes in place on
 a fresh tensor (a clone or a new result), never on an argument.
@@ -365,30 +370,56 @@ def colop(M, f):
 # DSS (hand-written kernels; see fast/dss_cuda.py)
 # ---------------------------------------------------------------------------
 
-def apply_dss(d, fg: FastGeometry, rayleigh=None, plain: bool = False):
+def w_finish_xla(d, wf):
+    """The W of an explicit stage from its deferred finish (the plain form
+    of what ``dss_cuda.dss_uvw`` folds into its launch; the name is the JAX
+    package's): see ``dss_cuda.w_finish_plain``."""
+    return dss_cuda.w_finish_plain(d["U"], d["V"], wf)
+
+
+def apply_dss(d, fg: FastGeometry, rayleigh=None, plain: bool = False,
+              w_finish=None):
     """DSS of the full fast state (U/V rotate as a covariant pair).
 
-    Four launches (vector pair + 3 scalars), the JAX package's unfused
-    branch.  Whether one launch for all five fields is faster on this card
-    is not measured yet (``dss_state`` waits in the roadmap).
+    Four launches (vector pair + 3 scalars).  Whether one launch for all
+    five fields is faster on this card is not measured yet (``dss_state``
+    waits in the roadmap).
+
+    ``w_finish``: the deferred W stage finish of
+    ``stage_cuda.fused_stage(defer_w=True)``; ``d`` then has no W, which is
+    assembled, bottom-bounded and DSSed inside the (U, V) launch
+    (``dss_cuda.dss_uvw``): three launches.
 
     ``plain=True`` runs the kernels' plain PyTorch versions whatever the
     device: it exists so that a run can hold the kernel path against the
     plain path on the card.  The default launches the kernels for CUDA
     tensors (or raises) and runs the plain versions for CPU tensors."""
+    scalars = ("Rt", "Rho") if w_finish is not None else ("W", "Rt", "Rho")
     if plain:
-        u, v = dss_cuda.dss_vector_plain(d["U"], d["V"], fg.inv_mult,
-                                         fg.e_rot, fg.dss_links, fg.p)
-        out = {"U": u, "V": v}
-        for k in ("W", "Rt", "Rho"):
+        if w_finish is not None:
+            u, v, w = dss_cuda.dss_uvw_plain(
+                d["U"], d["V"], fg.inv_mult, fg.e_rot, fg.dss_links, fg.p,
+                w_finish)
+            out = {"U": u, "V": v, "W": w}
+        else:
+            u, v = dss_cuda.dss_vector_plain(d["U"], d["V"], fg.inv_mult,
+                                             fg.e_rot, fg.dss_links, fg.p)
+            out = {"U": u, "V": v}
+        for k in scalars:
             out[k] = dss_cuda.dss_scalar_plain(d[k], fg.inv_mult,
                                                fg.dss_links, fg.p)
     else:
-        u, v = dss_cuda.dss_vector(d["U"], d["V"], fg.inv_mult, fg.e_rot,
-                                   fg.dss_links, fg.p, wrap=fg.wrap,
-                                   table=fg.dss_table)
-        out = {"U": u, "V": v}
-        for k in ("W", "Rt", "Rho"):
+        if w_finish is not None:
+            u, v, w = dss_cuda.dss_uvw(
+                d["U"], d["V"], fg.inv_mult, fg.e_rot, fg.dss_links, fg.p,
+                w_finish, wrap=fg.wrap, table=fg.dss_table)
+            out = {"U": u, "V": v, "W": w}
+        else:
+            u, v = dss_cuda.dss_vector(d["U"], d["V"], fg.inv_mult, fg.e_rot,
+                                       fg.dss_links, fg.p, wrap=fg.wrap,
+                                       table=fg.dss_table)
+            out = {"U": u, "V": v}
+        for k in scalars:
             out[k] = dss_cuda.dss_scalar(d[k], fg.inv_mult, fg.dss_links,
                                          fg.p, wrap=fg.wrap,
                                          table=fg.dss_table)
@@ -401,9 +432,12 @@ def apply_dss(d, fg: FastGeometry, rayleigh=None, plain: bool = False):
 # Nonhydrostatic tendencies (LOR staggering)
 # ---------------------------------------------------------------------------
 
-def horizontal_tendency(d, fg: FastGeometry, constants: PhysicalConstants):
+def horizontal_tendency(d, fg: FastGeometry, constants: PhysicalConstants,
+                        mask_w: bool = True):
     """Horizontal tendencies of the five fields (LOR staggering), with the
-    vertical penalty upwinding of U/V folded into the U/V rows."""
+    vertical penalty upwinding of U/V folded into the U/V rows.
+    ``mask_w=False`` leaves the bottom and top rows of the W tendency as the
+    interpolation gives them (the deferred W finish masks them later)."""
     nz = fg.nz
     u, v = d["U"], d["V"]
     rt, rho, w = d["Rt"], d["Rho"], d["W"]
@@ -456,8 +490,9 @@ def horizontal_tendency(d, fg: FastGeometry, constants: PhysicalConstants):
     dRt = -div_rt / fg.jac3d
 
     dW = colop(fg.interp_n2i, ucz_x)      # a fresh tensor
-    dW[0] = 0.0                           # written in place
-    dW[-1] = 0.0
+    if mask_w:
+        dW[0] = 0.0                       # written in place
+        dW[-1] = 0.0
 
     # --- vertical explicit penalty upwinding of U/V (per unit dt) --------
     u_i = colop(fg.interp_n2i, u)
@@ -639,9 +674,14 @@ def _rayleigh_terms(cfg: ModelConfig, geom, ref_state, fg):
 
 
 def _strang_fns(cfg: ModelConfig, fg: FastGeometry, rayleigh, dss_fn,
-                implicit_fn):
+                implicit_fn, stage_fn=None, use_wfold: bool = False):
     """The Strang-HEVI step on z-first state, parameterized over the DSS
     and implicit-solve implementations.
+
+    ``stage_fn(base, ueval, dt_s, defer_w=False)``: the fused explicit stage
+    (``stage_cuda.fused_stage`` bound to the geometry); None runs the stage
+    as plain tensor code.  ``use_wfold``: hand the fused stage's W finish to
+    ``dss_fn(..., w_finish=)``.
 
     Returns (first_fn, step_fn): first_fn(d) -> (d, carry),
     step_fn(d, carry) -> (d, carry).  Neither changes its arguments.
@@ -659,7 +699,13 @@ def _strang_fns(cfg: ModelConfig, fg: FastGeometry, rayleigh, dss_fn,
             lambda *xs: sum(c * x for c, x in zip(coeffs, xs)), *states)
 
     def stage(base, ueval, dt_s):
-        """base: state dict or 2-term ((c1, d1), (c2, d2)) combination."""
+        """base: state dict or 2-term ((c1, d1), (c2, d2)) combination
+        (combined inside the fused stage kernel on the fused path)."""
+        if stage_fn is not None:
+            if use_wfold:
+                upd, wfin = stage_fn(base, ueval, dt_s, defer_w=True)
+                return dss_fn(upd, w_finish=wfin)
+            return dss_fn(stage_fn(base, ueval, dt_s))
         bb = comb(*base) if isinstance(base, tuple) else base
         tend = horizontal_tendency(ueval, fg, constants)
         upd = axpy({k: bb[k] for k in FIELDS}, tend, dt_s)   # fresh tensors
@@ -731,18 +777,29 @@ def _strang_fns(cfg: ModelConfig, fg: FastGeometry, rayleigh, dss_fn,
 
 def make_fast_step(cfg: ModelConfig, geom: CubedSphereGeometry,
                    ref_state=None, mesh=None, ntracers: int = 0,
-                   device=None, plain: bool = False):
+                   device=None, plain: bool = False, fused=None):
     """(first_step, step) on the fast state: step(d, carry) -> (d, carry).
 
     The state tensors must lie on ``device`` (default ``cuda``; raises when
-    absent).  The step runs eagerly.  With ``cfg.vertical_solver ==
-    "pallas"`` the implicit solve goes through the hand-written banded
-    kernel; the DSS always goes through the hand-written DSS kernels.
-    ``plain=True`` swaps every kernel for its plain PyTorch version on the
-    same device (a check of the kernel path, not a fallback: nothing
-    selects it automatically).
+    absent).  The step runs eagerly.
+
+    ``fused=None`` chooses the path by predicates on the configuration, as
+    the JAX package does: the fused stage kernel where
+    ``stage_cuda.stage_supported`` holds, its W finish folded into the
+    (U, V, W) DSS where the surface interpolant reads levels 0 and 1 only,
+    and — with ``cfg.vertical_solver == "pallas"`` — the fused implicit
+    kernel where ``implicit_cuda.fused_supported`` holds.  ``fused=False``
+    forces the unfused path: the stage and the Jacobian assembly as plain
+    tensor code, the implicit solve through the banded kernel.  Nothing
+    chooses a path because a kernel failed to build or launch.  The DSS
+    always goes through the hand-written DSS kernels.
+
+    ``plain=True`` swaps every kernel of the chosen path for its plain
+    PyTorch version on the same device (a check of the kernel path, not a
+    fallback: nothing selects it automatically).
     """
     from . import implicit as fimp
+    from . import implicit_cuda, stage_cuda
 
     if mesh is not None or ntracers:
         raise NotImplementedError(
@@ -762,14 +819,42 @@ def make_fast_step(cfg: ModelConfig, geom: CubedSphereGeometry,
     rayleigh = _rayleigh_terms(cfg, geom, ref_state, fg)
     saux = fimp.static_aux(fg)
 
+    # The path.  The JAX package's stage predicate also asks for p | 8 and
+    # 8 | A: those are the TPU kernel's tiles.  What is about the math stays
+    # (vertical order 1, the row test of the W fold); the rest is what the
+    # CUDA kernels take (stage_supported, fused_supported).
+    # use_fused_hyper stays off: the nu4 kernels are not ported yet, so the
+    # tail runs as plain tensor code on both paths.
+    fused = fused is None or bool(fused)
+    use_fused_stage = fused and stage_cuda.stage_supported(fg)
+    # fold the W stage finish into the (U, V) DSS launch when the surface
+    # interpolant row only reads the bottom two levels
+    In0 = np.asarray(geom.interp_n2i)[0]
+    use_wfold = (use_fused_stage and len(In0) >= 2
+                 and not np.any(In0[2:]))
+    ist = implicit_cuda.implicit_statics(statics, fg) \
+        if fused and use_pallas else None
+
+    stage_fn = None
+    if use_fused_stage:
+        sst = stage_cuda.stage_statics(fg)
+
+        def stage_fn(base, ueval, dt_s, defer_w=False):
+            if plain:
+                return stage_cuda.fused_stage_plain(
+                    base, ueval, dt_s, fg, constants, defer_w=defer_w)
+            return stage_cuda.fused_stage(base, ueval, dt_s, fg, constants,
+                                          defer_w=defer_w, statics=sst)
+
     def implicit_fn(d, dti):
         return fimp.vertical_implicit(
             d, fg, constants, dti, q, statics,
             newton_iters=cfg.newton_iterations, use_pallas=use_pallas,
             ref_jacobian=(cfg.jacobian_mode == "reference"), saux=saux,
-            plain=plain)
+            plain=plain, ist=ist)
 
     return _strang_fns(
         cfg, fg, rayleigh,
-        lambda d, rayleigh=None: apply_dss(d, fg, rayleigh, plain=plain),
-        implicit_fn)
+        lambda d, rayleigh=None, w_finish=None: apply_dss(
+            d, fg, rayleigh, plain=plain, w_finish=w_finish),
+        implicit_fn, stage_fn=stage_fn, use_wfold=use_wfold)

@@ -1,11 +1,15 @@
 """Channel-stacked HEVI vertical implicit solve (LOR staggering).
 
-Counterpart of the JAX package's ``fast/implicit.py`` (its unfused
-branch): the column residual, the analytic banded Jacobian and the Newton
-update in the leading-channel layout.  Every column operator application
-is a clean ``(K, nz) @ (nz, ncol)`` GEMM, the Newton system interleave is
-a reshape (not a gather), and the banded solve is the hand-written kernel
-of ``ops/cuda_banded`` — its ``(n, 2q+1, ncol)`` layout is native here.
+Counterpart of the JAX package's ``fast/implicit.py``: the column
+residual, the analytic banded Jacobian and the Newton update in the
+leading-channel layout.  ``vertical_implicit`` has two branches, chosen by
+a predicate on the configuration.  The fused one hands each Newton
+iteration to the hand-written kernel of ``implicit_cuda`` (residual,
+Jacobian and banded LU in one launch; the band tensor never exists).  In
+the unfused one every column operator application is a clean ``(K, nz) @
+(nz, ncol)`` GEMM, the Newton system interleave is a reshape (not a
+gather), and the banded solve is the hand-written kernel of
+``ops/cuda_banded`` — its ``(n, 2q+1, ncol)`` layout is native here.
 
 Semantics (including the ``ref_jacobian`` reference-Jacobian mode and the
 AD-subgradient sign conventions) match the JAX package's.  Where that code
@@ -22,6 +26,7 @@ import torch
 from ..models.nonhydro import exner_from_rhotheta, _zero_ends
 from ..models.vertical_banded import banded_solve_t
 from ..ops.cuda_banded import banded_solve
+from . import implicit_cuda
 from .engine import FastGeometry
 
 
@@ -59,8 +64,19 @@ def static_aux(fg: FastGeometry):
     }
 
 
-def _prep_aux(d, fg: FastGeometry, saux=None):
-    """Fixed per-column inputs of the implicit system, (rows, ncol)."""
+def interface_aux(u_n, v_n, fg: FastGeometry):
+    """Interface interpolants and derivatives of the column velocities."""
+    ni = fg.interp_n2i.shape[0]
+    big_u = fg.n2i_stack @ u_n        # one GEMM: [interp_n2i; diff_n2i]
+    big_v = fg.n2i_stack @ v_n
+    return {"u_i": big_u[:ni], "v_i": big_v[:ni],
+            "du_i": big_u[ni:], "dv_i": big_v[ni:]}
+
+
+def _prep_aux(d, fg: FastGeometry, saux=None, interfaces: bool = True):
+    """Fixed per-column inputs of the implicit system, (rows, ncol).
+    ``interfaces=False`` leaves out the interface interpolants of U, V
+    (the fused kernel takes them itself)."""
     U = d["U"]
     Q = U.shape[1] * U.shape[2] * U.shape[3]
 
@@ -69,18 +85,11 @@ def _prep_aux(d, fg: FastGeometry, saux=None):
 
     u_n = fl(U)
     v_n = fl(d["V"])
-    ni = fg.interp_n2i.shape[0]
-    big_u = fg.n2i_stack @ u_n        # one GEMM: [interp_n2i; diff_n2i]
-    big_v = fg.n2i_stack @ v_n
-    u_i = big_u[:ni]
-    v_i = big_v[:ni]
-    du_i = big_u[ni:]
-    dv_i = big_v[ni:]
-
     if saux is None:
         saux = static_aux(fg)
-    aux = dict(saux, u_n=u_n, v_n=v_n, u_i=u_i, v_i=v_i,
-               du_i=du_i, dv_i=dv_i)
+    aux = dict(saux, u_n=u_n, v_n=v_n)
+    if interfaces:
+        aux.update(interface_aux(u_n, v_n, fg))
     x_parts = (fl(d["Rt"]), fl(d["W"]), fl(d["Rho"]))
     return x_parts, aux
 
@@ -341,32 +350,49 @@ def _deinterleave(dx, nz):
 def vertical_implicit(d, fg: FastGeometry, constants, dt, q, statics,
                       newton_iters: int = 1, use_pallas: bool = True,
                       ref_jacobian: bool = False, saux=None,
-                      plain: bool = False):
+                      plain: bool = False, ist=None):
     """Batched Newton-banded implicit update of (Rt, W, Rho).
 
     ``use_pallas`` (the JAX package's name, from
-    ``vertical_solver="pallas"``): solve with the hand-written kernel of
-    ``ops/cuda_banded`` (which runs its plain version for CPU tensors).
-    Otherwise, and with ``plain=True`` (a check of the kernel path against
-    the plain one on the same device), solve with the plain
-    ``banded_solve_t``.
+    ``vertical_solver="pallas"``) asks for the hand-written kernels.
+    ``ist``: ``implicit_cuda.implicit_statics(statics, fg)``; when it is
+    given and the configuration is inside the fused kernel's envelope
+    (``implicit_cuda.fused_supported``: a statement about the configuration
+    only), each Newton iteration is one launch of
+    ``implicit_cuda.fused_implicit_update``.  Otherwise the band tensor is
+    assembled in plain tensor code and solved by the kernel of
+    ``ops/cuda_banded``.  Either wrapper runs its plain version for CPU
+    tensors.  Without ``use_pallas``, and with ``plain=True`` (a check of
+    the kernel path against the plain one on the same device), the plain
+    versions run on whatever device the tensors lie.
     ``saux``: precomputed ``static_aux(fg)``."""
     nz = fg.nz
     shp = d["U"].shape[1:]
-    x0_parts, aux = _prep_aux(d, fg, saux)
+    fused = (use_pallas and ist is not None
+             and implicit_cuda.fused_supported(ist))
+    # the fused kernel takes the interface interpolants itself (its plain
+    # version makes them when they are missing)
+    x0_parts, aux = _prep_aux(d, fg, saux, interfaces=not fused)
 
     x_parts = x0_parts
-    for _ in range(newton_iters):
-        f_rt, f_w, f_rho = residual_lor(
-            x_parts, x0_parts, aux, fg, constants, dt)
-        f = _interleave(f_rt, f_w, f_rho, nz)
-        bands = assemble_bands(x_parts, aux, fg, statics, constants, dt,
-                               ref_jacobian=ref_jacobian)
-        if use_pallas and not plain:
-            dx = banded_solve(bands, f, q)
+    for it in range(newton_iters):
+        if fused:
+            update = (implicit_cuda.fused_implicit_update_plain if plain
+                      else implicit_cuda.fused_implicit_update)
+            d_rt, d_w, d_rho = update(
+                x_parts, x0_parts, aux, ist, dt, constants,
+                ref_jacobian=ref_jacobian, newton_time_term=(it > 0))
         else:
-            dx = banded_solve_t(bands, f, q)
-        d_rt, d_w, d_rho = _deinterleave(dx, nz)
+            f_rt, f_w, f_rho = residual_lor(
+                x_parts, x0_parts, aux, fg, constants, dt)
+            f = _interleave(f_rt, f_w, f_rho, nz)
+            bands = assemble_bands(x_parts, aux, fg, statics, constants, dt,
+                                   ref_jacobian=ref_jacobian)
+            if use_pallas and not plain:
+                dx = banded_solve(bands, f, q)
+            else:
+                dx = banded_solve_t(bands, f, q)
+            d_rt, d_w, d_rho = _deinterleave(dx, nz)
         x_parts = (x_parts[0] - d_rt, x_parts[1] - d_w,
                    x_parts[2] - d_rho)
 

@@ -1,0 +1,288 @@
+"""One explicit RK stage of the nonhydrostatic dynamics in one kernel: the
+CUDA kernel's wrapper and its plain version.
+
+Counterpart of the JAX package's ``fast/stage_pallas.py``
+(``fused_stage``).  One launch computes, for every node and level, the
+vertical 2-3-diagonal operators (w_n, du/dxi, dv/dxi, the interface
+velocity and the penalty upwinding), the element-local horizontal
+derivatives, the vector-invariant momentum, Exner-gradient and buoyancy
+tendencies, the weak-form Rt/Rho flux divergences, the two-term RK base
+combination and the axpy; it writes the updated U, V, Rt, Rho and the
+vertical curl term ``ucz_x``.  W follows outside the kernel: ``dW =
+interp_n2i @ ucz_x`` is one matrix product, and the W finish is either
+applied here (``defer_w=False``) or handed to ``dss_cuda.dss_uvw``
+(``defer_w=True``), which folds it into the (U, V, W) DSS.
+
+The kernel (``csrc/stage.cu``) is not shaped like the TPU one; see the note
+there for its design and its bound on the card.  ``fused_stage`` launches it
+for CUDA tensors — or raises — and runs ``fused_stage_plain`` only for
+tensors that lie on the CPU.
+
+Not ported yet: the tracer branch and the xz-slice switches (``xz_zero``);
+the wrapper raises ``NotImplementedError`` for them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from .._device import np_dtype
+from ..kernels import build, stencils
+from ..kernels.counts import launch_counts
+from . import dss_cuda
+from .engine import FastGeometry, colop, horizontal_tendency
+
+MAX_P = 8        # nodes per element edge the kernel's tiles are sized for
+STATE4 = ("U", "V", "Rt", "Rho")
+
+# Stencil windows of the kernel, per operator: level rows read levels
+# k + offset (Dn2n, Pl, Pr) or interfaces k + offset (Ii2n); the penalty
+# weights Wl, Wr act on interior element edges, edge j lying on interface
+# j + 1, so their offsets (-1, 0) are the interfaces k and k + 1; interface
+# rows (In2i) read levels i + offset.  ``csrc/stage.cu`` has the same
+# columns as constants.
+LAYOUT = [("Ii2n", (0, 1)), ("Dn2n", (-1, 0, 1)), ("In2i", (-2, -1, 0, 1)),
+          ("Wl", (-1, 0)), ("Wr", (-1, 0)), ("Pl", (-1, 0, 1)),
+          ("Pr", (-1, 0, 1))]
+NCOLS = sum(len(o) for _, o in LAYOUT) + 2       # + s_lev, s_int
+
+
+def _np(t):
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) \
+        else np.asarray(t)
+
+
+def _has_penalty(fg: FastGeometry) -> bool:
+    return fg.penalty_left is not None and fg.nz // fg.vo > 1
+
+
+def build_stage_diags(fg: FastGeometry, dtype):
+    """(vd, bmeta) for the stage's vertical operators, or (None, None) if
+    any is wider than 6 diagonals.  ``vd``: (n_vecs, nz+1, 1, 1) numpy
+    array of ``dtype``; ``bmeta``: ``{operator: [(offset, index into
+    vd)]}``."""
+    nz = fg.nz
+    named = {"Ii2n": fg.interp_i2n, "Dn2n": fg.diff_n2n,
+             "In2i": fg.interp_n2i}
+    if _has_penalty(fg):
+        named.update({"Wl": fg.wscat_left, "Wr": fg.wscat_right,
+                      "Pl": fg.penalty_left, "Pr": fg.penalty_right})
+    vecs = []
+    bmeta = {}
+    for name, M in named.items():
+        diags = stencils.extract_diags(_np(M))
+        if diags is None:
+            return None, None
+        lst = []
+        for o, vec in diags:
+            if vec.shape[0] < nz + 1:
+                vec = np.pad(vec, (0, nz + 1 - vec.shape[0]))
+            lst.append((o, len(vecs)))
+            vecs.append(vec)
+        bmeta[name] = lst
+    vd = np.stack(vecs).astype(dtype)[:, :, None, None]
+    return vd, bmeta
+
+
+@dataclasses.dataclass
+class StageStatics:
+    """What ``fused_stage`` needs beside the state, built once per
+    configuration (``stage_statics``)."""
+    tab: Any          # 1-D tensor: the (nz+1, NCOLS) stencil table, then
+    #                 # D/delta and S/delta ((p, p) each, row-major)
+    m2d: Any          # (12, P, A, B) separable metric, or (5, P, A, B)
+    use_sep: bool
+    has_pen: bool
+    c00: float        # interp_n2i[0, 0] and [0, 1], for the W finish
+    c01: float
+
+
+def _stencil_table(fg: FastGeometry):
+    """The (nz+1, NCOLS) float64 table of ``LAYOUT`` plus the separable
+    profiles, or None when an operator does not fit its window."""
+    vd, bmeta = build_stage_diags(fg, np.float64)
+    if bmeta is None:
+        return None
+    diags = {name: [(o, vd[i, :, 0, 0]) for o, i in bmeta.get(name, [])]
+             for name, _ in LAYOUT}
+    table = stencils.pack(LAYOUT, diags, fg.nz + 1)
+    if table is None:
+        return None
+    prof = np.zeros((fg.nz + 1, 2))
+    if fg.sep_ok:
+        prof[:fg.nz, 0] = _np(fg.s_lev)[:, 0]
+        prof[:, 1] = _np(fg.s_int)[:, 0]
+    return np.concatenate([table, prof], axis=1)
+
+
+def stage_supported(fg: FastGeometry) -> bool:
+    """Whether the fused stage covers this configuration.  A statement
+    about the configuration only.  Vertical order 1 (every vertical
+    operator then fits the kernel's 2-4-point windows, which is checked),
+    at most ``MAX_P`` nodes per element edge, whole elements per panel, no
+    xz-slice switches.  (The TPU kernel's further conditions on ``A`` and
+    ``p`` are about its tiles and are not carried over.)"""
+    return (fg.vo == 1 and fg.nz >= 2 and fg.p <= MAX_P
+            and fg.A % fg.p == 0 and fg.B % fg.p == 0
+            and fg.xz_zero is None and not fg.ab_swapped
+            and tuple(fg.wrap) == (False, False)
+            and _stencil_table(fg) is not None)
+
+
+def stage_statics(fg: FastGeometry) -> StageStatics:
+    """The stage's static tensors on the device and in the dtype of ``fg``.
+    Raises for a configuration outside ``stage_supported``."""
+    if not stage_supported(fg):
+        raise NotImplementedError(
+            "configuration outside the fused stage's envelope "
+            "(see stage_supported)")
+    dtype, dev = fg.inv_mult.dtype, fg.inv_mult.device
+    table = _stencil_table(fg)
+    D = np.asarray(fg.DA_elem, np.float64) / fg.delta      # D[s, i]
+    S = np.asarray(fg.S_elem, np.float64) / fg.delta       # S[i, s]
+    flat = np.concatenate([table.ravel(), D.ravel(), S.ravel()])
+    tab = torch.as_tensor(flat.astype(np_dtype(dtype)), device=dev)
+    use_sep = bool(fg.sep_ok)
+    fields = [fg.c2_aa, fg.c2_ab, fg.c2_ba, fg.c2_bb, fg.fj]
+    if use_sep:
+        fields += [fg.sep_ca, fg.sep_cb, fg.sep_e, fg.sep_f, fg.sep_da,
+                   fg.sep_db, fg.sep_jacl]
+    In0 = _np(fg.interp_n2i)[0]
+    return StageStatics(
+        tab=tab, m2d=torch.stack(fields).contiguous(), use_sep=use_sep,
+        has_pen=_has_penalty(fg), c00=float(In0[0]), c01=float(In0[1]))
+
+
+def _split_base(base):
+    """(two_base, cb1, base1, cb2, base2); base2 is None for one base."""
+    if isinstance(base, tuple):
+        (cb1, base1), (cb2, base2) = base
+        return True, cb1, base1, cb2, base2
+    return False, 1.0, base, 0.0, None
+
+
+def _w_finish(two_base, cb1, base1, cb2, base2, dt_s, dW, fg, c00, c01):
+    return {"bw1": base1["W"], "bw2": base2["W"] if two_base else None,
+            "cb1": cb1, "cb2": cb2, "dt_s": dt_s, "dW": dW,
+            "cax0": fg.con_a_xi_int[0], "cbx0": fg.con_b_xi_int[0],
+            "cxx0": fg.con_xi_xi_int[0], "c00": c00, "c01": c01}
+
+
+def _finish(out, wf, defer_w):
+    if defer_w:
+        return out, wf
+    out["W"] = dss_cuda.w_finish_plain(out["U"], out["V"], wf)
+    return out
+
+
+def fused_stage_plain(base, ueval, dt_s, fg: FastGeometry, constants,
+                      defer_w: bool = False):
+    """Plain PyTorch version of ``fused_stage`` (same arguments and
+    results): ``horizontal_tendency``, the base combination and the axpy."""
+    two_base, cb1, base1, cb2, base2 = _split_base(base)
+    tend = horizontal_tendency(ueval, fg, constants, mask_w=False)
+    out = {}
+    for k in STATE4:
+        bb = cb1 * base1[k] + cb2 * base2[k] if two_base else base1[k]
+        out[k] = bb + dt_s * tend[k]
+    In0 = fg.interp_n2i[0]
+    wf = _w_finish(two_base, cb1, base1, cb2, base2, dt_s, tend["W"], fg,
+                   float(In0[0]), float(In0[1]))
+    return _finish(out, wf, defer_w)
+
+
+def _check_state(name, d, keys, ref, nz):
+    for k in keys:
+        f = d[k]
+        rows = nz + 1 if k == "W" else nz
+        if tuple(f.shape) != (rows,) + tuple(ref.shape[1:]) \
+                or f.dtype != ref.dtype or f.device != ref.device \
+                or not f.is_contiguous():
+            raise ValueError(
+                f"{name}[{k!r}] must be a contiguous ({rows}, P, A, B) "
+                f"tensor of the state's dtype and device")
+
+
+def fused_stage(base, ueval, dt_s, fg: FastGeometry, constants,
+                defer_w: bool = False, statics: StageStatics = None):
+    """One RK stage update ``base + dt_s * tendency(ueval)``; one kernel
+    launch, then one matrix product for dW.
+
+    ``base``: a state dict, or ``((c1, d1), (c2, d2))`` — a two-term RK
+    combination evaluated inside the kernel for U, V, Rt, Rho.  Returns the
+    pre-DSS state dict with the W boundary applied, or with ``defer_w`` the
+    pair ``({U, V, Rt, Rho}, w_finish)`` for ``dss_cuda.dss_uvw``.
+    ``statics``: ``stage_statics(fg)`` (built on the fly when absent)."""
+    if "Tracers" in ueval:
+        raise NotImplementedError("the tracer branch of the fused stage is "
+                                  "not ported yet")
+    two_base, cb1, base1, cb2, base2 = _split_base(base)
+    u = ueval["U"]
+    if u.dim() != 4 or u.dtype not in (torch.float32, torch.float64):
+        raise ValueError("state fields must be float32/float64 "
+                         "(K, P, A, B) tensors")
+    nz, P, A, B = u.shape
+    if (nz, A, B) != (fg.nz, fg.A, fg.B) or P != fg.npanels:
+        raise ValueError(f"state {tuple(u.shape)} does not match the "
+                         f"geometry (nz={fg.nz}, P={fg.npanels}, A={fg.A}, "
+                         f"B={fg.B})")
+    _check_state("ueval", ueval, STATE4 + ("W",), u, nz)
+    _check_state("base", base1, STATE4 + ("W",), u, nz)
+    if two_base:
+        _check_state("base", base2, STATE4 + ("W",), u, nz)
+    if fg.inv_mult.dtype != u.dtype or fg.inv_mult.device != u.device:
+        raise ValueError("geometry and state differ in dtype or device")
+    if u.device.type == "cpu":
+        return fused_stage_plain(base, ueval, dt_s, fg, constants, defer_w)
+    if u.device.type != "cuda":
+        raise ValueError(f"unsupported device {u.device}")
+    if statics is None:
+        statics = stage_statics(fg)
+    outs = _fused_stage_cuda(two_base, cb1, base1, cb2, base2, ueval, dt_s,
+                             fg, constants, statics)
+    out = dict(zip(STATE4, outs[:4]))
+    dW = colop(fg.interp_n2i, outs[4])
+    wf = _w_finish(two_base, cb1, base1, cb2, base2, dt_s, dW, fg,
+                   statics.c00, statics.c01)
+    return _finish(out, wf, defer_w)
+
+
+def _fused_stage_cuda(two_base, cb1, base1, cb2, base2, ueval, dt_s, fg,
+                      constants, st: StageStatics):
+    """Launch the kernel; returns [U, V, Rt, Rho, ucz_x]."""
+    u = ueval["U"]
+    nz, P, A, B = u.shape
+    c = constants
+    sep = st.use_sep
+    full3d = [None] * 9 if sep else [
+        fg.con_a_xi, fg.con_b_xi, fg.con_xi_xi, fg.jac3d, fg.deriv_r_a,
+        fg.deriv_r_b, fg.con_a_xi_int, fg.con_b_xi_int, fg.con_xi_xi_int]
+    if not all(f is None or f.is_contiguous() for f in full3d):
+        raise ValueError("geometry fields must be contiguous")
+    lib = build.library("stage")
+    fn = lib.fused_stage_f32 if u.dtype == torch.float32 \
+        else lib.fused_stage_f64
+    with torch.cuda.device(u.device):
+        outs = [torch.empty_like(u) for _ in range(5)]
+        tensors = ([ueval[k] for k in STATE4 + ("W",)]
+                   + [base1[k] for k in STATE4]
+                   + [base2[k] if two_base else None for k in STATE4]
+                   + [st.m2d] + full3d + [st.tab] + outs)
+        ptrs = (ctypes.c_void_p * len(tensors))(
+            *[None if t is None else t.data_ptr() for t in tensors])
+        scal = (ctypes.c_double * 7)(
+            float(dt_s), float(cb1), float(cb2), float(c.Cp),
+            float(c.Rd / (c.Cp - c.Rd)), float(c.Rd / c.P0), float(c.g))
+        ints = (ctypes.c_int * 7)(nz, P, A, B, fg.p, int(sep),
+                                  int(st.has_pen))
+        err = fn(ptrs, scal, ints, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_stage kernel launch failed "
+                           f"(cudaGetLastError = {err})")
+    launch_counts["fused_stage"] += 1
+    return outs

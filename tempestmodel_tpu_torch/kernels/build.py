@@ -40,10 +40,21 @@ _DSS_SCALAR = [_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _PTR]
 _DSS_VECTOR = [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
                _INT, _INT, _INT, _INT, _INT, _INT, _PTR]
 _BANDED = [_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _I64, _INT, _PTR]
+_DBL = ctypes.c_double
+_DSS_UVW = [_PTR] * 14 + [_DBL] * 5 + [_INT] * 6 + [_PTR]
+# the fused kernels take their many operands as host arrays: pointers,
+# doubles, ints (the wrappers build them with ctypes)
+_ARRAYS = [ctypes.POINTER(_PTR), ctypes.POINTER(_DBL), ctypes.POINTER(_INT)]
+_STAGE = _ARRAYS + [_PTR]
+_IMPLICIT = _ARRAYS + [_I64, _PTR]
 SIGNATURES = {
     "dss": {"dss_scalar_f32": _DSS_SCALAR, "dss_scalar_f64": _DSS_SCALAR,
-            "dss_vector_f32": _DSS_VECTOR, "dss_vector_f64": _DSS_VECTOR},
+            "dss_vector_f32": _DSS_VECTOR, "dss_vector_f64": _DSS_VECTOR,
+            "dss_uvw_f32": _DSS_UVW, "dss_uvw_f64": _DSS_UVW},
     "banded": {"banded_solve_f32": _BANDED, "banded_solve_f64": _BANDED},
+    "stage": {"fused_stage_f32": _STAGE, "fused_stage_f64": _STAGE},
+    "implicit": {"fused_implicit_f32": _IMPLICIT,
+                 "fused_implicit_f64": _IMPLICIT},
 }
 
 _libs: dict = {}      # source stem -> loaded ctypes library (per process)

@@ -7,7 +7,8 @@ them after)."""
 
 from __future__ import annotations
 
-launch_counts = {"dss_scalar": 0, "dss_vector": 0, "banded_solve": 0}
+launch_counts = {"dss_scalar": 0, "dss_vector": 0, "banded_solve": 0,
+                 "dss_uvw": 0, "fused_stage": 0, "fused_implicit_update": 0}
 
 
 def reset_launch_counts() -> None:

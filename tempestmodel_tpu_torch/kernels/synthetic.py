@@ -1,0 +1,86 @@
+"""Seeded synthetic inputs for holding a kernel against its plain version.
+
+The flagship test case has flat terrain, so every terrain term of the metric
+vanishes and a kernel could drop one unnoticed.  ``terrain_like`` gives a
+geometry whose separable metric has all its terms, at magnitudes a real
+mountain would give; ``random_state`` a state with positive density and
+potential temperature.  Both are made with numpy from a seed, so the same
+numbers can be handed to another implementation.  Used by ``chip_smoke.py``
+and the tests; nothing on the model's path imports this module.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+FIELDS = ("U", "V", "Rt", "Rho", "W")
+
+
+def terrain_fields(nz: int, P: int, A: int, B: int, sep_e, seed: int = 0):
+    """Numpy fields (float64) of a separable terrain-following metric with
+    every term present, keyed as ``FastGeometry`` names them: the profiles,
+    the 2-D factors and the 3-D tensors built from them.  ``sep_e``: the
+    (P, A, B) flat-terrain ``con_xi_xi`` to build on."""
+    rng = np.random.default_rng(seed)
+
+    def r2(scale):
+        return scale * rng.standard_normal((P, A, B))
+
+    e = np.asarray(sep_e, np.float64)
+    sl = rng.random((nz, 1))
+    si = rng.random((nz + 1, 1))
+    ca, cb = r2(1e-12), r2(1e-12)
+    f = np.abs(r2(0.1)) * e
+    dza, dzb = r2(0.05), r2(0.05)
+
+    def lev(s, x):
+        return s[:, :, None, None] * x[None]
+
+    def quad(s):
+        return e[None] + s[:, :, None, None] ** 2 * f[None]
+
+    return dict(
+        s_lev=sl, s_int=si, sep_ca=ca, sep_cb=cb, sep_f=f, sep_da=dza,
+        sep_db=dzb, con_a_xi=lev(sl, ca), con_b_xi=lev(sl, cb),
+        con_xi_xi=quad(sl), con_a_xi_int=lev(si, ca),
+        con_b_xi_int=lev(si, cb), con_xi_xi_int=quad(si),
+        deriv_r_a=lev(sl, dza), deriv_r_b=lev(sl, dzb))
+
+
+def terrain_like(fg, seed: int = 0):
+    """A copy of the ``FastGeometry`` ``fg`` (which must have a separable
+    metric) with the fields of ``terrain_fields`` in place of its own."""
+    if not fg.sep_ok:
+        raise ValueError("terrain_like needs a separable metric")
+    dtype, dev = fg.inv_mult.dtype, fg.inv_mult.device
+    P, A, B = fg.inv_mult.shape
+    fields = terrain_fields(fg.nz, P, A, B, fg.sep_e.cpu().numpy(), seed)
+    return dataclasses.replace(fg, **{
+        k: torch.as_tensor(np.ascontiguousarray(v), dtype=dtype, device=dev)
+        for k, v in fields.items()})
+
+
+def random_state_numpy(nz: int, P: int, A: int, B: int, seed: int = 0):
+    """Seeded z-first state (numpy float64): winds of ~10 m/s, W of
+    ~1 cm/s, density near 1 and rho*theta near 300 with percent noise."""
+    rng = np.random.default_rng(seed)
+    d = {k: rng.standard_normal((nz + (1 if k == "W" else 0), P, A, B))
+         for k in FIELDS}
+    d["U"] *= 10.0
+    d["V"] *= 10.0
+    d["W"] *= 0.01
+    d["Rho"] = 1.0 + 0.1 * np.abs(d["Rho"])
+    d["Rt"] = 300.0 * d["Rho"] * (1.0 + 0.01 * d["Rt"])
+    return d
+
+
+def random_state(fg, seed: int = 0):
+    """``random_state_numpy`` as tensors on the device and in the dtype of
+    ``fg``."""
+    dtype, dev = fg.inv_mult.dtype, fg.inv_mult.device
+    P, A, B = fg.inv_mult.shape
+    return {k: torch.as_tensor(v, dtype=dtype, device=dev)
+            for k, v in random_state_numpy(fg.nz, P, A, B, seed).items()}

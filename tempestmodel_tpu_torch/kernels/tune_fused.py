@@ -1,0 +1,161 @@
+#!/usr/bin/env python3
+"""Sweep the launch shapes of the fused kernels on a GPU.
+
+Run from the repository root on a machine with an NVIDIA Hopper card and
+nvcc:
+
+    python3 -m tempestmodel_tpu_torch.kernels.tune_fused
+
+Compiles ``csrc/dss.cu``, ``csrc/stage.cu`` and ``csrc/implicit.cu`` once per
+variant of their ``-D`` tunables into a temporary directory, swaps each
+variant in behind the wrappers, holds its result against the default build's,
+and prints the device time per launch of ``dss_uvw``, ``fused_stage`` (two
+bases) and ``fused_implicit_update`` at the flagship shapes (ne30 p4 L30),
+float32 and float64.  Times are taken as in ``chip_smoke.py``: launches
+queued behind a busy device; every launch reads more than the L2 holds.
+"""
+
+import ctypes
+import pathlib
+import subprocess
+import sys
+import tempfile
+
+import torch
+
+import tempestmodel_tpu_torch as tm
+from tempestmodel_tpu_torch import fast
+from tempestmodel_tpu_torch.fast import (dss_cuda, stage_cuda, implicit_cuda,
+                                         implicit as fimp)
+from tempestmodel_tpu_torch.kernels import build, synthetic
+from tempestmodel_tpu_torch.kernels.timing import time_cuda
+from tempestmodel_tpu_torch.models import nh_model, nonhydro
+from tempestmodel_tpu_torch.testcases.nonhydro_sphere import (
+    BaroclinicWaveUMJS)
+
+# source stem -> variants of its -D flags (the first is the default build)
+VARIANTS = {
+    "dss": [{}] + [{"UVW_THREADS": t, "UVW_LEVELS": lv}
+                   for t, lv in ((128, 3), (128, 2), (128, 1), (256, 5),
+                                 (256, 2), (64, 5), (128, 8))],
+    "stage": [{}] + [{"STAGE_LEVELS": lv, "STAGE_TILE_A": a,
+                      "STAGE_TILE_B": b}
+                     for lv, a, b in ((6, 4, 32), (3, 8, 32), (10, 8, 32),
+                                      (30, 8, 32), (6, 16, 32), (6, 8, 16),
+                                      (6, 4, 64), (3, 4, 32), (10, 4, 32))],
+    "implicit": [{}] + [{"IMPLICIT_THREADS": t}
+                        for t in (32, 64, 96, 160, 192, 256)],
+}
+NE, ORDER, NZ, DT = 30, 4, 30, 100.0
+
+
+def compile_variants(tmp):
+    procs = []
+    for stem, variants in VARIANTS.items():
+        for i, flags in enumerate(variants):
+            out = str(pathlib.Path(tmp) / f"{stem}_{i}.so")
+            cmd = [build.nvcc_path(), *build.NVCC_FLAGS,
+                   *[f"-D{k}={v}" for k, v in flags.items()], "-o", out,
+                   str(build.CSRC / f"{stem}.cu")]
+            procs.append((stem, flags, out, subprocess.Popen(cmd)))
+    for stem, flags, _, proc in procs:
+        if proc.wait() != 0:
+            raise RuntimeError(f"nvcc failed for {stem} {flags}")
+    return [(stem, flags, out) for stem, flags, out, _ in procs]
+
+
+def load(stem, path):
+    lib = ctypes.CDLL(path)
+    for name, argtypes in build.SIGNATURES[stem].items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def rel_err(got, want):
+    return max(float((g - w).abs().max() / w.abs().max())
+               for g, w in zip(got, want))
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("tune_fused: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip())
+    build.build_all()
+    tc = BaroclinicWaveUMJS(pert="exp")
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = compile_variants(tmp)
+        for dtype, sfx in ((torch.float32, "f32"), (torch.float64, "f64")):
+            cfg = tm.ModelConfig(
+                grid_kind=tm.GridKind.CUBED_SPHERE, ne=NE, order=ORDER,
+                nz=NZ, ztop=tc.ztop, dt=DT, vertical_solver="pallas",
+                dtype=dtype)
+            geom = nh_model.build_nh_sphere_geometry(cfg, ztop=tc.ztop)
+            sweep(cfg, geom, tc, dtype, sfx, dev, libs)
+    return 0
+
+
+def sweep(cfg, geom, tc, dtype, sfx, dev, libs):
+    consts = cfg.constants
+    fg = synthetic.terrain_like(
+        fast.build_fast_geometry(geom, dtype=dtype, device=dev))
+    ue, b1, b2 = (synthetic.random_state(fg, seed) for seed in (1, 2, 3))
+    two = ((0.3, b1), (0.7, b2))
+    sst = stage_cuda.stage_statics(fg)
+    q = nonhydro.estimate_bandwidth(geom, consts)
+    ist = implicit_cuda.implicit_statics(fimp.statics_to_device(
+        nonhydro.band_assembly_statics(geom, q), dtype, dev), fg)
+    d = fast.pack_state(tc.initial_state(geom, consts, dtype=dtype,
+                                         device=dev), device=dev)
+    x0, aux = fimp._prep_aux(d, fg, interfaces=False)
+
+    def run_stage():
+        out, wf = stage_cuda.fused_stage(two, ue, 12.5, fg, consts,
+                                         defer_w=True, statics=sst)
+        return [out[k] for k in stage_cuda.STATE4] + [wf["dW"]]
+
+    upd, wf = stage_cuda.fused_stage(two, ue, 12.5, fg, consts, defer_w=True,
+                                     statics=sst)
+
+    def run_uvw():
+        return dss_cuda.dss_uvw(upd["U"], upd["V"], fg.inv_mult, fg.e_rot,
+                                fg.dss_links, fg.p, wf, table=fg.dss_table)
+
+    def run_implicit():
+        return implicit_cuda.fused_implicit_update(x0, x0, aux, ist,
+                                                   0.5 * DT, consts)
+
+    # (timed function, repetitions): the stage is timed without the dW
+    # product that follows the kernel in the wrapper
+    tb, c1, s1, c2, s2 = stage_cuda._split_base(two)
+    kernels = {
+        "dss": ("dss_uvw", run_uvw, run_uvw, 40),
+        "stage": ("fused_stage", run_stage,
+                  lambda: stage_cuda._fused_stage_cuda(
+                      tb, c1, s1, c2, s2, ue, 12.5, fg, consts, sst), 20),
+        "implicit": ("fused_implicit_update", run_implicit, run_implicit, 10),
+    }
+    default = dict(build._libs)
+    want = {stem: k[1]() for stem, k in kernels.items()}
+    torch.cuda.synchronize()
+    try:
+        for stem, flags, path in libs:
+            name, check, timed, reps = kernels[stem]
+            build._libs[stem] = load(stem, path)
+            err = rel_err(check(), want[stem])
+            ms = time_cuda(timed, [()], reps, queued=True)
+            print(f"{sfx} {name} {flags or 'default'}: {ms:.4f} ms  "
+                  f"rel err vs default build {err:.1e}", flush=True)
+            build._libs[stem] = default[stem]
+    finally:
+        build._libs.update(default)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

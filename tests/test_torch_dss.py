@@ -1,6 +1,7 @@
 """The port's plain DSS vs the JAX Pallas DSS kernels (interpret mode),
 as ``tests/test_dss_pallas.py`` holds those against the reference
-formulation; the wrappers' checks; the CUDA kernels on a card."""
+formulation (``dss_uvw`` with the W stage finish folded in among them); the
+wrappers' checks; the CUDA kernels on a card."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -48,6 +49,103 @@ def test_dss_vector_plain_matches_pallas(setup):
         tfg.e_rot, tfg.dss_links, tfg.p)
     np.testing.assert_allclose(gu.numpy(), np.asarray(wu), rtol=0, atol=1e-13)
     np.testing.assert_allclose(gv.numpy(), np.asarray(wv), rtol=0, atol=1e-13)
+
+
+def _w_finish_pair(jfg, d, two_base, seed=5, bottom_only=False):
+    """The same seeded W finish for both packages.  The surface metric rows
+    are random: the configuration's own are zero (flat terrain), which
+    would make the bottom row trivially zero."""
+    rng = np.random.default_rng(seed)
+    shp = d["W"].shape
+    zero = np.zeros(shp)
+    arr = {"bw1": zero if bottom_only else rng.standard_normal(shp),
+           "bw2": zero if bottom_only else rng.standard_normal(shp),
+           "dW": zero if bottom_only else rng.standard_normal(shp),
+           "cax0": rng.standard_normal(shp[1:]),
+           "cbx0": rng.standard_normal(shp[1:]),
+           "cxx0": 1.0 + np.abs(rng.standard_normal(shp[1:]))}
+    if not two_base:
+        arr["bw2"] = None
+    In0 = np.asarray(jfg.interp_n2i)[0]
+    scal = {"cb1": 0.3, "cb2": 0.7, "dt_s": 12.5, "c00": float(In0[0]),
+            "c01": float(In0[1])}
+    jwf = dict(scal, **{k: None if v is None else jnp.asarray(v)
+                        for k, v in arr.items()})
+    twf = dict(scal, **{k: None if v is None else torch.from_numpy(v.copy())
+                        for k, v in arr.items()})
+    return jwf, twf
+
+
+@pytest.mark.parametrize("two_base", [True, False],
+                         ids=["two_base", "one_base"])
+def test_dss_uvw_plain_matches_pallas(setup, two_base):
+    """Mirror of ``tests/test_dss_pallas.py::test_dss_uvw_w_finish_fold``."""
+    jfg, tfg, d = setup
+    jwf, twf = _w_finish_pair(jfg, d, two_base)
+    want = dss_pallas.dss_uvw(jnp.asarray(d["U"]), jnp.asarray(d["V"]),
+                              jfg.inv_mult, jfg.e_rot, jfg.dss_links, jfg.p,
+                              jwf, interpret=True)
+    u, v = torch.from_numpy(d["U"]), torch.from_numpy(d["V"])
+    before = dict(launch_counts)
+    got = dss_cuda.dss_uvw(u, v, tfg.inv_mult, tfg.e_rot, tfg.dss_links,
+                           tfg.p, twf, table=tfg.dss_table)
+    assert dict(launch_counts) == before          # CPU tensors: no launch
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                   atol=1e-12 * float(np.abs(w).max()))
+    # the pieces: vector DSS of (U, V), W finish, scalar DSS of W
+    wu, wv = dss_cuda.dss_vector_plain(u, v, tfg.inv_mult, tfg.e_rot,
+                                       tfg.dss_links, tfg.p)
+    ww = dss_cuda.dss_scalar_plain(
+        t_engine.w_finish_xla({"U": u, "V": v}, twf), tfg.inv_mult,
+        tfg.dss_links, tfg.p)
+    assert torch.equal(got[0], wu) and torch.equal(got[1], wv)
+    assert torch.equal(got[2], ww)
+
+
+def test_dss_uvw_bottom_row_on_panel_edges_and_corners(setup):
+    """Base W and dW zero: the output W is the DSS of the bottom row alone,
+    which on a panel edge takes the partner node's U, V and surface
+    metric.  Held against the JAX kernel on edges and corners."""
+    jfg, tfg, d = setup
+    jwf, twf = _w_finish_pair(jfg, d, two_base=True, seed=9,
+                              bottom_only=True)
+    _, _, want = dss_pallas.dss_uvw(
+        jnp.asarray(d["U"]), jnp.asarray(d["V"]), jfg.inv_mult, jfg.e_rot,
+        jfg.dss_links, jfg.p, jwf, interpret=True)
+    _, _, got = dss_cuda.dss_uvw_plain(
+        torch.from_numpy(d["U"]), torch.from_numpy(d["V"]), tfg.inv_mult,
+        tfg.e_rot, tfg.dss_links, tfg.p, twf)
+    want = np.asarray(want)
+    assert not got[1:].any() and np.abs(want[0]).max() > 0.1
+    edge = np.zeros(want.shape[2:], bool)
+    edge[0, :] = edge[-1, :] = edge[:, 0] = edge[:, -1] = True
+    scale = np.abs(want[0]).max()
+    np.testing.assert_allclose(got[0].numpy()[:, edge], want[0][:, edge],
+                               rtol=0, atol=1e-13 * scale)
+    corners = got[0].numpy()[:, [0, 0, -1, -1], [0, -1, 0, -1]]
+    np.testing.assert_allclose(corners,
+                               want[0][:, [0, 0, -1, -1], [0, -1, 0, -1]],
+                               rtol=0, atol=1e-13 * scale)
+    # the three panels that meet at a cube corner hold one value there
+    w0 = got[0].numpy()
+    vals = sorted(set(np.round(corners.ravel() / scale, 10)))
+    assert len(vals) <= 8 and np.isfinite(w0).all()
+
+
+def test_w_finish_xla_matches_jax(setup):
+    jfg, tfg, d = setup
+    for two_base in (True, False):
+        jwf, twf = _w_finish_pair(jfg, d, two_base, seed=3)
+        want = j_engine.w_finish_xla(
+            {"U": jnp.asarray(d["U"]), "V": jnp.asarray(d["V"])}, jwf)
+        keep = twf["dW"].clone()
+        got = t_engine.w_finish_xla(
+            {"U": torch.from_numpy(d["U"]), "V": torch.from_numpy(d["V"])},
+            twf)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=1e-13 * float(np.abs(want).max()))
+        assert torch.equal(twf["dW"], keep)       # the argument is left alone
 
 
 def test_dss_is_a_projection_and_leaves_inputs_alone(setup):
@@ -106,6 +204,50 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(setup, case):
         with pytest.raises(ValueError):
             dss_cuda.dss_vector(x, x, tfg.inv_mult, tfg.e_rot[:, :-1],
                                 tfg.dss_links, tfg.p)
+
+
+@pytest.mark.parametrize("case", ["bw1_shape", "metric_shape", "dW_dtype",
+                                  "levels"])
+def test_dss_uvw_raises_on_what_the_kernel_does_not_take(setup, case):
+    jfg, tfg, d = setup
+    _, twf = _w_finish_pair(jfg, d, two_base=True)
+    u, v = torch.from_numpy(d["U"]), torch.from_numpy(d["V"])
+    args = (tfg.inv_mult, tfg.e_rot, tfg.dss_links, tfg.p)
+    if case == "bw1_shape":
+        twf["bw1"] = twf["bw1"][:-1]
+    elif case == "metric_shape":
+        twf["cxx0"] = twf["cxx0"][:, :-1]
+    elif case == "dW_dtype":
+        twf["dW"] = twf["dW"].to(torch.float32)
+    else:
+        u, v = u[:1], v[:1]
+        twf = {k: x[:2] if k in ("bw1", "bw2", "dW") else x
+               for k, x in twf.items()}
+    with pytest.raises((ValueError, TypeError)):
+        dss_cuda.dss_uvw(u, v, *args, twf)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-13),
+                                       (torch.float32, 1e-6)])
+def test_cuda_dss_uvw_matches_plain(setup, dtype, tol):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no interpret mode")
+    jfg, tfg, d = setup
+    dev = torch.device("cuda")
+    imult = tfg.inv_mult.to(dev, dtype)
+    rot = tfg.e_rot.to(dev, dtype)
+    u, v = (torch.from_numpy(d[k]).to(dev, dtype) for k in ("U", "V"))
+    for two_base in (True, False):
+        _, twf = _w_finish_pair(jfg, d, two_base)
+        twf = {k: x.to(dev, dtype) if isinstance(x, torch.Tensor) else x
+               for k, x in twf.items()}
+        got = dss_cuda.dss_uvw(u, v, imult, rot, tfg.dss_links, tfg.p, twf)
+        torch.cuda.synchronize()
+        want = dss_cuda.dss_uvw_plain(u, v, imult, rot, tfg.dss_links, tfg.p,
+                                      twf)
+        for g, w in zip(got + (got[2][0],), want + (want[2][0],)):
+            assert float((g - w).abs().max() / w.abs().max()) <= tol
 
 
 @pytest.mark.gpu

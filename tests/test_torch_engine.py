@@ -1,6 +1,7 @@
 """The port's z-first engine vs the JAX package's: the horizontal
-tendency, the hyperdiffusion tail, the full-state DSS, and the slice as a
-whole (3 steps of ``make_fast_step``, both Jacobian modes), float64."""
+tendency, the hyperdiffusion tail, the full-state DSS (with and without the
+folded W finish), and the slice as a whole (3 steps of ``make_fast_step``
+on the fused and on the unfused path, both Jacobian modes), float64."""
 
 import numpy as np
 import jax
@@ -72,6 +73,31 @@ def test_apply_dss_full_state(fgs):
         assert torch.equal(to[k], tp[k])
 
 
+def test_apply_dss_with_the_w_finish_folded_in(pair, fgs):
+    """``apply_dss(w_finish=...)`` after a deferred fused stage, against the
+    JAX package's (its stage and DSS kernels in interpret mode)."""
+    from tempestmodel_tpu.fast import stage_pallas
+    from tempestmodel_tpu_torch.fast import stage_cuda
+    jcfg, _, tcfg, _ = pair
+    jfg, tfg, jd, td, _ = fgs
+    jupd, jwf = stage_pallas.fused_stage(jd, jd, 25.0, jfg, jcfg.constants,
+                                         interpret=True, defer_w=True)
+    jo = j_engine.apply_dss(jupd, jfg, w_finish=jwf)
+    tupd, twf = stage_cuda.fused_stage(td, td, 25.0, tfg, tcfg.constants,
+                                       defer_w=True)
+    assert "W" not in tupd
+    to = t_engine.apply_dss(tupd, tfg, w_finish=twf)
+    tp = t_engine.apply_dss(tupd, tfg, w_finish=twf, plain=True)
+    for k in FIELDS:
+        assert rel_err(to[k].numpy(), jo[k]) < 1e-12, k
+        assert torch.equal(to[k], tp[k])
+    # the same state through the undeferred stage and the four-launch DSS
+    full = t_engine.apply_dss(
+        stage_cuda.fused_stage(td, td, 25.0, tfg, tcfg.constants), tfg)
+    for k in FIELDS:
+        assert rel_err(full[k].numpy(), to[k].numpy()) < 1e-13, k
+
+
 @pytest.mark.parametrize("order", [4, 2])
 def test_step_after_subcycle(pair, fgs, order):
     jcfg, _, tcfg, _ = pair
@@ -114,17 +140,91 @@ def _run_torch(tcfg, tgeom, state_np, nsteps, **kw):
     return t_fast.unpack_state(X)
 
 
-@pytest.mark.parametrize("mode", ["exact", "reference"])
-def test_three_steps_match_jax(pair, mode):
-    """The slice as a whole: bit-identical initial state (JAX's, carried
-    across as numpy), 3 Strang-HEVI steps, 1e-11 relative per field."""
+@pytest.fixture(scope="module")
+def three_steps(pair):
+    """3 steps of JAX ``make_fast_step`` per Jacobian mode (computed at
+    first use, kept for the module), and of the port per (mode, path)."""
     jcfg, jgeom, tcfg, tgeom = pair
     js, _ = initial_states(jcfg, jgeom, tcfg, tgeom)
     state_np = {k: np.asarray(v) for k, v in js.items()}
-    want = _run_jax(jcfg.with_(jacobian_mode=mode), jgeom, js, 3)
-    got = _run_torch(tcfg.with_(jacobian_mode=mode), tgeom, state_np, 3)
+    cache = {}
+
+    def jax_run(mode):
+        if ("jax", mode) not in cache:
+            cache["jax", mode] = _run_jax(
+                jcfg.with_(jacobian_mode=mode), jgeom, js, 3)
+        return cache["jax", mode]
+
+    def torch_run(mode, fused):
+        if (mode, fused) not in cache:
+            cache[mode, fused] = _run_torch(
+                tcfg.with_(jacobian_mode=mode), tgeom, state_np, 3,
+                fused=fused)
+        return cache[mode, fused]
+
+    return jax_run, torch_run
+
+
+@pytest.mark.parametrize("mode", ["exact", "reference"])
+def test_three_steps_match_jax(three_steps, mode):
+    """The slice as a whole on the path the predicates choose (the fused
+    one): bit-identical initial state (JAX's, carried across as numpy), 3
+    Strang-HEVI steps, 1e-11 relative per field."""
+    jax_run, torch_run = three_steps
+    want, got = jax_run(mode), torch_run(mode, None)
     for k in FIELDS:
         assert rel_err(got[k].numpy(), want[k]) < 1e-11, k
+
+
+@pytest.mark.parametrize("mode", ["exact", "reference"])
+def test_three_steps_unfused_match_jax(three_steps, mode):
+    jax_run, torch_run = three_steps
+    want, got = jax_run(mode), torch_run(mode, False)
+    for k in FIELDS:
+        assert rel_err(got[k].numpy(), want[k]) < 1e-11, k
+
+
+@pytest.mark.parametrize("mode", ["exact", "reference"])
+def test_fused_path_matches_unfused_path(three_steps, mode):
+    _, torch_run = three_steps
+    a, b = torch_run(mode, None), torch_run(mode, False)
+    for k in FIELDS:
+        assert rel_err(a[k].numpy(), b[k].numpy()) < 1e-11, k
+
+
+@pytest.mark.parametrize("fused,want", [
+    (None, {"stage": 5, "uvw": 5, "update": 1, "banded": 0}),
+    (False, {"stage": 0, "uvw": 0, "update": 0, "banded": 1})],
+    ids=["predicates", "forced_unfused"])
+def test_make_fast_step_takes_the_path_the_predicates_choose(
+        pair, monkeypatch, fused, want):
+    """Calls of the kernels' wrappers in one ``step`` (on the CPU each runs
+    its plain version)."""
+    from tempestmodel_tpu_torch.fast import (dss_cuda, implicit,
+                                             implicit_cuda, stage_cuda)
+    _, _, tcfg, tgeom = pair
+    calls = {"stage": 0, "uvw": 0, "update": 0, "banded": 0}
+
+    def counting(key, fn):
+        def wrapped(*a, **kw):
+            calls[key] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(stage_cuda, "fused_stage",
+                        counting("stage", stage_cuda.fused_stage))
+    monkeypatch.setattr(dss_cuda, "dss_uvw",
+                        counting("uvw", dss_cuda.dss_uvw))
+    monkeypatch.setattr(implicit_cuda, "fused_implicit_update", counting(
+        "update", implicit_cuda.fused_implicit_update))
+    monkeypatch.setattr(implicit, "banded_solve",
+                        counting("banded", implicit.banded_solve))
+    first, step = t_fast.make_fast_step(tcfg, tgeom, device=CPU, fused=fused)
+    d = random_fast_state(tcfg.nz, tcfg.ne * tcfg.order, seed=2)
+    X = {k: torch.from_numpy(v) for k, v in d.items()}
+    carry = {k: torch.zeros_like(X[k]) for k in ("Rt", "W", "Rho")}
+    step(X, carry)
+    assert calls == want
 
 
 def test_rayleigh_and_off_centering(pair):
@@ -162,12 +262,12 @@ def test_kernel_path_matches_plain_path_on_the_card(pair):
     state = BaroclinicWaveUMJS(pert="exp").initial_state(
         tgeom, tcfg.constants, device="cuda")
     outs = []
-    for plain in (False, True):
-        first, step = t_fast.make_fast_step(tcfg, tgeom, device="cuda",
-                                            plain=plain)
+    for kw in ({}, {"fused": False}, {"plain": True}):
+        first, step = t_fast.make_fast_step(tcfg, tgeom, device="cuda", **kw)
         X, c = first(t_fast.pack_state(state, device="cuda"))
         X, c = step(X, c)
         outs.append(X)
-    for k in FIELDS:
-        assert rel_err(outs[0][k].cpu().numpy(),
-                       outs[1][k].cpu().numpy()) < 1e-11, k
+    for other in outs[1:]:
+        for k in FIELDS:
+            assert rel_err(outs[0][k].cpu().numpy(),
+                           other[k].cpu().numpy()) < 1e-11, k

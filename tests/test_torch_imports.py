@@ -24,6 +24,9 @@ def _module_names():
 def test_every_module_imports_without_jax():
     names = _module_names()
     assert len(names) > 15
+    for new in ("fast.stage_cuda", "fast.implicit_cuda", "kernels.stencils",
+                "kernels.synthetic"):
+        assert f"tempestmodel_tpu_torch.{new}" in names
     code = (
         "import importlib, sys\n"
         f"names = {names!r}\n"

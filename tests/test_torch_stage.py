@@ -1,0 +1,210 @@
+"""The port's fused explicit stage vs the JAX Pallas stage kernel (interpret
+mode) on the same seeded inputs, float64: the plain version, the host-side
+tables the CUDA kernel reads, the wrapper's checks; the kernel on a card."""
+
+import dataclasses
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from tempestmodel_tpu.fast import engine as j_engine, stage_pallas
+from tempestmodel_tpu_torch.fast import engine as t_engine, stage_cuda
+from tempestmodel_tpu_torch.kernels import stencils, synthetic
+from tempestmodel_tpu_torch.kernels.counts import launch_counts
+
+from torch_port_common import (build_pair, rel_err, state_pair,
+                               terrain_like_pair)
+
+TOL = 1e-12
+DT_S = 12.5
+STATE4 = ("U", "V", "Rt", "Rho")
+
+
+@pytest.fixture(scope="module")
+def setup():
+    jcfg, jgeom, tcfg, tgeom = build_pair()
+    jfg = j_engine.build_fast_geometry(jgeom, dtype=jnp.float64)
+    jfg, tfg = terrain_like_pair(jfg, seed=4)
+    states = [state_pair(jfg.nz, jfg.A, seed) for seed in (1, 2, 3)]
+    return dict(jcfg=jcfg, tcfg=tcfg, jfg=jfg, tfg=tfg,
+                j=[s[0] for s in states], t=[s[1] for s in states])
+
+
+def _bases(s, which, two):
+    ue, b1, b2 = s[which]
+    return (((0.3, b1), (0.7, b2)) if two else b1), ue
+
+
+@pytest.mark.parametrize("two", [False, True], ids=["one_base", "two_base"])
+def test_fused_stage_plain_matches_pallas(setup, two):
+    """``defer_w=False``: all five fields of the pre-DSS state."""
+    s = setup
+    jbase, jue = _bases(s, "j", two)
+    tbase, tue = _bases(s, "t", two)
+    want = stage_pallas.fused_stage(jbase, jue, DT_S, s["jfg"],
+                                    s["jcfg"].constants, interpret=True)
+    got = stage_cuda.fused_stage_plain(tbase, tue, DT_S, s["tfg"],
+                                       s["tcfg"].constants)
+    assert set(got) == set(want) == set(t_engine.FIELDS)
+    for k in t_engine.FIELDS:
+        assert rel_err(got[k].numpy(), want[k]) < TOL, k
+
+
+@pytest.mark.parametrize("two", [False, True], ids=["one_base", "two_base"])
+def test_fused_stage_plain_defer_w_matches_pallas(setup, two):
+    """``defer_w=True``: the four fields and every ``w_finish`` entry."""
+    s = setup
+    jbase, jue = _bases(s, "j", two)
+    tbase, tue = _bases(s, "t", two)
+    want, wwf = stage_pallas.fused_stage(jbase, jue, DT_S, s["jfg"],
+                                         s["jcfg"].constants, interpret=True,
+                                         defer_w=True)
+    got, gwf = stage_cuda.fused_stage_plain(tbase, tue, DT_S, s["tfg"],
+                                            s["tcfg"].constants, defer_w=True)
+    assert set(got) == set(want) == set(STATE4)
+    for k in STATE4:
+        assert rel_err(got[k].numpy(), want[k]) < TOL, k
+    assert set(gwf) == set(wwf)
+    for k, w in wwf.items():
+        if w is None:
+            assert gwf[k] is None, k
+        elif isinstance(w, float):
+            assert gwf[k] == pytest.approx(w, rel=1e-15), k
+        else:
+            assert rel_err(gwf[k].numpy(), w) < TOL, k
+
+
+def test_build_stage_diags_match(setup):
+    s = setup
+    jvd, jmeta = stage_pallas.build_stage_diags(s["jfg"], np.float64)
+    tvd, tmeta = stage_cuda.build_stage_diags(s["tfg"], np.float64)
+    assert tmeta == jmeta
+    np.testing.assert_array_equal(tvd, jvd)
+    wide = dataclasses.replace(
+        s["tfg"], diff_n2n=torch.ones_like(s["tfg"].diff_n2n))
+    assert stage_cuda.build_stage_diags(wide, np.float64) == (None, None)
+
+
+@pytest.mark.parametrize("name,attr", [
+    ("Ii2n", "interp_i2n"), ("Dn2n", "diff_n2n"), ("In2i", "interp_n2i"),
+    ("Pl", "penalty_left"), ("Pr", "penalty_right"),
+    ("Wl", "wscat_left"), ("Wr", "wscat_right")])
+def test_stencil_table_reproduces_the_operator(setup, name, attr):
+    """The fixed-window table the CUDA kernel reads applies each vertical
+    operator as the matrix does."""
+    tfg = setup["tfg"]
+    table = stage_cuda._stencil_table(tfg)
+    assert table.shape == (tfg.nz + 1, stage_cuda.NCOLS)
+    M = getattr(tfg, attr).numpy()
+    col = 0
+    for n, offs in stage_cuda.LAYOUT:
+        if n == name:
+            break
+        col += len(offs)
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal(M.shape[1])
+    got = np.zeros(M.shape[0])
+    for r in range(M.shape[0]):
+        for j, o in enumerate(offs):
+            if table[r, col + j] != 0.0:
+                got[r] += table[r, col + j] * x[r + o]
+    np.testing.assert_allclose(got, M @ x, rtol=0, atol=1e-12 * np.abs(M).max())
+
+
+def test_stage_statics_and_predicate(setup):
+    tfg = setup["tfg"]
+    assert stage_cuda.stage_supported(tfg)
+    st = stage_cuda.stage_statics(tfg)
+    n = (tfg.nz + 1) * stage_cuda.NCOLS
+    assert st.tab.shape == (n + 2 * tfg.p ** 2,) and st.use_sep and st.has_pen
+    assert tuple(st.m2d.shape) == (12, 6, tfg.A, tfg.A)
+    np.testing.assert_allclose(
+        st.tab[n:n + tfg.p ** 2].numpy().reshape(tfg.p, tfg.p),
+        np.asarray(tfg.DA_elem) / tfg.delta, rtol=1e-15)
+    In0 = tfg.interp_n2i[0]
+    assert (st.c00, st.c01) == (float(In0[0]), float(In0[1]))
+    full = stage_cuda.stage_statics(dataclasses.replace(tfg, sep_ok=False))
+    assert not full.use_sep and tuple(full.m2d.shape) == (5, 6, tfg.A, tfg.A)
+    # outside the envelope: vertical order 2, a wide operator, an xz slice
+    for bad in (dataclasses.replace(tfg, vo=2),
+                dataclasses.replace(tfg, xz_zero="V"),
+                dataclasses.replace(
+                    tfg, diff_n2n=torch.ones_like(tfg.diff_n2n)),
+                dataclasses.replace(
+                    tfg, interp_i2n=torch.ones_like(tfg.interp_i2n))):
+        assert not stage_cuda.stage_supported(bad)
+        with pytest.raises(NotImplementedError):
+            stage_cuda.stage_statics(bad)
+
+
+def test_stencil_pack_refuses_a_diagonal_outside_its_window():
+    M = np.eye(4) + np.eye(4, k=2)
+    diags = {"M": stencils.extract_diags(M)}
+    table = stencils.pack([("M", (0, 2))], diags, 5)
+    assert table.shape == (5, 2)
+    np.testing.assert_array_equal(table[:, 0], [1, 1, 1, 1, 0])
+    np.testing.assert_array_equal(table[:, 1], [1, 1, 0, 0, 0])
+    assert stencils.pack([("M", (0, 1))], diags, 5) is None
+    assert stencils.extract_diags(np.ones((8, 8))) is None
+
+
+def test_wrapper_runs_plain_on_cpu_and_counts_nothing(setup):
+    s = setup
+    base, ue = _bases(s, "t", True)
+    before = dict(launch_counts)
+    got = stage_cuda.fused_stage(base, ue, DT_S, s["tfg"],
+                                 s["tcfg"].constants)
+    want = stage_cuda.fused_stage_plain(base, ue, DT_S, s["tfg"],
+                                        s["tcfg"].constants)
+    for k in t_engine.FIELDS:
+        assert torch.equal(got[k], want[k]), k
+    assert dict(launch_counts) == before
+
+
+@pytest.mark.parametrize("case", ["tracers", "shape", "contiguity", "dtype"])
+def test_wrapper_raises_on_what_the_kernel_does_not_take(setup, case):
+    s = setup
+    base, ue = _bases(s, "t", False)
+    args = (DT_S, s["tfg"], s["tcfg"].constants)
+    if case == "tracers":
+        with pytest.raises(NotImplementedError):
+            stage_cuda.fused_stage(base, dict(ue, Tracers=ue["Rho"]), *args)
+    elif case == "shape":
+        with pytest.raises(ValueError):
+            stage_cuda.fused_stage(base, dict(ue, W=ue["W"][:-1]), *args)
+    elif case == "contiguity":
+        with pytest.raises(ValueError):
+            stage_cuda.fused_stage(
+                dict(base, Rt=base["Rt"].transpose(2, 3)), ue, *args)
+    else:
+        with pytest.raises(ValueError):
+            stage_cuda.fused_stage(
+                base, {k: v.to(torch.float16) for k, v in ue.items()}, *args)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-11),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("sep", [True, False], ids=["separable", "full3d"])
+def test_cuda_kernel_matches_plain(setup, dtype, tol, sep):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no interpret mode")
+    from tempestmodel_tpu_torch import fast
+    from tempestmodel_tpu_torch.models import nh_model
+    tcfg = setup["tcfg"].with_(dtype=dtype)
+    geom = nh_model.build_nh_sphere_geometry(tcfg, ztop=tcfg.ztop)
+    fg = synthetic.terrain_like(
+        fast.build_fast_geometry(geom, dtype=dtype, device="cuda"), seed=4)
+    fg = dataclasses.replace(fg, sep_ok=sep)
+    ue, b1, b2 = (synthetic.random_state(fg, seed) for seed in (1, 2, 3))
+    for base in (b1, ((0.3, b1), (0.7, b2))):
+        got, gwf = stage_cuda.fused_stage(base, ue, DT_S, fg, tcfg.constants,
+                                          defer_w=True)
+        torch.cuda.synchronize()
+        want, wwf = stage_cuda.fused_stage_plain(base, ue, DT_S, fg,
+                                                 tcfg.constants, defer_w=True)
+        for k in STATE4:
+            assert rel_err(got[k].cpu(), want[k].cpu()) < tol, k
+        assert rel_err(gwf["dW"].cpu(), wwf["dW"].cpu()) < tol

@@ -13,6 +13,8 @@ import tempestmodel_tpu_torch as tt
 from tempestmodel_tpu.models import nh_model as j_nh_model
 from tempestmodel_tpu.testcases.nonhydro_sphere import (
     BaroclinicWaveUMJS as JaxUMJS)
+from tempestmodel_tpu_torch import convert
+from tempestmodel_tpu_torch.kernels import synthetic
 from tempestmodel_tpu_torch.models import nh_model as t_nh_model
 from tempestmodel_tpu_torch.testcases.nonhydro_sphere import (
     BaroclinicWaveUMJS as TorchUMJS)
@@ -67,6 +69,26 @@ def fast_geometry_fields_numpy(jfg):
         else:
             out[f.name] = np.asarray(v)
     return out
+
+
+def terrain_like_pair(jfg, seed=0):
+    """(jfg_t, tfg_t): the JAX ``FastGeometry`` ``jfg`` and its port
+    counterpart, both with the same seeded terrain-like separable metric
+    (the UMJS terrain is flat, so its terrain terms all vanish)."""
+    fields = synthetic.terrain_fields(jfg.nz, 6, jfg.A, jfg.B,
+                                      np.asarray(jfg.sep_e), seed=seed)
+    jfg_t = dataclasses.replace(
+        jfg, **{k: jnp.asarray(v) for k, v in fields.items()})
+    tfg_t = convert.fast_geometry_from_numpy(
+        fast_geometry_fields_numpy(jfg_t), device=CPU, dtype=torch.float64)
+    return jfg_t, tfg_t
+
+
+def state_pair(nz, A, seed):
+    """The same seeded random z-first state as JAX arrays and as tensors."""
+    d = synthetic.random_state_numpy(nz, 6, A, A, seed)
+    return ({k: jnp.asarray(v) for k, v in d.items()},
+            {k: torch.from_numpy(v.copy()) for k, v in d.items()})
 
 
 def rel_err(got, want):
