@@ -11,22 +11,26 @@ and runs these phases, each printing one JSON line:
 
 1. device   the card's name and power limit as nvidia-smi gives them;
 2. build    every kernel source compiled and loaded, with the seconds;
-3. kernel   each of the six kernels against its plain PyTorch version on
+3. kernel   each of the ten kernels against its plain PyTorch version on
             the card at the flagship shapes, float32 and float64, with times;
 4. slice    the Strang-HEVI step at small size in float64 on the card three
             ways — fused kernel path, unfused kernel path, plain path — each
-            pair to 1e-11 relative per field;
+            pair to 1e-11 relative per field, and ``make_fast_multistep``
+            (one CUDA-graph replay of 3 steps) against 3 eager steps;
 5. flagship the main paths at full width: UMJS baroclinic wave, ne30 p4
-            nz30 float32, through ``make_fast_step``: the fused path
-            (``first_step`` and 5 ``step``s), then the unfused path
-            (``fused=False``, ``first_step`` and 2 ``step``s); finite fields,
-            launch counts, ms/step of both;
-6. kernels  one line listing every kernel with its time, bound, plain
+            nz30 float32: ``make_fast_multistep`` (``first_step``, then
+            replays of a 10-step CUDA graph), the eager fused path of
+            ``make_fast_step`` (``first_step`` and 5 ``step``s), then the
+            unfused path (``fused=False``, ``first_step`` and 1 ``step``);
+            finite fields, launch counts, ms/step of each;
+6. dss      the step with the tail's DSS as four launches or as
+            ``dss_state`` and the stages' Rt/Rho as two launches or as
+            ``dss_scalar2``, eagerly and under graph replay, in turns;
+7. kernels  one line listing every kernel with its time, bound, plain
             version's time and launches on the flagship runs.
 
-With ``--profile PATH`` it also traces three steps of each flagship path
-with torch.profiler and writes the device time by kernel to the JSON file
-PATH.
+With ``--profile PATH`` it also traces steps of each flagship path with
+torch.profiler and writes the device time by kernel to the JSON file PATH.
 
 Any failure raises: the exit code is then non-zero and no result line is
 printed.  Without a CUDA device the script exits with code 1 at once.  The
@@ -51,16 +55,39 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 # flagship configuration (the UMJS baroclinic wave of the JAX package's
 # bench: ne30, p=4, 30 levels, float32, one device)
 NE, ORDER, NZ, DT, NU = 30, 4, 30, 100.0, 1.0e15
-FLAGSHIP_STEPS = 5          # on the fused path
-UNFUSED_STEPS = 2
+FLAGSHIP_STEPS = 5          # eager, on the fused path
+UNFUSED_STEPS = 1
+INNER_STEPS = 10            # steps in one CUDA graph of make_fast_multistep
+REPLAYS = 4                 # timed replays of that graph
 SEED = 0
+KERNELS = ("dss_scalar", "dss_vector", "banded_solve", "dss_uvw",
+           "fused_stage", "nu4_pass1", "nu4_pass2", "fused_implicit_update",
+           "dss_state", "dss_scalar2")
 # kernel launches per ``step`` (``first_step`` has one implicit solve more)
+# with the DSS as separate launches ...
 FUSED_PER_STEP = {"fused_stage": 5, "dss_uvw": 5, "dss_scalar": 16,
                   "dss_vector": 2, "fused_implicit_update": 1,
-                  "banded_solve": 0}
+                  "banded_solve": 0, "nu4_pass1": 1, "nu4_pass2": 1,
+                  "dss_state": 0, "dss_scalar2": 0}
 UNFUSED_PER_STEP = {"fused_stage": 0, "dss_uvw": 0, "dss_scalar": 21,
                     "dss_vector": 7, "fused_implicit_update": 0,
-                    "banded_solve": 1}
+                    "banded_solve": 1, "nu4_pass1": 0, "nu4_pass2": 0,
+                    "dss_state": 0, "dss_scalar2": 0}
+DSS_MERGES = ((), ("state",), ("scalar2",), ("state", "scalar2"))
+
+
+def fused_per_step(merge):
+    """... and with the groups of ``merge`` in one launch each: the tail's
+    two full-state DSS through ``dss_state``; Rt and Rho through
+    ``dss_scalar2`` wherever they are still scalars of their own (the five
+    stages, and the tail's two DSS unless ``dss_state`` has them)."""
+    n = dict(FUSED_PER_STEP)
+    if "state" in merge:
+        n.update(dss_state=2, dss_vector=0, dss_scalar=n["dss_scalar"] - 6)
+    if "scalar2" in merge:
+        pairs = 5 if "state" in merge else 7
+        n.update(dss_scalar2=pairs, dss_scalar=n["dss_scalar"] - 2 * pairs)
+    return n
 
 
 def emit(obj):
@@ -291,6 +318,173 @@ def check_fused_kernels(cfg, geom, state, dtype, rows, dev):
     torch.cuda.empty_cache()
 
 
+def check_tail_kernels(geom, dtype, rows, dev):
+    """Phase 3, third part: ``nu4_pass1``, ``nu4_pass2``, ``dss_state``
+    (with and without the Rayleigh finish) and ``dss_scalar2`` against their
+    plain versions at the flagship shapes in ``dtype``.  The metric is
+    terrain-like with a z-constant 3-D Jacobian that is no multiple of the
+    2-D one (flat terrain would hide a mix-up of the two); the fields are
+    random."""
+    from tempestmodel_tpu_torch import fast
+    from tempestmodel_tpu_torch.fast import dss_cuda, hyper_cuda
+    from tempestmodel_tpu_torch.kernels import synthetic
+    from tempestmodel_tpu_torch.kernels.timing import time_cuda
+
+    tag = "f32" if dtype == torch.float32 else "f64"
+    f32 = dtype == torch.float32
+    esize = 4 if f32 else 8
+    fgt = synthetic.terrain_like(
+        fast.build_fast_geometry(geom, dtype=dtype, device=dev), seed=SEED,
+        vary_jac=True)
+    K, P, A = fgt.nz, 6, fgt.A
+    nlev, nint, n2d = K * P * A * A, (K + 1) * P * A * A, P * A * A
+    nstate = 4 * nlev + nint
+    FIELDS = dss_cuda.STATE_FIELDS
+    # two sets of inputs cycle through the L2 (2 x 104 MB in float32)
+    sets = [(synthetic.random_state(fgt, seed=s), synthetic.random_state(
+        fgt, seed=s + 10)) for s in (1, 2)]
+    d, w = sets[0]
+
+    # --- nu4_pass1, nu4_pass2 -------------------------------------------
+    hyper_tol = 1e-4 if f32 else 1e-11
+    hst = hyper_cuda.hyper_statics(fgt)
+    # viscosities that make the increment as large as the state, so that
+    # neither hides the other
+    unit = hyper_cuda.nu4_pass1_plain(w, fgt, hst)  # what pass 2 scales
+    nu_s = float(d["Rho"].abs().max() / unit["Rho"].abs().max())
+    nu_v = float(d["U"].abs().max() / unit["U"].abs().max())
+    nu = (nu_s, nu_v, 0.7 * nu_v, 1.0)            # nu_s, nu_d, nu_v, dt
+    del unit
+    got = hyper_cuda.nu4_pass1(d, fgt, hst)
+    torch.cuda.synchronize()
+    want = hyper_cuda.nu4_pass1_plain(d, fgt, hst)
+    err1 = {k: rel_err(got[k], want[k]) for k in FIELDS}
+    got = hyper_cuda.nu4_pass2(d, w, *nu, fgt, hst)
+    torch.cuda.synchronize()
+    want = hyper_cuda.nu4_pass2_plain(d, w, *nu, fgt, hst)
+    # the whole result, and the increment on its own
+    err2 = {k: max(rel_err(got[k], want[k]),
+                   rel_err(got[k] - d[k], want[k] - d[k])) for k in FIELDS}
+    del got, want
+    for name, errs in (("nu4_pass1", err1), ("nu4_pass2", err2)):
+        if not max(errs.values()) <= hyper_tol:
+            raise RuntimeError(f"{name} {tag}: rel err {errs} > {hyper_tol}")
+    scal2 = (nu[1], nu[2], nu[3], nu[3] * nu[0])
+    for name, errs, launch, plain, nfields, line in (
+            ("nu4_pass1", err1,
+             lambda x, y: hyper_cuda._launch("nu4_pass1", x, None,
+                                             (1.0, 1.0, 0.0, 0.0), hst),
+             lambda x, y: hyper_cuda.nu4_pass1_plain(x, fgt, hst), 2, 177),
+            ("nu4_pass2", err2,
+             lambda x, y: hyper_cuda._launch("nu4_pass2", y, x, scal2, hst),
+             lambda x, y: hyper_cuda.nu4_pass2_plain(x, y, *nu, fgt, hst),
+             3, 192)):
+        ms = time_cuda(launch, sets, reps=20, queued=True)
+        plain_ms = time_cuda(plain, sets, reps=3, warmup=1)
+        # reads the five (or ten) fields, the 8 2-D metric fields and the
+        # element matrices; writes five fields
+        nb = (nfields * nstate + 8 * n2d + hst.ds.numel()) * esize
+        bnd, by = bound_ms(nb, 220 * nint, dtype)
+        row = {"name": name, "route": "cuda",
+               "source": "tempestmodel_tpu_torch/csrc/hyper.cu",
+               "replaces": f"tempestmodel_tpu/fast/hyper_pallas.py:{line}",
+               "shape": [K, P, A, A], "max_abs_err": max(errs.values()),
+               "err_by_field": errs, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bnd, "bound_by": by, "library_ms": None}
+        emit({"phase": "kernel", "dtype": tag, "tol": hyper_tol, **row})
+        if f32:
+            rows[name] = row
+
+    # --- dss_state, dss_scalar2 -----------------------------------------
+    dss_tol = 1e-6 if f32 else 1e-13
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    ray = tuple({k: torch.rand(v.shape, dtype=dtype, device=dev,
+                               generator=gen) for k, v in d.items()}
+                for _ in range(2))
+    dss = (fgt.inv_mult, fgt.e_rot, fgt.dss_links, fgt.p)
+    sc = (fgt.inv_mult, fgt.dss_links, fgt.p)
+
+    def separate(x, rayleigh=None):
+        """The four launches (and the plain finish) ``dss_state`` merges."""
+        u, v = dss_cuda.dss_vector(x["U"], x["V"], *dss, table=fgt.dss_table)
+        out = {"U": u, "V": v}
+        for k in ("Rt", "Rho", "W"):
+            out[k] = dss_cuda.dss_scalar(x[k], *sc, table=fgt.dss_table)
+        if rayleigh is not None:
+            out = {k: rayleigh[0][k] * out[k] + rayleigh[1][k] for k in out}
+        return out
+
+    err, equal = 0.0, True
+    for r in (None, ray):
+        got = dss_cuda.dss_state(d, *dss, rayleigh=r, table=fgt.dss_table)
+        torch.cuda.synchronize()
+        want = dss_cuda.dss_state_plain(d, *dss, rayleigh=r)
+        sep = separate(d, r)
+        err = max(err, max(rel_err(got[k], want[k]) for k in FIELDS))
+        equal = equal and all(torch.equal(got[k], sep[k]) for k in FIELDS)
+    del got, want, sep
+    if not err <= dss_tol or not equal:
+        raise RuntimeError(f"dss_state {tag}: rel err {err} (tol {dss_tol}), "
+                           f"equal to the separate launches: {equal}")
+    timed = {}
+    for key, r in (("", None), ("_rayleigh", ray)):
+        timed["ms" + key] = time_cuda(
+            lambda x, y: dss_cuda.dss_state(x, *dss, rayleigh=r,
+                                            table=fgt.dss_table),
+            sets, reps=20, queued=True)
+        timed["separate_ms" + key] = time_cuda(
+            lambda x, y: separate(x, r), sets, reps=20, queued=True)
+        timed["plain_ms" + key] = time_cuda(
+            lambda x, y: dss_cuda.dss_state_plain(x, *dss, rayleigh=r), sets,
+            reps=3, warmup=1)
+        nb = ((4 if r else 2) * nstate + n2d + fgt.e_rot.numel()) * esize \
+            + fgt.dss_table.numel() * 4
+        flops = 16 * nlev + 5 * (2 * nlev + nint) + (2 * nstate if r else 0)
+        timed["bound_ms" + key], by = bound_ms(nb, flops, dtype)
+    row = {"name": "dss_state", "route": "cuda",
+           "source": "tempestmodel_tpu_torch/csrc/dss.cu",
+           "replaces": "tempestmodel_tpu/fast/dss_pallas.py:343",
+           "shape": [K, P, A, A], "max_abs_err": err,
+           "bitwise_equal_to_separate_launches": equal, **timed,
+           "bound_by": by, "library_ms": None}
+    emit({"phase": "kernel", "dtype": tag, "tol": dss_tol, **row})
+    if f32:
+        rows["dss_state"] = row
+
+    g1, g2 = dss_cuda.dss_scalar2(d["Rt"], d["Rho"], *sc,
+                                  table=fgt.dss_table)
+    torch.cuda.synchronize()
+    w1, w2 = dss_cuda.dss_scalar2_plain(d["Rt"], d["Rho"], *sc)
+    err = max(rel_err(g1, w1), rel_err(g2, w2))
+    equal = all(torch.equal(g, dss_cuda.dss_scalar(d[k], *sc,
+                                                   table=fgt.dss_table))
+                for g, k in ((g1, "Rt"), (g2, "Rho")))
+    if not err <= dss_tol or not equal:
+        raise RuntimeError(f"dss_scalar2 {tag}: rel err {err} (tol "
+                           f"{dss_tol}), equal to two launches: {equal}")
+    ms = time_cuda(lambda x, y: dss_cuda.dss_scalar2(
+        x["Rt"], x["Rho"], *sc, table=fgt.dss_table), sets, reps=40,
+        queued=True)
+    separate_ms = time_cuda(lambda x, y: [dss_cuda.dss_scalar(
+        x[k], *sc, table=fgt.dss_table) for k in ("Rt", "Rho")], sets,
+        reps=40, queued=True)
+    plain_ms = time_cuda(lambda x, y: dss_cuda.dss_scalar2_plain(
+        x["Rt"], x["Rho"], *sc), sets, reps=4)
+    bnd, by = bound_ms((4 * nlev + n2d) * esize + fgt.dss_table.numel() * 4,
+                       10 * nlev, dtype)
+    row = {"name": "dss_scalar2", "route": "cuda",
+           "source": "tempestmodel_tpu_torch/csrc/dss.cu",
+           "replaces": "tempestmodel_tpu/fast/dss_pallas.py:231",
+           "shape": [K, P, A, A], "max_abs_err": err,
+           "bitwise_equal_to_separate_launches": equal, "ms": ms,
+           "separate_ms": separate_ms, "plain_ms": plain_ms, "bound_ms": bnd,
+           "bound_by": by, "library_ms": None}
+    emit({"phase": "kernel", "dtype": tag, "tol": dss_tol, **row})
+    if f32:
+        rows["dss_scalar2"] = row
+    torch.cuda.empty_cache()
+
+
 def check_kernels(fg, cfg, geom, state, dev):
     """Phase 3: every kernel against its plain version at the flagship
     shapes; returns {name: row of the kernels line (without launches)}."""
@@ -422,13 +616,18 @@ def check_kernels(fg, cfg, geom, state, dev):
         torch.cuda.empty_cache()
 
         check_fused_kernels(cfg, geom, state, dtype, rows, dev)
+        check_tail_kernels(geom, dtype, rows, dev)
     return rows
 
 
 def check_slice(dev):
     """Phase 4: 3 steps at ne4 p4 nz8 in float64 on the card three ways:
-    the fused path with kernels, the unfused path with kernels, and the
-    path with the plain versions; each pair to 1e-11 relative per field."""
+    the fused path with kernels (fused nu4 tail included), the unfused path
+    with kernels, and the path with the plain versions; each pair to 1e-11
+    relative per field.  Then ``make_fast_multistep(inner_steps=3)`` -- one
+    replay of a 3-step CUDA graph -- against 3 eager steps from the same
+    state (the same kernels in the same order: 1e-13), with the DSS as
+    separate launches and with every group in one launch."""
     import tempestmodel_tpu_torch as tm
     from tempestmodel_tpu_torch import fast
     from tempestmodel_tpu_torch.kernels import counts
@@ -456,7 +655,8 @@ def check_slice(dev):
         torch.cuda.synchronize()
         outs[name] = X
         launched = {k for k, v in counts.launch_counts.items() if v}
-        want = {"fused": {k for k, v in FUSED_PER_STEP.items() if v},
+        want = {"fused": {k for k, v in fused_per_step(
+                    fast.engine.DSS_MERGE_DEFAULT).items() if v},
                 "unfused": {k for k, v in UNFUSED_PER_STEP.items() if v},
                 "plain": set()}[name]
         if launched != want:
@@ -473,21 +673,53 @@ def check_slice(dev):
            for p, d in errs.items()}
     if any(bad.values()):
         raise RuntimeError(f"paths disagree: {bad}")
+
+    replay = {}
+    for merge in ((), ("state", "scalar2")):
+        first, step = fast.make_fast_step(cfg, geom, device=dev,
+                                          dss_merge=merge)
+        X1, c1 = first(fast.pack_state(state, device=dev))
+        E, ce = X1, c1
+        for _ in range(3):
+            E, ce = step(E, ce)
+        counts.reset_launch_counts()
+        _, multi = fast.make_fast_multistep(cfg, geom, 3, device=dev,
+                                            dss_merge=merge)
+        G, cg = multi(X1, c1)             # captures, then replays
+        captured = dict(counts.launch_counts)
+        G2, cg2 = multi(X1, c1)           # a pure replay: no launch counted
+        torch.cuda.synchronize()
+        # the warm-up step and the 3 captured ones
+        want = {k: 4 * v for k, v in fused_per_step(merge).items()}
+        if captured != want or dict(counts.launch_counts) != captured:
+            raise RuntimeError(f"slice, graph capture ({merge}): launch "
+                               f"counts {captured} != expected {want}")
+        replay["+".join(merge) or "separate"] = {
+            **{k: max(rel_err(G[k], E[k]), rel_err(G2[k], E[k])) for k in E},
+            **{"carry_" + k: rel_err(cg2[k], ce[k]) for k in ce}}
+    emit({"phase": "slice", "config": "ne4 p4 nz8 f64, graph replay of 3 "
+          "steps vs 3 eager steps", "rel_err": replay, "tol": 1e-13})
+    bad = {p: {k: e for k, e in d.items() if not e < 1e-13}
+           for p, d in replay.items()}
+    if any(bad.values()):
+        raise RuntimeError(f"graph replay disagrees with eager steps: {bad}")
     for k, v in outs["fused"].items():
         if not bool(torch.isfinite(v).all()):
             raise RuntimeError(f"slice: non-finite {k}")
 
 
-def profile_steps(step, X, carry, nsteps, path_name):
-    """Optional (``--profile PATH``): device time by kernel over ``nsteps``
-    steady steps of one flagship path, from torch.profiler; printed as one
-    JSON line and returned."""
+def profile_steps(step, X, carry, ncalls, path_name, steps_per_call=1):
+    """Optional (``--profile PATH``): device time by kernel over ``ncalls``
+    steady calls of ``step`` (each ``steps_per_call`` model steps: 1 for an
+    eager step, ``inner_steps`` for a graph replay) of one flagship path,
+    from torch.profiler; printed as one JSON line and returned."""
     from torch.profiler import profile, ProfilerActivity
+    nsteps = ncalls * steps_per_call
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(nsteps):
+        for _ in range(ncalls):
             X, carry = step(X, carry)
         torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0)
@@ -573,9 +805,95 @@ def main():
     # 5. the main paths at full width -------------------------------------
     X0 = fast.pack_state(state, device=dev)
     npts = 6 * (NE * ORDER) ** 2 * NZ
+    config = f"UMJS ne{NE} p{ORDER} nz{NZ} f32 dt{DT:g} nu{NU:g}"
+    default_merge = tuple(fast.engine.DSS_MERGE_DEFAULT)
     launches, profiles = {}, {}
+
+    def check_state(X, what):
+        for k, v in X.items():
+            nzk = NZ + (1 if k == "W" else 0)
+            if tuple(v.shape) != (nzk, 6, NE * ORDER, NE * ORDER):
+                raise RuntimeError(f"{what}: {k} has shape {tuple(v.shape)}")
+            if v.dtype != torch.float32 or not bool(torch.isfinite(v).all()):
+                raise RuntimeError(f"{what}: {k} is not finite float32")
+        # the wave must have stayed near its balanced start: density and
+        # rho*theta move by a small fraction over a few steps
+        drift = {k: rel_err(X[k], X0[k]) for k in ("Rho", "Rt")}
+        if not all(d < 1e-2 for d in drift.values()):
+            raise RuntimeError(f"{what}: state drifted {drift}")
+        return drift
+
+    def check_counts(what, got, per_step, nsteps):
+        """``nsteps`` steps and one ``first_step``, which has one more
+        implicit solve."""
+        want = {k: v * (nsteps + 1) for k, v in per_step.items()}
+        for k in ("fused_implicit_update", "banded_solve"):
+            want[k] += 1 if per_step[k] else 0
+        if got != want:
+            raise RuntimeError(f"{what}: launch counts {got} != expected "
+                               f"{want}")
+
+    def timed(fn, X, carry, ncalls):
+        """``ncalls`` calls of ``fn`` one after the other: (X, carry, ms per
+        call by CUDA events, wall ms per call)."""
+        torch.cuda.synchronize()
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        ev0.record()
+        for _ in range(ncalls):
+            X, carry = fn(X, carry)
+        ev1.record()
+        torch.cuda.synchronize()
+        return (X, carry, ev0.elapsed_time(ev1) / ncalls,
+                1e3 * (time.perf_counter() - t0) / ncalls)
+
+    # 5a. this slice's path: make_fast_multistep, a 10-step CUDA graph
+    t0 = time.perf_counter()
+    first_step, multi = fast.make_fast_multistep(cfg, geom, INNER_STEPS,
+                                                 device=dev)
+    make_s = time.perf_counter() - t0
+    counts.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    X, carry = first_step(X0)
+    t0 = time.perf_counter()
+    X, carry = multi(X, carry)          # warm-up step, capture, first replay
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    replay_ms = []
+    for _ in range(REPLAYS):
+        X, carry, ms, _ = timed(multi, X, carry, 1)
+        replay_ms.append(ms / INNER_STEPS)
+    launches["multistep"] = dict(counts.launch_counts)
+    # the wrappers count where they launch, which under a graph is at
+    # capture: first_step, the warm-up step and the INNER_STEPS captured
+    # steps; the replays launch the same kernels without passing a wrapper
+    per_step = fused_per_step(default_merge)
+    check_counts("multistep path", launches["multistep"], per_step,
+                 INNER_STEPS + 1)
+    drift = check_state(X, "flagship, multistep")
+    ms_per_step = sorted(replay_ms)[len(replay_ms) // 2]
+    emit({"phase": "flagship", "path": "multistep", "config": config,
+          "inner_steps": INNER_STEPS, "replays": REPLAYS,
+          "steps": INNER_STEPS * (REPLAYS + 1),
+          "ms_per_step": ms_per_step, "ms_per_step_each_replay": replay_ms,
+          "gridpoint_steps_per_s": npts / (ms_per_step * 1e-3),
+          "launches": launches["multistep"], "launches_per_step": per_step,
+          "launches_counted": "at capture (first_step + 1 warm-up step + "
+                              f"{INNER_STEPS} captured steps), not at replay",
+          "dss_merge": default_merge, "make_fast_multistep_s": make_s,
+          "warmup_capture_first_replay_s": capture_s, "drift": drift,
+          "peak_device_GiB": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "card": smi})
+    if profile_path is not None:
+        profiles["multistep"] = profile_steps(multi, X, carry, 2,
+                                              "multistep", INNER_STEPS)
+    del first_step, multi, X, carry
+    torch.cuda.empty_cache()
+
+    # 5b. the eager paths of make_fast_step
     for path, kw, nsteps, per_step in (
-            ("fused", {}, FLAGSHIP_STEPS, FUSED_PER_STEP),
+            ("fused", {}, FLAGSHIP_STEPS, fused_per_step(default_merge)),
             ("unfused", {"fused": False}, UNFUSED_STEPS, UNFUSED_PER_STEP)):
         t0 = time.perf_counter()
         first_step, step = fast.make_fast_step(cfg, geom, device=dev, **kw)
@@ -589,40 +907,11 @@ def main():
         counts.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
         X, carry = first_step(X0)
-        torch.cuda.synchronize()
-        ev0 = torch.cuda.Event(enable_timing=True)
-        ev1 = torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        ev0.record()
-        for _ in range(nsteps):
-            X, carry = step(X, carry)
-        ev1.record()
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0) / nsteps
-        ms_per_step = ev0.elapsed_time(ev1) / nsteps
+        X, carry, ms_per_step, wall_ms = timed(step, X, carry, nsteps)
         launches[path] = dict(counts.launch_counts)
-
-        # first_step + steps, and one more implicit solve in first_step
-        want = {k: v * (nsteps + 1) for k, v in per_step.items()}
-        for k in ("fused_implicit_update", "banded_solve"):
-            want[k] += 1 if per_step[k] else 0
-        if launches[path] != want:
-            raise RuntimeError(f"{path} path: launch counts "
-                               f"{launches[path]} != expected {want}")
-        for k, v in X.items():
-            nzk = NZ + (1 if k == "W" else 0)
-            if tuple(v.shape) != (nzk, 6, NE * ORDER, NE * ORDER):
-                raise RuntimeError(f"flagship: {k} has shape "
-                                   f"{tuple(v.shape)}")
-            if v.dtype != torch.float32 or not bool(torch.isfinite(v).all()):
-                raise RuntimeError(f"flagship: {k} is not finite float32")
-        # the wave must have stayed near its balanced start: density and
-        # rho*theta move by a small fraction over a few steps
-        drift = {k: rel_err(X[k], X0[k]) for k in ("Rho", "Rt")}
-        if not all(d < 1e-2 for d in drift.values()):
-            raise RuntimeError(f"flagship: state drifted {drift}")
-        emit({"phase": "flagship", "path": path,
-              "config": f"UMJS ne{NE} p{ORDER} nz{NZ} f32 dt{DT:g} nu{NU:g}",
+        check_counts(f"{path} path", launches[path], per_step, nsteps)
+        drift = check_state(X, f"flagship, {path}")
+        emit({"phase": "flagship", "path": path, "config": config,
               "steps": nsteps, "ms_per_step": ms_per_step,
               "wall_ms_per_step": wall_ms,
               "gridpoint_steps_per_s": npts / (ms_per_step * 1e-3),
@@ -633,6 +922,7 @@ def main():
         if profile_path is not None:
             profiles[path] = profile_steps(step, X, carry, 3, path)
         del first_step, step, X, carry
+    torch.cuda.empty_cache()
 
     if profile_path is not None:
         os.makedirs(os.path.dirname(os.path.abspath(profile_path)),
@@ -640,17 +930,68 @@ def main():
         with open(profile_path, "w") as fh:
             json.dump(profiles, fh, indent=1)
 
-    # 6. the kernels line, the card, the result ---------------------------
-    # launches: the fused run's count; for the kernel that only the unfused
-    # path runs, that run's
+    # 6. which DSS launches to merge: the step four ways, eagerly and under
+    # graph replay, in turns (forward, then backward) on this one card ------
+    variants = {}
+    for merge in DSS_MERGES:
+        name = "+".join(merge) or "separate"
+        first_step, step = fast.make_fast_step(cfg, geom, device=dev,
+                                               dss_merge=merge)
+        _, multi = fast.make_fast_multistep(cfg, geom, INNER_STEPS,
+                                            device=dev, dss_merge=merge)
+        X, carry = first_step(X0)
+        X, carry = step(X, carry)
+        counts.reset_launch_counts()
+        Xg, cg = multi(X, carry)                    # capture
+        torch.cuda.synchronize()
+        launches[name] = dict(counts.launch_counts)
+        want = {k: v * (INNER_STEPS + 1)
+                for k, v in fused_per_step(merge).items()}
+        if launches[name] != want:
+            raise RuntimeError(f"dss {name}: launch counts {launches[name]} "
+                               f"!= expected {want}")
+        variants[name] = {"step": step, "multi": multi, "state": (X, carry),
+                          "eager_ms": [], "replay_ms": []}
+        del Xg, cg
+    for v in variants.values():                     # untimed warm-up turn
+        timed(v["step"], *v["state"], 2)
+        timed(v["multi"], *v["state"], 1)
+    for name in list(variants) + list(variants)[::-1]:
+        v = variants[name]
+        _, _, ms, _ = timed(v["step"], *v["state"], FLAGSHIP_STEPS)
+        v["eager_ms"].append(ms)
+        Xg, cg, ms, _ = timed(v["multi"], *v["state"], 3)
+        v["replay_ms"].append(ms / INNER_STEPS)
+        check_state(Xg, f"dss {name}")
+    dss_choice = {name: {"eager_ms_per_step": v["eager_ms"],
+                         "replay_ms_per_step": v["replay_ms"],
+                         "launches_per_step": fused_per_step(
+                             tuple(name.split("+")) if name != "separate"
+                             else ())}
+                  for name, v in variants.items()}
+    fastest = min(variants, key=lambda n: min(variants[n]["replay_ms"]))
+    emit({"phase": "dss", "config": config, "inner_steps": INNER_STEPS,
+          "order": "forward then backward; eager over "
+                   f"{FLAGSHIP_STEPS} steps, replay over 3 replays",
+          "variants": dss_choice, "fastest_under_replay": fastest,
+          "default": "+".join(default_merge) or "separate", "card": smi})
+    del variants
+    torch.cuda.empty_cache()
+
+    # 7. the kernels line, the card, the result ---------------------------
+    # launches: the count of this slice's path (the multistep run); for a
+    # kernel that path does not run, the count of the run that does: the DSS
+    # variants of phase 6, then the unfused path
     kernels = []
-    for name in ("dss_scalar", "dss_vector", "banded_solve", "dss_uvw",
-                 "fused_stage", "fused_implicit_update"):
+    for name in KERNELS:
         row = dict(rows[name])
-        row["launches"] = launches["fused"][name] or launches["unfused"][name]
+        runs = ["multistep", "state+scalar2", "separate", "unfused"]
+        row["launches"], row["launches_on"] = next(
+            ((launches[r][name], r) for r in runs if launches[r][name]),
+            (0, None))
         row["launches_unfused_path"] = launches["unfused"][name]
         if row["launches"] < 1:
-            raise RuntimeError(f"{name} was launched on neither path")
+            raise RuntimeError(f"{name} was launched on no path")
         if name == "fused_stage":
             two = rows["fused_stage_two_base"]
             row.update(ms_two_base=two["ms"], bound_ms_two_base=two["bound_ms"],

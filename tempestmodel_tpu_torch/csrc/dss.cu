@@ -46,6 +46,19 @@
 // V, W written once): 6 or 7 fields at (30|31, 6, 120, 120) float32, about
 // 64-75 MB, 19-22 us at 3.35 TB/s.
 //
+// `dss_state` and `dss_scalar2` replace the TPU kernels `dss_state`
+// (`_state_kernel`) and `dss_scalar2` (`_scalar2_kernel`) of dss_pallas.py:
+// the same gather for all five fields of the state (the (U, V) pair rotated,
+// Rt, Rho and W as scalars, W with one level more) or for two scalar fields
+// of one shape, in one launch.  What a thread works out once (its partners,
+// its links, the rotation, the inverse multiplicity) then serves every field.
+// `dss_state` can finish with the Rayleigh term form x <- fac * x + ref, read
+// from ten more fields; that product and sum are rounded separately, as two
+// tensor operations would round them, so the result equals the separate
+// launches followed by the plain finish.  Bound: bytes (each field read once
+// and written once): 104 MB at (30 | 31, 6, 120, 120) float32, 31 us (209 MB,
+// 62 us with the Rayleigh finish); 41.5 MB, 12.4 us for `dss_scalar2`.
+//
 // Plain C interface (no PyTorch header): pointers and the stream arrive as
 // integers, the launch goes to the given stream, nothing synchronises or
 // allocates, and each entry point returns cudaGetLastError().
@@ -73,6 +86,22 @@ constexpr int EDGE_LEFT = 0, EDGE_RIGHT = 1, EDGE_BOTTOM = 2;  // EDGE_TOP = 3
 #endif
 #ifndef UVW_LEVELS
 #define UVW_LEVELS 2
+#endif
+// ... and for dss_state (five fields a level) and dss_scalar2 (two);
+// kernels/tune_tail.py sweeps them.  (128, 2) and (128, 4) were the fastest
+// of nine pairs in float32 at (30 | 31, 6, 120, 120) on an H100; in float64
+// dss_state was 5 % faster at 1 level and dss_scalar2 10 % faster at 3.
+#ifndef STATE_THREADS
+#define STATE_THREADS 128
+#endif
+#ifndef STATE_LEVELS
+#define STATE_LEVELS 2
+#endif
+#ifndef S2_THREADS
+#define S2_THREADS 128
+#endif
+#ifndef S2_LEVELS
+#define S2_LEVELS 4
 #endif
 constexpr int THREADS = DSS_THREADS;
 constexpr int LEVELS = DSS_LEVELS;  // consecutive levels handled by one thread
@@ -391,6 +420,185 @@ __global__ void dss_uvw_kernel(WFinish<T> wf, const T* __restrict__ imult,
   }
 }
 
+// The pair-summed value at the thread's own node plus its edge partners'.
+template <typename T>
+__device__ __forceinline__ T gather_scalar(const T* __restrict__ level,
+                                           long long slab, int pa,
+                                           const PairNodes& own,
+                                           const EdgeTerms& et) {
+  T s = pair_sum(level + pa * slab, own);
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+    if (n < et.count) s += pair_sum(level + et.panel[n] * slab, et.nodes[n]);
+  return s;
+}
+
+// fac * x + ref with the product and the sum rounded separately (no fused
+// multiply-add), as two tensor operations round them.
+__device__ __forceinline__ float mul_then_add(float f, float x, float r) {
+  return __fadd_rn(__fmul_rn(f, x), r);
+}
+__device__ __forceinline__ double mul_then_add(double f, double x, double r) {
+  return __dadd_rn(__dmul_rn(f, x), r);
+}
+
+template <typename T>
+struct StateArgs {
+  const T* x[5];    // U, V, Rt, Rho, W
+  const T* fac[5];  // Rayleigh factors and reference terms (RAY only)
+  const T* ref[5];
+  T* out[5];
+};
+
+// U, V, Rt, Rho have nz levels, W nz + 1; the grid's z blocks cover nz + 1.
+template <typename T, bool RAY>
+__global__ void dss_state_kernel(StateArgs<T> g, const T* __restrict__ imult,
+                                 const T* __restrict__ rot,
+                                 const int* __restrict__ table, int nz, int P,
+                                 int A, int B, int p, int nlinks) {
+  const int node = blockIdx.x * blockDim.x + threadIdx.x;
+  if (node >= A * B) return;
+  const int a = node / B;
+  const int b = node - a * B;
+  const int pa = blockIdx.y;
+  const long long slab = (long long)A * B;
+  const long long lvl = (long long)P * slab;
+
+  const PairNodes own = pair_nodes(a, b, A, B, p);
+  const EdgeTerms et = edge_terms(table, pa, a, b, A, B, p);
+  const T w = imult[pa * slab + node];
+  T r[2][4] = {};
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+    if (n < et.count) {
+      const long long base = (long long)et.link[n] * A + et.pos[n];
+      const long long stride = (long long)nlinks * A;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) r[n][c] = rot[base + c * stride];
+    }
+  }
+
+  constexpr int LEVELS = STATE_LEVELS;
+  const int k0 = blockIdx.z * LEVELS;
+  T s[5][LEVELS];
+#pragma unroll
+  for (int kk = 0; kk < LEVELS; ++kk) {
+    const int kw = min(k0 + kk, nz);     // interface of W
+    const int k = min(k0 + kk, nz - 1);  // level of the other fields
+    const long long off = (long long)k * lvl;
+    s[0][kk] = pair_sum(g.x[0] + off + pa * slab, own);
+    s[1][kk] = pair_sum(g.x[1] + off + pa * slab, own);
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      if (n < et.count) {
+        const T lu = pair_sum(g.x[0] + off + et.panel[n] * slab, et.nodes[n]);
+        const T lv = pair_sum(g.x[1] + off + et.panel[n] * slab, et.nodes[n]);
+        s[0][kk] += r[n][0] * lu + r[n][1] * lv;
+        s[1][kk] += r[n][2] * lu + r[n][3] * lv;
+      }
+    }
+    s[2][kk] = gather_scalar(g.x[2] + off, slab, pa, own, et);
+    s[3][kk] = gather_scalar(g.x[3] + off, slab, pa, own, et);
+    s[4][kk] = gather_scalar(g.x[4] + (long long)kw * lvl, slab, pa, own, et);
+  }
+#pragma unroll
+  for (int kk = 0; kk < LEVELS; ++kk) {
+    const int k = k0 + kk;
+    const long long o = (long long)k * lvl + pa * slab + node;
+#pragma unroll
+    for (int f = 0; f < 5; ++f) {
+      if (k < nz || (f == 4 && k == nz)) {
+        const T x = s[f][kk] * w;
+        g.out[f][o] = RAY ? mul_then_add(g.fac[f][o], x, g.ref[f][o]) : x;
+      }
+    }
+  }
+}
+
+template <typename T>
+__global__ void dss_scalar2_kernel(const T* __restrict__ x1,
+                                   const T* __restrict__ x2,
+                                   const T* __restrict__ imult,
+                                   const int* __restrict__ table,
+                                   T* __restrict__ o1, T* __restrict__ o2,
+                                   int K, int P, int A, int B, int p) {
+  const int node = blockIdx.x * blockDim.x + threadIdx.x;
+  if (node >= A * B) return;
+  const int a = node / B;
+  const int b = node - a * B;
+  const int pa = blockIdx.y;
+  const long long slab = (long long)A * B;
+
+  const PairNodes own = pair_nodes(a, b, A, B, p);
+  const EdgeTerms et = edge_terms(table, pa, a, b, A, B, p);
+  const T w = imult[pa * slab + node];
+
+  constexpr int LEVELS = S2_LEVELS;
+  const int k0 = blockIdx.z * LEVELS;
+  T s1[LEVELS], s2[LEVELS];
+#pragma unroll
+  for (int kk = 0; kk < LEVELS; ++kk) {
+    const long long off = (long long)min(k0 + kk, K - 1) * P * slab;
+    s1[kk] = gather_scalar(x1 + off, slab, pa, own, et);
+    s2[kk] = gather_scalar(x2 + off, slab, pa, own, et);
+  }
+#pragma unroll
+  for (int kk = 0; kk < LEVELS; ++kk) {
+    const int k = k0 + kk;
+    if (k < K) {
+      const long long o = ((long long)k * P + pa) * slab + node;
+      o1[o] = s1[kk] * w;
+      o2[o] = s2[kk] * w;
+    }
+  }
+}
+
+// ptrs: x U V Rt Rho W | fac U V Rt Rho W | ref U V Rt Rho W (both null:
+// no Rayleigh finish) | out U V Rt Rho W.
+template <typename T>
+int launch_state(const void* const* ptrs, const void* imult, const void* rot,
+                 const void* table, int nz, int P, int A, int B, int p,
+                 int nlinks, void* stream) {
+  if (nz < 1) return -1;
+  if (P > 0 && A > 0 && B > 0) {
+    StateArgs<T> g;
+    for (int f = 0; f < 5; ++f) {
+      g.x[f] = (const T*)ptrs[f];
+      g.fac[f] = (const T*)ptrs[5 + f];
+      g.ref[f] = (const T*)ptrs[10 + f];
+      g.out[f] = (T*)ptrs[15 + f];
+    }
+    const dim3 grid((unsigned)((A * B + STATE_THREADS - 1) / STATE_THREADS),
+                    (unsigned)P,
+                    (unsigned)((nz + 1 + STATE_LEVELS - 1) / STATE_LEVELS));
+    if (g.fac[0] != nullptr)
+      dss_state_kernel<T, true><<<grid, STATE_THREADS, 0,
+                                  (cudaStream_t)stream>>>(
+          g, (const T*)imult, (const T*)rot, (const int*)table, nz, P, A, B,
+          p, nlinks);
+    else
+      dss_state_kernel<T, false><<<grid, STATE_THREADS, 0,
+                                   (cudaStream_t)stream>>>(
+          g, (const T*)imult, (const T*)rot, (const int*)table, nz, P, A, B,
+          p, nlinks);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_scalar2(const void* x1, const void* x2, const void* imult,
+                   const void* table, void* o1, void* o2, int K, int P, int A,
+                   int B, int p, void* stream) {
+  if (K > 0 && P > 0 && A > 0 && B > 0) {
+    const dim3 grid((unsigned)((A * B + S2_THREADS - 1) / S2_THREADS),
+                    (unsigned)P, (unsigned)((K + S2_LEVELS - 1) / S2_LEVELS));
+    dss_scalar2_kernel<T><<<grid, S2_THREADS, 0, (cudaStream_t)stream>>>(
+        (const T*)x1, (const T*)x2, (const T*)imult, (const int*)table,
+        (T*)o1, (T*)o2, K, P, A, B, p);
+  }
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_uvw(const void* u, const void* v, const void* bw1, const void* bw2,
                const void* dw, const void* cax0, const void* cbx0,
@@ -509,6 +717,35 @@ int dss_uvw_f64(const void* u, const void* v, const void* bw1, const void* bw2,
   return launch_uvw<double>(u, v, bw1, bw2, dw, cax0, cbx0, cxx0, imult, rot,
                             table, uo, vo, wo, dt_s, cb1, cb2, c00, c01, nz, P,
                             A, B, p, nlinks, stream);
+}
+
+// Returns cudaGetLastError(), or -1 when nz < 1.
+int dss_state_f32(const void* const* ptrs, const void* imult, const void* rot,
+                  const void* table, int nz, int P, int A, int B, int p,
+                  int nlinks, void* stream) {
+  return launch_state<float>(ptrs, imult, rot, table, nz, P, A, B, p, nlinks,
+                             stream);
+}
+
+int dss_state_f64(const void* const* ptrs, const void* imult, const void* rot,
+                  const void* table, int nz, int P, int A, int B, int p,
+                  int nlinks, void* stream) {
+  return launch_state<double>(ptrs, imult, rot, table, nz, P, A, B, p, nlinks,
+                              stream);
+}
+
+int dss_scalar2_f32(const void* x1, const void* x2, const void* imult,
+                    const void* table, void* o1, void* o2, int K, int P, int A,
+                    int B, int p, void* stream) {
+  return launch_scalar2<float>(x1, x2, imult, table, o1, o2, K, P, A, B, p,
+                               stream);
+}
+
+int dss_scalar2_f64(const void* x1, const void* x2, const void* imult,
+                    const void* table, void* o1, void* o2, int K, int P, int A,
+                    int B, int p, void* stream) {
+  return launch_scalar2<double>(x1, x2, imult, table, o1, o2, K, P, A, B, p,
+                                stream);
 }
 
 }  // extern "C"

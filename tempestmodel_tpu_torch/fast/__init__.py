@@ -24,12 +24,16 @@ on the 6 cubed-sphere panels.  Execution shape:
   unfused path the residual and the Jacobian are plain tensor code and the
   solve is the hand-written banded LU kernel (``ops/cuda_banded``).
 
+- **the nu4 hyperdiffusion tail** as two hand-written kernels
+  (``hyper_cuda``), one per Laplacian pass, around the full-state DSS; plain
+  tensor code on the unfused path.
+
 ``make_fast_step`` chooses between the two paths by predicates on the
-configuration (``fused=False`` forces the unfused one).  The fused nu4
-kernels of the JAX package, tracers, Cartesian grids and the device-mesh
-engine are not ported yet.
+configuration (``fused=False`` forces the unfused one) and runs eagerly;
+``make_fast_multistep`` replays K steps as one CUDA graph.  Tracers,
+Cartesian grids and the device-mesh engine are not ported yet.
 """
 
 from .engine import (FastGeometry, build_fast_geometry, pack_state,
-                     unpack_state, make_fast_step)
+                     unpack_state, make_fast_step, make_fast_multistep)
 from . import engine

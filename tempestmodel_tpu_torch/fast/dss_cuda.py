@@ -1,8 +1,8 @@
-"""Cubed-sphere DSS, one launch per field: the CUDA kernels' wrappers and
-their plain versions.
+"""Cubed-sphere DSS, one launch per field or per group of fields: the CUDA
+kernels' wrappers and their plain versions.
 
 Counterpart of the JAX package's ``fast/dss_pallas.py`` (``dss_scalar``,
-``dss_vector``, ``dss_uvw``).  DSS (direct stiffness summation) replaces every group of
+``dss_vector``, ``dss_uvw``, ``dss_state``, ``dss_scalar2``).  DSS (direct stiffness summation) replaces every group of
 coincident GLL nodes by its mean: interior element pair sums inside each
 panel (along a, then b), plus the 24 panel-edge link lines taken from the
 PAIR-SUMMED neighbour panel (reversed where ``flip``; rotated by the
@@ -19,12 +19,19 @@ stage's W finish folded in (``w_finish_plain`` says what that is): W is
 assembled from the stage's outputs wherever the gather reads it and is never
 stored before its DSS.
 
-``dss_scalar`` / ``dss_vector`` / ``dss_uvw`` launch the kernel for CUDA
+``dss_state`` is the DSS of all five fields of the state in one launch,
+optionally with the Rayleigh finish ``x <- fac * x + ref`` folded in;
+``dss_scalar2`` is the DSS of two scalar fields of one shape in one launch.
+Both give what the separate launches give, bit for bit.
+
+Every wrapper launches its kernel for CUDA
 tensors — or raise — and run the plain version only for tensors that lie on
 the CPU.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -119,6 +126,29 @@ def dss_uvw_plain(u, v, imult, rot, links, p: int, w_finish):
     w = w_finish_plain(u, v, w_finish)
     uo, vo = dss_vector_plain(u, v, imult, rot, links, p)
     return uo, vo, dss_scalar_plain(w, imult, links, p)
+
+
+STATE_FIELDS = ("U", "V", "Rt", "Rho", "W")
+
+
+def dss_scalar2_plain(f1, f2, imult, links, p: int):
+    """Plain PyTorch version of ``dss_scalar2``: two scalar DSS."""
+    return (dss_scalar_plain(f1, imult, links, p),
+            dss_scalar_plain(f2, imult, links, p))
+
+
+def dss_state_plain(d, imult, rot, links, p: int, rayleigh=None):
+    """Plain PyTorch version of ``dss_state``: the vector DSS of (U, V), the
+    scalar DSS of Rt, Rho and W, then ``fac * x + ref`` per field where
+    ``rayleigh = (fac, ref)`` (two state dicts) is given."""
+    u, v = dss_vector_plain(d["U"], d["V"], imult, rot, links, p)
+    out = {"U": u, "V": v}
+    for k in ("Rt", "Rho", "W"):
+        out[k] = dss_scalar_plain(d[k], imult, links, p)
+    if rayleigh is not None:
+        fac, ref = rayleigh
+        out = {k: fac[k] * out[k] + ref[k] for k in STATE_FIELDS}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -303,3 +333,96 @@ def _dss_uvw_cuda(u, v, imult, rot, table, p, nlinks, wf):
                            f"(cudaGetLastError = {err})")
     launch_counts["dss_uvw"] += 1
     return uo, vo, wo
+
+
+def dss_scalar2(f1, f2, imult, links, p: int, wrap=(False, False),
+                table=None):
+    """DSS of two scalar (K, P, A, B) fields of one shape; one kernel
+    launch.  Returns ``(out1, out2)``, equal to two ``dss_scalar`` calls."""
+    _check_field("f1", f1)
+    _check_field("f2", f2, ref=f1)
+    table = _check_common(f1, imult, links, p, wrap, table)
+    if f1.device.type == "cpu":
+        return dss_scalar2_plain(f1, f2, imult, links, p)
+    if f1.device.type != "cuda":
+        raise ValueError(f"unsupported device {f1.device}")
+    return _dss_scalar2_cuda(f1, f2, imult, table, p)
+
+
+def _dss_scalar2_cuda(f1, f2, imult, table, p):
+    K, P, A, B = f1.shape
+    lib = build.library("dss")
+    fn = lib.dss_scalar2_f32 if f1.dtype == torch.float32 \
+        else lib.dss_scalar2_f64
+    with torch.cuda.device(f1.device):
+        o1 = torch.empty_like(f1)
+        o2 = torch.empty_like(f2)
+        err = fn(f1.data_ptr(), f2.data_ptr(), imult.data_ptr(),
+                 table.data_ptr(), o1.data_ptr(), o2.data_ptr(), K, P, A, B,
+                 p, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"dss_scalar2 kernel launch failed "
+                           f"(cudaGetLastError = {err})")
+    launch_counts["dss_scalar2"] += 1
+    return o1, o2
+
+
+def _check_state(name, d, u):
+    K, P, A, B = u.shape
+    for k in STATE_FIELDS:
+        rows = K + 1 if k == "W" else K
+        _check_field(f"{name}[{k!r}]", d[k])
+        if tuple(d[k].shape) != (rows, P, A, B) or d[k].dtype != u.dtype \
+                or d[k].device != u.device:
+            raise ValueError(f"{name}[{k!r}] must be a ({rows}, {P}, {A}, "
+                             f"{B}) tensor of the state's dtype and device")
+
+
+def dss_state(d, imult, rot, links, p: int, rayleigh=None,
+              wrap=(False, False), table=None):
+    """DSS of the full fast state in one kernel launch.
+
+    ``d``: dict of U, V, Rt, Rho ``(nz, P, A, B)`` and W ``(nz+1, P, A,
+    B)``.  ``rayleigh``: optional ``(fac, ref_term)`` state dicts folded
+    into the same launch (``x <- fac * x + ref`` after the DSS).  Returns a
+    dict of fresh tensors, equal to ``dss_vector`` plus three ``dss_scalar``
+    calls (and the plain Rayleigh finish)."""
+    u = d["U"]
+    _check_field("d['U']", u)
+    table = _check_common(u, imult, links, p, wrap, table)
+    _check_state("d", d, u)
+    K, P, A, B = u.shape
+    if tuple(rot.shape) != (4, len(links), A) or rot.dtype != u.dtype \
+            or rot.device != u.device or not rot.is_contiguous():
+        raise ValueError("rot must be a contiguous (4, nlinks, A) tensor of "
+                         "the fields' dtype and device")
+    if rayleigh is not None:
+        for i, part in enumerate(rayleigh):
+            _check_state(f"rayleigh[{i}]", part, u)
+    if u.device.type == "cpu":
+        return dss_state_plain(d, imult, rot, links, p, rayleigh)
+    if u.device.type != "cuda":
+        raise ValueError(f"unsupported device {u.device}")
+    return _dss_state_cuda(d, imult, rot, table, p, len(links), rayleigh)
+
+
+def _dss_state_cuda(d, imult, rot, table, p, nlinks, rayleigh):
+    u = d["U"]
+    K, P, A, B = u.shape
+    lib = build.library("dss")
+    fn = lib.dss_state_f32 if u.dtype == torch.float32 else lib.dss_state_f64
+    with torch.cuda.device(u.device):
+        outs = [torch.empty_like(d[k]) for k in STATE_FIELDS]
+        ray = [None] * 10 if rayleigh is None else \
+            [part[k] for part in rayleigh for k in STATE_FIELDS]
+        tensors = [d[k] for k in STATE_FIELDS] + ray + outs
+        ptrs = (ctypes.c_void_p * len(tensors))(
+            *[None if t is None else t.data_ptr() for t in tensors])
+        err = fn(ptrs, imult.data_ptr(), rot.data_ptr(), table.data_ptr(),
+                 K, P, A, B, p, nlinks,
+                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"dss_state kernel launch failed "
+                           f"(cudaGetLastError = {err})")
+    launch_counts["dss_state"] += 1
+    return dict(zip(STATE_FIELDS, outs))

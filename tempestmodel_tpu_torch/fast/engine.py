@@ -15,12 +15,16 @@ launch, and does each Newton iteration of the implicit solve in one
 hand-written kernel (``fast/implicit_cuda``).  The unfused path takes the
 horizontal derivatives as dense block-diagonal (A, A) GEMMs over the whole
 field, assembles the banded Jacobian in plain tensor code and ends in the
-hand-written banded kernel (``ops/cuda_banded``).  The nu4 tail is plain
-tensor code on both.  The step runs eagerly: there is no jit.
+hand-written banded kernel (``ops/cuda_banded``).  On the fused path the
+nu4 tail is two hand-written kernels (``fast/hyper_cuda``) around the
+full-state DSS; on the unfused path it is plain tensor code.
+``make_fast_step`` runs eagerly; ``make_fast_multistep`` captures K steps
+into one CUDA graph and replays it, which is this package's counterpart of
+K steps under one jit.
 
 Not ported yet (they wait in the roadmap, none is declared unnecessary):
 Cartesian grids and the (a, b)-swapped layout, tracers, the device-mesh
-engine, ``make_fast_multistep``, IMEX, and the fused nu4 kernels.
+engine and IMEX.
 
 Where the JAX code writes ``x.at[i].set(v)``, this one writes in place on
 a fresh tensor (a clone or a new result), never on an argument.
@@ -377,52 +381,63 @@ def w_finish_xla(d, wf):
     return dss_cuda.w_finish_plain(d["U"], d["V"], wf)
 
 
+# Which groups of fields ``apply_dss`` takes in one launch by default: names
+# among "state" (a full state without a W finish -- the nu4 tail's two DSS --
+# through ``dss_cuda.dss_state``, the Rayleigh finish folded in) and
+# "scalar2" (Rt and Rho through ``dss_cuda.dss_scalar2`` wherever they are
+# still scalars of their own).  None: measured at the flagship (ne30 p4 L30
+# float32) on an NVIDIA H100 80GB HBM3 at 700 W by ``chip_smoke.py``, the
+# four combinations lay within 0.7 % of each other under graph replay
+# (2.107-2.139 ms/step, less than the spread between two turns of one
+# variant), so the separate launches stay.
+DSS_MERGE_DEFAULT = ()
+
+
 def apply_dss(d, fg: FastGeometry, rayleigh=None, plain: bool = False,
-              w_finish=None):
+              w_finish=None, merge=DSS_MERGE_DEFAULT):
     """DSS of the full fast state (U/V rotate as a covariant pair).
 
-    Four launches (vector pair + 3 scalars).  Whether one launch for all
-    five fields is faster on this card is not measured yet (``dss_state``
-    waits in the roadmap).
+    Four launches (vector pair + 3 scalars) unless ``merge`` says otherwise:
+    with ``"state"`` in it, a full five-field state goes through the
+    one-launch ``dss_cuda.dss_state`` (the Rayleigh finish inside the
+    launch); with ``"scalar2"``, Rt and Rho share one launch
+    (``dss_cuda.dss_scalar2``).  The results are the same bit for bit.
+    ``DSS_MERGE_DEFAULT`` follows the measurement at the flagship on an H100
+    under graph replay (``chip_smoke.py`` times all four combinations).
 
     ``w_finish``: the deferred W stage finish of
     ``stage_cuda.fused_stage(defer_w=True)``; ``d`` then has no W, which is
     assembled, bottom-bounded and DSSed inside the (U, V) launch
-    (``dss_cuda.dss_uvw``): three launches.
+    (``dss_cuda.dss_uvw``): three launches, or two with ``"scalar2"``.
 
     ``plain=True`` runs the kernels' plain PyTorch versions whatever the
     device: it exists so that a run can hold the kernel path against the
     plain path on the card.  The default launches the kernels for CUDA
     tensors (or raises) and runs the plain versions for CPU tensors."""
-    scalars = ("Rt", "Rho") if w_finish is not None else ("W", "Rt", "Rho")
-    if plain:
-        if w_finish is not None:
-            u, v, w = dss_cuda.dss_uvw_plain(
-                d["U"], d["V"], fg.inv_mult, fg.e_rot, fg.dss_links, fg.p,
-                w_finish)
-            out = {"U": u, "V": v, "W": w}
-        else:
-            u, v = dss_cuda.dss_vector_plain(d["U"], d["V"], fg.inv_mult,
-                                             fg.e_rot, fg.dss_links, fg.p)
-            out = {"U": u, "V": v}
-        for k in scalars:
-            out[k] = dss_cuda.dss_scalar_plain(d[k], fg.inv_mult,
-                                               fg.dss_links, fg.p)
+    common = (fg.inv_mult, fg.dss_links, fg.p)
+    kw = {} if plain else {"wrap": fg.wrap, "table": fg.dss_table}
+    if w_finish is None and "state" in merge:
+        fn = dss_cuda.dss_state_plain if plain else dss_cuda.dss_state
+        return fn(d, fg.inv_mult, fg.e_rot, fg.dss_links, fg.p,
+                  rayleigh=rayleigh, **kw)
+    if w_finish is not None:
+        fn = dss_cuda.dss_uvw_plain if plain else dss_cuda.dss_uvw
+        u, v, w = fn(d["U"], d["V"], fg.inv_mult, fg.e_rot, fg.dss_links,
+                     fg.p, w_finish, **kw)
+        out = {"U": u, "V": v, "W": w}
     else:
-        if w_finish is not None:
-            u, v, w = dss_cuda.dss_uvw(
-                d["U"], d["V"], fg.inv_mult, fg.e_rot, fg.dss_links, fg.p,
-                w_finish, wrap=fg.wrap, table=fg.dss_table)
-            out = {"U": u, "V": v, "W": w}
-        else:
-            u, v = dss_cuda.dss_vector(d["U"], d["V"], fg.inv_mult, fg.e_rot,
-                                       fg.dss_links, fg.p, wrap=fg.wrap,
-                                       table=fg.dss_table)
-            out = {"U": u, "V": v}
-        for k in scalars:
-            out[k] = dss_cuda.dss_scalar(d[k], fg.inv_mult, fg.dss_links,
-                                         fg.p, wrap=fg.wrap,
-                                         table=fg.dss_table)
+        fn = dss_cuda.dss_vector_plain if plain else dss_cuda.dss_vector
+        u, v = fn(d["U"], d["V"], fg.inv_mult, fg.e_rot, fg.dss_links, fg.p,
+                  **kw)
+        fn = dss_cuda.dss_scalar_plain if plain else dss_cuda.dss_scalar
+        out = {"U": u, "V": v, "W": fn(d["W"], *common, **kw)}
+    if "scalar2" in merge:
+        fn = dss_cuda.dss_scalar2_plain if plain else dss_cuda.dss_scalar2
+        out["Rt"], out["Rho"] = fn(d["Rt"], d["Rho"], *common, **kw)
+    else:
+        fn = dss_cuda.dss_scalar_plain if plain else dss_cuda.dss_scalar
+        for k in ("Rt", "Rho"):
+            out[k] = fn(d[k], *common, **kw)
     if rayleigh is not None:
         out = apply_rayleigh(out, *rayleigh)
     return out
@@ -563,11 +578,15 @@ def apply_rayleigh(d, fac, ref_term):
 
 
 def step_after_subcycle(d, dt, cfg: ModelConfig, fg: FastGeometry,
-                        rayleigh=None, dss_fn=None):
+                        rayleigh=None, dss_fn=None,
+                        use_fused_hyper: bool = False, hyper_fns=None):
     """nu4/nu2 hyperviscosity + DSS (+ optional Rayleigh) Strang tail.
 
     ``dss_fn(d, rayleigh=None)``: full-state DSS with an optional Rayleigh
-    finish."""
+    finish.  ``use_fused_hyper``: run each nu4 Laplacian pass as one kernel
+    (``fast/hyper_cuda``; the caller must check ``hyper_cuda.supported``).
+    ``hyper_fns``: ``(pass1(d), pass2(d, work, nu_s, nu_d, nu_v, dt))`` bound
+    to the geometry; ``hyper_cuda``'s wrappers when absent."""
     if dss_fn is None:
         dss_fn = lambda ds, rayleigh=None: apply_dss(ds, fg, rayleigh)
 
@@ -601,6 +620,17 @@ def step_after_subcycle(d, dt, cfg: ModelConfig, fg: FastGeometry,
         return dss_fn(out, rayleigh=rayleigh)
 
     # order 4: Lap pass -> DSS -> -dt * nu_local * Lap pass -> DSS
+    if use_fused_hyper:
+        if hyper_fns is None:
+            from . import hyper_cuda
+            hyper_fns = (
+                lambda x: hyper_cuda.nu4_pass1(x, fg),
+                lambda x, w, *nu_dt: hyper_cuda.nu4_pass2(x, w, *nu_dt, fg))
+        pass1, pass2 = hyper_fns
+        work = dss_fn(pass1(d))
+        out = pass2(d, work, nu_s, nu_d, nu_v, dt)
+        return dss_fn(out, rayleigh=rayleigh)
+
     wu, wv = vector_hyperdiff_update(d["U"], d["V"], 1.0, 1.0, fg)
     work = {
         "U": -wu, "V": -wv,
@@ -674,14 +704,17 @@ def _rayleigh_terms(cfg: ModelConfig, geom, ref_state, fg):
 
 
 def _strang_fns(cfg: ModelConfig, fg: FastGeometry, rayleigh, dss_fn,
-                implicit_fn, stage_fn=None, use_wfold: bool = False):
+                implicit_fn, stage_fn=None, use_wfold: bool = False,
+                hyper_fns=None):
     """The Strang-HEVI step on z-first state, parameterized over the DSS
     and implicit-solve implementations.
 
     ``stage_fn(base, ueval, dt_s, defer_w=False)``: the fused explicit stage
     (``stage_cuda.fused_stage`` bound to the geometry); None runs the stage
     as plain tensor code.  ``use_wfold``: hand the fused stage's W finish to
-    ``dss_fn(..., w_finish=)``.
+    ``dss_fn(..., w_finish=)``.  ``hyper_fns``: the two nu4 passes bound to
+    the geometry (see ``step_after_subcycle``); None runs the tail as plain
+    tensor code.
 
     Returns (first_fn, step_fn): first_fn(d) -> (d, carry),
     step_fn(d, carry) -> (d, carry).  Neither changes its arguments.
@@ -752,7 +785,9 @@ def _strang_fns(cfg: ModelConfig, fg: FastGeometry, rayleigh, dss_fn,
     def tail(X):
         u4 = erk(X)
         u1 = step_after_subcycle(u4, dt, cfg, fg, rayleigh=rayleigh,
-                                 dss_fn=dss_fn)
+                                 dss_fn=dss_fn,
+                                 use_fused_hyper=hyper_fns is not None,
+                                 hyper_fns=hyper_fns)
         u0 = implicit_fn(u1, 0.5 * (1.0 + oc) * dt)
         if oc != 0.0:
             u0 = comb((0.5 * (2.0 - oc), u0), (0.5 * oc, u1))
@@ -777,7 +812,8 @@ def _strang_fns(cfg: ModelConfig, fg: FastGeometry, rayleigh, dss_fn,
 
 def make_fast_step(cfg: ModelConfig, geom: CubedSphereGeometry,
                    ref_state=None, mesh=None, ntracers: int = 0,
-                   device=None, plain: bool = False, fused=None):
+                   device=None, plain: bool = False, fused=None,
+                   dss_merge=None):
     """(first_step, step) on the fast state: step(d, carry) -> (d, carry).
 
     The state tensors must lie on ``device`` (default ``cuda``; raises when
@@ -787,19 +823,24 @@ def make_fast_step(cfg: ModelConfig, geom: CubedSphereGeometry,
     the JAX package does: the fused stage kernel where
     ``stage_cuda.stage_supported`` holds, its W finish folded into the
     (U, V, W) DSS where the surface interpolant reads levels 0 and 1 only,
-    and — with ``cfg.vertical_solver == "pallas"`` — the fused implicit
-    kernel where ``implicit_cuda.fused_supported`` holds.  ``fused=False``
-    forces the unfused path: the stage and the Jacobian assembly as plain
+    the two nu4 kernels where ``hyper_cuda.supported`` holds, and — with
+    ``cfg.vertical_solver == "pallas"`` — the fused implicit kernel where
+    ``implicit_cuda.fused_supported`` holds.  ``fused=False`` forces the
+    unfused path: the stage, the nu4 tail and the Jacobian assembly as plain
     tensor code, the implicit solve through the banded kernel.  Nothing
     chooses a path because a kernel failed to build or launch.  The DSS
     always goes through the hand-written DSS kernels.
+
+    ``dss_merge``: which groups of fields the DSS takes in one launch (see
+    ``apply_dss``); None is ``DSS_MERGE_DEFAULT`` on the fused path and the
+    separate launches on the unfused one.
 
     ``plain=True`` swaps every kernel of the chosen path for its plain
     PyTorch version on the same device (a check of the kernel path, not a
     fallback: nothing selects it automatically).
     """
     from . import implicit as fimp
-    from . import implicit_cuda, stage_cuda
+    from . import hyper_cuda, implicit_cuda, stage_cuda
 
     if mesh is not None or ntracers:
         raise NotImplementedError(
@@ -822,11 +863,17 @@ def make_fast_step(cfg: ModelConfig, geom: CubedSphereGeometry,
     # The path.  The JAX package's stage predicate also asks for p | 8 and
     # 8 | A: those are the TPU kernel's tiles.  What is about the math stays
     # (vertical order 1, the row test of the W fold); the rest is what the
-    # CUDA kernels take (stage_supported, fused_supported).
-    # use_fused_hyper stays off: the nu4 kernels are not ported yet, so the
-    # tail runs as plain tensor code on both paths.
+    # CUDA kernels take (stage_supported, hyper_cuda.supported,
+    # fused_supported).
     fused = fused is None or bool(fused)
+    if dss_merge is None:
+        dss_merge = DSS_MERGE_DEFAULT if fused else ()
+    dss_merge = tuple(dss_merge)
+    if not set(dss_merge) <= {"state", "scalar2"}:
+        raise ValueError(f"dss_merge names groups among 'state' and "
+                         f"'scalar2', got {dss_merge}")
     use_fused_stage = fused and stage_cuda.stage_supported(fg)
+    use_fused_hyper = fused and hyper_cuda.supported(fg, cfg)
     # fold the W stage finish into the (U, V) DSS launch when the surface
     # interpolant row only reads the bottom two levels
     In0 = np.asarray(geom.interp_n2i)[0]
@@ -846,6 +893,15 @@ def make_fast_step(cfg: ModelConfig, geom: CubedSphereGeometry,
             return stage_cuda.fused_stage(base, ueval, dt_s, fg, constants,
                                           defer_w=defer_w, statics=sst)
 
+    hyper_fns = None
+    if use_fused_hyper:
+        hst = hyper_cuda.hyper_statics(fg)
+        pass1, pass2 = (
+            (hyper_cuda.nu4_pass1_plain, hyper_cuda.nu4_pass2_plain) if plain
+            else (hyper_cuda.nu4_pass1, hyper_cuda.nu4_pass2))
+        hyper_fns = (lambda x: pass1(x, fg, hst),
+                     lambda x, w, *nu_dt: pass2(x, w, *nu_dt, fg, hst))
+
     def implicit_fn(d, dti):
         return fimp.vertical_implicit(
             d, fg, constants, dti, q, statics,
@@ -856,5 +912,72 @@ def make_fast_step(cfg: ModelConfig, geom: CubedSphereGeometry,
     return _strang_fns(
         cfg, fg, rayleigh,
         lambda d, rayleigh=None, w_finish=None: apply_dss(
-            d, fg, rayleigh, plain=plain, w_finish=w_finish),
-        implicit_fn, stage_fn=stage_fn, use_wfold=use_wfold)
+            d, fg, rayleigh, plain=plain, w_finish=w_finish,
+            merge=dss_merge),
+        implicit_fn, stage_fn=stage_fn, use_wfold=use_wfold,
+        hyper_fns=hyper_fns)
+
+
+def make_fast_multistep(cfg: ModelConfig, geom: CubedSphereGeometry,
+                        inner_steps: int, ref_state=None, mesh=None,
+                        ntracers: int = 0, device=None, plain: bool = False,
+                        fused=None, dss_merge=None):
+    """(first_step, multi): ``multi(d, carry) -> (d, carry)`` after
+    ``inner_steps`` steps of ``make_fast_step``'s ``step``.
+
+    For CUDA tensors ``multi`` is one CUDA graph: at its first call it runs
+    ``step`` once on a side stream (which builds the kernels and uploads
+    every lazily made table), captures ``inner_steps`` steps from static
+    input buffers into a ``torch.cuda.CUDAGraph``, and from then on each call
+    copies its arguments into those buffers, replays the graph and returns
+    clones of the static outputs.  The step sizes are constants of the
+    captured launches, the same on every step.  The kernels' launch counts
+    (``kernels/counts``) rise while the graph is captured, not when it is
+    replayed.  For CPU tensors ``multi`` is a plain loop over ``step``; the
+    choice follows the tensors' device, and on a CUDA tensor ``multi``
+    captures or raises.  ``first_step`` stays eager.  The other arguments are
+    ``make_fast_step``'s."""
+    inner_steps = int(inner_steps)
+    if inner_steps < 1:
+        raise ValueError("inner_steps must be at least 1")
+    first_step, step = make_fast_step(
+        cfg, geom, ref_state, mesh=mesh, ntracers=ntracers, device=device,
+        plain=plain, fused=fused, dss_merge=dss_merge)
+    captured = {}
+
+    def loop(d, carry):
+        for _ in range(inner_steps):
+            d, carry = step(d, carry)
+        return d, carry
+
+    def capture(d, carry):
+        dev = d["U"].device
+        side = torch.cuda.Stream(device=dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            step(d, carry)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        ins = ({k: v.clone() for k, v in d.items()},
+               {k: v.clone() for k, v in carry.items()})
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs = loop(*ins)
+        return graph, ins, outs
+
+    def multi(d, carry):
+        dev = d["U"].device
+        if dev.type == "cpu":
+            return loop(d, carry)
+        if dev.type != "cuda":
+            raise ValueError(f"unsupported device {dev}")
+        with torch.cuda.device(dev):
+            if "graph" not in captured:
+                captured["graph"] = capture(d, carry)
+            graph, ins, outs = captured["graph"]
+            for static, given in zip(ins, (d, carry)):
+                for k, v in static.items():
+                    v.copy_(given[k])
+            graph.replay()
+            return tuple({k: v.clone() for k, v in o.items()} for o in outs)
+
+    return first_step, multi

@@ -46,13 +46,18 @@ _DSS_UVW = [_PTR] * 14 + [_DBL] * 5 + [_INT] * 6 + [_PTR]
 # doubles, ints (the wrappers build them with ctypes)
 _ARRAYS = [ctypes.POINTER(_PTR), ctypes.POINTER(_DBL), ctypes.POINTER(_INT)]
 _STAGE = _ARRAYS + [_PTR]
+_DSS_SCALAR2 = [_PTR] * 6 + [_INT] * 5 + [_PTR]
+_DSS_STATE = [ctypes.POINTER(_PTR)] + [_PTR] * 3 + [_INT] * 6 + [_PTR]
 _IMPLICIT = _ARRAYS + [_I64, _PTR]
 SIGNATURES = {
     "dss": {"dss_scalar_f32": _DSS_SCALAR, "dss_scalar_f64": _DSS_SCALAR,
             "dss_vector_f32": _DSS_VECTOR, "dss_vector_f64": _DSS_VECTOR,
-            "dss_uvw_f32": _DSS_UVW, "dss_uvw_f64": _DSS_UVW},
+            "dss_uvw_f32": _DSS_UVW, "dss_uvw_f64": _DSS_UVW,
+            "dss_scalar2_f32": _DSS_SCALAR2, "dss_scalar2_f64": _DSS_SCALAR2,
+            "dss_state_f32": _DSS_STATE, "dss_state_f64": _DSS_STATE},
     "banded": {"banded_solve_f32": _BANDED, "banded_solve_f64": _BANDED},
     "stage": {"fused_stage_f32": _STAGE, "fused_stage_f64": _STAGE},
+    "hyper": {"nu4_f32": _STAGE, "nu4_f64": _STAGE},
     "implicit": {"fused_implicit_f32": _IMPLICIT,
                  "fused_implicit_f64": _IMPLICIT},
 }

@@ -19,11 +19,16 @@ import torch
 FIELDS = ("U", "V", "Rt", "Rho", "W")
 
 
-def terrain_fields(nz: int, P: int, A: int, B: int, sep_e, seed: int = 0):
+def terrain_fields(nz: int, P: int, A: int, B: int, sep_e, seed: int = 0,
+                   jacl=None):
     """Numpy fields (float64) of a separable terrain-following metric with
     every term present, keyed as ``FastGeometry`` names them: the profiles,
     the 2-D factors and the 3-D tensors built from them.  ``sep_e``: the
-    (P, A, B) flat-terrain ``con_xi_xi`` to build on."""
+    (P, A, B) flat-terrain ``con_xi_xi`` to build on.  ``jacl``: the (P, A,
+    B) flat-terrain 3-D Jacobian, a constant multiple of the 2-D one; when
+    given, the result also has a z-constant 3-D Jacobian (``jac3d``,
+    ``jac3d_int``, ``sep_jacl``) that varies against the 2-D one from node
+    to node, as over a mountain, so that a mix-up of the two shows."""
     rng = np.random.default_rng(seed)
 
     def r2(scale):
@@ -42,22 +47,31 @@ def terrain_fields(nz: int, P: int, A: int, B: int, sep_e, seed: int = 0):
     def quad(s):
         return e[None] + s[:, :, None, None] ** 2 * f[None]
 
-    return dict(
+    out = dict(
         s_lev=sl, s_int=si, sep_ca=ca, sep_cb=cb, sep_f=f, sep_da=dza,
         sep_db=dzb, con_a_xi=lev(sl, ca), con_b_xi=lev(sl, cb),
         con_xi_xi=quad(sl), con_a_xi_int=lev(si, ca),
         con_b_xi_int=lev(si, cb), con_xi_xi_int=quad(si),
         deriv_r_a=lev(sl, dza), deriv_r_b=lev(sl, dzb))
+    if jacl is not None:
+        jl = np.asarray(jacl, np.float64) * (0.8 + 0.4 * rng.random((P, A, B)))
+        out.update(sep_jacl=jl,
+                   jac3d=np.broadcast_to(jl, (nz, P, A, B)).copy(),
+                   jac3d_int=np.broadcast_to(jl, (nz + 1, P, A, B)).copy())
+    return out
 
 
-def terrain_like(fg, seed: int = 0):
+def terrain_like(fg, seed: int = 0, vary_jac: bool = False):
     """A copy of the ``FastGeometry`` ``fg`` (which must have a separable
-    metric) with the fields of ``terrain_fields`` in place of its own."""
+    metric) with the fields of ``terrain_fields`` in place of its own;
+    ``vary_jac`` also replaces the 3-D Jacobian (see ``terrain_fields``)."""
     if not fg.sep_ok:
         raise ValueError("terrain_like needs a separable metric")
     dtype, dev = fg.inv_mult.dtype, fg.inv_mult.device
     P, A, B = fg.inv_mult.shape
-    fields = terrain_fields(fg.nz, P, A, B, fg.sep_e.cpu().numpy(), seed)
+    fields = terrain_fields(
+        fg.nz, P, A, B, fg.sep_e.cpu().numpy(), seed,
+        jacl=fg.sep_jacl.cpu().numpy() if vary_jac else None)
     return dataclasses.replace(fg, **{
         k: torch.as_tensor(np.ascontiguousarray(v), dtype=dtype, device=dev)
         for k, v in fields.items()})

@@ -49,9 +49,11 @@ VARIANTS = {
 NE, ORDER, NZ, DT = 30, 4, 30, 100.0
 
 
-def compile_variants(tmp):
+def compile_variants(tmp, all_variants=None):
+    """One nvcc per (source, flags) pair of ``all_variants`` (default:
+    ``VARIANTS``), all started together; returns [(stem, flags, path)]."""
     procs = []
-    for stem, variants in VARIANTS.items():
+    for stem, variants in (all_variants or VARIANTS).items():
         for i, flags in enumerate(variants):
             out = str(pathlib.Path(tmp) / f"{stem}_{i}.so")
             cmd = [build.nvcc_path(), *build.NVCC_FLAGS,

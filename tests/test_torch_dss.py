@@ -1,7 +1,8 @@
 """The port's plain DSS vs the JAX Pallas DSS kernels (interpret mode),
 as ``tests/test_dss_pallas.py`` holds those against the reference
-formulation (``dss_uvw`` with the W stage finish folded in among them); the
-wrappers' checks; the CUDA kernels on a card."""
+formulation (``dss_uvw`` with the W stage finish folded in, the one-launch
+``dss_state`` and ``dss_scalar2`` among them); the wrappers' checks; the
+CUDA kernels on a card."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -131,6 +132,110 @@ def test_dss_uvw_bottom_row_on_panel_edges_and_corners(setup):
     w0 = got[0].numpy()
     vals = sorted(set(np.round(corners.ravel() / scale, 10)))
     assert len(vals) <= 8 and np.isfinite(w0).all()
+
+
+def _state(d, nz, lib):
+    """The first ``nz`` levels (``nz + 1`` interfaces) of the seeded state."""
+    conv = jnp.asarray if lib == "jax" else (
+        lambda a: torch.from_numpy(np.ascontiguousarray(a)))
+    return {k: conv(v[:nz + (1 if k == "W" else 0)]) for k, v in d.items()}
+
+
+def _rayleigh(d, nz, lib, seed=4):
+    rng = np.random.default_rng(seed)
+    fac = {k: rng.random(v[:nz + (1 if k == "W" else 0)].shape)
+           for k, v in d.items()}
+    fac["Rho"] = np.ones_like(fac["Rho"])
+    ref = {k: (1.0 - fac[k]) * rng.standard_normal(fac[k].shape) for k in d}
+    conv = jnp.asarray if lib == "jax" else torch.from_numpy
+    return ({k: conv(v) for k, v in fac.items()},
+            {k: conv(v) for k, v in ref.items()})
+
+
+@pytest.mark.parametrize("nz", [6, 5], ids=["even_nz", "odd_nz"])
+@pytest.mark.parametrize("ray", [False, True], ids=["no_rayleigh",
+                                                    "rayleigh"])
+def test_dss_state_plain_matches_pallas_and_the_separate_launches(
+        setup, nz, ray):
+    """Mirror of ``tests/test_dss_pallas.py::test_dss_state_*``."""
+    jfg, tfg, d = setup
+    want = dss_pallas.dss_state(
+        _state(d, nz, "jax"), jfg.inv_mult, jfg.e_rot, jfg.dss_links, jfg.p,
+        rayleigh=_rayleigh(d, nz, "jax") if ray else None, interpret=True)
+    td = _state(d, nz, "torch")
+    tray = _rayleigh(d, nz, "torch") if ray else None
+    before = dict(launch_counts)
+    got = dss_cuda.dss_state(td, tfg.inv_mult, tfg.e_rot, tfg.dss_links,
+                             tfg.p, rayleigh=tray, table=tfg.dss_table)
+    assert dict(launch_counts) == before          # CPU tensors: no launch
+    for k in t_engine.FIELDS:
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   rtol=0,
+                                   atol=1e-13 * float(np.abs(want[k]).max()))
+    # bit for bit what the four launches (and the plain finish) give
+    sep = t_engine.apply_dss(td, tfg, rayleigh=tray, merge=())
+    one = t_engine.apply_dss(td, tfg, rayleigh=tray, merge=("state",))
+    pl = t_engine.apply_dss(td, tfg, rayleigh=tray, merge=("state",),
+                            plain=True)
+    for k in t_engine.FIELDS:
+        assert torch.equal(got[k], sep[k]), k
+        assert torch.equal(one[k], sep[k]) and torch.equal(pl[k], sep[k]), k
+
+
+@pytest.mark.parametrize("nz", [6, 5], ids=["even_nz", "odd_nz"])
+def test_dss_scalar2_plain_matches_pallas_and_two_launches(setup, nz):
+    jfg, tfg, d = setup
+    w1, w2 = dss_pallas.dss_scalar2(
+        jnp.asarray(d["Rt"][:nz]), jnp.asarray(d["Rho"][:nz]), jfg.inv_mult,
+        jfg.dss_links, jfg.p, interpret=True)
+    f1 = torch.from_numpy(np.ascontiguousarray(d["Rt"][:nz]))
+    f2 = torch.from_numpy(np.ascontiguousarray(d["Rho"][:nz]))
+    before = dict(launch_counts)
+    g1, g2 = dss_cuda.dss_scalar2(f1, f2, tfg.inv_mult, tfg.dss_links, tfg.p,
+                                  table=tfg.dss_table)
+    assert dict(launch_counts) == before
+    np.testing.assert_allclose(g1.numpy(), np.asarray(w1), rtol=0, atol=1e-13)
+    np.testing.assert_allclose(g2.numpy(), np.asarray(w2), rtol=0, atol=1e-13)
+    for g, f in ((g1, f1), (g2, f2)):
+        assert torch.equal(g, dss_cuda.dss_scalar_plain(
+            f, tfg.inv_mult, tfg.dss_links, tfg.p))
+
+
+def test_apply_dss_scalar2_with_the_w_finish(setup):
+    """``merge=("scalar2",)`` beside the folded W finish: same bits."""
+    jfg, tfg, d = setup
+    _, twf = _w_finish_pair(jfg, d, two_base=True)
+    upd = {k: torch.from_numpy(d[k]) for k in ("U", "V", "Rt", "Rho")}
+    a = t_engine.apply_dss(upd, tfg, w_finish=twf, merge=())
+    b = t_engine.apply_dss(upd, tfg, w_finish=twf,
+                           merge=("state", "scalar2"))
+    for k in t_engine.FIELDS:
+        assert torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.parametrize("case", ["w_levels", "rayleigh_shape", "f2_shape",
+                                  "f2_dtype", "rot"])
+def test_one_launch_wrappers_raise_on_what_the_kernels_do_not_take(setup,
+                                                                   case):
+    _, tfg, d = setup
+    td = _state(d, 6, "torch")
+    args = (tfg.inv_mult, tfg.e_rot, tfg.dss_links, tfg.p)
+    with pytest.raises((ValueError, TypeError)):
+        if case == "w_levels":
+            dss_cuda.dss_state(dict(td, W=td["W"][:-1].contiguous()), *args)
+        elif case == "rayleigh_shape":
+            fac, ref = _rayleigh(d, 6, "torch")
+            dss_cuda.dss_state(td, *args, rayleigh=(
+                fac, dict(ref, W=ref["W"][:-1].contiguous())))
+        elif case == "f2_shape":
+            dss_cuda.dss_scalar2(td["Rt"], td["W"], tfg.inv_mult,
+                                 tfg.dss_links, tfg.p)
+        elif case == "f2_dtype":
+            dss_cuda.dss_scalar2(td["Rt"], td["Rho"].to(torch.float32),
+                                 tfg.inv_mult, tfg.dss_links, tfg.p)
+        else:
+            dss_cuda.dss_state(td, tfg.inv_mult, tfg.e_rot[:, :-1],
+                               tfg.dss_links, tfg.p)
 
 
 def test_w_finish_xla_matches_jax(setup):
@@ -270,3 +375,40 @@ def test_cuda_kernels_match_plain(setup, dtype, tol):
                                        tfg.dss_links, tfg.p)
     for g, w in ((got, want), (gu, wu), (gv, wv)):
         assert float((g - w).abs().max() / w.abs().max()) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_one_launch_kernels_equal_the_separate_launches(setup, dtype):
+    """``dss_state`` (with and without the Rayleigh finish) and
+    ``dss_scalar2`` on the card: bit for bit the separate kernels' results,
+    and the plain versions' to 1e-13 / 1e-6."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no interpret mode")
+    _, tfg, d = setup
+    tol = 1e-13 if dtype == torch.float64 else 1e-6
+    dev = torch.device("cuda")
+    imult = tfg.inv_mult.to(dev, dtype)
+    rot = tfg.e_rot.to(dev, dtype)
+    args = (imult, rot, tfg.dss_links, tfg.p)
+    for nz in (6, 5):
+        td = {k: v.to(dev, dtype) for k, v in _state(d, nz, "torch").items()}
+        ray = tuple({k: v.to(dev, dtype) for k, v in part.items()}
+                    for part in _rayleigh(d, nz, "torch"))
+        u, v = dss_cuda.dss_vector(td["U"], td["V"], *args)
+        sep = {"U": u, "V": v}
+        for k in ("Rt", "Rho", "W"):
+            sep[k] = dss_cuda.dss_scalar(td[k], imult, tfg.dss_links, tfg.p)
+        g1, g2 = dss_cuda.dss_scalar2(td["Rt"], td["Rho"], imult,
+                                      tfg.dss_links, tfg.p)
+        assert torch.equal(g1, sep["Rt"]) and torch.equal(g2, sep["Rho"])
+        for r in (None, ray):
+            got = dss_cuda.dss_state(td, *args, rayleigh=r)
+            torch.cuda.synchronize()
+            want = dss_cuda.dss_state_plain(td, *args, rayleigh=r)
+            fin = sep if r is None else {
+                k: r[0][k] * sep[k] + r[1][k] for k in sep}
+            for k in t_engine.FIELDS:
+                assert torch.equal(got[k], fin[k]), (k, nz, r is not None)
+                assert float((got[k] - want[k]).abs().max()
+                             / want[k].abs().max()) <= tol

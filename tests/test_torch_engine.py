@@ -1,7 +1,8 @@
 """The port's z-first engine vs the JAX package's: the horizontal
 tendency, the hyperdiffusion tail, the full-state DSS (with and without the
 folded W finish), and the slice as a whole (3 steps of ``make_fast_step``
-on the fused and on the unfused path, both Jacobian modes), float64."""
+on the fused path -- fused nu4 tail included -- and on the unfused path,
+both Jacobian modes; ``make_fast_multistep``), float64."""
 
 import numpy as np
 import jax
@@ -192,18 +193,34 @@ def test_fused_path_matches_unfused_path(three_steps, mode):
         assert rel_err(a[k].numpy(), b[k].numpy()) < 1e-11, k
 
 
-@pytest.mark.parametrize("fused,want", [
-    (None, {"stage": 5, "uvw": 5, "update": 1, "banded": 0}),
-    (False, {"stage": 0, "uvw": 0, "update": 0, "banded": 1})],
-    ids=["predicates", "forced_unfused"])
+@pytest.mark.parametrize("kw,want", [
+    ({}, {"stage": 5, "uvw": 5, "update": 1, "banded": 0, "pass1": 1,
+          "pass2": 1, "scalar": 16, "vector": 2, "state": 0, "scalar2": 0}),
+    ({"fused": False},
+     {"stage": 0, "uvw": 0, "update": 0, "banded": 1, "pass1": 0, "pass2": 0,
+      "scalar": 21, "vector": 7, "state": 0, "scalar2": 0}),
+    ({"dss_merge": ("state", "scalar2")},
+     {"stage": 5, "uvw": 5, "update": 1, "banded": 0, "pass1": 1, "pass2": 1,
+      "scalar": 0, "vector": 0, "state": 2, "scalar2": 5})],
+    ids=["predicates", "forced_unfused", "one_launch_dss"])
 def test_make_fast_step_takes_the_path_the_predicates_choose(
-        pair, monkeypatch, fused, want):
+        pair, monkeypatch, kw, want):
     """Calls of the kernels' wrappers in one ``step`` (on the CPU each runs
-    its plain version)."""
-    from tempestmodel_tpu_torch.fast import (dss_cuda, implicit,
+    its plain version).  The fused path takes the fused nu4 tail."""
+    from tempestmodel_tpu_torch.fast import (dss_cuda, hyper_cuda, implicit,
                                              implicit_cuda, stage_cuda)
     _, _, tcfg, tgeom = pair
-    calls = {"stage": 0, "uvw": 0, "update": 0, "banded": 0}
+    calls = dict.fromkeys(want, 0)
+    if not kw:
+        # the default DSS grouping is whatever was measured faster
+        for name in t_engine.DSS_MERGE_DEFAULT:
+            assert name in ("state", "scalar2")
+        if "state" in t_engine.DSS_MERGE_DEFAULT:
+            want = dict(want, state=2, vector=0, scalar=want["scalar"] - 6)
+        if "scalar2" in t_engine.DSS_MERGE_DEFAULT:
+            pairs = 5 if "state" in t_engine.DSS_MERGE_DEFAULT else 7
+            want = dict(want, scalar2=pairs,
+                        scalar=want["scalar"] - 2 * pairs)
 
     def counting(key, fn):
         def wrapped(*a, **kw):
@@ -219,12 +236,60 @@ def test_make_fast_step_takes_the_path_the_predicates_choose(
         "update", implicit_cuda.fused_implicit_update))
     monkeypatch.setattr(implicit, "banded_solve",
                         counting("banded", implicit.banded_solve))
-    first, step = t_fast.make_fast_step(tcfg, tgeom, device=CPU, fused=fused)
+    for key, name in (("pass1", "nu4_pass1"), ("pass2", "nu4_pass2")):
+        monkeypatch.setattr(hyper_cuda, name,
+                            counting(key, getattr(hyper_cuda, name)))
+    for key in ("scalar", "vector", "state", "scalar2"):
+        monkeypatch.setattr(dss_cuda, f"dss_{key}",
+                            counting(key, getattr(dss_cuda, f"dss_{key}")))
+    first, step = t_fast.make_fast_step(tcfg, tgeom, device=CPU, **kw)
     d = random_fast_state(tcfg.nz, tcfg.ne * tcfg.order, seed=2)
     X = {k: torch.from_numpy(v) for k, v in d.items()}
     carry = {k: torch.zeros_like(X[k]) for k in ("Rt", "W", "Rho")}
     step(X, carry)
     assert calls == want
+
+
+def test_make_fast_step_refuses_an_unknown_dss_group(pair):
+    _, _, tcfg, tgeom = pair
+    with pytest.raises(ValueError, match="dss_merge"):
+        t_fast.make_fast_step(tcfg, tgeom, device=CPU, dss_merge=("uvw",))
+    with pytest.raises(ValueError, match="inner_steps"):
+        t_fast.make_fast_multistep(tcfg, tgeom, 0, device=CPU)
+
+
+@pytest.fixture(scope="module")
+def multistep(pair):
+    """``first_step`` then one ``multi`` of 3 steps: the port's, the port's
+    eager loop, and the JAX package's ``make_fast_multistep``."""
+    jcfg, jgeom, tcfg, tgeom = pair
+    js, _ = initial_states(jcfg, jgeom, tcfg, tgeom)
+    state_np = {k: np.asarray(v) for k, v in js.items()}
+    X0 = convert.state_from_numpy(state_np, device=CPU, dtype=torch.float64)
+    first, multi = t_fast.make_fast_multistep(tcfg, tgeom, 3, device=CPU)
+    X, c = multi(*first(X0))
+    first, step = t_fast.make_fast_step(tcfg, tgeom, device=CPU)
+    E, ce = first(X0)
+    for _ in range(3):
+        E, ce = step(E, ce)
+    jfirst, jmulti = j_engine.make_fast_multistep(jcfg, jgeom, 3)
+    J, cj = jmulti(*jfirst(j_fast.pack_state(js)))
+    return (X, c), (E, ce), (J, cj)
+
+
+def test_multistep_equals_the_eager_steps(multistep):
+    (X, c), (E, ce), _ = multistep
+    for k in FIELDS:
+        assert torch.equal(X[k], E[k]), k
+    for k in c:
+        assert torch.equal(c[k], ce[k]), k
+
+
+def test_multistep_matches_jax_multistep(multistep):
+    (X, c), _, (J, cj) = multistep
+    for k in FIELDS:
+        assert rel_err(X[k].numpy(), J[k]) < 1e-11, k
+    assert set(c) == set(cj)
 
 
 def test_rayleigh_and_off_centering(pair):
@@ -250,6 +315,13 @@ def test_rayleigh_and_off_centering(pair):
     X, c = step(X, c)
     for k in FIELDS:
         assert bool(torch.isfinite(X[k]).all()), k
+    # the Rayleigh finish inside the one-launch DSS: the same bits
+    first, step = t_fast.make_fast_step(cfg, geom, ref_state=ref, device=CPU,
+                                        dss_merge=("state", "scalar2"))
+    Y, c = first(t_fast.pack_state(state, device=CPU))
+    Y, c = step(Y, c)
+    for k in FIELDS:
+        assert torch.equal(X[k], Y[k]), k
 
 
 @pytest.mark.gpu
@@ -271,3 +343,8 @@ def test_kernel_path_matches_plain_path_on_the_card(pair):
         for k in FIELDS:
             assert rel_err(outs[0][k].cpu().numpy(),
                            other[k].cpu().numpy()) < 1e-11, k
+    # one graph replay of one step: the eager step's result
+    first, multi = t_fast.make_fast_multistep(tcfg, tgeom, 1, device="cuda")
+    X, c = multi(*first(t_fast.pack_state(state, device="cuda")))
+    for k in FIELDS:
+        assert rel_err(X[k].cpu().numpy(), outs[0][k].cpu().numpy()) < 1e-13

@@ -25,7 +25,7 @@ def test_every_module_imports_without_jax():
     names = _module_names()
     assert len(names) > 15
     for new in ("fast.stage_cuda", "fast.implicit_cuda", "kernels.stencils",
-                "kernels.synthetic"):
+                "kernels.synthetic", "fast.hyper_cuda", "kernels.tune_tail"):
         assert f"tempestmodel_tpu_torch.{new}" in names
     code = (
         "import importlib, sys\n"
@@ -72,6 +72,8 @@ def test_entry_points_need_a_cuda_device_unless_cpu_is_named():
         fast.build_fast_geometry(geom, dtype=torch.float64)
     with pytest.raises(RuntimeError, match="CUDA"):
         fast.make_fast_step(cfg, geom)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fast.make_fast_multistep(cfg, geom, 2)
     state = tc.initial_state(geom, cfg.constants, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         fast.pack_state(state)

@@ -71,12 +71,15 @@ def fast_geometry_fields_numpy(jfg):
     return out
 
 
-def terrain_like_pair(jfg, seed=0):
+def terrain_like_pair(jfg, seed=0, vary_jac=False):
     """(jfg_t, tfg_t): the JAX ``FastGeometry`` ``jfg`` and its port
     counterpart, both with the same seeded terrain-like separable metric
-    (the UMJS terrain is flat, so its terrain terms all vanish)."""
-    fields = synthetic.terrain_fields(jfg.nz, 6, jfg.A, jfg.B,
-                                      np.asarray(jfg.sep_e), seed=seed)
+    (the UMJS terrain is flat, so its terrain terms all vanish).
+    ``vary_jac``: also a z-constant 3-D Jacobian that is no multiple of the
+    2-D one."""
+    fields = synthetic.terrain_fields(
+        jfg.nz, 6, jfg.A, jfg.B, np.asarray(jfg.sep_e), seed=seed,
+        jacl=np.asarray(jfg.sep_jacl) if vary_jac else None)
     jfg_t = dataclasses.replace(
         jfg, **{k: jnp.asarray(v) for k, v in fields.items()})
     tfg_t = convert.fast_geometry_from_numpy(
