@@ -11,26 +11,33 @@ and runs these phases, each printing one JSON line:
 
 1. device   the card's name and power limit as nvidia-smi gives them;
 2. build    every kernel source compiled and loaded, with the seconds;
-3. kernel   each of the ten kernels against its plain PyTorch version on
-            the card at the flagship shapes, float32 and float64, with times;
+3. kernel   each of the eleven kernels against its plain PyTorch version on
+            the card at the flagship shapes, float32 and float64, with times
+            (``fused_stage`` also with three seeded tracer species,
+            ``dss_scalar`` also on their flat 90-row field,
+            ``banded_solve_multi`` at the moist wave's shapes);
 4. slice    the Strang-HEVI step at small size in float64 on the card three
             ways — fused kernel path, unfused kernel path, plain path — each
             pair to 1e-11 relative per field, and ``make_fast_multistep``
-            (one CUDA-graph replay of 3 steps) against 3 eager steps;
+            (one CUDA-graph replay of 3 steps) against 3 eager steps; all of
+            it dry, and again with three seeded tracer species in the state;
 5. flagship the main paths at full width: UMJS baroclinic wave, ne30 p4
             nz30 float32: ``make_fast_multistep`` (``first_step``, then
             replays of a 10-step CUDA graph), the eager fused path of
             ``make_fast_step`` (``first_step`` and 5 ``step``s), then the
             unfused path (``fused=False``, ``first_step`` and 1 ``step``);
-            finite fields, launch counts, ms/step of each;
+            finite fields, launch counts, ms/step of each; then the moist
+            baroclinic wave (DCMIP2016, the same grid, + 3 tracers) through
+            ``make_fast_multistep`` and eagerly, with the global mass of each
+            species before and after;
 6. dss      the step with the tail's DSS as four launches or as
             ``dss_state`` and the stages' Rt/Rho as two launches or as
             ``dss_scalar2``, eagerly and under graph replay, in turns;
 7. kernels  one line listing every kernel with its time, bound, plain
             version's time and launches on the flagship runs.
 
-With ``--profile PATH`` it also traces steps of each flagship path with
-torch.profiler and writes the device time by kernel to the JSON file PATH.
+With ``--profile PATH`` it also traces steps of each flagship path and of
+the moist replay with torch.profiler and writes the device time by kernel to the JSON file PATH.
 
 Any failure raises: the exit code is then non-zero and no result line is
 printed.  Without a CUDA device the script exits with code 1 at once.  The
@@ -45,6 +52,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 # published peaks of one H100 SXM (NVIDIA data sheet): device memory rate
@@ -60,19 +68,24 @@ UNFUSED_STEPS = 1
 INNER_STEPS = 10            # steps in one CUDA graph of make_fast_multistep
 REPLAYS = 4                 # timed replays of that graph
 SEED = 0
+MOIST_STEPS = 3             # eager, moist wave
+NTR = 3                     # tracer species of the moist wave
 KERNELS = ("dss_scalar", "dss_vector", "banded_solve", "dss_uvw",
            "fused_stage", "nu4_pass1", "nu4_pass2", "fused_implicit_update",
-           "dss_state", "dss_scalar2")
+           "dss_state", "dss_scalar2", "banded_solve_multi")
+# the solves of the implicit half step, of which ``first_step`` has two
+IMPLICIT_SOLVES = ("fused_implicit_update", "banded_solve",
+                   "banded_solve_multi")
 # kernel launches per ``step`` (``first_step`` has one implicit solve more)
 # with the DSS as separate launches ...
 FUSED_PER_STEP = {"fused_stage": 5, "dss_uvw": 5, "dss_scalar": 16,
                   "dss_vector": 2, "fused_implicit_update": 1,
                   "banded_solve": 0, "nu4_pass1": 1, "nu4_pass2": 1,
-                  "dss_state": 0, "dss_scalar2": 0}
+                  "dss_state": 0, "dss_scalar2": 0, "banded_solve_multi": 0}
 UNFUSED_PER_STEP = {"fused_stage": 0, "dss_uvw": 0, "dss_scalar": 21,
                     "dss_vector": 7, "fused_implicit_update": 0,
                     "banded_solve": 1, "nu4_pass1": 0, "nu4_pass2": 0,
-                    "dss_state": 0, "dss_scalar2": 0}
+                    "dss_state": 0, "dss_scalar2": 0, "banded_solve_multi": 0}
 DSS_MERGES = ((), ("state",), ("scalar2",), ("state", "scalar2"))
 
 
@@ -88,6 +101,15 @@ def fused_per_step(merge):
         pairs = 5 if "state" in merge else 7
         n.update(dss_scalar2=pairs, dss_scalar=n["dss_scalar"] - 2 * pairs)
     return n
+
+
+def moist(per_step):
+    """... and with tracers in the state: the flat tracer field takes one
+    ``dss_scalar`` launch more in each of the 7 DSS of a step (5 stages, 2 in
+    the tail), and the implicit half step one ``banded_solve_multi``.  The
+    stage kernel advects the tracers inside its one launch."""
+    return dict(per_step, dss_scalar=per_step["dss_scalar"] + 7,
+                banded_solve_multi=1)
 
 
 def emit(obj):
@@ -485,6 +507,189 @@ def check_tail_kernels(geom, dtype, rows, dev):
     torch.cuda.empty_cache()
 
 
+def check_tracer_kernels(cfg, geom, dtype, rows, dev):
+    """Phase 3, fourth part: what the moist wave adds, at its shapes in
+    ``dtype``: ``banded_solve_multi`` (n 30, q 1, R 3, and a wider case),
+    ``fused_stage`` with three tracer species, ``dss_scalar`` on their flat
+    90-row field.  The tracers are seeded (species of different size, some
+    negative values): two of the wave's own three species are all zeros and
+    would hide a mix-up.  The stage is checked at its usual step and at one
+    so long that the tracers' increment is as large as the tracers."""
+    from tempestmodel_tpu_torch import fast
+    from tempestmodel_tpu_torch.fast import (dss_cuda, stage_cuda,
+                                             tracers as ftr)
+    from tempestmodel_tpu_torch.kernels import synthetic
+    from tempestmodel_tpu_torch.kernels.timing import time_cuda
+    from tempestmodel_tpu_torch.ops import cuda_banded
+
+    tag = "f32" if dtype == torch.float32 else "f64"
+    f32 = dtype == torch.float32
+    esize = 4 if f32 else 8
+    consts = cfg.constants
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+
+    # --- banded_solve_multi ---------------------------------------------
+    band_tol = 1e-4 if f32 else 1e-10
+    n, ncol = NZ, 6 * (NE * ORDER) ** 2
+
+    def systems(n, q, R, ncol):
+        bands, _ = make_bands(n, q, ncol, dtype, gen, dev)
+        # right-hand sides of different size, as the species are
+        rhs = randn((n, R, ncol), dtype, gen, dev) * (10.0 ** -torch.arange(
+            R, device=dev, dtype=dtype))[None, :, None]
+        return bands, rhs.contiguous()
+
+    def multi_err(bands, rhs, q):
+        want = cuda_banded.banded_solve_multi_plain(bands, rhs, q)
+        got = cuda_banded.banded_solve_multi(bands, rhs, q)
+        torch.cuda.synchronize()
+        back = cuda_banded._banded_solve_multi_cuda(bands, rhs, q,
+                                                    window=False)
+        torch.cuda.synchronize()
+        return max(rel_err(g[:, r], want[:, r]) for g in (got, back)
+                   for r in range(rhs.shape[1])), want
+
+    cases = {}
+    for name, q, R in (("", 1, NTR), ("_q4_r5", 4, 5)):
+        sets = [systems(n, q, R, ncol) for _ in range(2)]   # > the 50 MB L2
+        bands, rhs = sets[0]
+        err, want = multi_err(bands, rhs, q)
+        # ragged widths, other bandwidths, R above the register windows
+        for qq, rr, nn, nc in ((2, 1, 9, 1001), (8, 2, 40, 130),
+                               (3, 7, 12, 257)):
+            err = max(err, multi_err(*systems(nn, qq, rr, nc), qq)[0])
+        if not err <= band_tol:
+            raise RuntimeError(f"banded_solve_multi{name} {tag}: rel err "
+                               f"{err} > {band_tol}")
+        t = {"max_abs_err": err}
+        t["ms"] = time_cuda(lambda b, r: cuda_banded.banded_solve_multi(
+            b, r, q), sets, reps=20, queued=True)
+        t["ms_read_back_form"] = time_cuda(
+            lambda b, r: cuda_banded._banded_solve_multi_cuda(
+                b, r, q, window=False), sets, reps=20, queued=True)
+        t["plain_ms"] = time_cuda(
+            lambda b, r: cuda_banded.banded_solve_multi_plain(b, r, q), sets,
+            reps=2, warmup=1)
+        # the library yardstick: one dense batched solve of the same systems
+        # with the (n, R) right-hand sides (timed here, used nowhere else)
+        dense = dense_from_bands(bands, q)
+        rhs_t = rhs.permute(2, 0, 1).contiguous()            # (ncol, n, R)
+        lib_x = torch.linalg.solve(dense, rhs_t).permute(1, 2, 0)
+        t["library_rel_err"] = max(rel_err(lib_x[:, r], want[:, r])
+                                   for r in range(R))
+        t["library_ms"] = time_cuda(lambda: torch.linalg.solve(dense, rhs_t),
+                                    [()], reps=2, warmup=1)
+        del dense, lib_x, rhs_t, want
+        nb = (bands.numel() + 2 * rhs.numel()) * esize
+        flops = n * ncol * (q * (2 * q + 2) + R * (4 * q + 1))
+        t["bound_ms"], t["bound_by"] = bound_ms(nb, flops, dtype)
+        t["shape"] = [n, 2 * q + 1, R, ncol]
+        cases[name] = t
+        del sets, bands, rhs
+        torch.cuda.empty_cache()
+    row = {"name": "banded_solve_multi", "route": "cuda",
+           "source": "tempestmodel_tpu_torch/csrc/banded_multi.cu",
+           "replaces": "tempestmodel_tpu/ops/pallas_banded.py:142",
+           **cases[""], "wider_case_q4_r5": cases["_q4_r5"]}
+    emit({"phase": "kernel", "dtype": tag, "tol": band_tol, **row})
+    if f32:
+        rows["banded_solve_multi"] = row
+
+    # --- fused_stage with tracers -----------------------------------------
+    stage_tol = 1e-4 if f32 else 1e-11
+    fgt = synthetic.terrain_like(
+        fast.build_fast_geometry(geom, dtype=dtype, device=dev), seed=SEED,
+        vary_jac=True)
+    K, P, A = fgt.nz, 6, fgt.A
+    nlev, nint, n2d = K * P * A * A, (K + 1) * P * A * A, P * A * A
+    sst = stage_cuda.stage_statics(fgt)
+    dry = [synthetic.random_state(fgt, seed=s) for s in (1, 2, 3)]
+    ue, b1, b2 = (dict(d, Tracers=synthetic.random_tracers(fgt, NTR, s + 6))
+                  for s, d in enumerate(dry, 1))
+    tend = ftr.horizontal_update(torch.zeros_like(ue["Tracers"]), ue, 1.0,
+                                 fgt)
+    dt_big = float(ue["Tracers"].abs().max() / tend.abs().max())
+    del tend
+    errs = {}
+    two = ((0.3, b1), (0.7, b2))
+    for dt_s in (12.5, dt_big):
+        for base in (b1, two):
+            got, gwf = stage_cuda.fused_stage(base, ue, dt_s, fgt, consts,
+                                              defer_w=True, statics=sst)
+            torch.cuda.synchronize()
+            want, wwf = stage_cuda.fused_stage_plain(base, ue, dt_s, fgt,
+                                                     consts, defer_w=True)
+            e = {k: rel_err(got[k], want[k]) for k in stage_cuda.STATE4}
+            e["dW"] = rel_err(gwf["dW"], wwf["dW"])
+            for i in range(NTR):
+                sl = slice(i * K, (i + 1) * K)
+                e[f"species{i}"] = rel_err(got["Tracers"][sl],
+                                           want["Tracers"][sl])
+            errs = {k: max(v, errs.get(k, 0.0)) for k, v in e.items()}
+            del got, want, gwf, wwf
+    if not max(errs.values()) <= stage_tol:
+        raise RuntimeError(f"fused_stage with tracers {tag}: rel err {errs} "
+                           f"> {stage_tol}")
+    timed = {}
+    for key, base, nbase in (("", b1, 4), ("_two_base", two, 8)):
+        tb, c1, x1, c2, x2 = stage_cuda._split_base(base)
+        dry_base = tuple((c, {k: v for k, v in b.items() if k != "Tracers"})
+                         for c, b in base) if tb else dry[1]
+        tdb, d1, y1, d2, y2 = stage_cuda._split_base(dry_base)
+        timed["ms_tracers" + key] = time_cuda(
+            lambda: stage_cuda._fused_stage_cuda(
+                tb, c1, x1, c2, x2, ue, 12.5, fgt, consts, sst), [()],
+            reps=20, queued=True)
+        timed["ms_no_tracers_same_call" + key] = time_cuda(
+            lambda: stage_cuda._fused_stage_cuda(
+                tdb, d1, y1, d2, y2, dry[0], 12.5, fgt, consts, sst), [()],
+            reps=20, queued=True)
+        timed["plain_ms_tracers" + key] = time_cuda(
+            lambda: stage_cuda.fused_stage_plain(
+                base, ue, 12.5, fgt, consts, defer_w=True), [()], reps=3,
+            warmup=1)
+        # as without tracers, plus per species: the tracer and its base (or
+        # two) read, the result written
+        nb = ((4 + nbase + 5 + NTR * (2 + nbase // 4)) * nlev + nint
+              + 12 * n2d + sst.tab.numel()) * esize
+        timed["bound_ms_tracers" + key], _ = bound_ms(
+            nb, (400 + 40 * NTR) * nlev, dtype)
+    emit({"phase": "kernel", "dtype": tag, "tol": stage_tol,
+          "name": "fused_stage_with_tracers", "species": NTR,
+          "shape": [K, P, A, A], "max_abs_err": max(errs.values()),
+          "err_by_output": errs, "long_step_s": dt_big, **timed})
+    if f32:
+        rows["fused_stage_tracers"] = dict(timed, max_abs_err_tracers=max(
+            errs.values()))
+
+    # --- dss_scalar on the flat tracer field (K = 90) -----------------------
+    dss_tol = 1e-6 if f32 else 1e-13
+    sets = [(t["Tracers"],) for t in (ue, b1, b2)]
+    x = sets[0][0]
+    got = dss_cuda.dss_scalar(x, fgt.inv_mult, fgt.dss_links, fgt.p,
+                              table=fgt.dss_table)
+    torch.cuda.synchronize()
+    want = dss_cuda.dss_scalar_plain(x, fgt.inv_mult, fgt.dss_links, fgt.p)
+    err = max(rel_err(got[i * K:(i + 1) * K], want[i * K:(i + 1) * K])
+              for i in range(NTR))
+    if not err <= dss_tol:
+        raise RuntimeError(f"dss_scalar K={NTR * K} {tag}: rel err {err} > "
+                           f"{dss_tol}")
+    ms = time_cuda(lambda x: dss_cuda.dss_scalar(
+        x, fgt.inv_mult, fgt.dss_links, fgt.p, table=fgt.dss_table), sets,
+        reps=30, queued=True)
+    bnd, _ = bound_ms((2 * NTR * nlev + n2d) * esize
+                      + fgt.dss_table.numel() * 4, 5 * NTR * nlev, dtype)
+    emit({"phase": "kernel", "dtype": tag, "tol": dss_tol,
+          "name": "dss_scalar_flat_tracers", "shape": [NTR * K, P, A, A],
+          "max_abs_err": err, "ms": ms, "bound_ms": bnd})
+    if f32:
+        rows["dss_scalar_tracers"] = {"ms_tracers_k90": ms,
+                                      "bound_ms_tracers_k90": bnd,
+                                      "max_abs_err_tracers_k90": err}
+    torch.cuda.empty_cache()
+
+
 def check_kernels(fg, cfg, geom, state, dev):
     """Phase 3: every kernel against its plain version at the flagship
     shapes; returns {name: row of the kernels line (without launches)}."""
@@ -617,20 +822,24 @@ def check_kernels(fg, cfg, geom, state, dev):
 
         check_fused_kernels(cfg, geom, state, dtype, rows, dev)
         check_tail_kernels(geom, dtype, rows, dev)
+        check_tracer_kernels(cfg, geom, dtype, rows, dev)
     return rows
 
 
-def check_slice(dev):
+def check_slice(dev, with_tracers=False):
     """Phase 4: 3 steps at ne4 p4 nz8 in float64 on the card three ways:
     the fused path with kernels (fused nu4 tail included), the unfused path
     with kernels, and the path with the plain versions; each pair to 1e-11
     relative per field.  Then ``make_fast_multistep(inner_steps=3)`` -- one
     replay of a 3-step CUDA graph -- against 3 eager steps from the same
     state (the same kernels in the same order: 1e-13), with the DSS as
-    separate launches and with every group in one launch."""
+    separate launches and with every group in one launch.
+    ``with_tracers``: the same from the start perturbed by seeded noise, with
+    three seeded tracer species in the state (species of different size, some
+    negative values, columns and elements without positive mass)."""
     import tempestmodel_tpu_torch as tm
     from tempestmodel_tpu_torch import fast
-    from tempestmodel_tpu_torch.kernels import counts
+    from tempestmodel_tpu_torch.kernels import counts, synthetic
     from tempestmodel_tpu_torch.models import nh_model
     from tempestmodel_tpu_torch.testcases.nonhydro_sphere import (
         BaroclinicWaveUMJS)
@@ -644,20 +853,37 @@ def check_slice(dev):
     geom = nh_model.build_nh_sphere_geometry(cfg, ztop=tc.ztop)
     state = tc.initial_state(geom, cfg.constants, dtype=torch.float64,
                              device=dev)
+    X0 = fast.pack_state(state, device=dev)
+    per = (lambda n: n)
+    what = "ne4 p4 nz8 f64"
+    if with_tracers:
+        rng = np.random.default_rng(SEED + 7)
+
+        def noise(x):
+            return torch.as_tensor(rng.standard_normal(tuple(x.shape)),
+                                   device=dev)
+
+        for k in ("U", "V", "Rt", "Rho"):
+            X0[k] = X0[k] * (1.0 + 1e-3 * noise(X0[k]))
+        X0["W"] = 0.01 * noise(X0["W"])
+        X0["Tracers"] = torch.as_tensor(synthetic.random_tracers_numpy(
+            cfg.nz, 6, 16, 16, NTR, cfg.order, seed=SEED + 8), device=dev)
+        per = moist
+        what += f", {NTR} seeded tracer species"
     outs = {}
     for name, kw in (("fused", {}), ("unfused", {"fused": False}),
                      ("plain", {"plain": True})):
         counts.reset_launch_counts()
         first, step = fast.make_fast_step(cfg, geom, device=dev, **kw)
-        X, c = first(fast.pack_state(state, device=dev))
+        X, c = first(X0)
         for _ in range(2):
             X, c = step(X, c)
         torch.cuda.synchronize()
         outs[name] = X
         launched = {k for k, v in counts.launch_counts.items() if v}
-        want = {"fused": {k for k, v in fused_per_step(
-                    fast.engine.DSS_MERGE_DEFAULT).items() if v},
-                "unfused": {k for k, v in UNFUSED_PER_STEP.items() if v},
+        want = {"fused": {k for k, v in per(fused_per_step(
+                    fast.engine.DSS_MERGE_DEFAULT)).items() if v},
+                "unfused": {k for k, v in per(UNFUSED_PER_STEP).items() if v},
                 "plain": set()}[name]
         if launched != want:
             raise RuntimeError(f"slice, {name} path launched {launched}, "
@@ -667,7 +893,7 @@ def check_slice(dev):
                  ("unfused", "plain")):
         errs[f"{a}_vs_{b}"] = {k: rel_err(outs[a][k], outs[b][k])
                                for k in outs[a]}
-    emit({"phase": "slice", "config": "ne4 p4 nz8 f64, 3 steps",
+    emit({"phase": "slice", "config": what + ", 3 steps",
           "rel_err": errs, "tol": 1e-11})
     bad = {p: {k: e for k, e in d.items() if not e < 1e-11}
            for p, d in errs.items()}
@@ -678,7 +904,7 @@ def check_slice(dev):
     for merge in ((), ("state", "scalar2")):
         first, step = fast.make_fast_step(cfg, geom, device=dev,
                                           dss_merge=merge)
-        X1, c1 = first(fast.pack_state(state, device=dev))
+        X1, c1 = first(X0)
         E, ce = X1, c1
         for _ in range(3):
             E, ce = step(E, ce)
@@ -690,15 +916,15 @@ def check_slice(dev):
         G2, cg2 = multi(X1, c1)           # a pure replay: no launch counted
         torch.cuda.synchronize()
         # the warm-up step and the 3 captured ones
-        want = {k: 4 * v for k, v in fused_per_step(merge).items()}
+        want = {k: 4 * v for k, v in per(fused_per_step(merge)).items()}
         if captured != want or dict(counts.launch_counts) != captured:
             raise RuntimeError(f"slice, graph capture ({merge}): launch "
                                f"counts {captured} != expected {want}")
         replay["+".join(merge) or "separate"] = {
             **{k: max(rel_err(G[k], E[k]), rel_err(G2[k], E[k])) for k in E},
             **{"carry_" + k: rel_err(cg2[k], ce[k]) for k in ce}}
-    emit({"phase": "slice", "config": "ne4 p4 nz8 f64, graph replay of 3 "
-          "steps vs 3 eager steps", "rel_err": replay, "tol": 1e-13})
+    emit({"phase": "slice", "config": what + ", graph replay of 3 steps vs "
+          "3 eager steps", "rel_err": replay, "tol": 1e-13})
     bad = {p: {k: e for k, e in d.items() if not e < 1e-13}
            for p, d in replay.items()}
     if any(bad.values()):
@@ -799,8 +1025,9 @@ def main():
     rows = check_kernels(fg, cfg, geom, state, dev)
     del fg
 
-    # 4. the slice at small size, three ways ------------------------------
+    # 4. the slice at small size, three ways, dry and with tracers --------
     check_slice(dev)
+    check_slice(dev, with_tracers=True)
 
     # 5. the main paths at full width -------------------------------------
     X0 = fast.pack_state(state, device=dev)
@@ -809,9 +1036,9 @@ def main():
     default_merge = tuple(fast.engine.DSS_MERGE_DEFAULT)
     launches, profiles = {}, {}
 
-    def check_state(X, what):
+    def check_state(X, what, X0=X0):
         for k, v in X.items():
-            nzk = NZ + (1 if k == "W" else 0)
+            nzk = {"W": NZ + 1, "Tracers": NTR * NZ}.get(k, NZ)
             if tuple(v.shape) != (nzk, 6, NE * ORDER, NE * ORDER):
                 raise RuntimeError(f"{what}: {k} has shape {tuple(v.shape)}")
             if v.dtype != torch.float32 or not bool(torch.isfinite(v).all()):
@@ -827,7 +1054,7 @@ def main():
         """``nsteps`` steps and one ``first_step``, which has one more
         implicit solve."""
         want = {k: v * (nsteps + 1) for k, v in per_step.items()}
-        for k in ("fused_implicit_update", "banded_solve"):
+        for k in IMPLICIT_SOLVES:
             want[k] += 1 if per_step[k] else 0
         if got != want:
             raise RuntimeError(f"{what}: launch counts {got} != expected "
@@ -924,6 +1151,99 @@ def main():
         del first_step, step, X, carry
     torch.cuda.empty_cache()
 
+    # 5c. this slice's path: the moist baroclinic wave (the same grid, + 3
+    # tracers), under graph replay and eagerly
+    from tempestmodel_tpu_torch.testcases.dcmip2016 import MoistBaroclinicWave
+    M0 = fast.pack_state(MoistBaroclinicWave().initial_state(
+        geom, cfg.constants, dtype=cfg.dtype, device=dev), device=dev)
+    area = torch.as_tensor(np.ascontiguousarray(np.moveaxis(
+        np.asarray(geom.area3d, np.float64), -1, 0)), device=dev)
+    moist_config = (f"DCMIP2016 moist baroclinic wave ne{NE} p{ORDER} nz{NZ} "
+                    f"+{NTR} tracers f32 dt{DT:g} nu{NU:g}")
+
+    def species_mass(X):
+        """sum(tracer * area3d) of each species, in float64."""
+        return [float((X["Tracers"][i * NZ:(i + 1) * NZ].double() * area)
+                      .sum()) for i in range(NTR)]
+
+    def check_moist(X, what):
+        drift = check_state(X, what, M0)
+        mass = species_mass(X)
+        if not abs(mass[0] - mass0[0]) <= 1e-4 * mass0[0]:
+            raise RuntimeError(f"{what}: the mass of species 0 moved from "
+                               f"{mass0[0]} to {mass[0]}")
+        if float(X["Tracers"].min()) < 0.0:
+            raise RuntimeError(f"{what}: negative tracer values")
+        return drift, mass
+
+    mass0 = species_mass(M0)
+    if not (mass0[0] > 0.0 and mass0[1] == mass0[2] == 0.0):
+        raise RuntimeError(f"moist wave: initial species masses {mass0}")
+    per_step = moist(fused_per_step(default_merge))
+    t0 = time.perf_counter()
+    first_step, multi = fast.make_fast_multistep(cfg, geom, INNER_STEPS,
+                                                 device=dev, ntracers=NTR)
+    make_s = time.perf_counter() - t0
+    counts.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    X, carry = first_step(M0)
+    t0 = time.perf_counter()
+    X, carry = multi(X, carry)          # warm-up step, capture, first replay
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    replay_ms = []
+    for _ in range(REPLAYS):
+        X, carry, ms, _ = timed(multi, X, carry, 1)
+        replay_ms.append(ms / INNER_STEPS)
+    launches["moist_multistep"] = dict(counts.launch_counts)
+    check_counts("moist multistep path", launches["moist_multistep"],
+                 per_step, INNER_STEPS + 1)
+    drift, mass = check_moist(X, "moist wave, multistep")
+    ms_per_step = sorted(replay_ms)[len(replay_ms) // 2]
+    emit({"phase": "moist", "path": "multistep", "config": moist_config,
+          "inner_steps": INNER_STEPS, "replays": REPLAYS,
+          "steps": INNER_STEPS * (REPLAYS + 1),
+          "ms_per_step": ms_per_step, "ms_per_step_each_replay": replay_ms,
+          "gridpoint_steps_per_s": npts / (ms_per_step * 1e-3),
+          "launches": launches["moist_multistep"],
+          "launches_per_step": per_step,
+          "launches_counted": "at capture (first_step + 1 warm-up step + "
+                              f"{INNER_STEPS} captured steps), not at replay",
+          "make_fast_multistep_s": make_s,
+          "warmup_capture_first_replay_s": capture_s, "drift": drift,
+          "species_mass_before": mass0, "species_mass_after": mass,
+          "peak_device_GiB": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "card": smi})
+    if profile_path is not None:
+        profiles["moist_multistep"] = profile_steps(
+            multi, X, carry, 2, "moist_multistep", INNER_STEPS)
+    del first_step, multi, X, carry
+    torch.cuda.empty_cache()
+
+    first_step, step = fast.make_fast_step(cfg, geom, device=dev)
+    Xw, cw = step(*first_step(M0))      # warm-up outside the counted run
+    torch.cuda.synchronize()
+    del Xw, cw
+    counts.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    X, carry = first_step(M0)
+    X, carry, ms_per_step, wall_ms = timed(step, X, carry, MOIST_STEPS)
+    launches["moist_eager"] = dict(counts.launch_counts)
+    check_counts("moist eager path", launches["moist_eager"], per_step,
+                 MOIST_STEPS)
+    drift, mass = check_moist(X, "moist wave, eager")
+    emit({"phase": "moist", "path": "fused", "config": moist_config,
+          "steps": MOIST_STEPS, "ms_per_step": ms_per_step,
+          "wall_ms_per_step": wall_ms,
+          "gridpoint_steps_per_s": npts / (ms_per_step * 1e-3),
+          "launches": launches["moist_eager"], "launches_per_step": per_step,
+          "drift": drift, "species_mass_before": mass0,
+          "species_mass_after": mass,
+          "peak_device_GiB": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "card": smi})
+    del first_step, step, X, carry, M0, area
+    torch.cuda.empty_cache()
+
     if profile_path is not None:
         os.makedirs(os.path.dirname(os.path.abspath(profile_path)),
                     exist_ok=True)
@@ -979,17 +1299,24 @@ def main():
     torch.cuda.empty_cache()
 
     # 7. the kernels line, the card, the result ---------------------------
-    # launches: the count of this slice's path (the multistep run); for a
-    # kernel that path does not run, the count of the run that does: the DSS
-    # variants of phase 6, then the unfused path
+    # launches: the count of the dry flagship's path (the multistep run); for
+    # a kernel that path does not run, the count of the run that does: the
+    # moist path, the DSS variants of phase 6, then the unfused path.  Each of
+    # these runs began with the counts at 0.
     kernels = []
     for name in KERNELS:
         row = dict(rows[name])
-        runs = ["multistep", "state+scalar2", "separate", "unfused"]
+        runs = ["multistep", "moist_multistep", "state+scalar2", "separate",
+                "unfused"]
         row["launches"], row["launches_on"] = next(
             ((launches[r][name], r) for r in runs if launches[r][name]),
             (0, None))
         row["launches_unfused_path"] = launches["unfused"][name]
+        row["launches_moist_path"] = launches["moist_multistep"][name]
+        if moist(fused_per_step(default_merge))[name] \
+                and row["launches_moist_path"] < 1:
+            raise RuntimeError(f"{name} was not launched on the moist path")
+        row.update(rows.get(name + "_tracers", {}))
         if row["launches"] < 1:
             raise RuntimeError(f"{name} was launched on no path")
         if name == "fused_stage":

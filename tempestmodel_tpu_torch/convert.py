@@ -21,13 +21,16 @@ from .fast.engine import FIELDS, FastGeometry, pack_state
 def state_from_numpy(state_np, device=None, dtype=torch.float64):
     """Reference-layout state dict ``(6, A, B, nz[+1])`` of numpy arrays ->
     the z-first state of the engine, tensors of ``dtype`` on ``device``
-    (default ``cuda``; raises when absent)."""
+    (default ``cuda``; raises when absent).  ``"Tracers"`` ``(ntr, 6, A, B,
+    nz)`` comes across when the state has it (as the flat species-major
+    field of ``pack_state``)."""
     npdt = np_dtype(dtype)
     missing = [k for k in FIELDS if k not in state_np]
     if missing:
         raise KeyError(f"state lacks the fields {missing}")
+    keys = FIELDS + (("Tracers",) if "Tracers" in state_np else ())
     return pack_state(
-        {k: np.array(state_np[k], dtype=npdt, order="C") for k in FIELDS},
+        {k: np.array(state_np[k], dtype=npdt, order="C") for k in keys},
         device=resolve_device(device))
 
 

@@ -23,7 +23,19 @@
 //     the tiles (the derivative and stiffness matrices, divided by the
 //     element width, sit in shared memory too);
 //   - the two-term RK base combination and the axpy happen at the store; a
-//     single base never reads a second one (its pointers are null).
+//     single base never reads a second one (its pointers are null);
+//   - tracers (the flat species-major field `(ntr * nz, P, A, B)`) are
+//     advected in the same launch on the same mass fluxes jac * u^a, jac * u^b
+//     that carry Rho: a thread keeps the two fluxes of its node in registers
+//     and writes flux * tracer of up to STAGE_SPECIES species into two more
+//     shared-memory tiles each in the level's first pass, so those species
+//     cost no barrier of their own; further species go in groups of that
+//     size through the same tiles, two barriers a group.  The tracer row is
+//     s * nz + k while every metric term is indexed by the level k alone.
+//     A group's tracer values are loaded together at the top of the level
+//     and its base values at the top of the second pass, so their latency
+//     hides behind the level's other work.  The kernel without tracers is an
+//     instantiation of its own (TR = false) with none of this in it.
 // Both metric forms are here: the separable Gal-Chen form (12 two-dimensional
 // fields held in registers plus two level profiles) and the full
 // three-dimensional metric tensors.
@@ -31,6 +43,8 @@
 // Bound on an H100 (3.35 TB/s): bytes.  The function must read 5 evaluation
 // fields and 4 (or 8) base fields and write 5 fields: 14 or 18 fields of
 // (30, 6, 120, 120) float32, 145 or 187 MB with the 2-D metric, 43 or 56 us.
+// Each species adds a read of the tracer and of its base (or two) and a write:
+// 3 or 4 fields of that shape, 31 or 41 MB, 9 or 12 us.
 // Arithmetic is about 400 flops a node and level (1 GFLOP, ~15 us at the
 // float32 rate), one exp and one log among them.  The re-reads of U, V, W at
 // neighbouring levels hit L1/L2.
@@ -72,6 +86,15 @@ constexpr int NCOLS = 21;
 #ifndef STAGE_TILE_B
 #define STAGE_TILE_B 32
 #endif
+// Species whose flux tiles are filled in the level's first pass (and the
+// size of the later groups); each costs two tiles of shared memory and a
+// register.  With three species at (90, 6, 120, 120) float32 on an H100, 3
+// was 6 % faster than 1 and 12 % faster than 2, which needs a second group
+// for the third species (kernels/tune_fused.py).
+#ifndef STAGE_SPECIES
+#define STAGE_SPECIES 3
+#endif
+static_assert(STAGE_SPECIES >= 1, "a group of species has at least one");
 constexpr int NTILES = 9;        // shared-memory tiles of computed fields
 
 template <typename T>
@@ -96,8 +119,15 @@ struct StageArgs {
   const T* cxixii;
   const T* tab;  // stencil table, then D/delta and S/delta
   T* out[5];     // U, V, Rt, Rho, ucz_x
+  // tracers (ntr * nz, P, A, B), null without: evaluation state, base 1,
+  // base 2 (null for a single base), result
+  const T* tr;
+  const T* btr1;
+  const T* btr2;
+  T* otr;
   T dt_s, cb1, cb2, Cp, kappa, rp0, grav;
   int nz, P, A, B, p, use_sep, has_pen, TA, TB;
+  int ntr, G;    // species, and species per group of flux tiles
 };
 
 // u^xi on interface i of the column at offset `col` inside a level slab;
@@ -128,8 +158,9 @@ __device__ __forceinline__ T xi_dot_int(const StageArgs<T>& g, const T* tab,
 }
 
 // Grid: (tiles of one panel, panel, chunks of STAGE_LEVELS levels); block:
-// TA * TB threads; dynamic shared memory: the table, then NTILES tiles.
-template <typename T>
+// TA * TB threads; dynamic shared memory: the table, then NTILES tiles, then
+// 2 * G tracer flux tiles.
+template <typename T, bool TR>
 __global__ void fused_stage_kernel(const StageArgs<T> g) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* tab = reinterpret_cast<T*>(smem_raw);
@@ -150,6 +181,8 @@ __global__ void fused_stage_kernel(const StageArgs<T> g) {
   T* sfbr = tile + 6 * nthreads;  // jac * u^b * rho
   T* sfat = tile + 7 * nthreads;  // jac * u^a * rt
   T* sfbt = tile + 8 * nthreads;  // jac * u^b * rt
+  T* sftr = tile + NTILES * nthreads;  // per species of a group: a, b flux
+  const int ntr = g.ntr, G = g.G;
 
   const int ty = tid / TB;
   const int tx = tid - ty * TB;
@@ -193,9 +226,52 @@ __global__ void fused_stage_kernel(const StageArgs<T> g) {
     T u = T(0), v = T(0), rt = T(1), rho = T(1);
     T du_dxi = T(0), dv_dxi = T(0), pen_u = T(0), pen_v = T(0);
     T con_ua = T(0), con_ub = T(0), con_ux = T(0), jac = T(1);
-    T dra = T(0), drb = T(0);
+    T dra = T(0), drb = T(0), base_a = T(0), base_b = T(0);
+    // The species s0 .. s0 + G - 1 (G <= STAGE_SPECIES), in four steps: the
+    // tracer values into registers; flux * tracer into the tracer tiles;
+    // the base values into registers; the weak flux divergence, the base
+    // combination and the axpy.
+    T tv[TR ? STAGE_SPECIES : 1];
+    auto load_tracers = [&](int s0) {
+#pragma unroll
+      for (int j = 0; j < STAGE_SPECIES; ++j)
+        if (j < G && s0 + j < ntr)
+          tv[j] = g.tr[((long long)(s0 + j) * nz + k) * level + col];
+    };
+    auto fill_tracers = [&](int s0) {
+#pragma unroll
+      for (int j = 0; j < STAGE_SPECIES; ++j)
+        if (j < G && s0 + j < ntr) {
+          sftr[(2 * j) * nthreads + tid] = base_a * tv[j];
+          sftr[(2 * j + 1) * nthreads + tid] = base_b * tv[j];
+        }
+    };
+    auto load_bases = [&](int s0) {
+#pragma unroll
+      for (int j = 0; j < STAGE_SPECIES; ++j)
+        if (j < G && s0 + j < ntr) {
+          const long long ot = ((long long)(s0 + j) * nz + k) * level + col;
+          tv[j] = two_base ? g.cb1 * g.btr1[ot] + g.cb2 * g.btr2[ot]
+                           : g.btr1[ot];
+        }
+    };
+    auto store_tracers = [&](int s0) {
+#pragma unroll
+      for (int j = 0; j < STAGE_SPECIES; ++j)
+        if (j < G && s0 + j < ntr) {
+          const T* fa = sftr + (2 * j) * nthreads;
+          const T* fb = fa + nthreads;
+          T wk = T(0);
+          for (int e = 0; e < p; ++e)
+            wk += Sd[ia * p + e] * fa[(ea0 + e) * TB + tx] +
+                  Sd[ib * p + e] * fb[ty * TB + eb0 + e];
+          const long long ot = ((long long)(s0 + j) * nz + k) * level + col;
+          g.otr[ot] = tv[j] + g.dt_s * (wk / jac);
+        }
+    };
     if (active) {
       const T* r = tab + k * NCOLS;
+      if constexpr (TR) load_tracers(0);
       u = g.u[o];
       v = g.v[o];
       rt = g.rt[o];
@@ -244,7 +320,8 @@ __global__ void fused_stage_kernel(const StageArgs<T> g) {
       con_ua = c2aa * u + c2ab * v + caxi * w_n;
       con_ub = c2ba * u + c2bb * v + cbxi * w_n;
       con_ux = caxi * u + cbxi * v + cxixi * w_n;
-      const T base_a = jac * con_ua, base_b = jac * con_ub;
+      base_a = jac * con_ua;
+      base_b = jac * con_ub;
       sv[tid] = v;
       su[tid] = u;
       swn[tid] = w_n;
@@ -254,9 +331,11 @@ __global__ void fused_stage_kernel(const StageArgs<T> g) {
       sfbr[tid] = base_b * rho;
       sfat[tid] = base_a * rt;
       sfbt[tid] = base_b * rt;
+      if constexpr (TR) fill_tracers(0);
     }
     __syncthreads();
     if (active) {
+      if constexpr (TR) load_bases(0);
       T dv_da = T(0), dwn_da = T(0), dke_a = T(0), dpi_a = T(0);
       T du_db = T(0), dwn_db = T(0), dke_b = T(0), dpi_b = T(0);
       T wk_rho = T(0), wk_rt = T(0);
@@ -296,6 +375,19 @@ __global__ void fused_stage_kernel(const StageArgs<T> g) {
         g.out[f][o] = base + g.dt_s * tend[f];
       }
       g.out[4][o] = ucz_x;
+      if constexpr (TR) store_tracers(0);
+    }
+    if constexpr (TR) {
+      for (int s0 = G; s0 < ntr; s0 += G) {  // G >= 1 wherever ntr >= 1
+        if (active) load_tracers(s0);
+        __syncthreads();
+        if (active) {
+          fill_tracers(s0);
+          load_bases(s0);
+        }
+        __syncthreads();
+        if (active) store_tracers(s0);
+      }
     }
     __syncthreads();
   }
@@ -303,8 +395,9 @@ __global__ void fused_stage_kernel(const StageArgs<T> g) {
 
 // ptrs: u v rt rho w | base1 U V Rt Rho | base2 U V Rt Rho (null: single) |
 // m2d | caxi cbxi cxixi jac dra drb caxii cbxii cxixii (null: separable) |
-// tab | out U V Rt Rho ucz_x.  scal: dt_s cb1 cb2 Cp Rd/(Cp-Rd) Rd/P0 g.
-// ints: nz P A B p use_sep has_pen.
+// tab | out U V Rt Rho ucz_x | tracers: eval, base1, base2 (null: single),
+// out (all null without tracers).  scal: dt_s cb1 cb2 Cp Rd/(Cp-Rd) Rd/P0 g.
+// ints: nz P A B p use_sep has_pen ntr.
 // Returns cudaGetLastError(), -1 for shapes the kernel does not take, -2 if
 // the table and tiles exceed the default shared-memory limit.
 template <typename T>
@@ -332,6 +425,10 @@ int launch_stage(const void* const* ptrs, const double* scal, const int* ints,
   g.cxixii = (const T*)ptrs[22];
   g.tab = (const T*)ptrs[23];
   for (int f = 0; f < 5; ++f) g.out[f] = (T*)ptrs[24 + f];
+  g.tr = (const T*)ptrs[29];
+  g.btr1 = (const T*)ptrs[30];
+  g.btr2 = (const T*)ptrs[31];
+  g.otr = (T*)ptrs[32];
   g.dt_s = (T)scal[0];
   g.cb1 = (T)scal[1];
   g.cb2 = (T)scal[2];
@@ -346,23 +443,35 @@ int launch_stage(const void* const* ptrs, const double* scal, const int* ints,
   g.p = ints[4];
   g.use_sep = ints[5];
   g.has_pen = ints[6];
+  g.ntr = ints[7];
   const int p = g.p;
   if (g.nz < 1 || g.P < 1 || p < 1 || p > 8 || g.A < p || g.B < p ||
-      g.A % p != 0 || g.B % p != 0)
+      g.A % p != 0 || g.B % p != 0 || g.ntr < 0 ||
+      (g.ntr > 0 && (!g.tr || !g.btr1 || !g.otr)) ||
+      ((g.btr2 != nullptr) != (g.ntr > 0 && g.b2[0] != nullptr)))
     return -1;
   // whole elements per tile: about STAGE_TILE_B nodes along b (one warp a
   // row at 32) and STAGE_TILE_A along a
   g.TB = std::min(g.B, std::max(1, STAGE_TILE_B / p) * p);
   g.TA = std::min(g.A, std::max(1, STAGE_TILE_A / p) * p);
   const int nthreads = g.TA * g.TB;
-  const size_t smem = sizeof(T) * ((size_t)(g.nz + 1) * NCOLS + 2 * p * p +
-                                   (size_t)NTILES * nthreads);
+  // as many species per group as asked for and as the default limit holds
+  const auto smem_for = [&](int G) {
+    return sizeof(T) * ((size_t)(g.nz + 1) * NCOLS + 2 * p * p +
+                        (size_t)(NTILES + 2 * G) * nthreads);
+  };
+  g.G = std::min(g.ntr, STAGE_SPECIES);
+  while (g.G > 1 && smem_for(g.G) > 48 * 1024) --g.G;
+  const size_t smem = smem_for(g.G);
   if (smem > 48 * 1024) return -2;
   const unsigned tiles = (unsigned)(((g.A + g.TA - 1) / g.TA) *
                                     ((g.B + g.TB - 1) / g.TB));
   const dim3 grid(tiles, (unsigned)g.P,
                   (unsigned)((g.nz + STAGE_LEVELS - 1) / STAGE_LEVELS));
-  fused_stage_kernel<T><<<grid, nthreads, smem, (cudaStream_t)stream>>>(g);
+  if (g.ntr > 0)
+    fused_stage_kernel<T, true><<<grid, nthreads, smem, (cudaStream_t)stream>>>(g);
+  else
+    fused_stage_kernel<T, false><<<grid, nthreads, smem, (cudaStream_t)stream>>>(g);
   return (int)cudaGetLastError();
 }
 

@@ -5,7 +5,8 @@ per-field z-first tensors
 
     {U, V, Rt, Rho: (nz, 6, A, B), W: (nz+1, 6, A, B)}
 
-on the 6 cubed-sphere panels.  Execution shape:
+on the 6 cubed-sphere panels, optionally with ``Tracers``: all species as one
+flat species-major field ``(ntr * nz, 6, A, B)``.  Execution shape:
 
 - **vertical column operators** contract the LEADING level axis — clean
   ``(K, nz) @ (nz, 6*A*B)`` GEMMs, no layout churn;
@@ -26,12 +27,18 @@ on the 6 cubed-sphere panels.  Execution shape:
 
 - **the nu4 hyperdiffusion tail** as two hand-written kernels
   (``hyper_cuda``), one per Laplacian pass, around the full-state DSS; plain
-  tensor code on the unfused path.
+  tensor code on the unfused path;
+- **tracers** (``tracers``): advected inside the stage kernel on the mass
+  fluxes that carry Rho, DSSed as one flat field in one ``dss_scalar`` launch,
+  updated in the implicit half step by one hand-written
+  multi-right-hand-side banded kernel (``ops/cuda_banded``: one elimination
+  per column for all species); their Laplacian, the two positivity filters
+  and the assembly of the column systems are plain tensor code.
 
 ``make_fast_step`` chooses between the two paths by predicates on the
 configuration (``fused=False`` forces the unfused one) and runs eagerly;
-``make_fast_multistep`` replays K steps as one CUDA graph.  Tracers,
-Cartesian grids and the device-mesh engine are not ported yet.
+``make_fast_multistep`` replays K steps as one CUDA graph.  Cartesian grids
+and the device-mesh engine are not ported yet.
 """
 
 from .engine import (FastGeometry, build_fast_geometry, pack_state,

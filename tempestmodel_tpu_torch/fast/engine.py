@@ -5,6 +5,8 @@ on one device.  The execution shape is that package's:
 
   state dict {U,V,Rt,W,Rho} of (6, A, B, nz[+1])
     ->  fast state dict of (nz[+1], 6, A, B)   ("z-first")
+  optional Tracers (ntr, 6, A, B, nz)
+    ->  one flat species-major field (ntr*nz, 6, A, B)
 
 so that vertical column operators are clean leading-axis GEMMs and DSS is
 one hand-written kernel per field (``fast/dss_cuda``).  ``make_fast_step``
@@ -18,13 +20,18 @@ field, assembles the banded Jacobian in plain tensor code and ends in the
 hand-written banded kernel (``ops/cuda_banded``).  On the fused path the
 nu4 tail is two hand-written kernels (``fast/hyper_cuda``) around the
 full-state DSS; on the unfused path it is plain tensor code.
+With ``"Tracers"`` in the state, every species is advected inside the fused
+stage kernel (plain tensor code on the unfused path), DSSed as one flat field
+in one ``dss_scalar`` launch, and updated in the implicit half step by one
+multi-right-hand-side banded kernel (``fast/tracers``,
+``ops/cuda_banded.banded_solve_multi``).
 ``make_fast_step`` runs eagerly; ``make_fast_multistep`` captures K steps
 into one CUDA graph and replays it, which is this package's counterpart of
 K steps under one jit.
 
 Not ported yet (they wait in the roadmap, none is declared unnecessary):
-Cartesian grids and the (a, b)-swapped layout, tracers, the device-mesh
-engine and IMEX.
+Cartesian grids and the (a, b)-swapped layout, the device-mesh engine and
+IMEX.
 
 Where the JAX code writes ``x.at[i].set(v)``, this one writes in place on
 a fresh tensor (a clone or a new result), never on an argument.
@@ -52,15 +59,31 @@ FIELDS = ("U", "V", "Rt", "Rho", "W")
 def pack_state(state, device=None):
     """Reference layout (6,A,B,nz[+1]) -> z-first (nz[+1],6,A,B), as
     contiguous tensors on ``device`` (default ``cuda``; raises when
-    absent).  Values may be tensors or numpy arrays; the dtype is kept."""
+    absent).  Values may be tensors or numpy arrays; the dtype is kept.
+
+    Tracers (ntr, 6, A, B, nz) become ONE flat species-major field
+    (ntr*nz, 6, A, B), so the per-stage DSS and updates are single
+    launches."""
     dev = resolve_device(device)
-    return {k: torch.as_tensor(state[k]).to(dev).movedim(-1, 0).contiguous()
-            for k in FIELDS}
+    out = {k: torch.as_tensor(state[k]).to(dev).movedim(-1, 0).contiguous()
+           for k in FIELDS}
+    if "Tracers" in state:
+        tr = torch.as_tensor(state["Tracers"]).to(dev)
+        ntr, P, A, B, nz = tr.shape
+        out["Tracers"] = tr.movedim(-1, 1).reshape(ntr * nz, P, A, B)
+    return out
 
 
 def unpack_state(d, nz: int = None):
     """Z-first fast state -> reference-layout state dict (same device)."""
-    return {k: d[k].movedim(0, -1).contiguous() for k in FIELDS}
+    out = {k: d[k].movedim(0, -1).contiguous() for k in FIELDS}
+    if "Tracers" in d:
+        t = d["Tracers"]
+        nzz = d["Rt"].shape[0]
+        out["Tracers"] = t.reshape((t.shape[0] // nzz, nzz)
+                                   + tuple(t.shape[1:])).movedim(1, -1) \
+            .contiguous()
+    return out
 
 
 def tree_map(f, *trees):
@@ -410,16 +433,24 @@ def apply_dss(d, fg: FastGeometry, rayleigh=None, plain: bool = False,
     assembled, bottom-bounded and DSSed inside the (U, V) launch
     (``dss_cuda.dss_uvw``): three launches, or two with ``"scalar2"``.
 
+    ``"Tracers"`` in ``d``: all species as one flat field through one more
+    ``dss_cuda.dss_scalar`` launch, whatever ``merge`` and ``w_finish`` say;
+    tracers are never Rayleigh-damped.
+
     ``plain=True`` runs the kernels' plain PyTorch versions whatever the
     device: it exists so that a run can hold the kernel path against the
     plain path on the card.  The default launches the kernels for CUDA
     tensors (or raises) and runs the plain versions for CPU tensors."""
     common = (fg.inv_mult, fg.dss_links, fg.p)
     kw = {} if plain else {"wrap": fg.wrap, "table": fg.dss_table}
+    scalar = dss_cuda.dss_scalar_plain if plain else dss_cuda.dss_scalar
     if w_finish is None and "state" in merge:
         fn = dss_cuda.dss_state_plain if plain else dss_cuda.dss_state
-        return fn(d, fg.inv_mult, fg.e_rot, fg.dss_links, fg.p,
-                  rayleigh=rayleigh, **kw)
+        out = fn(d, fg.inv_mult, fg.e_rot, fg.dss_links, fg.p,
+                 rayleigh=rayleigh, **kw)
+        if "Tracers" in d:
+            out["Tracers"] = scalar(d["Tracers"], *common, **kw)
+        return out
     if w_finish is not None:
         fn = dss_cuda.dss_uvw_plain if plain else dss_cuda.dss_uvw
         u, v, w = fn(d["U"], d["V"], fg.inv_mult, fg.e_rot, fg.dss_links,
@@ -429,17 +460,17 @@ def apply_dss(d, fg: FastGeometry, rayleigh=None, plain: bool = False,
         fn = dss_cuda.dss_vector_plain if plain else dss_cuda.dss_vector
         u, v = fn(d["U"], d["V"], fg.inv_mult, fg.e_rot, fg.dss_links, fg.p,
                   **kw)
-        fn = dss_cuda.dss_scalar_plain if plain else dss_cuda.dss_scalar
-        out = {"U": u, "V": v, "W": fn(d["W"], *common, **kw)}
+        out = {"U": u, "V": v, "W": scalar(d["W"], *common, **kw)}
     if "scalar2" in merge:
         fn = dss_cuda.dss_scalar2_plain if plain else dss_cuda.dss_scalar2
         out["Rt"], out["Rho"] = fn(d["Rt"], d["Rho"], *common, **kw)
     else:
-        fn = dss_cuda.dss_scalar_plain if plain else dss_cuda.dss_scalar
         for k in ("Rt", "Rho"):
-            out[k] = fn(d[k], *common, **kw)
+            out[k] = scalar(d[k], *common, **kw)
     if rayleigh is not None:
         out = apply_rayleigh(out, *rayleigh)
+    if "Tracers" in d:
+        out["Tracers"] = scalar(d["Tracers"], *common, **kw)
     return out
 
 
@@ -586,13 +617,28 @@ def step_after_subcycle(d, dt, cfg: ModelConfig, fg: FastGeometry,
     finish.  ``use_fused_hyper``: run each nu4 Laplacian pass as one kernel
     (``fast/hyper_cuda``; the caller must check ``hyper_cuda.supported``).
     ``hyper_fns``: ``(pass1(d), pass2(d, work, nu_s, nu_d, nu_v, dt))`` bound
-    to the geometry; ``hyper_cuda``'s wrappers when absent."""
+    to the geometry; ``hyper_cuda``'s wrappers when absent.
+
+    Tracers (when the state has them) take the scalar viscosity through
+    ``tracers.scalar_laplacian_tr`` in plain tensor code beside the kernels,
+    and the per-element positivity filter before the last DSS (also when
+    there is no hyperdiffusion at all)."""
+    from . import tracers as ftr
     if dss_fn is None:
         dss_fn = lambda ds, rayleigh=None: apply_dss(ds, fg, rayleigh)
+    has_tr = "Tracers" in d
+
+    def finish(ds):
+        # order: tracer positivity filter -> DSS -> Rayleigh
+        if has_tr:
+            ds = dict(ds, Tracers=ftr.filter_horizontal(ds["Tracers"], fg))
+        return dss_fn(ds, rayleigh=rayleigh)
 
     if not cfg.hyperdiffusion or (
             cfg.nu_scalar == 0 and cfg.nu_div == 0 and cfg.nu_vort == 0):
         out = d
+        if has_tr:
+            out = dict(out, Tracers=ftr.filter_horizontal(out["Tracers"], fg))
         if rayleigh is not None:
             out = dict(out, **apply_rayleigh(
                 {k: out[k] for k in FIELDS}, *rayleigh))
@@ -617,7 +663,10 @@ def step_after_subcycle(d, dt, cfg: ModelConfig, fg: FastGeometry,
             "W": d["W"] + dt * nu_s * scalar_laplacian(
                 d["W"], fg.jac3d_int, fg),
         }
-        return dss_fn(out, rayleigh=rayleigh)
+        if has_tr:
+            out["Tracers"] = d["Tracers"] + dt * nu_s * \
+                ftr.scalar_laplacian_tr(d["Tracers"], fg)
+        return finish(out)
 
     # order 4: Lap pass -> DSS -> -dt * nu_local * Lap pass -> DSS
     if use_fused_hyper:
@@ -627,9 +676,15 @@ def step_after_subcycle(d, dt, cfg: ModelConfig, fg: FastGeometry,
                 lambda x: hyper_cuda.nu4_pass1(x, fg),
                 lambda x, w, *nu_dt: hyper_cuda.nu4_pass2(x, w, *nu_dt, fg))
         pass1, pass2 = hyper_fns
-        work = dss_fn(pass1(d))
+        work = pass1(d)
+        if has_tr:
+            work["Tracers"] = ftr.scalar_laplacian_tr(d["Tracers"], fg)
+        work = dss_fn(work)
         out = pass2(d, work, nu_s, nu_d, nu_v, dt)
-        return dss_fn(out, rayleigh=rayleigh)
+        if has_tr:
+            out["Tracers"] = d["Tracers"] - dt * nu_s * \
+                ftr.scalar_laplacian_tr(work["Tracers"], fg)
+        return finish(out)
 
     wu, wv = vector_hyperdiff_update(d["U"], d["V"], 1.0, 1.0, fg)
     work = {
@@ -638,6 +693,8 @@ def step_after_subcycle(d, dt, cfg: ModelConfig, fg: FastGeometry,
         "Rho": scalar_laplacian(d["Rho"], fg.jac3d, fg),
         "W": scalar_laplacian(d["W"], fg.jac3d_int, fg),
     }
+    if has_tr:
+        work["Tracers"] = ftr.scalar_laplacian_tr(d["Tracers"], fg)
     work = dss_fn(work)
 
     du, dv = vector_hyperdiff_update(work["U"], work["V"], nu_d, nu_v, fg)
@@ -650,7 +707,10 @@ def step_after_subcycle(d, dt, cfg: ModelConfig, fg: FastGeometry,
         "W": d["W"] - dt * nu_s * scalar_laplacian(
             work["W"], fg.jac3d_int, fg),
     }
-    return dss_fn(out, rayleigh=rayleigh)
+    if has_tr:
+        out["Tracers"] = d["Tracers"] - dt * nu_s * \
+            ftr.scalar_laplacian_tr(work["Tracers"], fg)
+    return finish(out)
 
 
 # ---------------------------------------------------------------------------
@@ -660,12 +720,12 @@ def step_after_subcycle(d, dt, cfg: ModelConfig, fg: FastGeometry,
 def fast_engine_supported(cfg: ModelConfig, has_tracers: bool = False,
                           mesh=None, geom=None) -> bool:
     """The configurations this engine covers: the cubed sphere on one
-    device, LOR staggering, Strang-HEVI, no tracers.  (The JAX package's
-    engine also covers periodic Cartesian grids, tracers and a device
+    device, LOR staggering, Strang-HEVI, with or without tracers.  (The JAX
+    package's engine also covers periodic Cartesian grids and a device
     mesh; those wait in the roadmap.)"""
     from ..config import TimestepSchemeType
     return (cfg.grid_kind == GridKind.CUBED_SPHERE
-            and mesh is None and not has_tracers
+            and mesh is None
             and cfg.vertical_staggering == VerticalStaggering.LORENZ
             and cfg.timescheme == TimestepSchemeType.STRANG
             and not cfg.explicit_vertical
@@ -714,11 +774,14 @@ def _strang_fns(cfg: ModelConfig, fg: FastGeometry, rayleigh, dss_fn,
     as plain tensor code.  ``use_wfold``: hand the fused stage's W finish to
     ``dss_fn(..., w_finish=)``.  ``hyper_fns``: the two nu4 passes bound to
     the geometry (see ``step_after_subcycle``); None runs the tail as plain
-    tensor code.
+    tensor code.  Tracers are detected from the state: the fused stage
+    advects them in its launch, the plain stage through
+    ``tracers.horizontal_update``.
 
     Returns (first_fn, step_fn): first_fn(d) -> (d, carry),
     step_fn(d, carry) -> (d, carry).  Neither changes its arguments.
     """
+    from . import tracers as ftr
     constants = cfg.constants
     dt = cfg.dt
     oc = cfg.off_centering
@@ -743,6 +806,10 @@ def _strang_fns(cfg: ModelConfig, fg: FastGeometry, rayleigh, dss_fn,
         tend = horizontal_tendency(ueval, fg, constants)
         upd = axpy({k: bb[k] for k in FIELDS}, tend, dt_s)   # fresh tensors
         upd = apply_w_boundary(upd, fg)
+        if "Tracers" in ueval:
+            base_tr = (tuple((c, b["Tracers"]) for c, b in base)
+                       if isinstance(base, tuple) else base["Tracers"])
+            upd["Tracers"] = ftr.horizontal_update(base_tr, ueval, dt_s, fg)
         return dss_fn(upd)
 
     def erk(X0):
@@ -791,11 +858,12 @@ def _strang_fns(cfg: ModelConfig, fg: FastGeometry, rayleigh, dss_fn,
         u0 = implicit_fn(u1, 0.5 * (1.0 + oc) * dt)
         if oc != 0.0:
             u0 = comb((0.5 * (2.0 - oc), u0), (0.5 * oc, u1))
-        # the LOR implicit solve only updates (Rt, W, Rho); U and V pass
-        # through unchanged, so the Strang carryover is identically zero
-        # there — carry only the updated fields (the reference carries 5
-        # instance buffers; two are provably no-ops)
-        carry = {k: u0[k] - u1[k] for k in ("Rt", "W", "Rho")}
+        # the LOR implicit solve only updates (Rt, W, Rho) [+ Tracers]; U
+        # and V pass through unchanged, so the Strang carryover is
+        # identically zero there — carry only the updated fields (the
+        # reference carries 5 instance buffers; two are provably no-ops)
+        ck = ("Rt", "W", "Rho") + (("Tracers",) if "Tracers" in u0 else ())
+        carry = {k: u0[k] - u1[k] for k in ck}
         return u0, carry
 
     def first_fn(d):
@@ -805,6 +873,8 @@ def _strang_fns(cfg: ModelConfig, fg: FastGeometry, rayleigh, dss_fn,
         X0 = dict(d)
         for k in carry:
             X0[k] = d[k] + carry[k]
+        if "Tracers" in X0:
+            X0["Tracers"] = ftr.filter_column(X0["Tracers"], fg)
         return tail(X0)
 
     return first_fn, step_fn
@@ -817,7 +887,9 @@ def make_fast_step(cfg: ModelConfig, geom: CubedSphereGeometry,
     """(first_step, step) on the fast state: step(d, carry) -> (d, carry).
 
     The state tensors must lie on ``device`` (default ``cuda``; raises when
-    absent).  The step runs eagerly.
+    absent).  The step runs eagerly.  Tracers are detected from the state
+    (``"Tracers"`` in the dict, as ``pack_state`` lays them out); ``ntracers``
+    is accepted for the JAX package's signature and not read.
 
     ``fused=None`` chooses the path by predicates on the configuration, as
     the JAX package does: the fused stage kernel where
@@ -841,10 +913,10 @@ def make_fast_step(cfg: ModelConfig, geom: CubedSphereGeometry,
     """
     from . import implicit as fimp
     from . import hyper_cuda, implicit_cuda, stage_cuda
+    from . import tracers as ftr
 
-    if mesh is not None or ntracers:
-        raise NotImplementedError(
-            "the device-mesh engine and tracers are not ported yet")
+    if mesh is not None:
+        raise NotImplementedError("the device-mesh engine is not ported yet")
     if not fast_engine_supported(cfg):
         raise NotImplementedError(
             "configuration outside the z-first engine's envelope "
@@ -902,12 +974,20 @@ def make_fast_step(cfg: ModelConfig, geom: CubedSphereGeometry,
         hyper_fns = (lambda x: pass1(x, fg, hst),
                      lambda x, w, *nu_dt: pass2(x, w, *nu_dt, fg, hst))
 
+    tr_statics = ftr.tracer_statics(fg)
+
     def implicit_fn(d, dti):
-        return fimp.vertical_implicit(
+        out = fimp.vertical_implicit(
             d, fg, constants, dti, q, statics,
             newton_iters=cfg.newton_iterations, use_pallas=use_pallas,
             ref_jacobian=(cfg.jacobian_mode == "reference"), saux=saux,
             plain=plain, ist=ist)
+        if "Tracers" in d:
+            tr = ftr.update_column_tracers(
+                d, out["W"], fg, dti, statics=tr_statics,
+                plain=plain or not use_pallas)
+            out = dict(out, Tracers=ftr.filter_column(tr, fg))
+        return out
 
     return _strang_fns(
         cfg, fg, rayleigh,

@@ -8,7 +8,10 @@ velocity and the penalty upwinding), the element-local horizontal
 derivatives, the vector-invariant momentum, Exner-gradient and buoyancy
 tendencies, the weak-form Rt/Rho flux divergences, the two-term RK base
 combination and the axpy; it writes the updated U, V, Rt, Rho and the
-vertical curl term ``ucz_x``.  W follows outside the kernel: ``dW =
+vertical curl term ``ucz_x``.  With ``"Tracers"`` in the evaluation state the
+same launch advects every species on the mass fluxes that carry Rho (the
+flat species-major field ``(ntr * nz, P, A, B)``, its base combined like the
+others').  W follows outside the kernel: ``dW =
 interp_n2i @ ucz_x`` is one matrix product, and the W finish is either
 applied here (``defer_w=False``) or handed to ``dss_cuda.dss_uvw``
 (``defer_w=True``), which folds it into the (U, V, W) DSS.
@@ -18,8 +21,8 @@ there for its design and its bound on the card.  ``fused_stage`` launches it
 for CUDA tensors — or raises — and runs ``fused_stage_plain`` only for
 tensors that lie on the CPU.
 
-Not ported yet: the tracer branch and the xz-slice switches (``xz_zero``);
-the wrapper raises ``NotImplementedError`` for them.
+Not ported yet: the xz-slice switches (``xz_zero``); ``stage_supported`` is
+false for them and ``stage_statics`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ import torch
 from .._device import np_dtype
 from ..kernels import build, stencils
 from ..kernels.counts import launch_counts
-from . import dss_cuda
+from . import dss_cuda, tracers
 from .engine import FastGeometry, colop, horizontal_tendency
 
 MAX_P = 8        # nodes per element edge the kernel's tiles are sized for
@@ -173,6 +176,14 @@ def _w_finish(two_base, cb1, base1, cb2, base2, dt_s, dW, fg, c00, c01):
             "cxx0": fg.con_xi_xi_int[0], "c00": c00, "c01": c01}
 
 
+def _base_tracers(two_base, base1, base2, ueval):
+    """(btr1, btr2) as the kernel and the plain version read them: a base
+    without tracers stands for the evaluation state's; btr2 is None for a
+    single base."""
+    btr1 = base1.get("Tracers", ueval["Tracers"])
+    return btr1, (base2.get("Tracers", btr1) if two_base else None)
+
+
 def _finish(out, wf, defer_w):
     if defer_w:
         return out, wf
@@ -183,13 +194,19 @@ def _finish(out, wf, defer_w):
 def fused_stage_plain(base, ueval, dt_s, fg: FastGeometry, constants,
                       defer_w: bool = False):
     """Plain PyTorch version of ``fused_stage`` (same arguments and
-    results): ``horizontal_tendency``, the base combination and the axpy."""
+    results): ``horizontal_tendency``, the base combination and the axpy,
+    and ``tracers.horizontal_update`` where the evaluation state has
+    tracers."""
     two_base, cb1, base1, cb2, base2 = _split_base(base)
     tend = horizontal_tendency(ueval, fg, constants, mask_w=False)
     out = {}
     for k in STATE4:
         bb = cb1 * base1[k] + cb2 * base2[k] if two_base else base1[k]
         out[k] = bb + dt_s * tend[k]
+    if "Tracers" in ueval:
+        btr1, btr2 = _base_tracers(two_base, base1, base2, ueval)
+        out["Tracers"] = tracers.horizontal_update(
+            ((cb1, btr1), (cb2, btr2)) if two_base else btr1, ueval, dt_s, fg)
     In0 = fg.interp_n2i[0]
     wf = _w_finish(two_base, cb1, base1, cb2, base2, dt_s, tend["W"], fg,
                    float(In0[0]), float(In0[1]))
@@ -208,19 +225,31 @@ def _check_state(name, d, keys, ref, nz):
                 f"tensor of the state's dtype and device")
 
 
+def _check_tracers(name, f, ref, nz, rows=None):
+    if f.dim() != 4 or f.shape[0] == 0 or f.shape[0] % nz != 0 \
+            or (rows is not None and f.shape[0] != rows) \
+            or tuple(f.shape[1:]) != tuple(ref.shape[1:]) \
+            or f.dtype != ref.dtype or f.device != ref.device \
+            or not f.is_contiguous():
+        raise ValueError(
+            f"{name}['Tracers'] must be a contiguous (ntr * {nz}, P, A, B) "
+            f"tensor of the state's dtype and device, got "
+            f"{tuple(f.shape)}")
+
+
 def fused_stage(base, ueval, dt_s, fg: FastGeometry, constants,
                 defer_w: bool = False, statics: StageStatics = None):
     """One RK stage update ``base + dt_s * tendency(ueval)``; one kernel
     launch, then one matrix product for dW.
 
     ``base``: a state dict, or ``((c1, d1), (c2, d2))`` — a two-term RK
-    combination evaluated inside the kernel for U, V, Rt, Rho.  Returns the
-    pre-DSS state dict with the W boundary applied, or with ``defer_w`` the
-    pair ``({U, V, Rt, Rho}, w_finish)`` for ``dss_cuda.dss_uvw``.
+    combination evaluated inside the kernel for U, V, Rt, Rho and the
+    tracers.  Returns the pre-DSS state dict with the W boundary applied, or
+    with ``defer_w`` the pair ``({U, V, Rt, Rho}, w_finish)`` for
+    ``dss_cuda.dss_uvw``.  With ``"Tracers"`` in ``ueval`` (flat,
+    ``(ntr * nz, P, A, B)``) the result has the advected tracers too; a base
+    without ``"Tracers"`` stands for the evaluation state's.
     ``statics``: ``stage_statics(fg)`` (built on the fly when absent)."""
-    if "Tracers" in ueval:
-        raise NotImplementedError("the tracer branch of the fused stage is "
-                                  "not ported yet")
     two_base, cb1, base1, cb2, base2 = _split_base(base)
     u = ueval["U"]
     if u.dim() != 4 or u.dtype not in (torch.float32, torch.float64):
@@ -235,6 +264,11 @@ def fused_stage(base, ueval, dt_s, fg: FastGeometry, constants,
     _check_state("base", base1, STATE4 + ("W",), u, nz)
     if two_base:
         _check_state("base", base2, STATE4 + ("W",), u, nz)
+    if "Tracers" in ueval:
+        _check_tracers("ueval", ueval["Tracers"], u, nz)
+        for b in _base_tracers(two_base, base1, base2, ueval):
+            if b is not None:
+                _check_tracers("base", b, u, nz, ueval["Tracers"].shape[0])
     if fg.inv_mult.dtype != u.dtype or fg.inv_mult.device != u.device:
         raise ValueError("geometry and state differ in dtype or device")
     if u.device.type == "cpu":
@@ -246,6 +280,8 @@ def fused_stage(base, ueval, dt_s, fg: FastGeometry, constants,
     outs = _fused_stage_cuda(two_base, cb1, base1, cb2, base2, ueval, dt_s,
                              fg, constants, statics)
     out = dict(zip(STATE4, outs[:4]))
+    if "Tracers" in ueval:
+        out["Tracers"] = outs[5]
     dW = colop(fg.interp_n2i, outs[4])
     wf = _w_finish(two_base, cb1, base1, cb2, base2, dt_s, dW, fg,
                    statics.c00, statics.c01)
@@ -254,7 +290,8 @@ def fused_stage(base, ueval, dt_s, fg: FastGeometry, constants,
 
 def _fused_stage_cuda(two_base, cb1, base1, cb2, base2, ueval, dt_s, fg,
                       constants, st: StageStatics):
-    """Launch the kernel; returns [U, V, Rt, Rho, ucz_x]."""
+    """Launch the kernel; returns [U, V, Rt, Rho, ucz_x] and, where the
+    evaluation state has tracers, the advected tracers."""
     u = ueval["U"]
     nz, P, A, B = u.shape
     c = constants
@@ -267,19 +304,26 @@ def _fused_stage_cuda(two_base, cb1, base1, cb2, base2, ueval, dt_s, fg,
     lib = build.library("stage")
     fn = lib.fused_stage_f32 if u.dtype == torch.float32 \
         else lib.fused_stage_f64
+    tr = ueval.get("Tracers")
+    ntr = 0 if tr is None else tr.shape[0] // nz
     with torch.cuda.device(u.device):
         outs = [torch.empty_like(u) for _ in range(5)]
+        trs = [None] * 4
+        if ntr:
+            outs.append(torch.empty_like(tr))
+            trs = [tr, *_base_tracers(two_base, base1, base2, ueval),
+                   outs[5]]
         tensors = ([ueval[k] for k in STATE4 + ("W",)]
                    + [base1[k] for k in STATE4]
                    + [base2[k] if two_base else None for k in STATE4]
-                   + [st.m2d] + full3d + [st.tab] + outs)
+                   + [st.m2d] + full3d + [st.tab] + outs[:5] + trs)
         ptrs = (ctypes.c_void_p * len(tensors))(
             *[None if t is None else t.data_ptr() for t in tensors])
         scal = (ctypes.c_double * 7)(
             float(dt_s), float(cb1), float(cb2), float(c.Cp),
             float(c.Rd / (c.Cp - c.Rd)), float(c.Rd / c.P0), float(c.g))
-        ints = (ctypes.c_int * 7)(nz, P, A, B, fg.p, int(sep),
-                                  int(st.has_pen))
+        ints = (ctypes.c_int * 8)(nz, P, A, B, fg.p, int(sep),
+                                  int(st.has_pen), ntr)
         err = fn(ptrs, scal, ints, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_stage kernel launch failed "

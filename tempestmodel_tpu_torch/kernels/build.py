@@ -40,6 +40,7 @@ _DSS_SCALAR = [_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _PTR]
 _DSS_VECTOR = [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
                _INT, _INT, _INT, _INT, _INT, _INT, _PTR]
 _BANDED = [_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _I64, _INT, _PTR]
+_BANDED_MULTI = [_PTR, _PTR, _PTR, _PTR, _INT, _INT, _I64, _INT, _INT, _PTR]
 _DBL = ctypes.c_double
 _DSS_UVW = [_PTR] * 14 + [_DBL] * 5 + [_INT] * 6 + [_PTR]
 # the fused kernels take their many operands as host arrays: pointers,
@@ -56,6 +57,8 @@ SIGNATURES = {
             "dss_scalar2_f32": _DSS_SCALAR2, "dss_scalar2_f64": _DSS_SCALAR2,
             "dss_state_f32": _DSS_STATE, "dss_state_f64": _DSS_STATE},
     "banded": {"banded_solve_f32": _BANDED, "banded_solve_f64": _BANDED},
+    "banded_multi": {"banded_solve_multi_f32": _BANDED_MULTI,
+                     "banded_solve_multi_f64": _BANDED_MULTI},
     "stage": {"fused_stage_f32": _STAGE, "fused_stage_f64": _STAGE},
     "hyper": {"nu4_f32": _STAGE, "nu4_f64": _STAGE},
     "implicit": {"fused_implicit_f32": _IMPLICIT,

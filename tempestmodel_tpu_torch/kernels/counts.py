@@ -10,7 +10,7 @@ from __future__ import annotations
 launch_counts = {"dss_scalar": 0, "dss_vector": 0, "banded_solve": 0,
                  "dss_uvw": 0, "fused_stage": 0, "fused_implicit_update": 0,
                  "nu4_pass1": 0, "nu4_pass2": 0, "dss_state": 0,
-                 "dss_scalar2": 0}
+                 "dss_scalar2": 0, "banded_solve_multi": 0}
 
 
 def reset_launch_counts() -> None:

@@ -4,7 +4,10 @@ The flagship test case has flat terrain, so every terrain term of the metric
 vanishes and a kernel could drop one unnoticed.  ``terrain_like`` gives a
 geometry whose separable metric has all its terms, at magnitudes a real
 mountain would give; ``random_state`` a state with positive density and
-potential temperature.  Both are made with numpy from a seed, so the same
+potential temperature; ``random_tracers`` tracer species that tell a mix-up
+of species or levels and reach every branch of the positivity filters (two
+of the moist baroclinic wave's three species are all zeros, which would hide
+both).  All are made with numpy from a seed, so the same
 numbers can be handed to another implementation.  Used by ``chip_smoke.py``
 and the tests; nothing on the model's path imports this module.
 """
@@ -98,3 +101,32 @@ def random_state(fg, seed: int = 0):
     P, A, B = fg.inv_mult.shape
     return {k: torch.as_tensor(v, dtype=dtype, device=dev)
             for k, v in random_state_numpy(fg.nz, P, A, B, seed).items()}
+
+
+def random_tracers_numpy(nz: int, P: int, A: int, B: int, ntr: int = 3,
+                         p: int = 4, seed: int = 0):
+    """Seeded flat species-major tracer field ``(ntr * nz, P, A, B)`` (numpy
+    float64): species s of magnitude 1e-2 * 10^-s, positive with a tenth of
+    the values small and NEGATIVE (so that the positivity filters act), and
+    per species one whole column and one whole element (``p`` x ``p`` nodes
+    of one level) non-positive (the filters' zero-mass branch)."""
+    rng = np.random.default_rng(seed)
+    t = np.abs(rng.standard_normal((ntr, nz, P, A, B)))
+    t *= 1e-2 * 10.0 ** -np.arange(ntr).reshape(ntr, 1, 1, 1, 1)
+    t[rng.random(t.shape) < 0.1] *= -0.05
+    for s in range(ntr):
+        pn, a, b = rng.integers(P), rng.integers(A), rng.integers(B)
+        t[s, :, pn, a, b] = -np.abs(t[s, :, pn, a, b])
+        k, pn = rng.integers(nz), rng.integers(P)
+        ea, eb = p * rng.integers(A // p), p * rng.integers(B // p)
+        t[s, k, pn, ea:ea + p, eb:eb + p] = 0.0
+    return t.reshape(ntr * nz, P, A, B)
+
+
+def random_tracers(fg, ntr: int = 3, seed: int = 0):
+    """``random_tracers_numpy`` as a tensor on the device and in the dtype of
+    ``fg``."""
+    P, A, B = fg.inv_mult.shape
+    return torch.as_tensor(
+        random_tracers_numpy(fg.nz, P, A, B, ntr, fg.p, seed),
+        dtype=fg.inv_mult.dtype, device=fg.inv_mult.device)

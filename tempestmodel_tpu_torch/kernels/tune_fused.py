@@ -6,13 +6,16 @@ nvcc:
 
     python3 -m tempestmodel_tpu_torch.kernels.tune_fused
 
-Compiles ``csrc/dss.cu``, ``csrc/stage.cu`` and ``csrc/implicit.cu`` once per
-variant of their ``-D`` tunables into a temporary directory, swaps each
-variant in behind the wrappers, holds its result against the default build's,
-and prints the device time per launch of ``dss_uvw``, ``fused_stage`` (two
-bases) and ``fused_implicit_update`` at the flagship shapes (ne30 p4 L30),
-float32 and float64.  Times are taken as in ``chip_smoke.py``: launches
-queued behind a busy device; every launch reads more than the L2 holds.
+Compiles ``csrc/dss.cu``, ``csrc/stage.cu``, ``csrc/implicit.cu`` and
+``csrc/banded_multi.cu`` once per variant of their ``-D`` tunables into a
+temporary directory, swaps each variant in behind the wrappers, holds its
+result against the default build's, and prints the device time per launch of
+``dss_uvw``, ``fused_stage`` (two bases, without tracers and with three
+species), ``fused_implicit_update`` and ``banded_solve_multi`` (the moist
+wave's n 30, q 1, R 3; its register-window and its read-back form) at the
+flagship shapes (ne30 p4 L30), float32 and float64.  Times are taken as in
+``chip_smoke.py``: launches queued behind a busy device; every launch reads
+more than the L2 holds.
 """
 
 import ctypes
@@ -30,6 +33,7 @@ from tempestmodel_tpu_torch.fast import (dss_cuda, stage_cuda, implicit_cuda,
 from tempestmodel_tpu_torch.kernels import build, synthetic
 from tempestmodel_tpu_torch.kernels.timing import time_cuda
 from tempestmodel_tpu_torch.models import nh_model, nonhydro
+from tempestmodel_tpu_torch.ops import cuda_banded
 from tempestmodel_tpu_torch.testcases.nonhydro_sphere import (
     BaroclinicWaveUMJS)
 
@@ -42,11 +46,15 @@ VARIANTS = {
                       "STAGE_TILE_B": b}
                      for lv, a, b in ((6, 4, 32), (3, 8, 32), (10, 8, 32),
                                       (30, 8, 32), (6, 16, 32), (6, 8, 16),
-                                      (6, 4, 64), (3, 4, 32), (10, 4, 32))],
+                                      (6, 4, 64), (3, 4, 32), (10, 4, 32))]
+    + [{"STAGE_SPECIES": n} for n in (1, 2, 4)],
     "implicit": [{}] + [{"IMPLICIT_THREADS": t}
                         for t in (32, 64, 96, 160, 192, 256)],
+    "banded_multi": [{}] + [{"BANDED_MULTI_THREADS": t}
+                            for t in (32, 64, 256)],
 }
 NE, ORDER, NZ, DT = 30, 4, 30, 100.0
+NTR = 3
 
 
 def compile_variants(tmp, all_variants=None):
@@ -117,10 +125,32 @@ def sweep(cfg, geom, tc, dtype, sfx, dev, libs):
                                          device=dev), device=dev)
     x0, aux = fimp._prep_aux(d, fg, interfaces=False)
 
-    def run_stage():
-        out, wf = stage_cuda.fused_stage(two, ue, 12.5, fg, consts,
+    def run_stage(base=two, ueval=ue):
+        out, wf = stage_cuda.fused_stage(base, ueval, 12.5, fg, consts,
                                          defer_w=True, statics=sst)
-        return [out[k] for k in stage_cuda.STATE4] + [wf["dW"]]
+        return list(out.values()) + [wf["dW"]]
+
+    # the same stage with three seeded tracer species
+    ue_t, b1_t, b2_t = (dict(d, Tracers=synthetic.random_tracers(fg, NTR, s))
+                        for s, d in enumerate((ue, b1, b2), 7))
+    two_t = ((0.3, b1_t), (0.7, b2_t))
+
+    # the moist wave's tracer systems: two sets cycle through the L2
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ncol = 6 * fg.A * fg.B
+    systems = []
+    for _ in range(2):
+        bands = torch.randn((NZ, 3, ncol), dtype=dtype, device=dev,
+                            generator=gen)
+        bands[:, 1] += 12.0
+        bands[0, 0] = 0.0
+        bands[-1, 2] = 0.0
+        systems.append((bands, torch.randn((NZ, NTR, ncol), dtype=dtype,
+                                           device=dev, generator=gen)))
+
+    def run_multi(window):
+        return lambda b=systems[0][0], r=systems[0][1]: [
+            cuda_banded._banded_solve_multi_cuda(b, r, 1, window=window)]
 
     upd, wf = stage_cuda.fused_stage(two, ue, 12.5, fg, consts, defer_w=True,
                                      statics=sst)
@@ -133,27 +163,48 @@ def sweep(cfg, geom, tc, dtype, sfx, dev, libs):
         return implicit_cuda.fused_implicit_update(x0, x0, aux, ist,
                                                    0.5 * DT, consts)
 
-    # (timed function, repetitions): the stage is timed without the dW
-    # product that follows the kernel in the wrapper
+    # name -> (source stem, checked function, timed function, its argument
+    # sets, repetitions): the stage is timed without the dW product that
+    # follows the kernel in the wrapper
     tb, c1, s1, c2, s2 = stage_cuda._split_base(two)
+    _, _, t1, _, t2 = stage_cuda._split_base(two_t)
     kernels = {
-        "dss": ("dss_uvw", run_uvw, run_uvw, 40),
-        "stage": ("fused_stage", run_stage,
-                  lambda: stage_cuda._fused_stage_cuda(
-                      tb, c1, s1, c2, s2, ue, 12.5, fg, consts, sst), 20),
-        "implicit": ("fused_implicit_update", run_implicit, run_implicit, 10),
+        "dss_uvw": ("dss", run_uvw, run_uvw, [()], 40),
+        "fused_stage": ("stage", run_stage,
+                        lambda: stage_cuda._fused_stage_cuda(
+                            tb, c1, s1, c2, s2, ue, 12.5, fg, consts, sst),
+                        [()], 20),
+        f"fused_stage+{NTR}tracers": (
+            "stage", lambda: run_stage(two_t, ue_t),
+            lambda: stage_cuda._fused_stage_cuda(
+                tb, c1, t1, c2, t2, ue_t, 12.5, fg, consts, sst), [()], 20),
+        "fused_implicit_update": ("implicit", run_implicit, run_implicit,
+                                  [()], 10),
+        "banded_solve_multi": ("banded_multi", run_multi(True),
+                               run_multi(True), systems, 20),
+        "banded_solve_multi(read-back form)": (
+            "banded_multi", run_multi(False), run_multi(False), systems, 20),
     }
     default = dict(build._libs)
-    want = {stem: k[1]() for stem, k in kernels.items()}
+    want = {name: k[1]() for name, k in kernels.items()}
     torch.cuda.synchronize()
     try:
         for stem, flags, path in libs:
-            name, check, timed, reps = kernels[stem]
             build._libs[stem] = load(stem, path)
-            err = rel_err(check(), want[stem])
-            ms = time_cuda(timed, [()], reps, queued=True)
-            print(f"{sfx} {name} {flags or 'default'}: {ms:.4f} ms  "
-                  f"rel err vs default build {err:.1e}", flush=True)
+            for name, (kstem, check, timed, sets, reps) in kernels.items():
+                if kstem != stem:
+                    continue
+                try:
+                    err = rel_err(check(), want[name])
+                except RuntimeError as exc:
+                    # a variant whose tiles exceed the shared-memory limit
+                    # at this dtype is refused at the launch: say so, go on
+                    print(f"{sfx} {name} {flags}: does not launch ({exc})",
+                          flush=True)
+                    continue
+                ms = time_cuda(timed, sets, reps, queued=True)
+                print(f"{sfx} {name} {flags or 'default'}: {ms:.4f} ms  "
+                      f"rel err vs default build {err:.1e}", flush=True)
             build._libs[stem] = default[stem]
     finally:
         build._libs.update(default)

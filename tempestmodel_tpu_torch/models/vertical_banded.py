@@ -103,3 +103,46 @@ def banded_solve_t(bands, rhs, q: int):
         X[i] = acc / U[i, 0]
         x_next = [X[i]] + x_next[:-1]
     return X
+
+
+def banded_solve_multi_t(bands, rhs, q: int):
+    """Shared-matrix multi-RHS banded solve: ``bands`` (n, 2q+1, ncol),
+    ``rhs`` (n, R, ncol) -> (n, R, ncol).  One elimination per column, R
+    substitutions (the tracer update: every species of a column shares one
+    band matrix).  The plain version of the kernel behind
+    ``ops/cuda_banded.banded_solve_multi``; same layout contract as
+    ``banded_solve_t``."""
+    n, b, ncol = bands.shape
+    if b != 2 * q + 1 or rhs.dim() != 3 or rhs.shape[0] != n \
+            or rhs.shape[2] != ncol:
+        raise ValueError(f"bands {tuple(bands.shape)} / rhs "
+                         f"{tuple(rhs.shape)} do not match q={q}")
+    R = rhs.shape[1]
+    ident = bands.new_zeros((q + 1, ncol))
+    ident[0] = 1.0
+    u_prev = [ident] * q
+    y_prev = [bands.new_zeros((R, ncol))] * q
+
+    U = bands.new_empty((n, q + 1, ncol))
+    Y = bands.new_empty((n, R, ncol))
+    for i in range(n):
+        w = bands[i].clone()                          # (2q+1, ncol)
+        y_i = rhs[i]                                  # (R, ncol)
+        for t in range(q):
+            f = w[t] / u_prev[t][0]
+            w[t + 1:t + q + 1] -= f[None, :] * u_prev[t][1:]   # in place
+            y_i = y_i - f[None, :] * y_prev[t]
+        U[i] = w[q:]
+        Y[i] = y_i
+        u_prev = u_prev[1:] + [U[i]]
+        y_prev = y_prev[1:] + [Y[i]]
+
+    X = bands.new_empty((n, R, ncol))
+    x_next = [bands.new_zeros((R, ncol))] * q
+    for i in range(n - 1, -1, -1):
+        acc = Y[i]
+        for d in range(q):
+            acc = acc - U[i, d + 1][None, :] * x_next[d]
+        X[i] = acc / U[i, 0][None, :]
+        x_next = [X[i]] + x_next[:-1]
+    return X

@@ -40,6 +40,29 @@ def test_dss_scalar_plain_matches_pallas(setup, field):
                                atol=1e-13)
 
 
+def test_dss_scalar_takes_a_flat_tracer_field(setup):
+    """All species as one field of K = ntr * nz rows (more rows than the
+    state has levels): the JAX kernel on the same flat field, and one DSS
+    per species."""
+    jfg, tfg, d = setup
+    ntr, nz = 3, tfg.nz
+    flat = np.random.default_rng(3).standard_normal((ntr * nz, 6, tfg.A,
+                                                     tfg.A))
+    want = dss_pallas.dss_scalar(jnp.asarray(flat), jfg.inv_mult,
+                                 jfg.dss_links, jfg.p, interpret=True)
+    t = torch.from_numpy(flat)
+    before = dict(launch_counts)
+    got = dss_cuda.dss_scalar(t, tfg.inv_mult, tfg.dss_links, tfg.p,
+                              table=tfg.dss_table)
+    assert dict(launch_counts) == before          # CPU tensors: no launch
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-13)
+    for s in range(ntr):
+        one = dss_cuda.dss_scalar_plain(t[s * nz:(s + 1) * nz], tfg.inv_mult,
+                                        tfg.dss_links, tfg.p)
+        assert torch.equal(got[s * nz:(s + 1) * nz], one), s
+
+
 def test_dss_vector_plain_matches_pallas(setup):
     jfg, tfg, d = setup
     wu, wv = dss_pallas.dss_vector(jnp.asarray(d["U"]), jnp.asarray(d["V"]),

@@ -118,7 +118,8 @@ def test_fast_engine_supported_predicate(pair):
     assert not t_engine.fast_engine_supported(
         tcfg.with_(grid_kind=tt.GridKind.CARTESIAN_XZ))
     assert not t_engine.fast_engine_supported(tcfg.with_(upwind_thermo=False))
-    assert not t_engine.fast_engine_supported(tcfg, has_tracers=True)
+    assert t_engine.fast_engine_supported(tcfg, has_tracers=True)
+    assert not t_engine.fast_engine_supported(tcfg, mesh=object())
 
 
 def _run_jax(jcfg, jgeom, js, nsteps):

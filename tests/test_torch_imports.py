@@ -25,7 +25,8 @@ def test_every_module_imports_without_jax():
     names = _module_names()
     assert len(names) > 15
     for new in ("fast.stage_cuda", "fast.implicit_cuda", "kernels.stencils",
-                "kernels.synthetic", "fast.hyper_cuda", "kernels.tune_tail"):
+                "kernels.synthetic", "fast.hyper_cuda", "kernels.tune_tail",
+                "fast.tracers", "testcases.dcmip2016"):
         assert f"tempestmodel_tpu_torch.{new}" in names
     code = (
         "import importlib, sys\n"

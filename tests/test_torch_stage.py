@@ -1,6 +1,7 @@
 """The port's fused explicit stage vs the JAX Pallas stage kernel (interpret
-mode) on the same seeded inputs, float64: the plain version, the host-side
-tables the CUDA kernel reads, the wrapper's checks; the kernel on a card."""
+mode) on the same seeded inputs, float64: the plain version (with and
+without tracers), the host-side tables the CUDA kernel reads, the wrapper's
+checks; the kernel on a card."""
 
 import dataclasses
 
@@ -10,7 +11,8 @@ import pytest
 import torch
 
 from tempestmodel_tpu.fast import engine as j_engine, stage_pallas
-from tempestmodel_tpu_torch.fast import engine as t_engine, stage_cuda
+from tempestmodel_tpu_torch.fast import (engine as t_engine, stage_cuda,
+                                         tracers as t_tracers)
 from tempestmodel_tpu_torch.kernels import stencils, synthetic
 from tempestmodel_tpu_torch.kernels.counts import launch_counts
 
@@ -74,6 +76,74 @@ def test_fused_stage_plain_defer_w_matches_pallas(setup, two):
             assert gwf[k] == pytest.approx(w, rel=1e-15), k
         else:
             assert rel_err(gwf[k].numpy(), w) < TOL, k
+
+
+@pytest.fixture(scope="module")
+def moist(setup):
+    """The three states of ``setup`` with three seeded tracer species each
+    (different sizes, a share of negative values), and a stage step so long
+    that the tracers' increment is as large as the tracers: at ``DT_S`` it is
+    a 1e-9th of them and a wrong tendency would pass unseen."""
+    s = setup
+    nz, A = s["tfg"].nz, s["tfg"].A
+    trs = [synthetic.random_tracers_numpy(nz, 6, A, A, 3, 4, seed)
+           for seed in (7, 8, 9)]
+    j = [dict(d, Tracers=jnp.asarray(t)) for d, t in zip(s["j"], trs)]
+    t = [dict(d, Tracers=torch.from_numpy(t.copy()))
+         for d, t in zip(s["t"], trs)]
+    tend = t_tracers.horizontal_update(torch.zeros_like(t[0]["Tracers"]),
+                                       t[0], 1.0, s["tfg"])
+    dt_big = float(t[0]["Tracers"].abs().max() / tend.abs().max())
+    assert dt_big > 1e3 * DT_S
+    return dict(s, j=j, t=t, dt_big=dt_big)
+
+
+def _species_err(got, want, nz):
+    want = np.asarray(want)
+    return max(rel_err(got.numpy()[i:i + nz], want[i:i + nz])
+               for i in range(0, want.shape[0], nz))
+
+
+@pytest.mark.parametrize("defer_w", [False, True], ids=["w_here", "defer_w"])
+@pytest.mark.parametrize("two", [False, True], ids=["one_base", "two_base"])
+def test_fused_stage_plain_with_tracers_matches_pallas(moist, two, defer_w):
+    """Every output of the stage with ``"Tracers"`` in the evaluation state
+    and in the bases, the tracers species by species."""
+    s = moist
+    jbase, jue = _bases(s, "j", two)
+    tbase, tue = _bases(s, "t", two)
+    for dt_s in (DT_S, s["dt_big"]):
+        want = stage_pallas.fused_stage(jbase, jue, dt_s, s["jfg"],
+                                        s["jcfg"].constants, interpret=True,
+                                        defer_w=defer_w)
+        got = stage_cuda.fused_stage_plain(tbase, tue, dt_s, s["tfg"],
+                                           s["tcfg"].constants,
+                                           defer_w=defer_w)
+        if defer_w:
+            (want, wwf), (got, gwf) = want, got
+            assert rel_err(gwf["dW"].numpy(), wwf["dW"]) < TOL
+        assert set(got) == set(want)
+        assert ("W" in got) == (not defer_w) and "Tracers" in got
+        for k in got:
+            assert got[k].is_contiguous(), k
+            assert rel_err(got[k].numpy(), want[k]) < TOL, k
+        assert _species_err(got["Tracers"], want["Tracers"],
+                            s["tfg"].nz) < TOL
+
+
+def test_a_base_without_tracers_stands_for_the_evaluation_states(moist):
+    s = moist
+    ue_j, ue_t = s["j"][0], s["t"][0]
+    b_j = {k: v for k, v in s["j"][1].items() if k != "Tracers"}
+    b_t = {k: v for k, v in s["t"][1].items() if k != "Tracers"}
+    want = stage_pallas.fused_stage(b_j, ue_j, s["dt_big"], s["jfg"],
+                                    s["jcfg"].constants, interpret=True)
+    got = stage_cuda.fused_stage(b_t, ue_t, s["dt_big"], s["tfg"],
+                                 s["tcfg"].constants)
+    assert rel_err(got["Tracers"].numpy(), want["Tracers"]) < TOL
+    same = stage_cuda.fused_stage(dict(b_t, Tracers=ue_t["Tracers"]), ue_t,
+                                  s["dt_big"], s["tfg"], s["tcfg"].constants)
+    assert torch.equal(got["Tracers"], same["Tracers"])
 
 
 def test_build_stage_diags_match(setup):
@@ -169,8 +239,16 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(setup, case):
     base, ue = _bases(s, "t", False)
     args = (DT_S, s["tfg"], s["tcfg"].constants)
     if case == "tracers":
-        with pytest.raises(NotImplementedError):
-            stage_cuda.fused_stage(base, dict(ue, Tracers=ue["Rho"]), *args)
+        # a flat tracer field has ntr * nz rows, and the bases' must match
+        with pytest.raises(ValueError):
+            stage_cuda.fused_stage(base, dict(ue, Tracers=ue["W"]), *args)
+        with pytest.raises(ValueError):
+            stage_cuda.fused_stage(
+                dict(base, Tracers=torch.cat([ue["Rho"], ue["Rho"]])),
+                dict(ue, Tracers=ue["Rho"]), *args)
+        with pytest.raises(ValueError):
+            stage_cuda.fused_stage(
+                base, dict(ue, Tracers=ue["Rho"].transpose(2, 3)), *args)
     elif case == "shape":
         with pytest.raises(ValueError):
             stage_cuda.fused_stage(base, dict(ue, W=ue["W"][:-1]), *args)
@@ -208,3 +286,41 @@ def test_cuda_kernel_matches_plain(setup, dtype, tol, sep):
         for k in STATE4:
             assert rel_err(got[k].cpu(), want[k].cpu()) < tol, k
         assert rel_err(gwf["dW"].cpu(), wwf["dW"].cpu()) < tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-11),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("ntr", [3, 6], ids=["one_group", "two_groups"])
+def test_cuda_kernel_with_tracers_matches_plain(setup, dtype, tol, ntr):
+    """The tracer branch of the kernel at a step that makes the increment as
+    large as the tracers, species by species; six species need a second
+    group of flux tiles."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no interpret mode")
+    from tempestmodel_tpu_torch import fast
+    from tempestmodel_tpu_torch.models import nh_model
+    tcfg = setup["tcfg"].with_(dtype=dtype)
+    geom = nh_model.build_nh_sphere_geometry(tcfg, ztop=tcfg.ztop)
+    fg = synthetic.terrain_like(
+        fast.build_fast_geometry(geom, dtype=dtype, device="cuda"), seed=4,
+        vary_jac=True)
+    ue, b1, b2 = (dict(synthetic.random_state(fg, seed),
+                       Tracers=synthetic.random_tracers(fg, ntr, seed + 6))
+                  for seed in (1, 2, 3))
+    tend = t_tracers.horizontal_update(torch.zeros_like(ue["Tracers"]), ue,
+                                       1.0, fg)
+    dt_big = float(ue["Tracers"].abs().max() / tend.abs().max())
+    nz = fg.nz
+    for dt_s in (DT_S, dt_big):
+        for base in (b1, ((0.3, b1), (0.7, b2))):
+            got, _ = stage_cuda.fused_stage(base, ue, dt_s, fg,
+                                            tcfg.constants, defer_w=True)
+            torch.cuda.synchronize()
+            want, _ = stage_cuda.fused_stage_plain(
+                base, ue, dt_s, fg, tcfg.constants, defer_w=True)
+            for k in STATE4:
+                assert rel_err(got[k].cpu(), want[k].cpu()) < tol, k
+            for i in range(0, ntr * nz, nz):
+                assert rel_err(got["Tracers"][i:i + nz].cpu(),
+                               want["Tracers"][i:i + nz].cpu()) < tol, i
