@@ -15,12 +15,20 @@ and runs these phases, each printing one JSON line:
             the card at the flagship shapes, float32 and float64, with times
             (``fused_stage`` also with three seeded tracer species,
             ``dss_scalar`` also on their flat 90-row field,
-            ``banded_solve_multi`` at the moist wave's shapes);
+            ``banded_solve_multi`` at the moist wave's shapes); then what
+            periodic Cartesian grids reach: the five DSS kernels with the
+            wrap-sum at the Schar slice's shapes in both layouts and on a
+            128 x 128 plane, ``fused_stage`` with ``xz_zero`` on the Schar
+            slice (terrain: the full 3-D metric), ``fused_implicit_update`` at
+            its 1600 columns, ``nu4_pass1/2`` on the 3-D bubble's plane;
 4. slice    the Strang-HEVI step at small size in float64 on the card three
             ways — fused kernel path, unfused kernel path, plain path — each
             pair to 1e-11 relative per field, and ``make_fast_multistep``
             (one CUDA-graph replay of 3 steps) against 3 eager steps; all of
             it dry, and again with three seeded tracer species in the state;
+            then the Schar slice (nex 8, nz 8, both layouts) and the 3-D
+            bubble (nex 4, ney 2, nu4 on): kernel path against plain path,
+            graph replay against eager steps;
 5. flagship the main paths at full width: UMJS baroclinic wave, ne30 p4
             nz30 float32: ``make_fast_multistep`` (``first_step``, then
             replays of a 10-step CUDA graph), the eager fused path of
@@ -29,15 +37,20 @@ and runs these phases, each printing one JSON line:
             finite fields, launch counts, ms/step of each; then the moist
             baroclinic wave (DCMIP2016, the same grid, + 3 tracers) through
             ``make_fast_multistep`` and eagerly, with the global mass of each
-            species before and after;
+            species before and after; then the Schar mountain waves at the
+            JAX package's second bench line (x-z slice, nex 100, p 4, 40
+            levels, f32, dt 0.5) through ``make_fast_multistep`` in both
+            layouts, timed in turns, and on the eager fused path;
 6. dss      the step with the tail's DSS as four launches or as
             ``dss_state`` and the stages' Rt/Rho as two launches or as
             ``dss_scalar2``, eagerly and under graph replay, in turns;
 7. kernels  one line listing every kernel with its time, bound, plain
-            version's time and launches on the flagship runs.
+            version's time and launches on the flagship runs, its launches
+            on the Schar path, and its Cartesian figures.
 
-With ``--profile PATH`` it also traces steps of each flagship path and of
-the moist replay with torch.profiler and writes the device time by kernel to the JSON file PATH.
+With ``--profile PATH`` it also traces steps of each flagship path, of the
+moist replay and of the Schar paths with torch.profiler and writes the
+device time by kernel to the JSON file PATH.
 
 Any failure raises: the exit code is then non-zero and no result line is
 printed.  Without a CUDA device the script exits with code 1 at once.  The
@@ -70,6 +83,10 @@ REPLAYS = 4                 # timed replays of that graph
 SEED = 0
 MOIST_STEPS = 3             # eager, moist wave
 NTR = 3                     # tracer species of the moist wave
+# the Schar mountain waves of the JAX package's second bench line
+# (bench.py:339-413): x-z slice, nex 100, ney 1, p 4, 40 levels, float32
+SCHAR_NEX, SCHAR_NZ, SCHAR_DT, SCHAR_NU = 100, 40, 0.5, 1.0e7
+PLANE_NE = 32               # elements a side of the 3-D bubble's plane
 KERNELS = ("dss_scalar", "dss_vector", "banded_solve", "dss_uvw",
            "fused_stage", "nu4_pass1", "nu4_pass2", "fused_implicit_update",
            "dss_state", "dss_scalar2", "banded_solve_multi")
@@ -823,6 +840,7 @@ def check_kernels(fg, cfg, geom, state, dev):
         check_fused_kernels(cfg, geom, state, dtype, rows, dev)
         check_tail_kernels(geom, dtype, rows, dev)
         check_tracer_kernels(cfg, geom, dtype, rows, dev)
+        check_cartesian_kernels(dtype, rows, dev)
     return rows
 
 
@@ -934,6 +952,603 @@ def check_slice(dev, with_tracers=False):
             raise RuntimeError(f"slice: non-finite {k}")
 
 
+# ---------------------------------------------------------------------------
+# periodic Cartesian grids: the Schar mountain waves and the 3-D bubble
+# ---------------------------------------------------------------------------
+
+def cartesian_setup(name, dtype, nex, ney, nz, dev=None):
+    """(test case, cfg, geom[, initial state, reference state]) of a
+    periodic Cartesian configuration: ``"schar"`` (the x-z slice of the JAX
+    package's second bench line, ``bench.py:339-413``: dt 0.5, nu 1e7,
+    Rayleigh on) or ``"bubble3d"`` (the 3-D thermal bubble, hyperdiffusion
+    on).  The states are built on ``dev`` when it is given."""
+    import tempestmodel_tpu_torch as tm
+    from tempestmodel_tpu_torch.models import nh_model
+    from tempestmodel_tpu_torch.testcases import nonhydro_xz
+    if name == "schar":
+        tc = nonhydro_xz.ScharMountain()
+        kw = dict(grid_kind=tm.GridKind.CARTESIAN_XZ, dt=SCHAR_DT,
+                  nu_scalar=SCHAR_NU, nu_div=SCHAR_NU, nu_vort=SCHAR_NU,
+                  rayleigh_damping=True)
+        extra = dict(topography=tc.topography, rayleigh=tc.rayleigh_strength)
+    else:
+        tc = nonhydro_xz.ThermalBubble3D()
+        kw = dict(grid_kind=tm.GridKind.CARTESIAN_3D, dt=0.1, nu_scalar=1e6,
+                  nu_div=1e6, nu_vort=1e6)
+        extra = {}
+    cfg = tm.ModelConfig(nex=nex, ney=ney, order=ORDER, nz=nz,
+                         x_extent=tc.x_extent, y_extent=tc.y_extent,
+                         ztop=tc.ztop, hyperdiffusion=True,
+                         vertical_solver="pallas", dtype=dtype, **kw)
+    geom = nh_model.build_nh_cartesian_geometry(cfg, ztop=tc.ztop, **extra)
+    if dev is None:
+        return tc, cfg, geom
+    state = tc.initial_state(geom, cfg.constants, dtype=dtype, device=dev)
+    ref = (tc.reference_state(geom, cfg.constants, dtype=dtype, device=dev)
+           if cfg.rayleigh_damping else None)
+    return tc, cfg, geom, state, ref
+
+
+def check_cartesian_dss(fgs, dtype, rows, dev):
+    """The five DSS kernels with the periodic wrap-sum against their plain
+    versions: one panel, no links, at Schar's shapes in both layouts
+    ((K, 1, 4, 400) and (K, 1, 400, 4)) and on a 3-D plane (K, 1, 128,
+    128), K = 40 levels (41 interfaces).  ``dss_state`` with and without the
+    Rayleigh finish (its x-z-exempt slot with the factor 1); ``dss_scalar``
+    also with the link table's pointer set to an invalid address, which a
+    grid without links must never read.  Times at each shape."""
+    import ctypes
+    from tempestmodel_tpu_torch.fast import dss_cuda
+    from tempestmodel_tpu_torch.kernels import build, synthetic
+    from tempestmodel_tpu_torch.kernels.timing import time_cuda
+
+    tag = "f32" if dtype == torch.float32 else "f64"
+    tol = 1e-6 if dtype == torch.float32 else 1e-13
+    esize = torch.empty((), dtype=dtype).element_size()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    out = {}
+    for where, fg in fgs.items():
+        K, (P, A, B) = fg.nz, fg.inv_mult.shape
+        links, rot, table = (), fg.e_rot, fg.dss_table
+        im, wrap = fg.inv_mult, fg.wrap
+        sets = [synthetic.random_state(fg, seed=s) for s in (31, 32, 33)]
+        d = sets[0]
+        nlev, nint, n2d = K * P * A * B, (K + 1) * P * A * B, P * A * B
+        errs = {}
+        # dss_scalar: a level and an interface field, and the raw launch
+        # with an invalid table address
+        for x in (d["Rt"], d["W"]):
+            got = dss_cuda.dss_scalar(x, im, links, fg.p, wrap=wrap,
+                                      table=table)
+            torch.cuda.synchronize()
+            errs["dss_scalar"] = max(errs.get("dss_scalar", 0.0), rel_err(
+                got, dss_cuda.dss_scalar_plain(x, im, links, fg.p, wrap)))
+        lib = build.library("dss")
+        fn = lib.dss_scalar_f32 if dtype == torch.float32 \
+            else lib.dss_scalar_f64
+        raw = torch.empty_like(d["Rt"])
+        err = fn(d["Rt"].data_ptr(), im.data_ptr(), ctypes.c_void_p(16),
+                 raw.data_ptr(), K, P, A, B, fg.p, 0,
+                 int(wrap[0]) | 2 * int(wrap[1]),
+                 torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        if err != 0 or not torch.equal(raw, dss_cuda.dss_scalar(
+                d["Rt"], im, links, fg.p, wrap=wrap, table=table)):
+            raise RuntimeError(f"cartesian dss_scalar {where} {tag}: the "
+                               f"launch with no table differs (err {err})")
+        gu, gv = dss_cuda.dss_vector(d["U"], d["V"], im, rot, links, fg.p,
+                                     wrap=wrap, table=table)
+        torch.cuda.synchronize()
+        wu, wv = dss_cuda.dss_vector_plain(d["U"], d["V"], im, rot, links,
+                                           fg.p, wrap)
+        errs["dss_vector"] = max(rel_err(gu, wu), rel_err(gv, wv))
+        shp = d["W"].shape
+        wf = {"bw1": sets[1]["W"], "bw2": sets[2]["W"],
+              "dW": randn(shp, dtype, gen, dev),
+              "cax0": randn(shp[1:], dtype, gen, dev),
+              "cbx0": randn(shp[1:], dtype, gen, dev),
+              "cxx0": 1.0 + randn(shp[1:], dtype, gen, dev).abs(),
+              "cb1": 0.3, "cb2": 0.7, "dt_s": 0.5, "c00": 0.6, "c01": 0.4}
+        e = 0.0
+        for w in (wf, dict(wf, bw2=None)):
+            got = dss_cuda.dss_uvw(d["U"], d["V"], im, rot, links, fg.p, w,
+                                   wrap=wrap, table=table)
+            torch.cuda.synchronize()
+            want = dss_cuda.dss_uvw_plain(d["U"], d["V"], im, rot, links,
+                                          fg.p, w, wrap)
+            e = max(e, max_rel_err(got + (got[2][0],), want + (want[2][0],)))
+        errs["dss_uvw"] = e
+        fac = {k: torch.rand(v.shape, dtype=dtype, device=dev, generator=gen)
+               for k, v in d.items()}
+        fac["Rho"] = torch.ones_like(fac["Rho"])
+        fac[fg.xz_zero or "V"] = torch.ones_like(fac["V"])
+        ray = (fac, {k: (1.0 - fac[k]) * sets[1][k] for k in d})
+        e = 0.0
+        for r in (None, ray):
+            got = dss_cuda.dss_state(d, im, rot, links, fg.p, rayleigh=r,
+                                     wrap=wrap, table=table)
+            torch.cuda.synchronize()
+            want = dss_cuda.dss_state_plain(d, im, rot, links, fg.p, r, wrap)
+            e = max(e, max(rel_err(got[k], want[k]) for k in want))
+        errs["dss_state"] = e
+        g1, g2 = dss_cuda.dss_scalar2(d["Rt"], d["Rho"], im, links, fg.p,
+                                      wrap=wrap, table=table)
+        torch.cuda.synchronize()
+        w1, w2 = dss_cuda.dss_scalar2_plain(d["Rt"], d["Rho"], im, links,
+                                            fg.p, wrap)
+        errs["dss_scalar2"] = max(rel_err(g1, w1), rel_err(g2, w2))
+        if not max(errs.values()) <= tol:
+            raise RuntimeError(f"cartesian DSS {where} {tag}: rel err {errs} "
+                               f"> {tol}")
+        sw = dict(wrap=wrap, table=table)
+        calls = {
+            "dss_scalar": (
+                lambda x: dss_cuda.dss_scalar(x["Rt"], im, links, fg.p, **sw),
+                lambda x: dss_cuda.dss_scalar_plain(x["Rt"], im, links, fg.p,
+                                                    wrap),
+                (2 * nlev + n2d) * esize, 5 * nlev),
+            "dss_vector": (
+                lambda x: dss_cuda.dss_vector(x["U"], x["V"], im, rot, links,
+                                              fg.p, **sw),
+                lambda x: dss_cuda.dss_vector_plain(x["U"], x["V"], im, rot,
+                                                    links, fg.p, wrap),
+                (4 * nlev + n2d) * esize, 10 * nlev),
+            "dss_uvw": (
+                lambda x: dss_cuda.dss_uvw(x["U"], x["V"], im, rot, links,
+                                           fg.p, wf, **sw),
+                lambda x: dss_cuda.dss_uvw_plain(x["U"], x["V"], im, rot,
+                                                 links, fg.p, wf, wrap),
+                (4 * nlev + 4 * nint + 4 * n2d) * esize,
+                16 * nlev + 12 * nint),
+            "dss_state": (
+                lambda x: dss_cuda.dss_state(x, im, rot, links, fg.p,
+                                             rayleigh=ray, **sw),
+                lambda x: dss_cuda.dss_state_plain(x, im, rot, links, fg.p,
+                                                   ray, wrap),
+                (4 * (4 * nlev + nint) + n2d) * esize,
+                5 * (4 * nlev + nint) + 2 * (4 * nlev + nint)),
+            "dss_scalar2": (
+                lambda x: dss_cuda.dss_scalar2(x["Rt"], x["Rho"], im, links,
+                                               fg.p, **sw),
+                lambda x: dss_cuda.dss_scalar2_plain(x["Rt"], x["Rho"], im,
+                                                     links, fg.p, wrap),
+                (4 * nlev + n2d) * esize, 10 * nlev)}
+        timed = {}
+        for name, (kern, plain, nb, flops) in calls.items():
+            bnd, by = bound_ms(nb, flops, dtype)
+            timed[name] = {
+                "max_abs_err": errs[name],
+                "ms": time_cuda(kern, [(x,) for x in sets], reps=50,
+                                queued=True),
+                "plain_ms": time_cuda(plain, [(x,) for x in sets], reps=5),
+                "bound_ms": bnd, "bound_by": by}
+        emit({"phase": "cartesian_kernel", "dtype": tag, "tol": tol,
+              "kernels": "dss", "shape": [K, P, A, B], "where": where,
+              "wrap": list(wrap), "by_kernel": timed})
+        out[where] = timed
+        del sets, d
+    if dtype == torch.float32:
+        rows["cartesian_dss"] = out
+    torch.cuda.empty_cache()
+
+
+def check_cartesian_kernels(dtype, rows, dev):
+    """Phase 3, fifth part: what periodic Cartesian grids reach, at their
+    full shapes in ``dtype``: the five DSS kernels with the wrap-sum
+    (``check_cartesian_dss``); ``fused_stage`` on the Schar slice (nex 100,
+    40 levels; terrain, so the full 3-D metric: ``use_sep = 0``) with
+    ``xz_zero`` "U" (swapped) and "V" (natural), one base and two, at the
+    step's dt and at one long enough that the increment is as large as the
+    state; ``fused_implicit_update`` at Schar's 1600 columns; ``nu4_pass1``,
+    ``nu4_pass2`` on the 3-D bubble's plane, A = B = 128 and A = 128, B =
+    64."""
+    from tempestmodel_tpu_torch import fast
+    from tempestmodel_tpu_torch.fast import (stage_cuda, hyper_cuda,
+                                             implicit_cuda, implicit as fimp)
+    from tempestmodel_tpu_torch.kernels import synthetic
+    from tempestmodel_tpu_torch.kernels.timing import time_cuda
+    from tempestmodel_tpu_torch.models import nonhydro
+
+    tag = "f32" if dtype == torch.float32 else "f64"
+    f32 = dtype == torch.float32
+    esize = 4 if f32 else 8
+    tc, cfg, geom, state, _ = cartesian_setup("schar", dtype, SCHAR_NEX, 1,
+                                              SCHAR_NZ, dev)
+    consts = cfg.constants
+    fgs = {layout: fast.build_fast_geometry_cartesian(
+        geom, dtype=dtype, device=dev, swap_ab=(layout == "swapped"))
+        for layout in ("swapped", "natural")}
+    _, pcfg, pgeom = cartesian_setup("bubble3d", dtype, PLANE_NE, PLANE_NE,
+                                     SCHAR_NZ)
+    plane = fast.build_fast_geometry_cartesian(pgeom, dtype=dtype,
+                                               device=dev)
+    check_cartesian_dss({"schar_swapped": fgs["swapped"],
+                         "schar_natural": fgs["natural"],
+                         "plane": plane}, dtype, rows, dev)
+
+    # --- fused_stage, x-z branch -------------------------------------------
+    stage_tol = 1e-4 if f32 else 1e-11
+    stage = {}
+    for layout, fg in fgs.items():
+        sst = stage_cuda.stage_statics(fg)
+        if sst.use_sep or fg.xz_zero != ("U" if layout == "swapped" else "V"):
+            raise RuntimeError(f"Schar {layout}: wrong metric form or slot")
+        K, (P, A, B) = fg.nz, fg.inv_mult.shape
+        nlev, nint, n2d = K * P * A * B, (K + 1) * P * A * B, P * A * B
+        ue, b1, b2 = (synthetic.random_state(fg, seed=s) for s in (1, 2, 3))
+        zero = {k: torch.zeros_like(v) for k, v in ue.items()}
+        tend = stage_cuda.fused_stage_plain(zero, ue, 1.0, fg, consts,
+                                            defer_w=True)[0]
+        other = "V" if fg.xz_zero == "U" else "U"
+        dt_big = float(min(ue[k].abs().max() / tend[k].abs().max()
+                           for k in (other, "Rt", "Rho")))
+        errs = {}
+        two = ((0.3, b1), (0.7, b2))
+        for dt_s in (SCHAR_DT, dt_big):
+            for base in (b1, two):
+                got, gwf = stage_cuda.fused_stage(base, ue, dt_s, fg, consts,
+                                                  defer_w=True, statics=sst)
+                torch.cuda.synchronize()
+                want, wwf = stage_cuda.fused_stage_plain(base, ue, dt_s, fg,
+                                                         consts, defer_w=True)
+                e = {k: rel_err(got[k], want[k]) for k in stage_cuda.STATE4}
+                e["dW"] = rel_err(gwf["dW"], wwf["dW"])
+                errs = {k: max(v, errs.get(k, 0.0)) for k, v in e.items()}
+        if not max(errs.values()) <= stage_tol:
+            raise RuntimeError(f"fused_stage x-z {layout} {tag}: rel err "
+                               f"{errs} > {stage_tol}")
+        timed = {}
+        full3d = 6 * nlev + 3 * nint     # the 3-D metric: 6 level fields,
+        #                                  # 3 interface fields
+        for key, base, nbase in (("", b1, 4), ("_two_base", two, 8)):
+            tb, c1, x1, c2, x2 = stage_cuda._split_base(base)
+            timed["ms" + key] = time_cuda(lambda: stage_cuda._fused_stage_cuda(
+                tb, c1, x1, c2, x2, ue, SCHAR_DT, fg, consts, sst), [()],
+                reps=50, queued=True)
+            timed["plain_ms" + key] = time_cuda(
+                lambda: stage_cuda.fused_stage_plain(
+                    base, ue, SCHAR_DT, fg, consts, defer_w=True), [()],
+                reps=5, warmup=1)
+            nb = ((4 + nbase + 5) * nlev + nint + 5 * n2d + full3d
+                  + sst.tab.numel()) * esize
+            timed["bound_ms" + key], timed["bound_by"] = bound_ms(
+                nb, 400 * nlev, dtype)
+        stage[layout] = dict(timed, max_abs_err=max(errs.values()),
+                             err_by_output=errs, long_step_s=dt_big,
+                             xz_zero=fg.xz_zero, shape=[K, P, A, B])
+        emit({"phase": "cartesian_kernel", "dtype": tag, "tol": stage_tol,
+              "name": "fused_stage_xz", "layout": layout, **stage[layout]})
+        del ue, b1, b2, zero, tend
+    if f32:
+        rows["cartesian_stage"] = stage
+
+    # --- fused_implicit_update off the sphere, at Schar's columns ----------
+    imp_tol = 2e-3 if f32 else 1e-10
+    fg = fgs["swapped"]
+    q = nonhydro.estimate_bandwidth(geom, consts)
+    statics = fimp.statics_to_device(
+        nonhydro.band_assembly_statics(geom, q), dtype, dev)
+    ist = implicit_cuda.implicit_statics(statics, fg)
+    if not implicit_cuda.fused_supported(ist):
+        raise RuntimeError("Schar is outside the fused implicit envelope")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    d = fast.engine._swap_ab_state(fast.pack_state(state, device=dev))
+    for k in ("U", "V", "Rt", "Rho"):
+        d[k] = d[k] * (1.0 + 1e-3 * randn(d[k].shape, dtype, gen, dev))
+    d["W"] = 0.01 * randn(d["W"].shape, dtype, gen, dev)
+    x0, aux = fimp._prep_aux(d, fg, None, interfaces=False)
+    x1 = tuple((p * 1.001).contiguous() for p in x0)
+    dt_imp = 0.5 * SCHAR_DT
+    err = 0.0
+    for ref_j in (False, True):
+        for time_term in (False, True):
+            xs = x1 if time_term else x0
+            got = implicit_cuda.fused_implicit_update(
+                xs, x0, aux, ist, dt_imp, consts, ref_jacobian=ref_j,
+                newton_time_term=time_term)
+            torch.cuda.synchronize()
+            want = implicit_cuda.fused_implicit_update_plain(
+                xs, x0, aux, ist, dt_imp, consts, ref_jacobian=ref_j,
+                newton_time_term=time_term)
+            err = max(err, max_rel_err(got, want))
+    if not err <= imp_tol:
+        raise RuntimeError(f"fused_implicit_update Schar {tag}: rel err "
+                           f"{err} > {imp_tol}")
+    K, ncol = fg.nz, x0[0].shape[1]
+    n = 3 * K + 1
+    nb = ((4 + 4 + 2) * K * ncol + (1 + 5 + 1) * (K + 1) * ncol + 4 * ncol
+          + ist.tab.numel()) * esize
+    bnd, by = bound_ms(nb, ncol * (n * (q * (2 * q + 3) + 2 * q + 1)
+                                   + (K + 1) * 400), dtype)
+    imp = {"shape": [K, ncol], "n": n, "q": q, "max_abs_err": err,
+           "ms": time_cuda(lambda: implicit_cuda.fused_implicit_update(
+               x0, x0, aux, ist, dt_imp, consts), [()], reps=50,
+               queued=True),
+           "plain_ms": time_cuda(
+               lambda: implicit_cuda.fused_implicit_update_plain(
+                   x0, x0, aux, ist, dt_imp, consts), [()], reps=5,
+               warmup=1),
+           "bound_ms": bnd, "bound_by": by}
+    emit({"phase": "cartesian_kernel", "dtype": tag, "tol": imp_tol,
+          "name": "fused_implicit_update_schar", **imp})
+    if f32:
+        rows["cartesian_implicit"] = imp
+
+    # --- nu4_pass1, nu4_pass2 on a plane ------------------------------------
+    hyper_tol = 1e-4 if f32 else 1e-11
+    _, _, rgeom = cartesian_setup("bubble3d", dtype, PLANE_NE,
+                                  PLANE_NE // 2, SCHAR_NZ)
+    rect = fast.build_fast_geometry_cartesian(rgeom, dtype=dtype, device=dev)
+    nu4 = {}
+    for where, fg in (("plane", plane), ("plane_rectangular", rect)):
+        if not hyper_cuda.supported(fg, pcfg):
+            raise RuntimeError(f"nu4 {where}: outside the kernels' envelope")
+        hst = hyper_cuda.hyper_statics(fg)
+        K, (P, A, B) = fg.nz, fg.inv_mult.shape
+        nint = (K + 1) * P * A * B
+        nstate = 4 * K * P * A * B + nint
+        sets = [(synthetic.random_state(fg, seed=s),
+                 synthetic.random_state(fg, seed=s + 10)) for s in (41, 42)]
+        d, w = sets[0]
+        unit = hyper_cuda.nu4_pass1_plain(w, fg, hst)
+        nu_s = float(d["Rho"].abs().max() / unit["Rho"].abs().max())
+        nu_v = float(d["U"].abs().max() / unit["U"].abs().max())
+        nu = (nu_s, nu_v, 0.7 * nu_v, 1.0)
+        got1 = hyper_cuda.nu4_pass1(d, fg, hst)
+        got2 = hyper_cuda.nu4_pass2(d, w, *nu, fg, hst)
+        torch.cuda.synchronize()
+        want1 = hyper_cuda.nu4_pass1_plain(d, fg, hst)
+        want2 = hyper_cuda.nu4_pass2_plain(d, w, *nu, fg, hst)
+        errs = {"nu4_pass1": max(rel_err(got1[k], want1[k]) for k in want1),
+                "nu4_pass2": max(max(rel_err(got2[k], want2[k]),
+                                     rel_err(got2[k] - d[k], want2[k] - d[k]))
+                                 for k in want2)}
+        if not max(errs.values()) <= hyper_tol:
+            raise RuntimeError(f"nu4 {where} {tag}: rel err {errs} > "
+                               f"{hyper_tol}")
+        scal2 = (nu[1], nu[2], nu[3], nu[3] * nu[0])
+        timed = {}
+        for name, launch, plain, nfields in (
+                ("nu4_pass1",
+                 lambda x, y: hyper_cuda._launch("nu4_pass1", x, None,
+                                                 (1.0, 1.0, 0.0, 0.0), hst),
+                 lambda x, y: hyper_cuda.nu4_pass1_plain(x, fg, hst), 2),
+                ("nu4_pass2",
+                 lambda x, y: hyper_cuda._launch("nu4_pass2", y, x, scal2,
+                                                 hst),
+                 lambda x, y: hyper_cuda.nu4_pass2_plain(x, y, *nu, fg, hst),
+                 3)):
+            nb = (nfields * nstate + 8 * P * A * B + hst.ds.numel()) * esize
+            bnd, by = bound_ms(nb, 220 * nint, dtype)
+            timed[name] = {"max_abs_err": errs[name],
+                           "ms": time_cuda(launch, sets, reps=20,
+                                           queued=True),
+                           "plain_ms": time_cuda(plain, sets, reps=3,
+                                                 warmup=1),
+                           "bound_ms": bnd, "bound_by": by}
+        nu4[where] = dict(timed, shape=[K, P, A, B])
+        emit({"phase": "cartesian_kernel", "dtype": tag, "tol": hyper_tol,
+              "kernels": "nu4", "where": where, **nu4[where]})
+        del sets, d, w, unit
+    if f32:
+        rows["cartesian_nu4"] = nu4
+    torch.cuda.empty_cache()
+
+
+def compare_xz(got, want):
+    """Relative error per field; U and V against their common scale (V of
+    an x-z slice is roundoff only)."""
+    vel = max(float(want["U"].abs().max()), float(want["V"].abs().max()))
+    out = {}
+    for k in want:
+        scale = vel if k in ("U", "V") else float(want[k].abs().max())
+        out[k] = float((got[k] - want[k]).abs().max()) / (scale + 1e-300)
+    return out
+
+
+def check_cartesian_slice(dev):
+    """Phase 4, Cartesian: 3 steps in float64 on the card of Schar at test
+    scale (nex 8, nz 8, both layouts) and of the 3-D bubble (nex 4, ney 2,
+    hyperdiffusion on, so the nu4 passes run): the kernel path against the
+    plain path to 1e-11, then a 3-step graph replay against 3 eager steps
+    to 1e-13.  Returns the launch counts of each kernel path's run."""
+    from tempestmodel_tpu_torch import fast
+    from tempestmodel_tpu_torch.kernels import counts
+    launched = {}
+    for name, nex, ney, swap in (("schar", 8, 1, True), ("schar", 8, 1, False),
+                                 ("bubble3d", 4, 2, None)):
+        _, cfg, geom, state, ref = cartesian_setup(name, torch.float64, nex,
+                                                   ney, 8, dev)
+        X0 = fast.pack_state(state, device=dev)
+        what = f"{name} nex{nex} ney{ney} nz8 f64" + (
+            "" if swap is None else (", swapped" if swap else ", natural"))
+        outs = {}
+        for path, kw in (("kernels", {}), ("plain", {"plain": True})):
+            counts.reset_launch_counts()
+            first, step = fast.make_fast_step(cfg, geom, ref_state=ref,
+                                              device=dev, swap_ab=swap, **kw)
+            X, c = first(X0)
+            for _ in range(2):
+                X, c = step(X, c)
+            torch.cuda.synchronize()
+            outs[path] = X
+            if path == "kernels":
+                launched[what] = dict(counts.launch_counts)
+        per_step = dict(FUSED_PER_STEP, **(
+            {"nu4_pass1": 0, "nu4_pass2": 0} if name == "schar" else {}))
+        want = {k: 3 * v + (1 if k == "fused_implicit_update" else 0)
+                for k, v in per_step.items()}
+        if launched[what] != want:
+            raise RuntimeError(f"{what}: launch counts {launched[what]} != "
+                               f"expected {want}")
+        errs = compare_xz(outs["kernels"], outs["plain"])
+        first, step = fast.make_fast_step(cfg, geom, ref_state=ref,
+                                          device=dev, swap_ab=swap)
+        X1, c1 = first(X0)
+        E, ce = X1, c1
+        for _ in range(3):
+            E, ce = step(E, ce)
+        _, multi = fast.make_fast_multistep(cfg, geom, 3, ref_state=ref,
+                                            device=dev, swap_ab=swap)
+        G, cg = multi(X1, c1)
+        G2, cg2 = multi(X1, c1)
+        torch.cuda.synchronize()
+        replay = {k: max(rel_err(G[k], E[k]), rel_err(G2[k], E[k]))
+                  for k in ("Rt", "Rho", "W")}
+        replay.update({k: max(compare_xz(G, E)[k], compare_xz(G2, E)[k])
+                       for k in ("U", "V")})
+        emit({"phase": "cartesian_slice", "config": what + ", 3 steps",
+              "kernels_vs_plain": errs, "tol": 1e-11,
+              "graph_replay_vs_eager": replay, "replay_tol": 1e-13,
+              "launches": launched[what]})
+        if not max(errs.values()) < 1e-11 or not max(replay.values()) < 1e-13:
+            raise RuntimeError(f"{what}: paths disagree {errs} / {replay}")
+        for k, v in outs["kernels"].items():
+            if not bool(torch.isfinite(v).all()):
+                raise RuntimeError(f"{what}: non-finite {k}")
+    return launched
+
+
+def schar_line(dev, smi, launches, profiles, profile):
+    """Phase 5d: the Schar mountain waves at the JAX bench's size (x-z
+    slice, nex 100, p 4, 40 levels, f32, dt 0.5) through
+    ``make_fast_multistep`` (a 10-step CUDA graph) in both layouts -- each
+    captured with the counts at 0 and read just after, then timed by CUDA
+    events in turns (swapped, natural, natural, swapped, ...), the median of
+    4 replays each -- and on the eager fused path of ``make_fast_step`` (the
+    default layout, first_step + 5 steps).  Returns {layout: ms/step under
+    replay, "default": the default layout}."""
+    from tempestmodel_tpu_torch import fast
+    from tempestmodel_tpu_torch.kernels import counts
+    tc, cfg, geom, state, ref = cartesian_setup(
+        "schar", torch.float32, SCHAR_NEX, 1, SCHAR_NZ, dev)
+    X0 = fast.pack_state(state, device=dev)
+    npts = SCHAR_NEX * ORDER * ORDER * SCHAR_NZ      # bench.py's count
+    config = (f"Schar mountain x-z nex{SCHAR_NEX} p{ORDER} nz{SCHAR_NZ} f32 "
+              f"dt{SCHAR_DT:g} nu{SCHAR_NU:g}")
+    default = fast.engine.swap_ab_default(geom)
+    per_step = dict(FUSED_PER_STEP, nu4_pass1=0, nu4_pass2=0)
+
+    def check(X, what):
+        for k, v in X.items():
+            nzk = SCHAR_NZ + (1 if k == "W" else 0)
+            if tuple(v.shape) != (nzk, 1, SCHAR_NEX * ORDER, ORDER) \
+                    or v.dtype != torch.float32 \
+                    or not bool(torch.isfinite(v).all()):
+                raise RuntimeError(f"{what}: {k} is not a finite float32 "
+                                   f"field of the natural layout")
+        drift = {k: rel_err(X[k], X0[k]) for k in ("Rho", "Rt")}
+        if not all(dd < 1e-2 for dd in drift.values()):
+            raise RuntimeError(f"{what}: state drifted {drift}")
+        return drift
+
+    runs = {}
+    for layout in ("swapped", "natural"):
+        swap = layout == "swapped"
+        t0 = time.perf_counter()
+        first, multi = fast.make_fast_multistep(cfg, geom, INNER_STEPS,
+                                                ref_state=ref, device=dev,
+                                                swap_ab=swap)
+        make_s = time.perf_counter() - t0
+        counts.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        X, carry = first(X0)
+        t0 = time.perf_counter()
+        X, carry = multi(X, carry)       # warm-up step, capture, first replay
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        launches[f"schar_{layout}"] = dict(counts.launch_counts)
+        want = {k: v * (INNER_STEPS + 2) + (1 if k == "fused_implicit_update"
+                                            else 0)
+                for k, v in per_step.items()}
+        if launches[f"schar_{layout}"] != want:
+            raise RuntimeError(f"Schar {layout}: launch counts "
+                               f"{launches[f'schar_{layout}']} != {want}")
+        runs[layout] = {"multi": multi, "X": X, "carry": carry, "ms": [],
+                        "make_s": make_s, "capture_s": capture_s,
+                        "peak": torch.cuda.max_memory_allocated() / 2 ** 30,
+                        "resident": resident / 2 ** 30}
+    order = ["swapped", "natural", "natural", "swapped"] * (REPLAYS // 2)
+    for layout in order:
+        r = runs[layout]
+        torch.cuda.synchronize()
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        r["X"], r["carry"] = r["multi"](r["X"], r["carry"])
+        ev1.record()
+        torch.cuda.synchronize()
+        r["ms"].append(ev0.elapsed_time(ev1) / INNER_STEPS)
+    result = {"default": "swapped" if default else "natural"}
+    for layout, r in runs.items():
+        ms = sorted(r["ms"])[len(r["ms"]) // 2]
+        result[layout] = ms
+        emit({"phase": "schar", "path": "multistep", "layout": layout,
+              "default_layout": layout == ("swapped" if default
+                                           else "natural"),
+              "config": config, "inner_steps": INNER_STEPS,
+              "replays": len(r["ms"]), "ms_per_step": ms,
+              "ms_per_step_each_replay": r["ms"],
+              "gridpoint_steps_per_s": npts / (ms * 1e-3),
+              "launches": launches[f"schar_{layout}"],
+              "launches_per_step": per_step,
+              "launches_counted": "at capture (first_step + 1 warm-up step + "
+                                  f"{INNER_STEPS} captured steps)",
+              "make_fast_multistep_s": r["make_s"],
+              "warmup_capture_first_replay_s": r["capture_s"],
+              "drift": check(r["X"], f"Schar {layout}"),
+              "peak_device_GiB": r["peak"],
+              "resident_before_GiB": r["resident"], "card": smi})
+        if profile:
+            profiles[f"schar_{layout}"] = profile_steps(
+                r["multi"], r["X"], r["carry"], 2, f"schar_{layout}",
+                INNER_STEPS)
+    del runs
+    torch.cuda.empty_cache()
+
+    first, step = fast.make_fast_step(cfg, geom, ref_state=ref, device=dev)
+    Xw, cw = step(*first(X0))            # warm-up outside the counted run
+    torch.cuda.synchronize()
+    del Xw, cw
+    counts.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    X, carry = first(X0)
+    torch.cuda.synchronize()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    ev0.record()
+    for _ in range(FLAGSHIP_STEPS):
+        X, carry = step(X, carry)
+    ev1.record()
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0) / FLAGSHIP_STEPS
+    ms = ev0.elapsed_time(ev1) / FLAGSHIP_STEPS
+    launches["schar_eager"] = dict(counts.launch_counts)
+    want = {k: v * (FLAGSHIP_STEPS + 1) + (1 if k == "fused_implicit_update"
+                                           else 0)
+            for k, v in per_step.items()}
+    if launches["schar_eager"] != want:
+        raise RuntimeError(f"Schar eager: launch counts "
+                           f"{launches['schar_eager']} != {want}")
+    emit({"phase": "schar", "path": "fused",
+          "layout": "swapped" if default else "natural", "config": config,
+          "steps": FLAGSHIP_STEPS, "ms_per_step": ms, "wall_ms_per_step": wall,
+          "gridpoint_steps_per_s": npts / (ms * 1e-3),
+          "launches": launches["schar_eager"], "launches_per_step": per_step,
+          "drift": check(X, "Schar eager"),
+          "peak_device_GiB": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "resident_before_GiB": resident / 2 ** 30, "card": smi})
+    if profile:
+        profiles["schar_eager"] = profile_steps(step, X, carry, 3,
+                                                "schar_eager")
+    del first, step, X, carry
+    torch.cuda.empty_cache()
+    return result
+
+
 def profile_steps(step, X, carry, ncalls, path_name, steps_per_call=1):
     """Optional (``--profile PATH``): device time by kernel over ``ncalls``
     steady calls of ``step`` (each ``steps_per_call`` model steps: 1 for an
@@ -1028,6 +1643,7 @@ def main():
     # 4. the slice at small size, three ways, dry and with tracers --------
     check_slice(dev)
     check_slice(dev, with_tracers=True)
+    cart_launches = check_cartesian_slice(dev)
 
     # 5. the main paths at full width -------------------------------------
     X0 = fast.pack_state(state, device=dev)
@@ -1244,6 +1860,10 @@ def main():
     del first_step, step, X, carry, M0, area
     torch.cuda.empty_cache()
 
+    # 5d. this slice's path: the Schar mountain waves at the JAX bench's size
+    schar_ms = schar_line(dev, smi, launches, profiles,
+                          profile_path is not None)
+
     if profile_path is not None:
         os.makedirs(os.path.dirname(os.path.abspath(profile_path)),
                     exist_ok=True)
@@ -1302,7 +1922,13 @@ def main():
     # launches: the count of the dry flagship's path (the multistep run); for
     # a kernel that path does not run, the count of the run that does: the
     # moist path, the DSS variants of phase 6, then the unfused path.  Each of
-    # these runs began with the counts at 0.
+    # these runs began with the counts at 0.  Beside it, the count of the
+    # Schar path in its default layout (the multistep run of phase 5d) and
+    # of the 3-D bubble's kernel path (phase 4); the Cartesian figures of
+    # phase 3 (float32) sit under "cartesian".
+    schar_default = schar_ms["default"]
+    bubble = next(v for k, v in cart_launches.items()
+                  if k.startswith("bubble3d"))
     kernels = []
     for name in KERNELS:
         row = dict(rows[name])
@@ -1319,6 +1945,24 @@ def main():
         row.update(rows.get(name + "_tracers", {}))
         if row["launches"] < 1:
             raise RuntimeError(f"{name} was launched on no path")
+        row["launches_schar_path"] = launches[f"schar_{schar_default}"][name]
+        row["launches_bubble3d_slice"] = bubble[name]
+        if name in ("fused_stage", "dss_uvw", "dss_scalar", "dss_vector",
+                    "fused_implicit_update") and row["launches_schar_path"] < 1:
+            raise RuntimeError(f"{name} was not launched on the Schar path")
+        cart = {}
+        if name in rows["cartesian_dss"]["schar_swapped"]:
+            cart = {where: t[name]
+                    for where, t in rows["cartesian_dss"].items()}
+        elif name == "fused_stage":
+            cart = rows["cartesian_stage"]
+        elif name == "fused_implicit_update":
+            cart = {"schar_swapped": rows["cartesian_implicit"]}
+        elif name in ("nu4_pass1", "nu4_pass2"):
+            cart = {where: t[name]
+                    for where, t in rows["cartesian_nu4"].items()}
+        if cart:
+            row["cartesian"] = cart
         if name == "fused_stage":
             two = rows["fused_stage_two_base"]
             row.update(ms_two_base=two["ms"], bound_ms_two_base=two["bound_ms"],

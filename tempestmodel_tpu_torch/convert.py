@@ -19,11 +19,12 @@ from .fast.engine import FIELDS, FastGeometry, pack_state
 
 
 def state_from_numpy(state_np, device=None, dtype=torch.float64):
-    """Reference-layout state dict ``(6, A, B, nz[+1])`` of numpy arrays ->
-    the z-first state of the engine, tensors of ``dtype`` on ``device``
-    (default ``cuda``; raises when absent).  ``"Tracers"`` ``(ntr, 6, A, B,
-    nz)`` comes across when the state has it (as the flat species-major
-    field of ``pack_state``)."""
+    """Reference-layout state dict ``(P, A, B, nz[+1])`` of numpy arrays (P
+    = 6 on the cubed sphere, 1 on a Cartesian grid) -> the z-first state of
+    the engine, tensors of ``dtype`` on ``device`` (default ``cuda``; raises
+    when absent), in the natural layout that ``make_fast_step`` takes on
+    either grid.  ``"Tracers"`` ``(ntr, P, A, B, nz)`` comes across when the
+    state has it (as the flat species-major field of ``pack_state``)."""
     npdt = np_dtype(dtype)
     missing = [k for k in FIELDS if k not in state_np]
     if missing:
@@ -39,7 +40,10 @@ def fast_geometry_from_numpy(fields_np, device=None, dtype=torch.float64):
     scalars (keyed by field name) -> a ``FastGeometry`` with every array a
     tensor of ``dtype`` on ``device``.  ``DA_elem`` / ``S_elem`` stay host
     numpy (they are host-side tables); the device link table of the DSS
-    kernels is rebuilt from ``dss_links``.  Unknown keys raise."""
+    kernels is rebuilt from ``dss_links`` (empty for a Cartesian geometry:
+    ``npanels=1``, ``dss_links=()``, with its ``wrap``, ``xz_zero``,
+    ``ab_swapped``, ``nu_delta`` and one-link dummy ``e_rot``).  Unknown keys
+    raise."""
     dev = resolve_device(device)
     npdt = np_dtype(dtype)
     names = {f.name for f in dataclasses.fields(FastGeometry)}

@@ -1,5 +1,6 @@
-// Direct stiffness summation (DSS) on the cubed sphere, one launch per field
-// (or one for U, V and W together with the stage's W finish: `dss_uvw`).
+// Direct stiffness summation (DSS), one launch per field (or one for U, V and
+// W together with the stage's W finish: `dss_uvw`), on the cubed sphere or on
+// a periodic Cartesian grid.
 //
 // Replaces the TPU kernels `dss_scalar` (`_scalar_kernel`) and `dss_vector`
 // (`_vector_kernel`) of tempestmodel_tpu/fast/dss_pallas.py.  Those are
@@ -25,6 +26,18 @@
 //      per position along the DESTINATION edge,
 //   3. multiplies by the inverse multiplicity and writes a fresh output.
 // No atomics and no read-modify-write: the result is the same on every run.
+//
+// A Cartesian grid (the TPU kernels' `wrap=True`, `_pair_masks`) is one panel
+// without edge links, A and B free.  Every kernel has an instantiation for it
+// (CART, launched when nlinks == 0): step 2 is compiled out (the link table is
+// never read) and step 1 takes the periodic wrap-sum on the axes the `wrap`
+// bits name (1: along a, 2: along b): node 0 and node A-1 (B-1) of such an
+// axis are one more coincident pair.  The cubed-sphere instantiation has no
+// wrap code in it: with the wrap test in one shared instantiation, the
+// flagship's DSS launches took 2-6 % longer.  At the Schar slice's shapes
+// ((40 | 41, 1, 4, 400), 1600 nodes a level) a launch has 13 blocks over the
+// slab and 8 or 9 level blocks, far too few to fill the card: the launch, not
+// the 0.5 MB it moves, sets its time.
 //
 // Bound on an H100 (3.35 TB/s): bytes.  The function must read each field
 // once and write it once (the 2-D tables are negligible); at (30, 6, 120,
@@ -64,6 +77,8 @@
 // allocates, and each entry point returns cudaGetLastError().
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -114,14 +129,19 @@ struct PairNodes {
   int o, o_a, o_b, o_ab;
 };
 
+// `wrap` (CART only): bit 0 pairs a = 0 with a = A-1, bit 1 b = 0 with
+// b = B-1.  Without CART the wrap code is not compiled in.
+template <bool CART>
 __device__ __forceinline__ PairNodes pair_nodes(int a, int b, int A, int B,
-                                                int p) {
+                                                int p, int wrap) {
   int a2 = -1, b2 = -1;
   const int ra = a % p, rb = b % p;
   if (ra == p - 1 && a < A - 1) a2 = a + 1;
   else if (ra == 0 && a > 0) a2 = a - 1;
+  else if (CART && (wrap & 1)) a2 = (a == 0) ? A - 1 : (a == A - 1) ? 0 : -1;
   if (rb == p - 1 && b < B - 1) b2 = b + 1;
   else if (rb == 0 && b > 0) b2 = b - 1;
+  else if (CART && (wrap & 2)) b2 = (b == 0) ? B - 1 : (b == B - 1) ? 0 : -1;
   PairNodes n;
   n.o = a * B + b;
   n.o_a = (a2 >= 0) ? a2 * B + b : -1;
@@ -184,7 +204,7 @@ __device__ __forceinline__ EdgeTerms edge_terms(const int* __restrict__ table,
     edge_node(row[1], j, A, B, na, nb);
     // constant indices keep the struct in registers
     const int slot = t.count;
-    const PairNodes nodes = pair_nodes(na, nb, A, B, p);
+    const PairNodes nodes = pair_nodes<false>(na, nb, A, B, p, 0);
 #pragma unroll
     for (int n = 0; n < 2; ++n) {
       if (n == slot) {
@@ -200,12 +220,12 @@ __device__ __forceinline__ EdgeTerms edge_terms(const int* __restrict__ table,
 }
 
 // Grid: (blocks over one (A, B) slab, panel, blocks of LEVELS levels).
-template <typename T>
+template <typename T, bool CART>
 __global__ void dss_scalar_kernel(const T* __restrict__ x,
                                   const T* __restrict__ imult,
                                   const int* __restrict__ table,
                                   T* __restrict__ out, int K, int P, int A,
-                                  int B, int p) {
+                                  int B, int p, int nlinks, int wrap) {
   const int node = blockIdx.x * blockDim.x + threadIdx.x;
   if (node >= A * B) return;
   const int a = node / B;
@@ -213,8 +233,9 @@ __global__ void dss_scalar_kernel(const T* __restrict__ x,
   const int pa = blockIdx.y;
   const long long slab = (long long)A * B;
 
-  const PairNodes own = pair_nodes(a, b, A, B, p);
-  const EdgeTerms et = edge_terms(table, pa, a, b, A, B, p);
+  const PairNodes own = pair_nodes<CART>(a, b, A, B, p, wrap);
+  const EdgeTerms et =
+      CART ? EdgeTerms{} : edge_terms(table, pa, a, b, A, B, p);
   const T w = imult[pa * slab + node];
 
   // all the levels' loads first (a level past the end re-reads the last
@@ -238,7 +259,7 @@ __global__ void dss_scalar_kernel(const T* __restrict__ x,
   }
 }
 
-template <typename T>
+template <typename T, bool CART>
 __global__ void dss_vector_kernel(const T* __restrict__ u,
                                   const T* __restrict__ v,
                                   const T* __restrict__ imult,
@@ -246,7 +267,7 @@ __global__ void dss_vector_kernel(const T* __restrict__ u,
                                   const int* __restrict__ table,
                                   T* __restrict__ uo, T* __restrict__ vo,
                                   int K, int P, int A, int B, int p,
-                                  int nlinks) {
+                                  int nlinks, int wrap) {
   const int node = blockIdx.x * blockDim.x + threadIdx.x;
   if (node >= A * B) return;
   const int a = node / B;
@@ -254,8 +275,9 @@ __global__ void dss_vector_kernel(const T* __restrict__ u,
   const int pa = blockIdx.y;
   const long long slab = (long long)A * B;
 
-  const PairNodes own = pair_nodes(a, b, A, B, p);
-  const EdgeTerms et = edge_terms(table, pa, a, b, A, B, p);
+  const PairNodes own = pair_nodes<CART>(a, b, A, B, p, wrap);
+  const EdgeTerms et =
+      CART ? EdgeTerms{} : edge_terms(table, pa, a, b, A, B, p);
   const T w = imult[pa * slab + node];
   // rot is (4, nlinks, A): [r00, r01, r10, r11] at the destination position
   T r[2][4] = {};
@@ -356,13 +378,13 @@ struct WFinish {
 };
 
 // U, V have nz levels, W nz + 1 interfaces; the grid's z blocks cover nz + 1.
-template <typename T>
+template <typename T, bool CART>
 __global__ void dss_uvw_kernel(WFinish<T> wf, const T* __restrict__ imult,
                                const T* __restrict__ rot,
                                const int* __restrict__ table,
                                T* __restrict__ uo, T* __restrict__ vo,
                                T* __restrict__ wo, int P, int A, int B, int p,
-                               int nlinks) {
+                               int nlinks, int wrap) {
   const int node = blockIdx.x * blockDim.x + threadIdx.x;
   if (node >= A * B) return;
   const int a = node / B;
@@ -371,8 +393,9 @@ __global__ void dss_uvw_kernel(WFinish<T> wf, const T* __restrict__ imult,
   const long long slab = wf.slab;
   const int nz = wf.nz;
 
-  const PairNodes own = pair_nodes(a, b, A, B, p);
-  const EdgeTerms et = edge_terms(table, pa, a, b, A, B, p);
+  const PairNodes own = pair_nodes<CART>(a, b, A, B, p, wrap);
+  const EdgeTerms et =
+      CART ? EdgeTerms{} : edge_terms(table, pa, a, b, A, B, p);
   const T w = imult[pa * slab + node];
   T r[2][4] = {};
 #pragma unroll
@@ -451,11 +474,11 @@ struct StateArgs {
 };
 
 // U, V, Rt, Rho have nz levels, W nz + 1; the grid's z blocks cover nz + 1.
-template <typename T, bool RAY>
+template <typename T, bool RAY, bool CART>
 __global__ void dss_state_kernel(StateArgs<T> g, const T* __restrict__ imult,
                                  const T* __restrict__ rot,
                                  const int* __restrict__ table, int nz, int P,
-                                 int A, int B, int p, int nlinks) {
+                                 int A, int B, int p, int nlinks, int wrap) {
   const int node = blockIdx.x * blockDim.x + threadIdx.x;
   if (node >= A * B) return;
   const int a = node / B;
@@ -464,8 +487,9 @@ __global__ void dss_state_kernel(StateArgs<T> g, const T* __restrict__ imult,
   const long long slab = (long long)A * B;
   const long long lvl = (long long)P * slab;
 
-  const PairNodes own = pair_nodes(a, b, A, B, p);
-  const EdgeTerms et = edge_terms(table, pa, a, b, A, B, p);
+  const PairNodes own = pair_nodes<CART>(a, b, A, B, p, wrap);
+  const EdgeTerms et =
+      CART ? EdgeTerms{} : edge_terms(table, pa, a, b, A, B, p);
   const T w = imult[pa * slab + node];
   T r[2][4] = {};
 #pragma unroll
@@ -515,13 +539,14 @@ __global__ void dss_state_kernel(StateArgs<T> g, const T* __restrict__ imult,
   }
 }
 
-template <typename T>
+template <typename T, bool CART>
 __global__ void dss_scalar2_kernel(const T* __restrict__ x1,
                                    const T* __restrict__ x2,
                                    const T* __restrict__ imult,
                                    const int* __restrict__ table,
                                    T* __restrict__ o1, T* __restrict__ o2,
-                                   int K, int P, int A, int B, int p) {
+                                   int K, int P, int A, int B, int p,
+                                   int nlinks, int wrap) {
   const int node = blockIdx.x * blockDim.x + threadIdx.x;
   if (node >= A * B) return;
   const int a = node / B;
@@ -529,8 +554,9 @@ __global__ void dss_scalar2_kernel(const T* __restrict__ x1,
   const int pa = blockIdx.y;
   const long long slab = (long long)A * B;
 
-  const PairNodes own = pair_nodes(a, b, A, B, p);
-  const EdgeTerms et = edge_terms(table, pa, a, b, A, B, p);
+  const PairNodes own = pair_nodes<CART>(a, b, A, B, p, wrap);
+  const EdgeTerms et =
+      CART ? EdgeTerms{} : edge_terms(table, pa, a, b, A, B, p);
   const T w = imult[pa * slab + node];
 
   constexpr int LEVELS = S2_LEVELS;
@@ -553,12 +579,21 @@ __global__ void dss_scalar2_kernel(const T* __restrict__ x1,
   }
 }
 
+// Calls f with std::true_type for a grid without edge links (Cartesian: the
+// kernels' CART instantiation) and with std::false_type otherwise, so the
+// cubed sphere runs kernels without the wrap code.
+template <typename F>
+void by_grid(int nlinks, F f) {
+  if (nlinks == 0) f(std::true_type{});
+  else f(std::false_type{});
+}
+
 // ptrs: x U V Rt Rho W | fac U V Rt Rho W | ref U V Rt Rho W (both null:
 // no Rayleigh finish) | out U V Rt Rho W.
 template <typename T>
 int launch_state(const void* const* ptrs, const void* imult, const void* rot,
                  const void* table, int nz, int P, int A, int B, int p,
-                 int nlinks, void* stream) {
+                 int nlinks, int wrap, void* stream) {
   if (nz < 1) return -1;
   if (P > 0 && A > 0 && B > 0) {
     StateArgs<T> g;
@@ -571,16 +606,20 @@ int launch_state(const void* const* ptrs, const void* imult, const void* rot,
     const dim3 grid((unsigned)((A * B + STATE_THREADS - 1) / STATE_THREADS),
                     (unsigned)P,
                     (unsigned)((nz + 1 + STATE_LEVELS - 1) / STATE_LEVELS));
-    if (g.fac[0] != nullptr)
-      dss_state_kernel<T, true><<<grid, STATE_THREADS, 0,
-                                  (cudaStream_t)stream>>>(
-          g, (const T*)imult, (const T*)rot, (const int*)table, nz, P, A, B,
-          p, nlinks);
-    else
-      dss_state_kernel<T, false><<<grid, STATE_THREADS, 0,
-                                   (cudaStream_t)stream>>>(
-          g, (const T*)imult, (const T*)rot, (const int*)table, nz, P, A, B,
-          p, nlinks);
+    const bool ray = g.fac[0] != nullptr;
+    by_grid(nlinks, [&](auto cart) {
+      constexpr bool C = decltype(cart)::value;
+      if (ray)
+        dss_state_kernel<T, true, C><<<grid, STATE_THREADS, 0,
+                                       (cudaStream_t)stream>>>(
+            g, (const T*)imult, (const T*)rot, (const int*)table, nz, P, A,
+            B, p, nlinks, wrap);
+      else
+        dss_state_kernel<T, false, C><<<grid, STATE_THREADS, 0,
+                                        (cudaStream_t)stream>>>(
+            g, (const T*)imult, (const T*)rot, (const int*)table, nz, P, A,
+            B, p, nlinks, wrap);
+    });
   }
   return (int)cudaGetLastError();
 }
@@ -588,13 +627,16 @@ int launch_state(const void* const* ptrs, const void* imult, const void* rot,
 template <typename T>
 int launch_scalar2(const void* x1, const void* x2, const void* imult,
                    const void* table, void* o1, void* o2, int K, int P, int A,
-                   int B, int p, void* stream) {
+                   int B, int p, int nlinks, int wrap, void* stream) {
   if (K > 0 && P > 0 && A > 0 && B > 0) {
     const dim3 grid((unsigned)((A * B + S2_THREADS - 1) / S2_THREADS),
                     (unsigned)P, (unsigned)((K + S2_LEVELS - 1) / S2_LEVELS));
-    dss_scalar2_kernel<T><<<grid, S2_THREADS, 0, (cudaStream_t)stream>>>(
-        (const T*)x1, (const T*)x2, (const T*)imult, (const int*)table,
-        (T*)o1, (T*)o2, K, P, A, B, p);
+    by_grid(nlinks, [&](auto cart) {
+      dss_scalar2_kernel<T, decltype(cart)::value>
+          <<<grid, S2_THREADS, 0, (cudaStream_t)stream>>>(
+              (const T*)x1, (const T*)x2, (const T*)imult, (const int*)table,
+              (T*)o1, (T*)o2, K, P, A, B, p, nlinks, wrap);
+    });
   }
   return (int)cudaGetLastError();
 }
@@ -605,7 +647,7 @@ int launch_uvw(const void* u, const void* v, const void* bw1, const void* bw2,
                const void* cxx0, const void* imult, const void* rot,
                const void* table, void* uo, void* vo, void* wo, double dt_s,
                double cb1, double cb2, double c00, double c01, int nz, int P,
-               int A, int B, int p, int nlinks, void* stream) {
+               int A, int B, int p, int nlinks, int wrap, void* stream) {
   if (nz < 2) return -1;  // the bottom row reads levels 0 and 1
   if (P > 0 && A > 0 && B > 0) {
     WFinish<T> wf;
@@ -628,22 +670,29 @@ int launch_uvw(const void* u, const void* v, const void* bw1, const void* bw2,
     const dim3 grid((unsigned)((A * B + UVW_THREADS - 1) / UVW_THREADS),
                     (unsigned)P,
                     (unsigned)((nz + 1 + UVW_LEVELS - 1) / UVW_LEVELS));
-    dss_uvw_kernel<T><<<grid, UVW_THREADS, 0, (cudaStream_t)stream>>>(
-        wf, (const T*)imult, (const T*)rot, (const int*)table, (T*)uo, (T*)vo,
-        (T*)wo, P, A, B, p, nlinks);
+    by_grid(nlinks, [&](auto cart) {
+      dss_uvw_kernel<T, decltype(cart)::value>
+          <<<grid, UVW_THREADS, 0, (cudaStream_t)stream>>>(
+              wf, (const T*)imult, (const T*)rot, (const int*)table, (T*)uo,
+              (T*)vo, (T*)wo, P, A, B, p, nlinks, wrap);
+    });
   }
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_scalar(const void* x, const void* imult, const void* table,
-                  void* out, int K, int P, int A, int B, int p, void* stream) {
+                  void* out, int K, int P, int A, int B, int p, int nlinks,
+                  int wrap, void* stream) {
   if (K > 0 && P > 0 && A > 0 && B > 0) {
     const dim3 grid((unsigned)((A * B + THREADS - 1) / THREADS), (unsigned)P,
                     (unsigned)((K + LEVELS - 1) / LEVELS));
-    dss_scalar_kernel<T><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-        (const T*)x, (const T*)imult, (const int*)table, (T*)out, K, P, A, B,
-        p);
+    by_grid(nlinks, [&](auto cart) {
+      dss_scalar_kernel<T, decltype(cart)::value>
+          <<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+              (const T*)x, (const T*)imult, (const int*)table, (T*)out, K, P,
+              A, B, p, nlinks, wrap);
+    });
   }
   return (int)cudaGetLastError();
 }
@@ -651,14 +700,17 @@ int launch_scalar(const void* x, const void* imult, const void* table,
 template <typename T>
 int launch_vector(const void* u, const void* v, const void* imult,
                   const void* rot, const void* table, void* uo, void* vo,
-                  int K, int P, int A, int B, int p, int nlinks,
+                  int K, int P, int A, int B, int p, int nlinks, int wrap,
                   void* stream) {
   if (K > 0 && P > 0 && A > 0 && B > 0) {
     const dim3 grid((unsigned)((A * B + THREADS - 1) / THREADS), (unsigned)P,
                     (unsigned)((K + LEVELS - 1) / LEVELS));
-    dss_vector_kernel<T><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-        (const T*)u, (const T*)v, (const T*)imult, (const T*)rot,
-        (const int*)table, (T*)uo, (T*)vo, K, P, A, B, p, nlinks);
+    by_grid(nlinks, [&](auto cart) {
+      dss_vector_kernel<T, decltype(cart)::value>
+          <<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+              (const T*)u, (const T*)v, (const T*)imult, (const T*)rot,
+              (const int*)table, (T*)uo, (T*)vo, K, P, A, B, p, nlinks, wrap);
+    });
   }
   return (int)cudaGetLastError();
 }
@@ -668,31 +720,33 @@ int launch_vector(const void* u, const void* v, const void* imult,
 extern "C" {
 
 int dss_scalar_f32(const void* x, const void* imult, const void* table,
-                   void* out, int K, int P, int A, int B, int p,
-                   void* stream) {
-  return launch_scalar<float>(x, imult, table, out, K, P, A, B, p, stream);
+                   void* out, int K, int P, int A, int B, int p, int nlinks,
+                   int wrap, void* stream) {
+  return launch_scalar<float>(x, imult, table, out, K, P, A, B, p, nlinks, wrap,
+                           stream);
 }
 
 int dss_scalar_f64(const void* x, const void* imult, const void* table,
-                   void* out, int K, int P, int A, int B, int p,
-                   void* stream) {
-  return launch_scalar<double>(x, imult, table, out, K, P, A, B, p, stream);
+                   void* out, int K, int P, int A, int B, int p, int nlinks,
+                   int wrap, void* stream) {
+  return launch_scalar<double>(x, imult, table, out, K, P, A, B, p, nlinks, wrap,
+                           stream);
 }
 
 int dss_vector_f32(const void* u, const void* v, const void* imult,
                    const void* rot, const void* table, void* uo, void* vo,
-                   int K, int P, int A, int B, int p, int nlinks,
+                   int K, int P, int A, int B, int p, int nlinks, int wrap,
                    void* stream) {
   return launch_vector<float>(u, v, imult, rot, table, uo, vo, K, P, A, B, p,
-                              nlinks, stream);
+                              nlinks, wrap, stream);
 }
 
 int dss_vector_f64(const void* u, const void* v, const void* imult,
                    const void* rot, const void* table, void* uo, void* vo,
-                   int K, int P, int A, int B, int p, int nlinks,
+                   int K, int P, int A, int B, int p, int nlinks, int wrap,
                    void* stream) {
   return launch_vector<double>(u, v, imult, rot, table, uo, vo, K, P, A, B, p,
-                               nlinks, stream);
+                               nlinks, wrap, stream);
 }
 
 // bw2 may be null (single base).  Returns cudaGetLastError(), or -1 when
@@ -702,10 +756,10 @@ int dss_uvw_f32(const void* u, const void* v, const void* bw1, const void* bw2,
                 const void* cxx0, const void* imult, const void* rot,
                 const void* table, void* uo, void* vo, void* wo, double dt_s,
                 double cb1, double cb2, double c00, double c01, int nz, int P,
-                int A, int B, int p, int nlinks, void* stream) {
+                int A, int B, int p, int nlinks, int wrap, void* stream) {
   return launch_uvw<float>(u, v, bw1, bw2, dw, cax0, cbx0, cxx0, imult, rot,
                            table, uo, vo, wo, dt_s, cb1, cb2, c00, c01, nz, P,
-                           A, B, p, nlinks, stream);
+                           A, B, p, nlinks, wrap, stream);
 }
 
 int dss_uvw_f64(const void* u, const void* v, const void* bw1, const void* bw2,
@@ -713,39 +767,39 @@ int dss_uvw_f64(const void* u, const void* v, const void* bw1, const void* bw2,
                 const void* cxx0, const void* imult, const void* rot,
                 const void* table, void* uo, void* vo, void* wo, double dt_s,
                 double cb1, double cb2, double c00, double c01, int nz, int P,
-                int A, int B, int p, int nlinks, void* stream) {
+                int A, int B, int p, int nlinks, int wrap, void* stream) {
   return launch_uvw<double>(u, v, bw1, bw2, dw, cax0, cbx0, cxx0, imult, rot,
                             table, uo, vo, wo, dt_s, cb1, cb2, c00, c01, nz, P,
-                            A, B, p, nlinks, stream);
+                            A, B, p, nlinks, wrap, stream);
 }
 
 // Returns cudaGetLastError(), or -1 when nz < 1.
 int dss_state_f32(const void* const* ptrs, const void* imult, const void* rot,
                   const void* table, int nz, int P, int A, int B, int p,
-                  int nlinks, void* stream) {
+                  int nlinks, int wrap, void* stream) {
   return launch_state<float>(ptrs, imult, rot, table, nz, P, A, B, p, nlinks,
-                             stream);
+                             wrap, stream);
 }
 
 int dss_state_f64(const void* const* ptrs, const void* imult, const void* rot,
                   const void* table, int nz, int P, int A, int B, int p,
-                  int nlinks, void* stream) {
+                  int nlinks, int wrap, void* stream) {
   return launch_state<double>(ptrs, imult, rot, table, nz, P, A, B, p, nlinks,
-                              stream);
+                              wrap, stream);
 }
 
 int dss_scalar2_f32(const void* x1, const void* x2, const void* imult,
                     const void* table, void* o1, void* o2, int K, int P, int A,
-                    int B, int p, void* stream) {
+                    int B, int p, int nlinks, int wrap, void* stream) {
   return launch_scalar2<float>(x1, x2, imult, table, o1, o2, K, P, A, B, p,
-                               stream);
+                               nlinks, wrap, stream);
 }
 
 int dss_scalar2_f64(const void* x1, const void* x2, const void* imult,
                     const void* table, void* o1, void* o2, int K, int P, int A,
-                    int B, int p, void* stream) {
+                    int B, int p, int nlinks, int wrap, void* stream) {
   return launch_scalar2<double>(x1, x2, imult, table, o1, o2, K, P, A, B, p,
-                                stream);
+                                nlinks, wrap, stream);
 }
 
 }  // extern "C"

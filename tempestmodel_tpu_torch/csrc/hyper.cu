@@ -23,7 +23,9 @@
 //     sums of those and stores its five outputs.  The two tile sets alternate,
 //     so no third barrier is needed before the next level;
 //   - the b-derivative is the same element-local p-point sum as the
-//     a-derivative, read along the tile's row;
+//     a-derivative, read along the tile's row, with the element matrices
+//     over the element width along b (it differs from the one along a on a
+//     Cartesian grid);
 //   - W has one level more than the other fields: the chunks cover nz + 1
 //     levels and the four level fields are skipped on the last (the test is
 //     uniform over the block);
@@ -72,24 +74,27 @@ struct HyperArgs {
   const T* x[5];     // differentiated fields U, V, Rt, Rho, W (pass 2: work)
   const T* base[5];  // pass 2: the state the update is added to
   const T* m2d;      // (8, P, A, B): c2aa c2ab c2ba c2bb j2 1/j2 jl 1/jl
-  const T* ds;       // D[s, i] / delta, then S[i, s] / delta
+  const T* ds;       // D[s, i] / delta, then S[i, s] / delta: along a, then b
   T* out[5];
   T nu_d, nu_v, dt, dtnu;  // dtnu = dt * nu_scalar
   int nz, P, A, B, p, TA, TB;
 };
 
 // Grid: (tiles of one panel, panel, chunks of HYPER_LEVELS levels); block:
-// TA * TB threads; dynamic shared memory: D, S, then NIN + NMID tiles.
+// TA * TB threads; dynamic shared memory: D, S along a and along b, then
+// NIN + NMID tiles.
 template <typename T, bool PASS2>
 __global__ void nu4_kernel(const HyperArgs<T> g) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Dd = reinterpret_cast<T*>(smem_raw);  // Dd[s * p + i] = D[s, i] / delta
   const int nz = g.nz, p = g.p, A = g.A, B = g.B, TA = g.TA, TB = g.TB;
   T* Sd = Dd + p * p;                      // Sd[i * p + s] = S[i, s] / delta
+  T* Ddb = Sd + p * p;                     // the same over the width along b
+  T* Sdb = Ddb + p * p;
   const int nthreads = TA * TB;
   const int tid = threadIdx.x;
-  for (int i = tid; i < 2 * p * p; i += nthreads) Dd[i] = g.ds[i];
-  T* tile = Sd + p * p;
+  for (int i = tid; i < 4 * p * p; i += nthreads) Dd[i] = g.ds[i];
+  T* tile = Sdb + p * p;
   // first layer's inputs
   T* s_ju = tile;                  // j2 * u^a
   T* s_jv = tile + nthreads;       // j2 * u^b
@@ -150,7 +155,7 @@ __global__ void nu4_kernel(const HyperArgs<T> g) {
       for (int s = 0; s < p; ++s) {
         const int na = (ea0 + s) * TB + tx;  // node s of the element along a
         const int nb = ty * TB + eb0 + s;    // ... along b
-        const T da = Dd[s * p + ia], db = Dd[s * p + ib];
+        const T da = Dd[s * p + ia], db = Ddb[s * p + ib];
         if (lev) {
           dju += da * s_ju[na];
           djv += db * s_jv[nb];
@@ -184,7 +189,7 @@ __global__ void nu4_kernel(const HyperArgs<T> g) {
       for (int s = 0; s < p; ++s) {
         const int na = (ea0 + s) * TB + tx;
         const int nb = ty * TB + eb0 + s;
-        const T sa = Sd[ia * p + s], sb = Sd[ib * p + s];
+        const T sa = Sd[ia * p + s], sb = Sdb[ib * p + s];
         if (lev) {
           wda_div += sa * s_div[na];
           wdb_div += sb * s_div[nb];
@@ -255,7 +260,7 @@ int launch_nu4(const void* const* ptrs, const double* scal, const int* ints,
   g.TA = std::min(g.A, std::max(1, HYPER_TILE_A / p) * p);
   const int nthreads = g.TA * g.TB;
   const size_t smem =
-      sizeof(T) * (2 * p * p + (size_t)(NIN + NMID) * nthreads);
+      sizeof(T) * (4 * p * p + (size_t)(NIN + NMID) * nthreads);
   if (nthreads > 1024 || smem > 48 * 1024) return -2;
   const unsigned tiles = (unsigned)(((g.A + g.TA - 1) / g.TA) *
                                     ((g.B + g.TB - 1) / g.TB));

@@ -38,7 +38,17 @@
 //     instantiation of its own (TR = false) with none of this in it.
 // Both metric forms are here: the separable Gal-Chen form (12 two-dimensional
 // fields held in registers plus two level profiles) and the full
-// three-dimensional metric tensors.
+// three-dimensional metric tensors (the Cartesian grids' decay coordinate
+// has no separable form, so their terrain takes this one).
+// A Cartesian grid has an instantiation of its own (CART): the element
+// matrices along b are a table of their own (the element widths along a and
+// b differ), and on an x-z slice (`xz` = 1 or 2, the TPU kernel's `xz_zero`
+// "U" or "V") the velocity slot that holds the physical V gets the vertical
+// penalty increment only; the test is uniform over the launch.  The
+// cubed-sphere instantiation reads the matrices along a for both axes and
+// has no x-z test, as before the Cartesian grids came.  A Schar slice ((40, 1, 4, 400) swapped, (40, 1, 400, 4)
+// not) is one or a few tiles wide: 13 or 100 tiles of 4 x 32 or 4 x 4 nodes,
+// times 7 level chunks.
 //
 // Bound on an H100 (3.35 TB/s): bytes.  The function must read 5 evaluation
 // fields and 4 (or 8) base fields and write 5 fields: 14 or 18 fields of
@@ -86,6 +96,8 @@ constexpr int NCOLS = 21;
 #ifndef STAGE_TILE_B
 #define STAGE_TILE_B 32
 #endif
+// what `xz` names: the slot of the physical V of an x-z slice
+constexpr int XZ_U = 1, XZ_V = 2;
 // Species whose flux tiles are filled in the level's first pass (and the
 // size of the later groups); each costs two tiles of shared memory and a
 // register.  With three species at (90, 6, 120, 120) float32 on an H100, 3
@@ -117,7 +129,8 @@ struct StageArgs {
   const T* caxii;
   const T* cbxii;
   const T* cxixii;
-  const T* tab;  // stencil table, then D/delta and S/delta
+  const T* tab;  // stencil table, then D/delta and S/delta along a and b
+  //              // (the sphere's instantiation reads the first two only)
   T* out[5];     // U, V, Rt, Rho, ucz_x
   // tracers (ntr * nz, P, A, B), null without: evaluation state, base 1,
   // base 2 (null for a single base), result
@@ -126,7 +139,10 @@ struct StageArgs {
   const T* btr2;
   T* otr;
   T dt_s, cb1, cb2, Cp, kappa, rp0, grav;
-  int nz, P, A, B, p, use_sep, has_pen, TA, TB;
+  // cart (a Cartesian grid) only chooses the instantiation at launch; as a
+  // host local instead it left this struct one int shorter and the tracer
+  // instantiation 11 % slower on an H100 (the same code otherwise)
+  int nz, P, A, B, p, use_sep, has_pen, xz, cart, TA, TB;
   int ntr, G;    // species, and species per group of flux tiles
 };
 
@@ -158,19 +174,22 @@ __device__ __forceinline__ T xi_dot_int(const StageArgs<T>& g, const T* tab,
 }
 
 // Grid: (tiles of one panel, panel, chunks of STAGE_LEVELS levels); block:
-// TA * TB threads; dynamic shared memory: the table, then NTILES tiles, then
-// 2 * G tracer flux tiles.
-template <typename T, bool TR>
+// TA * TB threads; dynamic shared memory: the table (with 2 element matrices,
+// 4 for CART), then NTILES tiles, then 2 * G tracer flux tiles.
+template <typename T, bool TR, bool CART>
 __global__ void fused_stage_kernel(const StageArgs<T> g) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* tab = reinterpret_cast<T*>(smem_raw);
   const int nz = g.nz, p = g.p, A = g.A, B = g.B, TA = g.TA, TB = g.TB;
-  const int ntab = (nz + 1) * NCOLS + 2 * p * p;
+  const int ntab = (nz + 1) * NCOLS + (CART ? 4 : 2) * p * p;
   const int nthreads = TA * TB;
   const int tid = threadIdx.x;
   for (int i = tid; i < ntab; i += nthreads) tab[i] = g.tab[i];
-  const T* Dd = tab + (nz + 1) * NCOLS;  // Dd[s * p + i] = D[s, i] / delta
-  const T* Sd = Dd + p * p;              // Sd[i * p + s] = S[i, s] / delta
+  const T* Dd = tab + (nz + 1) * NCOLS;  // Dd[s * p + i] = D[s, i] / delta_a
+  const T* Sd = Dd + p * p;              // Sd[i * p + s] = S[i, s] / delta_a
+  // ... over the element width along b
+  const T* Ddb = CART ? Sd + p * p : Dd;
+  const T* Sdb = CART ? Sd + 2 * p * p : Sd;
   T* tile = tab + ntab;
   T* sv = tile;
   T* su = tile + nthreads;
@@ -264,7 +283,7 @@ __global__ void fused_stage_kernel(const StageArgs<T> g) {
           T wk = T(0);
           for (int e = 0; e < p; ++e)
             wk += Sd[ia * p + e] * fa[(ea0 + e) * TB + tx] +
-                  Sd[ib * p + e] * fb[ty * TB + eb0 + e];
+                  Sdb[ib * p + e] * fb[ty * TB + eb0 + e];
           const long long ot = ((long long)(s0 + j) * nz + k) * level + col;
           g.otr[ot] = tv[j] + g.dt_s * (wk / jac);
         }
@@ -342,8 +361,8 @@ __global__ void fused_stage_kernel(const StageArgs<T> g) {
       for (int s = 0; s < p; ++s) {
         const int na = (ea0 + s) * TB + tx;  // node s of the element along a
         const int nb = ty * TB + eb0 + s;    // ... along b
-        const T da = Dd[s * p + ia], db = Dd[s * p + ib];
-        const T sa = Sd[ia * p + s], sb = Sd[ib * p + s];
+        const T da = Dd[s * p + ia], db = Ddb[s * p + ib];
+        const T sa = Sd[ia * p + s], sb = Sdb[ib * p + s];
         dv_da += da * sv[na];
         dwn_da += da * swn[na];
         dke_a += da * ske[na];
@@ -362,10 +381,14 @@ __global__ void fused_stage_kernel(const StageArgs<T> g) {
       const T ucz_b = con_ux * jzeta_a - con_ua * jzeta_x;
       const T ucz_x = -con_ua * dwn_da - con_ub * dwn_db;
       const T theta = rt / rho;
-      const T dU = (ucz_a + fj * con_ub -
-                    (dpi_a * theta + dke_a + g.grav * dra)) + pen_u;
-      const T dV = (ucz_b - fj * con_ua -
-                    (dpi_b * theta + dke_b + g.grav * drb)) + pen_v;
+      const T dU = (CART && g.xz == XZ_U) ? pen_u
+                                : (ucz_a + fj * con_ub -
+                                   (dpi_a * theta + dke_a + g.grav * dra)) +
+                                      pen_u;
+      const T dV = (CART && g.xz == XZ_V) ? pen_v
+                                : (ucz_b - fj * con_ua -
+                                   (dpi_b * theta + dke_b + g.grav * drb)) +
+                                      pen_v;
       // weak divergence = -(a part + b part); tendency = -divergence / jac
       const T tend[4] = {dU, dV, wk_rt / jac, wk_rho / jac};
 #pragma unroll
@@ -397,7 +420,8 @@ __global__ void fused_stage_kernel(const StageArgs<T> g) {
 // m2d | caxi cbxi cxixi jac dra drb caxii cbxii cxixii (null: separable) |
 // tab | out U V Rt Rho ucz_x | tracers: eval, base1, base2 (null: single),
 // out (all null without tracers).  scal: dt_s cb1 cb2 Cp Rd/(Cp-Rd) Rd/P0 g.
-// ints: nz P A B p use_sep has_pen ntr.
+// ints: nz P A B p use_sep has_pen ntr xz cart (cart: a Cartesian grid, the
+// CART instantiation; xz is read only there).
 // Returns cudaGetLastError(), -1 for shapes the kernel does not take, -2 if
 // the table and tiles exceed the default shared-memory limit.
 template <typename T>
@@ -444,9 +468,12 @@ int launch_stage(const void* const* ptrs, const double* scal, const int* ints,
   g.use_sep = ints[5];
   g.has_pen = ints[6];
   g.ntr = ints[7];
+  g.xz = ints[8];
+  g.cart = ints[9];
   const int p = g.p;
   if (g.nz < 1 || g.P < 1 || p < 1 || p > 8 || g.A < p || g.B < p ||
-      g.A % p != 0 || g.B % p != 0 || g.ntr < 0 ||
+      g.A % p != 0 || g.B % p != 0 || g.ntr < 0 || g.xz < 0 || g.xz > 2 ||
+      (g.xz != 0 && !g.cart) ||
       (g.ntr > 0 && (!g.tr || !g.btr1 || !g.otr)) ||
       ((g.btr2 != nullptr) != (g.ntr > 0 && g.b2[0] != nullptr)))
     return -1;
@@ -457,7 +484,8 @@ int launch_stage(const void* const* ptrs, const double* scal, const int* ints,
   const int nthreads = g.TA * g.TB;
   // as many species per group as asked for and as the default limit holds
   const auto smem_for = [&](int G) {
-    return sizeof(T) * ((size_t)(g.nz + 1) * NCOLS + 2 * p * p +
+    return sizeof(T) * ((size_t)(g.nz + 1) * NCOLS +
+                        (size_t)(g.cart ? 4 : 2) * p * p +
                         (size_t)(NTILES + 2 * G) * nthreads);
   };
   g.G = std::min(g.ntr, STAGE_SPECIES);
@@ -468,10 +496,18 @@ int launch_stage(const void* const* ptrs, const double* scal, const int* ints,
                                     ((g.B + g.TB - 1) / g.TB));
   const dim3 grid(tiles, (unsigned)g.P,
                   (unsigned)((g.nz + STAGE_LEVELS - 1) / STAGE_LEVELS));
-  if (g.ntr > 0)
-    fused_stage_kernel<T, true><<<grid, nthreads, smem, (cudaStream_t)stream>>>(g);
-  else
-    fused_stage_kernel<T, false><<<grid, nthreads, smem, (cudaStream_t)stream>>>(g);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (g.cart) {
+    if (g.ntr > 0)
+      fused_stage_kernel<T, true, true><<<grid, nthreads, smem, st>>>(g);
+    else
+      fused_stage_kernel<T, false, true><<<grid, nthreads, smem, st>>>(g);
+  } else {
+    if (g.ntr > 0)
+      fused_stage_kernel<T, true, false><<<grid, nthreads, smem, st>>>(g);
+    else
+      fused_stage_kernel<T, false, false><<<grid, nthreads, smem, st>>>(g);
+  }
   return (int)cudaGetLastError();
 }
 

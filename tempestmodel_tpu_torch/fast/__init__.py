@@ -3,10 +3,12 @@
 The z-first re-expression of the Strang-HEVI step.  The state is a DICT of
 per-field z-first tensors
 
-    {U, V, Rt, Rho: (nz, 6, A, B), W: (nz+1, 6, A, B)}
+    {U, V, Rt, Rho: (nz, P, A, B), W: (nz+1, P, A, B)}
 
-on the 6 cubed-sphere panels, optionally with ``Tracers``: all species as one
-flat species-major field ``(ntr * nz, 6, A, B)``.  Execution shape:
+on the P = 6 cubed-sphere panels or the P = 1 panel of a periodic Cartesian
+grid (x-z slice or 3-D plane, ``build_fast_geometry_cartesian``), optionally
+with ``Tracers``: all species as one flat species-major field ``(ntr * nz, P,
+A, B)``.  Execution shape:
 
 - **vertical column operators** contract the LEADING level axis — clean
   ``(K, nz) @ (nz, 6*A*B)`` GEMMs, no layout churn;
@@ -37,10 +39,11 @@ flat species-major field ``(ntr * nz, 6, A, B)``.  Execution shape:
 
 ``make_fast_step`` chooses between the two paths by predicates on the
 configuration (``fused=False`` forces the unfused one) and runs eagerly;
-``make_fast_multistep`` replays K steps as one CUDA graph.  Cartesian grids
-and the device-mesh engine are not ported yet.
+``make_fast_multistep`` replays K steps as one CUDA graph.  The device-mesh
+engine is not ported yet.
 """
 
-from .engine import (FastGeometry, build_fast_geometry, pack_state,
-                     unpack_state, make_fast_step, make_fast_multistep)
+from .engine import (FastGeometry, build_fast_geometry,
+                     build_fast_geometry_cartesian, pack_state, unpack_state,
+                     make_fast_step, make_fast_multistep)
 from . import engine

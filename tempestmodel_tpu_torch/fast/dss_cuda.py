@@ -1,14 +1,19 @@
-"""Cubed-sphere DSS, one launch per field or per group of fields: the CUDA
-kernels' wrappers and their plain versions.
+"""DSS, one launch per field or per group of fields: the CUDA kernels'
+wrappers and their plain versions.
 
 Counterpart of the JAX package's ``fast/dss_pallas.py`` (``dss_scalar``,
-``dss_vector``, ``dss_uvw``, ``dss_state``, ``dss_scalar2``).  DSS (direct stiffness summation) replaces every group of
-coincident GLL nodes by its mean: interior element pair sums inside each
-panel (along a, then b), plus the 24 panel-edge link lines taken from the
-PAIR-SUMMED neighbour panel (reversed where ``flip``; rotated by the
-per-node 2x2 covariant transform for the (U, V) pair), times the inverse
-multiplicity.  A cube-corner node lies on two edges and receives two
-contributions.
+``dss_vector``, ``dss_uvw``, ``dss_state``, ``dss_scalar2``).  DSS (direct
+stiffness summation) replaces every group of coincident GLL nodes by its
+mean: interior element pair sums inside each panel (along a, then b), plus
+the 24 panel-edge link lines taken from the PAIR-SUMMED neighbour panel
+(reversed where ``flip``; rotated by the per-node 2x2 covariant transform
+for the (U, V) pair), times the inverse multiplicity.  A cube-corner node
+lies on two edges and receives two contributions.
+
+A Cartesian grid is one panel without links (``links == ()``, A and B may
+differ); ``wrap`` = (along a, along b) then adds the periodic wrap-sum: node
+0 and node A-1 (B-1) of a periodic axis are one pair, as in
+``grid/cartesian._pair_sum_axis``.
 
 The kernels (``csrc/dss.cu``) are gathers with one thread per output node;
 see the note there for the design and the bound on the card.  Fields are
@@ -36,6 +41,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..grid.cartesian import _pair_sum_axis
 from ..grid.geometry import EDGE_LEFT, EDGE_RIGHT, EDGE_BOTTOM, EDGE_TOP
 from ..kernels import build
 from ..kernels.counts import launch_counts
@@ -45,17 +51,13 @@ from ..kernels.counts import launch_counts
 # plain versions
 # ---------------------------------------------------------------------------
 
-def _pair_sum_plain(f, p: int):
+def _pair_sum_plain(f, p: int, wrap=(False, False)):
     """Interior element pair sums along axes 2 (a) and 3 (b) of a
-    (K, P, A, B) field.  Works on a copy, written in place."""
-    f = f.clone()
-    s = f[:, :, p - 1:-1:p] + f[:, :, p::p]
-    f[:, :, p - 1:-1:p] = s
-    f[:, :, p::p] = s
-    s = f[:, :, :, p - 1:-1:p] + f[:, :, :, p::p]
-    f[:, :, :, p - 1:-1:p] = s
-    f[:, :, :, p::p] = s
-    return f
+    (K, P, A, B) field, with the periodic wrap-sum on the axes ``wrap``
+    names.  Returns a fresh tensor."""
+    K, P, A, B = f.shape
+    f = _pair_sum_axis(f, A // p, p, 2, bool(wrap[0]))
+    return _pair_sum_axis(f, B // p, p, 3, bool(wrap[1]))
 
 
 def _edge_view(f, panel: int, edge: int):
@@ -71,9 +73,9 @@ def _edge_view(f, panel: int, edge: int):
     raise ValueError(edge)
 
 
-def dss_scalar_plain(f, imult, links, p: int):
+def dss_scalar_plain(f, imult, links, p: int, wrap=(False, False)):
     """Plain PyTorch DSS of a scalar (K, P, A, B) field."""
-    s = _pair_sum_plain(f, p)
+    s = _pair_sum_plain(f, p, wrap)
     # every neighbour line is taken from the PRE-edge-sum panel sums
     out = s.clone()
     for (pa, e, qa, qe, flip) in links:
@@ -84,11 +86,11 @@ def dss_scalar_plain(f, imult, links, p: int):
     return out * imult[None]
 
 
-def dss_vector_plain(u, v, imult, rot, links, p: int):
+def dss_vector_plain(u, v, imult, rot, links, p: int, wrap=(False, False)):
     """Plain PyTorch DSS of a covariant (U, V) pair; ``rot`` is
     ``(4, nlinks, A)`` = [r00, r01, r10, r11] along each destination edge."""
-    su = _pair_sum_plain(u, p)
-    sv = _pair_sum_plain(v, p)
+    su = _pair_sum_plain(u, p, wrap)
+    sv = _pair_sum_plain(v, p, wrap)
     ou, ov = su.clone(), sv.clone()
     for i, (pa, e, qa, qe, flip) in enumerate(links):
         lu = _edge_view(su, qa, qe)
@@ -120,31 +122,33 @@ def w_finish_plain(u, v, wf):
     return w
 
 
-def dss_uvw_plain(u, v, imult, rot, links, p: int, w_finish):
+def dss_uvw_plain(u, v, imult, rot, links, p: int, w_finish,
+                  wrap=(False, False)):
     """Plain PyTorch version of ``dss_uvw``: the W finish, then the vector
     DSS of (U, V) and the scalar DSS of W."""
     w = w_finish_plain(u, v, w_finish)
-    uo, vo = dss_vector_plain(u, v, imult, rot, links, p)
-    return uo, vo, dss_scalar_plain(w, imult, links, p)
+    uo, vo = dss_vector_plain(u, v, imult, rot, links, p, wrap)
+    return uo, vo, dss_scalar_plain(w, imult, links, p, wrap)
 
 
 STATE_FIELDS = ("U", "V", "Rt", "Rho", "W")
 
 
-def dss_scalar2_plain(f1, f2, imult, links, p: int):
+def dss_scalar2_plain(f1, f2, imult, links, p: int, wrap=(False, False)):
     """Plain PyTorch version of ``dss_scalar2``: two scalar DSS."""
-    return (dss_scalar_plain(f1, imult, links, p),
-            dss_scalar_plain(f2, imult, links, p))
+    return (dss_scalar_plain(f1, imult, links, p, wrap),
+            dss_scalar_plain(f2, imult, links, p, wrap))
 
 
-def dss_state_plain(d, imult, rot, links, p: int, rayleigh=None):
+def dss_state_plain(d, imult, rot, links, p: int, rayleigh=None,
+                    wrap=(False, False)):
     """Plain PyTorch version of ``dss_state``: the vector DSS of (U, V), the
     scalar DSS of Rt, Rho and W, then ``fac * x + ref`` per field where
     ``rayleigh = (fac, ref)`` (two state dicts) is given."""
-    u, v = dss_vector_plain(d["U"], d["V"], imult, rot, links, p)
+    u, v = dss_vector_plain(d["U"], d["V"], imult, rot, links, p, wrap)
     out = {"U": u, "V": v}
     for k in ("Rt", "Rho", "W"):
-        out[k] = dss_scalar_plain(d[k], imult, links, p)
+        out[k] = dss_scalar_plain(d[k], imult, links, p, wrap)
     if rayleigh is not None:
         fac, ref = rayleigh
         out = {k: fac[k] * out[k] + ref[k] for k in STATE_FIELDS}
@@ -158,7 +162,10 @@ def dss_state_plain(d, imult, rot, links, p: int, rayleigh=None):
 def link_table(links, npanels: int = 6) -> np.ndarray:
     """Per-(panel, edge) lookup of the link list: an int32 ``(npanels*4, 4)``
     array of (neighbour panel, neighbour edge, flip, link index).  Raises
-    unless every (panel, edge) is the destination of exactly one link."""
+    unless every (panel, edge) is the destination of exactly one link.  A
+    grid without links (Cartesian) has the empty ``(0, 4)`` table."""
+    if not links:
+        return np.zeros((0, 4), np.int32)
     table = np.full((npanels * 4, 4), -1, np.int32)
     for i, (pa, e, qa, qe, flip) in enumerate(links):
         row = pa * 4 + e
@@ -183,18 +190,30 @@ def _check_field(name, f, ref=None):
 
 
 def _check_common(f, imult, links, p, wrap, table):
+    """Raises on what the kernels do not take.  Returns ``(table, flags)``:
+    the device link table (made when absent; checked on CUDA only) and the
+    wrap bits of the kernels (1: along a, 2: along b)."""
     K, P, A, B = f.shape
-    if tuple(wrap) != (False, False):
-        raise NotImplementedError("periodic wrap (Cartesian grids) is not "
-                                  "ported; wrap must be (False, False)")
-    if A != B or A % p != 0:
-        raise ValueError(f"panels must be square with A % p == 0, got "
-                         f"A={A} B={B} p={p}")
+    if len(wrap) != 2:
+        raise ValueError(f"wrap must name the two axes, got {wrap}")
+    flags = int(bool(wrap[0])) | 2 * int(bool(wrap[1]))
+    if p < 2 or A % p != 0 or B % p != 0:
+        raise ValueError(f"panels must hold whole elements of p >= 2 nodes, "
+                         f"got A={A} B={B} p={p}")
     if K > 5 * 65535 or P > 65535 or A * B >= 2 ** 31:
         raise ValueError(f"field too large for the kernel's grid: "
                          f"K={K}, P={P}, A*B={A * B}")
-    if len(links) != 4 * P:
-        raise ValueError(f"{len(links)} links for {P} panels")
+    if links:
+        if len(links) != 4 * P:
+            raise ValueError(f"{len(links)} links for {P} panels")
+        if A != B:
+            raise ValueError(f"panels with edge links must be square, got "
+                             f"A={A} B={B}")
+        if flags:
+            raise ValueError("the periodic wrap is for a grid without edge "
+                             "links")
+    elif P != 1:
+        raise ValueError(f"a grid without edge links has one panel, got {P}")
     if tuple(imult.shape) != (P, A, B) or imult.dtype != f.dtype \
             or imult.device != f.device or not imult.is_contiguous():
         raise ValueError("inv_mult must be a contiguous (P, A, B) tensor of "
@@ -202,11 +221,21 @@ def _check_common(f, imult, links, p, wrap, table):
     if f.device.type == "cuda":
         if table is None:
             table = torch.as_tensor(link_table(links, P), device=f.device)
-        if tuple(table.shape) != (4 * P, 4) or table.dtype != torch.int32 \
+        rows = 4 * P if links else 0
+        if tuple(table.shape) != (rows, 4) or table.dtype != torch.int32 \
                 or table.device != f.device or not table.is_contiguous():
-            raise ValueError("link table must be a contiguous int32 "
-                             "(4*P, 4) tensor on the field's device")
-    return table
+            raise ValueError(f"link table must be a contiguous int32 "
+                             f"({rows}, 4) tensor on the field's device")
+    return table, flags
+
+
+def _check_rot(rot, links, u):
+    """``rot``: (4, nlinks, A); a grid without links has a one-link dummy."""
+    if tuple(rot.shape) != (4, max(len(links), 1), u.shape[2]) \
+            or rot.dtype != u.dtype or rot.device != u.device \
+            or not rot.is_contiguous():
+        raise ValueError("rot must be a contiguous (4, nlinks, A) tensor of "
+                         "the fields' dtype and device")
 
 
 def dss_scalar(f, imult, links, p: int, wrap=(False, False), table=None):
@@ -215,9 +244,9 @@ def dss_scalar(f, imult, links, p: int, wrap=(False, False), table=None):
     ``table``: the device copy of ``link_table(links)`` (built once with the
     geometry; made on the fly when absent)."""
     _check_field("f", f)
-    table = _check_common(f, imult, links, p, wrap, table)
+    table, flags = _check_common(f, imult, links, p, wrap, table)
     if f.device.type == "cpu":
-        return dss_scalar_plain(f, imult, links, p)
+        return dss_scalar_plain(f, imult, links, p, wrap)
     if f.device.type != "cuda":
         raise ValueError(f"unsupported device {f.device}")
     K, P, A, B = f.shape
@@ -226,7 +255,7 @@ def dss_scalar(f, imult, links, p: int, wrap=(False, False), table=None):
     with torch.cuda.device(f.device):
         out = torch.empty_like(f)
         err = fn(f.data_ptr(), imult.data_ptr(), table.data_ptr(),
-                 out.data_ptr(), K, P, A, B, p,
+                 out.data_ptr(), K, P, A, B, p, len(links), flags,
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"dss_scalar kernel launch failed "
@@ -240,14 +269,11 @@ def dss_vector(u, v, imult, rot, links, p: int, wrap=(False, False),
     """DSS of a covariant vector pair (K, P, A, B) x 2; one kernel launch."""
     _check_field("u", u)
     _check_field("v", v, ref=u)
-    table = _check_common(u, imult, links, p, wrap, table)
+    table, flags = _check_common(u, imult, links, p, wrap, table)
     K, P, A, B = u.shape
-    if tuple(rot.shape) != (4, len(links), A) or rot.dtype != u.dtype \
-            or rot.device != u.device or not rot.is_contiguous():
-        raise ValueError("rot must be a contiguous (4, nlinks, A) tensor of "
-                         "the fields' dtype and device")
+    _check_rot(rot, links, u)
     if u.device.type == "cpu":
-        return dss_vector_plain(u, v, imult, rot, links, p)
+        return dss_vector_plain(u, v, imult, rot, links, p, wrap)
     if u.device.type != "cuda":
         raise ValueError(f"unsupported device {u.device}")
     lib = build.library("dss")
@@ -257,7 +283,7 @@ def dss_vector(u, v, imult, rot, links, p: int, wrap=(False, False),
         vo = torch.empty_like(v)
         err = fn(u.data_ptr(), v.data_ptr(), imult.data_ptr(),
                  rot.data_ptr(), table.data_ptr(), uo.data_ptr(),
-                 vo.data_ptr(), K, P, A, B, p, len(links),
+                 vo.data_ptr(), K, P, A, B, p, len(links), flags,
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"dss_vector kernel launch failed "
@@ -295,21 +321,18 @@ def dss_uvw(u, v, imult, rot, links, p: int, w_finish, wrap=(False, False),
     in; returns ``(u, v, w)``.  ``w_finish``: see ``w_finish_plain``."""
     _check_field("u", u)
     _check_field("v", v, ref=u)
-    table = _check_common(u, imult, links, p, wrap, table)
-    K, P, A, B = u.shape
-    if tuple(rot.shape) != (4, len(links), A) or rot.dtype != u.dtype \
-            or rot.device != u.device or not rot.is_contiguous():
-        raise ValueError("rot must be a contiguous (4, nlinks, A) tensor of "
-                         "the fields' dtype and device")
+    table, flags = _check_common(u, imult, links, p, wrap, table)
+    _check_rot(rot, links, u)
     _check_w_finish(w_finish, u)
     if u.device.type == "cpu":
-        return dss_uvw_plain(u, v, imult, rot, links, p, w_finish)
+        return dss_uvw_plain(u, v, imult, rot, links, p, w_finish, wrap)
     if u.device.type != "cuda":
         raise ValueError(f"unsupported device {u.device}")
-    return _dss_uvw_cuda(u, v, imult, rot, table, p, len(links), w_finish)
+    return _dss_uvw_cuda(u, v, imult, rot, table, p, len(links), flags,
+                         w_finish)
 
 
-def _dss_uvw_cuda(u, v, imult, rot, table, p, nlinks, wf):
+def _dss_uvw_cuda(u, v, imult, rot, table, p, nlinks, flags, wf):
     K, P, A, B = u.shape
     bw2 = wf.get("bw2")
     lib = build.library("dss")
@@ -326,7 +349,7 @@ def _dss_uvw_cuda(u, v, imult, rot, table, p, nlinks, wf):
                  uo.data_ptr(), vo.data_ptr(), wo.data_ptr(),
                  float(wf["dt_s"]), float(wf.get("cb1", 1.0)),
                  float(wf.get("cb2", 0.0)), float(wf["c00"]),
-                 float(wf["c01"]), K, P, A, B, p, nlinks,
+                 float(wf["c01"]), K, P, A, B, p, nlinks, flags,
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"dss_uvw kernel launch failed "
@@ -341,15 +364,15 @@ def dss_scalar2(f1, f2, imult, links, p: int, wrap=(False, False),
     launch.  Returns ``(out1, out2)``, equal to two ``dss_scalar`` calls."""
     _check_field("f1", f1)
     _check_field("f2", f2, ref=f1)
-    table = _check_common(f1, imult, links, p, wrap, table)
+    table, flags = _check_common(f1, imult, links, p, wrap, table)
     if f1.device.type == "cpu":
-        return dss_scalar2_plain(f1, f2, imult, links, p)
+        return dss_scalar2_plain(f1, f2, imult, links, p, wrap)
     if f1.device.type != "cuda":
         raise ValueError(f"unsupported device {f1.device}")
-    return _dss_scalar2_cuda(f1, f2, imult, table, p)
+    return _dss_scalar2_cuda(f1, f2, imult, table, p, len(links), flags)
 
 
-def _dss_scalar2_cuda(f1, f2, imult, table, p):
+def _dss_scalar2_cuda(f1, f2, imult, table, p, nlinks, flags):
     K, P, A, B = f1.shape
     lib = build.library("dss")
     fn = lib.dss_scalar2_f32 if f1.dtype == torch.float32 \
@@ -359,7 +382,7 @@ def _dss_scalar2_cuda(f1, f2, imult, table, p):
         o2 = torch.empty_like(f2)
         err = fn(f1.data_ptr(), f2.data_ptr(), imult.data_ptr(),
                  table.data_ptr(), o1.data_ptr(), o2.data_ptr(), K, P, A, B,
-                 p, torch.cuda.current_stream().cuda_stream)
+                 p, nlinks, flags, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"dss_scalar2 kernel launch failed "
                            f"(cudaGetLastError = {err})")
@@ -389,24 +412,21 @@ def dss_state(d, imult, rot, links, p: int, rayleigh=None,
     calls (and the plain Rayleigh finish)."""
     u = d["U"]
     _check_field("d['U']", u)
-    table = _check_common(u, imult, links, p, wrap, table)
+    table, flags = _check_common(u, imult, links, p, wrap, table)
     _check_state("d", d, u)
-    K, P, A, B = u.shape
-    if tuple(rot.shape) != (4, len(links), A) or rot.dtype != u.dtype \
-            or rot.device != u.device or not rot.is_contiguous():
-        raise ValueError("rot must be a contiguous (4, nlinks, A) tensor of "
-                         "the fields' dtype and device")
+    _check_rot(rot, links, u)
     if rayleigh is not None:
         for i, part in enumerate(rayleigh):
             _check_state(f"rayleigh[{i}]", part, u)
     if u.device.type == "cpu":
-        return dss_state_plain(d, imult, rot, links, p, rayleigh)
+        return dss_state_plain(d, imult, rot, links, p, rayleigh, wrap)
     if u.device.type != "cuda":
         raise ValueError(f"unsupported device {u.device}")
-    return _dss_state_cuda(d, imult, rot, table, p, len(links), rayleigh)
+    return _dss_state_cuda(d, imult, rot, table, p, len(links), flags,
+                           rayleigh)
 
 
-def _dss_state_cuda(d, imult, rot, table, p, nlinks, rayleigh):
+def _dss_state_cuda(d, imult, rot, table, p, nlinks, flags, rayleigh):
     u = d["U"]
     K, P, A, B = u.shape
     lib = build.library("dss")
@@ -419,7 +439,7 @@ def _dss_state_cuda(d, imult, rot, table, p, nlinks, rayleigh):
         ptrs = (ctypes.c_void_p * len(tensors))(
             *[None if t is None else t.data_ptr() for t in tensors])
         err = fn(ptrs, imult.data_ptr(), rot.data_ptr(), table.data_ptr(),
-                 K, P, A, B, p, nlinks,
+                 K, P, A, B, p, nlinks, flags,
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"dss_state kernel launch failed "

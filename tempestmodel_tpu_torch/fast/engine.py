@@ -1,7 +1,8 @@
 """Z-first engine: geometry, DSS, tendencies, Strang stepper.
 
 Counterpart of the JAX package's ``fast/engine.py``, for the cubed sphere
-on one device.  The execution shape is that package's:
+and the periodic Cartesian grids (x-z slice, 3-D plane) on one device.  The
+execution shape is that package's:
 
   state dict {U,V,Rt,W,Rho} of (6, A, B, nz[+1])
     ->  fast state dict of (nz[+1], 6, A, B)   ("z-first")
@@ -29,9 +30,12 @@ multi-right-hand-side banded kernel (``fast/tracers``,
 into one CUDA graph and replays it, which is this package's counterpart of
 K steps under one jit.
 
+A Cartesian grid is one panel without edge links: the DSS kernels take the
+periodic wrap-sum instead (``build_fast_geometry_cartesian``), and a grid
+with a short y extent may run (a, b)-transposed (``_swap_ab_state``).
+
 Not ported yet (they wait in the roadmap, none is declared unnecessary):
-Cartesian grids and the (a, b)-swapped layout, the device-mesh engine and
-IMEX.
+the device-mesh engine, IMEX, and no-flux Cartesian boundaries.
 
 Where the JAX code writes ``x.at[i].set(v)``, this one writes in place on
 a fresh tensor (a clone or a new result), never on an argument.
@@ -147,11 +151,13 @@ class FastGeometry:
     rayleigh_int: Any
     e_rot: Any       # (4, 24, A): [r00, r01, r10, r11] covariant transform
     dss_table: Any = None   # int32 (24, 4) device lookup of dss_links
-    #                       # (``dss_cuda.link_table``), read by the kernels
+    #                       # (``dss_cuda.link_table``), read by the kernels;
+    #                       # (0, 4) on a Cartesian grid
     area3d: Any = None   # (nz, 6, A, B) z-first (tracer positivity filters)
-    # (B, B) operators along the second (b) axis — equal to DA/Sd on a
-    # square block; they differ when the engine runs on a rectangular
-    # per-device block of a sharded mesh (A, B are then LOCAL extents)
+    # (B, B) operators along the second (b) axis -- equal to DA/Sd on a
+    # cubed-sphere panel; they differ on a Cartesian grid (other element
+    # count and width along b) and on the rectangular per-device block of a
+    # sharded mesh (A, B are then LOCAL extents)
     B: int = 0
     DA_b: Any = None
     Sd_b: Any = None
@@ -176,13 +182,21 @@ class FastGeometry:
     sep_da: Any = None
     sep_db: Any = None
     sep_jacl: Any = None
-    # grid family: 6 cubed-sphere panels with edge links (the Cartesian
-    # one-panel family with periodic wrap-sums is not ported yet; the
-    # fields are kept so the two FastGeometry classes stay field-compatible)
+    # grid family: 6 cubed-sphere panels with edge links, or 1 Cartesian
+    # panel with per-axis periodic wrap-sums in the DSS kernels
     npanels: int = 6
     wrap: tuple = (False, False)
+    # xz slice: which ENGINE velocity slot carries the physical V whose
+    # tendency is identically zero ("V" natural, "U" when ab_swapped)
     xz_zero: str = None
+    # a Cartesian grid may run TRANSPOSED: engine (a, b) = physical (y, x),
+    # engine U/V = physical V/U, fj negated -- an exact relabeling of the
+    # equations (orientation flip); the step functions swap at their
+    # boundary (``_swap_ab_state``)
     ab_swapped: bool = False
+    # hyperviscosity local scale always uses the physical delta_a (reference
+    # nu_local_scale), which differs from the engine's first-axis element
+    # width when ab_swapped
     nu_delta: float = None
 
 
@@ -356,6 +370,136 @@ def build_fast_geometry(geom: CubedSphereGeometry,
     )
 
 
+def _swap_ab_state(d):
+    """(a, b)-transpose a z-first state dict and relabel U <-> V (an
+    involution; contiguous fresh tensors).  Together with ``fj -> -fj`` this
+    is an EXACT relabeling of the equations (orientation flip): the engine
+    runs in (b, a) coordinates, so the long Cartesian x axis becomes the
+    kernels' contiguous b axis."""
+    m = {"U": "V", "V": "U"}
+    return {m.get(k, k): v.transpose(-2, -1).contiguous()
+            for k, v in d.items()}
+
+
+def swap_ab_default(geom) -> bool:
+    """The JAX package's rule for the layout of a Cartesian grid: swapped
+    when the y extent is shorter than the x extent and shorter than 32
+    nodes (``chip_smoke.py`` times both layouts of the Schar case)."""
+    B, A = geom.ney * geom.p, geom.nex * geom.p
+    return B < A and B < 32
+
+
+def build_fast_geometry_cartesian(geom, dtype=torch.float32, device=None,
+                                  swap_ab=None) -> FastGeometry:
+    """``FastGeometry`` from a ``grid/cartesian.CartesianGeometry`` (x-z
+    slice or 3-D plane), as tensors on ``device`` (default ``cuda``; raises
+    when absent).
+
+    One panel, no edge links: the DSS kernels run pure pair sums with the
+    per-axis periodic wrap-sum (``dss_cuda``, ``wrap``), the analog of
+    ``GridCartesianGLL::ApplyDSS`` periodic averaging.  The engine takes
+    periodic lateral boundaries only (``fast_engine_supported``).
+
+    ``swap_ab`` (default ``swap_ab_default``): run the engine transposed --
+    see ``_swap_ab_state``."""
+    dev = resolve_device(device)
+    npdt = np_dtype(dtype)
+    nz, p = geom.nz, geom.p
+    f64 = np.float64
+    if swap_ab is None:
+        swap_ab = swap_ab_default(geom)
+
+    D = np.asarray(geom.deriv, f64)
+    S = np.asarray(geom.stiff, f64)
+    if swap_ab:
+        ne_a, ne_b = geom.ney, geom.nex
+        d_a, d_b = geom.delta_b, geom.delta_a
+        wrap = (geom.bc_y == "periodic", geom.bc_x == "periodic")
+        fj_sign = -1.0
+    else:
+        ne_a, ne_b = geom.nex, geom.ney
+        d_a, d_b = geom.delta_a, geom.delta_b
+        wrap = (geom.bc_x == "periodic", geom.bc_y == "periodic")
+        fj_sign = 1.0
+    A = ne_a * p
+
+    def c(a):
+        return torch.as_tensor(np.ascontiguousarray(a, dtype=npdt),
+                               device=dev)
+
+    def zf(a):
+        """(1, A, B, nz) -> z-first (nz, 1, A, B), (a, b)-transposed when
+        swapped."""
+        out = np.moveaxis(np.asarray(a, f64), -1, 0)
+        return c(np.swapaxes(out, 2, 3) if swap_ab else out)
+
+    def c2d(a):
+        out = np.asarray(a, f64)
+        return c(np.swapaxes(out, 1, 2) if swap_ab else out)
+
+    con2d = np.asarray(geom.con2d, f64)
+    cor = np.asarray(geom.coriolis, f64)
+    j2 = np.asarray(geom.jac2d, f64)
+    n2i_stack = np.concatenate([np.asarray(geom.interp_n2i, f64),
+                                np.asarray(geom.diff_n2i, f64)], axis=0)
+    dra = np.asarray(geom.deriv_r, f64)[..., 0]
+    drb = np.asarray(geom.deriv_r, f64)[..., 1]
+    if swap_ab:
+        c2aa, c2bb = con2d[..., 1, 1], con2d[..., 0, 0]
+        c2ab, c2ba = con2d[..., 1, 0], con2d[..., 0, 1]
+        caxi, cbxi = geom.con_b_xi, geom.con_a_xi
+        caxi_i, cbxi_i = geom.con_b_xi_int, geom.con_a_xi_int
+        dra, drb = drb, dra
+    else:
+        c2aa, c2bb = con2d[..., 0, 0], con2d[..., 1, 1]
+        c2ab, c2ba = con2d[..., 0, 1], con2d[..., 1, 0]
+        caxi, cbxi = geom.con_a_xi, geom.con_b_xi
+        caxi_i, cbxi_i = geom.con_a_xi_int, geom.con_b_xi_int
+
+    def opt(a):
+        return None if a is None else c(a)
+
+    return FastGeometry(
+        n2i_stack=c(n2i_stack),
+        nz=nz, p=p, ne=ne_a, A=A, B=ne_b * p, vo=geom.vo,
+        is_xz=bool(geom.is_xz), delta=float(d_a),
+        nu_delta=float(geom.delta_a),
+        reference_length=float(geom.reference_length),
+        npanels=1, wrap=wrap, ab_swapped=bool(swap_ab),
+        xz_zero=(("U" if swap_ab else "V") if geom.is_xz else None),
+        dss_links=(),
+        DA=c(np.kron(np.eye(ne_a), D.T) / d_a),
+        Sd=c(np.kron(np.eye(ne_a), S) / d_a),
+        DA_b=c(np.kron(np.eye(ne_b), D.T) / d_b),
+        Sd_b=c(np.kron(np.eye(ne_b), S) / d_b),
+        DA_elem=D, S_elem=S,
+        interp_n2i=c(geom.interp_n2i), interp_i2n=c(geom.interp_i2n),
+        diff_n2n=c(geom.diff_n2n), diff_n2i=c(geom.diff_n2i),
+        diff_i2n=c(geom.diff_i2n), diff_i2i=c(geom.diff_i2i),
+        diffdiff_i2i=c(geom.diffdiff_i2i),
+        penalty_left=opt(geom.penalty_left),
+        penalty_right=opt(geom.penalty_right),
+        wscat_left=opt(geom.wscat_left), wscat_right=opt(geom.wscat_right),
+        c2_aa=c2d(c2aa), c2_ab=c2d(c2ab), c2_ba=c2d(c2ba), c2_bb=c2d(c2bb),
+        jac2d=c2d(j2), fj=c2d(fj_sign * cor * j2),
+        inv_mult=c2d(geom.inv_mult),
+        jac3d=zf(geom.jac3d), jac3d_int=zf(geom.jac3d_int),
+        con_a_xi=zf(caxi), con_b_xi=zf(cbxi),
+        con_xi_xi=zf(geom.con_xi_xi),
+        con_a_xi_int=zf(caxi_i), con_b_xi_int=zf(cbxi_i),
+        con_xi_xi_int=zf(geom.con_xi_xi_int),
+        area3d=zf(geom.area3d),
+        deriv_r_a=zf(dra), deriv_r_b=zf(drb),
+        deriv_r_xi_int=zf(np.asarray(geom.deriv_r_int, f64)[..., 2]),
+        rayleigh_lev=zf(geom.rayleigh_lev),
+        rayleigh_int=zf(geom.rayleigh_int),
+        # no panel links: the rotation table is never read; a one-link
+        # dummy keeps every array dimension nonzero, as in the JAX package
+        e_rot=c(np.zeros((4, 1, A))),
+        dss_table=torch.as_tensor(dss_cuda.link_table(()), device=dev),
+    )
+
+
 # ---------------------------------------------------------------------------
 # Horizontal operators (dense (A, A), z-batched)
 # ---------------------------------------------------------------------------
@@ -442,7 +586,8 @@ def apply_dss(d, fg: FastGeometry, rayleigh=None, plain: bool = False,
     plain path on the card.  The default launches the kernels for CUDA
     tensors (or raises) and runs the plain versions for CPU tensors."""
     common = (fg.inv_mult, fg.dss_links, fg.p)
-    kw = {} if plain else {"wrap": fg.wrap, "table": fg.dss_table}
+    kw = {"wrap": fg.wrap} if plain else {"wrap": fg.wrap,
+                                          "table": fg.dss_table}
     scalar = dss_cuda.dss_scalar_plain if plain else dss_cuda.dss_scalar
     if w_finish is None and "state" in merge:
         fn = dss_cuda.dss_state_plain if plain else dss_cuda.dss_state
@@ -528,10 +673,18 @@ def horizontal_tendency(d, fg: FastGeometry, constants: PhysicalConstants,
     theta = rt / rho
     fj = fg.fj[None]
 
-    dU = (ucz_a + fj * con_ub
-          - (dpi_a * theta + dke_a + constants.g * fg.deriv_r_a))
-    dV = (ucz_b - fj * con_ua
-          - (dpi_b * theta + dke_b + constants.g * fg.deriv_r_b))
+    # on an xz slice the slot of the physical V ("V", or "U" when (a, b)-
+    # swapped) has no tendency; the vertical penalty below still applies
+    if fg.xz_zero == "U":
+        dU = torch.zeros_like(u)
+    else:
+        dU = (ucz_a + fj * con_ub
+              - (dpi_a * theta + dke_a + constants.g * fg.deriv_r_a))
+    if fg.xz_zero == "V":
+        dV = torch.zeros_like(v)
+    else:
+        dV = (ucz_b - fj * con_ua
+              - (dpi_b * theta + dke_b + constants.g * fg.deriv_r_b))
     dRho = -div_rho / fg.jac3d
     dRt = -div_rt / fg.jac3d
 
@@ -719,12 +872,22 @@ def step_after_subcycle(d, dt, cfg: ModelConfig, fg: FastGeometry,
 
 def fast_engine_supported(cfg: ModelConfig, has_tracers: bool = False,
                           mesh=None, geom=None) -> bool:
-    """The configurations this engine covers: the cubed sphere on one
-    device, LOR staggering, Strang-HEVI, with or without tracers.  (The JAX
-    package's engine also covers periodic Cartesian grids and a device
-    mesh; those wait in the roadmap.)"""
+    """The configurations this engine covers: LOR staggering, Strang-HEVI,
+    with or without tracers, on one device, on the cubed sphere or on a
+    Cartesian grid (x-z slice or 3-D plane) with PERIODIC lateral
+    boundaries -- pass ``geom`` so that they can be checked; no-flux grids
+    are outside.  (The JAX package's engine also covers a device mesh; that
+    waits in the roadmap.)"""
     from ..config import TimestepSchemeType
-    return (cfg.grid_kind == GridKind.CUBED_SPHERE
+    if cfg.grid_kind == GridKind.CUBED_SPHERE:
+        grid_ok = True
+    elif cfg.grid_kind in (GridKind.CARTESIAN_XZ, GridKind.CARTESIAN_3D):
+        grid_ok = (geom is not None
+                   and getattr(geom, "bc_x", None) == "periodic"
+                   and getattr(geom, "bc_y", None) == "periodic")
+    else:
+        grid_ok = False
+    return (grid_ok
             and mesh is None
             and cfg.vertical_staggering == VerticalStaggering.LORENZ
             and cfg.timescheme == TimestepSchemeType.STRANG
@@ -738,7 +901,10 @@ def fast_engine_supported(cfg: ModelConfig, has_tracers: bool = False,
 def _rayleigh_terms(cfg: ModelConfig, geom, ref_state, fg):
     """(fac, ref_term) z-first damping tensors on the device of ``fg``, or
     None (host precompute; the reference's 10-cycle implicit Rayleigh
-    factor).  ``ref_state``: reference-layout dict of tensors or arrays."""
+    factor).  ``ref_state``: reference-layout dict of tensors or arrays.
+    ``fg`` also gives the xz exemption (the engine slot named by
+    ``fg.xz_zero`` holds the physical V, never damped) and the
+    (a, b)-transposed layout of a swapped Cartesian engine."""
     if not (cfg.rayleigh_damping and ref_state is not None):
         return None
     n_cycles = 10
@@ -748,17 +914,22 @@ def _rayleigh_terms(cfg: ModelConfig, geom, ref_state, fg):
     def fac_of(r):
         f = (1.0 / (1.0 + dt * np.asarray(r, np.float64)
                     / n_cycles)) ** n_cycles
-        return np.moveaxis(f, -1, 0)
+        f = np.moveaxis(f, -1, 0)
+        return np.swapaxes(f, 2, 3) if fg.ab_swapped else f
 
     fac_lev = fac_of(geom.rayleigh_lev)
     fac_int = fac_of(geom.rayleigh_int)
     fac = {"U": fac_lev, "V": fac_lev, "Rt": fac_lev,
            "Rho": np.ones_like(fac_lev), "W": fac_int}
+    if fg.xz_zero is not None:
+        fac[fg.xz_zero] = np.ones_like(fac_lev)
     npdt = np_dtype(cfg.dtype)
     fac = {k: torch.as_tensor(np.ascontiguousarray(v, dtype=npdt), device=dev)
            for k, v in fac.items()}
     ref_zf = pack_state({k: torch.as_tensor(v).to(cfg.dtype)
                          for k, v in ref_state.items()}, device=dev)
+    if fg.ab_swapped:
+        ref_zf = _swap_ab_state(ref_zf)
     ref_term = tree_map(lambda f, r: (1.0 - f) * r, fac, ref_zf)
     return (fac, ref_term)
 
@@ -880,11 +1051,16 @@ def _strang_fns(cfg: ModelConfig, fg: FastGeometry, rayleigh, dss_fn,
     return first_fn, step_fn
 
 
-def make_fast_step(cfg: ModelConfig, geom: CubedSphereGeometry,
-                   ref_state=None, mesh=None, ntracers: int = 0,
-                   device=None, plain: bool = False, fused=None,
-                   dss_merge=None):
+def make_fast_step(cfg: ModelConfig, geom, ref_state=None, mesh=None,
+                   ntracers: int = 0, device=None, plain: bool = False,
+                   fused=None, dss_merge=None, swap_ab=None):
     """(first_step, step) on the fast state: step(d, carry) -> (d, carry).
+
+    ``geom``: a ``CubedSphereGeometry`` or a periodic ``CartesianGeometry``.
+    On a Cartesian grid ``swap_ab`` chooses the engine's layout (default
+    ``swap_ab_default``); a swapped engine takes and returns the natural
+    packed layout, swapping at the step boundary, and its carry stays in the
+    engine's layout (opaque to callers).
 
     The state tensors must lie on ``device`` (default ``cuda``; raises when
     absent).  The step runs eagerly.  Tracers are detected from the state
@@ -911,19 +1087,44 @@ def make_fast_step(cfg: ModelConfig, geom: CubedSphereGeometry,
     PyTorch version on the same device (a check of the kernel path, not a
     fallback: nothing selects it automatically).
     """
+    first_fn, step_fn, fg = _fast_fns(cfg, geom, ref_state, mesh, device,
+                                      plain, fused, dss_merge, swap_ab)
+    if not fg.ab_swapped:
+        return first_fn, step_fn
+    return _natural_layout(first_fn), _natural_layout(step_fn)
+
+
+def _natural_layout(fn):
+    """``fn(d, *carry) -> (d, carry)`` of a swapped engine as a function of
+    the natural layout: the state is swapped on the way in and out, the
+    carry is not."""
+    def wrapped(d, *carry):
+        s, c = fn(_swap_ab_state(d), *carry)
+        return _swap_ab_state(s), c
+    return wrapped
+
+
+def _fast_fns(cfg, geom, ref_state, mesh, device, plain, fused, dss_merge,
+              swap_ab):
+    """``make_fast_step``'s (first_fn, step_fn) in the engine's layout, and
+    the engine geometry."""
     from . import implicit as fimp
     from . import hyper_cuda, implicit_cuda, stage_cuda
     from . import tracers as ftr
 
     if mesh is not None:
         raise NotImplementedError("the device-mesh engine is not ported yet")
-    if not fast_engine_supported(cfg):
+    if not fast_engine_supported(cfg, geom=geom):
         raise NotImplementedError(
             "configuration outside the z-first engine's envelope "
             "(see fast_engine_supported)")
     dev = resolve_device(device)
     constants = cfg.constants
-    fg = build_fast_geometry(geom, dtype=cfg.dtype, device=dev)
+    if isinstance(geom, CubedSphereGeometry):
+        fg = build_fast_geometry(geom, dtype=cfg.dtype, device=dev)
+    else:
+        fg = build_fast_geometry_cartesian(geom, dtype=cfg.dtype, device=dev,
+                                           swap_ab=swap_ab)
 
     q = nonhydro.estimate_bandwidth(geom, constants)
     statics = fimp.statics_to_device(
@@ -984,24 +1185,24 @@ def make_fast_step(cfg: ModelConfig, geom: CubedSphereGeometry,
             plain=plain, ist=ist)
         if "Tracers" in d:
             tr = ftr.update_column_tracers(
-                d, out["W"], fg, dti, statics=tr_statics,
-                plain=plain or not use_pallas)
+                d, out["W"], fg, dti, statics=tr_statics, plain=plain)
             out = dict(out, Tracers=ftr.filter_column(tr, fg))
         return out
 
-    return _strang_fns(
+    first_fn, step_fn = _strang_fns(
         cfg, fg, rayleigh,
         lambda d, rayleigh=None, w_finish=None: apply_dss(
             d, fg, rayleigh, plain=plain, w_finish=w_finish,
             merge=dss_merge),
         implicit_fn, stage_fn=stage_fn, use_wfold=use_wfold,
         hyper_fns=hyper_fns)
+    return first_fn, step_fn, fg
 
 
-def make_fast_multistep(cfg: ModelConfig, geom: CubedSphereGeometry,
-                        inner_steps: int, ref_state=None, mesh=None,
-                        ntracers: int = 0, device=None, plain: bool = False,
-                        fused=None, dss_merge=None):
+def make_fast_multistep(cfg: ModelConfig, geom, inner_steps: int,
+                        ref_state=None, mesh=None, ntracers: int = 0,
+                        device=None, plain: bool = False, fused=None,
+                        dss_merge=None, swap_ab=None):
     """(first_step, multi): ``multi(d, carry) -> (d, carry)`` after
     ``inner_steps`` steps of ``make_fast_step``'s ``step``.
 
@@ -1015,14 +1216,14 @@ def make_fast_multistep(cfg: ModelConfig, geom: CubedSphereGeometry,
     (``kernels/counts``) rise while the graph is captured, not when it is
     replayed.  For CPU tensors ``multi`` is a plain loop over ``step``; the
     choice follows the tensors' device, and on a CUDA tensor ``multi``
-    captures or raises.  ``first_step`` stays eager.  The other arguments are
-    ``make_fast_step``'s."""
+    captures or raises.  ``first_step`` stays eager.  A swapped Cartesian
+    engine swaps once around the ``inner_steps`` steps, not around each.
+    The other arguments are ``make_fast_step``'s."""
     inner_steps = int(inner_steps)
     if inner_steps < 1:
         raise ValueError("inner_steps must be at least 1")
-    first_step, step = make_fast_step(
-        cfg, geom, ref_state, mesh=mesh, ntracers=ntracers, device=device,
-        plain=plain, fused=fused, dss_merge=dss_merge)
+    first_step, step, fg = _fast_fns(cfg, geom, ref_state, mesh, device,
+                                     plain, fused, dss_merge, swap_ab)
     captured = {}
 
     def loop(d, carry):
@@ -1044,7 +1245,7 @@ def make_fast_multistep(cfg: ModelConfig, geom: CubedSphereGeometry,
             outs = loop(*ins)
         return graph, ins, outs
 
-    def multi(d, carry):
+    def run(d, carry):
         dev = d["U"].device
         if dev.type == "cpu":
             return loop(d, carry)
@@ -1060,4 +1261,6 @@ def make_fast_multistep(cfg: ModelConfig, geom: CubedSphereGeometry,
             graph.replay()
             return tuple({k: v.clone() for k, v in o.items()} for o in outs)
 
-    return first_step, multi
+    if not fg.ab_swapped:
+        return first_step, run
+    return _natural_layout(first_step), _natural_layout(run)

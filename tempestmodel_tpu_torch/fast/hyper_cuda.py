@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from .._device import np_dtype
-from ..kernels import build
+from ..kernels import build, stencils
 from ..kernels.counts import launch_counts
 
 FIELDS = ("U", "V", "Rt", "Rho", "W")
@@ -43,16 +43,16 @@ def supported(fg, cfg) -> bool:
     the configuration only.  Order-4 hyperviscosity; the level and the
     interface Jacobian each constant in z AND equal to each other (the
     kernels use ``jac3d[0]`` for W's Laplacian where the plain tail uses
-    ``jac3d_int``); whole elements of at most ``MAX_P`` nodes an edge on
-    cubed-sphere panels.  (The TPU kernels' further conditions on ``A`` and
-    ``p`` are about their tiles and are not carried over.)"""
+    ``jac3d_int``); whole elements of at most ``MAX_P`` nodes an edge.  Any
+    grid the engine takes: the passes read neither the x-z switch, nor the
+    layout, nor the wrap (the DSS between them does).  (The TPU kernels'
+    further conditions on ``A`` and ``p`` are about their tiles and are not
+    carried over.)"""
     jac, jac_i = fg.jac3d, fg.jac3d_int
     # equal up to the rounding of the geometry's dtype (1e-12 in float64)
     rtol = max(1e-12, 2.0 * torch.finfo(jac.dtype).eps)
     return (cfg.hypervis_order == 4 and fg.vo >= 1 and fg.p <= MAX_P
             and fg.A % fg.p == 0 and fg.B % fg.p == 0
-            and fg.xz_zero is None and not fg.ab_swapped
-            and tuple(fg.wrap) == (False, False)
             and bool((jac == jac[0:1]).all())
             and bool((jac_i == jac_i[0:1]).all())
             and bool(torch.allclose(jac[0], jac_i[0], rtol=rtol, atol=0.0)))
@@ -64,7 +64,8 @@ class HyperStatics:
     configuration (``hyper_statics``)."""
     m2d: Any      # (8, P, A, B): c2aa, c2ab, c2ba, c2bb, j2, 1/j2, jl, 1/jl
     #             # with j2 = jac2d and jl = jac3d[0]
-    ds: Any       # 1-D tensor: D[s, i] / delta, then S[i, s] / delta
+    ds: Any       # 1-D tensor: D[s, i] / delta, then S[i, s] / delta, along
+    #             # a, then along b (``stencils.element_matrices``)
     p: int
 
 
@@ -76,11 +77,9 @@ def hyper_statics(fg) -> HyperStatics:
     jl = fg.jac3d[0]
     m2d = torch.stack([fg.c2_aa, fg.c2_ab, fg.c2_ba, fg.c2_bb,
                        j2, 1.0 / j2, jl, 1.0 / jl]).contiguous()
-    D = np.asarray(fg.DA_elem, np.float64) / fg.delta      # D[s, i]
-    S = np.asarray(fg.S_elem, np.float64) / fg.delta       # S[i, s]
-    ds = torch.as_tensor(
-        np.concatenate([D.ravel(), S.ravel()]).astype(np_dtype(dtype)),
-        device=dev)
+    ds = torch.as_tensor(np.concatenate(
+        [m.ravel() for m in stencils.element_matrices(fg)]).astype(
+            np_dtype(dtype)), device=dev)
     return HyperStatics(m2d=m2d, ds=ds, p=fg.p)
 
 
@@ -90,10 +89,12 @@ def hyper_statics(fg) -> HyperStatics:
 # ---------------------------------------------------------------------------
 
 def _mats(st: HyperStatics):
-    """(Dd, Wd): ``Dd[s, i] = D[s, i] / delta`` for the strong derivative,
-    ``Wd[s, i] = S[i, s] / delta`` for the weak one."""
+    """((Dd, Wd) along a, (Dd, Wd) along b): ``Dd[s, i] = D[s, i] / delta``
+    for the strong derivative, ``Wd[s, i] = S[i, s] / delta`` for the weak
+    one."""
     p = st.p
-    return st.ds[:p * p].reshape(p, p), st.ds[p * p:].reshape(p, p).T
+    m = st.ds.reshape(4, p, p)
+    return (m[0], m[1].T), (m[2], m[3].T)
 
 
 def _da(x, M):
@@ -110,25 +111,27 @@ def _db(x, M):
     return torch.matmul(x.reshape(K, P, A, B // p, p), M).reshape(x.shape)
 
 
-def _scalar_lap(f, m, Dd, Wd):
+def _scalar_lap(f, m, mats):
     c2aa, c2ab, c2ba, c2bb, _, _, jl, jlinv = m
+    (Dd, Wd), (Ddb, Wdb) = mats
     da = _da(f, Dd)
-    db = _db(f, Dd)
+    db = _db(f, Ddb)
     ga = jl * (c2aa * da + c2ab * db)
     gb = jl * (c2ba * da + c2bb * db)
-    return -(_da(ga, Wd) + _db(gb, Wd)) * jlinv
+    return -(_da(ga, Wd) + _db(gb, Wdb)) * jlinv
 
 
-def _vector_upd(u, v, nu_div, nu_vort, m, Dd, Wd):
+def _vector_upd(u, v, nu_div, nu_vort, m, mats):
     c2aa, c2ab, c2ba, c2bb, j2, j2inv, _, _ = m
+    (Dd, Wd), (Ddb, Wdb) = mats
     con_u = c2aa * u + c2ab * v
     con_v = c2ba * u + c2bb * v
-    div = (_da(j2 * con_u, Dd) + _db(j2 * con_v, Dd)) * j2inv
-    curl = (_da(v, Dd) - _db(u, Dd)) * j2inv
+    div = (_da(j2 * con_u, Dd) + _db(j2 * con_v, Ddb)) * j2inv
+    curl = (_da(v, Dd) - _db(u, Ddb)) * j2inv
     wda_div = -_da(div, Wd)
-    wdb_div = -_db(div, Wd)
+    wdb_div = -_db(div, Wdb)
     wda_curl = -_da(curl, Wd)
-    wdb_curl = -_db(curl, Wd)
+    wdb_curl = -_db(curl, Wdb)
     du = nu_div * wda_div - nu_vort * j2 * (
         c2ba * wda_curl + c2bb * wdb_curl)
     dv = nu_div * wdb_div + nu_vort * j2 * (
@@ -139,12 +142,12 @@ def _vector_upd(u, v, nu_div, nu_vort, m, Dd, Wd):
 def nu4_pass1_plain(d, fg, statics: HyperStatics = None):
     """Plain PyTorch version of ``nu4_pass1``."""
     st = hyper_statics(fg) if statics is None else statics
-    Dd, Wd = _mats(st)
+    mats = _mats(st)
     m = [st.m2d[i][None] for i in range(8)]
-    wu, wv = _vector_upd(d["U"], d["V"], 1.0, 1.0, m, Dd, Wd)
+    wu, wv = _vector_upd(d["U"], d["V"], 1.0, 1.0, m, mats)
     out = {"U": -wu, "V": -wv}
     for k in ("Rt", "Rho", "W"):
-        out[k] = _scalar_lap(d[k], m, Dd, Wd)
+        out[k] = _scalar_lap(d[k], m, mats)
     return out
 
 
@@ -152,14 +155,14 @@ def nu4_pass2_plain(d, work, nu_s, nu_d, nu_v, dt, fg,
                     statics: HyperStatics = None):
     """Plain PyTorch version of ``nu4_pass2``."""
     st = hyper_statics(fg) if statics is None else statics
-    Dd, Wd = _mats(st)
+    mats = _mats(st)
     m = [st.m2d[i][None] for i in range(8)]
     du, dv = _vector_upd(work["U"], work["V"], float(nu_d), float(nu_v), m,
-                         Dd, Wd)
+                         mats)
     out = {"U": d["U"] + float(dt) * du, "V": d["V"] + float(dt) * dv}
     for k in ("Rt", "Rho", "W"):
         out[k] = d[k] - float(dt) * float(nu_s) * _scalar_lap(
-            work[k], m, Dd, Wd)
+            work[k], m, mats)
     return out
 
 
@@ -190,7 +193,7 @@ def _check(name, d, st: HyperStatics, ref=None):
             or st.m2d.device != u.device or not st.m2d.is_contiguous():
         raise ValueError("the metric stack must be a contiguous (8, P, A, "
                          "B) tensor of the state's dtype and device")
-    if st.ds.numel() != 2 * p * p or st.ds.dtype != u.dtype \
+    if st.ds.numel() != 4 * p * p or st.ds.dtype != u.dtype \
             or st.ds.device != u.device:
         raise ValueError("the element matrices do not match the state")
     return nz, P, A, B

@@ -16,13 +16,15 @@ interp_n2i @ ucz_x`` is one matrix product, and the W finish is either
 applied here (``defer_w=False``) or handed to ``dss_cuda.dss_uvw``
 (``defer_w=True``), which folds it into the (U, V, W) DSS.
 
+On an x-z slice (``fg.xz_zero``) the engine slot that holds the physical V
+("V", or "U" on an (a, b)-swapped grid) gets only the vertical penalty
+increment, as in ``engine.horizontal_tendency``.  The stage holds no DSS, so
+the periodic wrap of a Cartesian grid asks nothing of it.
+
 The kernel (``csrc/stage.cu``) is not shaped like the TPU one; see the note
 there for its design and its bound on the card.  ``fused_stage`` launches it
 for CUDA tensors — or raises — and runs ``fused_stage_plain`` only for
 tensors that lie on the CPU.
-
-Not ported yet: the xz-slice switches (``xz_zero``); ``stage_supported`` is
-false for them and ``stage_statics`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -42,6 +44,8 @@ from .engine import FastGeometry, colop, horizontal_tendency
 
 MAX_P = 8        # nodes per element edge the kernel's tiles are sized for
 STATE4 = ("U", "V", "Rt", "Rho")
+# the kernel's code for ``fg.xz_zero``
+XZ_CODES = {None: 0, "U": 1, "V": 2}
 
 # Stencil windows of the kernel, per operator: level rows read levels
 # k + offset (Dn2n, Pl, Pr) or interfaces k + offset (Ii2n); the penalty
@@ -97,7 +101,8 @@ class StageStatics:
     """What ``fused_stage`` needs beside the state, built once per
     configuration (``stage_statics``)."""
     tab: Any          # 1-D tensor: the (nz+1, NCOLS) stencil table, then
-    #                 # D/delta and S/delta ((p, p) each, row-major)
+    #                 # D/delta and S/delta along a, then along b ((p, p)
+    #                 # each, row-major: ``stencils.element_matrices``)
     m2d: Any          # (12, P, A, B) separable metric, or (5, P, A, B)
     use_sep: bool
     has_pen: bool
@@ -127,13 +132,12 @@ def stage_supported(fg: FastGeometry) -> bool:
     """Whether the fused stage covers this configuration.  A statement
     about the configuration only.  Vertical order 1 (every vertical
     operator then fits the kernel's 2-4-point windows, which is checked),
-    at most ``MAX_P`` nodes per element edge, whole elements per panel, no
-    xz-slice switches.  (The TPU kernel's further conditions on ``A`` and
-    ``p`` are about its tiles and are not carried over.)"""
+    at most ``MAX_P`` nodes per element edge, whole elements per panel; any
+    grid the engine takes (cubed sphere, Cartesian in either layout, x-z
+    slice or not).  (The TPU kernel's further conditions on ``A`` and ``p``
+    are about its tiles and are not carried over.)"""
     return (fg.vo == 1 and fg.nz >= 2 and fg.p <= MAX_P
             and fg.A % fg.p == 0 and fg.B % fg.p == 0
-            and fg.xz_zero is None and not fg.ab_swapped
-            and tuple(fg.wrap) == (False, False)
             and _stencil_table(fg) is not None)
 
 
@@ -146,9 +150,8 @@ def stage_statics(fg: FastGeometry) -> StageStatics:
             "(see stage_supported)")
     dtype, dev = fg.inv_mult.dtype, fg.inv_mult.device
     table = _stencil_table(fg)
-    D = np.asarray(fg.DA_elem, np.float64) / fg.delta      # D[s, i]
-    S = np.asarray(fg.S_elem, np.float64) / fg.delta       # S[i, s]
-    flat = np.concatenate([table.ravel(), D.ravel(), S.ravel()])
+    flat = np.concatenate([table.ravel()] + [
+        m.ravel() for m in stencils.element_matrices(fg)])
     tab = torch.as_tensor(flat.astype(np_dtype(dtype)), device=dev)
     use_sep = bool(fg.sep_ok)
     fields = [fg.c2_aa, fg.c2_ab, fg.c2_ba, fg.c2_bb, fg.fj]
@@ -322,8 +325,10 @@ def _fused_stage_cuda(two_base, cb1, base1, cb2, base2, ueval, dt_s, fg,
         scal = (ctypes.c_double * 7)(
             float(dt_s), float(cb1), float(cb2), float(c.Cp),
             float(c.Rd / (c.Cp - c.Rd)), float(c.Rd / c.P0), float(c.g))
-        ints = (ctypes.c_int * 8)(nz, P, A, B, fg.p, int(sep),
-                                  int(st.has_pen), ntr)
+        ints = (ctypes.c_int * 10)(nz, P, A, B, fg.p, int(sep),
+                                   int(st.has_pen), ntr,
+                                   XZ_CODES[fg.xz_zero],
+                                   int(fg.npanels == 1))
         err = fn(ptrs, scal, ints, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_stage kernel launch failed "

@@ -1,4 +1,5 @@
-"""Vertical operators as fixed-width stencil tables for the fused kernels.
+"""Operator tables for the fused kernels: the vertical operators as
+fixed-width stencil tables, and the element-local horizontal matrices.
 
 At vertical order 1 every column operator (interpolation, derivative,
 penalty, ...) has two or three diagonals.  The fused CUDA kernels apply
@@ -8,7 +9,8 @@ come from a table built here from the operator matrices.  A matrix with a
 nonzero outside its window cannot be packed: ``pack`` returns ``None`` and
 the caller's predicate sends that configuration to the unfused path.
 
-Host-side numpy only.
+Host-side numpy only (``element_matrices`` reads four small blocks of the
+geometry's tensors).
 """
 
 from __future__ import annotations
@@ -56,3 +58,19 @@ def pack(layout, diags, nrows: int):
             table[:len(vec), col + offs.index(o)] = vec
         col += len(offs)
     return table
+
+
+def element_matrices(fg):
+    """``(Da, Sa, Db, Sb)``, float64 ``(p, p)`` arrays: the strong derivative
+    ``D[s, i] / delta`` and the stiffness ``S[i, s] / delta`` of one element
+    along a and along b, taken from the first diagonal block of the
+    geometry's block-diagonal operators ``DA``, ``Sd``, ``DA_b``, ``Sd_b``
+    (their values are those of ``D / delta`` in the geometry's dtype).  The
+    element widths along a and b are equal on the cubed sphere and differ on
+    a Cartesian grid."""
+    p = fg.p
+
+    def block(M):
+        return np.asarray(M[:p, :p].detach().cpu().numpy(), np.float64)
+
+    return block(fg.DA).T, block(fg.Sd), block(fg.DA_b).T, block(fg.Sd_b)

@@ -99,7 +99,7 @@ def sweep(fg, dev, libs):
                 out = torch.empty_like(x)
                 err = fs(x.data_ptr(), imult.data_ptr(),
                          fg.dss_table.data_ptr(), out.data_ptr(), K, P, A, A,
-                         ORDER, stream)
+                         ORDER, len(fg.dss_links), 0, stream)
                 if err:
                     raise RuntimeError(f"launch failed: {err}")
                 return out
@@ -109,7 +109,7 @@ def sweep(fg, dev, libs):
                 err = fv(u.data_ptr(), v.data_ptr(), imult.data_ptr(),
                          rot.data_ptr(), fg.dss_table.data_ptr(),
                          uo.data_ptr(), vo.data_ptr(), K, P, A, A, ORDER,
-                         len(fg.dss_links), stream)
+                         len(fg.dss_links), 0, stream)
                 if err:
                     raise RuntimeError(f"launch failed: {err}")
                 return uo, vo

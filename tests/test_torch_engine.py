@@ -294,35 +294,52 @@ def test_multistep_matches_jax_multistep(multistep):
 
 
 def test_rayleigh_and_off_centering(pair):
-    """Rayleigh damping terms and the off-centred implicit combination run
-    and stay finite; damping leaves Rho alone."""
-    _, _, tcfg, _ = pair
+    """Rayleigh damping and the off-centred implicit combination (0.1): 3
+    steps at ne4 p4 nz8 against JAX ``make_fast_step`` from the same state,
+    1e-11 relative per field; the damping leaves Rho alone, and the Rayleigh
+    finish inside the one-launch DSS gives the same bits."""
+    jcfg, _, tcfg, _ = pair
+    from tempestmodel_tpu.models import nh_model as j_nh_model
+    from tempestmodel_tpu.testcases.nonhydro_sphere import (
+        BaroclinicWaveUMJS as JaxUMJS)
     from tempestmodel_tpu_torch.models import nh_model
     from tempestmodel_tpu_torch.testcases.nonhydro_sphere import (
         BaroclinicWaveUMJS)
     tc = BaroclinicWaveUMJS(pert="exp", rayleigh=True)
-    cfg = tcfg.with_(rayleigh_damping=True, off_centering=0.1, ne=2, nz=6)
+    jtc = JaxUMJS(pert="exp", rayleigh=True)
+    kw = dict(rayleigh_damping=True, off_centering=0.1)
+    cfg, jc = tcfg.with_(**kw), jcfg.with_(**kw)
     geom = nh_model.build_nh_sphere_geometry(
         cfg, ztop=tc.ztop, rayleigh=tc.rayleigh_strength)
-    ref = tc.reference_state(geom, cfg.constants, device=CPU)
-    state = tc.initial_state(geom, cfg.constants, device=CPU)
+    jgeom = j_nh_model.build_nh_sphere_geometry(
+        jc, ztop=jtc.ztop, rayleigh=jtc.rayleigh_strength)
+    js = jtc.initial_state(jgeom, jc.constants, dtype=jnp.float64)
+    jref = jtc.reference_state(jgeom, jc.constants, dtype=jnp.float64)
+    ref = {k: np.array(v) for k, v in jref.items()}
+    state = {k: np.asarray(v) for k, v in js.items()}
     fg = t_engine.build_fast_geometry(geom, dtype=torch.float64, device=CPU)
     fac, ref_term = t_engine._rayleigh_terms(cfg, geom, ref, fg)
     assert torch.equal(fac["Rho"], torch.ones_like(fac["Rho"]))
     assert float(fac["U"].min()) < 1.0
     assert float(ref_term["Rho"].abs().max()) == 0.0
-    first, step = t_fast.make_fast_step(cfg, geom, ref_state=ref, device=CPU)
-    X, c = first(t_fast.pack_state(state, device=CPU))
-    X, c = step(X, c)
+
+    first, step = j_fast.make_fast_step(jc, jgeom, ref_state=jref)
+    J, cj = first(j_fast.pack_state(js))
+    for _ in range(2):
+        J, cj = step(J, cj)
+    outs = []
+    for merge in ((), ("state", "scalar2")):
+        first, step = t_fast.make_fast_step(cfg, geom, ref_state=ref,
+                                            device=CPU, dss_merge=merge)
+        X, c = first(convert.state_from_numpy(state, device=CPU))
+        for _ in range(2):
+            X, c = step(X, c)
+        outs.append(X)
     for k in FIELDS:
-        assert bool(torch.isfinite(X[k]).all()), k
-    # the Rayleigh finish inside the one-launch DSS: the same bits
-    first, step = t_fast.make_fast_step(cfg, geom, ref_state=ref, device=CPU,
-                                        dss_merge=("state", "scalar2"))
-    Y, c = first(t_fast.pack_state(state, device=CPU))
-    Y, c = step(Y, c)
-    for k in FIELDS:
-        assert torch.equal(X[k], Y[k]), k
+        assert bool(torch.isfinite(outs[0][k]).all()), k
+        assert rel_err(outs[0][k].numpy(), J[k]) < 1e-11, k
+        # the Rayleigh finish inside the one-launch DSS: the same bits
+        assert torch.equal(outs[0][k], outs[1][k]), k
 
 
 @pytest.mark.gpu

@@ -68,12 +68,12 @@ def test_metric_stack_follows_the_jax_one(setup):
                                np.asarray(hyper_pallas._m2d(jfg, jnp.float64)),
                                rtol=1e-15)
     p = tfg.p
-    D, S = st.ds[:p * p].reshape(p, p), st.ds[p * p:].reshape(p, p)
-    # the block-diagonal (B, B) operators the TPU kernel multiplies by
-    np.testing.assert_allclose(np.asarray(jfg.DA_b)[:p, :p], D.numpy().T,
-                               atol=1e-18)
-    np.testing.assert_allclose(np.asarray(jfg.Sd_b)[:p, :p], S.numpy(),
-                               atol=1e-18)
+    Da, Sa, Db, Sb = st.ds.reshape(4, p, p).numpy()
+    # the block-diagonal operators the TPU kernel multiplies by, along a and
+    # along b (the (B, B) ones)
+    for got, want in ((Da.T, jfg.DA), (Sa, jfg.Sd), (Db.T, jfg.DA_b),
+                      (Sb, jfg.Sd_b)):
+        np.testing.assert_allclose(np.asarray(want)[:p, :p], got, atol=1e-18)
 
 
 def test_two_jacobians_are_told_apart(setup):
@@ -135,8 +135,12 @@ def test_fused_tail_matches_jax_fused_tail(setup):
                                   "interfaces_differ", "swapped"])
 def test_supported(setup, case):
     _, tcfg, _, tfg, *_ = setup
-    if case == "ne4":
-        assert hyper_cuda.supported(tfg, tcfg)
+    if case in ("ne4", "swapped"):
+        # the passes read neither the layout nor the x-z switch of a
+        # Cartesian grid
+        fg = tfg if case == "ne4" else dataclasses.replace(
+            tfg, ab_swapped=True, xz_zero="U", wrap=(True, True))
+        assert hyper_cuda.supported(fg, tcfg)
         return
     cfg, fg = tcfg, tfg
     if case == "order2":
@@ -147,8 +151,6 @@ def test_supported(setup, case):
         fg = dataclasses.replace(tfg, jac3d=jac)
     elif case == "interfaces_differ":
         fg = dataclasses.replace(tfg, jac3d_int=tfg.jac3d_int * (1 + 1e-9))
-    else:
-        fg = dataclasses.replace(tfg, ab_swapped=True)
     assert not hyper_cuda.supported(fg, cfg)
 
 

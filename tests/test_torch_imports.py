@@ -26,7 +26,8 @@ def test_every_module_imports_without_jax():
     assert len(names) > 15
     for new in ("fast.stage_cuda", "fast.implicit_cuda", "kernels.stencils",
                 "kernels.synthetic", "fast.hyper_cuda", "kernels.tune_tail",
-                "fast.tracers", "testcases.dcmip2016"):
+                "fast.tracers", "testcases.dcmip2016", "grid.cartesian",
+                "testcases.nonhydro_xz"):
         assert f"tempestmodel_tpu_torch.{new}" in names
     code = (
         "import importlib, sys\n"
@@ -82,3 +83,22 @@ def test_entry_points_need_a_cuda_device_unless_cpu_is_named():
     assert X["W"].shape == (5, 6, 8, 8)
     fg = fast.build_fast_geometry(geom, dtype=torch.float64, device="cpu")
     assert fg.inv_mult.device.type == "cpu"
+    # the same on a periodic Cartesian grid
+    from tempestmodel_tpu_torch.testcases.nonhydro_xz import ScharMountain
+    sc = ScharMountain()
+    ccfg = tt.ModelConfig(grid_kind=tt.GridKind.CARTESIAN_XZ, nex=4, ney=1,
+                          order=4, nz=4, x_extent=sc.x_extent, ztop=sc.ztop,
+                          dtype=torch.float64)
+    cgeom = nh_model.build_nh_cartesian_geometry(
+        ccfg, topography=sc.topography)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sc.initial_state(cgeom, ccfg.constants)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fast.build_fast_geometry_cartesian(cgeom, dtype=torch.float64)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fast.make_fast_step(ccfg, cgeom)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fast.make_fast_multistep(ccfg, cgeom, 2)
+    cfg_ = fast.build_fast_geometry_cartesian(cgeom, dtype=torch.float64,
+                                              device="cpu")
+    assert cfg_.inv_mult.device.type == "cpu" and cfg_.ab_swapped

@@ -188,18 +188,25 @@ def test_stage_statics_and_predicate(setup):
     assert stage_cuda.stage_supported(tfg)
     st = stage_cuda.stage_statics(tfg)
     n = (tfg.nz + 1) * stage_cuda.NCOLS
-    assert st.tab.shape == (n + 2 * tfg.p ** 2,) and st.use_sep and st.has_pen
+    p = tfg.p
+    assert st.tab.shape == (n + 4 * p ** 2,) and st.use_sep and st.has_pen
     assert tuple(st.m2d.shape) == (12, 6, tfg.A, tfg.A)
-    np.testing.assert_allclose(
-        st.tab[n:n + tfg.p ** 2].numpy().reshape(tfg.p, tfg.p),
-        np.asarray(tfg.DA_elem) / tfg.delta, rtol=1e-15)
+    Da, Sa, Db, Sb = st.tab[n:].numpy().reshape(4, p, p)
+    for got in (Da, Db):
+        np.testing.assert_allclose(got, np.asarray(tfg.DA_elem) / tfg.delta,
+                                   rtol=1e-15)
+    for got in (Sa, Sb):
+        np.testing.assert_allclose(got, np.asarray(tfg.S_elem) / tfg.delta,
+                                   rtol=1e-15)
     In0 = tfg.interp_n2i[0]
     assert (st.c00, st.c01) == (float(In0[0]), float(In0[1]))
     full = stage_cuda.stage_statics(dataclasses.replace(tfg, sep_ok=False))
     assert not full.use_sep and tuple(full.m2d.shape) == (5, 6, tfg.A, tfg.A)
-    # outside the envelope: vertical order 2, a wide operator, an xz slice
+    # the switches of a Cartesian grid are inside the envelope
+    assert stage_cuda.stage_supported(dataclasses.replace(
+        tfg, xz_zero="U", ab_swapped=True, wrap=(True, True)))
+    # outside the envelope: vertical order 2, a wide operator
     for bad in (dataclasses.replace(tfg, vo=2),
-                dataclasses.replace(tfg, xz_zero="V"),
                 dataclasses.replace(
                     tfg, diff_n2n=torch.ones_like(tfg.diff_n2n)),
                 dataclasses.replace(

@@ -369,14 +369,21 @@ def test_moist_multistep_equals_the_eager_steps(pair, three_steps):
       "pass2": 0, "scalar": 28, "vector": 7, "state": 0, "scalar2": 0}),
     ({"dss_merge": ("state", "scalar2")},
      {"stage": 5, "uvw": 5, "update": 1, "banded": 0, "multi": 1, "pass1": 1,
-      "pass2": 1, "scalar": 7, "vector": 0, "state": 2, "scalar2": 5})],
-    ids=["predicates", "forced_unfused", "one_launch_dss"])
+      "pass2": 1, "scalar": 7, "vector": 0, "state": 2, "scalar2": 5}),
+    ({"cfg": {"vertical_solver": "banded"}},
+     {"stage": 5, "uvw": 5, "update": 0, "banded": 0, "multi": 1, "pass1": 1,
+      "pass2": 1, "scalar": 23, "vector": 2, "state": 0, "scalar2": 0})],
+    ids=["predicates", "forced_unfused", "one_launch_dss", "banded_solver"])
 def test_a_moist_step_goes_through_the_wrappers(pair, three_steps,
                                                 monkeypatch, kw, want):
     """Calls of the kernels' wrappers in one moist ``step`` (on the CPU each
     runs its plain version): the dry step's, plus one ``dss_scalar`` per DSS
     for the flat tracer field (5 stages + 2 in the tail) and one
-    ``banded_solve_multi``; the fused stage stays one call a stage."""
+    ``banded_solve_multi``; the fused stage stays one call a stage.  The
+    tracer solve takes the multi-right-hand-side kernel whatever
+    ``vertical_solver`` says (the JAX package chooses it by backend), while
+    ``"banded"`` solves the Newton systems in plain tensor code, as the JAX
+    package's ``"banded"`` does."""
     from tempestmodel_tpu_torch.fast import (dss_cuda, hyper_cuda, implicit,
                                              implicit_cuda, stage_cuda)
     _, _, tcfg, tgeom = pair
@@ -404,7 +411,9 @@ def test_a_moist_step_goes_through_the_wrappers(pair, three_steps,
     for key in ("uvw", "scalar", "vector", "state", "scalar2"):
         monkeypatch.setattr(dss_cuda, f"dss_{key}",
                             counting(key, getattr(dss_cuda, f"dss_{key}")))
-    first, step = t_fast.make_fast_step(tcfg, tgeom, device=CPU, **kw)
+    kw = dict(kw)
+    cfg = tcfg.with_(**kw.pop("cfg", {}))
+    first, step = t_fast.make_fast_step(cfg, tgeom, device=CPU, **kw)
     X = {k: torch.from_numpy(v.copy()) for k, v in d.items()}
     carry = {k: torch.zeros_like(X[k])
              for k in ("Rt", "W", "Rho", "Tracers")}
@@ -414,7 +423,8 @@ def test_a_moist_step_goes_through_the_wrappers(pair, three_steps,
     calls = dict.fromkeys(want, 0)
     first(X)
     assert calls["multi"] == 2
-    assert calls["update"] + calls["banded"] == 2
+    assert calls["update"] + calls["banded"] == \
+        2 * (want["update"] + want["banded"])
 
 
 def test_the_moist_baroclinic_wave_runs(pair):
@@ -467,3 +477,30 @@ def test_moist_kernel_path_matches_plain_path_on_the_card(pair, three_steps):
     X, c = multi(*first(X0))
     for k in ALL:
         assert rel_err(X[k].cpu().numpy(), outs[0][k].cpu().numpy()) < 1e-13
+
+
+@pytest.mark.gpu
+def test_a_moist_banded_step_launches_the_multi_kernel_on_the_card(
+        pair, three_steps):
+    """With ``vertical_solver="banded"`` the tracer columns are solved by the
+    ``banded_solve_multi`` kernel on the card, once per implicit half step,
+    and the result is the plain path's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no interpret mode")
+    _, _, tcfg, tgeom = pair
+    _, _, d = three_steps
+    cfg = tcfg.with_(vertical_solver="banded")
+    X0 = {k: torch.from_numpy(v.copy()).cuda() for k, v in d.items()}
+    outs = []
+    for plain in (False, True):
+        before = launch_counts["banded_solve_multi"]
+        first, step = t_fast.make_fast_step(cfg, tgeom, device="cuda",
+                                            plain=plain)
+        X, c = step(*first(X0))
+        torch.cuda.synchronize()
+        assert launch_counts["banded_solve_multi"] - before == \
+            (0 if plain else 3)
+        outs.append(X)
+    for k in ALL:
+        assert rel_err(outs[0][k].cpu().numpy(),
+                       outs[1][k].cpu().numpy()) < 1e-11, k
