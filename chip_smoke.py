@@ -13,7 +13,12 @@ and runs these phases, each printing one JSON line:
 2. build    every kernel source compiled and loaded, with the seconds;
 3. kernel   each of the eleven kernels against its plain PyTorch version on
             the card at the flagship shapes, float32 and float64, with times
-            (``fused_stage`` also with three seeded tracer species,
+            (``fused_stage`` also with three seeded tracer species and at
+            its edge shapes: two levels, a level count no multiple of the
+            chunk or the ring, one-value and 8-byte copies, one species and
+            two groups of species; each stage line names its launch shape,
+            ring depth and copy route, and the build line the registers
+            and spills of every instantiation of the stage kernel;
             ``dss_scalar`` also on their flat 90-row field,
             ``banded_solve_multi`` at the moist wave's shapes); then what
             periodic Cartesian grids reach: the five DSS kernels with the
@@ -178,6 +183,35 @@ def max_rel_err(gots, wants):
     return max(rel_err(g, w) for g, w in zip(gots, wants))
 
 
+def stage_report(base, ueval, fg, statics, tag, tracers=False, cart=False):
+    """The launch shape, ring depth and copy route of the stage kernel on
+    these inputs, and the registers and spills of the instantiation it
+    runs (from the build's ``-Xptxas -v`` report)."""
+    from tempestmodel_tpu_torch.fast import stage_cuda
+    inst = tag + ("+tracers" if tracers else "") + ("+cart" if cart else "")
+    return {"launch": stage_cuda.launch_config(base, ueval, fg, statics),
+            "instantiation": inst,
+            "ptxas": stage_cuda.kernel_resources().get(inst)}
+
+
+def check_stage_edges(dtype, dev):
+    """Phase 3: ``fused_stage`` at the edge shapes of
+    ``kernels/stage_edges.py`` against its plain version (a cubed sphere
+    of ne 2-4, p 3-5, 2-8 levels, 0-6 species, with a terrain-like metric;
+    one and two bases, at the stage's step and at steps as long as each
+    field's own scale)."""
+    from tempestmodel_tpu_torch.kernels import stage_edges
+    tag = "f32" if dtype == torch.float32 else "f64"
+    tol = 1e-4 if dtype == torch.float32 else 1e-11
+    for case in stage_edges.CASES:
+        got = stage_edges.run_case(case, dtype, dev)
+        emit({"phase": "kernel", "dtype": tag, "tol": tol,
+              "name": "fused_stage_edge", "case": case, **got})
+        if not got["max_err"] <= tol:
+            raise RuntimeError(f"fused_stage edge case {case} {tag}: rel "
+                               f"err {got['err_by_output']} > {tol}")
+
+
 def check_fused_kernels(cfg, geom, state, dtype, rows, dev):
     """Phase 3, second half: ``dss_uvw``, ``fused_stage`` and
     ``fused_implicit_update`` against their plain versions at the flagship
@@ -251,7 +285,8 @@ def check_fused_kernels(cfg, geom, state, dtype, rows, dev):
                "shape": [K, P, A, A], "max_abs_err": err, "ms": ms,
                "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
                "bound_ms": bnd, "bound_by": by, "library_ms": None}
-        emit({"phase": "kernel", "dtype": tag, "tol": stage_tol, **row})
+        emit({"phase": "kernel", "dtype": tag, "tol": stage_tol, **row,
+              **stage_report(base, ue, fgt, sst, tag)})
         if f32:
             rows[name] = row
 
@@ -674,7 +709,8 @@ def check_tracer_kernels(cfg, geom, dtype, rows, dev):
     emit({"phase": "kernel", "dtype": tag, "tol": stage_tol,
           "name": "fused_stage_with_tracers", "species": NTR,
           "shape": [K, P, A, A], "max_abs_err": max(errs.values()),
-          "err_by_output": errs, "long_step_s": dt_big, **timed})
+          "err_by_output": errs, "long_step_s": dt_big, **timed,
+          **stage_report(two, ue, fgt, sst, tag, tracers=True)})
     if f32:
         rows["fused_stage_tracers"] = dict(timed, max_abs_err_tracers=max(
             errs.values()))
@@ -838,6 +874,7 @@ def check_kernels(fg, cfg, geom, state, dev):
         torch.cuda.empty_cache()
 
         check_fused_kernels(cfg, geom, state, dtype, rows, dev)
+        check_stage_edges(dtype, dev)
         check_tail_kernels(geom, dtype, rows, dev)
         check_tracer_kernels(cfg, geom, dtype, rows, dev)
         check_cartesian_kernels(dtype, rows, dev)
@@ -1217,7 +1254,8 @@ def check_cartesian_kernels(dtype, rows, dev):
                              err_by_output=errs, long_step_s=dt_big,
                              xz_zero=fg.xz_zero, shape=[K, P, A, B])
         emit({"phase": "cartesian_kernel", "dtype": tag, "tol": stage_tol,
-              "name": "fused_stage_xz", "layout": layout, **stage[layout]})
+              "name": "fused_stage_xz", "layout": layout, **stage[layout],
+              **stage_report(two, ue, fg, sst, tag, cart=True)})
         del ue, b1, b2, zero, tend
     if f32:
         rows["cartesian_stage"] = stage
@@ -1620,8 +1658,17 @@ def main():
 
     # 2. build ------------------------------------------------------------
     info = build.build_all(verbose=True)
+    from tempestmodel_tpu_torch.fast import stage_cuda
+    resources = stage_cuda.kernel_resources()
+    if len(resources) != 8:
+        raise RuntimeError(f"the build reported {len(resources)} of the "
+                           f"stage kernel's 8 instantiations")
     emit({"phase": "build", "seconds": info["seconds"],
-          "built": info["built"], "libraries": len(info["libraries"])})
+          "built": info["built"], "libraries": len(info["libraries"]),
+          "fused_stage_registers_and_spills": resources,
+          "fused_stage_registers_assumed_by_the_launch_rule": {
+              f"f{8 * e}{'+tracers' if tr else ''}": n
+              for (e, tr), n in stage_cuda.REGISTERS.items()}})
 
     # flagship geometry and state (host numpy, then tensors on the card)
     tc = BaroclinicWaveUMJS(pert="exp")

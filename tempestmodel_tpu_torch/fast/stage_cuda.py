@@ -22,15 +22,22 @@ increment, as in ``engine.horizontal_tendency``.  The stage holds no DSS, so
 the periodic wrap of a Cartesian grid asks nothing of it.
 
 The kernel (``csrc/stage.cu``) is not shaped like the TPU one; see the note
-there for its design and its bound on the card.  ``fused_stage`` launches it
-for CUDA tensors — or raises — and runs ``fused_stage_plain`` only for
-tensors that lie on the CPU.
+there for its design and its bound on the card.  Its launch shape (the tile
+of whole elements, the levels a block walks, the depth of its ring of level
+slabs in shared memory, the species per group of flux tiles) comes from
+``stage_launch_shape``, and the width of its asynchronous copies from
+``copy_width``; both are plain Python, so the CPU tests hold the rules.
+``fused_stage`` launches the kernel for CUDA tensors — or raises — and runs
+``fused_stage_plain`` only for tensors that lie on the CPU.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
+import math
+import re
 from typing import Any
 
 import numpy as np
@@ -57,6 +64,175 @@ LAYOUT = [("Ii2n", (0, 1)), ("Dn2n", (-1, 0, 1)), ("In2i", (-2, -1, 0, 1)),
           ("Wl", (-1, 0)), ("Wr", (-1, 0)), ("Pl", (-1, 0, 1)),
           ("Pr", (-1, 0, 1))]
 NCOLS = sum(len(o) for _, o in LAYOUT) + 2       # + s_lev, s_int
+NREC = 24        # values of a level's record of the table in the kernel
+
+# The kernel's launch shape (kernels/tune_fused.py sweeps it).  A block is
+# a tile of whole elements of about TARGET_THREADS nodes (a warp on one row,
+# at most MAX_IDLE of the last tiles idle, never more than MAX_THREADS where
+# a smaller tile exists); its ring of level slabs is RING stages deep, fewer
+# where a deeper one would leave an SM fewer than MIN_RESIDENT threads; the
+# levels are cut into as few chunks (of at least MIN_LEVELS) as give the
+# grid TARGET_WAVES waves of resident blocks.  At the flagship's shapes on an
+# NVIDIA H100 80GB HBM3 at 700 W this rule's shape was within 2.3 % (f32)
+# and 0.7 % (f64) of the fastest of up to 220 swept, with and without
+# tracers (PERF.md section 6).
+TARGET_THREADS = 128
+MAX_THREADS = 256
+MAX_IDLE = 0.1
+RING = 4
+MIN_RESIDENT = 512
+MIN_LEVELS = 4
+TARGET_WAVES = 2.5
+SMS = 132                      # streaming multiprocessors of an H100
+SM_SMEM = 233472               # shared memory of one H100 SM
+BLOCK_RESERVE = 1024           # ... of which each block keeps this much
+# registers a thread of the kernel takes, by value size and tracers (as
+# `nvcc -Xptxas -v` reports them for sm_90a; `kernel_resources()` gives
+# the build's own, and chip_smoke.py prints both)
+REGISTERS = {(4, False): 128, (4, True): 128, (8, False): 184,
+             (8, True): 168}
+MIN_RING, MAX_RING = 3, 6      # csrc/stage.cu takes these
+STAGE_SPECIES = 3              # species per group of flux tiles
+NTILES = 9                     # tiles of computed fields (csrc/stage.cu)
+N3D = 9                        # slabs of the full 3-D metric
+SMEM_MAX = 232448              # dynamic shared memory one H100 block may have
+# the pointers of the kernel's ``ptrs`` array it copies through the ring
+# (every one must be aligned to the copy width): u v rt rho w, the bases,
+# the 3-D metric, the tracers and their bases
+RING_PTRS = tuple(range(0, 13)) + tuple(range(14, 23)) + (29, 30, 31)
+
+
+@dataclasses.dataclass(frozen=True)
+class StageLaunch:
+    """A launch shape of the stage kernel: a tile of ``TA`` x ``TB`` nodes
+    (whole elements, one thread each), ``levels`` levels per block, a ring
+    of ``ring`` stages, ``group`` species per group of flux tiles (0
+    without tracers), and the dynamic shared memory in bytes of the launch
+    it was sized for."""
+    TA: int
+    TB: int
+    levels: int
+    ring: int
+    group: int
+    smem: int
+
+    @property
+    def threads(self) -> int:
+        return self.TA * self.TB
+
+
+def ring_slabs(ntr: int, two_base: bool, sep: bool) -> int:
+    """Slabs of one ring stage: the 5 evaluation fields, the 4 or 8 base
+    fields, the 9 of the full 3-D metric (none in the separable form), and
+    each species with its base or bases."""
+    nbase = 8 if two_base else 4
+    return 5 + nbase + (0 if sep else N3D) + ntr * (1 + nbase // 4)
+
+
+def stage_smem_bytes(nz, p, TA, TB, ring, group, nslab, esize):
+    """Dynamic shared memory of one block, as ``csrc/stage.cu`` lays it
+    out: the ring and two buffers of tiles; 16-byte aligned, the four
+    element matrices and one record of the stencil table a level; each
+    slab's pointer."""
+    nth = TA * TB
+    vals = ring * nslab * nth + 2 * (NTILES + 2 * group) * nth
+    ntab = nz * NREC + 4 * p * p
+    return ((((vals * esize + 15) & ~15) + ntab * esize + 7) & ~7) \
+        + nslab * 8
+
+
+def resident_blocks(nbytes: int, threads: int, registers: int) -> int:
+    """Blocks of ``threads`` threads, ``nbytes`` of shared memory and
+    ``registers`` a thread that one H100 SM holds at once."""
+    warp_regs = -(-registers * 32 // 256) * 256        # allocated per warp
+    by_regs = 65536 // max(1, warp_regs * -(-threads // 32))
+    return min(32, 2048 // threads, SM_SMEM // (nbytes + BLOCK_RESERVE),
+               by_regs)
+
+
+def _whole_elements(n, p):
+    return range(p, n + 1, p)
+
+
+def _tiles(A, B, p):
+    """Every tile (TA, TB) of whole elements with at least min(64, A * B)
+    and at most 1024 threads, most preferred first: at most MAX_THREADS
+    threads; a warp on one row (32 nodes or more, or the whole row); at
+    most MAX_IDLE of the last tiles idle; then nearest TARGET_THREADS; the
+    least idle; the longer row."""
+    least = min(64, A * B)
+    out = []
+    for TA in _whole_elements(A, p):
+        for TB in _whole_elements(B, p):
+            nth = TA * TB
+            if not least <= nth <= 1024:
+                continue
+            idle = 1.0 - A * B / (math.ceil(A / TA) * TA
+                                  * math.ceil(B / TB) * TB)
+            out.append(((nth > MAX_THREADS, not (TB >= 32 or TB == B),
+                         idle > MAX_IDLE, abs(math.log(nth / TARGET_THREADS)),
+                         round(idle, 6), -TB), TA, TB))
+    return [(TA, TB) for _, TA, TB in sorted(out)]
+
+
+@functools.lru_cache(maxsize=None)
+def stage_launch_shape(nz: int, A: int, B: int, p: int, ntr: int, dtype,
+                       two_base: bool = True, sep: bool = False,
+                       panels: int = 6, tile=None, levels=None,
+                       ring=None) -> StageLaunch:
+    """The stage kernel's launch shape for ``(nz, P, A, B)`` fields with
+    ``p`` nodes per element edge and ``ntr`` tracer species in ``dtype``.
+    The shared memory is sized for ``two_base`` and ``sep`` (by default the
+    most a launch of this shape can need: two bases, the full 3-D metric);
+    ``panels``: P (6 on the cubed sphere, 1 on a Cartesian grid).
+    ``tile`` (TA, TB), ``levels`` and ``ring`` replace the rules' choice
+    (``kernels/tune_fused.py``).  Raises ValueError where nothing fits."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    regs = REGISTERS[esize, ntr > 0]
+    nslab = ring_slabs(ntr, two_base, sep)
+    group = min(ntr, STAGE_SPECIES)
+    tiles = _tiles(A, B, p) if tile is None else [tuple(tile)]
+    rings = [ring] if ring is not None else range(RING, MIN_RING - 1, -1)
+    for TA, TB in tiles:   # the most preferred tile that fits a block
+        if TA % p or TB % p or not 1 <= TA * TB <= 1024:
+            raise ValueError(f"tile {TA} x {TB} is not whole elements of "
+                             f"{p} nodes or has more than 1024 threads")
+        fits = []          # (resident threads, ring, bytes), deepest first
+        for r in rings:
+            nbytes = stage_smem_bytes(nz, p, TA, TB, r, group, nslab, esize)
+            if MIN_RING <= r <= MAX_RING and nbytes <= SMEM_MAX:
+                fits.append((TA * TB * resident_blocks(nbytes, TA * TB, regs),
+                             r, nbytes))
+        if fits:
+            break
+    else:
+        raise ValueError(f"no launch shape of the stage kernel fits nz={nz}, "
+                         f"A={A}, B={B}, p={p}, ntr={ntr} in {SMEM_MAX} "
+                         f"bytes of shared memory")
+    # the deepest ring that leaves MIN_RESIDENT threads an SM, else the one
+    # that leaves the most
+    resident, r, nbytes = next((f for f in fits if f[0] >= MIN_RESIDENT),
+                               max(fits, key=lambda f: f[0]))
+    if levels is None:
+        blocks = math.ceil(A / TA) * math.ceil(B / TB) * panels
+        want = TARGET_WAVES * SMS * resident // (TA * TB)
+        chunks = max(1, min(math.ceil(want / blocks), nz // MIN_LEVELS))
+        lv = math.ceil(nz / chunks)
+    else:
+        lv = min(int(levels), nz)
+    return StageLaunch(TA, TB, lv, r, group, nbytes)
+
+
+def copy_width(B: int, TB: int, esize: int, ptrs) -> int:
+    """Values per asynchronous copy of the ring: 16 bytes where B, the tile
+    row and every pointer of ``ptrs`` (ints) allow it, else 8, else one
+    value."""
+    for nbytes in (16, 8, esize):
+        V = nbytes // esize
+        if V >= 1 and B % V == 0 and TB % V == 0 \
+                and all(q % nbytes == 0 for q in ptrs):
+            return V
+    return 1
 
 
 def _np(t):
@@ -291,45 +467,105 @@ def fused_stage(base, ueval, dt_s, fg: FastGeometry, constants,
     return _finish(out, wf, defer_w)
 
 
-def _fused_stage_cuda(two_base, cb1, base1, cb2, base2, ueval, dt_s, fg,
-                      constants, st: StageStatics):
-    """Launch the kernel; returns [U, V, Rt, Rho, ucz_x] and, where the
-    evaluation state has tracers, the advected tracers."""
+def _launch_plan(two_base, base1, base2, ueval, fg, st: StageStatics,
+                 launch: StageLaunch = None):
+    """(tensors of the kernel's ``ptrs``, ints, launch shape, copy width)
+    of one launch; the output tensors are not made yet (None)."""
     u = ueval["U"]
     nz, P, A, B = u.shape
-    c = constants
     sep = st.use_sep
     full3d = [None] * 9 if sep else [
         fg.con_a_xi, fg.con_b_xi, fg.con_xi_xi, fg.jac3d, fg.deriv_r_a,
         fg.deriv_r_b, fg.con_a_xi_int, fg.con_b_xi_int, fg.con_xi_xi_int]
     if not all(f is None or f.is_contiguous() for f in full3d):
         raise ValueError("geometry fields must be contiguous")
+    tr = ueval.get("Tracers")
+    ntr = 0 if tr is None else tr.shape[0] // nz
+    trs = [None] * 4
+    if ntr:
+        trs = [tr, *_base_tracers(two_base, base1, base2, ueval), None]
+    tensors = ([ueval[k] for k in STATE4 + ("W",)]
+               + [base1[k] for k in STATE4]
+               + [base2[k] if two_base else None for k in STATE4]
+               + [st.m2d] + full3d + [st.tab] + [None] * 5 + trs)
+    if launch is None:
+        launch = stage_launch_shape(nz, A, B, fg.p, ntr, u.dtype, two_base,
+                                    sep, P)
+    V = copy_width(B, launch.TB, u.element_size(),
+                   [0 if tensors[i] is None else tensors[i].data_ptr()
+                    for i in RING_PTRS])
+    ints = (nz, P, A, B, fg.p, int(sep), int(st.has_pen), ntr,
+            XZ_CODES[fg.xz_zero], int(fg.npanels == 1), launch.TA,
+            launch.TB, launch.levels, launch.ring, launch.group, V)
+    return tensors, ints, launch, V
+
+
+def launch_config(base, ueval, fg: FastGeometry, statics: StageStatics = None,
+                  launch: StageLaunch = None) -> dict:
+    """What one launch of the kernel on these inputs would be: the tile,
+    levels per block, ring depth, species per group, copy width and route,
+    shared memory (for the report lines of ``chip_smoke.py``)."""
+    two_base, _, base1, _, base2 = _split_base(base)
+    st = statics if statics is not None else stage_statics(fg)
+    _, ints, sh, V = _launch_plan(two_base, base1, base2, ueval, fg, st,
+                                  launch)
+    esize = ueval["U"].element_size()
+    nbytes = V * esize
+    nslab = ring_slabs(ints[7], two_base, st.use_sep)
+    return {"tile": [sh.TA, sh.TB], "threads": sh.threads,
+            "levels_per_block": sh.levels, "ring": sh.ring,
+            "species_per_group": sh.group, "slabs": nslab,
+            "copy_bytes": nbytes,
+            "copy_route": f"cp.async.{'cg' if nbytes == 16 else 'ca'} "
+                          f"{nbytes} B",
+            "smem_bytes": stage_smem_bytes(
+                ints[0], fg.p, sh.TA, sh.TB, sh.ring, sh.group, nslab, esize)}
+
+
+_ENTRY = re.compile(r"fused_stage_kernelI([fd])Lb([01])ELb([01])E")
+
+
+def kernel_resources() -> dict:
+    """Registers and spill bytes of the kernel's eight instantiations as
+    ``nvcc -Xptxas -v`` reported them at the build, keyed ``f32``,
+    ``f32+tracers``, ``f32+cart``, ... (empty before a build)."""
+    out = {}
+    for name, use in build.ptxas_usage("stage").items():
+        m = _ENTRY.search(name)
+        if m:
+            key = ("f32" if m.group(1) == "f" else "f64") \
+                + ("+tracers" if m.group(2) == "1" else "") \
+                + ("+cart" if m.group(3) == "1" else "")
+            out[key] = use
+    return out
+
+
+def _fused_stage_cuda(two_base, cb1, base1, cb2, base2, ueval, dt_s, fg,
+                      constants, st: StageStatics,
+                      launch: StageLaunch = None):
+    """Launch the kernel; returns [U, V, Rt, Rho, ucz_x] and, where the
+    evaluation state has tracers, the advected tracers.  ``launch``: a
+    launch shape in place of ``stage_launch_shape``'s."""
+    u = ueval["U"]
+    c = constants
     lib = build.library("stage")
     fn = lib.fused_stage_f32 if u.dtype == torch.float32 \
         else lib.fused_stage_f64
-    tr = ueval.get("Tracers")
-    ntr = 0 if tr is None else tr.shape[0] // nz
+    tensors, ints, _, _ = _launch_plan(two_base, base1, base2, ueval, fg, st,
+                                       launch)
     with torch.cuda.device(u.device):
         outs = [torch.empty_like(u) for _ in range(5)]
-        trs = [None] * 4
-        if ntr:
-            outs.append(torch.empty_like(tr))
-            trs = [tr, *_base_tracers(two_base, base1, base2, ueval),
-                   outs[5]]
-        tensors = ([ueval[k] for k in STATE4 + ("W",)]
-                   + [base1[k] for k in STATE4]
-                   + [base2[k] if two_base else None for k in STATE4]
-                   + [st.m2d] + full3d + [st.tab] + outs[:5] + trs)
+        tensors[24:29] = outs
+        if tensors[29] is not None:
+            outs.append(torch.empty_like(tensors[29]))
+            tensors[32] = outs[5]
         ptrs = (ctypes.c_void_p * len(tensors))(
             *[None if t is None else t.data_ptr() for t in tensors])
         scal = (ctypes.c_double * 7)(
             float(dt_s), float(cb1), float(cb2), float(c.Cp),
             float(c.Rd / (c.Cp - c.Rd)), float(c.Rd / c.P0), float(c.g))
-        ints = (ctypes.c_int * 10)(nz, P, A, B, fg.p, int(sep),
-                                   int(st.has_pen), ntr,
-                                   XZ_CODES[fg.xz_zero],
-                                   int(fg.npanels == 1))
-        err = fn(ptrs, scal, ints, torch.cuda.current_stream().cuda_stream)
+        cints = (ctypes.c_int * len(ints))(*ints)
+        err = fn(ptrs, scal, cints, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_stage kernel launch failed "
                            f"(cudaGetLastError = {err})")

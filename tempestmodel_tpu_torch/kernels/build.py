@@ -18,6 +18,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import time
@@ -119,6 +120,7 @@ def build_all(verbose: bool = False) -> dict:
             failures.append(f"{' '.join(cmd)}\n{log}")
             continue
         os.replace(tmp, out)          # atomic: a reader never sees half a file
+        out.with_suffix(".log").write_text(log)   # ptxas_usage reads it
         if verbose:
             print(f"[build] {stem}:\n{log}", flush=True)
     if failures:
@@ -140,6 +142,34 @@ def _load(stem: str, tag: str):
         fn.restype = ctypes.c_int
     _libs[stem] = lib
     return lib
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+
+
+def parse_ptxas(text: str) -> dict:
+    """``{mangled kernel name: {"registers", "spill_stores",
+    "spill_loads"}}`` from the text of an ``nvcc -Xptxas -v`` report."""
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+        elif cur is not None and _SPILL.search(line):
+            st, ld = _SPILL.search(line).groups()
+            cur.update(spill_stores=int(st), spill_loads=int(ld))
+        elif cur is not None and _REGS.search(line):
+            cur["registers"] = int(_REGS.search(line).group(1))
+    return out
+
+
+def ptxas_usage(stem: str) -> dict:
+    """``parse_ptxas`` of the report of the current build of
+    ``csrc/<stem>.cu`` (empty when no build of these sources has one)."""
+    path = _lib_path(stem, _source_hash()).with_suffix(".log")
+    return parse_ptxas(path.read_text()) if path.exists() else {}
 
 
 def library(stem: str):

@@ -6,16 +6,23 @@ nvcc:
 
     python3 -m tempestmodel_tpu_torch.kernels.tune_fused
 
-Compiles ``csrc/dss.cu``, ``csrc/stage.cu``, ``csrc/implicit.cu`` and
-``csrc/banded_multi.cu`` once per variant of their ``-D`` tunables into a
-temporary directory, swaps each variant in behind the wrappers, holds its
-result against the default build's, and prints the device time per launch of
-``dss_uvw``, ``fused_stage`` (two bases, without tracers and with three
-species), ``fused_implicit_update`` and ``banded_solve_multi`` (the moist
-wave's n 30, q 1, R 3; its register-window and its read-back form) at the
-flagship shapes (ne30 p4 L30), float32 and float64.  Times are taken as in
+Compiles ``csrc/dss.cu``, ``csrc/implicit.cu`` and ``csrc/banded_multi.cu``
+once per variant of their ``-D`` tunables into a temporary directory, swaps
+each variant in behind the wrappers, holds its result against the default
+build's, and prints the device time per launch of ``dss_uvw``,
+``fused_implicit_update`` and ``banded_solve_multi`` (the moist wave's n 30,
+q 1, R 3; its register-window and its read-back form) at the flagship shapes
+(ne30 p4 L30), float32 and float64.  ``fused_stage`` takes its launch shape
+at run time: the default build is launched at every shape of ``STAGE_SHAPES``
+(tile, levels per block, ring depth), one base and two, without tracers and
+with three species, and each is held against the rules' shape
+(``stage_cuda.stage_launch_shape``).  Times are taken as in
 ``chip_smoke.py``: launches queued behind a busy device; every launch reads
 more than the L2 holds.
+
+    python3 -m tempestmodel_tpu_torch.kernels.tune_fused [stage]
+
+``stage`` sweeps the stage kernel only.
 """
 
 import ctypes
@@ -42,17 +49,16 @@ VARIANTS = {
     "dss": [{}] + [{"UVW_THREADS": t, "UVW_LEVELS": lv}
                    for t, lv in ((128, 3), (128, 2), (128, 1), (256, 5),
                                  (256, 2), (64, 5), (128, 8))],
-    "stage": [{}] + [{"STAGE_LEVELS": lv, "STAGE_TILE_A": a,
-                      "STAGE_TILE_B": b}
-                     for lv, a, b in ((6, 4, 32), (3, 8, 32), (10, 8, 32),
-                                      (30, 8, 32), (6, 16, 32), (6, 8, 16),
-                                      (6, 4, 64), (3, 4, 32), (10, 4, 32))]
-    + [{"STAGE_SPECIES": n} for n in (1, 2, 4)],
     "implicit": [{}] + [{"IMPLICIT_THREADS": t}
                         for t in (32, 64, 96, 160, 192, 256)],
     "banded_multi": [{}] + [{"BANDED_MULTI_THREADS": t}
                             for t in (32, 64, 256)],
 }
+# launch shapes of the stage kernel: (TA, TB) x levels per block x ring
+STAGE_TILES = ((4, 40), (4, 24), (8, 24), (4, 60), (4, 32), (8, 40),
+               (8, 8), (12, 12), (8, 16), (4, 20), (4, 16))
+STAGE_LEVELS = (30, 15, 10, 8, 6)
+STAGE_RINGS = (3, 4, 5, 6)
 NE, ORDER, NZ, DT = 30, 4, 30, 100.0
 NTR = 3
 
@@ -88,7 +94,7 @@ def rel_err(got, want):
                for g, w in zip(got, want))
 
 
-def main():
+def main(argv=()):
     if not torch.cuda.is_available():
         print("tune_fused: no CUDA device", file=sys.stderr)
         return 1
@@ -98,17 +104,71 @@ def main():
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip())
     build.build_all()
+    stage_only = list(argv) == ["stage"]
     tc = BaroclinicWaveUMJS(pert="exp")
     with tempfile.TemporaryDirectory() as tmp:
-        libs = compile_variants(tmp)
+        libs = [] if stage_only else compile_variants(tmp)
         for dtype, sfx in ((torch.float32, "f32"), (torch.float64, "f64")):
             cfg = tm.ModelConfig(
                 grid_kind=tm.GridKind.CUBED_SPHERE, ne=NE, order=ORDER,
                 nz=NZ, ztop=tc.ztop, dt=DT, vertical_solver="pallas",
                 dtype=dtype)
             geom = nh_model.build_nh_sphere_geometry(cfg, ztop=tc.ztop)
-            sweep(cfg, geom, tc, dtype, sfx, dev, libs)
+            sweep_stage(cfg, geom, dtype, sfx, dev)
+            if not stage_only:
+                sweep(cfg, geom, tc, dtype, sfx, dev, libs)
     return 0
+
+
+def sweep_stage(cfg, geom, dtype, sfx, dev):
+    """Time the stage kernel at every launch shape of STAGE_TILES x
+    STAGE_LEVELS x STAGE_RINGS that fits, one base and two, with and
+    without three species, each held against the rules' shape."""
+    consts = cfg.constants
+    fg = synthetic.terrain_like(
+        fast.build_fast_geometry(geom, dtype=dtype, device=dev),
+        vary_jac=True)
+    sst = stage_cuda.stage_statics(fg)
+    ue, b1, b2 = (synthetic.random_state(fg, seed) for seed in (1, 2, 3))
+    ue_t, b1_t, b2_t = (dict(d, Tracers=synthetic.random_tracers(fg, NTR, s))
+                        for s, d in enumerate((ue, b1, b2), 7))
+    cases = {"one_base": (False, b1, None, ue), "two_base": (True, b1, b2, ue),
+             f"one_base+{NTR}tracers": (False, b1_t, None, ue_t),
+             f"two_base+{NTR}tracers": (True, b1_t, b2_t, ue_t)}
+    for name, (tb, x1, x2, ev) in cases.items():
+        ntr = NTR if "Tracers" in ev else 0
+
+        def run(launch=None):
+            return stage_cuda._fused_stage_cuda(tb, 0.3 if tb else 1.0, x1,
+                                                0.7, x2, ev, 12.5, fg, consts,
+                                                sst, launch)
+
+        want = run()
+        rule = stage_cuda.launch_config(((0.3, x1), (0.7, x2)) if tb else x1,
+                                        ev, fg, sst)
+        ms = time_cuda(run, [()], 20, queued=True)
+        print(f"{sfx} fused_stage {name} rule {rule['tile']} "
+              f"L{rule['levels_per_block']} R{rule['ring']}: {ms:.4f} ms",
+              flush=True)
+        for tile in STAGE_TILES:
+            for lv in STAGE_LEVELS:
+                for ring in STAGE_RINGS:
+                    try:
+                        sh = stage_cuda.stage_launch_shape(
+                            NZ, fg.A, fg.B, fg.p, ntr, dtype, tb,
+                            sst.use_sep, 6, tile=tile, levels=lv, ring=ring)
+                    except ValueError:
+                        continue
+                    try:
+                        err = rel_err(run(sh), want)
+                    except RuntimeError as exc:   # too many registers
+                        print(f"{sfx} fused_stage {name} {tile} L{lv} "
+                              f"R{ring}: does not launch ({exc})", flush=True)
+                        continue
+                    ms = time_cuda(lambda: run(sh), [()], 20, queued=True)
+                    print(f"{sfx} fused_stage {name} {tile} L{lv} R{ring}: "
+                          f"{ms:.4f} ms  rel err vs rule {err:.1e}",
+                          flush=True)
 
 
 def sweep(cfg, geom, tc, dtype, sfx, dev, libs):
@@ -124,16 +184,6 @@ def sweep(cfg, geom, tc, dtype, sfx, dev, libs):
     d = fast.pack_state(tc.initial_state(geom, consts, dtype=dtype,
                                          device=dev), device=dev)
     x0, aux = fimp._prep_aux(d, fg, interfaces=False)
-
-    def run_stage(base=two, ueval=ue):
-        out, wf = stage_cuda.fused_stage(base, ueval, 12.5, fg, consts,
-                                         defer_w=True, statics=sst)
-        return list(out.values()) + [wf["dW"]]
-
-    # the same stage with three seeded tracer species
-    ue_t, b1_t, b2_t = (dict(d, Tracers=synthetic.random_tracers(fg, NTR, s))
-                        for s, d in enumerate((ue, b1, b2), 7))
-    two_t = ((0.3, b1_t), (0.7, b2_t))
 
     # the moist wave's tracer systems: two sets cycle through the L2
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -164,20 +214,9 @@ def sweep(cfg, geom, tc, dtype, sfx, dev, libs):
                                                    0.5 * DT, consts)
 
     # name -> (source stem, checked function, timed function, its argument
-    # sets, repetitions): the stage is timed without the dW product that
-    # follows the kernel in the wrapper
-    tb, c1, s1, c2, s2 = stage_cuda._split_base(two)
-    _, _, t1, _, t2 = stage_cuda._split_base(two_t)
+    # sets, repetitions)
     kernels = {
         "dss_uvw": ("dss", run_uvw, run_uvw, [()], 40),
-        "fused_stage": ("stage", run_stage,
-                        lambda: stage_cuda._fused_stage_cuda(
-                            tb, c1, s1, c2, s2, ue, 12.5, fg, consts, sst),
-                        [()], 20),
-        f"fused_stage+{NTR}tracers": (
-            "stage", lambda: run_stage(two_t, ue_t),
-            lambda: stage_cuda._fused_stage_cuda(
-                tb, c1, t1, c2, t2, ue_t, 12.5, fg, consts, sst), [()], 20),
         "fused_implicit_update": ("implicit", run_implicit, run_implicit,
                                   [()], 10),
         "banded_solve_multi": ("banded_multi", run_multi(True),
@@ -211,4 +250,4 @@ def sweep(cfg, geom, tc, dtype, sfx, dev, libs):
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

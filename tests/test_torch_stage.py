@@ -13,7 +13,7 @@ import torch
 from tempestmodel_tpu.fast import engine as j_engine, stage_pallas
 from tempestmodel_tpu_torch.fast import (engine as t_engine, stage_cuda,
                                          tracers as t_tracers)
-from tempestmodel_tpu_torch.kernels import stencils, synthetic
+from tempestmodel_tpu_torch.kernels import stage_edges, stencils, synthetic
 from tempestmodel_tpu_torch.kernels.counts import launch_counts
 
 from torch_port_common import (build_pair, rel_err, state_pair,
@@ -331,3 +331,147 @@ def test_cuda_kernel_with_tracers_matches_plain(setup, dtype, tol, ntr):
             for i in range(0, ntr * nz, nz):
                 assert rel_err(got["Tracers"][i:i + nz].cpu(),
                                want["Tracers"][i:i + nz].cpu()) < tol, i
+
+
+# (nz, P, A, B, p) of the shapes the stage kernel runs at: the flagship, the
+# test configuration, the Schar slice in both layouts, the 3-D bubble's
+# plane, other element orders and level counts
+LAUNCH_SHAPES = {
+    "flagship": (30, 6, 120, 120, 4),
+    "ne4": (8, 6, 16, 16, 4),
+    "schar_swapped": (40, 1, 4, 400, 4),
+    "schar_natural": (40, 1, 400, 4, 4),
+    "bubble_plane": (40, 1, 128, 128, 4),
+    "p3": (8, 6, 12, 12, 3),
+    "p5": (8, 6, 20, 20, 5),
+    "nz2": (2, 6, 16, 16, 4),
+    "nz7": (7, 6, 16, 16, 4),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("ntr", [0, 1, 3, 6])
+@pytest.mark.parametrize("shape", list(LAUNCH_SHAPES))
+def test_stage_launch_shape(shape, ntr, dtype):
+    """Whole elements, 64-1024 threads a block wherever A * B allows 64 (at
+    most MAX_THREADS), a ring the kernel takes, the species groups, and
+    shared memory that fits an H100 block, for every base count and metric
+    form."""
+    nz, P, A, B, p = LAUNCH_SHAPES[shape]
+    esize = 4 if dtype == torch.float32 else 8
+    for two_base in (False, True):
+        for sep in (True, False):
+            sh = stage_cuda.stage_launch_shape(nz, A, B, p, ntr, dtype,
+                                               two_base, sep, P)
+            assert sh.TA % p == 0 and sh.TB % p == 0
+            assert sh.TA <= A and sh.TB <= B
+            assert min(64, A * B) <= sh.threads <= stage_cuda.MAX_THREADS
+            assert 1 <= sh.levels <= nz
+            assert stage_cuda.MIN_RING <= sh.ring <= stage_cuda.MAX_RING
+            assert sh.group == min(ntr, stage_cuda.STAGE_SPECIES)
+            nslab = stage_cuda.ring_slabs(ntr, two_base, sep)
+            assert sh.smem == stage_cuda.stage_smem_bytes(
+                nz, p, sh.TA, sh.TB, sh.ring, sh.group, nslab, esize)
+            assert sh.smem <= stage_cuda.SMEM_MAX
+            # the ring is shallower than RING only where a deeper one would
+            # not fit or would leave an SM fewer than MIN_RESIDENT threads
+            if sh.ring < stage_cuda.RING:
+                deeper = stage_cuda.stage_smem_bytes(
+                    nz, p, sh.TA, sh.TB, sh.ring + 1, sh.group, nslab, esize)
+                assert deeper > stage_cuda.SMEM_MAX or sh.threads * \
+                    stage_cuda.resident_blocks(
+                        deeper, sh.threads,
+                        stage_cuda.REGISTERS[esize, ntr > 0]) \
+                    < stage_cuda.MIN_RESIDENT
+
+
+def test_stage_launch_shape_fits_the_rows():
+    """A warp on one row and at most MAX_IDLE of the last tiles idle on the
+    flagship (B = 120); 32-64 rows, never 16-thread blocks, on Schar's
+    natural layout (B = 4); Schar's small grids cut into chunks of
+    MIN_LEVELS; explicit choices are kept."""
+    f32, f64 = torch.float32, torch.float64
+
+    def idle(A, B, sh):
+        return 1 - A * B / (-(-A // sh.TA) * sh.TA * -(-B // sh.TB) * sh.TB)
+
+    for dtype in (f32, f64):
+        fl = stage_cuda.stage_launch_shape(30, 120, 120, 4, 0, dtype, True,
+                                           True, 6)
+        assert fl.TB >= 32 and idle(120, 120, fl) <= stage_cuda.MAX_IDLE
+        assert 64 <= fl.threads <= stage_cuda.MAX_THREADS
+    nat = stage_cuda.stage_launch_shape(40, 400, 4, 4, 0, f32, True, False, 1)
+    assert nat.TB == 4 and 32 <= nat.TA <= 64
+    sw = stage_cuda.stage_launch_shape(40, 4, 400, 4, 0, f32, True, False, 1)
+    assert sw.TA == 4 and sw.TB >= 32 and idle(4, 400, sw) <= 0.1
+    for sh in (nat, sw):
+        assert sh.levels == stage_cuda.MIN_LEVELS
+    mine = stage_cuda.stage_launch_shape(30, 120, 120, 4, 3, f32, True, True,
+                                         6, tile=(8, 24), levels=10, ring=5)
+    assert (mine.TA, mine.TB, mine.levels, mine.ring, mine.group) == \
+        (8, 24, 10, 5, 3)
+    with pytest.raises(ValueError):
+        stage_cuda.stage_launch_shape(30, 120, 120, 4, 0, f32, tile=(6, 32))
+    # a species count whose ring cannot fit an H100 block at any tile
+    with pytest.raises(ValueError):
+        stage_cuda.stage_launch_shape(30, 120, 120, 4, 400, torch.float64)
+
+
+@pytest.mark.parametrize("B,TB,esize,offset,want", [
+    (120, 40, 4, 0, 4), (120, 40, 4, 8, 2), (120, 40, 4, 4, 1),
+    (9, 9, 4, 0, 1), (10, 10, 4, 0, 2), (4, 4, 4, 0, 4),
+    (120, 40, 8, 0, 2), (120, 40, 8, 8, 1), (9, 9, 8, 0, 1), (4, 4, 8, 0, 2)])
+def test_copy_width(B, TB, esize, offset, want):
+    """16-byte copies where B, the tile row and every pointer allow them,
+    else 8 bytes, else one value; a null pointer asks for nothing."""
+    ptrs = [256, 4096 + offset, 0, 1 << 20]
+    assert stage_cuda.copy_width(B, TB, esize, ptrs) == want
+
+
+def test_launch_config_reports_the_launch(setup):
+    s = setup
+    base, ue = _bases(s, "t", True)
+    conf = stage_cuda.launch_config(base, ue, s["tfg"])
+    sh = stage_cuda.stage_launch_shape(8, 16, 16, 4, 0, torch.float64,
+                                       True, True, 6)
+    assert conf["tile"] == [sh.TA, sh.TB] and conf["ring"] == sh.ring
+    assert conf["levels_per_block"] == sh.levels
+    assert conf["slabs"] == stage_cuda.ring_slabs(0, True, True) == 13
+    assert conf["copy_bytes"] == 16 and conf["copy_route"].startswith(
+        "cp.async.cg")
+    odd = {k: v.clone() for k, v in ue.items()}
+    buf = torch.empty(odd["Rt"].numel() + 1, dtype=odd["Rt"].dtype)
+    odd["Rt"] = buf[1:].view(odd["Rt"].shape)
+    assert stage_cuda.launch_config(base, odd, s["tfg"])["copy_bytes"] == 8
+
+
+def test_ptxas_report_is_parsed():
+    from tempestmodel_tpu_torch.kernels import build
+    text = (
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_118fused_stage_kernelIfLb1ELb0EEEvNS_9StageArgsIT_EE'"
+        " for 'sm_90a'\n"
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_1...\n"
+        "    0 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads\n"
+        "ptxas info    : Used 96 registers, used 1 barriers, 896 bytes "
+        "cmem[0]\n")
+    got = build.parse_ptxas(text)
+    (name, use), = got.items()
+    assert stage_cuda._ENTRY.search(name).groups() == ("f", "1", "0")
+    assert use == {"registers": 96, "spill_stores": 8, "spill_loads": 12}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-11),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("case", list(stage_edges.CASES))
+def test_cuda_kernel_edge_shapes_match_plain(dtype, tol, case):
+    """Two levels, a level count no multiple of the chunk or the ring,
+    one-value and 8-byte copies (p = 3, p = 5, unaligned pointers), one
+    species and two groups of species: kernel against plain at the stage's
+    step and at steps as long as each field's own scale."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no interpret mode")
+    got = stage_edges.run_case(case, dtype, torch.device("cuda"))
+    assert got["max_err"] < tol, got["err_by_output"]
