@@ -26,6 +26,12 @@ and runs these phases, each printing one JSON line:
             128 x 128 plane, ``fused_stage`` with ``xz_zero`` on the Schar
             slice (terrain: the full 3-D metric), ``fused_implicit_update`` at
             its 1600 columns, ``nu4_pass1/2`` on the 3-D bubble's plane;
+            ``fused_implicit_update`` also at its edge shapes (2, 8 and 40
+            levels; 1, 7, 1532 (a partial last tile) and 1600 columns;
+            one-value and 8-byte copies from unaligned inputs), each
+            implicit line naming its launch shape and copy route and the
+            build line the registers and spills of every instantiation of
+            the implicit kernel;
 4. slice    the Strang-HEVI step at small size in float64 on the card three
             ways — fused kernel path, unfused kernel path, plain path — each
             pair to 1e-11 relative per field, and ``make_fast_multistep``
@@ -212,6 +218,24 @@ def check_stage_edges(dtype, dev):
                                f"err {got['err_by_output']} > {tol}")
 
 
+def check_implicit_edges(dtype, dev):
+    """Phase 3: ``fused_implicit_update`` at the edge shapes of
+    ``kernels/implicit_edges.py`` against its plain version (2-40 levels,
+    1-1600 columns, unaligned inputs), both Jacobian modes, with and
+    without the time term."""
+    from tempestmodel_tpu_torch.kernels import implicit_edges
+    tag = "f32" if dtype == torch.float32 else "f64"
+    tol = 2e-3 if dtype == torch.float32 else 1e-10
+    for case in implicit_edges.CASES:
+        got = implicit_edges.run_case(case, dtype, dev)
+        emit({"phase": "kernel", "dtype": tag, "tol": tol,
+              "name": "fused_implicit_update_edge", "case": case, **got})
+        if not got["max_err"] <= tol:
+            raise RuntimeError(f"fused_implicit_update edge case {case} "
+                               f"{tag}: rel err {got['err_by_output']} > "
+                               f"{tol}")
+
+
 def check_fused_kernels(cfg, geom, state, dtype, rows, dev):
     """Phase 3, second half: ``dss_uvw``, ``fused_stage`` and
     ``fused_implicit_update`` against their plain versions at the flagship
@@ -386,7 +410,10 @@ def check_fused_kernels(cfg, geom, state, dtype, rows, dev):
            "shape": [K, ncol], "max_abs_err": err, "ms": ms,
            "ms_with_time_term": ms_time, "plain_ms": plain_ms,
            "bound_ms": bnd, "bound_by": by, "library_ms": None}
-    emit({"phase": "kernel", "dtype": tag, "tol": imp_tol, **row})
+    emit({"phase": "kernel", "dtype": tag, "tol": imp_tol, **row,
+          "launch": implicit_cuda.launch_config(x0, x0, aux, ist),
+          "launch_with_time_term": implicit_cuda.launch_config(
+              x1, x0, aux, ist, True)})
     if f32:
         rows["fused_implicit_update"] = row
     torch.cuda.empty_cache()
@@ -875,6 +902,7 @@ def check_kernels(fg, cfg, geom, state, dev):
 
         check_fused_kernels(cfg, geom, state, dtype, rows, dev)
         check_stage_edges(dtype, dev)
+        check_implicit_edges(dtype, dev)
         check_tail_kernels(geom, dtype, rows, dev)
         check_tracer_kernels(cfg, geom, dtype, rows, dev)
         check_cartesian_kernels(dtype, rows, dev)
@@ -1308,7 +1336,8 @@ def check_cartesian_kernels(dtype, rows, dev):
                warmup=1),
            "bound_ms": bnd, "bound_by": by}
     emit({"phase": "cartesian_kernel", "dtype": tag, "tol": imp_tol,
-          "name": "fused_implicit_update_schar", **imp})
+          "name": "fused_implicit_update_schar", **imp,
+          "launch": implicit_cuda.launch_config(x0, x0, aux, ist)})
     if f32:
         rows["cartesian_implicit"] = imp
 
@@ -1658,17 +1687,24 @@ def main():
 
     # 2. build ------------------------------------------------------------
     info = build.build_all(verbose=True)
-    from tempestmodel_tpu_torch.fast import stage_cuda
+    from tempestmodel_tpu_torch.fast import implicit_cuda, stage_cuda
     resources = stage_cuda.kernel_resources()
     if len(resources) != 8:
         raise RuntimeError(f"the build reported {len(resources)} of the "
                            f"stage kernel's 8 instantiations")
+    imp_resources = implicit_cuda.kernel_resources()
+    if len(imp_resources) != 5:
+        raise RuntimeError(f"the build reported {len(imp_resources)} of the "
+                           f"implicit kernel's 5 instantiations")
     emit({"phase": "build", "seconds": info["seconds"],
           "built": info["built"], "libraries": len(info["libraries"]),
           "fused_stage_registers_and_spills": resources,
           "fused_stage_registers_assumed_by_the_launch_rule": {
               f"f{8 * e}{'+tracers' if tr else ''}": n
-              for (e, tr), n in stage_cuda.REGISTERS.items()}})
+              for (e, tr), n in stage_cuda.REGISTERS.items()},
+          "fused_implicit_registers_and_spills": imp_resources,
+          "fused_implicit_registers_assumed_by_the_launch_rule": {
+              f"f{8 * e}": n for e, n in implicit_cuda.REGISTERS.items()}})
 
     # flagship geometry and state (host numpy, then tensors on the card)
     tc = BaroclinicWaveUMJS(pert="exp")

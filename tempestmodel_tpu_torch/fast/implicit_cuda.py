@@ -5,14 +5,17 @@ Counterpart of the JAX package's ``fast/pallas_implicit.py``
 (``fused_implicit_update``).  Per column, one launch computes the aux
 terms, the residual F of (Rt, W, Rho), the analytic banded Jacobian (exact
 or reference mode) and a no-pivot banded LU solve, and returns the Newton
-increment ``(d_rt, d_w, d_rho) = J^{-1} F``.  The ``(n, 2q+1, ncol)`` band
-tensor of the unfused path never reaches device memory.
+increment ``(d_rt, d_w, d_rho) = J^{-1} F``.  Neither the ``(n, 2q+1,
+ncol)`` band tensor nor its U factor reaches device memory.
 
-The kernel (``csrc/implicit.cu``) runs one thread per column and streams
-the rows of the system; see the note there for its design and its bound on
-the card.  ``fused_implicit_update`` launches it for CUDA tensors — or
-raises — and runs ``fused_implicit_update_plain`` only for tensors that
-lie on the CPU.
+The kernel (``csrc/implicit.cu``) stages a tile of columns in shared
+memory, assembles the rows of the tile level-parallel there and solves each
+column there; see the note in the source for its design and its bound on
+the card.  Its launch shape (columns a block, threads) comes from
+``implicit_launch_shape`` and the width of its asynchronous copies from
+``copy_width``; both are plain Python, so the CPU tests hold the rules.
+``fused_implicit_update`` launches it for CUDA tensors — or raises — and
+runs ``fused_implicit_update_plain`` only for tensors that lie on the CPU.
 
 ``PackedStatics`` / ``pack_statics`` / ``build_diag_table`` are the JAX
 module's host-side packing of ``band_assembly_statics`` without its sublane
@@ -24,6 +27,8 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
+import re
 from typing import Any
 
 import numpy as np
@@ -31,6 +36,7 @@ import torch
 
 from ..kernels import build, stencils
 from ..kernels.counts import launch_counts
+from .stage_cuda import SMEM_MAX, SMS, resident_blocks
 
 MATS = ("interp_n2i", "interp_i2n", "diff_n2i", "diff_i2n", "diffdiff_i2i",
         "penalty_left", "penalty_right", "wscat_left", "wscat_right")
@@ -61,6 +67,114 @@ BAND_COLUMNS = [("DDb", OFFS), ("Dn2i_b", OFFS), ("In2i_b", OFFS),
                 ("Di2n_b", (0, 1)), ("Pl_b", OFFS), ("Pr_b", OFFS)]
 NCOLS = (sum(len(o) for _, o in LAYOUT)
          + sum(len(o) for _, o in BAND_COLUMNS))
+
+# The kernel's launch shape (``kernels/tune_fused.py implicit`` sweeps it).
+# A block is a tile of C columns with all their levels in shared memory
+# (``csrc/implicit.cu``), and its banded LU runs one thread a column, so the
+# columns in flight on an SM (C times the blocks it holds) set how many of
+# the serial solves overlap, and the blocks an SM holds how far one block's
+# parallel steps hide another's solve.  Among the C of COLS whose tile fits
+# a block, the rule takes the one that keeps the most SMs busy, then the
+# most columns in flight an SM; among those, where every column is in
+# flight at once (Schar's 1600), the smallest C (the most blocks), else the
+# largest C that leaves an SM MIN_BLOCKS blocks.  On an NVIDIA H100 80GB
+# HBM3 at 700 W its shape was the fastest of the 15 swept at the flagship's
+# columns (f32 and f64) and at Schar's in f32, and within 4 % of it at
+# Schar's in f64 (PERF.md section 6).
+COLS = (4, 8, 16, 32)            # each divides THREADS
+MIN_BLOCKS = 3
+THREADS = 128
+MAX_THREADS = 128              # csrc/implicit.cu takes at most this many
+# registers a thread of the kernel takes, by value size (as `nvcc -Xptxas
+# -v` reports them for sm_90a; `kernel_resources()` gives the build's own,
+# and chip_smoke.py prints both)
+REGISTERS = {4: 80, 8: 162}
+ROW = 10                       # values of a stored W row: 2q+1 band, residual
+LEVEL_ROW = 6                  # ... of a level row: 5 nonzeros, residual
+NLEVEL, NINTERFACE = 11, 5     # level and interface values of the kernel
+# the staged inputs: 10 level fields, 7 interface fields, c2; the
+# pointers of the kernel's ``ptrs`` array they come from (rt0, w0, rho0 are
+# staged with the time term only)
+TIME_PTRS = (3, 4, 5)
+STAGED_PTRS = tuple(range(18))
+
+
+def implicit_smem_bytes(nz: int, cols: int, esize: int) -> int:
+    """Dynamic shared memory of one block of ``cols`` columns, as
+    ``csrc/implicit.cu`` lays it out (``smem_values``): a column's W rows
+    (10 values each), its level rows (6 each) or the staged interface
+    fields' share where that is more, each to twice an odd count of values,
+    then the level and interface values.  (The stencil table is read
+    through the read-only cache.)"""
+    def pairs(n):        # twice an odd count of pairs
+        return 2 * ((n + 1) // 2 | 1)
+
+    staged = 7 * (nz + 1) + 4
+    per_col = (pairs((nz + 1) * ROW) + pairs(max(2 * nz * LEVEL_ROW, staged))
+               + NLEVEL * nz + NINTERFACE * (nz + 1))
+    return esize * cols * per_col
+
+
+@dataclasses.dataclass(frozen=True)
+class ImplicitLaunch:
+    """A launch shape of the implicit kernel: ``cols`` columns and
+    ``threads`` threads a block, ``smem`` bytes of dynamic shared memory."""
+    cols: int
+    threads: int
+    smem: int
+
+    def blocks(self, ncol: int) -> int:
+        return -(-ncol // self.cols)
+
+
+def _esize(dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+@functools.lru_cache(maxsize=None)
+def implicit_launch_shape(nz: int, ncol: int, dtype, cols=None,
+                          threads=None) -> ImplicitLaunch:
+    """The implicit kernel's launch shape for ``ncol`` columns of ``nz``
+    levels in ``dtype``.  ``cols`` and ``threads`` replace the rule's
+    choice (``kernels/tune_fused.py``).  Raises ValueError where nothing
+    fits."""
+    esize = _esize(dtype)
+    nth = THREADS if threads is None else int(threads)
+    if not (32 <= nth <= MAX_THREADS and nth % 32 == 0):
+        raise ValueError(f"{nth} threads: the kernel takes a multiple of 32 "
+                         f"up to {MAX_THREADS}")
+    best = None
+    for C in (COLS if cols is None else (int(cols),)):
+        if C < 1 or nth % C:
+            raise ValueError(f"{C} columns a block: the kernel takes a "
+                             f"divisor of its {nth} threads")
+        nbytes = implicit_smem_bytes(nz, C, esize)
+        per_sm = resident_blocks(nbytes, nth, REGISTERS[esize])
+        if nbytes > SMEM_MAX or per_sm < 1:
+            continue
+        blocks = -(-max(ncol, 1) // C)
+        inflight = min(C * min(per_sm, blocks / SMS), max(ncol, 1) / SMS)
+        one_wave = blocks <= SMS * per_sm
+        key = (min(blocks, SMS), round(inflight, 6), one_wave,
+               -C if one_wave else (per_sm >= MIN_BLOCKS) * C)
+        if best is None or key > best[0]:
+            best = (key, ImplicitLaunch(C, nth, nbytes))
+    if best is None:
+        raise ValueError(f"no launch shape of the implicit kernel fits "
+                         f"nz={nz} in {SMEM_MAX} bytes of shared memory")
+    return best[1]
+
+
+def copy_width(ncol: int, cols: int, esize: int, ptrs) -> int:
+    """Values per asynchronous copy of the staging: 16 bytes where ncol,
+    the tile's columns and every pointer of ``ptrs`` (ints) allow it, else
+    8, else one value."""
+    for nbytes in (16, 8):
+        V = nbytes // esize
+        if V >= 1 and ncol % V == 0 and cols % V == 0 \
+                and all(p % nbytes == 0 for p in ptrs):
+            return V
+    return 1
 
 
 def _np(t):
@@ -222,8 +336,13 @@ def implicit_statics(statics, fg) -> ImplicitStatics:
 def fused_supported(ist: ImplicitStatics) -> bool:
     """Whether the fused update covers the configuration: vertical order 1
     with penalty terms, half-bandwidth 4, every operator inside the kernel's
-    windows.  A statement about the configuration only."""
-    return ist.tab is not None
+    windows, at least 2 levels, and the smallest tile of ``COLS`` at
+    ``nz`` levels in the statics' dtype fits an H100 block.  A statement
+    about the configuration only."""
+    if ist.tab is None or ist.ps.nz < 2:
+        return False
+    return implicit_smem_bytes(ist.ps.nz, min(COLS),
+                               _esize(ist.tab.dtype)) <= SMEM_MAX
 
 
 def fused_implicit_update_plain(x_parts, x0_parts, aux, ist, dt, constants,
@@ -292,35 +411,82 @@ def fused_implicit_update(x_parts, x0_parts, aux, ist: ImplicitStatics, dt,
                                 ref_jacobian, newton_time_term)
 
 
+def _launch_plan(x_parts, x0_parts, aux, ist, newton_time_term,
+                 launch: ImplicitLaunch = None):
+    """(tensors of the kernel's ``ptrs`` without the outputs, launch shape,
+    copy width) of one launch."""
+    rt = x_parts[0]
+    nz, ncol = rt.shape
+    tensors = ([*x_parts, *x0_parts] + [aux[k] for k in AUX_FIELDS]
+               + [aux["c2"], ist.tab])
+    if launch is None:
+        launch = implicit_launch_shape(nz, ncol, rt.dtype)
+    staged = [tensors[i].data_ptr() for i in STAGED_PTRS
+              if newton_time_term or i not in TIME_PTRS]
+    V = copy_width(ncol, launch.cols, rt.element_size(), staged)
+    return tensors, launch, V
+
+
+def launch_config(x_parts, x0_parts, aux, ist, newton_time_term=False,
+                  launch: ImplicitLaunch = None) -> dict:
+    """What one launch of the kernel on these inputs would be: columns and
+    threads a block, blocks, copy width and route, shared memory (for the
+    report lines of ``chip_smoke.py``)."""
+    _, sh, V = _launch_plan(x_parts, x0_parts, aux, ist, newton_time_term,
+                            launch)
+    nbytes = V * x_parts[0].element_size()
+    return {"cols_per_block": sh.cols, "threads": sh.threads,
+            "blocks": sh.blocks(x_parts[0].shape[1]),
+            "copy_bytes": nbytes,
+            "copy_route": f"cp.async.{'cg' if nbytes == 16 else 'ca'} "
+                          f"{nbytes} B",
+            "smem_bytes": sh.smem}
+
+
+_ENTRY = re.compile(r"fused_implicit_kernelI([fd])Li(\d+)E")
+
+
+def kernel_resources() -> dict:
+    """Registers and spill bytes of the kernel's instantiations (one per
+    value type and copy width) as ``nvcc -Xptxas -v`` reported them at the
+    build, keyed ``f32/16B``, ``f32/8B``, ... (empty before a build)."""
+    out = {}
+    for name, use in build.ptxas_usage("implicit").items():
+        m = _ENTRY.search(name)
+        if m:
+            esize = 4 if m.group(1) == "f" else 8
+            out[f"f{8 * esize}/{int(m.group(2)) * esize}B"] = use
+    return out
+
+
 def _fused_implicit_cuda(x_parts, x0_parts, aux, ist, dt, constants,
-                         ref_jacobian, newton_time_term):
+                         ref_jacobian, newton_time_term,
+                         launch: ImplicitLaunch = None):
+    """Launch the kernel; ``launch``: a launch shape in place of
+    ``implicit_launch_shape``'s."""
     rt, w, rho = x_parts
     nz, ncol = rt.shape
     c = constants
-    q = ist.ps.q
     lib = build.library("implicit")
     fn = lib.fused_implicit_f32 if rt.dtype == torch.float32 \
         else lib.fused_implicit_f64
+    tensors, sh, V = _launch_plan(x_parts, x0_parts, aux, ist,
+                                  newton_time_term, launch)
     with torch.cuda.device(rt.device):
-        d_rt, d_w, d_rho = (torch.empty_like(rt), torch.empty_like(w),
-                            torch.empty_like(rho))
-        # scratch of the kernel: the U-factor rows
-        ufac = torch.empty((3 * nz + 1, q + 1, ncol), dtype=rt.dtype,
-                           device=rt.device)
-        tensors = ([rt, w, rho, *x0_parts]
-                   + [aux[k] for k in AUX_FIELDS]
-                   + [aux["c2"], ist.tab, d_rt, d_w, d_rho, ufac])
-        ptrs = (ctypes.c_void_p * len(tensors))(
-            *[t.data_ptr() for t in tensors])
+        outs = (torch.empty_like(rt), torch.empty_like(w),
+                torch.empty_like(rho))
+        ptrs = (ctypes.c_void_p * (len(tensors) + 3))(
+            *[t.data_ptr() for t in tensors + list(outs)])
         scal = (ctypes.c_double * 6)(
             1.0 / float(dt), float(c.Cp), float(c.Rd / (c.Cp - c.Rd)),
             float(c.Rd / c.P0), float(c.g), 0.5 / nz)
-        ints = (ctypes.c_int * 4)(nz, int(bool(ref_jacobian)),
-                                  int(bool(newton_time_term)), q)
+        ints = (ctypes.c_int * 7)(nz, int(bool(ref_jacobian)),
+                                  int(bool(newton_time_term)), ist.ps.q,
+                                  sh.cols, sh.threads, V)
         err = fn(ptrs, scal, ints, ncol,
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_implicit_update kernel launch failed "
                            f"(cudaGetLastError = {err})")
     launch_counts["fused_implicit_update"] += 1
-    return d_rt, d_w, d_rho
+    return outs

@@ -6,23 +6,26 @@ nvcc:
 
     python3 -m tempestmodel_tpu_torch.kernels.tune_fused
 
-Compiles ``csrc/dss.cu``, ``csrc/implicit.cu`` and ``csrc/banded_multi.cu``
-once per variant of their ``-D`` tunables into a temporary directory, swaps
-each variant in behind the wrappers, holds its result against the default
-build's, and prints the device time per launch of ``dss_uvw``,
-``fused_implicit_update`` and ``banded_solve_multi`` (the moist wave's n 30,
-q 1, R 3; its register-window and its read-back form) at the flagship shapes
-(ne30 p4 L30), float32 and float64.  ``fused_stage`` takes its launch shape
-at run time: the default build is launched at every shape of ``STAGE_SHAPES``
+Compiles ``csrc/dss.cu`` and ``csrc/banded_multi.cu`` once per variant of
+their ``-D`` tunables into a temporary directory, swaps each variant in
+behind the wrappers, holds its result against the default build's, and
+prints the device time per launch of ``dss_uvw`` and ``banded_solve_multi``
+(the moist wave's n 30, q 1, R 3; its register-window and its read-back
+form) at the flagship shapes (ne30 p4 L30), float32 and float64.
+``fused_stage`` and ``fused_implicit_update`` take their launch shapes at
+run time: the default build is launched at every shape of ``STAGE_SHAPES``
 (tile, levels per block, ring depth), one base and two, without tracers and
-with three species, and each is held against the rules' shape
-(``stage_cuda.stage_launch_shape``).  Times are taken as in
-``chip_smoke.py``: launches queued behind a busy device; every launch reads
-more than the L2 holds.
+with three species, and at every shape of ``IMPLICIT_COLS`` x
+``IMPLICIT_THREADS`` (columns and threads a block) at the flagship's 86 400
+columns and Schar's 1600 (nex 100, 40 levels), without and with the time
+term; each is held against the rules' shape
+(``stage_cuda.stage_launch_shape``, ``implicit_cuda.implicit_launch_shape``).
+Times are taken as in ``chip_smoke.py``: launches queued behind a busy
+device; every flagship launch reads more than the L2 holds.
 
-    python3 -m tempestmodel_tpu_torch.kernels.tune_fused [stage]
+    python3 -m tempestmodel_tpu_torch.kernels.tune_fused [stage | implicit]
 
-``stage`` sweeps the stage kernel only.
+``stage`` and ``implicit`` sweep that kernel only.
 """
 
 import ctypes
@@ -49,8 +52,6 @@ VARIANTS = {
     "dss": [{}] + [{"UVW_THREADS": t, "UVW_LEVELS": lv}
                    for t, lv in ((128, 3), (128, 2), (128, 1), (256, 5),
                                  (256, 2), (64, 5), (128, 8))],
-    "implicit": [{}] + [{"IMPLICIT_THREADS": t}
-                        for t in (32, 64, 96, 160, 192, 256)],
     "banded_multi": [{}] + [{"BANDED_MULTI_THREADS": t}
                             for t in (32, 64, 256)],
 }
@@ -59,6 +60,10 @@ STAGE_TILES = ((4, 40), (4, 24), (8, 24), (4, 60), (4, 32), (8, 40),
                (8, 8), (12, 12), (8, 16), (4, 20), (4, 16))
 STAGE_LEVELS = (30, 15, 10, 8, 6)
 STAGE_RINGS = (3, 4, 5, 6)
+# launch shapes of the implicit kernel: columns x threads a block (the
+# columns divide the threads)
+IMPLICIT_COLS = (2, 4, 8, 16, 32)
+IMPLICIT_THREADS = (64, 96, 128)
 NE, ORDER, NZ, DT = 30, 4, 30, 100.0
 NTR = 3
 
@@ -104,20 +109,98 @@ def main(argv=()):
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip())
     build.build_all()
-    stage_only = list(argv) == ["stage"]
+    only = list(argv)[:1]
     tc = BaroclinicWaveUMJS(pert="exp")
     with tempfile.TemporaryDirectory() as tmp:
-        libs = [] if stage_only else compile_variants(tmp)
+        libs = [] if only else compile_variants(tmp)
         for dtype, sfx in ((torch.float32, "f32"), (torch.float64, "f64")):
             cfg = tm.ModelConfig(
                 grid_kind=tm.GridKind.CUBED_SPHERE, ne=NE, order=ORDER,
                 nz=NZ, ztop=tc.ztop, dt=DT, vertical_solver="pallas",
                 dtype=dtype)
             geom = nh_model.build_nh_sphere_geometry(cfg, ztop=tc.ztop)
-            sweep_stage(cfg, geom, dtype, sfx, dev)
-            if not stage_only:
-                sweep(cfg, geom, tc, dtype, sfx, dev, libs)
+            if only in ([], ["stage"]):
+                sweep_stage(cfg, geom, dtype, sfx, dev)
+            if only in ([], ["implicit"]):
+                sweep_implicit(cfg, geom, tc, dtype, sfx, dev)
+            if not only:
+                sweep(cfg, geom, dtype, sfx, dev, libs)
     return 0
+
+
+def _implicit_inputs(geom, fg, d, consts, seed, dev):
+    """(statics, state columns, aux) of the implicit update: the state
+    with per-mille noise and a random W, as ``chip_smoke.py`` builds
+    them."""
+    q = nonhydro.estimate_bandwidth(geom, consts)
+    ist = implicit_cuda.implicit_statics(fimp.statics_to_device(
+        nonhydro.band_assembly_statics(geom, q), fg.inv_mult.dtype, dev), fg)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for k in ("U", "V", "Rt", "Rho"):
+        d[k] = d[k] * (1.0 + 1e-3 * torch.randn(
+            d[k].shape, dtype=d[k].dtype, device=dev, generator=gen))
+    d["W"] = 0.01 * torch.randn(d["W"].shape, dtype=d["W"].dtype,
+                                device=dev, generator=gen)
+    x0, aux = fimp._prep_aux(d, fg, None, interfaces=False)
+    return ist, x0, aux
+
+
+def sweep_implicit(cfg, geom, tc, dtype, sfx, dev):
+    """Time the implicit kernel at every launch shape of IMPLICIT_COLS x
+    IMPLICIT_THREADS that fits, at the flagship's columns and at Schar's,
+    without and with the time term, each held against the rule's shape."""
+    import chip_smoke
+    consts = cfg.constants
+    fg = synthetic.terrain_like(
+        fast.build_fast_geometry(geom, dtype=dtype, device=dev), seed=0)
+    d = fast.pack_state(tc.initial_state(geom, consts, dtype=dtype,
+                                         device=dev), device=dev)
+    cases = {"flagship": (*_implicit_inputs(geom, fg, d, consts, 0, dev),
+                          consts, 0.5 * DT, 10)}
+    del fg, d
+    _, scfg, sgeom, state, _ = chip_smoke.cartesian_setup(
+        "schar", dtype, chip_smoke.SCHAR_NEX, 1, chip_smoke.SCHAR_NZ, dev)
+    sfg = fast.build_fast_geometry_cartesian(sgeom, dtype=dtype, device=dev,
+                                             swap_ab=True)
+    sd = fast.engine._swap_ab_state(fast.pack_state(state, device=dev))
+    cases["schar"] = (*_implicit_inputs(sgeom, sfg, sd, scfg.constants, 12,
+                                        dev),
+                      scfg.constants, 0.5 * chip_smoke.SCHAR_DT, 50)
+    for name, (ist, x0, aux, cst, dt, reps) in cases.items():
+        nz, ncol = x0[0].shape
+        x1 = tuple((p * 1.001).contiguous() for p in x0)
+        for tt in (False, True):
+            xs = x1 if tt else x0
+
+            def run(launch=None):
+                return implicit_cuda._fused_implicit_cuda(
+                    xs, x0, aux, ist, dt, cst, False, tt, launch)
+
+            want = run()
+            rule = implicit_cuda.launch_config(xs, x0, aux, ist, tt)
+            label = f"{sfx} fused_implicit_update {name}" + \
+                (" time term" if tt else "")
+            ms = time_cuda(run, [()], reps, queued=True)
+            print(f"{label} rule C{rule['cols_per_block']} "
+                  f"T{rule['threads']}: {ms:.4f} ms", flush=True)
+            for cols in IMPLICIT_COLS:
+                for threads in IMPLICIT_THREADS:
+                    try:
+                        sh = implicit_cuda.implicit_launch_shape(
+                            nz, ncol, dtype, cols=cols, threads=threads)
+                    except ValueError:
+                        continue
+                    try:
+                        err = rel_err(run(sh), want)
+                    except RuntimeError as exc:   # too many registers
+                        print(f"{label} C{cols} T{threads}: does not "
+                              f"launch ({exc})", flush=True)
+                        continue
+                    ms = time_cuda(lambda: run(sh), [()], reps, queued=True)
+                    print(f"{label} C{cols} T{threads} "
+                          f"({sh.blocks(ncol)} blocks, {sh.smem} B): "
+                          f"{ms:.4f} ms  rel err vs rule {err:.1e}",
+                          flush=True)
 
 
 def sweep_stage(cfg, geom, dtype, sfx, dev):
@@ -171,19 +254,13 @@ def sweep_stage(cfg, geom, dtype, sfx, dev):
                           flush=True)
 
 
-def sweep(cfg, geom, tc, dtype, sfx, dev, libs):
+def sweep(cfg, geom, dtype, sfx, dev, libs):
     consts = cfg.constants
     fg = synthetic.terrain_like(
         fast.build_fast_geometry(geom, dtype=dtype, device=dev))
     ue, b1, b2 = (synthetic.random_state(fg, seed) for seed in (1, 2, 3))
     two = ((0.3, b1), (0.7, b2))
     sst = stage_cuda.stage_statics(fg)
-    q = nonhydro.estimate_bandwidth(geom, consts)
-    ist = implicit_cuda.implicit_statics(fimp.statics_to_device(
-        nonhydro.band_assembly_statics(geom, q), dtype, dev), fg)
-    d = fast.pack_state(tc.initial_state(geom, consts, dtype=dtype,
-                                         device=dev), device=dev)
-    x0, aux = fimp._prep_aux(d, fg, interfaces=False)
 
     # the moist wave's tracer systems: two sets cycle through the L2
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -209,16 +286,10 @@ def sweep(cfg, geom, tc, dtype, sfx, dev, libs):
         return dss_cuda.dss_uvw(upd["U"], upd["V"], fg.inv_mult, fg.e_rot,
                                 fg.dss_links, fg.p, wf, table=fg.dss_table)
 
-    def run_implicit():
-        return implicit_cuda.fused_implicit_update(x0, x0, aux, ist,
-                                                   0.5 * DT, consts)
-
     # name -> (source stem, checked function, timed function, its argument
     # sets, repetitions)
     kernels = {
         "dss_uvw": ("dss", run_uvw, run_uvw, [()], 40),
-        "fused_implicit_update": ("implicit", run_implicit, run_implicit,
-                                  [()], 10),
         "banded_solve_multi": ("banded_multi", run_multi(True),
                                run_multi(True), systems, 20),
         "banded_solve_multi(read-back form)": (

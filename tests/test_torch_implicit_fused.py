@@ -2,9 +2,11 @@
 (interpret mode) on the same seeded inputs, float64: the plain version, the
 packed statics and diagonal tables array by array, the fixed-window table
 the CUDA kernel reads, the fused branch of ``vertical_implicit``; the
-kernel on a card."""
+kernel's launch rule and copy width; the kernel on a card, at the flagship's
+shapes and at its edge shapes."""
 
 import dataclasses
+import types
 
 import numpy as np
 import jax
@@ -15,8 +17,9 @@ import torch
 from tempestmodel_tpu.fast import (engine as j_engine, implicit as j_imp,
                                    pallas_implicit as j_pim)
 from tempestmodel_tpu.models import nonhydro as j_nonhydro
-from tempestmodel_tpu_torch.fast import implicit as t_imp, implicit_cuda
-from tempestmodel_tpu_torch.kernels import synthetic
+from tempestmodel_tpu_torch.fast import (implicit as t_imp, implicit_cuda,
+                                         stage_cuda)
+from tempestmodel_tpu_torch.kernels import implicit_edges, synthetic
 from tempestmodel_tpu_torch.kernels.counts import launch_counts
 from tempestmodel_tpu_torch.models import nonhydro as t_nonhydro
 
@@ -268,12 +271,182 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(setup, case):
                 x0, x0, dict(aux, jac=aux["jac"][:-1]), *args)
 
 
+NZS = (2, 8, 30, 40, 64)
+NCOLS_ = (1, 7, 1536, 1600, 86400)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("nz", NZS)
+def test_implicit_launch_shape_fits_a_block(nz, dtype):
+    """For every column count: whole warps, at most the kernel's threads,
+    a tile whose shared memory (as the kernel lays it out) fits an H100
+    block and leaves an SM at least one block, no more tiles than the
+    columns need."""
+    esize = 4 if dtype == torch.float32 else 8
+    for ncol in NCOLS_:
+        sh = implicit_cuda.implicit_launch_shape(nz, ncol, dtype)
+        assert sh.threads % 32 == 0
+        assert 32 <= sh.threads <= implicit_cuda.MAX_THREADS <= 1024
+        assert sh.cols >= 1 and sh.threads % sh.cols == 0
+        assert sh.smem == implicit_cuda.implicit_smem_bytes(nz, sh.cols,
+                                                            esize)
+        assert sh.smem <= implicit_cuda.SMEM_MAX
+        assert stage_cuda.resident_blocks(
+            sh.smem, sh.threads, implicit_cuda.REGISTERS[esize]) >= 1
+        assert sh.blocks(ncol) == -(-ncol // sh.cols)
+        # a smaller tile is taken wherever a larger one would leave SMs idle
+        if ncol >= implicit_cuda.SMS * min(implicit_cuda.COLS):
+            assert sh.blocks(ncol) >= implicit_cuda.SMS
+
+
+def test_implicit_smem_bytes_counts_the_kernels_layout():
+    """W rows of 10 values, level rows of 6 or the staged interface fields
+    (whichever is more), each to twice an odd count, 11 level and 5
+    interface values a column; the table is not in shared memory."""
+    nz, C = 30, 12
+    per_col = 310 + 362 + 11 * 30 + 5 * 31
+    assert implicit_cuda.implicit_smem_bytes(nz, C, 4) == 4 * C * per_col
+    # two levels: the staged interface fields (7 fields, c2) outgrow the
+    # four level rows
+    assert implicit_cuda.implicit_smem_bytes(2, 1, 8) == \
+        8 * (30 + 26 + 22 + 15)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_implicit_launch_shape_covers_the_card_on_schar(dtype):
+    """Schar's 1600 columns of 40 levels: at least one block for each of the
+    132 SMs."""
+    sh = implicit_cuda.implicit_launch_shape(40, 1600, dtype)
+    assert sh.blocks(1600) >= implicit_cuda.SMS
+    assert sh.cols <= 12
+
+
+def test_implicit_launch_shape_raises_where_nothing_fits():
+    f32, f64 = torch.float32, torch.float64
+    with pytest.raises(ValueError):        # no tile of 400 levels fits
+        implicit_cuda.implicit_launch_shape(400, 86400, f64)
+    with pytest.raises(ValueError):        # this tile does not
+        implicit_cuda.implicit_launch_shape(64, 86400, f64, cols=32)
+    for dtype, threads in ((f32, 0), (f32, 48), (f32, 256), (f64, 256)):
+        with pytest.raises(ValueError):
+            implicit_cuda.implicit_launch_shape(30, 86400, dtype,
+                                                threads=threads)
+    with pytest.raises(ValueError):        # 12 columns, 128 threads
+        implicit_cuda.implicit_launch_shape(30, 86400, f32, cols=12)
+    mine = implicit_cuda.implicit_launch_shape(30, 86400, f32, cols=32,
+                                               threads=96)
+    assert (mine.cols, mine.threads) == (32, 96)
+
+
+@pytest.mark.parametrize("ncol,cols,esize,offset,want", [
+    (86400, 12, 4, 0, 4), (86400, 12, 4, 8, 2), (86400, 12, 4, 4, 1),
+    (86400, 8, 8, 0, 2), (86400, 8, 8, 8, 1), (1600, 4, 4, 0, 4),
+    (1532, 12, 4, 0, 4), (7, 4, 4, 0, 1), (1, 4, 8, 0, 1), (1534, 4, 4, 0, 2),
+    (86400, 6, 4, 0, 2), (86400, 3, 8, 0, 1)])
+def test_implicit_copy_width(ncol, cols, esize, offset, want):
+    """16-byte copies where the column count, the tile and every pointer
+    allow them, else 8 bytes, else one value."""
+    ptrs = [256, 4096 + offset, 1 << 20]
+    assert implicit_cuda.copy_width(ncol, cols, esize, ptrs) == want
+
+
+def test_fused_supported_does_not_ask_the_device(setup):
+    """The predicate reads the configuration (statics, levels, dtype): the
+    same statics with a table and a geometry typed for a CUDA device give
+    the same answer; a tile of one column that cannot fit an H100 block
+    refuses the configuration."""
+    ist = setup["ist"]
+    for dtype in (torch.float32, torch.float64):
+        on_cpu = dataclasses.replace(ist, tab=ist.tab.to(dtype))
+        cuda_typed = dataclasses.replace(
+            ist, tab=types.SimpleNamespace(dtype=dtype,
+                                           device=torch.device("cuda")),
+            fg=types.SimpleNamespace(inv_mult=types.SimpleNamespace(
+                dtype=dtype, device=torch.device("cuda"))))
+        assert implicit_cuda.fused_supported(on_cpu) \
+            == implicit_cuda.fused_supported(cuda_typed) is True
+        deep = dataclasses.replace(on_cpu, ps=dataclasses.replace(
+            ist.ps, nz=2000))
+        assert not implicit_cuda.fused_supported(deep)
+
+
+def test_implicit_launch_config_reports_the_launch(setup):
+    s = setup
+    x0, aux = t_imp._prep_aux(s["td"], s["tfg"], interfaces=False)
+    nz, ncol = x0[0].shape
+    conf = implicit_cuda.launch_config(x0, x0, aux, s["ist"])
+    sh = implicit_cuda.implicit_launch_shape(nz, ncol, torch.float64)
+    assert conf["cols_per_block"] == sh.cols
+    assert conf["threads"] == sh.threads
+    assert conf["blocks"] == sh.blocks(ncol)
+    assert conf["smem_bytes"] == sh.smem
+    assert conf["copy_bytes"] == 16 and conf["copy_route"].startswith(
+        "cp.async.cg")
+    # a staged input one value off: 8-byte copies; the time-term inputs
+    # count only with the time term
+    buf = torch.empty(x0[0].numel() + 1, dtype=x0[0].dtype)
+    odd = buf[1:].view(x0[0].shape)
+    odd.copy_(x0[0])
+    assert implicit_cuda.launch_config((odd,) + x0[1:], x0, aux, s["ist"])[
+        "copy_bytes"] == 8
+    x0_odd = (odd,) + x0[1:]
+    assert implicit_cuda.launch_config(x0, x0_odd, aux, s["ist"])[
+        "copy_bytes"] == 16
+    assert implicit_cuda.launch_config(x0, x0_odd, aux, s["ist"], True)[
+        "copy_bytes"] == 8
+
+
+def test_implicit_kernel_resources_parses_the_build_report(monkeypatch):
+    from tempestmodel_tpu_torch.kernels import build
+    report = {
+        "_ZN12_GLOBAL__N_121fused_implicit_kernelIfLi4EEEvNS_12Implicit"
+        "ArgsIT_EE": {"registers": 72, "spill_stores": 0, "spill_loads": 0},
+        "_ZN12_GLOBAL__N_121fused_implicit_kernelIdLi1EEEvNS_12Implicit"
+        "ArgsIT_EE": {"registers": 120, "spill_stores": 0,
+                      "spill_loads": 0}}
+    monkeypatch.setattr(build, "ptxas_usage", lambda stem: report)
+    got = implicit_cuda.kernel_resources()
+    assert got == {"f32/16B": report[next(iter(report))],
+                   "f64/8B": list(report.values())[1]}
+
+
+@pytest.mark.parametrize("case", list(implicit_edges.CASES))
+def test_implicit_edge_case_inputs(case):
+    """Each edge case of the card's checks builds on the CPU: inside the
+    envelope, the columns and the offset it names, a launch shape that fits,
+    the copy width the offset forces, and a finite plain update."""
+    nz, _, ncol, lover, offset = implicit_edges.CASES[case]
+    x0, x1, aux, ist, consts, launch = implicit_edges.case_inputs(
+        case, torch.float64, CPU)
+    assert tuple(x0[0].shape) == (nz, ncol)
+    assert tuple(aux["c2"].shape) == (4, ncol)
+    for t in (*x0, *x1, *aux.values()):
+        assert t.is_contiguous()
+        assert t.data_ptr() % 16 == 8 * offset % 16
+    conf = implicit_cuda.launch_config(
+        x1, x0, aux, ist, True, launch)
+    if lover:
+        assert conf["cols_per_block"] == lover["cols"]
+    want_bytes = {0: 16 if ncol % 2 == 0 else 8, 1: 8, 2: 16}[offset]
+    assert conf["copy_bytes"] == want_bytes
+    got = implicit_cuda.fused_implicit_update_plain(
+        x1, x0, aux, ist, implicit_edges.DT, consts, False, True)
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
                                        (torch.float32, 2e-3)])
-def test_cuda_kernel_matches_plain(setup, dtype, tol):
+@pytest.mark.parametrize("case", ["flagship"] + list(implicit_edges.CASES))
+def test_cuda_kernel_matches_plain(setup, dtype, tol, case):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no interpret mode")
+    if case != "flagship":
+        got = implicit_edges.run_case(case, dtype, torch.device("cuda"))
+        assert got["max_err"] < tol, got["err_by_output"]
+        return
     from tempestmodel_tpu_torch import fast
     from tempestmodel_tpu_torch.models import nh_model
     s = setup
