@@ -19,7 +19,13 @@ and runs these phases, each printing one JSON line:
             two groups of species; each stage line names its launch shape,
             ring depth and copy route, and the build line the registers
             and spills of every instantiation of the stage kernel;
-            ``dss_scalar`` also on their flat 90-row field,
+            ``dss_scalar`` also on their flat 90-row field, ``dss_scalar``
+            and ``dss_uvw`` at their edge shapes (p 2-4, one element a
+            panel, unaligned inputs, several blocks' worth of segments a
+            band, rings of one and three stages, two levels, Cartesian
+            wraps along one axis or both), each DSS line naming its launch
+            shape and copy route, ``dss_scalar`` and ``dss_vector`` timed
+            beside one ``torch.sparse.mm`` of the same operator,
             ``banded_solve_multi`` at the moist wave's shapes); then what
             periodic Cartesian grids reach: the five DSS kernels with the
             wrap-sum at the Schar slice's shapes in both layouts and on a
@@ -236,6 +242,26 @@ def check_implicit_edges(dtype, dev):
                                f"{tol}")
 
 
+def check_dss_edges(dtype, dev):
+    """Phase 3: ``dss_scalar`` and ``dss_uvw`` at the edge shapes of
+    ``kernels/dss_edges.py`` against their plain versions (cubed spheres of
+    ne 1-4 with p 2-4, periodic Cartesian panels wrapped along one axis or
+    both, unaligned inputs, bands of several blocks' worth of segments,
+    rings of one and three stages, two levels); ``dss_uvw`` with two bases
+    and one, its bottom W row also alone, on the panel edges and at the
+    corners."""
+    from tempestmodel_tpu_torch.kernels import dss_edges
+    tag = "f32" if dtype == torch.float32 else "f64"
+    tol = 1e-6 if dtype == torch.float32 else 1e-13
+    for case in dss_edges.CASES:
+        got = dss_edges.run_case(case, dtype, dev)
+        emit({"phase": "kernel", "dtype": tag, "tol": tol,
+              "name": "dss_edge", "case": case, **got})
+        if not got["max_err"] <= tol:
+            raise RuntimeError(f"DSS edge case {case} {tag}: rel err "
+                               f"{got['err_by_output']} > {tol}")
+
+
 def check_fused_kernels(cfg, geom, state, dtype, rows, dev):
     """Phase 3, second half: ``dss_uvw``, ``fused_stage`` and
     ``fused_implicit_update`` against their plain versions at the flagship
@@ -351,7 +377,10 @@ def check_fused_kernels(cfg, geom, state, dtype, rows, dev):
            "shape": [K, P, A, A], "max_abs_err": err, "ms": ms,
            "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
            "library_ms": None}
-    emit({"phase": "kernel", "dtype": tag, "tol": dss_tol, **row})
+    emit({"phase": "kernel", "dtype": tag, "tol": dss_tol, **row,
+          "launch": dss_cuda.launch_config(
+              upd["U"], fgt.p, 5, dss_cuda._uvw_ptrs(upd["U"], upd["V"], wf,
+                                                      fgt.inv_mult), True)})
     if f32:
         rows["dss_uvw"] = row
     del upd, wf, got, want, ue, b1, b2
@@ -775,6 +804,7 @@ def check_kernels(fg, cfg, geom, state, dev):
     shapes; returns {name: row of the kernels line (without launches)}."""
     from tempestmodel_tpu_torch.fast import dss_cuda
     from tempestmodel_tpu_torch.ops import cuda_banded
+    from tempestmodel_tpu_torch.kernels import dss_operator
     from tempestmodel_tpu_torch.kernels.timing import time_cuda
 
     K, P, A = fg.nz, 6, fg.A
@@ -812,6 +842,15 @@ def check_kernels(fg, cfg, geom, state, dev):
             [(x,) for x in xs], reps=40, queued=True)
         plain_ms = time_cuda(lambda x: dss_cuda.dss_scalar_plain(
             x, imult, fg.dss_links, fg.p), [(x,) for x in xs], reps=8)
+        # the library yardstick: one torch.sparse.mm with the DSS as a
+        # sparse operator on the field viewed as (nodes, levels)
+        op = dss_operator.scalar_operator(imult, fg.dss_links, fg.p)
+        lib_err = rel_err(dss_operator.apply(op, xs[0]).t().reshape(
+            xs[0].shape), dss_cuda.dss_scalar_plain(xs[0], imult,
+                                                   fg.dss_links, fg.p))
+        library_ms = time_cuda(lambda x: dss_operator.apply(op, x),
+                               [(x,) for x in xs], reps=20, queued=True)
+        del op
         bnd, by = bound_ms((2 * nfield + imult.numel()) * esize
                            + fg.dss_table.numel() * 4, 5 * nfield, dtype)
         row = {"name": "dss_scalar", "route": "cuda",
@@ -819,8 +858,10 @@ def check_kernels(fg, cfg, geom, state, dev):
                "replaces": "tempestmodel_tpu/fast/dss_pallas.py:474",
                "shape": [K, P, A, A], "max_abs_err": err, "ms": ms,
                "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
-               "library_ms": None}
-        emit({"phase": "kernel", "dtype": tag, "tol": dss_tol[dtype], **row})
+               "library_ms": library_ms, "library_rel_err": lib_err}
+        emit({"phase": "kernel", "dtype": tag, "tol": dss_tol[dtype], **row,
+              "launch": dss_cuda.launch_config(
+                  xs[0], fg.p, 1, dss_cuda._scalar_ptrs(xs[0], imult), True)})
         if dtype == torch.float32:
             rows["dss_scalar"] = row
 
@@ -843,6 +884,18 @@ def check_kernels(fg, cfg, geom, state, dev):
             list(zip(us, vs)), reps=40, queued=True)
         plain_ms = time_cuda(lambda u, v: dss_cuda.dss_vector_plain(
             u, v, imult, rot, fg.dss_links, fg.p), list(zip(us, vs)), reps=8)
+        # the library yardstick: one torch.sparse.mm with the rotated
+        # pair's operator on (U, V) stacked along the nodes (the stacking
+        # is not timed)
+        op = dss_operator.vector_operator(imult, rot, fg.dss_links, fg.p)
+        uvs = [(torch.cat([u.reshape(K, -1), v.reshape(K, -1)], 1),)
+               for u, v in zip(us[:4], vs[:4])]
+        got = dss_operator.apply(op, uvs[0][0]).t()
+        lib_err = max(rel_err(got[:, :nfield // K].reshape(wu.shape), wu),
+                      rel_err(got[:, nfield // K:].reshape(wv.shape), wv))
+        library_ms = time_cuda(lambda uv: dss_operator.apply(op, uv), uvs,
+                               reps=20, queued=True)
+        del op, uvs, got
         bnd, by = bound_ms((4 * nfield + imult.numel() + rot.numel()) * esize
                            + fg.dss_table.numel() * 4, 16 * nfield, dtype)
         row = {"name": "dss_vector", "route": "cuda",
@@ -850,7 +903,7 @@ def check_kernels(fg, cfg, geom, state, dev):
                "replaces": "tempestmodel_tpu/fast/dss_pallas.py:489",
                "shape": [K, P, A, A], "max_abs_err": err, "ms": ms,
                "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
-               "library_ms": None}
+               "library_ms": library_ms, "library_rel_err": lib_err}
         emit({"phase": "kernel", "dtype": tag, "tol": dss_tol[dtype], **row})
         if dtype == torch.float32:
             rows["dss_vector"] = row
@@ -903,6 +956,7 @@ def check_kernels(fg, cfg, geom, state, dev):
         check_fused_kernels(cfg, geom, state, dtype, rows, dev)
         check_stage_edges(dtype, dev)
         check_implicit_edges(dtype, dev)
+        check_dss_edges(dtype, dev)
         check_tail_kernels(geom, dtype, rows, dev)
         check_tracer_kernels(cfg, geom, dtype, rows, dev)
         check_cartesian_kernels(dtype, rows, dev)
@@ -1092,9 +1146,12 @@ def check_cartesian_dss(fgs, dtype, rows, dev):
         fn = lib.dss_scalar_f32 if dtype == torch.float32 \
             else lib.dss_scalar_f64
         raw = torch.empty_like(d["Rt"])
+        cfg = dss_cuda.launch_config(
+            d["Rt"], fg.p, 1, dss_cuda._scalar_ptrs(d["Rt"], im), False)
         err = fn(d["Rt"].data_ptr(), im.data_ptr(), ctypes.c_void_p(16),
                  raw.data_ptr(), K, P, A, B, fg.p, 0,
-                 int(wrap[0]) | 2 * int(wrap[1]),
+                 int(wrap[0]) | 2 * int(wrap[1]), cfg["rows"],
+                 cfg["levels"], cfg["threads"], cfg["ring"], cfg["copy"],
                  torch.cuda.current_stream().cuda_stream)
         torch.cuda.synchronize()
         if err != 0 or not torch.equal(raw, dss_cuda.dss_scalar(

@@ -15,9 +15,13 @@ differ); ``wrap`` = (along a, along b) then adds the periodic wrap-sum: node
 0 and node A-1 (B-1) of a periodic axis are one pair, as in
 ``grid/cartesian._pair_sum_axis``.
 
-The kernels (``csrc/dss.cu``) are gathers with one thread per output node;
-see the note there for the design and the bound on the card.  Fields are
-z-first ``(K, 6, A, B)``.
+``dss_scalar`` and ``dss_uvw`` stage bands of whole element rows in shared
+memory (bulk asynchronous copies where spans and pointers allow 16 bytes,
+else ``cp.async`` of 8 or 4 bytes; ``copy_width``) and sum there, a thread
+an element-row segment; their launch shape comes from ``dss_launch_shape``.
+The other kernels are gathers with one thread per output node.  See the
+note in ``csrc/dss.cu`` for the designs and the bound on the card.  Fields
+are z-first ``(K, 6, A, B)``.
 
 ``dss_uvw`` is the DSS of U, V and W in one launch with the explicit
 stage's W finish folded in (``w_finish_plain`` says what that is): W is
@@ -37,6 +41,9 @@ the CPU.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -156,6 +163,149 @@ def dss_state_plain(d, imult, rot, links, p: int, rayleigh=None,
 
 
 # ---------------------------------------------------------------------------
+# launch shape of the band kernels (dss_scalar, dss_uvw)
+# ---------------------------------------------------------------------------
+
+SMS = 132                  # streaming multiprocessors of an H100 SXM
+SMEM_MAX = 232448          # shared memory a block can have
+MAX_THREADS = 512          # the kernels' __launch_bounds__
+MAX_P = 16                 # most nodes an element row (generic instantiation)
+BAR_BYTES = 64             # the ring's mbarriers
+MAX_RING = 4
+# the rule's targets by (dss_uvw, bytes a value), fitted to the sweeps of
+# kernels/tune_dss.py on an H100: segments a block at most, and blocks a
+# launch at least
+SEGMENTS = {(False, 4): 640, (False, 8): 240, (True, 4): 720, (True, 8): 720}
+TARGET_BLOCKS = {(False, 4): 330, (False, 8): 450, (True, 4): 450,
+                 (True, 8): 600}
+
+
+class DssLaunch(NamedTuple):
+    """Launch shape of ``dss_scalar`` / ``dss_uvw``: a block owns ``rows``
+    whole rows of one panel (a multiple of p dividing A) and walks
+    ``levels`` steps (levels; interfaces for ``dss_uvw``, whose bottom
+    interface is a run of its own) with ``threads`` threads and a ring of
+    ``ring`` stages in ``smem`` bytes of shared memory; ``blocks`` blocks in
+    all."""
+    rows: int
+    levels: int
+    threads: int
+    ring: int
+    smem: int
+    blocks: int
+
+
+def dss_smem_bytes(rows: int, A: int, B: int, ring: int, nfields: int,
+                   esize: int, links: bool) -> int:
+    """Shared memory of a band kernel's block, as ``csrc/dss.cu`` lays it
+    out: the mbarriers, then ``ring`` stages of ``nfields`` field slots (the
+    span of rows + 2 rows of B values, then on the cubed sphere the
+    neighbours' edge lines, 2 (rows + 2) + 2 A values), for ``dss_uvw``
+    (``nfields`` 5) one slot more for the assembled W, the band's inverse
+    multiplicities (rows B values), and on the cubed sphere ``dss_uvw``'s
+    edge rotations (4 per edge-line value); each part rounded up to 16
+    bytes."""
+    v16 = 16 // esize
+
+    def up(n):
+        return -(-n // v16) * v16
+
+    nedge = 2 * (rows + 2) + 2 * A if links else 0
+    fs = up((rows + 2) * B) + up(nedge)
+    vals = (ring * nfields + (nfields > 1)) * fs + up(rows * B) \
+        + (up(4 * nedge) if nfields > 1 else 0)
+    return BAR_BYTES + vals * esize
+
+
+@functools.lru_cache(maxsize=None)
+def dss_launch_shape(K: int, P: int, A: int, B: int, p: int, dtype,
+                     nfields: int, rows=None, levels=None, ring=None,
+                     threads=None, links=None) -> DssLaunch:
+    """The launch shape of ``dss_scalar`` (``nfields`` 1, ``K`` levels) or
+    ``dss_uvw`` (``nfields`` 5, ``K`` levels of U and V, K + 1 steps).
+    ``links``: a cubed-sphere grid (default: P > 1).  The keywords override
+    the rule (``kernels/tune_dss.py`` sweeps them).  Cached: a launch
+    asks for its shape on the host every time.
+
+    The rule: the deepest band (fewest halo rows) of at most ``SEGMENTS``
+    segments (p nodes of a row; a thread each, up to 512 threads, more in
+    turn) that still gives ``TARGET_BLOCKS`` blocks one step a block (the
+    shallowest band where none does), a ring of two stages (one where two
+    do not fit a scalar's block), and as many steps a block as keep
+    ``TARGET_BLOCKS`` blocks, at least one.  Raises where no shape fits."""
+    esize = 4 if dtype == torch.float32 else 8
+    links = P > 1 if links is None else bool(links)
+    uvw = nfields > 1
+    if p < 2 or p > MAX_P or A % p or B % p:
+        raise ValueError(f"the band kernels take 2 <= p <= {MAX_P} with "
+                         f"whole elements, got A={A} B={B} p={p}")
+    if P * A * B >= 2 ** 31:
+        raise ValueError(f"field too large: P*A*B={P * A * B}")
+    rings = [ring] if ring is not None else ([2] if uvw else [2, 1])
+
+    def fitting_ring(TA):
+        return next((r for r in rings if dss_smem_bytes(
+            TA, A, B, r, nfields, esize, links) <= SMEM_MAX), None)
+
+    cands = [p * d for d in range(1, A // p + 1) if (A // p) % d == 0]
+    cands = [TA for TA in cands if fitting_ring(TA) is not None
+             and (rows is None or TA == rows)]
+    if not cands:
+        raise ValueError(f"no band of the DSS kernel fits A={A} B={B} p={p} "
+                         f"nfields={nfields} rows={rows} ring={ring} in "
+                         f"{SMEM_MAX} bytes of shared memory")
+    key = (uvw, esize)
+    good = [TA for TA in cands if TA * (B // p) <= SEGMENTS[key]
+            and (A // TA) * P * (K + uvw) >= TARGET_BLOCKS[key]]
+    TA = max(good) if good else min(cands)
+    r = fitting_ring(TA)
+    nseg = TA * (B // p)
+    nt = int(threads) if threads is not None else \
+        32 * math.ceil(nseg / math.ceil(nseg / MAX_THREADS) / 32)
+    if not (32 <= nt <= MAX_THREADS and nt % 32 == 0):
+        raise ValueError(f"threads must be a multiple of 32 up to "
+                         f"{MAX_THREADS}, got {nt}")
+    if not (2 if uvw else 1) <= r <= MAX_RING:
+        raise ValueError(f"ring depth {r} out of range")
+    bands = (A // TA) * P
+    if levels is None:
+        lv = max([1] + [c for c in range(1, max(K, 1) + 1)
+                        if bands * (math.ceil(K / c) + uvw)
+                        >= TARGET_BLOCKS[key]])
+    else:
+        lv = int(levels)
+        if lv < 1:
+            raise ValueError(f"levels a block must be >= 1, got {lv}")
+    lv = min(lv, max(K, 1))
+    return DssLaunch(TA, lv, nt, r, dss_smem_bytes(TA, A, B, r, nfields,
+                                                   esize, links),
+                     bands * (math.ceil(K / lv) + uvw))
+
+
+def copy_width(B: int, esize: int, ptrs) -> int:
+    """Bytes a staging copy of the band kernels moves at a time: 16 (bulk
+    copies of whole spans) where a row of B values and every pointer of
+    ``ptrs`` (ints; 0 for an absent one) are 16-byte multiples, else 8
+    (``cp.async``) where they are 8-byte multiples, else one value."""
+    for nbytes in (16, 8):
+        if nbytes >= esize and (B * esize) % nbytes == 0 \
+                and all(q % nbytes == 0 for q in ptrs):
+            return nbytes
+    return esize
+
+
+def launch_config(f, p: int, nfields: int, ptrs, links: bool,
+                  launch=None) -> dict:
+    """What a band kernel launch on the field ``f`` ((K, P, A, B); for
+    ``dss_uvw`` U) takes: its launch shape (``launch``, default the rule's)
+    and its copy width for the pointers ``ptrs``."""
+    K, P, A, B = f.shape
+    sh = launch or dss_launch_shape(K, P, A, B, p, f.dtype, nfields,
+                                    links=links)
+    return dict(sh._asdict(), copy=copy_width(B, f.element_size(), ptrs))
+
+
+# ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -249,17 +399,44 @@ def dss_scalar(f, imult, links, p: int, wrap=(False, False), table=None):
         return dss_scalar_plain(f, imult, links, p, wrap)
     if f.device.type != "cuda":
         raise ValueError(f"unsupported device {f.device}")
+    return _dss_scalar_cuda(f, imult, links, p, flags)
+
+
+def _scalar_ptrs(f, imult):
+    """The pointers a ``dss_scalar`` launch stages from."""
+    return [f.data_ptr(), imult.data_ptr()]
+
+
+@functools.lru_cache(maxsize=None)
+def _host_table(links):
+    """The link table on the host (the band kernels take it by value), kept
+    for the life of the process; None without links."""
+    return np.ascontiguousarray(link_table(links)) if links else None
+
+
+def _table_ptr(links):
+    table = _host_table(tuple(map(tuple, links)))
+    return None if table is None else table.ctypes.data
+
+
+def _dss_scalar_cuda(f, imult, links, p, flags, launch=None):
+    """The launch of ``dss_scalar``; ``launch``: a ``DssLaunch`` in place
+    of the rule's."""
     K, P, A, B = f.shape
+    nlinks = len(links)
+    cfg = launch_config(f, p, 1, _scalar_ptrs(f, imult), nlinks > 0, launch)
     lib = build.library("dss")
     fn = lib.dss_scalar_f32 if f.dtype == torch.float32 else lib.dss_scalar_f64
     with torch.cuda.device(f.device):
         out = torch.empty_like(f)
-        err = fn(f.data_ptr(), imult.data_ptr(), table.data_ptr(),
-                 out.data_ptr(), K, P, A, B, p, len(links), flags,
+        err = fn(f.data_ptr(), imult.data_ptr(), _table_ptr(links),
+                 out.data_ptr(), K, P, A, B, p, nlinks, flags, cfg["rows"],
+                 cfg["levels"], cfg["threads"], cfg["ring"], cfg["copy"],
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"dss_scalar kernel launch failed "
-                           f"(cudaGetLastError = {err})")
+        raise RuntimeError(f"dss_scalar kernel launch failed (error {err}; "
+                           f"-1: launch shape or copy width not taken, -2: "
+                           f"shared memory; launch {cfg})")
     launch_counts["dss_scalar"] += 1
     return out
 
@@ -328,13 +505,27 @@ def dss_uvw(u, v, imult, rot, links, p: int, w_finish, wrap=(False, False),
         return dss_uvw_plain(u, v, imult, rot, links, p, w_finish, wrap)
     if u.device.type != "cuda":
         raise ValueError(f"unsupported device {u.device}")
-    return _dss_uvw_cuda(u, v, imult, rot, table, p, len(links), flags,
-                         w_finish)
+    return _dss_uvw_cuda(u, v, imult, rot, links, p, flags, w_finish)
 
 
-def _dss_uvw_cuda(u, v, imult, rot, table, p, nlinks, flags, wf):
-    K, P, A, B = u.shape
+def _uvw_ptrs(u, v, wf, imult):
+    """The pointers a ``dss_uvw`` launch stages from."""
     bw2 = wf.get("bw2")
+    return [u.data_ptr(), v.data_ptr(), imult.data_ptr(),
+            wf["bw1"].data_ptr(), 0 if bw2 is None else bw2.data_ptr(),
+            wf["dW"].data_ptr(),
+            wf["cax0"].data_ptr(), wf["cbx0"].data_ptr(),
+            wf["cxx0"].data_ptr()]
+
+
+def _dss_uvw_cuda(u, v, imult, rot, links, p, flags, wf, launch=None):
+    """The launch of ``dss_uvw``; ``launch``: a ``DssLaunch`` in place of
+    the rule's."""
+    K, P, A, B = u.shape
+    nlinks = len(links)
+    bw2 = wf.get("bw2")
+    cfg = launch_config(u, p, 5, _uvw_ptrs(u, v, wf, imult), nlinks > 0,
+                        launch)
     lib = build.library("dss")
     fn = lib.dss_uvw_f32 if u.dtype == torch.float32 else lib.dss_uvw_f64
     with torch.cuda.device(u.device):
@@ -345,15 +536,17 @@ def _dss_uvw_cuda(u, v, imult, rot, table, p, nlinks, flags, wf):
                  None if bw2 is None else bw2.data_ptr(),
                  wf["dW"].data_ptr(), wf["cax0"].data_ptr(),
                  wf["cbx0"].data_ptr(), wf["cxx0"].data_ptr(),
-                 imult.data_ptr(), rot.data_ptr(), table.data_ptr(),
+                 imult.data_ptr(), rot.data_ptr(), _table_ptr(links),
                  uo.data_ptr(), vo.data_ptr(), wo.data_ptr(),
                  float(wf["dt_s"]), float(wf.get("cb1", 1.0)),
                  float(wf.get("cb2", 0.0)), float(wf["c00"]),
-                 float(wf["c01"]), K, P, A, B, p, nlinks, flags,
+                 float(wf["c01"]), K, P, A, B, p, nlinks, flags, cfg["rows"],
+                 cfg["levels"], cfg["threads"], cfg["ring"], cfg["copy"],
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"dss_uvw kernel launch failed "
-                           f"(cudaGetLastError = {err})")
+        raise RuntimeError(f"dss_uvw kernel launch failed (error {err}; "
+                           f"-1: launch shape or copy width not taken, -2: "
+                           f"shared memory; launch {cfg})")
     launch_counts["dss_uvw"] += 1
     return uo, vo, wo
 

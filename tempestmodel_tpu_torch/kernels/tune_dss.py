@@ -1,22 +1,33 @@
 #!/usr/bin/env python3
-"""Sweep the DSS CUDA kernels' block size and levels per thread on a GPU.
+"""Sweep the DSS kernels' launch shapes on a GPU.
 
 Run from the repository root on a machine with an NVIDIA Hopper card and
 nvcc:
 
-    python3 -m tempestmodel_tpu_torch.kernels.tune_dss
+    python3 -m tempestmodel_tpu_torch.kernels.tune_dss [band | vector] \
+        [-DNAME=VALUE ...]
 
-Compiles ``tempestmodel_tpu_torch/csrc/dss.cu`` once per (DSS_THREADS,
-DSS_LEVELS) pair into a temporary directory, checks every variant against
-the plain PyTorch versions, and prints the device time per launch of
-``dss_scalar`` and ``dss_vector`` at the flagship shape (30, 6, 120, 120),
-float32 and float64, beside three PyTorch elementwise passes over the same
-bytes (the practical floor of one read and one write on this card).  Times
-are taken as in ``chip_smoke.py``: launches queued behind a busy device,
-inputs cycled through 8 buffers so that each launch finds them cold.
+``band`` (``dss_scalar`` and ``dss_uvw``, whose launch shape is taken at run
+time, no rebuild): every band (rows), levels a block and ring depth of
+``BAND_ROWS`` x ``BAND_LEVELS`` x ``BAND_RINGS`` that fits, at the flagship
+shapes (ne30 p4: (30, 6, 120, 120), eight input copies that cycle through
+more than the 50 MB L2), float32 and float64, and at the Schar slice's
+shapes (40 levels, swapped (K, 1, 4, 400) and natural (K, 1, 400, 4)) and
+the 3-D bubble's plane (40, 1, 128, 128) in float32; each held against the
+plain version and timed beside the rule's shape
+(``dss_cuda.dss_launch_shape``), the ten fastest printed per kernel and
+shape.  ``-D`` arguments build a variant of ``csrc/dss.cu`` with those
+flags (``BAND_MIN_BLOCKS``, ``BAND_MIN_BLOCKS_UVW``: blocks an SM must
+hold, which caps the registers) and sweep it in place of the default
+build, with its registers.  ``vector``: ``dss_vector``'s block size and
+levels a thread (``DSS_THREADS``, ``DSS_LEVELS``), one build of
+``csrc/dss.cu`` a pair, at the flagship.  Times are taken as in
+``chip_smoke.py``: launches queued behind a busy device.  The first line
+holds the card's name and power limit.
 """
 
 import ctypes
+import json
 import pathlib
 import subprocess
 import sys
@@ -31,28 +42,153 @@ from tempestmodel_tpu_torch.kernels import build
 from tempestmodel_tpu_torch.kernels.timing import time_cuda
 from tempestmodel_tpu_torch.models import nh_model
 
-VARIANTS = [(128, 5), (256, 5), (64, 5), (128, 10), (256, 10), (128, 3),
-            (128, 2), (128, 1), (256, 1), (128, 6), (256, 15), (128, 15)]
+BAND_ROWS = (4, 8, 12, 16, 20, 24, 40)
+BAND_LEVELS = (1, 2, 3, 4, 5, 6, 8, 10, 15, 31)
+BAND_RINGS = (2, 3, 4)
+VECTOR_VARIANTS = [(128, 5), (256, 5), (128, 3), (128, 8)]
 K, P, A, ORDER = 30, 6, 120, 4
 
 
-def main():
+def main(argv=()):
     if not torch.cuda.is_available():
         print("tune_dss: no CUDA device", file=sys.stderr)
         return 1
-    dev = torch.device("cuda")
+    defines = [a for a in argv if a.startswith("-D")]
+    only = [a for a in argv if not a.startswith("-D")][:1]
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
-        text=True).stdout.strip())
+        text=True).stdout.strip(), flush=True)
+    build.build_all()
+    dev = torch.device("cuda")
+    if only in ([], ["band"]):
+        if defines:
+            with tempfile.TemporaryDirectory() as tmp:
+                so = str(pathlib.Path(tmp) / "dss_variant.so")
+                report = subprocess.run(
+                    [build.nvcc_path(), *build.NVCC_FLAGS, *defines, "-Xptxas",
+                     "-v", "-o", so, str(build.CSRC / "dss.cu")], check=True,
+                    capture_output=True, text=True)
+                regs = {k: v for k, v in build.parse_ptxas(
+                    report.stdout + report.stderr).items() if "band" in k}
+                print(json.dumps({"defines": defines, "ptxas": regs}),
+                      flush=True)
+                lib = ctypes.CDLL(so)
+                for name, argtypes in build.SIGNATURES["dss"].items():
+                    getattr(lib, name).argtypes = argtypes
+                    getattr(lib, name).restype = ctypes.c_int
+                default = build._libs["dss"]
+                build._libs["dss"] = lib
+                try:
+                    sweep_band(dev)
+                finally:
+                    build._libs["dss"] = default
+        else:
+            sweep_band(dev)
+    if only in ([], ["vector"]):
+        sweep_vector(dev)
+    return 0
+
+
+def _grids(dev):
+    """(label, fast geometry, levels, input copies, dtype) to sweep."""
+    import chip_smoke
+    for dtype in (torch.float32, torch.float64):
+        cfg = tm.ModelConfig(grid_kind=tm.GridKind.CUBED_SPHERE, ne=A // ORDER,
+                             order=ORDER, nz=K, ztop=30000.0, dtype=dtype)
+        yield ("flagship", fast.build_fast_geometry(
+            nh_model.build_nh_sphere_geometry(cfg), dtype=dtype,
+            device=dev), K, 8)
+    dtype = torch.float32
+    _, _, sgeom = chip_smoke.cartesian_setup(
+        "schar", dtype, chip_smoke.SCHAR_NEX, 1, chip_smoke.SCHAR_NZ)
+    for layout in ("swapped", "natural"):
+        yield (f"schar_{layout}", fast.build_fast_geometry_cartesian(
+            sgeom, dtype=dtype, device=dev, swap_ab=(layout == "swapped")),
+            chip_smoke.SCHAR_NZ, 1)
+    _, _, pgeom = chip_smoke.cartesian_setup(
+        "bubble3d", dtype, chip_smoke.PLANE_NE, chip_smoke.PLANE_NE,
+        chip_smoke.SCHAR_NZ)
+    yield ("plane", fast.build_fast_geometry_cartesian(
+        pgeom, dtype=dtype, device=dev), chip_smoke.SCHAR_NZ, 1)
+
+
+def sweep_band(dev):
+    for label, fg, nz, ncopies in _grids(dev):
+        dtype = fg.inv_mult.dtype
+        (_, Pn, An, Bn), p = (nz,) + tuple(fg.inv_mult.shape), fg.p
+        links, im = fg.dss_links, fg.inv_mult
+        flags = int(fg.wrap[0]) | 2 * int(fg.wrap[1])
+        gen = torch.Generator(device=dev).manual_seed(0)
+
+        def rnd(*shape):
+            return torch.randn(shape, dtype=dtype, device=dev, generator=gen)
+
+        xs = [(rnd(nz, Pn, An, Bn),) for _ in range(ncopies)]
+        sets = []
+        for _ in range(max(1, ncopies // 4)):
+            wf = {"bw1": rnd(nz + 1, Pn, An, Bn),
+                  "bw2": rnd(nz + 1, Pn, An, Bn),
+                  "dW": rnd(nz + 1, Pn, An, Bn), "cax0": rnd(Pn, An, Bn),
+                  "cbx0": rnd(Pn, An, Bn),
+                  "cxx0": 1.0 + rnd(Pn, An, Bn).abs(), "cb1": 0.3,
+                  "cb2": 0.7, "dt_s": 12.5, "c00": 0.6, "c01": 0.4}
+            sets.append((rnd(nz, Pn, An, Bn), rnd(nz, Pn, An, Bn), wf))
+        kernels = {
+            "dss_scalar": (1, lambda sh: lambda x: dss_cuda._dss_scalar_cuda(
+                x, im, links, p, flags, sh), xs,
+                lambda: [dss_cuda.dss_scalar_plain(xs[0][0], im, links, p,
+                                                   fg.wrap)]),
+            "dss_uvw": (5, lambda sh: lambda u, v, w: dss_cuda._dss_uvw_cuda(
+                u, v, im, fg.e_rot, links, p, flags, w, sh),
+                sets, lambda: list(dss_cuda.dss_uvw_plain(
+                    *sets[0][:2], im, fg.e_rot, links, p, sets[0][2],
+                    fg.wrap)))}
+        for name, (nf, make, args, plain) in kernels.items():
+            want = plain()
+            rule = dss_cuda.dss_launch_shape(nz, Pn, An, Bn, p, dtype, nf,
+                                             links=bool(links))
+            shapes = {rule}
+            for rows in BAND_ROWS:
+                for lv in BAND_LEVELS:
+                    for ring in BAND_RINGS:
+                        try:
+                            shapes.add(dss_cuda.dss_launch_shape(
+                                nz, Pn, An, Bn, p, dtype, nf, rows=rows,
+                                levels=lv, ring=ring, links=bool(links)))
+                        except ValueError:
+                            pass
+            rows = []
+            for sh in shapes:
+                fn = make(sh)
+                got = fn(*args[0])
+                got = [got] if isinstance(got, torch.Tensor) else list(got)
+                torch.cuda.synchronize()
+                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    raise RuntimeError(f"{label} {name} {sh}: differs from "
+                                       f"the plain version")
+                rows.append((time_cuda(fn, args, 20, queued=True), sh))
+            rows.sort(key=lambda r: r[0])
+            rule_ms = next(ms for ms, sh in rows if sh == rule)
+            print(json.dumps({"grid": label, "dtype": str(dtype)[6:],
+                              "kernel": name, "rule": rule._asdict(),
+                              "rule_ms": rule_ms, "shapes": len(rows)}),
+                  flush=True)
+            for ms, sh in rows[:10]:
+                print(f"  {ms:.5f} ms rows {sh.rows:3d} levels {sh.levels:2d}"
+                      f" ring {sh.ring} threads {sh.threads} blocks "
+                      f"{sh.blocks}", flush=True)
+
+
+def sweep_vector(dev):
     cfg = tm.ModelConfig(grid_kind=tm.GridKind.CUBED_SPHERE, ne=A // ORDER,
                          order=ORDER, nz=K, ztop=30000.0, dtype=torch.float32)
     geom = nh_model.build_nh_sphere_geometry(cfg)
-    fg = fast.build_fast_geometry(geom, dtype=torch.float32, device=dev)
-
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
     with tempfile.TemporaryDirectory() as tmp:
         procs = []
-        for th, lv in VARIANTS:
+        for th, lv in VECTOR_VARIANTS:
             out = str(pathlib.Path(tmp) / f"dss_{th}_{lv}.so")
             cmd = [build.nvcc_path(), *build.NVCC_FLAGS, f"-DDSS_THREADS={th}",
                    f"-DDSS_LEVELS={lv}", "-o", out,
@@ -61,68 +197,34 @@ def main():
         for th, lv, _, proc in procs:
             if proc.wait() != 0:
                 raise RuntimeError(f"nvcc failed for variant {(th, lv)}")
-        sweep(fg, dev, [(th, lv, so) for th, lv, so, _ in procs])
-    return 0
+        for dtype, sfx in ((torch.float32, "f32"), (torch.float64, "f64")):
+            fg = fast.build_fast_geometry(geom, dtype=dtype, device=dev)
+            imult, rot = fg.inv_mult, fg.e_rot.contiguous()
+            two = [tuple(torch.randn((K, P, A, A), dtype=dtype, device=dev,
+                                     generator=gen) for _ in range(2))
+                   for _ in range(8)]
+            wu, wv = dss_cuda.dss_vector_plain(*two[0], imult, rot,
+                                               fg.dss_links, ORDER)
+            for th, lv, so, _ in procs:
+                fv = getattr(ctypes.CDLL(so), "dss_vector_" + sfx)
+                fv.argtypes = build.SIGNATURES["dss"]["dss_vector_" + sfx]
+                fv.restype = ctypes.c_int
 
+                def run(u, v):
+                    uo, vo = torch.empty_like(u), torch.empty_like(v)
+                    if fv(u.data_ptr(), v.data_ptr(), imult.data_ptr(),
+                          rot.data_ptr(), fg.dss_table.data_ptr(),
+                          uo.data_ptr(), vo.data_ptr(), K, P, A, A, ORDER,
+                          len(fg.dss_links), 0, stream):
+                        raise RuntimeError("launch failed")
+                    return uo, vo
 
-def sweep(fg, dev, libs):
-    gen = torch.Generator(device=dev).manual_seed(0)
-    stream = torch.cuda.current_stream().cuda_stream
-    for dtype, sfx in ((torch.float32, "f32"), (torch.float64, "f64")):
-        us = [torch.randn((K, P, A, A), dtype=dtype, device=dev,
-                          generator=gen) for _ in range(8)]
-        vs = [torch.randn((K, P, A, A), dtype=dtype, device=dev,
-                          generator=gen) for _ in range(8)]
-        imult = fg.inv_mult.to(dtype)
-        rot = fg.e_rot.to(dtype).contiguous()
-        want = dss_cuda.dss_scalar_plain(us[0], imult, fg.dss_links, ORDER)
-        wu, wv = dss_cuda.dss_vector_plain(us[0], vs[0], imult, rot,
-                                           fg.dss_links, ORDER)
-        one = [(u,) for u in us]
-        two = list(zip(us, vs))
-        for name, fn, args in (
-                ("torch x*w (1 in, 1 out)", lambda x: x * imult[None], one),
-                ("torch clone", lambda x: x.clone(), one),
-                ("torch u*w, v*w (2 in, 2 out)",
-                 lambda u, v: (u * imult[None], v * imult[None]), two)):
-            ms = time_cuda(fn, args, 40, queued=True)
-            print(f"{sfx} {name}: {ms:.4f} ms", flush=True)
-        for th, lv, so in libs:
-            lib = ctypes.CDLL(so)
-            fs = getattr(lib, "dss_scalar_" + sfx)
-            fv = getattr(lib, "dss_vector_" + sfx)
-            sig = build.SIGNATURES["dss"]
-            fs.argtypes, fs.restype = sig["dss_scalar_" + sfx], ctypes.c_int
-            fv.argtypes, fv.restype = sig["dss_vector_" + sfx], ctypes.c_int
-
-            def run_s(x):
-                out = torch.empty_like(x)
-                err = fs(x.data_ptr(), imult.data_ptr(),
-                         fg.dss_table.data_ptr(), out.data_ptr(), K, P, A, A,
-                         ORDER, len(fg.dss_links), 0, stream)
-                if err:
-                    raise RuntimeError(f"launch failed: {err}")
-                return out
-
-            def run_v(u, v):
-                uo, vo = torch.empty_like(u), torch.empty_like(v)
-                err = fv(u.data_ptr(), v.data_ptr(), imult.data_ptr(),
-                         rot.data_ptr(), fg.dss_table.data_ptr(),
-                         uo.data_ptr(), vo.data_ptr(), K, P, A, A, ORDER,
-                         len(fg.dss_links), 0, stream)
-                if err:
-                    raise RuntimeError(f"launch failed: {err}")
-                return uo, vo
-
-            es = float((run_s(us[0]) - want).abs().max())
-            gu, gv = run_v(us[0], vs[0])
-            ev = float((gu - wu).abs().max() + (gv - wv).abs().max())
-            ts = time_cuda(run_s, one, 40, queued=True)
-            tv = time_cuda(run_v, two, 40, queued=True)
-            print(f"{sfx} threads {th:4d} levels {lv:3d}: scalar {ts:.4f} ms"
-                  f"  vector {tv:.4f} ms  max-abs err {es:.1e} {ev:.1e}",
-                  flush=True)
+                gu, gv = run(*two[0])
+                err = float((gu - wu).abs().max() + (gv - wv).abs().max())
+                ms = time_cuda(run, two, 40, queued=True)
+                print(f"{sfx} dss_vector threads {th:4d} levels {lv:3d}: "
+                      f"{ms:.4f} ms  max-abs err {err:.1e}", flush=True)
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -6,12 +6,13 @@ nvcc:
 
     python3 -m tempestmodel_tpu_torch.kernels.tune_fused
 
-Compiles ``csrc/dss.cu`` and ``csrc/banded_multi.cu`` once per variant of
-their ``-D`` tunables into a temporary directory, swaps each variant in
-behind the wrappers, holds its result against the default build's, and
-prints the device time per launch of ``dss_uvw`` and ``banded_solve_multi``
-(the moist wave's n 30, q 1, R 3; its register-window and its read-back
-form) at the flagship shapes (ne30 p4 L30), float32 and float64.
+Compiles ``csrc/banded_multi.cu`` once per variant of its ``-D``
+tunables into a temporary directory, swaps each variant in behind the
+wrapper, holds its result against the default build's, and prints the
+device time per launch of ``banded_solve_multi`` (the moist wave's n 30,
+q 1, R 3; its register-window and its read-back form) at the flagship
+shapes (ne30 p4 L30), float32 and float64 (``dss_uvw`` takes its launch
+shape at run time: ``kernels/tune_dss.py`` sweeps it).
 ``fused_stage`` and ``fused_implicit_update`` take their launch shapes at
 run time: the default build is launched at every shape of ``STAGE_SHAPES``
 (tile, levels per block, ring depth), one base and two, without tracers and
@@ -38,7 +39,7 @@ import torch
 
 import tempestmodel_tpu_torch as tm
 from tempestmodel_tpu_torch import fast
-from tempestmodel_tpu_torch.fast import (dss_cuda, stage_cuda, implicit_cuda,
+from tempestmodel_tpu_torch.fast import (stage_cuda, implicit_cuda,
                                          implicit as fimp)
 from tempestmodel_tpu_torch.kernels import build, synthetic
 from tempestmodel_tpu_torch.kernels.timing import time_cuda
@@ -49,9 +50,6 @@ from tempestmodel_tpu_torch.testcases.nonhydro_sphere import (
 
 # source stem -> variants of its -D flags (the first is the default build)
 VARIANTS = {
-    "dss": [{}] + [{"UVW_THREADS": t, "UVW_LEVELS": lv}
-                   for t, lv in ((128, 3), (128, 2), (128, 1), (256, 5),
-                                 (256, 2), (64, 5), (128, 8))],
     "banded_multi": [{}] + [{"BANDED_MULTI_THREADS": t}
                             for t in (32, 64, 256)],
 }
@@ -124,7 +122,7 @@ def main(argv=()):
             if only in ([], ["implicit"]):
                 sweep_implicit(cfg, geom, tc, dtype, sfx, dev)
             if not only:
-                sweep(cfg, geom, dtype, sfx, dev, libs)
+                sweep(dtype, sfx, dev, libs)
     return 0
 
 
@@ -254,17 +252,10 @@ def sweep_stage(cfg, geom, dtype, sfx, dev):
                           flush=True)
 
 
-def sweep(cfg, geom, dtype, sfx, dev, libs):
-    consts = cfg.constants
-    fg = synthetic.terrain_like(
-        fast.build_fast_geometry(geom, dtype=dtype, device=dev))
-    ue, b1, b2 = (synthetic.random_state(fg, seed) for seed in (1, 2, 3))
-    two = ((0.3, b1), (0.7, b2))
-    sst = stage_cuda.stage_statics(fg)
-
+def sweep(dtype, sfx, dev, libs):
     # the moist wave's tracer systems: two sets cycle through the L2
     gen = torch.Generator(device=dev).manual_seed(0)
-    ncol = 6 * fg.A * fg.B
+    ncol = 6 * (NE * ORDER) ** 2
     systems = []
     for _ in range(2):
         bands = torch.randn((NZ, 3, ncol), dtype=dtype, device=dev,
@@ -279,17 +270,9 @@ def sweep(cfg, geom, dtype, sfx, dev, libs):
         return lambda b=systems[0][0], r=systems[0][1]: [
             cuda_banded._banded_solve_multi_cuda(b, r, 1, window=window)]
 
-    upd, wf = stage_cuda.fused_stage(two, ue, 12.5, fg, consts, defer_w=True,
-                                     statics=sst)
-
-    def run_uvw():
-        return dss_cuda.dss_uvw(upd["U"], upd["V"], fg.inv_mult, fg.e_rot,
-                                fg.dss_links, fg.p, wf, table=fg.dss_table)
-
     # name -> (source stem, checked function, timed function, its argument
     # sets, repetitions)
     kernels = {
-        "dss_uvw": ("dss", run_uvw, run_uvw, [()], 40),
         "banded_solve_multi": ("banded_multi", run_multi(True),
                                run_multi(True), systems, 20),
         "banded_solve_multi(read-back form)": (

@@ -1,0 +1,189 @@
+"""The band kernels' host side (``dss_cuda.dss_launch_shape``,
+``copy_width``), the edge shapes of ``kernels/dss_edges.py`` (the plain DSS
+against the JAX Pallas kernels in interpret mode at each shape, and the
+kernels against the plain versions on a card), and the sparse operator that
+``chip_smoke.py`` times as the DSS kernels' library yardstick.  No JAX step
+is compiled here."""
+
+import math
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from tempestmodel_tpu.fast import dss_pallas
+from tempestmodel_tpu_torch.fast import dss_cuda
+from tempestmodel_tpu_torch.kernels import dss_edges, dss_operator
+
+CPU = torch.device("cpu")
+F32, F64 = torch.float32, torch.float64
+
+# (K, P, A, B, p): the flagship (levels, interfaces, the moist wave's flat
+# tracer field), Schar swapped and natural, the 3-D bubble's plane, and the
+# edge cases' grids
+SHAPES = [(30, 6, 120, 120, 4), (31, 6, 120, 120, 4), (90, 6, 120, 120, 4),
+          (40, 1, 4, 400, 4), (41, 1, 4, 400, 4), (40, 1, 400, 4, 4),
+          (41, 1, 400, 4, 4), (40, 1, 128, 128, 4), (8, 6, 16, 16, 4),
+          (3, 6, 4, 4, 4), (3, 6, 6, 6, 3), (2, 6, 3, 3, 3), (4, 6, 6, 6, 2),
+          (2, 6, 8, 8, 4), (3, 1, 9, 6, 3), (2, 1, 4, 4, 4)]
+
+
+def _ids(shapes):
+    return ["x".join(map(str, s)) for s in shapes]
+
+
+@pytest.mark.parametrize("dtype", [F32, F64], ids=["f32", "f64"])
+@pytest.mark.parametrize("nfields", [1, 5], ids=["scalar", "uvw"])
+@pytest.mark.parametrize("shape", SHAPES, ids=_ids(SHAPES))
+def test_dss_launch_shape_fits_a_block(shape, nfields, dtype):
+    """Shared memory within a block's 227 KB and as the kernel lays it
+    out, bands of whole elements that tile the panel, threads a multiple of
+    a warp up to the launch bound, enough steps a block for the kernel."""
+    K, P, A, B, p = shape
+    sh = dss_cuda.dss_launch_shape(K, P, A, B, p, dtype, nfields)
+    esize = 4 if dtype == F32 else 8
+    assert sh.smem <= dss_cuda.SMEM_MAX
+    assert sh.smem == dss_cuda.dss_smem_bytes(sh.rows, A, B, sh.ring,
+                                              nfields, esize, P > 1)
+    assert sh.rows % p == 0 and A % sh.rows == 0
+    assert sh.threads % 32 == 0 and 32 <= sh.threads <= dss_cuda.MAX_THREADS
+    # a block passes over its band's segments as few times as its threads
+    # allow, with fewer than a warp of idle threads a pass
+    nseg = sh.rows * B // p
+    passes = math.ceil(nseg / sh.threads)
+    assert passes == math.ceil(nseg / dss_cuda.MAX_THREADS)
+    assert passes * sh.threads - nseg < 32 * passes
+    # dss_uvw's K + 1 steps: the bottom interface is a run of its own
+    assert 1 <= sh.levels <= K
+    assert sh.blocks == (A // sh.rows) * P * (math.ceil(K / sh.levels)
+                                              + (nfields > 1))
+    assert 1 <= sh.ring <= dss_cuda.MAX_RING
+    assert nfields == 1 or sh.ring >= 2
+
+
+@pytest.mark.parametrize("dtype", [F32, F64], ids=["f32", "f64"])
+@pytest.mark.parametrize("nfields", [1, 5], ids=["scalar", "uvw"])
+def test_dss_launch_shape_fills_the_card_at_the_flagship(nfields, dtype):
+    """More than a full wave: at least two blocks for every SM (one stages
+    while another sums), with the levels (K = 30) and the moist wave's
+    flat tracer field (K = 90)."""
+    for K in (30, 90):
+        sh = dss_cuda.dss_launch_shape(K, 6, 120, 120, 4, dtype, nfields)
+        assert sh.blocks >= 2 * dss_cuda.SMS
+        assert sh.levels >= 2 or K * 6 * 120 // sh.rows < 4 * dss_cuda.SMS
+
+
+@pytest.mark.parametrize("nfields", [1, 5], ids=["scalar", "uvw"])
+def test_dss_launch_shape_does_not_starve_schar(nfields):
+    """Schar's slab (1600 nodes a level): a block a level, at least one
+    block a level in both layouts."""
+    for A, B in ((4, 400), (400, 4)):
+        sh = dss_cuda.dss_launch_shape(40, 1, A, B, 4, F32, nfields)
+        assert sh.levels == 1 and sh.blocks >= 40
+
+
+@pytest.mark.parametrize("case", ["p17", "rows", "uvw_levels", "uvw_ring",
+                                  "too_wide"])
+def test_dss_launch_shape_raises_where_the_kernel_cannot_run(case):
+    args = {"p17": ((4, 6, 34, 34, 17, F32, 1), {}),
+            "rows": ((4, 6, 16, 16, 4, F32, 1), dict(rows=12)),
+            "uvw_levels": ((4, 6, 16, 16, 4, F32, 5), dict(levels=0)),
+            "uvw_ring": ((4, 6, 16, 16, 4, F32, 5), dict(ring=1)),
+            "too_wide": ((4, 1, 4, 2000, 4, F64, 5), {})}[case]
+    with pytest.raises(ValueError):
+        dss_cuda.dss_launch_shape(*args[0], **args[1])
+
+
+@pytest.mark.parametrize("B,esize,ptrs,want", [
+    (120, 4, [256, 512], 16), (120, 8, [256], 16), (120, 4, [256, 260], 4),
+    (120, 4, [256, 264], 8), (120, 8, [256, 264], 8), (6, 4, [256], 8),
+    (3, 4, [256], 4), (6, 8, [256], 16), (3, 8, [256], 8),
+    (4, 4, [256, 0], 16), (400, 4, [16, 32, 48], 16), (2, 4, [256], 8)])
+def test_dss_copy_width(B, esize, ptrs, want):
+    """16-byte bulk copies where a row and every pointer allow them, else
+    8-byte copies, else one value; an absent pointer (0) allows all."""
+    assert dss_cuda.copy_width(B, esize, ptrs) == want
+
+
+def test_dss_launch_config_reports_the_launch():
+    x = torch.zeros((30, 6, 120, 120), dtype=F32)
+    cfg = dss_cuda.launch_config(x, 4, 1, [x.data_ptr()], True)
+    sh = dss_cuda.dss_launch_shape(30, 6, 120, 120, 4, F32, 1)
+    assert cfg == dict(sh._asdict(), copy=16)
+    odd = dss_cuda.launch_config(x, 4, 1, [x.data_ptr() + 4], True,
+                                 sh._replace(levels=5))
+    assert odd["copy"] == 4 and odd["levels"] == 5
+
+
+def _jax_wf(wf):
+    return {k: (None if v is None else jnp.asarray(v.numpy()))
+            if isinstance(v, torch.Tensor) or v is None else v
+            for k, v in wf.items()}
+
+
+# the edge cases' distinct grids: the other cases repeat the ne4 grid (held
+# against the Pallas kernels in tests/test_torch_dss.py) with launch shapes
+# or offsets, which the plain version does not see
+PALLAS_CASES = [c for c in dss_edges.CASES if not c.startswith("sphere_ne4")]
+
+
+@pytest.mark.parametrize("case", PALLAS_CASES)
+def test_dss_edge_case_plain_matches_pallas(case):
+    """Each edge grid's plain ``dss_scalar`` and ``dss_uvw`` (two bases;
+    one base on the Cartesian grids) against the JAX Pallas kernels in
+    interpret mode at that shape."""
+    (im, links, rot, wrap, p), x, u, v, wf = dss_edges.case_inputs(
+        case, F64, CPU)
+    jim = jnp.asarray(im.numpy())
+    want = dss_pallas.dss_scalar(jnp.asarray(x.numpy()), jim, links, p,
+                                 interpret=True, wrap=wrap)
+    got = dss_cuda.dss_scalar_plain(x, im, links, p, wrap)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-13 * float(np.abs(want).max()))
+    for w in (wf, dict(wf, bw2=None))[:1 if links else 2]:
+        want = dss_pallas.dss_uvw(jnp.asarray(u.numpy()),
+                                  jnp.asarray(v.numpy()), jim,
+                                  jnp.asarray(rot.numpy()), links, p,
+                                  _jax_wf(w), interpret=True, wrap=wrap)
+        got = dss_cuda.dss_uvw_plain(u, v, im, rot, links, p, w, wrap)
+        for g, jw in zip(got, want):
+            jw = np.asarray(jw)
+            np.testing.assert_allclose(g.numpy(), jw, rtol=0,
+                                       atol=1e-12 * float(np.abs(jw).max()))
+
+
+@pytest.mark.parametrize("case", ["sphere_ne4", "sphere_ne2_p3",
+                                  "sphere_ne3_p2", "cart_plane",
+                                  "cart_wrap_a", "cart_one_element"])
+def test_dss_sparse_operator_is_the_plain_dss(case):
+    """The library yardstick computes the same function: one sparse product
+    with the scalar operator, and with the rotated pair's on (U, V)
+    stacked."""
+    (im, links, rot, wrap, p), x, u, v, _ = dss_edges.case_inputs(
+        case, F64, CPU)
+    K = x.shape[0]
+    got = dss_operator.apply(dss_operator.scalar_operator(im, links, p, wrap),
+                             x).t().reshape(x.shape)
+    want = dss_cuda.dss_scalar_plain(x, im, links, p, wrap)
+    assert float((got - want).abs().max()) <= 1e-13 * float(
+        want.abs().max())
+    uv = torch.cat([u.reshape(K, -1), v.reshape(K, -1)], 1)
+    got = dss_operator.apply(
+        dss_operator.vector_operator(im, rot, links, p, wrap), uv).t()
+    wu, wv = dss_cuda.dss_vector_plain(u, v, im, rot, links, p, wrap)
+    n = wu[0].numel()
+    for g, w in ((got[:, :n].reshape(wu.shape), wu),
+                 (got[:, n:].reshape(wv.shape), wv)):
+        assert float((g - w).abs().max()) <= 1e-13 * float(w.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(F64, 1e-13), (F32, 1e-6)],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("case", list(dss_edges.CASES))
+def test_cuda_dss_edge_case_matches_plain(case, dtype, tol):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no interpret mode")
+    got = dss_edges.run_case(case, dtype, torch.device("cuda"))
+    assert got["max_err"] <= tol, got["err_by_output"]
