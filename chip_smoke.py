@@ -24,8 +24,13 @@ and runs these phases, each printing one JSON line:
             panel, unaligned inputs, several blocks' worth of segments a
             band, rings of one and three stages, two levels, Cartesian
             wraps along one axis or both), each DSS line naming its launch
-            shape and copy route, ``dss_scalar`` and ``dss_vector`` timed
-            beside one ``torch.sparse.mm`` of the same operator,
+            shape and copy route, ``dss_scalar``, ``dss_vector`` and
+            ``dss_scalar2`` timed beside one ``torch.sparse.mm`` of the
+            same operator, ``nu4_pass1`` and ``nu4_pass2`` at their edge
+            shapes (p 2-8, one element a panel, one level, unaligned
+            inputs, rings of two to four stages, narrow bands, planes in
+            both layouts), each nu4 line naming its launch shape and copy
+            route,
             ``banded_solve_multi`` at the moist wave's shapes); then what
             periodic Cartesian grids reach: the five DSS kernels with the
             wrap-sum at the Schar slice's shapes in both layouts and on a
@@ -262,6 +267,25 @@ def check_dss_edges(dtype, dev):
                                f"{got['err_by_output']} > {tol}")
 
 
+def check_hyper_edges(dtype, dev):
+    """Phase 3: ``nu4_pass1`` and ``nu4_pass2`` at the edge shapes of
+    ``kernels/hyper_edges.py`` against their plain versions (cubed spheres
+    of ne 1-4 with p 2-8, one level, unaligned inputs, rings of two to four
+    stages, bands narrower than the panel; periodic planes with element
+    widths that differ along a and b, in both layouts, and one too wide
+    for a band of whole rows); pass 2 also by its increment alone."""
+    from tempestmodel_tpu_torch.kernels import hyper_edges
+    tag = "f32" if dtype == torch.float32 else "f64"
+    tol = 1e-4 if dtype == torch.float32 else 1e-11
+    for case in hyper_edges.CASES:
+        got = hyper_edges.run_case(case, dtype, dev)
+        emit({"phase": "kernel", "dtype": tag, "tol": tol,
+              "name": "nu4_edge", "case": case, **got})
+        if not got["max_err"] <= tol:
+            raise RuntimeError(f"nu4 edge case {case} {tag}: rel err "
+                               f"{got['err_by_output']} > {tol}")
+
+
 def check_fused_kernels(cfg, geom, state, dtype, rows, dev):
     """Phase 3, second half: ``dss_uvw``, ``fused_stage`` and
     ``fused_implicit_update`` against their plain versions at the flagship
@@ -457,7 +481,7 @@ def check_tail_kernels(geom, dtype, rows, dev):
     random."""
     from tempestmodel_tpu_torch import fast
     from tempestmodel_tpu_torch.fast import dss_cuda, hyper_cuda
-    from tempestmodel_tpu_torch.kernels import synthetic
+    from tempestmodel_tpu_torch.kernels import dss_operator, synthetic
     from tempestmodel_tpu_torch.kernels.timing import time_cuda
 
     tag = "f32" if dtype == torch.float32 else "f64"
@@ -600,6 +624,16 @@ def check_tail_kernels(geom, dtype, rows, dev):
         reps=40, queued=True)
     plain_ms = time_cuda(lambda x, y: dss_cuda.dss_scalar2_plain(
         x["Rt"], x["Rho"], *sc), sets, reps=4)
+    # the library yardstick: one torch.sparse.mm with the scalar operator on
+    # the two fields side by side (the stacking is not timed)
+    op = dss_operator.scalar_operator(fgt.inv_mult, fgt.dss_links, fgt.p)
+    pairs = [(torch.cat([x["Rt"], x["Rho"]]),) for x, _ in sets]
+    got = dss_operator.apply(op, pairs[0][0]).t()
+    lib_err = max(rel_err(got[:K].reshape(w1.shape), w1),
+                  rel_err(got[K:].reshape(w2.shape), w2))
+    library_ms = time_cuda(lambda x: dss_operator.apply(op, x), pairs,
+                           reps=20, queued=True)
+    del op, pairs, got
     bnd, by = bound_ms((4 * nlev + n2d) * esize + fgt.dss_table.numel() * 4,
                        10 * nlev, dtype)
     row = {"name": "dss_scalar2", "route": "cuda",
@@ -608,7 +642,8 @@ def check_tail_kernels(geom, dtype, rows, dev):
            "shape": [K, P, A, A], "max_abs_err": err,
            "bitwise_equal_to_separate_launches": equal, "ms": ms,
            "separate_ms": separate_ms, "plain_ms": plain_ms, "bound_ms": bnd,
-           "bound_by": by, "library_ms": None}
+           "bound_by": by, "library_ms": library_ms,
+           "library_rel_err": lib_err}
     emit({"phase": "kernel", "dtype": tag, "tol": dss_tol, **row})
     if f32:
         rows["dss_scalar2"] = row
@@ -957,6 +992,7 @@ def check_kernels(fg, cfg, geom, state, dev):
         check_stage_edges(dtype, dev)
         check_implicit_edges(dtype, dev)
         check_dss_edges(dtype, dev)
+        check_hyper_edges(dtype, dev)
         check_tail_kernels(geom, dtype, rows, dev)
         check_tracer_kernels(cfg, geom, dtype, rows, dev)
         check_cartesian_kernels(dtype, rows, dev)
@@ -1753,6 +1789,11 @@ def main():
     if len(imp_resources) != 5:
         raise RuntimeError(f"the build reported {len(imp_resources)} of the "
                            f"implicit kernel's 5 instantiations")
+    from tempestmodel_tpu_torch.fast import hyper_cuda
+    nu4_resources = hyper_cuda.kernel_resources()
+    if len(nu4_resources) != 8:
+        raise RuntimeError(f"the build reported {len(nu4_resources)} of the "
+                           f"nu4 kernel's 8 instantiations")
     emit({"phase": "build", "seconds": info["seconds"],
           "built": info["built"], "libraries": len(info["libraries"]),
           "fused_stage_registers_and_spills": resources,
@@ -1761,7 +1802,10 @@ def main():
               for (e, tr), n in stage_cuda.REGISTERS.items()},
           "fused_implicit_registers_and_spills": imp_resources,
           "fused_implicit_registers_assumed_by_the_launch_rule": {
-              f"f{8 * e}": n for e, n in implicit_cuda.REGISTERS.items()}})
+              f"f{8 * e}": n for e, n in implicit_cuda.REGISTERS.items()},
+          "nu4_registers_and_spills": nu4_resources,
+          "nu4_registers_assumed_by_the_launch_rule": {
+              f"f{8 * e} p4": n for e, n in hyper_cuda.REGISTERS.items()}})
 
     # flagship geometry and state (host numpy, then tensors on the card)
     tc = BaroclinicWaveUMJS(pert="exp")

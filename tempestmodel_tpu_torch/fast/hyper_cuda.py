@@ -16,16 +16,23 @@ reads only.  ``supported()`` says whether a configuration is inside;
 others take the plain tensor code of ``engine.step_after_subcycle``.
 
 The kernels (``csrc/hyper.cu``) are not shaped like the TPU ones; see the
-note there for their design and their bound on the card.  ``nu4_pass1`` and
-``nu4_pass2`` launch them for CUDA tensors — or raise — and run the plain
-versions only for tensors that lie on the CPU.
+note there for their design and their bound on the card.  A block owns a
+band of whole element rows of one panel and walks a run of levels, staging
+each level's spans in a ring of shared-memory stages; the launch shape
+(``hyper_launch_shape``) and the copy width (``copy_width``) are chosen
+here and checked by the C side.  ``nu4_pass1`` and ``nu4_pass2`` launch the
+kernels for CUDA tensors — or raise — and run the plain versions only for
+tensors that lie on the CPU.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Any
+import functools
+import math
+import re
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -67,6 +74,8 @@ class HyperStatics:
     ds: Any       # 1-D tensor: D[s, i] / delta, then S[i, s] / delta, along
     #             # a, then along b (``stencils.element_matrices``)
     p: int
+    ds_host: Any  # the values of ``ds`` on the host (float64 numpy): the
+    #             # kernels take them by value
 
 
 def hyper_statics(fg) -> HyperStatics:
@@ -77,10 +86,12 @@ def hyper_statics(fg) -> HyperStatics:
     jl = fg.jac3d[0]
     m2d = torch.stack([fg.c2_aa, fg.c2_ab, fg.c2_ba, fg.c2_bb,
                        j2, 1.0 / j2, jl, 1.0 / jl]).contiguous()
-    ds = torch.as_tensor(np.concatenate(
+    host = np.concatenate(
         [m.ravel() for m in stencils.element_matrices(fg)]).astype(
-            np_dtype(dtype)), device=dev)
-    return HyperStatics(m2d=m2d, ds=ds, p=fg.p)
+            np_dtype(dtype))
+    ds = torch.as_tensor(host, device=dev)
+    return HyperStatics(m2d=m2d, ds=ds, p=fg.p,
+                        ds_host=host.astype(np.float64))
 
 
 # ---------------------------------------------------------------------------
@@ -167,6 +178,199 @@ def nu4_pass2_plain(d, work, nu_s, nu_d, nu_v, dt, fg,
 
 
 # ---------------------------------------------------------------------------
+# launch shape and copy width
+# ---------------------------------------------------------------------------
+
+SMS = 132                  # streaming multiprocessors of an H100 SXM
+SMEM_MAX = 232448          # shared memory a block can have
+MAX_THREADS = 256          # the kernel's __launch_bounds__
+BAR_BYTES = 64             # the ring's mbarriers
+MAX_RING = 4
+NTILES = 6                 # J u^a, then div, curl and the three fluxes
+SMEM_SM = 233472           # shared memory of an SM (a block takes 1 KB more)
+# the rule's constants, fitted to the sweeps of kernels/tune_tail.py on an
+# H100 (both passes, float32 and float64, the flagship and the bubble's
+# planes): threads a block at least (where the rows allow), a ring's depth,
+# a block's set-up in levels, and the registers a thread of the p = 4
+# instantiations takes (the build's -Xptxas -v report; chip_smoke.py prints
+# both) by bytes a value
+MIN_THREADS = 64
+RING = 2
+SETUP_LEVELS = 0.5
+REGISTERS = {4: 128, 8: 240}
+
+
+def blocks_per_sm(threads: int, smem: int, esize: int) -> int:
+    """Blocks an SM holds at once: by registers, shared memory and warps."""
+    warps = -(-threads // 32)
+    return max(1, min(65536 // (warps * 32 * REGISTERS[esize]),
+                      SMEM_SM // (smem + 1024), 64 // warps, 32))
+
+
+class HyperLaunch(NamedTuple):
+    """Launch shape of ``nu4_pass1`` / ``nu4_pass2``: a block owns ``rows``
+    whole element rows (a multiple of p dividing A) and ``cols`` columns (a
+    multiple of p dividing B) of one panel, one thread a segment of p nodes
+    (``threads`` = rows * cols / p), and walks ``levels`` of the nz + 1
+    steps (W has one interface more) with a ring of ``ring`` stages in
+    ``smem`` bytes of shared memory; ``blocks`` blocks in all."""
+    rows: int
+    cols: int
+    levels: int
+    ring: int
+    threads: int
+    smem: int
+    blocks: int
+
+
+def hyper_smem_bytes(rows: int, cols: int, ring: int, pass2: bool,
+                     esize: int) -> int:
+    """Shared memory of a block, as ``csrc/hyper.cu`` lays it out: the
+    mbarriers, ``ring`` stages of 5 (pass 2: 10) field slots, then the
+    ``NTILES`` tiles; a slot and a tile hold rows * cols values, rounded up
+    to 16 bytes."""
+    v16 = 16 // esize
+    tile = -(-rows * cols // v16) * v16
+    return BAR_BYTES + ((10 if pass2 else 5) * ring + NTILES) * tile * esize
+
+
+@functools.lru_cache(maxsize=None)
+def hyper_launch_shape(nz: int, P: int, A: int, B: int, p: int, dtype,
+                       pass2: bool, rows=None, cols=None, levels=None,
+                       ring=None) -> HyperLaunch:
+    """The launch shape of ``nu4_pass1`` (``pass2`` False) or ``nu4_pass2``
+    on (nz | nz + 1, P, A, B) fields.  The keywords override the rule
+    (``kernels/tune_tail.py`` sweeps them).  Cached: a launch asks for its
+    shape on the host every time.
+
+    The rule: whole rows where one element row of them fits
+    ``MAX_THREADS`` threads (a thread a segment: B threads; else the widest
+    column band that does, whose rows are then copied one by one); the
+    fewest element rows that give ``MIN_THREADS`` threads; a ring of
+    ``RING`` stages (one for runs of one level); and the runs (the kernel
+    splits the nz + 1 steps evenly over them; ``levels`` in the result is
+    the longest) that give the fewest waves of blocks on the card's
+    ``SMS`` SMs (``blocks_per_sm``) times the levels a block walks plus
+    its set-up (``SETUP_LEVELS``), the most blocks among equals: a launch
+    whose blocks all fit in one wave wants them short enough to fill it, a
+    launch of several waves wants a short last one.  Raises where no shape
+    fits."""
+    esize = 4 if dtype == torch.float32 else 8
+    if p < 1 or p > MAX_P or A % p or B % p:
+        raise ValueError(f"the nu4 kernels take 1 <= p <= {MAX_P} with "
+                         f"whole elements, got A={A} B={B} p={p}")
+    if (nz + 1) * P * A * B >= 2 ** 31:
+        raise ValueError(f"field too large: (nz+1)*P*A*B="
+                         f"{(nz + 1) * P * A * B}")
+    widths = [c for c in range(p, B + 1, p) if B % c == 0
+              and c <= MAX_THREADS]
+    if cols is not None and cols not in widths:
+        raise ValueError(f"cols must be a multiple of p={p} dividing B={B} "
+                         f"of at most {MAX_THREADS}, got {cols}")
+    TB = cols if cols is not None else max(widths)
+    heights = [r for r in range(p, A + 1, p) if A % r == 0
+               and r * TB // p <= MAX_THREADS]
+    if rows is not None and rows not in heights:
+        raise ValueError(f"rows must be a multiple of p={p} dividing A={A} "
+                         f"that keeps {MAX_THREADS} threads, got {rows}")
+    TA = rows if rows is not None else next(
+        (r for r in heights if r * TB // p >= MIN_THREADS), max(heights))
+    steps = nz + 1
+    bands = (A // TA) * (B // TB) * P
+
+    def shape(lv, r):
+        """lv: the longest run (the kernel splits the steps evenly)."""
+        if not (1 if lv == 1 else 2) <= r <= MAX_RING:
+            # a stage is refilled once the level before it is done, so a
+            # run of two levels or more needs two stages
+            raise ValueError(f"ring depth {r} out of range for runs of "
+                             f"{lv} levels")
+        return HyperLaunch(TA, TB, lv, r, TA * TB // p,
+                           hyper_smem_bytes(TA, TB, r, pass2, esize),
+                           bands * math.ceil(steps / lv))
+
+    if levels is not None:
+        if int(levels) < 1:
+            raise ValueError(f"levels a block must be >= 1, got {levels}")
+        lv = math.ceil(steps / math.ceil(steps / min(int(levels), steps)))
+        sh = shape(lv, int(ring) if ring is not None
+                   else (1 if lv == 1 else RING))
+    else:
+        # the fewest waves of blocks times the levels a block walks
+        best = None
+        for runs in range(1, steps + 1):
+            lv = math.ceil(steps / runs)
+            r = int(ring) if ring is not None else (1 if lv == 1 else RING)
+            if r < (1 if lv == 1 else 2) or r > MAX_RING:
+                continue
+            sh = shape(lv, r)
+            if sh.smem > SMEM_MAX:
+                continue
+            slots = SMS * blocks_per_sm(sh.threads, sh.smem, esize)
+            cost = (math.ceil(sh.blocks / slots) * (lv + SETUP_LEVELS),
+                    -sh.blocks)
+            if best is None or cost < best[0]:
+                best = (cost, sh)
+        if best is None:
+            raise ValueError(f"no band of the nu4 kernels fits A={A} B={B} "
+                             f"p={p} in {SMEM_MAX} bytes of shared memory")
+        sh = best[1]
+    if sh.smem > SMEM_MAX:
+        raise ValueError(f"no band of the nu4 kernels fits A={A} B={B} "
+                         f"p={p} in {SMEM_MAX} bytes of shared memory")
+    return sh
+
+
+def copy_width(B: int, cols: int, esize: int, ptrs) -> int:
+    """Bytes a staging copy moves at a time: 16 (bulk copies of whole
+    spans) where a row of B values, a band's row of ``cols`` values and
+    every pointer of ``ptrs`` (ints; 0 for an absent one) are 16-byte
+    multiples, else 8 (``cp.async``) where they are 8-byte multiples, else
+    one value."""
+    for nbytes in (16, 8):
+        if nbytes >= esize and (B * esize) % nbytes == 0 \
+                and (cols * esize) % nbytes == 0 \
+                and all(q % nbytes == 0 for q in ptrs):
+            return nbytes
+    return esize
+
+
+_ENTRY = re.compile(r"nu4_kernelI([fd])Li(\d)ELb([01])E")
+
+
+def kernel_resources() -> dict:
+    """Registers and spill bytes of the kernel's eight instantiations as
+    ``nvcc -Xptxas -v`` reported them at the build, keyed ``f32 p4
+    pass1``, ``f64 generic pass2``, ... (empty before a build)."""
+    out = {}
+    for name, use in build.ptxas_usage("hyper").items():
+        m = _ENTRY.search(name)
+        if m:
+            out[f"{'f32' if m.group(1) == 'f' else 'f64'} "
+                f"{'p4' if m.group(2) == '4' else 'generic'} "
+                f"pass{int(m.group(3)) + 1}"] = use
+    return out
+
+
+def _inputs(x, base):
+    """The tensors a launch stages: the five fields, then pass 2's base."""
+    return [x[k] for k in FIELDS] + ([base[k] for k in FIELDS]
+                                     if base is not None else [])
+
+
+def launch_config(x, base, st: HyperStatics, launch=None) -> dict:
+    """What a launch on the fields ``x`` (pass 2: with ``base``) takes: its
+    launch shape (``launch``, default the rule's) and its copy width."""
+    u = x["U"]
+    nz, P, A, B = u.shape
+    sh = launch or hyper_launch_shape(nz, P, A, B, st.p, u.dtype,
+                                      base is not None)
+    return dict(sh._asdict(), copy=copy_width(
+        B, sh.cols, u.element_size(),
+        [t.data_ptr() for t in _inputs(x, base)]))
+
+
+# ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -194,29 +398,37 @@ def _check(name, d, st: HyperStatics, ref=None):
         raise ValueError("the metric stack must be a contiguous (8, P, A, "
                          "B) tensor of the state's dtype and device")
     if st.ds.numel() != 4 * p * p or st.ds.dtype != u.dtype \
-            or st.ds.device != u.device:
+            or st.ds.device != u.device or st.ds_host.size != 4 * p * p:
         raise ValueError("the element matrices do not match the state")
     return nz, P, A, B
 
 
-def _launch(name, x, base, scal, st: HyperStatics):
+def _launch(name, x, base, scal, st: HyperStatics, launch=None):
+    """One launch on CUDA tensors; ``launch`` overrides the rule's shape."""
     u = x["U"]
     nz, P, A, B = u.shape
+    sh = launch or hyper_launch_shape(nz, P, A, B, st.p, u.dtype,
+                                      base is not None)
     lib = build.library("hyper")
     fn = lib.nu4_f32 if u.dtype == torch.float32 else lib.nu4_f64
     with torch.cuda.device(u.device):
         outs = [torch.empty_like(x[k]) for k in FIELDS]
-        tensors = ([x[k] for k in FIELDS]
-                   + [None if base is None else base[k] for k in FIELDS]
-                   + [st.m2d, st.ds] + outs)
+        ins = _inputs(x, base)
+        copy = copy_width(B, sh.cols, u.element_size(),
+                          [t.data_ptr() for t in ins])
+        tensors = ins + [None] * (10 - len(ins)) + [st.m2d] + outs
         ptrs = (ctypes.c_void_p * len(tensors))(
             *[None if t is None else t.data_ptr() for t in tensors])
-        scal = (ctypes.c_double * 4)(*scal)
-        ints = (ctypes.c_int * 6)(nz, P, A, B, st.p, int(base is not None))
+        scal = (ctypes.c_double * (4 + st.ds_host.size))(
+            *scal, *st.ds_host.tolist())
+        ints = (ctypes.c_int * 11)(nz, P, A, B, st.p, int(base is not None),
+                                   sh.rows, sh.cols, sh.levels, sh.ring,
+                                   copy)
         err = fn(ptrs, scal, ints, torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed "
-                           f"(cudaGetLastError = {err})")
+        raise RuntimeError(f"{name} kernel launch failed (returned {err}: "
+                           f"-1 a shape or copy width it does not take, -2 "
+                           f"too much shared memory, else cudaGetLastError)")
     launch_counts[name] += 1
     return dict(zip(FIELDS, outs))
 

@@ -4,18 +4,24 @@
 Run from the repository root on a machine with an NVIDIA Hopper card and
 nvcc:
 
-    python3 -m tempestmodel_tpu_torch.kernels.tune_tail
+    python3 -m tempestmodel_tpu_torch.kernels.tune_tail [hyper | dss]
 
-Compiles ``csrc/hyper.cu`` and ``csrc/dss.cu`` once per variant of their
-``-D`` tunables into a temporary directory, swaps each variant in behind the
-wrappers, holds its result against the default build's, and prints the
-device time per launch of ``nu4_pass1``, ``nu4_pass2``, ``dss_state`` (with
-and without the Rayleigh finish) and ``dss_scalar2`` at the flagship shapes
-(ne30 p4 L30), float32 and float64.  Times are taken as in
-``chip_smoke.py``: launches queued behind a busy device; every launch reads
-more than the L2 holds.
+``hyper`` (the default runs both): ``nu4_pass1`` and ``nu4_pass2`` at the
+launch shapes around ``hyper_cuda.hyper_launch_shape``'s (band rows, levels
+a block, ring depth; chosen at run time, no rebuild) at the flagship shapes
+(ne30 p4 L30) and on the 3-D bubble's two planes, float32 and float64, each
+shape's result held against the rule's; then ``csrc/hyper.cu`` built once
+per ``HYPER_MIN_BLOCKS`` variant (the registers a thread may use), each
+timed at the rule's shape.  ``dss``: ``csrc/dss.cu`` built once per variant
+of its ``-D`` tunables, ``dss_state`` (with and without the Rayleigh
+finish) and ``dss_scalar2`` timed at the flagship shapes.  Every variant
+build is swapped in behind the wrappers and held against the default
+build's result.  Times are taken as in ``chip_smoke.py``: launches queued
+behind a busy device; at the flagship every launch reads more than the L2
+holds.
 """
 
+import itertools
 import subprocess
 import sys
 import tempfile
@@ -35,21 +41,23 @@ from tempestmodel_tpu_torch.testcases.nonhydro_sphere import (
 
 # source stem -> variants of its -D flags (the first is the default build)
 VARIANTS = {
-    "hyper": [{}] + [{"HYPER_LEVELS": lv, "HYPER_TILE_A": a,
-                      "HYPER_TILE_B": b}
-                     for lv, a, b in ((8, 4, 32), (16, 4, 32), (31, 4, 32),
-                                      (4, 8, 32), (4, 4, 64), (4, 4, 24),
-                                      (4, 4, 40), (2, 4, 32))],
+    "hyper": [{}] + [{"HYPER_MIN_BLOCKS": b, "HYPER_MIN_BLOCKS_F64": b2}
+                     for b, b2 in ((1, 2), (3, 1), (4, 1))],
     "dss": [{}] + [{"STATE_THREADS": t, "STATE_LEVELS": lv, "S2_THREADS": t,
                     "S2_LEVELS": lv2}
                    for t, lv, lv2 in ((128, 1, 1), (128, 2, 2), (128, 3, 3),
                                       (128, 4, 5), (128, 5, 8), (256, 2, 4),
                                       (64, 2, 4), (256, 1, 2))],
 }
+# run-time launch shapes of the nu4 kernels: band rows (in elements), levels
+# a block, ring depth
+SWEEP_ROWS = (1, 2, 3)
+SWEEP_LEVELS = (2, 3, 4, 6, 8, 11, 16, 31, 41)
+SWEEP_RINGS = (2, 3, 4)
 NE, ORDER, NZ = 30, 4, 30
 
 
-def main():
+def main(argv=()):
     if not torch.cuda.is_available():
         print("tune_tail: no CUDA device", file=sys.stderr)
         return 1
@@ -59,22 +67,81 @@ def main():
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip())
     build.build_all()
+    only = list(argv)[:1]
+    stems = only or ["hyper", "dss"]
     tc = BaroclinicWaveUMJS(pert="exp")
     with tempfile.TemporaryDirectory() as tmp:
-        libs = compile_variants(tmp, VARIANTS)
+        libs = compile_variants(tmp, {k: VARIANTS[k] for k in stems})
         for dtype, sfx in ((torch.float32, "f32"), (torch.float64, "f64")):
             cfg = tm.ModelConfig(
                 grid_kind=tm.GridKind.CUBED_SPHERE, ne=NE, order=ORDER,
                 nz=NZ, ztop=tc.ztop, vertical_solver="pallas", dtype=dtype)
             geom = nh_model.build_nh_sphere_geometry(cfg, ztop=tc.ztop)
-            sweep(geom, dtype, sfx, dev, libs)
+            fg = synthetic.terrain_like(
+                fast.build_fast_geometry(geom, dtype=dtype, device=dev),
+                vary_jac=True)
+            if "hyper" in stems:
+                shapes(fg, sfx, "flagship")
+                import chip_smoke
+                for where, ney in (("plane", chip_smoke.PLANE_NE),
+                                   ("plane_rectangular",
+                                    chip_smoke.PLANE_NE // 2)):
+                    _, _, pgeom = chip_smoke.cartesian_setup(
+                        "bubble3d", dtype, chip_smoke.PLANE_NE, ney,
+                        chip_smoke.SCHAR_NZ)
+                    shapes(fast.build_fast_geometry_cartesian(
+                        pgeom, dtype=dtype, device=dev), sfx, where)
+            sweep(fg, sfx, libs)
+            del fg
+            torch.cuda.empty_cache()
     return 0
 
 
-def sweep(geom, dtype, sfx, dev, libs):
-    fg = synthetic.terrain_like(
-        fast.build_fast_geometry(geom, dtype=dtype, device=dev),
-        vary_jac=True)
+def _pass_fns(fg, hst):
+    """(name, pass2, fn(d, w, launch) -> list of outputs) of both passes."""
+    return (("nu4_pass1", False, lambda d, w, sh: list(hyper_cuda._launch(
+                "nu4_pass1", d, None, (1.0, 1.0, 0.0, 0.0), hst,
+                sh).values())),
+            ("nu4_pass2", True, lambda d, w, sh: list(hyper_cuda._launch(
+                "nu4_pass2", w, d, (1e10, 1e10, 100.0, 1e12), hst,
+                sh).values())))
+
+
+def shapes(fg, sfx, where):
+    """Both passes at the run-time launch shapes around the rule's."""
+    hst = hyper_cuda.hyper_statics(fg)
+    sets = [(synthetic.random_state(fg, seed), synthetic.random_state(
+        fg, seed + 10)) for seed in (1, 2)]
+    K, (P, A, B), p = fg.nz, fg.inv_mult.shape, fg.p
+    reps = 20 if P * A * B * K > 1e6 else 100
+    for name, pass2, fn in _pass_fns(fg, hst):
+        rule = hyper_cuda.hyper_launch_shape(K, P, A, B, p, fg.inv_mult.dtype,
+                                             pass2)
+        want = fn(*sets[0], rule)
+        seen = set()
+        for e, lv, r in itertools.product(SWEEP_ROWS, SWEEP_LEVELS,
+                                          SWEEP_RINGS):
+            try:
+                sh = hyper_cuda.hyper_launch_shape(
+                    K, P, A, B, p, fg.inv_mult.dtype, pass2, rows=e * p,
+                    levels=lv, ring=r)
+            except ValueError:
+                continue
+            if sh in seen:
+                continue
+            seen.add(sh)
+            err = rel_err(fn(*sets[0], sh), want)
+            ms = time_cuda(lambda d, w: fn(d, w, sh), sets, reps=reps,
+                           queued=True)
+            print(f"{sfx} {name} {where} rows {sh.rows} cols {sh.cols} "
+                  f"levels {sh.levels} ring {sh.ring} blocks {sh.blocks}: "
+                  f"{ms:.4f} ms{'  (rule)' if sh == rule else ''}  rel err "
+                  f"vs the rule's shape {err:.1e}", flush=True)
+
+
+def sweep(fg, sfx, libs):
+    """Each variant build against the default one, at the rule's shapes."""
+    dtype, dev = fg.inv_mult.dtype, fg.inv_mult.device
     hst = hyper_cuda.hyper_statics(fg)
     # two sets of inputs: 2 x 104 MB (float32) cycle through the L2
     sets = [(synthetic.random_state(fg, seed), synthetic.random_state(
@@ -90,21 +157,16 @@ def sweep(geom, dtype, sfx, dev, libs):
                                  table=fg.dss_table)
         return [out[k] for k in dss_cuda.STATE_FIELDS]
 
-    def listed(fn):
-        return lambda *a: list(fn(*a).values())
-
     # name -> (source stem, function of (d, work) returning a list)
-    kernels = {
-        "nu4_pass1": ("hyper", listed(
-            lambda d, w: hyper_cuda.nu4_pass1(d, fg, hst))),
-        "nu4_pass2": ("hyper", listed(lambda d, w: hyper_cuda.nu4_pass2(
-            d, w, 1e10, 1e10, 1e10, 100.0, fg, hst))),
+    kernels = {name: ("hyper", lambda d, w, fn=fn: fn(d, w, None))
+               for name, _, fn in _pass_fns(fg, hst)}
+    kernels.update({
         "dss_state": ("dss", state),
         "dss_state_rayleigh": ("dss", lambda d, w: state(d, w, ray)),
         "dss_scalar2": ("dss", lambda d, w: list(dss_cuda.dss_scalar2(
             d["Rt"], d["Rho"], fg.inv_mult, fg.dss_links, fg.p,
             table=fg.dss_table))),
-    }
+    })
     default = dict(build._libs)
     want = {name: fn(*sets[0]) for name, (_, fn) in kernels.items()}
     torch.cuda.synchronize()
@@ -124,4 +186,4 @@ def sweep(geom, dtype, sfx, dev, libs):
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))
