@@ -19,19 +19,28 @@ and runs these phases, each printing one JSON line:
             two groups of species; each stage line names its launch shape,
             ring depth and copy route, and the build line the registers
             and spills of every instantiation of the stage kernel;
-            ``dss_scalar`` also on their flat 90-row field, ``dss_scalar``
-            and ``dss_uvw`` at their edge shapes (p 2-4, one element a
+            ``dss_scalar`` also on their flat 90-row field, the three
+            modes of the band DSS kernel (``dss_scalar``, ``dss_vector``,
+            ``dss_uvw``) at their edge shapes (p 2-4, one element a
             panel, unaligned inputs, several blocks' worth of segments a
             band, rings of one and three stages, two levels, Cartesian
-            wraps along one axis or both), each DSS line naming its launch
-            shape and copy route, ``dss_scalar``, ``dss_vector`` and
-            ``dss_scalar2`` timed beside one ``torch.sparse.mm`` of the
-            same operator, ``nu4_pass1`` and ``nu4_pass2`` at their edge
+            wraps along one axis or both), each bit for bit equal to its
+            plain version, each DSS line naming its launch shape and copy
+            route, ``dss_scalar``, ``dss_vector`` and ``dss_scalar2`` timed
+            beside one ``torch.sparse.mm`` of the same operator (also
+            ``dss_vector`` on the Cartesian grids below), ``nu4_pass1``
+            and ``nu4_pass2`` at their edge
             shapes (p 2-8, one element a panel, one level, unaligned
             inputs, rings of two to four stages, narrow bands, planes in
             both layouts), each nu4 line naming its launch shape and copy
             route,
-            ``banded_solve_multi`` at the moist wave's shapes); then what
+            ``banded_solve_multi`` at the moist wave's shapes, at n 30,
+            q 4, R 5 and at the edge shapes of ``kernels/banded_edges.py``
+            (2-300 rows, q 1-8, R 1-5, 1-1000 columns, unaligned inputs,
+            tiles of 64 columns, the stream form), each line naming its
+            form, tile, copy route; the build line also gives the
+            registers and spills of every instantiation of the band DSS
+            kernel and of ``banded_solve_multi``); then what
             periodic Cartesian grids reach: the five DSS kernels with the
             wrap-sum at the Schar slice's shapes in both layouts and on a
             128 x 128 plane, ``fused_stage`` with ``xz_zero`` on the Schar
@@ -248,13 +257,13 @@ def check_implicit_edges(dtype, dev):
 
 
 def check_dss_edges(dtype, dev):
-    """Phase 3: ``dss_scalar`` and ``dss_uvw`` at the edge shapes of
-    ``kernels/dss_edges.py`` against their plain versions (cubed spheres of
-    ne 1-4 with p 2-4, periodic Cartesian panels wrapped along one axis or
-    both, unaligned inputs, bands of several blocks' worth of segments,
-    rings of one and three stages, two levels); ``dss_uvw`` with two bases
-    and one, its bottom W row also alone, on the panel edges and at the
-    corners."""
+    """Phase 3: ``dss_scalar``, ``dss_vector`` and ``dss_uvw`` at the edge
+    shapes of ``kernels/dss_edges.py`` against their plain versions, bit for
+    bit (cubed spheres of ne 1-4 with p 2-4, periodic Cartesian panels
+    wrapped along one axis or both, unaligned inputs, bands of several
+    blocks' worth of segments, rings of one and three stages, two levels);
+    ``dss_uvw`` with two bases and one, its bottom W row also alone, on the
+    panel edges and at the corners."""
     from tempestmodel_tpu_torch.kernels import dss_edges
     tag = "f32" if dtype == torch.float32 else "f64"
     tol = 1e-6 if dtype == torch.float32 else 1e-13
@@ -262,9 +271,29 @@ def check_dss_edges(dtype, dev):
         got = dss_edges.run_case(case, dtype, dev)
         emit({"phase": "kernel", "dtype": tag, "tol": tol,
               "name": "dss_edge", "case": case, **got})
-        if not got["max_err"] <= tol:
+        if not (got["max_err"] <= tol and got["bitwise"]):
             raise RuntimeError(f"DSS edge case {case} {tag}: rel err "
-                               f"{got['err_by_output']} > {tol}")
+                               f"{got['err_by_output']} (tolerance {tol}), "
+                               f"bitwise {got['bitwise']}")
+
+
+def check_banded_edges(dtype, dev):
+    """Phase 3: ``banded_solve_multi`` at the edge shapes of
+    ``kernels/banded_edges.py`` against its plain version (2-300 rows, q
+    1-8, R 1-5, 1-1000 columns, unaligned inputs, tiles of 64 columns, two
+    rows an mbarrier, the stream form forced and chosen by shape)."""
+    from tempestmodel_tpu_torch.kernels import banded_edges
+    tag = "f32" if dtype == torch.float32 else "f64"
+    tol = 1e-4 if dtype == torch.float32 else 1e-10
+    for case, spec in banded_edges.CASES.items():
+        got = banded_edges.run_case(case, dtype, dev)
+        emit({"phase": "kernel", "dtype": tag, "tol": tol,
+              "name": "banded_solve_multi_edge", "case": case, **got})
+        if not got["max_err"] <= tol or got["launch"]["form"] != spec[6]:
+            raise RuntimeError(f"banded_solve_multi edge case {case} {tag}: "
+                               f"rel err {got['err_by_species']} > {tol} "
+                               f"or form {got['launch']['form']} is not "
+                               f"{spec[6]}")
 
 
 def check_hyper_edges(dtype, dev):
@@ -682,34 +711,33 @@ def check_tracer_kernels(cfg, geom, dtype, rows, dev):
             R, device=dev, dtype=dtype))[None, :, None]
         return bands, rhs.contiguous()
 
-    def multi_err(bands, rhs, q):
-        want = cuda_banded.banded_solve_multi_plain(bands, rhs, q)
-        got = cuda_banded.banded_solve_multi(bands, rhs, q)
-        torch.cuda.synchronize()
-        back = cuda_banded._banded_solve_multi_cuda(bands, rhs, q,
-                                                    window=False)
-        torch.cuda.synchronize()
-        return max(rel_err(g[:, r], want[:, r]) for g in (got, back)
-                   for r in range(rhs.shape[1])), want
-
     cases = {}
     for name, q, R in (("", 1, NTR), ("_q4_r5", 4, 5)):
         sets = [systems(n, q, R, ncol) for _ in range(2)]   # > the 50 MB L2
         bands, rhs = sets[0]
-        err, want = multi_err(bands, rhs, q)
-        # ragged widths, other bandwidths, R above the register windows
-        for qq, rr, nn, nc in ((2, 1, 9, 1001), (8, 2, 40, 130),
-                               (3, 7, 12, 257)):
-            err = max(err, multi_err(*systems(nn, qq, rr, nc), qq)[0])
+        # the rule's form (the tile) and the stream form
+        stream = cuda_banded.banded_multi_launch_shape(n, q, R, ncol, dtype,
+                                                       form="stream")
+        want = cuda_banded.banded_solve_multi_plain(bands, rhs, q)
+        got = cuda_banded.banded_solve_multi(bands, rhs, q)
+        torch.cuda.synchronize()
+        back = cuda_banded._banded_solve_multi_cuda(bands, rhs, q, stream)
+        torch.cuda.synchronize()
+        err = max(rel_err(g[:, r], want[:, r]) for g in (got, back)
+                  for r in range(R))
+        del got, back
         if not err <= band_tol:
             raise RuntimeError(f"banded_solve_multi{name} {tag}: rel err "
                                f"{err} > {band_tol}")
-        t = {"max_abs_err": err}
+        t = {"max_abs_err": err,
+             "launch": cuda_banded.launch_config(bands, rhs, q),
+             "launch_stream_form": cuda_banded.launch_config(bands, rhs, q,
+                                                             stream)}
         t["ms"] = time_cuda(lambda b, r: cuda_banded.banded_solve_multi(
             b, r, q), sets, reps=20, queued=True)
-        t["ms_read_back_form"] = time_cuda(
+        t["ms_stream_form"] = time_cuda(
             lambda b, r: cuda_banded._banded_solve_multi_cuda(
-                b, r, q, window=False), sets, reps=20, queued=True)
+                b, r, q, stream), sets, reps=20, queued=True)
         t["plain_ms"] = time_cuda(
             lambda b, r: cuda_banded.banded_solve_multi_plain(b, r, q), sets,
             reps=2, warmup=1)
@@ -911,9 +939,11 @@ def check_kernels(fg, cfg, geom, state, dev):
         scale = max(float(wu.abs().max()), float(wv.abs().max()))
         err = max(float((gu - wu).abs().max()),
                   float((gv - wv).abs().max())) / scale
-        if not err <= dss_tol[dtype]:
+        bitwise = torch.equal(gu, wu) and torch.equal(gv, wv)
+        if not (err <= dss_tol[dtype] and bitwise):
             raise RuntimeError(f"dss_vector {tag}: max-abs err/scale {err} "
-                               f"> {dss_tol[dtype]}")
+                               f"(tolerance {dss_tol[dtype]}), bit for bit "
+                               f"equal to the plain version: {bitwise}")
         ms = time_cuda(lambda u, v: dss_cuda.dss_vector(
             u, v, imult, rot, fg.dss_links, fg.p, table=fg.dss_table),
             list(zip(us, vs)), reps=40, queued=True)
@@ -938,8 +968,12 @@ def check_kernels(fg, cfg, geom, state, dev):
                "replaces": "tempestmodel_tpu/fast/dss_pallas.py:489",
                "shape": [K, P, A, A], "max_abs_err": err, "ms": ms,
                "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
-               "library_ms": library_ms, "library_rel_err": lib_err}
-        emit({"phase": "kernel", "dtype": tag, "tol": dss_tol[dtype], **row})
+               "library_ms": library_ms, "library_rel_err": lib_err,
+               "bitwise": bitwise}
+        emit({"phase": "kernel", "dtype": tag, "tol": dss_tol[dtype], **row,
+              "launch": dss_cuda.launch_config(
+                  us[0], fg.p, 2, dss_cuda._vector_ptrs(us[0], vs[0], imult),
+                  True)})
         if dtype == torch.float32:
             rows["dss_vector"] = row
         del xs, us, vs, xw
@@ -992,6 +1026,7 @@ def check_kernels(fg, cfg, geom, state, dev):
         check_stage_edges(dtype, dev)
         check_implicit_edges(dtype, dev)
         check_dss_edges(dtype, dev)
+        check_banded_edges(dtype, dev)
         check_hyper_edges(dtype, dev)
         check_tail_kernels(geom, dtype, rows, dev)
         check_tracer_kernels(cfg, geom, dtype, rows, dev)
@@ -1151,10 +1186,13 @@ def check_cartesian_dss(fgs, dtype, rows, dev):
     128), K = 40 levels (41 interfaces).  ``dss_state`` with and without the
     Rayleigh finish (its x-z-exempt slot with the factor 1); ``dss_scalar``
     also with the link table's pointer set to an invalid address, which a
-    grid without links must never read.  Times at each shape."""
+    grid without links must never read; ``dss_vector`` bit for bit equal
+    to its plain version, with its launch shape and copy route, timed
+    beside one ``torch.sparse.mm`` of the pair's operator.  Times at each
+    shape."""
     import ctypes
     from tempestmodel_tpu_torch.fast import dss_cuda
-    from tempestmodel_tpu_torch.kernels import build, synthetic
+    from tempestmodel_tpu_torch.kernels import build, dss_operator, synthetic
     from tempestmodel_tpu_torch.kernels.timing import time_cuda
 
     tag = "f32" if dtype == torch.float32 else "f64"
@@ -1200,6 +1238,9 @@ def check_cartesian_dss(fgs, dtype, rows, dev):
         wu, wv = dss_cuda.dss_vector_plain(d["U"], d["V"], im, rot, links,
                                            fg.p, wrap)
         errs["dss_vector"] = max(rel_err(gu, wu), rel_err(gv, wv))
+        if not (torch.equal(gu, wu) and torch.equal(gv, wv)):
+            raise RuntimeError(f"cartesian dss_vector {where} {tag}: not bit "
+                               f"for bit equal to the plain version")
         shp = d["W"].shape
         wf = {"bw1": sets[1]["W"], "bw2": sets[2]["W"],
               "dW": randn(shp, dtype, gen, dev),
@@ -1280,6 +1321,19 @@ def check_cartesian_dss(fgs, dtype, rows, dev):
                                 queued=True),
                 "plain_ms": time_cuda(plain, [(x,) for x in sets], reps=5),
                 "bound_ms": bnd, "bound_by": by}
+        # dss_vector's library yardstick: one torch.sparse.mm with the
+        # pair's operator on (U, V) stacked along the nodes (not timed)
+        op = dss_operator.vector_operator(im, rot, links, fg.p, wrap)
+        uvs = [(torch.cat([x["U"].reshape(K, -1), x["V"].reshape(K, -1)],
+                          1),) for x in sets]
+        timed["dss_vector"].update(
+            bitwise=True,
+            library_ms=time_cuda(lambda uv: dss_operator.apply(op, uv), uvs,
+                                 reps=50, queued=True),
+            launch=dss_cuda.launch_config(
+                d["U"], fg.p, 2, dss_cuda._vector_ptrs(d["U"], d["V"], im),
+                False))
+        del op, uvs
         emit({"phase": "cartesian_kernel", "dtype": tag, "tol": tol,
               "kernels": "dss", "shape": [K, P, A, B], "where": where,
               "wrap": list(wrap), "by_kernel": timed})
@@ -1789,11 +1843,20 @@ def main():
     if len(imp_resources) != 5:
         raise RuntimeError(f"the build reported {len(imp_resources)} of the "
                            f"implicit kernel's 5 instantiations")
-    from tempestmodel_tpu_torch.fast import hyper_cuda
+    from tempestmodel_tpu_torch.fast import dss_cuda, hyper_cuda
+    from tempestmodel_tpu_torch.ops import cuda_banded
     nu4_resources = hyper_cuda.kernel_resources()
     if len(nu4_resources) != 8:
         raise RuntimeError(f"the build reported {len(nu4_resources)} of the "
                            f"nu4 kernel's 8 instantiations")
+    dss_resources = dss_cuda.kernel_resources()
+    if len(dss_resources) != 24:
+        raise RuntimeError(f"the build reported {len(dss_resources)} of the "
+                           f"band DSS kernel's 24 instantiations")
+    multi_resources = cuda_banded.kernel_resources()
+    if len(multi_resources) != 32:
+        raise RuntimeError(f"the build reported {len(multi_resources)} of "
+                           f"banded_solve_multi's 32 instantiations")
     emit({"phase": "build", "seconds": info["seconds"],
           "built": info["built"], "libraries": len(info["libraries"]),
           "fused_stage_registers_and_spills": resources,
@@ -1805,7 +1868,9 @@ def main():
               f"f{8 * e}": n for e, n in implicit_cuda.REGISTERS.items()},
           "nu4_registers_and_spills": nu4_resources,
           "nu4_registers_assumed_by_the_launch_rule": {
-              f"f{8 * e} p4": n for e, n in hyper_cuda.REGISTERS.items()}})
+              f"f{8 * e} p4": n for e, n in hyper_cuda.REGISTERS.items()},
+          "band_dss_registers_and_spills": dss_resources,
+          "banded_solve_multi_registers_and_spills": multi_resources})
 
     # flagship geometry and state (host numpy, then tensors on the card)
     tc = BaroclinicWaveUMJS(pert="exp")

@@ -5,34 +5,61 @@
 // of tempestmodel_tpu/ops/pallas_banded.py (the implicit vertical tracer
 // update: every species of a column has the same matrix).  That kernel holds
 // a 512-column tile with its U-factor and the forward solutions in on-chip
-// memory and pads the column count to the tile.  Here, as in banded.cu: ONE
-// THREAD PER COLUMN, the column axis minor in `bands (n, 2q+1, ncol)`,
-// `rhs (n, R, ncol)` and `out (n, R, ncol)`, so every access of a warp is
-// coalesced; the half-bandwidth Q is a template parameter (1..8); the ragged
-// last block is masked and nothing is padded.
-//
-// Row i is eliminated once: its Q multipliers are formed, the U row goes to
-// the scratch tensor `ufac (n, q+1, ncol)`, and then each right-hand side is
-// updated with the same multipliers.  The forward solutions are parked in
-// `out`, which the back substitution overwrites row by row from the bottom,
-// so `ufac` is the only scratch.
-//
-// R is a run-time size.  The sliding windows of the last Q forward solutions
-// and of the next Q solutions hold Q x R values, which registers can hold
-// only for an R known at compile time.  Two forms, chosen at the launch:
-//   RT > 0  (R == RT, instantiated for R = 1..4 at Q <= 4): both windows
-//           slide through registers, as in banded.cu;
-//   RT == 0 (any R): the windows are read back from `out`, where this very
-//           thread wrote them a few rows ago (at most Q * R values a column
-//           behind the front, which the L2 holds at any realistic width).
-// Both forms do the same arithmetic in the same order.
+// memory; the idea that carries over is that these never reach device
+// memory.  Layout: the column axis minor in `bands (n, 2q+1, ncol)`,
+// `rhs (n, R, ncol)` and `out (n, R, ncol)`; the half-bandwidth Q is a
+// template parameter (1..8), R a run-time size.
 //
 // Bound on an H100 (3.35 TB/s): bytes.  The function must read bands and rhs
 // once and write out once: at n = 30, q = 1, R = 3, ncol = 86 400, float32
-// that is 3 x 31.1 MB = 93.3 MB, about 0.028 ms; this design adds a write and
-// a read of the U-factor (2 x 20.7 MB) and a second pass over `out`
-// (31.1 MB read, 31.1 MB written again), about 0.03 ms more.  Arithmetic is
-// about 30 flops per row and column (0.08 GFLOP, microseconds).
+// that is 3 x 31.1 MB = 93.3 MB, about 0.028 ms.  Arithmetic is about 30
+// flops per row and column (0.08 GFLOP, microseconds).
+//
+// The tile form (`multi_tile_kernel`, the moist wave's and every shape
+// whose tile fits): a block owns a tile of C columns (C a multiple of 32,
+// one thread a column) and all its rows.
+//   1. stage: every band row and right-hand-side row of the tile, n (2q+1+R)
+//      rows of C values, goes into shared memory by asynchronous copies, all
+//      issued at once: one 1-D bulk copy (TMA, `cp.async.bulk`) a row where
+//      rows and pointers are 16-byte multiples, else `cp.async` of 8 or 4
+//      bytes (`copy`, chosen per launch by ops/cuda_banded.copy_width and
+//      checked here).  The copies complete on one mbarrier per chunk of
+//      `chunk` rows, so the elimination of row 0 starts when the first chunk
+//      has landed while the later chunks are still in flight;
+//   2. the elimination, one thread a column for the first C threads
+//      (column = lane: a warp's accesses hit C consecutive values, no bank
+//      conflict), each chunk as soon as it has landed: row i's multipliers
+//      from the last Q U rows (kept in registers) written over the band's
+//      first Q entries, its U row over the rest, in place;
+//   3. the substitutions, every thread: the block has C x G threads and
+//      thread (c, g) takes right-hand sides g, g + G, ... of column c; the
+//      forward values overwrite the right-hand side in place, the last Q
+//      forward values and then the last Q solutions stay in registers, and
+//      each solution goes to `out` as it is found, the tile's only trip to
+//      device memory (a warp stores C consecutive values).
+// Nothing else goes to device memory: no U-factor scratch, no second pass
+// over `out`.  The substitutions of the R right-hand sides are independent
+// once the column is eliminated, so they run side by side: a column's
+// dependent chain is the elimination plus one right-hand side's
+// substitutions, not R of them.  A tile of 32 columns of the moist wave's
+// systems takes 23 KB (float32), so several tiles share an SM and one
+// tile's serial elimination overlaps another's copies and substitutions.
+//
+// The stream form (`multi_stream_kernel`, shapes whose tile of 32 columns
+// does not fit a block's 227 KB: many rows with a wide band or many
+// right-hand sides): one thread a column reads its band and right-hand-side
+// rows from device memory as it eliminates them (coalesced across the
+// warp), keeps the U rows of the last `chunk` rows in shared memory, and
+// parks the forward values in `out`.  The back substitution walks the
+// chunks from the last; for every chunk but the last it first eliminates
+// again from row 0 (multipliers and U rows only) to rebuild that chunk's U
+// rows.  Still no scratch: `out` and shared memory hold everything.  The
+// host chooses the form by shape (ops/cuda_banded.banded_multi_launch_shape).
+//
+// Both forms do the arithmetic of models/vertical_banded.banded_solve_multi_t
+// in its order: a division per multiplier, each update a fused
+// multiply-add; the same code eliminates a row in both forms, so the stream
+// form's second elimination rebuilds the first one's U rows bit for bit.
 //
 // Plain C interface (no PyTorch header): the launch goes to the given
 // stream, nothing synchronises or allocates, and the entry point returns
@@ -42,197 +69,392 @@
 
 namespace {
 
-// threads a block; kernels/tune_fused.py sweeps it with a -D flag
-#ifndef BANDED_MULTI_THREADS
-#define BANDED_MULTI_THREADS 128
-#endif
-constexpr int THREADS = BANDED_MULTI_THREADS;
-constexpr int MAX_WINDOW_Q = 4;  // register windows are instantiated for
-constexpr int MAX_WINDOW_R = 4;  // Q and R up to these
+constexpr int MAX_Q = 8;
+constexpr int MAX_THREADS = 256;  // most threads a block
+constexpr int MAX_BARS = 16;      // the tile form's mbarriers
+constexpr int BAR_BYTES = 8 * MAX_BARS;
+constexpr int SMEM_MAX = 232448;  // dynamic shared memory of an H100 block
+constexpr int FORM_TILE = 0, FORM_STREAM = 1;
 
-template <typename T, int Q, int RT>
-__global__ void banded_multi_kernel(const T* __restrict__ bands,
-                                    const T* __restrict__ rhs, T* out,
-                                    T* __restrict__ ufac, int n, int R,
-                                    long long ncol) {
-  const long long col = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= ncol) return;
-  constexpr int NB = 2 * Q + 1;
-  constexpr int RW = RT > 0 ? RT : 1;  // extent of the register windows
-  const long long rstride = (long long)R * ncol;  // one row of rhs / out
+template <typename T>
+struct MultiArgs {
+  const T* bands;
+  const T* rhs;
+  T* out;
+  long long ncol;
+  int n, R;
+  int C;      // columns a block
+  int chunk;  // tile: rows an mbarrier; stream: U rows kept on chip
+  int copy;   // tile: bytes a staging copy (16: bulk copies)
+};
 
-  // the last Q U-rows (u_prev[Q-1] is the newest); before row 0 stand
-  // identity rows, whose multipliers are zero band entries
-  T u_prev[Q][Q + 1];
-  T y_prev[Q][RW];
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void bar_init(unsigned long long* bar,
+                                         unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
+                   smem_addr(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive_expect(unsigned long long* bar,
+                                                  unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_addr(bar)), "r"(bytes) : "memory");
+}
+// waits until the phase of parity `parity` has completed
+__device__ __forceinline__ void bar_wait(unsigned long long* bar,
+                                         unsigned parity) {
+  asm volatile(
+      "{\n .reg .pred done;\n WAIT_%=:\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      " @!done bra WAIT_%=;\n}" ::"r"(smem_addr(bar)), "r"(parity)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)), "l"(src), "r"(bytes),
+      "r"(smem_addr(bar)) : "memory");
+}
+template <int BYTES>
+__device__ __forceinline__ void copy_async(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(
+                   smem_addr(dst)), "l"(src), "n"(BYTES) : "memory");
+}
+// the mbarrier receives one arrival once this thread's cp.async are done
+__device__ __forceinline__ void copies_arrive(unsigned long long* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                   smem_addr(bar)) : "memory");
+}
+
+// a * b + c rounded once (the updates of the elimination and substitutions)
+__device__ __forceinline__ float fma_rn(float a, float b, float c) {
+  return __fmaf_rn(a, b, c);
+}
+__device__ __forceinline__ double fma_rn(double a, double b, double c) {
+  return __fma_rn(a, b, c);
+}
+
+// Row i's elimination: w (its 2Q+1 band entries) becomes its U row in
+// w[Q..2Q] and f its Q multipliers, from `up`, the U rows of rows i-Q ..
+// i-1 (identity rows before row 0, whose multipliers are the band's zero
+// entries); then `up` slides by one row.
+template <typename T, int Q>
+__device__ __forceinline__ void eliminate(T (&w)[2 * Q + 1], T (&f)[Q],
+                                          T (&up)[Q][Q + 1]) {
 #pragma unroll
   for (int t = 0; t < Q; ++t) {
-    u_prev[t][0] = T(1);
+    f[t] = w[t] / up[t][0];
 #pragma unroll
-    for (int j = 1; j <= Q; ++j) u_prev[t][j] = T(0);
-#pragma unroll
-    for (int r = 0; r < RW; ++r) y_prev[t][r] = T(0);
+    for (int j = 1; j <= Q; ++j)
+      w[t + j] = fma_rn(-f[t], up[t][j], w[t + j]);
   }
-
-  for (int i = 0; i < n; ++i) {
-    T w[NB];
-    const T* row = bands + (long long)i * NB * ncol + col;
 #pragma unroll
-    for (int d = 0; d < NB; ++d) w[d] = row[(long long)d * ncol];
-    T f[Q];
+  for (int t = 0; t + 1 < Q; ++t) {
 #pragma unroll
-    for (int t = 0; t < Q; ++t) {
-      // eliminate column i-Q+t with U row i-Q+t
-      f[t] = w[t] / u_prev[t][0];
-#pragma unroll
-      for (int j = 1; j <= Q; ++j) w[t + j] -= f[t] * u_prev[t][j];
-    }
-    T* urow = ufac + (long long)i * (Q + 1) * ncol + col;
-#pragma unroll
-    for (int j = 0; j <= Q; ++j) urow[(long long)j * ncol] = w[Q + j];
-#pragma unroll
-    for (int t = 0; t + 1 < Q; ++t) {
-#pragma unroll
-      for (int j = 0; j <= Q; ++j) u_prev[t][j] = u_prev[t + 1][j];
-    }
-#pragma unroll
-    for (int j = 0; j <= Q; ++j) u_prev[Q - 1][j] = w[Q + j];
-
-    // the same multipliers for every right-hand side
-    const T* rin = rhs + (long long)i * rstride + col;
-    T* yout = out + (long long)i * rstride + col;
-    if constexpr (RT > 0) {
-#pragma unroll
-      for (int r = 0; r < RW; ++r) {
-        T y = rin[(long long)r * ncol];
-#pragma unroll
-        for (int t = 0; t < Q; ++t) y -= f[t] * y_prev[t][r];
-        yout[(long long)r * ncol] = y;
-#pragma unroll
-        for (int t = 0; t + 1 < Q; ++t) y_prev[t][r] = y_prev[t + 1][r];
-        y_prev[Q - 1][r] = y;
-      }
-    } else {
-      for (int r = 0; r < R; ++r) {
-        T y = rin[(long long)r * ncol];
-#pragma unroll
-        for (int t = 0; t < Q; ++t) {
-          const int ip = i - Q + t;  // f[t] is zero for a row before row 0
-          if (ip >= 0)
-            y -= f[t] * out[(long long)ip * rstride + (long long)r * ncol + col];
-        }
-        yout[(long long)r * ncol] = y;
-      }
-    }
+    for (int j = 0; j <= Q; ++j) up[t][j] = up[t + 1][j];
   }
-
-  // back substitution, in place on `out`; x_next[d] = x[i + 1 + d], zero
-  // beyond the last row
-  T x_next[Q][RW];
 #pragma unroll
-  for (int d = 0; d < Q; ++d) {
-#pragma unroll
-    for (int r = 0; r < RW; ++r) x_next[d][r] = T(0);
-  }
-  for (int i = n - 1; i >= 0; --i) {
-    const T* urow = ufac + (long long)i * (Q + 1) * ncol + col;
-    T u[Q + 1];
-#pragma unroll
-    for (int j = 0; j <= Q; ++j) u[j] = urow[(long long)j * ncol];
-    T* xrow = out + (long long)i * rstride + col;
-    if constexpr (RT > 0) {
-#pragma unroll
-      for (int r = 0; r < RW; ++r) {
-        T acc = xrow[(long long)r * ncol];
-#pragma unroll
-        for (int d = 0; d < Q; ++d) acc -= u[d + 1] * x_next[d][r];
-        const T xi = acc / u[0];
-        xrow[(long long)r * ncol] = xi;
-#pragma unroll
-        for (int d = Q - 1; d > 0; --d) x_next[d][r] = x_next[d - 1][r];
-        x_next[0][r] = xi;
-      }
-    } else {
-      for (int r = 0; r < R; ++r) {
-        T acc = xrow[(long long)r * ncol];
-#pragma unroll
-        for (int d = 0; d < Q; ++d) {
-          const int in = i + 1 + d;  // u[d + 1] is zero beyond the last row
-          if (in < n)
-            acc -= u[d + 1] *
-                   out[(long long)in * rstride + (long long)r * ncol + col];
-        }
-        xrow[(long long)r * ncol] = acc / u[0];
-      }
-    }
-  }
+  for (int j = 0; j <= Q; ++j) up[Q - 1][j] = w[Q + j];
 }
 
-template <typename T, int Q, int RT>
-void launch_qr(const void* bands, const void* rhs, void* out, void* ufac,
-               int n, int R, long long ncol, cudaStream_t stream) {
-  const unsigned blocks = (unsigned)((ncol + THREADS - 1) / THREADS);
-  banded_multi_kernel<T, Q, RT><<<blocks, THREADS, 0, stream>>>(
-      (const T*)bands, (const T*)rhs, (T*)out, (T*)ufac, n, R, ncol);
-}
-
-// the register-window form where it is instantiated and asked for, else
-// the read-back form
 template <typename T, int Q>
-void launch_q(const void* bands, const void* rhs, void* out, void* ufac,
-              int n, int R, long long ncol, bool window,
-              cudaStream_t stream) {
-  if constexpr (Q <= MAX_WINDOW_Q) {
-    if (window && R <= MAX_WINDOW_R) {
-      switch (R) {
-        case 1: launch_qr<T, Q, 1>(bands, rhs, out, ufac, n, R, ncol, stream); return;
-        case 2: launch_qr<T, Q, 2>(bands, rhs, out, ufac, n, R, ncol, stream); return;
-        case 3: launch_qr<T, Q, 3>(bands, rhs, out, ufac, n, R, ncol, stream); return;
-        case 4: launch_qr<T, Q, 4>(bands, rhs, out, ufac, n, R, ncol, stream); return;
+__device__ __forceinline__ void identity_rows(T (&up)[Q][Q + 1]) {
+#pragma unroll
+  for (int t = 0; t < Q; ++t) {
+    up[t][0] = T(1);
+#pragma unroll
+    for (int j = 1; j <= Q; ++j) up[t][j] = T(0);
+  }
+}
+
+// Tile form: C columns, blockDim.x = C G threads.  Shared memory: the
+// mbarriers, then the tile, row i of it (2Q+1 band rows, then R
+// right-hand-side rows, C values each) at i (2Q+1+R) C.
+template <typename T, int Q>
+__global__ void __launch_bounds__(MAX_THREADS)
+    multi_tile_kernel(const __grid_constant__ MultiArgs<T> g) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  constexpr int NB = 2 * Q + 1;
+  const int n = g.n, R = g.R, C = g.C, W = NB + R, H = g.chunk;
+  const long long ncol = g.ncol;
+  const long long col0 = (long long)blockIdx.x * C;
+  const int ncb = (int)(ncol - col0 < C ? ncol - col0 : C);
+  const int tid = threadIdx.x, nth = blockDim.x;
+  unsigned long long* bars = reinterpret_cast<unsigned long long*>(smem_raw);
+  T* tile = reinterpret_cast<T*>(smem_raw + BAR_BYTES);
+  const int nbar = (n + H - 1) / H;
+  const bool bulk = g.copy == 16;
+
+  // ---- 1. stage every row of the tile ---------------------------------
+  if (tid == 0) {
+    for (int j = 0; j < nbar; ++j) bar_init(&bars[j], bulk ? 1 : nth);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    if (bulk)
+      for (int j = 0; j < nbar; ++j) {
+        const int rows = (j + 1) * H < n ? H : n - j * H;
+        bar_arrive_expect(&bars[j], (unsigned)(rows * W * ncb * sizeof(T)));
+      }
+  }
+  __syncthreads();
+  // staged row e = i W + s: band row s of row i, or right-hand side s - NB
+  auto source = [&](int e) {
+    const int i = e / W, s = e - i * W;
+    return s < NB ? g.bands + ((long long)i * NB + s) * ncol + col0
+                  : g.rhs + ((long long)i * R + (s - NB)) * ncol + col0;
+  };
+  if (bulk) {
+    const unsigned bytes = (unsigned)(ncb * sizeof(T));
+    for (int e = tid; e < n * W; e += nth)
+      bulk_copy(tile + (long long)e * C, source(e), bytes, &bars[e / W / H]);
+  } else {
+    const int V = g.copy / (int)sizeof(T);  // values a copy; V divides ncb
+    const int pieces = ncb / V;
+    for (int j = 0; j < nbar; ++j) {
+      const int e0 = j * H * W, e1 = ((j + 1) * H < n ? (j + 1) * H : n) * W;
+      for (int idx = tid; idx < (e1 - e0) * pieces; idx += nth) {
+        const int e = e0 + idx / pieces, v = (idx % pieces) * V;
+        if (g.copy == 8)
+          copy_async<8>(tile + (long long)e * C + v, source(e) + v);
+        else
+          copy_async<4>(tile + (long long)e * C + v, source(e) + v);
+      }
+      copies_arrive(&bars[j]);
+    }
+  }
+  const int c = tid % C, grp = tid / C, G = nth / C;
+  T* col = tile + c;
+#define S(i, s) col[((long long)(i) * W + (s)) * C]
+
+  // ---- 2. the elimination of column c, by the first C threads -----------
+  // the multipliers over the band's first Q entries, the U row over the
+  // rest; a chunk of rows is eliminated as soon as its copies have landed
+  if (grp == 0 && c < ncb) {
+    T up[Q][Q + 1];
+    identity_rows<T, Q>(up);
+    for (int i = 0; i < n; ++i) {
+      if (i % H == 0) bar_wait(&bars[i / H], 0);
+      T w[NB], f[Q];
+#pragma unroll
+      for (int d = 0; d < NB; ++d) w[d] = S(i, d);
+      eliminate<T, Q>(w, f, up);
+#pragma unroll
+      for (int t = 0; t < Q; ++t) S(i, t) = f[t];
+#pragma unroll
+      for (int j = 0; j <= Q; ++j) S(i, Q + j) = w[Q + j];
+    }
+  }
+  __syncthreads();  // every copy has landed, every column is eliminated
+
+  // ---- 3. the substitutions: thread (c, grp) takes right-hand sides grp,
+  // grp + G, ... of column c, the last Q solutions in registers (zero
+  // outside the matrix, where the band's entries are zero too)
+  if (c >= ncb) return;
+  T* o = g.out + col0 + c;
+  for (int r = grp; r < R; r += G) {
+    T win[Q];
+#pragma unroll
+    for (int t = 0; t < Q; ++t) win[t] = T(0);   // y of rows i-Q .. i-1
+    for (int i = 0; i < n; ++i) {
+      T y = S(i, NB + r);
+#pragma unroll
+      for (int t = 0; t < Q; ++t) y = fma_rn(-S(i, t), win[t], y);
+      S(i, NB + r) = y;
+#pragma unroll
+      for (int t = 0; t + 1 < Q; ++t) win[t] = win[t + 1];
+      win[Q - 1] = y;
+    }
+#pragma unroll
+    for (int d = 0; d < Q; ++d) win[d] = T(0);   // x of rows i+1 .. i+Q
+    for (int i = n - 1; i >= 0; --i) {
+      T acc = S(i, NB + r);
+#pragma unroll
+      for (int d = 0; d < Q; ++d) acc = fma_rn(-S(i, Q + 1 + d), win[d], acc);
+      const T x = acc / S(i, Q);
+      o[((long long)i * R + r) * ncol] = x;
+#pragma unroll
+      for (int d = Q - 1; d > 0; --d) win[d] = win[d - 1];
+      win[0] = x;
+    }
+  }
+#undef S
+}
+
+// Stream form.  Shared memory: the U rows of `chunk` rows, row slot h's
+// entry j of column c at (h (Q+1) + j) C + c.
+template <typename T, int Q>
+__global__ void __launch_bounds__(MAX_THREADS)
+    multi_stream_kernel(const __grid_constant__ MultiArgs<T> g) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  constexpr int NB = 2 * Q + 1;
+  const int n = g.n, R = g.R, C = g.C, H = g.chunk;
+  const long long ncol = g.ncol;
+  const long long c = (long long)blockIdx.x * C + threadIdx.x;
+  if (c >= ncol) return;
+  T* ur = reinterpret_cast<T*>(smem_raw) + threadIdx.x;
+  const T* b = g.bands + c;
+  const T* rh = g.rhs + c;
+  T* o = g.out + c;
+#define U(slot, j) ur[((slot) * (Q + 1) + (j)) * C]
+#define OUT(i, r) o[((long long)(i) * R + (r)) * ncol]
+  T up[Q][Q + 1];
+  identity_rows<T, Q>(up);
+  for (int i = 0; i < n; ++i) {
+    T w[NB], f[Q];
+#pragma unroll
+    for (int d = 0; d < NB; ++d) w[d] = b[((long long)i * NB + d) * ncol];
+    eliminate<T, Q>(w, f, up);
+#pragma unroll
+    for (int j = 0; j <= Q; ++j) U(i % H, j) = w[Q + j];
+    for (int r = 0; r < R; ++r) {
+      T y = rh[((long long)i * R + r) * ncol];
+#pragma unroll
+      for (int t = 0; t < Q; ++t)
+        if (i - Q + t >= 0) y = fma_rn(-f[t], OUT(i - Q + t, r), y);
+      OUT(i, r) = y;
+    }
+  }
+  const int last = (n - 1) / H;
+  for (int ch = last; ch >= 0; --ch) {
+    const int lo = ch * H, hi = lo + H < n ? lo + H : n;
+    if (ch < last) {  // rebuild the chunk's U rows
+      identity_rows<T, Q>(up);
+      for (int i = 0; i < hi; ++i) {
+        T w[NB], f[Q];
+#pragma unroll
+        for (int d = 0; d < NB; ++d) w[d] = b[((long long)i * NB + d) * ncol];
+        eliminate<T, Q>(w, f, up);
+        if (i >= lo) {
+#pragma unroll
+          for (int j = 0; j <= Q; ++j) U(i - lo, j) = w[Q + j];
+        }
+      }
+    }
+    for (int i = hi - 1; i >= lo; --i) {
+      T u[Q + 1];
+#pragma unroll
+      for (int j = 0; j <= Q; ++j) u[j] = U(i - lo, j);
+      for (int r = 0; r < R; ++r) {
+        T acc = OUT(i, r);
+#pragma unroll
+        for (int d = 0; d < Q; ++d)
+          if (i + 1 + d < n) acc = fma_rn(-u[d + 1], OUT(i + 1 + d, r), acc);
+        OUT(i, r) = acc / u[0];
       }
     }
   }
-  launch_qr<T, Q, 0>(bands, rhs, out, ufac, n, R, ncol, stream);
+#undef U
+#undef OUT
 }
 
-// Returns cudaGetLastError(), or -1 for a bandwidth outside 1..8 or R < 1.
-// `window`: 0 forces the read-back form (kernels/tune_fused.py times both).
-template <typename T>
-int launch(const void* bands, const void* rhs, void* out, void* ufac, int n,
-           int R, long long ncol, int q, int window, void* stream_) {
-  cudaStream_t stream = (cudaStream_t)stream_;
-  if (R < 1) return -1;
-  const bool win = window != 0;
-  if (n > 0 && ncol > 0) {
-    switch (q) {
-      case 1: launch_q<T, 1>(bands, rhs, out, ufac, n, R, ncol, win, stream); break;
-      case 2: launch_q<T, 2>(bands, rhs, out, ufac, n, R, ncol, win, stream); break;
-      case 3: launch_q<T, 3>(bands, rhs, out, ufac, n, R, ncol, win, stream); break;
-      case 4: launch_q<T, 4>(bands, rhs, out, ufac, n, R, ncol, win, stream); break;
-      case 5: launch_q<T, 5>(bands, rhs, out, ufac, n, R, ncol, win, stream); break;
-      case 6: launch_q<T, 6>(bands, rhs, out, ufac, n, R, ncol, win, stream); break;
-      case 7: launch_q<T, 7>(bands, rhs, out, ufac, n, R, ncol, win, stream); break;
-      case 8: launch_q<T, 8>(bands, rhs, out, ufac, n, R, ncol, win, stream); break;
-      default: return -1;
-    }
+template <typename T, int Q, int FORM>
+int launch_form(const MultiArgs<T>& g, int threads, size_t smem,
+                cudaStream_t stream) {
+  auto kernel = FORM == FORM_TILE ? multi_tile_kernel<T, Q>
+                                  : multi_stream_kernel<T, Q>;
+  // opt in to more than the default 48 KB once per device
+  static bool opted[64] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (smem > 48 * 1024 && dev < 64 && !opted[dev]) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+    if (e != cudaSuccess) return (int)e;
+    opted[dev] = true;
   }
+  const unsigned blocks = (unsigned)((g.ncol + g.C - 1) / g.C);
+  kernel<<<blocks, threads, smem, stream>>>(g);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int Q>
+int launch_q(const MultiArgs<T>& g, int form, int threads, size_t smem,
+             cudaStream_t stream) {
+  return form == FORM_TILE
+             ? launch_form<T, Q, FORM_TILE>(g, threads, smem, stream)
+             : launch_form<T, Q, FORM_STREAM>(g, threads, smem, stream);
+}
+
+inline bool aligned(const void* q, int bytes) {
+  return reinterpret_cast<unsigned long long>(q) % bytes == 0;
+}
+
+// Checks the launch shape (ops/cuda_banded.banded_multi_launch_shape) and
+// the copy width (cuda_banded.copy_width) and launches; -1 for a shape or
+// width the kernel does not take, -2 for more shared memory than a block
+// has.
+template <typename T>
+int launch(const void* bands, const void* rhs, void* out, int n, int R,
+           long long ncol, int q, int form, int cols, int threads, int chunk,
+           int copy, void* stream_) {
+  constexpr int ES = sizeof(T);
+  if (q < 1 || q > MAX_Q || R < 1 || n < 0 || ncol < 0) return -1;
+  if (cols < 32 || cols % 32 || chunk < 1 || threads % cols ||
+      threads < cols || threads > MAX_THREADS)
+    return -1;
+  if (form != FORM_TILE && form != FORM_STREAM) return -1;
+  if (n == 0 || ncol == 0) return 0;
+  if ((ncol + cols - 1) / cols > 2147483647LL) return -1;
+  MultiArgs<T> g;
+  g.bands = (const T*)bands;
+  g.rhs = (const T*)rhs;
+  g.out = (T*)out;
+  g.ncol = ncol; g.n = n; g.R = R; g.C = cols; g.chunk = chunk;
+  g.copy = copy;
+  size_t smem;
+  if (form == FORM_TILE) {
+    if ((n + chunk - 1) / chunk > MAX_BARS) return -1;
+    if (copy == 16 || copy == 8) {
+      if ((ncol * ES) % copy || !aligned(bands, copy) || !aligned(rhs, copy))
+        return -1;
+    } else if (copy != ES) {
+      return -1;
+    }
+    smem = BAR_BYTES + (size_t)n * (2 * q + 1 + R) * cols * ES;
+  } else {
+    if (chunk > n || threads != cols) return -1;
+    smem = (size_t)chunk * (q + 1) * cols * ES;
+  }
+  if (smem > (size_t)SMEM_MAX) return -2;
+  const cudaStream_t st = (cudaStream_t)stream_;
+  switch (q) {
+    case 1: return launch_q<T, 1>(g, form, threads, smem, st);
+    case 2: return launch_q<T, 2>(g, form, threads, smem, st);
+    case 3: return launch_q<T, 3>(g, form, threads, smem, st);
+    case 4: return launch_q<T, 4>(g, form, threads, smem, st);
+    case 5: return launch_q<T, 5>(g, form, threads, smem, st);
+    case 6: return launch_q<T, 6>(g, form, threads, smem, st);
+    case 7: return launch_q<T, 7>(g, form, threads, smem, st);
+    default: return launch_q<T, 8>(g, form, threads, smem, st);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
+// form: 0 tile, 1 stream; cols: columns a block; threads: a multiple of
+// cols (tile: cols x the groups of right-hand sides; stream: cols); chunk:
+// rows an mbarrier (tile) or U rows kept on chip (stream); copy: 16 (bulk
+// copies), 8 or 4 bytes (cp.async; the tile form's staging).  Returns
+// cudaGetLastError(), -1 for a shape or copy width the kernel does not
+// take, -2 for more shared memory than a block has.
 int banded_solve_multi_f32(const void* bands, const void* rhs, void* out,
-                           void* ufac, int n, int R, long long ncol, int q,
-                           int window, void* stream) {
-  return launch<float>(bands, rhs, out, ufac, n, R, ncol, q, window, stream);
+                           int n, int R, long long ncol, int q, int form,
+                           int cols, int threads, int chunk, int copy,
+                           void* stream) {
+  return launch<float>(bands, rhs, out, n, R, ncol, q, form, cols, threads,
+                       chunk, copy, stream);
 }
 
 int banded_solve_multi_f64(const void* bands, const void* rhs, void* out,
-                           void* ufac, int n, int R, long long ncol, int q,
-                           int window, void* stream) {
-  return launch<double>(bands, rhs, out, ufac, n, R, ncol, q, window, stream);
+                           int n, int R, long long ncol, int q, int form,
+                           int cols, int threads, int chunk, int copy,
+                           void* stream) {
+  return launch<double>(bands, rhs, out, n, R, ncol, q, form, cols, threads,
+                        chunk, copy, stream);
 }
 
 }  // extern "C"

@@ -55,32 +55,42 @@
 // segment and one for the a-partner row's segment, the b-partners from the
 // neighbouring segments' end values, one 16-byte store.  A thread works out
 // its segment's rows, partners and edges once; a block stages its band's
-// inverse multiplicities (and `dss_uvw` its edge lines' rotations) once, and
-// takes the link table by value in its arguments.  `dss_uvw` assembles raw
-// W once a node (span and edge lines) into a buffer of its own, then sums
-// it like a scalar; the rotation is applied to the edge contributions
-// only.  Every product and sum is rounded as the plain version's tensor
-// operations round it (no fused multiply-add), so the results equal the
-// plain versions'.
+// inverse multiplicities (and, for the (U, V) pair, its edge lines'
+// rotations) once, and takes the link table by value in its arguments.
+// The template has three compile-time modes, each instantiated for the
+// cubed sphere and for a Cartesian grid (CART), with p = 4 and any p:
+//   scalar  (`dss_scalar`) one field a stage;
+//   vector  (`dss_vector`) U and V a stage, the rotation applied to the
+//           edge contributions only;
+//   uvw     (`dss_uvw`) U, V and three W inputs a stage: raw W is assembled
+//           once a node (span and edge lines) into a buffer of its own,
+//           then summed like a scalar, and U, V are summed as in the vector
+//           mode; its bottom interface is a run of its own.
+// Every product and sum is rounded as the plain version's tensor operations
+// round it (no fused multiply-add), so the results equal the plain
+// versions'.
 //
 // `dss_vector` replaces the TPU kernel `dss_vector` (`_vector_kernel`,
-// dss_pallas.py:242, called at :489).  It is the earlier gather, one thread
-// per output node (k, panel, a, b), b fastest: it finds its node with one
-// division, works out once its element-boundary partners, edge links and
-// rotation coefficients, and walks DSS_LEVELS levels, loads before stores.
-// No kernel here uses atomics or read-modify-write: the result is the same
-// on every run.
+// dss_pallas.py:242, called at :489): the DSS of the covariant (U, V) pair,
+// the band kernel's vector mode.  Bound: bytes (U and V read once and
+// written once): 41.5 MB at (30, 6, 120, 120) float32, 12.4 us.  No kernel
+// here uses atomics or read-modify-write: the result is the same on every
+// run.
 //
 // `dss_state` and `dss_scalar2` replace the TPU kernels `dss_state`
 // (`_state_kernel`) and `dss_scalar2` (`_scalar2_kernel`) of dss_pallas.py:
-// the same gather for all five fields of the state (the (U, V) pair rotated,
-// Rt, Rho and W as scalars, W with one level more) or for two scalar fields
-// of one shape, in one launch.  What a thread works out once (its partners,
-// its links, the rotation, the inverse multiplicity) then serves every field.
+// a gather with one thread per output node (k, panel, a, b), b fastest, for
+// all five fields of the state (the (U, V) pair rotated, Rt, Rho and W as
+// scalars, W with one level more) or for two scalar fields of one shape, in
+// one launch.  A thread finds its node with one division, works out once
+// its element-boundary partners, edge links, rotation and inverse
+// multiplicity, which then serve every field, and walks a few levels,
+// loads before stores.
 // `dss_state` can finish with the Rayleigh term form x <- fac * x + ref, read
 // from ten more fields; that product and sum are rounded separately, as two
-// tensor operations would round them, so the result equals the separate
-// launches followed by the plain finish.  Bound: bytes (each field read once
+// tensor operations would round them, and the (U, V) rotation is rounded as
+// `dss_vector` rounds it, so the result equals the separate launches
+// followed by the plain finish.  Bound: bytes (each field read once
 // and written once): 104 MB at (30 | 31, 6, 120, 120) float32, 31 us (209 MB,
 // 62 us with the Rayleigh finish); 41.5 MB, 12.4 us for `dss_scalar2`.
 //
@@ -95,19 +105,11 @@
 namespace {
 
 constexpr int EDGE_LEFT = 0, EDGE_RIGHT = 1, EDGE_BOTTOM = 2;  // EDGE_TOP = 3
-// Block size and levels per thread of dss_vector; kernels/tune_dss.py sweeps
-// them with -D flags.  (128, 5) was the fastest pair for float32 at (30, 6,
-// 120, 120) on an H100.
-#ifndef DSS_THREADS
-#define DSS_THREADS 128
-#endif
-#ifndef DSS_LEVELS
-#define DSS_LEVELS 5
-#endif
-// ... and for dss_state (five fields a level) and dss_scalar2 (two);
-// kernels/tune_tail.py sweeps them.  (128, 2) and (128, 4) were the fastest
-// of nine pairs in float32 at (30 | 31, 6, 120, 120) on an H100; in float64
-// dss_state was 5 % faster at 1 level and dss_scalar2 10 % faster at 3.
+// Block size and levels per thread of dss_state (five fields a level) and
+// dss_scalar2 (two); kernels/tune_tail.py sweeps them with -D flags.
+// (128, 2) and (128, 4) were the fastest of nine pairs in float32 at
+// (30 | 31, 6, 120, 120) on an H100; in float64 dss_state was 5 % faster at
+// 1 level and dss_scalar2 10 % faster at 3.
 #ifndef STATE_THREADS
 #define STATE_THREADS 128
 #endif
@@ -120,8 +122,6 @@ constexpr int EDGE_LEFT = 0, EDGE_RIGHT = 1, EDGE_BOTTOM = 2;  // EDGE_TOP = 3
 #ifndef S2_LEVELS
 #define S2_LEVELS 4
 #endif
-constexpr int THREADS = DSS_THREADS;
-constexpr int LEVELS = DSS_LEVELS;  // consecutive levels handled by one thread
 
 // The raw nodes whose sum is the pair-summed value at (a, b) of one (A, B)
 // panel slab, as offsets into the slab: the node itself, its coincident
@@ -221,65 +221,24 @@ __device__ __forceinline__ EdgeTerms edge_terms(const int* __restrict__ table,
   return t;
 }
 
-template <typename T, bool CART>
-__global__ void dss_vector_kernel(const T* __restrict__ u,
-                                  const T* __restrict__ v,
-                                  const T* __restrict__ imult,
-                                  const T* __restrict__ rot,
-                                  const int* __restrict__ table,
-                                  T* __restrict__ uo, T* __restrict__ vo,
-                                  int K, int P, int A, int B, int p,
-                                  int nlinks, int wrap) {
-  const int node = blockIdx.x * blockDim.x + threadIdx.x;
-  if (node >= A * B) return;
-  const int a = node / B;
-  const int b = node - a * B;
-  const int pa = blockIdx.y;
-  const long long slab = (long long)A * B;
-
-  const PairNodes own = pair_nodes<CART>(a, b, A, B, p, wrap);
-  const EdgeTerms et =
-      CART ? EdgeTerms{} : edge_terms(table, pa, a, b, A, B, p);
-  const T w = imult[pa * slab + node];
-  // rot is (4, nlinks, A): [r00, r01, r10, r11] at the destination position
-  T r[2][4] = {};
-#pragma unroll
-  for (int n = 0; n < 2; ++n) {
-    if (n < et.count) {
-      const long long base = (long long)et.link[n] * A + et.pos[n];
-      const long long stride = (long long)nlinks * A;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) r[n][c] = rot[base + c * stride];
-    }
-  }
-
-  const int k0 = blockIdx.z * LEVELS;
-  T su[LEVELS], sv[LEVELS];
-#pragma unroll
-  for (int kk = 0; kk < LEVELS; ++kk) {
-    const int k = min(k0 + kk, K - 1);
-    const long long off = (long long)k * P * slab;
-    su[kk] = pair_sum(u + off + pa * slab, own);
-    sv[kk] = pair_sum(v + off + pa * slab, own);
-#pragma unroll
-    for (int n = 0; n < 2; ++n) {
-      if (n < et.count) {
-        const T lu = pair_sum(u + off + et.panel[n] * slab, et.nodes[n]);
-        const T lv = pair_sum(v + off + et.panel[n] * slab, et.nodes[n]);
-        su[kk] += r[n][0] * lu + r[n][1] * lv;
-        sv[kk] += r[n][2] * lu + r[n][3] * lv;
-      }
-    }
-  }
-#pragma unroll
-  for (int kk = 0; kk < LEVELS; ++kk) {
-    const int k = k0 + kk;
-    if (k < K) {
-      const long long o = ((long long)k * P + pa) * slab + node;
-      uo[o] = su[kk] * w;
-      vo[o] = sv[kk] * w;
-    }
-  }
+// Rounded as one tensor operation rounds it (never contracted to an FMA).
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float div_rn(float a, float b) {
+  return __fdiv_rn(a, b);
+}
+__device__ __forceinline__ double div_rn(double a, double b) {
+  return __ddiv_rn(a, b);
 }
 
 // The pair-summed value at the thread's own node plus its edge partners'.
@@ -351,13 +310,16 @@ __global__ void dss_state_kernel(StateArgs<T> g, const T* __restrict__ imult,
     const long long off = (long long)k * lvl;
     s[0][kk] = pair_sum(g.x[0] + off + pa * slab, own);
     s[1][kk] = pair_sum(g.x[1] + off + pa * slab, own);
+    // the rotation rounded as dss_vector and the plain version round it
 #pragma unroll
     for (int n = 0; n < 2; ++n) {
       if (n < et.count) {
         const T lu = pair_sum(g.x[0] + off + et.panel[n] * slab, et.nodes[n]);
         const T lv = pair_sum(g.x[1] + off + et.panel[n] * slab, et.nodes[n]);
-        s[0][kk] += r[n][0] * lu + r[n][1] * lv;
-        s[1][kk] += r[n][2] * lu + r[n][3] * lv;
+        s[0][kk] = add_rn(s[0][kk],
+                          add_rn(mul_rn(r[n][0], lu), mul_rn(r[n][1], lv)));
+        s[1][kk] = add_rn(s[1][kk],
+                          add_rn(mul_rn(r[n][2], lu), mul_rn(r[n][3], lv)));
       }
     }
     s[2][kk] = gather_scalar(g.x[2] + off, slab, pa, own, et);
@@ -481,19 +443,29 @@ int launch_scalar2(const void* x1, const void* x2, const void* imult,
 }
 
 // ---------------------------------------------------------------------------
-// dss_scalar and dss_uvw: element-row bands staged in shared memory
+// dss_scalar, dss_vector and dss_uvw: element-row bands staged in shared
+// memory
 // ---------------------------------------------------------------------------
 
 // Blocks of BAND_THREADS an SM must hold (__launch_bounds__: caps the
-// registers a thread) for dss_scalar and for dss_uvw; kernels/tune_dss.py
-// sweeps them with -D flags.  2 (at most 64 registers) made dss_scalar
-// faster at the flagship on an H100; dss_uvw spills at 64.
+// registers a thread) for dss_scalar, dss_uvw and dss_vector;
+// kernels/tune_dss.py sweeps them with -D flags.  2 (at most 64 registers)
+// made dss_scalar faster at the flagship on an H100; dss_uvw spills at 64.
 #ifndef BAND_MIN_BLOCKS
 #define BAND_MIN_BLOCKS 2
 #endif
 #ifndef BAND_MIN_BLOCKS_UVW
 #define BAND_MIN_BLOCKS_UVW 1
 #endif
+#ifndef BAND_MIN_BLOCKS_VECTOR
+#define BAND_MIN_BLOCKS_VECTOR 1
+#endif
+// the modes of the band template: a stage holds x (scalar); U, V (vector);
+// U, V and three W inputs (uvw)
+constexpr int M_SCALAR = 0, M_VECTOR = 1, M_UVW = 2;
+__host__ __device__ constexpr int band_fields(int mode) {
+  return mode == M_UVW ? 5 : (mode == M_VECTOR ? 2 : 1);
+}
 constexpr int BAR_BYTES = 64;      // the ring's mbarriers (8 bytes each)
 constexpr int MAX_RING = 4;
 constexpr int MAX_PANELS = 6;      // of a grid with edge links
@@ -505,7 +477,7 @@ constexpr size_t SMEM_MAX = 232448;
 // defined; here they are empty.
 #ifndef DSS_PHASES
 #define DSS_PHASE_BEGIN()
-#define DSS_LAP(i)
+#define DSS_LAP(i) do {} while (0)
 #define DSS_PHASE_END()
 #endif
 
@@ -554,26 +526,6 @@ __device__ __forceinline__ void copies_arrive(unsigned long long* bar) {
                    smem_addr(bar)) : "memory");
 }
 
-// Rounded as one tensor operation rounds it (never contracted to an FMA).
-__device__ __forceinline__ float add_rn(float a, float b) {
-  return __fadd_rn(a, b);
-}
-__device__ __forceinline__ double add_rn(double a, double b) {
-  return __dadd_rn(a, b);
-}
-__device__ __forceinline__ float mul_rn(float a, float b) {
-  return __fmul_rn(a, b);
-}
-__device__ __forceinline__ double mul_rn(double a, double b) {
-  return __dmul_rn(a, b);
-}
-__device__ __forceinline__ float div_rn(float a, float b) {
-  return __fdiv_rn(a, b);
-}
-__device__ __forceinline__ double div_rn(double a, double b) {
-  return __ddiv_rn(a, b);
-}
-
 // p values from `src` (16-byte accesses at p = 4: the caller's offsets keep
 // them aligned) and to `dst`.
 template <typename T, int PP>
@@ -601,8 +553,9 @@ __device__ __forceinline__ void store_seg(T* dst, const T* v, int p) {
   }
 }
 
-// What both band kernels take.  x: scalar x[0]; dss_uvw U, V, bw1, bw2 (null
-// for a single base), dW.  out: scalar out[0]; dss_uvw U, V, W.
+// What the band kernels take.  x: scalar x[0]; vector U, V; uvw U, V, bw1,
+// bw2 (null for a single base), dW.  out: scalar out[0]; vector U, V; uvw
+// U, V, W.
 template <typename T>
 struct BandArgs {
   const T* x[5];
@@ -619,8 +572,8 @@ struct BandArgs {
   int rows, levels, ring, copy;  // band rows, steps a block, stages, bytes
   // shared memory layout, in values after the mbarriers: a field's span and
   // its stage slot (span, then the edge lines), then after the ring (and
-  // dss_uvw's W buffer) the band's inverse multiplicities and dss_uvw's edge
-  // rotations (cubed sphere)
+  // dss_uvw's W buffer) the band's inverse multiplicities and the (U, V)
+  // pair's edge rotations (vector and uvw, cubed sphere)
   int span, fs, im_at, rot_at;
 };
 
@@ -805,15 +758,15 @@ __device__ __forceinline__ void copy_run(int copy, void* dst, const void* src,
 }
 
 // The level of each field that step k stages (null: none), all panels.
-// Field slot f of a stage: dss_scalar x; dss_uvw U, V and three W inputs
-// (bw1, bw2, dW, or at the bottom interface cax0, cbx0, cxx0); `uv_only`: U
-// and V of level k alone.
-template <typename T, bool UVW>
+// Field slot f of a stage: dss_scalar x; dss_vector U, V; dss_uvw U, V and
+// three W inputs (bw1, bw2, dW, or at the bottom interface cax0, cbx0,
+// cxx0); `uv_only`: U and V of level k alone.
+template <typename T, int M>
 __device__ __forceinline__ void step_fields(const BandArgs<T>& g, int k,
                                             bool uv_only,
-                                            const T* (&src)[UVW ? 5 : 1]) {
+                                            const T* (&src)[band_fields(M)]) {
   const long long lvl = (long long)k * g.P * g.A * g.B;
-  if constexpr (UVW) {
+  if constexpr (M == M_UVW) {
     const bool uv = k < g.K;
     src[0] = uv ? g.x[0] + lvl : nullptr;
     src[1] = uv ? g.x[1] + lvl : nullptr;
@@ -827,20 +780,20 @@ __device__ __forceinline__ void step_fields(const BandArgs<T>& g, int k,
       src[4] = uv ? g.x[4] + lvl : nullptr;   // dW is masked at the top
     }
   } else {
-    src[0] = g.x[0] + lvl;
+    for (int f = 0; f < band_fields(M); ++f) src[f] = g.x[f] + lvl;
   }
 }
 
 // The spans of step k into stage `st` on its mbarrier `bar`, with thread 0's
 // arrival (announcing the bulk copies' bytes).
-template <typename T, bool UVW>
+template <typename T, int M>
 __device__ void issue_spans(const BandArgs<T>& g, const Band& bd, int k,
                             T* st, unsigned long long* bar, bool uv_only) {
-  constexpr int NF = UVW ? 5 : 1;
+  constexpr int NF = band_fields(M);
   const int B = g.B, TA = g.rows;
   const long long slab = (long long)g.A * B;
   const T* src[NF];
-  step_fields<T, UVW>(g, k, uv_only, src);
+  step_fields<T, M>(g, k, uv_only, src);
   const int row = B * (int)sizeof(T);
   if (threadIdx.x == 0) {
     unsigned bytes = 0;
@@ -885,12 +838,12 @@ __device__ __forceinline__ bool edge_item(int e, int a0, int TA, int A,
 // A block's first copies: the band's inverse multiplicities (on BAR_CONST,
 // with thread 0's arrival) and the spans of its first `npro` steps (and of
 // U, V of level 1 for the bottom interface).
-template <typename T, bool UVW>
+template <typename T, int M>
 __device__ __forceinline__ void stage_first(const BandArgs<T>& g,
                                             const Band& bd, T* ring, T* ims,
                                             unsigned long long* bars, int k0,
                                             int npro, bool extra) {
-  constexpr int NF = UVW ? 5 : 1;
+  constexpr int NF = band_fields(M);
   const int imb = g.rows * g.B * (int)sizeof(T);
   if (threadIdx.x == 0) {
     if (g.copy == 16) bar_arrive_expect(&bars[BAR_CONST], imb);
@@ -899,20 +852,20 @@ __device__ __forceinline__ void stage_first(const BandArgs<T>& g,
   copy_run(g.copy, ims, g.imult + (blockIdx.y * g.A + bd.a0) * g.B, imb,
            &bars[BAR_CONST]);
   for (int j = 0; j < npro; ++j)
-    issue_spans<T, UVW>(g, bd, k0 + j, ring + j * NF * g.fs, &bars[j], false);
-  if (extra) issue_spans<T, UVW>(g, bd, 1, ring + NF * g.fs, &bars[1], true);
+    issue_spans<T, M>(g, bd, k0 + j, ring + j * NF * g.fs, &bars[j], false);
+  if (extra) issue_spans<T, M>(g, bd, 1, ring + NF * g.fs, &bars[1], true);
 }
 
 // The neighbour panels' edge lines of step k into stage `st` (cubed
 // sphere), then every thread's arrival on `bar` once its copies are done.
-template <typename T, bool CART, bool UVW>
+template <typename T, bool CART, int M>
 __device__ void issue_edges(const BandArgs<T>& g, const Band& bd, int k,
                             T* st, unsigned long long* bar, bool uv_only) {
   if constexpr (!CART) {
-    constexpr int NF = UVW ? 5 : 1;
+    constexpr int NF = band_fields(M);
     const int A = g.A, B = g.B, TA = g.rows;
     const T* src[NF];
-    step_fields<T, UVW>(g, k, uv_only, src);
+    step_fields<T, M>(g, k, uv_only, src);
     for (int e = threadIdx.x; e < 2 * (TA + 2) + 2 * A; e += blockDim.x) {
       int d, pos;
       if (!edge_item(e, bd.a0, TA, A, d, pos)) continue;
@@ -984,10 +937,10 @@ __device__ __forceinline__ void assemble_w(const BandArgs<T>& g, const T* st,
   for (; i < n; i += blockDim.x) raw_w<T, 1>(g, st, nx, k, i, w + i);
 }
 
-// One segment of step k: pair sums from the stage `st` (dss_uvw: U, V from
-// the stage, W from the assembled `wbuf`), edge terms, the inverse
-// multiplicities `ims`, stores.
-template <typename T, bool CART, int PP, bool UVW>
+// One segment of step k: pair sums from the stage `st` (dss_vector: U, V;
+// dss_uvw: U, V from the stage, W from the assembled `wbuf`), edge terms,
+// the inverse multiplicities `ims`, stores.
+template <typename T, bool CART, int PP, int M>
 __device__ __forceinline__ void band_work(const BandArgs<T>& g, const Seg& q,
                                           const T* st, const T* wbuf,
                                           const T* ims, const T* rots, int a0,
@@ -999,7 +952,7 @@ __device__ __forceinline__ void band_work(const BandArgs<T>& g, const Seg& q,
   const long long out = (long long)k * g.P * A * B + q.out;
   T s[NMAX], w[NMAX];
   load_seg<T, PP>(ims + (q.a - a0) * B + q.b0, w, p);
-  if constexpr (UVW) {
+  if constexpr (M != M_SCALAR) {
     if (k < g.K) {
       T sv[NMAX];
       pair_sums<T, PP, NMAX>(st, q, p, s);
@@ -1015,11 +968,13 @@ __device__ __forceinline__ void band_work(const BandArgs<T>& g, const Seg& q,
       store_seg<T, PP>(g.out[1] + out, sv, p);
     }
   }
-  const T* F = UVW ? wbuf : st;
-  pair_sums<T, PP, NMAX>(F, q, p, s);
-  if constexpr (!CART) edges_scalar(F + g.span, q, a0, TA, A, p, s);
-  for (int i = 0; i < p; ++i) s[i] = mul_rn(s[i], w[i]);
-  store_seg<T, PP>(g.out[UVW ? 2 : 0] + out, s, p);
+  if constexpr (M != M_VECTOR) {
+    const T* F = M == M_UVW ? wbuf : st;
+    pair_sums<T, PP, NMAX>(F, q, p, s);
+    if constexpr (!CART) edges_scalar(F + g.span, q, a0, TA, A, p, s);
+    for (int i = 0; i < p; ++i) s[i] = mul_rn(s[i], w[i]);
+    store_seg<T, PP>(g.out[M == M_UVW ? 2 : 0] + out, s, p);
+  }
 }
 
 // Grid: (bands of one panel, panel, runs of `levels` steps; dss_uvw's first
@@ -1028,15 +983,18 @@ __device__ __forceinline__ void band_work(const BandArgs<T>& g, const Seg& q,
 // thread t owns segment t (and t + blockDim, ... where a band has more
 // segments than the block threads).  Before its first step a block stages
 // its constants once: the link table (cubed sphere), which the edge-line
-// gathers need, the band's inverse multiplicities and dss_uvw's edge
-// rotations.
-template <typename T, bool CART, int PP, bool UVW>
-__global__ void __launch_bounds__(BAND_THREADS,
-                                  UVW ? BAND_MIN_BLOCKS_UVW : BAND_MIN_BLOCKS)
+// gathers need, the band's inverse multiplicities and the (U, V) pair's
+// edge rotations.
+template <typename T, bool CART, int PP, int M>
+__global__ void __launch_bounds__(
+    BAND_THREADS, M == M_UVW ? BAND_MIN_BLOCKS_UVW
+                             : (M == M_VECTOR ? BAND_MIN_BLOCKS_VECTOR
+                                              : BAND_MIN_BLOCKS))
     band_kernel(const __grid_constant__ BandArgs<T> g) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   DSS_PHASE_BEGIN();
-  constexpr int NF = UVW ? 5 : 1;
+  constexpr int NF = band_fields(M);
+  constexpr bool UVW = M == M_UVW;
   const int p = PP > 0 ? PP : g.p;
   const int A = g.A, B = g.B, TA = g.rows, R = g.ring;
   const int nedge = CART ? 0 : 2 * (TA + 2) + 2 * A;
@@ -1047,7 +1005,7 @@ __global__ void __launch_bounds__(BAND_THREADS,
   T* ring = reinterpret_cast<T*>(smem_raw + BAR_BYTES);
   T* wbuf = ring + R * NF * g.fs;  // dss_uvw: the assembled W
   T* ims = ring + g.im_at;         // the band's inverse multiplicities
-  T* rots = ring + g.rot_at;       // dss_uvw: the edge lines' rotations
+  T* rots = ring + g.rot_at;       // the (U, V) edge lines' rotations
   const Band bd = make_band<CART>(blockIdx.x * TA, TA, A, g.wrap);
   const int npro = min(R, nk);
   const bool extra = UVW && k0 == 0;  // the bottom interface reads U, V of
@@ -1057,21 +1015,22 @@ __global__ void __launch_bounds__(BAND_THREADS,
     bar_init(&bars[BAR_CONST], blockDim.x + 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
+  DSS_LAP(9);
   // with bulk copies thread 0 issues the first copies before the block
   // meets, else every thread after
   const bool bulk = g.copy == 16;
   if (bulk && threadIdx.x == 0)
-    stage_first<T, UVW>(g, bd, ring, ims, bars, k0, npro, extra);
+    stage_first<T, M>(g, bd, ring, ims, bars, k0, npro, extra);
   DSS_LAP(0);
   __syncthreads();
   DSS_LAP(1);
-  if (!bulk) stage_first<T, UVW>(g, bd, ring, ims, bars, k0, npro, extra);
+  if (!bulk) stage_first<T, M>(g, bd, ring, ims, bars, k0, npro, extra);
   for (int j = 0; j < npro; ++j)
-    issue_edges<T, CART, UVW>(g, bd, k0 + j, ring + j * NF * g.fs, &bars[j],
-                              false);
+    issue_edges<T, CART, M>(g, bd, k0 + j, ring + j * NF * g.fs, &bars[j],
+                            false);
   if (extra)
-    issue_edges<T, CART, UVW>(g, bd, 1, ring + NF * g.fs, &bars[1], true);
-  if (UVW && !CART)
+    issue_edges<T, CART, M>(g, bd, 1, ring + NF * g.fs, &bars[1], true);
+  if (M != M_SCALAR && !CART)
     for (int e = threadIdx.x; e < nedge; e += blockDim.x) {
       int d, pos;
       if (!edge_item(e, bd.a0, TA, A, d, pos)) continue;
@@ -1095,7 +1054,8 @@ __global__ void __launch_bounds__(BAND_THREADS,
     // the bottom interface reads U, V of level 1 from the next stage
     if (UVW && k == 0) bar_wait(&bars[(j + 1) % R], ((j + 1) / R) & 1);
     if (j == 0) bar_wait(&bars[BAR_CONST], 0);
-    DSS_LAP(4);
+    if (j == 0) DSS_LAP(8);  // the first level's wait apart
+    else DSS_LAP(4);
     if constexpr (UVW) {
       assemble_w<T, CART, PP>(g, st, ring + ((j + 1) % R) * NF * g.fs, k,
                               wbuf);
@@ -1103,22 +1063,22 @@ __global__ void __launch_bounds__(BAND_THREADS,
     }
     DSS_LAP(5);
     if (threadIdx.x < nseg)
-      band_work<T, CART, PP, UVW>(g, mine, st, wbuf, ims, rots, bd.a0, k);
+      band_work<T, CART, PP, M>(g, mine, st, wbuf, ims, rots, bd.a0, k);
     for (int s = threadIdx.x + blockDim.x; s < nseg; s += blockDim.x)
-      band_work<T, CART, PP, UVW>(g, make_seg<CART, PP>(g, bd.a0, s), st,
-                                  wbuf, ims, rots, bd.a0, k);
+      band_work<T, CART, PP, M>(g, make_seg<CART, PP>(g, bd.a0, s), st,
+                                wbuf, ims, rots, bd.a0, k);
     DSS_LAP(6);
     __syncthreads();  // the stage is read: refill it
     if (j + R < nk) {
-      issue_spans<T, UVW>(g, bd, k + R, st, &bars[slot], false);
-      issue_edges<T, CART, UVW>(g, bd, k + R, st, &bars[slot], false);
+      issue_spans<T, M>(g, bd, k + R, st, &bars[slot], false);
+      issue_edges<T, CART, M>(g, bd, k + R, st, &bars[slot], false);
     }
     DSS_LAP(7);
   }
   DSS_PHASE_END();
 }
 
-template <typename T, bool CART, int PP, bool UVW>
+template <typename T, bool CART, int PP, int M>
 int launch_band_one(const BandArgs<T>& g, dim3 grid, int threads, size_t smem,
                     cudaStream_t st) {
   // opt in to more than the default 48 KB once per device
@@ -1127,12 +1087,12 @@ int launch_band_one(const BandArgs<T>& g, dim3 grid, int threads, size_t smem,
   cudaGetDevice(&dev);
   if (smem > 48 * 1024 && dev < 64 && !opted[dev]) {
     const cudaError_t e = cudaFuncSetAttribute(
-        band_kernel<T, CART, PP, UVW>,
+        band_kernel<T, CART, PP, M>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_MAX);
     if (e != cudaSuccess) return (int)e;
     opted[dev] = true;
   }
-  band_kernel<T, CART, PP, UVW><<<grid, threads, smem, st>>>(g);
+  band_kernel<T, CART, PP, M><<<grid, threads, smem, st>>>(g);
   return (int)cudaGetLastError();
 }
 
@@ -1143,9 +1103,10 @@ inline bool aligned(const void* q, int bytes) {
 // Checks the launch shape (fast/dss_cuda.dss_launch_shape) and the copy
 // width (dss_cuda.copy_width) and launches; -1 for a shape or a width the
 // kernel does not take, -2 for more shared memory than a block has.
-template <typename T, bool UVW>
+template <typename T, int M>
 int launch_band(BandArgs<T> g, int threads, void* stream) {
-  constexpr int NF = UVW ? 5 : 1;
+  constexpr int NF = band_fields(M);
+  constexpr bool UVW = M == M_UVW;
   constexpr int ES = sizeof(T);
   const int nsteps = UVW ? g.K + 1 : g.K;
   if (UVW && g.K < 2) return -1;  // the bottom row reads levels 0 and 1
@@ -1166,7 +1127,7 @@ int launch_band(BandArgs<T> g, int threads, void* stream) {
   } else if (g.copy != ES) {
     return -1;
   }
-  for (int f = 0; f < (UVW ? 3 : 1); ++f)
+  for (int f = 0; f < (UVW ? 3 : NF); ++f)
     if (!aligned(g.out[f], p == 4 ? 16 : ES)) return -1;
   if (g.nlinks && (g.nlinks != 4 * g.P || g.P > MAX_PANELS)) return -1;
   // the layout of BandArgs, each part rounded up to 16 bytes
@@ -1177,7 +1138,8 @@ int launch_band(BandArgs<T> g, int threads, void* stream) {
   g.im_at = (g.ring * NF + (UVW ? 1 : 0)) * g.fs;
   g.rot_at = g.im_at + up(TA * g.B);
   const size_t smem =
-      BAR_BYTES + (size_t)(g.rot_at + (UVW ? up(4 * edge) : 0)) * ES;
+      BAR_BYTES +
+      (size_t)(g.rot_at + (M != M_SCALAR ? up(4 * edge) : 0)) * ES;
   if (smem > SMEM_MAX) return -2;
   // runs of `levels` steps (dss_uvw: the bottom interface, then K steps)
   const int runs = (g.K + g.levels - 1) / g.levels + (UVW ? 1 : 0);
@@ -1187,8 +1149,8 @@ int launch_band(BandArgs<T> g, int threads, void* stream) {
   int err = 0;
   by_grid(g.nlinks, [&](auto cart) {
     constexpr bool C = decltype(cart)::value;
-    err = p == 4 ? launch_band_one<T, C, 4, UVW>(g, grid, threads, smem, st)
-                 : launch_band_one<T, C, 0, UVW>(g, grid, threads, smem, st);
+    err = p == 4 ? launch_band_one<T, C, 4, M>(g, grid, threads, smem, st)
+                 : launch_band_one<T, C, 0, M>(g, grid, threads, smem, st);
   });
   return err;
 }
@@ -1207,7 +1169,7 @@ int launch_scalar(const void* x, const void* imult, const void* table,
   g.K = K; g.P = P; g.A = A; g.B = B; g.p = p; g.nlinks = nlinks;
   g.wrap = wrap; g.rows = rows; g.levels = levels; g.ring = ring;
   g.copy = copy;
-  return launch_band<T, false>(g, threads, stream);
+  return launch_band<T, M_SCALAR>(g, threads, stream);
 }
 
 template <typename T>
@@ -1234,25 +1196,28 @@ int launch_uvw(const void* u, const void* v, const void* bw1, const void* bw2,
   g.K = nz; g.P = P; g.A = A; g.B = B; g.p = p; g.nlinks = nlinks;
   g.wrap = wrap; g.rows = rows; g.levels = levels; g.ring = ring;
   g.copy = copy;
-  return launch_band<T, true>(g, threads, stream);
+  return launch_band<T, M_UVW>(g, threads, stream);
 }
 
 template <typename T>
 int launch_vector(const void* u, const void* v, const void* imult,
                   const void* rot, const void* table, void* uo, void* vo,
                   int K, int P, int A, int B, int p, int nlinks, int wrap,
+                  int rows, int levels, int threads, int ring, int copy,
                   void* stream) {
-  if (K > 0 && P > 0 && A > 0 && B > 0) {
-    const dim3 grid((unsigned)((A * B + THREADS - 1) / THREADS), (unsigned)P,
-                    (unsigned)((K + LEVELS - 1) / LEVELS));
-    by_grid(nlinks, [&](auto cart) {
-      dss_vector_kernel<T, decltype(cart)::value>
-          <<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-              (const T*)u, (const T*)v, (const T*)imult, (const T*)rot,
-              (const int*)table, (T*)uo, (T*)vo, K, P, A, B, p, nlinks, wrap);
-    });
-  }
-  return (int)cudaGetLastError();
+  BandArgs<T> g = {};
+  g.x[0] = (const T*)u;
+  g.x[1] = (const T*)v;
+  g.out[0] = (T*)uo;
+  g.out[1] = (T*)vo;
+  g.imult = (const T*)imult;
+  g.rot = (const T*)rot;
+  if (nlinks > 0 && nlinks <= 4 * MAX_PANELS)
+    for (int i = 0; i < 4 * nlinks; ++i) g.table[i] = ((const int*)table)[i];
+  g.K = K; g.P = P; g.A = A; g.B = B; g.p = p; g.nlinks = nlinks;
+  g.wrap = wrap; g.rows = rows; g.levels = levels; g.ring = ring;
+  g.copy = copy;
+  return launch_band<T, M_VECTOR>(g, threads, stream);
 }
 
 }  // namespace
@@ -1282,20 +1247,26 @@ int dss_scalar_f64(const void* x, const void* imult, const void* table,
                                stream);
 }
 
+// Launch shape and returns as dss_scalar's; rot: (4, nlinks, A) rotation
+// coefficients along each destination edge (unread without links).
 int dss_vector_f32(const void* u, const void* v, const void* imult,
                    const void* rot, const void* table, void* uo, void* vo,
                    int K, int P, int A, int B, int p, int nlinks, int wrap,
+                   int rows, int levels, int threads, int ring, int copy,
                    void* stream) {
   return launch_vector<float>(u, v, imult, rot, table, uo, vo, K, P, A, B, p,
-                              nlinks, wrap, stream);
+                              nlinks, wrap, rows, levels, threads, ring, copy,
+                              stream);
 }
 
 int dss_vector_f64(const void* u, const void* v, const void* imult,
                    const void* rot, const void* table, void* uo, void* vo,
                    int K, int P, int A, int B, int p, int nlinks, int wrap,
+                   int rows, int levels, int threads, int ring, int copy,
                    void* stream) {
-  return launch_vector<double>(u, v, imult, rot, table, uo, vo, K, P, A, B, p,
-                               nlinks, wrap, stream);
+  return launch_vector<double>(u, v, imult, rot, table, uo, vo, K, P, A, B,
+                               p, nlinks, wrap, rows, levels, threads, ring,
+                               copy, stream);
 }
 
 // bw2 may be null (single base).  Launch shape and returns as dss_scalar's;

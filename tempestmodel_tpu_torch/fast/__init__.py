@@ -17,15 +17,21 @@ A, B)``.  Execution shape:
   shared-memory tiles, the tendencies, the RK base combination and the axpy;
   on the unfused path the same stage is plain tensor code with dense
   block-diagonal ``(A, A)`` GEMMs (``engine.horizontal_tendency``);
-- **DSS as hand-written CUDA kernels** (``dss_cuda``): a gather with one
-  thread per node, one launch per field (the (U, V) pair in one launch
-  with the covariant rotation; on the fused path W joins that launch with
-  the stage's W finish folded in);
+- **DSS as hand-written CUDA kernels** (``dss_cuda``), one launch per
+  field: ``dss_scalar``, ``dss_vector`` (the (U, V) pair with the covariant
+  rotation) and ``dss_uvw`` (on the fused path W joins the pair with the
+  stage's W finish folded in) are the three modes of one band kernel, which
+  stages bands of whole element rows and the neighbour panels' edge lines
+  in shared memory by asynchronous copies and sums there, a thread an
+  element-row segment; the one-launch groupings ``dss_state`` and
+  ``dss_scalar2`` are gathers with one thread per node;
 - **the implicit solve** (``implicit``): on the fused path each Newton
-  iteration is one hand-written kernel (``implicit_cuda``: residual,
-  analytic banded Jacobian and banded LU, one thread per column); on the
-  unfused path the residual and the Jacobian are plain tensor code and the
-  solve is the hand-written banded LU kernel (``ops/cuda_banded``).
+  iteration is one hand-written kernel (``implicit_cuda``: a tile of
+  columns staged in shared memory, the residual and the analytic banded
+  Jacobian assembled there level-parallel, then the banded LU one thread a
+  column on chip); on the unfused path the residual and the Jacobian are
+  plain tensor code and the solve is the hand-written banded LU kernel
+  (``ops/cuda_banded``).
 
 - **the nu4 hyperdiffusion tail** as two hand-written kernels
   (``hyper_cuda``), one per Laplacian pass, around the full-state DSS; plain
@@ -33,9 +39,11 @@ A, B)``.  Execution shape:
 - **tracers** (``tracers``): advected inside the stage kernel on the mass
   fluxes that carry Rho, DSSed as one flat field in one ``dss_scalar`` launch,
   updated in the implicit half step by one hand-written
-  multi-right-hand-side banded kernel (``ops/cuda_banded``: one elimination
-  per column for all species); their Laplacian, the two positivity filters
-  and the assembly of the column systems are plain tensor code.
+  multi-right-hand-side banded kernel (``ops/cuda_banded``: a tile of
+  columns staged in shared memory, one elimination per column for all
+  species, the U-factor and the forward solutions kept on chip); their
+  Laplacian, the two positivity filters and the assembly of the column
+  systems are plain tensor code.
 
 ``make_fast_step`` chooses between the two paths by predicates on the
 configuration (``fused=False`` forces the unfused one) and runs eagerly;

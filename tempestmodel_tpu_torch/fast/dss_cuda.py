@@ -15,13 +15,14 @@ differ); ``wrap`` = (along a, along b) then adds the periodic wrap-sum: node
 0 and node A-1 (B-1) of a periodic axis are one pair, as in
 ``grid/cartesian._pair_sum_axis``.
 
-``dss_scalar`` and ``dss_uvw`` stage bands of whole element rows in shared
-memory (bulk asynchronous copies where spans and pointers allow 16 bytes,
-else ``cp.async`` of 8 or 4 bytes; ``copy_width``) and sum there, a thread
-an element-row segment; their launch shape comes from ``dss_launch_shape``.
-The other kernels are gathers with one thread per output node.  See the
-note in ``csrc/dss.cu`` for the designs and the bound on the card.  Fields
-are z-first ``(K, 6, A, B)``.
+``dss_scalar``, ``dss_vector`` and ``dss_uvw`` are the three modes of one
+band kernel: they stage bands of whole element rows in shared memory (bulk
+asynchronous copies where spans and pointers allow 16 bytes, else
+``cp.async`` of 8 or 4 bytes; ``copy_width``) and sum there, a thread an
+element-row segment; their launch shape comes from ``dss_launch_shape``.
+``dss_state`` and ``dss_scalar2`` are gathers with one thread per output
+node.  See the note in ``csrc/dss.cu`` for the designs and the bound on the
+card.  Fields are z-first ``(K, 6, A, B)``.
 
 ``dss_uvw`` is the DSS of U, V and W in one launch with the explicit
 stage's W finish folded in (``w_finish_plain`` says what that is): W is
@@ -43,6 +44,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import re
 from typing import NamedTuple
 
 import numpy as np
@@ -163,7 +165,7 @@ def dss_state_plain(d, imult, rot, links, p: int, rayleigh=None,
 
 
 # ---------------------------------------------------------------------------
-# launch shape of the band kernels (dss_scalar, dss_uvw)
+# launch shape of the band kernels (dss_scalar, dss_vector, dss_uvw)
 # ---------------------------------------------------------------------------
 
 SMS = 132                  # streaming multiprocessors of an H100 SXM
@@ -172,16 +174,24 @@ MAX_THREADS = 512          # the kernels' __launch_bounds__
 MAX_P = 16                 # most nodes an element row (generic instantiation)
 BAR_BYTES = 64             # the ring's mbarriers
 MAX_RING = 4
-# the rule's targets by (dss_uvw, bytes a value), fitted to the sweeps of
-# kernels/tune_dss.py on an H100: segments a block at most, and blocks a
-# launch at least
-SEGMENTS = {(False, 4): 640, (False, 8): 240, (True, 4): 720, (True, 8): 720}
-TARGET_BLOCKS = {(False, 4): 330, (False, 8): 450, (True, 4): 450,
-                 (True, 8): 600}
+# fields a stage of each mode holds: dss_scalar, dss_vector (U, V), dss_uvw
+# (U, V and three W inputs)
+NFIELDS = {"scalar": 1, "vector": 2, "uvw": 5}
+# the rule's targets by (fields a stage, bytes a value), fitted to the
+# sweeps of kernels/tune_dss.py on an H100: segments a block at most,
+# blocks a launch at least when the band is chosen, and (where it differs)
+# when the levels a block are: the float32 vector mode was fastest at the
+# flagship with runs of 5 levels (216 blocks, 1.6 an SM), and on the plane
+# with runs of 3 (PERF.md section 6)
+SEGMENTS = {(1, 4): 640, (1, 8): 240, (2, 4): 640, (2, 8): 240,
+            (5, 4): 720, (5, 8): 720}
+TARGET_BLOCKS = {(1, 4): 330, (1, 8): 450, (2, 4): 330, (2, 8): 450,
+                 (5, 4): 450, (5, 8): 600}
+RUN_BLOCKS = {(2, 4): 216}
 
 
 class DssLaunch(NamedTuple):
-    """Launch shape of ``dss_scalar`` / ``dss_uvw``: a block owns ``rows``
+    """Launch shape of a band kernel: a block owns ``rows``
     whole rows of one panel (a multiple of p dividing A) and walks
     ``levels`` steps (levels; interfaces for ``dss_uvw``, whose bottom
     interface is a run of its own) with ``threads`` threads and a ring of
@@ -202,9 +212,9 @@ def dss_smem_bytes(rows: int, A: int, B: int, ring: int, nfields: int,
     span of rows + 2 rows of B values, then on the cubed sphere the
     neighbours' edge lines, 2 (rows + 2) + 2 A values), for ``dss_uvw``
     (``nfields`` 5) one slot more for the assembled W, the band's inverse
-    multiplicities (rows B values), and on the cubed sphere ``dss_uvw``'s
-    edge rotations (4 per edge-line value); each part rounded up to 16
-    bytes."""
+    multiplicities (rows B values), and on the cubed sphere the (U, V)
+    pair's edge rotations (``dss_vector`` and ``dss_uvw``: 4 per edge-line
+    value); each part rounded up to 16 bytes."""
     v16 = 16 // esize
 
     def up(n):
@@ -212,8 +222,8 @@ def dss_smem_bytes(rows: int, A: int, B: int, ring: int, nfields: int,
 
     nedge = 2 * (rows + 2) + 2 * A if links else 0
     fs = up((rows + 2) * B) + up(nedge)
-    vals = (ring * nfields + (nfields > 1)) * fs + up(rows * B) \
-        + (up(4 * nedge) if nfields > 1 else 0)
+    vals = (ring * nfields + (nfields == NFIELDS["uvw"])) * fs \
+        + up(rows * B) + (up(4 * nedge) if nfields > 1 else 0)
     return BAR_BYTES + vals * esize
 
 
@@ -221,8 +231,9 @@ def dss_smem_bytes(rows: int, A: int, B: int, ring: int, nfields: int,
 def dss_launch_shape(K: int, P: int, A: int, B: int, p: int, dtype,
                      nfields: int, rows=None, levels=None, ring=None,
                      threads=None, links=None) -> DssLaunch:
-    """The launch shape of ``dss_scalar`` (``nfields`` 1, ``K`` levels) or
-    ``dss_uvw`` (``nfields`` 5, ``K`` levels of U and V, K + 1 steps).
+    """The launch shape of ``dss_scalar`` (``nfields`` 1, ``K`` levels),
+    ``dss_vector`` (``nfields`` 2, ``K`` levels) or ``dss_uvw`` (``nfields``
+    5, ``K`` levels of U and V, K + 1 steps).
     ``links``: a cubed-sphere grid (default: P > 1).  The keywords override
     the rule (``kernels/tune_dss.py`` sweeps them).  Cached: a launch
     asks for its shape on the host every time.
@@ -232,10 +243,14 @@ def dss_launch_shape(K: int, P: int, A: int, B: int, p: int, dtype,
     turn) that still gives ``TARGET_BLOCKS`` blocks one step a block (the
     shallowest band where none does), a ring of two stages (one where two
     do not fit a scalar's block), and as many steps a block as keep
-    ``TARGET_BLOCKS`` blocks, at least one.  Raises where no shape fits."""
+    ``RUN_BLOCKS`` (default ``TARGET_BLOCKS``) blocks, at least one.
+    Raises where no shape fits."""
     esize = 4 if dtype == torch.float32 else 8
     links = P > 1 if links is None else bool(links)
-    uvw = nfields > 1
+    if nfields not in NFIELDS.values():
+        raise ValueError(f"nfields must be one of {sorted(NFIELDS.values())}"
+                         f", got {nfields}")
+    uvw = nfields == NFIELDS["uvw"]
     if p < 2 or p > MAX_P or A % p or B % p:
         raise ValueError(f"the band kernels take 2 <= p <= {MAX_P} with "
                          f"whole elements, got A={A} B={B} p={p}")
@@ -254,7 +269,7 @@ def dss_launch_shape(K: int, P: int, A: int, B: int, p: int, dtype,
         raise ValueError(f"no band of the DSS kernel fits A={A} B={B} p={p} "
                          f"nfields={nfields} rows={rows} ring={ring} in "
                          f"{SMEM_MAX} bytes of shared memory")
-    key = (uvw, esize)
+    key = (nfields, esize)
     good = [TA for TA in cands if TA * (B // p) <= SEGMENTS[key]
             and (A // TA) * P * (K + uvw) >= TARGET_BLOCKS[key]]
     TA = max(good) if good else min(cands)
@@ -269,9 +284,9 @@ def dss_launch_shape(K: int, P: int, A: int, B: int, p: int, dtype,
         raise ValueError(f"ring depth {r} out of range")
     bands = (A // TA) * P
     if levels is None:
+        least = RUN_BLOCKS.get(key, TARGET_BLOCKS[key])
         lv = max([1] + [c for c in range(1, max(K, 1) + 1)
-                        if bands * (math.ceil(K / c) + uvw)
-                        >= TARGET_BLOCKS[key]])
+                        if bands * (math.ceil(K / c) + uvw) >= least])
     else:
         lv = int(levels)
         if lv < 1:
@@ -297,12 +312,33 @@ def copy_width(B: int, esize: int, ptrs) -> int:
 def launch_config(f, p: int, nfields: int, ptrs, links: bool,
                   launch=None) -> dict:
     """What a band kernel launch on the field ``f`` ((K, P, A, B); for
-    ``dss_uvw`` U) takes: its launch shape (``launch``, default the rule's)
-    and its copy width for the pointers ``ptrs``."""
+    ``dss_vector`` and ``dss_uvw`` U) takes: its launch shape (``launch``,
+    default the rule's) and its copy width for the pointers ``ptrs``."""
     K, P, A, B = f.shape
     sh = launch or dss_launch_shape(K, P, A, B, p, f.dtype, nfields,
                                     links=links)
     return dict(sh._asdict(), copy=copy_width(B, f.element_size(), ptrs))
+
+
+# band_kernel<T, CART, PP, M> as nvcc mangles it; M indexes MODES
+_ENTRY = re.compile(r"band_kernelI([fd])Lb([01])ELi(\d+)ELi(\d)E")
+MODES = tuple(NFIELDS)            # in the order of the kernel's M_SCALAR, ...
+
+
+def kernel_resources() -> dict:
+    """Registers and spill bytes of the band kernel's 24 instantiations
+    (value type x mode x grid family x p 4 or any p) as ``nvcc -Xptxas -v``
+    reported them at the build, keyed ``f32 vector sphere p4``, ``f64 uvw
+    cart generic``, ... (empty before a build)."""
+    out = {}
+    for name, use in build.ptxas_usage("dss").items():
+        m = _ENTRY.search(name)
+        if m:
+            out[f"{'f32' if m.group(1) == 'f' else 'f64'} "
+                f"{MODES[int(m.group(4))]} "
+                f"{'cart' if m.group(2) == '1' else 'sphere'} "
+                f"{'p4' if m.group(3) == '4' else 'generic'}"] = use
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -424,7 +460,8 @@ def _dss_scalar_cuda(f, imult, links, p, flags, launch=None):
     of the rule's."""
     K, P, A, B = f.shape
     nlinks = len(links)
-    cfg = launch_config(f, p, 1, _scalar_ptrs(f, imult), nlinks > 0, launch)
+    cfg = launch_config(f, p, NFIELDS["scalar"], _scalar_ptrs(f, imult),
+                        nlinks > 0, launch)
     lib = build.library("dss")
     fn = lib.dss_scalar_f32 if f.dtype == torch.float32 else lib.dss_scalar_f64
     with torch.cuda.device(f.device):
@@ -443,28 +480,46 @@ def _dss_scalar_cuda(f, imult, links, p, flags, launch=None):
 
 def dss_vector(u, v, imult, rot, links, p: int, wrap=(False, False),
                table=None):
-    """DSS of a covariant vector pair (K, P, A, B) x 2; one kernel launch."""
+    """DSS of a covariant vector pair (K, P, A, B) x 2; one kernel launch.
+    ``table``: as ``dss_scalar``'s."""
     _check_field("u", u)
     _check_field("v", v, ref=u)
     table, flags = _check_common(u, imult, links, p, wrap, table)
-    K, P, A, B = u.shape
     _check_rot(rot, links, u)
     if u.device.type == "cpu":
         return dss_vector_plain(u, v, imult, rot, links, p, wrap)
     if u.device.type != "cuda":
         raise ValueError(f"unsupported device {u.device}")
+    return _dss_vector_cuda(u, v, imult, rot, links, p, flags)
+
+
+def _vector_ptrs(u, v, imult):
+    """The pointers a ``dss_vector`` launch stages from (the rotations go
+    by one value a copy)."""
+    return [u.data_ptr(), v.data_ptr(), imult.data_ptr()]
+
+
+def _dss_vector_cuda(u, v, imult, rot, links, p, flags, launch=None):
+    """The launch of ``dss_vector``; ``launch``: a ``DssLaunch`` in place
+    of the rule's."""
+    K, P, A, B = u.shape
+    nlinks = len(links)
+    cfg = launch_config(u, p, NFIELDS["vector"], _vector_ptrs(u, v, imult),
+                        nlinks > 0, launch)
     lib = build.library("dss")
     fn = lib.dss_vector_f32 if u.dtype == torch.float32 else lib.dss_vector_f64
     with torch.cuda.device(u.device):
         uo = torch.empty_like(u)
         vo = torch.empty_like(v)
         err = fn(u.data_ptr(), v.data_ptr(), imult.data_ptr(),
-                 rot.data_ptr(), table.data_ptr(), uo.data_ptr(),
-                 vo.data_ptr(), K, P, A, B, p, len(links), flags,
+                 rot.data_ptr(), _table_ptr(links), uo.data_ptr(),
+                 vo.data_ptr(), K, P, A, B, p, nlinks, flags, cfg["rows"],
+                 cfg["levels"], cfg["threads"], cfg["ring"], cfg["copy"],
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"dss_vector kernel launch failed "
-                           f"(cudaGetLastError = {err})")
+        raise RuntimeError(f"dss_vector kernel launch failed (error {err}; "
+                           f"-1: launch shape or copy width not taken, -2: "
+                           f"shared memory; launch {cfg})")
     launch_counts["dss_vector"] += 1
     return uo, vo
 
@@ -524,8 +579,8 @@ def _dss_uvw_cuda(u, v, imult, rot, links, p, flags, wf, launch=None):
     K, P, A, B = u.shape
     nlinks = len(links)
     bw2 = wf.get("bw2")
-    cfg = launch_config(u, p, 5, _uvw_ptrs(u, v, wf, imult), nlinks > 0,
-                        launch)
+    cfg = launch_config(u, p, NFIELDS["uvw"], _uvw_ptrs(u, v, wf, imult),
+                        nlinks > 0, launch)
     lib = build.library("dss")
     fn = lib.dss_uvw_f32 if u.dtype == torch.float32 else lib.dss_uvw_f64
     with torch.cuda.device(u.device):

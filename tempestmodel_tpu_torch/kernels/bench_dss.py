@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the DSS kernels ``dss_scalar`` and ``dss_uvw`` of a checkout on a
-GPU, beside the practical floor of the bytes they move.
+"""Time the DSS kernels ``dss_scalar``, ``dss_vector`` and ``dss_uvw`` of a
+checkout on a GPU, beside the practical floor of the bytes they move.
 
 Run from the repository root on a machine with an NVIDIA Hopper card and
 nvcc:
@@ -16,15 +16,17 @@ not with ``-m``, so that the package is imported from ``DIR``.
 Prints one JSON line per case, float32 and float64: ``dss_scalar`` on a
 level field of the flagship (ne30 p4: (30, 6, 120, 120), eight input copies
 that cycle through more than the 50 MB L2) and on the moist wave's flat
-tracer field (K = 90); ``dss_uvw`` at the flagship with two bases and one;
-both kernels at the Schar slice of ``chip_smoke.py`` (40 levels, swapped
-(K, 1, 4, 400) and natural (K, 1, 400, 4)) and on the 3-D bubble's plane
-(40, 1, 128, 128), whose inputs stay in the L2 as inside their steps.  Then
-the floor: PyTorch elementwise passes that read and write the same bytes
-(``x * imult`` for a scalar; for ``dss_uvw`` ``u * imult``, ``v * imult``
-and ``addcmul`` of bw1, bw2 and dW).  Each time is the mean of 40 (small
-shapes: 100) launches queued behind a busy device, as ``chip_smoke.py``
-times them; three repeats are printed.  The first line holds the card's
+tracer field (K = 90); ``dss_vector`` at the flagship (four input pairs);
+``dss_uvw`` at the flagship with two bases and one; the three kernels at
+the Schar slice of ``chip_smoke.py`` (40 levels, swapped (K, 1, 4, 400) and
+natural (K, 1, 400, 4)) and on the 3-D bubble's plane (40, 1, 128, 128),
+whose inputs stay in the L2 as inside their steps.  Then the floor:
+PyTorch elementwise passes that read and write the same bytes (``x *
+imult`` for a scalar; ``u * imult`` and ``v * imult`` for the pair; for
+``dss_uvw`` those and ``addcmul`` of bw1, bw2 and dW).  A kernel line gives
+the launch shape where the checkout's kernel takes one.  Each time is the
+mean of 40 (small shapes: 100) launches queued behind a busy device, as
+``chip_smoke.py`` times them; three repeats are printed.  The first line holds the card's
 name and power limit.
 """
 
@@ -76,7 +78,8 @@ def main():
         row = {"case": label, "what": "floor" if nfields is None
                else "kernel", "dtype": str(fg.inv_mult.dtype)[6:],
                "shape": list(shape), "ms": ms}
-        if hasattr(dss_cuda, "dss_launch_shape") and nfields:
+        band = {1, 5} | set(getattr(dss_cuda, "NFIELDS", {}).values())
+        if hasattr(dss_cuda, "dss_launch_shape") and nfields in band:
             row["launch"] = dss_cuda.dss_launch_shape(
                 *shape, fg.p, fg.inv_mult.dtype, nfields)._asdict()
         print(json.dumps(row), flush=True)
@@ -99,6 +102,14 @@ def main():
              (K, P, A, B))
         if label.startswith("k90"):
             return
+        pairs = [(rnd(K, P, A, B), rnd(K, P, A, B))
+                 for _ in range(max(1, ncopies // 2))]
+        emit(f"vector_{label}", lambda u, v: dss_cuda.dss_vector(
+            u, v, im, rot, links, fg.p, **kw), pairs, reps, fg,
+            (K, P, A, B), 2)
+        emit(f"vector_{label}", lambda u, v: (u * im[None], v * im[None]),
+             pairs, reps, fg, (K, P, A, B))
+        del pairs
         n = max(1, ncopies // 4)
         sets = []
         for _ in range(n):

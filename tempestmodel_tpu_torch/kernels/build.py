@@ -38,9 +38,9 @@ _I64 = ctypes.c_longlong
 # the value of cudaGetLastError()).  Pointers and the stream are c_void_p:
 # without argtypes ctypes would pass them as 32-bit ints and cut them.
 _DSS_SCALAR = [_PTR] * 4 + [_INT] * 12 + [_PTR]
-_DSS_VECTOR = [_PTR] * 7 + [_INT] * 7 + [_PTR]
+_DSS_VECTOR = [_PTR] * 7 + [_INT] * 12 + [_PTR]
 _BANDED = [_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _I64, _INT, _PTR]
-_BANDED_MULTI = [_PTR, _PTR, _PTR, _PTR, _INT, _INT, _I64, _INT, _INT, _PTR]
+_BANDED_MULTI = [_PTR, _PTR, _PTR, _INT, _INT, _I64] + [_INT] * 6 + [_PTR]
 _DBL = ctypes.c_double
 _DSS_UVW = [_PTR] * 14 + [_DBL] * 5 + [_INT] * 12 + [_PTR]
 # the fused kernels take their many operands as host arrays: pointers,

@@ -1,6 +1,6 @@
-"""Edge shapes of the band kernels ``dss_scalar`` and ``dss_uvw``
-(``fast/dss_cuda.py``, ``csrc/dss.cu``), each held against the plain
-version.
+"""Edge shapes of the band kernels ``dss_scalar``, ``dss_vector`` and
+``dss_uvw`` (``fast/dss_cuda.py``, ``csrc/dss.cu``), each held against the
+plain version.
 
 The flagship's shapes leave parts of the kernels unrun: p = 2 and 3 (rows of
 6 or 3 values, whose spans are no 16-byte multiple: 8- and 4-byte copies), a
@@ -25,35 +25,40 @@ import torch
 
 # name -> grid (("sphere", ne, p) or ("cart", A, B, p, wrap)), levels K,
 # values the inputs start past an aligned address, overrides of
-# ``dss_launch_shape`` for dss_scalar and for dss_uvw
+# ``dss_launch_shape`` for dss_scalar, for dss_vector and for dss_uvw
 CASES = {
-    "sphere_ne4": (("sphere", 4, 4), 8, 0, {}, {}),
+    "sphere_ne4": (("sphere", 4, 4), 8, 0, {}, {}, {}),
     "sphere_ne4_bands": (("sphere", 4, 4), 7, 0,
+                         dict(rows=4, threads=32, levels=3),
                          dict(rows=4, threads=32, levels=3),
                          dict(rows=4, threads=32, levels=3)),
     "sphere_ne4_ring3": (("sphere", 4, 4), 8, 0, dict(ring=3, levels=5),
-                         dict(ring=3, levels=5)),
+                         dict(ring=3, levels=5), dict(ring=3, levels=5)),
     "sphere_ne4_ring1": (("sphere", 4, 4), 5, 0, dict(ring=1, levels=3),
-                         dict(levels=1)),
-    "sphere_ne4_offset1": (("sphere", 4, 4), 6, 1, {}, {}),
-    "sphere_ne4_offset2": (("sphere", 4, 4), 6, 2, {}, {}),
-    "sphere_ne1": (("sphere", 1, 4), 3, 0, {}, {}),
-    "sphere_ne2_p3": (("sphere", 2, 3), 3, 0, {}, {}),
-    "sphere_ne1_p3": (("sphere", 1, 3), 2, 0, {}, {}),
-    "sphere_ne3_p2": (("sphere", 3, 2), 4, 0, {}, {}),
-    "sphere_nz2": (("sphere", 2, 4), 2, 0, {}, dict(levels=1)),
-    "cart_swapped": (("cart", 4, 32, 4, (True, True)), 8, 0, {}, {}),
+                         dict(ring=1, levels=2), dict(levels=1)),
+    "sphere_ne4_offset1": (("sphere", 4, 4), 6, 1, {}, {}, {}),
+    "sphere_ne4_offset2": (("sphere", 4, 4), 6, 2, {}, {}, {}),
+    "sphere_ne1": (("sphere", 1, 4), 3, 0, {}, {}, {}),
+    "sphere_ne2_p3": (("sphere", 2, 3), 3, 0, {}, {}, {}),
+    "sphere_ne1_p3": (("sphere", 1, 3), 2, 0, {}, {}, {}),
+    "sphere_ne3_p2": (("sphere", 3, 2), 4, 0, {}, {}, {}),
+    "sphere_nz2": (("sphere", 2, 4), 2, 0, {}, dict(levels=1),
+                   dict(levels=1)),
+    "cart_swapped": (("cart", 4, 32, 4, (True, True)), 8, 0, {}, {}, {}),
     "cart_natural": (("cart", 32, 4, 4, (True, True)), 8, 0, dict(rows=8),
-                     dict(rows=8)),
+                     dict(rows=8), dict(rows=8)),
     "cart_plane": (("cart", 16, 16, 4, (True, True)), 6, 0, dict(rows=4),
-                   dict(rows=4)),
+                   dict(rows=4, ring=1), dict(rows=4)),
     "cart_wrap_a": (("cart", 16, 8, 4, (True, False)), 4, 1,
-                    dict(rows=8, threads=32), dict(rows=8, threads=32)),
-    "cart_wrap_b": (("cart", 8, 16, 4, (False, True)), 4, 2, {}, {}),
+                    dict(rows=8, threads=32), dict(rows=8, threads=32),
+                    dict(rows=8, threads=32)),
+    "cart_wrap_b": (("cart", 8, 16, 4, (False, True)), 4, 2, {}, {}, {}),
     "cart_p3": (("cart", 9, 6, 3, (True, True)), 3, 0, dict(rows=3),
-                dict(rows=3)),
-    "cart_one_element": (("cart", 4, 4, 4, (True, True)), 2, 0, {}, {}),
+                dict(rows=3), dict(rows=3)),
+    "cart_one_element": (("cart", 4, 4, 4, (True, True)), 2, 0, {}, {},
+                         {}),
 }
+KERNELS = ("dss_scalar", "dss_vector", "dss_uvw")
 
 
 def _cut(t, offset):
@@ -94,8 +99,9 @@ def grid(name: str, dtype, device):
 
 def case_inputs(name: str, dtype, device):
     """(grid, x, u, v, w_finish) of case ``name``: ``grid`` as ``grid``
-    returns it, the scalar field ``x`` and the ``dss_uvw`` inputs, each
-    starting the case's offset past an aligned address."""
+    returns it, the scalar field ``x`` and the ``dss_uvw`` inputs (U and V
+    also those of ``dss_vector``), each starting the case's offset past an
+    aligned address."""
     g = grid(name, dtype, device)
     P, A, B = g[0].shape
     K, offset = CASES[name][1], CASES[name][2]
@@ -121,6 +127,21 @@ def _edge_masks(A, B):
     return edge, corner
 
 
+def launch_shapes(name: str, dtype) -> dict:
+    """{kernel: the ``DssLaunch`` of case ``name``} (the rule's shape with
+    the case's overrides)."""
+    from tempestmodel_tpu_torch.fast import dss_cuda
+    spec, K = CASES[name][:2]
+    if spec[0] == "sphere":
+        P, A, B, p, links = 6, spec[1] * spec[2], spec[1] * spec[2], \
+            spec[2], True
+    else:
+        P, (A, B, p), links = 1, spec[1:4], False
+    return {k: dss_cuda.dss_launch_shape(
+        K, P, A, B, p, dtype, dss_cuda.NFIELDS[k[4:]], links=links, **ov)
+        for k, ov in zip(KERNELS, CASES[name][3:])}
+
+
 def run_case(name: str, dtype, device) -> dict:
     """Kernels against plain for case ``name`` on ``device`` (a CUDA
     device): ``{"max_err": the worst relative error, "err_by_output": ...,
@@ -132,18 +153,21 @@ def run_case(name: str, dtype, device) -> dict:
     (im, links, rot, wrap, p), x, u, v, wf = case_inputs(
         name, dtype, device)
     K, P, A, B = x.shape
-    _, _, _, ov_s, ov_u = CASES[name]
     flags = int(wrap[0]) | 2 * int(wrap[1])
-    ls = dss_cuda.dss_launch_shape(K, P, A, B, p, dtype, 1,
-                                   links=bool(links), **ov_s)
-    lu = dss_cuda.dss_launch_shape(K, P, A, B, p, dtype, 5,
-                                   links=bool(links), **ov_u)
+    shapes = launch_shapes(name, dtype)
+    ls, lv, lu = (shapes[k] for k in KERNELS)
     errs, bitwise = {}, True
     got = dss_cuda._dss_scalar_cuda(x, im, links, p, flags, ls)
     torch.cuda.synchronize()
     want = dss_cuda.dss_scalar_plain(x, im, links, p, wrap)
     errs["dss_scalar"] = _rel(got, want)
     bitwise &= torch.equal(got, want)
+    got = dss_cuda._dss_vector_cuda(u, v, im, rot, links, p, flags, lv)
+    torch.cuda.synchronize()
+    want = dss_cuda.dss_vector_plain(u, v, im, rot, links, p, wrap)
+    for k, g_, w_ in zip(("U", "V"), got, want):
+        errs[f"dss_vector_{k}"] = _rel(g_, w_)
+        bitwise &= torch.equal(g_, w_)
     edge, corner = (torch.as_tensor(m, device=device)
                     for m in _edge_masks(A, B))
     for tag, w in (("two_base", wf), ("one_base", dict(wf, bw2=None))):
@@ -163,6 +187,9 @@ def run_case(name: str, dtype, device) -> dict:
             "launch": {
                 "dss_scalar": dss_cuda.launch_config(
                     x, p, 1, dss_cuda._scalar_ptrs(x, im), bool(links), ls),
+                "dss_vector": dss_cuda.launch_config(
+                    u, p, 2, dss_cuda._vector_ptrs(u, v, im), bool(links),
+                    lv),
                 "dss_uvw": dss_cuda.launch_config(
                     u, p, 5, dss_cuda._uvw_ptrs(u, v, wf, im), bool(links),
                     lu)}}

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Per-phase SM cycles of the DSS kernels ``dss_scalar`` and ``dss_uvw`` of
-a checkout on a GPU.
+"""Per-phase SM cycles of the DSS kernels ``dss_scalar``, ``dss_uvw`` and
+(where it is a band kernel) ``dss_vector`` of a checkout on a GPU.
 
 Run from the repository root on a machine with an NVIDIA Hopper card and
 nvcc:
@@ -10,8 +10,10 @@ nvcc:
 Builds a copy of ``DIR``'s ``csrc/dss.cu`` (default: this checkout's) with
 ``clock64()`` laps (the checkout's source is not changed), swaps it in
 behind the wrappers, launches each kernel at the flagship shapes (ne30 p4,
-float32: ``dss_scalar`` on (30, 6, 120, 120), ``dss_uvw`` with two bases;
-and the Schar slice's swapped (40 | 41, 1, 4, 400)) and prints, per kernel,
+float32: ``dss_scalar`` and ``dss_vector`` on (30, 6, 120, 120),
+``dss_uvw`` with two bases; and the Schar slice's swapped (40 | 41, 1, 4,
+400) and, for ``dss_uvw`` and ``dss_vector``, natural (40 | 41, 1, 400,
+4)) and prints, per kernel,
 the median over blocks of the cycles thread 0 of a block spent in each
 phase, the longest block's total and the first block's phases, with the
 launch's time (laps included) and the unstamped build's.  A lap reads the
@@ -20,13 +22,17 @@ and a load's latency falls to the phase that first uses the value.
 
 Two kernel designs are known.  The staged kernels (``band_kernel``) carry
 ``DSS_LAP(i)`` marks and take the phases
-``first_copies`` (barriers readied, thread 0's first bulk copies),
+``barrier_init`` (thread 0 readies the mbarriers, where the kernel marks
+it apart), ``first_copies`` (thread 0's first bulk copies),
 ``meet`` (the block's first barrier), ``first_gathers`` (the first steps'
-edge-line gathers, ``dss_uvw``'s edge rotations), ``segment`` (a thread's
-segment worked out), ``wait`` (for a level's copies),
-``assemble`` (``dss_uvw``: the W finish into shared memory), ``work``
-(pair sums, edge terms and stores of a thread's segments) and ``refill``
-(the barrier and the next copies), summed over a block's levels; the SASS
+edge-line gathers, the (U, V) pair's edge rotations), ``segment`` (a
+thread's segment worked out), ``wait`` (for a level's copies; the first
+level's apart as ``first_wait``, where the kernel marks it), ``assemble``
+(``dss_uvw``: the W finish into shared memory), ``work`` (pair sums, edge
+terms and stores of a thread's segments) and ``refill`` (the barrier and
+the next copies), summed over a block's levels; a block's set-up is
+``barrier_init``, ``first_copies`` to ``segment`` and ``first_wait``; the
+SASS
 instructions of each instantiation are counted too (``cuobjdump``).
 The gather kernels that came before them (one thread a node, no staging)
 get laps inserted at fixed lines: ``setup``, ``loads`` (every level's
@@ -45,10 +51,10 @@ import subprocess
 import sys
 import tempfile
 
-NPHASE = 8
+NPHASE = 10
 MAXBLOCKS = 16384
 STAGED = ("first_copies", "meet", "first_gathers", "segment", "wait",
-          "assemble", "work", "refill")
+          "assemble", "work", "refill", "first_wait", "barrier_init")
 GATHER = ("setup", "loads", "stores")
 
 PRELUDE = f"""
@@ -207,6 +213,29 @@ def main():
     runs["dss_uvw_schar"] = (lambda: dss_cuda.dss_uvw(
         su, sv, sfg.inv_mult, sfg.e_rot, (), sfg.p, swf, wrap=sfg.wrap,
         table=sfg.dss_table), [()])
+    # the natural layout (40 | 41, 1, 400, 4): the same values transposed
+    nfg = fast.build_fast_geometry_cartesian(sgeom, dtype=dtype, device=dev,
+                                             swap_ab=False)
+
+    def nat(t):
+        return t.transpose(-1, -2).contiguous()
+
+    nwf = {k: nat(v) if isinstance(v, torch.Tensor) else v
+           for k, v in swf.items()}
+    nu, nv = nat(su), nat(sv)
+    runs["dss_uvw_schar_natural"] = (lambda: dss_cuda.dss_uvw(
+        nu, nv, nfg.inv_mult, nfg.e_rot, (), nfg.p, nwf, wrap=nfg.wrap,
+        table=nfg.dss_table), [()])
+    if hasattr(dss_cuda, "NFIELDS"):       # dss_vector is a band kernel
+        runs["dss_vector"] = (lambda: dss_cuda.dss_vector(
+            u, v, fg.inv_mult, fg.e_rot, fg.dss_links, fg.p,
+            table=fg.dss_table), [()])
+        runs["dss_vector_schar"] = (lambda: dss_cuda.dss_vector(
+            su, sv, sfg.inv_mult, sfg.e_rot, (), sfg.p, wrap=sfg.wrap,
+            table=sfg.dss_table), [()])
+        runs["dss_vector_schar_natural"] = (lambda: dss_cuda.dss_vector(
+            nu, nv, nfg.inv_mult, nfg.e_rot, (), nfg.p, wrap=nfg.wrap,
+            table=nfg.dss_table), [()])
     for kernel, (fn, sets) in runs.items():
         print(json.dumps({"kernel": kernel, "variant": "unstamped",
                           "ms": time_cuda(fn, sets, 40, queued=True)}),

@@ -4,26 +4,26 @@
 Run from the repository root on a machine with an NVIDIA Hopper card and
 nvcc:
 
-    python3 -m tempestmodel_tpu_torch.kernels.tune_dss [band | vector] \
-        [-DNAME=VALUE ...]
+    python3 -m tempestmodel_tpu_torch.kernels.tune_dss [band] \
+        [scalar | vector | uvw ...] [-DNAME=VALUE ...]
 
-``band`` (``dss_scalar`` and ``dss_uvw``, whose launch shape is taken at run
-time, no rebuild): every band (rows), levels a block and ring depth of
+``band`` (the three modes of the band kernel, ``dss_scalar``,
+``dss_vector`` and ``dss_uvw``, whose launch shape is taken at run time, no
+rebuild; mode names after it sweep those modes only): every band (rows),
+levels a block and ring depth of
 ``BAND_ROWS`` x ``BAND_LEVELS`` x ``BAND_RINGS`` that fits, at the flagship
 shapes (ne30 p4: (30, 6, 120, 120), eight input copies that cycle through
 more than the 50 MB L2), float32 and float64, and at the Schar slice's
 shapes (40 levels, swapped (K, 1, 4, 400) and natural (K, 1, 400, 4)) and
-the 3-D bubble's plane (40, 1, 128, 128) in float32; each held against the
-plain version and timed beside the rule's shape
-(``dss_cuda.dss_launch_shape``), the ten fastest printed per kernel and
-shape.  ``-D`` arguments build a variant of ``csrc/dss.cu`` with those
-flags (``BAND_MIN_BLOCKS``, ``BAND_MIN_BLOCKS_UVW``: blocks an SM must
-hold, which caps the registers) and sweep it in place of the default
-build, with its registers.  ``vector``: ``dss_vector``'s block size and
-levels a thread (``DSS_THREADS``, ``DSS_LEVELS``), one build of
-``csrc/dss.cu`` a pair, at the flagship.  Times are taken as in
-``chip_smoke.py``: launches queued behind a busy device.  The first line
-holds the card's name and power limit.
+the 3-D bubble's plane (40, 1, 128, 128), float32 and float64; each held
+against the plain version and timed beside the rule's shape
+(``dss_cuda.dss_launch_shape``), every shape printed per kernel and grid,
+fastest first.  ``-D`` arguments build a variant of ``csrc/dss.cu`` with those
+flags (``BAND_MIN_BLOCKS``, ``BAND_MIN_BLOCKS_VECTOR``,
+``BAND_MIN_BLOCKS_UVW``: blocks an SM must hold, which caps the registers)
+and sweep it in place of the default build, with its registers.  Times are
+taken as in ``chip_smoke.py``: launches queued behind a busy device.  The
+first line holds the card's name and power limit.
 """
 
 import ctypes
@@ -45,7 +45,6 @@ from tempestmodel_tpu_torch.models import nh_model
 BAND_ROWS = (4, 8, 12, 16, 20, 24, 40)
 BAND_LEVELS = (1, 2, 3, 4, 5, 6, 8, 10, 15, 31)
 BAND_RINGS = (2, 3, 4)
-VECTOR_VARIANTS = [(128, 5), (256, 5), (128, 3), (128, 8)]
 K, P, A, ORDER = 30, 6, 120, 4
 
 
@@ -54,39 +53,40 @@ def main(argv=()):
         print("tune_dss: no CUDA device", file=sys.stderr)
         return 1
     defines = [a for a in argv if a.startswith("-D")]
-    only = [a for a in argv if not a.startswith("-D")][:1]
+    words = [a for a in argv if not a.startswith("-D")]
+    if words[:1] not in ([], ["band"]) or not set(words[1:]) <= set(
+            dss_cuda.NFIELDS):
+        print(f"tune_dss: unknown arguments {words}", file=sys.stderr)
+        return 2
+    modes = words[1:] or list(dss_cuda.NFIELDS)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip(), flush=True)
     build.build_all()
     dev = torch.device("cuda")
-    if only in ([], ["band"]):
-        if defines:
-            with tempfile.TemporaryDirectory() as tmp:
-                so = str(pathlib.Path(tmp) / "dss_variant.so")
-                report = subprocess.run(
-                    [build.nvcc_path(), *build.NVCC_FLAGS, *defines, "-Xptxas",
-                     "-v", "-o", so, str(build.CSRC / "dss.cu")], check=True,
-                    capture_output=True, text=True)
-                regs = {k: v for k, v in build.parse_ptxas(
-                    report.stdout + report.stderr).items() if "band" in k}
-                print(json.dumps({"defines": defines, "ptxas": regs}),
-                      flush=True)
-                lib = ctypes.CDLL(so)
-                for name, argtypes in build.SIGNATURES["dss"].items():
-                    getattr(lib, name).argtypes = argtypes
-                    getattr(lib, name).restype = ctypes.c_int
-                default = build._libs["dss"]
-                build._libs["dss"] = lib
-                try:
-                    sweep_band(dev)
-                finally:
-                    build._libs["dss"] = default
-        else:
-            sweep_band(dev)
-    if only in ([], ["vector"]):
-        sweep_vector(dev)
+    if not defines:
+        sweep_band(dev, modes)
+        return 0
+    with tempfile.TemporaryDirectory() as tmp:
+        so = str(pathlib.Path(tmp) / "dss_variant.so")
+        report = subprocess.run(
+            [build.nvcc_path(), *build.NVCC_FLAGS, *defines, "-Xptxas",
+             "-v", "-o", so, str(build.CSRC / "dss.cu")], check=True,
+            capture_output=True, text=True)
+        regs = {k: v for k, v in build.parse_ptxas(
+            report.stdout + report.stderr).items() if "band" in k}
+        print(json.dumps({"defines": defines, "ptxas": regs}), flush=True)
+        lib = ctypes.CDLL(so)
+        for name, argtypes in build.SIGNATURES["dss"].items():
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = ctypes.c_int
+        default = build._libs["dss"]
+        build._libs["dss"] = lib
+        try:
+            sweep_band(dev, modes)
+        finally:
+            build._libs["dss"] = default
     return 0
 
 
@@ -99,21 +99,21 @@ def _grids(dev):
         yield ("flagship", fast.build_fast_geometry(
             nh_model.build_nh_sphere_geometry(cfg), dtype=dtype,
             device=dev), K, 8)
-    dtype = torch.float32
-    _, _, sgeom = chip_smoke.cartesian_setup(
-        "schar", dtype, chip_smoke.SCHAR_NEX, 1, chip_smoke.SCHAR_NZ)
-    for layout in ("swapped", "natural"):
-        yield (f"schar_{layout}", fast.build_fast_geometry_cartesian(
-            sgeom, dtype=dtype, device=dev, swap_ab=(layout == "swapped")),
-            chip_smoke.SCHAR_NZ, 1)
-    _, _, pgeom = chip_smoke.cartesian_setup(
-        "bubble3d", dtype, chip_smoke.PLANE_NE, chip_smoke.PLANE_NE,
-        chip_smoke.SCHAR_NZ)
-    yield ("plane", fast.build_fast_geometry_cartesian(
-        pgeom, dtype=dtype, device=dev), chip_smoke.SCHAR_NZ, 1)
+    for dtype in (torch.float32, torch.float64):
+        _, _, sgeom = chip_smoke.cartesian_setup(
+            "schar", dtype, chip_smoke.SCHAR_NEX, 1, chip_smoke.SCHAR_NZ)
+        for layout in ("swapped", "natural"):
+            yield (f"schar_{layout}", fast.build_fast_geometry_cartesian(
+                sgeom, dtype=dtype, device=dev,
+                swap_ab=(layout == "swapped")), chip_smoke.SCHAR_NZ, 1)
+        _, _, pgeom = chip_smoke.cartesian_setup(
+            "bubble3d", dtype, chip_smoke.PLANE_NE, chip_smoke.PLANE_NE,
+            chip_smoke.SCHAR_NZ)
+        yield ("plane", fast.build_fast_geometry_cartesian(
+            pgeom, dtype=dtype, device=dev), chip_smoke.SCHAR_NZ, 1)
 
 
-def sweep_band(dev):
+def sweep_band(dev, modes):
     for label, fg, nz, ncopies in _grids(dev):
         dtype = fg.inv_mult.dtype
         (_, Pn, An, Bn), p = (nz,) + tuple(fg.inv_mult.shape), fg.p
@@ -125,6 +125,8 @@ def sweep_band(dev):
             return torch.randn(shape, dtype=dtype, device=dev, generator=gen)
 
         xs = [(rnd(nz, Pn, An, Bn),) for _ in range(ncopies)]
+        pairs = [(rnd(nz, Pn, An, Bn), rnd(nz, Pn, An, Bn))
+                 for _ in range(max(1, ncopies // 2))]
         sets = []
         for _ in range(max(1, ncopies // 4)):
             wf = {"bw1": rnd(nz + 1, Pn, An, Bn),
@@ -139,12 +141,20 @@ def sweep_band(dev):
                 x, im, links, p, flags, sh), xs,
                 lambda: [dss_cuda.dss_scalar_plain(xs[0][0], im, links, p,
                                                    fg.wrap)]),
+            "dss_vector": (2, lambda sh: lambda u, v: dss_cuda
+                           ._dss_vector_cuda(u, v, im, fg.e_rot, links, p,
+                                             flags, sh),
+                           pairs, lambda: list(dss_cuda.dss_vector_plain(
+                               *pairs[0], im, fg.e_rot, links, p,
+                               fg.wrap))),
             "dss_uvw": (5, lambda sh: lambda u, v, w: dss_cuda._dss_uvw_cuda(
                 u, v, im, fg.e_rot, links, p, flags, w, sh),
                 sets, lambda: list(dss_cuda.dss_uvw_plain(
                     *sets[0][:2], im, fg.e_rot, links, p, sets[0][2],
                     fg.wrap)))}
         for name, (nf, make, args, plain) in kernels.items():
+            if name[4:] not in modes:
+                continue
             want = plain()
             rule = dss_cuda.dss_launch_shape(nz, Pn, An, Bn, p, dtype, nf,
                                              links=bool(links))
@@ -174,56 +184,10 @@ def sweep_band(dev):
                               "kernel": name, "rule": rule._asdict(),
                               "rule_ms": rule_ms, "shapes": len(rows)}),
                   flush=True)
-            for ms, sh in rows[:10]:
+            for ms, sh in rows:
                 print(f"  {ms:.5f} ms rows {sh.rows:3d} levels {sh.levels:2d}"
                       f" ring {sh.ring} threads {sh.threads} blocks "
                       f"{sh.blocks}", flush=True)
-
-
-def sweep_vector(dev):
-    cfg = tm.ModelConfig(grid_kind=tm.GridKind.CUBED_SPHERE, ne=A // ORDER,
-                         order=ORDER, nz=K, ztop=30000.0, dtype=torch.float32)
-    geom = nh_model.build_nh_sphere_geometry(cfg)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    stream = torch.cuda.current_stream().cuda_stream
-    with tempfile.TemporaryDirectory() as tmp:
-        procs = []
-        for th, lv in VECTOR_VARIANTS:
-            out = str(pathlib.Path(tmp) / f"dss_{th}_{lv}.so")
-            cmd = [build.nvcc_path(), *build.NVCC_FLAGS, f"-DDSS_THREADS={th}",
-                   f"-DDSS_LEVELS={lv}", "-o", out,
-                   str(build.CSRC / "dss.cu")]
-            procs.append((th, lv, out, subprocess.Popen(cmd)))
-        for th, lv, _, proc in procs:
-            if proc.wait() != 0:
-                raise RuntimeError(f"nvcc failed for variant {(th, lv)}")
-        for dtype, sfx in ((torch.float32, "f32"), (torch.float64, "f64")):
-            fg = fast.build_fast_geometry(geom, dtype=dtype, device=dev)
-            imult, rot = fg.inv_mult, fg.e_rot.contiguous()
-            two = [tuple(torch.randn((K, P, A, A), dtype=dtype, device=dev,
-                                     generator=gen) for _ in range(2))
-                   for _ in range(8)]
-            wu, wv = dss_cuda.dss_vector_plain(*two[0], imult, rot,
-                                               fg.dss_links, ORDER)
-            for th, lv, so, _ in procs:
-                fv = getattr(ctypes.CDLL(so), "dss_vector_" + sfx)
-                fv.argtypes = build.SIGNATURES["dss"]["dss_vector_" + sfx]
-                fv.restype = ctypes.c_int
-
-                def run(u, v):
-                    uo, vo = torch.empty_like(u), torch.empty_like(v)
-                    if fv(u.data_ptr(), v.data_ptr(), imult.data_ptr(),
-                          rot.data_ptr(), fg.dss_table.data_ptr(),
-                          uo.data_ptr(), vo.data_ptr(), K, P, A, A, ORDER,
-                          len(fg.dss_links), 0, stream):
-                        raise RuntimeError("launch failed")
-                    return uo, vo
-
-                gu, gv = run(*two[0])
-                err = float((gu - wu).abs().max() + (gv - wv).abs().max())
-                ms = time_cuda(run, two, 40, queued=True)
-                print(f"{sfx} dss_vector threads {th:4d} levels {lv:3d}: "
-                      f"{ms:.4f} ms  max-abs err {err:.1e}", flush=True)
 
 
 if __name__ == "__main__":

@@ -4,36 +4,32 @@
 Run from the repository root on a machine with an NVIDIA Hopper card and
 nvcc:
 
-    python3 -m tempestmodel_tpu_torch.kernels.tune_fused
+    python3 -m tempestmodel_tpu_torch.kernels.tune_fused \
+        [stage | implicit | banded]
 
-Compiles ``csrc/banded_multi.cu`` once per variant of its ``-D``
-tunables into a temporary directory, swaps each variant in behind the
-wrapper, holds its result against the default build's, and prints the
-device time per launch of ``banded_solve_multi`` (the moist wave's n 30,
-q 1, R 3; its register-window and its read-back form) at the flagship
-shapes (ne30 p4 L30), float32 and float64 (``dss_uvw`` takes its launch
-shape at run time: ``kernels/tune_dss.py`` sweeps it).
-``fused_stage`` and ``fused_implicit_update`` take their launch shapes at
-run time: the default build is launched at every shape of ``STAGE_SHAPES``
-(tile, levels per block, ring depth), one base and two, without tracers and
-with three species, and at every shape of ``IMPLICIT_COLS`` x
-``IMPLICIT_THREADS`` (columns and threads a block) at the flagship's 86 400
-columns and Schar's 1600 (nex 100, 40 levels), without and with the time
-term; each is held against the rules' shape
-(``stage_cuda.stage_launch_shape``, ``implicit_cuda.implicit_launch_shape``).
-Times are taken as in ``chip_smoke.py``: launches queued behind a busy
-device; every flagship launch reads more than the L2 holds.
-
-    python3 -m tempestmodel_tpu_torch.kernels.tune_fused [stage | implicit]
-
-``stage`` and ``implicit`` sweep that kernel only.
+The three kernels take their launch shapes at run time (no rebuild): the
+default build is launched at every shape of ``STAGE_SHAPES`` (tile, levels
+per block, ring depth) of ``fused_stage``, one base and two, without
+tracers and with three species; at every shape of ``IMPLICIT_COLS`` x
+``IMPLICIT_THREADS`` (columns and threads a block) of
+``fused_implicit_update`` at the flagship's 86 400 columns and Schar's 1600
+(nex 100, 40 levels), without and with the time term; and at every shape
+of ``MULTI_COLS`` x ``MULTI_CHUNKS`` (columns a block, rows an mbarrier),
+with 1 to R groups of threads, of ``banded_solve_multi``'s tile form and of ``MULTI_COLS`` of its stream form
+at the moist wave's systems (n 30, q 1, R 3) and at n 30, q 4, R 5, the
+flagship's 86 400 columns; each held against the rules' shape
+(``stage_cuda.stage_launch_shape``, ``implicit_cuda.implicit_launch_shape``,
+``cuda_banded.banded_multi_launch_shape``), float32 and float64.  Times are
+taken as in ``chip_smoke.py``: launches queued behind a busy device; every
+flagship launch reads more than the L2 holds.  With an argument, only that
+kernel is swept.  ``compile_variants`` and ``load`` build and load ``-D``
+variants of a source for ``kernels/tune_tail.py``.
 """
 
 import ctypes
 import pathlib
 import subprocess
 import sys
-import tempfile
 
 import torch
 
@@ -48,11 +44,9 @@ from tempestmodel_tpu_torch.ops import cuda_banded
 from tempestmodel_tpu_torch.testcases.nonhydro_sphere import (
     BaroclinicWaveUMJS)
 
-# source stem -> variants of its -D flags (the first is the default build)
-VARIANTS = {
-    "banded_multi": [{}] + [{"BANDED_MULTI_THREADS": t}
-                            for t in (32, 64, 256)],
-}
+# launch shapes of banded_solve_multi: columns a block x rows an mbarrier
+MULTI_COLS = (32, 64, 128, 256)
+MULTI_CHUNKS = (1, 2, 4, 8)
 # launch shapes of the stage kernel: (TA, TB) x levels per block x ring
 STAGE_TILES = ((4, 40), (4, 24), (8, 24), (4, 60), (4, 32), (8, 40),
                (8, 8), (12, 12), (8, 16), (4, 20), (4, 16))
@@ -66,11 +60,11 @@ NE, ORDER, NZ, DT = 30, 4, 30, 100.0
 NTR = 3
 
 
-def compile_variants(tmp, all_variants=None):
-    """One nvcc per (source, flags) pair of ``all_variants`` (default:
-    ``VARIANTS``), all started together; returns [(stem, flags, path)]."""
+def compile_variants(tmp, all_variants):
+    """One nvcc per (source, flags) pair of ``all_variants`` ({stem: [flags
+    dict, ...]}), all started together; returns [(stem, flags, path)]."""
     procs = []
-    for stem, variants in (all_variants or VARIANTS).items():
+    for stem, variants in all_variants.items():
         for i, flags in enumerate(variants):
             out = str(pathlib.Path(tmp) / f"{stem}_{i}.so")
             cmd = [build.nvcc_path(), *build.NVCC_FLAGS,
@@ -109,20 +103,18 @@ def main(argv=()):
     build.build_all()
     only = list(argv)[:1]
     tc = BaroclinicWaveUMJS(pert="exp")
-    with tempfile.TemporaryDirectory() as tmp:
-        libs = [] if only else compile_variants(tmp)
-        for dtype, sfx in ((torch.float32, "f32"), (torch.float64, "f64")):
-            cfg = tm.ModelConfig(
-                grid_kind=tm.GridKind.CUBED_SPHERE, ne=NE, order=ORDER,
-                nz=NZ, ztop=tc.ztop, dt=DT, vertical_solver="pallas",
-                dtype=dtype)
-            geom = nh_model.build_nh_sphere_geometry(cfg, ztop=tc.ztop)
-            if only in ([], ["stage"]):
-                sweep_stage(cfg, geom, dtype, sfx, dev)
-            if only in ([], ["implicit"]):
-                sweep_implicit(cfg, geom, tc, dtype, sfx, dev)
-            if not only:
-                sweep(dtype, sfx, dev, libs)
+    for dtype, sfx in ((torch.float32, "f32"), (torch.float64, "f64")):
+        cfg = tm.ModelConfig(
+            grid_kind=tm.GridKind.CUBED_SPHERE, ne=NE, order=ORDER,
+            nz=NZ, ztop=tc.ztop, dt=DT, vertical_solver="pallas",
+            dtype=dtype)
+        geom = nh_model.build_nh_sphere_geometry(cfg, ztop=tc.ztop)
+        if only in ([], ["stage"]):
+            sweep_stage(cfg, geom, dtype, sfx, dev)
+        if only in ([], ["implicit"]):
+            sweep_implicit(cfg, geom, tc, dtype, sfx, dev)
+        if only in ([], ["banded"]):
+            sweep_banded(dtype, sfx, dev)
     return 0
 
 
@@ -252,55 +244,43 @@ def sweep_stage(cfg, geom, dtype, sfx, dev):
                           flush=True)
 
 
-def sweep(dtype, sfx, dev, libs):
-    # the moist wave's tracer systems: two sets cycle through the L2
-    gen = torch.Generator(device=dev).manual_seed(0)
+def sweep_banded(dtype, sfx, dev):
+    """Time banded_solve_multi at every launch shape of MULTI_COLS x
+    MULTI_CHUNKS (tile form) and MULTI_COLS (stream form) that fits, at
+    the moist wave's systems and at n 30, q 4, R 5 (two sets of inputs
+    cycle through the L2), each held against the rule's shape."""
+    from tempestmodel_tpu_torch.kernels import banded_edges
     ncol = 6 * (NE * ORDER) ** 2
-    systems = []
-    for _ in range(2):
-        bands = torch.randn((NZ, 3, ncol), dtype=dtype, device=dev,
-                            generator=gen)
-        bands[:, 1] += 12.0
-        bands[0, 0] = 0.0
-        bands[-1, 2] = 0.0
-        systems.append((bands, torch.randn((NZ, NTR, ncol), dtype=dtype,
-                                           device=dev, generator=gen)))
-
-    def run_multi(window):
-        return lambda b=systems[0][0], r=systems[0][1]: [
-            cuda_banded._banded_solve_multi_cuda(b, r, 1, window=window)]
-
-    # name -> (source stem, checked function, timed function, its argument
-    # sets, repetitions)
-    kernels = {
-        "banded_solve_multi": ("banded_multi", run_multi(True),
-                               run_multi(True), systems, 20),
-        "banded_solve_multi(read-back form)": (
-            "banded_multi", run_multi(False), run_multi(False), systems, 20),
-    }
-    default = dict(build._libs)
-    want = {name: k[1]() for name, k in kernels.items()}
-    torch.cuda.synchronize()
-    try:
-        for stem, flags, path in libs:
-            build._libs[stem] = load(stem, path)
-            for name, (kstem, check, timed, sets, reps) in kernels.items():
-                if kstem != stem:
-                    continue
-                try:
-                    err = rel_err(check(), want[name])
-                except RuntimeError as exc:
-                    # a variant whose tiles exceed the shared-memory limit
-                    # at this dtype is refused at the launch: say so, go on
-                    print(f"{sfx} {name} {flags}: does not launch ({exc})",
-                          flush=True)
-                    continue
-                ms = time_cuda(timed, sets, reps, queued=True)
-                print(f"{sfx} {name} {flags or 'default'}: {ms:.4f} ms  "
-                      f"rel err vs default build {err:.1e}", flush=True)
-            build._libs[stem] = default[stem]
-    finally:
-        build._libs.update(default)
+    for q, R in ((1, NTR), (4, 5)):
+        sets = []
+        for seed in range(2):
+            b, r = banded_edges.systems(NZ, q, R, ncol, seed)
+            sets.append((torch.as_tensor(b, dtype=dtype, device=dev),
+                         torch.as_tensor(r, dtype=dtype, device=dev)))
+        rule = cuda_banded.banded_multi_launch_shape(NZ, q, R, ncol, dtype)
+        want = cuda_banded._banded_solve_multi_cuda(*sets[0], q, rule)
+        label = f"{sfx} banded_solve_multi n{NZ} q{q} R{R}"
+        ms = time_cuda(lambda b, r: cuda_banded._banded_solve_multi_cuda(
+            b, r, q, rule), sets, 20, queued=True)
+        print(f"{label} rule {rule.form} C{rule.cols} T{rule.threads} chunk "
+              f"{rule.chunk}: {ms:.4f} ms", flush=True)
+        shapes = [dict(form="tile", cols=c, chunk=h, threads=c * k)
+                  for c in MULTI_COLS for h in MULTI_CHUNKS
+                  for k in range(1, R + 1)] + [dict(form="stream", cols=c)
+                                               for c in MULTI_COLS]
+        for kw in shapes:
+            try:
+                sh = cuda_banded.banded_multi_launch_shape(NZ, q, R, ncol,
+                                                           dtype, **kw)
+            except ValueError:
+                continue
+            got = cuda_banded._banded_solve_multi_cuda(*sets[0], q, sh)
+            err = rel_err([got], [want])
+            ms = time_cuda(lambda b, r: cuda_banded._banded_solve_multi_cuda(
+                b, r, q, sh), sets, 20, queued=True)
+            print(f"{label} {sh.form} C{sh.cols} T{sh.threads} chunk "
+                  f"{sh.chunk} ({sh.smem} B): {ms:.4f} ms  rel err vs rule "
+                  f"{err:.1e}", flush=True)
 
 
 if __name__ == "__main__":

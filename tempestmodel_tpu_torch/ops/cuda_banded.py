@@ -2,10 +2,17 @@
 plain version.
 
 Counterpart of the JAX package's ``ops/pallas_banded.py``
-(``banded_solve_pallas``, ``banded_solve_multi_pallas``).  The kernels
-(``csrc/banded.cu``, ``csrc/banded_multi.cu``) run one thread per column with
-the half-bandwidth as a template parameter; see the notes there for their
-design and their bounds on the card.
+(``banded_solve_pallas``, ``banded_solve_multi_pallas``).  Both kernels take
+the half-bandwidth as a template parameter.  ``banded_solve``
+(``csrc/banded.cu``) streams its column from device memory, one thread a
+column.  ``banded_solve_multi`` (``csrc/banded_multi.cu``) stages a tile of
+columns (every band and right-hand-side row) in shared memory by
+asynchronous copies, eliminates there one thread a column, substitutes the
+right-hand sides side by side (a group of threads each) and keeps the
+U-factor and the forward solutions on chip: its launch shape comes from
+``banded_multi_launch_shape`` (the tile form, or for shapes whose tile does
+not fit a block the stream form) and its copy route from ``copy_width``.
+See the notes in the sources for the designs and the bounds on the card.
 
 Layout contract (that of ``models/vertical_banded.banded_solve_t``):
 ``bands (n, 2q+1, ncol)`` with ``band[i, d] = A[i, i+d-q]``, ``rhs
@@ -18,6 +25,10 @@ the plain version only for tensors that lie on the CPU.
 """
 
 from __future__ import annotations
+
+import functools
+import re
+from typing import NamedTuple
 
 import torch
 
@@ -96,25 +107,168 @@ def banded_solve_multi(bands, rhs, q: int):
     return _banded_solve_multi_cuda(bands, rhs, q)
 
 
-def _banded_solve_multi_cuda(bands, rhs, q, window: bool = True):
-    """Launch the kernel.  ``window=False`` forces the form that reads its
-    sliding windows back from the output (what any R above 4 or q above 4
-    takes anyway); ``kernels/tune_fused.py`` times both."""
+# ---------------------------------------------------------------------------
+# launch shape of banded_solve_multi
+# ---------------------------------------------------------------------------
+
+SMEM_MAX = 232448          # shared memory a block can have
+MAX_THREADS = 256          # threads a block at most
+MAX_BARS = 16              # the tile form's mbarriers
+BAR_BYTES = 8 * MAX_BARS
+COLS = 32                  # the rule's columns a block
+CHUNK = 4                  # the rule's rows an mbarrier (tile form)
+FORMS = ("tile", "stream")  # the kernel's FORM_TILE, FORM_STREAM
+
+
+class MultiLaunch(NamedTuple):
+    """Launch shape of ``banded_solve_multi``: ``form`` ``"tile"`` (every
+    row of a tile of ``cols`` columns staged in shared memory, ``chunk``
+    rows an mbarrier; ``threads`` = ``cols`` x the groups of right-hand
+    sides that are substituted side by side) or ``"stream"`` (a thread a
+    column, rows read as they are eliminated, the U rows of ``chunk`` rows
+    kept in shared memory); ``smem`` bytes of shared memory, ``blocks``
+    blocks."""
+    form: str
+    cols: int
+    threads: int
+    chunk: int
+    smem: int
+    blocks: int
+
+
+def tile_smem_bytes(n: int, q: int, R: int, cols: int, esize: int) -> int:
+    """Shared memory of the tile form's block, as ``csrc/banded_multi.cu``
+    lays it out: the mbarriers, then n (2q + 1 + R) rows of ``cols``
+    values."""
+    return BAR_BYTES + n * (2 * q + 1 + R) * cols * esize
+
+
+def stream_smem_bytes(q: int, chunk: int, cols: int, esize: int) -> int:
+    """Shared memory of the stream form's block: the U rows (q + 1 values)
+    of ``chunk`` rows of ``cols`` columns."""
+    return chunk * (q + 1) * cols * esize
+
+
+@functools.lru_cache(maxsize=None)
+def banded_multi_launch_shape(n: int, q: int, R: int, ncol: int, dtype,
+                              cols=None, form=None, chunk=None,
+                              threads=None) -> MultiLaunch:
+    """The launch shape of ``banded_solve_multi`` for ``ncol`` systems of
+    ``n`` rows, half-bandwidth ``q`` and ``R`` right-hand sides.  The
+    keywords override the rule (``kernels/tune_fused.py banded`` sweeps
+    them).  Cached: a launch asks for its shape on the host every time.
+
+    The rule: the tile form with ``COLS`` columns a block, ``CHUNK`` rows
+    an mbarrier (more where n needs more than ``MAX_BARS``) and a group of
+    ``COLS`` threads for each right-hand side (as many as ``MAX_THREADS``
+    allows), where its tile fits a block's shared memory; else the stream
+    form with ``COLS`` columns and as many U rows on chip as fit (all n
+    where they do).  Raises where the shape asked for does not fit or the
+    kernel does not take it."""
+    esize = 4 if dtype == torch.float32 else 8
+    if not 1 <= q <= MAX_Q or R < 1 or n < 1 or ncol < 1:
+        raise ValueError(f"banded_solve_multi takes 1 <= q <= {MAX_Q}, "
+                         f"R >= 1, n >= 1, ncol >= 1: got n={n} q={q} R={R} "
+                         f"ncol={ncol}")
+    C = COLS if cols is None else int(cols)
+    if not (32 <= C <= MAX_THREADS and C % 32 == 0):
+        raise ValueError(f"columns a block must be a multiple of 32 up to "
+                         f"{MAX_THREADS}, got {C}")
+    blocks = -(-ncol // C)
+    if blocks >= 2 ** 31:
+        raise ValueError(f"too many columns: {ncol}")
+    if form is None:
+        form = "tile" if tile_smem_bytes(n, q, R, C, esize) <= SMEM_MAX \
+            else "stream"
+    if form == "tile":
+        nt = C * min(R, MAX_THREADS // C) if threads is None else int(threads)
+        h = max(CHUNK, -(-n // MAX_BARS)) if chunk is None else int(chunk)
+        h = min(h, n)
+        smem = tile_smem_bytes(n, q, R, C, esize)
+        if h < 1 or -(-n // h) > MAX_BARS:
+            raise ValueError(f"rows an mbarrier: {h} gives more than "
+                             f"{MAX_BARS} chunks of {n} rows")
+    elif form == "stream":
+        nt = C if threads is None else int(threads)
+        if nt != C:
+            raise ValueError(f"the stream form runs a thread a column: "
+                             f"{nt} threads for {C} columns")
+        most = SMEM_MAX // stream_smem_bytes(q, 1, C, esize)
+        h = min(n, most) if chunk is None else int(chunk)
+        smem = stream_smem_bytes(q, h, C, esize)
+        if not 1 <= h <= n:
+            raise ValueError(f"U rows on chip must be 1..{n}, got {h}")
+    else:
+        raise ValueError(f"form must be one of {FORMS}, got {form!r}")
+    if nt % C or not C <= nt <= MAX_THREADS:
+        raise ValueError(f"threads must be a multiple of the {C} columns up "
+                         f"to {MAX_THREADS}, got {nt}")
+    if smem > SMEM_MAX:
+        raise ValueError(f"the {form} form of n={n} q={q} R={R} with {C} "
+                         f"columns a block needs {smem} bytes of shared "
+                         f"memory, more than {SMEM_MAX}")
+    return MultiLaunch(form, C, nt, h, smem, blocks)
+
+
+def copy_width(ncol: int, esize: int, ptrs) -> int:
+    """Bytes a staging copy of the tile form moves: 16 (one bulk copy a
+    row) where a row of ncol values and every pointer of ``ptrs`` (ints)
+    are 16-byte multiples, else 8 (``cp.async``) where they are 8-byte
+    multiples, else one value."""
+    for nbytes in (16, 8):
+        if nbytes >= esize and (ncol * esize) % nbytes == 0 \
+                and all(p % nbytes == 0 for p in ptrs):
+            return nbytes
+    return esize
+
+
+def launch_config(bands, rhs, q: int, launch: MultiLaunch = None) -> dict:
+    """What a launch of ``banded_solve_multi`` on these inputs takes: its
+    launch shape (``launch``, default the rule's), its copy width and
+    route (for the report lines of ``chip_smoke.py``)."""
     n, R, ncol = rhs.shape
+    sh = launch or banded_multi_launch_shape(n, q, R, ncol, bands.dtype)
+    esize = bands.element_size()
+    copy = copy_width(ncol, esize, [bands.data_ptr(), rhs.data_ptr()])
+    route = ("none: rows read as eliminated" if sh.form == "stream" else
+             "cp.async.bulk (TMA 1-D), a row a copy" if copy == 16 else
+             f"cp.async {copy} B")
+    return dict(sh._asdict(), copy=copy, copy_route=route)
+
+
+_ENTRY = re.compile(r"multi_(tile|stream)_kernelI([fd])Li(\d)E")
+
+
+def kernel_resources() -> dict:
+    """Registers and spill bytes of ``banded_solve_multi``'s instantiations
+    (form x value type x q) as ``nvcc -Xptxas -v`` reported them at the
+    build, keyed ``tile f32 q1``, ... (empty before a build)."""
+    out = {}
+    for name, use in build.ptxas_usage("banded_multi").items():
+        m = _ENTRY.search(name)
+        if m:
+            out[f"{m.group(1)} {'f32' if m.group(2) == 'f' else 'f64'} "
+                f"q{m.group(3)}"] = use
+    return out
+
+
+def _banded_solve_multi_cuda(bands, rhs, q, launch: MultiLaunch = None):
+    """Launch the kernel; ``launch``: a ``MultiLaunch`` in place of the
+    rule's (the tests and ``kernels/tune_fused.py`` force each form)."""
+    n, R, ncol = rhs.shape
+    cfg = launch_config(bands, rhs, q, launch)
     lib = build.library("banded_multi")
     fn = lib.banded_solve_multi_f32 if bands.dtype == torch.float32 \
         else lib.banded_solve_multi_f64
     with torch.cuda.device(bands.device):
         x = torch.empty_like(rhs)
-        # scratch of the kernel: the U-factor rows (the forward solutions
-        # are parked in ``x``)
-        ufac = torch.empty((n, q + 1, ncol), dtype=bands.dtype,
-                           device=bands.device)
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(bands.data_ptr(), rhs.data_ptr(), x.data_ptr(),
-                 ufac.data_ptr(), n, R, ncol, q, int(window), stream)
+        err = fn(bands.data_ptr(), rhs.data_ptr(), x.data_ptr(), n, R, ncol,
+                 q, FORMS.index(cfg["form"]), cfg["cols"], cfg["threads"],
+                 cfg["chunk"], cfg["copy"],
+                 torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"banded_solve_multi kernel launch failed "
-                           f"(cudaGetLastError = {err})")
+        raise RuntimeError(f"banded_solve_multi kernel launch failed (error "
+                           f"{err}; -1: launch shape or copy width not "
+                           f"taken, -2: shared memory; launch {cfg})")
     launch_counts["banded_solve_multi"] += 1
     return x

@@ -204,8 +204,8 @@ def test_multi_wrapper_raises_on_what_the_kernel_does_not_take(case):
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
                                        (torch.float32, 1e-4)])
 def test_cuda_multi_kernel_matches_plain(dtype, tol):
-    """Both forms of the kernel (register windows, read-back windows), a
-    ragged width, R above the instantiated window sizes."""
+    """Both forms of the kernel (the tile staged in shared memory, the
+    stream form), a ragged width, R above 4."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no interpret mode")
     for q, R, n, ncol in ((1, 3, 30, 1000), (4, 5, 31, 257), (2, 1, 9, 33),
@@ -218,7 +218,9 @@ def test_cuda_multi_kernel_matches_plain(dtype, tol):
         x = cuda_banded.banded_solve_multi(tb, tr, q)
         torch.cuda.synchronize()
         assert launch_counts["banded_solve_multi"] == before + 1
-        y = cuda_banded._banded_solve_multi_cuda(tb, tr, q, window=False)
+        y = cuda_banded._banded_solve_multi_cuda(
+            tb, tr, q, cuda_banded.banded_multi_launch_shape(
+                n, q, R, ncol, dtype, form="stream"))
         torch.cuda.synchronize()
         for got in (x, y):
             for r in range(R):

@@ -1,9 +1,10 @@
-"""The band kernels' host side (``dss_cuda.dss_launch_shape``,
-``copy_width``), the edge shapes of ``kernels/dss_edges.py`` (the plain DSS
-against the JAX Pallas kernels in interpret mode at each shape, and the
-kernels against the plain versions on a card), and the sparse operator that
-``chip_smoke.py`` times as the DSS kernels' library yardstick.  No JAX step
-is compiled here."""
+"""The band kernel's host side (``dss_cuda.dss_launch_shape`` for its three
+modes ``dss_scalar``, ``dss_vector`` and ``dss_uvw``, ``copy_width``, the
+build report's instantiations), the edge shapes of ``kernels/dss_edges.py``
+(the plain DSS against the JAX Pallas kernels in interpret mode at each
+shape, and the kernels against the plain versions on a card), and the
+sparse operator that ``chip_smoke.py`` times as the DSS kernels' library
+yardstick.  No JAX step is compiled here."""
 
 import math
 
@@ -33,8 +34,12 @@ def _ids(shapes):
     return ["x".join(map(str, s)) for s in shapes]
 
 
+MODES = [1, 2, 5]
+MODE_IDS = ["scalar", "vector", "uvw"]
+
+
 @pytest.mark.parametrize("dtype", [F32, F64], ids=["f32", "f64"])
-@pytest.mark.parametrize("nfields", [1, 5], ids=["scalar", "uvw"])
+@pytest.mark.parametrize("nfields", MODES, ids=MODE_IDS)
 @pytest.mark.parametrize("shape", SHAPES, ids=_ids(SHAPES))
 def test_dss_launch_shape_fits_a_block(shape, nfields, dtype):
     """Shared memory within a block's 227 KB and as the kernel lays it
@@ -57,24 +62,26 @@ def test_dss_launch_shape_fits_a_block(shape, nfields, dtype):
     # dss_uvw's K + 1 steps: the bottom interface is a run of its own
     assert 1 <= sh.levels <= K
     assert sh.blocks == (A // sh.rows) * P * (math.ceil(K / sh.levels)
-                                              + (nfields > 1))
+                                              + (nfields == 5))
     assert 1 <= sh.ring <= dss_cuda.MAX_RING
-    assert nfields == 1 or sh.ring >= 2
+    assert nfields != 5 or sh.ring >= 2
 
 
 @pytest.mark.parametrize("dtype", [F32, F64], ids=["f32", "f64"])
-@pytest.mark.parametrize("nfields", [1, 5], ids=["scalar", "uvw"])
+@pytest.mark.parametrize("nfields", MODES, ids=MODE_IDS)
 def test_dss_launch_shape_fills_the_card_at_the_flagship(nfields, dtype):
     """More than a full wave: at least two blocks for every SM (one stages
     while another sums), with the levels (K = 30) and the moist wave's
-    flat tracer field (K = 90)."""
+    flat tracer field (K = 90); the float32 vector mode at least one block
+    for every SM (its sweep found 1.6 an SM, in longer runs, fastest)."""
+    waves = 1 if (nfields, dtype) == (2, F32) else 2
     for K in (30, 90):
         sh = dss_cuda.dss_launch_shape(K, 6, 120, 120, 4, dtype, nfields)
-        assert sh.blocks >= 2 * dss_cuda.SMS
+        assert sh.blocks >= waves * dss_cuda.SMS
         assert sh.levels >= 2 or K * 6 * 120 // sh.rows < 4 * dss_cuda.SMS
 
 
-@pytest.mark.parametrize("nfields", [1, 5], ids=["scalar", "uvw"])
+@pytest.mark.parametrize("nfields", MODES, ids=MODE_IDS)
 def test_dss_launch_shape_does_not_starve_schar(nfields):
     """Schar's slab (1600 nodes a level): a block a level, at least one
     block a level in both layouts."""
@@ -84,13 +91,18 @@ def test_dss_launch_shape_does_not_starve_schar(nfields):
 
 
 @pytest.mark.parametrize("case", ["p17", "rows", "uvw_levels", "uvw_ring",
-                                  "too_wide"])
+                                  "too_wide", "vector_levels", "vector_ring",
+                                  "vector_too_wide", "no_such_mode"])
 def test_dss_launch_shape_raises_where_the_kernel_cannot_run(case):
     args = {"p17": ((4, 6, 34, 34, 17, F32, 1), {}),
             "rows": ((4, 6, 16, 16, 4, F32, 1), dict(rows=12)),
             "uvw_levels": ((4, 6, 16, 16, 4, F32, 5), dict(levels=0)),
             "uvw_ring": ((4, 6, 16, 16, 4, F32, 5), dict(ring=1)),
-            "too_wide": ((4, 1, 4, 2000, 4, F64, 5), {})}[case]
+            "too_wide": ((4, 1, 4, 2000, 4, F64, 5), {}),
+            "vector_levels": ((4, 6, 16, 16, 4, F32, 2), dict(levels=0)),
+            "vector_ring": ((4, 6, 16, 16, 4, F32, 2), dict(ring=5)),
+            "vector_too_wide": ((4, 1, 4, 6000, 4, F64, 2), {}),
+            "no_such_mode": ((4, 6, 16, 16, 4, F32, 3), {})}[case]
     with pytest.raises(ValueError):
         dss_cuda.dss_launch_shape(*args[0], **args[1])
 
@@ -104,6 +116,41 @@ def test_dss_copy_width(B, esize, ptrs, want):
     """16-byte bulk copies where a row and every pointer allow them, else
     8-byte copies, else one value; an absent pointer (0) allows all."""
     assert dss_cuda.copy_width(B, esize, ptrs) == want
+
+
+def test_dss_vector_mode_takes_a_ring_of_one_and_no_bottom_run():
+    """Unlike ``dss_uvw``, the vector mode walks K steps (no bottom
+    interface of its own) and may stage through one stage; its block
+    holds two field slots a stage and the edge rotations, no W slot."""
+    sh = dss_cuda.dss_launch_shape(8, 6, 16, 16, 4, F32, 2, ring=1,
+                                   levels=3, rows=4)
+    assert sh.ring == 1 and sh.blocks == 4 * 6 * 3
+    nedge = 2 * (4 + 2) + 2 * 16
+    fs = 6 * 16 + 44                    # span, edge lines (to 16 bytes)
+    assert sh.smem == dss_cuda.BAR_BYTES + 4 * (
+        2 * fs + 4 * 16 + 4 * nedge)
+    cart = dss_cuda.dss_launch_shape(8, 1, 16, 16, 4, F32, 2, ring=2,
+                                     rows=4, links=False)
+    assert cart.smem == dss_cuda.BAR_BYTES + 4 * (2 * 2 * 6 * 16 + 4 * 16)
+
+
+def test_band_kernel_resources_are_read_from_the_build_report(monkeypatch):
+    """The 24 instantiations (value type x mode x grid family x p 4 or
+    any p) are named from their mangled names."""
+    report = {}
+    for t in "fd":
+        for cart in "01":
+            for pp in ("4", "0"):
+                for m in "012":
+                    report[f"_ZN12_GLOBAL__N_111band_kernelI{t}Lb{cart}ELi"
+                           f"{pp}ELi{m}EEEvNS_8BandArgsIT_EE"] = {
+                        "registers": 40}
+    report["_ZN12_GLOBAL__N_116dss_state_kernelIfLb0ELb0EEEvv"] = {}
+    monkeypatch.setattr(dss_cuda.build, "ptxas_usage", lambda stem: report)
+    got = dss_cuda.kernel_resources()
+    assert len(got) == 24
+    assert got["f32 vector sphere p4"] == {"registers": 40}
+    assert "f64 uvw cart generic" in got and "f32 scalar cart p4" in got
 
 
 def test_dss_launch_config_reports_the_launch():
@@ -126,6 +173,38 @@ def _jax_wf(wf):
 # against the Pallas kernels in tests/test_torch_dss.py) with launch shapes
 # or offsets, which the plain version does not see
 PALLAS_CASES = [c for c in dss_edges.CASES if not c.startswith("sphere_ne4")]
+
+
+@pytest.mark.parametrize("case", PALLAS_CASES)
+def test_dss_edge_case_vector_plain_matches_pallas(case):
+    """Each edge grid's plain ``dss_vector`` against the JAX Pallas
+    ``dss_vector`` in interpret mode, 1e-13 of each component's scale."""
+    (im, links, rot, wrap, p), _, u, v, _ = dss_edges.case_inputs(
+        case, F64, CPU)
+    want = dss_pallas.dss_vector(jnp.asarray(u.numpy()),
+                                 jnp.asarray(v.numpy()),
+                                 jnp.asarray(im.numpy()),
+                                 jnp.asarray(rot.numpy()), links, p,
+                                 interpret=True, wrap=wrap)
+    got = dss_cuda.dss_vector_plain(u, v, im, rot, links, p, wrap)
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, rtol=0,
+                                   atol=1e-13 * float(np.abs(w).max()))
+
+
+@pytest.mark.parametrize("dtype", [F32, F64], ids=["f32", "f64"])
+@pytest.mark.parametrize("case", list(dss_edges.CASES))
+def test_dss_edge_case_launch_shapes(case, dtype):
+    """Every case's shape of each mode is one the kernel takes: the rule's
+    with the case's overrides, fitting a block."""
+    shapes = dss_edges.launch_shapes(case, dtype)
+    assert tuple(shapes) == dss_edges.KERNELS
+    for kernel, ov in zip(dss_edges.KERNELS, dss_edges.CASES[case][3:]):
+        sh = shapes[kernel]
+        assert sh.smem <= dss_cuda.SMEM_MAX
+        for k, v in ov.items():
+            assert getattr(sh, k) == v, (kernel, k)
 
 
 @pytest.mark.parametrize("case", PALLAS_CASES)
