@@ -19,14 +19,15 @@ and runs these phases, each printing one JSON line:
             two groups of species; each stage line names its launch shape,
             ring depth and copy route, and the build line the registers
             and spills of every instantiation of the stage kernel;
-            ``dss_scalar`` also on their flat 90-row field, the three
+            ``dss_scalar`` also on their flat 90-row field, the four
             modes of the band DSS kernel (``dss_scalar``, ``dss_vector``,
-            ``dss_uvw``) at their edge shapes (p 2-4, one element a
-            panel, unaligned inputs, several blocks' worth of segments a
-            band, rings of one and three stages, two levels, Cartesian
-            wraps along one axis or both), each bit for bit equal to its
-            plain version, each DSS line naming its launch shape and copy
-            route, ``dss_scalar``, ``dss_vector`` and ``dss_scalar2`` timed
+            ``dss_uvw``, ``dss_scalar2``) at their edge shapes (p 2-4, one
+            element a panel, unaligned inputs, several blocks' worth of
+            segments a band, rings of one and three stages, two levels,
+            Cartesian wraps along one axis or both), each bit for bit
+            equal to its plain version (``dss_scalar2`` also to two
+            ``dss_scalar`` launches), each DSS line naming its launch
+            shape and copy route, ``dss_scalar``, ``dss_vector`` and ``dss_scalar2`` timed
             beside one ``torch.sparse.mm`` of the same operator (also
             ``dss_vector`` on the Cartesian grids below), ``nu4_pass1``
             and ``nu4_pass2`` at their edge
@@ -37,10 +38,16 @@ and runs these phases, each printing one JSON line:
             ``banded_solve_multi`` at the moist wave's shapes, at n 30,
             q 4, R 5 and at the edge shapes of ``kernels/banded_edges.py``
             (2-300 rows, q 1-8, R 1-5, 1-1000 columns, unaligned inputs,
-            tiles of 64 columns, the stream form), each line naming its
-            form, tile, copy route; the build line also gives the
-            registers and spills of every instantiation of the band DSS
-            kernel and of ``banded_solve_multi``); then what
+            tiles of 64 columns, the stream form), ``banded_solve`` at the
+            flagship's Newton systems (n 91, q 4) in each of its forms (the
+            same bits in each), at n 30, q 4, with the memory a launch
+            allocates, and at its edge shapes (2-800 rows, q 1-8, 1-1000
+            columns, unaligned inputs, blocks of 32, 16 and 8 columns,
+            fewer rows than slots, tiny and huge pivots, the tile and
+            stream forms), each line naming its form, columns, ring or
+            tile, copy route; the build line also gives the registers and
+            spills of every instantiation of the band DSS kernel and of
+            ``csrc/banded_multi.cu``); then what
             periodic Cartesian grids reach: the five DSS kernels with the
             wrap-sum at the Schar slice's shapes in both layouts and on a
             128 x 128 plane, ``fused_stage`` with ``xz_zero`` on the Schar
@@ -257,13 +264,15 @@ def check_implicit_edges(dtype, dev):
 
 
 def check_dss_edges(dtype, dev):
-    """Phase 3: ``dss_scalar``, ``dss_vector`` and ``dss_uvw`` at the edge
-    shapes of ``kernels/dss_edges.py`` against their plain versions, bit for
-    bit (cubed spheres of ne 1-4 with p 2-4, periodic Cartesian panels
-    wrapped along one axis or both, unaligned inputs, bands of several
-    blocks' worth of segments, rings of one and three stages, two levels);
-    ``dss_uvw`` with two bases and one, its bottom W row also alone, on the
-    panel edges and at the corners."""
+    """Phase 3: the band kernel's four modes ``dss_scalar``,
+    ``dss_vector``, ``dss_uvw`` and ``dss_scalar2`` at the edge shapes of
+    ``kernels/dss_edges.py`` against their plain versions, bit for bit
+    (cubed spheres of ne 1-4 with p 2-4, periodic Cartesian panels wrapped
+    along one axis or both, unaligned inputs, bands of several blocks' worth
+    of segments, rings of one and three stages, two levels); ``dss_uvw``
+    with two bases and one, its bottom W row also alone, on the panel edges
+    and at the corners; ``dss_scalar2`` also bit for bit against two
+    ``dss_scalar`` launches."""
     from tempestmodel_tpu_torch.kernels import dss_edges
     tag = "f32" if dtype == torch.float32 else "f64"
     tol = 1e-6 if dtype == torch.float32 else 1e-13
@@ -271,17 +280,23 @@ def check_dss_edges(dtype, dev):
         got = dss_edges.run_case(case, dtype, dev)
         emit({"phase": "kernel", "dtype": tag, "tol": tol,
               "name": "dss_edge", "case": case, **got})
-        if not (got["max_err"] <= tol and got["bitwise"]):
+        if not (got["max_err"] <= tol and got["bitwise"]
+                and got["scalar2_equals_two_launches"]):
             raise RuntimeError(f"DSS edge case {case} {tag}: rel err "
                                f"{got['err_by_output']} (tolerance {tol}), "
-                               f"bitwise {got['bitwise']}")
+                               f"bitwise {got['bitwise']}, dss_scalar2 "
+                               f"equal to two dss_scalar launches "
+                               f"{got['scalar2_equals_two_launches']}")
 
 
 def check_banded_edges(dtype, dev):
-    """Phase 3: ``banded_solve_multi`` at the edge shapes of
-    ``kernels/banded_edges.py`` against its plain version (2-300 rows, q
-    1-8, R 1-5, 1-1000 columns, unaligned inputs, tiles of 64 columns, two
-    rows an mbarrier, the stream form forced and chosen by shape)."""
+    """Phase 3: ``banded_solve_multi`` and ``banded_solve`` at the edge
+    shapes of ``kernels/banded_edges.py`` against their plain versions
+    (2-800 rows, q 1-8, R 1-5, 1-1000 columns, unaligned inputs, tiles of
+    64 columns, two rows an mbarrier, the stream form forced and chosen by
+    shape; ``banded_solve``'s ring form with blocks of 32, 16 and 8 columns
+    and fewer rows than its ring has slots, pivots past both ends of the
+    range of its quick quotients, and its other forms forced)."""
     from tempestmodel_tpu_torch.kernels import banded_edges
     tag = "f32" if dtype == torch.float32 else "f64"
     tol = 1e-4 if dtype == torch.float32 else 1e-10
@@ -294,6 +309,14 @@ def check_banded_edges(dtype, dev):
                                f"rel err {got['err_by_species']} > {tol} "
                                f"or form {got['launch']['form']} is not "
                                f"{spec[6]}")
+    for case, spec in banded_edges.SOLVE_CASES.items():
+        got = banded_edges.run_solve_case(case, dtype, dev)
+        emit({"phase": "kernel", "dtype": tag, "tol": tol,
+              "name": "banded_solve_edge", "case": case, **got})
+        if not got["max_err"] <= tol or got["launch"]["form"] != spec[5]:
+            raise RuntimeError(f"banded_solve edge case {case} {tag}: rel "
+                               f"err {got['max_err']} > {tol} or form "
+                               f"{got['launch']['form']} is not {spec[5]}")
 
 
 def check_hyper_edges(dtype, dev):
@@ -432,7 +455,7 @@ def check_fused_kernels(cfg, geom, state, dtype, rows, dev):
            "library_ms": None}
     emit({"phase": "kernel", "dtype": tag, "tol": dss_tol, **row,
           "launch": dss_cuda.launch_config(
-              upd["U"], fgt.p, 5, dss_cuda._uvw_ptrs(upd["U"], upd["V"], wf,
+              upd["U"], fgt.p, "uvw", dss_cuda._uvw_ptrs(upd["U"], upd["V"], wf,
                                                       fgt.inv_mult), True)})
     if f32:
         rows["dss_uvw"] = row
@@ -639,12 +662,14 @@ def check_tail_kernels(geom, dtype, rows, dev):
     torch.cuda.synchronize()
     w1, w2 = dss_cuda.dss_scalar2_plain(d["Rt"], d["Rho"], *sc)
     err = max(rel_err(g1, w1), rel_err(g2, w2))
+    bitwise = torch.equal(g1, w1) and torch.equal(g2, w2)
     equal = all(torch.equal(g, dss_cuda.dss_scalar(d[k], *sc,
                                                    table=fgt.dss_table))
                 for g, k in ((g1, "Rt"), (g2, "Rho")))
-    if not err <= dss_tol or not equal:
+    if not err <= dss_tol or not equal or not bitwise:
         raise RuntimeError(f"dss_scalar2 {tag}: rel err {err} (tol "
-                           f"{dss_tol}), equal to two launches: {equal}")
+                           f"{dss_tol}), bit for bit equal to the plain "
+                           f"version: {bitwise}, to two launches: {equal}")
     ms = time_cuda(lambda x, y: dss_cuda.dss_scalar2(
         x["Rt"], x["Rho"], *sc, table=fgt.dss_table), sets, reps=40,
         queued=True)
@@ -668,12 +693,16 @@ def check_tail_kernels(geom, dtype, rows, dev):
     row = {"name": "dss_scalar2", "route": "cuda",
            "source": "tempestmodel_tpu_torch/csrc/dss.cu",
            "replaces": "tempestmodel_tpu/fast/dss_pallas.py:231",
-           "shape": [K, P, A, A], "max_abs_err": err,
+           "shape": [K, P, A, A], "max_abs_err": err, "bitwise": bitwise,
            "bitwise_equal_to_separate_launches": equal, "ms": ms,
            "separate_ms": separate_ms, "plain_ms": plain_ms, "bound_ms": bnd,
            "bound_by": by, "library_ms": library_ms,
            "library_rel_err": lib_err}
-    emit({"phase": "kernel", "dtype": tag, "tol": dss_tol, **row})
+    emit({"phase": "kernel", "dtype": tag, "tol": dss_tol, **row,
+          "launch": dss_cuda.launch_config(
+              d["Rt"], fgt.p, "scalar2",
+              dss_cuda._scalar2_ptrs(d["Rt"], d["Rho"], fgt.inv_mult),
+              True)})
     if f32:
         rows["dss_scalar2"] = row
     torch.cuda.empty_cache()
@@ -924,7 +953,8 @@ def check_kernels(fg, cfg, geom, state, dev):
                "library_ms": library_ms, "library_rel_err": lib_err}
         emit({"phase": "kernel", "dtype": tag, "tol": dss_tol[dtype], **row,
               "launch": dss_cuda.launch_config(
-                  xs[0], fg.p, 1, dss_cuda._scalar_ptrs(xs[0], imult), True)})
+                  xs[0], fg.p, "scalar", dss_cuda._scalar_ptrs(xs[0], imult),
+                  True)})
         if dtype == torch.float32:
             rows["dss_scalar"] = row
 
@@ -972,25 +1002,60 @@ def check_kernels(fg, cfg, geom, state, dev):
                "bitwise": bitwise}
         emit({"phase": "kernel", "dtype": tag, "tol": dss_tol[dtype], **row,
               "launch": dss_cuda.launch_config(
-                  us[0], fg.p, 2, dss_cuda._vector_ptrs(us[0], vs[0], imult),
-                  True)})
+                  us[0], fg.p, "vector",
+                  dss_cuda._vector_ptrs(us[0], vs[0], imult), True)})
         if dtype == torch.float32:
             rows["dss_vector"] = row
         del xs, us, vs, xw
 
         # --- banded_solve ---------------------------------------------------
+        # the unfused path's Newton systems (n 91, q 4) and n 30, q 4, each
+        # in the rule's form and in the forms it does not choose there (the
+        # same bits in every form)
         bands, rhs = make_bands(n, q, ncol, dtype, gen, dev)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         got = cuda_banded.banded_solve(bands, rhs, q)
         torch.cuda.synchronize()
+        allocates = (torch.cuda.max_memory_allocated() - base) / 1e6
         want = cuda_banded.banded_solve_plain(bands, rhs, q)
         err = rel_err(got, want)
-        # ragged width (not a multiple of the block) and other bandwidths
-        for qq, nn, nc in ((1, 17, 1001), (2, 25, 130), (8, 40, 257)):
-            b2, r2 = make_bands(nn, qq, nc, dtype, gen, dev)
-            g2 = cuda_banded.banded_solve(b2, r2, qq)
+        if allocates > 1.01e-6 * got.numel() * esize:
+            raise RuntimeError(f"banded_solve {tag}: a launch allocated "
+                               f"{allocates} MB, more than its output's "
+                               f"{got.numel() * esize / 1e6}")
+        forms, n30 = {}, {}
+        for form in cuda_banded.SOLVE_FORMS:
+            try:
+                sh = cuda_banded.banded_solve_launch_shape(n, q, ncol, dtype,
+                                                           form=form)
+            except ValueError:
+                continue              # the tile form's tile does not fit
+            g2 = cuda_banded._banded_solve_cuda(bands, rhs, q, sh)
             torch.cuda.synchronize()
-            err = max(err, rel_err(
-                g2, cuda_banded.banded_solve_plain(b2, r2, qq)))
+            if not torch.equal(g2, got):
+                raise RuntimeError(f"banded_solve {tag}: the {form} form's "
+                                   f"solution is not the rule's bit for bit "
+                                   f"(every form divides alike)")
+            forms[form] = {"max_abs_err": rel_err(g2, want),
+                           "launch": cuda_banded.launch_config(bands, rhs, q,
+                                                               sh),
+                           "ms": time_cuda(
+                               lambda: cuda_banded._banded_solve_cuda(
+                                   bands, rhs, q, sh), [()], reps=10,
+                               queued=True)}
+            err = max(err, forms[form]["max_abs_err"])
+        b30, r30 = make_bands(30, q, ncol, dtype, gen, dev)
+        g30 = cuda_banded.banded_solve(b30, r30, q)
+        torch.cuda.synchronize()
+        n30["max_abs_err"] = rel_err(g30, cuda_banded.banded_solve_plain(
+            b30, r30, q))
+        n30["launch"] = cuda_banded.launch_config(b30, r30, q)
+        n30["ms"] = time_cuda(lambda: cuda_banded.banded_solve(b30, r30, q),
+                              [()], reps=20, queued=True)
+        err = max(err, n30["max_abs_err"])
+        del b30, r30, g30
         if not err <= band_tol[dtype]:
             raise RuntimeError(f"banded_solve {tag}: rel err {err} "
                                f"> {band_tol[dtype]}")
@@ -1011,12 +1076,15 @@ def check_kernels(fg, cfg, geom, state, dev):
         flops = n * ncol * (q * (2 * q + 3) + 2 * q + 1)
         bnd, by = bound_ms(nb, flops, dtype)
         row = {"name": "banded_solve", "route": "cuda",
-               "source": "tempestmodel_tpu_torch/csrc/banded.cu",
+               "source": "tempestmodel_tpu_torch/csrc/banded_multi.cu",
                "replaces": "tempestmodel_tpu/ops/pallas_banded.py:185",
                "shape": [n, 2 * q + 1, ncol], "max_abs_err": err, "ms": ms,
                "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
-               "library_ms": library_ms, "library_rel_err": lib_err}
-        emit({"phase": "kernel", "dtype": tag, "tol": band_tol[dtype], **row})
+               "library_ms": library_ms, "library_rel_err": lib_err,
+               "launch_allocates_MB": allocates, "by_form": forms,
+               "n30_q4": n30}
+        emit({"phase": "kernel", "dtype": tag, "tol": band_tol[dtype], **row,
+              "launch": cuda_banded.launch_config(bands, rhs, q)})
         if dtype == torch.float32:
             rows["banded_solve"] = row
         del bands, rhs, got, want
@@ -1221,7 +1289,8 @@ def check_cartesian_dss(fgs, dtype, rows, dev):
             else lib.dss_scalar_f64
         raw = torch.empty_like(d["Rt"])
         cfg = dss_cuda.launch_config(
-            d["Rt"], fg.p, 1, dss_cuda._scalar_ptrs(d["Rt"], im), False)
+            d["Rt"], fg.p, "scalar", dss_cuda._scalar_ptrs(d["Rt"], im),
+            False)
         err = fn(d["Rt"].data_ptr(), im.data_ptr(), ctypes.c_void_p(16),
                  raw.data_ptr(), K, P, A, B, fg.p, 0,
                  int(wrap[0]) | 2 * int(wrap[1]), cfg["rows"],
@@ -1276,6 +1345,15 @@ def check_cartesian_dss(fgs, dtype, rows, dev):
         w1, w2 = dss_cuda.dss_scalar2_plain(d["Rt"], d["Rho"], im, links,
                                             fg.p, wrap)
         errs["dss_scalar2"] = max(rel_err(g1, w1), rel_err(g2, w2))
+        two = [dss_cuda.dss_scalar(d[k], im, links, fg.p, wrap=wrap,
+                                   table=table) for k in ("Rt", "Rho")]
+        torch.cuda.synchronize()
+        if not (torch.equal(g1, w1) and torch.equal(g2, w2)
+                and torch.equal(g1, two[0]) and torch.equal(g2, two[1])):
+            raise RuntimeError(f"cartesian dss_scalar2 {where} {tag}: not bit "
+                               f"for bit equal to the plain version and to "
+                               f"two dss_scalar launches")
+        del two
         if not max(errs.values()) <= tol:
             raise RuntimeError(f"cartesian DSS {where} {tag}: rel err {errs} "
                                f"> {tol}")
@@ -1331,8 +1409,8 @@ def check_cartesian_dss(fgs, dtype, rows, dev):
             library_ms=time_cuda(lambda uv: dss_operator.apply(op, uv), uvs,
                                  reps=50, queued=True),
             launch=dss_cuda.launch_config(
-                d["U"], fg.p, 2, dss_cuda._vector_ptrs(d["U"], d["V"], im),
-                False))
+                d["U"], fg.p, "vector",
+                dss_cuda._vector_ptrs(d["U"], d["V"], im), False))
         del op, uvs
         emit({"phase": "cartesian_kernel", "dtype": tag, "tol": tol,
               "kernels": "dss", "shape": [K, P, A, B], "where": where,
@@ -1588,7 +1666,7 @@ def check_cartesian_slice(dev):
             outs[path] = X
             if path == "kernels":
                 launched[what] = dict(counts.launch_counts)
-        per_step = dict(FUSED_PER_STEP, **(
+        per_step = dict(fused_per_step(fast.engine.DSS_MERGE_DEFAULT), **(
             {"nu4_pass1": 0, "nu4_pass2": 0} if name == "schar" else {}))
         want = {k: 3 * v + (1 if k == "fused_implicit_update" else 0)
                 for k, v in per_step.items()}
@@ -1641,7 +1719,8 @@ def schar_line(dev, smi, launches, profiles, profile):
     config = (f"Schar mountain x-z nex{SCHAR_NEX} p{ORDER} nz{SCHAR_NZ} f32 "
               f"dt{SCHAR_DT:g} nu{SCHAR_NU:g}")
     default = fast.engine.swap_ab_default(geom)
-    per_step = dict(FUSED_PER_STEP, nu4_pass1=0, nu4_pass2=0)
+    per_step = dict(fused_per_step(fast.engine.DSS_MERGE_DEFAULT),
+                    nu4_pass1=0, nu4_pass2=0)
 
     def check(X, what):
         for k, v in X.items():
@@ -1850,13 +1929,14 @@ def main():
         raise RuntimeError(f"the build reported {len(nu4_resources)} of the "
                            f"nu4 kernel's 8 instantiations")
     dss_resources = dss_cuda.kernel_resources()
-    if len(dss_resources) != 24:
+    if len(dss_resources) != 32:
         raise RuntimeError(f"the build reported {len(dss_resources)} of the "
-                           f"band DSS kernel's 24 instantiations")
+                           f"band DSS kernel's 32 instantiations")
     multi_resources = cuda_banded.kernel_resources()
-    if len(multi_resources) != 32:
+    if len(multi_resources) != 48:
         raise RuntimeError(f"the build reported {len(multi_resources)} of "
-                           f"banded_solve_multi's 32 instantiations")
+                           f"the banded solve's 48 instantiations (tile, "
+                           f"stream and ring forms)")
     emit({"phase": "build", "seconds": info["seconds"],
           "built": info["built"], "libraries": len(info["libraries"]),
           "fused_stage_registers_and_spills": resources,
@@ -1870,7 +1950,7 @@ def main():
           "nu4_registers_assumed_by_the_launch_rule": {
               f"f{8 * e} p4": n for e, n in hyper_cuda.REGISTERS.items()},
           "band_dss_registers_and_spills": dss_resources,
-          "banded_solve_multi_registers_and_spills": multi_resources})
+          "banded_solve_registers_and_spills": multi_resources})
 
     # flagship geometry and state (host numpy, then tensors on the card)
     tc = BaroclinicWaveUMJS(pert="exp")

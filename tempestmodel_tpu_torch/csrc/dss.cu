@@ -57,7 +57,7 @@
 // its segment's rows, partners and edges once; a block stages its band's
 // inverse multiplicities (and, for the (U, V) pair, its edge lines'
 // rotations) once, and takes the link table by value in its arguments.
-// The template has three compile-time modes, each instantiated for the
+// The template has four compile-time modes, each instantiated for the
 // cubed sphere and for a Cartesian grid (CART), with p = 4 and any p:
 //   scalar  (`dss_scalar`) one field a stage;
 //   vector  (`dss_vector`) U and V a stage, the rotation applied to the
@@ -65,7 +65,9 @@
 //   uvw     (`dss_uvw`) U, V and three W inputs a stage: raw W is assembled
 //           once a node (span and edge lines) into a buffer of its own,
 //           then summed like a scalar, and U, V are summed as in the vector
-//           mode; its bottom interface is a run of its own.
+//           mode; its bottom interface is a run of its own;
+//   scalar2 (`dss_scalar2`) two scalar fields of one shape a stage (Rt and
+//           Rho), each through the scalar mode's path, no rotation.
 // Every product and sum is rounded as the plain version's tensor operations
 // round it (no fused multiply-add), so the results equal the plain
 // versions'.
@@ -77,22 +79,27 @@
 // here uses atomics or read-modify-write: the result is the same on every
 // run.
 //
-// `dss_state` and `dss_scalar2` replace the TPU kernels `dss_state`
-// (`_state_kernel`) and `dss_scalar2` (`_scalar2_kernel`) of dss_pallas.py:
-// a gather with one thread per output node (k, panel, a, b), b fastest, for
-// all five fields of the state (the (U, V) pair rotated, Rt, Rho and W as
-// scalars, W with one level more) or for two scalar fields of one shape, in
-// one launch.  A thread finds its node with one division, works out once
-// its element-boundary partners, edge links, rotation and inverse
-// multiplicity, which then serve every field, and walks a few levels,
-// loads before stores.
+// `dss_scalar2` replaces the TPU kernel `dss_scalar2` (`_scalar2_kernel`,
+// dss_pallas.py:231): the DSS of two scalar fields of one shape in one
+// launch, the band kernel's scalar2 mode, bit for bit two `dss_scalar`
+// launches.  Bound: bytes (both fields read once and written once): 41.5 MB
+// at (30, 6, 120, 120) float32, 12.4 us.
+//
+// `dss_state` replaces the TPU kernel `dss_state` (`_state_kernel`,
+// dss_pallas.py:343): a gather with one thread per output node (k, panel,
+// a, b), b fastest, for all five fields of the state (the (U, V) pair
+// rotated, Rt, Rho and W as scalars, W with one level more) in one launch.
+// A thread finds its node with one division, works out once its
+// element-boundary partners, edge links, rotation and inverse multiplicity,
+// which then serve every field, and walks a few levels, loads before
+// stores.
 // `dss_state` can finish with the Rayleigh term form x <- fac * x + ref, read
 // from ten more fields; that product and sum are rounded separately, as two
 // tensor operations would round them, and the (U, V) rotation is rounded as
 // `dss_vector` rounds it, so the result equals the separate launches
 // followed by the plain finish.  Bound: bytes (each field read once
 // and written once): 104 MB at (30 | 31, 6, 120, 120) float32, 31 us (209 MB,
-// 62 us with the Rayleigh finish); 41.5 MB, 12.4 us for `dss_scalar2`.
+// 62 us with the Rayleigh finish).
 //
 // Plain C interface (no PyTorch header): pointers and the stream arrive as
 // integers, the launch goes to the given stream, nothing synchronises or
@@ -105,22 +112,15 @@
 namespace {
 
 constexpr int EDGE_LEFT = 0, EDGE_RIGHT = 1, EDGE_BOTTOM = 2;  // EDGE_TOP = 3
-// Block size and levels per thread of dss_state (five fields a level) and
-// dss_scalar2 (two); kernels/tune_tail.py sweeps them with -D flags.
-// (128, 2) and (128, 4) were the fastest of nine pairs in float32 at
-// (30 | 31, 6, 120, 120) on an H100; in float64 dss_state was 5 % faster at
-// 1 level and dss_scalar2 10 % faster at 3.
+// Block size and levels per thread of dss_state (five fields a level);
+// kernels/tune_tail.py sweeps them with -D flags.  (128, 2) was the fastest
+// of nine pairs in float32 at (30 | 31, 6, 120, 120) on an H100; in float64
+// it was 5 % faster at 1 level.
 #ifndef STATE_THREADS
 #define STATE_THREADS 128
 #endif
 #ifndef STATE_LEVELS
 #define STATE_LEVELS 2
-#endif
-#ifndef S2_THREADS
-#define S2_THREADS 128
-#endif
-#ifndef S2_LEVELS
-#define S2_LEVELS 4
 #endif
 
 // The raw nodes whose sum is the pair-summed value at (a, b) of one (A, B)
@@ -340,46 +340,6 @@ __global__ void dss_state_kernel(StateArgs<T> g, const T* __restrict__ imult,
   }
 }
 
-template <typename T, bool CART>
-__global__ void dss_scalar2_kernel(const T* __restrict__ x1,
-                                   const T* __restrict__ x2,
-                                   const T* __restrict__ imult,
-                                   const int* __restrict__ table,
-                                   T* __restrict__ o1, T* __restrict__ o2,
-                                   int K, int P, int A, int B, int p,
-                                   int nlinks, int wrap) {
-  const int node = blockIdx.x * blockDim.x + threadIdx.x;
-  if (node >= A * B) return;
-  const int a = node / B;
-  const int b = node - a * B;
-  const int pa = blockIdx.y;
-  const long long slab = (long long)A * B;
-
-  const PairNodes own = pair_nodes<CART>(a, b, A, B, p, wrap);
-  const EdgeTerms et =
-      CART ? EdgeTerms{} : edge_terms(table, pa, a, b, A, B, p);
-  const T w = imult[pa * slab + node];
-
-  constexpr int LEVELS = S2_LEVELS;
-  const int k0 = blockIdx.z * LEVELS;
-  T s1[LEVELS], s2[LEVELS];
-#pragma unroll
-  for (int kk = 0; kk < LEVELS; ++kk) {
-    const long long off = (long long)min(k0 + kk, K - 1) * P * slab;
-    s1[kk] = gather_scalar(x1 + off, slab, pa, own, et);
-    s2[kk] = gather_scalar(x2 + off, slab, pa, own, et);
-  }
-#pragma unroll
-  for (int kk = 0; kk < LEVELS; ++kk) {
-    const int k = k0 + kk;
-    if (k < K) {
-      const long long o = ((long long)k * P + pa) * slab + node;
-      o1[o] = s1[kk] * w;
-      o2[o] = s2[kk] * w;
-    }
-  }
-}
-
 // Calls f with std::true_type for a grid without edge links (Cartesian: the
 // kernels' CART instantiation) and with std::false_type otherwise, so the
 // cubed sphere runs kernels without the wrap code.
@@ -425,32 +385,16 @@ int launch_state(const void* const* ptrs, const void* imult, const void* rot,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_scalar2(const void* x1, const void* x2, const void* imult,
-                   const void* table, void* o1, void* o2, int K, int P, int A,
-                   int B, int p, int nlinks, int wrap, void* stream) {
-  if (K > 0 && P > 0 && A > 0 && B > 0) {
-    const dim3 grid((unsigned)((A * B + S2_THREADS - 1) / S2_THREADS),
-                    (unsigned)P, (unsigned)((K + S2_LEVELS - 1) / S2_LEVELS));
-    by_grid(nlinks, [&](auto cart) {
-      dss_scalar2_kernel<T, decltype(cart)::value>
-          <<<grid, S2_THREADS, 0, (cudaStream_t)stream>>>(
-              (const T*)x1, (const T*)x2, (const T*)imult, (const int*)table,
-              (T*)o1, (T*)o2, K, P, A, B, p, nlinks, wrap);
-    });
-  }
-  return (int)cudaGetLastError();
-}
-
 // ---------------------------------------------------------------------------
-// dss_scalar, dss_vector and dss_uvw: element-row bands staged in shared
-// memory
+// dss_scalar, dss_vector, dss_uvw and dss_scalar2: element-row bands staged
+// in shared memory
 // ---------------------------------------------------------------------------
 
 // Blocks of BAND_THREADS an SM must hold (__launch_bounds__: caps the
-// registers a thread) for dss_scalar, dss_uvw and dss_vector;
-// kernels/tune_dss.py sweeps them with -D flags.  2 (at most 64 registers)
-// made dss_scalar faster at the flagship on an H100; dss_uvw spills at 64.
+// registers a thread): BAND_MIN_BLOCKS for dss_scalar and dss_scalar2, the
+// others for dss_uvw and dss_vector; kernels/tune_dss.py sweeps them with
+// -D flags.  2 (at most 64 registers) made dss_scalar faster at the
+// flagship on an H100; dss_uvw spills at 64.
 #ifndef BAND_MIN_BLOCKS
 #define BAND_MIN_BLOCKS 2
 #endif
@@ -461,10 +405,14 @@ int launch_scalar2(const void* x1, const void* x2, const void* imult,
 #define BAND_MIN_BLOCKS_VECTOR 1
 #endif
 // the modes of the band template: a stage holds x (scalar); U, V (vector);
-// U, V and three W inputs (uvw)
-constexpr int M_SCALAR = 0, M_VECTOR = 1, M_UVW = 2;
+// U, V and three W inputs (uvw); two scalars (scalar2)
+constexpr int M_SCALAR = 0, M_VECTOR = 1, M_UVW = 2, M_SCALAR2 = 3;
 __host__ __device__ constexpr int band_fields(int mode) {
-  return mode == M_UVW ? 5 : (mode == M_VECTOR ? 2 : 1);
+  return mode == M_UVW ? 5 : (mode == M_SCALAR ? 1 : 2);
+}
+// the modes that carry the (U, V) pair and its edge rotations
+__host__ __device__ constexpr bool band_rotates(int mode) {
+  return mode == M_VECTOR || mode == M_UVW;
 }
 constexpr int BAR_BYTES = 64;      // the ring's mbarriers (8 bytes each)
 constexpr int MAX_RING = 4;
@@ -554,8 +502,8 @@ __device__ __forceinline__ void store_seg(T* dst, const T* v, int p) {
 }
 
 // What the band kernels take.  x: scalar x[0]; vector U, V; uvw U, V, bw1,
-// bw2 (null for a single base), dW.  out: scalar out[0]; vector U, V; uvw
-// U, V, W.
+// bw2 (null for a single base), dW; scalar2 the two fields.  out: scalar
+// out[0]; vector U, V; uvw U, V, W; scalar2 the two fields.
 template <typename T>
 struct BandArgs {
   const T* x[5];
@@ -760,7 +708,7 @@ __device__ __forceinline__ void copy_run(int copy, void* dst, const void* src,
 // The level of each field that step k stages (null: none), all panels.
 // Field slot f of a stage: dss_scalar x; dss_vector U, V; dss_uvw U, V and
 // three W inputs (bw1, bw2, dW, or at the bottom interface cax0, cbx0,
-// cxx0); `uv_only`: U and V of level k alone.
+// cxx0); dss_scalar2 its two fields; `uv_only`: U and V of level k alone.
 template <typename T, int M>
 __device__ __forceinline__ void step_fields(const BandArgs<T>& g, int k,
                                             bool uv_only,
@@ -938,8 +886,9 @@ __device__ __forceinline__ void assemble_w(const BandArgs<T>& g, const T* st,
 }
 
 // One segment of step k: pair sums from the stage `st` (dss_vector: U, V;
-// dss_uvw: U, V from the stage, W from the assembled `wbuf`), edge terms,
-// the inverse multiplicities `ims`, stores.
+// dss_uvw: U, V from the stage, W from the assembled `wbuf`; dss_scalar2:
+// each field as dss_scalar sums its one), edge terms, the inverse
+// multiplicities `ims`, stores.
 template <typename T, bool CART, int PP, int M>
 __device__ __forceinline__ void band_work(const BandArgs<T>& g, const Seg& q,
                                           const T* st, const T* wbuf,
@@ -952,7 +901,7 @@ __device__ __forceinline__ void band_work(const BandArgs<T>& g, const Seg& q,
   const long long out = (long long)k * g.P * A * B + q.out;
   T s[NMAX], w[NMAX];
   load_seg<T, PP>(ims + (q.a - a0) * B + q.b0, w, p);
-  if constexpr (M != M_SCALAR) {
+  if constexpr (band_rotates(M)) {
     if (k < g.K) {
       T sv[NMAX];
       pair_sums<T, PP, NMAX>(st, q, p, s);
@@ -969,11 +918,15 @@ __device__ __forceinline__ void band_work(const BandArgs<T>& g, const Seg& q,
     }
   }
   if constexpr (M != M_VECTOR) {
-    const T* F = M == M_UVW ? wbuf : st;
-    pair_sums<T, PP, NMAX>(F, q, p, s);
-    if constexpr (!CART) edges_scalar(F + g.span, q, a0, TA, A, p, s);
-    for (int i = 0; i < p; ++i) s[i] = mul_rn(s[i], w[i]);
-    store_seg<T, PP>(g.out[M == M_UVW ? 2 : 0] + out, s, p);
+    // dss_scalar: its field; dss_uvw: the assembled W; dss_scalar2: both
+    // fields, one after the other
+    for (int f = 0; f < (M == M_SCALAR2 ? 2 : 1); ++f) {
+      const T* F = M == M_UVW ? wbuf : st + f * g.fs;
+      pair_sums<T, PP, NMAX>(F, q, p, s);
+      if constexpr (!CART) edges_scalar(F + g.span, q, a0, TA, A, p, s);
+      for (int i = 0; i < p; ++i) s[i] = mul_rn(s[i], w[i]);
+      store_seg<T, PP>(g.out[M == M_UVW ? 2 : f] + out, s, p);
+    }
   }
 }
 
@@ -987,9 +940,9 @@ __device__ __forceinline__ void band_work(const BandArgs<T>& g, const Seg& q,
 // edge rotations.
 template <typename T, bool CART, int PP, int M>
 __global__ void __launch_bounds__(
-    BAND_THREADS, M == M_UVW ? BAND_MIN_BLOCKS_UVW
-                             : (M == M_VECTOR ? BAND_MIN_BLOCKS_VECTOR
-                                              : BAND_MIN_BLOCKS))
+    BAND_THREADS, M == M_UVW      ? BAND_MIN_BLOCKS_UVW
+                  : M == M_VECTOR ? BAND_MIN_BLOCKS_VECTOR
+                                  : BAND_MIN_BLOCKS)
     band_kernel(const __grid_constant__ BandArgs<T> g) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   DSS_PHASE_BEGIN();
@@ -1030,7 +983,7 @@ __global__ void __launch_bounds__(
                             false);
   if (extra)
     issue_edges<T, CART, M>(g, bd, 1, ring + NF * g.fs, &bars[1], true);
-  if (M != M_SCALAR && !CART)
+  if (band_rotates(M) && !CART)
     for (int e = threadIdx.x; e < nedge; e += blockDim.x) {
       int d, pos;
       if (!edge_item(e, bd.a0, TA, A, d, pos)) continue;
@@ -1139,7 +1092,7 @@ int launch_band(BandArgs<T> g, int threads, void* stream) {
   g.rot_at = g.im_at + up(TA * g.B);
   const size_t smem =
       BAR_BYTES +
-      (size_t)(g.rot_at + (M != M_SCALAR ? up(4 * edge) : 0)) * ES;
+      (size_t)(g.rot_at + (band_rotates(M) ? up(4 * edge) : 0)) * ES;
   if (smem > SMEM_MAX) return -2;
   // runs of `levels` steps (dss_uvw: the bottom interface, then K steps)
   const int runs = (g.K + g.levels - 1) / g.levels + (UVW ? 1 : 0);
@@ -1197,6 +1150,25 @@ int launch_uvw(const void* u, const void* v, const void* bw1, const void* bw2,
   g.wrap = wrap; g.rows = rows; g.levels = levels; g.ring = ring;
   g.copy = copy;
   return launch_band<T, M_UVW>(g, threads, stream);
+}
+
+template <typename T>
+int launch_scalar2(const void* x1, const void* x2, const void* imult,
+                   const void* table, void* o1, void* o2, int K, int P, int A,
+                   int B, int p, int nlinks, int wrap, int rows, int levels,
+                   int threads, int ring, int copy, void* stream) {
+  BandArgs<T> g = {};
+  g.x[0] = (const T*)x1;
+  g.x[1] = (const T*)x2;
+  g.out[0] = (T*)o1;
+  g.out[1] = (T*)o2;
+  g.imult = (const T*)imult;
+  if (nlinks > 0 && nlinks <= 4 * MAX_PANELS)
+    for (int i = 0; i < 4 * nlinks; ++i) g.table[i] = ((const int*)table)[i];
+  g.K = K; g.P = P; g.A = A; g.B = B; g.p = p; g.nlinks = nlinks;
+  g.wrap = wrap; g.rows = rows; g.levels = levels; g.ring = ring;
+  g.copy = copy;
+  return launch_band<T, M_SCALAR2>(g, threads, stream);
 }
 
 template <typename T>
@@ -1312,18 +1284,24 @@ int dss_state_f64(const void* const* ptrs, const void* imult, const void* rot,
                               wrap, stream);
 }
 
+// Two scalar fields of one shape; launch shape and returns as
+// dss_scalar's.
 int dss_scalar2_f32(const void* x1, const void* x2, const void* imult,
                     const void* table, void* o1, void* o2, int K, int P, int A,
-                    int B, int p, int nlinks, int wrap, void* stream) {
+                    int B, int p, int nlinks, int wrap, int rows, int levels,
+                    int threads, int ring, int copy, void* stream) {
   return launch_scalar2<float>(x1, x2, imult, table, o1, o2, K, P, A, B, p,
-                               nlinks, wrap, stream);
+                               nlinks, wrap, rows, levels, threads, ring,
+                               copy, stream);
 }
 
 int dss_scalar2_f64(const void* x1, const void* x2, const void* imult,
                     const void* table, void* o1, void* o2, int K, int P, int A,
-                    int B, int p, int nlinks, int wrap, void* stream) {
+                    int B, int p, int nlinks, int wrap, int rows, int levels,
+                    int threads, int ring, int copy, void* stream) {
   return launch_scalar2<double>(x1, x2, imult, table, o1, o2, K, P, A, B, p,
-                                nlinks, wrap, stream);
+                                nlinks, wrap, rows, levels, threads, ring,
+                                copy, stream);
 }
 
 }  // extern "C"

@@ -19,19 +19,21 @@ A, B)``.  Execution shape:
   block-diagonal ``(A, A)`` GEMMs (``engine.horizontal_tendency``);
 - **DSS as hand-written CUDA kernels** (``dss_cuda``), one launch per
   field: ``dss_scalar``, ``dss_vector`` (the (U, V) pair with the covariant
-  rotation) and ``dss_uvw`` (on the fused path W joins the pair with the
-  stage's W finish folded in) are the three modes of one band kernel, which
-  stages bands of whole element rows and the neighbour panels' edge lines
-  in shared memory by asynchronous copies and sums there, a thread an
-  element-row segment; the one-launch groupings ``dss_state`` and
-  ``dss_scalar2`` are gathers with one thread per node;
+  rotation), ``dss_uvw`` (on the fused path W joins the pair with the
+  stage's W finish folded in) and the one-launch grouping ``dss_scalar2``
+  (Rt and Rho) are the four modes of one band kernel, which stages bands of
+  whole element rows and the neighbour panels' edge lines in shared memory
+  by asynchronous copies and sums there, a thread an element-row segment;
+  the one-launch grouping ``dss_state`` is a gather with one thread per
+  node;
 - **the implicit solve** (``implicit``): on the fused path each Newton
   iteration is one hand-written kernel (``implicit_cuda``: a tile of
   columns staged in shared memory, the residual and the analytic banded
   Jacobian assembled there level-parallel, then the banded LU one thread a
   column on chip); on the unfused path the residual and the Jacobian are
   plain tensor code and the solve is the hand-written banded LU kernel
-  (``ops/cuda_banded``).
+  (``ops/cuda_banded.banded_solve``: the band rows stream through a ring
+  in shared memory, the U rows stay on chip, no scratch).
 
 - **the nu4 hyperdiffusion tail** as two hand-written kernels
   (``hyper_cuda``), one per Laplacian pass, around the full-state DSS; plain

@@ -15,12 +15,12 @@ differ); ``wrap`` = (along a, along b) then adds the periodic wrap-sum: node
 0 and node A-1 (B-1) of a periodic axis are one pair, as in
 ``grid/cartesian._pair_sum_axis``.
 
-``dss_scalar``, ``dss_vector`` and ``dss_uvw`` are the three modes of one
-band kernel: they stage bands of whole element rows in shared memory (bulk
-asynchronous copies where spans and pointers allow 16 bytes, else
-``cp.async`` of 8 or 4 bytes; ``copy_width``) and sum there, a thread an
-element-row segment; their launch shape comes from ``dss_launch_shape``.
-``dss_state`` and ``dss_scalar2`` are gathers with one thread per output
+``dss_scalar``, ``dss_vector``, ``dss_uvw`` and ``dss_scalar2`` are the four
+modes of one band kernel (``MODES``): they stage bands of whole element rows
+in shared memory (bulk asynchronous copies where spans and pointers allow 16
+bytes, else ``cp.async`` of 8 or 4 bytes; ``copy_width``) and sum there, a
+thread an element-row segment; their launch shape comes from
+``dss_launch_shape``.  ``dss_state`` is a gather with one thread per output
 node.  See the note in ``csrc/dss.cu`` for the designs and the bound on the
 card.  Fields are z-first ``(K, 6, A, B)``.
 
@@ -165,7 +165,8 @@ def dss_state_plain(d, imult, rot, links, p: int, rayleigh=None,
 
 
 # ---------------------------------------------------------------------------
-# launch shape of the band kernels (dss_scalar, dss_vector, dss_uvw)
+# launch shape of the band kernel (dss_scalar, dss_vector, dss_uvw,
+# dss_scalar2)
 # ---------------------------------------------------------------------------
 
 SMS = 132                  # streaming multiprocessors of an H100 SXM
@@ -174,20 +175,27 @@ MAX_THREADS = 512          # the kernels' __launch_bounds__
 MAX_P = 16                 # most nodes an element row (generic instantiation)
 BAR_BYTES = 64             # the ring's mbarriers
 MAX_RING = 4
-# fields a stage of each mode holds: dss_scalar, dss_vector (U, V), dss_uvw
-# (U, V and three W inputs)
-NFIELDS = {"scalar": 1, "vector": 2, "uvw": 5}
-# the rule's targets by (fields a stage, bytes a value), fitted to the
-# sweeps of kernels/tune_dss.py on an H100: segments a block at most,
-# blocks a launch at least when the band is chosen, and (where it differs)
-# when the levels a block are: the float32 vector mode was fastest at the
-# flagship with runs of 5 levels (216 blocks, 1.6 an SM), and on the plane
-# with runs of 3 (PERF.md section 6)
-SEGMENTS = {(1, 4): 640, (1, 8): 240, (2, 4): 640, (2, 8): 240,
-            (5, 4): 720, (5, 8): 720}
-TARGET_BLOCKS = {(1, 4): 330, (1, 8): 450, (2, 4): 330, (2, 8): 450,
-                 (5, 4): 450, (5, 8): 600}
-RUN_BLOCKS = {(2, 4): 216}
+# the band kernel's modes, in the order of its M_SCALAR, M_VECTOR, M_UVW,
+# M_SCALAR2, and the fields a stage of each holds: dss_scalar, dss_vector
+# (U, V), dss_uvw (U, V and three W inputs), dss_scalar2 (two scalars)
+MODES = ("scalar", "vector", "uvw", "scalar2")
+NFIELDS = {"scalar": 1, "vector": 2, "uvw": 5, "scalar2": 2}
+ROTATES = ("vector", "uvw")        # the modes that stage edge rotations
+# the rule's targets by (mode, bytes a value), fitted to the sweeps of
+# kernels/tune_dss.py on an H100: segments a block at most, blocks a launch
+# at least when the band is chosen, and (where it differs) when the levels
+# a block are: the float32 vector mode was fastest at the flagship with
+# runs of 5 levels (216 blocks, 1.6 an SM), and on the plane with runs of 3;
+# the float32 scalar2 mode with bands of 24 rows and runs of 4 (240 blocks),
+# 8 % ahead of the vector mode's shape, and with runs of 2 on the plane
+# (PERF.md section 6)
+SEGMENTS = {("scalar", 4): 640, ("scalar", 8): 240, ("vector", 4): 640,
+            ("vector", 8): 240, ("uvw", 4): 720, ("uvw", 8): 720,
+            ("scalar2", 4): 720, ("scalar2", 8): 240}
+TARGET_BLOCKS = {("scalar", 4): 330, ("scalar", 8): 450, ("vector", 4): 330,
+                 ("vector", 8): 450, ("uvw", 4): 450, ("uvw", 8): 600,
+                 ("scalar2", 4): 330, ("scalar2", 8): 450}
+RUN_BLOCKS = {("vector", 4): 216, ("scalar2", 4): 240}
 
 
 class DssLaunch(NamedTuple):
@@ -205,16 +213,17 @@ class DssLaunch(NamedTuple):
     blocks: int
 
 
-def dss_smem_bytes(rows: int, A: int, B: int, ring: int, nfields: int,
+def dss_smem_bytes(rows: int, A: int, B: int, ring: int, mode: str,
                    esize: int, links: bool) -> int:
-    """Shared memory of a band kernel's block, as ``csrc/dss.cu`` lays it
-    out: the mbarriers, then ``ring`` stages of ``nfields`` field slots (the
-    span of rows + 2 rows of B values, then on the cubed sphere the
-    neighbours' edge lines, 2 (rows + 2) + 2 A values), for ``dss_uvw``
-    (``nfields`` 5) one slot more for the assembled W, the band's inverse
+    """Shared memory of a band kernel's block in ``mode``, as
+    ``csrc/dss.cu`` lays it out: the mbarriers, then ``ring`` stages of the
+    mode's field slots (the span of rows + 2 rows of B values, then on the
+    cubed sphere the neighbours' edge lines, 2 (rows + 2) + 2 A values), for
+    ``dss_uvw`` one slot more for the assembled W, the band's inverse
     multiplicities (rows B values), and on the cubed sphere the (U, V)
     pair's edge rotations (``dss_vector`` and ``dss_uvw``: 4 per edge-line
     value); each part rounded up to 16 bytes."""
+    nfields = NFIELDS[mode]
     v16 = 16 // esize
 
     def up(n):
@@ -222,18 +231,18 @@ def dss_smem_bytes(rows: int, A: int, B: int, ring: int, nfields: int,
 
     nedge = 2 * (rows + 2) + 2 * A if links else 0
     fs = up((rows + 2) * B) + up(nedge)
-    vals = (ring * nfields + (nfields == NFIELDS["uvw"])) * fs \
-        + up(rows * B) + (up(4 * nedge) if nfields > 1 else 0)
+    vals = (ring * nfields + (mode == "uvw")) * fs \
+        + up(rows * B) + (up(4 * nedge) if mode in ROTATES else 0)
     return BAR_BYTES + vals * esize
 
 
 @functools.lru_cache(maxsize=None)
 def dss_launch_shape(K: int, P: int, A: int, B: int, p: int, dtype,
-                     nfields: int, rows=None, levels=None, ring=None,
+                     mode: str, rows=None, levels=None, ring=None,
                      threads=None, links=None) -> DssLaunch:
-    """The launch shape of ``dss_scalar`` (``nfields`` 1, ``K`` levels),
-    ``dss_vector`` (``nfields`` 2, ``K`` levels) or ``dss_uvw`` (``nfields``
-    5, ``K`` levels of U and V, K + 1 steps).
+    """The launch shape of the band kernel in ``mode`` (``MODES``):
+    ``dss_scalar``, ``dss_vector`` or ``dss_scalar2`` (``K`` levels), or
+    ``dss_uvw`` (``K`` levels of U and V, K + 1 steps).
     ``links``: a cubed-sphere grid (default: P > 1).  The keywords override
     the rule (``kernels/tune_dss.py`` sweeps them).  Cached: a launch
     asks for its shape on the host every time.
@@ -247,10 +256,9 @@ def dss_launch_shape(K: int, P: int, A: int, B: int, p: int, dtype,
     Raises where no shape fits."""
     esize = 4 if dtype == torch.float32 else 8
     links = P > 1 if links is None else bool(links)
-    if nfields not in NFIELDS.values():
-        raise ValueError(f"nfields must be one of {sorted(NFIELDS.values())}"
-                         f", got {nfields}")
-    uvw = nfields == NFIELDS["uvw"]
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    uvw = mode == "uvw"
     if p < 2 or p > MAX_P or A % p or B % p:
         raise ValueError(f"the band kernels take 2 <= p <= {MAX_P} with "
                          f"whole elements, got A={A} B={B} p={p}")
@@ -260,16 +268,16 @@ def dss_launch_shape(K: int, P: int, A: int, B: int, p: int, dtype,
 
     def fitting_ring(TA):
         return next((r for r in rings if dss_smem_bytes(
-            TA, A, B, r, nfields, esize, links) <= SMEM_MAX), None)
+            TA, A, B, r, mode, esize, links) <= SMEM_MAX), None)
 
     cands = [p * d for d in range(1, A // p + 1) if (A // p) % d == 0]
     cands = [TA for TA in cands if fitting_ring(TA) is not None
              and (rows is None or TA == rows)]
     if not cands:
         raise ValueError(f"no band of the DSS kernel fits A={A} B={B} p={p} "
-                         f"nfields={nfields} rows={rows} ring={ring} in "
+                         f"mode={mode} rows={rows} ring={ring} in "
                          f"{SMEM_MAX} bytes of shared memory")
-    key = (nfields, esize)
+    key = (mode, esize)
     good = [TA for TA in cands if TA * (B // p) <= SEGMENTS[key]
             and (A // TA) * P * (K + uvw) >= TARGET_BLOCKS[key]]
     TA = max(good) if good else min(cands)
@@ -292,7 +300,7 @@ def dss_launch_shape(K: int, P: int, A: int, B: int, p: int, dtype,
         if lv < 1:
             raise ValueError(f"levels a block must be >= 1, got {lv}")
     lv = min(lv, max(K, 1))
-    return DssLaunch(TA, lv, nt, r, dss_smem_bytes(TA, A, B, r, nfields,
+    return DssLaunch(TA, lv, nt, r, dss_smem_bytes(TA, A, B, r, mode,
                                                    esize, links),
                      bands * (math.ceil(K / lv) + uvw))
 
@@ -309,24 +317,24 @@ def copy_width(B: int, esize: int, ptrs) -> int:
     return esize
 
 
-def launch_config(f, p: int, nfields: int, ptrs, links: bool,
+def launch_config(f, p: int, mode: str, ptrs, links: bool,
                   launch=None) -> dict:
-    """What a band kernel launch on the field ``f`` ((K, P, A, B); for
-    ``dss_vector`` and ``dss_uvw`` U) takes: its launch shape (``launch``,
-    default the rule's) and its copy width for the pointers ``ptrs``."""
+    """What a band kernel launch in ``mode`` on the field ``f`` ((K, P, A,
+    B); for ``dss_vector`` and ``dss_uvw`` U, for ``dss_scalar2`` the first
+    field) takes: its launch shape (``launch``, default the rule's) and its
+    copy width for the pointers ``ptrs``."""
     K, P, A, B = f.shape
-    sh = launch or dss_launch_shape(K, P, A, B, p, f.dtype, nfields,
+    sh = launch or dss_launch_shape(K, P, A, B, p, f.dtype, mode,
                                     links=links)
     return dict(sh._asdict(), copy=copy_width(B, f.element_size(), ptrs))
 
 
 # band_kernel<T, CART, PP, M> as nvcc mangles it; M indexes MODES
 _ENTRY = re.compile(r"band_kernelI([fd])Lb([01])ELi(\d+)ELi(\d)E")
-MODES = tuple(NFIELDS)            # in the order of the kernel's M_SCALAR, ...
 
 
 def kernel_resources() -> dict:
-    """Registers and spill bytes of the band kernel's 24 instantiations
+    """Registers and spill bytes of the band kernel's 32 instantiations
     (value type x mode x grid family x p 4 or any p) as ``nvcc -Xptxas -v``
     reported them at the build, keyed ``f32 vector sphere p4``, ``f64 uvw
     cart generic``, ... (empty before a build)."""
@@ -460,7 +468,7 @@ def _dss_scalar_cuda(f, imult, links, p, flags, launch=None):
     of the rule's."""
     K, P, A, B = f.shape
     nlinks = len(links)
-    cfg = launch_config(f, p, NFIELDS["scalar"], _scalar_ptrs(f, imult),
+    cfg = launch_config(f, p, "scalar", _scalar_ptrs(f, imult),
                         nlinks > 0, launch)
     lib = build.library("dss")
     fn = lib.dss_scalar_f32 if f.dtype == torch.float32 else lib.dss_scalar_f64
@@ -504,7 +512,7 @@ def _dss_vector_cuda(u, v, imult, rot, links, p, flags, launch=None):
     of the rule's."""
     K, P, A, B = u.shape
     nlinks = len(links)
-    cfg = launch_config(u, p, NFIELDS["vector"], _vector_ptrs(u, v, imult),
+    cfg = launch_config(u, p, "vector", _vector_ptrs(u, v, imult),
                         nlinks > 0, launch)
     lib = build.library("dss")
     fn = lib.dss_vector_f32 if u.dtype == torch.float32 else lib.dss_vector_f64
@@ -579,7 +587,7 @@ def _dss_uvw_cuda(u, v, imult, rot, links, p, flags, wf, launch=None):
     K, P, A, B = u.shape
     nlinks = len(links)
     bw2 = wf.get("bw2")
-    cfg = launch_config(u, p, NFIELDS["uvw"], _uvw_ptrs(u, v, wf, imult),
+    cfg = launch_config(u, p, "uvw", _uvw_ptrs(u, v, wf, imult),
                         nlinks > 0, launch)
     lib = build.library("dss")
     fn = lib.dss_uvw_f32 if u.dtype == torch.float32 else lib.dss_uvw_f64
@@ -617,11 +625,21 @@ def dss_scalar2(f1, f2, imult, links, p: int, wrap=(False, False),
         return dss_scalar2_plain(f1, f2, imult, links, p, wrap)
     if f1.device.type != "cuda":
         raise ValueError(f"unsupported device {f1.device}")
-    return _dss_scalar2_cuda(f1, f2, imult, table, p, len(links), flags)
+    return _dss_scalar2_cuda(f1, f2, imult, links, p, flags)
 
 
-def _dss_scalar2_cuda(f1, f2, imult, table, p, nlinks, flags):
+def _scalar2_ptrs(f1, f2, imult):
+    """The pointers a ``dss_scalar2`` launch stages from."""
+    return [f1.data_ptr(), f2.data_ptr(), imult.data_ptr()]
+
+
+def _dss_scalar2_cuda(f1, f2, imult, links, p, flags, launch=None):
+    """The launch of ``dss_scalar2``; ``launch``: a ``DssLaunch`` in place
+    of the rule's."""
     K, P, A, B = f1.shape
+    nlinks = len(links)
+    cfg = launch_config(f1, p, "scalar2", _scalar2_ptrs(f1, f2, imult),
+                        nlinks > 0, launch)
     lib = build.library("dss")
     fn = lib.dss_scalar2_f32 if f1.dtype == torch.float32 \
         else lib.dss_scalar2_f64
@@ -629,11 +647,14 @@ def _dss_scalar2_cuda(f1, f2, imult, table, p, nlinks, flags):
         o1 = torch.empty_like(f1)
         o2 = torch.empty_like(f2)
         err = fn(f1.data_ptr(), f2.data_ptr(), imult.data_ptr(),
-                 table.data_ptr(), o1.data_ptr(), o2.data_ptr(), K, P, A, B,
-                 p, nlinks, flags, torch.cuda.current_stream().cuda_stream)
+                 _table_ptr(links), o1.data_ptr(), o2.data_ptr(), K, P, A, B,
+                 p, nlinks, flags, cfg["rows"], cfg["levels"],
+                 cfg["threads"], cfg["ring"], cfg["copy"],
+                 torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"dss_scalar2 kernel launch failed "
-                           f"(cudaGetLastError = {err})")
+        raise RuntimeError(f"dss_scalar2 kernel launch failed (error {err}; "
+                           f"-1: launch shape or copy width not taken, -2: "
+                           f"shared memory; launch {cfg})")
     launch_counts["dss_scalar2"] += 1
     return o1, o2
 

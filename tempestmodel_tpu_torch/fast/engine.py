@@ -552,12 +552,14 @@ def w_finish_xla(d, wf):
 # among "state" (a full state without a W finish -- the nu4 tail's two DSS --
 # through ``dss_cuda.dss_state``, the Rayleigh finish folded in) and
 # "scalar2" (Rt and Rho through ``dss_cuda.dss_scalar2`` wherever they are
-# still scalars of their own).  None: measured at the flagship (ne30 p4 L30
-# float32) on an NVIDIA H100 80GB HBM3 at 700 W by ``chip_smoke.py``, the
-# four combinations lay within 0.7 % of each other under graph replay
-# (2.107-2.139 ms/step, less than the spread between two turns of one
-# variant), so the separate launches stay.
-DSS_MERGE_DEFAULT = ()
+# still scalars of their own).  "scalar2": measured at the flagship (ne30 p4
+# L30 float32) on an NVIDIA H100 80GB HBM3 at 700 W by ``chip_smoke.py``
+# phase 6 under graph replay, since ``dss_scalar2`` became a mode of the
+# band DSS kernel it is faster than the separate launches in every turn of
+# every call (1.393-1.396 against 1.429-1.434 ms/step in the first, a
+# spread of 0.005 between the turns of one variant), and "state" (a gather,
+# one thread a node) is slower than both.
+DSS_MERGE_DEFAULT = ("scalar2",)
 
 
 def apply_dss(d, fg: FastGeometry, rayleigh=None, plain: bool = False,

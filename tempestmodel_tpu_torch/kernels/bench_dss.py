@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the DSS kernels ``dss_scalar``, ``dss_vector`` and ``dss_uvw`` of a
-checkout on a GPU, beside the practical floor of the bytes they move.
+"""Time the DSS kernels ``dss_scalar``, ``dss_vector``, ``dss_uvw`` and
+``dss_scalar2`` of a checkout on a GPU, beside the practical floor of the
+bytes they move.
 
 Run from the repository root on a machine with an NVIDIA Hopper card and
 nvcc:
@@ -17,12 +18,16 @@ Prints one JSON line per case, float32 and float64: ``dss_scalar`` on a
 level field of the flagship (ne30 p4: (30, 6, 120, 120), eight input copies
 that cycle through more than the 50 MB L2) and on the moist wave's flat
 tracer field (K = 90); ``dss_vector`` at the flagship (four input pairs);
-``dss_uvw`` at the flagship with two bases and one; the three kernels at
+``dss_uvw`` at the flagship with two bases and one; ``dss_scalar2`` (Rt and
+Rho in one launch) beside two ``dss_scalar`` launches on the same fields and,
+at the flagship, one ``torch.sparse.mm`` of the scalar operator on the two
+fields side by side (``kernels/dss_operator.py``); the four kernels at
 the Schar slice of ``chip_smoke.py`` (40 levels, swapped (K, 1, 4, 400) and
 natural (K, 1, 400, 4)) and on the 3-D bubble's plane (40, 1, 128, 128),
 whose inputs stay in the L2 as inside their steps.  Then the floor:
 PyTorch elementwise passes that read and write the same bytes (``x *
-imult`` for a scalar; ``u * imult`` and ``v * imult`` for the pair; for
+imult`` for a scalar; ``u * imult`` and ``v * imult`` for the pair and for
+``dss_scalar2``; for
 ``dss_uvw`` those and ``addcmul`` of bw1, bw2 and dW).  A kernel line gives
 the launch shape where the checkout's kernel takes one.  Each time is the
 mean of 40 (small shapes: 100) launches queued behind a busy device, as
@@ -59,7 +64,7 @@ def main():
     import tempestmodel_tpu_torch as tm
     from tempestmodel_tpu_torch import fast
     from tempestmodel_tpu_torch.fast import dss_cuda
-    from tempestmodel_tpu_torch.kernels import build
+    from tempestmodel_tpu_torch.kernels import build, dss_operator
     from tempestmodel_tpu_torch.kernels.timing import time_cuda
     from tempestmodel_tpu_torch.models import nh_model
 
@@ -71,17 +76,28 @@ def main():
                       "build_s": build.build_all()["seconds"]}), flush=True)
     dev = torch.device("cuda")
 
-    def emit(label, fn, sets, reps, fg, shape, nfields=None):
-        """``nfields``: the fields the kernel stages a level (None: the
-        floor's elementwise passes)."""
+    def launch_of(shape, fg, mode):
+        """The band kernel's launch shape in ``mode`` where the checkout's
+        kernel runs that mode (its rule takes the mode's name, or in
+        checkouts before ``dss_scalar2`` joined the band kernel its field
+        count), else None."""
+        modes = getattr(dss_cuda, "MODES", ())
+        if mode not in modes:
+            return None
+        arg = mode if "scalar2" in modes else dss_cuda.NFIELDS[mode]
+        return dss_cuda.dss_launch_shape(*shape, fg.p, fg.inv_mult.dtype,
+                                         arg)._asdict()
+
+    def emit(label, fn, sets, reps, fg, shape, mode=None, what="kernel"):
+        """``mode``: the band kernel's mode that ``fn`` runs, if any;
+        ``what``: "kernel", "floor" or another yardstick."""
         ms = [time_cuda(fn, sets, reps, queued=True) for _ in range(REPEATS)]
-        row = {"case": label, "what": "floor" if nfields is None
-               else "kernel", "dtype": str(fg.inv_mult.dtype)[6:],
-               "shape": list(shape), "ms": ms}
-        band = {1, 5} | set(getattr(dss_cuda, "NFIELDS", {}).values())
-        if hasattr(dss_cuda, "dss_launch_shape") and nfields in band:
-            row["launch"] = dss_cuda.dss_launch_shape(
-                *shape, fg.p, fg.inv_mult.dtype, nfields)._asdict()
+        row = {"case": label, "what": what,
+               "dtype": str(fg.inv_mult.dtype)[6:], "shape": list(shape),
+               "ms": ms}
+        launch = launch_of(shape, fg, mode) if mode else None
+        if launch is not None:
+            row["launch"] = launch
         print(json.dumps(row), flush=True)
 
     def bench(label, fg, K, ncopies, reps):
@@ -97,18 +113,32 @@ def main():
         kw = dict(wrap=fg.wrap, table=table)
         xs = [(rnd(K, P, A, B),) for _ in range(ncopies)]
         emit(f"scalar_{label}", lambda x: dss_cuda.dss_scalar(
-            x, im, links, fg.p, **kw), xs, reps, fg, (K, P, A, B), 1)
+            x, im, links, fg.p, **kw), xs, reps, fg, (K, P, A, B), "scalar")
         emit(f"scalar_{label}", lambda x: x * im[None], xs, reps, fg,
-             (K, P, A, B))
+             (K, P, A, B), what="floor")
         if label.startswith("k90"):
             return
         pairs = [(rnd(K, P, A, B), rnd(K, P, A, B))
                  for _ in range(max(1, ncopies // 2))]
         emit(f"vector_{label}", lambda u, v: dss_cuda.dss_vector(
             u, v, im, rot, links, fg.p, **kw), pairs, reps, fg,
-            (K, P, A, B), 2)
+            (K, P, A, B), "vector")
         emit(f"vector_{label}", lambda u, v: (u * im[None], v * im[None]),
-             pairs, reps, fg, (K, P, A, B))
+             pairs, reps, fg, (K, P, A, B), what="floor")
+        emit(f"scalar2_{label}", lambda x1, x2: dss_cuda.dss_scalar2(
+            x1, x2, im, links, fg.p, **kw), pairs, reps, fg, (K, P, A, B),
+            "scalar2")
+        emit(f"scalar2_{label}", lambda x1, x2: (
+            dss_cuda.dss_scalar(x1, im, links, fg.p, **kw),
+            dss_cuda.dss_scalar(x2, im, links, fg.p, **kw)), pairs, reps, fg,
+            (K, P, A, B), what="two dss_scalar launches")
+        if label == "flagship":
+            op = dss_operator.scalar_operator(im, links, fg.p, fg.wrap)
+            stacked = [(torch.cat([x1, x2]),) for x1, x2 in pairs]
+            emit(f"scalar2_{label}", lambda x: dss_operator.apply(op, x),
+                 stacked, reps, fg, (K, P, A, B),
+                 what="one torch.sparse.mm on the two fields side by side")
+            del op, stacked
         del pairs
         n = max(1, ncopies // 4)
         sets = []
@@ -124,11 +154,11 @@ def main():
                     for u, v, w in sets]
             emit(f"uvw_{label}_{tag}", lambda u, v, w: dss_cuda.dss_uvw(
                 u, v, im, rot, links, fg.p, w, **kw), args, reps, fg,
-                (K, P, A, B), 5)
+                (K, P, A, B), "uvw")
         emit(f"uvw_{label}", lambda u, v, w: (
             u * im[None], v * im[None],
             torch.addcmul(w["bw1"], w["bw2"], w["dW"])), sets, reps, fg,
-            (K, P, A, B))
+            (K, P, A, B), what="floor")
 
     for dtype in (torch.float32, torch.float64):
         cfg = tm.ModelConfig(grid_kind=tm.GridKind.CUBED_SPHERE, ne=30,

@@ -39,15 +39,15 @@ _I64 = ctypes.c_longlong
 # without argtypes ctypes would pass them as 32-bit ints and cut them.
 _DSS_SCALAR = [_PTR] * 4 + [_INT] * 12 + [_PTR]
 _DSS_VECTOR = [_PTR] * 7 + [_INT] * 12 + [_PTR]
-_BANDED = [_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _I64, _INT, _PTR]
 _BANDED_MULTI = [_PTR, _PTR, _PTR, _INT, _INT, _I64] + [_INT] * 6 + [_PTR]
+_BANDED_DIV = [_PTR, _PTR, _PTR, _I64, _PTR]
 _DBL = ctypes.c_double
 _DSS_UVW = [_PTR] * 14 + [_DBL] * 5 + [_INT] * 12 + [_PTR]
 # the fused kernels take their many operands as host arrays: pointers,
 # doubles, ints (the wrappers build them with ctypes)
 _ARRAYS = [ctypes.POINTER(_PTR), ctypes.POINTER(_DBL), ctypes.POINTER(_INT)]
 _STAGE = _ARRAYS + [_PTR]
-_DSS_SCALAR2 = [_PTR] * 6 + [_INT] * 7 + [_PTR]
+_DSS_SCALAR2 = [_PTR] * 6 + [_INT] * 12 + [_PTR]
 _DSS_STATE = [ctypes.POINTER(_PTR)] + [_PTR] * 3 + [_INT] * 7 + [_PTR]
 _IMPLICIT = _ARRAYS + [_I64, _PTR]
 SIGNATURES = {
@@ -56,9 +56,10 @@ SIGNATURES = {
             "dss_uvw_f32": _DSS_UVW, "dss_uvw_f64": _DSS_UVW,
             "dss_scalar2_f32": _DSS_SCALAR2, "dss_scalar2_f64": _DSS_SCALAR2,
             "dss_state_f32": _DSS_STATE, "dss_state_f64": _DSS_STATE},
-    "banded": {"banded_solve_f32": _BANDED, "banded_solve_f64": _BANDED},
     "banded_multi": {"banded_solve_multi_f32": _BANDED_MULTI,
-                     "banded_solve_multi_f64": _BANDED_MULTI},
+                     "banded_solve_multi_f64": _BANDED_MULTI,
+                     "banded_div_f32": _BANDED_DIV,
+                     "banded_div_f64": _BANDED_DIV},
     "stage": {"fused_stage_f32": _STAGE, "fused_stage_f64": _STAGE},
     "hyper": {"nu4_f32": _STAGE, "nu4_f64": _STAGE},
     "implicit": {"fused_implicit_f32": _IMPLICIT,

@@ -1,6 +1,6 @@
-"""Edge shapes of the band kernels ``dss_scalar``, ``dss_vector`` and
-``dss_uvw`` (``fast/dss_cuda.py``, ``csrc/dss.cu``), each held against the
-plain version.
+"""Edge shapes of the band kernel's four modes ``dss_scalar``,
+``dss_vector``, ``dss_uvw`` and ``dss_scalar2`` (``fast/dss_cuda.py``,
+``csrc/dss.cu``), each held against the plain version.
 
 The flagship's shapes leave parts of the kernels unrun: p = 2 and 3 (rows of
 6 or 3 values, whose spans are no 16-byte multiple: 8- and 4-byte copies), a
@@ -26,6 +26,7 @@ import torch
 # name -> grid (("sphere", ne, p) or ("cart", A, B, p, wrap)), levels K,
 # values the inputs start past an aligned address, overrides of
 # ``dss_launch_shape`` for dss_scalar, for dss_vector and for dss_uvw
+# (dss_scalar2, two fields a stage as dss_vector, takes dss_vector's)
 CASES = {
     "sphere_ne4": (("sphere", 4, 4), 8, 0, {}, {}, {}),
     "sphere_ne4_bands": (("sphere", 4, 4), 7, 0,
@@ -58,7 +59,7 @@ CASES = {
     "cart_one_element": (("cart", 4, 4, 4, (True, True)), 2, 0, {}, {},
                          {}),
 }
-KERNELS = ("dss_scalar", "dss_vector", "dss_uvw")
+KERNELS = ("dss_scalar", "dss_vector", "dss_uvw", "dss_scalar2")
 
 
 def _cut(t, offset):
@@ -137,9 +138,10 @@ def launch_shapes(name: str, dtype) -> dict:
             spec[2], True
     else:
         P, (A, B, p), links = 1, spec[1:4], False
-    return {k: dss_cuda.dss_launch_shape(
-        K, P, A, B, p, dtype, dss_cuda.NFIELDS[k[4:]], links=links, **ov)
-        for k, ov in zip(KERNELS, CASES[name][3:])}
+    over = CASES[name][3:]
+    return {k: dss_cuda.dss_launch_shape(K, P, A, B, p, dtype, k[4:],
+                                         links=links, **ov)
+            for k, ov in zip(KERNELS, over + over[1:2])}
 
 
 def run_case(name: str, dtype, device) -> dict:
@@ -148,14 +150,16 @@ def run_case(name: str, dtype, device) -> dict:
     "bitwise": whether every output equals the plain one bit for bit,
     "shape", "launch": {kernel: launch_config}}``.  ``dss_uvw`` runs with
     two bases and one; its bottom W row is also held alone, on the panel
-    edges and at the corners."""
+    edges and at the corners.  ``dss_scalar2`` runs on x and U, and is also
+    held bit for bit against two ``dss_scalar`` launches
+    (``"scalar2_equals_two_launches"``)."""
     from tempestmodel_tpu_torch.fast import dss_cuda
     (im, links, rot, wrap, p), x, u, v, wf = case_inputs(
         name, dtype, device)
     K, P, A, B = x.shape
     flags = int(wrap[0]) | 2 * int(wrap[1])
     shapes = launch_shapes(name, dtype)
-    ls, lv, lu = (shapes[k] for k in KERNELS)
+    ls, lv, lu, l2 = (shapes[k] for k in KERNELS)
     errs, bitwise = {}, True
     got = dss_cuda._dss_scalar_cuda(x, im, links, p, flags, ls)
     torch.cuda.synchronize()
@@ -182,14 +186,31 @@ def run_case(name: str, dtype, device) -> dict:
                                                      want[2][0][:, edge])
         errs[f"dss_uvw_{tag}_W_bottom_corners"] = _rel(
             got[2][0][:, corner], want[2][0][:, corner])
+    got = dss_cuda._dss_scalar2_cuda(x, u, im, links, p, flags, l2)
+    torch.cuda.synchronize()
+    want = dss_cuda.dss_scalar2_plain(x, u, im, links, p, wrap)
+    two = [dss_cuda._dss_scalar_cuda(f, im, links, p, flags, ls)
+           for f in (x, u)]
+    torch.cuda.synchronize()
+    equal = True
+    for k, g_, w_, t_ in zip(("x", "U"), got, want, two):
+        errs[f"dss_scalar2_{k}"] = _rel(g_, w_)
+        bitwise &= torch.equal(g_, w_)
+        equal &= torch.equal(g_, t_)
     return {"max_err": max(errs.values()), "err_by_output": errs,
-            "bitwise": bool(bitwise), "shape": [K, P, A, B],
+            "bitwise": bool(bitwise),
+            "scalar2_equals_two_launches": bool(equal),
+            "shape": [K, P, A, B],
             "launch": {
                 "dss_scalar": dss_cuda.launch_config(
-                    x, p, 1, dss_cuda._scalar_ptrs(x, im), bool(links), ls),
+                    x, p, "scalar", dss_cuda._scalar_ptrs(x, im),
+                    bool(links), ls),
                 "dss_vector": dss_cuda.launch_config(
-                    u, p, 2, dss_cuda._vector_ptrs(u, v, im), bool(links),
-                    lv),
+                    u, p, "vector", dss_cuda._vector_ptrs(u, v, im),
+                    bool(links), lv),
                 "dss_uvw": dss_cuda.launch_config(
-                    u, p, 5, dss_cuda._uvw_ptrs(u, v, wf, im), bool(links),
-                    lu)}}
+                    u, p, "uvw", dss_cuda._uvw_ptrs(u, v, wf, im),
+                    bool(links), lu),
+                "dss_scalar2": dss_cuda.launch_config(
+                    x, p, "scalar2", dss_cuda._scalar2_ptrs(x, u, im),
+                    bool(links), l2)}}

@@ -5,11 +5,12 @@ Run from the repository root on a machine with an NVIDIA Hopper card and
 nvcc:
 
     python3 -m tempestmodel_tpu_torch.kernels.tune_dss [band] \
-        [scalar | vector | uvw ...] [-DNAME=VALUE ...]
+        [scalar | vector | uvw | scalar2 ...] [-DNAME=VALUE ...]
 
-``band`` (the three modes of the band kernel, ``dss_scalar``,
-``dss_vector`` and ``dss_uvw``, whose launch shape is taken at run time, no
-rebuild; mode names after it sweep those modes only): every band (rows),
+``band`` (the four modes of the band kernel, ``dss_scalar``,
+``dss_vector``, ``dss_uvw`` and ``dss_scalar2``, whose launch shape is
+taken at run time, no rebuild; mode names after it sweep those modes only):
+every band (rows),
 levels a block and ring depth of
 ``BAND_ROWS`` x ``BAND_LEVELS`` x ``BAND_RINGS`` that fits, at the flagship
 shapes (ne30 p4: (30, 6, 120, 120), eight input copies that cycle through
@@ -19,8 +20,9 @@ the 3-D bubble's plane (40, 1, 128, 128), float32 and float64; each held
 against the plain version and timed beside the rule's shape
 (``dss_cuda.dss_launch_shape``), every shape printed per kernel and grid,
 fastest first.  ``-D`` arguments build a variant of ``csrc/dss.cu`` with those
-flags (``BAND_MIN_BLOCKS``, ``BAND_MIN_BLOCKS_VECTOR``,
-``BAND_MIN_BLOCKS_UVW``: blocks an SM must hold, which caps the registers)
+flags (``BAND_MIN_BLOCKS``, the scalar and scalar2 modes',
+``BAND_MIN_BLOCKS_VECTOR``, ``BAND_MIN_BLOCKS_UVW``: blocks an SM must
+hold, which caps the registers)
 and sweep it in place of the default build, with its registers.  Times are
 taken as in ``chip_smoke.py``: launches queued behind a busy device.  The
 first line holds the card's name and power limit.
@@ -55,10 +57,10 @@ def main(argv=()):
     defines = [a for a in argv if a.startswith("-D")]
     words = [a for a in argv if not a.startswith("-D")]
     if words[:1] not in ([], ["band"]) or not set(words[1:]) <= set(
-            dss_cuda.NFIELDS):
+            dss_cuda.MODES):
         print(f"tune_dss: unknown arguments {words}", file=sys.stderr)
         return 2
-    modes = words[1:] or list(dss_cuda.NFIELDS)
+    modes = words[1:] or list(dss_cuda.MODES)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
@@ -137,26 +139,32 @@ def sweep_band(dev, modes):
                   "cb2": 0.7, "dt_s": 12.5, "c00": 0.6, "c01": 0.4}
             sets.append((rnd(nz, Pn, An, Bn), rnd(nz, Pn, An, Bn), wf))
         kernels = {
-            "dss_scalar": (1, lambda sh: lambda x: dss_cuda._dss_scalar_cuda(
+            "dss_scalar": (lambda sh: lambda x: dss_cuda._dss_scalar_cuda(
                 x, im, links, p, flags, sh), xs,
                 lambda: [dss_cuda.dss_scalar_plain(xs[0][0], im, links, p,
                                                    fg.wrap)]),
-            "dss_vector": (2, lambda sh: lambda u, v: dss_cuda
+            "dss_vector": (lambda sh: lambda u, v: dss_cuda
                            ._dss_vector_cuda(u, v, im, fg.e_rot, links, p,
                                              flags, sh),
                            pairs, lambda: list(dss_cuda.dss_vector_plain(
                                *pairs[0], im, fg.e_rot, links, p,
                                fg.wrap))),
-            "dss_uvw": (5, lambda sh: lambda u, v, w: dss_cuda._dss_uvw_cuda(
+            "dss_uvw": (lambda sh: lambda u, v, w: dss_cuda._dss_uvw_cuda(
                 u, v, im, fg.e_rot, links, p, flags, w, sh),
                 sets, lambda: list(dss_cuda.dss_uvw_plain(
                     *sets[0][:2], im, fg.e_rot, links, p, sets[0][2],
-                    fg.wrap)))}
-        for name, (nf, make, args, plain) in kernels.items():
-            if name[4:] not in modes:
+                    fg.wrap))),
+            "dss_scalar2": (lambda sh: lambda x1, x2: dss_cuda
+                            ._dss_scalar2_cuda(x1, x2, im, links, p, flags,
+                                               sh),
+                            pairs, lambda: list(dss_cuda.dss_scalar2_plain(
+                                *pairs[0], im, links, p, fg.wrap)))}
+        for name, (make, args, plain) in kernels.items():
+            mode = name[4:]
+            if mode not in modes:
                 continue
             want = plain()
-            rule = dss_cuda.dss_launch_shape(nz, Pn, An, Bn, p, dtype, nf,
+            rule = dss_cuda.dss_launch_shape(nz, Pn, An, Bn, p, dtype, mode,
                                              links=bool(links))
             shapes = {rule}
             for rows in BAND_ROWS:
@@ -164,7 +172,7 @@ def sweep_band(dev, modes):
                     for ring in BAND_RINGS:
                         try:
                             shapes.add(dss_cuda.dss_launch_shape(
-                                nz, Pn, An, Bn, p, dtype, nf, rows=rows,
+                                nz, Pn, An, Bn, p, dtype, mode, rows=rows,
                                 levels=lv, ring=ring, links=bool(links)))
                         except ValueError:
                             pass

@@ -5,7 +5,7 @@ Run from the repository root on a machine with an NVIDIA Hopper card and
 nvcc:
 
     python3 -m tempestmodel_tpu_torch.kernels.tune_fused \
-        [stage | implicit | banded]
+        [stage | implicit | banded [multi | solve]]
 
 The three kernels take their launch shapes at run time (no rebuild): the
 default build is launched at every shape of ``STAGE_SHAPES`` (tile, levels
@@ -17,9 +17,15 @@ tracers and with three species; at every shape of ``IMPLICIT_COLS`` x
 of ``MULTI_COLS`` x ``MULTI_CHUNKS`` (columns a block, rows an mbarrier),
 with 1 to R groups of threads, of ``banded_solve_multi``'s tile form and of ``MULTI_COLS`` of its stream form
 at the moist wave's systems (n 30, q 1, R 3) and at n 30, q 4, R 5, the
-flagship's 86 400 columns; each held against the rules' shape
-(``stage_cuda.stage_launch_shape``, ``implicit_cuda.implicit_launch_shape``,
-``cuda_banded.banded_multi_launch_shape``), float32 and float64.  Times are
+flagship's 86 400 columns; and (``banded solve``; ``banded`` alone sweeps
+both) at every ring form of ``banded_solve`` (``RING_COLS`` columns a block
+that fit), its stream form at ``MULTI_COLS`` and
+its tile form where it fits, at the unfused path's Newton systems (n 91,
+q 4) and at n 30, q 4, the flagship's 86 400 columns; each held against the
+rules' shape (``stage_cuda.stage_launch_shape``,
+``implicit_cuda.implicit_launch_shape``,
+``cuda_banded.banded_multi_launch_shape``,
+``cuda_banded.banded_solve_launch_shape``), float32 and float64.  Times are
 taken as in ``chip_smoke.py``: launches queued behind a busy device; every
 flagship launch reads more than the L2 holds.  With an argument, only that
 kernel is swept.  ``compile_variants`` and ``load`` build and load ``-D``
@@ -101,7 +107,7 @@ def main(argv=()):
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip())
     build.build_all()
-    only = list(argv)[:1]
+    only, part = list(argv)[:1], list(argv)[1:2]
     tc = BaroclinicWaveUMJS(pert="exp")
     for dtype, sfx in ((torch.float32, "f32"), (torch.float64, "f64")):
         cfg = tm.ModelConfig(
@@ -113,8 +119,10 @@ def main(argv=()):
             sweep_stage(cfg, geom, dtype, sfx, dev)
         if only in ([], ["implicit"]):
             sweep_implicit(cfg, geom, tc, dtype, sfx, dev)
-        if only in ([], ["banded"]):
+        if only in ([], ["banded"]) and part in ([], ["multi"]):
             sweep_banded(dtype, sfx, dev)
+        if only in ([], ["banded"]) and part in ([], ["solve"]):
+            sweep_solve(dtype, sfx, dev)
     return 0
 
 
@@ -281,6 +289,48 @@ def sweep_banded(dtype, sfx, dev):
             print(f"{label} {sh.form} C{sh.cols} T{sh.threads} chunk "
                   f"{sh.chunk} ({sh.smem} B): {ms:.4f} ms  rel err vs rule "
                   f"{err:.1e}", flush=True)
+
+
+
+def sweep_solve(dtype, sfx, dev):
+    """Time banded_solve at every ring form of RING_COLS that fits, its
+    stream form at MULTI_COLS and its tile form where it
+    fits, at n 91, q 4 and n 30, q 4 (two sets of inputs cycle through the
+    L2), each held against the rule's shape."""
+    from tempestmodel_tpu_torch.kernels import banded_edges
+    ncol = 6 * (NE * ORDER) ** 2
+    q = 4
+    for n in (3 * NZ + 1, NZ):
+        sets = []
+        for seed in range(2):
+            b, r = banded_edges.systems(n, q, 1, ncol, seed)
+            sets.append((torch.as_tensor(b, dtype=dtype, device=dev),
+                         torch.as_tensor(r[:, 0], dtype=dtype, device=dev)))
+        rule = cuda_banded.banded_solve_launch_shape(n, q, ncol, dtype)
+        want = cuda_banded._banded_solve_cuda(*sets[0], q, rule)
+        label = f"{sfx} banded_solve n{n} q{q}"
+        ms = time_cuda(lambda b, r: cuda_banded._banded_solve_cuda(
+            b, r, q, rule), sets, 20, queued=True)
+        print(f"{label} rule {rule.form} C{rule.cols} chunk {rule.chunk}: "
+              f"{ms:.4f} ms", flush=True)
+        shapes = [dict(form="ring", cols=c)
+                  for c in cuda_banded.RING_COLS] + [
+            dict(form="stream", cols=c) for c in MULTI_COLS] + [
+            dict(form="tile")]
+        for kw in shapes:
+            try:
+                sh = cuda_banded.banded_solve_launch_shape(n, q, ncol, dtype,
+                                                           **kw)
+            except ValueError:
+                continue
+            got = cuda_banded._banded_solve_cuda(*sets[0], q, sh)
+            err = rel_err([got], [want])
+            ms = time_cuda(lambda b, r: cuda_banded._banded_solve_cuda(
+                b, r, q, sh), sets, 20, queued=True)
+            print(f"{label} {sh.form} C{sh.cols} chunk {sh.chunk} "
+                  f"({sh.smem} B, {cuda_banded.blocks_per_sm(sh.smem)} "
+                  f"blocks an SM): {ms:.4f} ms  rel err vs rule {err:.1e}",
+                  flush=True)
 
 
 if __name__ == "__main__":

@@ -13,8 +13,9 @@ a block, ring depth; chosen at run time, no rebuild) at the flagship shapes
 shape's result held against the rule's; then ``csrc/hyper.cu`` built once
 per ``HYPER_MIN_BLOCKS`` variant (the registers a thread may use), each
 timed at the rule's shape.  ``dss``: ``csrc/dss.cu`` built once per variant
-of its ``-D`` tunables, ``dss_state`` (with and without the Rayleigh
-finish) and ``dss_scalar2`` timed at the flagship shapes.  Every variant
+of ``dss_state``'s ``-D`` tunables, ``dss_state`` (with and without the
+Rayleigh finish) timed at the flagship shapes (``dss_scalar2`` is a mode of
+the band kernel: ``kernels/tune_dss.py band scalar2`` sweeps it).  Every variant
 build is swapped in behind the wrappers and held against the default
 build's result.  Times are taken as in ``chip_smoke.py``: launches queued
 behind a busy device; at the flagship every launch reads more than the L2
@@ -43,11 +44,9 @@ from tempestmodel_tpu_torch.testcases.nonhydro_sphere import (
 VARIANTS = {
     "hyper": [{}] + [{"HYPER_MIN_BLOCKS": b, "HYPER_MIN_BLOCKS_F64": b2}
                      for b, b2 in ((1, 2), (3, 1), (4, 1))],
-    "dss": [{}] + [{"STATE_THREADS": t, "STATE_LEVELS": lv, "S2_THREADS": t,
-                    "S2_LEVELS": lv2}
-                   for t, lv, lv2 in ((128, 1, 1), (128, 2, 2), (128, 3, 3),
-                                      (128, 4, 5), (128, 5, 8), (256, 2, 4),
-                                      (64, 2, 4), (256, 1, 2))],
+    "dss": [{}] + [{"STATE_THREADS": t, "STATE_LEVELS": lv}
+                   for t, lv in ((128, 1), (128, 2), (128, 3), (128, 4),
+                                 (128, 5), (256, 2), (64, 2), (256, 1))],
 }
 # run-time launch shapes of the nu4 kernels: band rows (in elements), levels
 # a block, ring depth
@@ -163,9 +162,6 @@ def sweep(fg, sfx, libs):
     kernels.update({
         "dss_state": ("dss", state),
         "dss_state_rayleigh": ("dss", lambda d, w: state(d, w, ray)),
-        "dss_scalar2": ("dss", lambda d, w: list(dss_cuda.dss_scalar2(
-            d["Rt"], d["Rho"], fg.inv_mult, fg.dss_links, fg.p,
-            table=fg.dss_table))),
     })
     default = dict(build._libs)
     want = {name: fn(*sets[0]) for name, (_, fn) in kernels.items()}

@@ -546,17 +546,25 @@ def test_multistep_equals_the_eager_steps(configs):
 
 @pytest.mark.parametrize("name,want", [
     ("schar", {"stage": 5, "uvw": 5, "update": 1, "banded": 0, "pass1": 0,
-               "pass2": 0, "scalar": 16, "vector": 2}),
+               "pass2": 0, "scalar": 16, "vector": 2, "state": 0,
+               "scalar2": 0}),
     ("bubble3d", {"stage": 5, "uvw": 5, "update": 1, "banded": 0, "pass1": 1,
-                  "pass2": 1, "scalar": 16, "vector": 2})])
+                  "pass2": 1, "scalar": 16, "vector": 2, "state": 0,
+                  "scalar2": 0})])
 def test_a_cartesian_step_goes_through_the_wrappers(configs, monkeypatch,
                                                     name, want):
     """Calls of the kernels' wrappers in one ``step`` (on the CPU each runs
     its plain version).  Schar: its terrain makes the 3-D Jacobian vary in
     z, so its nu4 tail is plain tensor code, as in the JAX package; the
-    bubble's flat plane takes the two nu4 passes."""
+    bubble's flat plane takes the two nu4 passes.  The DSS groups its fields
+    as ``DSS_MERGE_DEFAULT`` says, as on the sphere."""
     from tempestmodel_tpu_torch.fast import implicit, implicit_cuda
     _, _, _, tcfg, _, tgeom = configs[name]
+    if "state" in t_engine.DSS_MERGE_DEFAULT:
+        want = dict(want, state=2, vector=0, scalar=want["scalar"] - 6)
+    if "scalar2" in t_engine.DSS_MERGE_DEFAULT:
+        pairs = 5 if "state" in t_engine.DSS_MERGE_DEFAULT else 7
+        want = dict(want, scalar2=pairs, scalar=want["scalar"] - 2 * pairs)
     calls = dict.fromkeys(want, 0)
 
     def counting(key, fn):
@@ -574,7 +582,7 @@ def test_a_cartesian_step_goes_through_the_wrappers(configs, monkeypatch,
     for key, fname in (("pass1", "nu4_pass1"), ("pass2", "nu4_pass2")):
         monkeypatch.setattr(hyper_cuda, fname,
                             counting(key, getattr(hyper_cuda, fname)))
-    for key in ("uvw", "scalar", "vector"):
+    for key in ("uvw", "scalar", "vector", "state", "scalar2"):
         monkeypatch.setattr(dss_cuda, f"dss_{key}",
                             counting(key, getattr(dss_cuda, f"dss_{key}")))
     cfg = tcfg.with_(vertical_solver="pallas")

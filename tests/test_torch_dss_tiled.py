@@ -1,6 +1,7 @@
-"""The band kernel's host side (``dss_cuda.dss_launch_shape`` for its three
-modes ``dss_scalar``, ``dss_vector`` and ``dss_uvw``, ``copy_width``, the
-build report's instantiations), the edge shapes of ``kernels/dss_edges.py``
+"""The band kernel's host side (``dss_cuda.dss_launch_shape`` for its four
+modes ``dss_scalar``, ``dss_vector``, ``dss_uvw`` and ``dss_scalar2``,
+``copy_width``, the build report's instantiations), the edge shapes of
+``kernels/dss_edges.py``
 (the plain DSS against the JAX Pallas kernels in interpret mode at each
 shape, and the kernels against the plain versions on a card), and the
 sparse operator that ``chip_smoke.py`` times as the DSS kernels' library
@@ -34,23 +35,23 @@ def _ids(shapes):
     return ["x".join(map(str, s)) for s in shapes]
 
 
-MODES = [1, 2, 5]
-MODE_IDS = ["scalar", "vector", "uvw"]
+MODES = ["scalar", "vector", "uvw", "scalar2"]
+MODE_IDS = MODES
 
 
 @pytest.mark.parametrize("dtype", [F32, F64], ids=["f32", "f64"])
-@pytest.mark.parametrize("nfields", MODES, ids=MODE_IDS)
+@pytest.mark.parametrize("mode", MODES, ids=MODE_IDS)
 @pytest.mark.parametrize("shape", SHAPES, ids=_ids(SHAPES))
-def test_dss_launch_shape_fits_a_block(shape, nfields, dtype):
+def test_dss_launch_shape_fits_a_block(shape, mode, dtype):
     """Shared memory within a block's 227 KB and as the kernel lays it
     out, bands of whole elements that tile the panel, threads a multiple of
     a warp up to the launch bound, enough steps a block for the kernel."""
     K, P, A, B, p = shape
-    sh = dss_cuda.dss_launch_shape(K, P, A, B, p, dtype, nfields)
+    sh = dss_cuda.dss_launch_shape(K, P, A, B, p, dtype, mode)
     esize = 4 if dtype == F32 else 8
     assert sh.smem <= dss_cuda.SMEM_MAX
     assert sh.smem == dss_cuda.dss_smem_bytes(sh.rows, A, B, sh.ring,
-                                              nfields, esize, P > 1)
+                                              mode, esize, P > 1)
     assert sh.rows % p == 0 and A % sh.rows == 0
     assert sh.threads % 32 == 0 and 32 <= sh.threads <= dss_cuda.MAX_THREADS
     # a block passes over its band's segments as few times as its threads
@@ -62,31 +63,33 @@ def test_dss_launch_shape_fits_a_block(shape, nfields, dtype):
     # dss_uvw's K + 1 steps: the bottom interface is a run of its own
     assert 1 <= sh.levels <= K
     assert sh.blocks == (A // sh.rows) * P * (math.ceil(K / sh.levels)
-                                              + (nfields == 5))
+                                              + (mode == "uvw"))
     assert 1 <= sh.ring <= dss_cuda.MAX_RING
-    assert nfields != 5 or sh.ring >= 2
+    assert mode != "uvw" or sh.ring >= 2
 
 
 @pytest.mark.parametrize("dtype", [F32, F64], ids=["f32", "f64"])
-@pytest.mark.parametrize("nfields", MODES, ids=MODE_IDS)
-def test_dss_launch_shape_fills_the_card_at_the_flagship(nfields, dtype):
+@pytest.mark.parametrize("mode", MODES, ids=MODE_IDS)
+def test_dss_launch_shape_fills_the_card_at_the_flagship(mode, dtype):
     """More than a full wave: at least two blocks for every SM (one stages
     while another sums), with the levels (K = 30) and the moist wave's
-    flat tracer field (K = 90); the float32 vector mode at least one block
-    for every SM (its sweep found 1.6 an SM, in longer runs, fastest)."""
-    waves = 1 if (nfields, dtype) == (2, F32) else 2
+    flat tracer field (K = 90); the float32 modes with a run target of
+    their own (``RUN_BLOCKS``) at least one block for every SM (the vector
+    mode's sweep found 1.6 an SM, in longer runs, fastest)."""
+    waves = 1 if (mode, 4 if dtype == F32 else 8) in dss_cuda.RUN_BLOCKS \
+        else 2
     for K in (30, 90):
-        sh = dss_cuda.dss_launch_shape(K, 6, 120, 120, 4, dtype, nfields)
+        sh = dss_cuda.dss_launch_shape(K, 6, 120, 120, 4, dtype, mode)
         assert sh.blocks >= waves * dss_cuda.SMS
         assert sh.levels >= 2 or K * 6 * 120 // sh.rows < 4 * dss_cuda.SMS
 
 
-@pytest.mark.parametrize("nfields", MODES, ids=MODE_IDS)
-def test_dss_launch_shape_does_not_starve_schar(nfields):
+@pytest.mark.parametrize("mode", MODES, ids=MODE_IDS)
+def test_dss_launch_shape_does_not_starve_schar(mode):
     """Schar's slab (1600 nodes a level): a block a level, at least one
     block a level in both layouts."""
     for A, B in ((4, 400), (400, 4)):
-        sh = dss_cuda.dss_launch_shape(40, 1, A, B, 4, F32, nfields)
+        sh = dss_cuda.dss_launch_shape(40, 1, A, B, 4, F32, mode)
         assert sh.levels == 1 and sh.blocks >= 40
 
 
@@ -94,14 +97,15 @@ def test_dss_launch_shape_does_not_starve_schar(nfields):
                                   "too_wide", "vector_levels", "vector_ring",
                                   "vector_too_wide", "no_such_mode"])
 def test_dss_launch_shape_raises_where_the_kernel_cannot_run(case):
-    args = {"p17": ((4, 6, 34, 34, 17, F32, 1), {}),
-            "rows": ((4, 6, 16, 16, 4, F32, 1), dict(rows=12)),
-            "uvw_levels": ((4, 6, 16, 16, 4, F32, 5), dict(levels=0)),
-            "uvw_ring": ((4, 6, 16, 16, 4, F32, 5), dict(ring=1)),
-            "too_wide": ((4, 1, 4, 2000, 4, F64, 5), {}),
-            "vector_levels": ((4, 6, 16, 16, 4, F32, 2), dict(levels=0)),
-            "vector_ring": ((4, 6, 16, 16, 4, F32, 2), dict(ring=5)),
-            "vector_too_wide": ((4, 1, 4, 6000, 4, F64, 2), {}),
+    args = {"p17": ((4, 6, 34, 34, 17, F32, "scalar"), {}),
+            "rows": ((4, 6, 16, 16, 4, F32, "scalar"), dict(rows=12)),
+            "uvw_levels": ((4, 6, 16, 16, 4, F32, "uvw"), dict(levels=0)),
+            "uvw_ring": ((4, 6, 16, 16, 4, F32, "uvw"), dict(ring=1)),
+            "too_wide": ((4, 1, 4, 2000, 4, F64, "uvw"), {}),
+            "vector_levels": ((4, 6, 16, 16, 4, F32, "vector"),
+                              dict(levels=0)),
+            "vector_ring": ((4, 6, 16, 16, 4, F32, "vector"), dict(ring=5)),
+            "vector_too_wide": ((4, 1, 4, 6000, 4, F64, "vector"), {}),
             "no_such_mode": ((4, 6, 16, 16, 4, F32, 3), {})}[case]
     with pytest.raises(ValueError):
         dss_cuda.dss_launch_shape(*args[0], **args[1])
@@ -122,45 +126,84 @@ def test_dss_vector_mode_takes_a_ring_of_one_and_no_bottom_run():
     """Unlike ``dss_uvw``, the vector mode walks K steps (no bottom
     interface of its own) and may stage through one stage; its block
     holds two field slots a stage and the edge rotations, no W slot."""
-    sh = dss_cuda.dss_launch_shape(8, 6, 16, 16, 4, F32, 2, ring=1,
+    sh = dss_cuda.dss_launch_shape(8, 6, 16, 16, 4, F32, "vector", ring=1,
                                    levels=3, rows=4)
     assert sh.ring == 1 and sh.blocks == 4 * 6 * 3
     nedge = 2 * (4 + 2) + 2 * 16
     fs = 6 * 16 + 44                    # span, edge lines (to 16 bytes)
     assert sh.smem == dss_cuda.BAR_BYTES + 4 * (
         2 * fs + 4 * 16 + 4 * nedge)
-    cart = dss_cuda.dss_launch_shape(8, 1, 16, 16, 4, F32, 2, ring=2,
-                                     rows=4, links=False)
+    cart = dss_cuda.dss_launch_shape(8, 1, 16, 16, 4, F32, "vector",
+                                     ring=2, rows=4, links=False)
     assert cart.smem == dss_cuda.BAR_BYTES + 4 * (2 * 2 * 6 * 16 + 4 * 16)
 
 
 def test_band_kernel_resources_are_read_from_the_build_report(monkeypatch):
-    """The 24 instantiations (value type x mode x grid family x p 4 or
+    """The 32 instantiations (value type x mode x grid family x p 4 or
     any p) are named from their mangled names."""
     report = {}
     for t in "fd":
         for cart in "01":
             for pp in ("4", "0"):
-                for m in "012":
+                for m in "0123":
                     report[f"_ZN12_GLOBAL__N_111band_kernelI{t}Lb{cart}ELi"
                            f"{pp}ELi{m}EEEvNS_8BandArgsIT_EE"] = {
                         "registers": 40}
     report["_ZN12_GLOBAL__N_116dss_state_kernelIfLb0ELb0EEEvv"] = {}
     monkeypatch.setattr(dss_cuda.build, "ptxas_usage", lambda stem: report)
     got = dss_cuda.kernel_resources()
-    assert len(got) == 24
+    assert len(got) == 32
     assert got["f32 vector sphere p4"] == {"registers": 40}
     assert "f64 uvw cart generic" in got and "f32 scalar cart p4" in got
+    assert "f32 scalar2 sphere p4" in got and "f64 scalar2 cart generic" \
+        in got
 
 
 def test_dss_launch_config_reports_the_launch():
     x = torch.zeros((30, 6, 120, 120), dtype=F32)
-    cfg = dss_cuda.launch_config(x, 4, 1, [x.data_ptr()], True)
-    sh = dss_cuda.dss_launch_shape(30, 6, 120, 120, 4, F32, 1)
+    cfg = dss_cuda.launch_config(x, 4, "scalar", [x.data_ptr()], True)
+    sh = dss_cuda.dss_launch_shape(30, 6, 120, 120, 4, F32, "scalar")
     assert cfg == dict(sh._asdict(), copy=16)
-    odd = dss_cuda.launch_config(x, 4, 1, [x.data_ptr() + 4], True,
+    odd = dss_cuda.launch_config(x, 4, "scalar", [x.data_ptr() + 4], True,
                                  sh._replace(levels=5))
     assert odd["copy"] == 4 and odd["levels"] == 5
+
+
+def test_dss_launch_config_reports_the_scalar2_mode():
+    """``dss_scalar2``'s launch is the rule's in the scalar2 mode, its copy
+    width that of all three pointers it stages from."""
+    x = torch.zeros((30, 6, 120, 120), dtype=F32)
+    y = torch.zeros((30 * 6 * 120 * 120 + 2,), dtype=F32)[2:].view(x.shape)
+    im = torch.zeros((6, 120, 120), dtype=F32)
+    cfg = dss_cuda.launch_config(x, 4, "scalar2",
+                                 dss_cuda._scalar2_ptrs(x, x, im), True)
+    sh = dss_cuda.dss_launch_shape(30, 6, 120, 120, 4, F32, "scalar2")
+    assert cfg == dict(sh._asdict(), copy=16)
+    assert dss_cuda.launch_config(x, 4, "scalar2",
+                                  dss_cuda._scalar2_ptrs(x, y, im),
+                                  True)["copy"] == 8
+
+
+@pytest.mark.parametrize("dtype", [F32, F64], ids=["f32", "f64"])
+@pytest.mark.parametrize("shape", [(30, 6, 120, 120, 4), (40, 1, 4, 400, 4),
+                                   (40, 1, 400, 4, 4), (40, 1, 128, 128, 4)],
+                         ids=["flagship", "schar_swapped", "schar_natural",
+                              "plane"])
+def test_dss_scalar2_mode_stages_two_fields_and_no_rotation(shape, dtype):
+    """At the flagship, Schar in both layouts and the plane: the scalar2
+    mode's block holds two field slots a stage, like the vector mode's, but
+    no edge rotations; its rule has targets of its own (the float32 sweep's
+    best shape at the flagship: bands of 24 rows, runs of 4 levels)."""
+    K, P, A, B, p = shape
+    esize = 4 if dtype == F32 else 8
+    sh = dss_cuda.dss_launch_shape(K, P, A, B, p, dtype, "scalar2")
+    nedge = 2 * (sh.rows + 2) + 2 * A if P > 1 else 0
+    rot = -(-4 * nedge * esize // 16) * 16
+    assert sh.smem == dss_cuda.dss_smem_bytes(sh.rows, A, B, sh.ring,
+                                              "vector", esize, P > 1) - rot
+    assert sh.smem <= dss_cuda.SMEM_MAX and sh.blocks >= K
+    if (P, dtype) == (6, F32):
+        assert (sh.rows, sh.levels, sh.blocks) == (24, 4, 240)
 
 
 def _jax_wf(wf):
@@ -266,3 +309,17 @@ def test_cuda_dss_edge_case_matches_plain(case, dtype, tol):
         pytest.skip("needs a CUDA device: the kernels have no interpret mode")
     got = dss_edges.run_case(case, dtype, torch.device("cuda"))
     assert got["max_err"] <= tol, got["err_by_output"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [F64, F32], ids=["f64", "f32"])
+@pytest.mark.parametrize("case", list(dss_edges.CASES))
+def test_cuda_dss_scalar2_edge_case_is_bit_for_bit(case, dtype):
+    """The scalar2 mode bit for bit equal to ``dss_scalar2_plain`` and to
+    two ``dss_scalar`` launches at every edge case."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no interpret mode")
+    got = dss_edges.run_case(case, dtype, torch.device("cuda"))
+    assert got["err_by_output"]["dss_scalar2_x"] == 0.0
+    assert got["err_by_output"]["dss_scalar2_U"] == 0.0
+    assert got["scalar2_equals_two_launches"]

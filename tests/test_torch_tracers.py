@@ -383,12 +383,22 @@ def test_a_moist_step_goes_through_the_wrappers(pair, three_steps,
     tracer solve takes the multi-right-hand-side kernel whatever
     ``vertical_solver`` says (the JAX package chooses it by backend), while
     ``"banded"`` solves the Newton systems in plain tensor code, as the JAX
-    package's ``"banded"`` does."""
+    package's ``"banded"`` does.  The fused path's DSS groups its fields as
+    ``DSS_MERGE_DEFAULT`` says (the tracer field is a launch of its own
+    whatever the grouping)."""
     from tempestmodel_tpu_torch.fast import (dss_cuda, hyper_cuda, implicit,
                                              implicit_cuda, stage_cuda)
     _, _, tcfg, tgeom = pair
     _, _, d = three_steps
-    assert tuple(t_engine.DSS_MERGE_DEFAULT) == ()
+    if "dss_merge" not in kw and kw.get("fused", True):
+        for name in t_engine.DSS_MERGE_DEFAULT:
+            assert name in ("state", "scalar2")
+        if "state" in t_engine.DSS_MERGE_DEFAULT:
+            want = dict(want, state=2, vector=0, scalar=want["scalar"] - 6)
+        if "scalar2" in t_engine.DSS_MERGE_DEFAULT:
+            pairs = 5 if "state" in t_engine.DSS_MERGE_DEFAULT else 7
+            want = dict(want, scalar2=pairs,
+                        scalar=want["scalar"] - 2 * pairs)
     calls = dict.fromkeys(want, 0)
 
     def counting(key, fn):
