@@ -19,14 +19,16 @@ and runs these phases, each printing one JSON line:
             two groups of species; each stage line names its launch shape,
             ring depth and copy route, and the build line the registers
             and spills of every instantiation of the stage kernel;
-            ``dss_scalar`` also on their flat 90-row field, the four
+            ``dss_scalar`` also on their flat 90-row field, the five
             modes of the band DSS kernel (``dss_scalar``, ``dss_vector``,
-            ``dss_uvw``, ``dss_scalar2``) at their edge shapes (p 2-4, one
-            element a panel, unaligned inputs, several blocks' worth of
-            segments a band, rings of one and three stages, two levels,
-            Cartesian wraps along one axis or both), each bit for bit
-            equal to its plain version (``dss_scalar2`` also to two
-            ``dss_scalar`` launches), each DSS line naming its launch
+            ``dss_uvw``, ``dss_scalar2``, ``dss_state``) at their edge
+            shapes (p 2-4, one element a panel, unaligned inputs, several
+            blocks' worth of segments a band, rings of one and three
+            stages, two levels, Cartesian wraps along one axis or both),
+            each bit for bit equal to its plain version (``dss_scalar2``
+            also to two ``dss_scalar`` launches, ``dss_state``, with and
+            without its Rayleigh finish, also to the separate launches
+            followed by the plain finish), each DSS line naming its launch
             shape and copy route, ``dss_scalar``, ``dss_vector`` and ``dss_scalar2`` timed
             beside one ``torch.sparse.mm`` of the same operator (also
             ``dss_vector`` on the Cartesian grids below), ``nu4_pass1``
@@ -66,7 +68,11 @@ and runs these phases, each printing one JSON line:
             it dry, and again with three seeded tracer species in the state;
             then the Schar slice (nex 8, nz 8, both layouts) and the 3-D
             bubble (nex 4, ney 2, nu4 on): kernel path against plain path,
-            graph replay against eager steps;
+            graph replay against eager steps; then the IMEX step
+            (``make_fast_imex_step``, 2 steps, float64) kernel path against
+            plain path to 1e-11: ne4 nz8 with ARS343 and GARK2, each with
+            the DSS as ``dss_state`` and as the default grouping, and the
+            Schar slice (ARS343, its sponge on) in both layouts;
 5. flagship the main paths at full width: UMJS baroclinic wave, ne30 p4
             nz30 float32: ``make_fast_multistep`` (``first_step``, then
             replays of a 10-step CUDA graph), the eager fused path of
@@ -78,13 +84,21 @@ and runs these phases, each printing one JSON line:
             species before and after; then the Schar mountain waves at the
             JAX package's second bench line (x-z slice, nex 100, p 4, 40
             levels, f32, dt 0.5) through ``make_fast_multistep`` in both
-            layouts, timed in turns, and on the eager fused path;
+            layouts, timed in turns, and on the eager fused path; then
+            (5e) the IMEX-ARK step on the flagship grid (ARS343, the
+            fused implicit kernel, dt 100 s): 1 + 3 eager steps and a
+            10-step CUDA graph of ``make_fast_imex_step``'s ``step``
+            captured here, replayed 4 times, with its launches a step,
+            device busy time a step (torch.profiler) and peak memory;
 6. dss      the step with the tail's DSS as four launches or as
             ``dss_state`` and the stages' Rt/Rho as two launches or as
-            ``dss_scalar2``, eagerly and under graph replay, in turns;
+            ``dss_scalar2``, eagerly and under graph replay, in turns; the
+            same four groupings under graph replay on the Schar slice and
+            on the IMEX flagship (every DSS of the IMEX step is a
+            full-state DSS);
 7. kernels  one line listing every kernel with its time, bound, plain
             version's time and launches on the flagship runs, its launches
-            on the Schar path, and its Cartesian figures.
+            on the IMEX and the Schar paths, and its Cartesian figures.
 
 With ``--profile PATH`` it also traces steps of each flagship path, of the
 moist replay and of the Schar paths with torch.profiler and writes the
@@ -125,6 +139,9 @@ NTR = 3                     # tracer species of the moist wave
 # (bench.py:339-413): x-z slice, nex 100, ney 1, p 4, 40 levels, float32
 SCHAR_NEX, SCHAR_NZ, SCHAR_DT, SCHAR_NU = 100, 40, 0.5, 1.0e7
 PLANE_NE = 32               # elements a side of the 3-D bubble's plane
+# the IMEX-ARK step on the flagship grid: ARS343 (four stages, three with an
+# implicit part, one Newton iteration each), the fused implicit kernel
+IMEX_SCHEME, IMEX_STEPS = "ars343", 3      # eager steps after one warm-up
 KERNELS = ("dss_scalar", "dss_vector", "banded_solve", "dss_uvw",
            "fused_stage", "nu4_pass1", "nu4_pass2", "fused_implicit_update",
            "dss_state", "dss_scalar2", "banded_solve_multi")
@@ -142,6 +159,12 @@ UNFUSED_PER_STEP = {"fused_stage": 0, "dss_uvw": 0, "dss_scalar": 21,
                     "banded_solve": 1, "nu4_pass1": 0, "nu4_pass2": 0,
                     "dss_state": 0, "dss_scalar2": 0, "banded_solve_multi": 0}
 DSS_MERGES = ((), ("state",), ("scalar2",), ("state", "scalar2"))
+# kernel launches per IMEX step (ARS343) with the DSS as separate launches:
+# a full-state DSS after each of the four stages and two in the nu4 tail
+IMEX_PER_STEP = {"fused_stage": 0, "dss_uvw": 0, "dss_scalar": 18,
+                 "dss_vector": 6, "fused_implicit_update": 3,
+                 "banded_solve": 0, "nu4_pass1": 1, "nu4_pass2": 1,
+                 "dss_state": 0, "dss_scalar2": 0, "banded_solve_multi": 0}
 
 
 def fused_per_step(merge):
@@ -155,6 +178,24 @@ def fused_per_step(merge):
     if "scalar2" in merge:
         pairs = 5 if "state" in merge else 7
         n.update(dss_scalar2=pairs, dss_scalar=n["dss_scalar"] - 2 * pairs)
+    return n
+
+
+def imex_per_step(merge, ndss=6, nimp=3, nu4=True):
+    """... and with the groups of ``merge`` in one launch each: every
+    full-state DSS through ``dss_state``, or Rt and Rho through
+    ``dss_scalar2``.  ``ndss``, ``nimp``: the full-state DSS and implicit
+    solves a step of another scheme (GARK2: 5 and 2); ``nu4``: whether the
+    nu4 kernels run (not where the terrain makes the Jacobian vary in
+    z)."""
+    n = dict(IMEX_PER_STEP, dss_vector=ndss, dss_scalar=3 * ndss,
+             fused_implicit_update=nimp)
+    if not nu4:
+        n.update(nu4_pass1=0, nu4_pass2=0)
+    if "state" in merge:
+        n.update(dss_state=ndss, dss_vector=0, dss_scalar=0)
+    elif "scalar2" in merge:
+        n.update(dss_scalar2=ndss, dss_scalar=ndss)
     return n
 
 
@@ -264,15 +305,17 @@ def check_implicit_edges(dtype, dev):
 
 
 def check_dss_edges(dtype, dev):
-    """Phase 3: the band kernel's four modes ``dss_scalar``,
-    ``dss_vector``, ``dss_uvw`` and ``dss_scalar2`` at the edge shapes of
-    ``kernels/dss_edges.py`` against their plain versions, bit for bit
-    (cubed spheres of ne 1-4 with p 2-4, periodic Cartesian panels wrapped
-    along one axis or both, unaligned inputs, bands of several blocks' worth
-    of segments, rings of one and three stages, two levels); ``dss_uvw``
-    with two bases and one, its bottom W row also alone, on the panel edges
-    and at the corners; ``dss_scalar2`` also bit for bit against two
-    ``dss_scalar`` launches."""
+    """Phase 3: the band kernel's five modes ``dss_scalar``,
+    ``dss_vector``, ``dss_uvw``, ``dss_scalar2`` and ``dss_state`` at the
+    edge shapes of ``kernels/dss_edges.py`` against their plain versions,
+    bit for bit (cubed spheres of ne 1-4 with p 2-4, periodic Cartesian
+    panels wrapped along one axis or both, unaligned inputs, bands of
+    several blocks' worth of segments, rings of one and three stages, two
+    levels); ``dss_uvw`` with two bases and one, its bottom W row also
+    alone, on the panel edges and at the corners; ``dss_scalar2`` also bit
+    for bit against two ``dss_scalar`` launches; ``dss_state`` without and
+    with its Rayleigh finish, also bit for bit against the separate
+    launches followed by the plain finish."""
     from tempestmodel_tpu_torch.kernels import dss_edges
     tag = "f32" if dtype == torch.float32 else "f64"
     tol = 1e-6 if dtype == torch.float32 else 1e-13
@@ -281,12 +324,15 @@ def check_dss_edges(dtype, dev):
         emit({"phase": "kernel", "dtype": tag, "tol": tol,
               "name": "dss_edge", "case": case, **got})
         if not (got["max_err"] <= tol and got["bitwise"]
-                and got["scalar2_equals_two_launches"]):
+                and got["scalar2_equals_two_launches"]
+                and got["state_equals_separate_launches"]):
             raise RuntimeError(f"DSS edge case {case} {tag}: rel err "
                                f"{got['err_by_output']} (tolerance {tol}), "
                                f"bitwise {got['bitwise']}, dss_scalar2 "
                                f"equal to two dss_scalar launches "
-                               f"{got['scalar2_equals_two_launches']}")
+                               f"{got['scalar2_equals_two_launches']}, "
+                               f"dss_state equal to the separate launches "
+                               f"{got['state_equals_separate_launches']}")
 
 
 def check_banded_edges(dtype, dev):
@@ -611,27 +657,32 @@ def check_tail_kernels(geom, dtype, rows, dev):
     sc = (fgt.inv_mult, fgt.dss_links, fgt.p)
 
     def separate(x, rayleigh=None):
-        """The four launches (and the plain finish) ``dss_state`` merges."""
+        """The launches (and the plain finish) ``dss_state`` merges:
+        ``dss_vector``, ``dss_scalar`` on W, ``dss_scalar2`` on Rt, Rho."""
         u, v = dss_cuda.dss_vector(x["U"], x["V"], *dss, table=fgt.dss_table)
-        out = {"U": u, "V": v}
-        for k in ("Rt", "Rho", "W"):
-            out[k] = dss_cuda.dss_scalar(x[k], *sc, table=fgt.dss_table)
+        out = {"U": u, "V": v,
+               "W": dss_cuda.dss_scalar(x["W"], *sc, table=fgt.dss_table)}
+        out["Rt"], out["Rho"] = dss_cuda.dss_scalar2(x["Rt"], x["Rho"], *sc,
+                                                     table=fgt.dss_table)
         if rayleigh is not None:
             out = {k: rayleigh[0][k] * out[k] + rayleigh[1][k] for k in out}
         return out
 
-    err, equal = 0.0, True
+    err, equal, bitwise = 0.0, True, True
     for r in (None, ray):
         got = dss_cuda.dss_state(d, *dss, rayleigh=r, table=fgt.dss_table)
         torch.cuda.synchronize()
         want = dss_cuda.dss_state_plain(d, *dss, rayleigh=r)
         sep = separate(d, r)
         err = max(err, max(rel_err(got[k], want[k]) for k in FIELDS))
+        bitwise = bitwise and all(torch.equal(got[k], want[k])
+                                  for k in FIELDS)
         equal = equal and all(torch.equal(got[k], sep[k]) for k in FIELDS)
     del got, want, sep
-    if not err <= dss_tol or not equal:
+    if not err <= dss_tol or not equal or not bitwise:
         raise RuntimeError(f"dss_state {tag}: rel err {err} (tol {dss_tol}), "
-                           f"equal to the separate launches: {equal}")
+                           f"bit for bit equal to the plain version: "
+                           f"{bitwise}, to the separate launches: {equal}")
     timed = {}
     for key, r in (("", None), ("_rayleigh", ray)):
         timed["ms" + key] = time_cuda(
@@ -650,10 +701,13 @@ def check_tail_kernels(geom, dtype, rows, dev):
     row = {"name": "dss_state", "route": "cuda",
            "source": "tempestmodel_tpu_torch/csrc/dss.cu",
            "replaces": "tempestmodel_tpu/fast/dss_pallas.py:343",
-           "shape": [K, P, A, A], "max_abs_err": err,
+           "shape": [K, P, A, A], "max_abs_err": err, "bitwise": bitwise,
            "bitwise_equal_to_separate_launches": equal, **timed,
            "bound_by": by, "library_ms": None}
-    emit({"phase": "kernel", "dtype": tag, "tol": dss_tol, **row})
+    emit({"phase": "kernel", "dtype": tag, "tol": dss_tol, **row,
+          "launch": dss_cuda.launch_config(
+              d["U"], fgt.p, "state", dss_cuda._state_ptrs(d, fgt.inv_mult),
+              True)})
     if f32:
         rows["dss_state"] = row
 
@@ -1337,7 +1391,23 @@ def check_cartesian_dss(fgs, dtype, rows, dev):
                                      wrap=wrap, table=table)
             torch.cuda.synchronize()
             want = dss_cuda.dss_state_plain(d, im, rot, links, fg.p, r, wrap)
+            sep = dict(zip(("U", "V"), dss_cuda.dss_vector(
+                d["U"], d["V"], im, rot, links, fg.p, wrap=wrap,
+                table=table)))
+            sep["Rt"], sep["Rho"] = dss_cuda.dss_scalar2(
+                d["Rt"], d["Rho"], im, links, fg.p, wrap=wrap, table=table)
+            sep["W"] = dss_cuda.dss_scalar(d["W"], im, links, fg.p,
+                                           wrap=wrap, table=table)
+            torch.cuda.synchronize()
+            if r is not None:
+                sep = {k: r[0][k] * sep[k] + r[1][k] for k in sep}
             e = max(e, max(rel_err(got[k], want[k]) for k in want))
+            if not all(torch.equal(got[k], want[k])
+                       and torch.equal(got[k], sep[k]) for k in want):
+                raise RuntimeError(
+                    f"cartesian dss_state {where} {tag} (Rayleigh "
+                    f"{r is not None}): not bit for bit equal to the plain "
+                    f"version and to the separate launches")
         errs["dss_state"] = e
         g1, g2 = dss_cuda.dss_scalar2(d["Rt"], d["Rho"], im, links, fg.p,
                                       wrap=wrap, table=table)
@@ -1404,6 +1474,13 @@ def check_cartesian_dss(fgs, dtype, rows, dev):
         op = dss_operator.vector_operator(im, rot, links, fg.p, wrap)
         uvs = [(torch.cat([x["U"].reshape(K, -1), x["V"].reshape(K, -1)],
                           1),) for x in sets]
+        timed["dss_state"].update(
+            bitwise=True, rayleigh=True,
+            ms_no_rayleigh=time_cuda(
+                lambda x: dss_cuda.dss_state(x, im, rot, links, fg.p, **sw),
+                [(x,) for x in sets], reps=50, queued=True),
+            launch=dss_cuda.launch_config(
+                d["U"], fg.p, "state", dss_cuda._state_ptrs(d, im), False))
         timed["dss_vector"].update(
             bitwise=True,
             library_ms=time_cuda(lambda uv: dss_operator.apply(op, uv), uvs,
@@ -1701,6 +1778,344 @@ def check_cartesian_slice(dev):
     return launched
 
 
+# ---------------------------------------------------------------------------
+# the IMEX-ARK family
+# ---------------------------------------------------------------------------
+
+def capture_imex(step, S, nsteps):
+    """``nsteps`` steps of an IMEX ``step`` (reference-layout state ->
+    state) as one CUDA graph captured from static input buffers, as
+    ``make_fast_multistep`` captures Strang steps: one warm-up step on a
+    side stream (it builds the kernels and uploads the lazily made tables),
+    then the capture.  Returns ``replay(S) -> S``: copies ``S`` into the
+    buffers, replays the graph and returns clones of the outputs."""
+    dev = S["U"].device
+    side = torch.cuda.Stream(device=dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        step(S)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    ins = {k: v.clone() for k, v in S.items()}
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = ins
+        for _ in range(nsteps):
+            outs = step(outs)
+
+    def replay(S):
+        for k, v in ins.items():
+            v.copy_(S[k])
+        graph.replay()
+        return {k: v.clone() for k, v in outs.items()}
+    # the graph reads what the step's set-up holds (geometry, statics):
+    # the step lives as long as its graph (replaying a graph whose step was
+    # collected crashed the process)
+    replay.step = step
+    return replay
+
+
+def check_imex_slice(dev):
+    """Phase 4, IMEX: 2 steps of ``make_fast_imex_step`` in float64 on the
+    card, the kernel path against the plain path (``plain=True``) to 1e-11
+    relative per field: ne4 p4 nz8 (UMJS) with ARS343 and GARK2, each with
+    every DSS through ``dss_state``, with the default grouping and with
+    separate launches (the band kernel's other modes); the
+    Schar slice (nex 8, nz 8, ARS343, its sponge on) in both layouts (U and
+    V against their common scale).  The kernel path's launches are checked
+    against the IMEX table; the plain path launches nothing."""
+    import tempestmodel_tpu_torch as tm
+    from tempestmodel_tpu_torch import fast
+    from tempestmodel_tpu_torch.kernels import counts
+    from tempestmodel_tpu_torch.models import nh_model
+    from tempestmodel_tpu_torch.testcases.nonhydro_sphere import (
+        BaroclinicWaveUMJS)
+
+    tc = BaroclinicWaveUMJS(pert="exp")
+    base = tm.ModelConfig(
+        grid_kind=tm.GridKind.CUBED_SPHERE, ne=4, order=4, nz=8,
+        ztop=tc.ztop, dt=200.0, hyperdiffusion=True, nu_scalar=1e15,
+        nu_div=1e15, nu_vort=1e15, vertical_solver="pallas",
+        dtype=torch.float64)
+    geom = nh_model.build_nh_sphere_geometry(base, ztop=tc.ztop)
+    state = tc.initial_state(geom, base.constants, dtype=torch.float64,
+                             device=dev)
+    default = tuple(fast.engine.DSS_MERGE_DEFAULT)
+    cases = []
+    for scheme, ndss, nimp in (("ars343", 6, 3), ("gark2", 5, 2)):
+        for merge in sorted({("state",), default, ()}):
+            cases.append((f"ne4 p4 nz8 f64 {scheme}", base.with_(
+                timescheme=tm.TimestepSchemeType(scheme)), geom, state, None,
+                None, merge, imex_per_step(merge, ndss, nimp)))
+    for swap in (True, False):
+        _, cfg, sgeom, sstate, ref = cartesian_setup("schar", torch.float64,
+                                                     8, 1, 8, dev)
+        cases.append((f"schar nex8 nz8 f64 ars343, "
+                      f"{'swapped' if swap else 'natural'}",
+                      cfg.with_(timescheme=tm.TimestepSchemeType.ARS343),
+                      sgeom, sstate, ref, swap, default,
+                      imex_per_step(default, nu4=False)))
+    for what, cfg, g, S0, ref, swap, merge, per in cases:
+        outs, launched = {}, None
+        for path, plain in (("kernels", False), ("plain", True)):
+            counts.reset_launch_counts()
+            step = fast.make_fast_imex_step(cfg, g, ref_state=ref,
+                                            device=dev, plain=plain,
+                                            dss_merge=merge, swap_ab=swap)
+            S = S0
+            for _ in range(2):
+                S = step(S)
+            torch.cuda.synchronize()
+            outs[path] = S
+            if path == "kernels":
+                launched = dict(counts.launch_counts)
+            elif any(counts.launch_counts.values()):
+                raise RuntimeError(f"IMEX {what}: the plain path launched "
+                                   f"{dict(counts.launch_counts)}")
+        want = {k: 2 * v for k, v in per.items()}
+        if launched != want:
+            raise RuntimeError(f"IMEX {what} ({merge}): launch counts "
+                               f"{launched} != expected {want}")
+        errs = compare_xz(outs["kernels"], outs["plain"]) if swap is not None \
+            else {k: rel_err(outs["kernels"][k], outs["plain"][k])
+                  for k in outs["plain"]}
+        emit({"phase": "imex_slice", "config": what + ", 2 steps",
+              "dss_merge": merge, "kernels_vs_plain": errs, "tol": 1e-11,
+              "launches": launched})
+        if not max(errs.values()) < 1e-11:
+            raise RuntimeError(f"IMEX {what} ({merge}): paths disagree "
+                               f"{errs}")
+        for k, v in outs["kernels"].items():
+            if not bool(torch.isfinite(v).all()):
+                raise RuntimeError(f"IMEX {what}: non-finite {k}")
+
+
+def imex_line(dev, smi, cfg, geom, state, launches, profiles):
+    """Phase 5e: the IMEX-ARK step (ARS343, ``vertical_solver="pallas"``:
+    the fused implicit kernel) on the flagship grid, reusing the flagship's
+    geometry and start, the DSS grouped as ``DSS_MERGE_DEFAULT`` says: 1
+    warm-up and ``IMEX_STEPS`` eager steps timed by CUDA events, then a
+    10-step CUDA graph of ``step`` (``capture_imex``) replayed ``REPLAYS``
+    times; each run starts with the counts at 0 and is checked against the
+    IMEX table; the device busy time of one replay from torch.profiler.
+    Where a field is not finite after the eager steps at dt 100 s, it runs
+    at 50 s and says so (a step's cost does not depend on dt).  Returns
+    the configuration it ran."""
+    import tempestmodel_tpu_torch as tm
+    from tempestmodel_tpu_torch import fast
+    from tempestmodel_tpu_torch.kernels import counts
+    merge = tuple(fast.engine.DSS_MERGE_DEFAULT)
+    per_step = imex_per_step(merge)
+    npts = 6 * (NE * ORDER) ** 2 * NZ
+    shapes = {k: tuple(v.shape) for k, v in state.items()}
+
+    def check(S, what):
+        for k, v in S.items():
+            if tuple(v.shape) != shapes[k] or v.dtype != torch.float32 \
+                    or not bool(torch.isfinite(v).all()):
+                raise RuntimeError(f"{what}: {k} is not a finite float32 "
+                                   f"field of the start's shape")
+        drift = {k: rel_err(S[k], state[k]) for k in ("Rho", "Rt")}
+        if not all(d < 1e-2 for d in drift.values()):
+            raise RuntimeError(f"{what}: state drifted {drift}")
+        return drift
+
+    note = None
+    for dt in (DT, 0.5 * DT):
+        icfg = cfg.with_(timescheme=tm.TimestepSchemeType(IMEX_SCHEME),
+                         dt=dt)
+        t0 = time.perf_counter()
+        step = fast.make_fast_imex_step(icfg, geom, device=dev)
+        make_s = time.perf_counter() - t0
+        S = step(state)                  # warm-up outside the counted run
+        torch.cuda.synchronize()
+        counts.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        S = state
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        ev0.record()
+        for _ in range(IMEX_STEPS):
+            S = step(S)
+        ev1.record()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0) / IMEX_STEPS
+        ms = ev0.elapsed_time(ev1) / IMEX_STEPS
+        launches["imex_eager"] = dict(counts.launch_counts)
+        if all(bool(torch.isfinite(v).all()) for v in S.values()):
+            break
+        note = (f"dt {DT:g} s gave non-finite fields after {IMEX_STEPS} "
+                f"steps; run at dt {0.5 * DT:g} s")
+        emit({"phase": "imex", "note": note})
+    else:
+        raise RuntimeError(f"IMEX flagship: non-finite fields at dt {DT:g} "
+                           f"and {0.5 * DT:g} s")
+    config = (f"UMJS ne{NE} p{ORDER} nz{NZ} f32 {IMEX_SCHEME} dt{dt:g} "
+              f"nu{NU:g}")
+    want = {k: v * IMEX_STEPS for k, v in per_step.items()}
+    if launches["imex_eager"] != want:
+        raise RuntimeError(f"IMEX eager: launch counts "
+                           f"{launches['imex_eager']} != expected {want}")
+    emit({"phase": "imex", "path": "eager", "config": config,
+          "steps": IMEX_STEPS, "ms_per_step": ms, "wall_ms_per_step": wall,
+          "gridpoint_steps_per_s": npts / (ms * 1e-3),
+          "launches": launches["imex_eager"], "launches_per_step": per_step,
+          "dss_merge": merge, "make_fast_imex_step_s": make_s,
+          "drift": check(S, "IMEX eager"), "note": note,
+          "peak_device_GiB": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "card": smi})
+
+    counts.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    replay = capture_imex(step, state, INNER_STEPS)
+    S = replay(state)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    launches["imex_multistep"] = dict(counts.launch_counts)
+    want = {k: v * (INNER_STEPS + 1) for k, v in per_step.items()}
+    if launches["imex_multistep"] != want:
+        raise RuntimeError(f"IMEX graph: launch counts "
+                           f"{launches['imex_multistep']} != expected {want}")
+    replay_ms = []
+    for _ in range(REPLAYS):
+        torch.cuda.synchronize()
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        S = replay(S)
+        ev1.record()
+        torch.cuda.synchronize()
+        replay_ms.append(ev0.elapsed_time(ev1) / INNER_STEPS)
+    drift = check(S, "IMEX graph replay")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = profile_steps(lambda x, c: (replay(x), c), S, None, 1,
+                         "imex_multistep", INNER_STEPS)
+    profiles["imex_multistep"] = prof
+    ms = sorted(replay_ms)[len(replay_ms) // 2]
+    emit({"phase": "imex", "path": "multistep", "config": config,
+          "inner_steps": INNER_STEPS, "replays": REPLAYS,
+          "steps": INNER_STEPS * (REPLAYS + 1), "ms_per_step": ms,
+          "ms_per_step_each_replay": replay_ms,
+          "gridpoint_steps_per_s": npts / (ms * 1e-3),
+          "device_busy_ms_per_step": prof["device_ms_per_step"],
+          "device_launches_per_step": prof["device_launches_per_step"],
+          "launches": launches["imex_multistep"],
+          "launches_per_step": per_step,
+          "launches_counted": "at capture (1 warm-up step + "
+                              f"{INNER_STEPS} captured steps), not at replay",
+          "dss_merge": merge, "capture_and_first_replay_s": capture_s,
+          "drift": drift, "note": note, "peak_device_GiB": peak,
+          "card": smi})
+    del replay, step, S
+    torch.cuda.empty_cache()
+    return icfg
+
+
+def replay_in_turns(variants, nsteps):
+    """Each variant's ``replay(state) -> state`` (a graph of ``nsteps``
+    steps) once untimed, then timed by CUDA events in turns, forward then
+    backward; appends ms/step to each variant's ``"ms"``."""
+    for v in variants.values():
+        v["state"] = v["replay"](v["state"])
+    torch.cuda.synchronize()
+    for name in list(variants) + list(variants)[::-1]:
+        v = variants[name]
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        v["state"] = v["replay"](v["state"])
+        ev1.record()
+        torch.cuda.synchronize()
+        v["ms"].append(ev0.elapsed_time(ev1) / nsteps)
+
+
+def dss_merges_imex(dev, smi, icfg, geom, state, launches):
+    """Phase 6, IMEX: the IMEX flagship (``imex_line``'s configuration)
+    with each of the four DSS groupings, each a 10-step graph captured with
+    the counts at 0 and checked, replayed in turns."""
+    from tempestmodel_tpu_torch import fast
+    from tempestmodel_tpu_torch.kernels import counts
+    variants = {}
+    for merge in DSS_MERGES:
+        name = "+".join(merge) or "separate"
+        step = fast.make_fast_imex_step(icfg, geom, device=dev,
+                                        dss_merge=merge)
+        counts.reset_launch_counts()
+        replay = capture_imex(step, state, INNER_STEPS)
+        torch.cuda.synchronize()
+        launches[f"imex_{name}"] = dict(counts.launch_counts)
+        want = {k: v * (INNER_STEPS + 1)
+                for k, v in imex_per_step(merge).items()}
+        if launches[f"imex_{name}"] != want:
+            raise RuntimeError(f"IMEX dss {name}: launch counts "
+                               f"{launches[f'imex_{name}']} != {want}")
+        variants[name] = {"replay": replay, "state": state, "ms": []}
+    replay_in_turns(variants, INNER_STEPS)
+    for name, v in variants.items():
+        if not all(bool(torch.isfinite(x).all()) for x in v["state"].values()):
+            raise RuntimeError(f"IMEX dss {name}: non-finite fields")
+    out = {name: {"replay_ms_per_step": v["ms"],
+                  "launches_per_step": imex_per_step(
+                      tuple(name.split("+")) if name != "separate" else ())}
+           for name, v in variants.items()}
+    emit({"phase": "dss", "config": f"IMEX {IMEX_SCHEME} UMJS ne{NE} "
+          f"p{ORDER} nz{NZ} f32 dt{icfg.dt:g}", "inner_steps": INNER_STEPS,
+          "order": "forward then backward, one replay each",
+          "variants": out, "fastest_under_replay": min(
+              variants, key=lambda n: min(variants[n]["ms"])),
+          "default": "+".join(fast.engine.DSS_MERGE_DEFAULT) or "separate",
+          "card": smi})
+    del variants
+    torch.cuda.empty_cache()
+
+
+def dss_merges_schar(dev, smi, launches):
+    """Phase 6, Schar: the Schar slice at the JAX bench's size (its default
+    layout, its sponge on) through ``make_fast_multistep`` with each of the
+    four DSS groupings, each captured with the counts at 0 and checked,
+    replayed in turns."""
+    from tempestmodel_tpu_torch import fast
+    from tempestmodel_tpu_torch.kernels import counts
+    _, cfg, geom, state, ref = cartesian_setup(
+        "schar", torch.float32, SCHAR_NEX, 1, SCHAR_NZ, dev)
+    X0 = fast.pack_state(state, device=dev)
+    variants = {}
+    for merge in DSS_MERGES:
+        name = "+".join(merge) or "separate"
+        first, multi = fast.make_fast_multistep(
+            cfg, geom, INNER_STEPS, ref_state=ref, device=dev,
+            dss_merge=merge)
+        counts.reset_launch_counts()
+        X, carry = multi(*first(X0))     # warm-up step, capture, replay
+        torch.cuda.synchronize()
+        launches[f"schar_{name}"] = dict(counts.launch_counts)
+        per_step = dict(fused_per_step(merge), nu4_pass1=0, nu4_pass2=0)
+        want = {k: v * (INNER_STEPS + 2) + (1 if k == "fused_implicit_update"
+                                            else 0)
+                for k, v in per_step.items()}
+        if launches[f"schar_{name}"] != want:
+            raise RuntimeError(f"Schar dss {name}: launch counts "
+                               f"{launches[f'schar_{name}']} != {want}")
+        variants[name] = {"replay": lambda s, m=multi: m(*s),
+                          "state": (X, carry), "ms": [],
+                          "per_step": per_step}
+    replay_in_turns(variants, INNER_STEPS)
+    out = {name: {"replay_ms_per_step": v["ms"],
+                  "launches_per_step": v["per_step"]}
+           for name, v in variants.items()}
+    emit({"phase": "dss", "config": f"Schar x-z nex{SCHAR_NEX} p{ORDER} "
+          f"nz{SCHAR_NZ} f32 dt{SCHAR_DT:g}, default layout",
+          "inner_steps": INNER_STEPS,
+          "order": "forward then backward, one replay each",
+          "variants": out, "fastest_under_replay": min(
+              variants, key=lambda n: min(variants[n]["ms"])),
+          "default": "+".join(fast.engine.DSS_MERGE_DEFAULT) or "separate",
+          "card": smi})
+    del variants
+    torch.cuda.empty_cache()
+
+
 def schar_line(dev, smi, launches, profiles, profile):
     """Phase 5d: the Schar mountain waves at the JAX bench's size (x-z
     slice, nex 100, p 4, 40 levels, f32, dt 0.5) through
@@ -1929,9 +2344,9 @@ def main():
         raise RuntimeError(f"the build reported {len(nu4_resources)} of the "
                            f"nu4 kernel's 8 instantiations")
     dss_resources = dss_cuda.kernel_resources()
-    if len(dss_resources) != 32:
+    if len(dss_resources) != 40:
         raise RuntimeError(f"the build reported {len(dss_resources)} of the "
-                           f"band DSS kernel's 32 instantiations")
+                           f"band DSS kernel's 40 instantiations")
     multi_resources = cuda_banded.kernel_resources()
     if len(multi_resources) != 48:
         raise RuntimeError(f"the build reported {len(multi_resources)} of "
@@ -1973,6 +2388,7 @@ def main():
     check_slice(dev)
     check_slice(dev, with_tracers=True)
     cart_launches = check_cartesian_slice(dev)
+    check_imex_slice(dev)
 
     # 5. the main paths at full width -------------------------------------
     X0 = fast.pack_state(state, device=dev)
@@ -2189,9 +2605,12 @@ def main():
     del first_step, step, X, carry, M0, area
     torch.cuda.empty_cache()
 
-    # 5d. this slice's path: the Schar mountain waves at the JAX bench's size
+    # 5d. the Schar mountain waves at the JAX bench's size
     schar_ms = schar_line(dev, smi, launches, profiles,
                           profile_path is not None)
+
+    # 5e. this slice's path: the IMEX-ARK step on the flagship grid
+    icfg = imex_line(dev, smi, cfg, geom, state, launches, profiles)
 
     if profile_path is not None:
         os.makedirs(os.path.dirname(os.path.abspath(profile_path)),
@@ -2246,27 +2665,35 @@ def main():
           "default": "+".join(default_merge) or "separate", "card": smi})
     del variants
     torch.cuda.empty_cache()
+    dss_merges_schar(dev, smi, launches)
+    dss_merges_imex(dev, smi, icfg, geom, state, launches)
 
     # 7. the kernels line, the card, the result ---------------------------
     # launches: the count of the dry flagship's path (the multistep run); for
     # a kernel that path does not run, the count of the run that does: the
-    # moist path, the DSS variants of phase 6, then the unfused path.  Each of
-    # these runs began with the counts at 0.  Beside it, the count of the
-    # Schar path in its default layout (the multistep run of phase 5d) and
-    # of the 3-D bubble's kernel path (phase 4); the Cartesian figures of
-    # phase 3 (float32) sit under "cartesian".
+    # moist path, the IMEX path (its graph with the default grouping, then
+    # with every DSS through dss_state, phase 6), the Strang DSS variants of
+    # phase 6, then the unfused path.  Each of these runs began with the
+    # counts at 0.  Beside it, the count of the IMEX path (phase 5e's
+    # graph), of the Schar path in its default layout (the multistep run of
+    # phase 5d) and of the 3-D bubble's kernel path (phase 4); the Cartesian
+    # figures of phase 3 (float32) sit under "cartesian".
     schar_default = schar_ms["default"]
     bubble = next(v for k, v in cart_launches.items()
                   if k.startswith("bubble3d"))
     kernels = []
     for name in KERNELS:
         row = dict(rows[name])
-        runs = ["multistep", "moist_multistep", "state+scalar2", "separate",
-                "unfused"]
+        runs = ["multistep", "moist_multistep", "imex_multistep",
+                "imex_state", "state+scalar2", "separate", "unfused"]
         row["launches"], row["launches_on"] = next(
             ((launches[r][name], r) for r in runs if launches[r][name]),
             (0, None))
         row["launches_unfused_path"] = launches["unfused"][name]
+        row["launches_imex_path"] = launches["imex_multistep"][name]
+        if imex_per_step(default_merge)[name] \
+                and row["launches_imex_path"] < 1:
+            raise RuntimeError(f"{name} was not launched on the IMEX path")
         row["launches_moist_path"] = launches["moist_multistep"][name]
         if moist(fused_per_step(default_merge))[name] \
                 and row["launches_moist_path"] < 1:
@@ -2276,8 +2703,8 @@ def main():
             raise RuntimeError(f"{name} was launched on no path")
         row["launches_schar_path"] = launches[f"schar_{schar_default}"][name]
         row["launches_bubble3d_slice"] = bubble[name]
-        if name in ("fused_stage", "dss_uvw", "dss_scalar", "dss_vector",
-                    "fused_implicit_update") and row["launches_schar_path"] < 1:
+        if dict(fused_per_step(default_merge), nu4_pass1=0,
+                nu4_pass2=0)[name] and row["launches_schar_path"] < 1:
             raise RuntimeError(f"{name} was not launched on the Schar path")
         cart = {}
         if name in rows["cartesian_dss"]["schar_swapped"]:

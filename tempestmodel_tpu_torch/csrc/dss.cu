@@ -57,7 +57,7 @@
 // its segment's rows, partners and edges once; a block stages its band's
 // inverse multiplicities (and, for the (U, V) pair, its edge lines'
 // rotations) once, and takes the link table by value in its arguments.
-// The template has four compile-time modes, each instantiated for the
+// The template has five compile-time modes, each instantiated for the
 // cubed sphere and for a Cartesian grid (CART), with p = 4 and any p:
 //   scalar  (`dss_scalar`) one field a stage;
 //   vector  (`dss_vector`) U and V a stage, the rotation applied to the
@@ -67,7 +67,11 @@
 //           then summed like a scalar, and U, V are summed as in the vector
 //           mode; its bottom interface is a run of its own;
 //   scalar2 (`dss_scalar2`) two scalar fields of one shape a stage (Rt and
-//           Rho), each through the scalar mode's path, no rotation.
+//           Rho), each through the scalar mode's path, no rotation;
+//   state   (`dss_state`) the five fields of a state a stage (U, V, Rt,
+//           Rho, W): U, V through the vector mode's path, Rt, Rho and W
+//           through the scalar path; W's top interface is a run of its own;
+//           an optional pointwise finish at the stores.
 // Every product and sum is rounded as the plain version's tensor operations
 // round it (no fused multiply-add), so the results equal the plain
 // versions'.
@@ -86,20 +90,20 @@
 // at (30, 6, 120, 120) float32, 12.4 us.
 //
 // `dss_state` replaces the TPU kernel `dss_state` (`_state_kernel`,
-// dss_pallas.py:343): a gather with one thread per output node (k, panel,
-// a, b), b fastest, for all five fields of the state (the (U, V) pair
-// rotated, Rt, Rho and W as scalars, W with one level more) in one launch.
-// A thread finds its node with one division, works out once its
-// element-boundary partners, edge links, rotation and inverse multiplicity,
-// which then serve every field, and walks a few levels, loads before
-// stores.
-// `dss_state` can finish with the Rayleigh term form x <- fac * x + ref, read
-// from ten more fields; that product and sum are rounded separately, as two
-// tensor operations would round them, and the (U, V) rotation is rounded as
-// `dss_vector` rounds it, so the result equals the separate launches
-// followed by the plain finish.  Bound: bytes (each field read once
-// and written once): 104 MB at (30 | 31, 6, 120, 120) float32, 31 us (209 MB,
-// 62 us with the Rayleigh finish).
+// dss_pallas.py:343): the DSS of all five fields of the state (the (U, V)
+// pair rotated, Rt, Rho and W as scalars, W with one level more) in one
+// launch, the band kernel's state mode.  A block stages the five fields'
+// spans and edge lines a level, so one block's set-up (its barriers, its
+// inverse multiplicities and edge rotations, its segments) serves five
+// fields where the separate launches pay it for one or two.  It can finish
+// with the Rayleigh term form x <- fac * x + ref, read from ten more
+// fields; they are pointwise and are not staged: each thread reads them at
+// its store (16-byte loads where p = 4 and the pointers allow).  That
+// product and sum are rounded separately, as two tensor operations would
+// round them, so the result equals the separate launches followed by the
+// plain finish.  Bound: bytes (each field read once and written once): 104
+// MB at (30 | 31, 6, 120, 120) float32, 31 us (209 MB, 62 us with the
+// Rayleigh finish).
 //
 // Plain C interface (no PyTorch header): pointers and the stream arrive as
 // integers, the launch goes to the given stream, nothing synchronises or
@@ -112,115 +116,6 @@
 namespace {
 
 constexpr int EDGE_LEFT = 0, EDGE_RIGHT = 1, EDGE_BOTTOM = 2;  // EDGE_TOP = 3
-// Block size and levels per thread of dss_state (five fields a level);
-// kernels/tune_tail.py sweeps them with -D flags.  (128, 2) was the fastest
-// of nine pairs in float32 at (30 | 31, 6, 120, 120) on an H100; in float64
-// it was 5 % faster at 1 level.
-#ifndef STATE_THREADS
-#define STATE_THREADS 128
-#endif
-#ifndef STATE_LEVELS
-#define STATE_LEVELS 2
-#endif
-
-// The raw nodes whose sum is the pair-summed value at (a, b) of one (A, B)
-// panel slab, as offsets into the slab: the node itself, its coincident
-// copy across an element boundary along a (o_a), along b (o_b), and the
-// diagonal one (o_ab); -1 where there is none.
-struct PairNodes {
-  int o, o_a, o_b, o_ab;
-};
-
-// `wrap` (CART only): bit 0 pairs a = 0 with a = A-1, bit 1 b = 0 with
-// b = B-1.  Without CART the wrap code is not compiled in.
-template <bool CART>
-__device__ __forceinline__ PairNodes pair_nodes(int a, int b, int A, int B,
-                                                int p, int wrap) {
-  int a2 = -1, b2 = -1;
-  const int ra = a % p, rb = b % p;
-  if (ra == p - 1 && a < A - 1) a2 = a + 1;
-  else if (ra == 0 && a > 0) a2 = a - 1;
-  else if (CART && (wrap & 1)) a2 = (a == 0) ? A - 1 : (a == A - 1) ? 0 : -1;
-  if (rb == p - 1 && b < B - 1) b2 = b + 1;
-  else if (rb == 0 && b > 0) b2 = b - 1;
-  else if (CART && (wrap & 2)) b2 = (b == 0) ? B - 1 : (b == B - 1) ? 0 : -1;
-  PairNodes n;
-  n.o = a * B + b;
-  n.o_a = (a2 >= 0) ? a2 * B + b : -1;
-  n.o_b = (b2 >= 0) ? a * B + b2 : -1;
-  n.o_ab = (a2 >= 0 && b2 >= 0) ? a2 * B + b2 : -1;
-  return n;
-}
-
-// Pair-summed value: a first, then b on the a-summed values.
-template <typename T>
-__device__ __forceinline__ T pair_sum(const T* __restrict__ f,
-                                      const PairNodes& n) {
-  T s = f[n.o];
-  if (n.o_a >= 0) s += f[n.o_a];
-  if (n.o_b >= 0) {
-    T s2 = f[n.o_b];
-    if (n.o_ab >= 0) s2 += f[n.o_ab];
-    s += s2;
-  }
-  return s;
-}
-
-// (a, b) of position j along edge `e` of a panel.
-__device__ __forceinline__ void edge_node(int e, int j, int A, int B, int& a,
-                                          int& b) {
-  if (e == EDGE_LEFT) { a = 0; b = j; }
-  else if (e == EDGE_RIGHT) { a = A - 1; b = j; }
-  else if (e == EDGE_BOTTOM) { a = j; b = 0; }
-  else { a = j; b = B - 1; }  // EDGE_TOP
-}
-
-// What a node on panel edges receives: at most two neighbour nodes (a cube
-// corner lies on two edges), each with its panel, its pair nodes, and the
-// link index and position that select the rotation coefficients.  The same
-// on every level, so a thread works it out once.
-struct EdgeTerms {
-  int count;
-  int panel[2];
-  PairNodes nodes[2];
-  int link[2];
-  int pos[2];
-};
-
-// table[(panel * 4 + edge) * 4 + {0,1,2,3}] = neighbour panel, neighbour
-// edge, flip, index of the link (row of the rotation table).  Edges are
-// visited in the order of the link list (left, right, bottom, top), which
-// is the plain version's order of summation.
-__device__ __forceinline__ EdgeTerms edge_terms(const int* __restrict__ table,
-                                                int pa, int a, int b, int A,
-                                                int B, int p) {
-  EdgeTerms t = {};
-  const bool on_edge[4] = {a == 0, a == A - 1, b == 0, b == B - 1};
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    if (!on_edge[e] || t.count == 2) continue;
-    const int i = (e < 2) ? b : a;  // position along the destination edge
-    const int* row = table + (pa * 4 + e) * 4;
-    const int j = row[2] ? (A - 1 - i) : i;
-    int na, nb;
-    edge_node(row[1], j, A, B, na, nb);
-    // constant indices keep the struct in registers
-    const int slot = t.count;
-    const PairNodes nodes = pair_nodes<false>(na, nb, A, B, p, 0);
-#pragma unroll
-    for (int n = 0; n < 2; ++n) {
-      if (n == slot) {
-        t.panel[n] = row[0];
-        t.nodes[n] = nodes;
-        t.link[n] = row[3];
-        t.pos[n] = i;
-      }
-    }
-    ++t.count;
-  }
-  return t;
-}
-
 // Rounded as one tensor operation rounds it (never contracted to an FMA).
 __device__ __forceinline__ float add_rn(float a, float b) {
   return __fadd_rn(a, b);
@@ -241,19 +136,6 @@ __device__ __forceinline__ double div_rn(double a, double b) {
   return __ddiv_rn(a, b);
 }
 
-// The pair-summed value at the thread's own node plus its edge partners'.
-template <typename T>
-__device__ __forceinline__ T gather_scalar(const T* __restrict__ level,
-                                           long long slab, int pa,
-                                           const PairNodes& own,
-                                           const EdgeTerms& et) {
-  T s = pair_sum(level + pa * slab, own);
-#pragma unroll
-  for (int n = 0; n < 2; ++n)
-    if (n < et.count) s += pair_sum(level + et.panel[n] * slab, et.nodes[n]);
-  return s;
-}
-
 // fac * x + ref with the product and the sum rounded separately (no fused
 // multiply-add), as two tensor operations round them.
 __device__ __forceinline__ float mul_then_add(float f, float x, float r) {
@@ -261,83 +143,6 @@ __device__ __forceinline__ float mul_then_add(float f, float x, float r) {
 }
 __device__ __forceinline__ double mul_then_add(double f, double x, double r) {
   return __dadd_rn(__dmul_rn(f, x), r);
-}
-
-template <typename T>
-struct StateArgs {
-  const T* x[5];    // U, V, Rt, Rho, W
-  const T* fac[5];  // Rayleigh factors and reference terms (RAY only)
-  const T* ref[5];
-  T* out[5];
-};
-
-// U, V, Rt, Rho have nz levels, W nz + 1; the grid's z blocks cover nz + 1.
-template <typename T, bool RAY, bool CART>
-__global__ void dss_state_kernel(StateArgs<T> g, const T* __restrict__ imult,
-                                 const T* __restrict__ rot,
-                                 const int* __restrict__ table, int nz, int P,
-                                 int A, int B, int p, int nlinks, int wrap) {
-  const int node = blockIdx.x * blockDim.x + threadIdx.x;
-  if (node >= A * B) return;
-  const int a = node / B;
-  const int b = node - a * B;
-  const int pa = blockIdx.y;
-  const long long slab = (long long)A * B;
-  const long long lvl = (long long)P * slab;
-
-  const PairNodes own = pair_nodes<CART>(a, b, A, B, p, wrap);
-  const EdgeTerms et =
-      CART ? EdgeTerms{} : edge_terms(table, pa, a, b, A, B, p);
-  const T w = imult[pa * slab + node];
-  T r[2][4] = {};
-#pragma unroll
-  for (int n = 0; n < 2; ++n) {
-    if (n < et.count) {
-      const long long base = (long long)et.link[n] * A + et.pos[n];
-      const long long stride = (long long)nlinks * A;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) r[n][c] = rot[base + c * stride];
-    }
-  }
-
-  constexpr int LEVELS = STATE_LEVELS;
-  const int k0 = blockIdx.z * LEVELS;
-  T s[5][LEVELS];
-#pragma unroll
-  for (int kk = 0; kk < LEVELS; ++kk) {
-    const int kw = min(k0 + kk, nz);     // interface of W
-    const int k = min(k0 + kk, nz - 1);  // level of the other fields
-    const long long off = (long long)k * lvl;
-    s[0][kk] = pair_sum(g.x[0] + off + pa * slab, own);
-    s[1][kk] = pair_sum(g.x[1] + off + pa * slab, own);
-    // the rotation rounded as dss_vector and the plain version round it
-#pragma unroll
-    for (int n = 0; n < 2; ++n) {
-      if (n < et.count) {
-        const T lu = pair_sum(g.x[0] + off + et.panel[n] * slab, et.nodes[n]);
-        const T lv = pair_sum(g.x[1] + off + et.panel[n] * slab, et.nodes[n]);
-        s[0][kk] = add_rn(s[0][kk],
-                          add_rn(mul_rn(r[n][0], lu), mul_rn(r[n][1], lv)));
-        s[1][kk] = add_rn(s[1][kk],
-                          add_rn(mul_rn(r[n][2], lu), mul_rn(r[n][3], lv)));
-      }
-    }
-    s[2][kk] = gather_scalar(g.x[2] + off, slab, pa, own, et);
-    s[3][kk] = gather_scalar(g.x[3] + off, slab, pa, own, et);
-    s[4][kk] = gather_scalar(g.x[4] + (long long)kw * lvl, slab, pa, own, et);
-  }
-#pragma unroll
-  for (int kk = 0; kk < LEVELS; ++kk) {
-    const int k = k0 + kk;
-    const long long o = (long long)k * lvl + pa * slab + node;
-#pragma unroll
-    for (int f = 0; f < 5; ++f) {
-      if (k < nz || (f == 4 && k == nz)) {
-        const T x = s[f][kk] * w;
-        g.out[f][o] = RAY ? mul_then_add(g.fac[f][o], x, g.ref[f][o]) : x;
-      }
-    }
-  }
 }
 
 // Calls f with std::true_type for a grid without edge links (Cartesian: the
@@ -349,52 +154,17 @@ void by_grid(int nlinks, F f) {
   else f(std::false_type{});
 }
 
-// ptrs: x U V Rt Rho W | fac U V Rt Rho W | ref U V Rt Rho W (both null:
-// no Rayleigh finish) | out U V Rt Rho W.
-template <typename T>
-int launch_state(const void* const* ptrs, const void* imult, const void* rot,
-                 const void* table, int nz, int P, int A, int B, int p,
-                 int nlinks, int wrap, void* stream) {
-  if (nz < 1) return -1;
-  if (P > 0 && A > 0 && B > 0) {
-    StateArgs<T> g;
-    for (int f = 0; f < 5; ++f) {
-      g.x[f] = (const T*)ptrs[f];
-      g.fac[f] = (const T*)ptrs[5 + f];
-      g.ref[f] = (const T*)ptrs[10 + f];
-      g.out[f] = (T*)ptrs[15 + f];
-    }
-    const dim3 grid((unsigned)((A * B + STATE_THREADS - 1) / STATE_THREADS),
-                    (unsigned)P,
-                    (unsigned)((nz + 1 + STATE_LEVELS - 1) / STATE_LEVELS));
-    const bool ray = g.fac[0] != nullptr;
-    by_grid(nlinks, [&](auto cart) {
-      constexpr bool C = decltype(cart)::value;
-      if (ray)
-        dss_state_kernel<T, true, C><<<grid, STATE_THREADS, 0,
-                                       (cudaStream_t)stream>>>(
-            g, (const T*)imult, (const T*)rot, (const int*)table, nz, P, A,
-            B, p, nlinks, wrap);
-      else
-        dss_state_kernel<T, false, C><<<grid, STATE_THREADS, 0,
-                                        (cudaStream_t)stream>>>(
-            g, (const T*)imult, (const T*)rot, (const int*)table, nz, P, A,
-            B, p, nlinks, wrap);
-    });
-  }
-  return (int)cudaGetLastError();
-}
-
 // ---------------------------------------------------------------------------
 // dss_scalar, dss_vector, dss_uvw and dss_scalar2: element-row bands staged
 // in shared memory
 // ---------------------------------------------------------------------------
 
 // Blocks of BAND_THREADS an SM must hold (__launch_bounds__: caps the
-// registers a thread): BAND_MIN_BLOCKS for dss_scalar and dss_scalar2, the
-// others for dss_uvw and dss_vector; kernels/tune_dss.py sweeps them with
-// -D flags.  2 (at most 64 registers) made dss_scalar faster at the
-// flagship on an H100; dss_uvw spills at 64.
+// registers a thread): BAND_MIN_BLOCKS for dss_scalar and dss_scalar2,
+// BAND_MIN_BLOCKS_UVW for dss_uvw and dss_state, BAND_MIN_BLOCKS_VECTOR for
+// dss_vector; kernels/tune_dss.py sweeps them with -D flags.  2 (at most
+// 64 registers) made dss_scalar faster at the flagship on an H100; dss_uvw
+// spills at 64; dss_state takes 88-128 registers at 1 and spills none.
 #ifndef BAND_MIN_BLOCKS
 #define BAND_MIN_BLOCKS 2
 #endif
@@ -405,14 +175,21 @@ int launch_state(const void* const* ptrs, const void* imult, const void* rot,
 #define BAND_MIN_BLOCKS_VECTOR 1
 #endif
 // the modes of the band template: a stage holds x (scalar); U, V (vector);
-// U, V and three W inputs (uvw); two scalars (scalar2)
-constexpr int M_SCALAR = 0, M_VECTOR = 1, M_UVW = 2, M_SCALAR2 = 3;
+// U, V and three W inputs (uvw); two scalars (scalar2); U, V, Rt, Rho, W
+// (state)
+constexpr int M_SCALAR = 0, M_VECTOR = 1, M_UVW = 2, M_SCALAR2 = 3,
+              M_STATE = 4;
 __host__ __device__ constexpr int band_fields(int mode) {
-  return mode == M_UVW ? 5 : (mode == M_SCALAR ? 1 : 2);
+  return mode == M_UVW || mode == M_STATE ? 5 : (mode == M_SCALAR ? 1 : 2);
 }
 // the modes that carry the (U, V) pair and its edge rotations
 __host__ __device__ constexpr bool band_rotates(int mode) {
-  return mode == M_VECTOR || mode == M_UVW;
+  return mode == M_VECTOR || mode == M_UVW || mode == M_STATE;
+}
+// the modes with a step of their own beyond K levels: dss_uvw's bottom
+// interface (the first run), dss_state's top interface of W (the last)
+__host__ __device__ constexpr bool band_extra_run(int mode) {
+  return mode == M_UVW || mode == M_STATE;
 }
 constexpr int BAR_BYTES = 64;      // the ring's mbarriers (8 bytes each)
 constexpr int MAX_RING = 4;
@@ -502,13 +279,17 @@ __device__ __forceinline__ void store_seg(T* dst, const T* v, int p) {
 }
 
 // What the band kernels take.  x: scalar x[0]; vector U, V; uvw U, V, bw1,
-// bw2 (null for a single base), dW; scalar2 the two fields.  out: scalar
-// out[0]; vector U, V; uvw U, V, W; scalar2 the two fields.
+// bw2 (null for a single base), dW; scalar2 the two fields; state U, V, Rt,
+// Rho, W.  out: scalar out[0]; vector U, V; uvw U, V, W; scalar2 the two
+// fields; state U, V, Rt, Rho, W.
 template <typename T>
 struct BandArgs {
   const T* x[5];
   const T* metric[3];  // dss_uvw: cax0, cbx0, cxx0
-  T* out[3];
+  T* out[5];
+  // dss_state's Rayleigh finish out = fac * x + ref, per field (null: none)
+  const T* fac[5];
+  const T* ref[5];
   const T* imult;
   const T* rot;
   // the link table by value (cubed sphere): per (panel, edge) neighbour
@@ -518,6 +299,7 @@ struct BandArgs {
   int K;               // levels (dss_scalar) or nz (dss_uvw)
   int P, A, B, p, nlinks, wrap;
   int rows, levels, ring, copy;  // band rows, steps a block, stages, bytes
+  int ray;             // the finish's loads: 0 none, 1 a value, 2 a segment
   // shared memory layout, in values after the mbarriers: a field's span and
   // its stage slot (span, then the edge lines), then after the ring (and
   // dss_uvw's W buffer) the band's inverse multiplicities and the (U, V)
@@ -708,7 +490,8 @@ __device__ __forceinline__ void copy_run(int copy, void* dst, const void* src,
 // The level of each field that step k stages (null: none), all panels.
 // Field slot f of a stage: dss_scalar x; dss_vector U, V; dss_uvw U, V and
 // three W inputs (bw1, bw2, dW, or at the bottom interface cax0, cbx0,
-// cxx0); dss_scalar2 its two fields; `uv_only`: U and V of level k alone.
+// cxx0); dss_scalar2 its two fields; dss_state U, V, Rt, Rho and W (W alone
+// at the top interface k = K); `uv_only`: U and V of level k alone.
 template <typename T, int M>
 __device__ __forceinline__ void step_fields(const BandArgs<T>& g, int k,
                                             bool uv_only,
@@ -727,6 +510,9 @@ __device__ __forceinline__ void step_fields(const BandArgs<T>& g, int k,
       src[3] = g.x[3] ? g.x[3] + lvl : nullptr;
       src[4] = uv ? g.x[4] + lvl : nullptr;   // dW is masked at the top
     }
+  } else if constexpr (M == M_STATE) {
+    for (int f = 0; f < 4; ++f) src[f] = k < g.K ? g.x[f] + lvl : nullptr;
+    src[4] = g.x[4] + lvl;
   } else {
     for (int f = 0; f < band_fields(M); ++f) src[f] = g.x[f] + lvl;
   }
@@ -885,10 +671,30 @@ __device__ __forceinline__ void assemble_w(const BandArgs<T>& g, const T* st,
   for (; i < n; i += blockDim.x) raw_w<T, 1>(g, st, nx, k, i, w + i);
 }
 
+// dss_state's Rayleigh finish of field f's segment at `o`: s <- fac * s +
+// ref, the product and the sum rounded apart, fac and ref read from global
+// memory (a 16-byte load a segment where g.ray == 2).
+template <typename T, int PP, int NMAX>
+__device__ __forceinline__ void ray_finish(const BandArgs<T>& g, int f,
+                                           long long o, int p, T* s) {
+  T fa[NMAX], re[NMAX];
+  if (g.ray == 2) {
+    load_seg<T, PP>(g.fac[f] + o, fa, p);
+    load_seg<T, PP>(g.ref[f] + o, re, p);
+  } else {
+    for (int i = 0; i < p; ++i) {
+      fa[i] = g.fac[f][o + i];
+      re[i] = g.ref[f][o + i];
+    }
+  }
+  for (int i = 0; i < p; ++i) s[i] = mul_then_add(fa[i], s[i], re[i]);
+}
+
 // One segment of step k: pair sums from the stage `st` (dss_vector: U, V;
 // dss_uvw: U, V from the stage, W from the assembled `wbuf`; dss_scalar2:
-// each field as dss_scalar sums its one), edge terms, the inverse
-// multiplicities `ims`, stores.
+// each field as dss_scalar sums its one; dss_state: U, V as dss_vector, Rt,
+// Rho and W as dss_scalar), edge terms, the inverse multiplicities `ims`,
+// dss_state's finish, stores.
 template <typename T, bool CART, int PP, int M>
 __device__ __forceinline__ void band_work(const BandArgs<T>& g, const Seg& q,
                                           const T* st, const T* wbuf,
@@ -899,6 +705,7 @@ __device__ __forceinline__ void band_work(const BandArgs<T>& g, const Seg& q,
   const int A = g.A, B = g.B, TA = g.rows;
   const int nedge = CART ? 0 : 2 * (TA + 2) + 2 * A;
   const long long out = (long long)k * g.P * A * B + q.out;
+  const bool ray = M == M_STATE && g.ray != 0;
   T s[NMAX], w[NMAX];
   load_seg<T, PP>(ims + (q.a - a0) * B + q.b0, w, p);
   if constexpr (band_rotates(M)) {
@@ -913,18 +720,26 @@ __device__ __forceinline__ void band_work(const BandArgs<T>& g, const Seg& q,
         s[i] = mul_rn(s[i], w[i]);
         sv[i] = mul_rn(sv[i], w[i]);
       }
+      if (ray) {
+        ray_finish<T, PP, NMAX>(g, 0, out, p, s);
+        ray_finish<T, PP, NMAX>(g, 1, out, p, sv);
+      }
       store_seg<T, PP>(g.out[0] + out, s, p);
       store_seg<T, PP>(g.out[1] + out, sv, p);
     }
   }
   if constexpr (M != M_VECTOR) {
     // dss_scalar: its field; dss_uvw: the assembled W; dss_scalar2: both
-    // fields, one after the other
-    for (int f = 0; f < (M == M_SCALAR2 ? 2 : 1); ++f) {
+    // fields, one after the other; dss_state: Rt, Rho (levels only), W
+    constexpr int F0 = M == M_STATE ? 2 : 0;
+    constexpr int NS = M == M_STATE ? 3 : (M == M_SCALAR2 ? 2 : 1);
+    for (int f = F0; f < F0 + NS; ++f) {
+      if (M == M_STATE && f < 4 && k >= g.K) continue;
       const T* F = M == M_UVW ? wbuf : st + f * g.fs;
       pair_sums<T, PP, NMAX>(F, q, p, s);
       if constexpr (!CART) edges_scalar(F + g.span, q, a0, TA, A, p, s);
       for (int i = 0; i < p; ++i) s[i] = mul_rn(s[i], w[i]);
+      if (ray) ray_finish<T, PP, NMAX>(g, f, out, p, s);
       store_seg<T, PP>(g.out[M == M_UVW ? 2 : f] + out, s, p);
     }
   }
@@ -932,7 +747,8 @@ __device__ __forceinline__ void band_work(const BandArgs<T>& g, const Seg& q,
 
 // Grid: (bands of one panel, panel, runs of `levels` steps; dss_uvw's first
 // run is the bottom interface alone, whose block also stages U and V of
-// level 1 into its second stage).  A block owns TA rows of one panel;
+// level 1 into its second stage; dss_state's last run is W's top interface
+// alone).  A block owns TA rows of one panel;
 // thread t owns segment t (and t + blockDim, ... where a band has more
 // segments than the block threads).  Before its first step a block stages
 // its constants once: the link table (cubed sphere), which the edge-line
@@ -940,9 +756,9 @@ __device__ __forceinline__ void band_work(const BandArgs<T>& g, const Seg& q,
 // edge rotations.
 template <typename T, bool CART, int PP, int M>
 __global__ void __launch_bounds__(
-    BAND_THREADS, M == M_UVW      ? BAND_MIN_BLOCKS_UVW
-                  : M == M_VECTOR ? BAND_MIN_BLOCKS_VECTOR
-                                  : BAND_MIN_BLOCKS)
+    BAND_THREADS, M == M_UVW || M == M_STATE ? BAND_MIN_BLOCKS_UVW
+                  : M == M_VECTOR              ? BAND_MIN_BLOCKS_VECTOR
+                                               : BAND_MIN_BLOCKS)
     band_kernel(const __grid_constant__ BandArgs<T> g) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   DSS_PHASE_BEGIN();
@@ -951,9 +767,11 @@ __global__ void __launch_bounds__(
   const int p = PP > 0 ? PP : g.p;
   const int A = g.A, B = g.B, TA = g.rows, R = g.ring;
   const int nedge = CART ? 0 : 2 * (TA + 2) + 2 * A;
+  const bool top = M == M_STATE && blockIdx.z == gridDim.z - 1;
   const int z = UVW ? (int)blockIdx.z - 1 : (int)blockIdx.z;
-  const int k0 = z < 0 ? 0 : z * g.levels + (UVW ? 1 : 0);
-  const int nk = z < 0 ? 1 : min(g.levels, (UVW ? g.K + 1 : g.K) - k0);
+  const int k0 = top ? g.K : (z < 0 ? 0 : z * g.levels + (UVW ? 1 : 0));
+  const int nk = (z < 0 || top)
+                     ? 1 : min(g.levels, (UVW ? g.K + 1 : g.K) - k0);
   unsigned long long* bars = reinterpret_cast<unsigned long long*>(smem_raw);
   T* ring = reinterpret_cast<T*>(smem_raw + BAR_BYTES);
   T* wbuf = ring + R * NF * g.fs;  // dss_uvw: the assembled W
@@ -983,7 +801,7 @@ __global__ void __launch_bounds__(
                             false);
   if (extra)
     issue_edges<T, CART, M>(g, bd, 1, ring + NF * g.fs, &bars[1], true);
-  if (band_rotates(M) && !CART)
+  if (band_rotates(M) && !CART && !top)
     for (int e = threadIdx.x; e < nedge; e += blockDim.x) {
       int d, pos;
       if (!edge_item(e, bd.a0, TA, A, d, pos)) continue;
@@ -1061,7 +879,7 @@ int launch_band(BandArgs<T> g, int threads, void* stream) {
   constexpr int NF = band_fields(M);
   constexpr bool UVW = M == M_UVW;
   constexpr int ES = sizeof(T);
-  const int nsteps = UVW ? g.K + 1 : g.K;
+  const int nsteps = band_extra_run(M) ? g.K + 1 : g.K;
   if (UVW && g.K < 2) return -1;  // the bottom row reads levels 0 and 1
   if (nsteps < 1 || g.P < 1 || g.A < 1 || g.B < 1) return 0;
   const int p = g.p, TA = g.rows;
@@ -1082,6 +900,19 @@ int launch_band(BandArgs<T> g, int threads, void* stream) {
   }
   for (int f = 0; f < (UVW ? 3 : NF); ++f)
     if (!aligned(g.out[f], p == 4 ? 16 : ES)) return -1;
+  // dss_state's finish: both parts or neither, a segment a load where every
+  // pointer allows it
+  g.ray = 0;
+  if (M == M_STATE && (g.fac[0] || g.ref[0])) {
+    g.ray = 2;
+    for (int f = 0; f < NF; ++f) {
+      if (!g.fac[f] || !g.ref[f]) return -1;
+      if (!aligned(g.fac[f], ES) || !aligned(g.ref[f], ES)) return -1;
+      if (!aligned(g.fac[f], p == 4 ? 16 : ES) ||
+          !aligned(g.ref[f], p == 4 ? 16 : ES))
+        g.ray = 1;
+    }
+  }
   if (g.nlinks && (g.nlinks != 4 * g.P || g.P > MAX_PANELS)) return -1;
   // the layout of BandArgs, each part rounded up to 16 bytes
   auto up = [](int n) { return (n + 16 / ES - 1) / (16 / ES) * (16 / ES); };
@@ -1094,8 +925,10 @@ int launch_band(BandArgs<T> g, int threads, void* stream) {
       BAR_BYTES +
       (size_t)(g.rot_at + (band_rotates(M) ? up(4 * edge) : 0)) * ES;
   if (smem > SMEM_MAX) return -2;
-  // runs of `levels` steps (dss_uvw: the bottom interface, then K steps)
-  const int runs = (g.K + g.levels - 1) / g.levels + (UVW ? 1 : 0);
+  // runs of `levels` steps (dss_uvw: the bottom interface, then K steps;
+  // dss_state: K steps, then W's top interface)
+  const int runs =
+      (g.K + g.levels - 1) / g.levels + (band_extra_run(M) ? 1 : 0);
   if (g.P > 65535 || runs > 65535) return -1;
   const dim3 grid((unsigned)(g.A / TA), (unsigned)g.P, (unsigned)runs);
   const cudaStream_t st = (cudaStream_t)stream;
@@ -1192,6 +1025,30 @@ int launch_vector(const void* u, const void* v, const void* imult,
   return launch_band<T, M_VECTOR>(g, threads, stream);
 }
 
+// ptrs: x U V Rt Rho W | fac U V Rt Rho W | ref U V Rt Rho W (all null: no
+// Rayleigh finish) | out U V Rt Rho W.
+template <typename T>
+int launch_state(const void* const* ptrs, const void* imult, const void* rot,
+                 const void* table, int nz, int P, int A, int B, int p,
+                 int nlinks, int wrap, int rows, int levels, int threads,
+                 int ring, int copy, void* stream) {
+  BandArgs<T> g = {};
+  for (int f = 0; f < 5; ++f) {
+    g.x[f] = (const T*)ptrs[f];
+    g.fac[f] = (const T*)ptrs[5 + f];
+    g.ref[f] = (const T*)ptrs[10 + f];
+    g.out[f] = (T*)ptrs[15 + f];
+  }
+  g.imult = (const T*)imult;
+  g.rot = (const T*)rot;
+  if (nlinks > 0 && nlinks <= 4 * MAX_PANELS)
+    for (int i = 0; i < 4 * nlinks; ++i) g.table[i] = ((const int*)table)[i];
+  g.K = nz; g.P = P; g.A = A; g.B = B; g.p = p; g.nlinks = nlinks;
+  g.wrap = wrap; g.rows = rows; g.levels = levels; g.ring = ring;
+  g.copy = copy;
+  return launch_band<T, M_STATE>(g, threads, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1269,19 +1126,24 @@ int dss_uvw_f64(const void* u, const void* v, const void* bw1, const void* bw2,
                             ring, copy, stream);
 }
 
-// Returns cudaGetLastError(), or -1 when nz < 1.
+// ptrs: the 20 pointers of launch_state (U, V, Rt, Rho have nz levels, W
+// nz + 1); table, launch shape and returns as dss_scalar's.
 int dss_state_f32(const void* const* ptrs, const void* imult, const void* rot,
                   const void* table, int nz, int P, int A, int B, int p,
-                  int nlinks, int wrap, void* stream) {
+                  int nlinks, int wrap, int rows, int levels, int threads,
+                  int ring, int copy, void* stream) {
   return launch_state<float>(ptrs, imult, rot, table, nz, P, A, B, p, nlinks,
-                             wrap, stream);
+                             wrap, rows, levels, threads, ring, copy,
+                             stream);
 }
 
 int dss_state_f64(const void* const* ptrs, const void* imult, const void* rot,
                   const void* table, int nz, int P, int A, int B, int p,
-                  int nlinks, int wrap, void* stream) {
-  return launch_state<double>(ptrs, imult, rot, table, nz, P, A, B, p, nlinks,
-                              wrap, stream);
+                  int nlinks, int wrap, int rows, int levels, int threads,
+                  int ring, int copy, void* stream) {
+  return launch_state<double>(ptrs, imult, rot, table, nz, P, A, B, p,
+                              nlinks, wrap, rows, levels, threads, ring, copy,
+                              stream);
 }
 
 // Two scalar fields of one shape; launch shape and returns as

@@ -20,12 +20,12 @@ A, B)``.  Execution shape:
 - **DSS as hand-written CUDA kernels** (``dss_cuda``), one launch per
   field: ``dss_scalar``, ``dss_vector`` (the (U, V) pair with the covariant
   rotation), ``dss_uvw`` (on the fused path W joins the pair with the
-  stage's W finish folded in) and the one-launch grouping ``dss_scalar2``
-  (Rt and Rho) are the four modes of one band kernel, which stages bands of
-  whole element rows and the neighbour panels' edge lines in shared memory
-  by asynchronous copies and sums there, a thread an element-row segment;
-  the one-launch grouping ``dss_state`` is a gather with one thread per
-  node;
+  stage's W finish folded in) and the one-launch groupings ``dss_scalar2``
+  (Rt and Rho) and ``dss_state`` (all five fields, with an optional
+  Rayleigh finish) are the five modes of one band kernel, which stages bands
+  of whole element rows and the neighbour panels' edge lines in shared
+  memory by asynchronous copies and sums there, a thread an element-row
+  segment;
 - **the implicit solve** (``implicit``): on the fused path each Newton
   iteration is one hand-written kernel (``implicit_cuda``: a tile of
   columns staged in shared memory, the residual and the analytic banded
@@ -49,11 +49,15 @@ A, B)``.  Execution shape:
 
 ``make_fast_step`` chooses between the two paths by predicates on the
 configuration (``fused=False`` forces the unfused one) and runs eagerly;
-``make_fast_multistep`` replays K steps as one CUDA graph.  The device-mesh
-engine is not ported yet.
+``make_fast_multistep`` replays K steps as one CUDA graph.
+``make_fast_imex_step`` runs the IMEX-ARK family (``IMEX_SCHEMES``, where
+``fast_imex_supported`` holds) on the same pieces: the horizontal tendency
+as tensor code, the full-state DSS and the implicit kernels a stage, the
+nu4 kernels in the tail.  The device-mesh engine is not ported yet.
 """
 
 from .engine import (FastGeometry, build_fast_geometry,
                      build_fast_geometry_cartesian, pack_state, unpack_state,
-                     make_fast_step, make_fast_multistep)
+                     make_fast_step, make_fast_multistep, IMEX_SCHEMES,
+                     fast_imex_supported, make_fast_imex_step)
 from . import engine

@@ -15,14 +15,14 @@ differ); ``wrap`` = (along a, along b) then adds the periodic wrap-sum: node
 0 and node A-1 (B-1) of a periodic axis are one pair, as in
 ``grid/cartesian._pair_sum_axis``.
 
-``dss_scalar``, ``dss_vector``, ``dss_uvw`` and ``dss_scalar2`` are the four
-modes of one band kernel (``MODES``): they stage bands of whole element rows
-in shared memory (bulk asynchronous copies where spans and pointers allow 16
-bytes, else ``cp.async`` of 8 or 4 bytes; ``copy_width``) and sum there, a
-thread an element-row segment; their launch shape comes from
-``dss_launch_shape``.  ``dss_state`` is a gather with one thread per output
-node.  See the note in ``csrc/dss.cu`` for the designs and the bound on the
-card.  Fields are z-first ``(K, 6, A, B)``.
+``dss_scalar``, ``dss_vector``, ``dss_uvw``, ``dss_scalar2`` and
+``dss_state`` are the five modes of one band kernel (``MODES``): they stage
+bands of whole element rows in shared memory (bulk asynchronous copies where
+spans and pointers allow 16 bytes, else ``cp.async`` of 8 or 4 bytes;
+``copy_width``) and sum there, a thread an element-row segment; their launch
+shape comes from ``dss_launch_shape``.  See the note in ``csrc/dss.cu`` for
+the design and the bound on the card.  Fields are z-first ``(K, 6, A,
+B)``.
 
 ``dss_uvw`` is the DSS of U, V and W in one launch with the explicit
 stage's W finish folded in (``w_finish_plain`` says what that is): W is
@@ -166,7 +166,7 @@ def dss_state_plain(d, imult, rot, links, p: int, rayleigh=None,
 
 # ---------------------------------------------------------------------------
 # launch shape of the band kernel (dss_scalar, dss_vector, dss_uvw,
-# dss_scalar2)
+# dss_scalar2, dss_state)
 # ---------------------------------------------------------------------------
 
 SMS = 132                  # streaming multiprocessors of an H100 SXM
@@ -176,35 +176,45 @@ MAX_P = 16                 # most nodes an element row (generic instantiation)
 BAR_BYTES = 64             # the ring's mbarriers
 MAX_RING = 4
 # the band kernel's modes, in the order of its M_SCALAR, M_VECTOR, M_UVW,
-# M_SCALAR2, and the fields a stage of each holds: dss_scalar, dss_vector
-# (U, V), dss_uvw (U, V and three W inputs), dss_scalar2 (two scalars)
-MODES = ("scalar", "vector", "uvw", "scalar2")
-NFIELDS = {"scalar": 1, "vector": 2, "uvw": 5, "scalar2": 2}
-ROTATES = ("vector", "uvw")        # the modes that stage edge rotations
+# M_SCALAR2, M_STATE, and the fields a stage of each holds: dss_scalar,
+# dss_vector (U, V), dss_uvw (U, V and three W inputs), dss_scalar2 (two
+# scalars), dss_state (U, V, Rt, Rho, W)
+MODES = ("scalar", "vector", "uvw", "scalar2", "state")
+NFIELDS = {"scalar": 1, "vector": 2, "uvw": 5, "scalar2": 2, "state": 5}
+ROTATES = ("vector", "uvw", "state")   # the modes that stage edge rotations
+# the modes with a step beyond K levels, a run of its own: dss_uvw's bottom
+# interface, dss_state's top interface of W
+EXTRA_RUN = ("uvw", "state")
 # the rule's targets by (mode, bytes a value), fitted to the sweeps of
 # kernels/tune_dss.py on an H100: segments a block at most, blocks a launch
 # at least when the band is chosen, and (where it differs) when the levels
 # a block are: the float32 vector mode was fastest at the flagship with
 # runs of 5 levels (216 blocks, 1.6 an SM), and on the plane with runs of 3;
 # the float32 scalar2 mode with bands of 24 rows and runs of 4 (240 blocks),
-# 8 % ahead of the vector mode's shape, and with runs of 2 on the plane
-# (PERF.md section 6)
+# 8 % ahead of the vector mode's shape, and with runs of 2 on the plane; the
+# state mode (five staged fields, at most 128 registers a thread) with
+# shallower bands in runs of one level and one stage at the flagship (f32:
+# 20 rows, 1116 blocks, 17 % ahead of the uvw mode's targets; f64: 8 rows)
+# and with runs of 2 on the float32 plane (PERF.md section 6)
 SEGMENTS = {("scalar", 4): 640, ("scalar", 8): 240, ("vector", 4): 640,
             ("vector", 8): 240, ("uvw", 4): 720, ("uvw", 8): 720,
-            ("scalar2", 4): 720, ("scalar2", 8): 240}
+            ("scalar2", 4): 720, ("scalar2", 8): 240, ("state", 4): 600,
+            ("state", 8): 240}
 TARGET_BLOCKS = {("scalar", 4): 330, ("scalar", 8): 450, ("vector", 4): 330,
                  ("vector", 8): 450, ("uvw", 4): 450, ("uvw", 8): 600,
-                 ("scalar2", 4): 330, ("scalar2", 8): 450}
-RUN_BLOCKS = {("vector", 4): 216, ("scalar2", 4): 240}
+                 ("scalar2", 4): 330, ("scalar2", 8): 450, ("state", 4): 1000,
+                 ("state", 8): 1000}
+RUN_BLOCKS = {("vector", 4): 216, ("scalar2", 4): 240, ("state", 4): 600,
+              ("state", 8): 2000}
 
 
 class DssLaunch(NamedTuple):
-    """Launch shape of a band kernel: a block owns ``rows``
-    whole rows of one panel (a multiple of p dividing A) and walks
-    ``levels`` steps (levels; interfaces for ``dss_uvw``, whose bottom
-    interface is a run of its own) with ``threads`` threads and a ring of
-    ``ring`` stages in ``smem`` bytes of shared memory; ``blocks`` blocks in
-    all."""
+    """Launch shape of a band kernel: a block owns ``rows`` whole rows of
+    one panel (a multiple of p dividing A) and walks ``levels`` steps
+    (levels; ``dss_uvw``'s bottom interface and ``dss_state``'s top
+    interface of W are a run of their own) with ``threads`` threads and a
+    ring of ``ring`` stages in ``smem`` bytes of shared memory; ``blocks``
+    blocks in all."""
     rows: int
     levels: int
     threads: int
@@ -221,8 +231,8 @@ def dss_smem_bytes(rows: int, A: int, B: int, ring: int, mode: str,
     cubed sphere the neighbours' edge lines, 2 (rows + 2) + 2 A values), for
     ``dss_uvw`` one slot more for the assembled W, the band's inverse
     multiplicities (rows B values), and on the cubed sphere the (U, V)
-    pair's edge rotations (``dss_vector`` and ``dss_uvw``: 4 per edge-line
-    value); each part rounded up to 16 bytes."""
+    pair's edge rotations (``dss_vector``, ``dss_uvw`` and ``dss_state``: 4
+    per edge-line value); each part rounded up to 16 bytes."""
     nfields = NFIELDS[mode]
     v16 = 16 // esize
 
@@ -242,7 +252,8 @@ def dss_launch_shape(K: int, P: int, A: int, B: int, p: int, dtype,
                      threads=None, links=None) -> DssLaunch:
     """The launch shape of the band kernel in ``mode`` (``MODES``):
     ``dss_scalar``, ``dss_vector`` or ``dss_scalar2`` (``K`` levels), or
-    ``dss_uvw`` (``K`` levels of U and V, K + 1 steps).
+    ``dss_uvw`` and ``dss_state`` (``K`` levels of U and V, K + 1 steps, the
+    extra one a run of its own).
     ``links``: a cubed-sphere grid (default: P > 1).  The keywords override
     the rule (``kernels/tune_dss.py`` sweeps them).  Cached: a launch
     asks for its shape on the host every time.
@@ -252,13 +263,15 @@ def dss_launch_shape(K: int, P: int, A: int, B: int, p: int, dtype,
     turn) that still gives ``TARGET_BLOCKS`` blocks one step a block (the
     shallowest band where none does), a ring of two stages (one where two
     do not fit a scalar's block), and as many steps a block as keep
-    ``RUN_BLOCKS`` (default ``TARGET_BLOCKS``) blocks, at least one.
-    Raises where no shape fits."""
+    ``RUN_BLOCKS`` (default ``TARGET_BLOCKS``) blocks, at least one; the
+    state mode stages no more steps ahead than a run walks (one stage for
+    runs of one level).  Raises where no shape fits."""
     esize = 4 if dtype == torch.float32 else 8
     links = P > 1 if links is None else bool(links)
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     uvw = mode == "uvw"
+    extra = mode in EXTRA_RUN
     if p < 2 or p > MAX_P or A % p or B % p:
         raise ValueError(f"the band kernels take 2 <= p <= {MAX_P} with "
                          f"whole elements, got A={A} B={B} p={p}")
@@ -279,7 +292,7 @@ def dss_launch_shape(K: int, P: int, A: int, B: int, p: int, dtype,
                          f"{SMEM_MAX} bytes of shared memory")
     key = (mode, esize)
     good = [TA for TA in cands if TA * (B // p) <= SEGMENTS[key]
-            and (A // TA) * P * (K + uvw) >= TARGET_BLOCKS[key]]
+            and (A // TA) * P * (K + extra) >= TARGET_BLOCKS[key]]
     TA = max(good) if good else min(cands)
     r = fitting_ring(TA)
     nseg = TA * (B // p)
@@ -294,15 +307,17 @@ def dss_launch_shape(K: int, P: int, A: int, B: int, p: int, dtype,
     if levels is None:
         least = RUN_BLOCKS.get(key, TARGET_BLOCKS[key])
         lv = max([1] + [c for c in range(1, max(K, 1) + 1)
-                        if bands * (math.ceil(K / c) + uvw) >= least])
+                        if bands * (math.ceil(K / c) + extra) >= least])
     else:
         lv = int(levels)
         if lv < 1:
             raise ValueError(f"levels a block must be >= 1, got {lv}")
     lv = min(lv, max(K, 1))
+    if mode == "state" and ring is None:
+        r = min(r, lv)
     return DssLaunch(TA, lv, nt, r, dss_smem_bytes(TA, A, B, r, mode,
                                                    esize, links),
-                     bands * (math.ceil(K / lv) + uvw))
+                     bands * (math.ceil(K / lv) + extra))
 
 
 def copy_width(B: int, esize: int, ptrs) -> int:
@@ -320,9 +335,9 @@ def copy_width(B: int, esize: int, ptrs) -> int:
 def launch_config(f, p: int, mode: str, ptrs, links: bool,
                   launch=None) -> dict:
     """What a band kernel launch in ``mode`` on the field ``f`` ((K, P, A,
-    B); for ``dss_vector`` and ``dss_uvw`` U, for ``dss_scalar2`` the first
-    field) takes: its launch shape (``launch``, default the rule's) and its
-    copy width for the pointers ``ptrs``."""
+    B); for ``dss_vector``, ``dss_uvw`` and ``dss_state`` U, for
+    ``dss_scalar2`` the first field) takes: its launch shape (``launch``,
+    default the rule's) and its copy width for the pointers ``ptrs``."""
     K, P, A, B = f.shape
     sh = launch or dss_launch_shape(K, P, A, B, p, f.dtype, mode,
                                     links=links)
@@ -334,7 +349,7 @@ _ENTRY = re.compile(r"band_kernelI([fd])Lb([01])ELi(\d+)ELi(\d)E")
 
 
 def kernel_resources() -> dict:
-    """Registers and spill bytes of the band kernel's 32 instantiations
+    """Registers and spill bytes of the band kernel's 40 instantiations
     (value type x mode x grid family x p 4 or any p) as ``nvcc -Xptxas -v``
     reported them at the build, keyed ``f32 vector sphere p4``, ``f64 uvw
     cart generic``, ... (empty before a build)."""
@@ -672,13 +687,15 @@ def _check_state(name, d, u):
 
 def dss_state(d, imult, rot, links, p: int, rayleigh=None,
               wrap=(False, False), table=None):
-    """DSS of the full fast state in one kernel launch.
+    """DSS of the full fast state in one kernel launch (the band kernel's
+    state mode).
 
     ``d``: dict of U, V, Rt, Rho ``(nz, P, A, B)`` and W ``(nz+1, P, A,
     B)``.  ``rayleigh``: optional ``(fac, ref_term)`` state dicts folded
-    into the same launch (``x <- fac * x + ref`` after the DSS).  Returns a
-    dict of fresh tensors, equal to ``dss_vector`` plus three ``dss_scalar``
-    calls (and the plain Rayleigh finish)."""
+    into the same launch (``x <- fac * x + ref`` after the DSS).  ``table``:
+    as ``dss_scalar``'s.  Returns a dict of fresh tensors, equal to
+    ``dss_vector`` plus three ``dss_scalar`` calls (and the plain Rayleigh
+    finish)."""
     u = d["U"]
     _check_field("d['U']", u)
     table, flags = _check_common(u, imult, links, p, wrap, table)
@@ -691,13 +708,23 @@ def dss_state(d, imult, rot, links, p: int, rayleigh=None,
         return dss_state_plain(d, imult, rot, links, p, rayleigh, wrap)
     if u.device.type != "cuda":
         raise ValueError(f"unsupported device {u.device}")
-    return _dss_state_cuda(d, imult, rot, table, p, len(links), flags,
-                           rayleigh)
+    return _dss_state_cuda(d, imult, rot, links, p, flags, rayleigh)
 
 
-def _dss_state_cuda(d, imult, rot, table, p, nlinks, flags, rayleigh):
+def _state_ptrs(d, imult):
+    """The pointers a ``dss_state`` launch stages from (the Rayleigh finish's
+    fields are read at the stores, not staged)."""
+    return [d[k].data_ptr() for k in STATE_FIELDS] + [imult.data_ptr()]
+
+
+def _dss_state_cuda(d, imult, rot, links, p, flags, rayleigh, launch=None):
+    """The launch of ``dss_state``; ``launch``: a ``DssLaunch`` in place of
+    the rule's."""
     u = d["U"]
     K, P, A, B = u.shape
+    nlinks = len(links)
+    cfg = launch_config(u, p, "state", _state_ptrs(d, imult), nlinks > 0,
+                        launch)
     lib = build.library("dss")
     fn = lib.dss_state_f32 if u.dtype == torch.float32 else lib.dss_state_f64
     with torch.cuda.device(u.device):
@@ -707,11 +734,13 @@ def _dss_state_cuda(d, imult, rot, table, p, nlinks, flags, rayleigh):
         tensors = [d[k] for k in STATE_FIELDS] + ray + outs
         ptrs = (ctypes.c_void_p * len(tensors))(
             *[None if t is None else t.data_ptr() for t in tensors])
-        err = fn(ptrs, imult.data_ptr(), rot.data_ptr(), table.data_ptr(),
-                 K, P, A, B, p, nlinks, flags,
+        err = fn(ptrs, imult.data_ptr(), rot.data_ptr(), _table_ptr(links),
+                 K, P, A, B, p, nlinks, flags, cfg["rows"], cfg["levels"],
+                 cfg["threads"], cfg["ring"], cfg["copy"],
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"dss_state kernel launch failed "
-                           f"(cudaGetLastError = {err})")
+        raise RuntimeError(f"dss_state kernel launch failed (error {err}; "
+                           f"-1: launch shape, copy width or finish not "
+                           f"taken, -2: shared memory; launch {cfg})")
     launch_counts["dss_state"] += 1
     return dict(zip(STATE_FIELDS, outs))

@@ -34,8 +34,12 @@ A Cartesian grid is one panel without edge links: the DSS kernels take the
 periodic wrap-sum instead (``build_fast_geometry_cartesian``), and a grid
 with a short y extent may run (a, b)-transposed (``_swap_ab_state``).
 
+``make_fast_imex_step`` runs the IMEX-ARK family (``IMEX_SCHEMES``) on the
+same pieces: per stage the horizontal tendency, the full-state DSS and the
+vertical implicit solve, then the nu4 tail.
+
 Not ported yet (they wait in the roadmap, none is declared unnecessary):
-the device-mesh engine, IMEX, and no-flux Cartesian boundaries.
+the device-mesh engine and no-flux Cartesian boundaries.
 
 Where the JAX code writes ``x.at[i].set(v)``, this one writes in place on
 a fresh tensor (a clone or a new result), never on an argument.
@@ -552,14 +556,13 @@ def w_finish_xla(d, wf):
 # among "state" (a full state without a W finish -- the nu4 tail's two DSS --
 # through ``dss_cuda.dss_state``, the Rayleigh finish folded in) and
 # "scalar2" (Rt and Rho through ``dss_cuda.dss_scalar2`` wherever they are
-# still scalars of their own).  "scalar2": measured at the flagship (ne30 p4
-# L30 float32) on an NVIDIA H100 80GB HBM3 at 700 W by ``chip_smoke.py``
-# phase 6 under graph replay, since ``dss_scalar2`` became a mode of the
-# band DSS kernel it is faster than the separate launches in every turn of
-# every call (1.393-1.396 against 1.429-1.434 ms/step in the first, a
-# spread of 0.005 between the turns of one variant), and "state" (a gather,
-# one thread a node) is slower than both.
-DSS_MERGE_DEFAULT = ("scalar2",)
+# still scalars of their own).  Measured at the flagship (ne30 p4 L30
+# float32) on an NVIDIA H100 80GB HBM3 at 700 W by ``chip_smoke.py`` phase
+# 6 under graph replay: since ``dss_state`` became a mode of the band DSS
+# kernel, ("state", "scalar2") is faster than ("scalar2",) in every turn of
+# three calls (1.391-1.405 against 1.405-1.416 ms/step), which was faster
+# than the separate launches.
+DSS_MERGE_DEFAULT = ("state", "scalar2")
 
 
 def apply_dss(d, fg: FastGeometry, rayleigh=None, plain: bool = False,
@@ -1106,20 +1109,29 @@ def _natural_layout(fn):
     return wrapped
 
 
-def _fast_fns(cfg, geom, ref_state, mesh, device, plain, fused, dss_merge,
-              swap_ab):
-    """``make_fast_step``'s (first_fn, step_fn) in the engine's layout, and
-    the engine geometry."""
+@dataclasses.dataclass
+class _Setup:
+    """What the steppers of one configuration share, built once
+    (``_setup``)."""
+    fg: FastGeometry
+    fused: bool         # the fused path's kernels where they apply
+    rayleigh: Any       # (fac, ref_term) z-first, or None
+    dss_fn: Any         # dss_fn(d, rayleigh=None, w_finish=None)
+    implicit_fn: Any    # implicit_fn(d, dti): the vertical implicit solve
+    hyper_fns: Any      # the two nu4 passes bound to the geometry, or None
+
+
+def _setup(cfg, geom, ref_state, device, plain, fused, dss_merge, swap_ab):
+    """The set-up the Strang and the IMEX steppers share: the device, the
+    fast geometry, the implicit solve's bandwidth, statics and (with
+    ``vertical_solver == "pallas"`` on the fused path) the fused kernel's
+    statics, the nu4 passes where ``hyper_cuda.supported`` holds on the
+    fused path, the Rayleigh terms and the DSS closure.  The caller checks
+    the configuration's envelope first."""
     from . import implicit as fimp
-    from . import hyper_cuda, implicit_cuda, stage_cuda
+    from . import hyper_cuda, implicit_cuda
     from . import tracers as ftr
 
-    if mesh is not None:
-        raise NotImplementedError("the device-mesh engine is not ported yet")
-    if not fast_engine_supported(cfg, geom=geom):
-        raise NotImplementedError(
-            "configuration outside the z-first engine's envelope "
-            "(see fast_engine_supported)")
     dev = resolve_device(device)
     constants = cfg.constants
     if isinstance(geom, CubedSphereGeometry):
@@ -1135,11 +1147,6 @@ def _fast_fns(cfg, geom, ref_state, mesh, device, plain, fused, dss_merge,
     rayleigh = _rayleigh_terms(cfg, geom, ref_state, fg)
     saux = fimp.static_aux(fg)
 
-    # The path.  The JAX package's stage predicate also asks for p | 8 and
-    # 8 | A: those are the TPU kernel's tiles.  What is about the math stays
-    # (vertical order 1, the row test of the W fold); the rest is what the
-    # CUDA kernels take (stage_supported, hyper_cuda.supported,
-    # fused_supported).
     fused = fused is None or bool(fused)
     if dss_merge is None:
         dss_merge = DSS_MERGE_DEFAULT if fused else ()
@@ -1147,29 +1154,11 @@ def _fast_fns(cfg, geom, ref_state, mesh, device, plain, fused, dss_merge,
     if not set(dss_merge) <= {"state", "scalar2"}:
         raise ValueError(f"dss_merge names groups among 'state' and "
                          f"'scalar2', got {dss_merge}")
-    use_fused_stage = fused and stage_cuda.stage_supported(fg)
-    use_fused_hyper = fused and hyper_cuda.supported(fg, cfg)
-    # fold the W stage finish into the (U, V) DSS launch when the surface
-    # interpolant row only reads the bottom two levels
-    In0 = np.asarray(geom.interp_n2i)[0]
-    use_wfold = (use_fused_stage and len(In0) >= 2
-                 and not np.any(In0[2:]))
     ist = implicit_cuda.implicit_statics(statics, fg) \
         if fused and use_pallas else None
 
-    stage_fn = None
-    if use_fused_stage:
-        sst = stage_cuda.stage_statics(fg)
-
-        def stage_fn(base, ueval, dt_s, defer_w=False):
-            if plain:
-                return stage_cuda.fused_stage_plain(
-                    base, ueval, dt_s, fg, constants, defer_w=defer_w)
-            return stage_cuda.fused_stage(base, ueval, dt_s, fg, constants,
-                                          defer_w=defer_w, statics=sst)
-
     hyper_fns = None
-    if use_fused_hyper:
+    if fused and hyper_cuda.supported(fg, cfg):
         hst = hyper_cuda.hyper_statics(fg)
         pass1, pass2 = (
             (hyper_cuda.nu4_pass1_plain, hyper_cuda.nu4_pass2_plain) if plain
@@ -1191,13 +1180,56 @@ def _fast_fns(cfg, geom, ref_state, mesh, device, plain, fused, dss_merge,
             out = dict(out, Tracers=ftr.filter_column(tr, fg))
         return out
 
+    def dss_fn(d, rayleigh=None, w_finish=None):
+        return apply_dss(d, fg, rayleigh, plain=plain, w_finish=w_finish,
+                         merge=dss_merge)
+
+    return _Setup(fg=fg, fused=fused, rayleigh=rayleigh, dss_fn=dss_fn,
+                  implicit_fn=implicit_fn, hyper_fns=hyper_fns)
+
+
+def _fast_fns(cfg, geom, ref_state, mesh, device, plain, fused, dss_merge,
+              swap_ab):
+    """``make_fast_step``'s (first_fn, step_fn) in the engine's layout, and
+    the engine geometry."""
+    from . import stage_cuda
+
+    if mesh is not None:
+        raise NotImplementedError("the device-mesh engine is not ported yet")
+    if not fast_engine_supported(cfg, geom=geom):
+        raise NotImplementedError(
+            "configuration outside the z-first engine's envelope "
+            "(see fast_engine_supported)")
+    s = _setup(cfg, geom, ref_state, device, plain, fused, dss_merge,
+               swap_ab)
+    fg, constants = s.fg, cfg.constants
+
+    # The path.  The JAX package's stage predicate also asks for p | 8 and
+    # 8 | A: those are the TPU kernel's tiles.  What is about the math stays
+    # (vertical order 1, the row test of the W fold); the rest is what the
+    # CUDA kernels take (stage_supported, hyper_cuda.supported,
+    # fused_supported).
+    use_fused_stage = s.fused and stage_cuda.stage_supported(fg)
+    # fold the W stage finish into the (U, V) DSS launch when the surface
+    # interpolant row only reads the bottom two levels
+    In0 = np.asarray(geom.interp_n2i)[0]
+    use_wfold = (use_fused_stage and len(In0) >= 2
+                 and not np.any(In0[2:]))
+
+    stage_fn = None
+    if use_fused_stage:
+        sst = stage_cuda.stage_statics(fg)
+
+        def stage_fn(base, ueval, dt_s, defer_w=False):
+            if plain:
+                return stage_cuda.fused_stage_plain(
+                    base, ueval, dt_s, fg, constants, defer_w=defer_w)
+            return stage_cuda.fused_stage(base, ueval, dt_s, fg, constants,
+                                          defer_w=defer_w, statics=sst)
+
     first_fn, step_fn = _strang_fns(
-        cfg, fg, rayleigh,
-        lambda d, rayleigh=None, w_finish=None: apply_dss(
-            d, fg, rayleigh, plain=plain, w_finish=w_finish,
-            merge=dss_merge),
-        implicit_fn, stage_fn=stage_fn, use_wfold=use_wfold,
-        hyper_fns=hyper_fns)
+        cfg, fg, s.rayleigh, s.dss_fn, s.implicit_fn, stage_fn=stage_fn,
+        use_wfold=use_wfold, hyper_fns=s.hyper_fns)
     return first_fn, step_fn, fg
 
 
@@ -1266,3 +1298,133 @@ def make_fast_multistep(cfg: ModelConfig, geom, inner_steps: int,
     if not fg.ab_swapped:
         return first_step, run
     return _natural_layout(first_step), _natural_layout(run)
+
+
+# ---------------------------------------------------------------------------
+# IMEX-ARK family on the z-first engine
+# ---------------------------------------------------------------------------
+
+IMEX_SCHEMES = ("ars222", "ars232", "ark232", "gark2", "ars343",
+                "ars343b", "ars443", "ssp3332")
+
+
+def fast_imex_supported(cfg: ModelConfig, has_tracers: bool = False,
+                        geom=None) -> bool:
+    """Whether the IMEX-ARK family can run on the z-first engine: the Strang
+    engine's envelope (grid, staggering, solver; pass ``geom`` for a
+    Cartesian grid), any scheme of ``IMEX_SCHEMES``, one device, no tracers
+    (the IMEX steps carry tendencies as whole states of the five fields;
+    the JAX package's z-first IMEX refuses tracers the same way, although
+    the reference and the JAX package's reference-layout IMEX advance
+    them)."""
+    from ..config import TimestepSchemeType
+    if cfg.timescheme.value not in IMEX_SCHEMES or has_tracers:
+        return False
+    return fast_engine_supported(
+        cfg.with_(timescheme=TimestepSchemeType.STRANG), geom=geom)
+
+
+def make_fast_imex_step(cfg: ModelConfig, geom, ref_state=None, device=None,
+                        plain: bool = False, dss_merge=None, swap_ab=None):
+    """IMEX-ARK step on the z-first engine: ``step(state) -> state`` on
+    reference-layout (z-last) states, as the JAX package's
+    ``make_fast_imex_step``.
+
+    Each stage takes the horizontal tendency (``horizontal_tendency``, the
+    penalty upwinding folded in), the bottom W boundary and the full-state
+    DSS (``apply_dss``, no W finish: with ``"state"`` in ``dss_merge`` one
+    ``dss_cuda.dss_state`` launch), and the vertical implicit solve
+    (``fused_implicit_update`` with ``vertical_solver == "pallas"``, else the
+    banded kernel); the stage combinations follow ``timestep/imex.py``'s
+    tableaux, GARK2 its own two stages; then the nu4 / Rayleigh tail
+    (``step_after_subcycle``, the nu4 kernels where ``hyper_cuda.supported``
+    holds) over the full dt.  No fused stage kernel runs here.
+
+    ``step`` packs the state onto ``device`` (default ``cuda``; raises when
+    absent), swaps (a, b) on a swapped Cartesian engine, runs the stages,
+    swaps back and unpacks.  ``plain``, ``dss_merge`` and ``swap_ab`` mean
+    what they mean in ``make_fast_step``."""
+    import math
+    from ..config import TimestepSchemeType
+    from ..timestep.imex import _tableaux
+
+    if not fast_imex_supported(cfg, geom=geom):
+        raise NotImplementedError(
+            "configuration outside the IMEX engine's envelope (see "
+            "fast_imex_supported)")
+    s = _setup(cfg, geom, ref_state, device, plain, None, dss_merge, swap_ab)
+    fg, constants, dt = s.fg, cfg.constants, cfg.dt
+    dev = fg.inv_mult.device
+
+    def tend(u):
+        return horizontal_tendency(u, fg, constants)
+
+    def post(u, fresh=True):
+        # the bottom boundary writes W in place: a state that is not a
+        # fresh combination (the stage's base itself) gets a W of its own
+        if not fresh:
+            u = dict(u, W=u["W"].clone())
+        return s.dss_fn(apply_w_boundary(u, fg))
+
+    def tail(u):
+        return step_after_subcycle(u, dt, cfg, fg, rayleigh=s.rayleigh,
+                                   dss_fn=s.dss_fn,
+                                   use_fused_hyper=s.hyper_fns is not None,
+                                   hyper_fns=s.hyper_fns)
+
+    def axpy(b, t, c):
+        return tree_map(lambda x, y: x + c * y, b, t)
+
+    if cfg.timescheme == TimestepSchemeType.GARK2:
+        g = 1.0 - 0.5 * math.sqrt(2.0)
+        al = 0.5
+
+        def body(u0):
+            F0 = tend(u0)
+            uf1 = post(axpy(u0, F0, g * dt))
+            u1 = s.implicit_fn(uf1, g * dt)
+            G1 = tree_map(lambda a, b: (a - b) / (g * dt), u1, uf1)
+            uf2 = post(axpy(axpy(u0, F0, dt), G1, dt))
+            F1 = tend(uf2)
+            z2 = axpy(axpy(axpy(u0, F0, al * dt), G1, (1.0 - g) * dt),
+                      F1, (1.0 - al) * dt)
+            z2 = post(z2)
+            u2 = s.implicit_fn(z2, g * dt)
+            return tail(u2)
+    else:
+        aexp, aimp = _tableaux(cfg.timescheme)
+        nst = len(aexp)
+
+        def body(u0):
+            u = u0
+            F, G = [], []
+            for i in range(nst):
+                F.append(tend(u))
+                uf, fresh = u0, False
+                for j in range(i + 1):
+                    if aexp[i][j] != 0.0:
+                        uf, fresh = axpy(uf, F[j], aexp[i][j] * dt), True
+                for j in range(i):
+                    if aimp[i][j] != 0.0:
+                        uf, fresh = axpy(uf, G[j], aimp[i][j] * dt), True
+                uf = post(uf, fresh)
+                if aimp[i][i] != 0.0:
+                    u = s.implicit_fn(uf, aimp[i][i] * dt)
+                    G.append(tree_map(
+                        lambda a, b: (a - b) / (aimp[i][i] * dt), u, uf))
+                else:
+                    u = uf
+                    G.append(tree_map(lambda a: a * 0.0, uf))
+            return tail(u)
+
+    def step(state):
+        d = pack_state(state, device=dev)
+        if fg.ab_swapped:
+            d = _swap_ab_state(d)
+        out = body(d)
+        if fg.ab_swapped:
+            out = _swap_ab_state(out)
+        return unpack_state(out)
+
+    return step
+

@@ -48,7 +48,7 @@ _DSS_UVW = [_PTR] * 14 + [_DBL] * 5 + [_INT] * 12 + [_PTR]
 _ARRAYS = [ctypes.POINTER(_PTR), ctypes.POINTER(_DBL), ctypes.POINTER(_INT)]
 _STAGE = _ARRAYS + [_PTR]
 _DSS_SCALAR2 = [_PTR] * 6 + [_INT] * 12 + [_PTR]
-_DSS_STATE = [ctypes.POINTER(_PTR)] + [_PTR] * 3 + [_INT] * 7 + [_PTR]
+_DSS_STATE = [ctypes.POINTER(_PTR)] + [_PTR] * 3 + [_INT] * 12 + [_PTR]
 _IMPLICIT = _ARRAYS + [_I64, _PTR]
 SIGNATURES = {
     "dss": {"dss_scalar_f32": _DSS_SCALAR, "dss_scalar_f64": _DSS_SCALAR,

@@ -1,6 +1,7 @@
-"""Edge shapes of the band kernel's four modes ``dss_scalar``,
-``dss_vector``, ``dss_uvw`` and ``dss_scalar2`` (``fast/dss_cuda.py``,
-``csrc/dss.cu``), each held against the plain version.
+"""Edge shapes of the band kernel's five modes ``dss_scalar``,
+``dss_vector``, ``dss_uvw``, ``dss_scalar2`` and ``dss_state``
+(``fast/dss_cuda.py``, ``csrc/dss.cu``), each held against the plain
+version.
 
 The flagship's shapes leave parts of the kernels unrun: p = 2 and 3 (rows of
 6 or 3 values, whose spans are no 16-byte multiple: 8- and 4-byte copies), a
@@ -26,7 +27,8 @@ import torch
 # name -> grid (("sphere", ne, p) or ("cart", A, B, p, wrap)), levels K,
 # values the inputs start past an aligned address, overrides of
 # ``dss_launch_shape`` for dss_scalar, for dss_vector and for dss_uvw
-# (dss_scalar2, two fields a stage as dss_vector, takes dss_vector's)
+# (dss_scalar2 and dss_state, which sum the (U, V) pair or two fields a
+# stage as dss_vector does, take dss_vector's)
 CASES = {
     "sphere_ne4": (("sphere", 4, 4), 8, 0, {}, {}, {}),
     "sphere_ne4_bands": (("sphere", 4, 4), 7, 0,
@@ -59,7 +61,7 @@ CASES = {
     "cart_one_element": (("cart", 4, 4, 4, (True, True)), 2, 0, {}, {},
                          {}),
 }
-KERNELS = ("dss_scalar", "dss_vector", "dss_uvw", "dss_scalar2")
+KERNELS = ("dss_scalar", "dss_vector", "dss_uvw", "dss_scalar2", "dss_state")
 
 
 def _cut(t, offset):
@@ -120,6 +122,28 @@ def case_inputs(name: str, dtype, device):
     return g, rnd(K, P, A, B), rnd(K, P, A, B), rnd(K, P, A, B), wf
 
 
+def state_inputs(name: str, dtype, device, P, A, B):
+    """(state, (fac, ref)) of case ``name``: the five fields of a state (W
+    with one level more) and a Rayleigh finish of the model's form (Rho's
+    factor one, ref = (1 - fac) x_ref), each starting the case's offset past
+    an aligned address."""
+    from tempestmodel_tpu_torch.fast import dss_cuda
+    K, offset = CASES[name][1], CASES[name][2]
+    rng = np.random.default_rng(sum(map(ord, name)) + 1)
+
+    def cut(a):
+        return _cut(torch.as_tensor(a, dtype=dtype, device=device), offset)
+
+    shapes = {k: (K + (k == "W"), P, A, B) for k in dss_cuda.STATE_FIELDS}
+    d = {k: cut(rng.standard_normal(s)) for k, s in shapes.items()}
+    fac = {k: rng.random(s) for k, s in shapes.items()}
+    fac["Rho"] = np.ones(shapes["Rho"])
+    ref = {k: (1.0 - fac[k]) * rng.standard_normal(s)
+           for k, s in shapes.items()}
+    return d, ({k: cut(v) for k, v in fac.items()},
+               {k: cut(v) for k, v in ref.items()})
+
+
 def _edge_masks(A, B):
     edge = np.zeros((A, B), bool)
     edge[0, :] = edge[-1, :] = edge[:, 0] = edge[:, -1] = True
@@ -141,7 +165,7 @@ def launch_shapes(name: str, dtype) -> dict:
     over = CASES[name][3:]
     return {k: dss_cuda.dss_launch_shape(K, P, A, B, p, dtype, k[4:],
                                          links=links, **ov)
-            for k, ov in zip(KERNELS, over + over[1:2])}
+            for k, ov in zip(KERNELS, over + over[1:2] + over[1:2])}
 
 
 def run_case(name: str, dtype, device) -> dict:
@@ -152,14 +176,17 @@ def run_case(name: str, dtype, device) -> dict:
     two bases and one; its bottom W row is also held alone, on the panel
     edges and at the corners.  ``dss_scalar2`` runs on x and U, and is also
     held bit for bit against two ``dss_scalar`` launches
-    (``"scalar2_equals_two_launches"``)."""
+    (``"scalar2_equals_two_launches"``).  ``dss_state`` runs without and
+    with the Rayleigh finish, and is also held bit for bit against the
+    separate launches followed by the plain finish
+    (``"state_equals_separate_launches"``)."""
     from tempestmodel_tpu_torch.fast import dss_cuda
     (im, links, rot, wrap, p), x, u, v, wf = case_inputs(
         name, dtype, device)
     K, P, A, B = x.shape
     flags = int(wrap[0]) | 2 * int(wrap[1])
     shapes = launch_shapes(name, dtype)
-    ls, lv, lu, l2 = (shapes[k] for k in KERNELS)
+    ls, lv, lu, l2, lst = (shapes[k] for k in KERNELS)
     errs, bitwise = {}, True
     got = dss_cuda._dss_scalar_cuda(x, im, links, p, flags, ls)
     torch.cuda.synchronize()
@@ -197,9 +224,28 @@ def run_case(name: str, dtype, device) -> dict:
         errs[f"dss_scalar2_{k}"] = _rel(g_, w_)
         bitwise &= torch.equal(g_, w_)
         equal &= torch.equal(g_, t_)
+    d, ray = state_inputs(name, dtype, device, P, A, B)
+    sep_equal = True
+    for tag, r in (("", None), ("_rayleigh", ray)):
+        got = dss_cuda._dss_state_cuda(d, im, rot, links, p, flags, r, lst)
+        torch.cuda.synchronize()
+        want = dss_cuda.dss_state_plain(d, im, rot, links, p, r, wrap)
+        sep = dict(zip(("U", "V"), dss_cuda._dss_vector_cuda(
+            d["U"], d["V"], im, rot, links, p, flags, lv)))
+        sep["Rt"], sep["Rho"] = dss_cuda._dss_scalar2_cuda(
+            d["Rt"], d["Rho"], im, links, p, flags, l2)
+        sep["W"] = dss_cuda._dss_scalar_cuda(d["W"], im, links, p, flags, ls)
+        torch.cuda.synchronize()
+        if r is not None:
+            sep = {k: r[0][k] * sep[k] + r[1][k] for k in sep}
+        for k in dss_cuda.STATE_FIELDS:
+            errs[f"dss_state{tag}_{k}"] = _rel(got[k], want[k])
+            bitwise &= torch.equal(got[k], want[k])
+            sep_equal &= torch.equal(got[k], sep[k])
     return {"max_err": max(errs.values()), "err_by_output": errs,
             "bitwise": bool(bitwise),
             "scalar2_equals_two_launches": bool(equal),
+            "state_equals_separate_launches": bool(sep_equal),
             "shape": [K, P, A, B],
             "launch": {
                 "dss_scalar": dss_cuda.launch_config(
@@ -213,4 +259,7 @@ def run_case(name: str, dtype, device) -> dict:
                     bool(links), lu),
                 "dss_scalar2": dss_cuda.launch_config(
                     x, p, "scalar2", dss_cuda._scalar2_ptrs(x, u, im),
-                    bool(links), l2)}}
+                    bool(links), l2),
+                "dss_state": dss_cuda.launch_config(
+                    d["U"], p, "state", dss_cuda._state_ptrs(d, im),
+                    bool(links), lst)}}

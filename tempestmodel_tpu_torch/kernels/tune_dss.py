@@ -5,11 +5,13 @@ Run from the repository root on a machine with an NVIDIA Hopper card and
 nvcc:
 
     python3 -m tempestmodel_tpu_torch.kernels.tune_dss [band] \
-        [scalar | vector | uvw | scalar2 ...] [-DNAME=VALUE ...]
+        [scalar | vector | uvw | scalar2 | state ...] [-DNAME=VALUE ...]
 
-``band`` (the four modes of the band kernel, ``dss_scalar``,
-``dss_vector``, ``dss_uvw`` and ``dss_scalar2``, whose launch shape is
-taken at run time, no rebuild; mode names after it sweep those modes only):
+``band`` (the five modes of the band kernel, ``dss_scalar``,
+``dss_vector``, ``dss_uvw``, ``dss_scalar2`` and ``dss_state``, whose
+launch shape is taken at run time, no rebuild; mode names after it sweep
+those modes only; ``dss_state`` is swept without and with its Rayleigh
+finish):
 every band (rows),
 levels a block and ring depth of
 ``BAND_ROWS`` x ``BAND_LEVELS`` x ``BAND_RINGS`` that fits, at the flagship
@@ -21,8 +23,8 @@ against the plain version and timed beside the rule's shape
 (``dss_cuda.dss_launch_shape``), every shape printed per kernel and grid,
 fastest first.  ``-D`` arguments build a variant of ``csrc/dss.cu`` with those
 flags (``BAND_MIN_BLOCKS``, the scalar and scalar2 modes',
-``BAND_MIN_BLOCKS_VECTOR``, ``BAND_MIN_BLOCKS_UVW``: blocks an SM must
-hold, which caps the registers)
+``BAND_MIN_BLOCKS_VECTOR``, ``BAND_MIN_BLOCKS_UVW``, the uvw and state
+modes': blocks an SM must hold, which caps the registers)
 and sweep it in place of the default build, with its registers.  Times are
 taken as in ``chip_smoke.py``: launches queued behind a busy device.  The
 first line holds the card's name and power limit.
@@ -46,7 +48,7 @@ from tempestmodel_tpu_torch.models import nh_model
 
 BAND_ROWS = (4, 8, 12, 16, 20, 24, 40)
 BAND_LEVELS = (1, 2, 3, 4, 5, 6, 8, 10, 15, 31)
-BAND_RINGS = (2, 3, 4)
+BAND_RINGS = (1, 2, 3, 4)
 K, P, A, ORDER = 30, 6, 120, 4
 
 
@@ -138,6 +140,30 @@ def sweep_band(dev, modes):
                   "cxx0": 1.0 + rnd(Pn, An, Bn).abs(), "cb1": 0.3,
                   "cb2": 0.7, "dt_s": 12.5, "c00": 0.6, "c01": 0.4}
             sets.append((rnd(nz, Pn, An, Bn), rnd(nz, Pn, An, Bn), wf))
+
+        def state():
+            return {k: rnd(nz + (k == "W"), Pn, An, Bn)
+                    for k in dss_cuda.STATE_FIELDS}
+
+        states = [(state(), ({k: v.abs() for k, v in state().items()},
+                             state())) for _ in range(max(1, ncopies // 4))]
+
+        def state_kernel(ray):
+            def make(sh):
+                def fn(d, r):
+                    out = dss_cuda._dss_state_cuda(
+                        d, im, fg.e_rot, links, p, flags, r if ray else None,
+                        sh)
+                    return [out[k] for k in dss_cuda.STATE_FIELDS]
+                return fn
+
+            def plain():
+                d, r = states[0]
+                out = dss_cuda.dss_state_plain(d, im, fg.e_rot, links, p,
+                                               r if ray else None, fg.wrap)
+                return [out[k] for k in dss_cuda.STATE_FIELDS]
+            return make, states, plain
+
         kernels = {
             "dss_scalar": (lambda sh: lambda x: dss_cuda._dss_scalar_cuda(
                 x, im, links, p, flags, sh), xs,
@@ -158,9 +184,11 @@ def sweep_band(dev, modes):
                             ._dss_scalar2_cuda(x1, x2, im, links, p, flags,
                                                sh),
                             pairs, lambda: list(dss_cuda.dss_scalar2_plain(
-                                *pairs[0], im, links, p, fg.wrap)))}
+                                *pairs[0], im, links, p, fg.wrap))),
+            "dss_state": state_kernel(False),
+            "dss_state_rayleigh": state_kernel(True)}
         for name, (make, args, plain) in kernels.items():
-            mode = name[4:]
+            mode = name[4:].replace("_rayleigh", "")
             if mode not in modes:
                 continue
             want = plain()

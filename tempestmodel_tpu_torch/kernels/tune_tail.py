@@ -4,22 +4,20 @@
 Run from the repository root on a machine with an NVIDIA Hopper card and
 nvcc:
 
-    python3 -m tempestmodel_tpu_torch.kernels.tune_tail [hyper | dss]
+    python3 -m tempestmodel_tpu_torch.kernels.tune_tail [hyper]
 
-``hyper`` (the default runs both): ``nu4_pass1`` and ``nu4_pass2`` at the
+``hyper``: ``nu4_pass1`` and ``nu4_pass2`` at the
 launch shapes around ``hyper_cuda.hyper_launch_shape``'s (band rows, levels
 a block, ring depth; chosen at run time, no rebuild) at the flagship shapes
 (ne30 p4 L30) and on the 3-D bubble's two planes, float32 and float64, each
 shape's result held against the rule's; then ``csrc/hyper.cu`` built once
 per ``HYPER_MIN_BLOCKS`` variant (the registers a thread may use), each
-timed at the rule's shape.  ``dss``: ``csrc/dss.cu`` built once per variant
-of ``dss_state``'s ``-D`` tunables, ``dss_state`` (with and without the
-Rayleigh finish) timed at the flagship shapes (``dss_scalar2`` is a mode of
-the band kernel: ``kernels/tune_dss.py band scalar2`` sweeps it).  Every variant
-build is swapped in behind the wrappers and held against the default
-build's result.  Times are taken as in ``chip_smoke.py``: launches queued
-behind a busy device; at the flagship every launch reads more than the L2
-holds.
+timed at the rule's shape (``dss_state`` and ``dss_scalar2`` are modes of
+the band DSS kernel: ``kernels/tune_dss.py band state`` and ``band
+scalar2`` sweep them).  Every variant build is swapped in behind the
+wrappers and held against the default build's result.  Times are taken as
+in ``chip_smoke.py``: launches queued behind a busy device; at the flagship
+every launch reads more than the L2 holds.
 """
 
 import itertools
@@ -31,7 +29,7 @@ import torch
 
 import tempestmodel_tpu_torch as tm
 from tempestmodel_tpu_torch import fast
-from tempestmodel_tpu_torch.fast import dss_cuda, hyper_cuda
+from tempestmodel_tpu_torch.fast import hyper_cuda
 from tempestmodel_tpu_torch.kernels import build, synthetic
 from tempestmodel_tpu_torch.kernels.timing import time_cuda
 from tempestmodel_tpu_torch.kernels.tune_fused import (compile_variants, load,
@@ -44,9 +42,6 @@ from tempestmodel_tpu_torch.testcases.nonhydro_sphere import (
 VARIANTS = {
     "hyper": [{}] + [{"HYPER_MIN_BLOCKS": b, "HYPER_MIN_BLOCKS_F64": b2}
                      for b, b2 in ((1, 2), (3, 1), (4, 1))],
-    "dss": [{}] + [{"STATE_THREADS": t, "STATE_LEVELS": lv}
-                   for t, lv in ((128, 1), (128, 2), (128, 3), (128, 4),
-                                 (128, 5), (256, 2), (64, 2), (256, 1))],
 }
 # run-time launch shapes of the nu4 kernels: band rows (in elements), levels
 # a block, ring depth
@@ -60,17 +55,18 @@ def main(argv=()):
     if not torch.cuda.is_available():
         print("tune_tail: no CUDA device", file=sys.stderr)
         return 1
+    if list(argv) not in ([], ["hyper"]):
+        print(f"tune_tail: unknown arguments {list(argv)}", file=sys.stderr)
+        return 2
     dev = torch.device("cuda")
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip())
     build.build_all()
-    only = list(argv)[:1]
-    stems = only or ["hyper", "dss"]
     tc = BaroclinicWaveUMJS(pert="exp")
     with tempfile.TemporaryDirectory() as tmp:
-        libs = compile_variants(tmp, {k: VARIANTS[k] for k in stems})
+        libs = compile_variants(tmp, VARIANTS)
         for dtype, sfx in ((torch.float32, "f32"), (torch.float64, "f64")):
             cfg = tm.ModelConfig(
                 grid_kind=tm.GridKind.CUBED_SPHERE, ne=NE, order=ORDER,
@@ -79,17 +75,16 @@ def main(argv=()):
             fg = synthetic.terrain_like(
                 fast.build_fast_geometry(geom, dtype=dtype, device=dev),
                 vary_jac=True)
-            if "hyper" in stems:
-                shapes(fg, sfx, "flagship")
-                import chip_smoke
-                for where, ney in (("plane", chip_smoke.PLANE_NE),
-                                   ("plane_rectangular",
-                                    chip_smoke.PLANE_NE // 2)):
-                    _, _, pgeom = chip_smoke.cartesian_setup(
-                        "bubble3d", dtype, chip_smoke.PLANE_NE, ney,
-                        chip_smoke.SCHAR_NZ)
-                    shapes(fast.build_fast_geometry_cartesian(
-                        pgeom, dtype=dtype, device=dev), sfx, where)
+            shapes(fg, sfx, "flagship")
+            import chip_smoke
+            for where, ney in (("plane", chip_smoke.PLANE_NE),
+                               ("plane_rectangular",
+                                chip_smoke.PLANE_NE // 2)):
+                _, _, pgeom = chip_smoke.cartesian_setup(
+                    "bubble3d", dtype, chip_smoke.PLANE_NE, ney,
+                    chip_smoke.SCHAR_NZ)
+                shapes(fast.build_fast_geometry_cartesian(
+                    pgeom, dtype=dtype, device=dev), sfx, where)
             sweep(fg, sfx, libs)
             del fg
             torch.cuda.empty_cache()
@@ -140,38 +135,19 @@ def shapes(fg, sfx, where):
 
 def sweep(fg, sfx, libs):
     """Each variant build against the default one, at the rule's shapes."""
-    dtype, dev = fg.inv_mult.dtype, fg.inv_mult.device
     hst = hyper_cuda.hyper_statics(fg)
     # two sets of inputs: 2 x 104 MB (float32) cycle through the L2
     sets = [(synthetic.random_state(fg, seed), synthetic.random_state(
         fg, seed + 10)) for seed in (1, 2)]
-    gen = torch.Generator(device=dev).manual_seed(0)
-    ray = tuple({k: torch.rand(v.shape, dtype=dtype, device=dev,
-                               generator=gen) for k, v in sets[0][0].items()}
-                for _ in range(2))
-    dss = (fg.inv_mult, fg.e_rot, fg.dss_links, fg.p)
-
-    def state(d, _, rayleigh=None):
-        out = dss_cuda.dss_state(d, *dss, rayleigh=rayleigh,
-                                 table=fg.dss_table)
-        return [out[k] for k in dss_cuda.STATE_FIELDS]
-
-    # name -> (source stem, function of (d, work) returning a list)
-    kernels = {name: ("hyper", lambda d, w, fn=fn: fn(d, w, None))
+    kernels = {name: (lambda d, w, fn=fn: fn(d, w, None))
                for name, _, fn in _pass_fns(fg, hst)}
-    kernels.update({
-        "dss_state": ("dss", state),
-        "dss_state_rayleigh": ("dss", lambda d, w: state(d, w, ray)),
-    })
     default = dict(build._libs)
-    want = {name: fn(*sets[0]) for name, (_, fn) in kernels.items()}
+    want = {name: fn(*sets[0]) for name, fn in kernels.items()}
     torch.cuda.synchronize()
     try:
         for stem, flags, path in libs:
             build._libs[stem] = load(stem, path)
-            for name, (kstem, fn) in kernels.items():
-                if kstem != stem:
-                    continue
+            for name, fn in kernels.items():
                 err = rel_err(fn(*sets[0]), want[name])
                 ms = time_cuda(fn, sets, reps=20, queued=True)
                 print(f"{sfx} {name} {flags or 'default'}: {ms:.4f} ms  "

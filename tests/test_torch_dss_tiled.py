@@ -1,5 +1,6 @@
-"""The band kernel's host side (``dss_cuda.dss_launch_shape`` for its four
-modes ``dss_scalar``, ``dss_vector``, ``dss_uvw`` and ``dss_scalar2``,
+"""The band kernel's host side (``dss_cuda.dss_launch_shape`` for its five
+modes ``dss_scalar``, ``dss_vector``, ``dss_uvw``, ``dss_scalar2`` and
+``dss_state``,
 ``copy_width``, the build report's instantiations), the edge shapes of
 ``kernels/dss_edges.py``
 (the plain DSS against the JAX Pallas kernels in interpret mode at each
@@ -35,7 +36,7 @@ def _ids(shapes):
     return ["x".join(map(str, s)) for s in shapes]
 
 
-MODES = ["scalar", "vector", "uvw", "scalar2"]
+MODES = ["scalar", "vector", "uvw", "scalar2", "state"]
 MODE_IDS = MODES
 
 
@@ -60,16 +61,17 @@ def test_dss_launch_shape_fits_a_block(shape, mode, dtype):
     passes = math.ceil(nseg / sh.threads)
     assert passes == math.ceil(nseg / dss_cuda.MAX_THREADS)
     assert passes * sh.threads - nseg < 32 * passes
-    # dss_uvw's K + 1 steps: the bottom interface is a run of its own
+    # dss_uvw's and dss_state's K + 1 steps: the bottom interface (the top
+    # interface of W) is a run of its own
     assert 1 <= sh.levels <= K
-    assert sh.blocks == (A // sh.rows) * P * (math.ceil(K / sh.levels)
-                                              + (mode == "uvw"))
+    assert sh.blocks == (A // sh.rows) * P * (
+        math.ceil(K / sh.levels) + (mode in dss_cuda.EXTRA_RUN))
     assert 1 <= sh.ring <= dss_cuda.MAX_RING
     assert mode != "uvw" or sh.ring >= 2
 
 
 @pytest.mark.parametrize("dtype", [F32, F64], ids=["f32", "f64"])
-@pytest.mark.parametrize("mode", MODES, ids=MODE_IDS)
+@pytest.mark.parametrize("mode", MODES[:4], ids=MODE_IDS[:4])
 def test_dss_launch_shape_fills_the_card_at_the_flagship(mode, dtype):
     """More than a full wave: at least two blocks for every SM (one stages
     while another sums), with the levels (K = 30) and the moist wave's
@@ -95,7 +97,9 @@ def test_dss_launch_shape_does_not_starve_schar(mode):
 
 @pytest.mark.parametrize("case", ["p17", "rows", "uvw_levels", "uvw_ring",
                                   "too_wide", "vector_levels", "vector_ring",
-                                  "vector_too_wide", "no_such_mode"])
+                                  "vector_too_wide", "no_such_mode",
+                                  "state_levels", "state_ring",
+                                  "state_too_wide"])
 def test_dss_launch_shape_raises_where_the_kernel_cannot_run(case):
     args = {"p17": ((4, 6, 34, 34, 17, F32, "scalar"), {}),
             "rows": ((4, 6, 16, 16, 4, F32, "scalar"), dict(rows=12)),
@@ -106,7 +110,11 @@ def test_dss_launch_shape_raises_where_the_kernel_cannot_run(case):
                               dict(levels=0)),
             "vector_ring": ((4, 6, 16, 16, 4, F32, "vector"), dict(ring=5)),
             "vector_too_wide": ((4, 1, 4, 6000, 4, F64, "vector"), {}),
-            "no_such_mode": ((4, 6, 16, 16, 4, F32, 3), {})}[case]
+            "no_such_mode": ((4, 6, 16, 16, 4, F32, 3), {}),
+            "state_levels": ((4, 6, 16, 16, 4, F32, "state"),
+                             dict(levels=0)),
+            "state_ring": ((4, 6, 16, 16, 4, F32, "state"), dict(ring=5)),
+            "state_too_wide": ((4, 1, 4, 3000, 4, F64, "state"), {})}[case]
     with pytest.raises(ValueError):
         dss_cuda.dss_launch_shape(*args[0], **args[1])
 
@@ -139,24 +147,25 @@ def test_dss_vector_mode_takes_a_ring_of_one_and_no_bottom_run():
 
 
 def test_band_kernel_resources_are_read_from_the_build_report(monkeypatch):
-    """The 32 instantiations (value type x mode x grid family x p 4 or
+    """The 40 instantiations (value type x mode x grid family x p 4 or
     any p) are named from their mangled names."""
     report = {}
     for t in "fd":
         for cart in "01":
             for pp in ("4", "0"):
-                for m in "0123":
+                for m in "01234":
                     report[f"_ZN12_GLOBAL__N_111band_kernelI{t}Lb{cart}ELi"
                            f"{pp}ELi{m}EEEvNS_8BandArgsIT_EE"] = {
                         "registers": 40}
     report["_ZN12_GLOBAL__N_116dss_state_kernelIfLb0ELb0EEEvv"] = {}
     monkeypatch.setattr(dss_cuda.build, "ptxas_usage", lambda stem: report)
     got = dss_cuda.kernel_resources()
-    assert len(got) == 32
+    assert len(got) == 40
     assert got["f32 vector sphere p4"] == {"registers": 40}
     assert "f64 uvw cart generic" in got and "f32 scalar cart p4" in got
     assert "f32 scalar2 sphere p4" in got and "f64 scalar2 cart generic" \
         in got
+    assert "f32 state sphere p4" in got and "f64 state cart generic" in got
 
 
 def test_dss_launch_config_reports_the_launch():
@@ -206,6 +215,78 @@ def test_dss_scalar2_mode_stages_two_fields_and_no_rotation(shape, dtype):
         assert (sh.rows, sh.levels, sh.blocks) == (24, 4, 240)
 
 
+@pytest.mark.parametrize("dtype", [F32, F64], ids=["f32", "f64"])
+@pytest.mark.parametrize("shape", [(30, 6, 120, 120, 4), (40, 1, 4, 400, 4),
+                                   (40, 1, 400, 4, 4), (40, 1, 128, 128, 4),
+                                   (3, 6, 6, 6, 3), (4, 6, 6, 6, 2),
+                                   (3, 1, 9, 6, 3)],
+                         ids=["flagship", "schar_swapped", "schar_natural",
+                              "plane", "p3", "p2", "cart_p3"])
+def test_dss_state_mode_stages_the_uvw_modes_fields_without_its_w_buffer(
+        shape, dtype):
+    """The state mode's block holds five field slots a stage and the (U, V)
+    pair's edge rotations, like the uvw mode's, but not its assembled-W
+    slot; so it fits wherever the uvw mode fits."""
+    K, P, A, B, p = shape
+    esize = 4 if dtype == F32 else 8
+    links = P > 1
+    v16 = 16 // esize
+
+    def up(n):
+        return -(-n // v16) * v16
+
+    sh = dss_cuda.dss_launch_shape(K, P, A, B, p, dtype, "state")
+    nedge = 2 * (sh.rows + 2) + 2 * A if links else 0
+    fs = up((sh.rows + 2) * B) + up(nedge)
+    for ring in (1, 2, 3):
+        assert dss_cuda.dss_smem_bytes(sh.rows, A, B, ring, "state", esize,
+                                       links) == dss_cuda.dss_smem_bytes(
+            sh.rows, A, B, ring, "uvw", esize, links) - fs * esize
+    uvw = dss_cuda.dss_launch_shape(K, P, A, B, p, dtype, "uvw")
+    assert dss_cuda.dss_smem_bytes(uvw.rows, A, B, uvw.ring, "state", esize,
+                                   links) <= uvw.smem <= dss_cuda.SMEM_MAX
+    assert sh.smem == dss_cuda.dss_smem_bytes(sh.rows, A, B, sh.ring,
+                                              "state", esize, links)
+    # one stage where a run is one level: a second would never be filled
+    assert sh.ring <= sh.levels and sh.blocks >= K
+
+
+@pytest.mark.parametrize("shape,dtype,want", [
+    ((30, 6, 120, 120), F32, (20, 1, 1, 320, 1116)),
+    ((30, 6, 120, 120), F64, (8, 1, 1, 256, 2790)),
+    ((40, 1, 4, 400), F32, (4, 1, 1, 416, 41)),
+    ((40, 1, 128, 128), F32, (4, 2, 2, 128, 672)),
+    ((90, 6, 120, 120), F32, (20, 5, 2, 320, 684))],
+    ids=["flagship_f32", "flagship_f64", "schar_swapped", "plane",
+         "k90"])
+def test_dss_state_mode_rule_takes_the_swept_shapes(shape, dtype, want):
+    """The rule's state-mode shapes: the fastest of the sweep
+    (``kernels/tune_dss.py band state``) at the flagship in both dtypes, at
+    Schar swapped and on the float32 plane (rows, levels, ring, threads,
+    blocks); a taller field keeps longer runs and a ring of two."""
+    sh = dss_cuda.dss_launch_shape(*shape, 4, dtype, "state")
+    assert (sh.rows, sh.levels, sh.ring, sh.threads, sh.blocks) == want
+
+
+def test_dss_launch_config_reports_the_state_mode():
+    """``dss_state``'s launch is the rule's in the state mode, its copy
+    width that of the five fields and the inverse multiplicity (the Rayleigh
+    finish's fields are not staged)."""
+    d = {k: torch.zeros((31 if k == "W" else 30, 6, 120, 120), dtype=F32)
+         for k in dss_cuda.STATE_FIELDS}
+    im = torch.zeros((6, 120, 120), dtype=F32)
+    ptrs = dss_cuda._state_ptrs(d, im)
+    assert len(ptrs) == 6
+    cfg = dss_cuda.launch_config(d["U"], 4, "state", ptrs, True)
+    sh = dss_cuda.dss_launch_shape(30, 6, 120, 120, 4, F32, "state")
+    assert cfg == dict(sh._asdict(), copy=16)
+    odd = dict(d, Rho=torch.zeros((30 * 6 * 120 * 120 + 1,),
+                                  dtype=F32)[1:].view(d["Rt"].shape))
+    assert dss_cuda.launch_config(d["U"], 4, "state",
+                                  dss_cuda._state_ptrs(odd, im),
+                                  True)["copy"] == 4
+
+
 def _jax_wf(wf):
     return {k: (None if v is None else jnp.asarray(v.numpy()))
             if isinstance(v, torch.Tensor) or v is None else v
@@ -243,7 +324,9 @@ def test_dss_edge_case_launch_shapes(case, dtype):
     with the case's overrides, fitting a block."""
     shapes = dss_edges.launch_shapes(case, dtype)
     assert tuple(shapes) == dss_edges.KERNELS
-    for kernel, ov in zip(dss_edges.KERNELS, dss_edges.CASES[case][3:]):
+    over = dss_edges.CASES[case][3:]
+    # dss_scalar2 and dss_state take dss_vector's overrides
+    for kernel, ov in zip(dss_edges.KERNELS, over + over[1:2] + over[1:2]):
         sh = shapes[kernel]
         assert sh.smem <= dss_cuda.SMEM_MAX
         for k, v in ov.items():
@@ -273,6 +356,33 @@ def test_dss_edge_case_plain_matches_pallas(case):
             jw = np.asarray(jw)
             np.testing.assert_allclose(g.numpy(), jw, rtol=0,
                                        atol=1e-12 * float(np.abs(jw).max()))
+
+
+@pytest.mark.parametrize("ray", [False, True], ids=["no_rayleigh",
+                                                    "rayleigh"])
+@pytest.mark.parametrize("case", PALLAS_CASES)
+def test_dss_edge_case_state_plain_matches_pallas(case, ray):
+    """Each edge grid's plain ``dss_state`` (the five fields of
+    ``dss_edges.state_inputs``, W with one level more), without and with
+    the Rayleigh finish, against the JAX Pallas ``dss_state`` in interpret
+    mode, 1e-13 of each field's scale."""
+    (im, links, rot, wrap, p), x, _, _, _ = dss_edges.case_inputs(
+        case, F64, CPU)
+    K, P, A, B = x.shape
+    d, r = dss_edges.state_inputs(case, F64, CPU, P, A, B)
+    r = r if ray else None
+    J = {k: jnp.asarray(v.numpy()) for k, v in d.items()}
+    jr = None if r is None else tuple(
+        {k: jnp.asarray(v.numpy()) for k, v in part.items()} for part in r)
+    want = dss_pallas.dss_state(J, jnp.asarray(im.numpy()),
+                                jnp.asarray(rot.numpy()), links, p,
+                                rayleigh=jr, interpret=True, wrap=wrap)
+    got = dss_cuda.dss_state_plain(d, im, rot, links, p, r, wrap)
+    for k in dss_cuda.STATE_FIELDS:
+        w = np.asarray(want[k])
+        np.testing.assert_allclose(got[k].numpy(), w, rtol=0,
+                                   atol=1e-13 * float(np.abs(w).max()),
+                                   err_msg=k)
 
 
 @pytest.mark.parametrize("case", ["sphere_ne4", "sphere_ne2_p3",
@@ -323,3 +433,20 @@ def test_cuda_dss_scalar2_edge_case_is_bit_for_bit(case, dtype):
     assert got["err_by_output"]["dss_scalar2_x"] == 0.0
     assert got["err_by_output"]["dss_scalar2_U"] == 0.0
     assert got["scalar2_equals_two_launches"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [F64, F32], ids=["f64", "f32"])
+@pytest.mark.parametrize("case", list(dss_edges.CASES))
+def test_cuda_dss_state_edge_case_is_bit_for_bit(case, dtype):
+    """The state mode bit for bit equal to ``dss_state_plain`` and to the
+    separate launches followed by the plain finish, without and with the
+    Rayleigh finish, at every edge case."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no interpret mode")
+    got = dss_edges.run_case(case, dtype, torch.device("cuda"))
+    errs = {k: v for k, v in got["err_by_output"].items()
+            if k.startswith("dss_state")}
+    assert len(errs) == 10 and not any(errs.values()), errs
+    assert got["state_equals_separate_launches"]
+

@@ -27,7 +27,7 @@ def test_every_module_imports_without_jax():
     for new in ("fast.stage_cuda", "fast.implicit_cuda", "kernels.stencils",
                 "kernels.synthetic", "fast.hyper_cuda", "kernels.tune_tail",
                 "fast.tracers", "testcases.dcmip2016", "grid.cartesian",
-                "testcases.nonhydro_xz"):
+                "testcases.nonhydro_xz", "timestep.imex"):
         assert f"tempestmodel_tpu_torch.{new}" in names
     code = (
         "import importlib, sys\n"

@@ -122,3 +122,66 @@ def perturbed_umjs_state(jcfg, jgeom, seed=0):
         d[k] = d[k] * (1.0 + 1e-3 * rng.standard_normal(d[k].shape))
     d["W"] = 0.01 * rng.standard_normal(d["W"].shape)
     return d
+
+
+class ImexRuns:
+    """Steps of the JAX package's ``make_fast_imex_step`` and of the port's
+    from one UMJS start (``pert="exp"``, JAX's own initial state) on one
+    sphere configuration built once (default ne2 p4 nz6: one JAX compile of
+    an IMEX step takes 20-30 s on the CPU even there).  Each JAX step is
+    compiled once, at first use; results are cached per (scheme, solver,
+    merge)."""
+
+    def __init__(self, ne=2, nz=6, nsteps=2):
+        self.jcfg, self.jgeom, self.tcfg, self.tgeom = build_pair(ne=ne,
+                                                                  nz=nz)
+        js = JaxUMJS(pert="exp").initial_state(
+            self.jgeom, self.jcfg.constants, dtype=jnp.float64)
+        self.start = {k: np.asarray(js[k]) for k in FIELDS}
+        self.nsteps = nsteps
+        self.cache = {}
+
+    def configs(self, scheme):
+        return (self.jcfg.with_(timescheme=tj.TimestepSchemeType(scheme)),
+                self.tcfg.with_(timescheme=tt.TimestepSchemeType(scheme)))
+
+    def jax(self, scheme):
+        if ("jax", scheme) not in self.cache:
+            from tempestmodel_tpu.fast import engine as j_engine
+            step = j_engine.make_fast_imex_step(self.configs(scheme)[0],
+                                                self.jgeom)
+            s = {k: jnp.asarray(v) for k, v in self.start.items()}
+            for _ in range(self.nsteps):
+                s = step(s)
+            self.cache["jax", scheme] = {k: np.asarray(v)
+                                         for k, v in s.items()}
+        return self.cache["jax", scheme]
+
+    def torch(self, scheme, solver="pallas", dss_merge=None):
+        key = ("torch", scheme, solver, dss_merge)
+        if key not in self.cache:
+            from tempestmodel_tpu_torch import fast as t_fast
+            cfg = self.configs(scheme)[1].with_(vertical_solver=solver)
+            step = t_fast.make_fast_imex_step(cfg, self.tgeom, device=CPU,
+                                              dss_merge=dss_merge)
+            s = {k: torch.from_numpy(v.copy()) for k, v in self.start.items()}
+            for _ in range(self.nsteps):
+                s = step(s)
+            self.cache[key] = s
+        return self.cache[key]
+
+
+def assert_imex_close(got, want, start, tol=1e-11):
+    """Per field: relative error against JAX's scale below ``tol`` (the bar
+    of ``tests/test_fast_engine.py``), every value finite, and the steps
+    moved the field (so the comparison is not of two starts)."""
+    errs = {}
+    for k in FIELDS:
+        g = got[k].numpy() if isinstance(got[k], torch.Tensor) \
+            else np.asarray(got[k])
+        assert g.shape == want[k].shape and np.isfinite(g).all(), k
+        errs[k] = rel_err(g, want[k])
+        moved = np.abs(want[k] - start[k]).max()
+        assert moved > 1e-9 * (np.abs(start[k]).max() + 1e-30), k
+    assert max(errs.values()) < tol, errs
+    return errs
