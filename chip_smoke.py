@@ -90,6 +90,19 @@ and runs these phases, each printing one JSON line:
             10-step CUDA graph of ``make_fast_imex_step``'s ``step``
             captured here, replayed 4 times, with its launches a step,
             device busy time a step (torch.profiler) and peak memory;
+            then (5f) the model driver: the CLI's flagship run
+            (``cli.main``, UMJS with its perturbation and Rayleigh layer,
+            the fused implicit kernel, 40 steps, checksums, invariants,
+            lat-lon NetCDF output and checkpoints every 20 steps): its
+            timers beside the graph replay of the same configuration, its
+            final state bitwise equal to ``first_step`` and three replays
+            of a 13-step graph, restarts from its step-20 ``.tarena``
+            checkpoint and from an ``.npz`` one continued bit for bit, a
+            run without hooks timed and profiled, one firing of each
+            output timed; the Held-Suarez case (20 steps, the physics
+            every step) and the DCMIP2016 tropical cyclone with Kessler and
+            the simple physics (10 steps; water within 5 %, no species
+            negative), each with its launch counts;
 6. dss      the step with the tail's DSS as four launches or as
             ``dss_state`` and the stages' Rt/Rho as two launches or as
             ``dss_scalar2``, eagerly and under graph replay, in turns; the
@@ -142,6 +155,19 @@ PLANE_NE = 32               # elements a side of the 3-D bubble's plane
 # the IMEX-ARK step on the flagship grid: ARS343 (four stages, three with an
 # implicit part, one Newton iteration each), the fused implicit kernel
 IMEX_SCHEME, IMEX_STEPS = "ars343", 3      # eager steps after one warm-up
+# the driver (phase 5f): the CLI's flagship run, as a user types it (with
+# the fused implicit kernel, --vmethod V2), then Held-Suarez and the
+# tropical cyclone through Model.go; DRIVER_GRAPH steps a graph in the
+# direct run it is held against (1 + 3 * 13 = 40 steps)
+DRIVER_STEPS, DRIVER_EVERY, DRIVER_GRAPH = 40, 20, 13
+DRIVER_ARGV = ["--case", "umjs_pert", "--resolution", str(NE), "--levels",
+               str(NZ), "--order", str(ORDER), "--fp32", "--vmethod", "V2",
+               "--dt", f"{DT:g}s", "--nsteps", str(DRIVER_STEPS),
+               "--checksum_dt", f"{DRIVER_EVERY * DT:g}s",
+               "--output_dt", f"{DRIVER_EVERY * DT:g}s",
+               "--output_format", "nc",
+               "--output_restart_dt", f"{DRIVER_EVERY * DT:g}s"]
+HS_STEPS, TC_STEPS = 20, 10
 KERNELS = ("dss_scalar", "dss_vector", "banded_solve", "dss_uvw",
            "fused_stage", "nu4_pass1", "nu4_pass2", "fused_implicit_update",
            "dss_state", "dss_scalar2", "banded_solve_multi")
@@ -1784,34 +1810,15 @@ def check_cartesian_slice(dev):
 
 def capture_imex(step, S, nsteps):
     """``nsteps`` steps of an IMEX ``step`` (reference-layout state ->
-    state) as one CUDA graph captured from static input buffers, as
-    ``make_fast_multistep`` captures Strang steps: one warm-up step on a
-    side stream (it builds the kernels and uploads the lazily made tables),
-    then the capture.  Returns ``replay(S) -> S``: copies ``S`` into the
-    buffers, replays the graph and returns clones of the outputs."""
-    dev = S["U"].device
-    side = torch.cuda.Stream(device=dev)
-    side.wait_stream(torch.cuda.current_stream(dev))
-    with torch.cuda.stream(side):
-        step(S)
-    torch.cuda.current_stream(dev).wait_stream(side)
-    ins = {k: v.clone() for k, v in S.items()}
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        outs = ins
-        for _ in range(nsteps):
-            outs = step(outs)
-
-    def replay(S):
-        for k, v in ins.items():
-            v.copy_(S[k])
-        graph.replay()
-        return {k: v.clone() for k, v in outs.items()}
-    # the graph reads what the step's set-up holds (geometry, statics):
-    # the step lives as long as its graph (replaying a graph whose step was
-    # collected crashed the process)
-    replay.step = step
-    return replay
+    state) as one CUDA graph (``engine.graph_runner``: a warm-up step on a
+    side stream, the capture from static buffers, then a first replay, all
+    here, from ``S``).  Returns ``replay(S) -> S``: copies ``S`` into the
+    buffers, replays the graph and returns clones of the outputs.  The
+    runner keeps the step (and its set-up, which the graph reads) alive."""
+    from tempestmodel_tpu_torch.fast.engine import graph_runner
+    run = graph_runner(lambda s, carry: (step(s), carry), nsteps)
+    run(S, {})
+    return lambda s: run(s, {})[0]
 
 
 def check_imex_slice(dev):
@@ -2004,12 +2011,313 @@ def imex_line(dev, smi, cfg, geom, state, launches, profiles):
           "launches_per_step": per_step,
           "launches_counted": "at capture (1 warm-up step + "
                               f"{INNER_STEPS} captured steps), not at replay",
-          "dss_merge": merge, "capture_and_first_replay_s": capture_s,
+          "dss_merge": merge, "warmup_capture_and_two_replays_s": capture_s,
           "drift": drift, "note": note, "peak_device_GiB": peak,
           "card": smi})
     del replay, step, S
     torch.cuda.empty_cache()
     return icfg
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def parse_timers(text):
+    """``{name: (mean ms, count, min ms, max ms)}`` from a
+    ``Timers.report`` in ``text``."""
+    out, inside = {}, False
+    for line in text.splitlines():
+        if line.startswith("TIME  NAME"):
+            inside = True
+            continue
+        parts = line.split()
+        if inside and len(parts) == 5:
+            out[parts[0]] = (float(parts[1]) / 1e3, int(parts[2]),
+                             float(parts[3]) / 1e3, float(parts[4]) / 1e3)
+    return out
+
+
+def run_cli(argv, dev):
+    """``cli.main(argv)`` with its standard output kept (and returned);
+    (text, wall seconds, launch counts of the run)."""
+    import contextlib
+    import io
+    from tempestmodel_tpu_torch import cli
+    from tempestmodel_tpu_torch.kernels import counts
+    buf = io.StringIO()
+    counts.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv + ["--device", str(dev)])
+    sync(dev)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise RuntimeError(f"cli.main({argv}) returned {rc}")
+    return buf.getvalue(), wall, dict(counts.launch_counts)
+
+
+def driver_counts(per_step, graphs, eager=1):
+    """Launch counts of a driver run: ``eager`` steps outside graphs (the
+    first has one implicit solve more) and, for each graph of ``k`` steps,
+    one warm-up step and the ``k`` captured steps (replays pass no
+    wrapper)."""
+    n = eager + sum(1 + k for k in graphs)
+    want = {k: v * n for k, v in per_step.items()}
+    for k in IMPLICIT_SOLVES:
+        want[k] += 1 if per_step[k] else 0
+    return want
+
+
+def check_finite(state, what, dtype):
+    for k, v in state.items():
+        if v.dtype != dtype or not bool(torch.isfinite(v).all()):
+            raise RuntimeError(f"{what}: {k} is not a finite {dtype} field")
+
+
+def driver_line(dev, smi, launches, replay_5a_ms):
+    """Phase 5f, the driver.  (a) The CLI's flagship run (``cli.main``:
+    UMJS with its perturbation and Rayleigh layer, ne30 p4 L30 f32, dt 100
+    s, the fused implicit kernel, 40 steps, checksums, invariants, lat-lon
+    NetCDF output and checkpoints every 20 steps): its timers, its
+    checkpoints (the arena library built here: ``.tarena`` files), its final
+    state bitwise equal to ``first_step`` and three replays of a 13-step
+    graph of ``make_fast_multistep``, whose replays also give the ms/step
+    of the same configuration; restarts from the step-20 checkpoint, as
+    ``.tarena`` and as ``.npz``, continued bit for bit to step 40; a run
+    without hooks, timed and profiled; what one firing of each output costs.
+    (b) The Held-Suarez case, 20 steps, the physics every step.  (c) The
+    DCMIP2016 tropical cyclone with Kessler and the simple physics every
+    step, 10 steps: finite, no species negative, total water within 5 %.
+    Each run starts with the launch counts at 0 and is checked against the
+    steps it captured."""
+    import tempfile
+    import tempestmodel_tpu_torch as tm
+    from tempestmodel_tpu_torch import cli, fast
+    from tempestmodel_tpu_torch.io.output import (
+        CompositeCheckpoint, ChecksumOutput, EnergyOutput, ReferenceOutput)
+    from tempestmodel_tpu_torch.model import Model
+    from tempestmodel_tpu_torch.physics.dcmip_simple import (
+        DCMIPSimplePhysics)
+    from tempestmodel_tpu_torch.physics.kessler import KesslerPhysics
+    from tempestmodel_tpu_torch.testcases.dcmip2016 import TropicalCyclone
+    per_step = fused_per_step(tuple(fast.engine.DSS_MERGE_DEFAULT))
+    every_s = DRIVER_EVERY * DT
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the CLI run
+        argv = DRIVER_ARGV + ["--output_dir", tmp]
+        text, cli_s, launches["driver"] = run_cli(argv, dev)
+        timers = parse_timers(text)
+        want = driver_counts(per_step, (DRIVER_EVERY - 1, DRIVER_EVERY))
+        if launches["driver"] != want:
+            raise RuntimeError(f"driver: launch counts {launches['driver']} "
+                               f"!= expected {want}")
+        files = sorted(os.listdir(tmp))
+        nc = [f for f in files if f.endswith(".nc")]
+        tarena = [f for f in files if f.endswith(".tarena")]
+        if len(nc) != DRIVER_STEPS // DRIVER_EVERY + 1 or len(tarena) != 2:
+            raise RuntimeError(f"driver: wrote {files}; expected 3 NetCDF "
+                               f"files and 2 .tarena checkpoints (the arena "
+                               f"library builds with g++)")
+        path20, path40 = (os.path.join(tmp, f"restart.{t:012.2f}.tarena")
+                          for t in (every_s, DRIVER_STEPS * DT))
+        final = CompositeCheckpoint.load(path40, device=dev)[0]
+        rest = DRIVER_STEPS - DRIVER_EVERY
+        check_finite(final, "driver", torch.float32)
+        loop_ms = timers["Loop"][0]
+        ms_cli = loop_ms / DRIVER_STEPS
+
+        # the same configuration, stepped directly
+        args = cli.make_parser().parse_args(argv)
+        tc, cfg, _ = cli.configure(args)
+        m = Model(cfg, tc, device=dev)
+        first_step, multi = fast.make_fast_multistep(
+            cfg, m.geom, DRIVER_GRAPH, ref_state=m.reference, device=dev)
+        X, c = first_step(fast.pack_state(m.state, device=dev))
+        for _ in range((DRIVER_STEPS - 1) // DRIVER_GRAPH):
+            X, c = multi(X, c)
+        direct = fast.unpack_state(X)
+        if not all(torch.equal(final[k], direct[k]) for k in direct):
+            raise RuntimeError("driver: the CLI run's step-40 state is not "
+                               "bitwise the direct run's")
+        replay_ms = []
+        for _ in range(REPLAYS):
+            sync(dev)
+            t0 = time.perf_counter()
+            X, c = multi(X, c)
+            sync(dev)
+            replay_ms.append(1e3 * (time.perf_counter() - t0)
+                             / DRIVER_GRAPH)
+        replay_same = sorted(replay_ms)[len(replay_ms) // 2]
+        del first_step, multi, X, c, direct
+
+        # restarts from step 20: the .tarena file, then an .npz one
+        restarts = {}
+        m.restart_from(path20)
+        sync(dev)
+        t0 = time.perf_counter()
+        m.go(nsteps=rest)                   # its graph captured here
+        capture_go_ms = 1e3 * (time.perf_counter() - t0) / rest
+        restarts["tarena"] = all(torch.equal(m.state[k], final[k])
+                                 for k in final)
+        m.restart_from(path20)
+        npz_path = CompositeCheckpoint(every_s, tmp, prefix="npz",
+                                       fmt="npz").output(m, m.time)
+        m.restart_from(npz_path)
+        sync(dev)
+        t0 = time.perf_counter()
+        m.go(nsteps=rest)                   # no hooks, its graph captured
+        no_hooks_ms = 1e3 * (time.perf_counter() - t0) / rest
+        restarts["npz"] = all(torch.equal(m.state[k], final[k])
+                              for k in final)
+        if not all(restarts.values()):
+            raise RuntimeError(f"driver: restarts bit for bit {restarts}")
+        m.restart_from(npz_path)
+        prof = profile_steps(lambda x, c: (m.go(nsteps=rest), c),
+                             None, None, 1, "driver_no_hooks", rest) \
+            if dev.type == "cuda" else {"device_ms_per_step": None}
+
+        # one firing of each output at step 40, and what a hook that
+        # replaces the state costs: one pack and one unpack
+        m.restart_from(path20)
+        m.go(nsteps=rest)
+        sync(dev)
+        t0 = time.perf_counter()
+        fast.unpack_state(fast.pack_state(m.state, device=dev))
+        sync(dev)
+        breakdown = {"pack_and_unpack": 1e3 * (time.perf_counter() - t0)}
+        ref = ReferenceOutput(every_s, tmp, prefix="again", fmt="nc")
+        for name, om in (("checksums", ChecksumOutput(every_s)),
+                         ("invariants", EnergyOutput(every_s)),
+                         ("latlon_nc_first", ref), ("latlon_nc", ref),
+                         ("checkpoint_tarena",
+                          CompositeCheckpoint(every_s, tmp, prefix="again"))):
+            t0 = time.perf_counter()
+            om.output(m, m.time)
+            sync(dev)
+            breakdown[name] = 1e3 * (time.perf_counter() - t0)
+        del m
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        results["flagship"] = {
+            "phase": "driver", "path": "cli", "argv": argv[:-2],
+            "steps": DRIVER_STEPS, "cli_main_s": cli_s,
+            "wall_ms_per_step": ms_cli, "loop_ms": loop_ms,
+            "step_timer_mean_min_max_ms": [timers["Step"][0],
+                                           timers["Step"][2],
+                                           timers["Step"][3]],
+            "step_timer_count": timers["Step"][1],
+            "output_timer_mean_ms": timers["Output"][0],
+            "output_timer_count": timers["Output"][1],
+            "output_ms_per_step": timers["Output"][0] * timers["Output"][1]
+            / DRIVER_STEPS,
+            "one_firing_ms": breakdown,
+            "model_go_no_hooks_ms_per_step": no_hooks_ms,
+            "model_go_no_hooks_with_capture_ms_per_step": capture_go_ms,
+            "device_busy_ms_per_step_no_hooks": prof["device_ms_per_step"],
+            "replay_ms_per_step_same_config": replay_same,
+            "replay_ms_each": replay_ms,
+            "replay_ms_per_step_phase5a_no_rayleigh": replay_5a_ms,
+            "over_same_config_replay": ms_cli / replay_same - 1.0,
+            "bitwise_direct": True, "bitwise_restarts": restarts,
+            "checkpoint_files": tarena, "netcdf_files": nc,
+            "launches": launches["driver"], "card": smi}
+        emit(results["flagship"])
+
+        # (b) Held-Suarez every step
+        argv = ["--case", "held_suarez", "--resolution", str(NE),
+                "--levels", str(NZ), "--order", str(ORDER), "--fp32",
+                "--vmethod", "V2", "--dt", f"{DT:g}s", "--nsteps",
+                str(HS_STEPS), "--output_dir", os.path.join(tmp, "hs"),
+                "--output_restart_dt", f"{HS_STEPS * DT:g}s"]
+        text, cli_s, launches["driver_held_suarez"] = run_cli(argv, dev)
+        timers = parse_timers(text)
+        want = driver_counts(per_step, (1,))
+        if launches["driver_held_suarez"] != want:
+            raise RuntimeError(f"Held-Suarez: launch counts "
+                               f"{launches['driver_held_suarez']} != {want}")
+        hs = CompositeCheckpoint.load(os.path.join(
+            tmp, "hs", f"restart.{HS_STEPS * DT:012.2f}.tarena"),
+            device=dev)[0]
+        check_finite(hs, "Held-Suarez", torch.float32)
+        loop_ms = timers["Loop"][0]
+        wp_ms, wp_n = timers["WorkflowProcess"][:2]
+        steps_ms = timers["Step"][0] * timers["Step"][1] + wp_ms * wp_n
+        results["held_suarez"] = {
+            "phase": "driver", "path": "held_suarez", "steps": HS_STEPS,
+            "cli_main_s": cli_s, "wall_ms_per_step": loop_ms / HS_STEPS,
+            "ms_per_step_steps_and_physics": steps_ms / HS_STEPS,
+            "step_timer_mean_min_max_ms": [timers["Step"][0],
+                                           timers["Step"][2],
+                                           timers["Step"][3]],
+            "checkpoint_ms": timers["Output"][0],
+            "physics_ms_per_firing": wp_ms, "physics_firings": wp_n,
+            "physics_share_of_steps_and_physics": wp_ms * wp_n / steps_ms,
+            "launches": launches["driver_held_suarez"], "card": smi}
+        emit(results["held_suarez"])
+
+    # (c) the tropical cyclone with Kessler and the simple physics
+    from tempestmodel_tpu_torch.kernels import counts
+    tc = TropicalCyclone()
+    cfg = tm.ModelConfig(
+        grid_kind=tm.GridKind.CUBED_SPHERE,
+        equation_set=tm.EquationSet.PRIMITIVE_NONHYDRO, ne=NE, order=ORDER,
+        nz=NZ, ztop=tc.ztop, dt=DT, nu_scalar=NU, nu_div=NU, nu_vort=NU,
+        vertical_solver="pallas", dtype=torch.float32)
+    t0 = time.perf_counter()
+    m = Model(cfg, tc, workflow_processes=[KesslerPhysics(0.0),
+                                           DCMIPSimplePhysics(0.0)],
+              device=dev)
+    setup_s = time.perf_counter() - t0
+    area = m.geom_dev.area3d.double()
+
+    def water(state):
+        return float((state["Tracers"].double() * area).sum())
+
+    w0 = water(m.state)
+    counts.reset_launch_counts()
+    sync(dev)
+    t0 = time.perf_counter()
+    m.go(nsteps=TC_STEPS)
+    sync(dev)
+    tc_ms = 1e3 * (time.perf_counter() - t0) / TC_STEPS
+    launches["driver_tropical_cyclone"] = dict(counts.launch_counts)
+    want = driver_counts(moist(per_step), (1,))
+    if launches["driver_tropical_cyclone"] != want:
+        raise RuntimeError(f"tropical cyclone: launch counts "
+                           f"{launches['driver_tropical_cyclone']} != {want}")
+    check_finite(m.state, "tropical cyclone", torch.float32)
+    w1 = water(m.state)
+    qmin = float(m.state["Tracers"].min())
+    if not (abs(w1 / w0 - 1.0) < 0.05 and qmin >= 0.0):
+        raise RuntimeError(f"tropical cyclone: water {w0} -> {w1}, least "
+                           f"species value {qmin}")
+    wp = m.timers.groups["WorkflowProcess"]
+    # one more firing of each physics package, timed alone
+    physics_ms = {}
+    for p in m.workflow_processes:
+        sync(dev)
+        t0 = time.perf_counter()
+        m.state = p.fire(m, m.time)
+        sync(dev)
+        physics_ms[type(p).__name__] = 1e3 * (time.perf_counter() - t0)
+    results["tropical_cyclone"] = {
+        "phase": "driver", "path": "tropical_cyclone",
+        "config": f"DCMIP2016 tropical cyclone ne{NE} p{ORDER} nz{NZ} "
+                  f"+3 tracers f32 dt{DT:g}, Kessler + simple physics",
+        "steps": TC_STEPS, "setup_s": setup_s, "ms_per_step": tc_ms,
+        "physics_ms_per_step": 1e3 * wp.total / TC_STEPS,
+        "one_firing_ms": physics_ms,
+        "total_water_before": w0, "total_water_after": w1,
+        "least_species_value": qmin,
+        "launches": launches["driver_tropical_cyclone"], "card": smi}
+    emit(results["tropical_cyclone"])
+    del m
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return results
 
 
 def replay_in_turns(variants, nsteps):
@@ -2460,7 +2768,7 @@ def main():
     check_counts("multistep path", launches["multistep"], per_step,
                  INNER_STEPS + 1)
     drift = check_state(X, "flagship, multistep")
-    ms_per_step = sorted(replay_ms)[len(replay_ms) // 2]
+    ms_per_step = replay_5a_ms = sorted(replay_ms)[len(replay_ms) // 2]
     emit({"phase": "flagship", "path": "multistep", "config": config,
           "inner_steps": INNER_STEPS, "replays": REPLAYS,
           "steps": INNER_STEPS * (REPLAYS + 1),
@@ -2609,8 +2917,13 @@ def main():
     schar_ms = schar_line(dev, smi, launches, profiles,
                           profile_path is not None)
 
-    # 5e. this slice's path: the IMEX-ARK step on the flagship grid
+    # 5e. the IMEX-ARK step on the flagship grid
     icfg = imex_line(dev, smi, cfg, geom, state, launches, profiles)
+
+    # 5f. this slice's path: the model driver and the CLI
+    t0 = time.perf_counter()
+    driver_line(dev, smi, launches, replay_5a_ms)
+    emit({"phase": "driver", "seconds": time.perf_counter() - t0})
 
     if profile_path is not None:
         os.makedirs(os.path.dirname(os.path.abspath(profile_path)),
@@ -2695,6 +3008,9 @@ def main():
                 and row["launches_imex_path"] < 1:
             raise RuntimeError(f"{name} was not launched on the IMEX path")
         row["launches_moist_path"] = launches["moist_multistep"][name]
+        row["launches_driver_path"] = launches["driver"][name]
+        row["launches_driver_tropical_cyclone"] = \
+            launches["driver_tropical_cyclone"][name]
         if moist(fused_per_step(default_merge))[name] \
                 and row["launches_moist_path"] < 1:
             raise RuntimeError(f"{name} was not launched on the moist path")

@@ -27,3 +27,26 @@ def np_dtype(dtype: torch.dtype):
     except KeyError:
         raise TypeError(f"unsupported dtype {dtype}; use torch.float32 or "
                         f"torch.float64") from None
+
+
+class OnDevice:
+    """A view of a host object (a geometry) whose numpy arrays come out as
+    tensors on one device, each copied at its first read and kept; every
+    other attribute passes through.  Functions that take a geometry accept
+    the host object or this view alike (``torch.as_tensor`` of a tensor on
+    its own device is the tensor)."""
+
+    def __init__(self, obj, device):
+        self._obj = obj
+        self.device = torch.device(device)
+        self._cache = {}
+
+    def __getattr__(self, name):
+        value = getattr(self._obj, name)
+        if not isinstance(value, np.ndarray):
+            return value
+        if name not in self._cache:
+            if not value.flags.writeable:      # a tensor may not alias it
+                value = value.copy()
+            self._cache[name] = torch.as_tensor(value, device=self.device)
+        return self._cache[name]

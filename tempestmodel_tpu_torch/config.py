@@ -15,6 +15,7 @@ from typing import Optional
 import torch
 
 from .constants import PhysicalConstants, DEFAULT_CONSTANTS
+from .utils.timeobj import parse_duration_seconds
 
 
 class EquationSet(enum.Enum):
@@ -220,5 +221,5 @@ class ModelConfig:
 
     def with_(self, **kw) -> "ModelConfig":
         if "dt" in kw:
-            kw["dt"] = float(kw["dt"])
+            kw["dt"] = parse_duration_seconds(kw["dt"])
         return dataclasses.replace(self, **kw)

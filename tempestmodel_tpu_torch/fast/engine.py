@@ -1233,14 +1233,11 @@ def _fast_fns(cfg, geom, ref_state, mesh, device, plain, fused, dss_merge,
     return first_fn, step_fn, fg
 
 
-def make_fast_multistep(cfg: ModelConfig, geom, inner_steps: int,
-                        ref_state=None, mesh=None, ntracers: int = 0,
-                        device=None, plain: bool = False, fused=None,
-                        dss_merge=None, swap_ab=None):
-    """(first_step, multi): ``multi(d, carry) -> (d, carry)`` after
-    ``inner_steps`` steps of ``make_fast_step``'s ``step``.
+def graph_runner(step, inner_steps: int):
+    """``run(d, carry) -> (d, carry)``: ``inner_steps`` calls of ``step(d,
+    carry) -> (d, carry)`` one after the other.
 
-    For CUDA tensors ``multi`` is one CUDA graph: at its first call it runs
+    For CUDA tensors ``run`` is one CUDA graph: at its first call it runs
     ``step`` once on a side stream (which builds the kernels and uploads
     every lazily made table), captures ``inner_steps`` steps from static
     input buffers into a ``torch.cuda.CUDAGraph``, and from then on each call
@@ -1248,16 +1245,14 @@ def make_fast_multistep(cfg: ModelConfig, geom, inner_steps: int,
     clones of the static outputs.  The step sizes are constants of the
     captured launches, the same on every step.  The kernels' launch counts
     (``kernels/counts``) rise while the graph is captured, not when it is
-    replayed.  For CPU tensors ``multi`` is a plain loop over ``step``; the
-    choice follows the tensors' device, and on a CUDA tensor ``multi``
-    captures or raises.  ``first_step`` stays eager.  A swapped Cartesian
-    engine swaps once around the ``inner_steps`` steps, not around each.
-    The other arguments are ``make_fast_step``'s."""
+    replayed.  For CPU tensors ``run`` is a plain loop over ``step``; the
+    choice follows the tensors' device, and on a CUDA tensor ``run``
+    captures or raises.  ``run`` keeps ``step`` (and what it closes over)
+    alive as long as the graph: a graph must not outlive the tensors its
+    launches read."""
     inner_steps = int(inner_steps)
     if inner_steps < 1:
         raise ValueError("inner_steps must be at least 1")
-    first_step, step, fg = _fast_fns(cfg, geom, ref_state, mesh, device,
-                                     plain, fused, dss_merge, swap_ab)
     captured = {}
 
     def loop(d, carry):
@@ -1295,6 +1290,22 @@ def make_fast_multistep(cfg: ModelConfig, geom, inner_steps: int,
             graph.replay()
             return tuple({k: v.clone() for k, v in o.items()} for o in outs)
 
+    return run
+
+
+def make_fast_multistep(cfg: ModelConfig, geom, inner_steps: int,
+                        ref_state=None, mesh=None, ntracers: int = 0,
+                        device=None, plain: bool = False, fused=None,
+                        dss_merge=None, swap_ab=None):
+    """(first_step, multi): ``multi(d, carry) -> (d, carry)`` after
+    ``inner_steps`` steps of ``make_fast_step``'s ``step``, one CUDA graph
+    for CUDA tensors and a plain loop for CPU tensors (``graph_runner``).
+    ``first_step`` stays eager.  A swapped Cartesian engine swaps once
+    around the ``inner_steps`` steps, not around each.  The other arguments
+    are ``make_fast_step``'s."""
+    first_step, step, fg = _fast_fns(cfg, geom, ref_state, mesh, device,
+                                     plain, fused, dss_merge, swap_ab)
+    run = graph_runner(step, inner_steps)
     if not fg.ab_swapped:
         return first_step, run
     return _natural_layout(first_step), _natural_layout(run)
@@ -1344,6 +1355,25 @@ def make_fast_imex_step(cfg: ModelConfig, geom, ref_state=None, device=None,
     absent), swaps (a, b) on a swapped Cartesian engine, runs the stages,
     swaps back and unpacks.  ``plain``, ``dss_merge`` and ``swap_ab`` mean
     what they mean in ``make_fast_step``."""
+    body, fg = _imex_body(cfg, geom, ref_state, device, plain, dss_merge,
+                          swap_ab)
+    dev = fg.inv_mult.device
+
+    def step(state):
+        d = pack_state(state, device=dev)
+        if fg.ab_swapped:
+            d = _swap_ab_state(d)
+        out = body(d)
+        if fg.ab_swapped:
+            out = _swap_ab_state(out)
+        return unpack_state(out)
+
+    return step
+
+
+def _imex_body(cfg, geom, ref_state, device, plain, dss_merge, swap_ab):
+    """``make_fast_imex_step``'s step on the engine's z-first layout,
+    ``body(d) -> d``, and the engine geometry."""
     import math
     from ..config import TimestepSchemeType
     from ..timestep.imex import _tableaux
@@ -1354,7 +1384,6 @@ def make_fast_imex_step(cfg: ModelConfig, geom, ref_state=None, device=None,
             "fast_imex_supported)")
     s = _setup(cfg, geom, ref_state, device, plain, None, dss_merge, swap_ab)
     fg, constants, dt = s.fg, cfg.constants, cfg.dt
-    dev = fg.inv_mult.device
 
     def tend(u):
         return horizontal_tendency(u, fg, constants)
@@ -1417,14 +1446,5 @@ def make_fast_imex_step(cfg: ModelConfig, geom, ref_state=None, device=None,
                     G.append(tree_map(lambda a: a * 0.0, uf))
             return tail(u)
 
-    def step(state):
-        d = pack_state(state, device=dev)
-        if fg.ab_swapped:
-            d = _swap_ab_state(d)
-        out = body(d)
-        if fg.ab_swapped:
-            out = _swap_ab_state(out)
-        return unpack_state(out)
-
-    return step
+    return body, fg
 

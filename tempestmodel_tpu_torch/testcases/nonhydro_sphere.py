@@ -1,7 +1,8 @@
 """Nonhydrostatic sphere test cases.
 
 Counterpart of the JAX package's ``testcases/nonhydro_sphere.py``; only the
-UMJS baroclinic wave is ported so far.  Fields are computed host-side in
+UMJS baroclinic wave is ported so far (with its ``apply_perturbation`` for
+``--perturb_restart``).  Fields are computed host-side in
 numpy float64; the last step builds tensors on the requested device.
 """
 
@@ -123,6 +124,34 @@ class BaroclinicWaveUMJS:
         fields = {"U": U, "V": V, "Rt": rt, "W": w, "Rho": rho}
         return {k: torch.as_tensor(np.ascontiguousarray(f, dtype=npdt),
                                    device=dev) for k, f in fields.items()}
+
+    def apply_perturbation(self, state, geom, constants):
+        """Add the exp zonal-wind perturbation to an existing state (tensors;
+        a new dict).
+
+        Analog of ``EvaluatePointwisePerturbation`` +
+        ``Grid::EvaluateTestCase_Perturbation`` (``Grid.cpp:426``,
+        ``GridPatchCSGLL.cpp:924-1040``): the pointwise perturbation is
+        *added* to the restored state (the ``--perturb_restart`` path,
+        ``Model.cpp:250-257``).
+        """
+        lon = np.asarray(geom.lon)[..., None]
+        lat = np.asarray(geom.lat)[..., None]
+        z = np.asarray(geom.z_lev)
+        dulon = self._perturbation_ulon(z, lon, lat) \
+            + np.zeros_like(z)                  # broadcast to full shape
+        nz = geom.nz
+        dU = np.zeros(dulon.shape)
+        dV = np.zeros(dulon.shape)
+        zeros = np.zeros(dulon.shape[:3])
+        for kk in range(nz):
+            dU[..., kk], dV[..., kk] = sphere_velocity_to_covariant(
+                dulon[..., kk], zeros, geom, constants)
+        out = dict(state)
+        for k, dk in (("U", dU), ("V", dV)):
+            f = state[k]
+            out[k] = f + torch.as_tensor(dk, device=f.device).to(f.dtype)
+        return out
 
     def rayleigh_strength(self, z):
         """Rayleigh damping profile (reference ``:205-221``):

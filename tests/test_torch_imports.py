@@ -6,6 +6,7 @@ import pkgutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -27,7 +28,13 @@ def test_every_module_imports_without_jax():
     for new in ("fast.stage_cuda", "fast.implicit_cuda", "kernels.stencils",
                 "kernels.synthetic", "fast.hyper_cuda", "kernels.tune_tail",
                 "fast.tracers", "testcases.dcmip2016", "grid.cartesian",
-                "testcases.nonhydro_xz", "timestep.imex"):
+                "testcases.nonhydro_xz", "timestep.imex", "model", "cli",
+                "__main__", "utils.timeobj", "utils.timers",
+                "utils.announce", "io.diagnostics", "io.latlon",
+                "io.netcdf", "io.arena", "io.output", "ops.sem",
+                "models.hyperdiff", "physics.held_suarez",
+                "physics.kessler", "physics.dcmip_simple",
+                "physics.terminator"):
         assert f"tempestmodel_tpu_torch.{new}" in names
     code = (
         "import importlib, sys\n"
@@ -57,7 +64,7 @@ def test_tf32_is_off_after_import():
     assert torch.backends.cudnn.allow_tf32 is False
 
 
-def test_entry_points_need_a_cuda_device_unless_cpu_is_named():
+def test_entry_points_need_a_cuda_device_unless_cpu_is_named(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device exists")
     from tempestmodel_tpu_torch import fast
@@ -102,3 +109,30 @@ def test_entry_points_need_a_cuda_device_unless_cpu_is_named():
     cfg_ = fast.build_fast_geometry_cartesian(cgeom, dtype=torch.float64,
                                               device="cpu")
     assert cfg_.inv_mult.device.type == "cpu" and cfg_.ab_swapped
+    # the driver, the CLI, the checkpoint loader and the DCMIP cases
+    from tempestmodel_tpu_torch import cli
+    from tempestmodel_tpu_torch.model import Model
+    from tempestmodel_tpu_torch.io.output import CompositeCheckpoint
+    from tempestmodel_tpu_torch.testcases.dcmip2016 import (
+        TropicalCyclone, Supercell)
+    mcfg = cfg.with_(equation_set=tt.EquationSet.PRIMITIVE_NONHYDRO)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Model(mcfg, tc)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["--case", "umjs", "--resolution", "2", "--levels", "4",
+                  "--nsteps", "1"])
+    m = Model(mcfg, tc, device="cpu")
+    assert m.state["U"].device.type == "cpu"
+    np_path = tmp_path / "restart.npz"
+    np.savez(np_path, state_U=np.zeros(3), time=np.float64(0.0),
+             step=np.int64(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CompositeCheckpoint.load(str(np_path))
+    state, carry, t, step = CompositeCheckpoint.load(str(np_path),
+                                                     device="cpu")
+    assert state["U"].device.type == "cpu" and carry is None
+    for case in (TropicalCyclone(), Supercell()):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            case.initial_state(geom, cfg.constants)
+    assert TropicalCyclone().initial_state(
+        geom, cfg.constants, device="cpu")["Tracers"].device.type == "cpu"
