@@ -60,7 +60,10 @@ and runs these phases, each printing one JSON line:
             one-value and 8-byte copies from unaligned inputs), each
             implicit line naming its launch shape and copy route and the
             build line the registers and spills of every instantiation of
-            the implicit kernel;
+            the implicit kernel; and ``fused_stage`` over a real mountain
+            (``MountainRossby3D``'s metric at the flagship shape, the
+            geometry built in float64) in its separable and its full 3-D
+            form, float32 and float64, timed beside the flagship line;
 4. slice    the Strang-HEVI step at small size in float64 on the card three
             ways — fused kernel path, unfused kernel path, plain path — each
             pair to 1e-11 relative per field, and ``make_fast_multistep``
@@ -72,7 +75,11 @@ and runs these phases, each printing one JSON line:
             (``make_fast_imex_step``, 2 steps, float64) kernel path against
             plain path to 1e-11: ne4 nz8 with ARS343 and GARK2, each with
             the DSS as ``dss_state`` and as the default grouping, and the
-            Schar slice (ARS343, its sponge on) in both layouts;
+            Schar slice (ARS343, its sponge on) in both layouts; then
+            terrain: ``MountainRossby3D``, ``ScharMountainSphere`` (X=500)
+            and JW at ne4 nz8 and the shear jet over its mountain (nex 8
+            nz 8, both layouts), kernel path against plain path to 1e-11
+            and a 3-step graph replay bit for bit the eager steps;
 5. flagship the main paths at full width: UMJS baroclinic wave, ne30 p4
             nz30 float32: ``make_fast_multistep`` (``first_step``, then
             replays of a 10-step CUDA graph), the eager fused path of
@@ -102,7 +109,16 @@ and runs these phases, each printing one JSON line:
             output timed; the Held-Suarez case (20 steps, the physics
             every step) and the DCMIP2016 tropical cyclone with Kessler and
             the simple physics (10 steps; water within 5 %, no species
-            negative), each with its launch counts;
+            negative), each with its launch counts; then (5g) the
+            flagship grid over a mountain: ``MountainRossby3D`` (ne30 p4
+            L30 f32, its 2 km mountain, Rayleigh layer, nu4) through
+            ``make_fast_multistep`` (a 10-step graph, 4 timed replays; then
+            in turns beside the same graph over the float64-built geometry
+            and the flat flagship with its Rayleigh layer), eagerly (1 + 5)
+            and ``Model.go`` (20 steps, no hooks): the path predicates held
+            to the JAX package's, the launches a step exact, device busy
+            and launches a step (``utils.devprof``), the largest terrain
+            term, max |U - U0| and the change of the total Rho mass;
 6. dss      the step with the tail's DSS as four launches or as
             ``dss_state`` and the stages' Rt/Rho as two launches or as
             ``dss_scalar2``, eagerly and under graph replay, in turns; the
@@ -111,7 +127,8 @@ and runs these phases, each printing one JSON line:
             full-state DSS);
 7. kernels  one line listing every kernel with its time, bound, plain
             version's time and launches on the flagship runs, its launches
-            on the IMEX and the Schar paths, and its Cartesian figures.
+            on the IMEX, the Schar and the terrain paths, and its Cartesian
+            figures.
 
 With ``--profile PATH`` it also traces steps of each flagship path, of the
 moist replay and of the Schar paths with torch.profiler and writes the
@@ -168,6 +185,17 @@ DRIVER_ARGV = ["--case", "umjs_pert", "--resolution", str(NE), "--levels",
                "--output_format", "nc",
                "--output_restart_dt", f"{DRIVER_EVERY * DT:g}s"]
 HS_STEPS, TC_STEPS = 20, 10
+# the terrain cell (phase 5g): MountainRossby3D on the flagship grid
+TERRAIN_STEPS = 20          # Model.go without hooks
+# the JAX package's path predicates for that configuration, whose geometry
+# the entry points build in float32: over a mountain a float32 geometry
+# fails the Gal-Chen factorization's 1e-10 residual test (the stage then
+# takes its full 3-D metric form), and the z-constant Jacobian keeps the nu4
+# kernels (the JAX package's host geometry at ne30 L30; the port's
+# predicates equal JAX's for every sphere case, tests/test_torch_testcases.py)
+TERRAIN_PATH = {"sep_ok": False, "stage": True, "nu4": True}
+# the seeded W (covariant) of the Schar and JW starts of phase 4
+W_SEEDED = 1.0e4
 KERNELS = ("dss_scalar", "dss_vector", "banded_solve", "dss_uvw",
            "fused_stage", "nu4_pass1", "nu4_pass2", "fused_implicit_update",
            "dss_state", "dss_scalar2", "banded_solve_multi")
@@ -485,6 +513,8 @@ def check_fused_kernels(cfg, geom, state, dtype, rows, dev):
                "bound_ms": bnd, "bound_by": by, "library_ms": None}
         emit({"phase": "kernel", "dtype": tag, "tol": stage_tol, **row,
               **stage_report(base, ue, fgt, sst, tag)})
+        if name == "fused_stage":
+            rows.setdefault("fused_stage_ms", {})[tag] = ms
         if f32:
             rows[name] = row
 
@@ -2565,6 +2595,444 @@ def schar_line(dev, smi, launches, profiles, profile):
     return result
 
 
+# ---------------------------------------------------------------------------
+# terrain on the cubed sphere and the shear jet over a mountain
+# ---------------------------------------------------------------------------
+
+def terrain_setup(name, dtype, ne, nz, dev=None):
+    """(test case, cfg, geom[, start, reference]) of a sphere case over a
+    mountain, with the case's own ztop and constants, its topography
+    ``topography(lon, lat, c)`` handed to the geometry as a lambda (as the
+    JAX package's tests do) and its Rayleigh layer: ``"rossby"``
+    (``MountainRossby3D``: 2 km mountain at 30N, Rayleigh, nu4; dt 100 s on
+    the flagship grid, 200 s below it), ``"schar"``
+    (``ScharMountainSphere`` on the X=500 planet: Rayleigh, no
+    hyperdiffusion, dt 0.4 s) or ``"jw"`` (``BaroclinicWaveJW`` with its
+    perturbation: the surface geopotential, nu4, dt 200 s).  The geometry is
+    built in ``dtype``.  With ``dev`` also the start (Schar and JW with the
+    seeded W of ``tests/test_torch_terrain_sphere.py``: from rest the
+    implicit Jacobian's upwind sign is that of roundoff there) and the
+    reference state where the case damps."""
+    import tempestmodel_tpu_torch as tm
+    from tempestmodel_tpu_torch.models import nh_model
+    from tempestmodel_tpu_torch.testcases import nonhydro_sphere as nsp
+    tc, dt, hyper, ray = {
+        "rossby": (nsp.MountainRossby3D(), DT if ne == NE else 200.0, True,
+                   True),
+        "schar": (nsp.ScharMountainSphere(), 0.4, False, True),
+        "jw": (nsp.BaroclinicWaveJW(pert="exp"), 200.0, True, False)}[name]
+    c = tc.constants(tm.PhysicalConstants()) if hasattr(tc, "constants") \
+        else tm.PhysicalConstants()
+    cfg = tm.ModelConfig(
+        grid_kind=tm.GridKind.CUBED_SPHERE,
+        equation_set=tm.EquationSet.PRIMITIVE_NONHYDRO, ne=ne, order=ORDER,
+        nz=nz, ztop=tc.ztop, dt=dt, constants=c, hyperdiffusion=hyper,
+        nu_scalar=NU, nu_div=NU, nu_vort=NU, rayleigh_damping=ray,
+        vertical_solver="pallas", dtype=dtype)
+    geom = nh_model.build_nh_sphere_geometry(
+        cfg, ztop=tc.ztop,
+        topography=lambda lon, lat: tc.topography(lon, lat, c),
+        rayleigh=tc.rayleigh_strength if ray else None)
+    if dev is None:
+        return tc, cfg, geom
+    state = tc.initial_state(geom, c, dtype=dtype, device=dev)
+    if name != "rossby":
+        w = W_SEEDED * np.random.default_rng(7).standard_normal(
+            tuple(state["W"].shape))
+        w[..., 0] = w[..., -1] = 0.0
+        state["W"] = torch.as_tensor(w, device=dev).to(dtype)
+    ref = tc.reference_state(geom, c, dtype=dtype, device=dev) \
+        if ray else None
+    return tc, cfg, geom, state, ref
+
+
+def terrain_terms(fg):
+    """The largest terrain term of a fast geometry's metric: |dZs/da| and
+    |dZs/db| through ``deriv_r_a/b``, and the contravariant
+    ``con_a_xi`` / ``con_b_xi`` (the separable factors where they hold)."""
+    names = (("sep_da", "sep_db", "sep_ca", "sep_cb") if fg.sep_ok
+             else ("deriv_r_a", "deriv_r_b", "con_a_xi", "con_b_xi"))
+    return {k: float(getattr(fg, k).abs().max()) for k in names}
+
+
+def check_terrain_stage(dev, rows):
+    """Phase 3, terrain: ``fused_stage`` at the flagship shape over a real
+    mountain, ``MountainRossby3D``'s metric at ne30 p4 L30 (the geometry
+    built in float64, so its Gal-Chen factorization holds and the
+    separable fields are real; the fast geometry cast to each dtype),
+    against the plain version in float32 and float64 (phase 3's
+    tolerances), in the separable form and in the full 3-D form (the form
+    a float32 geometry takes on the main path, phase 5g), one base and two,
+    each timed beside phase 3's flagship line (the flat grid with a
+    synthetic separable metric).  Returns the float64 host geometry."""
+    import dataclasses
+    from tempestmodel_tpu_torch import fast
+    from tempestmodel_tpu_torch.fast import stage_cuda
+    from tempestmodel_tpu_torch.kernels import synthetic
+    from tempestmodel_tpu_torch.kernels.timing import time_cuda
+    t0 = time.perf_counter()
+    _, cfg, geom = terrain_setup("rossby", torch.float64, NE, NZ)
+    consts = cfg.constants
+    setup_s = time.perf_counter() - t0
+    for dtype in (torch.float64, torch.float32):
+        tag = "f32" if dtype == torch.float32 else "f64"
+        tol = 1e-4 if dtype == torch.float32 else 1e-11
+        fg = fast.build_fast_geometry(geom, dtype=dtype, device=dev)
+        terms = terrain_terms(fg)
+        if not fg.sep_ok or not min(terms.values()) > 0.0:
+            raise RuntimeError(f"terrain stage {tag}: the Rossby metric is "
+                               f"not separable with terrain terms {terms}")
+        ue, b1, b2 = (synthetic.random_state(fg, seed) for seed in (1, 2, 3))
+        two = ((0.3, b1), (0.7, b2))
+        line = {"phase": "kernel", "name": "fused_stage_terrain",
+                "dtype": tag, "tol": tol,
+                "config": f"MountainRossby3D ne{NE} p{ORDER} nz{NZ}, the "
+                          f"geometry built in f64", "terrain_terms": terms,
+                "host_geometry_s": setup_s,
+                "flat_flagship_ms": rows["fused_stage_ms"][tag]}
+        for form, g in (("separable", fg),
+                        ("full3d", dataclasses.replace(fg, sep_ok=False))):
+            st = stage_cuda.stage_statics(g)
+            if st.use_sep != (form == "separable"):
+                raise RuntimeError(f"terrain stage: statics chose the wrong "
+                                   f"metric form for {form}")
+            err = 0.0
+            for base in (b1, two):
+                got, gwf = stage_cuda.fused_stage(base, ue, 12.5, g, consts,
+                                                  defer_w=True, statics=st)
+                torch.cuda.synchronize()
+                want, wwf = stage_cuda.fused_stage_plain(
+                    base, ue, 12.5, g, consts, defer_w=True)
+                err = max(err, max_rel_err(
+                    [got[k] for k in stage_cuda.STATE4] + [gwf["dW"]],
+                    [want[k] for k in stage_cuda.STATE4] + [wwf["dW"]]))
+            if not err <= tol:
+                raise RuntimeError(f"fused_stage over the mountain, {tag} "
+                                   f"{form}: rel err {err} > {tol}")
+            tb, c1, x1, c2, x2 = stage_cuda._split_base(b1)
+            ms = time_cuda(lambda: stage_cuda._fused_stage_cuda(
+                tb, c1, x1, c2, x2, ue, 12.5, g, consts, st), [()], reps=20,
+                queued=True)
+            # reads: 4 level + 1 interface evaluation fields, 4 base
+            # fields, the 2-D metric (12 fields separable, 5 else), the 3-D
+            # metric (6 level and 3 interface fields, 3-D form only) and
+            # the table; writes 5 level fields
+            K, P, A = g.nz, 6, g.A
+            nlev, nint, n2d = K * P * A * A, (K + 1) * P * A * A, P * A * A
+            esize = torch.empty((), dtype=dtype).element_size()
+            n3d = 0 if form == "separable" else 6 * nlev + 3 * nint
+            nb = ((4 + 4 + 5) * nlev + nint + st.m2d.numel() + n3d
+                  + st.tab.numel()) * esize
+            bnd, by = bound_ms(nb, 400 * nlev, dtype)
+            line[form] = {"max_abs_err": err, "ms": ms, "bound_ms": bnd,
+                          "bound_by": by,
+                          "launch": stage_cuda.launch_config(b1, ue, g, st)}
+            if dtype == torch.float32:
+                rows["fused_stage"][f"ms_terrain_{form}"] = ms
+        emit(line)
+        del fg, ue, b1, b2, two
+    torch.cuda.empty_cache()
+    return geom
+
+
+def check_terrain_slice(dev):
+    """Phase 4, terrain: 3 steps in float64 on the card over a mountain,
+    ``MountainRossby3D``, ``ScharMountainSphere`` (X=500) and JW at ne4 p4
+    nz8 (the geometry in float64: the separable metric with its terrain
+    terms) and ``ShearJetMountainWave`` at nex 8 nz 8 in both layouts: the
+    kernel path against the plain path to 1e-11 per field (x-z: U and V
+    against their common scale), then ``make_fast_multistep(3)`` against
+    ``first_step`` + 3 eager steps, bit for bit.  The launched kernels are
+    those of the fused path (no nu4 where the case has no hyperdiffusion or
+    the x-z terrain makes the Jacobian vary in z)."""
+    import tempestmodel_tpu_torch as tm
+    from tempestmodel_tpu_torch import fast
+    from tempestmodel_tpu_torch.kernels import counts
+    from tempestmodel_tpu_torch.models import nh_model
+    from tempestmodel_tpu_torch.testcases import nonhydro_xz
+    merge = tuple(fast.engine.DSS_MERGE_DEFAULT)
+    cases = [(n, None) for n in ("rossby", "schar", "jw")] + [
+        ("shear_jet", True), ("shear_jet", False)]
+
+    def compare_sphere(got, want):
+        return {k: rel_err(got[k], want[k]) for k in want}
+
+    for name, swap in cases:
+        if name == "shear_jet":
+            tc = nonhydro_xz.ShearJetMountainWave()
+            cfg = tm.ModelConfig(
+                grid_kind=tm.GridKind.CARTESIAN_XZ, nex=8, ney=1,
+                order=ORDER, nz=8, x_extent=tc.x_extent,
+                y_extent=tc.y_extent, ztop=tc.ztop, dt=1.0,
+                hyperdiffusion=True, nu_scalar=SCHAR_NU, nu_div=SCHAR_NU,
+                nu_vort=SCHAR_NU, rayleigh_damping=True,
+                vertical_solver="pallas", dtype=torch.float64)
+            geom = nh_model.build_nh_cartesian_geometry(
+                cfg, ztop=tc.ztop, topography=tc.topography,
+                rayleigh=tc.rayleigh_strength)
+            state = tc.initial_state(geom, cfg.constants, device=dev)
+            ref = tc.reference_state(geom, cfg.constants, device=dev)
+            what = ("ShearJetMountainWave nex8 nz8 f64, "
+                    + ("swapped" if swap else "natural"))
+            compare = compare_xz
+        else:
+            _, cfg, geom, state, ref = terrain_setup(name, torch.float64, 4,
+                                                     8, dev)
+            what = f"{name} ne4 p4 nz8 f64"
+            compare = compare_sphere
+        X0 = fast.pack_state(state, device=dev)
+        # no nu4 kernels where the x-z terrain makes the Jacobian vary in
+        # z; no tail at all (so no dss_state) without hyperdiffusion
+        skip = {"rossby": (), "jw": (), "shear_jet": ("nu4_pass1",
+                                                     "nu4_pass2"),
+                "schar": ("nu4_pass1", "nu4_pass2", "dss_state")}[name]
+        want = {k for k, v in fused_per_step(merge).items()
+                if v and k not in skip}
+        outs = {}
+        for path, kw in (("kernels", {}), ("plain", {"plain": True})):
+            counts.reset_launch_counts()
+            first, step = fast.make_fast_step(cfg, geom, ref_state=ref,
+                                              device=dev, swap_ab=swap, **kw)
+            X, c = first(X0)
+            for _ in range(2):
+                X, c = step(X, c)
+            torch.cuda.synchronize()
+            outs[path] = X
+            launched = {k for k, v in counts.launch_counts.items() if v}
+            if launched != (want if path == "kernels" else set()):
+                raise RuntimeError(f"{what}, {path} path launched "
+                                   f"{launched}, expected {want}")
+        errs = compare(outs["kernels"], outs["plain"])
+        first, step = fast.make_fast_step(cfg, geom, ref_state=ref,
+                                          device=dev, swap_ab=swap)
+        X1, c1 = first(X0)
+        E, ce = X1, c1
+        for _ in range(3):
+            E, ce = step(E, ce)
+        _, multi = fast.make_fast_multistep(cfg, geom, 3, ref_state=ref,
+                                            device=dev, swap_ab=swap)
+        G, cg = multi(X1, c1)             # captures, then replays
+        G2, cg2 = multi(X1, c1)           # a pure replay
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(G[k], E[k]) and torch.equal(G2[k], E[k])
+                      for k in E) and all(torch.equal(cg2[k], ce[k])
+                                          for k in ce)
+        finite = all(bool(torch.isfinite(v).all())
+                     for v in outs["kernels"].values())
+        emit({"phase": "terrain_slice", "config": what + ", 3 steps",
+              "kernels_vs_plain": errs, "tol": 1e-11,
+              "graph_replay_bitwise_eager": bitwise, "finite": finite})
+        if not (max(errs.values()) < 1e-11 and bitwise and finite):
+            raise RuntimeError(f"{what}: paths disagree {errs}, replay "
+                               f"bitwise {bitwise}, finite {finite}")
+
+
+def terrain_line(dev, smi, launches, geom64, flat_cfg):
+    """Phase 5g: the flagship grid over a mountain, ``MountainRossby3D`` at
+    ne30 p4 L30 f32 (its 2 km Gaussian mountain at 30N, ztop 30 km, its
+    Rayleigh layer, nu 1e15, dt 100 s), through the entry points a user
+    calls: ``make_fast_multistep`` (a 10-step graph, 4 timed replays),
+    eager fused steps (1 + 5) and ``Model(...).go`` for 20 steps without
+    hooks.  The geometry is built as those entry points build it, in
+    float32: the path predicates must give what the JAX package's give for
+    this configuration (``TERRAIN_PATH``).  Each run starts with the counts
+    at 0 and is held to the dry path's launches per step exactly.  Then, in
+    turns, that replay beside the same graph over the float64-built
+    geometry (the separable form, ``geom64`` of phase 3) and the flat
+    flagship with its Rayleigh layer (``flat_cfg`` with it: UMJS, the
+    configuration of phase 5f's direct replay).  Prints ms/step, device
+    busy and device launches a step (``utils.devprof``), peak memory, the
+    largest terrain term, max |U - U0| and the relative change of the total
+    Rho mass."""
+    from tempestmodel_tpu_torch import fast
+    from tempestmodel_tpu_torch.fast import hyper_cuda, stage_cuda
+    from tempestmodel_tpu_torch.kernels import counts
+    from tempestmodel_tpu_torch.model import Model
+    from tempestmodel_tpu_torch.models import nh_model
+    from tempestmodel_tpu_torch.testcases.nonhydro_sphere import (
+        BaroclinicWaveUMJS)
+    from tempestmodel_tpu_torch.utils import devprof
+    merge = tuple(fast.engine.DSS_MERGE_DEFAULT)
+    per_step = fused_per_step(merge)
+    t0 = time.perf_counter()
+    tc, cfg, geom, state, ref = terrain_setup("rossby", torch.float32, NE,
+                                              NZ, dev)
+    setup_s = time.perf_counter() - t0
+    config = (f"MountainRossby3D ne{NE} p{ORDER} nz{NZ} f32 dt{DT:g} "
+              f"nu{NU:g}, Rayleigh, ztop {tc.ztop:g}")
+    fg = fast.build_fast_geometry(geom, dtype=cfg.dtype, device=dev)
+    path = {"sep_ok": bool(fg.sep_ok),
+            "stage": bool(stage_cuda.stage_supported(fg)),
+            "nu4": bool(hyper_cuda.supported(fg, cfg))}
+    if path != TERRAIN_PATH:
+        raise RuntimeError(f"terrain: path predicates {path} != the JAX "
+                           f"package's {TERRAIN_PATH}")
+    terms = terrain_terms(fg)
+    if not min(terms.values()) > 0.0:
+        raise RuntimeError(f"terrain: a terrain term is zero {terms}")
+    del fg
+    X0 = fast.pack_state(state, device=dev)
+    area = torch.as_tensor(np.ascontiguousarray(np.moveaxis(
+        np.asarray(geom.area3d, np.float64), -1, 0)), device=dev)
+
+    def mass(X):
+        return float((X["Rho"].double() * area).sum())
+
+    mass0 = mass(X0)
+
+    def check(X, what):
+        check_finite(X, what, torch.float32)
+        du = float((X["U"] - X0["U"]).abs().max())
+        dmass = mass(X) / mass0 - 1.0
+        if not (abs(dmass) < 1e-4 and
+                rel_err(X["Rho"], X0["Rho"]) < 1e-2):
+            raise RuntimeError(f"{what}: Rho mass changed by {dmass}")
+        return {"max_abs_U_minus_U0": du, "rho_mass_rel_change": dmass}
+
+    def check_counts(what, got, nsteps):
+        want = {k: v * (nsteps + 1) for k, v in per_step.items()}
+        for k in IMPLICIT_SOLVES:
+            want[k] += 1 if per_step[k] else 0
+        if got != want:
+            raise RuntimeError(f"{what}: launch counts {got} != expected "
+                               f"{want}")
+
+    # make_fast_multistep: a 10-step graph, 4 timed replays
+    first_step, multi = fast.make_fast_multistep(cfg, geom, INNER_STEPS,
+                                                 ref_state=ref, device=dev)
+    counts.reset_launch_counts()
+    # what earlier phases still hold counts in the peak: report it beside
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    X, carry = first_step(X0)
+    X, carry = multi(X, carry)          # warm-up step, capture, first replay
+    torch.cuda.synchronize()
+    launches["terrain"] = dict(counts.launch_counts)
+    check_counts("terrain multistep", launches["terrain"], INNER_STEPS + 1)
+    replay_ms = []
+    for _ in range(REPLAYS):
+        torch.cuda.synchronize()
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        X, carry = multi(X, carry)
+        ev1.record()
+        torch.cuda.synchronize()
+        replay_ms.append(ev0.elapsed_time(ev1) / INNER_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    busy_ms, nkern = devprof.device_time_ms(multi, X, carry)
+    X, carry = multi(X, carry)
+    ms = sorted(replay_ms)[len(replay_ms) // 2]
+    emit({"phase": "terrain", "path": "multistep", "config": config,
+          "path_predicates": path, "path_predicates_jax": TERRAIN_PATH,
+          "largest_terrain_terms": terms, "host_setup_s": setup_s,
+          "inner_steps": INNER_STEPS, "replays": REPLAYS,
+          "steps": 1 + INNER_STEPS * (REPLAYS + 2),
+          "ms_per_step": ms, "ms_per_step_each_replay": replay_ms,
+          "gridpoint_steps_per_s": 6 * (NE * ORDER) ** 2 * NZ / (ms * 1e-3),
+          "device_busy_ms_per_step": busy_ms / INNER_STEPS,
+          "device_launches_per_step": nkern / INNER_STEPS,
+          "launches": launches["terrain"], "launches_per_step": per_step,
+          "launches_counted": "at capture (first_step + 1 warm-up step + "
+                              f"{INNER_STEPS} captured steps), not at replay",
+          **check(X, "terrain multistep"), "peak_device_GiB": peak,
+          "allocated_before_the_run_GiB": held, "card": smi})
+
+    # the same graph over the float64-built geometry (separable form), and
+    # the flat flagship with its Rayleigh layer, timed in turns
+    variants = {"terrain": {"replay": lambda s: multi(*s),
+                            "state": (X, carry), "ms": []}}
+    first64, multi64 = fast.make_fast_multistep(cfg, geom64, INNER_STEPS,
+                                                ref_state=ref, device=dev)
+    variants["terrain_separable"] = {"replay": lambda s: multi64(*s),
+                                     "state": first64(X0), "ms": []}
+    umjs = BaroclinicWaveUMJS(pert="exp", rayleigh=True)
+    fcfg = flat_cfg.with_(rayleigh_damping=True)
+    flat_geom = nh_model.build_nh_sphere_geometry(
+        fcfg, ztop=umjs.ztop, rayleigh=umjs.rayleigh_strength)
+    fref = umjs.reference_state(flat_geom, fcfg.constants, dtype=fcfg.dtype,
+                                device=dev)
+    ffirst, fmulti = fast.make_fast_multistep(fcfg, flat_geom, INNER_STEPS,
+                                              ref_state=fref, device=dev)
+    variants["flat_rayleigh"] = {"replay": lambda s: fmulti(*s),
+                                 "state": ffirst(fast.pack_state(
+                                     umjs.initial_state(
+                                         flat_geom, fcfg.constants,
+                                         dtype=fcfg.dtype, device=dev),
+                                     device=dev)), "ms": []}
+    replay_in_turns(variants, INNER_STEPS)
+    check(variants["terrain_separable"]["state"][0], "terrain separable")
+    emit({"phase": "terrain", "path": "multistep in turns",
+          "order": "forward then backward, one replay each",
+          "ms_per_step": {k: v["ms"] for k, v in variants.items()},
+          "note": "terrain: the geometry built in f32 as the entry points "
+                  "build it (the 3-D metric form); terrain_separable: built "
+                  "in f64, the fast geometry cast to f32 (the separable "
+                  "form); flat_rayleigh: UMJS with its Rayleigh layer",
+          "card": smi})
+    del variants, first_step, multi, first64, multi64, ffirst, fmulti, X
+    del carry, flat_geom
+    torch.cuda.empty_cache()
+
+    # eager fused steps: first_step and 5 steps
+    first_step, step = fast.make_fast_step(cfg, geom, ref_state=ref,
+                                           device=dev)
+    Xw, cw = step(*first_step(X0))      # warm-up outside the counted run
+    torch.cuda.synchronize()
+    del Xw, cw
+    counts.reset_launch_counts()
+    torch.cuda.synchronize()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    X, carry = first_step(X0)
+    ev0.record()
+    for _ in range(FLAGSHIP_STEPS):
+        X, carry = step(X, carry)
+    ev1.record()
+    torch.cuda.synchronize()
+    launches["terrain_eager"] = dict(counts.launch_counts)
+    check_counts("terrain eager", launches["terrain_eager"], FLAGSHIP_STEPS)
+    emit({"phase": "terrain", "path": "fused", "config": config,
+          "steps": FLAGSHIP_STEPS,
+          "ms_per_step": ev0.elapsed_time(ev1) / FLAGSHIP_STEPS,
+          "launches": launches["terrain_eager"],
+          **check(X, "terrain eager"), "card": smi})
+    del first_step, step, X, carry
+
+    # Model.go, 20 steps without hooks
+    t0 = time.perf_counter()
+    m = Model(cfg, tc, topography=lambda lon, lat: tc.topography(
+        lon, lat, cfg.constants), rayleigh=tc.rayleigh_strength, device=dev)
+    setup_s = time.perf_counter() - t0
+    counts.reset_launch_counts()
+    sync(dev)
+    t0 = time.perf_counter()
+    m.go(nsteps=TERRAIN_STEPS)
+    sync(dev)
+    go_ms = 1e3 * (time.perf_counter() - t0) / TERRAIN_STEPS
+    launches["terrain_model"] = dict(counts.launch_counts)
+    want = driver_counts(per_step, (TERRAIN_STEPS - 1,))
+    if launches["terrain_model"] != want:
+        raise RuntimeError(f"terrain Model.go: launch counts "
+                           f"{launches['terrain_model']} != {want}")
+    Xm = fast.pack_state(m.state, device=dev)
+    drift = check(Xm, "terrain Model")
+    # a second go of 19 steps replays the graph the first one captured
+    sync(dev)
+    t0 = time.perf_counter()
+    m.go(nsteps=TERRAIN_STEPS - 1)
+    sync(dev)
+    again_ms = 1e3 * (time.perf_counter() - t0) / (TERRAIN_STEPS - 1)
+    check(fast.pack_state(m.state, device=dev), "terrain Model, again")
+    emit({"phase": "terrain", "path": "model_go", "config": config,
+          "steps": TERRAIN_STEPS, "setup_s": setup_s,
+          "ms_per_step_with_first_step_and_capture": go_ms,
+          "ms_per_step_second_go_replay": again_ms,
+          "launches": launches["terrain_model"], **drift, "card": smi})
+    del m, Xm
+    torch.cuda.empty_cache()
+
+
 def profile_steps(step, X, carry, ncalls, path_name, steps_per_call=1):
     """Optional (``--profile PATH``): device time by kernel over ``ncalls``
     steady calls of ``step`` (each ``steps_per_call`` model steps: 1 for an
@@ -2691,12 +3159,14 @@ def main():
     # 3. kernels against their plain versions -----------------------------
     rows = check_kernels(fg, cfg, geom, state, dev)
     del fg
+    geom64 = check_terrain_stage(dev, rows)
 
     # 4. the slice at small size, three ways, dry and with tracers --------
     check_slice(dev)
     check_slice(dev, with_tracers=True)
     cart_launches = check_cartesian_slice(dev)
     check_imex_slice(dev)
+    check_terrain_slice(dev)
 
     # 5. the main paths at full width -------------------------------------
     X0 = fast.pack_state(state, device=dev)
@@ -2925,6 +3395,12 @@ def main():
     driver_line(dev, smi, launches, replay_5a_ms)
     emit({"phase": "driver", "seconds": time.perf_counter() - t0})
 
+    # 5g. this slice's path: the flagship grid over a mountain
+    t0 = time.perf_counter()
+    terrain_line(dev, smi, launches, geom64, cfg)
+    del geom64
+    emit({"phase": "terrain", "seconds": time.perf_counter() - t0})
+
     if profile_path is not None:
         os.makedirs(os.path.dirname(os.path.abspath(profile_path)),
                     exist_ok=True)
@@ -3011,6 +3487,11 @@ def main():
         row["launches_driver_path"] = launches["driver"][name]
         row["launches_driver_tropical_cyclone"] = \
             launches["driver_tropical_cyclone"][name]
+        row["launches_terrain_path"] = launches["terrain"][name]
+        if fused_per_step(default_merge)[name] \
+                and row["launches_terrain_path"] < 1:
+            raise RuntimeError(f"{name} was not launched on the terrain "
+                               f"path")
         if moist(fused_per_step(default_merge))[name] \
                 and row["launches_moist_path"] < 1:
             raise RuntimeError(f"{name} was not launched on the moist path")

@@ -11,11 +11,11 @@ standard flags, plus ``--device`` (default ``cuda``)::
         --checksum_dt 2000s --output_dir out --output_dt 2000s \
         --output_format nc --output_restart_dt 2000s
 
-Cases: schar, inertia_gravity, umjs, umjs_pert, held_suarez.  The
-shallow-water cases (sw_tc2, sw_tc5, sw_rh4, sw_galewsky) and the no-flux
-x-z cases (thermal_bubble, density_current) need engines that are not
-ported yet and raise ``NotImplementedError``.  Without ``--fp32`` the run
-is float64, as in the JAX package's CLI.
+Cases: thermal_bubble, schar, inertia_gravity (periodic x-z slices), umjs,
+umjs_pert, held_suarez.  The shallow-water cases (sw_tc2, sw_tc5, sw_rh4,
+sw_galewsky) and the no-flux x-z case (density_current) need engines that
+are not ported yet and raise ``NotImplementedError``.  Without ``--fp32``
+the run is float64, as in the JAX package's CLI.
 """
 
 from __future__ import annotations
@@ -34,7 +34,6 @@ from .utils.timeobj import parse_duration_seconds
 _NOT_PORTED = {
     "sw_tc2": "shallow water", "sw_tc5": "shallow water",
     "sw_rh4": "shallow water", "sw_galewsky": "shallow water",
-    "thermal_bubble": "no-flux lateral boundaries",
     "density_current": "no-flux lateral boundaries",
 }
 
@@ -49,7 +48,9 @@ def _build_case(name: str, args):
         raise NotImplementedError(
             f"case {name!r} needs {_NOT_PORTED[name]}, which is not ported "
             f"yet (ROADMAP queue 1 item 2)")
-    if name == "schar":
+    if name == "thermal_bubble":
+        tc = nxz.ThermalBubble()
+    elif name == "schar":
         tc = nxz.ScharMountain()
     elif name == "inertia_gravity":
         tc = nxz.InertiaGravityWave()

@@ -34,7 +34,9 @@ def test_every_module_imports_without_jax():
                 "io.netcdf", "io.arena", "io.output", "ops.sem",
                 "models.hyperdiff", "physics.held_suarez",
                 "physics.kessler", "physics.dcmip_simple",
-                "physics.terminator"):
+                "physics.terminator", "utils.preferences",
+                "utils.mountain_waves", "utils.devprof", "utils.postprocess",
+                "ops.spacing", "ops.flux_correction"):
         assert f"tempestmodel_tpu_torch.{new}" in names
     code = (
         "import importlib, sys\n"

@@ -343,8 +343,20 @@ def test_cli_runs_the_schar_mountain_waves(capsys):
     assert capsys.readouterr().out.count("..Checksums") == 2
 
 
-@pytest.mark.parametrize("case", ["sw_tc2", "sw_galewsky", "thermal_bubble",
-                                  "density_current"])
+def test_cli_runs_the_thermal_bubble(capsys):
+    """The thermal bubble's grid is periodic (its test case sets no
+    ``bc_x``), so it runs on the z-first engine, as in the JAX package."""
+    rc = t_cli.main(["--case", "thermal_bubble", "--resolution", "4",
+                     "--levels", "8", "--dt", "0.05s", "--nsteps", "2",
+                     "--vmethod", "V2", "--nohypervis", "--checksum_dt",
+                     "0.05s", "--device", "cpu"])
+    assert rc == 0
+    lines = [l for l in capsys.readouterr().out.splitlines()
+             if "..Checksums" in l]
+    assert len(lines) == 3 and all("nan" not in l for l in lines)
+
+
+@pytest.mark.parametrize("case", ["sw_tc2", "sw_galewsky", "density_current"])
 def test_cli_cases_that_need_unported_engines_raise(case):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 2"):
         t_cli.main(["--case", case, "--nsteps", "1", "--device", "cpu"])
