@@ -47,7 +47,10 @@ and runs these phases, each printing one JSON line:
             columns, unaligned inputs, blocks of 32, 16 and 8 columns,
             fewer rows than slots, tiny and huge pivots, the tile and
             stream forms), each line naming its form, columns, ring or
-            tile, copy route; the build line also gives the registers and
+            tile, copy route; both above q 8 at the cases of
+            ``banded_edges.HIGHQ_CASES`` (q 9-22: the template forms at q
+            10 and 16, the wide form else) and timed at q 10, 16 and the
+            tracers' q 9 on the flagship's columns; the build line also gives the registers and
             spills of every instantiation of the band DSS kernel and of
             ``csrc/banded_multi.cu``); then what
             periodic Cartesian grids reach: the five DSS kernels with the
@@ -63,7 +66,12 @@ and runs these phases, each printing one JSON line:
             the implicit kernel; and ``fused_stage`` over a real mountain
             (``MountainRossby3D``'s metric at the flagship shape, the
             geometry built in float64) in its separable and its full 3-D
-            form, float32 and float64, timed beside the flagship line;
+            form, float32 and float64, timed beside the flagship line; and
+            the five DSS modes with the no-flux walls' halo (a halo's wall
+            rows and the zero halo; ``dss_state`` with its Rayleigh finish
+            and pre-finish wall rows) at the density current's shapes in
+            both layouts and the channel's, bit for bit their plain forms,
+            timed with and without the walls;
 4. slice    the Strang-HEVI step at small size in float64 on the card three
             ways — fused kernel path, unfused kernel path, plain path — each
             pair to 1e-11 relative per field, and ``make_fast_multistep``
@@ -79,7 +87,11 @@ and runs these phases, each printing one JSON line:
             terrain: ``MountainRossby3D``, ``ScharMountainSphere`` (X=500)
             and JW at ne4 nz8 and the shear jet over its mountain (nex 8
             nz 8, both layouts), kernel path against plain path to 1e-11
-            and a 3-step graph replay bit for bit the eager steps;
+            and a 3-step graph replay bit for bit the eager steps; then the
+            no-flux grids (the density current at nex 8 nz 16 in both
+            layouts and unfused, the channel at nex 4 ney 2 with nu4) and
+            UMJS at ne4 with vertical order 2 (q 10) and ``"pallas"``,
+            kernel path against plain path to 1e-11;
 5. flagship the main paths at full width: UMJS baroclinic wave, ne30 p4
             nz30 float32: ``make_fast_multistep`` (``first_step``, then
             replays of a 10-step CUDA graph), the eager fused path of
@@ -118,7 +130,18 @@ and runs these phases, each printing one JSON line:
             and ``Model.go`` (20 steps, no hooks): the path predicates held
             to the JAX package's, the launches a step exact, device busy
             and launches a step (``utils.devprof``), the largest terrain
-            term, max |U - U0| and the change of the total Rho mass;
+            term, max |U - U0| and the change of the total Rho mass; then
+            (5h) the no-flux slice: the Straka density current at 50 m
+            node spacing (nex 128 p4 nz 128 f32, dt 0.1 s, Rayleigh
+            sponges, nu2 300/300) through ``make_fast_multistep`` for 151
+            steps (replay ms/step, device busy and launches a step, the
+            path predicates, eager ms/step; the cold pool's theta' and W
+            bars) and without nu2 for 301 steps (30 s; with nu2 the run
+            turns non-finite near 20 s in the JAX package's step too), the
+            CLI's ``--case density_current``, and the
+            baroclinic channel at 100 km node spacing (nex 75 ney 15 p4
+            nz 30, dt 100 s, nu4): replay ms/step, launches a step, the
+            wall-normal V against the interior V;
 6. dss      the step with the tail's DSS as four launches or as
             ``dss_state`` and the stages' Rt/Rho as two launches or as
             ``dss_scalar2``, eagerly and under graph replay, in turns; the
@@ -185,6 +208,22 @@ DRIVER_ARGV = ["--case", "umjs_pert", "--resolution", str(NE), "--levels",
                "--output_format", "nc",
                "--output_restart_dt", f"{DRIVER_EVERY * DT:g}s"]
 HS_STEPS, TC_STEPS = 20, 10
+# the no-flux slice (phase 5h): the Straka density current at 50 m node
+# spacing (the reference's physics: Rayleigh sponges, nu2 300/300) for 151
+# steps, and without nu2 for 301 (30 s: the cold pool forms), then the CLI's
+# case for a few steps; the baroclinic channel at 100 km node spacing.  With
+# nu2 the run turns non-finite near 20 s at this spacing (step 200-220 at dt
+# 0.1, step 380-400 at dt 0.05: a growing mode, not a time-step limit) on
+# the kernel path and the plain path, in f32 and f64 alike, and the JAX
+# package's reference-layout step, the one the port is held to, gives the
+# same max |U| to 6 digits up to its own NaN at step 220 (on the CPU, f64);
+# its vector part alone does it, its scalar part alone does not
+DC_NEX, DC_NZ, DC_DT, DC_NU2, DC_CLI_STEPS = 128, 128, 0.1, 300.0, 20
+DC_STEPS = {"dc": 151, "dc_no_nu2": 301}
+# (nu4 1e13: 1e15, the flagship's, is unstable there within 20 steps, as the
+# Cartesian local scale (delta / min(width, 110 km))^3.2 makes it 62x; the
+# density current's reference physics has no nu4)
+CH_NEX, CH_NEY, CH_NZ, CH_DT, CH_STEPS, CH_NU = 75, 15, 30, 100.0, 51, 1e13
 # the terrain cell (phase 5g): MountainRossby3D on the flagship grid
 TERRAIN_STEPS = 20          # Model.go without hooks
 # the JAX package's path predicates for that configuration, whose geometry
@@ -1405,7 +1444,7 @@ def check_cartesian_dss(fgs, dtype, rows, dev):
                  raw.data_ptr(), K, P, A, B, fg.p, 0,
                  int(wrap[0]) | 2 * int(wrap[1]), cfg["rows"],
                  cfg["levels"], cfg["threads"], cfg["ring"], cfg["copy"],
-                 torch.cuda.current_stream().cuda_stream)
+                 None, torch.cuda.current_stream().cuda_stream)
         torch.cuda.synchronize()
         if err != 0 or not torch.equal(raw, dss_cuda.dss_scalar(
                 d["Rt"], im, links, fg.p, wrap=wrap, table=table)):
@@ -3071,6 +3110,542 @@ def profile_steps(step, X, carry, ncalls, path_name, steps_per_call=1):
     return dict(summary, all=rows)
 
 
+# ---------------------------------------------------------------------------
+# no-flux Cartesian grids with uniform nu2 (phases 3, 4 and 5h), and the
+# banded solves above q 8
+# ---------------------------------------------------------------------------
+
+def noflux_setup(name, dtype, nex, ney, nz, dev=None, nu=NU, rayleigh=True,
+                 nu2=DC_NU2):
+    """(test case, cfg, geom[, initial state, reference state]) of a grid
+    with no-flux walls: ``"dc"``, the Straka density current (x walls, the
+    reference's physics: Rayleigh sponges, nu2 300/300, no nu4,
+    ``tests/test_reference_parity.py:241-256``; ``nu2`` its coefficient),
+    or ``"channel"``, the Ullrich-Jablonowski baroclinic channel (y walls,
+    nu4 ``nu``, Rayleigh unless ``rayleigh`` is False)."""
+    import tempestmodel_tpu_torch as tm
+    from tempestmodel_tpu_torch.models import nh_model
+    from tempestmodel_tpu_torch.testcases import nonhydro_xz
+    if name == "dc":
+        tc = nonhydro_xz.DensityCurrent()
+        kw = dict(grid_kind=tm.GridKind.CARTESIAN_XZ, dt=DC_DT,
+                  hyperdiffusion=False, nu_uniform_scalar=nu2,
+                  nu_uniform_vector=nu2)
+        bc = dict(bc_x="noflux")
+    else:
+        tc = nonhydro_xz.Baroclinic3DChannel()
+        kw = dict(grid_kind=tm.GridKind.CARTESIAN_3D, dt=CH_DT,
+                  hyperdiffusion=True, nu_scalar=nu, nu_div=nu, nu_vort=nu)
+        bc = dict(bc_y="noflux", reference_latitude=tc.reference_latitude)
+    cfg = tm.ModelConfig(nex=nex, ney=ney, order=ORDER, nz=nz,
+                         x_extent=tc.x_extent, y_extent=tc.y_extent,
+                         ztop=tc.ztop, rayleigh_damping=rayleigh,
+                         vertical_solver="pallas", dtype=dtype, **kw)
+    geom = nh_model.build_nh_cartesian_geometry(
+        cfg, ztop=tc.ztop, rayleigh=tc.rayleigh_strength, **bc)
+    if dev is None:
+        return tc, cfg, geom
+    state = tc.initial_state(geom, cfg.constants, dtype=dtype, device=dev)
+    ref = tc.reference_state(geom, cfg.constants, dtype=dtype, device=dev)
+    return tc, cfg, geom, state, ref
+
+
+def check_noflux_dss(dev, rows):
+    """Phase 3, no-flux walls: the five modes of the band DSS kernel with
+    the walls' halo (a halo tensor's wall rows, and the zero halo) at the
+    density current's shapes of phase 5h in both layouts (walls along b
+    and along a) and at the channel's (walls along b, the wrap along a),
+    float32 and float64, each bit for bit equal to its plain form;
+    ``dss_state`` also with its Rayleigh finish and the wall rows it writes
+    before the finish.  Then, float32, each mode with the halo timed beside
+    the same launch without walls (the periodic grid's), and the state
+    mode at the density current beside its plain form and bound."""
+    from tempestmodel_tpu_torch import fast
+    from tempestmodel_tpu_torch.fast import dss_cuda
+    from tempestmodel_tpu_torch.kernels import synthetic
+    from tempestmodel_tpu_torch.kernels.timing import time_cuda
+    cases = (("dc_swapped", "dc", DC_NEX, 1, DC_NZ, True),
+             ("dc_natural", "dc", DC_NEX, 1, DC_NZ, False),
+             ("channel", "channel", CH_NEX, CH_NEY, CH_NZ, False))
+    timing = {}
+    for where, name, nex, ney, nz, swap in cases:
+        for dtype in (torch.float32, torch.float64):
+            _, cfg, geom = noflux_setup(name, dtype, nex, ney, nz)
+            fg = fast.build_fast_geometry_cartesian(geom, dtype=dtype,
+                                                    device=dev, swap_ab=swap)
+            im, p, wrap, nf = fg.inv_mult, fg.p, fg.wrap, fg.noflux
+            rot, table = fg.e_rot, fg.dss_table
+            d = synthetic.random_state(fg, seed=41)
+            h = {k: dss_cuda.wall_rows(v, nf) for k, v in
+                 synthetic.random_state(fg, seed=42).items()}
+            wf = {"bw1": d["W"], "bw2": None, "dW": 0.5 * d["W"],
+                  "dt_s": 0.25, "c00": 0.75, "c01": 0.25,
+                  "cax0": fg.con_a_xi_int[0].contiguous(),
+                  "cbx0": fg.con_b_xi_int[0].contiguous(),
+                  "cxx0": fg.con_xi_xi_int[0].contiguous()}
+            fac = {k: torch.rand_like(v) for k, v in d.items()}
+            ref = {k: torch.randn_like(v) for k, v in d.items()}
+            tag = "f32" if dtype == torch.float32 else "f64"
+            # the uvw mode stages 11 fields a ring of two: its band of 4
+            # rows of 512 nodes does not fit a block in float64 (the engine
+            # then takes no W fold)
+            K, P, A, B = d["U"].shape
+            try:
+                dss_cuda.dss_launch_shape(K, P, A, B, p, dtype, "uvw",
+                                          links=False)
+                uvw_fits = True
+            except ValueError:
+                uvw_fits = False
+            for halo in ("tensor", "zero"):
+                H = h if halo == "tensor" else dss_cuda.ZERO_HALO
+
+                def part(*keys):
+                    if H is dss_cuda.ZERO_HALO:
+                        return H
+                    return H[keys[0]] if len(keys) == 1 else tuple(
+                        H[k] for k in keys)
+
+                kw = dict(wrap=wrap, noflux=nf)
+                runs = {
+                    "dss_scalar": lambda fn, **t: fn(
+                        d["Rt"], im, (), p, **kw, **t, halo=part("Rt")),
+                    "dss_vector": lambda fn, **t: fn(
+                        d["U"], d["V"], im, rot, (), p, **kw, **t,
+                        halo=part("U", "V")),
+                    "dss_uvw": lambda fn, **t: fn(
+                        d["U"], d["V"], im, rot, (), p, wf, **kw, **t,
+                        halo=part("U", "V", "W")),
+                    "dss_scalar2": lambda fn, **t: fn(
+                        d["Rt"], d["Rho"], im, (), p, **kw, **t,
+                        halo=part("Rt", "Rho")),
+                    "dss_state": lambda fn, **t: fn(
+                        d, im, rot, (), p, **kw, **t, halo=H,
+                        walls_out=True),
+                    "dss_state_rayleigh": lambda fn, **t: fn(
+                        d, im, rot, (), p, rayleigh=(fac, ref), **kw, **t,
+                        halo=H, walls_out=True),
+                }
+                bitwise = {}
+                if not uvw_fits:
+                    runs.pop("dss_uvw")
+                for mode, run in runs.items():
+                    base = mode.replace("_rayleigh", "")
+                    got = run(getattr(dss_cuda, base), table=table)
+                    torch.cuda.synchronize()
+                    want = run(getattr(dss_cuda, base + "_plain"))
+                    flat = (lambda o: [o] if torch.is_tensor(o) else (
+                        [x for part_ in o for x in (
+                            part_.values() if isinstance(part_, dict)
+                            else [part_])] if isinstance(o, tuple)
+                        else list(o.values())))
+                    bitwise[mode] = all(torch.equal(a, b) for a, b in zip(
+                        flat(got), flat(want)))
+                emit({"phase": "kernel", "name": "dss_noflux",
+                      "where": where, "dtype": tag, "halo": halo,
+                      "shape": list(d["U"].shape), "noflux": list(nf),
+                      "wrap": list(wrap), "bitwise": bitwise,
+                      "dss_uvw": "run" if uvw_fits else
+                      "no launch shape fits a block (not taken)"})
+                if not all(bitwise.values()):
+                    raise RuntimeError(f"no-flux DSS {where} {tag} {halo} "
+                                       f"halo: not bit for bit {bitwise}")
+            if dtype != torch.float32:
+                continue
+            # float32 times: each mode with the walls' halo and without
+            sets = [()]
+            row = {}
+            for mode, args in (
+                    ("dss_scalar", lambda H: ((d["Rt"], im, (), p), {
+                        "halo": None if H is None else H["Rt"]})),
+                    ("dss_vector", lambda H: ((d["U"], d["V"], im, rot, (),
+                                               p), {
+                        "halo": None if H is None else (H["U"], H["V"])})),
+                    ("dss_uvw", lambda H: ((d["U"], d["V"], im, rot, (), p,
+                                            wf), {
+                        "halo": None if H is None else (H["U"], H["V"],
+                                                        H["W"])})),
+                    ("dss_scalar2", lambda H: ((d["Rt"], d["Rho"], im, (),
+                                                p), {
+                        "halo": None if H is None else (H["Rt"],
+                                                        H["Rho"])})),
+                    ("dss_state", lambda H: ((d, im, rot, (), p), {
+                        "halo": H, "walls_out": H is not None}))):
+                fn = getattr(dss_cuda, mode)
+                ms = {}
+                for label, H in (("walls", h), ("no_walls", None)):
+                    a, k = args(H)
+                    ms[label] = time_cuda(
+                        lambda: fn(*a, wrap=wrap, noflux=nf, table=table,
+                                   **k), sets, reps=20, queued=True)
+                row[mode] = ms
+            timing[where] = row
+            if where == "dc_swapped":
+                st = time_cuda(lambda: dss_cuda.dss_state_plain(
+                    d, im, rot, (), p, wrap=wrap, noflux=nf, halo=h,
+                    walls_out=True), sets, reps=3, warmup=1)
+                nbytes = 2 * sum(v.numel() for v in d.values()) * 4
+                b, by = bound_ms(nbytes, 4 * sum(v.numel() for v in
+                                                 d.values()), dtype)
+                rows["noflux_dss_state"] = {
+                    "ms": row["dss_state"]["walls"], "plain_ms": st,
+                    "bound_ms": b, "bound_by": by,
+                    "shape": list(d["U"].shape)}
+    emit({"phase": "kernel", "name": "dss_noflux_times", "dtype": "f32",
+          "ms_with_and_without_walls": timing,
+          "dc_state_mode": rows["noflux_dss_state"]})
+    rows["noflux_dss_times"] = timing
+
+
+def check_wide_banded(dev, rows):
+    """Phase 3, q above 8: ``banded_solve`` and ``banded_solve_multi`` at
+    the edge shapes of ``kernels/banded_edges.HIGHQ_CASES`` (the Lorenz
+    systems of vertical orders 2, 3 and 4, n 91, q 10, 16 and 22; the
+    tracer systems of order 5, n 30, q 9, R 3; the wide form's U rows
+    rebuilt chunk by chunk; blocks of 8 columns; unaligned inputs; the
+    stream and wide forms forced), float32 and float64, each line naming
+    its form; then, float32, ``banded_solve`` at q 10 and 16 (the ring
+    form) on the flagship's 86 400 columns, q 10 also in the wide form, and
+    ``banded_solve_multi`` at q 9, R 3 (the wide form), timed beside the
+    plain version and the bound."""
+    from tempestmodel_tpu_torch.kernels import banded_edges
+    from tempestmodel_tpu_torch.kernels.timing import time_cuda
+    from tempestmodel_tpu_torch.ops import cuda_banded
+    for dtype in (torch.float32, torch.float64):
+        tag = "f32" if dtype == torch.float32 else "f64"
+        tol = 1e-4 if dtype == torch.float32 else 1e-10
+        for case, spec in banded_edges.HIGHQ_CASES.items():
+            got = banded_edges.run_highq_case(case, dtype, dev)
+            emit({"phase": "kernel", "dtype": tag, "tol": tol,
+                  "name": "banded_highq_edge", "case": case, **got})
+            if not got["max_err"] <= tol or got["launch"]["form"] != spec[7]:
+                raise RuntimeError(f"banded case {case} {tag}: rel err "
+                                   f"{got['max_err']} > {tol} or form "
+                                   f"{got['launch']['form']} is not "
+                                   f"{spec[7]}")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    ncol = 6 * (NE * ORDER) ** 2
+    out = {}
+    for name, n, q, R, form in (("banded_solve", 3 * NZ + 1, 10, 1, None),
+                                ("banded_solve", 3 * NZ + 1, 10, 1, "wide"),
+                                ("banded_solve", 3 * NZ + 1, 16, 1, None),
+                                ("banded_solve_multi", NZ, 9, NTR, None)):
+        dtype = torch.float32
+        sets = []
+        for _ in range(2):
+            bands, rhs = make_bands(n, q, ncol, dtype, gen, dev)
+            if R > 1:
+                rhs = torch.stack([rhs] * R, 1).contiguous()
+            sets.append((bands, rhs))
+        plain = getattr(cuda_banded, name + "_plain")
+        if form is None:
+            fn = getattr(cuda_banded, name)
+        else:
+            sh = cuda_banded.banded_solve_launch_shape(n, q, ncol, dtype,
+                                                       form=form)
+            fn = (lambda b, r, q_, sh=sh:
+                  cuda_banded._banded_solve_cuda(b, r, q_, sh))
+        got = fn(*sets[0], q)
+        torch.cuda.synchronize()
+        err = rel_err(got, plain(*sets[0], q))
+        ms = time_cuda(lambda b, r: fn(b, r, q), sets, reps=10, queued=True)
+        plain_ms = time_cuda(lambda b, r: plain(b, r, q), sets, reps=1,
+                             warmup=1)
+        nbytes = 4 * (sets[0][0].numel() + 2 * sets[0][1].numel())
+        flops = 2 * n * ncol * (q * (q + 1) + R * 3 * q)
+        b, by = bound_ms(nbytes, flops, dtype)
+        key = f"{name} n{n} q{q} R{R}" + (f" {form} form" if form else "")
+        out[key] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b,
+                    "bound_by": by, "max_rel_err": err,
+                    "launch": cuda_banded.launch_config(
+                        *sets[0], q, None if form is None else sh)}
+        if not err < 1e-4:
+            raise RuntimeError(f"{key}: rel err {err}")
+        del sets
+        torch.cuda.empty_cache()
+    emit({"phase": "kernel", "name": "banded_wide_flagship", "dtype": "f32",
+          "ncol": ncol, "cases": out})
+    rows["banded_wide"] = out
+
+
+def noflux_per_step(name, fused=True):
+    """Kernel launches per step of the no-flux paths: the density current
+    (nu2, no nu4: each stage's DSS one ``dss_state`` launch (no W fold
+    with nu2 between the stage and its DSS), its Laplacians one
+    ``nu4_pass1``, no DSS in the tail) and the channel (nu4: the flagship's
+    grouping); unfused: the separate launches (4 a full-state DSS), the
+    banded kernel."""
+    zero = {k: 0 for k in KERNELS}
+    if not fused:
+        ndss = 5 + (0 if name == "dc" else 2)
+        return dict(zero, dss_vector=ndss, dss_scalar=3 * ndss,
+                    banded_solve=1)
+    if name == "dc":
+        return dict(zero, fused_stage=5, dss_state=5, nu4_pass1=5,
+                    fused_implicit_update=1)
+    if name == "dc_no_nu2":    # the W fold, no DSS in the tail
+        return dict(zero, fused_stage=5, dss_uvw=5, dss_scalar2=5,
+                    fused_implicit_update=1)
+    from tempestmodel_tpu_torch.fast import engine
+    return fused_per_step(tuple(engine.DSS_MERGE_DEFAULT))
+
+
+def check_noflux_slice(dev):
+    """Phase 4, no-flux walls and q above 8: 3 steps in float64 on the card,
+    the kernel path against the plain path to 1e-11: the density current
+    at nex 8, nz 16 (fused in both layouts, unfused), the channel at nex 4,
+    ney 2, nz 8 with nu4 (fused, unfused), and UMJS at ne4 nz8 with
+    vertical order 2 and ``"pallas"`` (q 10: the wide form of
+    ``banded_solve`` on the unfused path's route).  Returns the launch
+    counts of each kernel run."""
+    import tempestmodel_tpu_torch as tm
+    from tempestmodel_tpu_torch import fast
+    from tempestmodel_tpu_torch.kernels import counts
+    from tempestmodel_tpu_torch.models import nh_model
+    from tempestmodel_tpu_torch.testcases.nonhydro_sphere import (
+        BaroclinicWaveUMJS)
+    launched = {}
+    runs = [("dc", 8, 1, 16, dict(swap_ab=True)),
+            ("dc", 8, 1, 16, dict(swap_ab=False)),
+            ("dc", 8, 1, 16, dict(fused=False)),
+            ("channel", 4, 2, 8, {}), ("channel", 4, 2, 8, dict(fused=False)),
+            ("umjs_vo2", 4, 4, 8, dict(fused=False))]
+    for name, nex, ney, nz, kw in runs:
+        if name == "umjs_vo2":
+            tc = BaroclinicWaveUMJS(pert="exp")
+            cfg = tm.ModelConfig(
+                grid_kind=tm.GridKind.CUBED_SPHERE, ne=nex, order=ORDER,
+                nz=nz, ztop=tc.ztop, dt=DT, hyperdiffusion=True,
+                nu_scalar=NU, nu_div=NU, nu_vort=NU, vertical_order=2,
+                vertical_solver="pallas", dtype=torch.float64)
+            geom = nh_model.build_nh_sphere_geometry(cfg, ztop=tc.ztop)
+            state, ref = tc.initial_state(geom, cfg.constants,
+                                          dtype=cfg.dtype, device=dev), None
+            what = f"UMJS ne{nex} nz{nz} vertical order 2 pallas f64"
+        else:
+            _, cfg, geom, state, ref = noflux_setup(name, torch.float64,
+                                                    nex, ney, nz, dev)
+            what = f"{name} nex{nex} ney{ney} nz{nz} f64"
+        what += "".join(f", {k}={v}" for k, v in kw.items())
+        X0 = fast.pack_state(state, device=dev)
+        outs = {}
+        for path, pk in (("kernels", {}), ("plain", {"plain": True})):
+            counts.reset_launch_counts()
+            first, step = fast.make_fast_step(cfg, geom, ref_state=ref,
+                                              device=dev, **kw, **pk)
+            X, c = first(X0)
+            for _ in range(2):
+                X, c = step(X, c)
+            torch.cuda.synchronize()
+            outs[path] = X
+            if path == "kernels":
+                launched[what] = dict(counts.launch_counts)
+        errs = compare_xz(outs["kernels"], outs["plain"])
+        emit({"phase": "noflux_slice", "config": what + ", 3 steps",
+              "kernels_vs_plain": errs, "tol": 1e-11,
+              "launches": launched[what]})
+        if not max(errs.values()) < 1e-11:
+            raise RuntimeError(f"{what}: paths disagree {errs}")
+        if name != "umjs_vo2":
+            per = noflux_per_step(name, kw.get("fused", True))
+            want = {k: 3 * v + (1 if k in IMPLICIT_SOLVES and v else 0)
+                    for k, v in per.items()}
+            if launched[what] != want:
+                raise RuntimeError(f"{what}: launch counts {launched[what]} "
+                                   f"!= expected {want}")
+        elif launched[what]["banded_solve"] != 4:
+            raise RuntimeError(f"{what}: banded_solve launched "
+                               f"{launched[what]['banded_solve']} times")
+        for k, v in outs["kernels"].items():
+            if not bool(torch.isfinite(v).all()):
+                raise RuntimeError(f"{what}: non-finite {k}")
+    return launched
+
+
+def noflux_line(dev, smi, launches):
+    """Phase 5h: the slice at full width.  The Straka density current at 50 m
+    node spacing (nex 128, p 4: 512 columns across 25.6 km; nz 128 to 6.4
+    km; float32; dt 0.1 s; Rayleigh sponges, nu2 300/300, no nu4) through
+    ``make_fast_multistep`` (``first_step``, then a 10-step graph replayed
+    to 151 steps; ms/step the median of 4 timed replays; device busy and
+    launches a step from one profiled replay, ``utils.devprof``), eager
+    steps (1 + 3), and the path each predicate took; then the same grid
+    without nu2 for 301 steps (the reference physics turns non-finite near
+    20 s in the port and in the JAX package alike, see ``DC_STEPS``); after
+    each run the cold pool must have formed (min theta' < -2 K, min
+    physical W < -0.5 m/s, the bar of ``tests/test_nonhydro_xz.py:175-193``
+    at 30 s).  Then the
+    CLI's ``--case density_current`` at that grid for a few steps, and the
+    baroclinic channel at 100 km node spacing (nex 75, ney 15, p 4, nz 30
+    to 30 km, dt 100 s, nu4 ``CH_NU``) under graph replay, 51 steps with its
+    Rayleigh sponge (ms/step, launches a step; the wall-normal V below 5 %
+    of U) and 31 without, as the battery test runs it (the whole bar of
+    ``tests/test_testcase_battery.py:109-134``: also the wall V below half
+    the interior V; the reference's channel sponge damps the whole channel
+    toward its balanced state, which leaves the interior V below the
+    walls').  Each run starts with the counts at 0 and is held to its
+    path's launches a step."""
+    from tempestmodel_tpu_torch import fast
+    from tempestmodel_tpu_torch.fast import (hyper_cuda, implicit_cuda,
+                                             stage_cuda)
+    from tempestmodel_tpu_torch.kernels import counts
+    from tempestmodel_tpu_torch.utils import devprof
+    out = {}
+    for run, nex, ney, nz, steps in (
+            ("dc", DC_NEX, 1, DC_NZ, DC_STEPS["dc"]),
+            ("dc_no_nu2", DC_NEX, 1, DC_NZ, DC_STEPS["dc_no_nu2"]),
+            ("channel", CH_NEX, CH_NEY, CH_NZ, CH_STEPS),
+            ("channel_no_rayleigh", CH_NEX, CH_NEY, CH_NZ, 31)):
+        name = run.split("_")[0]
+        t0 = time.perf_counter()
+        tc, cfg, geom, state, ref = noflux_setup(
+            name, torch.float32, nex, ney, nz, dev, nu=CH_NU,
+            rayleigh=run != "channel_no_rayleigh",
+            nu2=0.0 if run == "dc_no_nu2" else DC_NU2)
+        setup_s = time.perf_counter() - t0
+        X0 = fast.pack_state(state, device=dev)
+        fg = fast.build_fast_geometry_cartesian(geom, dtype=cfg.dtype,
+                                                device=dev)
+        from tempestmodel_tpu_torch.fast import implicit as fimp
+        from tempestmodel_tpu_torch.models import nonhydro
+        q = nonhydro.estimate_bandwidth(geom, cfg.constants)
+        ist = implicit_cuda.implicit_statics(fimp.statics_to_device(
+            nonhydro.band_assembly_statics(geom, q), cfg.dtype, dev), fg)
+        path = {"swap_ab": bool(fg.ab_swapped), "noflux": list(fg.noflux),
+                "stage_supported": bool(stage_cuda.stage_supported(fg)),
+                "w_fold": run != "dc",
+                "laplacians_by_nu4_pass1": bool(
+                    hyper_cuda.laplacians_supported(fg)),
+                "nu4_supported": bool(hyper_cuda.supported(fg, cfg)),
+                "fused_implicit_supported": bool(
+                    implicit_cuda.fused_supported(ist)), "q": q}
+        want_path = (path["stage_supported"] and path["laplacians_by_nu4_pass1"]
+                     and path["fused_implicit_supported"])
+        if not want_path:
+            raise RuntimeError(f"{name}: path predicates {path}")
+        per_step = noflux_per_step(run if run == "dc_no_nu2" else name)
+        counts.reset_launch_counts()
+        first, multi = fast.make_fast_multistep(cfg, geom, INNER_STEPS,
+                                                ref_state=ref, device=dev)
+        X, c = first(X0)
+        X, c = multi(X, c)                 # warm-up, capture, first replay
+        torch.cuda.synchronize()
+        got = dict(counts.launch_counts)
+        want = {k: v * (INNER_STEPS + 2) + (1 if k in IMPLICIT_SOLVES and v
+                                           else 0)
+                for k, v in per_step.items()}
+        if got != want:
+            raise RuntimeError(f"{name}: launch counts {got} != expected "
+                               f"{want}")
+        launches[f"noflux_{run}"] = got
+        done = 1 + INNER_STEPS
+        replay_ms = []
+        while done + INNER_STEPS <= steps:
+            torch.cuda.synchronize()
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            X, c = multi(X, c)
+            ev1.record()
+            torch.cuda.synchronize()
+            if len(replay_ms) < REPLAYS:
+                replay_ms.append(ev0.elapsed_time(ev1) / INNER_STEPS)
+            done += INNER_STEPS
+        # two replays from the same inputs (a warm-up and the traced one):
+        # the state does not advance
+        busy_ms, nkern = devprof.device_time_ms(multi, X, c)
+        torch.cuda.synchronize()
+        S = fast.unpack_state(X)
+        for k, v in S.items():
+            if not bool(torch.isfinite(v).all()):
+                raise RuntimeError(f"{name}: non-finite {k}")
+        row = {"phase": "noflux", "case": run,
+               "config": (f"{type(tc).__name__} nex{nex} ney{ney} p{ORDER} "
+                          f"nz{nz} f32 dt{cfg.dt:g}" + (
+                              f" nu2 {cfg.nu_uniform_vector:g}"
+                              if name == "dc" else
+                              f" nu4 {CH_NU:g}") + (
+                              ", Rayleigh" if cfg.rayleigh_damping else
+                              ", no Rayleigh")),
+               "path": path, "setup_s": setup_s,
+               "replay_ms_per_step": sorted(replay_ms)[len(replay_ms) // 2],
+               "replay_ms_each": replay_ms,
+               "device_busy_ms_per_step": busy_ms / INNER_STEPS,
+               "device_launches_per_step": nkern / INNER_STEPS,
+               "launches_per_step": per_step, "steps": done,
+               "card": smi}
+        if name == "dc":
+            theta = (S["Rt"] / S["Rho"]).double() - tc.theta_bar
+            dxr = torch.as_tensor(np.asarray(geom.deriv_r_int)[..., 2],
+                                  device=dev)
+            w_phys = S["W"].double() / dxr
+            row.update(min_theta_prime_K=float(theta.min()),
+                       min_physical_w_m_s=float(w_phys.min()),
+                       model_time_s=done * cfg.dt)
+            if not (row["min_theta_prime_K"] < -2.0
+                    and row["min_physical_w_m_s"] < -0.5):
+                raise RuntimeError(f"density current: no cold pool after "
+                                   f"{done} steps: {row}")
+        if run == "dc":
+            # eager steps, counted
+            f1, st = fast.make_fast_step(cfg, geom, ref_state=ref,
+                                         device=dev)
+            Xe, ce = st(*f1(X0))
+            torch.cuda.synchronize()
+            counts.reset_launch_counts()
+            Xe, ce = f1(X0)
+            torch.cuda.synchronize()
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            for _ in range(3):
+                Xe, ce = st(Xe, ce)
+            ev1.record()
+            torch.cuda.synchronize()
+            got = dict(counts.launch_counts)
+            want = {k: 4 * v + (1 if k in IMPLICIT_SOLVES and v else 0)
+                    for k, v in per_step.items()}
+            if got != want:
+                raise RuntimeError(f"density current eager: launch counts "
+                                   f"{got} != expected {want}")
+            row["eager_ms_per_step"] = ev0.elapsed_time(ev1) / 3
+            del f1, st, Xe, ce
+        if name == "channel":
+            v = S["V"]
+            v_wall = max(float(v[:, :, 0].abs().max()),
+                         float(v[:, :, -1].abs().max()))
+            v_int = float(v[:, :, 1:-1].abs().max())
+            u_scale = float(S["U"].abs().max())
+            row.update(v_wall=v_wall, v_interior=v_int, u_scale=u_scale,
+                       model_time_s=done * cfg.dt)
+            if not (v_wall < 0.05 * u_scale and (
+                    cfg.rayleigh_damping or v_wall < 0.5 * v_int)):
+                raise RuntimeError(f"{run}: wall-normal V {v_wall} against "
+                                   f"interior {v_int}, U {u_scale}")
+        emit(row)
+        out[run] = row
+        del first, multi, X, c, X0, S, state, ref
+        torch.cuda.empty_cache()
+    # the CLI's density current (no nu2: the JAX CLI sets none), a few steps
+    argv = ["--case", "density_current", "--resolution", str(DC_NEX),
+            "--levels", str(DC_NZ), "--fp32", "--vmethod", "V2", "--dt",
+            f"{DC_DT:g}s", "--nsteps", str(DC_CLI_STEPS), "--nohypervis",
+            "--checksum_dt", f"{DC_CLI_STEPS * DC_DT / 2:g}s"]
+    text, wall, got = run_cli(argv, dev)
+    checks = [l for l in text.splitlines() if "..Checksums" in l]
+    if len(checks) != 3 or any("nan" in l for l in checks):
+        raise RuntimeError(f"CLI density current: checksum lines {checks}")
+    # no nu2 and no nu4 there: the W fold (dss_uvw), Rt and Rho in
+    # dss_scalar2, no DSS in the tail
+    per = ("fused_stage", "dss_uvw", "dss_scalar2", "fused_implicit_update")
+    if not all(got[k] >= 1 for k in per) or got["dss_state"]:
+        raise RuntimeError(f"CLI density current: launches {got}")
+    emit({"phase": "noflux", "case": "cli_density_current", "argv": argv,
+          "wall_s": wall, "checksums": checks, "launches": got,
+          "card": smi})
+    launches["noflux_cli"] = got
+    return out
+
+
 def main():
     args = sys.argv[1:]
     profile_path = None
@@ -3124,10 +3699,11 @@ def main():
         raise RuntimeError(f"the build reported {len(dss_resources)} of the "
                            f"band DSS kernel's 40 instantiations")
     multi_resources = cuda_banded.kernel_resources()
-    if len(multi_resources) != 48:
+    if len(multi_resources) != 62:
         raise RuntimeError(f"the build reported {len(multi_resources)} of "
-                           f"the banded solve's 48 instantiations (tile, "
-                           f"stream and ring forms)")
+                           f"the banded solve's 62 instantiations (tile, "
+                           f"stream and ring forms at q 1..8, 10, 16, the "
+                           f"wide form)")
     emit({"phase": "build", "seconds": info["seconds"],
           "built": info["built"], "libraries": len(info["libraries"]),
           "fused_stage_registers_and_spills": resources,
@@ -3160,6 +3736,8 @@ def main():
     rows = check_kernels(fg, cfg, geom, state, dev)
     del fg
     geom64 = check_terrain_stage(dev, rows)
+    check_noflux_dss(dev, rows)
+    check_wide_banded(dev, rows)
 
     # 4. the slice at small size, three ways, dry and with tracers --------
     check_slice(dev)
@@ -3167,6 +3745,7 @@ def main():
     cart_launches = check_cartesian_slice(dev)
     check_imex_slice(dev)
     check_terrain_slice(dev)
+    check_noflux_slice(dev)
 
     # 5. the main paths at full width -------------------------------------
     X0 = fast.pack_state(state, device=dev)
@@ -3401,6 +3980,11 @@ def main():
     del geom64
     emit({"phase": "terrain", "seconds": time.perf_counter() - t0})
 
+    # 5h. this slice's path: no-flux walls and uniform nu2 at full width
+    t0 = time.perf_counter()
+    noflux_line(dev, smi, launches)
+    emit({"phase": "noflux", "seconds": time.perf_counter() - t0})
+
     if profile_path is not None:
         os.makedirs(os.path.dirname(os.path.abspath(profile_path)),
                     exist_ok=True)
@@ -3516,11 +4100,25 @@ def main():
                     for where, t in rows["cartesian_nu4"].items()}
         if cart:
             row["cartesian"] = cart
+        # the no-flux paths of phase 5h (each run from counts at 0)
+        row["launches_density_current_path"] = launches["noflux_dc"][name]
+        row["launches_channel_path"] = launches["noflux_channel"][name]
+        if name in rows["noflux_dss_times"]["dc_swapped"]:
+            row["noflux_ms_with_and_without_walls"] = {
+                where: t[name]
+                for where, t in rows["noflux_dss_times"].items()}
+        if name in ("banded_solve", "banded_solve_multi"):
+            row["q_above_8"] = {k: v for k, v in rows["banded_wide"].items()
+                                if k.split()[0] == name}
         if name == "fused_stage":
             two = rows["fused_stage_two_base"]
             row.update(ms_two_base=two["ms"], bound_ms_two_base=two["bound_ms"],
                        plain_ms_two_base=two["plain_ms"])
         kernels.append(row)
+    for path in ("noflux_dc", "noflux_channel"):
+        for name, v in noflux_per_step(path.split("_")[1]).items():
+            if v and launches[path][name] < 1:
+                raise RuntimeError(f"{name} was not launched on {path}")
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": kernels})

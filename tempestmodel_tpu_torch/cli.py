@@ -11,11 +11,11 @@ standard flags, plus ``--device`` (default ``cuda``)::
         --checksum_dt 2000s --output_dir out --output_dt 2000s \
         --output_format nc --output_restart_dt 2000s
 
-Cases: thermal_bubble, schar, inertia_gravity (periodic x-z slices), umjs,
-umjs_pert, held_suarez.  The shallow-water cases (sw_tc2, sw_tc5, sw_rh4,
-sw_galewsky) and the no-flux x-z case (density_current) need engines that
-are not ported yet and raise ``NotImplementedError``.  Without ``--fp32``
-the run is float64, as in the JAX package's CLI.
+Cases: thermal_bubble, schar, inertia_gravity (periodic x-z slices),
+density_current (an x-z slice with no-flux walls in x), umjs, umjs_pert,
+held_suarez.  The shallow-water cases (sw_tc2, sw_tc5, sw_rh4, sw_galewsky)
+need an engine that is not ported yet and raise ``NotImplementedError``.
+Without ``--fp32`` the run is float64, as in the JAX package's CLI.
 """
 
 from __future__ import annotations
@@ -34,7 +34,6 @@ from .utils.timeobj import parse_duration_seconds
 _NOT_PORTED = {
     "sw_tc2": "shallow water", "sw_tc5": "shallow water",
     "sw_rh4": "shallow water", "sw_galewsky": "shallow water",
-    "density_current": "no-flux lateral boundaries",
 }
 
 
@@ -50,6 +49,8 @@ def _build_case(name: str, args):
             f"yet (ROADMAP queue 1 item 2)")
     if name == "thermal_bubble":
         tc = nxz.ThermalBubble()
+    elif name == "density_current":
+        tc = nxz.DensityCurrent()
     elif name == "schar":
         tc = nxz.ScharMountain()
     elif name == "inertia_gravity":

@@ -11,7 +11,10 @@
 // memory; the idea that carries over is that these never reach device
 // memory.  Layout: the column axis minor in `bands (n, 2q+1, ncol)`,
 // `rhs (n, R, ncol)` and `out (n, R, ncol)`; the half-bandwidth Q is a
-// template parameter (1..8), R a run-time size.
+// template parameter of the tile, stream and ring forms (1..8, and 10 and
+// 16: the Lorenz column systems of vertical orders 2 and 3), a run-time
+// size of the wide form (any q whose U rows fit a block), R a run-time
+// size.
 //
 // Bound on an H100 (3.35 TB/s): bytes.  The function must read bands and rhs
 // once and write out once: at n = 30, q = 1, R = 3, ncol = 86 400, float32
@@ -90,6 +93,32 @@
 // time.  Shapes whose U rows do not fit a block even at C = 8 run the
 // stream form with R = 1.
 //
+// The wide form (`wide_kernel`, every q above 8 without an instantiation
+// of the template forms (the Lorenz column systems of vertical order 4 and
+// up, q 22, 28, ...; the tracer systems of vertical order 5 and up, q 9,
+// 11, ...), and q 10 and 16 where the template forms' block does not fit).
+// q is known only at run time, so nothing of a column's window can
+// sit in registers (indexing a register array at run time puts it in local
+// memory): a warp a block owns C columns (32, 16 or 8; lane = column), and
+// the row being eliminated (2q + 1 values) and the U rows of the last
+// `chunk` rows (q + 1 values each, `chunk` >= q so that the q rows above the
+// row being eliminated are always there) sit in shared memory, one slot a
+// row (row i in slot i % chunk).  Band and right-hand-side rows are read
+// from device memory as they are eliminated (coalesced across the lanes),
+// the forward values are parked in `out`, and the back substitution walks
+// the chunks from the last, eliminating again from row 0 to rebuild every
+// chunk but the last, as the stream form does.  The template forms
+// instantiated for every q up to 16 were built and timed beside this form
+// by kernels/bench_banded.py --highq (on an H100, 86 400 columns): the ring
+// form at n 91 took 0.98 ms at q 10 and 8.5 at q 16 in float32 where this
+// form took 15.0 and 23.8 (float64: 5.2 and 46 against 33.5 and 54), the
+// tile form at n 30, q 9, R 3 0.38 against 1.73, in spite of their spills
+// (q 16: 7700 bytes in the float64 ring form); with every q up to 16 the
+// source took 57-71 s to build, against 24 s with this form alone.  So the
+// template forms are instantiated at the two half-bandwidths users run, 10
+// and 16 (12 instantiations more: the source builds in 35 s), and every
+// other q above 8 takes this form.
+//
 // Every form does the arithmetic of models/vertical_banded.banded_solve_t /
 // banded_solve_multi_t in its order: a division per multiplier (the ring
 // form: its bits, `quick_div`), each update a fused multiply-add; the same
@@ -104,12 +133,20 @@
 
 namespace {
 
-constexpr int MAX_Q = 8;
+// the template forms' largest q; kernels/bench_banded.py --highq builds a
+// variant with -DBANDED_TEMPLATE_QMAX=16 to time them at q 9..16
+#ifndef BANDED_TEMPLATE_QMAX
+#define BANDED_TEMPLATE_QMAX 8
+#endif
+constexpr int MAX_Q = BANDED_TEMPLATE_QMAX;
+// the template forms' instantiations above MAX_Q: the Lorenz column systems
+// of vertical orders 2 and 3
+constexpr bool extra_q(int q) { return q == 10 || q == 16; }
 constexpr int MAX_THREADS = 256;  // most threads a block
 constexpr int MAX_BARS = 16;      // the tile form's mbarriers
 constexpr int BAR_BYTES = 8 * MAX_BARS;
 constexpr int SMEM_MAX = 232448;  // dynamic shared memory of an H100 block
-constexpr int FORM_TILE = 0, FORM_STREAM = 1, FORM_RING = 2;
+constexpr int FORM_TILE = 0, FORM_STREAM = 1, FORM_RING = 2, FORM_WIDE = 3;
 constexpr int RING_SLOTS = 5;     // the ring form's slots a lane
 
 template <typename T>
@@ -120,7 +157,8 @@ struct MultiArgs {
   long long ncol;
   int n, R;
   int C;      // columns a block
-  int chunk;  // tile: rows an mbarrier; stream: U rows kept on chip
+  int chunk;  // tile: rows an mbarrier; stream, wide: U rows kept on chip
+  int q;      // the half-bandwidth (read by the wide form only)
   int copy;   // tile: bytes a staging copy (16: bulk copies)
 };
 
@@ -559,6 +597,73 @@ __global__ void __launch_bounds__(32)
     ring_column<T, Q, false>(g, ring, col);
 }
 
+// Wide form: one warp, C columns (lane = column).  Shared memory, column c
+// at stride C: the U rows of `chunk` rows (slot h's entry j at (h (q+1) +
+// j) C), then the row being eliminated (entry d at (chunk (q+1) + d) C).
+// Row i's elimination is `eliminate`'s in its order: multiplier t from the
+// U row of row i - q + t (an identity row before row 0), each update a
+// fused multiply-add; the multipliers are left over the row's first q
+// entries for the forward substitutions.
+template <typename T>
+__device__ __forceinline__ void wide_eliminate(const MultiArgs<T>& g, T* us,
+                                               T* ws, const T* b, int i) {
+  const int q = g.q, C = g.C, H = g.chunk, NB = 2 * q + 1;
+  const long long ncol = g.ncol;
+  for (int d = 0; d < NB; ++d) ws[d * C] = b[((long long)i * NB + d) * ncol];
+  for (int t = 0; t < q; ++t) {
+    const int k = i - q + t;
+    if (k < 0) continue;  // identity row: the multiplier is the entry
+    const T* u = us + (long long)(k % H) * (q + 1) * C;
+    const T f = ws[t * C] / u[0];
+    ws[t * C] = f;
+    for (int j = 1; j <= q; ++j)
+      ws[(t + j) * C] = fma_rn(-f, u[j * C], ws[(t + j) * C]);
+  }
+  T* u = us + (long long)(i % H) * (q + 1) * C;
+  for (int j = 0; j <= q; ++j) u[j * C] = ws[(q + j) * C];
+}
+
+template <typename T>
+__global__ void __launch_bounds__(32)
+    wide_kernel(const __grid_constant__ MultiArgs<T> g) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int q = g.q, n = g.n, R = g.R, C = g.C, H = g.chunk;
+  const long long ncol = g.ncol;
+  const long long c = (long long)blockIdx.x * C + threadIdx.x;
+  if (c >= ncol || (int)threadIdx.x >= C) return;
+  T* us = reinterpret_cast<T*>(smem_raw) + threadIdx.x;
+  T* ws = us + (long long)H * (q + 1) * C;
+  const T* b = g.bands + c;
+  const T* rh = g.rhs + c;
+  T* o = g.out + c;
+#define OUT(i, r) o[((long long)(i) * R + (r)) * ncol]
+  for (int i = 0; i < n; ++i) {
+    wide_eliminate(g, us, ws, b, i);
+    for (int r = 0; r < R; ++r) {
+      T y = rh[((long long)i * R + r) * ncol];
+      for (int t = 0; t < q; ++t)
+        if (i - q + t >= 0) y = fma_rn(-ws[t * C], OUT(i - q + t, r), y);
+      OUT(i, r) = y;
+    }
+  }
+  const int last = (n - 1) / H;
+  for (int ch = last; ch >= 0; --ch) {
+    const int lo = ch * H, hi = lo + H < n ? lo + H : n;
+    if (ch < last)  // rebuild the chunk's U rows (and the q rows above it)
+      for (int i = 0; i < hi; ++i) wide_eliminate(g, us, ws, b, i);
+    for (int i = hi - 1; i >= lo; --i) {
+      const T* u = us + (long long)(i % H) * (q + 1) * C;
+      for (int r = 0; r < R; ++r) {
+        T acc = OUT(i, r);
+        for (int d = 0; d < q && i + 1 + d < n; ++d)
+          acc = fma_rn(-u[(d + 1) * C], OUT(i + 1 + d, r), acc);
+        OUT(i, r) = acc / u[0];
+      }
+    }
+  }
+#undef OUT
+}
+
 // out[k] = w[k] / p[k] as the ring form takes it: `quick_div`, or the
 // division where that clears `ok`
 template <typename T>
@@ -614,6 +719,33 @@ int launch_q(const MultiArgs<T>& g, int form, int threads, size_t smem,
              : launch_form<T, Q, FORM_RING>(g, threads, smem, stream);
 }
 
+// the template forms' instantiation of q (1..MAX_Q)
+template <typename T, int Q>
+int launch_template(const MultiArgs<T>& g, int q, int form, int threads,
+                    size_t smem, cudaStream_t stream) {
+  if (q == Q) return launch_q<T, Q>(g, form, threads, smem, stream);
+  if constexpr (Q < MAX_Q)
+    return launch_template<T, Q + 1>(g, q, form, threads, smem, stream);
+  return -1;
+}
+
+template <typename T>
+int launch_wide(const MultiArgs<T>& g, size_t smem, cudaStream_t stream) {
+  static bool opted[64] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (smem > 48 * 1024 && dev < 64 && !opted[dev]) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        SMEM_MAX);
+    if (e != cudaSuccess) return (int)e;
+    opted[dev] = true;
+  }
+  const unsigned blocks = (unsigned)((g.ncol + g.C - 1) / g.C);
+  wide_kernel<T><<<blocks, 32, smem, stream>>>(g);
+  return (int)cudaGetLastError();
+}
+
 inline bool aligned(const void* q, int bytes) {
   return reinterpret_cast<unsigned long long>(q) % bytes == 0;
 }
@@ -627,11 +759,13 @@ int launch(const void* bands, const void* rhs, void* out, int n, int R,
            long long ncol, int q, int form, int cols, int threads, int chunk,
            int copy, void* stream_) {
   constexpr int ES = sizeof(T);
-  if (q < 1 || q > MAX_Q || R < 1 || n < 0 || ncol < 0 || chunk < 1)
+  if (q < 1 || (q > MAX_Q && !extra_q(q) && form != FORM_WIDE) || R < 1 ||
+      n < 0 || ncol < 0 || chunk < 1)
     return -1;
-  if (form == FORM_RING) {
-    if (R != 1 || threads != 32 || (cols != 8 && cols != 16 && cols != 32) ||
-        chunk != RING_SLOTS)
+  if (form == FORM_RING || form == FORM_WIDE) {
+    if ((form == FORM_RING && R != 1) || threads != 32 ||
+        (cols != 8 && cols != 16 && cols != 32) ||
+        (form == FORM_RING && chunk != RING_SLOTS))
       return -1;
   } else if (form == FORM_TILE || form == FORM_STREAM) {
     if (cols < 32 || cols % 32 || threads % cols || threads < cols ||
@@ -647,7 +781,7 @@ int launch(const void* bands, const void* rhs, void* out, int n, int R,
   g.rhs = (const T*)rhs;
   g.out = (T*)out;
   g.ncol = ncol; g.n = n; g.R = R; g.C = cols; g.chunk = chunk;
-  g.copy = copy;
+  g.copy = copy; g.q = q;
   size_t smem;
   if (form == FORM_TILE) {
     if (copy == 16 || copy == 8) {
@@ -663,32 +797,32 @@ int launch(const void* bands, const void* rhs, void* out, int n, int R,
   } else if (form == FORM_RING) {
     smem = ((size_t)RING_SLOTS * (2 * q + 2) + (size_t)n * (q + 2)) * cols *
            ES;
+  } else if (form == FORM_WIDE) {
+    // the q rows above the row being eliminated stay in their slots
+    if (chunk > n || chunk < (q < n ? q : n)) return -1;
+    smem = ((size_t)chunk * (q + 1) + 2 * q + 1) * cols * ES;
   } else {
     if (chunk > n || threads != cols) return -1;
     smem = (size_t)chunk * (q + 1) * cols * ES;
   }
   if (smem > (size_t)SMEM_MAX) return -2;
   const cudaStream_t st = (cudaStream_t)stream_;
-  switch (q) {
-    case 1: return launch_q<T, 1>(g, form, threads, smem, st);
-    case 2: return launch_q<T, 2>(g, form, threads, smem, st);
-    case 3: return launch_q<T, 3>(g, form, threads, smem, st);
-    case 4: return launch_q<T, 4>(g, form, threads, smem, st);
-    case 5: return launch_q<T, 5>(g, form, threads, smem, st);
-    case 6: return launch_q<T, 6>(g, form, threads, smem, st);
-    case 7: return launch_q<T, 7>(g, form, threads, smem, st);
-    default: return launch_q<T, 8>(g, form, threads, smem, st);
-  }
+  if (form == FORM_WIDE) return launch_wide<T>(g, smem, st);
+  if (q <= MAX_Q) return launch_template<T, 1>(g, q, form, threads, smem, st);
+  return q == 10 ? launch_q<T, 10>(g, form, threads, smem, st)
+                 : launch_q<T, 16>(g, form, threads, smem, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// form: 0 tile, 1 stream, 2 ring (R = 1); cols: columns a block (ring: 8,
-// 16 or 32); threads: a multiple of cols (tile: cols x the groups of
-// right-hand sides; stream: cols; ring: 32); chunk: rows an mbarrier (tile),
-// U rows kept on chip (stream) or RING_SLOTS (ring); copy: 16 (bulk
+// form: 0 tile, 1 stream, 2 ring (R = 1), 3 wide (any q); cols: columns a
+// block (ring, wide: 8, 16 or 32); threads: a multiple of cols (tile: cols
+// x the groups of right-hand sides; stream: cols; ring, wide: 32); chunk:
+// rows an mbarrier (tile), U rows kept on chip (stream, wide: at least
+// min(q, n)) or RING_SLOTS (ring); q: 1..8, 10 or 16 in the tile, stream and
+// ring forms, any q >= 1 in the wide form; copy: 16 (bulk
 // copies), 8 or 4 bytes (cp.async; the tile form's staging; the ring form
 // copies one value at a time).  Returns
 // cudaGetLastError(), -1 for a shape or copy width the kernel does not

@@ -15,6 +15,18 @@
 // The sphere's instantiations hold no wrap code: with the wrap test in one
 // shared instantiation the flagship's DSS launches took 2-6 % longer.
 //
+// A Cartesian grid with no-flux walls along one axis (the `noflux` bits, 1:
+// the walls a = 0 and a = A - 1, 2: b = 0 and b = B - 1) averages each wall
+// node's DSS result with its halo, 0.5 (x + h), after the inverse
+// multiplicity and before any finish (grid/cartesian.apply_dss_cartesian's
+// `halo`: the reference's per-instance halo of the wall node, which lags the
+// node by the stage combinations).  The halo of field f is its wall rows
+// alone, (levels, 2, L) with L = B (a walls) or A (b walls), side 0 the
+// first wall; a null halo pointer is the zero halo (the nu4 working
+// state's).  The state mode can write the wall values as they are before
+// its Rayleigh finish to `hout`, the halo the next step inherits.  Only the
+// CART instantiations hold this code, as only they hold the wrap.
+//
 // `dss_scalar` replaces the TPU kernel `dss_scalar` (`_scalar_kernel`,
 // tempestmodel_tpu/fast/dss_pallas.py:200, called at :474) and `dss_uvw`
 // the TPU kernel `dss_uvw` (`_uvw_kernel`, :355, called at :453): the DSS of
@@ -292,12 +304,18 @@ struct BandArgs {
   const T* ref[5];
   const T* imult;
   const T* rot;
+  // no-flux walls (CART): per output field its halo's wall rows (null: the
+  // zero halo) and, in the state mode, where to write the pre-finish wall
+  // values (null: nowhere)
+  const T* halo[5];
+  T* hout[5];
   // the link table by value (cubed sphere): per (panel, edge) neighbour
   // panel, neighbour edge, flip, link index
   int table[4 * MAX_PANELS * 4];
   T dt_s, cb1, cb2, c00, c01;
   int K;               // levels (dss_scalar) or nz (dss_uvw)
   int P, A, B, p, nlinks, wrap;
+  int noflux;          // 1: walls along a, 2: along b (CART), 0: none
   int rows, levels, ring, copy;  // band rows, steps a block, stages, bytes
   int ray;             // the finish's loads: 0 none, 1 a value, 2 a segment
   // shared memory layout, in values after the mbarriers: a field's span and
@@ -690,11 +708,39 @@ __device__ __forceinline__ void ray_finish(const BandArgs<T>& g, int f,
   for (int i = 0; i < p; ++i) s[i] = mul_then_add(fa[i], s[i], re[i]);
 }
 
+// The wall nodes of output field f's segment at level k: s <- 0.5 (s + h)
+// with h from the halo's wall rows (zero without a halo), rounded as two
+// tensor operations round them; in the state mode the result also goes to
+// the field's `hout` where there is one.
+template <typename T>
+__device__ __forceinline__ void wall_average(const BandArgs<T>& g, int f,
+                                             int k, const Seg& q, int p,
+                                             T* s) {
+  const T* h = g.halo[f];
+  T* ho = g.hout[f];
+  if (g.noflux == 1) {
+    if (q.a != 0 && q.a != g.A - 1) return;
+    const long long o = ((long long)k * 2 + (q.a == 0 ? 0 : 1)) * g.B + q.b0;
+    for (int i = 0; i < p; ++i) {
+      s[i] = mul_rn(T(0.5), add_rn(s[i], h ? h[o + i] : T(0)));
+      if (ho) ho[o + i] = s[i];
+    }
+    return;
+  }
+  for (int side = 0; side < 2; ++side) {
+    if (side == 0 ? q.b0 != 0 : q.b0 + p != g.B) continue;
+    const int i = side == 0 ? 0 : p - 1;
+    const long long o = ((long long)k * 2 + side) * g.A + q.a;
+    s[i] = mul_rn(T(0.5), add_rn(s[i], h ? h[o] : T(0)));
+    if (ho) ho[o] = s[i];
+  }
+}
+
 // One segment of step k: pair sums from the stage `st` (dss_vector: U, V;
 // dss_uvw: U, V from the stage, W from the assembled `wbuf`; dss_scalar2:
 // each field as dss_scalar sums its one; dss_state: U, V as dss_vector, Rt,
 // Rho and W as dss_scalar), edge terms, the inverse multiplicities `ims`,
-// dss_state's finish, stores.
+// the no-flux walls' halo average (CART), dss_state's finish, stores.
 template <typename T, bool CART, int PP, int M>
 __device__ __forceinline__ void band_work(const BandArgs<T>& g, const Seg& q,
                                           const T* st, const T* wbuf,
@@ -720,6 +766,12 @@ __device__ __forceinline__ void band_work(const BandArgs<T>& g, const Seg& q,
         s[i] = mul_rn(s[i], w[i]);
         sv[i] = mul_rn(sv[i], w[i]);
       }
+      if constexpr (CART) {
+        if (g.noflux) {
+          wall_average(g, 0, k, q, p, s);
+          wall_average(g, 1, k, q, p, sv);
+        }
+      }
       if (ray) {
         ray_finish<T, PP, NMAX>(g, 0, out, p, s);
         ray_finish<T, PP, NMAX>(g, 1, out, p, sv);
@@ -739,6 +791,9 @@ __device__ __forceinline__ void band_work(const BandArgs<T>& g, const Seg& q,
       pair_sums<T, PP, NMAX>(F, q, p, s);
       if constexpr (!CART) edges_scalar(F + g.span, q, a0, TA, A, p, s);
       for (int i = 0; i < p; ++i) s[i] = mul_rn(s[i], w[i]);
+      if constexpr (CART) {
+        if (g.noflux) wall_average(g, M == M_UVW ? 2 : f, k, q, p, s);
+      }
       if (ray) ray_finish<T, PP, NMAX>(g, f, out, p, s);
       store_seg<T, PP>(g.out[M == M_UVW ? 2 : f] + out, s, p);
     }
@@ -914,6 +969,14 @@ int launch_band(BandArgs<T> g, int threads, void* stream) {
     }
   }
   if (g.nlinks && (g.nlinks != 4 * g.P || g.P > MAX_PANELS)) return -1;
+  // no-flux walls: a Cartesian grid, one axis, no wrap along it
+  if (g.noflux && (g.nlinks || g.P != 1 || g.noflux > 2 ||
+                   (g.wrap & g.noflux)))
+    return -1;
+  for (int f = 0; f < 5; ++f) {
+    if (!aligned(g.halo[f], ES) || !aligned(g.hout[f], ES)) return -1;
+    if (g.hout[f] && (M != M_STATE || !g.noflux)) return -1;
+  }
   // the layout of BandArgs, each part rounded up to 16 bytes
   auto up = [](int n) { return (n + 16 / ES - 1) / (16 / ES) * (16 / ES); };
   const int edge = g.nlinks ? 2 * (TA + 2) + 2 * g.A : 0;
@@ -941,11 +1004,25 @@ int launch_band(BandArgs<T> g, int threads, void* stream) {
   return err;
 }
 
+// `wrap`'s bits 1 and 2 the periodic wrap (along a, along b), bits 4 and 8
+// the no-flux walls (along a, along b); `walls`: null, or the halo wall rows
+// of the outputs (5 pointers, null for the zero halo) and, in the state
+// mode, the 5 pointers of `hout`.
+template <typename T>
+void set_walls(BandArgs<T>& g, int wrap, const void* const* walls) {
+  g.wrap = wrap & 3;
+  g.noflux = (wrap >> 2) & 3;
+  for (int f = 0; f < 5; ++f) {
+    g.halo[f] = walls ? (const T*)walls[f] : nullptr;
+    g.hout[f] = walls ? (T*)walls[5 + f] : nullptr;
+  }
+}
+
 template <typename T>
 int launch_scalar(const void* x, const void* imult, const void* table,
                   void* out, int K, int P, int A, int B, int p, int nlinks,
                   int wrap, int rows, int levels, int threads, int ring,
-                  int copy, void* stream) {
+                  int copy, const void* const* walls, void* stream) {
   BandArgs<T> g = {};
   g.x[0] = (const T*)x;
   g.out[0] = (T*)out;
@@ -953,8 +1030,8 @@ int launch_scalar(const void* x, const void* imult, const void* table,
   if (nlinks > 0 && nlinks <= 4 * MAX_PANELS)
     for (int i = 0; i < 4 * nlinks; ++i) g.table[i] = ((const int*)table)[i];
   g.K = K; g.P = P; g.A = A; g.B = B; g.p = p; g.nlinks = nlinks;
-  g.wrap = wrap; g.rows = rows; g.levels = levels; g.ring = ring;
-  g.copy = copy;
+  g.rows = rows; g.levels = levels; g.ring = ring; g.copy = copy;
+  set_walls(g, wrap, walls);
   return launch_band<T, M_SCALAR>(g, threads, stream);
 }
 
@@ -965,7 +1042,8 @@ int launch_uvw(const void* u, const void* v, const void* bw1, const void* bw2,
                const void* table, void* uo, void* vo, void* wo, double dt_s,
                double cb1, double cb2, double c00, double c01, int nz, int P,
                int A, int B, int p, int nlinks, int wrap, int rows,
-               int levels, int threads, int ring, int copy, void* stream) {
+               int levels, int threads, int ring, int copy,
+               const void* const* walls, void* stream) {
   BandArgs<T> g = {};
   const void* x[5] = {u, v, bw1, bw2, dw};
   for (int f = 0; f < 5; ++f) g.x[f] = (const T*)x[f];
@@ -980,8 +1058,8 @@ int launch_uvw(const void* u, const void* v, const void* bw1, const void* bw2,
   g.dt_s = (T)dt_s; g.cb1 = (T)cb1; g.cb2 = (T)cb2; g.c00 = (T)c00;
   g.c01 = (T)c01;
   g.K = nz; g.P = P; g.A = A; g.B = B; g.p = p; g.nlinks = nlinks;
-  g.wrap = wrap; g.rows = rows; g.levels = levels; g.ring = ring;
-  g.copy = copy;
+  g.rows = rows; g.levels = levels; g.ring = ring; g.copy = copy;
+  set_walls(g, wrap, walls);
   return launch_band<T, M_UVW>(g, threads, stream);
 }
 
@@ -989,7 +1067,8 @@ template <typename T>
 int launch_scalar2(const void* x1, const void* x2, const void* imult,
                    const void* table, void* o1, void* o2, int K, int P, int A,
                    int B, int p, int nlinks, int wrap, int rows, int levels,
-                   int threads, int ring, int copy, void* stream) {
+                   int threads, int ring, int copy,
+                   const void* const* walls, void* stream) {
   BandArgs<T> g = {};
   g.x[0] = (const T*)x1;
   g.x[1] = (const T*)x2;
@@ -999,8 +1078,8 @@ int launch_scalar2(const void* x1, const void* x2, const void* imult,
   if (nlinks > 0 && nlinks <= 4 * MAX_PANELS)
     for (int i = 0; i < 4 * nlinks; ++i) g.table[i] = ((const int*)table)[i];
   g.K = K; g.P = P; g.A = A; g.B = B; g.p = p; g.nlinks = nlinks;
-  g.wrap = wrap; g.rows = rows; g.levels = levels; g.ring = ring;
-  g.copy = copy;
+  g.rows = rows; g.levels = levels; g.ring = ring; g.copy = copy;
+  set_walls(g, wrap, walls);
   return launch_band<T, M_SCALAR2>(g, threads, stream);
 }
 
@@ -1009,7 +1088,7 @@ int launch_vector(const void* u, const void* v, const void* imult,
                   const void* rot, const void* table, void* uo, void* vo,
                   int K, int P, int A, int B, int p, int nlinks, int wrap,
                   int rows, int levels, int threads, int ring, int copy,
-                  void* stream) {
+                  const void* const* walls, void* stream) {
   BandArgs<T> g = {};
   g.x[0] = (const T*)u;
   g.x[1] = (const T*)v;
@@ -1020,8 +1099,8 @@ int launch_vector(const void* u, const void* v, const void* imult,
   if (nlinks > 0 && nlinks <= 4 * MAX_PANELS)
     for (int i = 0; i < 4 * nlinks; ++i) g.table[i] = ((const int*)table)[i];
   g.K = K; g.P = P; g.A = A; g.B = B; g.p = p; g.nlinks = nlinks;
-  g.wrap = wrap; g.rows = rows; g.levels = levels; g.ring = ring;
-  g.copy = copy;
+  g.rows = rows; g.levels = levels; g.ring = ring; g.copy = copy;
+  set_walls(g, wrap, walls);
   return launch_band<T, M_VECTOR>(g, threads, stream);
 }
 
@@ -1031,7 +1110,7 @@ template <typename T>
 int launch_state(const void* const* ptrs, const void* imult, const void* rot,
                  const void* table, int nz, int P, int A, int B, int p,
                  int nlinks, int wrap, int rows, int levels, int threads,
-                 int ring, int copy, void* stream) {
+                 int ring, int copy, const void* const* walls, void* stream) {
   BandArgs<T> g = {};
   for (int f = 0; f < 5; ++f) {
     g.x[f] = (const T*)ptrs[f];
@@ -1044,8 +1123,8 @@ int launch_state(const void* const* ptrs, const void* imult, const void* rot,
   if (nlinks > 0 && nlinks <= 4 * MAX_PANELS)
     for (int i = 0; i < 4 * nlinks; ++i) g.table[i] = ((const int*)table)[i];
   g.K = nz; g.P = P; g.A = A; g.B = B; g.p = p; g.nlinks = nlinks;
-  g.wrap = wrap; g.rows = rows; g.levels = levels; g.ring = ring;
-  g.copy = copy;
+  g.rows = rows; g.levels = levels; g.ring = ring; g.copy = copy;
+  set_walls(g, wrap, walls);
   return launch_band<T, M_STATE>(g, threads, stream);
 }
 
@@ -1054,26 +1133,30 @@ int launch_state(const void* const* ptrs, const void* imult, const void* rot,
 extern "C" {
 
 // table: the HOST copy of the link table (fast/dss_cuda.py's link_table),
-// taken by value; rows, levels, threads, ring: the launch shape
-// (dss_launch_shape); copy: 16 (bulk copies), 8 or 4 bytes (cp.async).
+// taken by value; wrap: the periodic wrap (1: along a, 2: along b) and the
+// no-flux walls (4: along a, 8: along b); rows, levels, threads, ring: the
+// launch shape (dss_launch_shape); copy: 16 (bulk copies), 8 or 4 bytes
+// (cp.async); walls: null, or 10 pointers: the halo wall rows of each
+// output (null: the zero halo), then (dss_state only) where to write the
+// wall values before the finish (null: nowhere).
 // Returns cudaGetLastError(), -1 for a shape or copy width the kernel does
 // not take, -2 for more shared memory than a block has.
 int dss_scalar_f32(const void* x, const void* imult, const void* table,
                    void* out, int K, int P, int A, int B, int p, int nlinks,
                    int wrap, int rows, int levels, int threads, int ring,
-                   int copy, void* stream) {
+                   int copy, const void* const* walls, void* stream) {
   return launch_scalar<float>(x, imult, table, out, K, P, A, B, p, nlinks,
                               wrap, rows, levels, threads, ring, copy,
-                              stream);
+                              walls, stream);
 }
 
 int dss_scalar_f64(const void* x, const void* imult, const void* table,
                    void* out, int K, int P, int A, int B, int p, int nlinks,
                    int wrap, int rows, int levels, int threads, int ring,
-                   int copy, void* stream) {
+                   int copy, const void* const* walls, void* stream) {
   return launch_scalar<double>(x, imult, table, out, K, P, A, B, p, nlinks,
                                wrap, rows, levels, threads, ring, copy,
-                               stream);
+                               walls, stream);
 }
 
 // Launch shape and returns as dss_scalar's; rot: (4, nlinks, A) rotation
@@ -1082,20 +1165,20 @@ int dss_vector_f32(const void* u, const void* v, const void* imult,
                    const void* rot, const void* table, void* uo, void* vo,
                    int K, int P, int A, int B, int p, int nlinks, int wrap,
                    int rows, int levels, int threads, int ring, int copy,
-                   void* stream) {
+                   const void* const* walls, void* stream) {
   return launch_vector<float>(u, v, imult, rot, table, uo, vo, K, P, A, B, p,
                               nlinks, wrap, rows, levels, threads, ring, copy,
-                              stream);
+                              walls, stream);
 }
 
 int dss_vector_f64(const void* u, const void* v, const void* imult,
                    const void* rot, const void* table, void* uo, void* vo,
                    int K, int P, int A, int B, int p, int nlinks, int wrap,
                    int rows, int levels, int threads, int ring, int copy,
-                   void* stream) {
+                   const void* const* walls, void* stream) {
   return launch_vector<double>(u, v, imult, rot, table, uo, vo, K, P, A, B,
                                p, nlinks, wrap, rows, levels, threads, ring,
-                               copy, stream);
+                               copy, walls, stream);
 }
 
 // bw2 may be null (single base).  Launch shape and returns as dss_scalar's;
@@ -1106,11 +1189,12 @@ int dss_uvw_f32(const void* u, const void* v, const void* bw1, const void* bw2,
                 const void* table, void* uo, void* vo, void* wo, double dt_s,
                 double cb1, double cb2, double c00, double c01, int nz, int P,
                 int A, int B, int p, int nlinks, int wrap, int rows,
-                int levels, int threads, int ring, int copy, void* stream) {
+                int levels, int threads, int ring, int copy,
+                const void* const* walls, void* stream) {
   return launch_uvw<float>(u, v, bw1, bw2, dw, cax0, cbx0, cxx0, imult, rot,
                            table, uo, vo, wo, dt_s, cb1, cb2, c00, c01, nz, P,
                            A, B, p, nlinks, wrap, rows, levels, threads, ring,
-                           copy, stream);
+                           copy, walls, stream);
 }
 
 int dss_uvw_f64(const void* u, const void* v, const void* bw1, const void* bw2,
@@ -1119,11 +1203,12 @@ int dss_uvw_f64(const void* u, const void* v, const void* bw1, const void* bw2,
                 const void* table, void* uo, void* vo, void* wo, double dt_s,
                 double cb1, double cb2, double c00, double c01, int nz, int P,
                 int A, int B, int p, int nlinks, int wrap, int rows,
-                int levels, int threads, int ring, int copy, void* stream) {
+                int levels, int threads, int ring, int copy,
+                const void* const* walls, void* stream) {
   return launch_uvw<double>(u, v, bw1, bw2, dw, cax0, cbx0, cxx0, imult, rot,
                             table, uo, vo, wo, dt_s, cb1, cb2, c00, c01, nz,
                             P, A, B, p, nlinks, wrap, rows, levels, threads,
-                            ring, copy, stream);
+                            ring, copy, walls, stream);
 }
 
 // ptrs: the 20 pointers of launch_state (U, V, Rt, Rho have nz levels, W
@@ -1131,19 +1216,19 @@ int dss_uvw_f64(const void* u, const void* v, const void* bw1, const void* bw2,
 int dss_state_f32(const void* const* ptrs, const void* imult, const void* rot,
                   const void* table, int nz, int P, int A, int B, int p,
                   int nlinks, int wrap, int rows, int levels, int threads,
-                  int ring, int copy, void* stream) {
+                  int ring, int copy, const void* const* walls, void* stream) {
   return launch_state<float>(ptrs, imult, rot, table, nz, P, A, B, p, nlinks,
                              wrap, rows, levels, threads, ring, copy,
-                             stream);
+                             walls, stream);
 }
 
 int dss_state_f64(const void* const* ptrs, const void* imult, const void* rot,
                   const void* table, int nz, int P, int A, int B, int p,
                   int nlinks, int wrap, int rows, int levels, int threads,
-                  int ring, int copy, void* stream) {
+                  int ring, int copy, const void* const* walls, void* stream) {
   return launch_state<double>(ptrs, imult, rot, table, nz, P, A, B, p,
                               nlinks, wrap, rows, levels, threads, ring, copy,
-                              stream);
+                              walls, stream);
 }
 
 // Two scalar fields of one shape; launch shape and returns as
@@ -1151,19 +1236,21 @@ int dss_state_f64(const void* const* ptrs, const void* imult, const void* rot,
 int dss_scalar2_f32(const void* x1, const void* x2, const void* imult,
                     const void* table, void* o1, void* o2, int K, int P, int A,
                     int B, int p, int nlinks, int wrap, int rows, int levels,
-                    int threads, int ring, int copy, void* stream) {
+                    int threads, int ring, int copy,
+                    const void* const* walls, void* stream) {
   return launch_scalar2<float>(x1, x2, imult, table, o1, o2, K, P, A, B, p,
                                nlinks, wrap, rows, levels, threads, ring,
-                               copy, stream);
+                               copy, walls, stream);
 }
 
 int dss_scalar2_f64(const void* x1, const void* x2, const void* imult,
                     const void* table, void* o1, void* o2, int K, int P, int A,
                     int B, int p, int nlinks, int wrap, int rows, int levels,
-                    int threads, int ring, int copy, void* stream) {
+                    int threads, int ring, int copy,
+                    const void* const* walls, void* stream) {
   return launch_scalar2<double>(x1, x2, imult, table, o1, o2, K, P, A, B, p,
                                 nlinks, wrap, rows, levels, threads, ring,
-                                copy, stream);
+                                copy, walls, stream);
 }
 
 }  // extern "C"

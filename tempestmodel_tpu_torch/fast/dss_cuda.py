@@ -34,6 +34,19 @@ optionally with the Rayleigh finish ``x <- fac * x + ref`` folded in;
 ``dss_scalar2`` is the DSS of two scalar fields of one shape in one launch.
 Both give what the separate launches give, bit for bit.
 
+A Cartesian grid with no-flux walls along one axis (``noflux`` = (along a,
+along b), at most one) averages each wall node's result with its halo,
+``0.5 * (x + h)``, after the inverse multiplicity and before the Rayleigh
+finish, as ``grid/cartesian.apply_dss_cartesian(halo=)`` does.  Every mode
+takes ``halo``: None (no average: the halo tracks the node), ``ZERO_HALO``
+(the halo of the nu4 working state, which the reference zeroes) or, per
+output field, the halo's wall rows alone: ``(levels, 2, L)`` as
+``wall_rows`` takes them (L = B for walls along a, A along b; side 0 the
+first wall).  Only wall rows are ever read, and a wall-row halo makes the
+stage combinations of the halo cost O(walls) instead of O(state).
+``dss_state`` can also return the wall rows of its result before the
+Rayleigh finish (``walls_out``).
+
 Every wrapper launches its kernel for CUDA
 tensors — or raise — and run the plain version only for tensors that lie on
 the CPU.
@@ -60,6 +73,43 @@ from ..kernels.counts import launch_counts
 # plain versions
 # ---------------------------------------------------------------------------
 
+ZERO_HALO = "zero"   # the halo of a zeroed working state (nu4 pass 1)
+
+
+def wall_rows(f, noflux):
+    """The wall rows of a ``(K, 1, A, B)`` field: ``(K, 2, B)`` (rows a = 0
+    and A - 1) for walls along a, ``(K, 2, A)`` (columns b = 0 and B - 1)
+    along b; a fresh contiguous tensor."""
+    # slices, not an index list: a CUDA graph capture cannot copy one
+    if noflux[0]:
+        return torch.stack((f[:, 0, 0, :], f[:, 0, -1, :]), 1)
+    if noflux[1]:
+        return torch.stack((f[:, 0, :, 0], f[:, 0, :, -1]), 1)
+    raise ValueError("wall_rows needs a no-flux axis")
+
+
+def _wall_average(o, h, noflux):
+    """``o`` (a fresh DSS result) with its wall nodes averaged with the
+    halo ``h`` (wall rows, or ``ZERO_HALO``), in place."""
+    for side, idx in ((0, 0), (1, -1)):
+        if noflux[0]:
+            hv = 0.0 if h is ZERO_HALO else h[:, side]
+            o[:, 0, idx, :] = 0.5 * (o[:, 0, idx, :] + hv)
+        elif noflux[1]:
+            hv = 0.0 if h is ZERO_HALO else h[:, side]
+            o[:, 0, :, idx] = 0.5 * (o[:, 0, :, idx] + hv)
+    return o
+
+
+def _halo_part(halo, i):
+    """The halo of output ``i`` of a mode (``halo``: None, ``ZERO_HALO``
+    or a tuple a field)."""
+    return halo if halo is None or halo is ZERO_HALO else halo[i]
+
+
+def _walls_on(noflux, halo) -> bool:
+    return halo is not None and any(noflux)
+
 def _pair_sum_plain(f, p: int, wrap=(False, False)):
     """Interior element pair sums along axes 2 (a) and 3 (b) of a
     (K, P, A, B) field, with the periodic wrap-sum on the axes ``wrap``
@@ -82,8 +132,10 @@ def _edge_view(f, panel: int, edge: int):
     raise ValueError(edge)
 
 
-def dss_scalar_plain(f, imult, links, p: int, wrap=(False, False)):
-    """Plain PyTorch DSS of a scalar (K, P, A, B) field."""
+def dss_scalar_plain(f, imult, links, p: int, wrap=(False, False),
+                     noflux=(False, False), halo=None):
+    """Plain PyTorch DSS of a scalar (K, P, A, B) field; ``halo``: the
+    no-flux walls' (see the module note)."""
     s = _pair_sum_plain(f, p, wrap)
     # every neighbour line is taken from the PRE-edge-sum panel sums
     out = s.clone()
@@ -92,12 +144,16 @@ def dss_scalar_plain(f, imult, links, p: int, wrap=(False, False)):
         if flip:
             line = line.flip(-1)
         _edge_view(out, pa, e).add_(line)            # in place on `out`
-    return out * imult[None]
+    out = out * imult[None]
+    return _wall_average(out, halo, noflux) if _walls_on(noflux, halo) \
+        else out
 
 
-def dss_vector_plain(u, v, imult, rot, links, p: int, wrap=(False, False)):
+def dss_vector_plain(u, v, imult, rot, links, p: int, wrap=(False, False),
+                     noflux=(False, False), halo=None):
     """Plain PyTorch DSS of a covariant (U, V) pair; ``rot`` is
-    ``(4, nlinks, A)`` = [r00, r01, r10, r11] along each destination edge."""
+    ``(4, nlinks, A)`` = [r00, r01, r10, r11] along each destination edge;
+    ``halo``: None, ``ZERO_HALO`` or (U's, V's)."""
     su = _pair_sum_plain(u, p, wrap)
     sv = _pair_sum_plain(v, p, wrap)
     ou, ov = su.clone(), sv.clone()
@@ -109,7 +165,11 @@ def dss_vector_plain(u, v, imult, rot, links, p: int, wrap=(False, False)):
         _edge_view(ou, pa, e).add_(rot[0, i][None] * lu + rot[1, i][None] * lv)
         _edge_view(ov, pa, e).add_(rot[2, i][None] * lu + rot[3, i][None] * lv)
     w = imult[None]
-    return ou * w, ov * w
+    ou, ov = ou * w, ov * w
+    if _walls_on(noflux, halo):
+        _wall_average(ou, _halo_part(halo, 0), noflux)
+        _wall_average(ov, _halo_part(halo, 1), noflux)
+    return ou, ov
 
 
 def w_finish_plain(u, v, wf):
@@ -132,36 +192,57 @@ def w_finish_plain(u, v, wf):
 
 
 def dss_uvw_plain(u, v, imult, rot, links, p: int, w_finish,
-                  wrap=(False, False)):
+                  wrap=(False, False), noflux=(False, False), halo=None):
     """Plain PyTorch version of ``dss_uvw``: the W finish, then the vector
-    DSS of (U, V) and the scalar DSS of W."""
+    DSS of (U, V) and the scalar DSS of W; ``halo``: None, ``ZERO_HALO`` or
+    (U's, V's, W's)."""
     w = w_finish_plain(u, v, w_finish)
-    uo, vo = dss_vector_plain(u, v, imult, rot, links, p, wrap)
-    return uo, vo, dss_scalar_plain(w, imult, links, p, wrap)
+    uo, vo = dss_vector_plain(u, v, imult, rot, links, p, wrap, noflux,
+                              None if halo is None else (
+                                  _halo_part(halo, 0), _halo_part(halo, 1)))
+    return uo, vo, dss_scalar_plain(w, imult, links, p, wrap, noflux,
+                                    _halo_part(halo, 2))
 
 
 STATE_FIELDS = ("U", "V", "Rt", "Rho", "W")
 
 
-def dss_scalar2_plain(f1, f2, imult, links, p: int, wrap=(False, False)):
-    """Plain PyTorch version of ``dss_scalar2``: two scalar DSS."""
-    return (dss_scalar_plain(f1, imult, links, p, wrap),
-            dss_scalar_plain(f2, imult, links, p, wrap))
+def dss_scalar2_plain(f1, f2, imult, links, p: int, wrap=(False, False),
+                      noflux=(False, False), halo=None):
+    """Plain PyTorch version of ``dss_scalar2``: two scalar DSS; ``halo``:
+    None, ``ZERO_HALO`` or (f1's, f2's)."""
+    return (dss_scalar_plain(f1, imult, links, p, wrap, noflux,
+                             _halo_part(halo, 0)),
+            dss_scalar_plain(f2, imult, links, p, wrap, noflux,
+                             _halo_part(halo, 1)))
+
+
+def _state_halo(halo, k):
+    return halo if halo is None or halo is ZERO_HALO else halo[k]
 
 
 def dss_state_plain(d, imult, rot, links, p: int, rayleigh=None,
-                    wrap=(False, False)):
+                    wrap=(False, False), noflux=(False, False), halo=None,
+                    walls_out=False):
     """Plain PyTorch version of ``dss_state``: the vector DSS of (U, V), the
-    scalar DSS of Rt, Rho and W, then ``fac * x + ref`` per field where
-    ``rayleigh = (fac, ref)`` (two state dicts) is given."""
-    u, v = dss_vector_plain(d["U"], d["V"], imult, rot, links, p, wrap)
+    scalar DSS of Rt, Rho and W (each averaged with its halo at the no-flux
+    walls: ``halo`` None, ``ZERO_HALO`` or a dict of wall rows a field),
+    then ``fac * x + ref`` per field where ``rayleigh = (fac, ref)`` (two
+    state dicts) is given.  ``walls_out``: also return the wall rows of
+    each field before the finish, ``(out, walls)``."""
+    h = (lambda k: _state_halo(halo, k))
+    u, v = dss_vector_plain(d["U"], d["V"], imult, rot, links, p, wrap,
+                            noflux, None if halo is None else (h("U"),
+                                                               h("V")))
     out = {"U": u, "V": v}
     for k in ("Rt", "Rho", "W"):
-        out[k] = dss_scalar_plain(d[k], imult, links, p, wrap)
+        out[k] = dss_scalar_plain(d[k], imult, links, p, wrap, noflux, h(k))
+    walls = {k: wall_rows(out[k], noflux) for k in STATE_FIELDS} \
+        if walls_out else None
     if rayleigh is not None:
         fac, ref = rayleigh
         out = {k: fac[k] * out[k] + ref[k] for k in STATE_FIELDS}
-    return out
+    return (out, walls) if walls_out else out
 
 
 # ---------------------------------------------------------------------------
@@ -398,14 +479,23 @@ def _check_field(name, f, ref=None):
         raise ValueError(f"{name} does not match the first field")
 
 
-def _check_common(f, imult, links, p, wrap, table):
+def _check_common(f, imult, links, p, wrap, table, noflux=(False, False)):
     """Raises on what the kernels do not take.  Returns ``(table, flags)``:
     the device link table (made when absent; checked on CUDA only) and the
-    wrap bits of the kernels (1: along a, 2: along b)."""
+    wrap bits of the kernels (1: along a, 2: along b) with the no-flux
+    walls' (4: along a, 8: along b)."""
     K, P, A, B = f.shape
-    if len(wrap) != 2:
-        raise ValueError(f"wrap must name the two axes, got {wrap}")
+    if len(wrap) != 2 or len(noflux) != 2:
+        raise ValueError(f"wrap and noflux must name the two axes, got "
+                         f"{wrap}, {noflux}")
     flags = int(bool(wrap[0])) | 2 * int(bool(wrap[1]))
+    nf = int(bool(noflux[0])) | 2 * int(bool(noflux[1]))
+    if nf:
+        if links or P != 1 or nf == 3 or nf & flags:
+            raise ValueError(f"no-flux walls are for a Cartesian grid, "
+                             f"along one axis that does not wrap: noflux "
+                             f"{noflux}, wrap {wrap}")
+        flags |= 4 * nf
     if p < 2 or A % p != 0 or B % p != 0:
         raise ValueError(f"panels must hold whole elements of p >= 2 nodes, "
                          f"got A={A} B={B} p={p}")
@@ -438,6 +528,38 @@ def _check_common(f, imult, links, p, wrap, table):
     return table, flags
 
 
+def _check_halo(halo, outs, noflux):
+    """``halo`` against the outputs it pairs with (``outs``: their shapes
+    (K, P, A, B) in a mode's order, ``halo`` a sequence of as many wall-row
+    tensors, or None, or ``ZERO_HALO``)."""
+    if halo is None or halo is ZERO_HALO or not any(noflux):
+        return
+    if len(halo) != len(outs):
+        raise ValueError(f"halo: {len(outs)} fields, got {len(halo)}")
+    for h, (ref, shape) in zip(halo, outs):
+        K, P, A, B = shape
+        want = (K, 2, B if noflux[0] else A)
+        if tuple(h.shape) != want or h.dtype != ref.dtype \
+                or h.device != ref.device or not h.is_contiguous():
+            raise ValueError(f"a halo's wall rows must be a contiguous "
+                             f"{want} tensor of the field's dtype and device, "
+                             f"got {tuple(h.shape)}")
+
+
+def _walls_arg(flags, halo, hout=()):
+    """The kernels' ``walls`` argument: None without no-flux walls, else
+    the 10 pointers (the halo of each output, None for the zero halo; then
+    ``hout``).  Returns ``(array, keep)``: keep the tensors alive."""
+    if not flags & 12:
+        return None, ()
+    hs = [None] * 5 if halo is ZERO_HALO else list(halo)
+    hs += [None] * (5 - len(hs))
+    ho = list(hout) + [None] * (5 - len(hout))
+    arr = (ctypes.c_void_p * 10)(
+        *[None if t is None else t.data_ptr() for t in hs + ho])
+    return arr, (hs, ho)
+
+
 def _check_rot(rot, links, u):
     """``rot``: (4, nlinks, A); a grid without links has a one-link dummy."""
     if tuple(rot.shape) != (4, max(len(links), 1), u.shape[2]) \
@@ -447,18 +569,24 @@ def _check_rot(rot, links, u):
                          "the fields' dtype and device")
 
 
-def dss_scalar(f, imult, links, p: int, wrap=(False, False), table=None):
+def dss_scalar(f, imult, links, p: int, wrap=(False, False), table=None,
+               noflux=(False, False), halo=None):
     """DSS of a scalar (K, P, A, B) field; one kernel launch.
 
     ``table``: the device copy of ``link_table(links)`` (built once with the
-    geometry; made on the fly when absent)."""
+    geometry; made on the fly when absent).  ``noflux``, ``halo``: the
+    no-flux walls (module note; ``halo`` one wall-row tensor)."""
     _check_field("f", f)
-    table, flags = _check_common(f, imult, links, p, wrap, table)
+    table, flags = _check_common(f, imult, links, p, wrap, table,
+                                 noflux if halo is not None else (0, 0))
+    hs = None if halo is None or halo is ZERO_HALO else (halo,)
+    _check_halo(hs, [(f, f.shape)], noflux)
     if f.device.type == "cpu":
-        return dss_scalar_plain(f, imult, links, p, wrap)
+        return dss_scalar_plain(f, imult, links, p, wrap, noflux, halo)
     if f.device.type != "cuda":
         raise ValueError(f"unsupported device {f.device}")
-    return _dss_scalar_cuda(f, imult, links, p, flags)
+    return _dss_scalar_cuda(f, imult, links, p, flags,
+                            halo=halo if hs is None else hs)
 
 
 def _scalar_ptrs(f, imult):
@@ -478,21 +606,23 @@ def _table_ptr(links):
     return None if table is None else table.ctypes.data
 
 
-def _dss_scalar_cuda(f, imult, links, p, flags, launch=None):
+def _dss_scalar_cuda(f, imult, links, p, flags, launch=None, halo=None):
     """The launch of ``dss_scalar``; ``launch``: a ``DssLaunch`` in place
-    of the rule's."""
+    of the rule's; ``halo``: ``ZERO_HALO`` or a one-tensor tuple where the
+    no-flux bits of ``flags`` are set."""
     K, P, A, B = f.shape
     nlinks = len(links)
     cfg = launch_config(f, p, "scalar", _scalar_ptrs(f, imult),
                         nlinks > 0, launch)
     lib = build.library("dss")
     fn = lib.dss_scalar_f32 if f.dtype == torch.float32 else lib.dss_scalar_f64
+    walls, _keep = _walls_arg(flags, halo)
     with torch.cuda.device(f.device):
         out = torch.empty_like(f)
         err = fn(f.data_ptr(), imult.data_ptr(), _table_ptr(links),
                  out.data_ptr(), K, P, A, B, p, nlinks, flags, cfg["rows"],
                  cfg["levels"], cfg["threads"], cfg["ring"], cfg["copy"],
-                 torch.cuda.current_stream().cuda_stream)
+                 walls, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"dss_scalar kernel launch failed (error {err}; "
                            f"-1: launch shape or copy width not taken, -2: "
@@ -502,18 +632,22 @@ def _dss_scalar_cuda(f, imult, links, p, flags, launch=None):
 
 
 def dss_vector(u, v, imult, rot, links, p: int, wrap=(False, False),
-               table=None):
+               table=None, noflux=(False, False), halo=None):
     """DSS of a covariant vector pair (K, P, A, B) x 2; one kernel launch.
-    ``table``: as ``dss_scalar``'s."""
+    ``table``: as ``dss_scalar``'s; ``halo``: None, ``ZERO_HALO`` or (U's,
+    V's) wall rows."""
     _check_field("u", u)
     _check_field("v", v, ref=u)
-    table, flags = _check_common(u, imult, links, p, wrap, table)
+    table, flags = _check_common(u, imult, links, p, wrap, table,
+                                 noflux if halo is not None else (0, 0))
+    _check_halo(halo, [(u, u.shape)] * 2, noflux)
     _check_rot(rot, links, u)
     if u.device.type == "cpu":
-        return dss_vector_plain(u, v, imult, rot, links, p, wrap)
+        return dss_vector_plain(u, v, imult, rot, links, p, wrap, noflux,
+                                halo)
     if u.device.type != "cuda":
         raise ValueError(f"unsupported device {u.device}")
-    return _dss_vector_cuda(u, v, imult, rot, links, p, flags)
+    return _dss_vector_cuda(u, v, imult, rot, links, p, flags, halo=halo)
 
 
 def _vector_ptrs(u, v, imult):
@@ -522,15 +656,17 @@ def _vector_ptrs(u, v, imult):
     return [u.data_ptr(), v.data_ptr(), imult.data_ptr()]
 
 
-def _dss_vector_cuda(u, v, imult, rot, links, p, flags, launch=None):
+def _dss_vector_cuda(u, v, imult, rot, links, p, flags, launch=None,
+                     halo=None):
     """The launch of ``dss_vector``; ``launch``: a ``DssLaunch`` in place
-    of the rule's."""
+    of the rule's; ``halo``: as ``dss_vector``'s."""
     K, P, A, B = u.shape
     nlinks = len(links)
     cfg = launch_config(u, p, "vector", _vector_ptrs(u, v, imult),
                         nlinks > 0, launch)
     lib = build.library("dss")
     fn = lib.dss_vector_f32 if u.dtype == torch.float32 else lib.dss_vector_f64
+    walls, _keep = _walls_arg(flags, halo)
     with torch.cuda.device(u.device):
         uo = torch.empty_like(u)
         vo = torch.empty_like(v)
@@ -538,7 +674,7 @@ def _dss_vector_cuda(u, v, imult, rot, links, p, flags, launch=None):
                  rot.data_ptr(), _table_ptr(links), uo.data_ptr(),
                  vo.data_ptr(), K, P, A, B, p, nlinks, flags, cfg["rows"],
                  cfg["levels"], cfg["threads"], cfg["ring"], cfg["copy"],
-                 torch.cuda.current_stream().cuda_stream)
+                 walls, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"dss_vector kernel launch failed (error {err}; "
                            f"-1: launch shape or copy width not taken, -2: "
@@ -571,19 +707,25 @@ def _check_w_finish(wf, u):
 
 
 def dss_uvw(u, v, imult, rot, links, p: int, w_finish, wrap=(False, False),
-            table=None):
+            table=None, noflux=(False, False), halo=None):
     """DSS of (U, V, W) in one kernel launch with the W stage finish folded
-    in; returns ``(u, v, w)``.  ``w_finish``: see ``w_finish_plain``."""
+    in; returns ``(u, v, w)``.  ``w_finish``: see ``w_finish_plain``;
+    ``halo``: None, ``ZERO_HALO`` or (U's, V's, W's) wall rows."""
     _check_field("u", u)
     _check_field("v", v, ref=u)
-    table, flags = _check_common(u, imult, links, p, wrap, table)
+    table, flags = _check_common(u, imult, links, p, wrap, table,
+                                 noflux if halo is not None else (0, 0))
+    K, P, A, B = u.shape
+    _check_halo(halo, [(u, u.shape)] * 2 + [(u, (K + 1, P, A, B))], noflux)
     _check_rot(rot, links, u)
     _check_w_finish(w_finish, u)
     if u.device.type == "cpu":
-        return dss_uvw_plain(u, v, imult, rot, links, p, w_finish, wrap)
+        return dss_uvw_plain(u, v, imult, rot, links, p, w_finish, wrap,
+                             noflux, halo)
     if u.device.type != "cuda":
         raise ValueError(f"unsupported device {u.device}")
-    return _dss_uvw_cuda(u, v, imult, rot, links, p, flags, w_finish)
+    return _dss_uvw_cuda(u, v, imult, rot, links, p, flags, w_finish,
+                         halo=halo)
 
 
 def _uvw_ptrs(u, v, wf, imult):
@@ -596,9 +738,10 @@ def _uvw_ptrs(u, v, wf, imult):
             wf["cxx0"].data_ptr()]
 
 
-def _dss_uvw_cuda(u, v, imult, rot, links, p, flags, wf, launch=None):
+def _dss_uvw_cuda(u, v, imult, rot, links, p, flags, wf, launch=None,
+                  halo=None):
     """The launch of ``dss_uvw``; ``launch``: a ``DssLaunch`` in place of
-    the rule's."""
+    the rule's; ``halo``: as ``dss_uvw``'s."""
     K, P, A, B = u.shape
     nlinks = len(links)
     bw2 = wf.get("bw2")
@@ -606,6 +749,7 @@ def _dss_uvw_cuda(u, v, imult, rot, links, p, flags, wf, launch=None):
                         nlinks > 0, launch)
     lib = build.library("dss")
     fn = lib.dss_uvw_f32 if u.dtype == torch.float32 else lib.dss_uvw_f64
+    walls, _keep = _walls_arg(flags, halo)
     with torch.cuda.device(u.device):
         uo = torch.empty_like(u)
         vo = torch.empty_like(v)
@@ -620,7 +764,7 @@ def _dss_uvw_cuda(u, v, imult, rot, links, p, flags, wf, launch=None):
                  float(wf.get("cb2", 0.0)), float(wf["c00"]),
                  float(wf["c01"]), K, P, A, B, p, nlinks, flags, cfg["rows"],
                  cfg["levels"], cfg["threads"], cfg["ring"], cfg["copy"],
-                 torch.cuda.current_stream().cuda_stream)
+                 walls, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"dss_uvw kernel launch failed (error {err}; "
                            f"-1: launch shape or copy width not taken, -2: "
@@ -630,17 +774,20 @@ def _dss_uvw_cuda(u, v, imult, rot, links, p, flags, wf, launch=None):
 
 
 def dss_scalar2(f1, f2, imult, links, p: int, wrap=(False, False),
-                table=None):
+                table=None, noflux=(False, False), halo=None):
     """DSS of two scalar (K, P, A, B) fields of one shape; one kernel
-    launch.  Returns ``(out1, out2)``, equal to two ``dss_scalar`` calls."""
+    launch.  Returns ``(out1, out2)``, equal to two ``dss_scalar`` calls.
+    ``halo``: None, ``ZERO_HALO`` or (f1's, f2's) wall rows."""
     _check_field("f1", f1)
     _check_field("f2", f2, ref=f1)
-    table, flags = _check_common(f1, imult, links, p, wrap, table)
+    table, flags = _check_common(f1, imult, links, p, wrap, table,
+                                 noflux if halo is not None else (0, 0))
+    _check_halo(halo, [(f1, f1.shape)] * 2, noflux)
     if f1.device.type == "cpu":
-        return dss_scalar2_plain(f1, f2, imult, links, p, wrap)
+        return dss_scalar2_plain(f1, f2, imult, links, p, wrap, noflux, halo)
     if f1.device.type != "cuda":
         raise ValueError(f"unsupported device {f1.device}")
-    return _dss_scalar2_cuda(f1, f2, imult, links, p, flags)
+    return _dss_scalar2_cuda(f1, f2, imult, links, p, flags, halo=halo)
 
 
 def _scalar2_ptrs(f1, f2, imult):
@@ -648,9 +795,10 @@ def _scalar2_ptrs(f1, f2, imult):
     return [f1.data_ptr(), f2.data_ptr(), imult.data_ptr()]
 
 
-def _dss_scalar2_cuda(f1, f2, imult, links, p, flags, launch=None):
+def _dss_scalar2_cuda(f1, f2, imult, links, p, flags, launch=None,
+                      halo=None):
     """The launch of ``dss_scalar2``; ``launch``: a ``DssLaunch`` in place
-    of the rule's."""
+    of the rule's; ``halo``: as ``dss_scalar2``'s."""
     K, P, A, B = f1.shape
     nlinks = len(links)
     cfg = launch_config(f1, p, "scalar2", _scalar2_ptrs(f1, f2, imult),
@@ -658,13 +806,14 @@ def _dss_scalar2_cuda(f1, f2, imult, links, p, flags, launch=None):
     lib = build.library("dss")
     fn = lib.dss_scalar2_f32 if f1.dtype == torch.float32 \
         else lib.dss_scalar2_f64
+    walls, _keep = _walls_arg(flags, halo)
     with torch.cuda.device(f1.device):
         o1 = torch.empty_like(f1)
         o2 = torch.empty_like(f2)
         err = fn(f1.data_ptr(), f2.data_ptr(), imult.data_ptr(),
                  _table_ptr(links), o1.data_ptr(), o2.data_ptr(), K, P, A, B,
                  p, nlinks, flags, cfg["rows"], cfg["levels"],
-                 cfg["threads"], cfg["ring"], cfg["copy"],
+                 cfg["threads"], cfg["ring"], cfg["copy"], walls,
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"dss_scalar2 kernel launch failed (error {err}; "
@@ -686,7 +835,8 @@ def _check_state(name, d, u):
 
 
 def dss_state(d, imult, rot, links, p: int, rayleigh=None,
-              wrap=(False, False), table=None):
+              wrap=(False, False), table=None, noflux=(False, False),
+              halo=None, walls_out=False):
     """DSS of the full fast state in one kernel launch (the band kernel's
     state mode).
 
@@ -695,20 +845,31 @@ def dss_state(d, imult, rot, links, p: int, rayleigh=None,
     into the same launch (``x <- fac * x + ref`` after the DSS).  ``table``:
     as ``dss_scalar``'s.  Returns a dict of fresh tensors, equal to
     ``dss_vector`` plus three ``dss_scalar`` calls (and the plain Rayleigh
-    finish)."""
+    finish).  ``halo``: None, ``ZERO_HALO`` or a dict of wall rows a field
+    (the no-flux walls); ``walls_out`` (with a halo): also return the wall
+    rows of each field before the finish, ``(out, walls)``."""
     u = d["U"]
     _check_field("d['U']", u)
-    table, flags = _check_common(u, imult, links, p, wrap, table)
+    table, flags = _check_common(u, imult, links, p, wrap, table,
+                                 noflux if halo is not None else (0, 0))
     _check_state("d", d, u)
+    hs = None if halo is None or halo is ZERO_HALO else \
+        [halo[k] for k in STATE_FIELDS]
+    _check_halo(hs, [(d[k], d[k].shape) for k in STATE_FIELDS], noflux)
+    if walls_out and not flags & 12:
+        raise ValueError("walls_out needs a halo and a no-flux axis")
     _check_rot(rot, links, u)
     if rayleigh is not None:
         for i, part in enumerate(rayleigh):
             _check_state(f"rayleigh[{i}]", part, u)
     if u.device.type == "cpu":
-        return dss_state_plain(d, imult, rot, links, p, rayleigh, wrap)
+        return dss_state_plain(d, imult, rot, links, p, rayleigh, wrap,
+                               noflux, halo, walls_out)
     if u.device.type != "cuda":
         raise ValueError(f"unsupported device {u.device}")
-    return _dss_state_cuda(d, imult, rot, links, p, flags, rayleigh)
+    return _dss_state_cuda(d, imult, rot, links, p, flags, rayleigh,
+                           halo=halo if hs is None else hs,
+                           walls_out=walls_out)
 
 
 def _state_ptrs(d, imult):
@@ -717,9 +878,12 @@ def _state_ptrs(d, imult):
     return [d[k].data_ptr() for k in STATE_FIELDS] + [imult.data_ptr()]
 
 
-def _dss_state_cuda(d, imult, rot, links, p, flags, rayleigh, launch=None):
+def _dss_state_cuda(d, imult, rot, links, p, flags, rayleigh, launch=None,
+                    halo=None, walls_out=False):
     """The launch of ``dss_state``; ``launch``: a ``DssLaunch`` in place of
-    the rule's."""
+    the rule's; ``halo``: ``ZERO_HALO`` or the five fields' wall rows in
+    ``STATE_FIELDS`` order where the no-flux bits of ``flags`` are set;
+    ``walls_out``: also return the wall rows before the finish."""
     u = d["U"]
     K, P, A, B = u.shape
     nlinks = len(links)
@@ -734,13 +898,20 @@ def _dss_state_cuda(d, imult, rot, links, p, flags, rayleigh, launch=None):
         tensors = [d[k] for k in STATE_FIELDS] + ray + outs
         ptrs = (ctypes.c_void_p * len(tensors))(
             *[None if t is None else t.data_ptr() for t in tensors])
+        hout = []
+        if walls_out:
+            L = B if flags & 4 else A
+            hout = [torch.empty((d[k].shape[0], 2, L), dtype=u.dtype,
+                                device=u.device) for k in STATE_FIELDS]
+        walls, _keep = _walls_arg(flags, halo, hout)
         err = fn(ptrs, imult.data_ptr(), rot.data_ptr(), _table_ptr(links),
                  K, P, A, B, p, nlinks, flags, cfg["rows"], cfg["levels"],
-                 cfg["threads"], cfg["ring"], cfg["copy"],
+                 cfg["threads"], cfg["ring"], cfg["copy"], walls,
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"dss_state kernel launch failed (error {err}; "
                            f"-1: launch shape, copy width or finish not "
                            f"taken, -2: shared memory; launch {cfg})")
     launch_counts["dss_state"] += 1
-    return dict(zip(STATE_FIELDS, outs))
+    out = dict(zip(STATE_FIELDS, outs))
+    return (out, dict(zip(STATE_FIELDS, hout))) if walls_out else out

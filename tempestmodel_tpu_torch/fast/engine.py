@@ -1,7 +1,8 @@
 """Z-first engine: geometry, DSS, tendencies, Strang stepper.
 
 Counterpart of the JAX package's ``fast/engine.py``, for the cubed sphere
-and the periodic Cartesian grids (x-z slice, 3-D plane) on one device.  The
+and the Cartesian grids (x-z slice, 3-D plane; periodic, or with no-flux
+walls along one axis) on one device.  The
 execution shape is that package's:
 
   state dict {U,V,Rt,W,Rho} of (6, A, B, nz[+1])
@@ -32,14 +33,22 @@ K steps under one jit.
 
 A Cartesian grid is one panel without edge links: the DSS kernels take the
 periodic wrap-sum instead (``build_fast_geometry_cartesian``), and a grid
-with a short y extent may run (a, b)-transposed (``_swap_ab_state``).
+with a short y extent may run (a, b)-transposed (``_swap_ab_state``).  A
+no-flux wall (the density current's x walls, the baroclinic channel's y
+walls) is the JAX package's lagged halo: every DSS averages a wall node with
+its halo, and the halo (the wall rows of a "shadow" state) goes through the
+explicit stages' combinations as the JAX package's ``erk_substep(shadow0=)``
+threads it, through the tail (``step_after_subcycle(halo=)``) and into the
+carry (``halo_U``, ... beside the implicit increments).  Uniform (nu2)
+diffusion against the reference state is added at every explicit stage.
 
 ``make_fast_imex_step`` runs the IMEX-ARK family (``IMEX_SCHEMES``) on the
 same pieces: per stage the horizontal tendency, the full-state DSS and the
 vertical implicit solve, then the nu4 tail.
 
 Not ported yet (they wait in the roadmap, none is declared unnecessary):
-the device-mesh engine and no-flux Cartesian boundaries.
+the device-mesh engine, tracers and the IMEX family on no-flux grids, and
+tracers with uniform diffusion.
 
 Where the JAX code writes ``x.at[i].set(v)``, this one writes in place on
 a fresh tensor (a clone or a new result), never on an argument.
@@ -202,6 +211,16 @@ class FastGeometry:
     # nu_local_scale), which differs from the engine's first-axis element
     # width when ab_swapped
     nu_delta: float = None
+
+    @property
+    def noflux(self) -> tuple:
+        """The no-flux walls (along a, along b) in the engine's layout: on a
+        Cartesian grid (one panel) an axis without the periodic wrap has
+        walls (``fast_engine_supported`` takes no other lateral boundary);
+        the cubed sphere has none."""
+        if self.npanels != 1:
+            return (False, False)
+        return (not self.wrap[0], not self.wrap[1])
 
 
 def _extract_separable_metric(geom):
@@ -401,8 +420,9 @@ def build_fast_geometry_cartesian(geom, dtype=torch.float32, device=None,
 
     One panel, no edge links: the DSS kernels run pure pair sums with the
     per-axis periodic wrap-sum (``dss_cuda``, ``wrap``), the analog of
-    ``GridCartesianGLL::ApplyDSS`` periodic averaging.  The engine takes
-    periodic lateral boundaries only (``fast_engine_supported``).
+    ``GridCartesianGLL::ApplyDSS`` periodic averaging; an axis without the
+    wrap has no-flux walls, whose nodes the DSS averages with their halo
+    (``FastGeometry.noflux``).
 
     ``swap_ab`` (default ``swap_ab_default``): run the engine transposed --
     see ``_swap_ab_state``."""
@@ -565,8 +585,15 @@ def w_finish_xla(d, wf):
 DSS_MERGE_DEFAULT = ("state", "scalar2")
 
 
+def walls_of(d, fg: FastGeometry):
+    """The halo of a state on a no-flux grid: the wall rows of each of its
+    five fields (``dss_cuda.wall_rows``)."""
+    return {k: dss_cuda.wall_rows(d[k], fg.noflux) for k in FIELDS}
+
+
 def apply_dss(d, fg: FastGeometry, rayleigh=None, plain: bool = False,
-              w_finish=None, merge=DSS_MERGE_DEFAULT):
+              w_finish=None, merge=DSS_MERGE_DEFAULT, halo=None,
+              walls_out: bool = False):
     """DSS of the full fast state (U/V rotate as a covariant pair).
 
     Four launches (vector pair + 3 scalars) unless ``merge`` says otherwise:
@@ -589,39 +616,66 @@ def apply_dss(d, fg: FastGeometry, rayleigh=None, plain: bool = False,
     ``plain=True`` runs the kernels' plain PyTorch versions whatever the
     device: it exists so that a run can hold the kernel path against the
     plain path on the card.  The default launches the kernels for CUDA
-    tensors (or raises) and runs the plain versions for CPU tensors."""
+    tensors (or raises) and runs the plain versions for CPU tensors.
+
+    ``halo`` (a no-flux grid): None (no average), ``dss_cuda.ZERO_HALO`` or
+    the wall rows of each of the five fields (``walls_of``), passed to
+    every launch of every grouping; ``walls_out``: also return the wall
+    rows of the result before the Rayleigh finish, ``(out, walls)``."""
     common = (fg.inv_mult, fg.dss_links, fg.p)
     kw = {"wrap": fg.wrap} if plain else {"wrap": fg.wrap,
                                           "table": fg.dss_table}
+    hw = {}
+    if halo is not None and any(fg.noflux):
+        hw = {"noflux": fg.noflux}
+    elif walls_out:
+        raise ValueError("walls_out needs a no-flux grid and a halo")
+
+    def h(*keys):
+        """The halo keyword of the launch of fields ``keys``."""
+        if not hw:
+            return {}
+        if halo is dss_cuda.ZERO_HALO:
+            return dict(hw, halo=halo)
+        part = tuple(halo[k] for k in keys)
+        return dict(hw, halo=part[0] if len(keys) == 1 else part)
+
     scalar = dss_cuda.dss_scalar_plain if plain else dss_cuda.dss_scalar
     if w_finish is None and "state" in merge:
         fn = dss_cuda.dss_state_plain if plain else dss_cuda.dss_state
+        hs = {}
+        if hw:
+            hs = dict(hw, halo=halo, walls_out=walls_out)
         out = fn(d, fg.inv_mult, fg.e_rot, fg.dss_links, fg.p,
-                 rayleigh=rayleigh, **kw)
+                 rayleigh=rayleigh, **kw, **hs)
         if "Tracers" in d:
-            out["Tracers"] = scalar(d["Tracers"], *common, **kw)
+            (out[0] if walls_out else out)["Tracers"] = scalar(
+                d["Tracers"], *common, **kw)
         return out
     if w_finish is not None:
         fn = dss_cuda.dss_uvw_plain if plain else dss_cuda.dss_uvw
         u, v, w = fn(d["U"], d["V"], fg.inv_mult, fg.e_rot, fg.dss_links,
-                     fg.p, w_finish, **kw)
+                     fg.p, w_finish, **kw, **h("U", "V", "W"))
         out = {"U": u, "V": v, "W": w}
     else:
         fn = dss_cuda.dss_vector_plain if plain else dss_cuda.dss_vector
         u, v = fn(d["U"], d["V"], fg.inv_mult, fg.e_rot, fg.dss_links, fg.p,
-                  **kw)
-        out = {"U": u, "V": v, "W": scalar(d["W"], *common, **kw)}
+                  **kw, **h("U", "V"))
+        out = {"U": u, "V": v,
+               "W": scalar(d["W"], *common, **kw, **h("W"))}
     if "scalar2" in merge:
         fn = dss_cuda.dss_scalar2_plain if plain else dss_cuda.dss_scalar2
-        out["Rt"], out["Rho"] = fn(d["Rt"], d["Rho"], *common, **kw)
+        out["Rt"], out["Rho"] = fn(d["Rt"], d["Rho"], *common, **kw,
+                                   **h("Rt", "Rho"))
     else:
         for k in ("Rt", "Rho"):
-            out[k] = scalar(d[k], *common, **kw)
+            out[k] = scalar(d[k], *common, **kw, **h(k))
+    walls = walls_of(out, fg) if walls_out else None
     if rayleigh is not None:
         out = apply_rayleigh(out, *rayleigh)
     if "Tracers" in d:
         out["Tracers"] = scalar(d["Tracers"], *common, **kw)
-    return out
+    return (out, walls) if walls_out else out
 
 
 # ---------------------------------------------------------------------------
@@ -768,11 +822,17 @@ def apply_rayleigh(d, fac, ref_term):
 
 def step_after_subcycle(d, dt, cfg: ModelConfig, fg: FastGeometry,
                         rayleigh=None, dss_fn=None,
-                        use_fused_hyper: bool = False, hyper_fns=None):
+                        use_fused_hyper: bool = False, hyper_fns=None,
+                        halo=None):
     """nu4/nu2 hyperviscosity + DSS (+ optional Rayleigh) Strang tail.
 
-    ``dss_fn(d, rayleigh=None)``: full-state DSS with an optional Rayleigh
-    finish.  ``use_fused_hyper``: run each nu4 Laplacian pass as one kernel
+    ``dss_fn(d, rayleigh=None, halo=None, walls_out=False)``: full-state DSS
+    with an optional Rayleigh finish (``apply_dss``'s keywords).
+    ``halo`` (a no-flux grid: the wall rows of ``d``, as the JAX package's
+    ``step_after_subcycle_nh(halo=)``): the working DSS of nu4 takes the
+    zero halo, the finishing DSS this one, and the call returns ``(out,
+    walls)``: the wall rows after that DSS and before the Rayleigh finish,
+    or ``halo`` itself where there is no hyperdiffusion.  ``use_fused_hyper``: run each nu4 Laplacian pass as one kernel
     (``fast/hyper_cuda``; the caller must check ``hyper_cuda.supported``).
     ``hyper_fns``: ``(pass1(d), pass2(d, work, nu_s, nu_d, nu_v, dt))`` bound
     to the geometry; ``hyper_cuda``'s wrappers when absent.
@@ -783,14 +843,19 @@ def step_after_subcycle(d, dt, cfg: ModelConfig, fg: FastGeometry,
     there is no hyperdiffusion at all)."""
     from . import tracers as ftr
     if dss_fn is None:
-        dss_fn = lambda ds, rayleigh=None: apply_dss(ds, fg, rayleigh)
+        def dss_fn(ds, rayleigh=None, **hk):
+            return apply_dss(ds, fg, rayleigh, **hk)
     has_tr = "Tracers" in d
+    walled = halo is not None
+    # the halo keywords of the working DSS and of the finishing one
+    work_kw = {"halo": dss_cuda.ZERO_HALO} if walled else {}
+    fin_kw = {"halo": halo, "walls_out": True} if walled else {}
 
     def finish(ds):
         # order: tracer positivity filter -> DSS -> Rayleigh
         if has_tr:
             ds = dict(ds, Tracers=ftr.filter_horizontal(ds["Tracers"], fg))
-        return dss_fn(ds, rayleigh=rayleigh)
+        return dss_fn(ds, rayleigh=rayleigh, **fin_kw)
 
     if not cfg.hyperdiffusion or (
             cfg.nu_scalar == 0 and cfg.nu_div == 0 and cfg.nu_vort == 0):
@@ -800,7 +865,7 @@ def step_after_subcycle(d, dt, cfg: ModelConfig, fg: FastGeometry,
         if rayleigh is not None:
             out = dict(out, **apply_rayleigh(
                 {k: out[k] for k in FIELDS}, *rayleigh))
-        return out
+        return (out, halo) if walled else out
 
     scale = ((fg.nu_delta if fg.nu_delta is not None else fg.delta)
              / fg.reference_length) ** 3.2 \
@@ -837,7 +902,7 @@ def step_after_subcycle(d, dt, cfg: ModelConfig, fg: FastGeometry,
         work = pass1(d)
         if has_tr:
             work["Tracers"] = ftr.scalar_laplacian_tr(d["Tracers"], fg)
-        work = dss_fn(work)
+        work = dss_fn(work, **work_kw)
         out = pass2(d, work, nu_s, nu_d, nu_v, dt)
         if has_tr:
             out["Tracers"] = d["Tracers"] - dt * nu_s * \
@@ -853,7 +918,7 @@ def step_after_subcycle(d, dt, cfg: ModelConfig, fg: FastGeometry,
     }
     if has_tr:
         work["Tracers"] = ftr.scalar_laplacian_tr(d["Tracers"], fg)
-    work = dss_fn(work)
+    work = dss_fn(work, **work_kw)
 
     du, dv = vector_hyperdiff_update(work["U"], work["V"], nu_d, nu_v, fg)
     out = {
@@ -878,29 +943,43 @@ def step_after_subcycle(d, dt, cfg: ModelConfig, fg: FastGeometry,
 def fast_engine_supported(cfg: ModelConfig, has_tracers: bool = False,
                           mesh=None, geom=None) -> bool:
     """The configurations this engine covers: LOR staggering, Strang-HEVI,
-    with or without tracers, on one device, on the cubed sphere or on a
-    Cartesian grid (x-z slice or 3-D plane) with PERIODIC lateral
-    boundaries -- pass ``geom`` so that they can be checked; no-flux grids
-    are outside.  (The JAX package's engine also covers a device mesh; that
-    waits in the roadmap.)"""
+    with or without tracers, with or without uniform (nu2) diffusion, on
+    one device, on the cubed sphere or on a Cartesian grid (x-z slice or
+    3-D plane) with periodic lateral boundaries or no-flux walls along ONE
+    axis -- pass ``geom`` so that they can be checked.  Outside: tracers on
+    a no-flux grid and tracers with uniform diffusion (the roadmap's), and
+    no-flux walls along both axes (no test case has them).  (The JAX
+    package's engine also covers a device mesh and leaves no-flux grids and
+    uniform diffusion to its reference-layout engine.)"""
     from ..config import TimestepSchemeType
+    uniform = cfg.nu_uniform_scalar != 0.0 or cfg.nu_uniform_vector != 0.0
     if cfg.grid_kind == GridKind.CUBED_SPHERE:
         grid_ok = True
     elif cfg.grid_kind in (GridKind.CARTESIAN_XZ, GridKind.CARTESIAN_3D):
+        bcs = (getattr(geom, "bc_x", None), getattr(geom, "bc_y", None))
+        walls = bcs.count("noflux")
         grid_ok = (geom is not None
-                   and getattr(geom, "bc_x", None) == "periodic"
-                   and getattr(geom, "bc_y", None) == "periodic")
+                   and set(bcs) <= {"periodic", "noflux"} and walls < 2
+                   and not (walls and has_tracers))
     else:
         grid_ok = False
     return (grid_ok
             and mesh is None
+            and not (uniform and has_tracers)
             and cfg.vertical_staggering == VerticalStaggering.LORENZ
             and cfg.timescheme == TimestepSchemeType.STRANG
             and not cfg.explicit_vertical
             and cfg.vertical_solver in ("banded", "pallas")
-            and cfg.nu_uniform_scalar == 0.0
-            and cfg.nu_uniform_vector == 0.0
             and cfg.upwind_thermo)
+
+
+def _ref_zf(cfg: ModelConfig, ref_state, fg):
+    """The reference state z-first on the device of ``fg``, in the engine's
+    layout."""
+    ref = pack_state({k: torch.as_tensor(v).to(cfg.dtype)
+                      for k, v in ref_state.items()},
+                     device=fg.inv_mult.device)
+    return _swap_ab_state(ref) if fg.ab_swapped else ref
 
 
 def _rayleigh_terms(cfg: ModelConfig, geom, ref_state, fg):
@@ -931,17 +1010,14 @@ def _rayleigh_terms(cfg: ModelConfig, geom, ref_state, fg):
     npdt = np_dtype(cfg.dtype)
     fac = {k: torch.as_tensor(np.ascontiguousarray(v, dtype=npdt), device=dev)
            for k, v in fac.items()}
-    ref_zf = pack_state({k: torch.as_tensor(v).to(cfg.dtype)
-                         for k, v in ref_state.items()}, device=dev)
-    if fg.ab_swapped:
-        ref_zf = _swap_ab_state(ref_zf)
+    ref_zf = _ref_zf(cfg, ref_state, fg)
     ref_term = tree_map(lambda f, r: (1.0 - f) * r, fac, ref_zf)
     return (fac, ref_term)
 
 
 def _strang_fns(cfg: ModelConfig, fg: FastGeometry, rayleigh, dss_fn,
                 implicit_fn, stage_fn=None, use_wfold: bool = False,
-                hyper_fns=None):
+                hyper_fns=None, uniform=None):
     """The Strang-HEVI step on z-first state, parameterized over the DSS
     and implicit-solve implementations.
 
@@ -950,9 +1026,18 @@ def _strang_fns(cfg: ModelConfig, fg: FastGeometry, rayleigh, dss_fn,
     as plain tensor code.  ``use_wfold``: hand the fused stage's W finish to
     ``dss_fn(..., w_finish=)``.  ``hyper_fns``: the two nu4 passes bound to
     the geometry (see ``step_after_subcycle``); None runs the tail as plain
-    tensor code.  Tracers are detected from the state: the fused stage
-    advects them in its launch, the plain stage through
-    ``tracers.horizontal_update``.
+    tensor code.  ``uniform(upd, ueval, dt_s)``: the uniform (nu2)
+    diffusion added to every stage's update before its bottom W boundary,
+    or None.  Tracers are detected from the state: the fused stage advects
+    them in its launch, the plain stage through ``tracers.horizontal_update``.
+
+    On a no-flux grid (``fg.noflux``) the halo goes with the state: every
+    stage's DSS averages the walls with the shadow of its base (the JAX
+    package's ``erk_substep(shadow0=)``: the shadow of the step's first
+    state, combined as the bases are, a stage output its own shadow), the
+    tail's with the ERK result's (``step_after_subcycle(halo=)``), and the
+    carry holds the tail's wall rows (``halo_U``, ...) for the next step.
+    The first step's halo is its state before the implicit half step.
 
     Returns (first_fn, step_fn): first_fn(d) -> (d, carry),
     step_fn(d, carry) -> (d, carry).  Neither changes its arguments.
@@ -961,6 +1046,7 @@ def _strang_fns(cfg: ModelConfig, fg: FastGeometry, rayleigh, dss_fn,
     constants = cfg.constants
     dt = cfg.dt
     oc = cfg.off_centering
+    walled = any(fg.noflux)
 
     def axpy(base, tend, dt_s):
         return tree_map(lambda b, t: b + dt_s * t, base, tend)
@@ -970,67 +1056,102 @@ def _strang_fns(cfg: ModelConfig, fg: FastGeometry, rayleigh, dss_fn,
         return tree_map(
             lambda *xs: sum(c * x for c, x in zip(coeffs, xs)), *states)
 
-    def stage(base, ueval, dt_s):
+    def walls(d):
+        return walls_of(d, fg) if walled else None
+
+    def shadow_comb(*coeff_shadows):
+        return comb(*coeff_shadows) if walled else None
+
+    def stage(base, ueval, dt_s, shadow):
         """base: state dict or 2-term ((c1, d1), (c2, d2)) combination
-        (combined inside the fused stage kernel on the fused path)."""
+        (combined inside the fused stage kernel on the fused path);
+        ``shadow``: the wall rows of the base's halo (no-flux grids)."""
+        hk = {"halo": shadow} if walled else {}
         if stage_fn is not None:
             if use_wfold:
                 upd, wfin = stage_fn(base, ueval, dt_s, defer_w=True)
-                return dss_fn(upd, w_finish=wfin)
-            return dss_fn(stage_fn(base, ueval, dt_s))
+                return dss_fn(upd, w_finish=wfin, **hk)
+            upd = stage_fn(base, ueval, dt_s)
+            if uniform is not None:
+                # the stage came back with its bottom W; the nu2 increment
+                # goes on top and the boundary row is written again
+                upd = apply_w_boundary(uniform(upd, ueval, dt_s), fg)
+            return dss_fn(upd, **hk)
         bb = comb(*base) if isinstance(base, tuple) else base
         tend = horizontal_tendency(ueval, fg, constants)
         upd = axpy({k: bb[k] for k in FIELDS}, tend, dt_s)   # fresh tensors
+        if uniform is not None:
+            upd = uniform(upd, ueval, dt_s)
         upd = apply_w_boundary(upd, fg)
         if "Tracers" in ueval:
             base_tr = (tuple((c, b["Tracers"]) for c, b in base)
                        if isinstance(base, tuple) else base["Tracers"])
             upd["Tracers"] = ftr.horizontal_update(base_tr, ueval, dt_s, fg)
-        return dss_fn(upd)
+        return dss_fn(upd, **hk)
 
-    def erk(X0):
+    def erk(X0, H0):
+        """The explicit RK step from X0, whose halo's wall rows are H0 (None
+        without walls); a stage output is its own shadow."""
         scheme = cfg.explicit_scheme
         if scheme == ExplicitSubScheme.FORWARD_EULER:
-            return stage(X0, X0, dt)
+            return stage(X0, X0, dt, H0)
         if scheme == ExplicitSubScheme.RK4:
-            u1 = stage(X0, X0, 0.5 * dt)
-            u2 = stage(X0, u1, 0.5 * dt)
-            u3 = stage(X0, u2, dt)
-            base = comb((-1.0 / 3.0, X0), (1.0 / 3.0, u1),
-                        (2.0 / 3.0, u2), (1.0 / 3.0, u3))
-            return stage(base, u3, dt / 6.0)
+            u1 = stage(X0, X0, 0.5 * dt, H0)
+            u2 = stage(X0, u1, 0.5 * dt, H0)
+            u3 = stage(X0, u2, dt, H0)
+            cs = ((1.0 / 3.0, u1), (2.0 / 3.0, u2), (1.0 / 3.0, u3))
+            base = comb((-1.0 / 3.0, X0), *cs)
+            sh = shadow_comb((-1.0 / 3.0, H0),
+                             *((c, walls(u)) for c, u in cs))
+            return stage(base, u3, dt / 6.0, sh)
         if scheme == ExplicitSubScheme.SSPRK3:
-            u1 = stage(X0, X0, dt)
-            u2 = stage(((0.75, X0), (0.25, u1)), u1, 0.25 * dt)
+            u1 = stage(X0, X0, dt, H0)
+            u2 = stage(((0.75, X0), (0.25, u1)), u1, 0.25 * dt,
+                       shadow_comb((0.75, H0), (0.25, walls(u1))))
             return stage(((1.0 / 3.0, X0), (2.0 / 3.0, u2)),
-                         u2, 2.0 * dt / 3.0)
+                         u2, 2.0 * dt / 3.0,
+                         shadow_comb((1.0 / 3.0, H0),
+                                     (2.0 / 3.0, walls(u2))))
         if scheme == ExplicitSubScheme.KGU35:
-            u1 = stage(X0, X0, dt / 5.0)
-            u2 = stage(X0, u1, dt / 5.0)
-            u3 = stage(X0, u2, dt / 3.0)
-            u2b = stage(X0, u3, 2.0 * dt / 3.0)
-            return stage(((-0.25, X0), (1.25, u1)), u2b, 0.75 * dt)
+            u1 = stage(X0, X0, dt / 5.0, H0)
+            u2 = stage(X0, u1, dt / 5.0, H0)
+            u3 = stage(X0, u2, dt / 3.0, H0)
+            u2b = stage(X0, u3, 2.0 * dt / 3.0, H0)
+            # the two-term base is formed in the stage kernel: its shadow
+            # is the same combination of the shadows
+            return stage(((-0.25, X0), (1.25, u1)), u2b, 0.75 * dt,
+                         shadow_comb((-0.25, H0), (1.25, walls(u1))))
         if scheme == ExplicitSubScheme.SSPRK53:
             c1 = 0.377268915331368
             c3 = 0.242995220537396
             c4 = 0.238458932846290
             c5 = 0.287632146308408
-            u1 = stage(X0, X0, c1 * dt)
-            u2 = stage(u1, u1, c1 * dt)
-            u3 = stage(((0.355909775063327, X0),
-                        (0.644090224936674, u2)), u2, c3 * dt)
-            u0b = stage(((0.367933791638137, X0),
-                         (0.632066208361863, u3)), u3, c4 * dt)
-            return stage(((0.762406163401431, u0b),
-                          (0.237593836598569, u2)), u0b, c5 * dt)
+            u1 = stage(X0, X0, c1 * dt, H0)
+            u2 = stage(u1, u1, c1 * dt, walls(u1))
+            a3, b3 = 0.355909775063327, 0.644090224936674
+            u3 = stage(((a3, X0), (b3, u2)), u2, c3 * dt,
+                       shadow_comb((a3, H0), (b3, walls(u2))))
+            a4, b4 = 0.367933791638137, 0.632066208361863
+            u0b = stage(((a4, X0), (b4, u3)), u3, c4 * dt,
+                        shadow_comb((a4, H0), (b4, walls(u3))))
+            a5, b5 = 0.762406163401431, 0.237593836598569
+            return stage(((a5, u0b), (b5, u2)), u0b, c5 * dt,
+                         shadow_comb((a5, walls(u0b)), (b5, walls(u2))))
         raise ValueError(f"unsupported explicit scheme {scheme}")
 
-    def tail(X):
-        u4 = erk(X)
+    def tail(X, H):
+        if "Tracers" in X and (walled or uniform is not None):
+            raise NotImplementedError(
+                "tracers on a no-flux grid or with uniform diffusion are not "
+                "ported yet (see fast_engine_supported)")
+        u4 = erk(X, H)
+        hk = {"halo": walls(u4)} if walled else {}
         u1 = step_after_subcycle(u4, dt, cfg, fg, rayleigh=rayleigh,
                                  dss_fn=dss_fn,
                                  use_fused_hyper=hyper_fns is not None,
-                                 hyper_fns=hyper_fns)
+                                 hyper_fns=hyper_fns, **hk)
+        if walled:
+            u1, hal = u1
         u0 = implicit_fn(u1, 0.5 * (1.0 + oc) * dt)
         if oc != 0.0:
             u0 = comb((0.5 * (2.0 - oc), u0), (0.5 * oc, u1))
@@ -1040,20 +1161,63 @@ def _strang_fns(cfg: ModelConfig, fg: FastGeometry, rayleigh, dss_fn,
         # reference carries 5 instance buffers; two are provably no-ops)
         ck = ("Rt", "W", "Rho") + (("Tracers",) if "Tracers" in u0 else ())
         carry = {k: u0[k] - u1[k] for k in ck}
+        if walled:
+            carry.update({HALO + k: v for k, v in hal.items()})
         return u0, carry
 
     def first_fn(d):
-        return tail(implicit_fn(d, 0.5 * dt))
+        return tail(implicit_fn(d, 0.5 * dt), walls(d))
 
     def step_fn(d, carry):
         X0 = dict(d)
         for k in carry:
-            X0[k] = d[k] + carry[k]
+            if not k.startswith(HALO):
+                X0[k] = d[k] + carry[k]
         if "Tracers" in X0:
             X0["Tracers"] = ftr.filter_column(X0["Tracers"], fg)
-        return tail(X0)
+        H0 = {k: carry[HALO + k] for k in FIELDS} if walled else None
+        return tail(X0, H0)
 
     return first_fn, step_fn
+
+
+HALO = "halo_"   # the carry's keys of the no-flux halo: halo_U, ...
+
+
+def _uniform_fn(cfg: ModelConfig, fg: FastGeometry, ref_state, pass1=None):
+    """``uniform(upd, ueval, dt_s)``: the uniform (nu2) diffusion of an
+    explicit stage (the JAX package's ``uniform_diffusion_update``): the
+    Laplacians of ``ueval`` minus the reference state added to the stage's
+    update ``upd`` -- the vector one of (U, V) and W's scalar one with the
+    vector coefficient, Rt's with the scalar one; Rho is not diffused.
+    None where the configuration has none (or no reference state).
+    ``pass1``: the ``nu4_pass1`` kernel bound to the geometry, whose work
+    fields with coefficient 1 are exactly the Laplacians needed (-wu, -wv,
+    lap Rt, lap W); None takes them in plain tensor code."""
+    nu_s, nu_v = cfg.nu_uniform_scalar, cfg.nu_uniform_vector
+    if (nu_s == 0.0 and nu_v == 0.0) or ref_state is None:
+        return None
+    ref = _ref_zf(cfg, ref_state, fg)
+
+    def uniform(upd, ueval, dt_s):
+        out = dict(upd)
+        if pass1 is not None:
+            work = pass1({k: ueval[k] - ref[k] for k in FIELDS})
+            for k, nu in (("U", nu_v), ("V", nu_v), ("Rt", nu_s),
+                          ("W", nu_v)):
+                out[k] = upd[k] + (dt_s * nu) * work[k]
+            return out
+        du, dv = vector_hyperdiff_update(ueval["U"] - ref["U"],
+                                         ueval["V"] - ref["V"], nu_v, nu_v,
+                                         fg)
+        out["U"] = upd["U"] - dt_s * du
+        out["V"] = upd["V"] - dt_s * dv
+        out["Rt"] = upd["Rt"] + dt_s * nu_s * scalar_laplacian(
+            ueval["Rt"] - ref["Rt"], fg.jac3d, fg)
+        out["W"] = upd["W"] + dt_s * nu_v * scalar_laplacian(
+            ueval["W"] - ref["W"], fg.jac3d_int, fg)
+        return out
+    return uniform
 
 
 def make_fast_step(cfg: ModelConfig, geom, ref_state=None, mesh=None,
@@ -1061,7 +1225,8 @@ def make_fast_step(cfg: ModelConfig, geom, ref_state=None, mesh=None,
                    fused=None, dss_merge=None, swap_ab=None):
     """(first_step, step) on the fast state: step(d, carry) -> (d, carry).
 
-    ``geom``: a ``CubedSphereGeometry`` or a periodic ``CartesianGeometry``.
+    ``geom``: a ``CubedSphereGeometry`` or a ``CartesianGeometry``
+    (periodic, or with no-flux walls along one axis).
     On a Cartesian grid ``swap_ab`` chooses the engine's layout (default
     ``swap_ab_default``); a swapped engine takes and returns the natural
     packed layout, swapping at the step boundary, and its carry stays in the
@@ -1116,9 +1281,12 @@ class _Setup:
     fg: FastGeometry
     fused: bool         # the fused path's kernels where they apply
     rayleigh: Any       # (fac, ref_term) z-first, or None
-    dss_fn: Any         # dss_fn(d, rayleigh=None, w_finish=None)
+    dss_fn: Any         # dss_fn(d, rayleigh=None, w_finish=None, halo=None,
+    #                   #        walls_out=False)
     implicit_fn: Any    # implicit_fn(d, dti): the vertical implicit solve
     hyper_fns: Any      # the two nu4 passes bound to the geometry, or None
+    uniform: Any = None  # the stages' uniform diffusion (_uniform_fn)
+    #                    # or None
 
 
 def _setup(cfg, geom, ref_state, device, plain, fused, dss_merge, swap_ab):
@@ -1126,8 +1294,10 @@ def _setup(cfg, geom, ref_state, device, plain, fused, dss_merge, swap_ab):
     fast geometry, the implicit solve's bandwidth, statics and (with
     ``vertical_solver == "pallas"`` on the fused path) the fused kernel's
     statics, the nu4 passes where ``hyper_cuda.supported`` holds on the
-    fused path, the Rayleigh terms and the DSS closure.  The caller checks
-    the configuration's envelope first."""
+    fused path, the uniform diffusion (its Laplacians by ``nu4_pass1`` where
+    ``hyper_cuda.laplacians_supported`` holds on the fused path), the
+    Rayleigh terms and the DSS closure.  The caller checks the
+    configuration's envelope first."""
     from . import implicit as fimp
     from . import hyper_cuda, implicit_cuda
     from . import tracers as ftr
@@ -1158,13 +1328,18 @@ def _setup(cfg, geom, ref_state, device, plain, fused, dss_merge, swap_ab):
         if fused and use_pallas else None
 
     hyper_fns = None
-    if fused and hyper_cuda.supported(fg, cfg):
+    lap_kernel = fused and hyper_cuda.laplacians_supported(fg)
+    if lap_kernel:
         hst = hyper_cuda.hyper_statics(fg)
         pass1, pass2 = (
             (hyper_cuda.nu4_pass1_plain, hyper_cuda.nu4_pass2_plain) if plain
             else (hyper_cuda.nu4_pass1, hyper_cuda.nu4_pass2))
-        hyper_fns = (lambda x: pass1(x, fg, hst),
-                     lambda x, w, *nu_dt: pass2(x, w, *nu_dt, fg, hst))
+        if hyper_cuda.supported(fg, cfg):
+            hyper_fns = (lambda x: pass1(x, fg, hst),
+                         lambda x, w, *nu_dt: pass2(x, w, *nu_dt, fg, hst))
+    uniform = _uniform_fn(cfg, fg, ref_state,
+                          (lambda x: pass1(x, fg, hst)) if lap_kernel
+                          else None)
 
     tr_statics = ftr.tracer_statics(fg)
 
@@ -1180,12 +1355,25 @@ def _setup(cfg, geom, ref_state, device, plain, fused, dss_merge, swap_ab):
             out = dict(out, Tracers=ftr.filter_column(tr, fg))
         return out
 
-    def dss_fn(d, rayleigh=None, w_finish=None):
+    def dss_fn(d, rayleigh=None, w_finish=None, halo=None, walls_out=False):
         return apply_dss(d, fg, rayleigh, plain=plain, w_finish=w_finish,
-                         merge=dss_merge)
+                         merge=dss_merge, halo=halo, walls_out=walls_out)
 
     return _Setup(fg=fg, fused=fused, rayleigh=rayleigh, dss_fn=dss_fn,
-                  implicit_fn=implicit_fn, hyper_fns=hyper_fns)
+                  implicit_fn=implicit_fn, hyper_fns=hyper_fns,
+                  uniform=uniform)
+
+
+def _uvw_fits(fg: FastGeometry, dtype) -> bool:
+    """Whether a launch shape of ``dss_uvw`` fits a block on this grid (its
+    ring holds eleven staged fields: a swapped x-z slice of 512 nodes in
+    float64 does not fit; the stage's W finish then goes unfolded)."""
+    try:
+        dss_cuda.dss_launch_shape(fg.nz, fg.npanels, fg.A, fg.B, fg.p, dtype,
+                                  "uvw", links=bool(fg.dss_links))
+    except ValueError:
+        return False
+    return True
 
 
 def _fast_fns(cfg, geom, ref_state, mesh, device, plain, fused, dss_merge,
@@ -1211,10 +1399,12 @@ def _fast_fns(cfg, geom, ref_state, mesh, device, plain, fused, dss_merge,
     # fused_supported).
     use_fused_stage = s.fused and stage_cuda.stage_supported(fg)
     # fold the W stage finish into the (U, V) DSS launch when the surface
-    # interpolant row only reads the bottom two levels
+    # interpolant row only reads the bottom two levels, and no uniform
+    # diffusion comes between the stage and its DSS
     In0 = np.asarray(geom.interp_n2i)[0]
     use_wfold = (use_fused_stage and len(In0) >= 2
-                 and not np.any(In0[2:]))
+                 and not np.any(In0[2:]) and s.uniform is None
+                 and _uvw_fits(fg, cfg.dtype))
 
     stage_fn = None
     if use_fused_stage:
@@ -1229,7 +1419,7 @@ def _fast_fns(cfg, geom, ref_state, mesh, device, plain, fused, dss_merge,
 
     first_fn, step_fn = _strang_fns(
         cfg, fg, s.rayleigh, s.dss_fn, s.implicit_fn, stage_fn=stage_fn,
-        use_wfold=use_wfold, hyper_fns=s.hyper_fns)
+        use_wfold=use_wfold, hyper_fns=s.hyper_fns, uniform=s.uniform)
     return first_fn, step_fn, fg
 
 
@@ -1330,6 +1520,11 @@ def fast_imex_supported(cfg: ModelConfig, has_tracers: bool = False,
     them)."""
     from ..config import TimestepSchemeType
     if cfg.timescheme.value not in IMEX_SCHEMES or has_tracers:
+        return False
+    # no-flux walls and uniform diffusion are the Strang engine's only
+    if cfg.nu_uniform_scalar != 0.0 or cfg.nu_uniform_vector != 0.0 \
+            or "noflux" in (getattr(geom, "bc_x", None),
+                            getattr(geom, "bc_y", None)):
         return False
     return fast_engine_supported(
         cfg.with_(timescheme=TimestepSchemeType.STRANG), geom=geom)

@@ -55,10 +55,17 @@ def supported(fg, cfg) -> bool:
     layout, nor the wrap (the DSS between them does).  (The TPU kernels'
     further conditions on ``A`` and ``p`` are about their tiles and are not
     carried over.)"""
+    return cfg.hypervis_order == 4 and laplacians_supported(fg)
+
+
+def laplacians_supported(fg) -> bool:
+    """The geometry part of ``supported``: whether ``nu4_pass1`` computes
+    this grid's Laplacians (the engine also takes it for the uniform nu2
+    diffusion of every explicit stage, at any hyperviscosity order)."""
     jac, jac_i = fg.jac3d, fg.jac3d_int
     # equal up to the rounding of the geometry's dtype (1e-12 in float64)
     rtol = max(1e-12, 2.0 * torch.finfo(jac.dtype).eps)
-    return (cfg.hypervis_order == 4 and fg.vo >= 1 and fg.p <= MAX_P
+    return (fg.vo >= 1 and fg.p <= MAX_P
             and fg.A % fg.p == 0 and fg.B % fg.p == 0
             and bool((jac == jac[0:1]).all())
             and bool((jac_i == jac_i[0:1]).all())

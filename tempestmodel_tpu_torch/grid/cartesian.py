@@ -12,10 +12,11 @@ model dtype, as in ``grid/geometry.CubedSphereGeometry``; only the engine's
 pair sums plus a periodic wrap-sum at the lateral boundaries
 (``apply_dss_cartesian``).
 
-Not ported yet: the no-flux boundary updates ``apply_noflux_x/y`` (they wait
-with the reference-layout configurations in the roadmap).  A geometry with a
-no-flux axis can be built (its multiplicity and DSS are the JAX package's),
-but the z-first engine takes periodic grids only.
+A no-flux axis (``bc_x`` / ``bc_y == "noflux"``) has walls: its DSS
+averages a wall node with its halo (``apply_dss_cartesian(halo=)``, as the
+z-first engine's DSS kernels do), and ``apply_noflux_x/y`` are the clean SEM
+treatment (zero normal contravariant velocity at the walls), which the
+step, like the JAX package's, does not use.
 """
 
 from __future__ import annotations
@@ -376,3 +377,52 @@ def apply_dss_cartesian(f, geom: CartesianGeometry, halo=None):
         f[:, :, 0] = 0.5 * (f[:, :, 0] + halo[:, :, 0])
         f[:, :, -1] = 0.5 * (f[:, :, -1] + halo[:, :, -1])
     return f
+
+
+def apply_noflux_x(state, geom: CartesianGeometry):
+    """Impose zero normal contravariant velocity u^a = 0 at the x edges.
+
+    Reference ``GridPatchCartesianGLL::ApplyBoundaryConditions``
+    (``:928-1075``): U at the boundary is set so that
+    g^{aa} U + g^{ab} V + g^{a,xi} W = 0 with the boundary V/W values.
+    ``state``: reference-layout tensors (1, A, B, nz[+1]); returns a new
+    dict (U a fresh tensor).
+    """
+    if geom.bc_x != "noflux":
+        return state
+    u = state["U"]
+    con2d = torch.as_tensor(geom.con2d, dtype=u.dtype, device=u.device)
+    gaa = con2d[..., 0, 0, None]
+    gab = con2d[..., 0, 1, None]
+    con_a_xi = torch.as_tensor(geom.con_a_xi, dtype=u.dtype, device=u.device)
+    i2n = torch.as_tensor(geom.interp_i2n, dtype=u.dtype, device=u.device)
+    w_n = torch.einsum("KL,...L->...K", i2n, state["W"])
+    u_fix = -(gab * state["V"] + con_a_xi * w_n) / gaa
+    u = u.clone()
+    u[:, 0] = u_fix[:, 0]
+    u[:, -1] = u_fix[:, -1]
+    return dict(state, U=u)
+
+
+def apply_noflux_y(state, geom: CartesianGeometry):
+    """Impose zero normal contravariant velocity u^b = 0 at the y edges.
+
+    Mirror of :func:`apply_noflux_x` for channel grids (reference
+    ``GridPatchCartesianGLL::ApplyBoundaryConditions`` with
+    ``m_iLatBC[1/3] == BoundaryCondition_NoFlux``, e.g. the 3-D Cartesian
+    baroclinic channel ``test/nonhydro_xz/Baroclinic3DCartesianTest.cpp:
+    144-147``)."""
+    if geom.bc_y != "noflux":
+        return state
+    v = state["V"]
+    con2d = torch.as_tensor(geom.con2d, dtype=v.dtype, device=v.device)
+    gbb = con2d[..., 1, 1, None]
+    gab = con2d[..., 0, 1, None]
+    con_b_xi = torch.as_tensor(geom.con_b_xi, dtype=v.dtype, device=v.device)
+    i2n = torch.as_tensor(geom.interp_i2n, dtype=v.dtype, device=v.device)
+    w_n = torch.einsum("KL,...L->...K", i2n, state["W"])
+    v_fix = -(gab * state["U"] + con_b_xi * w_n) / gbb
+    v = v.clone()
+    v[:, :, 0] = v_fix[:, :, 0]
+    v[:, :, -1] = v_fix[:, :, -1]
+    return dict(state, V=v)

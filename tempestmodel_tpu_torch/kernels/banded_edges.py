@@ -22,7 +22,14 @@ rule's narrower blocks), and the forms it does not choose at these shapes
 forced (tile, stream) or chosen by the rule where no block of U rows fits
 (800 rows of q 8: the stream form), and pivots past both ends of the range
 where the kernel takes a quotient from the pivot's reciprocal (in the ring
-form and the tile form forced).  Inputs are
+form and the tile form forced).  ``HIGHQ_CASES`` do the same above q 8:
+the Lorenz systems of vertical orders 2 and 3 (n 91, q 10 and 16: the ring
+form's instantiations), of order 4 (q 22) and 800 rows of q 10 (the wide
+form), the tracer systems of order 5 (n 30, q 9, R 3: wide) and q 10 (the
+tile form), 400 rows of q 16 (the U rows rebuilt chunk by chunk in
+float64), a chunk of 12 rows forced, blocks of 8 columns, one column,
+unaligned inputs, the stream form forced at q 10 and the wide form at q
+4.  Inputs are
 diagonally dominant systems with zeros outside the matrix and right-hand
 sides of different size per species, seeded with numpy.  Used by
 ``chip_smoke.py``, the ``gpu`` tests, and the CPU tests that hold each
@@ -83,6 +90,66 @@ SOLVE_CASES = {
     "solve_extreme_pivots": (30, 2, 70, 0, {}, "ring"),
     "solve_extreme_tile": (30, 3, 40, 0, dict(form="tile"), "tile"),
 }
+
+# the cases above q 8: name -> wrapper ("solve": one right-hand side,
+# "multi"), n, q, R, ncol, values the inputs start past an aligned address,
+# overrides of the launch rule, the form the launch takes
+HIGHQ_CASES = {
+    "lorenz_vo2": ("solve", 91, 10, 1, 1000, 0, {}, "ring"),
+    "lorenz_vo3": ("solve", 91, 16, 1, 257, 0, {}, "ring"),
+    "lorenz_vo4": ("solve", 91, 22, 1, 100, 0, {}, "wide"),
+    "lorenz_vo2_n800": ("solve", 800, 10, 1, 40, 0, {}, "wide"),
+    "tracer_vo5": ("multi", 30, 9, 3, 1000, 0, {}, "wide"),
+    "tracer_q10_tile": ("multi", 30, 10, 3, 257, 1, {}, "tile"),
+    "long_q16": ("solve", 400, 16, 1, 40, 0, {}, "wide"),
+    "chunk12_multi": ("multi", 91, 10, 2, 70, 1, dict(chunk=12), "wide"),
+    "cols8_ncol1_q11": ("solve", 91, 11, 1, 1, 2, dict(cols=8), "wide"),
+    "stream_q10_forced": ("solve", 91, 10, 1, 70, 0, dict(form="stream"),
+                          "stream"),
+    "wide_forced_q4": ("solve", 30, 4, 1, 70, 1, dict(form="wide"), "wide"),
+}
+
+
+def highq_inputs(name: str, dtype, device):
+    """(bands, rhs, q) of case ``name`` of ``HIGHQ_CASES``: ``rhs`` (n,
+    ncol) for a ``"solve"`` case, (n, R, ncol) for ``"multi"``."""
+    kind, n, q, R, ncol, offset = HIGHQ_CASES[name][:6]
+    bands, rhs = systems(n, q, R, ncol, seed=sum(map(ord, name)))
+    rhs = rhs[:, 0] if kind == "solve" else rhs
+    return (_cut(bands, offset, dtype, device),
+            _cut(np.ascontiguousarray(rhs), offset, dtype, device), q)
+
+
+def highq_launch_shape(name: str, dtype):
+    """The ``MultiLaunch`` of case ``name`` of ``HIGHQ_CASES`` (its
+    wrapper's rule with the case's overrides)."""
+    from tempestmodel_tpu_torch.ops import cuda_banded
+    kind, n, q, R, ncol, _, over, _ = HIGHQ_CASES[name]
+    if kind == "solve":
+        return cuda_banded.banded_solve_launch_shape(n, q, ncol, dtype,
+                                                     **over)
+    return cuda_banded.banded_multi_launch_shape(n, q, R, ncol, dtype, **over)
+
+
+def run_highq_case(name: str, dtype, device) -> dict:
+    """Case ``name`` of ``HIGHQ_CASES``: the kernel against the plain
+    version on ``device`` (a CUDA device): ``{"max_err": relative, "shape",
+    "q", "launch"}``."""
+    from tempestmodel_tpu_torch.ops import cuda_banded
+    bands, rhs, q = highq_inputs(name, dtype, device)
+    sh = highq_launch_shape(name, dtype)
+    if HIGHQ_CASES[name][0] == "solve":
+        got = cuda_banded._banded_solve_cuda(bands, rhs, q, sh)
+        want = cuda_banded.banded_solve_plain(bands, rhs, q)
+    else:
+        got = cuda_banded._banded_solve_multi_cuda(bands, rhs, q, sh)
+        want = cuda_banded.banded_solve_multi_plain(bands, rhs, q)
+    torch.cuda.synchronize()
+    e = float((got - want).abs().max() / want.abs().max())
+    return {"max_err": e if e == e else float("inf"),   # NaN is the worst
+            "shape": list(rhs.shape), "q": q,
+            "launch": cuda_banded.launch_config(bands, rhs, q, sh)}
+
 
 # ``banded_solve`` cases with pivots past the ends of the range where the
 # kernel's quotients come from the pivot's reciprocal (csrc/banded_multi.cu:

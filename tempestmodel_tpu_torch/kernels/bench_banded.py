@@ -6,6 +6,7 @@ Run from the repository root on a machine with an NVIDIA Hopper card and
 nvcc:
 
     python3 tempestmodel_tpu_torch/kernels/bench_banded.py [--root DIR]
+    python3 tempestmodel_tpu_torch/kernels/bench_banded.py --highq
 
 ``DIR`` (default: the repository this file lies in) is the checkout whose
 package is imported, built and timed: an unpacked earlier commit (``git
@@ -31,6 +32,18 @@ memory one launch allocates, each form the checkout's launch rule can take
 (``banded_solve_launch_shape``), ``banded_solve_multi`` on the same systems
 with ``rhs.view(n, 1, ncol)`` (its rule's form, its tile form where a tile
 fits and its stream form forced), and the floor ``rhs * bands.sum(1)``.
+
+``--highq`` compares the two routes to half-bandwidths above 8: the wide
+form (q known at run time, the source as it is) against the template forms
+instantiated for q = 1..16 (the source built again with
+``-DBANDED_TEMPLATE_QMAX=16``).  It prints each build's nvcc seconds (both
+built afresh, one after the other) and the ``-Xptxas -v`` registers and
+spills of the forms at q 9, 10 and 16, then, float32 and float64, each
+route's time at the Lorenz systems of vertical orders 2 and 3 (n 91, q 10
+and 16; ``banded_solve``: the wide form against the ring and stream forms)
+and at the tracer systems of vertical order 5 (n 30, q 9, R 3;
+``banded_solve_multi``: the wide form against the tile form), each against
+the plain version.
 """
 
 import argparse
@@ -50,6 +63,7 @@ def main():
     here = pathlib.Path(__file__).resolve()
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(here.parents[2]))
+    ap.add_argument("--highq", action="store_true")
     args = ap.parse_args()
     root = str(pathlib.Path(args.root).resolve())
     if sys.path and pathlib.Path(sys.path[0]).resolve() == here.parent:
@@ -74,6 +88,8 @@ def main():
                       "build_s": build.build_all()["seconds"]}), flush=True)
     dev = torch.device("cuda")
     shaped = hasattr(cuda_banded, "banded_multi_launch_shape")
+    if args.highq:
+        return bench_highq(build, cuda_banded, time_cuda, dev)
 
     def systems(q, R, dtype, seed, n=N):
         rng = np.random.default_rng(seed)
@@ -188,6 +204,100 @@ def bench_solve(cuda_banded, systems, dtype, time_cuda):
     print(json.dumps(row), flush=True)
     del sets, multi, bands, rhs, want
     torch.cuda.empty_cache()
+
+
+def bench_highq(build, cuda_banded, time_cuda, dev):
+    """``--highq``: the wide form against the template forms at q 9..16."""
+    import ctypes
+    import tempfile
+    import time
+    import numpy as np
+    import torch
+    from tempestmodel_tpu_torch.kernels.banded_edges import systems
+    src = str(build.CSRC / "banded_multi.cu")
+    libs, report = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, defines in (("wide", []),
+                              ("template16", ["-DBANDED_TEMPLATE_QMAX=16"])):
+            so = f"{tmp}/{name}.so"
+            t0 = time.perf_counter()
+            out = subprocess.run(
+                [build.nvcc_path(), *build.NVCC_FLAGS, *defines, "-Xptxas",
+                 "-v", "-o", so, src], check=True, capture_output=True,
+                text=True)
+            secs = time.perf_counter() - t0
+            res = cuda_banded.resources_of(build.parse_ptxas(
+                out.stdout + out.stderr))
+            lib = ctypes.CDLL(so)
+            for fn, argtypes in build.SIGNATURES["banded_multi"].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            libs[name] = lib
+            report[name] = {
+                "nvcc_s": secs, "instantiations": len(res),
+                "ptxas": {k: v for k, v in res.items()
+                          if k.startswith("wide") or k.endswith(
+                              ("q8", "q9", "q10", "q16"))}}
+        print(json.dumps({"case": "highq_build", **report}), flush=True)
+        default = build._libs["banded_multi"]
+        ncol = NCOL
+        try:
+            for dtype in (torch.float32, torch.float64):
+                esize = 4 if dtype == torch.float32 else 8
+                for n, q, R in ((91, 10, 1), (91, 16, 1), (30, 9, 3)):
+                    sets = []
+                    for seed in range(2):
+                        b, r = systems(n, q, R, ncol, seed=seed)
+                        tb = torch.as_tensor(b, dtype=dtype, device=dev)
+                        tr = torch.as_tensor(r if R > 1 else r[:, 0],
+                                             dtype=dtype, device=dev)
+                        sets.append((tb, tr.contiguous()))
+                    want = (cuda_banded.banded_solve_multi_plain if R > 1
+                            else cuda_banded.banded_solve_plain)(
+                                *sets[0], q)
+                    launch = (cuda_banded._banded_solve_multi_cuda if R > 1
+                              else cuda_banded._banded_solve_cuda)
+                    shapes = {"wide": cuda_banded.wide_launch_shape(
+                        n, q, ncol, dtype)}
+                    if R == 1:
+                        C = 32 if esize == 4 else 16
+                        shapes["ring"] = cuda_banded.MultiLaunch(
+                            "ring", C, 32, cuda_banded.RING_SLOTS,
+                            cuda_banded.ring_smem_bytes(n, q, C, esize),
+                            -(-ncol // C))
+                        h = min(n, cuda_banded.SMEM_MAX // (
+                            cuda_banded.stream_smem_bytes(q, 1, 32, esize)))
+                        shapes["stream"] = cuda_banded.MultiLaunch(
+                            "stream", 32, 32, h,
+                            cuda_banded.stream_smem_bytes(q, h, 32, esize),
+                            -(-ncol // 32))
+                    else:
+                        shapes["tile"] = cuda_banded.MultiLaunch(
+                            "tile", 32, 32 * R, 4,
+                            cuda_banded.tile_smem_bytes(n, q, R, 32, esize),
+                            -(-ncol // 32))
+                    row = {"case": f"highq_n{n}_q{q}_r{R}",
+                           "dtype": str(dtype)[6:], "ncol": ncol,
+                           "kernel": "banded_solve_multi" if R > 1
+                           else "banded_solve"}
+                    for form, sh in shapes.items():
+                        build._libs["banded_multi"] = libs[
+                            "wide" if form == "wide" else "template16"]
+                        got = launch(*sets[0], q, sh)
+                        torch.cuda.synchronize()
+                        err = float((got - want).abs().max()
+                                    / want.abs().max())
+                        ms = [time_cuda(lambda b, r: launch(b, r, q, sh),
+                                        sets, 10, queued=True)
+                              for _ in range(REPEATS)]
+                        row[form] = {"ms": ms, "max_rel_err": err,
+                                     "launch": sh._asdict()}
+                    print(json.dumps(row), flush=True)
+                    del sets, want
+                    torch.cuda.empty_cache()
+        finally:
+            build._libs["banded_multi"] = default
+    return 0
 
 
 if __name__ == "__main__":

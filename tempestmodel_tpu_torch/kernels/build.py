@@ -37,18 +37,22 @@ _I64 = ctypes.c_longlong
 # C entry points of each source: name -> argtypes (every one returns int,
 # the value of cudaGetLastError()).  Pointers and the stream are c_void_p:
 # without argtypes ctypes would pass them as 32-bit ints and cut them.
-_DSS_SCALAR = [_PTR] * 4 + [_INT] * 12 + [_PTR]
-_DSS_VECTOR = [_PTR] * 7 + [_INT] * 12 + [_PTR]
+# the DSS entry points end in the halo wall pointers (an array, or null)
+# and the stream
+_WALLS = ctypes.POINTER(_PTR)
+_DSS_SCALAR = [_PTR] * 4 + [_INT] * 12 + [_WALLS, _PTR]
+_DSS_VECTOR = [_PTR] * 7 + [_INT] * 12 + [_WALLS, _PTR]
 _BANDED_MULTI = [_PTR, _PTR, _PTR, _INT, _INT, _I64] + [_INT] * 6 + [_PTR]
 _BANDED_DIV = [_PTR, _PTR, _PTR, _I64, _PTR]
 _DBL = ctypes.c_double
-_DSS_UVW = [_PTR] * 14 + [_DBL] * 5 + [_INT] * 12 + [_PTR]
+_DSS_UVW = [_PTR] * 14 + [_DBL] * 5 + [_INT] * 12 + [_WALLS, _PTR]
 # the fused kernels take their many operands as host arrays: pointers,
 # doubles, ints (the wrappers build them with ctypes)
 _ARRAYS = [ctypes.POINTER(_PTR), ctypes.POINTER(_DBL), ctypes.POINTER(_INT)]
 _STAGE = _ARRAYS + [_PTR]
-_DSS_SCALAR2 = [_PTR] * 6 + [_INT] * 12 + [_PTR]
-_DSS_STATE = [ctypes.POINTER(_PTR)] + [_PTR] * 3 + [_INT] * 12 + [_PTR]
+_DSS_SCALAR2 = [_PTR] * 6 + [_INT] * 12 + [_WALLS, _PTR]
+_DSS_STATE = [ctypes.POINTER(_PTR)] + [_PTR] * 3 + [_INT] * 12 + [_WALLS,
+                                                                   _PTR]
 _IMPLICIT = _ARRAYS + [_I64, _PTR]
 SIGNATURES = {
     "dss": {"dss_scalar_f32": _DSS_SCALAR, "dss_scalar_f64": _DSS_SCALAR,

@@ -14,7 +14,9 @@ resident on the device; ``model.state`` is unpacked to the reference
 layout only when it is read.  ``go`` runs the steps between two firings of
 any hook as one replay of a CUDA graph of that many steps
 (``engine.graph_runner``; a plain loop on the CPU), so a run without hooks
-costs what a direct replay does.
+costs what a direct replay does.  On a grid with no-flux walls the carry
+also holds the walls' halo (``halo_U``, ...: the engine's flat dict of
+tensors), so a restart continues bit for bit from either checkpoint format.
 """
 
 from __future__ import annotations

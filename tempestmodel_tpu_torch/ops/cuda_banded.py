@@ -16,8 +16,16 @@ lane copying its own column by ``cp.async``), the
 forward value folds into the elimination, and only each row's U row and
 forward value stay on chip for the back substitution; its launch shape comes
 from ``banded_solve_launch_shape`` (the ring form, or for shapes whose U
-rows do not fit a block the stream form).  Neither keeps scratch in device
-memory: a launch allocates its output only.  The copy route of the tile
+rows do not fit a block the stream form).  Above 8 the template forms
+are instantiated at q 10 and 16 only (``TEMPLATE_Q``: the Lorenz column
+systems of vertical orders 2 and 3), and there they run where their block
+fits; every other half-bandwidth above 8 (the Lorenz systems from vertical
+order 4 on, the tracer systems from vertical order 5 on), and q 10 and 16
+where the template block does not fit, takes the wide form in either
+wrapper: q known at run time, the row being eliminated and the U rows of
+the last ``chunk`` rows in shared memory (``wide_smem_bytes``).
+Neither keeps scratch in device memory: a launch allocates its output
+only.  The copy route of the tile
 form comes from ``copy_width``.  See the notes in the source for the
 designs and the bounds on the card.
 
@@ -43,15 +51,20 @@ from ..kernels import build
 from ..kernels.counts import launch_counts
 from ..models.vertical_banded import banded_solve_t, banded_solve_multi_t
 
-MAX_Q = 8      # the kernel is instantiated for q = 1..8
+MAX_Q = 8      # the tile, stream and ring forms are instantiated for
+               # q = 1..8 and at TEMPLATE_Q; the wide form takes any q whose
+               # rows fit a block
+TEMPLATE_Q = tuple(range(1, MAX_Q + 1)) + (10, 16)
 
 banded_solve_plain = banded_solve_t
 banded_solve_multi_plain = banded_solve_multi_t
 
 
 def _check(bands, rhs, q, multi=False):
-    if not isinstance(q, int) or not 1 <= q <= MAX_Q:
-        raise ValueError(f"half-bandwidth q={q!r} outside 1..{MAX_Q}")
+    """What neither route takes; the kernel route's limit on q is its
+    launch shape's (``banded_solve_launch_shape``)."""
+    if not isinstance(q, int) or q < 1:
+        raise ValueError(f"half-bandwidth q={q!r}: must be an int >= 1")
     if bands.dim() != 3 or rhs.dim() != (3 if multi else 2):
         raise ValueError("bands must be (n, 2q+1, ncol) and rhs "
                          + ("(n, R, ncol)" if multi else "(n, ncol)"))
@@ -113,12 +126,13 @@ MAX_BARS = 16              # the tile form's mbarriers
 BAR_BYTES = 8 * MAX_BARS
 COLS = 32                  # the rule's columns a block
 CHUNK = 4                  # the rule's rows an mbarrier (tile form)
-# the kernel's FORM_TILE, FORM_STREAM, FORM_RING
-FORMS = ("tile", "stream", "ring")
-SOLVE_FORMS = ("ring", "stream", "tile")   # what banded_solve can run
+# the kernel's FORM_TILE, FORM_STREAM, FORM_RING, FORM_WIDE
+FORMS = ("tile", "stream", "ring", "wide")
+SOLVE_FORMS = ("ring", "stream", "tile", "wide")   # what banded_solve can
+                                                   # run
 RING_SLOTS = 5             # the ring form's slots (csrc: RING_SLOTS)
-RING_COLS = (32, 16, 8)    # the ring form's columns a block (a block is one
-                           # warp)
+RING_COLS = (32, 16, 8)    # the ring and wide forms' columns a block (a
+                           # block is one warp)
 SM_SMEM = 233472           # shared memory of an SM ...
 BLOCK_SMEM = 1024          # ... of which each resident block holds this more
 MAX_BLOCKS_SM = 32         # resident blocks an SM at most
@@ -133,8 +147,10 @@ class MultiLaunch(NamedTuple):
     rows of ``chunk`` rows kept in shared memory) or, for one right-hand
     side, ``"ring"`` (a warp a block, ``cols`` columns, the staged rows
     through a ring of ``chunk`` = ``RING_SLOTS`` slots, every U row and
-    forward value kept in shared memory); ``smem`` bytes of shared memory,
-    ``blocks`` blocks."""
+    forward value kept in shared memory) or, for any q, ``"wide"`` (a warp
+    a block, ``cols`` columns, q known at run time, the U rows of ``chunk``
+    rows in shared memory); ``smem`` bytes of shared memory, ``blocks``
+    blocks."""
     form: str
     cols: int
     threads: int
@@ -164,6 +180,58 @@ def ring_smem_bytes(n: int, q: int, cols: int, esize: int) -> int:
     return (RING_SLOTS * (2 * q + 2) + n * (q + 2)) * cols * esize
 
 
+def wide_smem_bytes(q: int, chunk: int, cols: int, esize: int) -> int:
+    """Shared memory of the wide form's block: the U rows (q + 1 values)
+    of ``chunk`` rows and the row being eliminated (2q + 1 values), ``cols``
+    values each."""
+    return (chunk * (q + 1) + 2 * q + 1) * cols * esize
+
+
+def wide_launch_shape(n: int, q: int, ncol: int, dtype, cols=None,
+                      chunk=None) -> "MultiLaunch":
+    """The wide form's launch shape (both wrappers; R does not change
+    it).  The rule: the widest block of ``RING_COLS`` that keeps every U
+    row on chip; where none does, the widest that keeps at least min(q, n)
+    (the rows the elimination reads), with as many as fit, rebuilt chunk by
+    chunk.  Raises, naming the limit, where q is too wide for any block."""
+    esize = 4 if dtype == torch.float32 else 8
+    if q < 1 or n < 1 or ncol < 1:
+        raise ValueError(f"the wide form takes q >= 1, n >= 1, ncol >= 1: "
+                         f"got n={n} q={q} ncol={ncol}")
+    need = min(q, n)
+    opts = []
+    for C in RING_COLS if cols is None else (int(cols),):
+        if C not in RING_COLS:
+            raise ValueError(f"the wide form takes {RING_COLS} columns a "
+                             f"block, got {C}")
+        most = min(n, (SMEM_MAX // (C * esize) - (2 * q + 1)) // (q + 1))
+        h = most if chunk is None else int(chunk)
+        if need <= h <= most:
+            opts.append((h == n, C, h))
+    if not opts:
+        raise ValueError(
+            f"q={q} n={n}: the wide form needs the U rows of min(q, n) = "
+            f"{need} rows on chip, {wide_smem_bytes(q, need, 8, esize)} "
+            f"bytes at 8 columns a block, more than {SMEM_MAX}: it takes "
+            f"q up to {wide_max_q(dtype)} in {dtype}")
+    _, C, h = max(opts)
+    blocks = -(-ncol // C)
+    if blocks >= 2 ** 31:
+        raise ValueError(f"too many columns: {ncol}")
+    return MultiLaunch("wide", C, 32, h, wide_smem_bytes(q, h, C, esize),
+                       blocks)
+
+
+def wide_max_q(dtype) -> int:
+    """The largest q the wide form takes (a block of 8 columns holding
+    the U rows of q rows)."""
+    esize = 4 if dtype == torch.float32 else 8
+    q = 1
+    while wide_smem_bytes(q + 1, q + 1, 8, esize) <= SMEM_MAX:
+        q += 1
+    return q
+
+
 def blocks_per_sm(smem: int) -> int:
     """One-warp blocks of ``smem`` bytes of shared memory that one SM
     holds (at most ``MAX_BLOCKS_SM``)."""
@@ -182,12 +250,20 @@ def banded_solve_launch_shape(n: int, q: int, ncol: int, dtype, form=None,
     The rule: the ring form with the columns of ``RING_COLS`` that keep the
     most columns on an SM (columns x blocks an SM; the wider block where
     two tie), among those whose block fits; where none fits, the stream
-    form.  Raises where the shape asked for does not fit or the kernel does
-    not take it."""
+    form.  Above ``MAX_Q``: the ring form where the template forms have q
+    (``TEMPLATE_Q``) and its block fits, else the wide form
+    (``wide_launch_shape``; also with ``form="wide"``).  Raises where the
+    shape asked for does not fit or the kernel does not take it."""
     esize = 4 if dtype == torch.float32 else 8
-    if not 1 <= q <= MAX_Q or n < 1 or ncol < 1:
-        raise ValueError(f"banded_solve takes 1 <= q <= {MAX_Q}, n >= 1, "
-                         f"ncol >= 1: got n={n} q={q} ncol={ncol}")
+    ring_fits = any(ring_smem_bytes(n, q, C, esize) <= SMEM_MAX
+                    for C in RING_COLS if cols is None or C == int(cols))
+    if form == "wide" or (form is None and q > MAX_Q and (
+            q not in TEMPLATE_Q or not ring_fits)):
+        return wide_launch_shape(n, q, ncol, dtype, cols=cols)
+    if q not in TEMPLATE_Q or n < 1 or ncol < 1:
+        raise ValueError(f"banded_solve's {form or 'ring'} form takes q in "
+                         f"1..{MAX_Q} or {TEMPLATE_Q[MAX_Q:]}, n >= 1, ncol "
+                         f">= 1: got n={n} q={q} ncol={ncol}")
     if cols is not None and form in (None, "ring") \
             and int(cols) not in RING_COLS:
         raise ValueError(f"the ring form takes {RING_COLS} columns a block, "
@@ -228,12 +304,20 @@ def banded_multi_launch_shape(n: int, q: int, R: int, ncol: int, dtype,
     ``COLS`` threads for each right-hand side (as many as ``MAX_THREADS``
     allows), where its tile fits a block's shared memory; else the stream
     form with ``COLS`` columns and as many U rows on chip as fit (all n
-    where they do).  Raises where the shape asked for does not fit or the
-    kernel does not take it."""
+    where they do).  Above ``MAX_Q``: the tile form where the template
+    forms have q (``TEMPLATE_Q``) and its tile fits, else the wide form
+    (``wide_launch_shape``; also with ``form="wide"``).  Raises where the
+    shape asked for does not fit or the kernel does not take it."""
     esize = 4 if dtype == torch.float32 else 8
-    if not 1 <= q <= MAX_Q or R < 1 or n < 1 or ncol < 1:
-        raise ValueError(f"banded_solve_multi takes 1 <= q <= {MAX_Q}, "
-                         f"R >= 1, n >= 1, ncol >= 1: got n={n} q={q} R={R} "
+    tile_fits = tile_smem_bytes(n, q, R, COLS if cols is None else int(cols),
+                                esize) <= SMEM_MAX
+    if R >= 1 and (form == "wide" or (form is None and q > MAX_Q and (
+            q not in TEMPLATE_Q or not tile_fits))):
+        return wide_launch_shape(n, q, ncol, dtype, cols=cols, chunk=chunk)
+    if q not in TEMPLATE_Q or R < 1 or n < 1 or ncol < 1:
+        raise ValueError(f"banded_solve_multi's {form or 'tile'} form takes "
+                         f"q in 1..{MAX_Q} or {TEMPLATE_Q[MAX_Q:]}, R >= 1, "
+                         f"n >= 1, ncol >= 1: got n={n} q={q} R={R} "
                          f"ncol={ncol}")
     C = COLS if cols is None else int(cols)
     if not (32 <= C <= MAX_THREADS and C % 32 == 0):
@@ -298,9 +382,10 @@ def launch_config(bands, rhs, q: int, launch: MultiLaunch = None) -> dict:
             if rhs.dim() == 2 else \
             banded_multi_launch_shape(n, q, rhs.shape[1], ncol, bands.dtype)
     esize = bands.element_size()
-    copy = esize if launch.form == "ring" else \
+    copy = esize if launch.form in ("ring", "wide") else \
         copy_width(ncol, esize, [bands.data_ptr(), rhs.data_ptr()])
-    route = ("none: rows read as eliminated" if launch.form == "stream" else
+    route = ("none: rows read as eliminated"
+             if launch.form in ("stream", "wide") else
              f"cp.async {copy} B, a lane its column, a commit group a row"
              if launch.form == "ring" else
              "cp.async.bulk (TMA 1-D), a row a copy" if copy == 16 else
@@ -308,21 +393,31 @@ def launch_config(bands, rhs, q: int, launch: MultiLaunch = None) -> dict:
     return dict(launch._asdict(), copy=copy, copy_route=route)
 
 
-_ENTRY = re.compile(r"(tile|stream|ring)_kernelI([fd])Li(\d)E")
+_ENTRY = re.compile(r"(tile|stream|ring)_kernelI([fd])Li(\d+)E")
+_WIDE = re.compile(r"wide_kernelI([fd])E")
 
 
-def kernel_resources() -> dict:
-    """Registers and spill bytes of the 48 instantiations of
-    ``csrc/banded_multi.cu`` (form x value type x q) as ``nvcc -Xptxas
-    -v`` reported them at the build, keyed ``tile f32 q1``, ``ring f64
-    q8``, ... (empty before a build)."""
+def resources_of(usage: dict) -> dict:
+    """``build.parse_ptxas``'s report of a build of
+    ``csrc/banded_multi.cu`` keyed ``tile f32 q1``, ``ring f64 q8``, ``wide
+    f32``, ..."""
     out = {}
-    for name, use in build.ptxas_usage("banded_multi").items():
-        m = _ENTRY.search(name)
+    for name, use in usage.items():
+        m, w = _ENTRY.search(name), _WIDE.search(name)
         if m:
             out[f"{m.group(1)} {'f32' if m.group(2) == 'f' else 'f64'} "
                 f"q{m.group(3)}"] = use
+        elif w:
+            out[f"wide {'f32' if w.group(1) == 'f' else 'f64'}"] = use
     return out
+
+
+def kernel_resources() -> dict:
+    """Registers and spill bytes of the 62 instantiations of
+    ``csrc/banded_multi.cu`` (form x value type x q of ``TEMPLATE_Q``, and
+    the wide form a value type) as ``nvcc -Xptxas -v`` reported them at the
+    build (empty before a build; ``resources_of``)."""
+    return resources_of(build.ptxas_usage("banded_multi"))
 
 
 def _banded_solve_multi_cuda(bands, rhs, q, launch: MultiLaunch = None):

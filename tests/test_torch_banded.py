@@ -83,9 +83,14 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(case):
     bands, rhs = _random_banded(12, 2, 6)
     tb, tr = torch.from_numpy(bands), torch.from_numpy(rhs)
     if case == "q_too_large":
-        big = torch.zeros((12, 19, 6), dtype=torch.float64)
+        # the plain route takes any q >= 1; the kernel's launch shape stops
+        # past the wide form's limit, and says so
+        top = cuda_banded.wide_max_q(torch.float64)
+        with pytest.raises(ValueError, match=f"q up to {top}"):
+            cuda_banded.banded_solve_launch_shape(3 * top, top + 1, 6,
+                                                  torch.float64)
         with pytest.raises(ValueError):
-            cuda_banded.banded_solve(big, tr, 9)
+            cuda_banded.banded_solve(tb, tr, 0)
     elif case == "shape":
         with pytest.raises(ValueError):
             cuda_banded.banded_solve(tb, tr[:-1], 2)
@@ -175,9 +180,14 @@ def test_multi_wrapper_raises_on_what_the_kernel_does_not_take(case):
     bands, rhs = _random_multi(12, 2, 3, 6)
     tb, tr = torch.from_numpy(bands), torch.from_numpy(rhs)
     if case == "q_too_large":
-        big = torch.zeros((12, 19, 6), dtype=torch.float64)
+        # the plain route takes any q >= 1; the kernel's launch shape stops
+        # past the wide form's limit, and says so
+        top = cuda_banded.wide_max_q(torch.float64)
+        with pytest.raises(ValueError, match=f"q up to {top}"):
+            cuda_banded.banded_multi_launch_shape(3 * top, top + 1, 3, 6,
+                                                  torch.float64)
         with pytest.raises(ValueError):
-            cuda_banded.banded_solve_multi(big, tr, 9)
+            cuda_banded.banded_solve_multi(tb, tr, 0)
     elif case == "shape":
         with pytest.raises(ValueError):
             cuda_banded.banded_solve_multi(tb, tr[:, :, :-1].contiguous(), 2)

@@ -104,7 +104,9 @@ def test_banded_multi_launch_shape_at_the_moist_flagship(q, R, dtype):
                                   "stream_threads"])
 def test_banded_multi_launch_shape_raises_where_the_kernel_cannot_run(case):
     args = {"q0": ((30, 0, 3, 100, F32), {}),
-            "q9": ((30, 9, 3, 100, F32), {}),
+            # q 9 and up take the wide form: the case asks for a q past
+            # its limit (the id names the template forms' old limit)
+            "q9": ((300, cuda_banded.wide_max_q(F32) + 1, 3, 100, F32), {}),
             "r0": ((30, 1, 0, 100, F32), {}),
             "n0": ((0, 1, 3, 100, F32), {}),
             "cols48": ((30, 1, 3, 100, F32), dict(cols=48)),

@@ -356,7 +356,7 @@ def test_cli_runs_the_thermal_bubble(capsys):
     assert len(lines) == 3 and all("nan" not in l for l in lines)
 
 
-@pytest.mark.parametrize("case", ["sw_tc2", "sw_galewsky", "density_current"])
+@pytest.mark.parametrize("case", ["sw_tc2", "sw_galewsky"])
 def test_cli_cases_that_need_unported_engines_raise(case):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 2"):
         t_cli.main(["--case", case, "--nsteps", "1", "--device", "cpu"])
