@@ -71,7 +71,15 @@ and runs these phases, each printing one JSON line:
             rows and the zero halo; ``dss_state`` with its Rayleigh finish
             and pre-finish wall rows) at the density current's shapes in
             both layouts and the channel's, bit for bit their plain forms,
-            timed with and without the walls;
+            timed with and without the walls; then the shallow-water
+            shapes: ``dss_vector`` and ``dss_scalar`` at K = 1 on the ne 60
+            grid (1, 6, 240, 240), ``dss_scalar`` at (3, 6, 120, 120),
+            bit for bit their plain forms, each beside one
+            ``torch.sparse.mm``, ``nu4_pass1/2`` in the U, V, H field set
+            at (1, 6, 240, 240) against their plain forms, and the
+            nonhydrostatic nu4 instantiations' SHA-256 digests at the
+            flagship held to the ones the commit before that field set
+            gave (``NU4_DIGESTS``, ``kernels/hyper_digest.py``);
 4. slice    the Strang-HEVI step at small size in float64 on the card three
             ways — fused kernel path, unfused kernel path, plain path — each
             pair to 1e-11 relative per field, and ``make_fast_multistep``
@@ -91,7 +99,11 @@ and runs these phases, each printing one JSON line:
             no-flux grids (the density current at nex 8 nz 16 in both
             layouts and unfused, the channel at nex 4 ney 2 with nu4) and
             UMJS at ne4 with vertical order 2 (q 10) and ``"pallas"``,
-            kernel path against plain path to 1e-11;
+            kernel path against plain path to 1e-11; then the
+            shallow-water step (Williamson 5 with nu4, order 2, none and a
+            tracer; Galewsky) and the advection step at ne4 in fp64,
+            kernel path against plain path to 1e-11 with their launches a
+            step, and a 3-step graph replay bit for bit 3 eager steps;
 5. flagship the main paths at full width: UMJS baroclinic wave, ne30 p4
             nz30 float32: ``make_fast_multistep`` (``first_step``, then
             replays of a 10-step CUDA graph), the eager fused path of
@@ -141,7 +153,18 @@ and runs these phases, each printing one JSON line:
             CLI's ``--case density_current``, and the
             baroclinic channel at 100 km node spacing (nex 75 ney 15 p4
             nz 30, dt 100 s, nu4): replay ms/step, launches a step, the
-            wall-normal V against the interior V;
+            wall-normal V against the interior V; then (5i) the
+            shallow-water set: Galewsky's barotropic instability at ne 60
+            p4 f32 (dt 30 s, nu4 1e15 scaled locally) for 6 model days
+            through ``make_sw_multistep`` (20-step graphs): replay and
+            eager ms/step, device busy and launches a step, the kernel
+            launches a step, max |relative vorticity| at days 0, 4 and 6,
+            the energy and mass changes (mass within 1e-5, the kernel path
+            within 1e-5 of the plain path after 20 steps); Williamson 2 at
+            ne 30 f64 for a day to ``tests/test_shallow_water.py``'s bars;
+            the CLI's ``sw_galewsky`` at resolution 60 for 20 steps; and
+            ``Model.go`` restarted from ``.tarena`` and ``.npz``, bit for
+            bit;
 6. dss      the step with the tail's DSS as four launches or as
             ``dss_state`` and the stages' Rt/Rho as two launches or as
             ``dss_scalar2``, eagerly and under graph replay, in turns; the
@@ -150,7 +173,8 @@ and runs these phases, each printing one JSON line:
             full-state DSS);
 7. kernels  one line listing every kernel with its time, bound, plain
             version's time and launches on the flagship runs, its launches
-            on the IMEX, the Schar and the terrain paths, and its Cartesian
+            on the IMEX, the Schar, the terrain, the no-flux and the
+            shallow-water paths, and its Cartesian and shallow-water
             figures.
 
 With ``--profile PATH`` it also traces steps of each flagship path, of the
@@ -3646,6 +3670,588 @@ def noflux_line(dev, smi, launches):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the shallow-water and advection sets (phases 3, 4 and 5i)
+# ---------------------------------------------------------------------------
+
+# phase 5i: Galewsky et al.'s barotropic instability at ne 60 p 4 (6 x 240 x
+# 240 nodes, about 42 km between nodes, near their T341 reference), f32,
+# KGU35, dt 30 s (the Courant number of tests/test_shallow_water.py's TC2
+# run), the CLI's nu4 1e15 scaled locally, 6 model days through
+# make_sw_multistep in 20-step graphs; then Williamson 2 at ne 30, f64, dt
+# 100 s, one day without hyperdiffusion, held to that test's bars; the CLI's
+# sw_galewsky for 20 steps; Model.go restarted from both checkpoint formats
+SW_NE, SW_DT, SW_GRAPH, SW_DAYS, SW_CHECK_STEPS = 60, 30.0, 20, 6, 20
+TC2_NE, TC2_DT, TC2_STEPS, TC2_GRAPH = 30, 100.0, 864, 48
+SW_CLI_STEPS, SW_EVERY = 20, 10
+# kernel launches per shallow-water step: a DSS pair ((U, V) and H) after
+# each of the five KGU35 stages and two in the nu4 tail; without
+# hyperdiffusion the tail is one DSS pair
+SW_PER_STEP = {"dss_vector": 7, "dss_scalar": 7, "nu4_pass1": 1,
+               "nu4_pass2": 1}
+SW_PER_STEP_NOHYPERVIS = {"dss_vector": 6, "dss_scalar": 6}
+# the nonhydrostatic nu4 instantiations' outputs at the flagship
+# (kernels/hyper_digest.py), as the commit before the shallow-water field
+# set computed them on an H100
+NU4_DIGESTS = {
+    "f32": "4f646e3b76210602c996e58d91a73e1df061c2b2342da6c22ba6f1eaae99794a",
+    "f64": "e9d05c8ac8927eac4b3e80e46aa917026a3a770948dd2b8ecae3e38df8127882"}
+
+
+def sw_counts(per_step, nsteps=1):
+    """Launch counts of ``nsteps`` shallow-water steps over every kernel."""
+    return {k: per_step.get(k, 0) * nsteps for k in KERNELS}
+
+
+def check_sw_kernels(dev, rows):
+    """Phase 3, the shallow-water shapes, float64 and float32:
+    ``dss_vector`` and ``dss_scalar`` at (1, 6, 240, 240) (ne 60, one
+    level), bit for bit their plain forms, each timed beside its plain form
+    and one ``torch.sparse.mm`` of ``kernels/dss_operator``;
+    ``dss_scalar`` at (3, 6, 120, 120) (three advected species at ne 30),
+    bit for bit; ``nu4_pass1`` and ``nu4_pass2`` in the shallow-water field
+    set (U, V, H; the 2-D Jacobian) at (1, 6, 240, 240) against their plain
+    forms, timed; then the nonhydrostatic nu4 instantiations at the flagship
+    held to ``NU4_DIGESTS`` bit for bit.  Adds the float32 figures to
+    ``rows[name]["shallow_water"]`` (after ``check_kernels``)."""
+    import tempestmodel_tpu_torch as tm
+    from tempestmodel_tpu_torch.fast import dss_cuda, hyper_cuda
+    from tempestmodel_tpu_torch.kernels import dss_operator, hyper_digest
+    from tempestmodel_tpu_torch.kernels.timing import time_cuda
+    from tempestmodel_tpu_torch.models import sw_model
+
+    ncopies = 8
+    A = SW_NE * ORDER
+    n = 6 * A * A
+    for dtype in (torch.float64, torch.float32):
+        tag = "f32" if dtype == torch.float32 else "f64"
+        esize = 4 if dtype == torch.float32 else 8
+        # the rounding of the plain forms (about 2e-7 / 4e-16) with
+        # headroom
+        hyper_tol = 2e-6 if dtype == torch.float32 else 1e-14
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        st = sw_model.sw_statics(sw_model.build_sw_geometry(tm.ModelConfig(
+            ne=SW_NE, order=ORDER, dtype=dtype)), dev)
+        imult, rot, links, p, table = (st.inv_mult, st.e_rot, st.links,
+                                       st.p, st.dss_table)
+        us = [randn((1, 6, A, A), dtype, gen, dev) for _ in range(ncopies)]
+        vs = [randn((1, 6, A, A), dtype, gen, dev) for _ in range(ncopies)]
+        found = {}
+
+        # --- dss_vector, K = 1 -------------------------------------------
+        gu, gv = dss_cuda.dss_vector(us[0], vs[0], imult, rot, links, p,
+                                     table=table)
+        torch.cuda.synchronize()
+        wu, wv = dss_cuda.dss_vector_plain(us[0], vs[0], imult, rot, links,
+                                           p)
+        if not (torch.equal(gu, wu) and torch.equal(gv, wv)):
+            raise RuntimeError(f"dss_vector {tag} (1, 6, {A}, {A}): not bit "
+                               f"for bit its plain form")
+        ms = time_cuda(lambda u, v: dss_cuda.dss_vector(
+            u, v, imult, rot, links, p, table=table), list(zip(us, vs)),
+            reps=40, queued=True)
+        plain_ms = time_cuda(lambda u, v: dss_cuda.dss_vector_plain(
+            u, v, imult, rot, links, p), list(zip(us, vs)), reps=8)
+        op = dss_operator.vector_operator(imult, rot, links, p)
+        uvs = [(torch.cat([u.reshape(1, -1), v.reshape(1, -1)], 1),)
+               for u, v in zip(us[:4], vs[:4])]
+        got = dss_operator.apply(op, uvs[0][0]).t()
+        lib_err = max(rel_err(got[:, :n].reshape(wu.shape), wu),
+                      rel_err(got[:, n:].reshape(wv.shape), wv))
+        library_ms = time_cuda(lambda uv: dss_operator.apply(op, uv), uvs,
+                               reps=20, queued=True)
+        del op, uvs, got
+        bnd, by = bound_ms((5 * n + rot.numel()) * esize
+                           + table.numel() * 4, 16 * n, dtype)
+        found["dss_vector"] = {
+            "shape": [1, 6, A, A], "max_abs_err": 0.0, "bitwise": True,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+            "library_ms": library_ms, "library_rel_err": lib_err,
+            "launch": dss_cuda.launch_config(
+                us[0], p, "vector", dss_cuda._vector_ptrs(us[0], vs[0],
+                                                          imult), True)}
+
+        # --- dss_scalar, K = 1 (H) and K = 3 (three species at ne 30) -------
+        got = dss_cuda.dss_scalar(us[0], imult, links, p, table=table)
+        torch.cuda.synchronize()
+        if not torch.equal(got, dss_cuda.dss_scalar_plain(us[0], imult,
+                                                          links, p)):
+            raise RuntimeError(f"dss_scalar {tag} (1, 6, {A}, {A}): not bit "
+                               f"for bit its plain form")
+        ms = time_cuda(lambda x: dss_cuda.dss_scalar(
+            x, imult, links, p, table=table), [(x,) for x in us], reps=40,
+            queued=True)
+        plain_ms = time_cuda(lambda x: dss_cuda.dss_scalar_plain(
+            x, imult, links, p), [(x,) for x in us], reps=8)
+        op = dss_operator.scalar_operator(imult, links, p)
+        lib_err = rel_err(dss_operator.apply(op, us[0]).t().reshape(
+            us[0].shape), got)
+        library_ms = time_cuda(lambda x: dss_operator.apply(op, x),
+                               [(x,) for x in us], reps=20, queued=True)
+        del op
+        bnd, by = bound_ms(3 * n * esize + table.numel() * 4, 5 * n, dtype)
+        found["dss_scalar"] = {
+            "shape": [1, 6, A, A], "max_abs_err": 0.0, "bitwise": True,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+            "library_ms": library_ms, "library_rel_err": lib_err,
+            "launch": dss_cuda.launch_config(
+                us[0], p, "scalar", dss_cuda._scalar_ptrs(us[0], imult),
+                True)}
+        st30 = sw_model.sw_statics(sw_model.build_sw_geometry(
+            tm.ModelConfig(ne=NE, order=ORDER, dtype=dtype)), dev)
+        A30 = NE * ORDER
+        n3 = 3 * 6 * A30 * A30
+        trs = [randn((3, 6, A30, A30), dtype, gen, dev)
+               for _ in range(ncopies)]
+        sc30 = (st30.inv_mult, st30.links, st30.p)
+        got = dss_cuda.dss_scalar(trs[0], *sc30, table=st30.dss_table)
+        torch.cuda.synchronize()
+        if not torch.equal(got, dss_cuda.dss_scalar_plain(trs[0], *sc30)):
+            raise RuntimeError(f"dss_scalar {tag} (3, 6, {A30}, {A30}): not "
+                               f"bit for bit its plain form")
+        ms = time_cuda(lambda x: dss_cuda.dss_scalar(
+            x, *sc30, table=st30.dss_table), [(x,) for x in trs], reps=40,
+            queued=True)
+        plain_ms = time_cuda(lambda x: dss_cuda.dss_scalar_plain(x, *sc30),
+                             [(x,) for x in trs], reps=8)
+        op = dss_operator.scalar_operator(*sc30)
+        library_ms = time_cuda(lambda x: dss_operator.apply(op, x),
+                               [(x,) for x in trs], reps=20, queued=True)
+        del op
+        bnd, by = bound_ms((2 * n3 + n3 // 3) * esize, 5 * n3, dtype)
+        found["dss_scalar_advection"] = {
+            "shape": [3, 6, A30, A30], "max_abs_err": 0.0, "bitwise": True,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+            "library_ms": library_ms,
+            "launch": dss_cuda.launch_config(
+                trs[0], p, "scalar", dss_cuda._scalar_ptrs(
+                    trs[0], st30.inv_mult), True)}
+        del trs, st30
+
+        # --- nu4_pass1, nu4_pass2: the shallow-water field set -------------
+        hst = st.hyper
+        sets = [({"U": us[i], "V": vs[i], "H": vs[i + 1]},
+                 {"U": us[i + 1], "V": vs[i + 2], "H": us[i + 2]})
+                for i in (0, 3)]
+        d, w = sets[0]
+        # viscosities that make the increment as large as the state
+        unit = hyper_cuda.nu4_pass1_plain(w, None, hst)
+        nu_s = float(d["H"].abs().max() / unit["H"].abs().max())
+        nu_v = float(d["U"].abs().max() / unit["U"].abs().max())
+        nu = (nu_s, nu_v, 0.7 * nu_v, 1.0)
+        del unit
+        got = hyper_cuda.nu4_pass1(d, None, hst)
+        torch.cuda.synchronize()
+        want = hyper_cuda.nu4_pass1_plain(d, None, hst)
+        err1 = {k: rel_err(got[k], want[k]) for k in want}
+        got = hyper_cuda.nu4_pass2(d, w, *nu, None, hst)
+        torch.cuda.synchronize()
+        want = hyper_cuda.nu4_pass2_plain(d, w, *nu, None, hst)
+        err2 = {k: max(rel_err(got[k], want[k]),
+                       rel_err(got[k] - d[k], want[k] - d[k])) for k in want}
+        del got, want
+        for name, errs in (("nu4_pass1", err1), ("nu4_pass2", err2)):
+            if set(errs) != {"U", "V", "H"} \
+                    or not max(errs.values()) <= hyper_tol:
+                raise RuntimeError(f"{name} {tag} shallow water: rel err "
+                                   f"{errs} > {hyper_tol}")
+        scal2 = (nu[1], nu[2], nu[3], nu[3] * nu[0])
+        for name, errs, launch, plain, nfields in (
+                ("nu4_pass1", err1,
+                 lambda x, y: hyper_cuda._launch(
+                     "nu4_pass1", x, None, (1.0, 1.0, 0.0, 0.0), hst),
+                 lambda x, y: hyper_cuda.nu4_pass1_plain(x, None, hst), 2),
+                ("nu4_pass2", err2,
+                 lambda x, y: hyper_cuda._launch("nu4_pass2", y, x, scal2,
+                                                 hst),
+                 lambda x, y: hyper_cuda.nu4_pass2_plain(x, y, *nu, None,
+                                                         hst), 3)):
+            ms = time_cuda(launch, sets, reps=40, queued=True)
+            plain_ms = time_cuda(plain, sets, reps=4, warmup=1)
+            # reads three (pass 2: six) fields and the 6 metric fields
+            # the function needs (c2aa..c2bb, j2, 1/j2: the kernel's jl
+            # rows are copies of j2's here and not counted), writes three;
+            # about 130 flops a node (the vector part and one scalar
+            # Laplacian)
+            bnd, by = bound_ms((nfields * 3 * n + 6 * n) * esize,
+                               130 * n, dtype)
+            found[name] = {
+                "shape": [1, 6, A, A], "field_set": "U, V, H",
+                "max_abs_err": max(errs.values()), "err_by_field": errs,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
+                "bound_by": by, "library_ms": None,
+                "launch": hyper_cuda.launch_config(
+                    d if name == "nu4_pass1" else w,
+                    None if name == "nu4_pass1" else d, hst)}
+        for name, row in found.items():
+            emit({"phase": "kernel", "case": "shallow_water", "dtype": tag,
+                  "name": name, **row})
+        if dtype == torch.float32:
+            for name in ("dss_vector", "dss_scalar", "nu4_pass1",
+                         "nu4_pass2"):
+                rows[name]["shallow_water"] = found[name]
+            rows["dss_scalar"]["advection"] = found["dss_scalar_advection"]
+        del us, vs, sets, d, w, st
+
+    # --- the nonhydrostatic nu4 instantiations, bit for bit ---------------
+    got = hyper_digest.digests(dev)
+    same = got == NU4_DIGESTS
+    emit({"phase": "kernel", "name": "nu4_nonhydrostatic_digests",
+          "digests": got, "want": NU4_DIGESTS, "bit_for_bit": same})
+    if not same:
+        raise RuntimeError(f"the nonhydrostatic nu4 instantiations changed: "
+                           f"digests {got} != {NU4_DIGESTS}")
+
+
+def sw_setup(name, dtype, ne, dev, **kw):
+    """(testcase, cfg, geom, state on ``dev``) of a shallow-water case."""
+    import tempestmodel_tpu_torch as tm
+    from tempestmodel_tpu_torch.models import sw_model
+    from tempestmodel_tpu_torch.testcases import shallow_water as swc
+    tc = getattr(swc, name)()
+    cfg = tm.ModelConfig(ne=ne, order=ORDER, dtype=dtype, **kw)
+    geom = sw_model.build_sw_geometry(cfg, getattr(tc, "topography", None))
+    return tc, cfg, geom, tc.initial_state(geom, cfg.constants, dtype=dtype,
+                                           device=dev)
+
+
+def check_sw_slice(dev):
+    """Phase 4: the shallow-water step at ne 4, fp64, 3 steps, kernel path
+    against plain path (``plain=True``) to 1e-11 relative per field:
+    Williamson 5 with order-4 hyperviscosity (nu 1e14, dt 600 s), with
+    order 2, without, and with one tracer species; Galewsky; the advection
+    step with three species; then a 3-step graph replay of
+    ``make_sw_multistep`` bit for bit 3 eager steps.  Each kernel run
+    starts with the counts at 0 and is held to its launches a step."""
+    from tempestmodel_tpu_torch.kernels import counts
+    from tempestmodel_tpu_torch.models import advection, sw_model
+    from tempestmodel_tpu_torch.testcases.shallow_water import (
+        sphere_velocity_to_covariant)
+    tol, nsteps = 1e-11, 3
+    nu = dict(dt=600.0, nu_scalar=1e14, nu_div=1e14, nu_vort=1e14)
+    cases = (("Williamson5", {}, SW_PER_STEP, False),
+             ("Williamson5", {"hypervis_order": 2, "nu_scalar": 1e5,
+                              "nu_div": 1e5, "nu_vort": 1e5},
+              SW_PER_STEP_NOHYPERVIS, False),
+             ("Williamson5", {"hyperdiffusion": False},
+              SW_PER_STEP_NOHYPERVIS, False),
+             ("Williamson5", {}, SW_PER_STEP, True),
+             ("BarotropicInstability", {}, SW_PER_STEP, False))
+    for name, kw, per_step, tracer in cases:
+        tc, cfg, geom, s0 = sw_setup(name, torch.float64, 4, dev,
+                                     **dict(nu, **kw))
+        if tracer:
+            lat = torch.as_tensor(np.asarray(geom.lat), device=dev)
+            s0 = dict(s0, Tracers=(1.0 + torch.cos(lat))[None].contiguous())
+        out = {}
+        for plain in (False, True):
+            step = sw_model.make_sw_step(cfg, geom, device=dev, plain=plain)
+            counts.reset_launch_counts()
+            s = s0
+            for _ in range(nsteps):
+                s = step(s)
+            sync(dev)
+            got_counts = dict(counts.launch_counts)
+            want = sw_counts({} if plain else per_step, nsteps)
+            if tracer and not plain:
+                want["dss_scalar"] += per_step["dss_vector"] * nsteps
+            if got_counts != want:
+                raise RuntimeError(f"sw slice {name} {kw} plain={plain}: "
+                                   f"launch counts {got_counts} != {want}")
+            check_finite(s, f"sw slice {name}", torch.float64)
+            out[plain] = s
+        errs = {k: rel_err(out[False][k], out[True][k]) for k in s0}
+        what = (f"{name} ne4 fp64 {kw or 'nu4'}"
+                f"{' + 1 tracer' if tracer else ''}")
+        if not max(errs.values()) < tol:
+            raise RuntimeError(f"sw slice {what}: kernel vs plain {errs}")
+        emit({"phase": "sw_slice", "config": what + ", 3 steps",
+              "kernel_vs_plain": errs, "tol": tol,
+              "launches_per_step": {k: v for k, v in per_step.items()}})
+
+    # the advection step, three species
+    _, cfg, geom, _ = sw_setup("Williamson2", torch.float64, 4, dev,
+                               dt=1800.0)
+    lon, lat = np.asarray(geom.lon), np.asarray(geom.lat)
+    u0 = 2 * np.pi * cfg.constants.earth_radius / (12.0 * 86400.0)
+    U, V = sphere_velocity_to_covariant(u0 * np.cos(lat), np.zeros_like(lat),
+                                        geom, cfg.constants)
+    wind = (torch.as_tensor(U, device=dev), torch.as_tensor(V, device=dev))
+    q0 = torch.as_tensor(np.stack([1.0 + np.cos(lat) * np.cos(lon),
+                                   np.exp(-4.0 * (lon - np.pi) ** 2),
+                                   np.cos(lat) ** 2]), device=dev)
+    area = torch.as_tensor(np.asarray(geom.area2d), device=dev)
+    out = {}
+    for plain in (False, True):
+        step = advection.make_advection_step(cfg, geom, wind, device=dev,
+                                             plain=plain)
+        counts.reset_launch_counts()
+        q, t = q0, torch.zeros((), dtype=torch.float64, device=dev)
+        for _ in range(nsteps):
+            q = step(q, t)
+            t = t + cfg.dt
+        sync(dev)
+        want = sw_counts({} if plain else {"dss_scalar": 5}, nsteps)
+        if dict(counts.launch_counts) != want:
+            raise RuntimeError(f"advection: launch counts "
+                               f"{dict(counts.launch_counts)} != {want}")
+        out[plain] = q
+    err = rel_err(out[False], out[True])
+    mass = [float((out[False][i] * area).sum() / (q0[i] * area).sum()) - 1.0
+            for i in range(3)]
+    if not (err < tol and max(abs(m) for m in mass) < 1e-12):
+        raise RuntimeError(f"advection ne4: kernel vs plain {err}, species "
+                           f"mass change {mass}")
+    emit({"phase": "sw_slice", "config": "advection ne4 fp64, 3 species, "
+          "3 steps", "kernel_vs_plain": err, "tol": tol,
+          "species_mass_rel_change": mass,
+          "launches_per_step": {"dss_scalar": 5}})
+
+    # a 3-step graph replay against 3 eager steps
+    _, cfg, geom, s0 = sw_setup("BarotropicInstability", torch.float64, 4,
+                                dev, **nu)
+    step = sw_model.make_sw_step(cfg, geom, device=dev)
+    multi = sw_model.make_sw_multistep(cfg, geom, nsteps, device=dev)
+    eager = s0
+    for _ in range(nsteps):
+        eager = step(eager)
+    multi(s0)                                     # capture, first replay
+    replay = multi(s0)
+    same = all(torch.equal(replay[k], eager[k]) for k in s0)
+    if not same:
+        raise RuntimeError("sw slice: the graph replay differs from the "
+                           "eager steps")
+    emit({"phase": "sw_slice", "config": "Galewsky ne4 fp64, graph replay "
+          "of 3 steps vs 3 eager steps", "bit_for_bit": same})
+
+
+def sw_line(dev, smi, launches):
+    """Phase 5i: Galewsky's barotropic instability at ne 60 p 4, f32, KGU35,
+    dt 30 s, nu4 1e15 scaled locally, 6 model days through
+    ``make_sw_multistep`` (20-step graphs): graph-replay ms/step (median of
+    4 timed replays), device busy and device launches a step
+    (``utils.devprof``), eager ms/step with the kernel launches a step by
+    kernel, max |relative vorticity| at days 0, 4 and 6, the change of
+    ``sw_energy`` and of the mass (both summed in float64); bars: every
+    field finite at day 6, mass within 1e-5, the kernel path and the plain
+    path within 1e-5 after 20 steps.  Then Williamson 2 at ne 30 (f64, dt
+    100 s, no hyperdiffusion, one day) against its start to the bars of
+    ``tests/test_shallow_water.py``; the CLI's ``sw_galewsky`` at
+    resolution 60 for 20 steps with its invariants; and ``Model.go``
+    restarted from a ``.tarena`` and an ``.npz`` checkpoint, each bit for
+    bit the uninterrupted run."""
+    import tempfile
+    from tempestmodel_tpu_torch._device import OnDevice
+    from tempestmodel_tpu_torch.io.diagnostics import error_norms
+    from tempestmodel_tpu_torch.io.output import CompositeCheckpoint
+    from tempestmodel_tpu_torch.kernels import counts
+    from tempestmodel_tpu_torch.model import Model
+    from tempestmodel_tpu_torch.models import hyperdiff, sw_model
+    from tempestmodel_tpu_torch.models.shallow_water import sw_energy
+    from tempestmodel_tpu_torch.utils import devprof
+
+    t0 = time.perf_counter()
+    tc, cfg, geom, s0 = sw_setup("BarotropicInstability", torch.float32,
+                                 SW_NE, dev, dt=SW_DT)
+    st = sw_model.sw_statics(geom, dev)
+    g64 = OnDevice(sw_model.build_sw_geometry(cfg.with_(
+        dtype=torch.float64)), dev)
+    setup_s = time.perf_counter() - t0
+    A = SW_NE * ORDER
+    config = (f"Galewsky barotropic instability ne{SW_NE} p{ORDER} "
+              f"(6 x {A} x {A}) f32 KGU35 dt{SW_DT:g} nu4 {cfg.nu_scalar:g} "
+              f"scaled locally")
+    steps_a_day = int(round(86400.0 / SW_DT))
+
+    def diag(s):
+        s64 = {k: v.double() for k, v in s.items()}
+        vort = hyperdiff.curl_and_div(s["U"], s["V"], st)[0]
+        return {"max_abs_vorticity": float(vort.abs().max()),
+                "energy": float(sw_energy(s64, g64, cfg.constants)),
+                "mass": float((s64["H"] * g64.area2d).sum())}
+
+    # the kernel path and the plain path, 20 eager steps each
+    ends = {}
+    for plain in (False, True):
+        step = sw_model.make_sw_step(cfg, geom, device=dev, plain=plain)
+        s = s0
+        for _ in range(SW_CHECK_STEPS):
+            s = step(s)
+        sync(dev)
+        ends[plain] = s
+    kp = {k: rel_err(ends[False][k], ends[True][k]) for k in s0}
+    if not max(kp.values()) < 1e-5:
+        raise RuntimeError(f"Galewsky: kernel vs plain path after "
+                           f"{SW_CHECK_STEPS} steps {kp}")
+    del ends
+
+    # eager: launches a step by kernel, ms/step
+    step = sw_model.make_sw_step(cfg, geom, device=dev)
+    s = step(s0)
+    sync(dev)
+    counts.reset_launch_counts()
+    s = step(s)
+    sync(dev)
+    launches["sw_eager_step"] = dict(counts.launch_counts)
+    if launches["sw_eager_step"] != sw_counts(SW_PER_STEP):
+        raise RuntimeError(f"Galewsky eager: launch counts a step "
+                           f"{launches['sw_eager_step']} != {SW_PER_STEP}")
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    t1 = time.perf_counter()
+    ev0.record()
+    for _ in range(FLAGSHIP_STEPS):
+        s = step(s)
+    ev1.record()
+    torch.cuda.synchronize()
+    eager_ms = ev0.elapsed_time(ev1) / FLAGSHIP_STEPS
+    eager_wall_ms = 1e3 * (time.perf_counter() - t1) / FLAGSHIP_STEPS
+    del s, step
+
+    # six days through make_sw_multistep: counts from 0 over the capture
+    multi = sw_model.make_sw_multistep(cfg, geom, SW_GRAPH, device=dev)
+    d0 = diag(s0)
+    days = {0: d0["max_abs_vorticity"]}
+    counts.reset_launch_counts()
+    t1 = time.perf_counter()
+    s = multi(s0)                       # warm-up step, capture, first replay
+    sync(dev)
+    capture_s = time.perf_counter() - t1
+    launches["sw"] = dict(counts.launch_counts)
+    if launches["sw"] != sw_counts(SW_PER_STEP, SW_GRAPH + 1):
+        raise RuntimeError(f"Galewsky multistep: launch counts "
+                           f"{launches['sw']} != "
+                           f"{sw_counts(SW_PER_STEP, SW_GRAPH + 1)}")
+    replay_ms = []
+    for _ in range(REPLAYS):
+        ev0.record()
+        s = multi(s)
+        ev1.record()
+        torch.cuda.synchronize()
+        replay_ms.append(ev0.elapsed_time(ev1) / SW_GRAPH)
+    busy_ms, nkern = devprof.device_time_ms(multi, s)
+    by_kernel = profile_steps(lambda x, c: (multi(x), c), s, {}, 1,
+                              "shallow_water_multistep", SW_GRAPH)
+    done = SW_GRAPH * (1 + REPLAYS)
+    total = SW_DAYS * steps_a_day
+    t1 = time.perf_counter()
+    while done < total:
+        s = multi(s)
+        done += SW_GRAPH
+        if done % steps_a_day == 0 and done // steps_a_day == 4:
+            days[4] = diag(s)["max_abs_vorticity"]
+    sync(dev)
+    run_s = time.perf_counter() - t1
+    check_finite(s, "Galewsky day 6", torch.float32)
+    d6 = diag(s)
+    days[SW_DAYS] = d6["max_abs_vorticity"]
+    dmass = d6["mass"] / d0["mass"] - 1.0
+    if not abs(dmass) < 1e-5:
+        raise RuntimeError(f"Galewsky: mass changed by {dmass}")
+    ms = sorted(replay_ms)[len(replay_ms) // 2]
+    emit({"phase": "shallow_water", "path": "multistep", "config": config,
+          "steps": total, "model_days": SW_DAYS, "inner_steps": SW_GRAPH,
+          "host_setup_s": setup_s, "warmup_capture_first_replay_s": capture_s,
+          "ms_per_step": ms, "ms_per_step_each_replay": replay_ms,
+          "gridpoint_steps_per_s": 6 * A * A / (ms * 1e-3),
+          "device_busy_ms_per_step": busy_ms / SW_GRAPH,
+          "device_launches_per_step": nkern / SW_GRAPH,
+          "device_ms_per_step_of_the_kernels": {
+              k: sum(r["device_ms_per_step"] for r in by_kernel["all"]
+                     if k in r["name"])
+              for k in ("band_kernel", "nu4_kernel")},
+          "eager_ms_per_step": eager_ms,
+          "eager_wall_ms_per_step": eager_wall_ms,
+          "kernel_launches_per_step": {k: v for k, v in
+                                       launches["sw_eager_step"].items()
+                                       if v},
+          "launches": launches["sw"],
+          "launches_counted": f"at capture (1 warm-up step + {SW_GRAPH} "
+                              f"captured steps), not at replay",
+          "wall_s_of_the_remaining_replays": run_s,
+          "max_abs_relative_vorticity_by_day": days,
+          "energy_rel_change": d6["energy"] / d0["energy"] - 1.0,
+          "mass_rel_change": dmass,
+          "kernel_vs_plain_after_20_steps": kp, "card": smi})
+    del multi, s
+
+    # Williamson 2 at ne 30, f64, one day without hyperdiffusion
+    _, cfg2, geom2, w0 = sw_setup("Williamson2", torch.float64, TC2_NE, dev,
+                                  dt=TC2_DT, hyperdiffusion=False)
+    st2 = sw_model.sw_statics(geom2, dev)
+    multi = sw_model.make_sw_multistep(cfg2, geom2, TC2_GRAPH, device=dev)
+    counts.reset_launch_counts()
+    s = w0
+    t1 = time.perf_counter()
+    for _ in range(TC2_STEPS // TC2_GRAPH):
+        s = multi(s)
+    sync(dev)
+    tc2_s = time.perf_counter() - t1
+    launches["sw_tc2"] = dict(counts.launch_counts)
+    if launches["sw_tc2"] != sw_counts(SW_PER_STEP_NOHYPERVIS,
+                                       TC2_GRAPH + 1):
+        raise RuntimeError(f"TC2: launch counts {launches['sw_tc2']}")
+    check_finite(s, "TC2", torch.float64)
+    en = error_norms(s, w0, st2.area2d)
+    e0 = float(sw_energy(w0, st2, cfg2.constants))
+    e1 = float(sw_energy(s, st2, cfg2.constants))
+    bars = {"H_l2_rel": float(en["H"]["l2_rel"]),
+            "U_l2_rel": float(en["U"]["l2_rel"]),
+            "energy_ratio_minus_1": e1 / e0 - 1.0}
+    if not (bars["H_l2_rel"] < 1e-5 and bars["U_l2_rel"] < 1e-4
+            and abs(bars["energy_ratio_minus_1"]) < 1e-10):
+        raise RuntimeError(f"TC2 ne{TC2_NE}: {bars}")
+    emit({"phase": "shallow_water", "path": "tc2",
+          "config": f"Williamson 2 ne{TC2_NE} p{ORDER} f64 dt{TC2_DT:g} no "
+                    f"hyperdiffusion, {TC2_STEPS} steps (1 day)",
+          "bars": bars, "limits": {"H_l2_rel": 1e-5, "U_l2_rel": 1e-4,
+                                   "abs_energy_ratio_minus_1": 1e-10},
+          "wall_s": tc2_s, "ms_per_step": 1e3 * tc2_s / TC2_STEPS,
+          "launches": launches["sw_tc2"], "card": smi})
+    del multi, s, st2
+
+    # the CLI's sw_galewsky at resolution 60, and Model.go restarted
+    argv = ["--case", "sw_galewsky", "--resolution", str(SW_NE), "--dt",
+            f"{SW_DT:g}s", "--nsteps", str(SW_CLI_STEPS), "--checksum_dt",
+            f"{SW_EVERY * SW_DT:g}s"]
+    text, wall, cli_counts = run_cli(argv, dev)
+    inv = [l for l in text.splitlines() if "..Invariants" in l]
+    if len(inv) != SW_CLI_STEPS // SW_EVERY + 1 or any(
+            "nan" in l or "inf" in l for l in inv):
+        raise RuntimeError(f"CLI sw_galewsky: invariants {inv}")
+    want = sw_counts(SW_PER_STEP, SW_EVERY + 1)
+    if cli_counts != want:
+        raise RuntimeError(f"CLI sw_galewsky: launch counts {cli_counts} != "
+                           f"{want}")
+    emit({"phase": "shallow_water", "path": "cli", "argv": argv,
+          "wall_s": wall, "invariants": inv,
+          "timers": parse_timers(text), "launches": cli_counts, "card": smi})
+    with tempfile.TemporaryDirectory() as tmp:
+        every = SW_EVERY * SW_DT
+        m = Model(cfg, tc, output_managers=[
+            CompositeCheckpoint(every, tmp, fmt="npz"),
+            CompositeCheckpoint(every, tmp, prefix="arena", fmt="arena")],
+            device=dev)
+        m.go(nsteps=2 * SW_EVERY)
+        same = {}
+        for fmt, path in (("npz", f"restart.{every:012.2f}.npz"),
+                          ("tarena", f"arena.{every:012.2f}.tarena")):
+            r = Model(cfg, tc, device=dev)
+            r.restart_from(os.path.join(tmp, path))
+            r.go(nsteps=SW_EVERY)
+            same[fmt] = all(torch.equal(r.state[k], m.state[k])
+                            for k in m.state)
+            del r
+    if not all(same.values()):
+        raise RuntimeError(f"Galewsky Model.go restarts: bit for bit {same}")
+    check_finite(m.state, "Galewsky Model.go", torch.float32)
+    emit({"phase": "shallow_water", "path": "model_restarts",
+          "steps": 2 * SW_EVERY, "restart_at_step": SW_EVERY,
+          "bit_for_bit": same, "card": smi})
+    del m
+    torch.cuda.empty_cache()
+
+
 def main():
     args = sys.argv[1:]
     profile_path = None
@@ -3691,9 +4297,11 @@ def main():
     from tempestmodel_tpu_torch.fast import dss_cuda, hyper_cuda
     from tempestmodel_tpu_torch.ops import cuda_banded
     nu4_resources = hyper_cuda.kernel_resources()
-    if len(nu4_resources) != 8:
+    if len(nu4_resources) != 16:
         raise RuntimeError(f"the build reported {len(nu4_resources)} of the "
-                           f"nu4 kernel's 8 instantiations")
+                           f"nu4 kernel's 16 instantiations (dtype x p 4 "
+                           f"or any p x pass x the nonhydrostatic and the "
+                           f"shallow-water field set)")
     dss_resources = dss_cuda.kernel_resources()
     if len(dss_resources) != 40:
         raise RuntimeError(f"the build reported {len(dss_resources)} of the "
@@ -3738,6 +4346,7 @@ def main():
     geom64 = check_terrain_stage(dev, rows)
     check_noflux_dss(dev, rows)
     check_wide_banded(dev, rows)
+    check_sw_kernels(dev, rows)
 
     # 4. the slice at small size, three ways, dry and with tracers --------
     check_slice(dev)
@@ -3746,6 +4355,7 @@ def main():
     check_imex_slice(dev)
     check_terrain_slice(dev)
     check_noflux_slice(dev)
+    check_sw_slice(dev)
 
     # 5. the main paths at full width -------------------------------------
     X0 = fast.pack_state(state, device=dev)
@@ -3985,6 +4595,11 @@ def main():
     noflux_line(dev, smi, launches)
     emit({"phase": "noflux", "seconds": time.perf_counter() - t0})
 
+    # 5i. this slice's path: the shallow-water set at full width
+    t0 = time.perf_counter()
+    sw_line(dev, smi, launches)
+    emit({"phase": "shallow_water", "seconds": time.perf_counter() - t0})
+
     if profile_path is not None:
         os.makedirs(os.path.dirname(os.path.abspath(profile_path)),
                     exist_ok=True)
@@ -4100,6 +4715,12 @@ def main():
                     for where, t in rows["cartesian_nu4"].items()}
         if cart:
             row["cartesian"] = cart
+        # the shallow-water path of phase 5i (its graph's capture, from
+        # counts at 0)
+        row["launches_shallow_water_path"] = launches["sw"][name]
+        if SW_PER_STEP.get(name) and row["launches_shallow_water_path"] < 1:
+            raise RuntimeError(f"{name} was not launched on the "
+                               f"shallow-water path")
         # the no-flux paths of phase 5h (each run from counts at 0)
         row["launches_density_current_path"] = launches["noflux_dc"][name]
         row["launches_channel_path"] = launches["noflux_channel"][name]

@@ -11,11 +11,11 @@ standard flags, plus ``--device`` (default ``cuda``)::
         --checksum_dt 2000s --output_dir out --output_dt 2000s \
         --output_format nc --output_restart_dt 2000s
 
-Cases: thermal_bubble, schar, inertia_gravity (periodic x-z slices),
-density_current (an x-z slice with no-flux walls in x), umjs, umjs_pert,
-held_suarez.  The shallow-water cases (sw_tc2, sw_tc5, sw_rh4, sw_galewsky)
-need an engine that is not ported yet and raise ``NotImplementedError``.
-Without ``--fp32`` the run is float64, as in the JAX package's CLI.
+Cases: sw_tc2, sw_tc5, sw_rh4, sw_galewsky (the shallow-water set on the
+cubed sphere), thermal_bubble, schar, inertia_gravity (periodic x-z
+slices), density_current (an x-z slice with no-flux walls in x), umjs,
+umjs_pert, held_suarez.  Without ``--fp32`` the run is float64, as in the
+JAX package's CLI.
 """
 
 from __future__ import annotations
@@ -31,22 +31,19 @@ from .io.output import (ChecksumOutput, EnergyOutput, ReferenceOutput,
                         CompositeCheckpoint)
 from .utils.timeobj import parse_duration_seconds
 
-_NOT_PORTED = {
-    "sw_tc2": "shallow water", "sw_tc5": "shallow water",
-    "sw_rh4": "shallow water", "sw_galewsky": "shallow water",
-}
-
-
 def _build_case(name: str, args):
     """(testcase, cfg overrides dict, workflow list)."""
+    from .testcases import shallow_water as sw
     from .testcases import nonhydro_xz as nxz
     from .testcases import nonhydro_sphere as nsp
 
     wps = []
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"case {name!r} needs {_NOT_PORTED[name]}, which is not ported "
-            f"yet (ROADMAP queue 1 item 2)")
+    sw_cases = {"sw_tc2": sw.Williamson2, "sw_tc5": sw.Williamson5,
+                "sw_rh4": sw.RossbyHaurwitz,
+                "sw_galewsky": sw.BarotropicInstability}
+    if name in sw_cases:
+        return sw_cases[name](), dict(
+            equation_set=EquationSet.SHALLOW_WATER), wps
     if name == "thermal_bubble":
         tc = nxz.ThermalBubble()
     elif name == "density_current":

@@ -11,11 +11,15 @@
 // A Laplacian is two derivative layers: differentiate, combine pointwise
 // with the 2-D metric, take the weak derivative of the combination.  Both
 // derivative matrices are element-local (no halo), and the metric is
-// constant in z.  The vector part uses the 2-D Jacobian j2, the scalars (Rt,
-// Rho, W) the z-constant 3-D Jacobian jl.  Pass 2 differs from pass 1 only in
-// what it differentiates (the DSSed work fields), in the viscosities and in
-// the store (the axpy onto the state): one kernel template with a
-// compile-time flag.
+// constant in z.  The vector part uses the 2-D Jacobian j2, the scalars the
+// Jacobian jl (Rt, Rho, W of the nonhydrostatic state: the z-constant 3-D
+// one; H of the shallow-water state: the 2-D one).  Pass 2 differs from
+// pass 1 only in what it differentiates (the DSSed work fields), in the
+// viscosities and in the store (the axpy onto the state): one kernel
+// template with a compile-time flag.  A second compile-time count NS says
+// how many scalar fields follow U and V: 3 (Rt, Rho, W; W has one
+// interface more, so the block walks nz + 1 steps) or 1 (the shallow-water
+// H, nz steps).
 //
 // Bound on an H100 (3.35 TB/s): bytes.  Pass 1 reads five fields and writes
 // five (151 level slabs of 6 x 120 x 120 float32 each way, 104 MB, 31 us);
@@ -78,7 +82,6 @@ namespace {
 constexpr int MAX_P = 8;           // nodes an element edge (generic p)
 constexpr int MAX_RING = 4;
 constexpr int BAR_BYTES = 64;      // the ring's mbarriers (8 bytes each)
-constexpr int NT2 = 5;             // second-layer tiles: div, curl, 3 fluxes
 constexpr size_t SMEM_MAX = 232448;
 // Threads a block at most, and blocks of HYPER_THREADS an SM the compiler
 // must allow (__launch_bounds__: caps the registers a thread) in float32
@@ -143,7 +146,8 @@ __device__ __forceinline__ void copies_arrive(unsigned long long* bar) {
 
 template <typename T>
 struct HyperArgs {
-  const T* x[5];     // differentiated fields U, V, Rt, Rho, W (pass 2: work)
+  // fields U, V and NS scalars (Rt, Rho, W, or H); the rest null
+  const T* x[5];     // differentiated fields (pass 2: the work fields)
   const T* base[5];  // pass 2: the state the update is added to
   const T* m2d;      // (8, P, A, B): c2aa c2ab c2ba c2bb j2 1/j2 jl 1/jl
   T* out[5];
@@ -237,12 +241,13 @@ __device__ __forceinline__ void copy_span(int copy, void* dst,
 // The band's spans of level k of every input field into stage `st` on its
 // mbarrier `bar`: with bulk copies (copy == 16) lane f of the first warp
 // issues field f's, lane 0 having announced the bytes; else cp.async by
-// every thread and one arrival each.  Above the top level (k == nz) only W
-// (and its base) exist.
-template <typename T, bool PASS2>
+// every thread and one arrival each.  Above the top level (k == nz, NS ==
+// 3 only) only W (and its base) exist.
+template <typename T, bool PASS2, int NS>
 __device__ void issue_level(const HyperArgs<T>& g, int k, int a0, int c0,
                             T* st, unsigned long long* bar) {
-  constexpr int NF = PASS2 ? 10 : 5;
+  constexpr int NX = 2 + NS;  // fields a set
+  constexpr int NF = PASS2 ? 2 * NX : NX;
   const bool lev = k < g.nz;
   const long long off =
       (((long long)k * g.P + blockIdx.y) * g.A + a0) * g.B + c0;
@@ -252,10 +257,10 @@ __device__ void issue_level(const HyperArgs<T>& g, int k, int a0, int c0,
   if (g.copy == 16) {
     if (threadIdx.x == 0)
       bar_arrive_expect(bar,
-                        (PASS2 ? 2 : 1) * (lev ? 5 : 1) * pieces * bytes);
+                        (PASS2 ? 2 : 1) * (lev ? NX : 1) * pieces * bytes);
     for (int f = threadIdx.x; f < NF; f += blockDim.x) {
-      if (!lev && f % 5 != 4) continue;
-      const T* src = (f < 5 ? g.x[f] : g.base[f - 5]) + off;
+      if (!lev && f % NX != NX - 1) continue;
+      const T* src = (f < NX ? g.x[f] : g.base[f - NX]) + off;
       T* dst = st + f * g.tile;
       for (int q = 0; q < pieces; ++q)
         bulk_copy(dst + q * g.cols, src + (long long)q * g.B, bytes, bar);
@@ -263,8 +268,8 @@ __device__ void issue_level(const HyperArgs<T>& g, int k, int a0, int c0,
     return;
   }
   for (int f = 0; f < NF; ++f) {
-    if (!lev && f % 5 != 4) continue;
-    const T* src = (f < 5 ? g.x[f] : g.base[f - 5]) + off;
+    if (!lev && f % NX != NX - 1) continue;
+    const T* src = (f < NX ? g.x[f] : g.base[f - NX]) + off;
     T* dst = st + f * g.tile;
     for (int q = 0; q < pieces; ++q)
       copy_span(g.copy, dst + q * g.cols, src + (long long)q * g.B, bytes);
@@ -272,12 +277,13 @@ __device__ void issue_level(const HyperArgs<T>& g, int k, int a0, int c0,
   copies_arrive(bar);
 }
 
-// Grid: (bands of one panel, panel, runs: nz + 1 steps split evenly into
-// runs of at most `levels`);
+// Grid: (bands of one panel, panel, runs: the steps (nz + 1 at NS = 3, nz
+// at NS = 1) split evenly into runs of at most `levels`);
 // block: rows * cols / p threads, thread t owning segment t of the band;
-// dynamic shared memory: the mbarriers, `ring` stages of 5 (pass 2: 10)
-// field slots, the J u^a tile, the NT2 second-layer tiles.
-template <typename T, int PP, bool PASS2>
+// dynamic shared memory: the mbarriers, `ring` stages of 2 + NS (pass 2:
+// twice that) field slots, the J u^a tile, the 2 + NS second-layer tiles
+// (div, curl, a flux a scalar).
+template <typename T, int PP, bool PASS2, int NS>
 __global__ void __launch_bounds__(HYPER_THREADS,
                                   sizeof(T) == 4 ? HYPER_MIN_BLOCKS
                                                  : HYPER_MIN_BLOCKS_F64)
@@ -285,7 +291,9 @@ __global__ void __launch_bounds__(HYPER_THREADS,
   extern __shared__ __align__(128) unsigned char smem_raw[];
   HYPER_PHASE_BEGIN();
   constexpr int N = PP > 0 ? PP : MAX_P;
-  constexpr int NF = PASS2 ? 10 : 5;
+  constexpr int NX = 2 + NS;
+  constexpr int NF = PASS2 ? 2 * NX : NX;
+  constexpr int LAST = NS - 1;  // the scalar with a top interface (W)
   const int p = PP > 0 ? PP : g.p;
   const int TB = g.cols, R = g.ring, tile = g.tile;
   const int nsb = TB / p;                       // segments a band row
@@ -295,14 +303,14 @@ __global__ void __launch_bounds__(HYPER_THREADS,
   const int bands_b = g.B / TB;
   const int a0 = (blockIdx.x / bands_b) * g.rows;
   const int c0 = (blockIdx.x % bands_b) * TB;
-  // the runs split the nz + 1 steps evenly (at most `levels` each)
-  const int steps = g.nz + 1;
+  // the runs split the steps evenly (at most `levels` each)
+  const int steps = g.nz + (NS == 3 ? 1 : 0);
   const int k0 = (int)((long long)blockIdx.z * steps / gridDim.z);
   const int nk = (int)((long long)(blockIdx.z + 1) * steps / gridDim.z) - k0;
   unsigned long long* bars = reinterpret_cast<unsigned long long*>(smem_raw);
   T* ring = reinterpret_cast<T*>(smem_raw + BAR_BYTES);
   T* t1 = ring + R * NF * tile;                 // J u^a
-  T* t2 = t1 + tile;                            // div, curl, 3 fluxes
+  T* t2 = t1 + tile;                            // div, curl, NS fluxes
   const int own = r * TB + c;                   // the segment in a tile
   const int erow = (r - ia) * TB + c;           // the element's first row
 
@@ -332,8 +340,8 @@ __global__ void __launch_bounds__(HYPER_THREADS,
   __syncthreads();  // the mbarriers are ready: the first levels' copies
   HYPER_LAP(1);
   for (int j = 0; j < min(R, nk); ++j)
-    issue_level<T, PASS2>(g, k0 + j, a0, c0, ring + j * NF * tile,
-                          &bars[j]);
+    issue_level<T, PASS2, NS>(g, k0 + j, a0, c0, ring + j * NF * tile,
+                              &bars[j]);
   const T(&c2aa)[N] = m[0];
   const T(&c2ab)[N] = m[1];
   const T(&c2ba)[N] = m[2];
@@ -374,17 +382,17 @@ __global__ void __launch_bounds__(HYPER_THREADS,
     HYPER_LAP(3);
     __syncthreads();  // J u^a published; the previous level's stage is free
     if (j >= 1 && j - 1 + R < nk)
-      issue_level<T, PASS2>(g, k - 1 + R, a0, c0,
-                            ring + ((j - 1) % R) * NF * tile,
-                            &bars[(j - 1) % R]);
+      issue_level<T, PASS2, NS>(g, k - 1 + R, a0, c0,
+                                ring + ((j - 1) % R) * NF * tile,
+                                &bars[(j - 1) % R]);
     HYPER_LAP(4);
     // first layer, the rest: div; each scalar's gradient and its fluxes
     // (the flux along a into its tile, the weak b-sum of the flux along b
     // kept); then div and curl into their tiles with their weak b-sums
-    T wdb_div[N], wdb_curl[N], wk[3][N];
+    T wdb_div[N], wdb_curl[N], wk[NS][N];
 #pragma unroll
-    for (int f = 0; f < 3; ++f) {  // unrolled: wk stays in registers
-      if (!lev && f < 2) continue;
+    for (int f = 0; f < NS; ++f) {  // unrolled: wk stays in registers
+      if (!lev && f < LAST) continue;
       T x[N], ga[N], gb[N], dxa[N], dxb[N];
       const T* F = st + (2 + f) * tile;
       load_seg<T, N>(F + own, x, p);
@@ -430,8 +438,8 @@ __global__ void __launch_bounds__(HYPER_THREADS,
       }
       if (PASS2) {
         T b0[N], b1[N];
-        load_seg<T, N>(st + 5 * tile + own, b0, p);
-        load_seg<T, N>(st + 6 * tile + own, b1, p);
+        load_seg<T, N>(st + NX * tile + own, b0, p);
+        load_seg<T, N>(st + (NX + 1) * tile + own, b1, p);
 #pragma unroll
         for (int i = 0; i < N; ++i) {
           du[i] = b0[i] + g.dt * du[i];
@@ -448,8 +456,8 @@ __global__ void __launch_bounds__(HYPER_THREADS,
       store_seg<T, N>(g.out[1] + o, dv, p);
     }
 #pragma unroll
-    for (int f = 0; f < 3; ++f) {
-      if (!lev && f < 2) continue;
+    for (int f = 0; f < NS; ++f) {
+      if (!lev && f < LAST) continue;
       T w[N];
       sum_a<T, N>(t2 + (2 + f) * tile + erow, TB, wa, p, w);
 #pragma unroll
@@ -457,7 +465,7 @@ __global__ void __launch_bounds__(HYPER_THREADS,
         w[i] = -(w[i] + wk[f][i]) * jlinv[i];  // the minus of the weak div
       if (PASS2) {
         T b[N];
-        load_seg<T, N>(st + (7 + f) * tile + own, b, p);
+        load_seg<T, N>(st + (NX + 2 + f) * tile + own, b, p);
 #pragma unroll
         for (int i = 0; i < N; ++i) w[i] = b[i] - g.dtnu * w[i];
       }
@@ -468,7 +476,7 @@ __global__ void __launch_bounds__(HYPER_THREADS,
   HYPER_PHASE_END();
 }
 
-template <typename T, int PP, bool PASS2>
+template <typename T, int PP, bool PASS2, int NS>
 int launch_one(const HyperArgs<T>& g, dim3 grid, int threads, size_t smem,
                cudaStream_t st) {
   // opt in to more than the default 48 KB once per device
@@ -477,12 +485,13 @@ int launch_one(const HyperArgs<T>& g, dim3 grid, int threads, size_t smem,
   cudaGetDevice(&dev);
   if (smem > 48 * 1024 && dev < 64 && !opted[dev]) {
     const cudaError_t e = cudaFuncSetAttribute(
-        nu4_kernel<T, PP, PASS2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        nu4_kernel<T, PP, PASS2, NS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)SMEM_MAX);
     if (e != cudaSuccess) return (int)e;
     opted[dev] = true;
   }
-  nu4_kernel<T, PP, PASS2><<<grid, threads, smem, st>>>(g);
+  nu4_kernel<T, PP, PASS2, NS><<<grid, threads, smem, st>>>(g);
   return (int)cudaGetLastError();
 }
 
@@ -491,10 +500,12 @@ inline bool aligned(const void* q, int bytes) {
 }
 
 // ptrs: x U V Rt Rho W | base U V Rt Rho W (null in pass 1) | m2d |
-// out U V Rt Rho W.  scal: nu_d nu_v dt dt*nu_s, then the element matrices
-// as hyper_cuda.hyper_statics lays them out (4 p x p: D[s, i] / delta, then
+// out U V Rt Rho W; with NS = 1 each set is U V H and two nulls.  scal:
+// nu_d nu_v dt dt*nu_s, then the element matrices as
+// hyper_cuda.hyper_statics lays them out (4 p x p: D[s, i] / delta, then
 // S[i, s] / delta, along a, then along b).  ints: nz P A B p pass2 rows
-// cols levels ring copy (fast/hyper_cuda.hyper_launch_shape, copy_width).
+// cols levels ring copy (fast/hyper_cuda.hyper_launch_shape, copy_width)
+// NS (3 or 1).
 // Returns cudaGetLastError(), -1 for a shape or a copy width the kernel
 // does not take, -2 for more shared memory than a block has.
 template <typename T>
@@ -516,7 +527,9 @@ int launch_nu4(const void* const* ptrs, const double* scal, const int* ints,
   const bool pass2 = ints[5] != 0;
   g.rows = ints[6]; g.cols = ints[7]; g.levels = ints[8]; g.ring = ints[9];
   g.copy = ints[10];
+  const int ns = ints[11], nx = 2 + ns;
   const int p = g.p, TA = g.rows, TB = g.cols;
+  if (ns != 1 && ns != 3) return -1;
   if (g.nz < 1 || g.P < 1 || p < 1 || p > MAX_P || g.A % p || g.B % p ||
       TA < p || TA % p || g.A % TA || TB < p || TB % p || g.B % TB)
     return -1;
@@ -526,8 +539,12 @@ int launch_nu4(const void* const* ptrs, const double* scal, const int* ints,
   if (threads > HYPER_THREADS || g.levels < 1 || g.ring < 1 ||
       g.ring > MAX_RING || (g.levels > 1 && g.ring < 2))
     return -1;
-  for (int f = 0; f < 5; ++f)
-    if (!g.x[f] || !g.out[f] || (pass2 != (g.base[f] != nullptr))) return -1;
+  for (int f = 0; f < 5; ++f) {
+    const bool used = f < nx;
+    if (used != (g.x[f] != nullptr) || used != (g.out[f] != nullptr) ||
+        (pass2 && used) != (g.base[f] != nullptr))
+      return -1;
+  }
   if (!g.m2d) return -1;
   const void* in[10] = {g.x[0], g.x[1], g.x[2], g.x[3], g.x[4],
                         g.base[0], g.base[1], g.base[2], g.base[3],
@@ -542,7 +559,7 @@ int launch_nu4(const void* const* ptrs, const double* scal, const int* ints,
   // segment accesses: 16 bytes at p = 4 (the metric and the outputs)
   const int seg = p == 4 ? 16 : ES;
   if (!aligned(g.m2d, seg)) return -1;
-  for (int f = 0; f < 5; ++f)
+  for (int f = 0; f < nx; ++f)
     if (!aligned(g.out[f], seg)) return -1;
   for (int m = 0; m < 4; ++m)
     for (int s = 0; s < p; ++s)
@@ -556,18 +573,26 @@ int launch_nu4(const void* const* ptrs, const double* scal, const int* ints,
   g.tile = (TA * TB + 16 / ES - 1) / (16 / ES) * (16 / ES);
   const size_t smem =
       BAR_BYTES +
-      (size_t)((pass2 ? 10 : 5) * g.ring + 1 + NT2) * g.tile * ES;
+      (size_t)((pass2 ? 2 : 1) * nx * g.ring + 1 + nx) * g.tile * ES;
   if (smem > SMEM_MAX) return -2;
   const long long bands = (long long)(g.A / TA) * (g.B / TB);
-  const int runs = (g.nz + 1 + g.levels - 1) / g.levels;
+  const int steps = g.nz + (ns == 3 ? 1 : 0);
+  const int runs = (steps + g.levels - 1) / g.levels;
   if (bands > 0x7fffffffLL || g.P > 65535 || runs > 65535) return -1;
   const dim3 grid((unsigned)bands, (unsigned)g.P, (unsigned)runs);
   const cudaStream_t st = (cudaStream_t)stream;
+  if (ns == 1) {
+    if (p == 4)
+      return pass2 ? launch_one<T, 4, true, 1>(g, grid, threads, smem, st)
+                   : launch_one<T, 4, false, 1>(g, grid, threads, smem, st);
+    return pass2 ? launch_one<T, 0, true, 1>(g, grid, threads, smem, st)
+                 : launch_one<T, 0, false, 1>(g, grid, threads, smem, st);
+  }
   if (p == 4)
-    return pass2 ? launch_one<T, 4, true>(g, grid, threads, smem, st)
-                 : launch_one<T, 4, false>(g, grid, threads, smem, st);
-  return pass2 ? launch_one<T, 0, true>(g, grid, threads, smem, st)
-               : launch_one<T, 0, false>(g, grid, threads, smem, st);
+    return pass2 ? launch_one<T, 4, true, 3>(g, grid, threads, smem, st)
+                 : launch_one<T, 4, false, 3>(g, grid, threads, smem, st);
+  return pass2 ? launch_one<T, 0, true, 3>(g, grid, threads, smem, st)
+               : launch_one<T, 0, false, 3>(g, grid, threads, smem, st);
 }
 
 }  // namespace

@@ -467,6 +467,19 @@ def link_table(links, npanels: int = 6) -> np.ndarray:
     return table
 
 
+def edge_rotations(geom) -> np.ndarray:
+    """The vector modes' edge rotations of a cubed-sphere geometry: a float64
+    ``(4, n_links, A)`` array, row ``2 * i + j`` of link ``l`` the ``(i, j)``
+    entry of the 2x2 covariant transform at each node of the destination
+    edge of ``geom.edge_meta[l]``."""
+    mats = np.asarray(geom.edge_mats, np.float64)     # (6, 4, A, 2, 2)
+    A = mats.shape[2]
+    rot = np.zeros((4, len(geom.edge_meta), A), np.float64)
+    for i, (pa, e, qa, qe, flip) in enumerate(geom.edge_meta):
+        rot[:, i] = mats[pa, e].reshape(A, 4).T
+    return rot
+
+
 def _check_field(name, f, ref=None):
     if f.dim() != 4:
         raise ValueError(f"{name} must be (K, P, A, B), got {tuple(f.shape)}")

@@ -324,16 +324,6 @@ def build_fast_geometry(geom: CubedSphereGeometry,
     def zf(a):
         return c(np.moveaxis(np.asarray(a, f64), -1, 0))
 
-    n_edges = len(geom.edge_meta)
-    e_rot = np.zeros((4, n_edges, A), f64)
-    mats = np.asarray(geom.edge_mats, f64)          # (6, 4, A, 2, 2)
-    for i, (pa, e, qa, qe, flip) in enumerate(geom.edge_meta):
-        M = mats[pa, e]                              # (A, 2, 2)
-        e_rot[0, i] = M[:, 0, 0]
-        e_rot[1, i] = M[:, 0, 1]
-        e_rot[2, i] = M[:, 1, 0]
-        e_rot[3, i] = M[:, 1, 1]
-
     con2d = np.asarray(geom.con2d, f64)
     cor = np.asarray(geom.coriolis, f64)
     j2 = np.asarray(geom.jac2d, f64)
@@ -387,7 +377,7 @@ def build_fast_geometry(geom: CubedSphereGeometry,
         deriv_r_xi_int=zf(np.asarray(geom.deriv_r_int, f64)[..., 2]),
         rayleigh_lev=zf(geom.rayleigh_lev),
         rayleigh_int=zf(geom.rayleigh_int),
-        e_rot=c(e_rot),
+        e_rot=c(dss_cuda.edge_rotations(geom)),
         dss_table=torch.as_tensor(dss_cuda.link_table(geom.edge_meta),
                                   device=dev),
     )

@@ -1,6 +1,12 @@
 """The two Laplacian passes of the nu4 hyperdiffusion tail, one kernel each:
 the CUDA kernels' wrappers and their plain versions.
 
+Two field sets: the nonhydrostatic state's (U, V and the scalars Rt, Rho,
+W; ``FIELDS``) and the shallow-water state's (U, V and H; ``SW_FIELDS``,
+on ``(1, 6, A, B)`` views, with the 2-D Jacobian in place of ``jl``:
+``models/sw_model``).  The set is read from the keys of the state, and the
+kernel has a compile-time instantiation for each.
+
 Counterpart of the JAX package's ``fast/hyper_pallas.py`` (``nu4_pass1``,
 ``nu4_pass2``).  The Strang tail is two horizontal Laplacian passes with a
 DSS between them and one after: pass 1 produces the unscaled Laplacian
@@ -42,7 +48,15 @@ from ..kernels import build, stencils
 from ..kernels.counts import launch_counts
 
 FIELDS = ("U", "V", "Rt", "Rho", "W")
+SW_FIELDS = ("U", "V", "H")
 MAX_P = 8        # nodes per element edge the kernels' tiles are sized for
+
+
+def fields_of(d):
+    """The field set of the state ``d``: ``SW_FIELDS`` where it holds H,
+    else ``FIELDS``.  Its scalars follow U and V; only the nonhydrostatic
+    set has a field (W) with one level more."""
+    return SW_FIELDS if "H" in d else FIELDS
 
 
 def supported(fg, cfg) -> bool:
@@ -77,7 +91,8 @@ class HyperStatics:
     """What the two passes need beside the fields, built once per
     configuration (``hyper_statics``)."""
     m2d: Any      # (8, P, A, B): c2aa, c2ab, c2ba, c2bb, j2, 1/j2, jl, 1/jl
-    #             # with j2 = jac2d and jl = jac3d[0]
+    #             # with j2 = jac2d and jl the scalars' Jacobian (jac3d[0];
+    #             # the shallow-water state's: jac2d)
     ds: Any       # 1-D tensor: D[s, i] / delta, then S[i, s] / delta, along
     #             # a, then along b (``stencils.element_matrices``)
     p: int
@@ -87,18 +102,21 @@ class HyperStatics:
 
 def hyper_statics(fg) -> HyperStatics:
     """The metric stack and the element matrices on the device and in the
-    dtype of ``fg``."""
-    dtype, dev = fg.inv_mult.dtype, fg.inv_mult.device
-    j2 = fg.jac2d
-    jl = fg.jac3d[0]
-    m2d = torch.stack([fg.c2_aa, fg.c2_ab, fg.c2_ba, fg.c2_bb,
-                       j2, 1.0 / j2, jl, 1.0 / jl]).contiguous()
-    host = np.concatenate(
-        [m.ravel() for m in stencils.element_matrices(fg)]).astype(
-            np_dtype(dtype))
-    ds = torch.as_tensor(host, device=dev)
-    return HyperStatics(m2d=m2d, ds=ds, p=fg.p,
-                        ds_host=host.astype(np.float64))
+    dtype of ``fg`` (the nonhydrostatic set: ``jl = jac3d[0]``)."""
+    return make_statics((fg.c2_aa, fg.c2_ab, fg.c2_ba, fg.c2_bb), fg.jac2d,
+                        fg.jac3d[0], stencils.element_matrices(fg), fg.p)
+
+
+def make_statics(con, j2, jl, mats, p: int) -> HyperStatics:
+    """``HyperStatics`` from the four contravariant metric components
+    ``con`` and the Jacobians ``j2`` (the vector part's) and ``jl`` (the
+    scalars'), each a (P, A, B) tensor, and ``mats`` = (Da, Sa, Db, Sb), the
+    float64 (p, p) element matrices of ``stencils.element_matrices``."""
+    m2d = torch.stack([*con, j2, 1.0 / j2, jl, 1.0 / jl]).contiguous()
+    host = np.concatenate([np.asarray(m, np.float64).ravel()
+                           for m in mats]).astype(np_dtype(j2.dtype))
+    ds = torch.as_tensor(host, device=j2.device)
+    return HyperStatics(m2d=m2d, ds=ds, p=p, ds_host=host.astype(np.float64))
 
 
 # ---------------------------------------------------------------------------
@@ -164,7 +182,7 @@ def nu4_pass1_plain(d, fg, statics: HyperStatics = None):
     m = [st.m2d[i][None] for i in range(8)]
     wu, wv = _vector_upd(d["U"], d["V"], 1.0, 1.0, m, mats)
     out = {"U": -wu, "V": -wv}
-    for k in ("Rt", "Rho", "W"):
+    for k in fields_of(d)[2:]:
         out[k] = _scalar_lap(d[k], m, mats)
     return out
 
@@ -178,7 +196,7 @@ def nu4_pass2_plain(d, work, nu_s, nu_d, nu_v, dt, fg,
     du, dv = _vector_upd(work["U"], work["V"], float(nu_d), float(nu_v), m,
                          mats)
     out = {"U": d["U"] + float(dt) * du, "V": d["V"] + float(dt) * dv}
-    for k in ("Rt", "Rho", "W"):
+    for k in fields_of(d)[2:]:
         out[k] = d[k] - float(dt) * float(nu_s) * _scalar_lap(
             work[k], m, mats)
     return out
@@ -193,7 +211,6 @@ SMEM_MAX = 232448          # shared memory a block can have
 MAX_THREADS = 256          # the kernel's __launch_bounds__
 BAR_BYTES = 64             # the ring's mbarriers
 MAX_RING = 4
-NTILES = 6                 # J u^a, then div, curl and the three fluxes
 SMEM_SM = 233472           # shared memory of an SM (a block takes 1 KB more)
 # the rule's constants, fitted to the sweeps of kernels/tune_tail.py on an
 # H100 (both passes, float32 and float64, the flagship and the bubble's
@@ -231,24 +248,28 @@ class HyperLaunch(NamedTuple):
 
 
 def hyper_smem_bytes(rows: int, cols: int, ring: int, pass2: bool,
-                     esize: int) -> int:
+                     esize: int, nscalars: int = 3) -> int:
     """Shared memory of a block, as ``csrc/hyper.cu`` lays it out: the
-    mbarriers, ``ring`` stages of 5 (pass 2: 10) field slots, then the
-    ``NTILES`` tiles; a slot and a tile hold rows * cols values, rounded up
-    to 16 bytes."""
+    mbarriers, ``ring`` stages of 2 + ``nscalars`` (pass 2: twice that)
+    field slots, then 3 + ``nscalars`` tiles (J u^a, div, curl, a flux a
+    scalar); a slot and a tile hold rows * cols values, rounded up to 16
+    bytes."""
     v16 = 16 // esize
     tile = -(-rows * cols // v16) * v16
-    return BAR_BYTES + ((10 if pass2 else 5) * ring + NTILES) * tile * esize
+    nx = 2 + nscalars
+    return BAR_BYTES + ((2 if pass2 else 1) * nx * ring + 1 + nx) \
+        * tile * esize
 
 
 @functools.lru_cache(maxsize=None)
 def hyper_launch_shape(nz: int, P: int, A: int, B: int, p: int, dtype,
                        pass2: bool, rows=None, cols=None, levels=None,
-                       ring=None) -> HyperLaunch:
+                       ring=None, nscalars: int = 3) -> HyperLaunch:
     """The launch shape of ``nu4_pass1`` (``pass2`` False) or ``nu4_pass2``
-    on (nz | nz + 1, P, A, B) fields.  The keywords override the rule
-    (``kernels/tune_tail.py`` sweeps them).  Cached: a launch asks for its
-    shape on the host every time.
+    on (nz | nz + 1, P, A, B) fields (``nscalars`` 3: the nonhydrostatic
+    set, nz + 1 steps; 1: the shallow-water set, nz steps).  The keywords
+    ``rows`` to ``ring`` override the rule (``kernels/tune_tail.py`` sweeps
+    them).  Cached: a launch asks for its shape on the host every time.
 
     The rule: whole rows where one element row of them fits
     ``MAX_THREADS`` threads (a thread a segment: B threads; else the widest
@@ -262,6 +283,9 @@ def hyper_launch_shape(nz: int, P: int, A: int, B: int, p: int, dtype,
     whose blocks all fit in one wave wants them short enough to fill it, a
     launch of several waves wants a short last one.  Raises where no shape
     fits."""
+    if nscalars not in (1, 3):
+        raise ValueError(f"the nu4 kernels take 1 or 3 scalar fields, got "
+                         f"{nscalars}")
     esize = 4 if dtype == torch.float32 else 8
     if p < 1 or p > MAX_P or A % p or B % p:
         raise ValueError(f"the nu4 kernels take 1 <= p <= {MAX_P} with "
@@ -282,7 +306,7 @@ def hyper_launch_shape(nz: int, P: int, A: int, B: int, p: int, dtype,
                          f"that keeps {MAX_THREADS} threads, got {rows}")
     TA = rows if rows is not None else next(
         (r for r in heights if r * TB // p >= MIN_THREADS), max(heights))
-    steps = nz + 1
+    steps = nz + (1 if nscalars == 3 else 0)
     bands = (A // TA) * (B // TB) * P
 
     def shape(lv, r):
@@ -293,7 +317,8 @@ def hyper_launch_shape(nz: int, P: int, A: int, B: int, p: int, dtype,
             raise ValueError(f"ring depth {r} out of range for runs of "
                              f"{lv} levels")
         return HyperLaunch(TA, TB, lv, r, TA * TB // p,
-                           hyper_smem_bytes(TA, TB, r, pass2, esize),
+                           hyper_smem_bytes(TA, TB, r, pass2, esize,
+                                            nscalars),
                            bands * math.ceil(steps / lv))
 
     if levels is not None:
@@ -342,27 +367,31 @@ def copy_width(B: int, cols: int, esize: int, ptrs) -> int:
     return esize
 
 
-_ENTRY = re.compile(r"nu4_kernelI([fd])Li(\d)ELb([01])E")
+_ENTRY = re.compile(r"nu4_kernelI([fd])Li(\d)ELb([01])ELi(\d)E")
 
 
 def kernel_resources() -> dict:
-    """Registers and spill bytes of the kernel's eight instantiations as
-    ``nvcc -Xptxas -v`` reported them at the build, keyed ``f32 p4
-    pass1``, ``f64 generic pass2``, ... (empty before a build)."""
+    """Registers and spill bytes of the kernel's sixteen instantiations as
+    ``nvcc -Xptxas -v`` reported them at the build, keyed ``f32 p4 pass1``,
+    ``f64 generic pass2``, ... for the nonhydrostatic set and ``f32 p4
+    pass1 sw``, ... for the shallow-water set (empty before a build)."""
     out = {}
     for name, use in build.ptxas_usage("hyper").items():
         m = _ENTRY.search(name)
         if m:
             out[f"{'f32' if m.group(1) == 'f' else 'f64'} "
                 f"{'p4' if m.group(2) == '4' else 'generic'} "
-                f"pass{int(m.group(3)) + 1}"] = use
+                f"pass{int(m.group(3)) + 1}"
+                f"{' sw' if m.group(4) == '1' else ''}"] = use
     return out
 
 
 def _inputs(x, base):
-    """The tensors a launch stages: the five fields, then pass 2's base."""
-    return [x[k] for k in FIELDS] + ([base[k] for k in FIELDS]
-                                     if base is not None else [])
+    """The tensors a launch stages: the fields of ``x``'s set, then pass
+    2's base."""
+    keys = fields_of(x)
+    return [x[k] for k in keys] + ([base[k] for k in keys]
+                                   if base is not None else [])
 
 
 def launch_config(x, base, st: HyperStatics, launch=None) -> dict:
@@ -371,7 +400,8 @@ def launch_config(x, base, st: HyperStatics, launch=None) -> dict:
     u = x["U"]
     nz, P, A, B = u.shape
     sh = launch or hyper_launch_shape(nz, P, A, B, st.p, u.dtype,
-                                      base is not None)
+                                      base is not None,
+                                      nscalars=len(fields_of(x)) - 2)
     return dict(sh._asdict(), copy=copy_width(
         B, sh.cols, u.element_size(),
         [t.data_ptr() for t in _inputs(x, base)]))
@@ -388,7 +418,7 @@ def _check(name, d, st: HyperStatics, ref=None):
         raise ValueError("state fields must be float32/float64 "
                          "(K, P, A, B) tensors")
     nz, P, A, B = u.shape
-    for k in FIELDS:
+    for k in fields_of(d):
         f = d[k]
         rows = nz + 1 if k == "W" else nz
         if tuple(f.shape) != (rows, P, A, B) or f.dtype != u.dtype \
@@ -414,37 +444,45 @@ def _launch(name, x, base, scal, st: HyperStatics, launch=None):
     """One launch on CUDA tensors; ``launch`` overrides the rule's shape."""
     u = x["U"]
     nz, P, A, B = u.shape
+    keys = fields_of(x)
+    ns = len(keys) - 2
     sh = launch or hyper_launch_shape(nz, P, A, B, st.p, u.dtype,
-                                      base is not None)
+                                      base is not None, nscalars=ns)
     lib = build.library("hyper")
     fn = lib.nu4_f32 if u.dtype == torch.float32 else lib.nu4_f64
+
+    def five(ts):
+        return list(ts) + [None] * (5 - len(ts))
+
     with torch.cuda.device(u.device):
-        outs = [torch.empty_like(x[k]) for k in FIELDS]
+        outs = [torch.empty_like(x[k]) for k in keys]
         ins = _inputs(x, base)
         copy = copy_width(B, sh.cols, u.element_size(),
                           [t.data_ptr() for t in ins])
-        tensors = ins + [None] * (10 - len(ins)) + [st.m2d] + outs
+        tensors = (five(ins[:len(keys)]) + five(ins[len(keys):])
+                   + [st.m2d] + five(outs))
         ptrs = (ctypes.c_void_p * len(tensors))(
             *[None if t is None else t.data_ptr() for t in tensors])
         scal = (ctypes.c_double * (4 + st.ds_host.size))(
             *scal, *st.ds_host.tolist())
-        ints = (ctypes.c_int * 11)(nz, P, A, B, st.p, int(base is not None),
+        ints = (ctypes.c_int * 12)(nz, P, A, B, st.p, int(base is not None),
                                    sh.rows, sh.cols, sh.levels, sh.ring,
-                                   copy)
+                                   copy, ns)
         err = fn(ptrs, scal, ints, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed (returned {err}: "
                            f"-1 a shape or copy width it does not take, -2 "
                            f"too much shared memory, else cudaGetLastError)")
     launch_counts[name] += 1
-    return dict(zip(FIELDS, outs))
+    return dict(zip(keys, outs))
 
 
 def nu4_pass1(d, fg, statics: HyperStatics = None):
-    """Work fields ``{-wu, -wv, lap(Rt), lap(Rho), lap(W)}`` with ``(wu,
-    wv) = vector_upd(U, V, 1, 1)``; one kernel launch.  Returns fresh
-    tensors.  ``statics``: ``hyper_statics(fg)`` (built on the fly when
-    absent)."""
+    """Work fields ``{-wu, -wv, lap(Rt), lap(Rho), lap(W)}`` (the
+    shallow-water set: ``{-wu, -wv, lap(H)}``) with ``(wu, wv) =
+    vector_upd(U, V, 1, 1)``; one kernel launch.  Returns fresh tensors.
+    ``statics``: ``hyper_statics(fg)`` (built on the fly when absent; the
+    shallow-water set must pass its own)."""
     st = hyper_statics(fg) if statics is None else statics
     _check("d", d, st)
     dev = d["U"].device.type
@@ -458,12 +496,14 @@ def nu4_pass1(d, fg, statics: HyperStatics = None):
 def nu4_pass2(d, work, nu_s, nu_d, nu_v, dt, fg,
               statics: HyperStatics = None):
     """``U + dt * du``, ``V + dt * dv`` with ``(du, dv) = vector_upd(wU, wV,
-    nu_d, nu_v)`` and ``X - dt * nu_s * lap(wX)`` for Rt, Rho, W, where
-    ``w*`` are the DSSed work fields; one kernel launch.  Returns fresh
-    tensors: ``d`` is not written."""
+    nu_d, nu_v)`` and ``X - dt * nu_s * lap(wX)`` for each scalar X of the
+    set (Rt, Rho, W; or H), where ``w*`` are the DSSed work fields; one
+    kernel launch.  Returns fresh tensors: ``d`` is not written."""
     st = hyper_statics(fg) if statics is None else statics
     _check("d", d, st)
     _check("work", work, st, ref=d["U"])
+    if fields_of(work) != fields_of(d):
+        raise ValueError("the work fields and the state are of two sets")
     dev = d["U"].device.type
     if dev == "cpu":
         return nu4_pass2_plain(d, work, nu_s, nu_d, nu_v, dt, fg, st)

@@ -103,11 +103,11 @@ class ChecksumOutput(OutputManager):
 
 class EnergyOutput(OutputManager):
     """Conservation diagnostics: total mass, rho*theta, energy and the two
-    momentum integrals of the nonhydrostatic state.
+    momentum integrals of the nonhydrostatic state; the total energy of the
+    shallow-water state (``models/shallow_water.sw_energy``).
 
     Analog of ``Grid::ComputeTotalEnergy/PotentialEnstrophy``
-    (``Grid.h:239-265``).  The shallow-water energy comes with the
-    shallow-water engine (ROADMAP queue 1 item 2).
+    (``Grid.h:239-265``).
     """
 
     def __init__(self, interval: float, printer=None):
@@ -116,22 +116,22 @@ class EnergyOutput(OutputManager):
         self.records = []
 
     def output(self, model, t: float):
-        if "Rho" not in model.state:
-            raise NotImplementedError(
-                "the shallow-water energy is not ported (ROADMAP queue 1 "
-                "item 2)")
-        from .diagnostics import (nh_total_energy, nh_zonal_momentum,
-                                  nh_vertical_momentum)
         g = model.geom_dev
         s = model.state
         rec = {"time": t}
-        rec["mass"] = float(torch.sum(s["Rho"] * g.area3d))
-        rt = s["Rt"]
-        area_rt = g.area3d if rt.shape[-1] == g.nz else g.area3d_int
-        rec["rhotheta"] = float(torch.sum(rt * area_rt))
-        rec["energy"] = nh_total_energy(s, g, model.cfg.constants)
-        rec["zonal_momentum"] = nh_zonal_momentum(s, g)
-        rec["vertical_momentum"] = nh_vertical_momentum(s, g)
+        if "Rho" in s:
+            from .diagnostics import (nh_total_energy, nh_zonal_momentum,
+                                      nh_vertical_momentum)
+            rec["mass"] = float(torch.sum(s["Rho"] * g.area3d))
+            rt = s["Rt"]
+            area_rt = g.area3d if rt.shape[-1] == g.nz else g.area3d_int
+            rec["rhotheta"] = float(torch.sum(rt * area_rt))
+            rec["energy"] = nh_total_energy(s, g, model.cfg.constants)
+            rec["zonal_momentum"] = nh_zonal_momentum(s, g)
+            rec["vertical_momentum"] = nh_vertical_momentum(s, g)
+        else:
+            from ..models.shallow_water import sw_energy
+            rec["energy"] = float(sw_energy(s, g, model.cfg.constants))
         self.records.append(rec)
         if self.printer:
             body = "  ".join(f"{k}={v:.12e}" for k, v in rec.items()

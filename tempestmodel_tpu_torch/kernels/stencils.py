@@ -10,7 +10,8 @@ nonzero outside its window cannot be packed: ``pack`` returns ``None`` and
 the caller's predicate sends that configuration to the unfused path.
 
 Host-side numpy only (``element_matrices`` reads four small blocks of the
-geometry's tensors).
+geometry's tensors; ``element_matrices_of`` builds the same four from the
+GLL matrices).
 """
 
 from __future__ import annotations
@@ -74,3 +75,19 @@ def element_matrices(fg):
         return np.asarray(M[:p, :p].detach().cpu().numpy(), np.float64)
 
     return block(fg.DA).T, block(fg.Sd), block(fg.DA_b).T, block(fg.Sd_b)
+
+
+def element_matrices_of(D, S, delta_a, delta_b, np_dtype):
+    """``element_matrices`` from the raw GLL matrices ``D[s, i]`` and
+    ``S[i, s]`` and the element widths, each matrix rounded to
+    ``np_dtype`` (as the geometry's operators hold it) and returned as
+    float64: what ``element_matrices`` reads from a ``FastGeometry`` built
+    on the same grid, for a caller that has no such geometry."""
+    D = np.asarray(D, np.float64)
+    S = np.asarray(S, np.float64)
+
+    def rounded(m):
+        return np.asarray(m, np_dtype).astype(np.float64)
+
+    return (rounded(D / delta_a), rounded(S / delta_a),
+            rounded(D / delta_b), rounded(S / delta_b))

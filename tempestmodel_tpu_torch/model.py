@@ -17,6 +17,9 @@ any hook as one replay of a CUDA graph of that many steps
 costs what a direct replay does.  On a grid with no-flux walls the carry
 also holds the walls' halo (``halo_U``, ...: the engine's flat dict of
 tensors), so a restart continues bit for bit from either checkpoint format.
+The shallow-water equation set runs its own step (``models/sw_model``) the
+same way: the 2-D state stays resident and the steps between two firings
+are one graph (its carry is empty).
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ from .config import (ModelConfig, EquationSet, GridKind, TimestepSchemeType,
                      VerticalStaggering)
 from .fast import engine
 from .io.diagnostics import error_norms
-from .models import nh_model
+from .models import nh_model, sw_model
 from .utils.timeobj import parse_duration_seconds
 from .utils.timers import Timers
 
@@ -40,9 +43,9 @@ GRAPH_STEPS = 50
 # graphs kept per model (one per run length met); the oldest goes first
 GRAPHS_KEPT = 4
 
-_NOT_PORTED = ("is not ported yet (ROADMAP queue 1 item 2: shallow water, "
-               "the reference-layout engine for the configurations outside "
-               "the z-first engine, IMEX with tracers)")
+_NOT_PORTED = ("is not ported yet (ROADMAP queue 1 items 2-6: the "
+               "configurations outside the z-first engine, IMEX with "
+               "tracers)")
 
 
 class WorkflowProcess:
@@ -115,9 +118,7 @@ class Model:
         self.device = resolve_device(device)
         if mesh is not None:
             raise NotImplementedError(
-                "a device mesh is not ported yet (ROADMAP queue 1 item 3)")
-        if cfg.equation_set == EquationSet.SHALLOW_WATER:
-            raise NotImplementedError(f"the shallow-water model {_NOT_PORTED}")
+                "a device mesh is not ported yet (ROADMAP queue 1 item 7)")
         # test-case physical-constants override (the reference's
         # TestCase::EvaluatePhysicalConstants hook, TestCase.h:103-110)
         if testcase is not None and hasattr(testcase, "physical_constants"):
@@ -146,6 +147,17 @@ class Model:
                     testcase, "rayleigh", False):
                 rayleigh = None
         ztop = getattr(testcase, "ztop", None)
+        self._runs = {}          # run length -> graph_runner
+        self._d = None           # resident state (z-first; 2-D for SW)
+        self._c = None           # resident carry (engine layout)
+        self._carry_seen = None  # the self.carry that _c stands for
+        self._snap = {}          # snapshot of _zl when _d matched it
+        self._zl = None          # reference-layout state, None when stale
+        self.reference = None
+        self._sw = cfg.equation_set == EquationSet.SHALLOW_WATER
+        if self._sw:
+            self._init_sw(cfg, testcase, topography)
+            return
         if cfg.vertical_staggering != VerticalStaggering.LORENZ:
             raise NotImplementedError(
                 f"{cfg.vertical_staggering.value} staggering {_NOT_PORTED}")
@@ -164,8 +176,6 @@ class Model:
         # diagnostics, the output managers and the physics
         self.geom_dev = OnDevice(self.geom, self.device)
 
-        self._zl = None          # reference-layout state, None when stale
-        self.reference = None
         if testcase is not None:
             self._zl = testcase.initial_state(
                 self.geom, cfg.constants, dtype=cfg.dtype, device=self.device)
@@ -205,11 +215,31 @@ class Model:
         self._first = (engine._natural_layout(first) if self._swapped
                        else first)
         self._step = step
-        self._runs = {}          # run length -> graph_runner
-        self._d = None           # resident z-first state (natural layout)
-        self._c = None           # resident carry (engine layout)
-        self._carry_seen = None  # the self.carry that _c stands for
-        self._snap = {}          # snapshot of _zl when _d matched it
+
+    def _init_sw(self, cfg, testcase, topography):
+        """The shallow-water set (JAX ``model.py:99-105``): its own step,
+        ``(state, {}) -> (state, {})``, on the 2-D state; no carry."""
+        if cfg.nz > 1:
+            raise ValueError(
+                "equation_set=SHALLOW_WATER with nz > 1: set "
+                "equation_set=PRIMITIVE_NONHYDRO for 3-D runs")
+        self.geom = sw_model.build_sw_geometry(cfg, topography)
+        self.geom_dev = OnDevice(self.geom, self.device)
+        if testcase is not None:
+            self._zl = testcase.initial_state(
+                self.geom, cfg.constants, dtype=cfg.dtype, device=self.device)
+            if hasattr(testcase, "reference_state"):
+                self.reference = testcase.reference_state(
+                    self.geom, cfg.constants, dtype=cfg.dtype,
+                    device=self.device)
+        sw_step = sw_model.make_sw_step(cfg, self.geom, device=self.device)
+        self._imex = False
+        self._swapped = False
+
+        def step(d, carry):
+            return sw_step(d), carry
+
+        self._step = step
 
     # ------------------------------------------------------------------
     @property
@@ -218,7 +248,8 @@ class Model:
         device), unpacked from the resident z-first state at the first read
         after a step."""
         if self._zl is None and self._d is not None:
-            self._zl = engine.unpack_state(self._d)
+            self._zl = (dict(self._d) if self._sw
+                        else engine.unpack_state(self._d))
             self._snap = _snapshot(self._zl)
         return self._zl
 
@@ -275,6 +306,12 @@ class Model:
         return {k: torch.as_tensor(v).to(self.device)
                 for k, v in carry.items()}
 
+    def _pack_sw(self, state):
+        """The shallow-water state as the step keeps it: contiguous tensors
+        on the device (fresh where the given one was not)."""
+        return {k: torch.as_tensor(v).to(self.device).contiguous()
+                for k, v in state.items()}
+
     def _run(self, n: int):
         """The runner of ``n`` steps (one CUDA graph on the card)."""
         if n not in self._runs:
@@ -289,9 +326,10 @@ class Model:
         """``n`` steps from the resident state: ``first_step`` where there
         is no carry (Strang), then one run of the rest."""
         if self._zl is not None and not _unchanged(self._zl, self._snap):
-            self._d = engine.pack_state(self._zl, device=self.device)
+            self._d = (self._pack_sw(self._zl) if self._sw
+                       else engine.pack_state(self._zl, device=self.device))
             self._snap = _snapshot(self._zl)
-        if self._imex:
+        if self._imex or self._sw:
             self._c = {}
         elif self.carry is None:
             self._c = None
@@ -305,7 +343,7 @@ class Model:
             d, c = self._run(left)(d, c)
         self._d, self._c = d, c
         self._zl, self._snap = None, {}
-        if not self._imex:
+        if not (self._imex or self._sw):
             self.carry = self._carry_seen = c
         self.step_count += n
         for _ in range(n):
@@ -375,10 +413,10 @@ class Model:
     def profile_phases(self, reps: int = 5):
         """Per-phase timing in the reference FunctionTimer taxonomy.  It
         times the reference-layout operators phase by phase, which are not
-        ported yet (ROADMAP queue 1 item 2)."""
+        ported yet (ROADMAP queue 1 item 6)."""
         raise NotImplementedError(
             "profile_phases needs the reference-layout operators, which are "
-            "not ported yet (ROADMAP queue 1 item 2)")
+            "not ported yet (ROADMAP queue 1 item 6)")
 
     # ------------------------------------------------------------------
     def compute_error_norms(self, reference=None):

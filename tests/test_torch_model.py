@@ -357,9 +357,17 @@ def test_cli_runs_the_thermal_bubble(capsys):
 
 
 @pytest.mark.parametrize("case", ["sw_tc2", "sw_galewsky"])
-def test_cli_cases_that_need_unported_engines_raise(case):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 2"):
-        t_cli.main(["--case", case, "--nsteps", "1", "--device", "cpu"])
+def test_cli_cases_that_need_unported_engines_raise(case, capsys):
+    """The shallow-water cases, which raised before their engine was
+    ported, run through the CLI (2 steps at its default resolution) and
+    give finite states."""
+    rc = t_cli.main(["--case", case, "--nsteps", "2", "--checksum_dt",
+                     "200s", "--device", "cpu"])
+    assert rc == 0
+    lines = [l for l in capsys.readouterr().out.splitlines()
+             if "..Checksums" in l or "..Invariants" in l]
+    assert len(lines) == 4
+    assert all("nan" not in l and "inf" not in l for l in lines)
 
 
 @pytest.mark.parametrize("what", ["shallow_water", "mesh", "cph", "erk",
@@ -370,8 +378,16 @@ def test_unported_configurations_raise(what):
     tc = TorchUMJS(pert="exp")
     kw, cfg = {}, torch_cfg()
     if what == "shallow_water":
-        cfg = cfg.with_(equation_set=tt.EquationSet.SHALLOW_WATER, nz=1)
-    elif what == "mesh":
+        # ported: Model builds the shallow-water set and steps it
+        from tempestmodel_tpu_torch.testcases.shallow_water import (
+            Williamson2)
+        m = t_model.Model(cfg.with_(equation_set=tt.EquationSet.SHALLOW_WATER,
+                                    nz=1), Williamson2(), device=CPU)
+        m.go(nsteps=1)
+        assert set(m.state) == {"U", "V", "H"}
+        assert all(bool(torch.isfinite(v).all()) for v in m.state.values())
+        return
+    if what == "mesh":
         kw["mesh"] = object()
     elif what == "cph":
         cfg = cfg.with_(
@@ -389,7 +405,7 @@ def test_unported_configurations_raise(what):
 
 def test_profile_phases_is_not_ported():
     m = t_model.Model(torch_cfg(), TorchUMJS(pert="exp"), device=CPU)
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         m.profile_phases()
 
 
