@@ -79,7 +79,11 @@ and runs these phases, each printing one JSON line:
             at (1, 6, 240, 240) against their plain forms, and the
             nonhydrostatic nu4 instantiations' SHA-256 digests at the
             flagship held to the ones the commit before that field set
-            gave (``NU4_DIGESTS``, ``kernels/hyper_digest.py``);
+            gave (``NU4_DIGESTS``, ``kernels/hyper_digest.py``); and
+            ``banded_solve`` at the Schur solver's reduced system on the
+            flagship's columns (n 60, q 9: the wide form) beside one
+            ``torch.linalg.solve_ex`` of the densified systems by
+            PyTorch's default backend and by cuSOLVER;
 4. slice    the Strang-HEVI step at small size in float64 on the card three
             ways — fused kernel path, unfused kernel path, plain path — each
             pair to 1e-11 relative per field, and ``make_fast_multistep``
@@ -104,6 +108,11 @@ and runs these phases, each printing one JSON line:
             tracer; Galewsky) and the advection step at ne4 in fp64,
             kernel path against plain path to 1e-11 with their launches a
             step, and a 3-step graph replay bit for bit 3 eager steps;
+            then the vertical options at ne4 nz8 in fp64 (the dense,
+            Schur and JFNK solvers, the explicit vertical path at dt 5 s,
+            ``upwind_thermo=False``, the dense solver with three seeded
+            species), kernel path against plain path to 1e-11, launches a
+            step exact, a 3-step graph replay against 3 eager steps;
 5. flagship the main paths at full width: UMJS baroclinic wave, ne30 p4
             nz30 float32: ``make_fast_multistep`` (``first_step``, then
             replays of a 10-step CUDA graph), the eager fused path of
@@ -164,7 +173,13 @@ and runs these phases, each printing one JSON line:
             ne 30 f64 for a day to ``tests/test_shallow_water.py``'s bars;
             the CLI's ``sw_galewsky`` at resolution 60 for 20 steps; and
             ``Model.go`` restarted from ``.tarena`` and ``.npz``, bit for
-            bit;
+            bit; then (5j) the vertical options on the flagship grid
+            through ``Model.go`` (10 steps, then 40 under replay): the
+            banded run, the dense, Schur and JFNK solvers, the explicit
+            path at dt 2 s beside the banded run at dt 2 s, JW with and
+            without ``upwind_thermo``, JFNK in float64 beside a banded
+            float64 run: ms/step by graph replay, device busy and launches
+            a step, finite fields, each against its banded run;
 6. dss      the step with the tail's DSS as four launches or as
             ``dss_state`` and the stages' Rt/Rho as two launches or as
             ``dss_scalar2``, eagerly and under graph replay, in turns; the
@@ -173,9 +188,9 @@ and runs these phases, each printing one JSON line:
             full-state DSS);
 7. kernels  one line listing every kernel with its time, bound, plain
             version's time and launches on the flagship runs, its launches
-            on the IMEX, the Schar, the terrain, the no-flux and the
-            shallow-water paths, and its Cartesian and shallow-water
-            figures.
+            on the IMEX, the Schar, the terrain, the no-flux, the
+            shallow-water paths and the vertical options' (phases 4 and
+            5j), and its Cartesian and shallow-water figures.
 
 With ``--profile PATH`` it also traces steps of each flagship path, of the
 moist replay and of the Schar paths with torch.profiler and writes the
@@ -3352,7 +3367,9 @@ def check_wide_banded(dev, rows):
     for name, n, q, R, form in (("banded_solve", 3 * NZ + 1, 10, 1, None),
                                 ("banded_solve", 3 * NZ + 1, 10, 1, "wide"),
                                 ("banded_solve", 3 * NZ + 1, 16, 1, None),
-                                ("banded_solve_multi", NZ, 9, NTR, None)):
+                                ("banded_solve_multi", NZ, 9, NTR, None),
+                                # the Schur solver's reduced system
+                                ("banded_solve", 2 * NZ, 9, 1, None)):
         dtype = torch.float32
         sets = []
         for _ in range(2):
@@ -3382,6 +3399,21 @@ def check_wide_banded(dev, rows):
                     "bound_by": by, "max_rel_err": err,
                     "launch": cuda_banded.launch_config(
                         *sets[0], q, None if form is None else sh)}
+        if n == 2 * NZ:
+            # one library call of the same function: a batched dense LU,
+            # by PyTorch's default backend and by cuSOLVER (the dense
+            # column solver's, ``fast/implicit.dense_solve``)
+            dense = [(dense_from_bands(bb, q), rr.T.contiguous()[..., None])
+                     for bb, rr in sets[:1]]
+            out[key]["library_ms"] = time_cuda(
+                lambda a, r: torch.linalg.solve_ex(a, r), dense, reps=3)
+            torch.backends.cuda.preferred_linalg_library("cusolver")
+            try:
+                out[key]["library_ms_cusolver"] = time_cuda(
+                    lambda a, r: torch.linalg.solve_ex(a, r), dense, reps=3)
+            finally:
+                torch.backends.cuda.preferred_linalg_library("default")
+            del dense
         if not err < 1e-4:
             raise RuntimeError(f"{key}: rel err {err}")
         del sets
@@ -4252,6 +4284,258 @@ def sw_line(dev, smi, launches):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the vertical options (phases 4 and 5j): the dense, Schur and JFNK column
+# solvers, the fully explicit vertical path and upwind_thermo=False
+# ---------------------------------------------------------------------------
+
+# the paths of this slice, by name: the configuration's changes from the
+# flagship's (``vertical_solver="pallas"``)
+VERT_PATHS = {
+    "dense": dict(vertical_solver="dense"),
+    "schur": dict(vertical_solver="schur"),
+    "jfnk": dict(vertical_solver="jfnk"),
+    "explicit": dict(explicit_vertical=True),
+    "upwind_off": dict(upwind_thermo=False),
+}
+# the explicit path's dt: vertically stable at the layers' depth.  At ne4
+# nz8 (3.75 km layers under 30 km) 5 s; on the flagship grid (1 km layers)
+# 2 s: a CPU probe of the port (UMJS ne2 p4 nz30 f64, 150 steps) stayed
+# finite at dt 1-5 s and turned non-finite at 6, 8 and 10 s
+VERT_EXPLICIT_DT_NE4, VERT_EXPLICIT_DT = 5.0, 2.0
+VERT_STEPS = 10             # steps of each Model.go call in phase 5j
+
+
+def vertical_per_step(name):
+    """Kernel launches per step of path ``name`` of this slice (the default
+    DSS grouping; ``first_step`` has one implicit solve more): the dense
+    and JFNK solves launch no kernel, the Schur solve one ``banded_solve``
+    (its reduced system), ``upwind_off`` the fused implicit kernel without
+    its penalty; the explicit path has no implicit solve and no W fold, so
+    each stage's DSS and the tail's are one ``dss_state`` launch each."""
+    n = fused_per_step(("state", "scalar2"))
+    if name == "upwind_off":
+        return n
+    n = dict(n, fused_implicit_update=0)
+    if name == "schur":
+        n["banded_solve"] = 1
+    elif name == "explicit":
+        n.update(dss_uvw=0, dss_scalar2=0, dss_state=7)
+    return n
+
+
+def expected_counts(per_step, nsteps):
+    """``nsteps`` steps and one ``first_step``, which has one implicit solve
+    more (where the path has one)."""
+    want = {k: v * (nsteps + 1) for k, v in per_step.items()}
+    for k in IMPLICIT_SOLVES:
+        want[k] += 1 if per_step[k] else 0
+    return want
+
+
+def vertical_config(name, dtype, ne, nz, explicit_dt):
+    import tempestmodel_tpu_torch as tm
+    from tempestmodel_tpu_torch.testcases.nonhydro_sphere import (
+        BaroclinicWaveUMJS)
+    tc = BaroclinicWaveUMJS(pert="exp")
+    kw = dict(VERT_PATHS.get(name, {}))
+    if name == "explicit":
+        kw["dt"] = explicit_dt
+    cfg = tm.ModelConfig(
+        equation_set=tm.EquationSet.PRIMITIVE_NONHYDRO,
+        grid_kind=tm.GridKind.CUBED_SPHERE, ne=ne, order=ORDER, nz=nz,
+        ztop=tc.ztop, dt=DT, hyperdiffusion=True, nu_scalar=NU, nu_div=NU,
+        nu_vort=NU, vertical_solver="pallas", dtype=dtype).with_(**kw)
+    return tc, cfg
+
+
+def check_vertical_slice(dev):
+    """Phase 4, the vertical options: 3 steps of UMJS at ne4 p4 nz8 in
+    float64 on the card, the kernel path against the plain path to 1e-11
+    per field, for each path of ``VERT_PATHS`` (the explicit path at dt
+    ``VERT_EXPLICIT_DT_NE4``) and the dense solver with three seeded tracer
+    species (``banded_solve_multi`` under a solver that launches no kernel
+    of its own); the kernel path's launches held to ``vertical_per_step``
+    exactly; then ``make_fast_multistep`` (one replay of a 3-step CUDA
+    graph) against 3 eager steps of each path to 1e-13.  Returns the
+    launch counts of each kernel run."""
+    from tempestmodel_tpu_torch import fast
+    from tempestmodel_tpu_torch.kernels import counts, synthetic
+    from tempestmodel_tpu_torch.models import nh_model
+    launched = {}
+    for name in list(VERT_PATHS) + ["dense_tracers"]:
+        base = "dense" if name == "dense_tracers" else name
+        tc, cfg = vertical_config(base, torch.float64, 4, 8,
+                                  VERT_EXPLICIT_DT_NE4)
+        geom = nh_model.build_nh_sphere_geometry(cfg, ztop=tc.ztop)
+        X0 = fast.pack_state(tc.initial_state(
+            geom, cfg.constants, dtype=cfg.dtype, device=dev), device=dev)
+        per = vertical_per_step(base)
+        what = f"UMJS ne4 p4 nz8 f64 dt{cfg.dt:g}, {base}"
+        if name == "dense_tracers":
+            rng = np.random.default_rng(SEED + 17)
+            for k in ("U", "V", "Rt", "Rho"):
+                X0[k] = X0[k] * (1.0 + 1e-3 * torch.as_tensor(
+                    rng.standard_normal(tuple(X0[k].shape)), device=dev))
+            X0["Tracers"] = torch.as_tensor(synthetic.random_tracers_numpy(
+                cfg.nz, 6, 16, 16, NTR, cfg.order, seed=SEED + 18),
+                device=dev)
+            per = moist(per)
+            what += f", {NTR} seeded tracer species"
+        outs = {}
+        for path, pk in (("kernels", {}), ("plain", {"plain": True})):
+            counts.reset_launch_counts()
+            first, step = fast.make_fast_step(cfg, geom, device=dev, **pk)
+            X, c = first(X0)
+            for _ in range(2):
+                X, c = step(X, c)
+            torch.cuda.synchronize()
+            outs[path] = X
+            if path == "kernels":
+                launched[name] = dict(counts.launch_counts)
+        want = expected_counts(per, 2)
+        if launched[name] != want:
+            raise RuntimeError(f"{what}: launch counts {launched[name]} != "
+                               f"expected {want}")
+        errs = {k: rel_err(outs["kernels"][k], outs["plain"][k])
+                for k in outs["kernels"]}
+        # graph replay of 3 steps against 3 eager steps from one state
+        first, step = fast.make_fast_step(cfg, geom, device=dev)
+        X1, c1 = first(X0)
+        E, ce = X1, c1
+        for _ in range(3):
+            E, ce = step(E, ce)
+        _, multi = fast.make_fast_multistep(cfg, geom, 3, device=dev)
+        G, cg = multi(X1, c1)
+        G, cg = multi(X1, c1)             # a pure replay
+        torch.cuda.synchronize()
+        replay = {k: rel_err(G[k], E[k]) for k in E}
+        emit({"phase": "vertical_slice", "config": what + ", 3 steps",
+              "kernels_vs_plain": errs, "tol": 1e-11,
+              "replay_vs_eager": replay, "replay_tol": 1e-13,
+              "launches": launched[name], "launches_per_step": per})
+        if not (max(errs.values()) < 1e-11
+                and max(replay.values()) < 1e-13):
+            raise RuntimeError(f"{what}: paths disagree {errs} / replay "
+                               f"{replay}")
+        check_finite(outs["kernels"], what, torch.float64)
+    return launched
+
+
+def vertical_line(dev, smi, launches):
+    """Phase 5j: this slice's paths on the flagship grid (UMJS ne30 p4 L30
+    f32, dt 100 s, nu 1e15) through ``Model`` as a user builds it: the
+    banded run the others are held to (``"pallas"``, the main path), the
+    dense, Schur and JFNK solvers, the explicit vertical path at dt
+    ``VERT_EXPLICIT_DT`` beside the banded run at that dt, and JW (its
+    terrain; the geometry in float32: the stage's 3-D metric form) with
+    ``upwind_thermo=False`` beside JW with it.  Each: ``go`` of
+    ``VERT_STEPS`` steps from the start (``first_step`` and a graph of the
+    rest: the launches counted there, held to ``vertical_per_step``), one
+    more to capture a ``VERT_STEPS``-step graph, one timed (CUDA events:
+    graph replay), one profiled (device busy and device launches a step,
+    ``utils.devprof``); finite fields; the first run's state against its
+    banded run's (relative per field).  JFNK also in float64 beside a
+    banded float64 run."""
+    from tempestmodel_tpu_torch.kernels import counts
+    from tempestmodel_tpu_torch.model import Model
+    from tempestmodel_tpu_torch.testcases.nonhydro_sphere import (
+        BaroclinicWaveJW)
+    from tempestmodel_tpu_torch.utils import devprof
+    runs = [("banded", "pallas", "umjs"), ("dense", "dense", "umjs"),
+            ("schur", "schur", "umjs"), ("jfnk", "jfnk", "umjs"),
+            ("banded_dt2", "pallas", "umjs_dt2"),
+            ("explicit", "explicit", "umjs_dt2"),
+            ("jw", "pallas", "jw"), ("jw_upwind_off", "upwind_off", "jw"),
+            ("banded_f64", "pallas", "umjs_f64"),
+            ("jfnk_f64", "jfnk", "umjs_f64")]
+    ref = {"umjs": "banded", "umjs_dt2": "banded_dt2", "jw": "jw",
+           "umjs_f64": "banded_f64"}
+    finals = {}
+    for run, path, case in runs:
+        tc, cfg = vertical_config(path if path != "pallas" else "",
+                                  torch.float32, NE, NZ, VERT_EXPLICIT_DT)
+        kw = {}
+        if case == "umjs_dt2":
+            cfg = cfg.with_(dt=VERT_EXPLICIT_DT)
+        if case == "umjs_f64":
+            cfg = cfg.with_(dtype=torch.float64)
+        if case == "jw":
+            tc = BaroclinicWaveJW(pert="exp")
+            cfg = cfg.with_(ztop=tc.ztop)
+            kw["topography"] = (lambda c: lambda lon, lat: tc.topography(
+                lon, lat, c))(cfg.constants)
+        t0 = time.perf_counter()
+        m = Model(cfg, tc, device=dev, **kw)
+        setup_s = time.perf_counter() - t0
+        counts.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        m.go(nsteps=VERT_STEPS)             # first_step, then a graph
+        sync(dev)
+        first_go_s = time.perf_counter() - t0
+        launches[f"vertical_{run}"] = got = dict(counts.launch_counts)
+        per = vertical_per_step(path) if path != "pallas" \
+            else fused_per_step(("state", "scalar2"))
+        want = expected_counts(per, VERT_STEPS)
+        if got != want:
+            raise RuntimeError(f"5j {run}: launch counts {got} != expected "
+                               f"{want}")
+        X10 = {k: v.clone() for k, v in m.state.items()}
+        check_finite(X10, f"5j {run}", cfg.dtype)
+        finals[run] = X10
+        m.go(nsteps=VERT_STEPS)             # captures a VERT_STEPS graph
+        sync(dev)
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        ev0.record()
+        m.go(nsteps=VERT_STEPS)             # a replay
+        ev1.record()
+        sync(dev)
+        wall_ms = 1e3 * (time.perf_counter() - t0) / VERT_STEPS
+        ms = ev0.elapsed_time(ev1) / VERT_STEPS
+        busy_ms, nkern = devprof.device_time_ms(
+            lambda: m.go(nsteps=VERT_STEPS))
+        # finite after the 50 steps: required but of JFNK in float32,
+        # whose unpreconditioned GMRES(48) x 2 leaves W 25x the dense
+        # solver's after 10 steps at nz 30 in the JAX package as in the port
+        # (CPU, ne2), and turns non-finite here within 50 steps
+        finite_50 = all(bool(torch.isfinite(v).all())
+                        for v in m.state.values())
+        if not finite_50 and (path, cfg.dtype) != ("jfnk", torch.float32):
+            raise RuntimeError(f"5j {run}: non-finite after 50 steps")
+        diff = None
+        if run != ref[case]:
+            diff = {k: rel_err(X10[k], finals[ref[case]][k]) for k in X10}
+        emit({"phase": "vertical", "run": run, "path": path,
+              "config": (f"{'JW' if case == 'jw' else 'UMJS'} ne{NE} "
+                         f"p{ORDER} nz{NZ} "
+                         f"{'f64' if case == 'umjs_f64' else 'f32'} "
+                         f"dt{cfg.dt:g} nu{NU:g}, "
+                         f"vertical_solver {cfg.vertical_solver}, "
+                         f"explicit_vertical {cfg.explicit_vertical}, "
+                         f"upwind_thermo {cfg.upwind_thermo}"),
+              "ms_per_step": ms, "timed_as": "graph replay through "
+              f"Model.go ({VERT_STEPS}-step graph), CUDA events",
+              "wall_ms_per_step": wall_ms,
+              "device_busy_ms_per_step": busy_ms / VERT_STEPS,
+              "device_launches_per_step": nkern / VERT_STEPS,
+              "kernel_launches_per_step": {k: v for k, v in per.items()
+                                           if v},
+              "launches": got, "launches_counted": "first_step + 1 warm-up "
+              f"step + {VERT_STEPS - 1} captured steps",
+              "first_go_s": first_go_s, "model_setup_s": setup_s,
+              "steps": 5 * VERT_STEPS, "finite_after_10_steps": True,
+              "finite_after_50_steps": finite_50,
+              "rel_diff_from": ref[case] if diff else None,
+              "rel_diff_after_10_steps": diff,
+              "peak_device_GiB": torch.cuda.max_memory_allocated() / 2 ** 30,
+              "card": smi})
+        del m
+        torch.cuda.empty_cache()
+
+
 def main():
     args = sys.argv[1:]
     profile_path = None
@@ -4356,6 +4640,7 @@ def main():
     check_terrain_slice(dev)
     check_noflux_slice(dev)
     check_sw_slice(dev)
+    vert_launches = check_vertical_slice(dev)
 
     # 5. the main paths at full width -------------------------------------
     X0 = fast.pack_state(state, device=dev)
@@ -4600,6 +4885,11 @@ def main():
     sw_line(dev, smi, launches)
     emit({"phase": "shallow_water", "seconds": time.perf_counter() - t0})
 
+    # 5j. this slice's path: the vertical options on the flagship grid
+    t0 = time.perf_counter()
+    vertical_line(dev, smi, launches)
+    emit({"phase": "vertical", "seconds": time.perf_counter() - t0})
+
     if profile_path is not None:
         os.makedirs(os.path.dirname(os.path.abspath(profile_path)),
                     exist_ok=True)
@@ -4728,6 +5018,20 @@ def main():
             row["noflux_ms_with_and_without_walls"] = {
                 where: t[name]
                 for where, t in rows["noflux_dss_times"].items()}
+        # this slice's paths: phase 5j's Model runs (each from counts at
+        # 0) and phase 4's kernel runs at ne4
+        row["launches_vertical_paths"] = {
+            run: launches[f"vertical_{run}"][name]
+            for run in ("dense", "schur", "jfnk", "explicit",
+                        "jw_upwind_off")}
+        row["launches_vertical_slice"] = {
+            path: v[name] for path, v in vert_launches.items()}
+        for path in VERT_PATHS:
+            run = "jw_upwind_off" if path == "upwind_off" else path
+            if vertical_per_step(path)[name] and \
+                    launches[f"vertical_{run}"][name] < 1:
+                raise RuntimeError(f"{name} was not launched on the "
+                                   f"{path} path")
         if name in ("banded_solve", "banded_solve_multi"):
             row["q_above_8"] = {k: v for k, v in rows["banded_wide"].items()
                                 if k.split()[0] == name}

@@ -46,9 +46,17 @@ diffusion against the reference state is added at every explicit stage.
 same pieces: per stage the horizontal tendency, the full-state DSS and the
 vertical implicit solve, then the nu4 tail.
 
+The JAX package's vertical options outside its own z-first engine run here
+too: the dense, Schur and JFNK column solvers (``fast/implicit.
+vertical_implicit(solver=)``), the implicit solve without the Rt/Rho upwind
+penalty (``upwind_thermo=False``), and the fully explicit vertical path
+(``explicit_vertical`` or ERK: the vertical tendency in every stage, no
+implicit solve, an empty carry).
+
 Not ported yet (they wait in the roadmap, none is declared unnecessary):
-the device-mesh engine, tracers and the IMEX family on no-flux grids, and
-tracers with uniform diffusion.
+the device-mesh engine, CPH, LEV and INT staggering, tracers and the IMEX
+family on no-flux grids, tracers with uniform diffusion or on the explicit
+vertical path.
 
 Where the JAX code writes ``x.at[i].set(v)``, this one writes in place on
 a fresh tensor (a clone or a new result), never on an argument.
@@ -71,6 +79,8 @@ from ..models import nonhydro
 from . import dss_cuda
 
 FIELDS = ("U", "V", "Rt", "Rho", "W")
+# the JAX package's vertical_solver names (fast/implicit.vertical_implicit)
+SOLVERS = ("banded", "pallas", "dense", "schur", "jfnk")
 
 
 def pack_state(state, device=None):
@@ -932,17 +942,25 @@ def step_after_subcycle(d, dt, cfg: ModelConfig, fg: FastGeometry,
 
 def fast_engine_supported(cfg: ModelConfig, has_tracers: bool = False,
                           mesh=None, geom=None) -> bool:
-    """The configurations this engine covers: LOR staggering, Strang-HEVI,
-    with or without tracers, with or without uniform (nu2) diffusion, on
-    one device, on the cubed sphere or on a Cartesian grid (x-z slice or
-    3-D plane) with periodic lateral boundaries or no-flux walls along ONE
-    axis -- pass ``geom`` so that they can be checked.  Outside: tracers on
-    a no-flux grid and tracers with uniform diffusion (the roadmap's), and
-    no-flux walls along both axes (no test case has them).  (The JAX
-    package's engine also covers a device mesh and leaves no-flux grids and
+    """The configurations this engine covers: LOR staggering on one
+    device, on the cubed sphere or on a Cartesian grid (x-z slice or 3-D
+    plane) with periodic lateral boundaries or no-flux walls along ONE axis
+    (pass ``geom`` so that they can be checked), with or without uniform
+    (nu2) diffusion; Strang-HEVI with any of the JAX package's column
+    solvers (``vertical_solver`` ``"banded"``, ``"pallas"``, ``"dense"``,
+    ``"schur"``, ``"jfnk"``), with or without the implicit Rt/Rho upwind
+    penalty (``upwind_thermo``), or the fully explicit vertical path
+    (``explicit_vertical``, or ``timescheme`` ERK: the vertical tendency
+    in every explicit stage, no implicit solve); with or without tracers.
+    Outside: tracers on a no-flux grid, with uniform diffusion or on the
+    explicit vertical path (the roadmap's), and no-flux walls along both
+    axes (no test case has them).  (The JAX package's engine also covers a
+    device mesh and leaves these vertical options, no-flux grids and
     uniform diffusion to its reference-layout engine.)"""
     from ..config import TimestepSchemeType
     uniform = cfg.nu_uniform_scalar != 0.0 or cfg.nu_uniform_vector != 0.0
+    explicit = (cfg.explicit_vertical
+                or cfg.timescheme == TimestepSchemeType.ERK)
     if cfg.grid_kind == GridKind.CUBED_SPHERE:
         grid_ok = True
     elif cfg.grid_kind in (GridKind.CARTESIAN_XZ, GridKind.CARTESIAN_3D):
@@ -956,11 +974,11 @@ def fast_engine_supported(cfg: ModelConfig, has_tracers: bool = False,
     return (grid_ok
             and mesh is None
             and not (uniform and has_tracers)
+            and not (explicit and has_tracers)
             and cfg.vertical_staggering == VerticalStaggering.LORENZ
-            and cfg.timescheme == TimestepSchemeType.STRANG
-            and not cfg.explicit_vertical
-            and cfg.vertical_solver in ("banded", "pallas")
-            and cfg.upwind_thermo)
+            and cfg.timescheme in (TimestepSchemeType.STRANG,
+                                   TimestepSchemeType.ERK)
+            and cfg.vertical_solver in SOLVERS)
 
 
 def _ref_zf(cfg: ModelConfig, ref_state, fg):
@@ -1007,9 +1025,18 @@ def _rayleigh_terms(cfg: ModelConfig, geom, ref_state, fg):
 
 def _strang_fns(cfg: ModelConfig, fg: FastGeometry, rayleigh, dss_fn,
                 implicit_fn, stage_fn=None, use_wfold: bool = False,
-                hyper_fns=None, uniform=None):
+                hyper_fns=None, uniform=None, vtend=None):
     """The Strang-HEVI step on z-first state, parameterized over the DSS
     and implicit-solve implementations.
+
+    ``vtend(ueval)``: the fully explicit vertical path (the JAX package's
+    ``explicit_vertical`` / ERK branch of ``make_strang_step``): every
+    stage adds ``dt_s`` times these tendencies of (Rt, W, Rho) after the
+    horizontal ones and before the uniform diffusion, the step is the
+    explicit RK step and the nu4 tail, with no implicit solve, and its
+    carry is empty.  On a no-flux grid this path threads no halo, as the
+    JAX package's does: its DSS averages no wall.  ``use_wfold`` must then
+    be False.
 
     ``stage_fn(base, ueval, dt_s, defer_w=False)``: the fused explicit stage
     (``stage_cuda.fused_stage`` bound to the geometry); None runs the stage
@@ -1036,7 +1063,10 @@ def _strang_fns(cfg: ModelConfig, fg: FastGeometry, rayleigh, dss_fn,
     constants = cfg.constants
     dt = cfg.dt
     oc = cfg.off_centering
-    walled = any(fg.noflux)
+    explicit = vtend is not None
+    if explicit and use_wfold:
+        raise ValueError("the explicit vertical path folds no W finish")
+    walled = any(fg.noflux) and not explicit
 
     def axpy(base, tend, dt_s):
         return tree_map(lambda b, t: b + dt_s * t, base, tend)
@@ -1062,6 +1092,12 @@ def _strang_fns(cfg: ModelConfig, fg: FastGeometry, rayleigh, dss_fn,
                 upd, wfin = stage_fn(base, ueval, dt_s, defer_w=True)
                 return dss_fn(upd, w_finish=wfin, **hk)
             upd = stage_fn(base, ueval, dt_s)
+            if explicit:
+                # the vertical tendency vanishes on W's bottom and top rows:
+                # the stage's bottom boundary stays as it is
+                upd = dict(upd)
+                for k, v in vtend(ueval).items():
+                    upd[k] = upd[k] + dt_s * v
             if uniform is not None:
                 # the stage came back with its bottom W; the nu2 increment
                 # goes on top and the boundary row is written again
@@ -1069,6 +1105,9 @@ def _strang_fns(cfg: ModelConfig, fg: FastGeometry, rayleigh, dss_fn,
             return dss_fn(upd, **hk)
         bb = comb(*base) if isinstance(base, tuple) else base
         tend = horizontal_tendency(ueval, fg, constants)
+        if explicit:
+            for k, v in vtend(ueval).items():
+                tend[k] = tend[k] + v
         upd = axpy({k: bb[k] for k in FIELDS}, tend, dt_s)   # fresh tensors
         if uniform is not None:
             upd = uniform(upd, ueval, dt_s)
@@ -1154,6 +1193,15 @@ def _strang_fns(cfg: ModelConfig, fg: FastGeometry, rayleigh, dss_fn,
         if walled:
             carry.update({HALO + k: v for k, v in hal.items()})
         return u0, carry
+
+    if explicit:
+        def explicit_fn(d, carry=None):
+            u4 = erk(d, None)
+            return step_after_subcycle(
+                u4, dt, cfg, fg, rayleigh=rayleigh, dss_fn=dss_fn,
+                use_fused_hyper=hyper_fns is not None,
+                hyper_fns=hyper_fns), {}
+        return explicit_fn, explicit_fn
 
     def first_fn(d):
         return tail(implicit_fn(d, 0.5 * dt), walls(d))
@@ -1277,6 +1325,9 @@ class _Setup:
     hyper_fns: Any      # the two nu4 passes bound to the geometry, or None
     uniform: Any = None  # the stages' uniform diffusion (_uniform_fn)
     #                    # or None
+    vtend: Any = None    # the explicit vertical path's tendencies of
+    #                    # (Rt, W, Rho) (``implicit.vertical_explicit_
+    #                    # tendency`` bound), or None
 
 
 def _setup(cfg, geom, ref_state, device, plain, fused, dss_merge, swap_ab):
@@ -1302,8 +1353,15 @@ def _setup(cfg, geom, ref_state, device, plain, fused, dss_merge, swap_ab):
 
     q = nonhydro.estimate_bandwidth(geom, constants)
     statics = fimp.statics_to_device(
-        nonhydro.band_assembly_statics(geom, q), cfg.dtype, dev)
-    use_pallas = cfg.vertical_solver == "pallas"
+        nonhydro.band_assembly_statics(geom, q,
+                                       upwind_thermo=cfg.upwind_thermo),
+        cfg.dtype, dev)
+    solver = cfg.vertical_solver
+    use_pallas = solver == "pallas"
+    schur = None
+    if solver == "schur":
+        from ..models.vertical_schur import schur_statics
+        schur = schur_statics(fg.nz, q, fg.vo, cfg.dtype, dev)
     rayleigh = _rayleigh_terms(cfg, geom, ref_state, fg)
     saux = fimp.static_aux(fg)
 
@@ -1336,9 +1394,9 @@ def _setup(cfg, geom, ref_state, device, plain, fused, dss_merge, swap_ab):
     def implicit_fn(d, dti):
         out = fimp.vertical_implicit(
             d, fg, constants, dti, q, statics,
-            newton_iters=cfg.newton_iterations, use_pallas=use_pallas,
+            newton_iters=cfg.newton_iterations,
             ref_jacobian=(cfg.jacobian_mode == "reference"), saux=saux,
-            plain=plain, ist=ist)
+            plain=plain, ist=ist, solver=solver, schur=schur)
         if "Tracers" in d:
             tr = ftr.update_column_tracers(
                 d, out["W"], fg, dti, statics=tr_statics, plain=plain)
@@ -1349,9 +1407,14 @@ def _setup(cfg, geom, ref_state, device, plain, fused, dss_merge, swap_ab):
         return apply_dss(d, fg, rayleigh, plain=plain, w_finish=w_finish,
                          merge=dss_merge, halo=halo, walls_out=walls_out)
 
+    vtend = None
+    if cfg.explicit_vertical or cfg.timescheme.value == "erk":
+        def vtend(d):
+            return fimp.vertical_explicit_tendency(d, fg, constants, saux)
+
     return _Setup(fg=fg, fused=fused, rayleigh=rayleigh, dss_fn=dss_fn,
                   implicit_fn=implicit_fn, hyper_fns=hyper_fns,
-                  uniform=uniform)
+                  uniform=uniform, vtend=vtend)
 
 
 def _uvw_fits(fg: FastGeometry, dtype) -> bool:
@@ -1394,7 +1457,7 @@ def _fast_fns(cfg, geom, ref_state, mesh, device, plain, fused, dss_merge,
     In0 = np.asarray(geom.interp_n2i)[0]
     use_wfold = (use_fused_stage and len(In0) >= 2
                  and not np.any(In0[2:]) and s.uniform is None
-                 and _uvw_fits(fg, cfg.dtype))
+                 and s.vtend is None and _uvw_fits(fg, cfg.dtype))
 
     stage_fn = None
     if use_fused_stage:
@@ -1409,7 +1472,8 @@ def _fast_fns(cfg, geom, ref_state, mesh, device, plain, fused, dss_merge,
 
     first_fn, step_fn = _strang_fns(
         cfg, fg, s.rayleigh, s.dss_fn, s.implicit_fn, stage_fn=stage_fn,
-        use_wfold=use_wfold, hyper_fns=s.hyper_fns, uniform=s.uniform)
+        use_wfold=use_wfold, hyper_fns=s.hyper_fns, uniform=s.uniform,
+        vtend=s.vtend)
     return first_fn, step_fn, fg
 
 
@@ -1511,10 +1575,14 @@ def fast_imex_supported(cfg: ModelConfig, has_tracers: bool = False,
     from ..config import TimestepSchemeType
     if cfg.timescheme.value not in IMEX_SCHEMES or has_tracers:
         return False
-    # no-flux walls and uniform diffusion are the Strang engine's only
+    # no-flux walls, uniform diffusion, the explicit vertical path, the
+    # solvers other than the banded ones and upwind_thermo=False are the
+    # Strang engine's only (the JAX package's IMEX takes none of them)
     if cfg.nu_uniform_scalar != 0.0 or cfg.nu_uniform_vector != 0.0 \
             or "noflux" in (getattr(geom, "bc_x", None),
-                            getattr(geom, "bc_y", None)):
+                            getattr(geom, "bc_y", None)) \
+            or cfg.explicit_vertical or not cfg.upwind_thermo \
+            or cfg.vertical_solver not in ("banded", "pallas"):
         return False
     return fast_engine_supported(
         cfg.with_(timescheme=TimestepSchemeType.STRANG), geom=geom)

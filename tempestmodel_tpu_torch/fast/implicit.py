@@ -10,6 +10,11 @@ the unfused one every column operator application is a clean ``(K, nz) @
 (nz, ncol)`` GEMM, the Newton system interleave is a reshape (not a
 gather), and the banded solve is the hand-written kernel of
 ``ops/cuda_banded`` — its ``(n, 2q+1, ncol)`` layout is native here.
+The JAX package's other column solvers (``vertical_solver`` ``"dense"``,
+``"schur"``, ``"jfnk"``) take the same exact bands: a batched dense LU,
+the Schur elimination of W (``models/vertical_schur``, its reduced system
+through the banded kernel), restarted GMRES with a band product for J·v
+(``models/jfnk``).
 
 Semantics (including the ``ref_jacobian`` reference-Jacobian mode and the
 AD-subgradient sign conventions) match the JAX package's.  Where that code
@@ -20,6 +25,8 @@ an argument.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -27,7 +34,7 @@ from ..models.nonhydro import exner_from_rhotheta, _zero_ends
 from ..models.vertical_banded import banded_solve_t
 from ..ops.cuda_banded import banded_solve
 from . import implicit_cuda
-from .engine import FastGeometry
+from .engine import FastGeometry, SOLVERS
 
 
 def statics_to_device(statics, dtype, device):
@@ -94,11 +101,15 @@ def _prep_aux(d, fg: FastGeometry, saux=None, interfaces: bool = True):
     return x_parts, aux
 
 
-def residual_lor(x_parts, x0_parts, aux, fg: FastGeometry, constants, dt):
+def residual_lor(x_parts, x0_parts, aux, fg: FastGeometry, constants, dt,
+                 penalty: bool = True):
     """(f_rt, f_w, f_rho) of the HEVI column residual, batched over
     columns with the level axis leading.  Port of
     ``nonhydro._column_residual``; the time term uses x0 explicitly so
-    multi-iteration Newton works."""
+    multi-iteration Newton works (``dt = math.inf`` drops it: the explicit
+    vertical tendency is minus that residual).  ``penalty=False`` leaves
+    out the Rt/Rho upwind penalty (``upwind_thermo=False``; the explicit
+    U/V upwinding and the W interface upwinding are other terms)."""
     nz = fg.nz
     rt, w, rho = x_parts
     rt0, w0, rho0 = x0_parts
@@ -149,7 +160,7 @@ def residual_lor(x_parts, x0_parts, aux, fg: FastGeometry, constants, dt):
     f_w = _zero_ends(f_w)
 
     vo = fg.vo
-    if fg.penalty_left is not None and nz // vo > 1:
+    if penalty and fg.penalty_left is not None and nz // vo > 1:
         wb = torch.abs(xid_i[vo:nz:vo])
         wl = fg.wscat_left @ wb
         wr = fg.wscat_right @ wb
@@ -167,6 +178,21 @@ def residual_lor(x_parts, x0_parts, aux, fg: FastGeometry, constants, dt):
     return (f_rt + (rt - rt0) * inv_dt,
             f_w + (w - w0) * inv_dt,
             f_rho + (rho - rho0) * inv_dt)
+
+
+def vertical_explicit_tendency(d, fg: FastGeometry, constants, saux=None):
+    """The fully explicit vertical tendencies ``{"Rt", "W", "Rho"}`` of a
+    z-first state: minus the column residual with no time term (the JAX
+    package's ``nonhydro.vertical_explicit_tendency``, the reference's
+    ``VerticalDynamicsFEM::StepExplicit`` with ``m_fFullyExplicit``).  The
+    Rt/Rho upwind penalty is in, whatever ``upwind_thermo`` says, as there.
+    ``saux``: precomputed ``static_aux(fg)``."""
+    x, aux = _prep_aux(d, fg, saux)
+    f_rt, f_w, f_rho = residual_lor(x, x, aux, fg, constants, math.inf)
+    shp = tuple(d["U"].shape[1:])
+    return {"Rt": -f_rt.reshape((fg.nz,) + shp),
+            "W": -f_w.reshape((fg.nz + 1,) + shp),
+            "Rho": -f_rho.reshape((fg.nz,) + shp)}
 
 
 def _shift_rows(b, o, K):
@@ -347,28 +373,103 @@ def _deinterleave(dx, nz):
     return d_rt, d_w, d_rho
 
 
+def band_matvec(bands, v, q: int):
+    """``y = A v`` for every column: ``bands (n, 2q+1, ncol)`` with
+    ``band[i, d] = A[i, i+d-q]`` (zero out of range), ``v (n, ncol)``."""
+    n = bands.shape[0]
+    out = torch.zeros_like(v)
+    for d in range(2 * q + 1):
+        s = d - q
+        lo, hi = max(0, -s), min(n, n - s)
+        if lo < hi:
+            out[lo:hi] += bands[lo:hi, d] * v[lo + s:hi + s]
+    return out
+
+
+def dense_from_bands(bands, q: int):
+    """The dense matrices ``(ncol, n, n)`` of ``bands (n, 2q+1, ncol)``."""
+    n, b, ncol = bands.shape
+    rows = torch.arange(n, device=bands.device)
+    J = bands.new_zeros((n, n + 2 * q, ncol))
+    for d in range(b):
+        J[rows, rows + d] = bands[:, d]
+    return J[:, q:q + n].permute(2, 0, 1).contiguous()
+
+
+def dense_solve(bands, rhs, q: int):
+    """Solve the banded systems by a batched dense LU with partial pivoting
+    (``torch.linalg.solve_ex``, no error check: nothing is read back to the
+    host): ``rhs (n, ncol)`` -> ``(n, ncol)``.  The JAX package's dense
+    solver calls ``jnp.linalg.solve`` the same way, outside any kernel.
+
+    On the card the call goes to cuSOLVER / cuBLAS (the backend preference
+    is set for this call and restored): measured on an NVIDIA H100 80GB
+    HBM3 at 700 W (PyTorch 2.11, CUDA 12.8) at the flagship's 86 400
+    systems of 91 in float32, PyTorch's default choice (MAGMA) took 257 ms
+    and cannot be captured in a CUDA graph, cuSOLVER 27.5 ms and captures
+    (``chip_smoke.py`` phase 3 times it)."""
+    A = dense_from_bands(bands, q)
+    b = rhs.T[..., None]
+    if not A.is_cuda:
+        return torch.linalg.solve_ex(A, b, check_errors=False)[0][..., 0].T
+    prev = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        x, _ = torch.linalg.solve_ex(A, b, check_errors=False)
+    finally:
+        torch.backends.cuda.preferred_linalg_library(prev)
+    return x[..., 0].T
+
+
 def vertical_implicit(d, fg: FastGeometry, constants, dt, q, statics,
                       newton_iters: int = 1, use_pallas: bool = True,
                       ref_jacobian: bool = False, saux=None,
-                      plain: bool = False, ist=None):
-    """Batched Newton-banded implicit update of (Rt, W, Rho).
+                      plain: bool = False, ist=None, solver=None,
+                      schur=None):
+    """Batched Newton implicit update of (Rt, W, Rho).
 
-    ``use_pallas`` (the JAX package's name, from
-    ``vertical_solver="pallas"``) asks for the hand-written kernels.
-    ``ist``: ``implicit_cuda.implicit_statics(statics, fg)``; when it is
-    given and the configuration is inside the fused kernel's envelope
-    (``implicit_cuda.fused_supported``: a statement about the configuration
-    only), each Newton iteration is one launch of
-    ``implicit_cuda.fused_implicit_update``.  Otherwise the band tensor is
-    assembled in plain tensor code and solved by the kernel of
-    ``ops/cuda_banded``.  Either wrapper runs its plain version for CPU
-    tensors.  Without ``use_pallas``, and with ``plain=True`` (a check of
-    the kernel path against the plain one on the same device), the plain
-    versions run on whatever device the tensors lie.
-    ``saux``: precomputed ``static_aux(fg)``."""
+    ``solver`` (``SOLVERS``; None: ``"pallas"`` with ``use_pallas``, else
+    ``"banded"``) is the JAX package's ``vertical_solver``:
+
+    - ``"pallas"`` (the JAX package's name) asks for the hand-written
+      kernels.  ``ist``: ``implicit_cuda.implicit_statics(statics, fg)``;
+      when it is given and the configuration is inside the fused kernel's
+      envelope (``implicit_cuda.fused_supported``: a statement about the
+      configuration only), each Newton iteration is one launch of
+      ``implicit_cuda.fused_implicit_update``.  Otherwise the band tensor
+      is assembled in plain tensor code and solved by the kernel of
+      ``ops/cuda_banded``.  Either wrapper runs its plain version for CPU
+      tensors.
+    - ``"banded"``: the same banded Newton step in plain tensor code on
+      whatever device the tensors lie.
+    - ``"dense"``: one Newton step with the exact Jacobian (the bands of
+      ``assemble_bands`` densified) and a batched dense LU per column
+      (``dense_solve``).
+    - ``"schur"``: W eliminated through the diagonal of the W-W block
+      (``models/vertical_schur``; ``schur``: its ``schur_statics`` at
+      ``q``), the reduced system solved by ``cuda_banded.banded_solve``.
+    - ``"jfnk"``: restarted GMRES(48) x 2 (``models/jfnk``) with J·v a
+      band product with the exact Jacobian.
+
+    As in the JAX package the dense, Schur and JFNK steps use the exact
+    Jacobian whatever ``ref_jacobian`` says.  ``statics["has_penalty"]``
+    (``band_assembly_statics(upwind_thermo=)``) switches the Rt/Rho upwind
+    penalty of the residual and the Jacobian.  ``plain=True`` (a check of
+    the kernel path against the plain one on the same device) runs the
+    kernels' plain versions.  ``saux``: precomputed ``static_aux(fg)``."""
+    from ..models import jfnk as mjfnk, vertical_schur
+
     nz = fg.nz
     shp = d["U"].shape[1:]
-    fused = (use_pallas and ist is not None
+    if solver is None:
+        solver = "pallas" if use_pallas else "banded"
+    if solver not in SOLVERS:
+        raise ValueError(f"unknown vertical solver {solver!r}: expected one "
+                         f"of {SOLVERS}")
+    if solver == "schur" and schur is None:
+        raise ValueError("the Schur solver needs its statics (schur=)")
+    pen = statics["has_penalty"]
+    fused = (solver == "pallas" and ist is not None
              and implicit_cuda.fused_supported(ist))
     # the fused kernel takes the interface interpolants itself (its plain
     # version makes them when they are missing)
@@ -383,16 +484,32 @@ def vertical_implicit(d, fg: FastGeometry, constants, dt, q, statics,
                 x_parts, x0_parts, aux, ist, dt, constants,
                 ref_jacobian=ref_jacobian, newton_time_term=(it > 0))
         else:
-            f_rt, f_w, f_rho = residual_lor(
-                x_parts, x0_parts, aux, fg, constants, dt)
-            f = _interleave(f_rt, f_w, f_rho, nz)
-            bands = assemble_bands(x_parts, aux, fg, statics, constants, dt,
-                                   ref_jacobian=ref_jacobian)
-            if use_pallas and not plain:
-                dx = banded_solve(bands, f, q)
+            f = residual_lor(x_parts, x0_parts, aux, fg, constants, dt,
+                             penalty=pen)
+            bands = assemble_bands(
+                x_parts, aux, fg, statics, constants, dt,
+                ref_jacobian=ref_jacobian and solver in ("banded", "pallas"))
+            if solver == "schur":
+                d_rt, d_w, d_rho = vertical_schur.schur_newton_update(
+                    f, bands, schur,
+                    banded_solve_t if plain else banded_solve)
             else:
-                dx = banded_solve_t(bands, f, q)
-            d_rt, d_w, d_rho = _deinterleave(dx, nz)
+                rhs = _interleave(*f, nz)
+                if solver == "jfnk":
+                    # J·v exact and F(x) given: no residual call is left
+                    x = mjfnk.jfnk_newton_update(
+                        None, _interleave(*x_parts, nz), f0=rhs,
+                        jv=lambda v: band_matvec(bands, v, q))
+                    x_parts = tuple(p.contiguous()
+                                    for p in _deinterleave(x, nz))
+                    continue
+                if solver == "dense":
+                    dx = dense_solve(bands, rhs, q)
+                elif solver == "pallas" and not plain:
+                    dx = banded_solve(bands, rhs, q)
+                else:
+                    dx = banded_solve_t(bands, rhs, q)
+                d_rt, d_w, d_rho = _deinterleave(dx, nz)
         x_parts = (x_parts[0] - d_rt, x_parts[1] - d_w,
                    x_parts[2] - d_rho)
 

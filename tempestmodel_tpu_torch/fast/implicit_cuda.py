@@ -243,22 +243,29 @@ def build_diag_table(ps: PackedStatics, mats, dtype):
     table plus ``{operator: [(offset, index into vd)]}``; (None, None) if
     any operator is wider than 6 diagonals."""
     nz = ps.nz
+    # without the penalty (upwind_thermo=False, or a geometry that has
+    # none) its operators are zero: the kernel's penalty terms then add
+    # exact zeros
+    zero = np.zeros((nz, nz))
+
+    def pen(key):
+        return mats[key] if ps.has_penalty else zero
+
     named = {
         "In2i": mats["interp_n2i"], "Ii2n": mats["interp_i2n"],
         "Dn2i": mats["diff_n2i"], "Di2n": mats["diff_i2n"],
         "DD": mats["diffdiff_i2i"],
-        "Pl": mats["penalty_left"], "Pr": mats["penalty_right"],
-        "Wl": mats["wscat_left"], "Wr": mats["wscat_right"],
+        "Pl": pen("penalty_left"), "Pr": pen("penalty_right"),
+        "Wl": pen("wscat_left"), "Wr": pen("wscat_right"),
     }
     i0 = {o: i for i, o in enumerate(ps.offs0)}
     iw = {o: i for i, o in enumerate(ps.ow)}
     for o in ps.offs0:
         named[f"TA{o}"] = ps.TA[i0[o]]
         named[f"TB{o}"] = ps.TB[i0[o]]
-    if ps.has_penalty:
-        for o in ps.ow:
-            named[f"Ul{o}"] = ps.Ul[iw[o]]
-            named[f"Ur{o}"] = ps.Ur[iw[o]]
+    for o in ps.ow:
+        named[f"Ul{o}"] = ps.Ul[iw[o]] if ps.has_penalty else zero
+        named[f"Ur{o}"] = ps.Ur[iw[o]] if ps.has_penalty else zero
 
     vecs = []
     bmeta = {}
@@ -279,10 +286,11 @@ def build_diag_table(ps: PackedStatics, mats, dtype):
 
 def stencil_table(ps: PackedStatics, mats):
     """The (nz+1, NCOLS) float64 coefficient table of the kernel, or None
-    for a configuration it does not cover: no penalty terms, block offsets
-    other than (-1, 0, 1) (a half-bandwidth other than 4), or an operator
-    with a nonzero outside its window."""
-    if not (ps.has_penalty and ps.q == 4
+    for a configuration it does not cover: block offsets other than (-1,
+    0, 1) (a half-bandwidth other than 4), or an operator with a nonzero
+    outside its window.  Without penalty terms (``ps.has_penalty`` False)
+    their columns are zero."""
+    if not (ps.q == 4
             and ps.offs0 == ps.offs_p1 == ps.offs_m1 == ps.ow == OFFS):
         return None
     vd, bmeta = build_diag_table(ps, mats, np.float64)
@@ -326,7 +334,7 @@ def implicit_statics(statics, fg) -> ImplicitStatics:
     npdt = np.float32 if dtype == torch.float32 else np.float64
     ps = pack_statics(statics, dtype=np.float64)
     table = None
-    if fg.vo == 1 and statics["has_penalty"]:
+    if fg.vo == 1:
         table = stencil_table(ps, {k: getattr(fg, k) for k in MATS})
     tab = None if table is None else torch.as_tensor(
         np.ascontiguousarray(table, dtype=npdt), device=dev)
@@ -335,7 +343,8 @@ def implicit_statics(statics, fg) -> ImplicitStatics:
 
 def fused_supported(ist: ImplicitStatics) -> bool:
     """Whether the fused update covers the configuration: vertical order 1
-    with penalty terms, half-bandwidth 4, every operator inside the kernel's
+    (with or without the penalty terms), half-bandwidth 4, every operator
+    inside the kernel's
     windows, at least 2 levels, and the smallest tile of ``COLS`` at
     ``nz`` levels in the statics' dtype fits an H100 block.  A statement
     about the configuration only."""
@@ -357,7 +366,8 @@ def fused_implicit_update_plain(x_parts, x0_parts, aux, ist, dt, constants,
         aux = dict(aux, **fimp.interface_aux(aux["u_n"], aux["v_n"], fg))
     # without the time term the residual is evaluated at x0 = x
     f = fimp.residual_lor(x_parts, x0_parts if newton_time_term else x_parts,
-                          aux, fg, constants, dt)
+                          aux, fg, constants, dt,
+                          penalty=ist.ps.has_penalty)
     bands = fimp.assemble_bands(x_parts, aux, fg, ist.statics, constants, dt,
                                 ref_jacobian=ref_jacobian)
     dx = banded_solve_t(bands, fimp._interleave(*f, nz), ist.ps.q)

@@ -43,9 +43,10 @@ GRAPH_STEPS = 50
 # graphs kept per model (one per run length met); the oldest goes first
 GRAPHS_KEPT = 4
 
-_NOT_PORTED = ("is not ported yet (ROADMAP queue 1 items 2-6: the "
-               "configurations outside the z-first engine, IMEX with "
-               "tracers)")
+_NOT_PORTED = ("is not ported yet (ROADMAP queue 1 items 3-6: CPH, LEV "
+               "and INT staggering, tracers on no-flux grids, with uniform "
+               "diffusion or on the explicit vertical path, walls on both "
+               "axes, SPEX and HS, IMEX with tracers)")
 
 
 class WorkflowProcess:
@@ -291,6 +292,8 @@ class Model:
         """A carry given from outside (a restart) as the engine keeps it:
         the z-first carry as it is, a reference-layout one (told apart by
         its W axis, as the JAX package does) packed."""
+        if not carry:
+            return {}         # the explicit vertical path's
         nz = self.cfg.nz
         w = carry["W"]
         if w.shape[-1] == nz + 1 and w.shape[0] != nz + 1:

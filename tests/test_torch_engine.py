@@ -117,7 +117,11 @@ def test_fast_engine_supported_predicate(pair):
     assert t_engine.fast_engine_supported(tcfg)
     assert not t_engine.fast_engine_supported(
         tcfg.with_(grid_kind=tt.GridKind.CARTESIAN_XZ))
-    assert not t_engine.fast_engine_supported(tcfg.with_(upwind_thermo=False))
+    # upwind_thermo=False runs on this engine since the vertical options
+    # were ported; another staggering does not
+    assert t_engine.fast_engine_supported(tcfg.with_(upwind_thermo=False))
+    assert not t_engine.fast_engine_supported(tcfg.with_(
+        vertical_staggering=tt.VerticalStaggering.CHARNEY_PHILLIPS))
     assert t_engine.fast_engine_supported(tcfg, has_tracers=True)
     assert not t_engine.fast_engine_supported(tcfg, mesh=object())
 

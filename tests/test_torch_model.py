@@ -393,7 +393,18 @@ def test_unported_configurations_raise(what):
         cfg = cfg.with_(
             vertical_staggering=tt.VerticalStaggering.CHARNEY_PHILLIPS)
     elif what == "erk":
-        cfg = cfg.with_(timescheme=tt.TimestepSchemeType.ERK)
+        # ported: the explicit vertical path runs (at a vertically stable
+        # dt) with an empty carry
+        m = t_model.Model(cfg.with_(timescheme=tt.TimestepSchemeType.ERK,
+                                    dt=10.0), tc, device=CPU)
+        m.go(nsteps=2)
+        assert m.carry == {}
+        assert all(bool(torch.isfinite(v).all()) for v in m.state.values())
+        # its empty carry goes back in as it came out
+        m.set_state(dict(m.state), m.carry, m.time, m.step_count)
+        m.go(nsteps=1)
+        assert m.step_count == 3 and m.carry == {}
+        return
     elif what == "imex_tracers":
         cfg = cfg.with_(timescheme=tt.TimestepSchemeType.ARS343)
         tc = MoistBaroclinicWave()
