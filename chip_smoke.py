@@ -83,7 +83,12 @@ and runs these phases, each printing one JSON line:
             ``banded_solve`` at the Schur solver's reduced system on the
             flagship's columns (n 60, q 9: the wide form) beside one
             ``torch.linalg.solve_ex`` of the densified systems by
-            PyTorch's default backend and by cuSOLVER;
+            PyTorch's default backend and by cuSOLVER; and the nu4
+            kernels' staggered field sets (CPH: Rt and W on the nz + 1
+            interfaces; LEV, and INT with it: every field on the nz
+            levels) at the flagship shapes in float32 and float64 beside
+            the Lorenz set on the same inputs, timed, and at the edge
+            shapes of ``STAG_EDGES``;
 4. slice    the Strang-HEVI step at small size in float64 on the card three
             ways — fused kernel path, unfused kernel path, plain path — each
             pair to 1e-11 relative per field, and ``make_fast_multistep``
@@ -112,7 +117,12 @@ and runs these phases, each printing one JSON line:
             Schur and JFNK solvers, the explicit vertical path at dt 5 s,
             ``upwind_thermo=False``, the dense solver with three seeded
             species), kernel path against plain path to 1e-11, launches a
-            step exact, a 3-step graph replay against 3 eager steps;
+            step exact, a 3-step graph replay against 3 eager steps; then
+            the CPH, LEV and INT staggerings (UMJS ne4 nz8 with its
+            Rayleigh layer and nu4, and the inertia-gravity wave x-z slice
+            with nu4; INT at nz 9, vertical order 2) in fp64: kernel path
+            against plain path to 1e-11, launches a step exact, a 3-step
+            graph replay against 3 eager steps to 1e-13;
 5. flagship the main paths at full width: UMJS baroclinic wave, ne30 p4
             nz30 float32: ``make_fast_multistep`` (``first_step``, then
             replays of a 10-step CUDA graph), the eager fused path of
@@ -179,7 +189,15 @@ and runs these phases, each printing one JSON line:
             path at dt 2 s beside the banded run at dt 2 s, JW with and
             without ``upwind_thermo``, JFNK in float64 beside a banded
             float64 run: ms/step by graph replay, device busy and launches
-            a step, finite fields, each against its banded run;
+            a step, finite fields, each against its banded run; then (5k)
+            the staggerings on the flagship grid (UMJS with its Rayleigh
+            layer) through ``Model.go`` under LOR, LEV, INT and CPH (10
+            steps, then 30 more under replay): ms/step by graph replay,
+            device busy and launches a step, the nu4 and DSS kernels'
+            shares, peak memory, max |W| after 10 and 40 steps beside the
+            LOR run's; the DSS grouping of the CPH and LEV steps timed both
+            ways under replay; the CLI's inertia-gravity wave under each
+            staggering (40 steps);
 6. dss      the step with the tail's DSS as four launches or as
             ``dss_state`` and the stages' Rt/Rho as two launches or as
             ``dss_scalar2``, eagerly and under graph replay, in turns; the
@@ -189,8 +207,10 @@ and runs these phases, each printing one JSON line:
 7. kernels  one line listing every kernel with its time, bound, plain
             version's time and launches on the flagship runs, its launches
             on the IMEX, the Schar, the terrain, the no-flux, the
-            shallow-water paths and the vertical options' (phases 4 and
-            5j), and its Cartesian and shallow-water figures.
+            shallow-water paths, the vertical options' (phases 4 and
+            5j) and the staggerings' (phases 4 and 5k), and its Cartesian
+            and shallow-water figures; the nu4 kernels' CPH and LEV
+            instantiations on lines of their own (``nu4_pass1[CPH]``, ...).
 
 With ``--profile PATH`` it also traces steps of each flagship path, of the
 moist replay and of the Schar paths with torch.profiler and writes the
@@ -4536,6 +4556,476 @@ def vertical_line(dev, smi, launches):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the CPH, LEV and INT staggerings (phases 3, 4 and 5k)
+# ---------------------------------------------------------------------------
+
+STAGGERS = ("CPH", "LEV", "INT")
+STAG_STEPS = 10             # steps of each Model.go call in phase 5k
+# the staggerings' nu4 field sets (the INT state has LEV's shapes): the
+# instantiations of csrc/hyper.cu besides the Lorenz one
+NU4_SETS = ("CPH", "LEV")
+# the port CLI's inertia-gravity wave at its defaults (nex 10, p 4, nu
+# 1e15, dt and levels the reference's: dt 1 s, 10 levels; INT at vertical
+# order 2), 40 steps
+IGW_ARGV = ["--case", "inertia_gravity", "--levels", "10", "--dt", "1s",
+            "--nsteps", "40", "--checksum_dt", "10s"]
+# the staggered nu4 kernels' edge cases (kernels/hyper_edges.CASES): one
+# level, a ring of three, an offset input, the generic instantiation, a
+# plane in the swapped layout
+STAG_EDGES = ("sphere_nz1", "sphere_ne4_ring3", "sphere_ne4_offset1",
+              "sphere_ne2_p3", "cart_plane_swapped")
+
+
+def stagger_per_step(merge=("state", "scalar2"), nu4=True):
+    """Kernel launches per step of a CPH, LEV or INT state (``first_step``
+    alike: the dense solve launches no kernel): the stage runs as tensor
+    code, each of the 7 DSS (5 stages, 2 in the tail) is ``dss_vector``
+    and its scalars (the two of one row count through ``dss_scalar2`` with
+    ``"scalar2"``, the third through ``dss_scalar``; else three
+    ``dss_scalar``: ``dss_state`` takes Lorenz shapes only), and the nu4
+    kernels' staggered field set."""
+    n = {k: 0 for k in KERNELS}
+    n["dss_vector"] = 7
+    if "scalar2" in merge:
+        n.update(dss_scalar2=7, dss_scalar=7)
+    else:
+        n["dss_scalar"] = 21
+    if nu4:
+        n.update(nu4_pass1=1, nu4_pass2=1)
+    return n
+
+
+def check_stagger_kernels(geom, rows, dev):
+    """Phase 3, the staggerings: ``nu4_pass1`` and ``nu4_pass2`` in the
+    CPH field set (Rt and W on the nz + 1 interfaces) and the LEV field set
+    (every field on the nz levels; INT's too) against their plain versions
+    at the flagship shapes (the terrain-like metric of
+    ``check_tail_kernels``, random fields), float32 and float64, timed
+    beside their plain versions and their bounds, the Lorenz
+    instantiation's error on the same inputs beside them; the DSS launches
+    of a staggered step at its shapes (``dss_scalar2`` on the two scalars
+    of one row count, ``dss_scalar`` on the third), bit for bit their
+    plain versions, timed with their bounds; then the nu4 sets at the edge
+    shapes of ``STAG_EDGES``.  Adds the float32 figures to
+    ``rows[name]["staggered"]``."""
+    from tempestmodel_tpu_torch import fast
+    from tempestmodel_tpu_torch.fast import hyper_cuda
+    from tempestmodel_tpu_torch.kernels import hyper_edges, synthetic
+    from tempestmodel_tpu_torch.kernels.timing import time_cuda
+    for dtype in (torch.float64, torch.float32):
+        tag = "f32" if dtype == torch.float32 else "f64"
+        f32 = dtype == torch.float32
+        esize = 4 if f32 else 8
+        # the plain forms' rounding (the Lorenz set: about 2e-7 / 4e-16)
+        # with headroom
+        tol = 2e-6 if f32 else 1e-14
+        fgt = synthetic.terrain_like(
+            fast.build_fast_geometry(geom, dtype=dtype, device=dev),
+            seed=SEED, vary_jac=True)
+        K, P, A = fgt.nz, 6, fgt.A
+        hst = hyper_cuda.hyper_statics(fgt)
+        n2d = P * A * A
+        for stag in ("LOR",) + NU4_SETS:
+            sets = [(synthetic.random_state(fgt, seed=s, stagger=stag),
+                     synthetic.random_state(fgt, seed=s + 10,
+                                            stagger=stag)) for s in (1, 2)]
+            d, w = sets[0]
+            unit = hyper_cuda.nu4_pass1_plain(w, fgt, hst)
+            nu_s = float(d["Rho"].abs().max() / unit["Rho"].abs().max())
+            nu_v = float(d["U"].abs().max() / unit["U"].abs().max())
+            nu = (nu_s, nu_v, 0.7 * nu_v, 1.0)
+            del unit
+            got = hyper_cuda.nu4_pass1(d, fgt, hst)
+            torch.cuda.synchronize()
+            want = hyper_cuda.nu4_pass1_plain(d, fgt, hst)
+            err1 = {k: rel_err(got[k], want[k]) for k in got}
+            got = hyper_cuda.nu4_pass2(d, w, *nu, fgt, hst)
+            torch.cuda.synchronize()
+            want = hyper_cuda.nu4_pass2_plain(d, w, *nu, fgt, hst)
+            err2 = {k: max(rel_err(got[k], want[k]),
+                           rel_err(got[k] - d[k], want[k] - d[k]))
+                    for k in got}
+            del got, want
+            nstate = sum(v.numel() for v in d.values())
+            steps = K + (0 if stag == "LEV" else 1)
+            scal2 = (nu[1], nu[2], nu[3], nu[3] * nu[0])
+            for name, errs, launch, plain, nfields, line in (
+                    ("nu4_pass1", err1,
+                     lambda x, y: hyper_cuda._launch(
+                         "nu4_pass1", x, None, (1.0, 1.0, 0.0, 0.0), hst),
+                     lambda x, y: hyper_cuda.nu4_pass1_plain(x, fgt, hst),
+                     2, 177),
+                    ("nu4_pass2", err2,
+                     lambda x, y: hyper_cuda._launch("nu4_pass2", y, x,
+                                                     scal2, hst),
+                     lambda x, y: hyper_cuda.nu4_pass2_plain(x, y, *nu, fgt,
+                                                             hst),
+                     3, 192)):
+                if not max(errs.values()) <= tol:
+                    raise RuntimeError(f"{name} {stag} {tag}: rel err "
+                                       f"{errs} > {tol}")
+                row = {"name": name, "field_set": stag, "route": "cuda",
+                       "source": "tempestmodel_tpu_torch/csrc/hyper.cu",
+                       "replaces": "tempestmodel_tpu/fast/hyper_pallas.py:"
+                                   f"{line}",
+                       "shape": [K, P, A, A],
+                       "max_abs_err": max(errs.values()),
+                       "err_by_field": errs, "tol": tol,
+                       "launch": hyper_cuda.launch_config(
+                           w if name == "nu4_pass2" else d,
+                           d if name == "nu4_pass2" else None, hst)}
+                if stag != "LOR":
+                    ms = time_cuda(launch, sets, reps=20, queued=True)
+                    plain_ms = time_cuda(plain, sets, reps=3, warmup=1)
+                    # each input read once, each output written once; the
+                    # arithmetic of ``check_tail_kernels`` a node and step
+                    nb = (nfields * nstate + 8 * n2d
+                          + hst.ds.numel()) * esize
+                    bnd, by = bound_ms(nb, 220 * steps * n2d, dtype)
+                    row.update(ms=ms, plain_ms=plain_ms, bound_ms=bnd,
+                               bound_by=by, library_ms=None)
+                emit({"phase": "kernel", "dtype": tag, **row})
+                if f32 and stag != "LOR":
+                    rows[name].setdefault("staggered", {})[stag] = row
+            del sets, d, w
+        # the DSS launches of a staggered step at its shapes: ``dss_scalar2``
+        # on the pair of one row count (CPH: Rt and W, 31 rows; LEV: Rt and
+        # Rho, 30), ``dss_scalar`` on the odd one (CPH: Rho; LEV: W, 30
+        # rows), each bit for bit its plain version, timed with its bound
+        from tempestmodel_tpu_torch.fast import dss_cuda
+        sc = (fgt.inv_mult, fgt.dss_links, fgt.p)
+        for stag, pair, alone in (("CPH", ("Rt", "W"), "Rho"),
+                                  ("LEV", ("Rt", "Rho"), "W")):
+            sets = [(synthetic.random_state(fgt, seed=s, stagger=stag),)
+                    for s in (3, 4, 5, 6)]
+            d = sets[0][0]
+            g1, g2 = dss_cuda.dss_scalar2(d[pair[0]], d[pair[1]], *sc,
+                                          table=fgt.dss_table)
+            g3 = dss_cuda.dss_scalar(d[alone], *sc, table=fgt.dss_table)
+            torch.cuda.synchronize()
+            w1, w2 = dss_cuda.dss_scalar2_plain(d[pair[0]], d[pair[1]], *sc)
+            w3 = dss_cuda.dss_scalar_plain(d[alone], *sc)
+            bitwise = (torch.equal(g1, w1) and torch.equal(g2, w2)
+                       and torch.equal(g3, w3))
+            if not bitwise:
+                raise RuntimeError(f"the {stag} DSS launches {tag} differ "
+                                   f"from their plain versions")
+            for name, fn, nf, rows_k in (
+                    ("dss_scalar2", lambda x: dss_cuda.dss_scalar2(
+                        x[pair[0]], x[pair[1]], *sc, table=fgt.dss_table),
+                     2, d[pair[0]].shape[0]),
+                    ("dss_scalar", lambda x: dss_cuda.dss_scalar(
+                        x[alone], *sc, table=fgt.dss_table), 1,
+                     d[alone].shape[0])):
+                ms = time_cuda(fn, sets, reps=40, queued=True)
+                nvals = nf * rows_k * n2d
+                bnd, by = bound_ms((2 * nvals + n2d) * esize
+                                   + fgt.dss_table.numel() * 4,
+                                   5 * nvals, dtype)
+                row = {"name": name, "field_set": stag,
+                       "fields": list(pair) if nf == 2 else [alone],
+                       "shape": [rows_k, P, A, A], "bitwise": True,
+                       "max_abs_err": 0.0, "ms": ms, "bound_ms": bnd,
+                       "bound_by": by}
+                emit({"phase": "kernel", "dtype": tag, **row})
+                if f32:
+                    rows.setdefault(name, {}).setdefault(
+                        "staggered", {})[stag] = row
+            del sets, d
+        del fgt, hst
+        torch.cuda.empty_cache()
+        for stag in NU4_SETS:
+            for case in STAG_EDGES:
+                got = hyper_edges.run_case(case, dtype, dev, stag)
+                edge_tol = 1e-4 if f32 else 1e-11
+                emit({"phase": "kernel", "dtype": tag, "tol": edge_tol,
+                      "name": "nu4_edge", "field_set": stag, "case": case,
+                      **got})
+                if not got["max_err"] <= edge_tol:
+                    raise RuntimeError(f"nu4 edge case {case} {stag} {tag}: "
+                                       f"rel err {got['err_by_output']} > "
+                                       f"{edge_tol}")
+
+
+def stagger_config(stag, dtype, ne, nz, xz=False, rayleigh=True):
+    """(testcase, cfg) of the staggering ``stag`` (or ``"LOR"``): UMJS with
+    its perturbation (and its Rayleigh layer with ``rayleigh``) at ``ne``
+    p4 ``nz`` levels, nu4 1e15, dt 100 s; or (``xz``) the inertia-gravity
+    wave x-z slice at nex 4, nu4 1e12, dt 2 s.  INT at vertical order
+    2."""
+    import tempestmodel_tpu_torch as tm
+    from tempestmodel_tpu_torch.testcases.nonhydro_sphere import (
+        BaroclinicWaveUMJS)
+    from tempestmodel_tpu_torch.testcases.nonhydro_xz import (
+        InertiaGravityWave)
+    kw = dict(equation_set=tm.EquationSet.PRIMITIVE_NONHYDRO, order=ORDER,
+              nz=nz, vertical_order=2 if stag == "INT" else 1,
+              vertical_staggering=tm.VerticalStaggering(stag),
+              hyperdiffusion=True, vertical_solver="pallas", dtype=dtype)
+    if xz:
+        tc = InertiaGravityWave()
+        cfg = tm.ModelConfig(grid_kind=tm.GridKind.CARTESIAN_XZ, nex=ne,
+                             ney=1, ztop=tc.ztop, x_extent=tc.x_extent,
+                             y_extent=tc.y_extent, dt=2.0, nu_scalar=1e12,
+                             nu_div=1e12, nu_vort=1e12, **kw)
+    else:
+        tc = BaroclinicWaveUMJS(pert="exp", rayleigh=rayleigh)
+        cfg = tm.ModelConfig(grid_kind=tm.GridKind.CUBED_SPHERE, ne=ne,
+                             ztop=tc.ztop, dt=DT, nu_scalar=NU, nu_div=NU,
+                             nu_vort=NU, rayleigh_damping=rayleigh, **kw)
+    return tc, cfg
+
+
+def check_stagger_slice(dev):
+    """Phase 4, the staggerings: 3 steps in float64 on the card of UMJS at
+    ne4 p4 nz8 (its Rayleigh layer, nu4) and of the inertia-gravity wave
+    x-z slice (nex 4, nz 8, nu4), each under CPH, LEV and INT (nz 9,
+    vertical order 2), through ``Model`` (the staggered start as a user
+    gets it): the kernel path against the plain path (``plain=True``) to
+    1e-11 per field, the kernel path's launches held to
+    ``stagger_per_step`` exactly, and ``make_fast_multistep`` (one replay
+    of a 3-step CUDA graph) against 3 eager steps to 1e-13.  Returns the
+    launch counts of each kernel run."""
+    from tempestmodel_tpu_torch import fast
+    from tempestmodel_tpu_torch.kernels import counts
+    from tempestmodel_tpu_torch.model import Model
+    launched = {}
+    for grid in ("sphere", "xz"):
+        for stag in STAGGERS:
+            nz = 9 if stag == "INT" else 8
+            tc, cfg = stagger_config(stag, torch.float64, 4, nz,
+                                     xz=grid == "xz")
+            m = Model(cfg, tc, device=dev)
+            X0 = fast.pack_state(m.state, device=dev)
+            ref = m.reference
+            what = f"{grid} {stag} ne4 nz{nz} f64"
+            outs = {}
+            for path, pk in (("kernels", {}), ("plain", {"plain": True})):
+                counts.reset_launch_counts()
+                first, step = fast.make_fast_step(cfg, m.geom, ref_state=ref,
+                                                  device=dev, **pk)
+                X, c = first(X0)
+                for _ in range(2):
+                    X, c = step(X, c)
+                torch.cuda.synchronize()
+                outs[path] = X
+                if path == "kernels":
+                    launched[f"{grid}_{stag}"] = dict(counts.launch_counts)
+            want = expected_counts(stagger_per_step(), 2)
+            if launched[f"{grid}_{stag}"] != want:
+                raise RuntimeError(f"{what}: launch counts "
+                                   f"{launched[f'{grid}_{stag}']} != "
+                                   f"expected {want}")
+            errs = {k: rel_err(outs["kernels"][k], outs["plain"][k])
+                    for k in outs["kernels"]}
+            first, step = fast.make_fast_step(cfg, m.geom, ref_state=ref,
+                                              device=dev)
+            X1, c1 = first(X0)
+            E, ce = X1, c1
+            for _ in range(3):
+                E, ce = step(E, ce)
+            _, multi = fast.make_fast_multistep(cfg, m.geom, 3,
+                                                ref_state=ref, device=dev)
+            G, cg = multi(X1, c1)
+            G, cg = multi(X1, c1)             # a pure replay
+            torch.cuda.synchronize()
+            replay = {k: rel_err(G[k], E[k]) for k in E}
+            emit({"phase": "stagger_slice", "config": what + ", 3 steps",
+                  "kernels_vs_plain": errs, "tol": 1e-11,
+                  "replay_vs_eager": replay, "replay_tol": 1e-13,
+                  "launches": launched[f"{grid}_{stag}"],
+                  "launches_per_step": stagger_per_step(),
+                  "shapes": {k: list(v.shape) for k, v in E.items()}})
+            if not (max(errs.values()) < 1e-11
+                    and max(replay.values()) < 1e-13):
+                raise RuntimeError(f"{what}: paths disagree {errs} / replay "
+                                   f"{replay}")
+            check_finite(outs["kernels"], what, torch.float64)
+            del m, outs, E, G
+    return launched
+
+
+def stagger_line(dev, smi, launches):
+    """Phase 5k: the staggerings on the flagship grid (UMJS with its
+    perturbation, ne30 p4 L30 f32, dt 100 s, nu 1e15: phase 5a's
+    configuration) through ``Model`` as a user builds it, under LOR (the
+    run the others stand beside; ``"pallas"``, the main path), LEV, INT
+    (vertical order 2) and CPH (each solved densely, as in the JAX
+    package), then LEV and INT with the case's Rayleigh layer (damping Rt
+    on levels turns LEV and INT non-finite within 20 steps in the JAX
+    package's own pieces at ne2 L30 on the CPU: reported, not held).
+    Each: ``go`` of
+    ``STAG_STEPS`` steps from the start (``first_step`` and a graph of the
+    rest: the launches counted there, held to ``stagger_per_step``), one
+    more to capture a ``STAG_STEPS``-step graph, one timed (CUDA events:
+    graph replay), one profiled (device busy, device launches and the nu4
+    and DSS kernels' shares a step); peak memory; max |W| after 10 and 40
+    steps; finite after 10, and after 40 without the Rayleigh layer but
+    for CPH (the JAX package's CPH grows from this start at ne2: its
+    growth is reported, not held).  At ne30 LEV and INT grow past step 20
+    with nu4 and without, on the kernel and the plain path, in float32 and
+    float64, and are non-finite by step 45 (``kernels/stagger_growth.py``):
+    finite after 40, held, is what the run can promise.  Then the CLI's
+    inertia-gravity wave (its configuration from
+    ``cli.configure`` of ``IGW_ARGV``, float64) the same way under LOR and
+    each staggering, finite after 40 steps.  Then the DSS grouping of the
+    staggered step timed both ways under graph replay (``dss_merge``
+    ``("state", "scalar2")`` against the separate launches, in turns), and
+    the CLI's inertia-gravity wave (``IGW_ARGV``) under each staggering
+    and LOR: 40 steps, its checksums, wall time and launches."""
+    from torch.profiler import profile, ProfilerActivity
+    from tempestmodel_tpu_torch import fast
+    from tempestmodel_tpu_torch.kernels import counts
+    from tempestmodel_tpu_torch.model import Model
+    from tempestmodel_tpu_torch import cli
+    maxw = {}
+    runs = ("LOR",) + STAGGERS + ("LEV_rayleigh", "INT_rayleigh")
+    for run in runs + tuple(f"igw_{r}" for r in ("LOR",) + STAGGERS):
+        igw = run.startswith("igw_")
+        stag, _, ray = run.removeprefix("igw_").partition("_")
+        if igw:
+            # the CLI's configuration of the x-z slice (float64)
+            tc, cfg, _ = cli.configure(cli.make_parser().parse_args(
+                IGW_ARGV + ["--vstagger", stag]
+                + (["--vertorder", "2"] if stag == "INT" else [])))
+        else:
+            tc, cfg = stagger_config(stag, torch.float32, NE, NZ,
+                                     rayleigh=bool(ray))
+        t0 = time.perf_counter()
+        m = Model(cfg, tc, device=dev)
+        setup_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counts.reset_launch_counts()
+        t0 = time.perf_counter()
+        m.go(nsteps=STAG_STEPS)             # first_step, then a graph
+        sync(dev)
+        first_go_s = time.perf_counter() - t0
+        launches[f"stagger_{run}"] = got = dict(counts.launch_counts)
+        per = (fused_per_step(("state", "scalar2")) if stag == "LOR"
+               else stagger_per_step())
+        want = expected_counts(per, STAG_STEPS)
+        # the x-z slice's LOR run takes the CLI's banded solve (tensor
+        # code): its launches are reported, not held to the table
+        if got != want and not (igw and stag == "LOR"):
+            raise RuntimeError(f"5k {run}: launch counts {got} != expected "
+                               f"{want}")
+        check_finite(m.state, f"5k {run}", cfg.dtype)
+        w10 = float(m.state["W"].abs().max())
+        m.go(nsteps=STAG_STEPS)             # captures a STAG_STEPS graph
+        sync(dev)
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        ev0.record()
+        m.go(nsteps=STAG_STEPS)             # a replay
+        ev1.record()
+        sync(dev)
+        wall_ms = 1e3 * (time.perf_counter() - t0) / STAG_STEPS
+        ms = ev0.elapsed_time(ev1) / STAG_STEPS
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            m.go(nsteps=STAG_STEPS)         # a profiled replay
+            sync(dev)
+        busy = {"all": 0.0, "nu4": 0.0, "dss": 0.0}
+        by_name = {}
+        nkern = 0
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = e.time_range.elapsed_us()
+            busy["all"] += us
+            by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + us
+            nkern += 1
+            if "nu4_kernel" in e.name:
+                busy["nu4"] += us
+            elif "band_kernel" in e.name:
+                busy["dss"] += us
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        w40 = float(m.state["W"].abs().max())
+        finite40 = all(bool(torch.isfinite(v).all())
+                       for v in m.state.values())
+        if not finite40 and (igw or stag != "CPH") and not ray:
+            raise RuntimeError(f"5k {run}: non-finite after 40 steps")
+        maxw[run] = (w10, w40)
+        emit({"phase": "stagger", "staggering": stag, "run": run,
+              "config": (f"the CLI's inertia_gravity {' '.join(IGW_ARGV)}: "
+                         f"nex {cfg.nex} p{cfg.order} nz{cfg.nz} f64 dt"
+                         f"{cfg.dt:g} nu{cfg.nu_scalar:g}" if igw else
+                         f"UMJS pert exp{', Rayleigh' if ray else ''}, "
+                         f"ne{NE} p{ORDER} nz{NZ} f32 dt{DT:g} nu{NU:g}")
+                        + f", vertical order {cfg.vertical_order}, solver "
+                        + (cfg.vertical_solver if stag == "LOR"
+                           else "dense (forced)"),
+              "ms_per_step": ms, "timed_as": "graph replay through "
+              f"Model.go ({STAG_STEPS}-step graph), CUDA events",
+              "wall_ms_per_step": wall_ms,
+              "device_busy_ms_per_step": busy["all"] / 1e3 / STAG_STEPS,
+              "device_launches_per_step": nkern / STAG_STEPS,
+              "nu4_share_of_busy": busy["nu4"] / max(busy["all"], 1e-30),
+              "dss_share_of_busy": busy["dss"] / max(busy["all"], 1e-30),
+              "top_kernels_ms_per_step": {
+                  k: v / 1e3 / STAG_STEPS for k, v in sorted(
+                      by_name.items(), key=lambda kv: -kv[1])[:8]},
+              "kernel_launches_per_step": {k: v for k, v in per.items()
+                                           if v},
+              "launches": got, "launches_counted": "first_step + 1 warm-up "
+              f"step + {STAG_STEPS - 1} captured steps",
+              "first_go_s": first_go_s, "model_setup_s": setup_s,
+              "peak_device_GiB": peak,
+              "max_abs_W_after_10": w10, "max_abs_W_after_40": w40,
+              "lor_max_abs_W_after_10_40": maxw.get(
+                  "igw_LOR" if igw else "LOR"),
+              "finite_after_40_steps": finite40, "card": smi})
+        del m, prof
+        torch.cuda.empty_cache()
+
+    # the DSS grouping of a staggered step, under graph replay, in turns
+    for stag in ("CPH", "LEV"):
+        tc, cfg = stagger_config(stag, torch.float32, NE, NZ,
+                                 rayleigh=False)
+        m = Model(cfg, tc, device=dev)
+        X0 = fast.pack_state(m.state, device=dev)
+        variants = {}
+        for merge in (("state", "scalar2"), ()):
+            first, multi = fast.make_fast_multistep(
+                cfg, m.geom, STAG_STEPS, ref_state=m.reference, device=dev,
+                dss_merge=merge)
+            X, c = first(X0)
+            multi(X, c)                     # capture
+            variants["+".join(merge) or "separate"] = (multi, X, c, [])
+        for name in list(variants) + list(variants)[::-1]:
+            multi, X, c, times = variants[name]
+            torch.cuda.synchronize()
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            multi(X, c)
+            ev1.record()
+            torch.cuda.synchronize()
+            times.append(ev0.elapsed_time(ev1) / STAG_STEPS)
+        emit({"phase": "stagger_dss", "staggering": stag,
+              "replay_ms_per_step": {n: v[3] for n, v in variants.items()},
+              "order": "forward then backward", "card": smi})
+        del m, variants
+        torch.cuda.empty_cache()
+
+    # the CLI's inertia-gravity wave under each staggering
+    for stag in ("LOR",) + STAGGERS:
+        argv = IGW_ARGV + ["--vstagger", stag] + (
+            ["--vertorder", "2"] if stag == "INT" else [])
+        text, wall, got = run_cli(argv, dev)
+        launches[f"stagger_igw_{stag}"] = got
+        lines = [ln for ln in text.splitlines() if "..Checksums" in ln]
+        if len(lines) != 5 or any("nan" in ln or "inf" in ln
+                                  for ln in lines):
+            raise RuntimeError(f"5k IGW {stag}: checksums {lines}")
+        emit({"phase": "stagger_igw", "staggering": stag,
+              "argv": argv, "wall_s": wall, "launches": got,
+              "checksums_t40": lines[-1].split("  ", 1)[1], "card": smi})
+
+
 def main():
     args = sys.argv[1:]
     profile_path = None
@@ -4581,11 +5071,12 @@ def main():
     from tempestmodel_tpu_torch.fast import dss_cuda, hyper_cuda
     from tempestmodel_tpu_torch.ops import cuda_banded
     nu4_resources = hyper_cuda.kernel_resources()
-    if len(nu4_resources) != 16:
+    if len(nu4_resources) != 32:
         raise RuntimeError(f"the build reported {len(nu4_resources)} of the "
-                           f"nu4 kernel's 16 instantiations (dtype x p 4 "
-                           f"or any p x pass x the nonhydrostatic and the "
-                           f"shallow-water field set)")
+                           f"nu4 kernel's 32 instantiations (dtype x p 4 "
+                           f"or any p x pass x the Lorenz, Charney-"
+                           f"Phillips, LEV/INT and shallow-water field "
+                           f"sets)")
     dss_resources = dss_cuda.kernel_resources()
     if len(dss_resources) != 40:
         raise RuntimeError(f"the build reported {len(dss_resources)} of the "
@@ -4631,6 +5122,7 @@ def main():
     check_noflux_dss(dev, rows)
     check_wide_banded(dev, rows)
     check_sw_kernels(dev, rows)
+    check_stagger_kernels(geom, rows, dev)
 
     # 4. the slice at small size, three ways, dry and with tracers --------
     check_slice(dev)
@@ -4641,6 +5133,7 @@ def main():
     check_noflux_slice(dev)
     check_sw_slice(dev)
     vert_launches = check_vertical_slice(dev)
+    stag_launches = check_stagger_slice(dev)
 
     # 5. the main paths at full width -------------------------------------
     X0 = fast.pack_state(state, device=dev)
@@ -4890,6 +5383,11 @@ def main():
     vertical_line(dev, smi, launches)
     emit({"phase": "vertical", "seconds": time.perf_counter() - t0})
 
+    # 5k. this slice's path: CPH, LEV and INT on the flagship grid
+    t0 = time.perf_counter()
+    stagger_line(dev, smi, launches)
+    emit({"phase": "stagger", "seconds": time.perf_counter() - t0})
+
     if profile_path is not None:
         os.makedirs(os.path.dirname(os.path.abspath(profile_path)),
                     exist_ok=True)
@@ -5032,6 +5530,17 @@ def main():
                     launches[f"vertical_{run}"][name] < 1:
                 raise RuntimeError(f"{name} was not launched on the "
                                    f"{path} path")
+        # the staggerings: phase 5k's Model runs (each from counts at 0) and
+        # phase 4's kernel runs at ne4 and on the x-z slice
+        row["launches_stagger_paths"] = {
+            stag: launches[f"stagger_{stag}"][name] for stag in STAGGERS}
+        row["launches_stagger_slice"] = {
+            path: v[name] for path, v in stag_launches.items()}
+        for stag in STAGGERS:
+            if stagger_per_step()[name] and \
+                    launches[f"stagger_{stag}"][name] < 1:
+                raise RuntimeError(f"{name} was not launched on the "
+                                   f"{stag} path")
         if name in ("banded_solve", "banded_solve_multi"):
             row["q_above_8"] = {k: v for k, v in rows["banded_wide"].items()
                                 if k.split()[0] == name}
@@ -5039,7 +5548,21 @@ def main():
             two = rows["fused_stage_two_base"]
             row.update(ms_two_base=two["ms"], bound_ms_two_base=two["bound_ms"],
                        plain_ms_two_base=two["plain_ms"])
+        if name in ("nu4_pass1", "nu4_pass2"):
+            row.pop("staggered", None)
         kernels.append(row)
+        if name in ("nu4_pass1", "nu4_pass2"):
+            # the instantiations of the staggered field sets, each with its
+            # phase 3 figures and its launches on its 5k run (INT takes
+            # LEV's field set)
+            for stag in NU4_SETS:
+                srow = dict(rows[name]["staggered"][stag])
+                srow["name"] = f"{name}[{stag}]"
+                srow["launches"] = launches[f"stagger_{stag}"][name]
+                if stag == "LEV":
+                    srow["launches_int_path"] = \
+                        launches["stagger_INT"][name]
+                kernels.append(srow)
     for path in ("noflux_dc", "noflux_channel"):
         for name, v in noflux_per_step(path.split("_")[1]).items():
             if v and launches[path][name] < 1:

@@ -17,9 +17,15 @@
 // pass 1 only in what it differentiates (the DSSed work fields), in the
 // viscosities and in the store (the axpy onto the state): one kernel
 // template with a compile-time flag.  A second compile-time count NS says
-// how many scalar fields follow U and V: 3 (Rt, Rho, W; W has one
-// interface more, so the block walks nz + 1 steps) or 1 (the shallow-water
-// H, nz steps).
+// how many scalar fields follow U and V: 3 (Rt, Rho, W) or 1 (the
+// shallow-water H), and a compile-time mask TOP which of them own the row
+// nz on top of the nz levels (they live on the nz + 1 interfaces): W under
+// the Lorenz staggering (TOP 4), Rt and W under Charney-Phillips (TOP 5),
+// none under LEV and INT or for H (TOP 0).  A block walks nz + 1 steps
+// where TOP is not 0, nz where it is; at the step nz only the fields of
+// TOP exist.  The metric is the same for both rows (the Jacobian constant
+// in z and equal on levels and interfaces), so the mask changes only which
+// fields a step copies, differentiates and stores.
 //
 // Bound on an H100 (3.35 TB/s): bytes.  Pass 1 reads five fields and writes
 // five (151 level slabs of 6 x 120 x 120 float32 each way, 104 MB, 31 us);
@@ -241,13 +247,18 @@ __device__ __forceinline__ void copy_span(int copy, void* dst,
 // The band's spans of level k of every input field into stage `st` on its
 // mbarrier `bar`: with bulk copies (copy == 16) lane f of the first warp
 // issues field f's, lane 0 having announced the bytes; else cp.async by
-// every thread and one arrival each.  Above the top level (k == nz, NS ==
-// 3 only) only W (and its base) exist.
-template <typename T, bool PASS2, int NS>
+// every thread and one arrival each.  Above the top level (k == nz, TOP
+// not 0 only) only the scalars of TOP (and their bases) exist.
+template <int TOP>
+__device__ __forceinline__ bool on_top(int f) {  // f: a field of the set
+  return f >= 2 && ((TOP >> (f - 2)) & 1);
+}
+template <typename T, bool PASS2, int NS, int TOP>
 __device__ void issue_level(const HyperArgs<T>& g, int k, int a0, int c0,
                             T* st, unsigned long long* bar) {
   constexpr int NX = 2 + NS;  // fields a set
   constexpr int NF = PASS2 ? 2 * NX : NX;
+  constexpr int NTOP = ((TOP & 1) + ((TOP >> 1) & 1) + ((TOP >> 2) & 1));
   const bool lev = k < g.nz;
   const long long off =
       (((long long)k * g.P + blockIdx.y) * g.A + a0) * g.B + c0;
@@ -257,9 +268,9 @@ __device__ void issue_level(const HyperArgs<T>& g, int k, int a0, int c0,
   if (g.copy == 16) {
     if (threadIdx.x == 0)
       bar_arrive_expect(bar,
-                        (PASS2 ? 2 : 1) * (lev ? NX : 1) * pieces * bytes);
+                        (PASS2 ? 2 : 1) * (lev ? NX : NTOP) * pieces * bytes);
     for (int f = threadIdx.x; f < NF; f += blockDim.x) {
-      if (!lev && f % NX != NX - 1) continue;
+      if (!lev && !on_top<TOP>(f % NX)) continue;
       const T* src = (f < NX ? g.x[f] : g.base[f - NX]) + off;
       T* dst = st + f * g.tile;
       for (int q = 0; q < pieces; ++q)
@@ -268,7 +279,7 @@ __device__ void issue_level(const HyperArgs<T>& g, int k, int a0, int c0,
     return;
   }
   for (int f = 0; f < NF; ++f) {
-    if (!lev && f % NX != NX - 1) continue;
+    if (!lev && !on_top<TOP>(f % NX)) continue;
     const T* src = (f < NX ? g.x[f] : g.base[f - NX]) + off;
     T* dst = st + f * g.tile;
     for (int q = 0; q < pieces; ++q)
@@ -277,13 +288,13 @@ __device__ void issue_level(const HyperArgs<T>& g, int k, int a0, int c0,
   copies_arrive(bar);
 }
 
-// Grid: (bands of one panel, panel, runs: the steps (nz + 1 at NS = 3, nz
-// at NS = 1) split evenly into runs of at most `levels`);
+// Grid: (bands of one panel, panel, runs: the steps (nz + 1 where TOP is
+// not 0, else nz) split evenly into runs of at most `levels`);
 // block: rows * cols / p threads, thread t owning segment t of the band;
 // dynamic shared memory: the mbarriers, `ring` stages of 2 + NS (pass 2:
 // twice that) field slots, the J u^a tile, the 2 + NS second-layer tiles
 // (div, curl, a flux a scalar).
-template <typename T, int PP, bool PASS2, int NS>
+template <typename T, int PP, bool PASS2, int NS, int TOP>
 __global__ void __launch_bounds__(HYPER_THREADS,
                                   sizeof(T) == 4 ? HYPER_MIN_BLOCKS
                                                  : HYPER_MIN_BLOCKS_F64)
@@ -293,7 +304,6 @@ __global__ void __launch_bounds__(HYPER_THREADS,
   constexpr int N = PP > 0 ? PP : MAX_P;
   constexpr int NX = 2 + NS;
   constexpr int NF = PASS2 ? 2 * NX : NX;
-  constexpr int LAST = NS - 1;  // the scalar with a top interface (W)
   const int p = PP > 0 ? PP : g.p;
   const int TB = g.cols, R = g.ring, tile = g.tile;
   const int nsb = TB / p;                       // segments a band row
@@ -304,7 +314,7 @@ __global__ void __launch_bounds__(HYPER_THREADS,
   const int a0 = (blockIdx.x / bands_b) * g.rows;
   const int c0 = (blockIdx.x % bands_b) * TB;
   // the runs split the steps evenly (at most `levels` each)
-  const int steps = g.nz + (NS == 3 ? 1 : 0);
+  const int steps = g.nz + (TOP != 0 ? 1 : 0);
   const int k0 = (int)((long long)blockIdx.z * steps / gridDim.z);
   const int nk = (int)((long long)(blockIdx.z + 1) * steps / gridDim.z) - k0;
   unsigned long long* bars = reinterpret_cast<unsigned long long*>(smem_raw);
@@ -340,8 +350,8 @@ __global__ void __launch_bounds__(HYPER_THREADS,
   __syncthreads();  // the mbarriers are ready: the first levels' copies
   HYPER_LAP(1);
   for (int j = 0; j < min(R, nk); ++j)
-    issue_level<T, PASS2, NS>(g, k0 + j, a0, c0, ring + j * NF * tile,
-                              &bars[j]);
+    issue_level<T, PASS2, NS, TOP>(g, k0 + j, a0, c0, ring + j * NF * tile,
+                                   &bars[j]);
   const T(&c2aa)[N] = m[0];
   const T(&c2ab)[N] = m[1];
   const T(&c2ba)[N] = m[2];
@@ -354,7 +364,7 @@ __global__ void __launch_bounds__(HYPER_THREADS,
   for (int j = 0; j < nk; ++j) {
     const int k = k0 + j, slot = j % R;
     const T* st = ring + slot * NF * tile;
-    const bool lev = k < g.nz;  // the level fields exist (not only W)
+    const bool lev = k < g.nz;  // the level fields exist (not only TOP's)
     bar_wait(&bars[slot], (j / R) & 1);
     HYPER_LAP(2);
     // first layer, vector part: J u^a into its tile; the b-sums of J u^b
@@ -382,9 +392,9 @@ __global__ void __launch_bounds__(HYPER_THREADS,
     HYPER_LAP(3);
     __syncthreads();  // J u^a published; the previous level's stage is free
     if (j >= 1 && j - 1 + R < nk)
-      issue_level<T, PASS2, NS>(g, k - 1 + R, a0, c0,
-                                ring + ((j - 1) % R) * NF * tile,
-                                &bars[(j - 1) % R]);
+      issue_level<T, PASS2, NS, TOP>(g, k - 1 + R, a0, c0,
+                                     ring + ((j - 1) % R) * NF * tile,
+                                     &bars[(j - 1) % R]);
     HYPER_LAP(4);
     // first layer, the rest: div; each scalar's gradient and its fluxes
     // (the flux along a into its tile, the weak b-sum of the flux along b
@@ -392,7 +402,7 @@ __global__ void __launch_bounds__(HYPER_THREADS,
     T wdb_div[N], wdb_curl[N], wk[NS][N];
 #pragma unroll
     for (int f = 0; f < NS; ++f) {  // unrolled: wk stays in registers
-      if (!lev && f < LAST) continue;
+      if (!lev && !((TOP >> f) & 1)) continue;
       T x[N], ga[N], gb[N], dxa[N], dxb[N];
       const T* F = st + (2 + f) * tile;
       load_seg<T, N>(F + own, x, p);
@@ -457,7 +467,7 @@ __global__ void __launch_bounds__(HYPER_THREADS,
     }
 #pragma unroll
     for (int f = 0; f < NS; ++f) {
-      if (!lev && f < LAST) continue;
+      if (!lev && !((TOP >> f) & 1)) continue;
       T w[N];
       sum_a<T, N>(t2 + (2 + f) * tile + erow, TB, wa, p, w);
 #pragma unroll
@@ -476,7 +486,7 @@ __global__ void __launch_bounds__(HYPER_THREADS,
   HYPER_PHASE_END();
 }
 
-template <typename T, int PP, bool PASS2, int NS>
+template <typename T, int PP, bool PASS2, int NS, int TOP>
 int launch_one(const HyperArgs<T>& g, dim3 grid, int threads, size_t smem,
                cudaStream_t st) {
   // opt in to more than the default 48 KB once per device
@@ -485,14 +495,25 @@ int launch_one(const HyperArgs<T>& g, dim3 grid, int threads, size_t smem,
   cudaGetDevice(&dev);
   if (smem > 48 * 1024 && dev < 64 && !opted[dev]) {
     const cudaError_t e = cudaFuncSetAttribute(
-        nu4_kernel<T, PP, PASS2, NS>,
+        nu4_kernel<T, PP, PASS2, NS, TOP>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)SMEM_MAX);
     if (e != cudaSuccess) return (int)e;
     opted[dev] = true;
   }
-  nu4_kernel<T, PP, PASS2, NS><<<grid, threads, smem, st>>>(g);
+  nu4_kernel<T, PP, PASS2, NS, TOP><<<grid, threads, smem, st>>>(g);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int NS, int TOP>
+int launch_set(const HyperArgs<T>& g, dim3 grid, int threads, size_t smem,
+               cudaStream_t st, bool pass2) {
+  if (g.p == 4)
+    return pass2 ? launch_one<T, 4, true, NS, TOP>(g, grid, threads, smem, st)
+                 : launch_one<T, 4, false, NS, TOP>(g, grid, threads, smem,
+                                                    st);
+  return pass2 ? launch_one<T, 0, true, NS, TOP>(g, grid, threads, smem, st)
+               : launch_one<T, 0, false, NS, TOP>(g, grid, threads, smem, st);
 }
 
 inline bool aligned(const void* q, int bytes) {
@@ -505,7 +526,8 @@ inline bool aligned(const void* q, int bytes) {
 // hyper_cuda.hyper_statics lays them out (4 p x p: D[s, i] / delta, then
 // S[i, s] / delta, along a, then along b).  ints: nz P A B p pass2 rows
 // cols levels ring copy (fast/hyper_cuda.hyper_launch_shape, copy_width)
-// NS (3 or 1).
+// NS (3 or 1) TOP (NS 3: 4 Lorenz, 5 Charney-Phillips, 0 LEV and INT; NS
+// 1: 0).
 // Returns cudaGetLastError(), -1 for a shape or a copy width the kernel
 // does not take, -2 for more shared memory than a block has.
 template <typename T>
@@ -527,9 +549,11 @@ int launch_nu4(const void* const* ptrs, const double* scal, const int* ints,
   const bool pass2 = ints[5] != 0;
   g.rows = ints[6]; g.cols = ints[7]; g.levels = ints[8]; g.ring = ints[9];
   g.copy = ints[10];
-  const int ns = ints[11], nx = 2 + ns;
+  const int ns = ints[11], nx = 2 + ns, top = ints[12];
   const int p = g.p, TA = g.rows, TB = g.cols;
-  if (ns != 1 && ns != 3) return -1;
+  if (!(ns == 1 && top == 0) &&
+      !(ns == 3 && (top == 4 || top == 5 || top == 0)))
+    return -1;
   if (g.nz < 1 || g.P < 1 || p < 1 || p > MAX_P || g.A % p || g.B % p ||
       TA < p || TA % p || g.A % TA || TB < p || TB % p || g.B % TB)
     return -1;
@@ -576,23 +600,17 @@ int launch_nu4(const void* const* ptrs, const double* scal, const int* ints,
       (size_t)((pass2 ? 2 : 1) * nx * g.ring + 1 + nx) * g.tile * ES;
   if (smem > SMEM_MAX) return -2;
   const long long bands = (long long)(g.A / TA) * (g.B / TB);
-  const int steps = g.nz + (ns == 3 ? 1 : 0);
+  const int steps = g.nz + (top != 0 ? 1 : 0);
   const int runs = (steps + g.levels - 1) / g.levels;
   if (bands > 0x7fffffffLL || g.P > 65535 || runs > 65535) return -1;
   const dim3 grid((unsigned)bands, (unsigned)g.P, (unsigned)runs);
   const cudaStream_t st = (cudaStream_t)stream;
-  if (ns == 1) {
-    if (p == 4)
-      return pass2 ? launch_one<T, 4, true, 1>(g, grid, threads, smem, st)
-                   : launch_one<T, 4, false, 1>(g, grid, threads, smem, st);
-    return pass2 ? launch_one<T, 0, true, 1>(g, grid, threads, smem, st)
-                 : launch_one<T, 0, false, 1>(g, grid, threads, smem, st);
-  }
-  if (p == 4)
-    return pass2 ? launch_one<T, 4, true, 3>(g, grid, threads, smem, st)
-                 : launch_one<T, 4, false, 3>(g, grid, threads, smem, st);
-  return pass2 ? launch_one<T, 0, true, 3>(g, grid, threads, smem, st)
-               : launch_one<T, 0, false, 3>(g, grid, threads, smem, st);
+  // the field sets: shallow water (1, 0), Lorenz (3, 4), Charney-Phillips
+  // (3, 5), LEV and INT (3, 0); each at p = 4 and at any p, both passes
+  if (ns == 1) return launch_set<T, 1, 0>(g, grid, threads, smem, st, pass2);
+  if (top == 4) return launch_set<T, 3, 4>(g, grid, threads, smem, st, pass2);
+  if (top == 5) return launch_set<T, 3, 5>(g, grid, threads, smem, st, pass2);
+  return launch_set<T, 3, 0>(g, grid, threads, smem, st, pass2);
 }
 
 }  // namespace

@@ -49,14 +49,18 @@ vertical implicit solve, then the nu4 tail.
 The JAX package's vertical options outside its own z-first engine run here
 too: the dense, Schur and JFNK column solvers (``fast/implicit.
 vertical_implicit(solver=)``), the implicit solve without the Rt/Rho upwind
-penalty (``upwind_thermo=False``), and the fully explicit vertical path
+penalty (``upwind_thermo=False``), the fully explicit vertical path
 (``explicit_vertical`` or ERK: the vertical tendency in every stage, no
-implicit solve, an empty carry).
+implicit solve, an empty carry), and the CPH, LEV and INT staggerings (told
+from the state's shapes: the stage as tensor code, the dense column solve
+of ``implicit.stagger_newton``, each scalar's Jacobian and Rayleigh factor
+by its row count).
 
 Not ported yet (they wait in the roadmap, none is declared unnecessary):
-the device-mesh engine, CPH, LEV and INT staggering, tracers and the IMEX
-family on no-flux grids, tracers with uniform diffusion or on the explicit
-vertical path.
+the device-mesh engine, tracers and the IMEX family on no-flux grids,
+tracers with uniform diffusion or on the explicit vertical path, and under
+the CPH, LEV and INT staggerings tracers, no-flux walls, uniform diffusion
+and IMEX.
 
 Where the JAX code writes ``x.at[i].set(v)``, this one writes in place on
 a fresh tensor (a clone or a new result), never on an argument.
@@ -102,11 +106,12 @@ def pack_state(state, device=None):
 
 
 def unpack_state(d, nz: int = None):
-    """Z-first fast state -> reference-layout state dict (same device)."""
+    """Z-first fast state -> reference-layout state dict (same device).
+    The tracers' level count is Rho's (Rt has one level more under CPH)."""
     out = {k: d[k].movedim(0, -1).contiguous() for k in FIELDS}
     if "Tracers" in d:
         t = d["Tracers"]
-        nzz = d["Rt"].shape[0]
+        nzz = d["Rho"].shape[0]
         out["Tracers"] = t.reshape((t.shape[0] // nzz, nzz)
                                    + tuple(t.shape[1:])).movedim(1, -1) \
             .contiguous()
@@ -597,10 +602,13 @@ def apply_dss(d, fg: FastGeometry, rayleigh=None, plain: bool = False,
     """DSS of the full fast state (U/V rotate as a covariant pair).
 
     Four launches (vector pair + 3 scalars) unless ``merge`` says otherwise:
-    with ``"state"`` in it, a full five-field state goes through the
+    with ``"state"`` in it, a full five-field Lorenz state goes through the
     one-launch ``dss_cuda.dss_state`` (the Rayleigh finish inside the
-    launch); with ``"scalar2"``, Rt and Rho share one launch
-    (``dss_cuda.dss_scalar2``).  The results are the same bit for bit.
+    launch); with ``"scalar2"``, the two scalars of one row count share one
+    launch (``dss_cuda.dss_scalar2``: Rt and Rho, or Rt and W under CPH).
+    The results are the same bit for bit.  A CPH, LEV or INT state (told by
+    its shapes) never takes ``dss_state``: its scalars go as
+    ``"scalar2"`` says.
     ``DSS_MERGE_DEFAULT`` follows the measurement at the flagship on an H100
     under graph replay (``chip_smoke.py`` times all four combinations).
 
@@ -640,8 +648,17 @@ def apply_dss(d, fg: FastGeometry, rayleigh=None, plain: bool = False,
         part = tuple(halo[k] for k in keys)
         return dict(hw, halo=part[0] if len(keys) == 1 else part)
 
+    # the scalars by shape: the two of one row count share the
+    # ``"scalar2"`` launch, the odd one goes alone (Lorenz: Rt and Rho, W;
+    # CPH: Rt and W, Rho; LEV and INT: Rt and Rho, W); ``dss_state`` and
+    # the W fold take Lorenz shapes only
+    lorenz = (w_finish is not None
+              or (d["Rt"].shape == d["Rho"].shape
+                  and d["W"].shape[0] == d["Rho"].shape[0] + 1))
+    cph = w_finish is None and d["Rt"].shape[0] == d["Rho"].shape[0] + 1
+    pair, alone = (("Rt", "W"), "Rho") if cph else (("Rt", "Rho"), "W")
     scalar = dss_cuda.dss_scalar_plain if plain else dss_cuda.dss_scalar
-    if w_finish is None and "state" in merge:
+    if w_finish is None and "state" in merge and lorenz:
         fn = dss_cuda.dss_state_plain if plain else dss_cuda.dss_state
         hs = {}
         if hw:
@@ -662,13 +679,13 @@ def apply_dss(d, fg: FastGeometry, rayleigh=None, plain: bool = False,
         u, v = fn(d["U"], d["V"], fg.inv_mult, fg.e_rot, fg.dss_links, fg.p,
                   **kw, **h("U", "V"))
         out = {"U": u, "V": v,
-               "W": scalar(d["W"], *common, **kw, **h("W"))}
+               alone: scalar(d[alone], *common, **kw, **h(alone))}
     if "scalar2" in merge:
         fn = dss_cuda.dss_scalar2_plain if plain else dss_cuda.dss_scalar2
-        out["Rt"], out["Rho"] = fn(d["Rt"], d["Rho"], *common, **kw,
-                                   **h("Rt", "Rho"))
+        out[pair[0]], out[pair[1]] = fn(d[pair[0]], d[pair[1]], *common,
+                                        **kw, **h(*pair))
     else:
-        for k in ("Rt", "Rho"):
+        for k in pair:
             out[k] = scalar(d[k], *common, **kw, **h(k))
     walls = walls_of(out, fg) if walls_out else None
     if rayleigh is not None:
@@ -679,20 +696,27 @@ def apply_dss(d, fg: FastGeometry, rayleigh=None, plain: bool = False,
 
 
 # ---------------------------------------------------------------------------
-# Nonhydrostatic tendencies (LOR staggering)
+# Nonhydrostatic tendencies (every staggering: told by the state's shapes)
 # ---------------------------------------------------------------------------
 
 def horizontal_tendency(d, fg: FastGeometry, constants: PhysicalConstants,
                         mask_w: bool = True):
-    """Horizontal tendencies of the five fields (LOR staggering), with the
-    vertical penalty upwinding of U/V folded into the U/V rows.
+    """Horizontal tendencies of the five fields, with the vertical penalty
+    upwinding of U/V folded into the U/V rows.  The staggering comes from
+    the shapes (the JAX package's ``nonhydro.horizontal_tendency``): under
+    CPH Rt lives on interfaces, is advected there with the interface
+    Jacobian and enters the pressure gradient interpolated to levels; under
+    LEV and INT W lives on levels, its tendency is not interpolated, and
+    the U/V penalty reads it interpolated to interfaces.
     ``mask_w=False`` leaves the bottom and top rows of the W tendency as the
     interpolation gives them (the deferred W finish masks them later)."""
     nz = fg.nz
     u, v = d["U"], d["V"]
     rt, rho, w = d["Rt"], d["Rho"], d["W"]
-
-    w_n = colop(fg.interp_i2n, w)
+    cph = rt.shape[0] == nz + 1
+    lev = w.shape[0] == nz
+    rt_n = colop(fg.interp_i2n, rt) if cph else rt
+    w_n = w if lev else colop(fg.interp_i2n, w)
 
     c_aa, c_ab = fg.c2_aa[None], fg.c2_ab[None]
     c_ba, c_bb = fg.c2_ba[None], fg.c2_bb[None]
@@ -701,7 +725,7 @@ def horizontal_tendency(d, fg: FastGeometry, constants: PhysicalConstants,
     con_ux = fg.con_a_xi * u + fg.con_b_xi * v + fg.con_xi_xi * w_n
 
     ke = 0.5 * (con_ua * u + con_ub * v + con_ux * w_n)
-    exner = nonhydro.exner_from_rhotheta(rt, constants)
+    exner = nonhydro.exner_from_rhotheta(rt_n, constants)
 
     du_dxi = colop(fg.diff_n2n, u)
     dv_dxi = colop(fg.diff_n2n, v)
@@ -722,14 +746,27 @@ def horizontal_tendency(d, fg: FastGeometry, constants: PhysicalConstants,
     base_a = fg.jac3d * con_ua
     base_b = fg.jac3d * con_ub
     div_rho = hweak_div(base_a * rho, base_b * rho, fg)
-    div_rt = hweak_div(base_a * rt, base_b * rt, fg)
+
+    # U and V on interfaces: the CPH Rt flux and the U/V penalty
+    u_i = colop(fg.interp_n2i, u)
+    v_i = colop(fg.interp_n2i, v)
+    w_i = colop(fg.interp_n2i, w) if lev else w
+    if cph:
+        # Rt advects on interfaces (the reference's REdge branch,
+        # HorizontalDynamicsFEM.cpp:1664+)
+        ji = fg.jac3d_int
+        con_ua_i = c_aa * u_i + c_ab * v_i + fg.con_a_xi_int * w
+        con_ub_i = c_ba * u_i + c_bb * v_i + fg.con_b_xi_int * w
+        dRt = -hweak_div(ji * con_ua_i * rt, ji * con_ub_i * rt, fg) / ji
+    else:
+        dRt = -hweak_div(base_a * rt, base_b * rt, fg) / fg.jac3d
 
     dke_a = hderiv_a(ke, fg)
     dke_b = hderiv_b(ke, fg)
     dpi_a = hderiv_a(exner, fg)
     dpi_b = hderiv_b(exner, fg)
 
-    theta = rt / rho
+    theta = rt_n / rho
     fj = fg.fj[None]
 
     # on an xz slice the slot of the physical V ("V", or "U" when (a, b)-
@@ -745,18 +782,16 @@ def horizontal_tendency(d, fg: FastGeometry, constants: PhysicalConstants,
         dV = (ucz_b - fj * con_ua
               - (dpi_b * theta + dke_b + constants.g * fg.deriv_r_b))
     dRho = -div_rho / fg.jac3d
-    dRt = -div_rt / fg.jac3d
 
-    dW = colop(fg.interp_n2i, ucz_x)      # a fresh tensor
+    # W's tendency: U x zeta's xi component, on interfaces but under LEV
+    dW = ucz_x.clone() if lev else colop(fg.interp_n2i, ucz_x)
     if mask_w:
-        dW[0] = 0.0                       # written in place
+        dW[0] = 0.0                       # written in place (a fresh tensor)
         dW[-1] = 0.0
 
     # --- vertical explicit penalty upwinding of U/V (per unit dt) --------
-    u_i = colop(fg.interp_n2i, u)
-    v_i = colop(fg.interp_n2i, v)
     xid = (fg.con_a_xi_int * u_i + fg.con_b_xi_int * v_i
-           + fg.con_xi_xi_int * w)
+           + fg.con_xi_xi_int * w_i)
     xid[0] = 0.0                          # xid is a fresh tensor
     xid[-1] = 0.0
     vo = fg.vo
@@ -773,12 +808,18 @@ def horizontal_tendency(d, fg: FastGeometry, constants: PhysicalConstants,
 
 
 def apply_w_boundary(d, fg: FastGeometry):
-    """Diagnostic bottom W from u^xi(surface) = 0.  Writes row 0 of
-    ``d["W"]`` IN PLACE: the caller passes a state it has just made."""
-    u0 = colop(fg.interp_n2i[0:1], d["U"])[0]
-    v0 = colop(fg.interp_n2i[0:1], d["V"])[0]
-    w0 = -(fg.con_a_xi_int[0] * u0 + fg.con_b_xi_int[0] * v0) \
-        / fg.con_xi_xi_int[0]
+    """Diagnostic bottom W from u^xi(surface) = 0: at the bottom interface
+    (U and V interpolated there), or at the bottom level where W lives on
+    levels (LEV, INT).  Writes row 0 of ``d["W"]`` IN PLACE: the caller
+    passes a state it has just made."""
+    if d["W"].shape[0] == fg.nz:
+        w0 = -(fg.con_a_xi[0] * d["U"][0] + fg.con_b_xi[0] * d["V"][0]) \
+            / fg.con_xi_xi[0]
+    else:
+        u0 = colop(fg.interp_n2i[0:1], d["U"])[0]
+        v0 = colop(fg.interp_n2i[0:1], d["V"])[0]
+        w0 = -(fg.con_a_xi_int[0] * u0 + fg.con_b_xi_int[0] * v0) \
+            / fg.con_xi_xi_int[0]
     d["W"][0] = w0
     return d
 
@@ -786,6 +827,15 @@ def apply_w_boundary(d, fg: FastGeometry):
 # ---------------------------------------------------------------------------
 # Hyperdiffusion tail (nu4 / nu2)
 # ---------------------------------------------------------------------------
+
+def jac_of(f, fg: FastGeometry):
+    """The 3-D Jacobian where the scalar ``f`` lives, by its row count: the
+    level one for nz rows, the interface one for nz + 1 (the reference's
+    choice, whatever the field's name: the JAX package compares Rt with W
+    instead, ``hyperdiff.py:187-189``, and under LEV and INT, where they
+    have nz rows each, takes the interface Jacobian for Rt and fails)."""
+    return fg.jac3d if f.shape[0] == fg.nz else fg.jac3d_int
+
 
 def scalar_laplacian(f, jac, fg: FastGeometry):
     da = hderiv_a(f, fg)
@@ -877,15 +927,10 @@ def step_after_subcycle(d, dt, cfg: ModelConfig, fg: FastGeometry,
     if cfg.hypervis_order == 2:
         du, dv = vector_hyperdiff_update(
             d["U"], d["V"], cfg.nu_div, cfg.nu_vort, fg)
-        out = {
-            "U": d["U"] - dt * du, "V": d["V"] - dt * dv,
-            "Rt": d["Rt"] + dt * nu_s * scalar_laplacian(
-                d["Rt"], fg.jac3d, fg),
-            "Rho": d["Rho"] + dt * nu_s * scalar_laplacian(
-                d["Rho"], fg.jac3d, fg),
-            "W": d["W"] + dt * nu_s * scalar_laplacian(
-                d["W"], fg.jac3d_int, fg),
-        }
+        out = {"U": d["U"] - dt * du, "V": d["V"] - dt * dv}
+        for k in ("Rt", "Rho", "W"):
+            out[k] = d[k] + dt * nu_s * scalar_laplacian(
+                d[k], jac_of(d[k], fg), fg)
         if has_tr:
             out["Tracers"] = d["Tracers"] + dt * nu_s * \
                 ftr.scalar_laplacian_tr(d["Tracers"], fg)
@@ -910,26 +955,18 @@ def step_after_subcycle(d, dt, cfg: ModelConfig, fg: FastGeometry,
         return finish(out)
 
     wu, wv = vector_hyperdiff_update(d["U"], d["V"], 1.0, 1.0, fg)
-    work = {
-        "U": -wu, "V": -wv,
-        "Rt": scalar_laplacian(d["Rt"], fg.jac3d, fg),
-        "Rho": scalar_laplacian(d["Rho"], fg.jac3d, fg),
-        "W": scalar_laplacian(d["W"], fg.jac3d_int, fg),
-    }
+    work = {"U": -wu, "V": -wv}
+    for k in ("Rt", "Rho", "W"):
+        work[k] = scalar_laplacian(d[k], jac_of(d[k], fg), fg)
     if has_tr:
         work["Tracers"] = ftr.scalar_laplacian_tr(d["Tracers"], fg)
     work = dss_fn(work, **work_kw)
 
     du, dv = vector_hyperdiff_update(work["U"], work["V"], nu_d, nu_v, fg)
-    out = {
-        "U": d["U"] + dt * du, "V": d["V"] + dt * dv,
-        "Rt": d["Rt"] - dt * nu_s * scalar_laplacian(
-            work["Rt"], fg.jac3d, fg),
-        "Rho": d["Rho"] - dt * nu_s * scalar_laplacian(
-            work["Rho"], fg.jac3d, fg),
-        "W": d["W"] - dt * nu_s * scalar_laplacian(
-            work["W"], fg.jac3d_int, fg),
-    }
+    out = {"U": d["U"] + dt * du, "V": d["V"] + dt * dv}
+    for k in ("Rt", "Rho", "W"):
+        out[k] = d[k] - dt * nu_s * scalar_laplacian(
+            work[k], jac_of(work[k], fg), fg)
     if has_tr:
         out["Tracers"] = d["Tracers"] - dt * nu_s * \
             ftr.scalar_laplacian_tr(work["Tracers"], fg)
@@ -942,25 +979,31 @@ def step_after_subcycle(d, dt, cfg: ModelConfig, fg: FastGeometry,
 
 def fast_engine_supported(cfg: ModelConfig, has_tracers: bool = False,
                           mesh=None, geom=None) -> bool:
-    """The configurations this engine covers: LOR staggering on one
-    device, on the cubed sphere or on a Cartesian grid (x-z slice or 3-D
-    plane) with periodic lateral boundaries or no-flux walls along ONE axis
-    (pass ``geom`` so that they can be checked), with or without uniform
-    (nu2) diffusion; Strang-HEVI with any of the JAX package's column
-    solvers (``vertical_solver`` ``"banded"``, ``"pallas"``, ``"dense"``,
+    """The configurations this engine covers: one device, on the cubed
+    sphere or on a Cartesian grid (x-z slice or 3-D plane) with periodic
+    lateral boundaries or no-flux walls along ONE axis (pass ``geom`` so
+    that they can be checked), with or without uniform (nu2) diffusion;
+    Strang-HEVI with any of the JAX package's column solvers
+    (``vertical_solver`` ``"banded"``, ``"pallas"``, ``"dense"``,
     ``"schur"``, ``"jfnk"``), with or without the implicit Rt/Rho upwind
     penalty (``upwind_thermo``), or the fully explicit vertical path
     (``explicit_vertical``, or ``timescheme`` ERK: the vertical tendency
-    in every explicit stage, no implicit solve); with or without tracers.
+    in every explicit stage, no implicit solve); with or without tracers;
+    in the LOR staggering, or in CPH, LEV or INT (solved densely whatever
+    the solver, as in the JAX package) on a periodic grid or the sphere
+    without tracers and without uniform diffusion.
     Outside: tracers on a no-flux grid, with uniform diffusion or on the
-    explicit vertical path (the roadmap's), and no-flux walls along both
-    axes (no test case has them).  (The JAX package's engine also covers a
-    device mesh and leaves these vertical options, no-flux grids and
-    uniform diffusion to its reference-layout engine.)"""
+    explicit vertical path; no-flux walls along both axes (no test case has
+    them); and, under CPH, LEV and INT, tracers (the JAX package's column
+    tracer update takes W on interfaces), no-flux walls and uniform
+    diffusion (the roadmap's).  (The JAX package's engine also covers a
+    device mesh and leaves these vertical options, the other staggerings,
+    no-flux grids and uniform diffusion to its reference-layout engine.)"""
     from ..config import TimestepSchemeType
     uniform = cfg.nu_uniform_scalar != 0.0 or cfg.nu_uniform_vector != 0.0
     explicit = (cfg.explicit_vertical
                 or cfg.timescheme == TimestepSchemeType.ERK)
+    walls = 0
     if cfg.grid_kind == GridKind.CUBED_SPHERE:
         grid_ok = True
     elif cfg.grid_kind in (GridKind.CARTESIAN_XZ, GridKind.CARTESIAN_3D):
@@ -971,11 +1014,12 @@ def fast_engine_supported(cfg: ModelConfig, has_tracers: bool = False,
                    and not (walls and has_tracers))
     else:
         grid_ok = False
+    lorenz = cfg.vertical_staggering == VerticalStaggering.LORENZ
     return (grid_ok
             and mesh is None
             and not (uniform and has_tracers)
             and not (explicit and has_tracers)
-            and cfg.vertical_staggering == VerticalStaggering.LORENZ
+            and (lorenz or not (has_tracers or walls or uniform))
             and cfg.timescheme in (TimestepSchemeType.STRANG,
                                    TimestepSchemeType.ERK)
             and cfg.vertical_solver in SOLVERS)
@@ -993,7 +1037,8 @@ def _ref_zf(cfg: ModelConfig, ref_state, fg):
 def _rayleigh_terms(cfg: ModelConfig, geom, ref_state, fg):
     """(fac, ref_term) z-first damping tensors on the device of ``fg``, or
     None (host precompute; the reference's 10-cycle implicit Rayleigh
-    factor).  ``ref_state``: reference-layout dict of tensors or arrays.
+    factor).  ``ref_state``: reference-layout dict of tensors or arrays,
+    in the configuration's staggering.
     ``fg`` also gives the xz exemption (the engine slot named by
     ``fg.xz_zero`` holds the physical V, never damped) and the
     (a, b)-transposed layout of a swapped Cartesian engine."""
@@ -1011,8 +1056,17 @@ def _rayleigh_terms(cfg: ModelConfig, geom, ref_state, fg):
 
     fac_lev = fac_of(geom.rayleigh_lev)
     fac_int = fac_of(geom.rayleigh_int)
-    fac = {"U": fac_lev, "V": fac_lev, "Rt": fac_lev,
-           "Rho": np.ones_like(fac_lev), "W": fac_int}
+    # each field damped where it lives: Rt on interfaces under CPH, W on
+    # levels under LEV and INT (the JAX package's ``apply_rayleigh`` takes
+    # the Lorenz locations and fails on those shapes)
+    stagger = cfg.vertical_staggering
+    fac = {"U": fac_lev, "V": fac_lev,
+           "Rt": fac_int if stagger == VerticalStaggering.CHARNEY_PHILLIPS
+           else fac_lev,
+           "Rho": np.ones_like(fac_lev),
+           "W": fac_lev if stagger in (VerticalStaggering.LEVELS,
+                                       VerticalStaggering.INTERFACES)
+           else fac_int}
     if fg.xz_zero is not None:
         fac[fg.xz_zero] = np.ones_like(fac_lev)
     npdt = np_dtype(cfg.dtype)
@@ -1334,8 +1388,10 @@ def _setup(cfg, geom, ref_state, device, plain, fused, dss_merge, swap_ab):
     """The set-up the Strang and the IMEX steppers share: the device, the
     fast geometry, the implicit solve's bandwidth, statics and (with
     ``vertical_solver == "pallas"`` on the fused path) the fused kernel's
-    statics, the nu4 passes where ``hyper_cuda.supported`` holds on the
-    fused path, the uniform diffusion (its Laplacians by ``nu4_pass1`` where
+    statics (another staggering than LOR: the dense solve's statics,
+    ``implicit.stagger_statics``, and no bandwidth), the nu4 passes where
+    ``hyper_cuda.supported`` holds on the fused path, the uniform diffusion
+    (its Laplacians by ``nu4_pass1`` where
     ``hyper_cuda.laplacians_supported`` holds on the fused path), the
     Rayleigh terms and the DSS closure.  The caller checks the
     configuration's envelope first."""
@@ -1351,15 +1407,20 @@ def _setup(cfg, geom, ref_state, device, plain, fused, dss_merge, swap_ab):
         fg = build_fast_geometry_cartesian(geom, dtype=cfg.dtype, device=dev,
                                            swap_ab=swap_ab)
 
-    q = nonhydro.estimate_bandwidth(geom, constants)
-    statics = fimp.statics_to_device(
-        nonhydro.band_assembly_statics(geom, q,
-                                       upwind_thermo=cfg.upwind_thermo),
-        cfg.dtype, dev)
     solver = cfg.vertical_solver
-    use_pallas = solver == "pallas"
+    lorenz = cfg.vertical_staggering == VerticalStaggering.LORENZ
+    if lorenz:
+        q = nonhydro.estimate_bandwidth(geom, constants)
+        statics = fimp.statics_to_device(
+            nonhydro.band_assembly_statics(geom, q,
+                                           upwind_thermo=cfg.upwind_thermo),
+            cfg.dtype, dev)
+    else:
+        # CPH, LEV and INT solve densely whatever the solver: no band
+        q, statics = 0, fimp.stagger_statics(fg, cfg.upwind_thermo)
+    use_pallas = solver == "pallas" and lorenz
     schur = None
-    if solver == "schur":
+    if solver == "schur" and lorenz:
         from ..models.vertical_schur import schur_statics
         schur = schur_statics(fg.nz, q, fg.vo, cfg.dtype, dev)
     rayleigh = _rayleigh_terms(cfg, geom, ref_state, fg)
@@ -1450,7 +1511,11 @@ def _fast_fns(cfg, geom, ref_state, mesh, device, plain, fused, dss_merge,
     # (vertical order 1, the row test of the W fold); the rest is what the
     # CUDA kernels take (stage_supported, hyper_cuda.supported,
     # fused_supported).
-    use_fused_stage = s.fused and stage_cuda.stage_supported(fg)
+    # the stage kernel takes Lorenz shapes: the other staggerings run the
+    # stage as tensor code (a staggered stage kernel is a roadmap item)
+    use_fused_stage = (s.fused and stage_cuda.stage_supported(fg)
+                       and cfg.vertical_staggering
+                       == VerticalStaggering.LORENZ)
     # fold the W stage finish into the (U, V) DSS launch when the surface
     # interpolant row only reads the bottom two levels, and no uniform
     # diffusion comes between the stage and its DSS
@@ -1575,10 +1640,12 @@ def fast_imex_supported(cfg: ModelConfig, has_tracers: bool = False,
     from ..config import TimestepSchemeType
     if cfg.timescheme.value not in IMEX_SCHEMES or has_tracers:
         return False
-    # no-flux walls, uniform diffusion, the explicit vertical path, the
-    # solvers other than the banded ones and upwind_thermo=False are the
-    # Strang engine's only (the JAX package's IMEX takes none of them)
-    if cfg.nu_uniform_scalar != 0.0 or cfg.nu_uniform_vector != 0.0 \
+    # the staggerings other than LOR, no-flux walls, uniform diffusion, the
+    # explicit vertical path, the solvers other than the banded ones and
+    # upwind_thermo=False are the Strang engine's only (the JAX package's
+    # IMEX takes none of them)
+    if cfg.vertical_staggering != VerticalStaggering.LORENZ \
+            or cfg.nu_uniform_scalar != 0.0 or cfg.nu_uniform_vector != 0.0 \
             or "noflux" in (getattr(geom, "bc_x", None),
                             getattr(geom, "bc_y", None)) \
             or cfg.explicit_vertical or not cfg.upwind_thermo \

@@ -4,8 +4,12 @@ the CUDA kernels' wrappers and their plain versions.
 Two field sets: the nonhydrostatic state's (U, V and the scalars Rt, Rho,
 W; ``FIELDS``) and the shallow-water state's (U, V and H; ``SW_FIELDS``,
 on ``(1, 6, A, B)`` views, with the 2-D Jacobian in place of ``jl``:
-``models/sw_model``).  The set is read from the keys of the state, and the
-kernel has a compile-time instantiation for each.
+``models/sw_model``).  The set is read from the keys of the state, and
+which of its scalars live on the nz + 1 interfaces (``top_mask``) from
+their shapes: W under the Lorenz staggering, Rt and W under
+Charney-Phillips, none under LEV and INT or in the shallow-water set.  The
+kernel has a compile-time instantiation for each of the four
+(``TOP_MASKS``).
 
 Counterpart of the JAX package's ``fast/hyper_pallas.py`` (``nu4_pass1``,
 ``nu4_pass2``).  The Strang tail is two horizontal Laplacian passes with a
@@ -54,17 +58,37 @@ MAX_P = 8        # nodes per element edge the kernels' tiles are sized for
 
 def fields_of(d):
     """The field set of the state ``d``: ``SW_FIELDS`` where it holds H,
-    else ``FIELDS``.  Its scalars follow U and V; only the nonhydrostatic
-    set has a field (W) with one level more."""
+    else ``FIELDS``.  Its scalars follow U and V."""
     return SW_FIELDS if "H" in d else FIELDS
+
+
+# the masks of the scalars that own the row nz (bit i: scalar i of the set,
+# Rt Rho W), by staggering: the kernel's instantiations of the
+# nonhydrostatic set (the shallow-water set's is 0)
+TOP_MASKS = {"LOR": 4, "CPH": 5, "LEV": 0}
+
+
+def top_mask(d) -> int:
+    """Which scalars of ``d``'s set have one row more than U (bit i for the
+    i-th scalar after U and V); raises for a combination no staggering
+    has."""
+    keys = fields_of(d)
+    nz = d["U"].shape[0]
+    mask = sum(1 << i for i, k in enumerate(keys[2:])
+               if d[k].shape[0] == nz + 1)
+    if mask not in (TOP_MASKS.values() if keys == FIELDS else (0,)):
+        raise ValueError(f"no staggering puts these fields on interfaces: "
+                         f"{ {k: tuple(d[k].shape) for k in keys} }")
+    return mask
 
 
 def supported(fg, cfg) -> bool:
     """Whether the two kernels cover this configuration.  A statement about
     the configuration only.  Order-4 hyperviscosity; the level and the
     interface Jacobian each constant in z AND equal to each other (the
-    kernels use ``jac3d[0]`` for W's Laplacian where the plain tail uses
-    ``jac3d_int``); whole elements of at most ``MAX_P`` nodes an edge.  Any
+    kernels use ``jac3d[0]`` for the Laplacian of a scalar on interfaces,
+    W's and under CPH Rt's, where the plain tail uses ``jac3d_int``); whole
+    elements of at most ``MAX_P`` nodes an edge.  Any
     grid the engine takes: the passes read neither the x-z switch, nor the
     layout, nor the wrap (the DSS between them does).  (The TPU kernels'
     further conditions on ``A`` and ``p`` are about their tiles and are not
@@ -264,10 +288,13 @@ def hyper_smem_bytes(rows: int, cols: int, ring: int, pass2: bool,
 @functools.lru_cache(maxsize=None)
 def hyper_launch_shape(nz: int, P: int, A: int, B: int, p: int, dtype,
                        pass2: bool, rows=None, cols=None, levels=None,
-                       ring=None, nscalars: int = 3) -> HyperLaunch:
+                       ring=None, nscalars: int = 3,
+                       top=None) -> HyperLaunch:
     """The launch shape of ``nu4_pass1`` (``pass2`` False) or ``nu4_pass2``
     on (nz | nz + 1, P, A, B) fields (``nscalars`` 3: the nonhydrostatic
-    set, nz + 1 steps; 1: the shallow-water set, nz steps).  The keywords
+    set; 1: the shallow-water set; ``top``: the mask of its scalars on
+    interfaces, ``top_mask``, default the Lorenz set's W or none for the
+    shallow-water set: nz + 1 steps where it is not 0, else nz).  The keywords
     ``rows`` to ``ring`` override the rule (``kernels/tune_tail.py`` sweeps
     them).  Cached: a launch asks for its shape on the host every time.
 
@@ -286,6 +313,11 @@ def hyper_launch_shape(nz: int, P: int, A: int, B: int, p: int, dtype,
     if nscalars not in (1, 3):
         raise ValueError(f"the nu4 kernels take 1 or 3 scalar fields, got "
                          f"{nscalars}")
+    if top is None:
+        top = TOP_MASKS["LOR"] if nscalars == 3 else 0
+    if top not in (TOP_MASKS.values() if nscalars == 3 else (0,)):
+        raise ValueError(f"no instantiation of the nu4 kernels has the "
+                         f"scalars {top} on interfaces")
     esize = 4 if dtype == torch.float32 else 8
     if p < 1 or p > MAX_P or A % p or B % p:
         raise ValueError(f"the nu4 kernels take 1 <= p <= {MAX_P} with "
@@ -306,7 +338,7 @@ def hyper_launch_shape(nz: int, P: int, A: int, B: int, p: int, dtype,
                          f"that keeps {MAX_THREADS} threads, got {rows}")
     TA = rows if rows is not None else next(
         (r for r in heights if r * TB // p >= MIN_THREADS), max(heights))
-    steps = nz + (1 if nscalars == 3 else 0)
+    steps = nz + (1 if top else 0)
     bands = (A // TA) * (B // TB) * P
 
     def shape(lv, r):
@@ -367,14 +399,17 @@ def copy_width(B: int, cols: int, esize: int, ptrs) -> int:
     return esize
 
 
-_ENTRY = re.compile(r"nu4_kernelI([fd])Li(\d)ELb([01])ELi(\d)E")
+_ENTRY = re.compile(r"nu4_kernelI([fd])Li(\d)ELb([01])ELi(\d)ELi(\d)E")
+# the instantiations' field sets by (NS, TOP), as kernel_resources names them
+_SET_NAMES = {(3, 4): "", (3, 5): " cph", (3, 0): " lev", (1, 0): " sw"}
 
 
 def kernel_resources() -> dict:
-    """Registers and spill bytes of the kernel's sixteen instantiations as
+    """Registers and spill bytes of the kernel's 32 instantiations as
     ``nvcc -Xptxas -v`` reported them at the build, keyed ``f32 p4 pass1``,
-    ``f64 generic pass2``, ... for the nonhydrostatic set and ``f32 p4
-    pass1 sw``, ... for the shallow-water set (empty before a build)."""
+    ``f64 generic pass2``, ... for the Lorenz set, with `` cph``, `` lev``
+    or `` sw`` after them for the Charney-Phillips, the LEV/INT and the
+    shallow-water set (empty before a build)."""
     out = {}
     for name, use in build.ptxas_usage("hyper").items():
         m = _ENTRY.search(name)
@@ -382,7 +417,7 @@ def kernel_resources() -> dict:
             out[f"{'f32' if m.group(1) == 'f' else 'f64'} "
                 f"{'p4' if m.group(2) == '4' else 'generic'} "
                 f"pass{int(m.group(3)) + 1}"
-                f"{' sw' if m.group(4) == '1' else ''}"] = use
+                f"{_SET_NAMES[(int(m.group(4)), int(m.group(5)))]}"] = use
     return out
 
 
@@ -401,7 +436,8 @@ def launch_config(x, base, st: HyperStatics, launch=None) -> dict:
     nz, P, A, B = u.shape
     sh = launch or hyper_launch_shape(nz, P, A, B, st.p, u.dtype,
                                       base is not None,
-                                      nscalars=len(fields_of(x)) - 2)
+                                      nscalars=len(fields_of(x)) - 2,
+                                      top=top_mask(x))
     return dict(sh._asdict(), copy=copy_width(
         B, sh.cols, u.element_size(),
         [t.data_ptr() for t in _inputs(x, base)]))
@@ -418,9 +454,11 @@ def _check(name, d, st: HyperStatics, ref=None):
         raise ValueError("state fields must be float32/float64 "
                          "(K, P, A, B) tensors")
     nz, P, A, B = u.shape
-    for k in fields_of(d):
+    keys = fields_of(d)
+    top = top_mask(d)
+    for i, k in enumerate(keys):
         f = d[k]
-        rows = nz + 1 if k == "W" else nz
+        rows = nz + 1 if i >= 2 and (top >> (i - 2)) & 1 else nz
         if tuple(f.shape) != (rows, P, A, B) or f.dtype != u.dtype \
                 or f.device != u.device or not f.is_contiguous():
             raise ValueError(
@@ -446,8 +484,9 @@ def _launch(name, x, base, scal, st: HyperStatics, launch=None):
     nz, P, A, B = u.shape
     keys = fields_of(x)
     ns = len(keys) - 2
+    top = top_mask(x)
     sh = launch or hyper_launch_shape(nz, P, A, B, st.p, u.dtype,
-                                      base is not None, nscalars=ns)
+                                      base is not None, nscalars=ns, top=top)
     lib = build.library("hyper")
     fn = lib.nu4_f32 if u.dtype == torch.float32 else lib.nu4_f64
 
@@ -465,9 +504,9 @@ def _launch(name, x, base, scal, st: HyperStatics, launch=None):
             *[None if t is None else t.data_ptr() for t in tensors])
         scal = (ctypes.c_double * (4 + st.ds_host.size))(
             *scal, *st.ds_host.tolist())
-        ints = (ctypes.c_int * 12)(nz, P, A, B, st.p, int(base is not None),
+        ints = (ctypes.c_int * 13)(nz, P, A, B, st.p, int(base is not None),
                                    sh.rows, sh.cols, sh.levels, sh.ring,
-                                   copy, ns)
+                                   copy, ns, top)
         err = fn(ptrs, scal, ints, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed (returned {err}: "
@@ -480,7 +519,8 @@ def _launch(name, x, base, scal, st: HyperStatics, launch=None):
 def nu4_pass1(d, fg, statics: HyperStatics = None):
     """Work fields ``{-wu, -wv, lap(Rt), lap(Rho), lap(W)}`` (the
     shallow-water set: ``{-wu, -wv, lap(H)}``) with ``(wu, wv) =
-    vector_upd(U, V, 1, 1)``; one kernel launch.  Returns fresh tensors.
+    vector_upd(U, V, 1, 1)``; one kernel launch, of the instantiation of
+    the state's staggering (``top_mask``).  Returns fresh tensors.
     ``statics``: ``hyper_statics(fg)`` (built on the fly when absent; the
     shallow-water set must pass its own)."""
     st = hyper_statics(fg) if statics is None else statics
@@ -502,7 +542,7 @@ def nu4_pass2(d, work, nu_s, nu_d, nu_v, dt, fg,
     st = hyper_statics(fg) if statics is None else statics
     _check("d", d, st)
     _check("work", work, st, ref=d["U"])
-    if fields_of(work) != fields_of(d):
+    if fields_of(work) != fields_of(d) or top_mask(work) != top_mask(d):
         raise ValueError("the work fields and the state are of two sets")
     dev = d["U"].device.type
     if dev == "cpu":

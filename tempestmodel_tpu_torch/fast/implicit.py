@@ -1,4 +1,4 @@
-"""Channel-stacked HEVI vertical implicit solve (LOR staggering).
+"""Channel-stacked HEVI vertical implicit solve.
 
 Counterpart of the JAX package's ``fast/implicit.py``: the column
 residual, the analytic banded Jacobian and the Newton update in the
@@ -16,6 +16,13 @@ the Schur elimination of W (``models/vertical_schur``, its reduced system
 through the banded kernel), restarted GMRES with a band product for J·v
 (``models/jfnk``).
 
+The CPH, LEV and INT staggerings (Rt and W on interfaces; every field on
+levels, at the LEV or the INT column operators) have residuals of their own
+(``residual_cph``, ``residual_lev``) and are always solved densely, as in
+the JAX package (``nonhydro.vertical_implicit`` turns every solver into
+``"dense"`` for them): the exact Jacobian assembled from the column
+operators (``dense_jacobian``) and a batched dense LU (``stagger_newton``).
+
 Semantics (including the ``ref_jacobian`` reference-Jacobian mode and the
 AD-subgradient sign conventions) match the JAX package's.  Where that code
 writes ``x.at[0].set(0.0).at[-1].set(0.0)``, this one multiplies by a 0/1
@@ -30,7 +37,7 @@ import math
 import numpy as np
 import torch
 
-from ..models.nonhydro import exner_from_rhotheta, _zero_ends
+from ..models.nonhydro import exner_from_rhotheta, infer_stagger, _zero_ends
 from ..models.vertical_banded import banded_solve_t
 from ..ops.cuda_banded import banded_solve
 from . import implicit_cuda
@@ -68,6 +75,10 @@ def static_aux(fg: FastGeometry):
         "con_xi_xi_int": fl(fg.con_xi_xi_int),
         "jac": fl(fg.jac3d), "jac_int": fl(fg.jac3d_int),
         "deriv_r_int": fl(fg.deriv_r_xi_int),
+        # dz/dxi on levels (the LEV residual's gravity): the 3-D Jacobian
+        # over the 2-D one in both vertical coordinates (to rounding on the
+        # sphere, exactly on the plane)
+        "deriv_r_n": fl(fg.jac3d / fg.jac2d[None]),
     }
 
 
@@ -80,10 +91,12 @@ def interface_aux(u_n, v_n, fg: FastGeometry):
             "du_i": big_u[ni:], "dv_i": big_v[ni:]}
 
 
-def _prep_aux(d, fg: FastGeometry, saux=None, interfaces: bool = True):
+def _prep_aux(d, fg: FastGeometry, saux=None, interfaces: bool = True,
+              levels: bool = False):
     """Fixed per-column inputs of the implicit system, (rows, ncol).
     ``interfaces=False`` leaves out the interface interpolants of U, V
-    (the fused kernel takes them itself)."""
+    (the fused kernel takes them itself); ``levels`` adds their vertical
+    derivatives on levels (``du_n``, ``dv_n``: the LEV residual's curl)."""
     U = d["U"]
     Q = U.shape[1] * U.shape[2] * U.shape[3]
 
@@ -97,6 +110,9 @@ def _prep_aux(d, fg: FastGeometry, saux=None, interfaces: bool = True):
     aux = dict(saux, u_n=u_n, v_n=v_n)
     if interfaces:
         aux.update(interface_aux(u_n, v_n, fg))
+    if levels:
+        aux["du_n"] = fg.diff_n2n @ u_n
+        aux["dv_n"] = fg.diff_n2n @ v_n
     x_parts = (fl(d["Rt"]), fl(d["W"]), fl(d["Rho"]))
     return x_parts, aux
 
@@ -180,19 +196,135 @@ def residual_lor(x_parts, x0_parts, aux, fg: FastGeometry, constants, dt,
             f_rho + (rho - rho0) * inv_dt)
 
 
+def _c2(fg: FastGeometry):
+    """The 2-D contravariant metric as (1, ncol) rows: aa, ab, ba, bb."""
+    return tuple(m.reshape(1, -1) for m in (fg.c2_aa, fg.c2_ab, fg.c2_ba,
+                                            fg.c2_bb))
+
+
+def residual_cph(x_parts, x0_parts, aux, fg: FastGeometry, constants, dt,
+                 penalty: bool = True):
+    """(f_rt, f_w, f_rho) of the Charney-Phillips column residual: Rt and W
+    on the nz + 1 interfaces, Rho on levels; batched over columns with the
+    level axis leading.  Port of ``nonhydro._column_residual_cph``: the
+    Exner gradient differentiated interface to interface, the RhoTheta
+    flux divergence conservative on interfaces, Rt and W upwinded by the
+    interface second derivative; ``penalty`` switches the Rho penalty (the
+    only level field).  ``dt = math.inf`` drops the time term."""
+    nz = fg.nz
+    rt, w, rho = x_parts
+    rt0, w0, rho0 = x0_parts
+    c2aa, c2ab, c2ba, c2bb = _c2(fg)
+    u_n, v_n, u_i, v_i = aux["u_n"], aux["v_n"], aux["u_i"], aux["v_i"]
+
+    w_n = fg.interp_i2n @ w
+    rho_i = fg.interp_n2i @ rho
+    dpi_i = fg.diff_i2i @ exner_from_rhotheta(rt, constants)
+
+    xid_n = (aux["con_a_xi"] * u_n + aux["con_b_xi"] * v_n
+             + aux["con_xi_xi"] * w_n)
+    xid_i = _zero_ends(aux["con_a_xi_int"] * u_i + aux["con_b_xi_int"] * v_i
+                       + aux["con_xi_xi_int"] * w)
+
+    mf_i = _zero_ends(aux["jac_int"] * rho_i * xid_i)
+    f_rho = (fg.diff_i2n @ mf_i) / aux["jac"]
+    f_rt = (fg.diff_i2i @ (aux["jac_int"] * rt * xid_i)) / aux["jac_int"]
+
+    con_ua_n = c2aa * u_n + c2ab * v_n + aux["con_a_xi"] * w_n
+    con_ub_n = c2ba * u_n + c2bb * v_n + aux["con_b_xi"] * w_n
+    dke_i = fg.diff_n2i @ (0.5 * (con_ua_n * u_n + con_ub_n * v_n
+                                  + xid_n * w_n))
+    con_ua_i = c2aa * u_i + c2ab * v_i + aux["con_a_xi_int"] * w
+    con_ub_i = c2ba * u_i + c2bb * v_i + aux["con_b_xi_int"] * w
+    curl = -con_ua_i * aux["du_i"] - con_ub_i * aux["dv_i"]
+
+    f_w = _zero_ends(dpi_i * rt / rho_i + constants.g * aux["deriv_r_int"]
+                     + dke_i + curl)
+    vo = fg.vo
+    if penalty and fg.penalty_left is not None and nz // vo > 1:
+        wb = torch.abs(xid_i[vo:nz:vo])
+        f_rho = f_rho - (fg.penalty_left @ rho) * (fg.wscat_left @ wb) \
+            - (fg.penalty_right @ rho) * (fg.wscat_right @ wb)
+    upwind_coeff = 0.5 / nz
+    ddw = _zero_ends(fg.diffdiff_i2i @ w)
+    f_w = _zero_ends(f_w - upwind_coeff * torch.abs(xid_i) * ddw)
+    f_rt = f_rt - upwind_coeff * torch.abs(xid_i) * (fg.diffdiff_i2i @ rt)
+
+    inv_dt = 1.0 / dt
+    return (f_rt + (rt - rt0) * inv_dt,
+            f_w + (w - w0) * inv_dt,
+            f_rho + (rho - rho0) * inv_dt)
+
+
+def residual_lev(x_parts, x0_parts, aux, fg: FastGeometry, constants, dt,
+                 penalty: bool = True):
+    """(f_rt, f_w, f_rho) of the column residual with every field on the
+    nz levels (LEV, and INT at its own column operators); batched over
+    columns with the level axis leading.  Port of
+    ``nonhydro._column_residual_lev``: mass and RhoTheta fluxes on levels,
+    W's boundary levels held by zero rows; ``penalty`` switches the upwind
+    penalty of all three fields (W's too: the JAX package drops the whole
+    block with ``upwind_thermo=False``).  ``dt = math.inf`` drops the time
+    term."""
+    nz = fg.nz
+    rt, w, rho = x_parts
+    rt0, w0, rho0 = x0_parts
+    c2aa, c2ab, c2ba, c2bb = _c2(fg)
+    u_n, v_n = aux["u_n"], aux["v_n"]
+    jac = aux["jac"]
+
+    dpi_n = fg.diff_n2n @ exner_from_rhotheta(rt, constants)
+    xid_n = (aux["con_a_xi"] * u_n + aux["con_b_xi"] * v_n
+             + aux["con_xi_xi"] * w)
+    f_rho = (fg.diff_n2n @ (jac * rho * xid_n)) / jac
+    f_rt = (fg.diff_n2n @ (jac * rt * xid_n)) / jac
+
+    con_ua_n = c2aa * u_n + c2ab * v_n + aux["con_a_xi"] * w
+    con_ub_n = c2ba * u_n + c2bb * v_n + aux["con_b_xi"] * w
+    dke_n = fg.diff_n2n @ (0.5 * (con_ua_n * u_n + con_ub_n * v_n
+                                  + xid_n * w))
+    curl = -con_ua_n * aux["du_n"] - con_ub_n * aux["dv_n"]
+    f_w = _zero_ends(dpi_n * rt / rho + constants.g * aux["deriv_r_n"]
+                     + dke_n + curl)
+
+    vo = fg.vo
+    if penalty and fg.penalty_left is not None and nz // vo > 1:
+        xid_i = (aux["con_xi_xi_int"] * (fg.interp_n2i @ w)
+                 + aux["con_a_xi_int"] * aux["u_i"]
+                 + aux["con_b_xi_int"] * aux["v_i"])
+        wb = torch.abs(xid_i[vo:nz:vo])
+        wl = fg.wscat_left @ wb
+        wr = fg.wscat_right @ wb
+        f_rt = f_rt - (fg.penalty_left @ rt) * wl \
+            - (fg.penalty_right @ rt) * wr
+        f_rho = f_rho - (fg.penalty_left @ rho) * wl \
+            - (fg.penalty_right @ rho) * wr
+        f_w = _zero_ends(f_w - (fg.penalty_left @ w) * wl
+                         - (fg.penalty_right @ w) * wr)
+
+    inv_dt = 1.0 / dt
+    return (f_rt + (rt - rt0) * inv_dt,
+            f_w + (w - w0) * inv_dt,
+            f_rho + (rho - rho0) * inv_dt)
+
+
+RESIDUALS = {"LOR": residual_lor, "CPH": residual_cph, "LEV": residual_lev}
+
+
 def vertical_explicit_tendency(d, fg: FastGeometry, constants, saux=None):
     """The fully explicit vertical tendencies ``{"Rt", "W", "Rho"}`` of a
-    z-first state: minus the column residual with no time term (the JAX
-    package's ``nonhydro.vertical_explicit_tendency``, the reference's
-    ``VerticalDynamicsFEM::StepExplicit`` with ``m_fFullyExplicit``).  The
-    Rt/Rho upwind penalty is in, whatever ``upwind_thermo`` says, as there.
-    ``saux``: precomputed ``static_aux(fg)``."""
-    x, aux = _prep_aux(d, fg, saux)
-    f_rt, f_w, f_rho = residual_lor(x, x, aux, fg, constants, math.inf)
+    z-first state in any staggering: minus the column residual with no time
+    term (the JAX package's ``nonhydro.vertical_explicit_tendency``, the
+    reference's ``VerticalDynamicsFEM::StepExplicit`` with
+    ``m_fFullyExplicit``).  The upwind penalty is in, whatever
+    ``upwind_thermo`` says, as there.  ``saux``: precomputed
+    ``static_aux(fg)``."""
+    stagger = infer_stagger(d, fg.nz, axis=0)
+    x, aux = _prep_aux(d, fg, saux, levels=stagger == "LEV")
+    f = RESIDUALS[stagger](x, x, aux, fg, constants, math.inf)
     shp = tuple(d["U"].shape[1:])
-    return {"Rt": -f_rt.reshape((fg.nz,) + shp),
-            "W": -f_w.reshape((fg.nz + 1,) + shp),
-            "Rho": -f_rho.reshape((fg.nz,) + shp)}
+    return {k: -v.reshape((v.shape[0],) + shp)
+            for k, v in zip(("Rt", "W", "Rho"), f)}
 
 
 def _shift_rows(b, o, K):
@@ -398,27 +530,30 @@ def dense_from_bands(bands, q: int):
 
 def dense_solve(bands, rhs, q: int):
     """Solve the banded systems by a batched dense LU with partial pivoting
-    (``torch.linalg.solve_ex``, no error check: nothing is read back to the
-    host): ``rhs (n, ncol)`` -> ``(n, ncol)``.  The JAX package's dense
-    solver calls ``jnp.linalg.solve`` the same way, outside any kernel.
+    (``solve_batched``): ``rhs (n, ncol)`` -> ``(n, ncol)``.  The JAX
+    package's dense solver calls ``jnp.linalg.solve`` the same way, outside
+    any kernel."""
+    return solve_batched(dense_from_bands(bands, q), rhs.T[..., None])[
+        ..., 0].T
 
-    On the card the call goes to cuSOLVER / cuBLAS (the backend preference
-    is set for this call and restored): measured on an NVIDIA H100 80GB
-    HBM3 at 700 W (PyTorch 2.11, CUDA 12.8) at the flagship's 86 400
-    systems of 91 in float32, PyTorch's default choice (MAGMA) took 257 ms
-    and cannot be captured in a CUDA graph, cuSOLVER 27.5 ms and captures
-    (``chip_smoke.py`` phase 3 times it)."""
-    A = dense_from_bands(bands, q)
-    b = rhs.T[..., None]
+
+def solve_batched(A, b):
+    """``torch.linalg.solve_ex(A, b)`` without an error check (nothing is
+    read back to the host).  On the card the call goes to cuSOLVER / cuBLAS
+    (the backend preference is set for this call and restored): measured on
+    an NVIDIA H100 80GB HBM3 at 700 W (PyTorch 2.11, CUDA 12.8) at the
+    flagship's 86 400 systems of 91 in float32, PyTorch's default choice
+    (MAGMA) took 257 ms and cannot be captured in a CUDA graph, cuSOLVER
+    27.5 ms and captures (``chip_smoke.py`` phase 3 times it)."""
     if not A.is_cuda:
-        return torch.linalg.solve_ex(A, b, check_errors=False)[0][..., 0].T
+        return torch.linalg.solve_ex(A, b, check_errors=False)[0]
     prev = torch.backends.cuda.preferred_linalg_library()
     torch.backends.cuda.preferred_linalg_library("cusolver")
     try:
         x, _ = torch.linalg.solve_ex(A, b, check_errors=False)
     finally:
         torch.backends.cuda.preferred_linalg_library(prev)
-    return x[..., 0].T
+    return x
 
 
 def vertical_implicit(d, fg: FastGeometry, constants, dt, q, statics,
@@ -456,7 +591,10 @@ def vertical_implicit(d, fg: FastGeometry, constants, dt, q, statics,
     (``band_assembly_statics(upwind_thermo=)``) switches the Rt/Rho upwind
     penalty of the residual and the Jacobian.  ``plain=True`` (a check of
     the kernel path against the plain one on the same device) runs the
-    kernels' plain versions.  ``saux``: precomputed ``static_aux(fg)``."""
+    kernels' plain versions.  ``saux``: precomputed ``static_aux(fg)``.
+
+    A CPH, LEV or INT state (told by its shapes) takes ``stagger_newton``
+    whatever ``solver`` says, with ``statics`` its ``stagger_statics``."""
     from ..models import jfnk as mjfnk, vertical_schur
 
     nz = fg.nz
@@ -466,6 +604,12 @@ def vertical_implicit(d, fg: FastGeometry, constants, dt, q, statics,
     if solver not in SOLVERS:
         raise ValueError(f"unknown vertical solver {solver!r}: expected one "
                          f"of {SOLVERS}")
+    if infer_stagger(d, nz, axis=0) != "LOR":
+        # the banded layout and its assembly are Lorenz's: every other
+        # staggering solves densely whatever ``solver`` says, as in the JAX
+        # package (``statics``: ``stagger_statics``)
+        return stagger_newton(d, fg, constants, dt, statics,
+                              newton_iters=newton_iters, saux=saux)
     if solver == "schur" and schur is None:
         raise ValueError("the Schur solver needs its statics (schur=)")
     pen = statics["has_penalty"]
@@ -517,3 +661,224 @@ def vertical_implicit(d, fg: FastGeometry, constants, dt, q, statics,
     return dict(d, Rt=rt.reshape((nz,) + shp),
                 W=w.reshape((nz + 1,) + shp),
                 Rho=rho.reshape((nz,) + shp))
+
+
+# ---------------------------------------------------------------------------
+# CPH, LEV and INT staggering: the exact dense Jacobian and the Newton step
+# ---------------------------------------------------------------------------
+
+def stagger_statics(fg: FastGeometry, upwind_thermo: bool = True):
+    """What the staggered Jacobians read beside the state, built once per
+    configuration on the device and in the dtype of ``fg``: the 0/1 masks
+    of the boundary rows, the element-edge rows of the penalty weights,
+    the static triple products ``T[k, l, m] = M1[k, m] * M2[m, l]`` of the
+    two ``M1 diag(d) M2`` blocks, and whether the upwind penalty is on
+    (``upwind_thermo`` and more than one vertical element)."""
+    nz, vo = fg.nz, fg.vo
+    dev, dt = fg.jac3d.device, fg.jac3d.dtype
+
+    def mask(n):
+        m = torch.ones((n, 1), dtype=dt, device=dev)
+        m[0] = 0.0
+        m[-1] = 0.0
+        return m
+
+    def triple(M1, M2):
+        return (M1[:, None, :] * M2.T[None, :, :]).contiguous()
+
+    has_pen = (upwind_thermo and fg.penalty_left is not None
+               and nz // vo > 1)
+    edges = torch.arange(vo, nz, vo, device=dev)
+    return {
+        "has_penalty": has_pen,
+        "mask_i": mask(nz + 1), "mask_n": mask(nz),
+        "edges": edges,
+        "In2i_edges": fg.interp_n2i[edges],           # (nfe-1, nz)
+        "T_w": triple(fg.diff_n2i, fg.interp_i2n),     # CPH (w, w)
+        "T_rho": triple(fg.diff_i2n, fg.interp_n2i),   # CPH (rho, rho)
+    }
+
+
+def _dmd(a, M, b=None):
+    """``diag(a) M diag(b)`` for every column, ``(K, L, ncol)``: ``a (K,
+    ncol)``, ``M (K, L)`` static, ``b (L, ncol)`` or None."""
+    out = a[:, None, :] * M[:, :, None]
+    return out if b is None else out * b[None, :, :]
+
+
+def _mdm(T, d):
+    """``M1 diag(d) M2`` for every column from the static triple product
+    ``T[k, l, m] = M1[k, m] * M2[m, l]``: one ``(K*L, m) @ (m, ncol)``
+    product."""
+    K, L, m = T.shape
+    return (T.reshape(K * L, m) @ d).reshape(K, L, d.shape[1])
+
+
+def _add_diag(J, r0, c0, v):
+    """``J[r0 + k, c0 + k] += v[k]`` for every column (``v (K, ncol)``)."""
+    k = torch.arange(v.shape[0], device=v.device)
+    J[r0 + k, c0 + k] += v
+
+
+def _sgn(x):
+    """+1 where ``x >= 0``, else -1: the JAX package's derivative of ``|x|``
+    (``lax.abs``'s JVP takes +1 at 0, where ``torch.sign`` gives 0)."""
+    return torch.where(x >= 0, 1.0, -1.0).to(x.dtype)
+
+
+def _penalty_blocks(J, rows, mask, X, G, wl, wr, fg, o_w, o_x):
+    """The upwind penalty's part of the rows ``rows`` (a slice) of field
+    ``X`` (level rows, ``o_x`` its column offset): ``-diag(wl) Pl -
+    diag(wr) Pr`` on its own columns, and the weights' dependence on W,
+    ``-(diag(Pl X) Wl + diag(Pr X) Wr) G`` with ``G (nfe-1, nw, ncol)`` the
+    derivative of the edge weights by W, on W's columns; ``mask`` (rows, 1)
+    or None multiplies both."""
+    own = -(_dmd(wl, fg.penalty_left) + _dmd(wr, fg.penalty_right))
+    L = ((fg.penalty_left @ X)[:, None, :] * fg.wscat_left[:, :, None]
+         + (fg.penalty_right @ X)[:, None, :] * fg.wscat_right[:, :, None])
+    dw = -torch.einsum("kac,ajc->kjc", L, G)
+    if mask is not None:
+        own = own * mask[:, :, None]
+        dw = dw * mask[:, :, None]
+    n, nw = X.shape[0], G.shape[1]
+    J[rows, o_x:o_x + n] += own
+    J[rows, o_w:o_w + nw] += dw
+
+
+def dense_jacobian(x_parts, aux, fg: FastGeometry, st, constants, dt,
+                   stagger: str):
+    """The exact Jacobian ``(n, n, ncol)`` of ``residual_cph`` (``stagger
+    "CPH"``, n = 3 nz + 2) or ``residual_lev`` (``"LEV"``, n = 3 nz) at
+    ``x_parts``, the rows and columns in the residual's order [Rt, W, Rho].
+
+    The JAX package takes it by ``jax.jacfwd`` of the one-column residual;
+    here every block is assembled from the column operators, since each
+    term is a product of a static operator with per-column diagonals:
+    ``diag(a) M diag(b)`` (``_dmd``), ``M1 diag(d) M2`` (``_mdm``), a
+    diagonal, and the penalty weights' dependence on W at the element
+    edges.  The derivative of ``|x|`` is +1 at 0, as ``jax.jacfwd`` takes
+    it.  Peak memory: J itself and one block at a time."""
+    c = constants
+    nz = fg.nz
+    rt, w, rho = x_parts
+    ncol = rt.shape[1]
+    dtype, dev = rt.dtype, rt.device
+    n_rt, n_w = rt.shape[0], w.shape[0]
+    o_w, o_rho = n_rt, n_rt + n_w
+    n = o_rho + nz
+    J = torch.zeros((n, n, ncol), dtype=dtype, device=dev)
+    r_rt, r_w, r_rho = (slice(0, o_w), slice(o_w, o_rho),
+                        slice(o_rho, n))
+    u_n, v_n = aux["u_n"], aux["v_n"]
+    jac, jac_i = aux["jac"], aux["jac_int"]
+    exner = exner_from_rhotheta(rt, c)
+    dexn = (c.Rd / (c.Cp - c.Rd)) * exner / rt
+    upw = 0.5 / nz
+    pen = st["has_penalty"]
+
+    if stagger == "CPH":
+        mask = st["mask_i"]
+        cXi = aux["con_xi_xi_int"]
+        w_n = fg.interp_i2n @ w
+        rho_i = fg.interp_n2i @ rho
+        dpi_i = fg.diff_i2i @ exner
+        xid_n = (aux["con_a_xi"] * u_n + aux["con_b_xi"] * v_n
+                 + aux["con_xi_xi"] * w_n)
+        xid_i = mask * (aux["con_a_xi_int"] * aux["u_i"]
+                        + aux["con_b_xi_int"] * aux["v_i"] + cXi * w)
+        dxid = mask * cXi                       # d xid_i / d w, diagonal
+        sgn = _sgn(xid_i)
+        absx = torch.abs(xid_i)
+        inv_jac_i = 1.0 / jac_i
+        inv_rho_i = 1.0 / rho_i
+        # Rt rows: the conservative flux divergence, the DD upwinding
+        J[r_rt, r_rt] += _dmd(inv_jac_i, fg.diff_i2i, jac_i * xid_i) \
+            - upw * _dmd(absx, fg.diffdiff_i2i)
+        J[r_rt, r_w] += _dmd(inv_jac_i, fg.diff_i2i, jac_i * rt * dxid)
+        _add_diag(J, 0, o_w, -upw * sgn * dxid * (fg.diffdiff_i2i @ rt))
+        # W rows (zero at both ends)
+        m3 = mask[:, :, None]
+        J[r_w, r_rt] += m3 * _dmd(rt * inv_rho_i, fg.diff_i2i, dexn)
+        _add_diag(J, o_w, 0, mask * dpi_i * inv_rho_i)
+        J[r_w, r_w] += m3 * (_mdm(st["T_w"], xid_n)
+                             - upw * _dmd(absx, fg.diffdiff_i2i))
+        curl_coef = -(aux["con_a_xi_int"] * aux["du_i"]
+                      + aux["con_b_xi_int"] * aux["dv_i"])
+        ddw = mask * (fg.diffdiff_i2i @ w)
+        _add_diag(J, o_w, o_w, mask * (curl_coef - upw * sgn * dxid * ddw))
+        J[r_w, r_rho] += m3 * _dmd(-dpi_i * rt * inv_rho_i * inv_rho_i,
+                                   fg.interp_n2i)
+        # Rho rows: the mass flux divergence, the level penalty
+        inv_jac = 1.0 / jac
+        J[r_rho, r_w] += _dmd(inv_jac, fg.diff_i2n, jac_i * rho_i * dxid)
+        J[r_rho, r_rho] += inv_jac[:, None, :] * _mdm(st["T_rho"],
+                                                      jac_i * xid_i)
+        if pen:
+            e = st["edges"]
+            wb = absx[e]
+            G = torch.zeros((len(e), n_w, ncol), dtype=dtype, device=dev)
+            G[torch.arange(len(e), device=dev), e] = sgn[e] * dxid[e]
+            _penalty_blocks(J, r_rho, None, rho, G,
+                            fg.wscat_left @ wb, fg.wscat_right @ wb, fg,
+                            o_w, o_rho)
+    elif stagger == "LEV":
+        mask = st["mask_n"]
+        cX = aux["con_xi_xi"]
+        dpi_n = fg.diff_n2n @ exner
+        xid_n = (aux["con_a_xi"] * u_n + aux["con_b_xi"] * v_n + cX * w)
+        inv_jac = 1.0 / jac
+        inv_rho = 1.0 / rho
+        for rows, X, o_x in ((r_rt, rt, 0), (r_rho, rho, o_rho)):
+            J[rows, o_x:o_x + nz] += _dmd(inv_jac, fg.diff_n2n, jac * xid_n)
+            J[rows, r_w] += _dmd(inv_jac, fg.diff_n2n, jac * X * cX)
+        m3 = mask[:, :, None]
+        J[r_w, r_rt] += m3 * _dmd(rt * inv_rho, fg.diff_n2n, dexn)
+        _add_diag(J, o_w, 0, mask * dpi_n * inv_rho)
+        J[r_w, r_w] += m3 * fg.diff_n2n[:, :, None] * xid_n[None, :, :]
+        curl_coef = -(aux["con_a_xi"] * aux["du_n"]
+                      + aux["con_b_xi"] * aux["dv_n"])
+        _add_diag(J, o_w, o_w, mask * curl_coef)
+        _add_diag(J, o_w, o_rho, -mask * dpi_n * rt * inv_rho * inv_rho)
+        if pen:
+            e = st["edges"]
+            cXi = aux["con_xi_xi_int"]
+            xid_e = (cXi[e] * (st["In2i_edges"] @ w)
+                     + aux["con_a_xi_int"][e] * aux["u_i"][e]
+                     + aux["con_b_xi_int"][e] * aux["v_i"][e])
+            wb = torch.abs(xid_e)
+            wl, wr = fg.wscat_left @ wb, fg.wscat_right @ wb
+            G = (_sgn(xid_e) * cXi[e])[:, None, :] \
+                * st["In2i_edges"][:, :, None]
+            for rows, X, o_x, m in ((r_rt, rt, 0, None),
+                                    (r_rho, rho, o_rho, None),
+                                    (r_w, w, o_w, mask)):
+                _penalty_blocks(J, rows, m, X, G, wl, wr, fg, o_w, o_x)
+    else:
+        raise ValueError(f"no dense Jacobian for staggering {stagger!r}")
+    _add_diag(J, 0, 0, torch.full((n, ncol), 1.0 / dt, dtype=dtype,
+                                  device=dev))
+    return J
+
+
+def stagger_newton(d, fg: FastGeometry, constants, dt, st,
+                   newton_iters: int = 1, saux=None):
+    """The implicit update of (Rt, W, Rho) of a CPH, LEV or INT state (told
+    by its shapes): ``newton_iters`` Newton steps, each with the exact
+    dense Jacobian (``dense_jacobian``) solved by a batched dense LU
+    (``solve_batched``), as the JAX package's ``vertical_implicit`` does for
+    these staggerings whatever its solver.  ``st``: ``stagger_statics``."""
+    stagger = infer_stagger(d, fg.nz, axis=0)
+    resid = RESIDUALS[stagger]
+    x0, aux = _prep_aux(d, fg, saux, levels=stagger == "LEV")
+    sizes = [p.shape[0] for p in x0]
+    x = x0
+    for _ in range(newton_iters):
+        f = torch.cat(resid(x, x0, aux, fg, constants, dt,
+                            penalty=st["has_penalty"]))
+        J = dense_jacobian(x, aux, fg, st, constants, dt, stagger)
+        dx = solve_batched(J.permute(2, 0, 1), f.T[..., None])[..., 0].T
+        x = tuple(p - q for p, q in zip(x, torch.split(dx, sizes)))
+        del J
+    shp = tuple(d["U"].shape[1:])
+    return dict(d, **{k: p.reshape((p.shape[0],) + shp).contiguous()
+                      for k, p in zip(("Rt", "W", "Rho"), x)})

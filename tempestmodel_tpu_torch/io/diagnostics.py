@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import torch
 
+from ..models.nonhydro import infer_stagger
+
 
 def _on(a, like):
     return torch.as_tensor(a, device=like.device)
@@ -25,15 +27,6 @@ def _on(a, like):
 def _colop(M, f):
     """Apply a (K_out, K_in) vertical operator over the last axis."""
     return torch.einsum("KL,...L->...K", _on(M, f), f)
-
-
-def _infer_stagger(state, nz: int) -> str:
-    """Staggering from state shapes: LOR (default), CPH, or LEV."""
-    if state["W"].shape[-1] == nz:
-        return "LEV"
-    if state["Rt"].shape[-1] == nz + 1:
-        return "CPH"
-    return "LOR"
 
 
 def checksum(field, area, kind: str = "l2"):
@@ -134,7 +127,7 @@ def nh_total_energy(state, geom, constants):
     """
     u, v, w = state["U"], state["V"], state["W"]
     rho, rt = state["Rho"], state["Rt"]
-    stagger = _infer_stagger(state, geom.nz)
+    stagger = infer_stagger(state, geom.nz)
     c2 = _on(geom.con2d, u)
     c_aa = c2[..., 0, 0, None]
     c_ab = c2[..., 0, 1, None]

@@ -34,6 +34,14 @@ def _np(t):
     return t.detach().cpu().numpy()
 
 
+def _on_levels(rt, g):
+    """Rt on the model levels: as it is, or interpolated from the
+    interfaces (the CPH staggering)."""
+    if rt.shape[-1] == g.nz:
+        return rt
+    return torch.einsum("KL,...L->...K", g.interp_i2n, rt)
+
+
 class OutputManager:
     """Base: fires every ``interval`` seconds of model time."""
 
@@ -185,7 +193,7 @@ class ReferenceOutput(OutputManager):
             return torch.einsum("KL,...L->...K", M, f)
 
         dz = g.deriv_r[..., 2]                        # dz/dxi on levels
-        theta = s["Rt"] / s["Rho"]
+        theta = _on_levels(s["Rt"], g) / s["Rho"]
         dth = colop(g.diff_n2n, theta) / dz
         du = colop(g.diff_n2n, s["U"]) / dz
         dv = colop(g.diff_n2n, s["V"]) / dz
@@ -215,14 +223,19 @@ class ReferenceOutput(OutputManager):
             fields["H"] = _np(it.scalar(s["H"]))
         else:
             rho = it.scalar(s["Rho"])
-            rt = it.scalar(s["Rt"])
+            # Rt on levels (interpolated from the interfaces under CPH)
+            rt_lev = _on_levels(s["Rt"], g)
+            rt = it.scalar(rt_lev)
             fields["Rho"] = _np(rho)
             fields["Theta"] = _np(rt / rho)
             pres = c.pressure_from_rhotheta(rt)
             fields["P"] = _np(pres)
             fields["T"] = _np(pres / (c.Rd * rho))
-            # w: covariant W -> physical w = W / (dz/dxi) on interfaces
-            w_phys = s["W"] / g.deriv_r_int[..., 2]
+            # w: covariant W -> physical w = W / (dz/dxi) where W lives
+            # (interfaces; levels under LEV and INT)
+            w = s["W"]
+            w_phys = w / (g.deriv_r[..., 2] if w.shape[-1] == g.nz
+                          else g.deriv_r_int[..., 2])
             fields["W"] = _np(it.scalar(w_phys))
             if "Tracers" in s:
                 fields["Tracers"] = np.stack(
@@ -233,7 +246,7 @@ class ReferenceOutput(OutputManager):
                 # (OutputManagerReference.cpp surface-pressure field)
                 z_low = g.z_lev[..., 0]
                 z_srf = g.z_int[..., 0]
-                p_low = c.pressure_from_rhotheta(s["Rt"][..., 0])
+                p_low = c.pressure_from_rhotheta(rt_lev[..., 0])
                 t_low = p_low / (c.Rd * s["Rho"][..., 0])
                 ps = p_low * torch.exp(c.g * (z_low - z_srf) / (c.Rd * t_low))
                 fields["PS"] = _np(it.scalar(ps))

@@ -22,7 +22,8 @@ terrain-like metric whose 3-D Jacobian is no multiple of the 2-D one
 (``synthetic.random_state``: numpy, so the same bits on every machine) and
 fixed viscosities that make pass 2's increment of the order of the state.
 The digest covers pass 1's five outputs, then pass 2's, in ``FIELDS``
-order, as raw bytes.  Prints one JSON line.
+order, as raw bytes.  ``sw_digests`` does the same for the shallow-water
+field set (U, V, H) on the ne60 grid.  Prints one JSON line.
 """
 
 import argparse
@@ -68,6 +69,42 @@ def digests(dev) -> dict:
     return out
 
 
+def sw_digests(dev) -> dict:
+    """{"f32": hex, "f64": hex} of the shallow-water field set's nu4
+    outputs (U, V, H; the 2-D Jacobian) on ``dev``: the ne60 p4 grid of
+    ``chip_smoke.py``'s Galewsky run, two seeded random states, the
+    viscosities of ``NU``."""
+    import numpy as np
+    import torch
+    import tempestmodel_tpu_torch as tm
+    from tempestmodel_tpu_torch.fast import hyper_cuda
+    from tempestmodel_tpu_torch.models import sw_model
+
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        geom = sw_model.build_sw_geometry(tm.ModelConfig(
+            ne=60, order=4, dtype=dtype))
+        st = sw_model.sw_statics(geom, dev).hyper
+        A = geom.ne * geom.p
+
+        def state(seed):
+            rng = np.random.default_rng(seed)
+            f = rng.standard_normal((3, 1, 6, A, A))
+            return {k: torch.as_tensor(v * s, dtype=dtype, device=dev)
+                    for k, v, s in zip(hyper_cuda.SW_FIELDS, f,
+                                       (1e8, 1e8, 1e3))}
+        d, w = state(1), state(11)
+        o1 = hyper_cuda.nu4_pass1(d, None, st)
+        o2 = hyper_cuda.nu4_pass2(d, w, *NU, None, st)
+        h = hashlib.sha256()
+        for o in (o1, o2):
+            for k in hyper_cuda.SW_FIELDS:
+                h.update(o[k].cpu().numpy().tobytes())
+        out["f32" if dtype == torch.float32 else "f64"] = h.hexdigest()
+        del st, d, w, o1, o2
+    return out
+
+
 def main():
     here = pathlib.Path(__file__).resolve()
     ap = argparse.ArgumentParser()
@@ -83,8 +120,9 @@ def main():
     if not torch.cuda.is_available():
         print("hyper_digest: no CUDA device", file=sys.stderr)
         return 1
-    print(json.dumps({"root": root, "nu4_digests":
-                      digests(torch.device("cuda"))}), flush=True)
+    dev = torch.device("cuda")
+    print(json.dumps({"root": root, "nu4_digests": digests(dev),
+                      "nu4_sw_digests": sw_digests(dev)}), flush=True)
     return 0
 
 

@@ -126,12 +126,12 @@ def geometry(name: str, dtype, device):
     return seeded_metric(fg, SEED)
 
 
-def case_inputs(name: str, fg):
+def case_inputs(name: str, fg, stagger: str = "LOR"):
     """(d, w, nu) of case ``name`` on the geometry ``fg`` (its dtype and
-    device): the state ``d`` and pass 2's work fields ``w``, each field
-    starting the case's offset past an aligned address, and ``nu = (nu_s,
-    nu_d, nu_v, dt)`` that make pass 2's increment as large as the
-    state."""
+    device) in the shapes of ``stagger`` (``synthetic.ON_INTERFACES``): the
+    state ``d`` and pass 2's work fields ``w``, each field starting the
+    case's offset past an aligned address, and ``nu = (nu_s, nu_d, nu_v,
+    dt)`` that make pass 2's increment as large as the state."""
     from tempestmodel_tpu_torch.fast import hyper_cuda
     from tempestmodel_tpu_torch.kernels import synthetic
     offset = CASES[name][2]
@@ -140,7 +140,8 @@ def case_inputs(name: str, fg):
     d, w = ({k: _cut(torch.as_tensor(v, dtype=fg.inv_mult.dtype,
                                      device=fg.inv_mult.device), offset)
              for k, v in synthetic.random_state_numpy(
-                 fg.nz, P, A, B, seed + s).items()} for s in (0, 1))
+                 fg.nz, P, A, B, seed + s, stagger).items()}
+            for s in (0, 1))
     st = hyper_cuda.hyper_statics(fg)
     unit = hyper_cuda.nu4_pass1_plain(w, fg, st)
     nu_s = float(d["Rho"].abs().max() / unit["Rho"].abs().max())
@@ -148,26 +149,29 @@ def case_inputs(name: str, fg):
     return d, w, (nu_s, nu_v, 0.7 * nu_v, 1.0)
 
 
-def launch_shapes(name: str, fg):
-    """The case's launch shapes of pass 1 and pass 2."""
+def launch_shapes(name: str, fg, stagger: str = "LOR"):
+    """The case's launch shapes of pass 1 and pass 2 (the field set of
+    ``stagger``)."""
     from tempestmodel_tpu_torch.fast import hyper_cuda
     P, A, B = fg.inv_mult.shape
     ov = CASES[name][3]
     return tuple(hyper_cuda.hyper_launch_shape(
-        fg.nz, P, A, B, fg.p, fg.inv_mult.dtype, pass2, **ov)
+        fg.nz, P, A, B, fg.p, fg.inv_mult.dtype, pass2,
+        top=hyper_cuda.TOP_MASKS[stagger], **ov)
         for pass2 in (False, True))
 
 
-def run_case(name: str, dtype, device) -> dict:
+def run_case(name: str, dtype, device, stagger: str = "LOR") -> dict:
     """Kernels against plain for case ``name`` on ``device`` (a CUDA
-    device): ``{"max_err": the worst relative error, "err_by_output": ...,
-    "shape", "launch": {pass: launch_config}}``.  Pass 2 is held as a whole
-    and by its increment on its own."""
+    device) in the field set of ``stagger``: ``{"max_err": the worst
+    relative error, "err_by_output": ..., "shape", "launch": {pass:
+    launch_config}}``.  Pass 2 is held as a whole and by its increment on
+    its own."""
     from tempestmodel_tpu_torch.fast import hyper_cuda
     fg = geometry(name, dtype, device)
     st = hyper_cuda.hyper_statics(fg)
-    d, w, nu = case_inputs(name, fg)
-    l1, l2 = launch_shapes(name, fg)
+    d, w, nu = case_inputs(name, fg, stagger)
+    l1, l2 = launch_shapes(name, fg, stagger)
     scal2 = (nu[1], nu[2], nu[3], nu[3] * nu[0])
     got1 = hyper_cuda._launch("nu4_pass1", d, None, (1.0, 1.0, 0.0, 0.0),
                               st, l1)

@@ -80,27 +80,38 @@ def terrain_like(fg, seed: int = 0, vary_jac: bool = False):
         for k, v in fields.items()})
 
 
-def random_state_numpy(nz: int, P: int, A: int, B: int, seed: int = 0):
-    """Seeded z-first state (numpy float64): winds of ~10 m/s, W of
-    ~1 cm/s, density near 1 and rho*theta near 300 with percent noise."""
+# the fields on the nz + 1 interfaces, by staggering (LEV: none; INT
+# states have LEV's shapes)
+ON_INTERFACES = {"LOR": ("W",), "CPH": ("Rt", "W"), "LEV": ()}
+
+
+def random_state_numpy(nz: int, P: int, A: int, B: int, seed: int = 0,
+                       stagger: str = "LOR"):
+    """Seeded z-first state (numpy float64) in the shapes of ``stagger``:
+    winds of ~10 m/s, W of ~1 cm/s, density near 1 and rho*theta near 300
+    with percent noise."""
     rng = np.random.default_rng(seed)
-    d = {k: rng.standard_normal((nz + (1 if k == "W" else 0), P, A, B))
+    top = ON_INTERFACES[stagger]
+    d = {k: rng.standard_normal((nz + (1 if k in top else 0), P, A, B))
          for k in FIELDS}
     d["U"] *= 10.0
     d["V"] *= 10.0
     d["W"] *= 0.01
     d["Rho"] = 1.0 + 0.1 * np.abs(d["Rho"])
-    d["Rt"] = 300.0 * d["Rho"] * (1.0 + 0.01 * d["Rt"])
+    rho = d["Rho"] if "Rt" not in top else np.concatenate(
+        [d["Rho"], d["Rho"][-1:]])
+    d["Rt"] = 300.0 * rho * (1.0 + 0.01 * d["Rt"])
     return d
 
 
-def random_state(fg, seed: int = 0):
+def random_state(fg, seed: int = 0, stagger: str = "LOR"):
     """``random_state_numpy`` as tensors on the device and in the dtype of
     ``fg``."""
     dtype, dev = fg.inv_mult.dtype, fg.inv_mult.device
     P, A, B = fg.inv_mult.shape
     return {k: torch.as_tensor(v, dtype=dtype, device=dev)
-            for k, v in random_state_numpy(fg.nz, P, A, B, seed).items()}
+            for k, v in random_state_numpy(fg.nz, P, A, B, seed,
+                                           stagger).items()}
 
 
 def random_tracers_numpy(nz: int, P: int, A: int, B: int, ntr: int = 3,

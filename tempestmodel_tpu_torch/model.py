@@ -29,8 +29,7 @@ from typing import Optional, Sequence
 import torch
 
 from ._device import resolve_device, OnDevice
-from .config import (ModelConfig, EquationSet, GridKind, TimestepSchemeType,
-                     VerticalStaggering)
+from .config import ModelConfig, EquationSet, GridKind, TimestepSchemeType
 from .fast import engine
 from .io.diagnostics import error_norms
 from .models import nh_model, sw_model
@@ -43,10 +42,12 @@ GRAPH_STEPS = 50
 # graphs kept per model (one per run length met); the oldest goes first
 GRAPHS_KEPT = 4
 
-_NOT_PORTED = ("is not ported yet (ROADMAP queue 1 items 3-6: CPH, LEV "
-               "and INT staggering, tracers on no-flux grids, with uniform "
-               "diffusion or on the explicit vertical path, walls on both "
-               "axes, SPEX and HS, IMEX with tracers)")
+_NOT_PORTED = ("is not ported yet (ROADMAP queue 1 items 4-6: tracers on "
+               "no-flux grids, with uniform diffusion or on the explicit "
+               "vertical path, walls on both axes, and under the CPH, LEV "
+               "and INT staggerings tracers, no-flux walls and uniform "
+               "diffusion; SPEX and HS; IMEX with tracers or under those "
+               "staggerings)")
 
 
 class WorkflowProcess:
@@ -159,10 +160,6 @@ class Model:
         if self._sw:
             self._init_sw(cfg, testcase, topography)
             return
-        if cfg.vertical_staggering != VerticalStaggering.LORENZ:
-            raise NotImplementedError(
-                f"{cfg.vertical_staggering.value} staggering {_NOT_PORTED}")
-
         if cfg.grid_kind == GridKind.CUBED_SPHERE:
             self.geom = nh_model.build_nh_sphere_geometry(
                 cfg, topography=topography, ztop=ztop, rayleigh=rayleigh)
@@ -178,12 +175,7 @@ class Model:
         self.geom_dev = OnDevice(self.geom, self.device)
 
         if testcase is not None:
-            self._zl = testcase.initial_state(
-                self.geom, cfg.constants, dtype=cfg.dtype, device=self.device)
-            if hasattr(testcase, "reference_state"):
-                self.reference = testcase.reference_state(
-                    self.geom, cfg.constants, dtype=cfg.dtype,
-                    device=self.device)
+            self._zl, self.reference = self._staggered_states(cfg, testcase)
         has_tr = self._zl is not None and "Tracers" in self._zl
 
         self._imex = cfg.timescheme not in (TimestepSchemeType.STRANG,
@@ -216,6 +208,33 @@ class Model:
         self._first = (engine._natural_layout(first) if self._swapped
                        else first)
         self._step = step
+
+    def _staggered_states(self, cfg, testcase):
+        """The test case's initial and reference states in the
+        configuration's staggering (JAX ``model.py:119-135``): a case whose
+        ``initial_state`` takes ``stagger`` evaluates the fields where they
+        live, any other is converted (``nonhydro.convert_stagger``).  The
+        reference state (Rayleigh's target, the error norms') is converted
+        too: the JAX package keeps it in the Lorenz form, which its
+        Rayleigh finish cannot take under the other staggerings."""
+        import inspect
+        from .models.nonhydro import convert_stagger
+        stagger = cfg.vertical_staggering.value
+        kw = {}
+        if stagger != "LOR" and "stagger" in inspect.signature(
+                testcase.initial_state).parameters:
+            kw["stagger"] = stagger
+        state = testcase.initial_state(self.geom, cfg.constants,
+                                       dtype=cfg.dtype, device=self.device,
+                                       **kw)
+        if not kw:
+            state = convert_stagger(state, self.geom, stagger)
+        ref = None
+        if hasattr(testcase, "reference_state"):
+            ref = convert_stagger(testcase.reference_state(
+                self.geom, cfg.constants, dtype=cfg.dtype,
+                device=self.device), self.geom, stagger)
+        return state, ref
 
     def _init_sw(self, cfg, testcase, topography):
         """The shallow-water set (JAX ``model.py:99-105``): its own step,
@@ -291,12 +310,15 @@ class Model:
     def _pack_carry(self, carry):
         """A carry given from outside (a restart) as the engine keeps it:
         the z-first carry as it is, a reference-layout one (told apart by
-        its W axis, as the JAX package does) packed."""
+        the shape of its Rho: (P, A, B, nz) there, (nz, P, A, B) or the
+        swapped (nz, P, B, A) in the engine) packed."""
         if not carry:
             return {}         # the explicit vertical path's
         nz = self.cfg.nz
-        w = carry["W"]
-        if w.shape[-1] == nz + 1 and w.shape[0] != nz + 1:
+        P, A, B = self.geom.jac3d.shape[:3]
+        rho = tuple(carry["Rho"].shape)
+        if rho == (P, A, B, nz) and rho not in ((nz, P, A, B),
+                                                 (nz, P, B, A)):
             out = {}
             for k, v in carry.items():
                 v = torch.as_tensor(v).to(self.device)

@@ -1,11 +1,14 @@
-"""Nonhydrostatic (LOR staggering) pieces the z-first engine needs.
+"""Nonhydrostatic pieces the z-first engine needs.
 
 Counterpart of the JAX package's ``models/nonhydro.py``, reduced to what
-the flagship step calls: the Exner function, the one-column residual and
-its fixed inputs (used once, host-side, to find the Jacobian bandwidth)
-and the static tensors of the analytic banded-Jacobian assembly.  The
-reference-layout tendencies of that module are not ported: the port runs
-the z-first engine (``fast/engine``, ``fast/implicit``).
+the z-first engine calls: the Exner function, the Lorenz one-column
+residual and its fixed inputs (used once, host-side, to find the Jacobian
+bandwidth), the static tensors of the analytic banded-Jacobian assembly,
+and the staggering of a state (``infer_stagger``, ``convert_stagger``:
+LOR, CPH, LEV; INT states have LEV's shapes).  The reference-layout
+tendencies and column residuals of that module are not ported: the port
+runs the z-first engine (``fast/engine``, ``fast/implicit``), which has
+its own, batched over columns, for every staggering.
 """
 
 from __future__ import annotations
@@ -19,6 +22,42 @@ def exner_from_rhotheta(rt, constants):
     c = constants
     return c.Cp * torch.exp(
         c.Rd / (c.Cp - c.Rd) * torch.log(c.Rd / c.P0 * rt))
+
+
+def infer_stagger(state, nz: int, axis: int = -1) -> str:
+    """Staggering from the shapes of a state whose level axis is ``axis``
+    (-1: the reference layout; 0: the z-first engine's): ``"LEV"`` where W
+    has ``nz`` levels (LEV and INT), ``"CPH"`` where Rt has ``nz + 1`` (Rt
+    and W on interfaces), else ``"LOR"``."""
+    if state["W"].shape[axis] == nz:
+        return "LEV"
+    if state["Rt"].shape[axis] == nz + 1:
+        return "CPH"
+    return "LOR"
+
+
+def convert_stagger(state, geom, stagger: str):
+    """A Lorenz-form reference-layout state in another staggering (a new
+    dict; the fields it does not move are the same tensors).
+
+    For test cases without a ``stagger`` parameter on ``initial_state``:
+    their level fields were already evaluated at the staggering's level
+    positions (``geom.z_lev`` is staggering-aware), so only shapes move --
+    W to levels (LEV, INT) by interface interpolation, Rt to interfaces
+    (CPH) by level interpolation."""
+    if stagger == "LOR":
+        return state
+    out = dict(state)
+    key, M = {"LEV": ("W", geom.interp_i2n), "INT": ("W", geom.interp_i2n),
+              "CPH": ("Rt", geom.interp_n2i)}.get(stagger, (None, None))
+    if key is None:
+        raise ValueError(stagger)
+    f = state[key]
+    out[key] = torch.einsum(
+        "KL,...L->...K",
+        torch.as_tensor(np.asarray(M, np.float64), device=f.device).to(
+            f.dtype), f)
+    return out
 
 
 def _zero_ends(f):

@@ -118,17 +118,24 @@ def test_fast_engine_supported_predicate(pair):
     assert not t_engine.fast_engine_supported(
         tcfg.with_(grid_kind=tt.GridKind.CARTESIAN_XZ))
     # upwind_thermo=False runs on this engine since the vertical options
-    # were ported; another staggering does not
+    # were ported, the other staggerings since they were; those not with
+    # tracers
     assert t_engine.fast_engine_supported(tcfg.with_(upwind_thermo=False))
-    assert not t_engine.fast_engine_supported(tcfg.with_(
-        vertical_staggering=tt.VerticalStaggering.CHARNEY_PHILLIPS))
+    cph = tcfg.with_(
+        vertical_staggering=tt.VerticalStaggering.CHARNEY_PHILLIPS)
+    assert t_engine.fast_engine_supported(cph)
+    assert not t_engine.fast_engine_supported(cph, has_tracers=True)
     assert t_engine.fast_engine_supported(tcfg, has_tracers=True)
     assert not t_engine.fast_engine_supported(tcfg, mesh=object())
 
 
-def _run_jax(jcfg, jgeom, js, nsteps):
+def _run_jax(jcfg, jgeom, js, nsteps, firsts=None):
+    """``nsteps`` steps of JAX ``make_fast_step``; ``firsts`` (a dict), when
+    given, keeps the state and carry after ``first_step`` under "X1"."""
     first, step = j_fast.make_fast_step(jcfg, jgeom)
     X, c = first(j_fast.pack_state(js))
+    if firsts is not None:
+        firsts["X1"] = (X, c)
     for _ in range(nsteps - 1):
         X, c = step(X, c)
     return j_fast.unpack_state(X, jcfg.nz)
@@ -155,10 +162,15 @@ def three_steps(pair):
     state_np = {k: np.asarray(v) for k, v in js.items()}
     cache = {}
 
-    def jax_run(mode):
+    def jax_run(mode, firsts=None):
+        """``firsts``: see ``_run_jax`` (kept at the mode's first run)."""
         if ("jax", mode) not in cache:
+            cache["firsts", mode] = {}
             cache["jax", mode] = _run_jax(
-                jcfg.with_(jacobian_mode=mode), jgeom, js, 3)
+                jcfg.with_(jacobian_mode=mode), jgeom, js, 3,
+                cache["firsts", mode])
+        if firsts is not None:
+            firsts.update(cache["firsts", mode])
         return cache["jax", mode]
 
     def torch_run(mode, fused):
@@ -264,9 +276,12 @@ def test_make_fast_step_refuses_an_unknown_dss_group(pair):
 
 
 @pytest.fixture(scope="module")
-def multistep(pair):
+def multistep(pair, three_steps):
     """``first_step`` then one ``multi`` of 3 steps: the port's, the port's
-    eager loop, and the JAX package's ``make_fast_multistep``."""
+    eager loop, and the JAX package's ``make_fast_multistep``.  JAX's
+    ``first_step`` there is its ``make_fast_step``'s: its result is the one
+    ``three_steps`` computed (the exact mode, this configuration's), so it
+    is not compiled twice."""
     jcfg, jgeom, tcfg, tgeom = pair
     js, _ = initial_states(jcfg, jgeom, tcfg, tgeom)
     state_np = {k: np.asarray(v) for k, v in js.items()}
@@ -277,8 +292,11 @@ def multistep(pair):
     E, ce = first(X0)
     for _ in range(3):
         E, ce = step(E, ce)
-    jfirst, jmulti = j_engine.make_fast_multistep(jcfg, jgeom, 3)
-    J, cj = jmulti(*jfirst(j_fast.pack_state(js)))
+    assert jcfg.jacobian_mode == "exact"
+    firsts = {}
+    three_steps[0]("exact", firsts)
+    _, jmulti = j_engine.make_fast_multistep(jcfg, jgeom, 3)
+    J, cj = jmulti(*firsts["X1"])
     return (X, c), (E, ce), (J, cj)
 
 

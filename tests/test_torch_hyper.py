@@ -176,7 +176,9 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(setup, case):
     st = hyper_cuda.hyper_statics(tfg)
     d, w = dict(td), dict(tw)
     if case == "w_levels":
-        d["W"] = d["W"][:-1]
+        # W two levels above U (nz levels is the LEV field set's, nz + 1
+        # the Lorenz and CPH sets')
+        d["W"] = torch.cat([d["W"], d["W"][:1]])
     elif case == "contiguity":
         d["Rt"] = d["Rt"].transpose(2, 3)
     elif case == "dtype":

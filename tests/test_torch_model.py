@@ -390,8 +390,16 @@ def test_unported_configurations_raise(what):
     if what == "mesh":
         kw["mesh"] = object()
     elif what == "cph":
-        cfg = cfg.with_(
-            vertical_staggering=tt.VerticalStaggering.CHARNEY_PHILLIPS)
+        # ported: Model builds the converted Charney-Phillips start and
+        # steps it; with tracers it raises (the roadmap's)
+        cph = cfg.with_(
+            vertical_staggering=tt.VerticalStaggering.CHARNEY_PHILLIPS,
+            dt=50.0)
+        m = t_model.Model(cph, tc, device=CPU)
+        assert m.state["Rt"].shape[-1] == cph.nz + 1
+        m.go(nsteps=2)
+        assert all(bool(torch.isfinite(v).all()) for v in m.state.values())
+        cfg, tc = cph, MoistBaroclinicWave()
     elif what == "erk":
         # ported: the explicit vertical path runs (at a vertically stable
         # dt) with an empty carry
