@@ -88,7 +88,13 @@ and runs these phases, each printing one JSON line:
             interfaces; LEV, and INT with it: every field on the nz
             levels) at the flagship shapes in float32 and float64 beside
             the Lorenz set on the same inputs, timed, and at the edge
-            shapes of ``STAG_EDGES``;
+            shapes of ``STAG_EDGES``; and what SPEX and HS reach:
+            ``banded_solve`` at q 1 on HS's tridiagonal systems (n 31,
+            the flagship's 86 400 columns) beside one
+            ``torch.linalg.solve_ex`` of the densified systems through
+            cuSOLVER, and ``dss_state`` with the contravariant edge
+            table (HS's momentum DSS) bit for bit its plain version,
+            float32 and float64;
 4. slice    the Strang-HEVI step at small size in float64 on the card three
             ways — fused kernel path, unfused kernel path, plain path — each
             pair to 1e-11 relative per field, and ``make_fast_multistep``
@@ -122,7 +128,10 @@ and runs these phases, each printing one JSON line:
             Rayleigh layer and nu4, and the inertia-gravity wave x-z slice
             with nu4; INT at nz 9, vertical order 2) in fp64: kernel path
             against plain path to 1e-11, launches a step exact, a 3-step
-            graph replay against 3 eager steps to 1e-13;
+            graph replay against 3 eager steps to 1e-13; then SPEX (three
+            seeded species, a seeded W) and HS at ne4 nz8 in fp64: kernel
+            path against plain path to 1e-11, launches a step exact, a
+            3-step graph replay against 3 eager steps to 1e-13;
 5. flagship the main paths at full width: UMJS baroclinic wave, ne30 p4
             nz30 float32: ``make_fast_multistep`` (``first_step``, then
             replays of a 10-step CUDA graph), the eager fused path of
@@ -197,7 +206,12 @@ and runs these phases, each printing one JSON line:
             shares, peak memory, max |W| after 10 and 40 steps beside the
             LOR run's; the DSS grouping of the CPH and LEV steps timed both
             ways under replay; the CLI's inertia-gravity wave under each
-            staggering (40 steps);
+            staggering (40 steps); then (5l) SPEX and HS on the flagship
+            grid (no Rayleigh layer) through ``Model.go`` beside the LOR
+            run: each scheme's dt by the rule of ``SPLIT_DTS`` (100 s where
+            10 steps stay finite), ms/step by graph replay, device busy and
+            launches a step, the banded, DSS and nu4 kernels' shares, peak
+            memory, max |W| after 10 and 40 steps;
 6. dss      the step with the tail's DSS as four launches or as
             ``dss_state`` and the stages' Rt/Rho as two launches or as
             ``dss_scalar2``, eagerly and under graph replay, in turns; the
@@ -208,7 +222,8 @@ and runs these phases, each printing one JSON line:
             version's time and launches on the flagship runs, its launches
             on the IMEX, the Schar, the terrain, the no-flux, the
             shallow-water paths, the vertical options' (phases 4 and
-            5j) and the staggerings' (phases 4 and 5k), and its Cartesian
+            5j), the staggerings' (phases 4 and 5k) and SPEX's and HS's
+            (phases 4 and 5l), and its Cartesian
             and shallow-water figures; the nu4 kernels' CPH and LEV
             instantiations on lines of their own (``nu4_pass1[CPH]``, ...).
 
@@ -5026,6 +5041,414 @@ def stagger_line(dev, smi, launches):
               "checksums_t40": lines[-1].split("  ", 1)[1], "card": smi})
 
 
+# ---------------------------------------------------------------------------
+# split-explicit (SPEX) and HighSpeed (HS) dynamics (phases 3, 4 and 5l)
+# ---------------------------------------------------------------------------
+
+SPLITS = ("SPEX", "HS")
+SPLIT_STEPS = 10            # steps of each Model.go call in phase 5l
+# the dt of each scheme on the flagship grid: 100 s where 10 steps stay
+# finite, else the first of these that does.  UMJS at ne2 L30 on the CPU
+# (f64): the port's SPEX is non-finite within 10 steps at 100, 50, 25 and
+# 10 s and holds 40 steps at 5 s (its slow tendency keeps the vertical
+# acoustic terms explicit; at ne2 nz6 and 100 s the JAX package's
+# make_nh_step blows up alike, the same W to 4e-13 over 3 steps); HS holds
+# 40 steps at 100 s
+SPLIT_DTS = (100.0, 50.0, 25.0, 10.0, 5.0, 2.0)
+# phase 4's dt at ne4 nz8 (3.75 km layers): SPEX holds 40 steps at 25 s at
+# ne2 nz6 (CPU, f64)
+SPLIT_DT_NE4 = {"SPEX": 25.0, "HS": 100.0}
+# the first diagonal weight of ARS343b: the dt factor of HS's first solve
+ARS343B_G = 0.4358665215084590
+
+
+def split_per_step(scheme, ntr=0):
+    """Kernel launches per SPEX or HS step (both self-starting: the first
+    step is a step).  SPEX: in each of the five KGU35 stages the DSS of the
+    full tendency and of the update (``dss_state``; the tracers through one
+    ``dss_scalar`` beside each) and the three acoustic subcycles' vertical
+    solves (``banded_solve``), then the nu4 tail (``nu4_pass1``, a
+    ``dss_state``, ``nu4_pass2``, a ``dss_state``).  HS: three implicit
+    solves (``banded_solve`` at q 1), seven momentum DSS (``dss_state`` with
+    the contravariant edge table), then the same tail."""
+    n = {k: 0 for k in KERNELS}
+    n.update(nu4_pass1=1, nu4_pass2=1)
+    if scheme == "SPEX":
+        n.update(banded_solve=15, dss_state=12, dss_scalar=12 if ntr else 0)
+    else:
+        n.update(banded_solve=3, dss_state=9)
+    return n
+
+
+def split_config(scheme, dtype, ne, nz, dt, rayleigh=False):
+    """(testcase, cfg): UMJS with its perturbation (its Rayleigh layer with
+    ``rayleigh``) at ``ne`` p4 ``nz`` levels, nu4 1e15, under SPEX or HS
+    (or ``"LOR"``: the Strang-HEVI run, the fused implicit kernel)."""
+    import tempestmodel_tpu_torch as tm
+    from tempestmodel_tpu_torch.testcases.nonhydro_sphere import (
+        BaroclinicWaveUMJS)
+    tc = BaroclinicWaveUMJS(pert="exp", rayleigh=rayleigh)
+    ts = {"SPEX": tm.TimestepSchemeType.SPEX, "HS": tm.TimestepSchemeType.HS
+          }.get(scheme, tm.TimestepSchemeType.STRANG)
+    cfg = tm.ModelConfig(
+        equation_set=tm.EquationSet.PRIMITIVE_NONHYDRO,
+        grid_kind=tm.GridKind.CUBED_SPHERE, ne=ne, order=ORDER, nz=nz,
+        ztop=tc.ztop, dt=dt, hyperdiffusion=True, nu_scalar=NU, nu_div=NU,
+        nu_vort=NU, vertical_solver="pallas", rayleigh_damping=rayleigh,
+        timescheme=ts, dtype=dtype)
+    return tc, cfg
+
+
+def check_split_kernels(geom, rows, dev):
+    """Phase 3, SPEX and HS: ``banded_solve`` at HS's shape (n 31, q 1, the
+    flagship's 86 400 columns: the tridiagonal systems of HS's first
+    implicit solve, built from the flagship's start with seeded MW) and the
+    momentum DSS (``dss_state`` with the contravariant edge table) on
+    seeded momenta at the flagship shapes, each against its plain version
+    in float32 and float64 (the DSS bit for bit), timed beside its plain
+    version and its bound; ``banded_solve`` also beside the library call on
+    the same systems (``torch.linalg.solve_ex`` through cuSOLVER on the
+    densified systems, ``implicit.solve_batched``).  Adds the float32 rows
+    under ``rows[name]["hs"]``."""
+    from tempestmodel_tpu_torch import fast
+    from tempestmodel_tpu_torch.constants import DEFAULT_CONSTANTS
+    from tempestmodel_tpu_torch.fast import dss_cuda, implicit
+    from tempestmodel_tpu_torch.kernels.timing import time_cuda
+    from tempestmodel_tpu_torch.models import highspeed
+    from tempestmodel_tpu_torch.ops import cuda_banded
+    from tempestmodel_tpu_torch.testcases.nonhydro_sphere import (
+        BaroclinicWaveUMJS)
+    tc = BaroclinicWaveUMJS(pert="exp")
+    constants = DEFAULT_CONSTANTS
+    for dtype in (torch.float64, torch.float32):
+        tag = "f32" if dtype == torch.float32 else "f64"
+        f32 = dtype == torch.float32
+        esize = 4 if f32 else 8
+        gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+        fg = fast.build_fast_geometry(geom, dtype=dtype, device=dev)
+        hs = highspeed.hs_statics(geom, fg)
+        X = fast.pack_state(tc.initial_state(geom, constants, dtype=dtype,
+                                             device=dev), device=dev)
+        m = highspeed.to_momentum(X, fg, hs)
+        K, P, A = fg.nz, 6, fg.A
+        ncol = P * A * A
+
+        # --- banded_solve at q 1: HS's tridiagonal systems ---------------
+        sets = []
+        for _ in range(4):
+            mw = m["MW"] + 0.1 * randn(tuple(m["MW"].shape), dtype, gen, dev)
+            b, r, _, _ = highspeed.hs_tridiagonal(dict(m, MW=mw), hs,
+                                                  constants, ARS343B_G * DT)
+            sets.append((b.contiguous(), r.contiguous()))
+        bands, rhs = sets[0]
+        n = bands.shape[0]
+        got = cuda_banded.banded_solve(bands, rhs, 1)
+        torch.cuda.synchronize()
+        want = cuda_banded.banded_solve_plain(bands, rhs, 1)
+        err = rel_err(got, want)
+        tol = 1e-5 if f32 else 1e-12
+        if not err <= tol:
+            raise RuntimeError(f"banded_solve q 1 {tag}: rel err {err} > "
+                               f"{tol}")
+        ms = time_cuda(lambda b, r: cuda_banded.banded_solve(b, r, 1), sets,
+                       reps=20, queued=True)
+        plain_ms = time_cuda(
+            lambda b, r: cuda_banded.banded_solve_plain(b, r, 1), sets[:1],
+            reps=2, warmup=1)
+        dense = dense_from_bands(bands, 1)
+        rhs3 = rhs.T.contiguous()[..., None]
+        lib_x = implicit.solve_batched(dense, rhs3)[..., 0].T
+        lib_err = rel_err(lib_x, want)
+        library_ms = time_cuda(lambda: implicit.solve_batched(dense, rhs3),
+                               [()], reps=3, warmup=1)
+        del dense, lib_x, rhs3
+        nb = (bands.numel() + 2 * rhs.numel()) * esize
+        bnd, by = bound_ms(nb, n * ncol * 8, dtype)
+        row = {"name": "banded_solve", "route": "cuda",
+               "source": "tempestmodel_tpu_torch/csrc/banded_multi.cu",
+               "replaces": "tempestmodel_tpu/ops/pallas_banded.py:185",
+               "runs_for": "HS implicit solve (JAX: tridiagonal_solve, "
+                           "models/highspeed.py:296)",
+               "shape": [n, 3, ncol], "q": 1, "max_abs_err": err, "tol": tol,
+               "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
+               "bound_by": by, "library_ms": library_ms,
+               "library": "torch.linalg.solve_ex (cuSOLVER), densified",
+               "library_rel_err": lib_err,
+               "launch": cuda_banded.launch_config(bands, rhs, 1)}
+        emit({"phase": "kernel", "dtype": tag, **row})
+        if f32:
+            rows["banded_solve"]["hs"] = row
+        del sets, bands, rhs, got, want
+
+        # --- the momentum DSS: dss_state with the contravariant table ----
+        dsets = [({k: randn((K + (k == "W"), P, A, A), dtype, gen, dev)
+                   for k in dss_cuda.STATE_FIELDS},) for _ in range(4)]
+        d = dsets[0][0]
+        args = (fg.inv_mult, hs.rot, fg.dss_links, fg.p)
+        got = dss_cuda.dss_state(d, *args, table=fg.dss_table)
+        torch.cuda.synchronize()
+        want = dss_cuda.dss_state_plain(d, *args)
+        fields = dss_cuda.STATE_FIELDS
+        bitwise = all(torch.equal(got[k], want[k]) for k in fields)
+        err = max(rel_err(got[k], want[k]) for k in fields)
+        # the table rotates: the covariant one gives other MU, MV
+        cov = dss_cuda.dss_state(d, fg.inv_mult, fg.e_rot, fg.dss_links,
+                                 fg.p, table=fg.dss_table)
+        differs = not torch.equal(cov["U"], got["U"])
+        if not (bitwise and differs):
+            raise RuntimeError(f"momentum DSS {tag}: bit for bit equal to "
+                               f"the plain version: {bitwise} (rel err "
+                               f"{err}); differs from the covariant "
+                               f"table's: {differs}")
+        ms = time_cuda(lambda x: dss_cuda.dss_state(x, *args,
+                                                    table=fg.dss_table),
+                       dsets, reps=20, queued=True)
+        plain_ms = time_cuda(lambda x: dss_cuda.dss_state_plain(x, *args),
+                             dsets, reps=3, warmup=1)
+        nstate = sum(v.numel() for v in d.values())
+        nlev, nint, n2d = K * ncol, (K + 1) * ncol, ncol
+        nb = (2 * nstate + n2d + hs.rot.numel()) * esize \
+            + fg.dss_table.numel() * 4
+        bnd, by = bound_ms(nb, 16 * nlev + 5 * (2 * nlev + nint), dtype)
+        row = {"name": "dss_state", "route": "cuda",
+               "source": "tempestmodel_tpu_torch/csrc/dss.cu",
+               "replaces": "tempestmodel_tpu/fast/dss_pallas.py:343",
+               "runs_for": "HS momentum DSS, contravariant edge table "
+                           "(JAX: models/highspeed.py:319-366)",
+               "shape": [K, P, A, A], "max_abs_err": err, "bitwise": True,
+               "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
+               "bound_by": by, "library_ms": None,
+               "launch": dss_cuda.launch_config(
+                   d["U"], fg.p, "state", dss_cuda._state_ptrs(
+                       d, fg.inv_mult), True)}
+        emit({"phase": "kernel", "dtype": tag, **row})
+        if f32:
+            rows["dss_state"]["hs"] = row
+        del dsets, d, got, want, cov, fg, hs, X, m
+        torch.cuda.empty_cache()
+
+
+def check_split_slice(dev):
+    """Phase 4, SPEX and HS: 3 steps of UMJS at ne4 p4 nz8 in float64 on
+    the card (SPEX at dt 25 s with three seeded tracer species and a seeded
+    W, HS at dt 100 s), the kernel path against the plain path
+    (``plain=True``) to 1e-11 per field, the kernel path's launches held
+    to ``split_per_step`` exactly, then one replay of a 3-step CUDA graph
+    (``engine.graph_runner``) against 3 eager steps to 1e-13.  Returns
+    the launch counts of each kernel run."""
+    from tempestmodel_tpu_torch import fast
+    from tempestmodel_tpu_torch.fast import engine
+    from tempestmodel_tpu_torch.kernels import counts, synthetic
+    from tempestmodel_tpu_torch.models import highspeed, nh_model
+    from tempestmodel_tpu_torch.models import split_explicit
+    launched = {}
+    for scheme in SPLITS:
+        tc, cfg = split_config(scheme, torch.float64, 4, 8,
+                               SPLIT_DT_NE4[scheme])
+        geom = nh_model.build_nh_sphere_geometry(cfg, ztop=tc.ztop)
+        X0 = fast.pack_state(tc.initial_state(
+            geom, cfg.constants, dtype=cfg.dtype, device=dev), device=dev)
+        ntr = 0
+        if scheme == "SPEX":
+            gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+            w = 1e3 * randn(tuple(X0["W"].shape), cfg.dtype, gen, dev)
+            w[0] = 0.0
+            w[-1] = 0.0
+            X0["W"] = w
+            X0["Tracers"] = torch.as_tensor(synthetic.random_tracers_numpy(
+                cfg.nz, 6, 16, 16, NTR, cfg.order, seed=SEED + 42),
+                device=dev)
+            ntr = NTR
+        make = (split_explicit.make_spex_step if scheme == "SPEX"
+                else highspeed.make_hs_step)
+        what = f"{scheme} UMJS ne4 p4 nz8 f64 dt{cfg.dt:g}" + (
+            f", {NTR} seeded tracer species, seeded W" if ntr else "")
+        outs = {}
+        for path, pk in (("kernels", {}), ("plain", {"plain": True})):
+            counts.reset_launch_counts()
+            step, _ = make(cfg, geom, device=dev, **pk)
+            X, c = X0, {}
+            for _ in range(3):
+                X, c = step(X, c)
+            torch.cuda.synchronize()
+            outs[path] = X
+            if path == "kernels":
+                launched[scheme] = dict(counts.launch_counts)
+        per = split_per_step(scheme, ntr)
+        want = {k: 3 * v for k, v in per.items()}
+        if launched[scheme] != want:
+            raise RuntimeError(f"{what}: launch counts {launched[scheme]} "
+                               f"!= expected {want}")
+        errs = {k: rel_err(outs["kernels"][k], outs["plain"][k])
+                for k in outs["kernels"]}
+        step, _ = make(cfg, geom, device=dev)
+        run = engine.graph_runner(step, 3)
+        G, _ = run(X0, {})
+        G, _ = run(X0, {})                  # a pure replay
+        torch.cuda.synchronize()
+        replay = {k: rel_err(G[k], outs["kernels"][k]) for k in G}
+        emit({"phase": "split_slice", "scheme": scheme,
+              "config": what + ", 3 steps", "kernels_vs_plain": errs,
+              "tol": 1e-11, "replay_vs_eager": replay, "replay_tol": 1e-13,
+              "launches": launched[scheme], "launches_per_step": per})
+        if not (max(errs.values()) < 1e-11
+                and max(replay.values()) < 1e-13):
+            raise RuntimeError(f"{what}: paths disagree {errs} / replay "
+                               f"{replay}")
+        check_finite(outs["kernels"], what, torch.float64)
+        del outs, G, run
+    return launched
+
+
+def split_line(dev, smi, launches):
+    """Phase 5l: SPEX and HS on the flagship grid (UMJS with its
+    perturbation, no Rayleigh layer, ne30 p4 L30 f32, nu 1e15) through
+    ``Model`` as a user builds it, beside the LOR Strang-HEVI run (dt 100
+    s, the fused implicit kernel) in the same call.  Each scheme's dt: 100
+    s where 10 steps stay finite, else the first of ``SPLIT_DTS`` that
+    does (the probes run ``step`` eagerly; their max |W| is reported).
+    Each run: ``go`` of ``SPLIT_STEPS`` steps from the start (SPEX and HS:
+    one graph of 10, its warm-up step and its captured steps counted, held
+    to ``split_per_step``; LOR: ``first_step`` and a graph of 9), one more
+    to capture a ``SPLIT_STEPS``-step graph, one timed (CUDA events: graph
+    replay), one profiled (device busy, device launches, the banded, DSS and
+    nu4 kernels' shares a step, the costliest kernels); peak memory; max
+    |W| after 10 and 40 steps, finite after 40 (held for LOR and HS; for
+    SPEX, whose dt the 10-step rule chose, reported)."""
+    from torch.profiler import profile, ProfilerActivity
+    from tempestmodel_tpu_torch.kernels import counts
+    from tempestmodel_tpu_torch.model import Model
+    from tempestmodel_tpu_torch.models import nh_model
+    t0 = time.perf_counter()
+    dts, probes = {"LOR": DT}, {}
+    tc, cfg = split_config("LOR", torch.float32, NE, NZ, DT)
+    geom = nh_model.build_nh_sphere_geometry(cfg, ztop=tc.ztop)
+    X0 = None
+    for scheme in SPLITS:
+        for dt in SPLIT_DTS:
+            _, c = split_config(scheme, torch.float32, NE, NZ, dt)
+            _, step, _ = nh_model._step_fns(c, geom, None, dev)
+            if X0 is None:
+                from tempestmodel_tpu_torch import fast
+                X0 = fast.pack_state(tc.initial_state(
+                    geom, c.constants, dtype=c.dtype, device=dev),
+                    device=dev)
+            X, k = X0, {}
+            for _ in range(SPLIT_STEPS):
+                X, k = step(X, k)
+            finite = all(bool(torch.isfinite(v).all()) for v in X.values())
+            probes.setdefault(scheme, []).append(
+                {"dt": dt, "finite_after_10": finite,
+                 "max_abs_W_after_10": float(X["W"].abs().max())})
+            del step, X
+            if finite:
+                dts[scheme] = dt
+                break
+        if scheme not in dts:
+            raise RuntimeError(f"5l {scheme}: no dt of {SPLIT_DTS} holds 10 "
+                               f"steps finite: {probes[scheme]}")
+    del geom, X0
+    torch.cuda.empty_cache()
+    emit({"phase": "split_dt", "dt_used": dts, "probes": probes,
+          "rule": "100 s where 10 steps stay finite, else the first of "
+                  f"{list(SPLIT_DTS)} that does",
+          "seconds": time.perf_counter() - t0, "card": smi})
+    for scheme in ("LOR",) + SPLITS:
+        tc, cfg = split_config(scheme, torch.float32, NE, NZ, dts[scheme])
+        t0 = time.perf_counter()
+        m = Model(cfg, tc, device=dev)
+        setup_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counts.reset_launch_counts()
+        t0 = time.perf_counter()
+        m.go(nsteps=SPLIT_STEPS)
+        sync(dev)
+        first_go_s = time.perf_counter() - t0
+        launches[f"split_{scheme}"] = got = dict(counts.launch_counts)
+        if scheme == "LOR":
+            per = fused_per_step(("state", "scalar2"))
+            want = expected_counts(per, SPLIT_STEPS)
+        else:
+            per = split_per_step(scheme)
+            want = {k: (SPLIT_STEPS + 1) * v for k, v in per.items()}
+        if got != want:
+            raise RuntimeError(f"5l {scheme}: launch counts {got} != "
+                               f"expected {want}")
+        check_finite(m.state, f"5l {scheme}", cfg.dtype)
+        w10 = float(m.state["W"].abs().max())
+        m.go(nsteps=SPLIT_STEPS)            # captures a SPLIT_STEPS graph
+        sync(dev)
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        ev0.record()
+        m.go(nsteps=SPLIT_STEPS)            # a replay
+        ev1.record()
+        sync(dev)
+        wall_ms = 1e3 * (time.perf_counter() - t0) / SPLIT_STEPS
+        ms = ev0.elapsed_time(ev1) / SPLIT_STEPS
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            m.go(nsteps=SPLIT_STEPS)        # a profiled replay
+            sync(dev)
+        busy = {"all": 0.0, "banded": 0.0, "dss": 0.0, "nu4": 0.0,
+                "stage_implicit": 0.0}
+        by_name, nkern = {}, 0
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = e.time_range.elapsed_us()
+            busy["all"] += us
+            by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + us
+            nkern += 1
+            if "solve_ring_kernel" in e.name or "multi_" in e.name \
+                    or "wide_kernel" in e.name:
+                busy["banded"] += us
+            elif "band_kernel" in e.name:
+                busy["dss"] += us
+            elif "nu4_kernel" in e.name:
+                busy["nu4"] += us
+            elif "fused_stage" in e.name or "fused_implicit" in e.name:
+                busy["stage_implicit"] += us
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        w40 = float(m.state["W"].abs().max())
+        finite40 = all(bool(torch.isfinite(v).all())
+                       for v in m.state.values())
+        # SPEX's dt is chosen by 10 steps: past them it is reported
+        if not finite40 and scheme != "SPEX":
+            raise RuntimeError(f"5l {scheme}: non-finite after 40 steps")
+        emit({"phase": "split", "scheme": scheme,
+              "config": f"UMJS pert exp, no Rayleigh layer, ne{NE} p{ORDER} "
+                        f"nz{NZ} f32 dt{cfg.dt:g} nu{NU:g}"
+                        + (", Strang-HEVI, the fused implicit kernel"
+                           if scheme == "LOR" else f", {scheme}"),
+              "dt": cfg.dt, "ms_per_step": ms,
+              "ms_per_model_second": ms / cfg.dt,
+              "timed_as": "graph replay through Model.go "
+                          f"({SPLIT_STEPS}-step graph), CUDA events",
+              "wall_ms_per_step": wall_ms,
+              "device_busy_ms_per_step": busy["all"] / 1e3 / SPLIT_STEPS,
+              "device_launches_per_step": nkern / SPLIT_STEPS,
+              "share_of_busy": {k: v / max(busy["all"], 1e-30)
+                                for k, v in busy.items() if k != "all"},
+              "top_kernels_ms_per_step": {
+                  k: v / 1e3 / SPLIT_STEPS for k, v in sorted(
+                      by_name.items(), key=lambda kv: -kv[1])[:8]},
+              "kernel_launches_per_step": {k: v for k, v in per.items()
+                                           if v},
+              "launches": got, "launches_counted": (
+                  "first_step + 1 warm-up step + "
+                  f"{SPLIT_STEPS - 1} captured steps" if scheme == "LOR"
+                  else f"1 warm-up step + {SPLIT_STEPS} captured steps"),
+              "first_go_s": first_go_s, "model_setup_s": setup_s,
+              "peak_device_GiB": peak, "max_abs_W_after_10": w10,
+              "max_abs_W_after_40": w40, "finite_after_40_steps": finite40,
+              "card": smi})
+        del m, prof
+        torch.cuda.empty_cache()
+
+
 def main():
     args = sys.argv[1:]
     profile_path = None
@@ -5123,6 +5546,7 @@ def main():
     check_wide_banded(dev, rows)
     check_sw_kernels(dev, rows)
     check_stagger_kernels(geom, rows, dev)
+    check_split_kernels(geom, rows, dev)
 
     # 4. the slice at small size, three ways, dry and with tracers --------
     check_slice(dev)
@@ -5134,6 +5558,7 @@ def main():
     check_sw_slice(dev)
     vert_launches = check_vertical_slice(dev)
     stag_launches = check_stagger_slice(dev)
+    split_launches = check_split_slice(dev)
 
     # 5. the main paths at full width -------------------------------------
     X0 = fast.pack_state(state, device=dev)
@@ -5388,6 +5813,11 @@ def main():
     stagger_line(dev, smi, launches)
     emit({"phase": "stagger", "seconds": time.perf_counter() - t0})
 
+    # 5l. this slice's path: SPEX and HS on the flagship grid
+    t0 = time.perf_counter()
+    split_line(dev, smi, launches)
+    emit({"phase": "split", "seconds": time.perf_counter() - t0})
+
     if profile_path is not None:
         os.makedirs(os.path.dirname(os.path.abspath(profile_path)),
                     exist_ok=True)
@@ -5541,6 +5971,17 @@ def main():
                     launches[f"stagger_{stag}"][name] < 1:
                 raise RuntimeError(f"{name} was not launched on the "
                                    f"{stag} path")
+        # SPEX and HS: phase 5l's Model runs (each from counts at 0) and
+        # phase 4's kernel runs at ne4
+        row["launches_split_paths"] = {
+            scheme: launches[f"split_{scheme}"][name] for scheme in SPLITS}
+        row["launches_split_slice"] = {
+            scheme: v[name] for scheme, v in split_launches.items()}
+        for scheme in SPLITS:
+            if split_per_step(scheme)[name] and \
+                    launches[f"split_{scheme}"][name] < 1:
+                raise RuntimeError(f"{name} was not launched on the "
+                                   f"{scheme} path")
         if name in ("banded_solve", "banded_solve_multi"):
             row["q_above_8"] = {k: v for k, v in rows["banded_wide"].items()
                                 if k.split()[0] == name}

@@ -493,9 +493,12 @@ def assemble_bands(x_parts, aux, fg: FastGeometry, statics, constants, dt,
 
 
 def _interleave(f_rt, f_w, f_rho, nz):
-    trip = torch.stack([f_rt, f_w[:nz], f_rho], dim=1)  # (nz, 3, ncol)
-    return torch.cat(
-        [trip.reshape(3 * nz, -1), f_w[nz:]], dim=0)
+    """(..., nz | nz+1, ncol) parts -> the interleaved ``(..., 3 nz + 1,
+    ncol)`` order [Rt_0, W_0, Rho_0, ..., W_nz] (leading axes batch)."""
+    trip = torch.stack([f_rt, f_w[..., :nz, :], f_rho], dim=-2)
+    lead = tuple(trip.shape[:-3])
+    return torch.cat([trip.reshape(lead + (3 * nz, trip.shape[-1])),
+                      f_w[..., nz:, :]], dim=-2)
 
 
 def _deinterleave(dx, nz):

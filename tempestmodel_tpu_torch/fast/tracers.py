@@ -48,13 +48,10 @@ def _bcast_mul(f, tr, ntr):
     return (f[None] * t5).reshape(tr.shape)
 
 
-def horizontal_update(base_tr, ueval, dt_s, fg: FastGeometry):
-    """base + dt_s * advective tendency of the evaluation state's tracers
-    (the weak flux divergence of every species on the mass fluxes of the
-    evaluation state).
-
-    ``base_tr``: flat tracer field, or a two-term ((c1, t1), (c2, t2)) RK
-    combination (as the fused stage kernel takes its base)."""
+def horizontal_tendency_tr(ueval, fg: FastGeometry):
+    """The advective tendency of the evaluation state's tracers (flat): the
+    weak flux divergence of every species on the mass fluxes of the
+    evaluation state, over the 3-D Jacobian."""
     u, v = ueval["U"], ueval["V"]
     tr = ueval["Tracers"]
     ntr = _ntr(tr, fg.nz)
@@ -63,7 +60,16 @@ def horizontal_update(base_tr, ueval, dt_s, fg: FastGeometry):
     con_ub = fg.c2_ba[None] * u + fg.c2_bb[None] * v + fg.con_b_xi * w_n
     fa = _bcast_mul(fg.jac3d * con_ua, tr, ntr)
     fb = _bcast_mul(fg.jac3d * con_ub, tr, ntr)
-    dtr = _bcast_mul(1.0 / fg.jac3d, -hweak_div(fa, fb, fg), ntr)
+    return _bcast_mul(1.0 / fg.jac3d, -hweak_div(fa, fb, fg), ntr)
+
+
+def horizontal_update(base_tr, ueval, dt_s, fg: FastGeometry):
+    """base + dt_s * advective tendency of the evaluation state's tracers
+    (``horizontal_tendency_tr``).
+
+    ``base_tr``: flat tracer field, or a two-term ((c1, t1), (c2, t2)) RK
+    combination (as the fused stage kernel takes its base)."""
+    dtr = horizontal_tendency_tr(ueval, fg)
     if isinstance(base_tr, tuple):
         (c1, t1), (c2, t2) = base_tr
         base = c1 * t1 + c2 * t2

@@ -9,7 +9,9 @@ timestep scheme, the test case, the output managers and the workflow
 
 The steps run on the z-first engine (``fast/engine``): Strang-HEVI where
 ``fast_engine_supported`` holds, an IMEX-ARK scheme where
-``fast_imex_supported`` holds.  The z-first state and the carry stay
+``fast_imex_supported`` holds, the split-explicit (SPEX) and HighSpeed (HS)
+steps where ``split_supported`` holds (``models/split_explicit``,
+``models/highspeed``; no carry).  The z-first state and the carry stay
 resident on the device; ``model.state`` is unpacked to the reference
 layout only when it is read.  ``go`` runs the steps between two firings of
 any hook as one replay of a CUDA graph of that many steps
@@ -42,12 +44,13 @@ GRAPH_STEPS = 50
 # graphs kept per model (one per run length met); the oldest goes first
 GRAPHS_KEPT = 4
 
-_NOT_PORTED = ("is not ported yet (ROADMAP queue 1 items 4-6: tracers on "
-               "no-flux grids, with uniform diffusion or on the explicit "
+_NOT_PORTED = ("is not ported yet (ROADMAP queue 1 items 4 and 6: tracers "
+               "on no-flux grids, with uniform diffusion or on the explicit "
                "vertical path, walls on both axes, and under the CPH, LEV "
                "and INT staggerings tracers, no-flux walls and uniform "
-               "diffusion; SPEX and HS; IMEX with tracers or under those "
-               "staggerings)")
+               "diffusion; IMEX with tracers or under those staggerings); "
+               "SPEX and HS take the LOR staggering only, as in the JAX "
+               "package")
 
 
 class WorkflowProcess:
@@ -178,10 +181,26 @@ class Model:
             self._zl, self.reference = self._staggered_states(cfg, testcase)
         has_tr = self._zl is not None and "Tracers" in self._zl
 
-        self._imex = cfg.timescheme not in (TimestepSchemeType.STRANG,
-                                            TimestepSchemeType.ERK,
-                                            TimestepSchemeType.SPEX)
-        if not self._imex:
+        ts = cfg.timescheme
+        # SPEX and HS: their own self-starting steps (carry {}); the JAX
+        # package's Model sends HS to its IMEX factory, which refuses it
+        # ("not an IMEX scheme"): here both run as its make_nh_step does
+        self._split = ts in (TimestepSchemeType.SPEX, TimestepSchemeType.HS)
+        self._imex = ts not in (TimestepSchemeType.STRANG,
+                                TimestepSchemeType.ERK,
+                                TimestepSchemeType.SPEX,
+                                TimestepSchemeType.HS)
+        if self._split:
+            from .models.split_explicit import split_supported
+            if not (cfg.fuse_pallas and split_supported(
+                    cfg, has_tracers=has_tr, geom=self.geom)):
+                raise NotImplementedError(
+                    f"this {ts.name} configuration (outside "
+                    f"split_supported: the LOR staggering on the z-first "
+                    f"engine's grids) {_NOT_PORTED}")
+            first, step, fg = nh_model._step_fns(cfg, self.geom,
+                                                 self.reference, self.device)
+        elif not self._imex:
             if not (cfg.fuse_pallas and engine.fast_engine_supported(
                     cfg, has_tracers=has_tr, geom=self.geom)):
                 raise NotImplementedError(
@@ -253,7 +272,7 @@ class Model:
                     self.geom, cfg.constants, dtype=cfg.dtype,
                     device=self.device)
         sw_step = sw_model.make_sw_step(cfg, self.geom, device=self.device)
-        self._imex = False
+        self._imex = self._split = False
         self._swapped = False
 
         def step(d, carry):
@@ -354,8 +373,8 @@ class Model:
             self._d = (self._pack_sw(self._zl) if self._sw
                        else engine.pack_state(self._zl, device=self.device))
             self._snap = _snapshot(self._zl)
-        if self._imex or self._sw:
-            self._c = {}
+        if self._imex or self._sw or self._split:
+            self._c = {}      # no carry: a restart's (zero) carry is unused
         elif self.carry is None:
             self._c = None
         elif self.carry is not self._carry_seen:
@@ -368,7 +387,7 @@ class Model:
             d, c = self._run(left)(d, c)
         self._d, self._c = d, c
         self._zl, self._snap = None, {}
-        if not (self._imex or self._sw):
+        if not (self._imex or self._sw or self._split):
             self.carry = self._carry_seen = c
         self.step_count += n
         for _ in range(n):

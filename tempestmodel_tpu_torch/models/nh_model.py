@@ -1,10 +1,12 @@
 """Nonhydrostatic model assembly: construction of the sphere and the
-Cartesian geometries.
+Cartesian geometries, and the step of a configuration.
 
-Counterpart of ``build_nh_sphere_geometry`` and
-``build_nh_cartesian_geometry`` of the JAX package's ``models/nh_model.py``;
-the reference-layout step factories of that module are not ported (the port
-runs the z-first engine, ``fast/engine``).
+Counterpart of ``build_nh_sphere_geometry``, ``build_nh_cartesian_geometry``
+and ``make_nh_step`` of the JAX package's ``models/nh_model.py``.  The
+JAX package's reference-layout engine is not ported: ``make_nh_step`` runs
+every scheme on the z-first engine (``fast/engine``; SPEX and HS through
+``models/split_explicit`` and ``models/highspeed``) and packs the state at
+its boundary.
 """
 
 from __future__ import annotations
@@ -46,3 +48,53 @@ def build_nh_cartesian_geometry(cfg: ModelConfig, topography=None,
         staggering=cfg.vertical_staggering.value,
         vdisc=cfg.vertical_discretization,
         stretch=_stretch(cfg), dtype=cfg.dtype)
+
+
+def _step_fns(cfg: ModelConfig, geom, ref_state=None, device=None,
+              plain: bool = False):
+    """(first_fn, step_fn, fg) on the engine's z-first layout for this
+    configuration's scheme: SPEX (``split_explicit``), HS (``highspeed``)
+    or Strang-HEVI / ERK (``fast/engine``).  A swapped Cartesian engine's
+    functions take and return its swapped layout (``fg.ab_swapped``)."""
+    from ..config import TimestepSchemeType
+    from ..fast import engine
+    if cfg.timescheme == TimestepSchemeType.SPEX:
+        from .split_explicit import make_spex_step
+        step, fg = make_spex_step(cfg, geom, ref_state, device, plain)
+        return step, step, fg
+    if cfg.timescheme == TimestepSchemeType.HS:
+        from .highspeed import make_hs_step
+        step, fg = make_hs_step(cfg, geom, ref_state, device, plain)
+        return step, step, fg
+    return engine._fast_fns(cfg, geom, ref_state, None, device, plain, None,
+                            None, None)
+
+
+def make_nh_step(cfg: ModelConfig, geom, ref_state=None, mesh=None,
+                 device=None, plain: bool = False):
+    """(first_step, step) on reference-layout (z-last) states, the JAX
+    package's ``make_nh_step``: ``first_step(state) -> (state, carry)``,
+    ``step(state, carry) -> (state, carry)``.  SPEX and HS (self-starting,
+    carry ``{}``) run ``models/split_explicit`` and ``models/highspeed``;
+    Strang-HEVI and ERK the z-first engine (``make_fast_step``; its carry
+    stays in the engine's layout).  The state is packed onto ``device``
+    (default ``cuda``; raises when absent) and unpacked on the way out.
+    ``plain=True`` runs every kernel's plain version."""
+    from ..fast import engine
+    if mesh is not None:
+        raise NotImplementedError("a device mesh is not ported yet")
+    first_fn, step_fn, fg = _step_fns(cfg, geom, ref_state, device, plain)
+    dev = fg.inv_mult.device
+
+    def wrap(fn):
+        def run(state, *carry):
+            d = engine.pack_state(state, device=dev)
+            if fg.ab_swapped:
+                d = engine._swap_ab_state(d)
+            d, c = fn(d, *carry)
+            if fg.ab_swapped:
+                d = engine._swap_ab_state(d)
+            return engine.unpack_state(d), c
+        return run
+
+    return wrap(first_fn), wrap(step_fn)

@@ -3,9 +3,11 @@ CPU: the geometry (``grid/cartesian``, ``build_fast_geometry_cartesian`` in
 both layouts), the test cases' states, the wrap-sum DSS of all five DSS
 kernels' plain versions, the x-z branch of the fused stage and the nu4
 passes on a plane against the JAX Pallas kernels in interpret mode, and the
-slice as a whole: 3 steps of ``make_fast_step`` for the Schar mountain
-waves, the inertia-gravity waves and the 3-D thermal bubble, fused and
-unfused, both vertical solvers, Schar in both layouts.
+kernels a step goes through.  The slice as a whole (3 steps of
+``make_fast_step`` against the JAX package's, fused and unfused, both
+vertical solvers) is in ``test_torch_cartesian_steps.py`` (the Schar
+mountain waves in both layouts) and ``test_torch_cartesian_slices.py``
+(the inertia-gravity waves and the 3-D thermal bubble).
 
 V of an x-z slice carries roundoff only (about 1e-21 m/s in both packages),
 so U and V are measured against their common scale, as
@@ -457,10 +459,12 @@ def _compare(got, want, tol):
     return errs
 
 
-@pytest.fixture(scope="module")
-def runs(configs):
-    """3 steps of JAX ``make_fast_step`` per case (its default layout), and
-    of the port per (case, solver, path, layout); computed at first use."""
+def slice_runs(configs):
+    """(jax_run(name), torch_run(name, solver, fused, swap)): 3 steps of JAX
+    ``make_fast_step`` per case (its default layout), and of the port per
+    (case, solver, path, layout); computed at first use.  The step tests
+    (``test_torch_cartesian_steps.py``, ``test_torch_cartesian_slices.py``)
+    keep one for their module."""
     cache = {}
 
     def start(name):
@@ -501,33 +505,6 @@ def runs(configs):
         return cache[key]
 
     return jax_run, torch_run
-
-
-SLICE = ([("schar", s, f, w) for s in ("pallas", "banded")
-          for f in (None, False) for w in (True, False)]
-         + [(n, s, f, None) for n in ("igw", "bubble3d")
-            for s in ("pallas", "banded") for f in (None, False)])
-
-
-@pytest.mark.parametrize("name,solver,fused,swap", SLICE, ids=[
-    f"{n}-{s}-{'fused' if f is None else 'unfused'}"
-    + ("" if w is None else ("-swapped" if w else "-natural"))
-    for n, s, f, w in SLICE])
-def test_three_steps_match_jax(runs, name, solver, fused, swap):
-    """3 Strang-HEVI steps from JAX's own initial state, 1e-11 relative per
-    field against JAX ``make_fast_step`` (whose layout is its default:
-    swapped for all three cases)."""
-    jax_run, torch_run = runs
-    _compare(torch_run(name, solver, fused, swap), jax_run(name), 1e-11)
-
-
-def test_the_two_layouts_agree(runs):
-    """The swap is an exact relabeling: both layouts give one trajectory
-    (to rounding: the sums run in another order)."""
-    _, torch_run = runs
-    a = torch_run("schar", "pallas", None, True)
-    b = torch_run("schar", "pallas", None, False)
-    _compare(a, b, 1e-12)
 
 
 def test_multistep_equals_the_eager_steps(configs):

@@ -1,8 +1,10 @@
 """The port's z-first engine vs the JAX package's: the horizontal
-tendency, the hyperdiffusion tail, the full-state DSS (with and without the
-folded W finish), and the slice as a whole (3 steps of ``make_fast_step``
-on the fused path -- fused nu4 tail included -- and on the unfused path,
-both Jacobian modes; ``make_fast_multistep``), float64."""
+tendency, the bottom W boundary, the path predicates and the kernels a step
+goes through, float64 (the full-state DSS with and without the folded W
+finish and the hyperdiffusion tail: ``test_torch_engine_tail.py``).  The slice as a whole (3 steps against JAX ``make_fast_step``) is
+in ``test_torch_engine_steps.py`` (the exact Jacobian, ``make_fast_multistep``)
+and ``test_torch_engine_rayleigh.py`` (the reference Jacobian with the
+Rayleigh layer and off-centring)."""
 
 import numpy as np
 import jax
@@ -10,14 +12,12 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from tempestmodel_tpu import fast as j_fast
 from tempestmodel_tpu.fast import engine as j_engine
 from tempestmodel_tpu_torch import fast as t_fast, convert
 from tempestmodel_tpu_torch.fast import engine as t_engine
-from tempestmodel_tpu_torch.kernels.counts import launch_counts
 import tempestmodel_tpu_torch as tt
 
-from torch_port_common import (build_pair, initial_states, CPU, FIELDS,
+from torch_port_common import (build_pair, CPU, FIELDS,
                                fast_geometry_fields_numpy, random_fast_state,
                                rel_err)
 
@@ -27,8 +27,7 @@ def pair():
     return build_pair()
 
 
-@pytest.fixture(scope="module")
-def fgs(pair):
+def make_fgs(pair):
     jcfg, jgeom, tcfg, tgeom = pair
     jfg = j_engine.build_fast_geometry(jgeom, dtype=jnp.float64)
     tfg = convert.fast_geometry_from_numpy(
@@ -38,6 +37,11 @@ def fgs(pair):
     jd = {k: jnp.asarray(v) for k, v in d.items()}
     td = {k: torch.from_numpy(v.copy()) for k, v in d.items()}
     return jfg, tfg, jd, td, d
+
+
+@pytest.fixture(scope="module")
+def fgs(pair):
+    return make_fgs(pair)
 
 
 def test_horizontal_tendency(pair, fgs):
@@ -61,57 +65,6 @@ def test_apply_w_boundary(fgs):
     assert rel_err(tw.numpy(), jw) < 1e-13
 
 
-def test_apply_dss_full_state(fgs):
-    jfg, tfg, jd, td, _ = fgs
-    jo = j_engine.apply_dss(jd, jfg)
-    before = dict(launch_counts)
-    to = t_engine.apply_dss(td, tfg)
-    tp = t_engine.apply_dss(td, tfg, plain=True)
-    assert dict(launch_counts) == before     # CPU tensors: no launch
-    for k in FIELDS:
-        np.testing.assert_allclose(to[k].numpy(), np.asarray(jo[k]), rtol=0,
-                                   atol=1e-13 * float(np.abs(jo[k]).max()))
-        assert torch.equal(to[k], tp[k])
-
-
-def test_apply_dss_with_the_w_finish_folded_in(pair, fgs):
-    """``apply_dss(w_finish=...)`` after a deferred fused stage, against the
-    JAX package's (its stage and DSS kernels in interpret mode)."""
-    from tempestmodel_tpu.fast import stage_pallas
-    from tempestmodel_tpu_torch.fast import stage_cuda
-    jcfg, _, tcfg, _ = pair
-    jfg, tfg, jd, td, _ = fgs
-    jupd, jwf = stage_pallas.fused_stage(jd, jd, 25.0, jfg, jcfg.constants,
-                                         interpret=True, defer_w=True)
-    jo = j_engine.apply_dss(jupd, jfg, w_finish=jwf)
-    tupd, twf = stage_cuda.fused_stage(td, td, 25.0, tfg, tcfg.constants,
-                                       defer_w=True)
-    assert "W" not in tupd
-    to = t_engine.apply_dss(tupd, tfg, w_finish=twf)
-    tp = t_engine.apply_dss(tupd, tfg, w_finish=twf, plain=True)
-    for k in FIELDS:
-        assert rel_err(to[k].numpy(), jo[k]) < 1e-12, k
-        assert torch.equal(to[k], tp[k])
-    # the same state through the undeferred stage and the four-launch DSS
-    full = t_engine.apply_dss(
-        stage_cuda.fused_stage(td, td, 25.0, tfg, tcfg.constants), tfg)
-    for k in FIELDS:
-        assert rel_err(full[k].numpy(), to[k].numpy()) < 1e-13, k
-
-
-@pytest.mark.parametrize("order", [4, 2])
-def test_step_after_subcycle(pair, fgs, order):
-    jcfg, _, tcfg, _ = pair
-    jfg, tfg, jd, td, _ = fgs
-    jc = jcfg.with_(hypervis_order=order)
-    tc = tcfg.with_(hypervis_order=order)
-    jo = jax.jit(lambda x: j_engine.step_after_subcycle(
-        x, jc.dt, jc, jfg))(jd)
-    to = t_engine.step_after_subcycle(td, tc.dt, tc, tfg)
-    for k in FIELDS:
-        assert rel_err(to[k].numpy(), jo[k]) < 1e-12, k
-
-
 def test_fast_engine_supported_predicate(pair):
     _, _, tcfg, _ = pair
     assert t_engine.fast_engine_supported(tcfg)
@@ -127,87 +80,6 @@ def test_fast_engine_supported_predicate(pair):
     assert not t_engine.fast_engine_supported(cph, has_tracers=True)
     assert t_engine.fast_engine_supported(tcfg, has_tracers=True)
     assert not t_engine.fast_engine_supported(tcfg, mesh=object())
-
-
-def _run_jax(jcfg, jgeom, js, nsteps, firsts=None):
-    """``nsteps`` steps of JAX ``make_fast_step``; ``firsts`` (a dict), when
-    given, keeps the state and carry after ``first_step`` under "X1"."""
-    first, step = j_fast.make_fast_step(jcfg, jgeom)
-    X, c = first(j_fast.pack_state(js))
-    if firsts is not None:
-        firsts["X1"] = (X, c)
-    for _ in range(nsteps - 1):
-        X, c = step(X, c)
-    return j_fast.unpack_state(X, jcfg.nz)
-
-
-def _run_torch(tcfg, tgeom, state_np, nsteps, **kw):
-    first, step = t_fast.make_fast_step(tcfg, tgeom, device=CPU, **kw)
-    X0 = convert.state_from_numpy(state_np, device=CPU, dtype=torch.float64)
-    keep = {k: v.clone() for k, v in X0.items()}
-    X, c = first(X0)
-    for k in X0:                                  # the input is left alone
-        assert torch.equal(X0[k], keep[k]), k
-    for _ in range(nsteps - 1):
-        X, c = step(X, c)
-    return t_fast.unpack_state(X)
-
-
-@pytest.fixture(scope="module")
-def three_steps(pair):
-    """3 steps of JAX ``make_fast_step`` per Jacobian mode (computed at
-    first use, kept for the module), and of the port per (mode, path)."""
-    jcfg, jgeom, tcfg, tgeom = pair
-    js, _ = initial_states(jcfg, jgeom, tcfg, tgeom)
-    state_np = {k: np.asarray(v) for k, v in js.items()}
-    cache = {}
-
-    def jax_run(mode, firsts=None):
-        """``firsts``: see ``_run_jax`` (kept at the mode's first run)."""
-        if ("jax", mode) not in cache:
-            cache["firsts", mode] = {}
-            cache["jax", mode] = _run_jax(
-                jcfg.with_(jacobian_mode=mode), jgeom, js, 3,
-                cache["firsts", mode])
-        if firsts is not None:
-            firsts.update(cache["firsts", mode])
-        return cache["jax", mode]
-
-    def torch_run(mode, fused):
-        if (mode, fused) not in cache:
-            cache[mode, fused] = _run_torch(
-                tcfg.with_(jacobian_mode=mode), tgeom, state_np, 3,
-                fused=fused)
-        return cache[mode, fused]
-
-    return jax_run, torch_run
-
-
-@pytest.mark.parametrize("mode", ["exact", "reference"])
-def test_three_steps_match_jax(three_steps, mode):
-    """The slice as a whole on the path the predicates choose (the fused
-    one): bit-identical initial state (JAX's, carried across as numpy), 3
-    Strang-HEVI steps, 1e-11 relative per field."""
-    jax_run, torch_run = three_steps
-    want, got = jax_run(mode), torch_run(mode, None)
-    for k in FIELDS:
-        assert rel_err(got[k].numpy(), want[k]) < 1e-11, k
-
-
-@pytest.mark.parametrize("mode", ["exact", "reference"])
-def test_three_steps_unfused_match_jax(three_steps, mode):
-    jax_run, torch_run = three_steps
-    want, got = jax_run(mode), torch_run(mode, False)
-    for k in FIELDS:
-        assert rel_err(got[k].numpy(), want[k]) < 1e-11, k
-
-
-@pytest.mark.parametrize("mode", ["exact", "reference"])
-def test_fused_path_matches_unfused_path(three_steps, mode):
-    _, torch_run = three_steps
-    a, b = torch_run(mode, None), torch_run(mode, False)
-    for k in FIELDS:
-        assert rel_err(a[k].numpy(), b[k].numpy()) < 1e-11, k
 
 
 @pytest.mark.parametrize("kw,want", [
@@ -273,95 +145,6 @@ def test_make_fast_step_refuses_an_unknown_dss_group(pair):
         t_fast.make_fast_step(tcfg, tgeom, device=CPU, dss_merge=("uvw",))
     with pytest.raises(ValueError, match="inner_steps"):
         t_fast.make_fast_multistep(tcfg, tgeom, 0, device=CPU)
-
-
-@pytest.fixture(scope="module")
-def multistep(pair, three_steps):
-    """``first_step`` then one ``multi`` of 3 steps: the port's, the port's
-    eager loop, and the JAX package's ``make_fast_multistep``.  JAX's
-    ``first_step`` there is its ``make_fast_step``'s: its result is the one
-    ``three_steps`` computed (the exact mode, this configuration's), so it
-    is not compiled twice."""
-    jcfg, jgeom, tcfg, tgeom = pair
-    js, _ = initial_states(jcfg, jgeom, tcfg, tgeom)
-    state_np = {k: np.asarray(v) for k, v in js.items()}
-    X0 = convert.state_from_numpy(state_np, device=CPU, dtype=torch.float64)
-    first, multi = t_fast.make_fast_multistep(tcfg, tgeom, 3, device=CPU)
-    X, c = multi(*first(X0))
-    first, step = t_fast.make_fast_step(tcfg, tgeom, device=CPU)
-    E, ce = first(X0)
-    for _ in range(3):
-        E, ce = step(E, ce)
-    assert jcfg.jacobian_mode == "exact"
-    firsts = {}
-    three_steps[0]("exact", firsts)
-    _, jmulti = j_engine.make_fast_multistep(jcfg, jgeom, 3)
-    J, cj = jmulti(*firsts["X1"])
-    return (X, c), (E, ce), (J, cj)
-
-
-def test_multistep_equals_the_eager_steps(multistep):
-    (X, c), (E, ce), _ = multistep
-    for k in FIELDS:
-        assert torch.equal(X[k], E[k]), k
-    for k in c:
-        assert torch.equal(c[k], ce[k]), k
-
-
-def test_multistep_matches_jax_multistep(multistep):
-    (X, c), _, (J, cj) = multistep
-    for k in FIELDS:
-        assert rel_err(X[k].numpy(), J[k]) < 1e-11, k
-    assert set(c) == set(cj)
-
-
-def test_rayleigh_and_off_centering(pair):
-    """Rayleigh damping and the off-centred implicit combination (0.1): 3
-    steps at ne4 p4 nz8 against JAX ``make_fast_step`` from the same state,
-    1e-11 relative per field; the damping leaves Rho alone, and the Rayleigh
-    finish inside the one-launch DSS gives the same bits."""
-    jcfg, _, tcfg, _ = pair
-    from tempestmodel_tpu.models import nh_model as j_nh_model
-    from tempestmodel_tpu.testcases.nonhydro_sphere import (
-        BaroclinicWaveUMJS as JaxUMJS)
-    from tempestmodel_tpu_torch.models import nh_model
-    from tempestmodel_tpu_torch.testcases.nonhydro_sphere import (
-        BaroclinicWaveUMJS)
-    tc = BaroclinicWaveUMJS(pert="exp", rayleigh=True)
-    jtc = JaxUMJS(pert="exp", rayleigh=True)
-    kw = dict(rayleigh_damping=True, off_centering=0.1)
-    cfg, jc = tcfg.with_(**kw), jcfg.with_(**kw)
-    geom = nh_model.build_nh_sphere_geometry(
-        cfg, ztop=tc.ztop, rayleigh=tc.rayleigh_strength)
-    jgeom = j_nh_model.build_nh_sphere_geometry(
-        jc, ztop=jtc.ztop, rayleigh=jtc.rayleigh_strength)
-    js = jtc.initial_state(jgeom, jc.constants, dtype=jnp.float64)
-    jref = jtc.reference_state(jgeom, jc.constants, dtype=jnp.float64)
-    ref = {k: np.array(v) for k, v in jref.items()}
-    state = {k: np.asarray(v) for k, v in js.items()}
-    fg = t_engine.build_fast_geometry(geom, dtype=torch.float64, device=CPU)
-    fac, ref_term = t_engine._rayleigh_terms(cfg, geom, ref, fg)
-    assert torch.equal(fac["Rho"], torch.ones_like(fac["Rho"]))
-    assert float(fac["U"].min()) < 1.0
-    assert float(ref_term["Rho"].abs().max()) == 0.0
-
-    first, step = j_fast.make_fast_step(jc, jgeom, ref_state=jref)
-    J, cj = first(j_fast.pack_state(js))
-    for _ in range(2):
-        J, cj = step(J, cj)
-    outs = []
-    for merge in ((), ("state", "scalar2")):
-        first, step = t_fast.make_fast_step(cfg, geom, ref_state=ref,
-                                            device=CPU, dss_merge=merge)
-        X, c = first(convert.state_from_numpy(state, device=CPU))
-        for _ in range(2):
-            X, c = step(X, c)
-        outs.append(X)
-    for k in FIELDS:
-        assert bool(torch.isfinite(outs[0][k]).all()), k
-        assert rel_err(outs[0][k].numpy(), J[k]) < 1e-11, k
-        # the Rayleigh finish inside the one-launch DSS: the same bits
-        assert torch.equal(outs[0][k], outs[1][k]), k
 
 
 @pytest.mark.gpu

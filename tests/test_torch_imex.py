@@ -1,12 +1,13 @@
-"""IMEX-ARK on the port's z-first engine against the JAX package, float64 on
-the CPU: ``fast.make_fast_imex_step`` for ARS222, ARS232, ARK232 and GARK2
-(``tests/test_torch_imex_ars3.py`` has the four four-stage schemes), 2
-steps from the UMJS start at ne2 p4 nz6, with both vertical solvers (the
-fused implicit kernel's plain version and the banded solve), 1e-11
-relative per field; ``fast_imex_supported`` against JAX's on a grid of
-configurations (no compile); the path's kernel wrappers; the entry point's
-device.  JAX's step runs ``vertical_solver="banded"``, as JAX's own test
-does.  Each JAX step is compiled once for the module."""
+"""IMEX-ARK on the port's z-first engine, float64 on the CPU, without a
+JAX step: the DSS groupings, the tableaux against the JAX package's,
+``fast_imex_supported`` against JAX's on a grid of configurations (no
+compile), the path's kernel wrappers, the entry point's device.  The steps
+against JAX ``make_fast_imex_step`` (2 steps from the UMJS start at ne2 p4
+nz6, both vertical solvers, 1e-11 relative per field) are in
+``test_torch_imex_ars2.py`` (ARS222, ARS232), ``test_torch_imex_ark2.py``
+(ARK232, GARK2), ``test_torch_imex_ars3.py`` (ARS343, ARS343b) and
+``test_torch_imex_ars443.py`` (ARS443, SSP3332): each file compiles two JAX
+steps."""
 
 import numpy as np
 import pytest
@@ -24,21 +25,11 @@ from tempestmodel_tpu_torch.kernels.counts import launch_counts
 from tempestmodel_tpu_torch.models import nh_model as t_nh
 from tempestmodel_tpu_torch.timestep import imex as t_imex
 
-from torch_port_common import CPU, FIELDS, ImexRuns, assert_imex_close
-
-SCHEMES = ("ars222", "ars232", "ark232", "gark2")
-
+from torch_port_common import CPU, FIELDS, ImexRuns
 
 @pytest.fixture(scope="module")
 def runs():
     return ImexRuns()
-
-
-@pytest.mark.parametrize("solver", ["pallas", "banded"])
-@pytest.mark.parametrize("scheme", SCHEMES)
-def test_two_imex_steps_match_jax(runs, scheme, solver):
-    assert_imex_close(runs.torch(scheme, solver), runs.jax(scheme),
-                      runs.start)
 
 
 def test_the_dss_groupings_give_the_same_bits(runs):

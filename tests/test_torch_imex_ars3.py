@@ -1,16 +1,16 @@
 """IMEX-ARK on the port's z-first engine against the JAX package, float64 on
-the CPU: ``fast.make_fast_imex_step`` for the four-stage schemes ARS343,
-ARS343b, ARS443 and SSP3332 (whose first stage is explicit-free: its DSS
-takes the step's start itself), 2 steps from the UMJS start at ne2 p4 nz6,
-with both vertical solvers, 1e-11 relative per field.  A file apart from
-``tests/test_torch_imex.py`` so that the two files' JAX compiles run on two
-workers.  Each JAX step is compiled once for the module."""
+the CPU: ``fast.make_fast_imex_step`` for the four-stage schemes ARS343
+and ARS343b (``test_torch_imex_ars443.py`` has ARS443 and SSP3332, whose
+first stage is explicit-free: its DSS takes the step's start itself), 2
+steps from the UMJS start at ne2 p4 nz6, with both vertical solvers, 1e-11
+relative per field; the step leaves its input alone.  Each JAX step is
+compiled once for the module."""
 
 import pytest
 
 from torch_port_common import ImexRuns, assert_imex_close
 
-SCHEMES = ("ars343", "ars343b", "ars443", "ssp3332")
+SCHEMES = ("ars343", "ars343b")
 
 
 @pytest.fixture(scope="module")

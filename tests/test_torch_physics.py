@@ -2,9 +2,9 @@
 JAX package's, float64 on the CPU, no JAX step compiled: the Held-Suarez,
 Kessler (with rain enough for several sedimentation subcycles), DCMIP
 simple-physics and Terminator updates on seeded inputs, each workflow
-process's ``perform`` on a seeded state, and the TropicalCyclone,
-Supercell and UMJS ``apply_perturbation`` states, all to 1e-12
-relative."""
+process's ``perform`` on a seeded state, and UMJS's
+``apply_perturbation``, all to 1e-12 relative (the TropicalCyclone and
+Supercell states are in ``test_torch_physics_states.py``)."""
 
 import types
 
@@ -13,21 +13,15 @@ import pytest
 import torch
 import jax.numpy as jnp
 
-import tempestmodel_tpu as tj
-import tempestmodel_tpu_torch as tt
 from tempestmodel_tpu.physics import dcmip_simple as j_simple
 from tempestmodel_tpu.physics import held_suarez as j_hs
 from tempestmodel_tpu.physics import kessler as j_kessler
 from tempestmodel_tpu.physics import terminator as j_term
-from tempestmodel_tpu.testcases import dcmip2016 as j_dcmip
-from tempestmodel_tpu.models import nh_model as j_nh
 from tempestmodel_tpu_torch._device import OnDevice
-from tempestmodel_tpu_torch.models import nh_model as t_nh
 from tempestmodel_tpu_torch.physics import dcmip_simple as t_simple
 from tempestmodel_tpu_torch.physics import held_suarez as t_hs
 from tempestmodel_tpu_torch.physics import kessler as t_kessler
 from tempestmodel_tpu_torch.physics import terminator as t_term
-from tempestmodel_tpu_torch.testcases import dcmip2016 as t_dcmip
 
 from torch_port_common import CPU, FIELDS, JaxUMJS, TorchUMJS, build_pair
 
@@ -241,47 +235,6 @@ def test_workflow_processes_match_jax(pair, moist, name):
         assert float(tm.user_data["PRECL"].max()) > 0.0
     if name.startswith("simple"):
         close(twp.precl, jwp.precl)
-
-
-def _sphere(ne, nz, ztop, constants=None):
-    kw = {} if constants is None else {"constants": constants}
-    jcfg = tj.ModelConfig(grid_kind=tj.GridKind.CUBED_SPHERE, ne=ne, order=4,
-                          nz=nz, ztop=ztop, dtype=jnp.float64,
-                          **({"constants": tj.constants.PhysicalConstants(
-                              **vars(constants))} if constants else {}))
-    tcfg = tt.ModelConfig(grid_kind=tt.GridKind.CUBED_SPHERE, ne=ne,
-                          order=4, nz=nz, ztop=ztop, dtype=torch.float64,
-                          **kw)
-    return (jcfg, j_nh.build_nh_sphere_geometry(jcfg, ztop=ztop),
-            tcfg, t_nh.build_nh_sphere_geometry(tcfg, ztop=ztop))
-
-
-@pytest.mark.parametrize("which", ["initial", "reference"])
-def test_tropical_cyclone_states_match_jax(which):
-    jtc, ttc = j_dcmip.TropicalCyclone(), t_dcmip.TropicalCyclone()
-    jcfg, jgeom, tcfg, tgeom = _sphere(2, 6, jtc.ztop)
-    want = getattr(jtc, f"{which}_state")(jgeom, jcfg.constants)
-    got = getattr(ttc, f"{which}_state")(tgeom, tcfg.constants, device=CPU)
-    assert set(got) == set(want)
-    for k in want:
-        close(got[k], want[k])
-    if which == "initial":
-        assert float(got["U"].abs().max()) > 0.0           # the vortex
-        assert got["Tracers"].shape == (3, 6, 8, 8, 6)
-
-
-@pytest.mark.parametrize("which", ["initial", "reference"])
-def test_supercell_states_match_jax(which):
-    jsc, tsc = j_dcmip.Supercell(), t_dcmip.Supercell()
-    tconst = tsc.constants_override(tt.ModelConfig().constants)
-    jconst = jsc.constants_override(tj.ModelConfig().constants)
-    assert tconst.earth_radius == jconst.earth_radius and tconst.omega == 0.0
-    jcfg, jgeom, tcfg, tgeom = _sphere(2, 6, jsc.ztop, constants=tconst)
-    want = getattr(jsc, f"{which}_state")(jgeom, jconst)
-    got = getattr(tsc, f"{which}_state")(tgeom, tconst, device=CPU)
-    assert set(got) == set(want)
-    for k in want:
-        close(got[k], want[k])
 
 
 def test_umjs_perturbation_matches_jax():

@@ -1,7 +1,8 @@
-"""The four explicit sub-schemes beside KGU(3,5): one ``first_step`` of the
-port's ``make_fast_step`` vs the JAX package's, float64, from JAX's initial
-state carried across as numpy.  (A file of its own: each scheme costs one
-compile of the JAX step.)"""
+"""Two of the four explicit sub-schemes beside KGU(3,5), forward Euler and
+RK4 (``test_torch_schemes_ssp.py`` has SSPRK3 and SSPRK53): one
+``first_step`` of the port's ``make_fast_step`` vs the JAX package's,
+float64, from JAX's initial state carried across as numpy.  (Files of
+their own: each scheme costs one compile of the JAX step.)"""
 
 import numpy as np
 import pytest
@@ -21,8 +22,12 @@ def pair():
     return build_pair()
 
 
-@pytest.mark.parametrize("scheme", ["fe", "rk4", "ssprk3", "ssprk53"])
+@pytest.mark.parametrize("scheme", ["fe", "rk4"])
 def test_other_explicit_schemes_one_step(pair, scheme):
+    check_one_step(pair, scheme)
+
+
+def check_one_step(pair, scheme):
     jcfg, jgeom, tcfg, tgeom = pair
     js, _ = initial_states(jcfg, jgeom, tcfg, tgeom)
     jc = jcfg.with_(explicit_scheme=tj.ExplicitSubScheme(scheme))

@@ -29,7 +29,12 @@ own where JAX's runs, and another that JAX's own still raises, so that a
 repair in the reference shows.
 
 Each JAX configuration compiles once per module (about 5-10 s on the
-x-z slice, 20 s on the sphere)."""
+x-z slice, 20 s on the sphere).  This file holds the pieces (no JAX step);
+the steps are in ``test_torch_staggering_steps.py`` (CPH, LEV, INT, CPH
+with nu4), ``test_torch_staggering_options.py`` (``upwind_thermo=False``,
+the explicit vertical path, INT with nu4, the ``"pallas"`` solver) and
+``test_torch_staggering_sphere.py`` (UMJS; JAX's own tail where it runs
+and where it raises)."""
 
 from unittest import mock
 
@@ -210,9 +215,10 @@ def port_steps(tcfg, tgeom, start, ref, **kw):
     return {k: v.numpy() for k, v in t_fast.unpack_state(d).items()}
 
 
-@pytest.fixture(scope="module")
-def runs():
-    """(configs, JAX's 3 steps) per case, computed at first use."""
+def case_runs():
+    """``get(name)``: (configs, JAX's 3 steps) per case, computed at first
+    use; the step tests (``test_torch_staggering_steps.py``,
+    ``_options.py``, ``_sphere.py``) keep one for their module."""
     cache = {}
 
     def get(name):
@@ -224,68 +230,14 @@ def runs():
     return get
 
 
-@pytest.mark.parametrize("fused", [None, False], ids=["fused", "unfused"])
-@pytest.mark.parametrize("name", list(CASES))
-def test_staggered_steps_match_make_nh_step(runs, name, fused):
+def check_steps(runs, name, fused):
+    """3 steps of ``make_fast_step`` against JAX's, 1e-11 relative per
+    field (U and V against their common scale)."""
     (jcfg, tcfg, jgeom, tgeom, start, ref), want = runs(name)
     got = port_steps(tcfg, tgeom, start, ref, fused=fused)
     assert got["Rt"].shape == start["Rt"].shape
     assert got["W"].shape == start["W"].shape
     assert_steps_close(got, want, start)
-
-
-def test_nu4_moves_the_staggered_step(runs):
-    """The x-z slice's nu4 is strong enough for the comparisons above to
-    see it: with it the state differs from the one without by far more
-    than the tolerance."""
-    without = runs("cph")[1]
-    with_nu4 = runs("cph_nu4")[1]
-    d = max(np.abs(with_nu4[k] - without[k]).max() / np.abs(without[k]).max()
-            for k in ("Rt", "W", "Rho"))
-    assert d > 1e-8
-
-
-def test_pallas_solver_is_the_dense_step(runs):
-    """``vertical_solver="pallas"`` solves a staggered state densely, as
-    the JAX package does: the same bits as ``"dense"``."""
-    (jcfg, tcfg, jgeom, tgeom, start, ref), want = runs("cph")
-    dense = port_steps(tcfg, tgeom, start, ref)
-    pallas = port_steps(tcfg.with_(vertical_solver="pallas"), tgeom, start,
-                        ref)
-    for k in FIELDS:
-        np.testing.assert_array_equal(pallas[k], dense[k], k)
-    assert_steps_close(pallas, want, start)
-
-
-def test_tail_by_rows_is_jax_tail_where_that_runs(runs):
-    """Under CPH JAX's own nu4 tail picks the right Jacobians: with the
-    Rayleigh finish off, ``jax_tail_by_rows`` gives its bits."""
-    (jcfg, _, jgeom, _, start, _), _ = runs("sphere_cph")
-    dss = j_nh.make_sphere_dss(jgeom)
-    s = {k: jnp.asarray(v) for k, v in start.items()}
-    cfg = jcfg.with_(rayleigh_damping=False)
-    own = j_hd.step_after_subcycle_nh(s, cfg.dt, cfg, jgeom, dss)
-    ours = jax_tail_by_rows(s, cfg.dt, cfg, jgeom, dss)
-    for k in FIELDS:
-        np.testing.assert_array_equal(np.asarray(ours[k]),
-                                      np.asarray(own[k]), k)
-
-
-def test_jax_tail_still_fails_under_lev(runs):
-    """The JAX package's nu4 tail under LEV, and its Rayleigh finish under
-    LEV and CPH, raise on the shapes (the port picks by rows instead)."""
-    (jcfg, _, jgeom, _, start, ref), _ = runs("sphere_lev")
-    dss = j_nh.make_sphere_dss(jgeom)
-    s = {k: jnp.asarray(v) for k, v in start.items()}
-    with pytest.raises(TypeError, match="incompatible shapes"):
-        j_hd.step_after_subcycle_nh(s, jcfg.dt, jcfg.with_(
-            rayleigh_damping=False), jgeom, dss)
-    for name in ("sphere_lev", "sphere_cph"):
-        (jcfg, _, jgeom, _, start, ref), _ = runs(name)
-        s = {k: jnp.asarray(v) for k, v in start.items()}
-        r = {k: jnp.asarray(v) for k, v in ref.items()}
-        with pytest.raises(TypeError, match="incompatible shapes"):
-            j_nonh.apply_rayleigh(s, jgeom, r, jcfg.dt)
 
 
 # ---------------------------------------------------------------------------

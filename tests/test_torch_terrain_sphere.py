@@ -164,11 +164,10 @@ def three_steps_match_jax(runs, name, solver, fused):
     assert max(errs.values()) < TOL, errs
 
 
-# JW's steps are held in tests/test_torch_terrain_jw.py (a JAX compile of
-# its own, run beside this file)
-STEPS = ([("rossby", s, f) for s in ("pallas", "banded")
-          for f in (None, False)]
-         + [("schar", "pallas", f) for f in (None, False)])
+# the Rossby case's steps are held in tests/test_torch_terrain_rossby.py
+# and JW's in tests/test_torch_terrain_jw.py (JAX compiles of their own, run
+# beside this file)
+STEPS = [("schar", "pallas", f) for f in (None, False)]
 
 
 @pytest.mark.parametrize("name,solver,fused", STEPS, ids=[

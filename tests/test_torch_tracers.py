@@ -1,9 +1,12 @@
 """Tracer transport of the port vs the JAX package's, float64 on the CPU:
 each function of ``fast/tracers.py``, the DSS and the hyperdiffusion tail
-with tracers in the state, and the moist slice as a whole (3 steps of
-``make_fast_step`` with three tracer species, fused and unfused, both
-Jacobian modes; ``make_fast_multistep``; the kernels a moist step goes
-through).
+with tracers in the state (``test_torch_tracers_tail.py``: the JAX
+Pallas kernels and tail beside them), and the kernels a moist step goes
+through.  The
+moist slice as a whole (3 steps of ``make_fast_step`` with three tracer
+species against the JAX package's, fused and unfused) is in
+``test_torch_tracers_steps.py`` (the exact Jacobian, ``make_fast_multistep``)
+and ``test_torch_tracers_reference.py`` (the reference Jacobian).
 
 Every comparison runs on tracers made from a seed: three species of
 different size, a tenth of the values small and negative, whole columns and
@@ -17,7 +20,6 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from tempestmodel_tpu import fast as j_fast
 from tempestmodel_tpu.fast import engine as j_engine, tracers as j_tracers
 from tempestmodel_tpu_torch import fast as t_fast
 from tempestmodel_tpu_torch.fast import engine as t_engine, tracers as t_tracers
@@ -51,8 +53,7 @@ def both(d):
             {k: torch.from_numpy(v.copy()) for k, v in d.items()})
 
 
-@pytest.fixture(scope="module")
-def fgs(pair):
+def make_fgs(pair):
     """Both z-first geometries with a terrain-like metric and a 3-D Jacobian
     that varies against the 2-D one, and two moist states."""
     jcfg, jgeom, _, _ = pair
@@ -60,6 +61,11 @@ def fgs(pair):
     jfg, tfg = terrain_like_pair(jfg, seed=2, vary_jac=True)
     d1, d2 = (moist_state_numpy(jcfg, jgeom, s) for s in (3, 13))
     return jfg, tfg, both(d1), both(d2)
+
+
+@pytest.fixture(scope="module")
+def fgs(pair):
+    return make_fgs(pair)
 
 
 def species_err(got, want, nz):
@@ -206,158 +212,13 @@ def test_species_do_not_mix(fgs):
         assert rel_err(b.numpy(), a.numpy()) > 0.1
 
 
-@pytest.fixture(scope="module")
-def jax_dss(fgs):
-    jfg, _, (jd, _), _ = fgs
-    return j_engine.apply_dss(jd, jfg)
-
-
-@pytest.mark.parametrize("merge", [(), ("state",), ("scalar2",),
-                                   ("state", "scalar2")],
-                         ids=["separate", "state", "scalar2", "both"])
-def test_apply_dss_with_tracers(fgs, jax_dss, merge):
-    _, tfg, (_, td), _ = fgs
-    want = jax_dss
-    got = t_engine.apply_dss(td, tfg, merge=merge)
-    plain = t_engine.apply_dss(td, tfg, merge=merge, plain=True)
-    assert set(got) == set(want) == set(ALL)
-    for k in ALL:
-        assert got[k].is_contiguous(), k
-        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
-                                   rtol=0, atol=1e-13 * float(
-                                       np.abs(want[k]).max()))
-        assert torch.equal(got[k], plain[k]), k
-
-
-def test_apply_dss_with_tracers_and_the_w_finish(pair, fgs):
-    """After a deferred fused stage with tracers: (U, V, W) in one launch,
-    the tracers beside it, against the JAX package's kernels in interpret
-    mode."""
-    from tempestmodel_tpu.fast import stage_pallas
-    from tempestmodel_tpu_torch.fast import stage_cuda
-    jcfg, _, tcfg, _ = pair
-    jfg, tfg, (jd, td), _ = fgs
-    jupd, jwf = stage_pallas.fused_stage(jd, jd, 25.0, jfg, jcfg.constants,
-                                         interpret=True, defer_w=True)
-    want = j_engine.apply_dss(jupd, jfg, w_finish=jwf)
-    tupd, twf = stage_cuda.fused_stage(td, td, 25.0, tfg, tcfg.constants,
-                                       defer_w=True)
-    for merge in ((), ("scalar2",)):
-        got = t_engine.apply_dss(tupd, tfg, w_finish=twf, merge=merge)
-        assert set(got) == set(ALL)
-        for k in ALL:
-            assert rel_err(got[k].numpy(), want[k]) < TOL, k
-
-
-@pytest.mark.parametrize("order", [4, 2, 0], ids=["nu4", "nu2", "none"])
-def test_step_after_subcycle_with_tracers(pair, fgs, order):
-    """The tail with tracers: their Laplacian beside the five fields', and
-    the per-element positivity filter before the last DSS -- also when
-    there is no hyperdiffusion at all."""
-    jcfg, _, tcfg, _ = pair
-    jfg, tfg, (jd, td), _ = fgs
-    kw = dict(hypervis_order=order) if order else dict(hyperdiffusion=False)
-    jc, tc = jcfg.with_(**kw), tcfg.with_(**kw)
-    want = jax.jit(lambda x: j_engine.step_after_subcycle(
-        x, jc.dt, jc, jfg))(jd)
-    got = t_engine.step_after_subcycle(td, tc.dt, tc, tfg)
-    assert set(got) == set(want) == set(ALL)
-    for k in ALL:
-        assert rel_err(got[k].numpy(), want[k]) < TOL, k
-    assert species_err(got["Tracers"].numpy(), want["Tracers"],
-                       tfg.nz) < TOL
-    assert rel_err(got["Tracers"].numpy(), td["Tracers"].numpy()) > 1e-3
-    if order == 4:
-        # the two nu4 kernels' wrappers (their plain versions here) around
-        # the same tracer code
-        fused = t_engine.step_after_subcycle(td, tc.dt, tc, tfg,
-                                             use_fused_hyper=True)
-        for k in ALL:
-            assert rel_err(fused[k].numpy(), got[k].numpy()) < TOL, k
-
-
 # --- the slice as a whole ---------------------------------------------------
 
-def _run_torch(tcfg, tgeom, d, nsteps, **kw):
-    first, step = t_fast.make_fast_step(tcfg, tgeom, device=CPU, **kw)
-    X0 = {k: torch.from_numpy(v.copy()) for k, v in d.items()}
-    X, c = first(X0)
-    for k in X0:                                  # the input is left alone
-        np.testing.assert_array_equal(X0[k].numpy(), d[k])
-    for _ in range(nsteps - 1):
-        X, c = step(X, c)
-    return X, c
-
-
 @pytest.fixture(scope="module")
-def three_steps(pair):
-    """3 moist steps of JAX ``make_fast_step`` per Jacobian mode (computed at
-    first use, kept for the module), and of the port per (mode, path)."""
-    jcfg, jgeom, tcfg, tgeom = pair
-    d = moist_state_numpy(jcfg, jgeom, seed=21)
-    cache = {}
-
-    def jax_run(mode):
-        if ("jax", mode) not in cache:
-            first, step = j_fast.make_fast_step(
-                jcfg.with_(jacobian_mode=mode), jgeom)
-            X, c = first({k: jnp.asarray(v) for k, v in d.items()})
-            for _ in range(2):
-                X, c = step(X, c)
-            cache["jax", mode] = ({k: np.asarray(v) for k, v in X.items()},
-                                  set(c))
-        return cache["jax", mode]
-
-    def torch_run(mode, fused):
-        if (mode, fused) not in cache:
-            cache[mode, fused] = _run_torch(
-                tcfg.with_(jacobian_mode=mode), tgeom, d, 3, fused=fused)
-        return cache[mode, fused]
-
-    return jax_run, torch_run, d
-
-
-@pytest.mark.parametrize("fused", [None, False], ids=["fused", "unfused"])
-@pytest.mark.parametrize("mode", ["exact", "reference"])
-def test_three_moist_steps_match_jax(three_steps, mode, fused):
-    """The same perturbed moist state through 3 Strang-HEVI steps of both
-    packages: 1e-11 relative on the five fields and on every species."""
-    jax_run, torch_run, d = three_steps
-    (want, wcarry), (got, carry) = jax_run(mode), torch_run(mode, fused)
-    assert set(got) == set(want) == set(ALL)
-    assert set(carry) == wcarry == {"Rt", "W", "Rho", "Tracers"}
-    for k in ALL:
-        assert rel_err(got[k].numpy(), want[k]) < 1e-11, k
-    assert species_err(got["Tracers"].numpy(), want["Tracers"],
-                       d["Rt"].shape[0]) < 1e-11
-    assert float(got["Tracers"].min()) >= 0.0
-    assert rel_err(got["Tracers"].numpy(), d["Tracers"]) > 1e-3
-
-
-def test_moist_fused_path_matches_unfused_path(three_steps):
-    _, torch_run, _ = three_steps
-    (a, _), (b, _) = torch_run("exact", None), torch_run("exact", False)
-    for k in ALL:
-        assert rel_err(a[k].numpy(), b[k].numpy()) < 1e-11, k
-
-
-def test_moist_multistep_equals_the_eager_steps(pair, three_steps):
-    """``make_fast_multistep(3)`` after ``first_step``: the bits of 3 eager
-    steps, the tracers and their carry included."""
-    _, _, tcfg, tgeom = pair
-    _, _, d = three_steps
-    X0 = {k: torch.from_numpy(v.copy()) for k, v in d.items()}
-    first, multi = t_fast.make_fast_multistep(tcfg, tgeom, 3, device=CPU)
-    X, c = multi(*first(X0))
-    first, step = t_fast.make_fast_step(tcfg, tgeom, device=CPU)
-    E, ce = first(X0)
-    for _ in range(3):
-        E, ce = step(E, ce)
-    assert set(X) == set(ALL) and set(c) == {"Rt", "W", "Rho", "Tracers"}
-    for k in ALL:
-        assert torch.equal(X[k], E[k]), k
-    for k in c:
-        assert torch.equal(c[k], ce[k]), k
+def moist_start(pair):
+    """The perturbed moist start the step tests share (z-first, numpy)."""
+    jcfg, jgeom, _, _ = pair
+    return moist_state_numpy(jcfg, jgeom, seed=21)
 
 
 @pytest.mark.parametrize("kw,want", [
@@ -374,7 +235,7 @@ def test_moist_multistep_equals_the_eager_steps(pair, three_steps):
      {"stage": 5, "uvw": 5, "update": 0, "banded": 0, "multi": 1, "pass1": 1,
       "pass2": 1, "scalar": 23, "vector": 2, "state": 0, "scalar2": 0})],
     ids=["predicates", "forced_unfused", "one_launch_dss", "banded_solver"])
-def test_a_moist_step_goes_through_the_wrappers(pair, three_steps,
+def test_a_moist_step_goes_through_the_wrappers(pair, moist_start,
                                                 monkeypatch, kw, want):
     """Calls of the kernels' wrappers in one moist ``step`` (on the CPU each
     runs its plain version): the dry step's, plus one ``dss_scalar`` per DSS
@@ -389,7 +250,7 @@ def test_a_moist_step_goes_through_the_wrappers(pair, three_steps,
     from tempestmodel_tpu_torch.fast import (dss_cuda, hyper_cuda, implicit,
                                              implicit_cuda, stage_cuda)
     _, _, tcfg, tgeom = pair
-    _, _, d = three_steps
+    d = moist_start
     if "dss_merge" not in kw and kw.get("fused", True):
         for name in t_engine.DSS_MERGE_DEFAULT:
             assert name in ("state", "scalar2")
@@ -463,11 +324,11 @@ def test_the_moist_baroclinic_wave_runs(pair):
 
 
 @pytest.mark.gpu
-def test_moist_kernel_path_matches_plain_path_on_the_card(pair, three_steps):
+def test_moist_kernel_path_matches_plain_path_on_the_card(pair, moist_start):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no interpret mode")
     _, _, tcfg, tgeom = pair
-    _, _, d = three_steps
+    d = moist_start
     X0 = {k: torch.from_numpy(v.copy()).cuda() for k, v in d.items()}
     outs = []
     for kw in ({}, {"fused": False}, {"plain": True}):
@@ -491,14 +352,14 @@ def test_moist_kernel_path_matches_plain_path_on_the_card(pair, three_steps):
 
 @pytest.mark.gpu
 def test_a_moist_banded_step_launches_the_multi_kernel_on_the_card(
-        pair, three_steps):
+        pair, moist_start):
     """With ``vertical_solver="banded"`` the tracer columns are solved by the
     ``banded_solve_multi`` kernel on the card, once per implicit half step,
     and the result is the plain path's."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no interpret mode")
     _, _, tcfg, tgeom = pair
-    _, _, d = three_steps
+    d = moist_start
     cfg = tcfg.with_(vertical_solver="banded")
     X0 = {k: torch.from_numpy(v.copy()).cuda() for k, v in d.items()}
     outs = []

@@ -4,14 +4,12 @@ over the Schar-profile mountain (tropopause profile, the lateral and top
 sponge) and of the hydrostatic mountain waves (Agnesi profile, the
 reference's inverted left sponge) at nex 8 nz 8 against JAX
 ``make_fast_step``, 1e-11 relative per field, in both layouts of the port's
-engine, fused and unfused; and the thermal bubble through the port's
-``Model`` and its CLI (``--case thermal_bubble``) against the JAX ``Model``
-at nex 4 nz 8.  Each JAX step is compiled once, at first use.
+engine, fused and unfused.  Each JAX step is compiled once, at first use.
+The sponges and the thermal bubble through the driver and the CLI are in
+``test_torch_xz_bubble.py``.
 
 V of an x-z slice carries roundoff only, so U and V are measured against
 their common scale, as ``tests/test_torch_cartesian.py`` does."""
-
-import re
 
 import numpy as np
 import jax.numpy as jnp
@@ -20,13 +18,10 @@ import torch
 
 import tempestmodel_tpu as tj
 import tempestmodel_tpu_torch as tt
-from tempestmodel_tpu import fast as j_fast, model as j_model
-from tempestmodel_tpu.io import output as j_output
+from tempestmodel_tpu import fast as j_fast
 from tempestmodel_tpu.models import nh_model as j_nh
 from tempestmodel_tpu.testcases import nonhydro_xz as j_xz
-from tempestmodel_tpu_torch import cli as t_cli, fast as t_fast, convert
-from tempestmodel_tpu_torch import model as t_model
-from tempestmodel_tpu_torch.io import output as t_output
+from tempestmodel_tpu_torch import fast as t_fast, convert
 from tempestmodel_tpu_torch.models import nh_model as t_nh
 from tempestmodel_tpu_torch.testcases import nonhydro_xz as t_xz
 
@@ -139,85 +134,3 @@ def test_three_steps_over_the_mountain_match_jax(runs, name, fused, swap):
     assert np.abs(want["W"]).max() > 0.0
     assert np.abs(want["U"] - start["U"]).max() > 1e-9 * np.abs(
         start["U"]).max()
-
-
-@pytest.mark.parametrize("name", list(CASES))
-def test_the_sponge_depends_on_x(runs, name):
-    """The lateral sponge reaches the Rayleigh terms: the damping factor of
-    Rt on the lowest level varies along x."""
-    configs, *_ = runs
-    _, tcfg, _, tgeom, _, ref = configs(name)
-    fg = t_fast.build_fast_geometry_cartesian(tgeom, dtype=torch.float64,
-                                              device=CPU)
-    fac, _ = t_fast.engine._rayleigh_terms(tcfg, tgeom, ref, fg)
-    assert float(fac["Rt"][0].max() - fac["Rt"][0].min()) > 1e-6
-    assert float(np.ptp(tgeom.topo)) > 0.5
-
-
-# ---------------------------------------------------------------------------
-# the thermal bubble through the driver and the CLI
-# ---------------------------------------------------------------------------
-
-BUBBLE_ARGV = ["--case", "thermal_bubble", "--resolution", "4", "--levels",
-               "8", "--dt", "0.05s", "--nsteps", "2", "--nohypervis",
-               "--checksum_dt", "0.05s"]
-BUBBLE_STEPS = 2
-
-
-@pytest.fixture(scope="module")
-def bubble():
-    """The JAX ``Model`` of the CLI's thermal bubble (periodic x-z, nex 4,
-    nz 8, dt 0.05 s, no hyperdiffusion), checksums every step."""
-    tc = j_xz.ThermalBubble()
-    assert not hasattr(tc, "bc_x")            # a periodic grid
-    cfg = tj.ModelConfig(
-        equation_set=tj.EquationSet.PRIMITIVE_NONHYDRO,
-        grid_kind=tj.GridKind.CARTESIAN_XZ, x_extent=tc.x_extent,
-        y_extent=tc.y_extent, ztop=tc.ztop, nex=4, nz=8, order=4, dt=0.05,
-        hyperdiffusion=False, dtype=jnp.float64)
-    cks = j_output.ChecksumOutput(0.05)
-    m = j_model.Model(cfg, tc, output_managers=[cks])
-    m.go(nsteps=BUBBLE_STEPS)
-    return {"state": {k: np.asarray(v) for k, v in m.state.items()},
-            "checksums": cks.records}
-
-
-def _checksums_close(got, want):
-    assert len(got) == len(want)
-    for g, w in zip(got, want):
-        assert abs(g["time"] - w["time"]) < 1e-12
-        for k in FIELDS:
-            assert abs(g[k] - w[k]) <= TOL * max(abs(w[k]), 1e-300) \
-                or abs(w[k]) < 1e-15, (k, g[k], w[k])
-
-
-def test_thermal_bubble_model_matches_jax(bubble):
-    args = t_cli.make_parser().parse_args(BUBBLE_ARGV + ["--vmethod", "V2"])
-    tc, cfg, wps = t_cli.configure(args)
-    assert isinstance(tc, t_xz.ThermalBubble) and not wps
-    assert cfg.grid_kind == tt.GridKind.CARTESIAN_XZ and cfg.nex == 4
-    cks = t_output.ChecksumOutput(0.05)
-    m = t_model.Model(cfg, tc, output_managers=[cks], device=CPU)
-    assert m.geom.bc_x == "periodic"
-    m.go(nsteps=BUBBLE_STEPS)
-    _compare(m.state, bubble["state"], TOL)
-    _checksums_close(cks.records, bubble["checksums"])
-
-
-def test_cli_runs_the_thermal_bubble(bubble, capsys):
-    """``--case thermal_bubble`` runs on the periodic grid (it was refused
-    as needing no-flux boundaries); its checksum lines equal the JAX
-    ``Model``'s records to 1e-11."""
-    rc = t_cli.main(BUBBLE_ARGV + ["--vmethod", "V2", "--device", "cpu"])
-    assert rc == 0
-    lines = [l for l in capsys.readouterr().out.splitlines()
-             if "..Checksums" in l]
-    assert len(lines) == BUBBLE_STEPS + 1
-    got = []
-    for line in lines:
-        rec = {"time": float(re.search(r"t=([0-9.e+-]+)s", line).group(1))}
-        rec.update({k: float(v) for k, v in
-                    re.findall(r"(\w+): ([-0-9.e+]+)", line)})
-        got.append(rec)
-    want = [dict(r, time=round(r["time"], 1)) for r in bubble["checksums"]]
-    _checksums_close(got, want)

@@ -3,8 +3,11 @@ built by the JAX package (the reference) and by the PyTorch port, on the
 CPU in float64.  Data crosses between the two as numpy arrays only."""
 
 import dataclasses
+import functools
+import os
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -25,6 +28,73 @@ torch.set_num_threads(1)
 
 CPU = torch.device("cpu")
 FIELDS = ("U", "V", "Rt", "Rho", "W")
+
+
+def _structure(v):
+    """A hashable description of a ``pallas_call`` parameter that holds all
+    of it: dataclasses field by field (the reprs of Pallas's grid and block
+    mappings leave out the index maps), jaxprs as their text with their
+    constants, arrays whole (a repr elides a long one)."""
+    from jax._src import core as jax_core
+    if dataclasses.is_dataclass(v) and not isinstance(v, type):
+        return (type(v).__name__,) + tuple(
+            (f.name, _structure(getattr(v, f.name)))
+            for f in dataclasses.fields(v))
+    if isinstance(v, jax_core.ClosedJaxpr):
+        return (str(v.jaxpr), _structure(v.consts))
+    if isinstance(v, jax_core.Jaxpr):
+        return str(v)
+    if isinstance(v, (np.ndarray, jax.Array)):
+        a = np.asarray(v)
+        return (a.shape, str(a.dtype), a.tobytes())
+    if isinstance(v, (tuple, list)):
+        return tuple(_structure(x) for x in v)
+    if hasattr(v, "items"):
+        return tuple(sorted((repr(k), _structure(x)) for k, x in v.items()))
+    return repr(v)
+
+
+def _trace_pallas_once():
+    """Trace each distinct Pallas kernel of the JAX reference once per
+    worker process while a ``test_torch_*`` test runs.
+
+    On the CPU the JAX package's Pallas kernels run in interpret mode, and
+    lowering a JAX step retraces every ``pallas_call`` of it into an XLA
+    loop: a step of the z-first engine makes 37 calls of 10 distinct
+    kernels, and this retracing is two thirds of lowering it.  Here the
+    traced loop of each distinct call (the kernel's jaxpr, every other
+    parameter of the call and the operands' types) is kept and evaluated
+    again instead: the same XLA program, so the same bits (checked on the
+    moist step of ``torch_tracer_steps``: lowering its ``first_step`` took
+    21 s instead of 43 s on the CPU, its ``step`` then 14 s instead of 44).
+    The JAX package's own tests (any test outside a ``test_torch_*`` file,
+    told by pytest's ``PYTEST_CURRENT_TEST``) take the original path."""
+    try:
+        from jax._src import core as jax_core
+        from jax._src.pallas import hlo_interpreter
+        original = hlo_interpreter.pallas_call_hlo_interpret
+    except (ImportError, AttributeError):    # another JAX: the plain path
+        return
+    traced = {}
+
+    def interpret(*args, **params):
+        if "test_torch_" not in os.environ.get("PYTEST_CURRENT_TEST", ""):
+            return original(*args, **params)
+        avals = [jax_core.get_aval(a) for a in args]
+        key = (_structure(params),
+               tuple((a.shape, str(a.dtype), a.weak_type) for a in avals))
+        if key not in traced:
+            traced[key] = jax.make_jaxpr(functools.partial(original,
+                                                           **params))(
+                *[jax.ShapeDtypeStruct(a.shape, a.dtype, weak_type=a.weak_type)
+                  for a in avals])
+        closed = traced[key]
+        return jax_core.eval_jaxpr(closed.jaxpr, closed.consts, *args)
+
+    hlo_interpreter.pallas_call_hlo_interpret = interpret
+
+
+_trace_pallas_once()
 
 # the configuration of tests/test_fast_engine.py
 BASE = dict(ne=4, order=4, nz=8, ztop=30000.0, dt=200.0,
@@ -185,3 +255,92 @@ def assert_imex_close(got, want, start, tol=1e-11):
         assert moved > 1e-9 * (np.abs(start[k]).max() + 1e-30), k
     assert max(errs.values()) < tol, errs
     return errs
+
+
+class RayleighUMJS:
+    """The UMJS case with its Rayleigh layer and reference state and the
+    off-centred implicit combination (0.1) at ne4 p4 nz8 in both packages,
+    from JAX's initial state: 3 steps of the JAX package's ``make_fast_step``
+    (``first_step`` and, with ``inner``, its ``make_fast_multistep`` of
+    ``inner`` steps, else two ``step`` calls; computed at first use) and of
+    the port's per (fused, DSS grouping), the port's inputs checked to be
+    left alone.  ``kw`` sets the rest (the Jacobian mode)."""
+
+    def __init__(self, inner=None, **kw):
+        from tempestmodel_tpu.models import nh_model as j_nh
+        from tempestmodel_tpu_torch.models import nh_model as t_nh
+        kw = dict(rayleigh_damping=True, off_centering=0.1, **kw)
+        jcfg, _, tcfg, _ = build_pair()
+        self.jcfg, self.tcfg = jcfg.with_(**kw), tcfg.with_(**kw)
+        tc = TorchUMJS(pert="exp", rayleigh=True)
+        jtc = JaxUMJS(pert="exp", rayleigh=True)
+        self.tgeom = t_nh.build_nh_sphere_geometry(
+            self.tcfg, ztop=tc.ztop, rayleigh=tc.rayleigh_strength)
+        self.jgeom = j_nh.build_nh_sphere_geometry(
+            self.jcfg, ztop=jtc.ztop, rayleigh=jtc.rayleigh_strength)
+        self.js = jtc.initial_state(self.jgeom, self.jcfg.constants,
+                                    dtype=jnp.float64)
+        self.jref = jtc.reference_state(self.jgeom, self.jcfg.constants,
+                                        dtype=jnp.float64)
+        self.ref = {k: np.array(v) for k, v in self.jref.items()}
+        self.state = {k: np.asarray(v) for k, v in self.js.items()}
+        self.inner = inner
+        self.cache = {}
+
+    def jax(self):
+        """(3-step state in the reference layout, z-first state, carry)."""
+        if "jax" not in self.cache:
+            from tempestmodel_tpu import fast as j_fast
+            from tempestmodel_tpu.fast import engine as j_engine
+            if self.inner is None:
+                first, step = j_fast.make_fast_step(self.jcfg, self.jgeom,
+                                                    ref_state=self.jref)
+                J, cj = first(j_fast.pack_state(self.js))
+                for _ in range(2):
+                    J, cj = step(J, cj)
+            else:
+                first, multi = j_engine.make_fast_multistep(
+                    self.jcfg, self.jgeom, self.inner, ref_state=self.jref)
+                J, cj = multi(*first(j_fast.pack_state(self.js)))
+            self.cache["jax"] = (
+                {k: np.asarray(v) for k, v in
+                 j_fast.unpack_state(J, self.jcfg.nz).items()},
+                {k: np.asarray(v) for k, v in J.items()}, cj)
+        return self.cache["jax"]
+
+    def port(self, fused=None, merge=None):
+        """The port's 3 steps (z-first tensors) per (fused, DSS grouping)."""
+        if (fused, merge) not in self.cache:
+            from tempestmodel_tpu_torch import fast as t_fast
+            first, step = t_fast.make_fast_step(
+                self.tcfg, self.tgeom, ref_state=self.ref, device=CPU,
+                fused=fused, dss_merge=merge)
+            X0 = convert.state_from_numpy(self.state, device=CPU)
+            keep = {k: v.clone() for k, v in X0.items()}
+            X, c = first(X0)
+            for k in X0:                          # the input is left alone
+                assert torch.equal(X0[k], keep[k]), k
+            for _ in range(2):
+                X, c = step(X, c)
+            self.cache[fused, merge] = X
+        return self.cache[fused, merge]
+
+    def check_rayleigh(self):
+        """The damping leaves Rho alone, the separate DSS launches with the
+        plain Rayleigh finish match JAX to 1e-11, and the Rayleigh finish
+        inside the one-launch DSS gives the same bits."""
+        from tempestmodel_tpu_torch.fast import engine as t_engine
+        fg = t_engine.build_fast_geometry(self.tgeom, dtype=torch.float64,
+                                          device=CPU)
+        fac, ref_term = t_engine._rayleigh_terms(self.tcfg, self.tgeom,
+                                                 self.ref, fg)
+        assert torch.equal(fac["Rho"], torch.ones_like(fac["Rho"]))
+        assert float(fac["U"].min()) < 1.0
+        assert float(ref_term["Rho"].abs().max()) == 0.0
+        J = self.jax()[1]
+        separate = self.port(merge=())
+        merged = self.port(merge=("state", "scalar2"))
+        for k in FIELDS:
+            assert bool(torch.isfinite(separate[k]).all()), k
+            assert rel_err(separate[k].numpy(), J[k]) < 1e-11, k
+            assert torch.equal(separate[k], merged[k]), k
