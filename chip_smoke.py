@@ -131,7 +131,14 @@ and runs these phases, each printing one JSON line:
             graph replay against 3 eager steps to 1e-13; then SPEX (three
             seeded species, a seeded W) and HS at ne4 nz8 in fp64: kernel
             path against plain path to 1e-11, launches a step exact, a
-            3-step graph replay against 3 eager steps to 1e-13;
+            3-step graph replay against 3 eager steps to 1e-13; then IMEX
+            outside the z-first envelope (ARS343, 2 steps of
+            ``make_nh_imex_step`` in fp64): the moist step with three
+            seeded species, the dense solver, the density current (nex 8
+            nz 16, walls, no halo) and CPH (ne4 nz8, Rayleigh layer, nu4),
+            kernel path against plain path to 1e-11, launches a step
+            exact; and ``Model(fuse_pallas=False)`` under ARS343 and
+            Strang-HEVI against the unfused path's plain version;
 5. flagship the main paths at full width: UMJS baroclinic wave, ne30 p4
             nz30 float32: ``make_fast_multistep`` (``first_step``, then
             replays of a 10-step CUDA graph), the eager fused path of
@@ -211,7 +218,15 @@ and runs these phases, each printing one JSON line:
             run: each scheme's dt by the rule of ``SPLIT_DTS`` (100 s where
             10 steps stay finite), ms/step by graph replay, device busy and
             launches a step, the banded, DSS and nu4 kernels' shares, peak
-            memory, max |W| after 10 and 40 steps;
+            memory, max |W| after 10 and 40 steps; then (5m) IMEX outside
+            the z-first envelope through ``Model.go`` under ARS343: the
+            moist baroclinic wave (ne30 p4 L30, 3 species, f32), the
+            density current at 5h's width and CPH on the flagship grid (no
+            Rayleigh layer); the moist wave's and CPH's dt by the rule of
+            ``IMEX_WIDE_DTS``; ms/step and ms a model second by graph
+            replay, device busy and launches a step, the kernels' shares,
+            peak memory, the global mass of each species before and after,
+            max |W| after 10 and 40 steps;
 6. dss      the step with the tail's DSS as four launches or as
             ``dss_state`` and the stages' Rt/Rho as two launches or as
             ``dss_scalar2``, eagerly and under graph replay, in turns; the
@@ -222,8 +237,9 @@ and runs these phases, each printing one JSON line:
             version's time and launches on the flagship runs, its launches
             on the IMEX, the Schar, the terrain, the no-flux, the
             shallow-water paths, the vertical options' (phases 4 and
-            5j), the staggerings' (phases 4 and 5k) and SPEX's and HS's
-            (phases 4 and 5l), and its Cartesian
+            5j), the staggerings' (phases 4 and 5k), SPEX's and HS's
+            (phases 4 and 5l) and the wider IMEX's (phases 4 and 5m), and
+            its Cartesian
             and shallow-water figures; the nu4 kernels' CPH and LEV
             instantiations on lines of their own (``nu4_pass1[CPH]``, ...).
 
@@ -5449,6 +5465,378 @@ def split_line(dev, smi, launches):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# IMEX outside the z-first envelope: tracers, the column solvers, no-flux
+# walls, the staggerings, and Model(fuse_pallas=False) (phases 4 and 5m)
+# ---------------------------------------------------------------------------
+
+IMEX_WIDE = ("moist", "dc", "cph")
+IMEX_WIDE_STEPS = 10        # steps of each Model.go call in phase 5m
+# the dt of the moist wave and of CPH on the flagship grid: 100 s where 10
+# steps stay finite, else the first of these that does (CPH at ne2 nz6
+# with its Rayleigh layer, CPU f64: finite for 2 ARS343 steps at 100 s and
+# non-finite in the third, in the JAX package's IMEX too; finite over 3 at
+# 50 and 25 s)
+IMEX_WIDE_DTS = (100.0, 50.0, 25.0, 10.0)
+
+
+def imex_wide_per_step(name, merge=("state", "scalar2")):
+    """Kernel launches per IMEX step (ARS343: four stages with a full-state
+    DSS each, three implicit solves, two DSS in the nu4 tail; self-starting)
+    of this slice's paths: ``"moist"`` (the tracers' flat field one more
+    ``dss_scalar`` in each DSS, one ``banded_solve_multi`` in each implicit
+    solve), ``"dense"`` (the dense column solve launches no kernel),
+    ``"dc"`` (the density current: no nu4, so the tail has no DSS; each
+    stage's DSS one ``dss_state`` with no halo), ``"cph"`` (each DSS
+    ``dss_vector`` and the scalars by row count, ``dss_scalar2`` and
+    ``dss_scalar``; the dense solve; the nu4 kernels' CPH field set) and
+    ``"unfused"`` (``fuse_pallas=False``: separate DSS launches, the
+    banded kernel's solve, the nu4 tail as tensor code)."""
+    n = imex_per_step(merge)
+    if name == "moist":
+        return dict(n, dss_scalar=n["dss_scalar"] + 6, banded_solve_multi=3)
+    if name == "dense":
+        return dict(n, fused_implicit_update=0)
+    zero = {k: 0 for k in KERNELS}
+    if name == "dc":
+        return dict(zero, dss_state=4, fused_implicit_update=3)
+    if name == "cph":
+        return dict(zero, dss_vector=6, dss_scalar2=6, dss_scalar=6,
+                    nu4_pass1=1, nu4_pass2=1)
+    if name == "unfused":
+        return dict(zero, dss_vector=6, dss_scalar=18, banded_solve=3)
+    raise ValueError(name)
+
+
+def imex_wide_config(name, dtype, ne, nz, dt, rayleigh=False):
+    """(testcase, cfg) of path ``name`` under ARS343: ``"moist"``, the
+    DCMIP2016 moist baroclinic wave (three species) at ``ne`` p4 ``nz``;
+    ``"umjs"``, UMJS; ``"dense"``, UMJS with ``vertical_solver="dense"``;
+    ``"dc"``, the
+    density current at nex ``ne``, nz ``nz`` (walls in x, Rayleigh sponges,
+    nu2 300: JAX's IMEX applies no nu2); ``"cph"``, UMJS under CPH (its
+    Rayleigh layer with ``rayleigh``).  nu4 1e15 on the sphere, the fused
+    implicit kernel's solver (``"pallas"``)."""
+    import tempestmodel_tpu_torch as tm
+    if name == "cph":
+        tc, cfg = stagger_config("CPH", dtype, ne, nz, rayleigh=rayleigh)
+        return tc, cfg.with_(dt=dt, timescheme=tm.TimestepSchemeType.ARS343)
+    if name == "dc":
+        tc, cfg, _ = noflux_setup("dc", dtype, ne, 1, nz)
+        return tc, cfg.with_(
+            equation_set=tm.EquationSet.PRIMITIVE_NONHYDRO, dt=dt,
+            timescheme=tm.TimestepSchemeType.ARS343)
+    from tempestmodel_tpu_torch.testcases.dcmip2016 import (
+        MoistBaroclinicWave)
+    from tempestmodel_tpu_torch.testcases.nonhydro_sphere import (
+        BaroclinicWaveUMJS)
+    tc = MoistBaroclinicWave() if name == "moist" \
+        else BaroclinicWaveUMJS(pert="exp")
+    cfg = tm.ModelConfig(
+        equation_set=tm.EquationSet.PRIMITIVE_NONHYDRO,
+        grid_kind=tm.GridKind.CUBED_SPHERE, ne=ne, order=ORDER, nz=nz,
+        ztop=tc.ztop, dt=dt, hyperdiffusion=True, nu_scalar=NU, nu_div=NU,
+        nu_vort=NU, vertical_solver="dense" if name == "dense" else "pallas",
+        timescheme=tm.TimestepSchemeType.ARS343, dtype=dtype)
+    return tc, cfg
+
+
+def check_imex_wide_slice(dev):
+    """Phase 4, IMEX outside the z-first envelope: 2 ARS343 steps in float64
+    on the card, the kernel path against the plain path (``plain=True``) to
+    1e-11 per field (U and V against their common scale), through
+    ``models/nh_model.make_nh_imex_step``: the moist step (UMJS ne4 p4 nz8,
+    three seeded species with negative values), the dense solver, the
+    density current (nex 8, nz 16; walls in x, no halo), CPH (UMJS ne4 nz8,
+    its Rayleigh layer, nu4; the start converted by ``Model``); then
+    ``Model(fuse_pallas=False)`` (UMJS ne4 nz8) under ARS343 and under
+    Strang-HEVI against the unfused path's plain version (``engine.
+    imex_step`` and ``make_fast_step`` with ``fused=False, plain=True``).
+    The kernel path's launches are held to ``imex_wide_per_step`` (the
+    Strang run to ``UNFUSED_PER_STEP``) exactly; the plain path launches
+    nothing.  Returns the launch counts of each kernel run."""
+    import tempestmodel_tpu_torch as tm
+    from tempestmodel_tpu_torch import fast
+    from tempestmodel_tpu_torch.fast import engine
+    from tempestmodel_tpu_torch.kernels import counts, synthetic
+    from tempestmodel_tpu_torch.model import Model
+    from tempestmodel_tpu_torch.models import nh_model
+    launched = {}
+    for name in ("moist", "dense", "dc", "cph"):
+        if name == "dc":
+            tc, cfg = imex_wide_config(name, torch.float64, 8, 16, DC_DT)
+        else:
+            tc, cfg = imex_wide_config(name, torch.float64, 4, 8, DT,
+                                       rayleigh=True)
+        m = Model(cfg, tc, device=dev)
+        S0, ref, geom = dict(m.state), m.reference, m.geom
+        what = f"{name} ARS343 {'nex8 nz16' if name == 'dc' else 'ne4 nz8'}" \
+               f" f64 dt{cfg.dt:g}"
+        if name == "moist":
+            t = synthetic.random_tracers_numpy(cfg.nz, 6, 16, 16, NTR,
+                                               cfg.order, seed=SEED + 51)
+            S0["Tracers"] = torch.as_tensor(np.ascontiguousarray(
+                np.moveaxis(t.reshape(NTR, cfg.nz, 6, 16, 16), 1, -1)),
+                device=dev)
+            what += f", {NTR} seeded species (negative values)"
+        del m
+        outs = {}
+        for path, plain in (("kernels", False), ("plain", True)):
+            counts.reset_launch_counts()
+            step = nh_model.make_nh_imex_step(cfg, geom, ref_state=ref,
+                                              device=dev, plain=plain)
+            S = S0
+            for _ in range(2):
+                S = step(S)
+            torch.cuda.synchronize()
+            outs[path] = S
+            if path == "kernels":
+                launched[name] = dict(counts.launch_counts)
+            elif any(counts.launch_counts.values()):
+                raise RuntimeError(f"IMEX {what}: the plain path launched "
+                                   f"{dict(counts.launch_counts)}")
+        per = imex_wide_per_step(name)
+        want = {k: 2 * v for k, v in per.items()}
+        if launched[name] != want:
+            raise RuntimeError(f"IMEX {what}: launch counts {launched[name]} "
+                               f"!= expected {want}")
+        errs = compare_xz(outs["kernels"], outs["plain"])
+        if "Tracers" in outs["plain"]:
+            errs["Tracers"] = max(
+                rel_err(outs["kernels"]["Tracers"][i],
+                        outs["plain"]["Tracers"][i]) for i in range(NTR))
+        emit({"phase": "imex_wide_slice", "config": what + ", 2 steps",
+              "kernels_vs_plain": errs, "tol": 1e-11,
+              "launches": launched[name], "launches_per_step": per})
+        if not max(errs.values()) < 1e-11:
+            raise RuntimeError(f"IMEX {what}: paths disagree {errs}")
+        check_finite(outs["kernels"], what, torch.float64)
+        del outs
+
+    # Model(fuse_pallas=False): ARS343 (no carry: a graph of 2 steps after
+    # its warm-up step) and Strang-HEVI (first_step, then a graph of 1)
+    for scheme in ("ars343", "strang"):
+        tc, cfg = imex_wide_config("umjs", torch.float64, 4, 8, DT)
+        cfg = cfg.with_(fuse_pallas=False,
+                        timescheme=tm.TimestepSchemeType(scheme))
+        what = f"Model(fuse_pallas=False) UMJS ne4 nz8 f64 {scheme}"
+        m = Model(cfg, tc, device=dev)
+        S0 = {k: v.clone() for k, v in m.state.items()}
+        counts.reset_launch_counts()
+        m.go(nsteps=2)
+        torch.cuda.synchronize()
+        name = f"unfused_{scheme}"
+        launched[name] = dict(counts.launch_counts)
+        counts.reset_launch_counts()
+        if scheme == "ars343":
+            per = imex_wide_per_step("unfused")
+            want = {k: 3 * v for k, v in per.items()}
+            step = engine.imex_step(cfg, m.geom, device=dev, plain=True,
+                                    fused=False)
+            P = S0
+            for _ in range(2):
+                P = step(P)
+        else:
+            per = UNFUSED_PER_STEP
+            want = expected_counts(per, 2)
+            first, step = fast.make_fast_step(cfg, m.geom, device=dev,
+                                              fused=False, plain=True)
+            X, c = first(fast.pack_state(S0, device=dev))
+            X, c = step(X, c)
+            P = fast.unpack_state(X)
+        torch.cuda.synchronize()
+        if any(counts.launch_counts.values()):
+            raise RuntimeError(f"{what}: the plain path launched "
+                               f"{dict(counts.launch_counts)}")
+        if launched[name] != want:
+            raise RuntimeError(f"{what}: launch counts {launched[name]} != "
+                               f"expected {want}")
+        errs = {k: rel_err(m.state[k], P[k]) for k in P}
+        emit({"phase": "imex_wide_slice", "config": what + ", 2 steps "
+              "through Model.go against the unfused path's plain version",
+              "kernels_vs_plain": errs, "tol": 1e-11,
+              "launches": launched[name], "launches_per_step": per,
+              "launches_counted": "the Model's graph: its warm-up step and "
+                                  "its captured steps (Strang: first_step "
+                                  "before them)"})
+        if not max(errs.values()) < 1e-11:
+            raise RuntimeError(f"{what}: paths disagree {errs}")
+        check_finite(m.state, what, torch.float64)
+        del m
+    return launched
+
+
+def imex_wide_line(dev, smi, launches):
+    """Phase 5m: IMEX outside the z-first envelope at full width, through
+    ``Model`` as a user builds it, ARS343: the DCMIP2016 moist baroclinic
+    wave (ne30 p4 L30, three species, f32), the density current at phase
+    5h's width (nex 128 p4 nz 128, dt 0.1 s, f32; walls in x, Rayleigh
+    sponges; nu2 300 set and, as in the JAX package's IMEX, not applied)
+    and CPH on the flagship grid (UMJS, no Rayleigh layer, f32).  The moist
+    wave's and CPH's dt: 100 s where 10 eager steps of
+    ``make_nh_imex_step`` stay finite, else the first of
+    ``IMEX_WIDE_DTS`` that does.  Each run: ``go`` of ``IMEX_WIDE_STEPS``
+    steps from the start (one graph: its warm-up step and its captured
+    steps counted, held to ``imex_wide_per_step``), one replay untimed,
+    one timed (CUDA events), one profiled (device busy, device launches,
+    the kernels' shares a step, the costliest kernels); peak memory; max
+    |W| after 10 and 40 steps; the global mass of each species before and
+    after (species 0 held to 1e-4 relative after 10 steps, no species
+    negative)."""
+    from torch.profiler import profile, ProfilerActivity
+    from tempestmodel_tpu_torch.kernels import counts
+    from tempestmodel_tpu_torch.model import Model
+    from tempestmodel_tpu_torch.models import nh_model
+    t0 = time.perf_counter()
+    dts, probes = {"dc": DC_DT}, {}
+    for name in ("moist", "cph"):
+        tc, cfg = imex_wide_config(name, torch.float32, NE, NZ, DT)
+        m = Model(cfg, tc, device=dev)      # the start as a user gets it
+        S0, geom = m.state, m.geom
+        del m
+        for dt in IMEX_WIDE_DTS:
+            step = nh_model.make_nh_imex_step(cfg.with_(dt=dt), geom,
+                                              device=dev)
+            S = S0
+            for _ in range(IMEX_WIDE_STEPS):
+                S = step(S)
+            finite = all(bool(torch.isfinite(v).all()) for v in S.values())
+            probes.setdefault(name, []).append(
+                {"dt": dt, "finite_after_10": finite,
+                 "max_abs_W_after_10": float(S["W"].abs().max())})
+            del step, S
+            if finite:
+                dts[name] = dt
+                break
+        if name not in dts:
+            raise RuntimeError(f"5m {name}: no dt of {IMEX_WIDE_DTS} holds "
+                               f"10 steps finite: {probes[name]}")
+        del geom, S0
+        torch.cuda.empty_cache()
+    emit({"phase": "imex_wide_dt", "dt_used": dts, "probes": probes,
+          "rule": "100 s where 10 steps stay finite, else the first of "
+                  f"{list(IMEX_WIDE_DTS)} that does (the density current: "
+                  f"dt {DC_DT:g} s, phase 5h's)",
+          "seconds": time.perf_counter() - t0, "card": smi})
+
+    for name in IMEX_WIDE:
+        if name == "dc":
+            tc, cfg = imex_wide_config(name, torch.float32, DC_NEX, DC_NZ,
+                                       DC_DT)
+            config = (f"density current nex{DC_NEX} p{ORDER} nz{DC_NZ} f32 "
+                      f"dt{DC_DT:g}, walls in x, Rayleigh sponges, nu2 "
+                      f"{DC_NU2:g} (not applied under IMEX), ARS343")
+        else:
+            tc, cfg = imex_wide_config(name, torch.float32, NE, NZ,
+                                       dts[name])
+            what = ("DCMIP2016 moist baroclinic wave, 3 species"
+                    if name == "moist"
+                    else "UMJS pert exp under CPH, no Rayleigh layer")
+            config = (f"{what}, ne{NE} p{ORDER} nz{NZ} f32 dt{cfg.dt:g} "
+                      f"nu{NU:g}, ARS343")
+        t0 = time.perf_counter()
+        m = Model(cfg, tc, device=dev)
+        setup_s = time.perf_counter() - t0
+        area = m.geom_dev.area3d.double()
+
+        def masses():
+            if "Tracers" not in m.state:
+                return None
+            t = m.state["Tracers"].double()
+            return [float((t[i] * area).sum()) for i in range(t.shape[0])]
+
+        mass0 = masses()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counts.reset_launch_counts()
+        t0 = time.perf_counter()
+        m.go(nsteps=IMEX_WIDE_STEPS)
+        sync(dev)
+        first_go_s = time.perf_counter() - t0
+        launches[f"imex_wide_{name}"] = got = dict(counts.launch_counts)
+        per = imex_wide_per_step(name)
+        want = {k: (IMEX_WIDE_STEPS + 1) * v for k, v in per.items()}
+        if got != want:
+            raise RuntimeError(f"5m {name}: launch counts {got} != "
+                               f"expected {want}")
+        check_finite(m.state, f"5m {name}", cfg.dtype)
+        w10 = float(m.state["W"].abs().max())
+        mass10 = masses()
+        if mass0 is not None:
+            if not abs(mass10[0] - mass0[0]) <= 1e-4 * abs(mass0[0]):
+                raise RuntimeError(f"5m {name}: the mass of species 0 moved "
+                                   f"from {mass0[0]} to {mass10[0]}")
+            if float(m.state["Tracers"].min()) < 0.0:
+                raise RuntimeError(f"5m {name}: negative tracer values")
+        m.go(nsteps=IMEX_WIDE_STEPS)        # a replay, untimed
+        sync(dev)
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        ev0.record()
+        m.go(nsteps=IMEX_WIDE_STEPS)        # a replay, timed
+        ev1.record()
+        sync(dev)
+        wall_ms = 1e3 * (time.perf_counter() - t0) / IMEX_WIDE_STEPS
+        ms = ev0.elapsed_time(ev1) / IMEX_WIDE_STEPS
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            m.go(nsteps=IMEX_WIDE_STEPS)    # a profiled replay
+            sync(dev)
+        busy = {"all": 0.0, "banded": 0.0, "dss": 0.0, "nu4": 0.0,
+                "fused_implicit": 0.0}
+        by_name, nkern = {}, 0
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = e.time_range.elapsed_us()
+            busy["all"] += us
+            by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + us
+            nkern += 1
+            if "solve_ring_kernel" in e.name or "multi_" in e.name \
+                    or "wide_kernel" in e.name:
+                busy["banded"] += us
+            elif "band_kernel" in e.name:
+                busy["dss"] += us
+            elif "nu4_kernel" in e.name:
+                busy["nu4"] += us
+            elif "fused_implicit" in e.name:
+                busy["fused_implicit"] += us
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        w40 = float(m.state["W"].abs().max())
+        finite40 = all(bool(torch.isfinite(v).all())
+                       for v in m.state.values())
+        mass40 = masses()
+        neg40 = (None if mass40 is None
+                 else float(m.state["Tracers"].min()) < 0.0)
+        emit({"phase": "imex_wide", "path": name, "config": config,
+              "dt": cfg.dt, "ms_per_step": ms,
+              "ms_per_model_second": ms / cfg.dt,
+              "timed_as": "graph replay through Model.go "
+                          f"({IMEX_WIDE_STEPS}-step graph), CUDA events",
+              "wall_ms_per_step": wall_ms,
+              "device_busy_ms_per_step": busy["all"] / 1e3 / IMEX_WIDE_STEPS,
+              "device_launches_per_step": nkern / IMEX_WIDE_STEPS,
+              "share_of_busy": {k: v / max(busy["all"], 1e-30)
+                                for k, v in busy.items() if k != "all"},
+              "top_kernels_ms_per_step": {
+                  k: v / 1e3 / IMEX_WIDE_STEPS for k, v in sorted(
+                      by_name.items(), key=lambda kv: -kv[1])[:8]},
+              "kernel_launches_per_step": {k: v for k, v in per.items()
+                                           if v},
+              "launches": got, "launches_counted":
+                  f"1 warm-up step + {IMEX_WIDE_STEPS} captured steps",
+              "first_go_s": first_go_s, "model_setup_s": setup_s,
+              "peak_device_GiB": peak, "max_abs_W_after_10": w10,
+              "max_abs_W_after_40": w40, "finite_after_40_steps": finite40,
+              "species_mass_before": mass0,
+              "species_mass_after_10": mass10,
+              "species_mass_after_40": mass40,
+              "negative_tracer_after_40": neg40, "card": smi})
+        del m, prof, area
+        torch.cuda.empty_cache()
+
+
 def main():
     args = sys.argv[1:]
     profile_path = None
@@ -5559,6 +5947,7 @@ def main():
     vert_launches = check_vertical_slice(dev)
     stag_launches = check_stagger_slice(dev)
     split_launches = check_split_slice(dev)
+    imex_wide_launches = check_imex_wide_slice(dev)
 
     # 5. the main paths at full width -------------------------------------
     X0 = fast.pack_state(state, device=dev)
@@ -5818,6 +6207,11 @@ def main():
     split_line(dev, smi, launches)
     emit({"phase": "split", "seconds": time.perf_counter() - t0})
 
+    # 5m. this slice's path: IMEX outside the z-first envelope at full width
+    t0 = time.perf_counter()
+    imex_wide_line(dev, smi, launches)
+    emit({"phase": "imex_wide", "seconds": time.perf_counter() - t0})
+
     if profile_path is not None:
         os.makedirs(os.path.dirname(os.path.abspath(profile_path)),
                     exist_ok=True)
@@ -5982,6 +6376,17 @@ def main():
                     launches[f"split_{scheme}"][name] < 1:
                 raise RuntimeError(f"{name} was not launched on the "
                                    f"{scheme} path")
+        # IMEX outside the z-first envelope: phase 5m's Model runs (each
+        # from counts at 0) and phase 4's kernel runs at small size
+        row["launches_imex_wide_paths"] = {
+            run: launches[f"imex_wide_{run}"][name] for run in IMEX_WIDE}
+        row["launches_imex_wide_slice"] = {
+            run: v[name] for run, v in imex_wide_launches.items()}
+        for run in IMEX_WIDE:
+            if imex_wide_per_step(run)[name] and \
+                    launches[f"imex_wide_{run}"][name] < 1:
+                raise RuntimeError(f"{name} was not launched on the IMEX "
+                                   f"{run} path")
         if name in ("banded_solve", "banded_solve_multi"):
             row["q_above_8"] = {k: v for k, v in rows["banded_wide"].items()
                                 if k.split()[0] == name}
@@ -6003,6 +6408,9 @@ def main():
                 if stag == "LEV":
                     srow["launches_int_path"] = \
                         launches["stagger_INT"][name]
+                else:       # phase 5m's CPH run under ARS343
+                    srow["launches_imex_cph_path"] = \
+                        launches["imex_wide_cph"][name]
                 kernels.append(srow)
     for path in ("noflux_dc", "noflux_channel"):
         for name, v in noflux_per_step(path.split("_")[1]).items():

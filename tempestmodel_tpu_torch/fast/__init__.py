@@ -53,11 +53,15 @@ configuration (``fused=False`` forces the unfused one) and runs eagerly;
 ``make_fast_imex_step`` runs the IMEX-ARK family (``IMEX_SCHEMES``, where
 ``fast_imex_supported`` holds) on the same pieces: the horizontal tendency
 as tensor code, the full-state DSS and the implicit kernels a stage, the
-nu4 kernels in the tail.  The device-mesh engine is not ported yet.
+nu4 kernels in the tail; the same body takes every configuration of
+``imex_supported`` (tracers, every solver and staggering, no-flux walls)
+through ``models/nh_model.make_nh_imex_step``.  The device-mesh engine is
+not ported yet.
 """
 
 from .engine import (FastGeometry, build_fast_geometry,
                      build_fast_geometry_cartesian, pack_state, unpack_state,
                      make_fast_step, make_fast_multistep, IMEX_SCHEMES,
-                     fast_imex_supported, make_fast_imex_step)
+                     fast_imex_supported, imex_supported,
+                     make_fast_imex_step)
 from . import engine

@@ -1384,7 +1384,8 @@ class _Setup:
     #                    # tendency`` bound), or None
 
 
-def _setup(cfg, geom, ref_state, device, plain, fused, dss_merge, swap_ab):
+def _setup(cfg, geom, ref_state, device, plain, fused, dss_merge, swap_ab,
+           column_filter: bool = True):
     """The set-up the Strang and the IMEX steppers share: the device, the
     fast geometry, the implicit solve's bandwidth, statics and (with
     ``vertical_solver == "pallas"`` on the fused path) the fused kernel's
@@ -1393,7 +1394,9 @@ def _setup(cfg, geom, ref_state, device, plain, fused, dss_merge, swap_ab):
     ``hyper_cuda.supported`` holds on the fused path, the uniform diffusion
     (its Laplacians by ``nu4_pass1`` where
     ``hyper_cuda.laplacians_supported`` holds on the fused path), the
-    Rayleigh terms and the DSS closure.  The caller checks the
+    Rayleigh terms and the DSS closure.  ``column_filter``: the implicit
+    solve ends the tracers' column update in the column positivity filter
+    (Strang's; the IMEX family runs none).  The caller checks the
     configuration's envelope first."""
     from . import implicit as fimp
     from . import hyper_cuda, implicit_cuda
@@ -1461,7 +1464,9 @@ def _setup(cfg, geom, ref_state, device, plain, fused, dss_merge, swap_ab):
         if "Tracers" in d:
             tr = ftr.update_column_tracers(
                 d, out["W"], fg, dti, statics=tr_statics, plain=plain)
-            out = dict(out, Tracers=ftr.filter_column(tr, fg))
+            if column_filter:
+                tr = ftr.filter_column(tr, fg)
+            out = dict(out, Tracers=tr)
         return out
 
     def dss_fn(d, rayleigh=None, w_finish=None, halo=None, walls_out=False):
@@ -1655,6 +1660,30 @@ def fast_imex_supported(cfg: ModelConfig, has_tracers: bool = False,
         cfg.with_(timescheme=TimestepSchemeType.STRANG), geom=geom)
 
 
+def imex_supported(cfg: ModelConfig, has_tracers: bool = False,
+                   geom=None) -> bool:
+    """Whether the port's IMEX-ARK step runs this configuration: wherever
+    the JAX package's ``Model`` runs an IMEX scheme on one device (its
+    reference-layout ``make_nh_imex_step`` outside ``fast_imex_supported``).
+    That is the Strang engine's grids (the sphere; Cartesian grids, periodic
+    or with no-flux walls along one axis: pass ``geom``), every column
+    solver and staggering, any ``upwind_thermo``, ``explicit_vertical`` and
+    uniform diffusion (the JAX package's IMEX reads none of the three), and
+    tracers in the LOR staggering, on any of those grids (no halo goes with
+    an IMEX state).  Outside: a device mesh, walls along both axes, and
+    tracers under CPH, LEV and INT, as in the Strang engine."""
+    from ..config import TimestepSchemeType
+    if cfg.timescheme.value not in IMEX_SCHEMES:
+        return False
+    if has_tracers and \
+            cfg.vertical_staggering != VerticalStaggering.LORENZ:
+        return False
+    return fast_engine_supported(
+        cfg.with_(timescheme=TimestepSchemeType.STRANG,
+                  explicit_vertical=False, nu_uniform_scalar=0.0,
+                  nu_uniform_vector=0.0), geom=geom)
+
+
 def make_fast_imex_step(cfg: ModelConfig, geom, ref_state=None, device=None,
                         plain: bool = False, dss_merge=None, swap_ab=None):
     """IMEX-ARK step on the z-first engine: ``step(state) -> state`` on
@@ -1674,9 +1703,24 @@ def make_fast_imex_step(cfg: ModelConfig, geom, ref_state=None, device=None,
     ``step`` packs the state onto ``device`` (default ``cuda``; raises when
     absent), swaps (a, b) on a swapped Cartesian engine, runs the stages,
     swaps back and unpacks.  ``plain``, ``dss_merge`` and ``swap_ab`` mean
-    what they mean in ``make_fast_step``."""
+    what they mean in ``make_fast_step``.  The configuration must lie in
+    ``fast_imex_supported``, the JAX package's z-first envelope; the rest of
+    ``imex_supported`` is ``models/nh_model.make_nh_imex_step``'s."""
+    if not fast_imex_supported(cfg, geom=geom):
+        raise NotImplementedError(
+            "configuration outside the IMEX engine's envelope (see "
+            "fast_imex_supported; models/nh_model.make_nh_imex_step takes "
+            "the rest of imex_supported)")
+    return imex_step(cfg, geom, ref_state, device, plain, dss_merge, swap_ab)
+
+
+def imex_step(cfg, geom, ref_state=None, device=None, plain=False,
+              dss_merge=None, swap_ab=None, fused=None):
+    """``make_fast_imex_step``'s ``step(state) -> state`` on any
+    configuration of ``imex_supported`` (``fused=False``: the unfused
+    path)."""
     body, fg = _imex_body(cfg, geom, ref_state, device, plain, dss_merge,
-                          swap_ab)
+                          swap_ab, fused)
     dev = fg.inv_mult.device
 
     def step(state):
@@ -1691,22 +1735,48 @@ def make_fast_imex_step(cfg: ModelConfig, geom, ref_state=None, device=None,
     return step
 
 
-def _imex_body(cfg, geom, ref_state, device, plain, dss_merge, swap_ab):
-    """``make_fast_imex_step``'s step on the engine's z-first layout,
-    ``body(d) -> d``, and the engine geometry."""
+def _imex_body(cfg, geom, ref_state, device, plain, dss_merge, swap_ab,
+               fused=None):
+    """The IMEX step on the engine's z-first layout, ``body(d) -> d``, and
+    the engine geometry, for any configuration of ``imex_supported``.
+
+    The JAX package's IMEX (``timestep/imex.py``) is held to here, quirks
+    included: the implicit Rt/Rho upwind penalty is on whatever
+    ``upwind_thermo`` says, ``explicit_vertical`` and the uniform (nu2)
+    diffusion do nothing, no halo goes with the state on a no-flux grid
+    (its DSS averages no wall), the tracers' horizontal tendency joins the
+    stage tendencies and their column update ends in no positivity filter
+    (the tail's per-element filter still runs).  The Schur solver takes the
+    estimated half-bandwidth, as in the Strang engine (the JAX package's
+    IMEX hands it q = 0, ROADMAP's caveats).  ``fused=False``: no kernel
+    of the fused path (the implicit solve through the banded kernel, the
+    nu4 tail as tensor code, the DSS as separate launches by default)."""
     import math
     from ..config import TimestepSchemeType
     from ..timestep.imex import _tableaux
+    from . import tracers as ftr
 
-    if not fast_imex_supported(cfg, geom=geom):
+    if not imex_supported(cfg, geom=geom):
         raise NotImplementedError(
-            "configuration outside the IMEX engine's envelope (see "
-            "fast_imex_supported)")
-    s = _setup(cfg, geom, ref_state, device, plain, None, dss_merge, swap_ab)
+            "configuration outside the port's IMEX envelope (see "
+            "imex_supported)")
+    # what the JAX package's IMEX does not read, set as its step behaves
+    icfg = cfg.with_(upwind_thermo=True, explicit_vertical=False,
+                     nu_uniform_scalar=0.0, nu_uniform_vector=0.0)
+    s = _setup(icfg, geom, ref_state, device, plain, fused, dss_merge,
+               swap_ab, column_filter=False)
     fg, constants, dt = s.fg, cfg.constants, cfg.dt
+    lorenz = cfg.vertical_staggering == VerticalStaggering.LORENZ
 
     def tend(u):
-        return horizontal_tendency(u, fg, constants)
+        out = horizontal_tendency(u, fg, constants)
+        if "Tracers" in u:
+            if not lorenz:
+                raise NotImplementedError(
+                    "tracers under the CPH, LEV and INT staggerings are not "
+                    "ported yet (see imex_supported)")
+            out["Tracers"] = ftr.horizontal_tendency_tr(u, fg)
+        return out
 
     def post(u, fresh=True):
         # the bottom boundary writes W in place: a state that is not a
@@ -1716,7 +1786,7 @@ def _imex_body(cfg, geom, ref_state, device, plain, dss_merge, swap_ab):
         return s.dss_fn(apply_w_boundary(u, fg))
 
     def tail(u):
-        return step_after_subcycle(u, dt, cfg, fg, rayleigh=s.rayleigh,
+        return step_after_subcycle(u, dt, icfg, fg, rayleigh=s.rayleigh,
                                    dss_fn=s.dss_fn,
                                    use_fused_hyper=s.hyper_fns is not None,
                                    hyper_fns=s.hyper_fns)

@@ -9,9 +9,13 @@ timestep scheme, the test case, the output managers and the workflow
 
 The steps run on the z-first engine (``fast/engine``): Strang-HEVI where
 ``fast_engine_supported`` holds, an IMEX-ARK scheme where
-``fast_imex_supported`` holds, the split-explicit (SPEX) and HighSpeed (HS)
-steps where ``split_supported`` holds (``models/split_explicit``,
-``models/highspeed``; no carry).  The z-first state and the carry stay
+``imex_supported`` holds (no carry), the split-explicit (SPEX) and
+HighSpeed (HS) steps where ``split_supported`` holds
+(``models/split_explicit``, ``models/highspeed``; no carry).
+``cfg.fuse_pallas=False`` runs Strang, ERK and IMEX on the engine's unfused
+path (no fused stage, implicit or nu4 kernel; the DSS as separate
+launches), as the JAX package runs them on its reference-layout engine;
+SPEX and HS have one path.  The z-first state and the carry stay
 resident on the device; ``model.state`` is unpacked to the reference
 layout only when it is read.  ``go`` runs the steps between two firings of
 any hook as one replay of a CUDA graph of that many steps
@@ -44,13 +48,12 @@ GRAPH_STEPS = 50
 # graphs kept per model (one per run length met); the oldest goes first
 GRAPHS_KEPT = 4
 
-_NOT_PORTED = ("is not ported yet (ROADMAP queue 1 items 4 and 6: tracers "
-               "on no-flux grids, with uniform diffusion or on the explicit "
-               "vertical path, walls on both axes, and under the CPH, LEV "
-               "and INT staggerings tracers, no-flux walls and uniform "
-               "diffusion; IMEX with tracers or under those staggerings); "
-               "SPEX and HS take the LOR staggering only, as in the JAX "
-               "package")
+_NOT_PORTED = ("is not ported yet (ROADMAP queue 1 item 3: tracers on "
+               "no-flux grids, with uniform diffusion or on the explicit "
+               "vertical path of a Strang or ERK step, walls on both axes, "
+               "and under the CPH, LEV and INT staggerings tracers, no-flux "
+               "walls and uniform diffusion); SPEX and HS take the LOR "
+               "staggering only, as in the JAX package")
 
 
 class WorkflowProcess:
@@ -123,7 +126,7 @@ class Model:
         self.device = resolve_device(device)
         if mesh is not None:
             raise NotImplementedError(
-                "a device mesh is not ported yet (ROADMAP queue 1 item 7)")
+                "a device mesh is not ported yet (ROADMAP queue 1 item 2)")
         # test-case physical-constants override (the reference's
         # TestCase::EvaluatePhysicalConstants hook, TestCase.h:103-110)
         if testcase is not None and hasattr(testcase, "physical_constants"):
@@ -190,10 +193,11 @@ class Model:
                                 TimestepSchemeType.ERK,
                                 TimestepSchemeType.SPEX,
                                 TimestepSchemeType.HS)
+        # fuse_pallas=False: the engine's unfused path
+        fused = None if cfg.fuse_pallas else False
         if self._split:
             from .models.split_explicit import split_supported
-            if not (cfg.fuse_pallas and split_supported(
-                    cfg, has_tracers=has_tr, geom=self.geom)):
+            if not split_supported(cfg, has_tracers=has_tr, geom=self.geom):
                 raise NotImplementedError(
                     f"this {ts.name} configuration (outside "
                     f"split_supported: the LOR staggering on the z-first "
@@ -201,22 +205,23 @@ class Model:
             first, step, fg = nh_model._step_fns(cfg, self.geom,
                                                  self.reference, self.device)
         elif not self._imex:
-            if not (cfg.fuse_pallas and engine.fast_engine_supported(
-                    cfg, has_tracers=has_tr, geom=self.geom)):
+            if not engine.fast_engine_supported(cfg, has_tracers=has_tr,
+                                                geom=self.geom):
                 raise NotImplementedError(
                     f"this configuration (outside fast_engine_supported) "
                     f"{_NOT_PORTED}")
             first, step, fg = engine._fast_fns(
                 cfg, self.geom, self.reference, None, self.device, False,
-                None, None, None)
+                fused, None, None)
         else:
-            if not (cfg.fuse_pallas and engine.fast_imex_supported(
-                    cfg, has_tracers=has_tr, geom=self.geom)):
+            if not engine.imex_supported(cfg, has_tracers=has_tr,
+                                         geom=self.geom):
                 raise NotImplementedError(
-                    f"this IMEX configuration (outside fast_imex_supported) "
+                    f"this IMEX configuration (outside imex_supported) "
                     f"{_NOT_PORTED}")
             body, fg = engine._imex_body(cfg, self.geom, self.reference,
-                                         self.device, False, None, None)
+                                         self.device, False, None, None,
+                                         fused)
 
             def first(d):
                 return body(d), {}
@@ -457,10 +462,10 @@ class Model:
     def profile_phases(self, reps: int = 5):
         """Per-phase timing in the reference FunctionTimer taxonomy.  It
         times the reference-layout operators phase by phase, which are not
-        ported yet (ROADMAP queue 1 item 6)."""
+        ported yet (ROADMAP queue 1 item 1)."""
         raise NotImplementedError(
             "profile_phases needs the reference-layout operators, which are "
-            "not ported yet (ROADMAP queue 1 item 6)")
+            "not ported yet (ROADMAP queue 1 item 1)")
 
     # ------------------------------------------------------------------
     def compute_error_norms(self, reference=None):

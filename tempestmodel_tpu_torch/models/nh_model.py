@@ -1,12 +1,12 @@
 """Nonhydrostatic model assembly: construction of the sphere and the
 Cartesian geometries, and the step of a configuration.
 
-Counterpart of ``build_nh_sphere_geometry``, ``build_nh_cartesian_geometry``
-and ``make_nh_step`` of the JAX package's ``models/nh_model.py``.  The
-JAX package's reference-layout engine is not ported: ``make_nh_step`` runs
-every scheme on the z-first engine (``fast/engine``; SPEX and HS through
-``models/split_explicit`` and ``models/highspeed``) and packs the state at
-its boundary.
+Counterpart of ``build_nh_sphere_geometry``, ``build_nh_cartesian_geometry``,
+``make_nh_step`` and ``make_nh_imex_step`` of the JAX package's
+``models/nh_model.py``.  The JAX package's reference-layout engine is not
+ported: both steps run every scheme on the z-first engine (``fast/engine``;
+SPEX and HS through ``models/split_explicit`` and ``models/highspeed``) and
+pack the state at their boundary.
 """
 
 from __future__ import annotations
@@ -98,3 +98,19 @@ def make_nh_step(cfg: ModelConfig, geom, ref_state=None, mesh=None,
         return run
 
     return wrap(first_fn), wrap(step_fn)
+
+
+def make_nh_imex_step(cfg: ModelConfig, geom, ref_state=None, mesh=None,
+                      device=None, plain: bool = False, fused=None):
+    """The IMEX-ARK step (self-starting, no carry) on reference-layout
+    states, the JAX package's ``make_nh_imex_step``: ``step(state) ->
+    state`` on the z-first engine's IMEX body for any configuration of
+    ``engine.imex_supported`` (the JAX package's semantics, quirks included:
+    see ``engine._imex_body``).  The state is packed onto ``device`` (default
+    ``cuda``; raises when absent) and unpacked on the way out.
+    ``fused=False`` runs the unfused path; ``plain=True`` every kernel's
+    plain version."""
+    from ..fast import engine
+    if mesh is not None:
+        raise NotImplementedError("a device mesh is not ported yet")
+    return engine.imex_step(cfg, geom, ref_state, device, plain, fused=fused)

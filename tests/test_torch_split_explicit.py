@@ -4,9 +4,13 @@ reference-layout engine; the JAX package's z-first engine refuses SPEX):
 UMJS ne2 p4 nz6 with two seeded tracer species, and the x-z thermal bubble
 of ``tests/test_split_explicit.py``; 3 steps, float64, 1e-11 relative per
 field, each from a seeded W (so that no upwind sign is decided by
-roundoff).  Also the fast operator's bands against JAX's
-``_extract_fast_bands`` (1e-13), the kernel wrappers' launches a step,
-``Model`` and the CLI against ``make_nh_step``.
+roundoff).  SPEX and HS on a no-flux grid: the density current of
+``test_torch_noflux.CASES`` (walls in x, nu2, Rayleigh sponges) at dt 0.1
+s against ``make_nh_step`` with each scheme, 3 steps, 1e-11 (U and V
+against their common scale: V of an x-z slice is roundoff).  Also the
+fast operator's bands against JAX's ``_extract_fast_bands`` (1e-13), the
+kernel wrappers' launches a step, ``Model`` and the CLI against
+``make_nh_step``.
 
 Each JAX configuration compiles one step: its ``first_step`` (a jit of the
 step, which ignores the carry) is called three times."""
@@ -241,6 +245,31 @@ def test_model_and_cli_run_spex(tmp_path):
     for k in FIELDS:
         assert torch.equal(m.state[k], saved[-1][0][k]), k
         assert torch.equal(m.state[k], m2.state[k]), k
+
+
+@pytest.mark.parametrize("scheme", ["spex", "hs"])
+def test_split_schemes_on_the_density_current_match_jax(scheme):
+    """The no-flux grid the ``split_supported`` check admits: 3 steps of
+    the port's ``make_nh_step`` against JAX's (the reference state of the
+    sponges given to both)."""
+    from test_torch_noflux import _configs, _errors
+    jtc, ttc, jcfg, tcfg, jgeom, tgeom = _configs("density_current")
+    jcfg = jcfg.with_(timescheme=tj.TimestepSchemeType(scheme))
+    tcfg = tcfg.with_(timescheme=tt.TimestepSchemeType(scheme))
+    assert jcfg.dt == 0.1 and tgeom.bc_x == "noflux"
+    assert t_se.split_supported(tcfg, geom=tgeom)
+    js = jtc.initial_state(jgeom, jcfg.constants)
+    jref = jtc.reference_state(jgeom, jcfg.constants)
+    want = _jax_steps(jcfg, jgeom, js, ref_state=jref)
+    start = {k: np.asarray(v) for k, v in js.items()}
+    got = _port_steps(tcfg, tgeom, start, ref_state={
+        k: torch.from_numpy(np.array(v)) for k, v in jref.items()})
+    got = {k: v.numpy() for k, v in got.items()}
+    for k in FIELDS:
+        assert np.isfinite(got[k]).all(), k
+        assert np.abs(want[k] - start[k]).max() > 0.0 or k == "V", k
+    errs = _errors(got, want)
+    assert max(errs.values()) < 1e-11, errs
 
 
 def test_split_supported_refuses_what_jax_refuses(sphere):
