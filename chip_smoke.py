@@ -226,7 +226,18 @@ and runs these phases, each printing one JSON line:
             ``IMEX_WIDE_DTS``; ms/step and ms a model second by graph
             replay, device busy and launches a step, the kernels' shares,
             peak memory, the global mass of each species before and after,
-            max |W| after 10 and 40 steps;
+            max |W| after 10 and 40 steps; then (5n) the device mesh: the
+            flagship on a ``ShardMesh`` of the card at 2 x 2 and 1 x 3
+            (``MESH_SHAPES``), a 10-step graph of the sharded step within
+            1e-4 relative per field of the single-device replay, the two
+            replays timed in turns, launches exact, the exchange tally of
+            an eager step (7 DSS calls of ``expected_exchange_bytes``); the
+            flagship ``Model``'s ``profile_phases`` on one device and on
+            the 2 x 2 mesh; ``DistMesh`` over NCCL is not run (one card);
+            its kernels at the shards' blocks are held in phase 3 and the
+            sharded step at ne4 in float64 in phase 4 (``check_mesh_slice``:
+            2 x 2 and 1 x 4, inline and overlap, against one device to
+            1e-11, the tally exact, a graph bit for bit its eager steps);
 6. dss      the step with the tail's DSS as four launches or as
             ``dss_state`` and the stages' Rt/Rho as two launches or as
             ``dss_scalar2``, eagerly and under graph replay, in turns; the
@@ -238,8 +249,9 @@ and runs these phases, each printing one JSON line:
             on the IMEX, the Schar, the terrain, the no-flux, the
             shallow-water paths, the vertical options' (phases 4 and
             5j), the staggerings' (phases 4 and 5k), SPEX's and HS's
-            (phases 4 and 5l) and the wider IMEX's (phases 4 and 5m), and
-            its Cartesian
+            (phases 4 and 5l), the wider IMEX's (phases 4 and 5m) and the
+            mesh's (phases 4 and 5n, with the kernel's figures at each
+            shard's block from phase 3), and its Cartesian
             and shallow-water figures; the nu4 kernels' CPH and LEV
             instantiations on lines of their own (``nu4_pass1[CPH]``, ...).
 
@@ -5837,6 +5849,415 @@ def imex_wide_line(dev, smi, launches):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the device mesh: the z-first engine sharded over a ShardMesh on the card
+# ---------------------------------------------------------------------------
+
+# the flagship's element-aligned meshes (A = 120, p = 4: 1 x 4 splits an
+# element, b = 30) and the small check's
+MESH_SHAPES = ((2, 2), (1, 3))
+MESH_SMALL = ((2, 2), (1, 4))
+MESH_TURNS = 3              # timed replays of each graph, in turns
+MESH_KERNELS = ("fused_stage", "fused_implicit_update", "nu4_pass1",
+                "nu4_pass2")
+
+
+def mesh_per_step(mx, my):
+    """Launches of one sharded Strang step on the fused path: each shard
+    launches the single-device step's stage, implicit and nu4 kernels at
+    its block's extents; no DSS kernel runs (the exchange is tensor
+    code)."""
+    n = mx * my
+    out = {k: 0 for k in KERNELS}
+    out.update(fused_stage=5 * n, fused_implicit_update=n, nu4_pass1=n,
+               nu4_pass2=n)
+    return out
+
+
+def mesh_counts(mx, my, nsteps):
+    """``nsteps`` steps and one ``first_step`` (one more implicit solve a
+    shard)."""
+    want = {k: v * (nsteps + 1) for k, v in mesh_per_step(mx, my).items()}
+    want["fused_implicit_update"] += mx * my
+    return want
+
+
+def check_mesh_kernels(geom, state, rows, dev):
+    """Phase 3, the mesh's shapes: ``fused_stage`` (one base and two),
+    ``nu4_pass1``, ``nu4_pass2`` and ``fused_implicit_update`` on the block
+    of shard 0 of each mesh of ``MESH_SHAPES`` (the flagship's geometry
+    sliced by ``mesh_engine.local_geometry``, with a terrain-like metric),
+    against their plain versions, float32 and float64; the float32 times,
+    plain times and bounds go to ``rows["mesh_shapes"]``.  The stage and
+    nu4 inputs are random; the implicit update starts from the block of the
+    balanced flagship state with per-mille noise, as in phase 3."""
+    import tempestmodel_tpu_torch as tm
+    from tempestmodel_tpu_torch import fast
+    from tempestmodel_tpu_torch.fast import (hyper_cuda, implicit_cuda,
+                                             implicit as fimp, mesh_engine,
+                                             stage_cuda)
+    from tempestmodel_tpu_torch.kernels import synthetic
+    from tempestmodel_tpu_torch.kernels.timing import time_cuda
+    from tempestmodel_tpu_torch.models import nonhydro
+    out = rows.setdefault("mesh_shapes", {})
+    consts = tm.ModelConfig().constants
+    for dtype in (torch.float32, torch.float64):
+        tag = "f32" if dtype == torch.float32 else "f64"
+        f32 = dtype == torch.float32
+        esize = 4 if f32 else 8
+        full = fast.build_fast_geometry(geom, dtype=dtype, device=dev)
+        q = nonhydro.estimate_bandwidth(geom, consts)
+        statics = fimp.statics_to_device(
+            nonhydro.band_assembly_statics(geom, q), dtype, dev)
+        for mx, my in MESH_SHAPES:
+            loc = mesh_engine.local_geometry(full, mx, my, 0, 0)
+            fgt = synthetic.terrain_like(loc, seed=SEED)
+            fgj = synthetic.terrain_like(loc, seed=SEED, vary_jac=True)
+            K, P, a, b = fgt.nz, 6, fgt.A, fgt.B
+            shape = f"{mx}x{my}"
+            nlev, nint, n2d = K * P * a * b, (K + 1) * P * a * b, P * a * b
+            ue = synthetic.random_state(fgt, seed=1)
+            b1 = synthetic.random_state(fgt, seed=2)
+            b2 = synthetic.random_state(fgt, seed=3)
+            two = ((0.3, b1), (0.7, b2))
+            sst = stage_cuda.stage_statics(fgt)
+            tol = 1e-4 if f32 else 1e-11
+            err = 0.0
+            for base in (b1, two):
+                got, gwf = stage_cuda.fused_stage(base, ue, 12.5, fgt, consts,
+                                                  defer_w=True, statics=sst)
+                sync(dev)
+                want, wwf = stage_cuda.fused_stage_plain(
+                    base, ue, 12.5, fgt, consts, defer_w=True)
+                err = max(err, max_rel_err(
+                    [got[k] for k in stage_cuda.STATE4] + [gwf["dW"]],
+                    [want[k] for k in stage_cuda.STATE4] + [wwf["dW"]]))
+            if not err <= tol:
+                raise RuntimeError(f"fused_stage {tag} at {shape} "
+                                   f"{[K, P, a, b]}: rel err {err} > {tol}")
+            res = {"fused_stage": {"shape": [K, P, a, b],
+                                   "max_abs_err": err}}
+            if f32:
+                tb, c1, x1, c2, x2 = stage_cuda._split_base(b1)
+                ms = time_cuda(lambda: stage_cuda._fused_stage_cuda(
+                    tb, c1, x1, c2, x2, ue, 12.5, fgt, consts, sst), [()],
+                    reps=20, queued=True)
+                plain_ms = time_cuda(lambda: stage_cuda.fused_stage_plain(
+                    b1, ue, 12.5, fgt, consts, defer_w=True), [()], reps=3,
+                    warmup=1)
+                nb = ((4 + 4 + 5) * nlev + nint + 12 * n2d
+                      + sst.tab.numel()) * esize
+                bnd, by = bound_ms(nb, 400 * nlev, dtype)
+                res["fused_stage"].update(ms=ms, plain_ms=plain_ms,
+                                          bound_ms=bnd, bound_by=by)
+            # nu4 passes
+            hst = hyper_cuda.hyper_statics(fgj)
+            d = synthetic.random_state(fgj, seed=4)
+            w = synthetic.random_state(fgj, seed=5)
+            nu = (1.0e-3, 1.0e-2, 0.7e-2, 1.0)
+            g1 = hyper_cuda.nu4_pass1(d, fgj, hst)
+            sync(dev)
+            e1 = max(rel_err(g1[k], v) for k, v in hyper_cuda.nu4_pass1_plain(
+                d, fgj, hst).items())
+            g2 = hyper_cuda.nu4_pass2(d, w, *nu, fgj, hst)
+            sync(dev)
+            w2 = hyper_cuda.nu4_pass2_plain(d, w, *nu, fgj, hst)
+            e2 = max(max(rel_err(g2[k], w2[k]),
+                         rel_err(g2[k] - d[k], w2[k] - d[k])) for k in w2)
+            for name, e in (("nu4_pass1", e1), ("nu4_pass2", e2)):
+                if not e <= tol:
+                    raise RuntimeError(f"{name} {tag} at {shape}: rel err "
+                                       f"{e} > {tol}")
+                res[name] = {"shape": [K, P, a, b], "max_abs_err": e}
+            if f32:
+                scal2 = (nu[1], nu[2], nu[3], nu[3] * nu[0])
+                for name, launch, plain, nfields in (
+                        ("nu4_pass1",
+                         lambda: hyper_cuda._launch(
+                             "nu4_pass1", d, None, (1.0, 1.0, 0.0, 0.0), hst),
+                         lambda: hyper_cuda.nu4_pass1_plain(d, fgj, hst), 2),
+                        ("nu4_pass2",
+                         lambda: hyper_cuda._launch("nu4_pass2", w, d, scal2,
+                                                    hst),
+                         lambda: hyper_cuda.nu4_pass2_plain(d, w, *nu, fgj,
+                                                            hst), 3)):
+                    ms = time_cuda(launch, [()], reps=20, queued=True)
+                    plain_ms = time_cuda(plain, [()], reps=3, warmup=1)
+                    nb = (nfields * (4 * nlev + nint) + 8 * n2d
+                          + hst.ds.numel()) * esize
+                    bnd, by = bound_ms(nb, 220 * nint, dtype)
+                    res[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bnd,
+                                     bound_by=by)
+            # the implicit update on the block's columns
+            ist = implicit_cuda.implicit_statics(statics, fgt)
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            s = {k: v[..., :a, :b].to(dtype).contiguous()
+                 for k, v in fast.pack_state(state, device=dev).items()}
+            for k in ("U", "V", "Rt", "Rho"):
+                s[k] = s[k] * (1.0 + 1e-3 * randn(s[k].shape, dtype, gen,
+                                                  dev))
+            s["W"] = 0.01 * randn(s["W"].shape, dtype, gen, dev)
+            x0, aux = fimp._prep_aux(s, fgt, None, interfaces=False)
+            got = implicit_cuda.fused_implicit_update(x0, x0, aux, ist,
+                                                      0.5 * DT, consts)
+            sync(dev)
+            want = implicit_cuda.fused_implicit_update_plain(
+                x0, x0, aux, ist, 0.5 * DT, consts)
+            e = max_rel_err(got, want)
+            itol = 2e-3 if f32 else 1e-10
+            if not e <= itol:
+                raise RuntimeError(f"fused_implicit_update {tag} at {shape}: "
+                                   f"rel err {e} > {itol}")
+            ncol = x0[0].shape[1]
+            res["fused_implicit_update"] = {"shape": [K, ncol],
+                                            "max_abs_err": e}
+            if f32:
+                ms = time_cuda(lambda: implicit_cuda.fused_implicit_update(
+                    x0, x0, aux, ist, 0.5 * DT, consts), [()], reps=10,
+                    queued=True)
+                plain_ms = time_cuda(
+                    lambda: implicit_cuda.fused_implicit_update_plain(
+                        x0, x0, aux, ist, 0.5 * DT, consts), [()], reps=2,
+                    warmup=1)
+                nb = ((4 + 4 + 2) * K * ncol + (1 + 5 + 1) * (K + 1) * ncol
+                      + 4 * ncol + ist.tab.numel()) * esize
+                n = 3 * K + 1
+                flops = ncol * (n * (q * (2 * q + 3) + 2 * q + 1)
+                                + (K + 1) * 400)
+                bnd, by = bound_ms(nb, flops, dtype)
+                res["fused_implicit_update"].update(
+                    ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by)
+            emit({"phase": "mesh_kernel", "dtype": tag, "mesh": [mx, my],
+                  "kernels": res})
+            if f32:
+                for name, r in res.items():
+                    out.setdefault(name, {})[shape] = r
+            del ue, b1, b2, d, w, g1, g2, w2, got, want, x0, aux, s
+        del full
+        torch.cuda.empty_cache()
+
+
+def mesh_config(dtype, ne, nz):
+    import tempestmodel_tpu_torch as tm
+    from tempestmodel_tpu_torch.models import nh_model
+    from tempestmodel_tpu_torch.testcases.nonhydro_sphere import (
+        BaroclinicWaveUMJS)
+    tc = BaroclinicWaveUMJS(pert="exp")
+    cfg = tm.ModelConfig(
+        grid_kind=tm.GridKind.CUBED_SPHERE,
+        equation_set=tm.EquationSet.PRIMITIVE_NONHYDRO, ne=ne, order=ORDER,
+        nz=nz, ztop=tc.ztop, dt=DT, hyperdiffusion=True, nu_scalar=NU,
+        nu_div=NU, nu_vort=NU, vertical_solver="pallas", dtype=dtype)
+    geom = nh_model.build_nh_sphere_geometry(cfg, ztop=tc.ztop)
+    return tc, cfg, geom
+
+
+def check_mesh_slice(dev):
+    """Phase 4, the mesh: UMJS ne4 p4 nz6 float64 on a ``ShardMesh`` of the
+    card at 2 x 2 and 1 x 4, 2 steps (``first_step`` and one step), inline
+    and overlap, against the single-device step to 1e-11 per field; the
+    exchange tally exactly 14 DSS calls of ``expected_exchange_bytes``,
+    point-to-point only; the launches exact; a 2-step graph of the sharded
+    step against its eager steps, bit for bit.  Returns the launches of each
+    run."""
+    from tempestmodel_tpu_torch import fast
+    from tempestmodel_tpu_torch.fast import mesh_dss
+    from tempestmodel_tpu_torch.kernels import counts
+    from tempestmodel_tpu_torch.parallel.mesh import ShardMesh
+    tc, cfg, geom = mesh_config(torch.float64, 4, 6)
+    X0 = fast.pack_state(tc.initial_state(geom, cfg.constants,
+                                          dtype=cfg.dtype, device=dev),
+                         device=dev)
+    first, step = fast.make_fast_step(cfg, geom, device=dev)
+    X, c = step(*first(X0))
+    A, nz = 4 * ORDER, cfg.nz
+    launched = {}
+    for mx, my in MESH_SMALL:
+        got = {}
+        for overlap in (False, True):
+            mesh = ShardMesh(mx, my, device=dev)
+            mc = cfg.with_(halo_overlap=overlap)
+            fm, sm = fast.make_fast_step(mc, geom, mesh=mesh)
+            counts.reset_launch_counts()
+            mesh.tally.reset()
+            Xm, cm = sm(*fm(mesh.shard(X0)))
+            sync(dev)
+            launches = dict(counts.launch_counts)
+            if launches != mesh_counts(mx, my, 1):
+                raise RuntimeError(f"mesh {mx}x{my}: launches {launches} != "
+                                   f"{mesh_counts(mx, my, 1)}")
+            per_call = mesh_dss.expected_exchange_bytes(
+                geom.edge_meta, mx, my, A, 5 * nz + 1, 8)
+            t = mesh.tally
+            if set(t.counts) != {"collective-permute"} or \
+                    sum(t.bytes_.values()) != 14 * per_call:
+                raise RuntimeError(f"mesh {mx}x{my}: tally {t.counts} "
+                                   f"{t.bytes_} != 14 x {per_call}")
+            G = mesh.gather(Xm)
+            err = max(rel_err(G[k], X[k]) for k in X)
+            if not err <= 1e-11:
+                raise RuntimeError(f"mesh {mx}x{my} overlap={overlap}: rel "
+                                   f"err {err} against one device")
+            got[overlap] = G
+            launched[f"{mx}x{my}" + ("_overlap" if overlap else "")] = \
+                launches
+            emit({"phase": "mesh_slice", "mesh": [mx, my],
+                  "config": "UMJS ne4 p4 nz6 f64 dt100", "steps": 2,
+                  "overlap": overlap, "rel_err_vs_one_device": err,
+                  "bitwise_vs_one_device": all(torch.equal(G[k], X[k])
+                                               for k in X),
+                  "exchange_ops": t.counts, "exchange_bytes": t.bytes_,
+                  "expected_bytes": 14 * per_call, "moved_bytes": t.moved,
+                  "launches": launches})
+        if not all(torch.equal(got[False][k], got[True][k]) for k in X):
+            raise RuntimeError(f"mesh {mx}x{my}: the overlap schedule is not "
+                               f"the inline one bit for bit")
+        # a graph of 2 sharded steps against the eager steps
+        mesh = ShardMesh(mx, my, device=dev)
+        fm, multi = fast.make_fast_multistep(cfg, geom, 2, mesh=mesh)
+        _, sm = fast.make_fast_step(cfg, geom, mesh=mesh)
+        Xa, ca = fm(mesh.shard(X0))
+        Xg, cg = multi(Xa, ca)
+        Xe, ce = sm(*sm(Xa, ca))
+        sync(dev)
+        if not all(torch.equal(g[k], e[k]) for g, e in zip(Xg, Xe)
+                   for k in g):
+            raise RuntimeError(f"mesh {mx}x{my}: the replayed graph is not "
+                               f"the eager steps bit for bit")
+    return launched
+
+
+def mesh_line(dev, smi, launches, geom, state):
+    """Phase 5n, the mesh at full width: the flagship (f32) on a
+    ``ShardMesh`` of the card at each of ``MESH_SHAPES``: ``first_step`` and
+    a 10-step graph of the sharded step (its launches, from counts at 0,
+    held to ``mesh_counts``), the replay within 1e-4 relative per field of
+    the single-device replay from the same start; the replays of both timed
+    in turns (one device, mesh, mesh, one device, ...); one eager sharded
+    step with its exchange tally (7 DSS calls of ``expected_exchange_bytes``)
+    and its wall time.  Then ``Model.profile_phases`` of the flagship on
+    one device and on the 2 x 2 mesh.  ``DistMesh`` over NCCL is not run:
+    NCCL puts one rank on each GPU and this machine has one."""
+    import tempestmodel_tpu_torch as tm
+    from tempestmodel_tpu_torch import fast
+    from tempestmodel_tpu_torch.fast import mesh_dss
+    from tempestmodel_tpu_torch.kernels import counts
+    from tempestmodel_tpu_torch.model import Model
+    from tempestmodel_tpu_torch.parallel.mesh import ShardMesh
+    tc, cfg, _ = mesh_config(torch.float32, NE, NZ)
+    X0 = fast.pack_state(state, device=dev)
+    A = NE * ORDER
+    first1, multi1 = fast.make_fast_multistep(cfg, geom, INNER_STEPS,
+                                              device=dev)
+    X1, c1 = first1(X0)
+    S1, _ = multi1(X1, c1)
+    sync(dev)
+    runs = {}
+    for mx, my in MESH_SHAPES:
+        name = f"{mx}x{my}"
+        mesh = ShardMesh(mx, my, device=dev)
+        t0 = time.perf_counter()
+        fm, mm = fast.make_fast_multistep(cfg, geom, INNER_STEPS, mesh=mesh)
+        make_s = time.perf_counter() - t0
+        counts.reset_launch_counts()
+        Xa, ca = fm(mesh.shard(X0))
+        t0 = time.perf_counter()
+        Sm, _ = mm(Xa, ca)                    # warm-up, capture, replay
+        sync(dev)
+        capture_s = time.perf_counter() - t0
+        got = dict(counts.launch_counts)
+        launches[f"mesh_{name}"] = got
+        want = mesh_counts(mx, my, INNER_STEPS + 1)
+        if got != want:
+            raise RuntimeError(f"mesh {name}: launches {got} != {want}")
+        for k in MESH_KERNELS:
+            if got[k] < 1:
+                raise RuntimeError(f"{k} was not launched on the mesh {name}")
+        G = mesh.gather(Sm)
+        err = {k: rel_err(G[k], S1[k]) for k in S1}
+        if not (max(err.values()) <= 1e-4
+                and all(bool(torch.isfinite(v).all()) for v in G.values())):
+            raise RuntimeError(f"mesh {name}: replay against one device "
+                               f"{err}")
+        # one eager sharded step: its exchange tally and wall time
+        _, sm = fast.make_fast_step(cfg, geom, mesh=mesh)
+        sm(Xa, ca)
+        sync(dev)
+        mesh.tally.reset()
+        t0 = time.perf_counter()
+        sm(Xa, ca)
+        sync(dev)
+        eager_s = time.perf_counter() - t0
+        per_call = mesh_dss.expected_exchange_bytes(
+            geom.edge_meta, mx, my, A, 5 * NZ + 1, 4)
+        t = mesh.tally
+        if sum(t.bytes_.values()) != 7 * per_call or \
+                set(t.counts) != {"collective-permute"}:
+            raise RuntimeError(f"mesh {name}: tally {t.counts} {t.bytes_} "
+                               f"!= 7 x {per_call}")
+        runs[name] = {"multi": mm, "state": (Xa, ca), "ms": [],
+                      "report": {
+                          "phase": "mesh", "mesh": [mx, my],
+                          "config": f"UMJS ne{NE} p{ORDER} nz{NZ} f32 "
+                                    f"dt{DT:g} nu{NU:g}",
+                          "shard_block": [NZ, 6, A // mx, A // my],
+                          "rel_err_vs_one_device_replay": err,
+                          "bitwise_vs_one_device": all(
+                              torch.equal(G[k], S1[k]) for k in S1),
+                          "launches": got,
+                          "launches_per_step": mesh_per_step(mx, my),
+                          "launches_counted": "at capture (first_step + 1 "
+                          f"warm-up step + {INNER_STEPS} captured steps)",
+                          "exchange_ops_per_step": t.counts,
+                          "exchange_bytes_per_step": t.bytes_,
+                          "expected_bytes_per_step": 7 * per_call,
+                          "moved_bytes_per_step": t.moved,
+                          "eager_step_wall_ms": 1e3 * eager_s,
+                          "make_fast_multistep_s": make_s,
+                          "warmup_capture_first_replay_s": capture_s}}
+        del G, Sm
+    single = {"multi": multi1, "state": (X1, c1), "ms": []}
+
+    def replay_ms(v):
+        sync(dev)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        v["multi"](*v["state"])
+        e1.record()
+        e1.synchronize()
+        return e0.elapsed_time(e1) / INNER_STEPS
+
+    order = []
+    for name in runs:
+        order += [single, runs[name], runs[name], single]
+    for v in order:
+        v["ms"].append(replay_ms(v))
+    for name, v in runs.items():
+        emit(dict(v["report"], ms_per_step_each_replay=v["ms"],
+                  ms_per_step=sorted(v["ms"])[len(v["ms"]) // 2],
+                  one_device_ms_per_step_each_replay=single["ms"],
+                  order="one device, mesh, mesh, one device; per mesh",
+                  card=smi))
+    del runs, single, first1, multi1
+    torch.cuda.empty_cache()
+    # the phases of the flagship Model, on one device and on the 2 x 2 mesh
+    for mesh in (None, ShardMesh(2, 2, device=dev)):
+        m = Model(cfg, tc, device=dev, mesh=mesh)
+        m.go(nsteps=1)
+        ph = m.profile_phases(reps=5)
+        emit({"phase": "profile_phases", "mesh": mesh and [2, 2],
+              "config": f"UMJS ne{NE} p{ORDER} nz{NZ} f32 dt{DT:g}",
+              "ms": ph, "timed_by": "CUDA events, 5 calls after 1",
+              "card": smi})
+        del m
+    torch.cuda.empty_cache()
+    emit({"phase": "mesh_dist", "run": False,
+          "why": "DistMesh over NCCL puts one rank on each GPU and this "
+                 "machine has one; its gloo transport is held to ShardMesh "
+                 "bit for bit on the CPU (tests/test_torch_mesh_dist.py)"})
+
+
 def main():
     args = sys.argv[1:]
     profile_path = None
@@ -5935,6 +6356,7 @@ def main():
     check_sw_kernels(dev, rows)
     check_stagger_kernels(geom, rows, dev)
     check_split_kernels(geom, rows, dev)
+    check_mesh_kernels(geom, state, rows, dev)
 
     # 4. the slice at small size, three ways, dry and with tracers --------
     check_slice(dev)
@@ -5948,6 +6370,7 @@ def main():
     stag_launches = check_stagger_slice(dev)
     split_launches = check_split_slice(dev)
     imex_wide_launches = check_imex_wide_slice(dev)
+    mesh_launches = check_mesh_slice(dev)
 
     # 5. the main paths at full width -------------------------------------
     X0 = fast.pack_state(state, device=dev)
@@ -6212,6 +6635,11 @@ def main():
     imex_wide_line(dev, smi, launches)
     emit({"phase": "imex_wide", "seconds": time.perf_counter() - t0})
 
+    # 5n. this slice's path: the device mesh (ShardMesh on the card)
+    t0 = time.perf_counter()
+    mesh_line(dev, smi, launches, geom, state)
+    emit({"phase": "mesh", "seconds": time.perf_counter() - t0})
+
     if profile_path is not None:
         os.makedirs(os.path.dirname(os.path.abspath(profile_path)),
                     exist_ok=True)
@@ -6387,6 +6815,15 @@ def main():
                     launches[f"imex_wide_{run}"][name] < 1:
                 raise RuntimeError(f"{name} was not launched on the IMEX "
                                    f"{run} path")
+        # the device mesh: phase 5n's sharded runs (each from counts at 0)
+        # and phase 4's at ne4; the kernel at a shard's block (phase 3)
+        row["launches_mesh_paths"] = {
+            f"{mx}x{my}": launches[f"mesh_{mx}x{my}"][name]
+            for mx, my in MESH_SHAPES}
+        row["launches_mesh_slice"] = {
+            run: v[name] for run, v in mesh_launches.items()}
+        if name in rows["mesh_shapes"]:
+            row["mesh_shapes"] = rows["mesh_shapes"][name]
         if name in ("banded_solve", "banded_solve_multi"):
             row["q_above_8"] = {k: v for k, v in rows["banded_wide"].items()
                                 if k.split()[0] == name}

@@ -55,13 +55,21 @@ configuration (``fused=False`` forces the unfused one) and runs eagerly;
 as tensor code, the full-state DSS and the implicit kernels a stage, the
 nu4 kernels in the tail; the same body takes every configuration of
 ``imex_supported`` (tracers, every solver and staggering, no-flux walls)
-through ``models/nh_model.make_nh_imex_step``.  The device-mesh engine is
-not ported yet.
+through ``models/nh_model.make_nh_imex_step``.
+
+- **the device mesh** (``mesh_engine``, ``mesh_dss``): ``make_fast_step``
+  and ``make_fast_multistep`` with ``mesh=`` (a ``parallel.mesh.ShardMesh``
+  or ``DistMesh``) run the same per-shard step on blocks ``(K, 6, A/mx,
+  A/my)``; the only communication is the statically routed edge exchange
+  of ``mesh_dss.make_state_dss_mesh`` (plain tensor code: no DSS kernel
+  runs on a mesh), which gives the single-device DSS's bits.
 """
 
 from .engine import (FastGeometry, build_fast_geometry,
                      build_fast_geometry_cartesian, pack_state, unpack_state,
                      make_fast_step, make_fast_multistep, IMEX_SCHEMES,
-                     fast_imex_supported, imex_supported,
-                     make_fast_imex_step)
-from . import engine
+                     fast_engine_supported, fast_imex_supported,
+                     imex_supported, make_fast_imex_step)
+from .mesh_dss import (build_edge_routing, expected_exchange_bytes,
+                       make_state_dss_mesh, routing_stats)
+from . import engine, mesh_dss, mesh_engine

@@ -2,8 +2,8 @@
 
 Counterpart of the JAX package's ``fast/engine.py``, for the cubed sphere
 and the Cartesian grids (x-z slice, 3-D plane; periodic, or with no-flux
-walls along one axis) on one device.  The
-execution shape is that package's:
+walls along one axis) on one device, or on each shard of a device mesh
+(``fast/mesh_engine``).  The execution shape is that package's:
 
   state dict {U,V,Rt,W,Rho} of (6, A, B, nz[+1])
     ->  fast state dict of (nz[+1], 6, A, B)   ("z-first")
@@ -57,10 +57,10 @@ of ``implicit.stagger_newton``, each scalar's Jacobian and Rayleigh factor
 by its row count).
 
 Not ported yet (they wait in the roadmap, none is declared unnecessary):
-the device-mesh engine, tracers and the IMEX family on no-flux grids,
-tracers with uniform diffusion or on the explicit vertical path, and under
-the CPH, LEV and INT staggerings tracers, no-flux walls, uniform diffusion
-and IMEX.
+a device mesh outside the JAX package's z-first mesh envelope, and under
+Strang and ERK tracers on no-flux grids, tracers with uniform diffusion or
+on the explicit vertical path, and under the CPH, LEV and INT staggerings
+tracers, no-flux walls and uniform diffusion.
 
 Where the JAX code writes ``x.at[i].set(v)``, this one writes in place on
 a fresh tensor (a clone or a new result), never on an argument.
@@ -996,10 +996,20 @@ def fast_engine_supported(cfg: ModelConfig, has_tracers: bool = False,
     explicit vertical path; no-flux walls along both axes (no test case has
     them); and, under CPH, LEV and INT, tracers (the JAX package's column
     tracer update takes W on interfaces), no-flux walls and uniform
-    diffusion (the roadmap's).  (The JAX package's engine also covers a
-    device mesh and leaves these vertical options, the other staggerings,
-    no-flux grids and uniform diffusion to its reference-layout engine.)"""
+    diffusion (the roadmap's).  (The JAX package's engine leaves these
+    vertical options, the other staggerings, no-flux grids and uniform
+    diffusion to its reference-layout engine.)
+
+    With a ``mesh`` (anything with ``shape = {"x": mx, "y": my}``) the
+    answer is the JAX package's for its mesh engine: the cubed sphere, LOR,
+    Strang, ``vertical_solver`` ``"banded"`` or ``"pallas"``, no uniform
+    diffusion, ``upwind_thermo``, not ``explicit_vertical``, and blocks of
+    whole elements (``mx`` and ``my`` divide ``ne * order`` into multiples
+    of ``order``); tracers and the Rayleigh layer are in."""
     from ..config import TimestepSchemeType
+    if mesh is not None:
+        from .mesh_engine import mesh_supported
+        return mesh_supported(cfg, mesh)
     uniform = cfg.nu_uniform_scalar != 0.0 or cfg.nu_uniform_vector != 0.0
     explicit = (cfg.explicit_vertical
                 or cfg.timescheme == TimestepSchemeType.ERK)
@@ -1016,7 +1026,6 @@ def fast_engine_supported(cfg: ModelConfig, has_tracers: bool = False,
         grid_ok = False
     lorenz = cfg.vertical_staggering == VerticalStaggering.LORENZ
     return (grid_ok
-            and mesh is None
             and not (uniform and has_tracers)
             and not (explicit and has_tracers)
             and (lorenz or not (has_tracers or walls or uniform))
@@ -1326,8 +1335,19 @@ def make_fast_step(cfg: ModelConfig, geom, ref_state=None, mesh=None,
 
     The state tensors must lie on ``device`` (default ``cuda``; raises when
     absent).  The step runs eagerly.  Tracers are detected from the state
-    (``"Tracers"`` in the dict, as ``pack_state`` lays them out); ``ntracers``
-    is accepted for the JAX package's signature and not read.
+    (``"Tracers"`` in the dict, as ``pack_state`` lays them out); on one
+    device ``ntracers`` is accepted for the JAX package's signature and not
+    read.
+
+    ``mesh``: a ``parallel.mesh.ShardMesh`` or ``DistMesh`` of shape
+    ``{"x": mx, "y": my}`` — the same per-shard step on every block
+    ``(K, 6, A/mx, A/my)``, the routed exchange of ``fast/mesh_dss`` its
+    only communication (``fast/mesh_engine``; the configuration must lie in
+    ``fast_engine_supported(cfg, mesh=mesh)``).  The step then takes and
+    returns sharded states and carries (``mesh.shard`` /
+    ``mesh.gather``), ``ntracers`` is the number of species the state
+    carries (0: none), and ``device`` is a ``DistMesh`` shard's (a
+    ``ShardMesh`` names its own devices).
 
     ``fused=None`` chooses the path by predicates on the configuration, as
     the JAX package does: the fused stage kernel where
@@ -1350,7 +1370,8 @@ def make_fast_step(cfg: ModelConfig, geom, ref_state=None, mesh=None,
     fallback: nothing selects it automatically).
     """
     first_fn, step_fn, fg = _fast_fns(cfg, geom, ref_state, mesh, device,
-                                      plain, fused, dss_merge, swap_ab)
+                                      plain, fused, dss_merge, swap_ab,
+                                      ntracers)
     if not fg.ab_swapped:
         return first_fn, step_fn
     return _natural_layout(first_fn), _natural_layout(step_fn)
@@ -1382,34 +1403,46 @@ class _Setup:
     vtend: Any = None    # the explicit vertical path's tendencies of
     #                    # (Rt, W, Rho) (``implicit.vertical_explicit_
     #                    # tendency`` bound), or None
+    saux: Any = None     # ``implicit.static_aux(fg)``
 
 
 def _setup(cfg, geom, ref_state, device, plain, fused, dss_merge, swap_ab,
            column_filter: bool = True):
     """The set-up the Strang and the IMEX steppers share: the device, the
-    fast geometry, the implicit solve's bandwidth, statics and (with
-    ``vertical_solver == "pallas"`` on the fused path) the fused kernel's
-    statics (another staggering than LOR: the dense solve's statics,
-    ``implicit.stagger_statics``, and no bandwidth), the nu4 passes where
-    ``hyper_cuda.supported`` holds on the fused path, the uniform diffusion
-    (its Laplacians by ``nu4_pass1`` where
-    ``hyper_cuda.laplacians_supported`` holds on the fused path), the
-    Rayleigh terms and the DSS closure.  ``column_filter``: the implicit
-    solve ends the tracers' column update in the column positivity filter
-    (Strang's; the IMEX family runs none).  The caller checks the
-    configuration's envelope first."""
-    from . import implicit as fimp
-    from . import hyper_cuda, implicit_cuda
-    from . import tracers as ftr
-
+    fast geometry and the Rayleigh terms, then ``_setup_on``'s pieces on
+    them.  The caller checks the configuration's envelope first."""
     dev = resolve_device(device)
-    constants = cfg.constants
     if isinstance(geom, CubedSphereGeometry):
         fg = build_fast_geometry(geom, dtype=cfg.dtype, device=dev)
     else:
         fg = build_fast_geometry_cartesian(geom, dtype=cfg.dtype, device=dev,
                                            swap_ab=swap_ab)
+    return _setup_on(cfg, geom, fg, _rayleigh_terms(cfg, geom, ref_state, fg),
+                     ref_state, plain, fused, dss_merge, column_filter)
 
+
+def _setup_on(cfg, geom, fg, rayleigh, ref_state, plain, fused, dss_merge,
+              column_filter: bool = True, hyper=None, dss_fn=None):
+    """The pieces of a stepper on the engine geometry ``fg`` (the whole
+    grid, or one shard's block of it): the implicit solve's bandwidth,
+    statics and (with ``vertical_solver == "pallas"`` on the fused path) the
+    fused kernel's statics (another staggering than LOR: the dense solve's
+    statics, ``implicit.stagger_statics``, and no bandwidth), the nu4
+    passes where ``hyper_cuda.supported`` holds on the fused path, the
+    uniform diffusion (its Laplacians by ``nu4_pass1`` where
+    ``hyper_cuda.laplacians_supported`` holds on the fused path), and the
+    DSS closure.  ``column_filter``: the implicit solve ends the tracers'
+    column update in the column positivity filter (Strang's; the IMEX
+    family runs none).  ``hyper``: the pair (``laplacians_supported``,
+    ``supported``) evaluated elsewhere (a mesh evaluates them once on the
+    whole grid, not shard by shard); ``dss_fn``: the DSS closure to use
+    instead of ``apply_dss`` (a mesh's exchange)."""
+    from . import implicit as fimp
+    from . import hyper_cuda, implicit_cuda
+    from . import tracers as ftr
+
+    constants = cfg.constants
+    dev = fg.inv_mult.device
     solver = cfg.vertical_solver
     lorenz = cfg.vertical_staggering == VerticalStaggering.LORENZ
     if lorenz:
@@ -1426,7 +1459,6 @@ def _setup(cfg, geom, ref_state, device, plain, fused, dss_merge, swap_ab,
     if solver == "schur" and lorenz:
         from ..models.vertical_schur import schur_statics
         schur = schur_statics(fg.nz, q, fg.vo, cfg.dtype, dev)
-    rayleigh = _rayleigh_terms(cfg, geom, ref_state, fg)
     saux = fimp.static_aux(fg)
 
     fused = fused is None or bool(fused)
@@ -1439,14 +1471,17 @@ def _setup(cfg, geom, ref_state, device, plain, fused, dss_merge, swap_ab,
     ist = implicit_cuda.implicit_statics(statics, fg) \
         if fused and use_pallas else None
 
+    if hyper is None:
+        lap_ok = hyper_cuda.laplacians_supported(fg)
+        hyper = (lap_ok, lap_ok and hyper_cuda.supported(fg, cfg))
     hyper_fns = None
-    lap_kernel = fused and hyper_cuda.laplacians_supported(fg)
+    lap_kernel = fused and hyper[0]
     if lap_kernel:
         hst = hyper_cuda.hyper_statics(fg)
         pass1, pass2 = (
             (hyper_cuda.nu4_pass1_plain, hyper_cuda.nu4_pass2_plain) if plain
             else (hyper_cuda.nu4_pass1, hyper_cuda.nu4_pass2))
-        if hyper_cuda.supported(fg, cfg):
+        if hyper[1]:
             hyper_fns = (lambda x: pass1(x, fg, hst),
                          lambda x, w, *nu_dt: pass2(x, w, *nu_dt, fg, hst))
     uniform = _uniform_fn(cfg, fg, ref_state,
@@ -1469,9 +1504,11 @@ def _setup(cfg, geom, ref_state, device, plain, fused, dss_merge, swap_ab,
             out = dict(out, Tracers=tr)
         return out
 
-    def dss_fn(d, rayleigh=None, w_finish=None, halo=None, walls_out=False):
-        return apply_dss(d, fg, rayleigh, plain=plain, w_finish=w_finish,
-                         merge=dss_merge, halo=halo, walls_out=walls_out)
+    if dss_fn is None:
+        def dss_fn(d, rayleigh=None, w_finish=None, halo=None,
+                   walls_out=False):
+            return apply_dss(d, fg, rayleigh, plain=plain, w_finish=w_finish,
+                             merge=dss_merge, halo=halo, walls_out=walls_out)
 
     vtend = None
     if cfg.explicit_vertical or cfg.timescheme.value == "erk":
@@ -1480,7 +1517,7 @@ def _setup(cfg, geom, ref_state, device, plain, fused, dss_merge, swap_ab,
 
     return _Setup(fg=fg, fused=fused, rayleigh=rayleigh, dss_fn=dss_fn,
                   implicit_fn=implicit_fn, hyper_fns=hyper_fns,
-                  uniform=uniform, vtend=vtend)
+                  uniform=uniform, vtend=vtend, saux=saux)
 
 
 def _uvw_fits(fg: FastGeometry, dtype) -> bool:
@@ -1496,58 +1533,120 @@ def _uvw_fits(fg: FastGeometry, dtype) -> bool:
 
 
 def _fast_fns(cfg, geom, ref_state, mesh, device, plain, fused, dss_merge,
-              swap_ab):
+              swap_ab, ntracers: int = 0):
     """``make_fast_step``'s (first_fn, step_fn) in the engine's layout, and
-    the engine geometry."""
-    from . import stage_cuda
-
+    the engine geometry (under a mesh: the sharded steps, and the geometry
+    of the whole grid)."""
     if mesh is not None:
-        raise NotImplementedError("the device-mesh engine is not ported yet")
+        from .mesh_engine import mesh_fns
+        return mesh_fns(cfg, geom, ref_state, mesh, device, plain, fused,
+                        dss_merge, ntracers)
     if not fast_engine_supported(cfg, geom=geom):
         raise NotImplementedError(
             "configuration outside the z-first engine's envelope "
             "(see fast_engine_supported)")
+    parts = strang_parts(cfg, geom, ref_state, device, plain, fused,
+                         dss_merge, swap_ab)
+    return parts.first_fn, parts.step_fn, parts.fg
+
+
+@dataclasses.dataclass
+class StrangParts:
+    """One Strang stepper and the pieces it was made of (``strang_parts``):
+    what ``Model.profile_phases`` times phase by phase."""
+    fg: FastGeometry
+    setup: _Setup
+    stage_fn: Any       # the fused stage bound to the geometry, or None
+    use_wfold: bool
+    first_fn: Any
+    step_fn: Any
+
+
+def stage_path(cfg, fg: FastGeometry, fused: bool) -> bool:
+    """Whether the step takes the fused stage kernel: the fused path,
+    ``stage_cuda.stage_supported`` and the LOR staggering.  The JAX
+    package's stage predicate also asks for p | 8 and 8 | A (8 | a under a
+    mesh): those are the TPU kernel's tiles.  What is about the math stays
+    (vertical order 1, the row test of the W fold); the rest is what the
+    CUDA kernels take (stage_supported, hyper_cuda.supported,
+    fused_supported).  The stage kernel takes Lorenz shapes: the other
+    staggerings run the stage as tensor code (a staggered stage kernel is a
+    roadmap item)."""
+    from . import stage_cuda
+    return (fused and stage_cuda.stage_supported(fg)
+            and cfg.vertical_staggering == VerticalStaggering.LORENZ)
+
+
+def wfold_rows(geom) -> bool:
+    """The W fold's row test: the surface interpolant row reads the bottom
+    two levels only."""
+    In0 = np.asarray(geom.interp_n2i)[0]
+    return len(In0) >= 2 and not np.any(In0[2:])
+
+
+def bind_stage(fg: FastGeometry, constants, plain: bool):
+    """``stage_fn(base, ueval, dt_s, defer_w=False)``: the fused stage bound
+    to the geometry (its plain version with ``plain``)."""
+    from . import stage_cuda
+    sst = stage_cuda.stage_statics(fg)
+
+    def stage_fn(base, ueval, dt_s, defer_w=False):
+        if plain:
+            return stage_cuda.fused_stage_plain(
+                base, ueval, dt_s, fg, constants, defer_w=defer_w)
+        return stage_cuda.fused_stage(base, ueval, dt_s, fg, constants,
+                                      defer_w=defer_w, statics=sst)
+    return stage_fn
+
+
+def strang_parts(cfg, geom, ref_state, device, plain, fused, dss_merge,
+                 swap_ab) -> StrangParts:
+    """The Strang stepper of one device and its pieces; the caller checks
+    the envelope."""
     s = _setup(cfg, geom, ref_state, device, plain, fused, dss_merge,
                swap_ab)
-    fg, constants = s.fg, cfg.constants
-
-    # The path.  The JAX package's stage predicate also asks for p | 8 and
-    # 8 | A: those are the TPU kernel's tiles.  What is about the math stays
-    # (vertical order 1, the row test of the W fold); the rest is what the
-    # CUDA kernels take (stage_supported, hyper_cuda.supported,
-    # fused_supported).
-    # the stage kernel takes Lorenz shapes: the other staggerings run the
-    # stage as tensor code (a staggered stage kernel is a roadmap item)
-    use_fused_stage = (s.fused and stage_cuda.stage_supported(fg)
-                       and cfg.vertical_staggering
-                       == VerticalStaggering.LORENZ)
+    fg = s.fg
+    use_fused_stage = stage_path(cfg, fg, s.fused)
     # fold the W stage finish into the (U, V) DSS launch when the surface
     # interpolant row only reads the bottom two levels, and no uniform
     # diffusion comes between the stage and its DSS
-    In0 = np.asarray(geom.interp_n2i)[0]
-    use_wfold = (use_fused_stage and len(In0) >= 2
-                 and not np.any(In0[2:]) and s.uniform is None
+    use_wfold = (use_fused_stage and wfold_rows(geom) and s.uniform is None
                  and s.vtend is None and _uvw_fits(fg, cfg.dtype))
-
-    stage_fn = None
-    if use_fused_stage:
-        sst = stage_cuda.stage_statics(fg)
-
-        def stage_fn(base, ueval, dt_s, defer_w=False):
-            if plain:
-                return stage_cuda.fused_stage_plain(
-                    base, ueval, dt_s, fg, constants, defer_w=defer_w)
-            return stage_cuda.fused_stage(base, ueval, dt_s, fg, constants,
-                                          defer_w=defer_w, statics=sst)
-
+    stage_fn = bind_stage(fg, cfg.constants, plain) \
+        if use_fused_stage else None
     first_fn, step_fn = _strang_fns(
         cfg, fg, s.rayleigh, s.dss_fn, s.implicit_fn, stage_fn=stage_fn,
         use_wfold=use_wfold, hyper_fns=s.hyper_fns, uniform=s.uniform,
         vtend=s.vtend)
-    return first_fn, step_fn, fg
+    return StrangParts(fg=fg, setup=s, stage_fn=stage_fn,
+                       use_wfold=use_wfold, first_fn=first_fn,
+                       step_fn=step_fn)
 
 
-def graph_runner(step, inner_steps: int):
+def _leaves(tree):
+    """The tensors of a state or carry: a dict of tensors, or (a sharded
+    state of a ``ShardMesh``) a list of such dicts."""
+    if isinstance(tree, dict):
+        return list(tree.values())
+    return [v for t in tree for v in _leaves(t)]
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: v.clone() for k, v in tree.items()}
+    return [_clone_tree(t) for t in tree]
+
+
+def _copy_tree(dst, src):
+    if isinstance(dst, dict):
+        for k, v in dst.items():
+            v.copy_(src[k])
+    else:
+        for d, s in zip(dst, src):
+            _copy_tree(d, s)
+
+
+def graph_runner(step, inner_steps: int, graph: bool = True):
     """``run(d, carry) -> (d, carry)``: ``inner_steps`` calls of ``step(d,
     carry) -> (d, carry)`` one after the other.
 
@@ -1563,7 +1662,14 @@ def graph_runner(step, inner_steps: int):
     choice follows the tensors' device, and on a CUDA tensor ``run``
     captures or raises.  ``run`` keeps ``step`` (and what it closes over)
     alive as long as the graph: a graph must not outlive the tensors its
-    launches read."""
+    launches read.
+
+    ``d`` and ``carry`` are dicts of tensors, or the sharded state of a
+    ``parallel.mesh.ShardMesh`` (a list of the shards' dicts on one
+    device): its graph holds every shard's launches and the copies between
+    shards, captured from the shards' threads on the capturing stream.
+    ``graph=False`` (a ``DistMesh``, whose exchanges are not captured): a
+    plain loop on every device."""
     inner_steps = int(inner_steps)
     if inner_steps < 1:
         raise ValueError("inner_steps must be at least 1")
@@ -1574,35 +1680,35 @@ def graph_runner(step, inner_steps: int):
             d, carry = step(d, carry)
         return d, carry
 
-    def capture(d, carry):
-        dev = d["U"].device
+    def capture(d, carry, dev):
         side = torch.cuda.Stream(device=dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             step(d, carry)
         torch.cuda.current_stream(dev).wait_stream(side)
-        ins = ({k: v.clone() for k, v in d.items()},
-               {k: v.clone() for k, v in carry.items()})
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        ins = (_clone_tree(d), _clone_tree(carry))
+        g = torch.cuda.CUDAGraph()
+        # a sharded step launches from the shards' threads: only this
+        # thread's own calls are held to the capture's rules
+        mode = "global" if isinstance(d, dict) else "thread_local"
+        with torch.cuda.graph(g, capture_error_mode=mode):
             outs = loop(*ins)
-        return graph, ins, outs
+        return g, ins, outs
 
     def run(d, carry):
-        dev = d["U"].device
-        if dev.type == "cpu":
+        dev = _leaves(d)[0].device
+        if dev.type == "cpu" or not graph:
             return loop(d, carry)
         if dev.type != "cuda":
             raise ValueError(f"unsupported device {dev}")
         with torch.cuda.device(dev):
             if "graph" not in captured:
-                captured["graph"] = capture(d, carry)
-            graph, ins, outs = captured["graph"]
+                captured["graph"] = capture(d, carry, dev)
+            g, ins, outs = captured["graph"]
             for static, given in zip(ins, (d, carry)):
-                for k, v in static.items():
-                    v.copy_(given[k])
-            graph.replay()
-            return tuple({k: v.clone() for k, v in o.items()} for o in outs)
+                _copy_tree(static, given)
+            g.replay()
+            return tuple(_clone_tree(o) for o in outs)
 
     return run
 
@@ -1615,11 +1721,16 @@ def make_fast_multistep(cfg: ModelConfig, geom, inner_steps: int,
     ``inner_steps`` steps of ``make_fast_step``'s ``step``, one CUDA graph
     for CUDA tensors and a plain loop for CPU tensors (``graph_runner``).
     ``first_step`` stays eager.  A swapped Cartesian engine swaps once
-    around the ``inner_steps`` steps, not around each.  The other arguments
-    are ``make_fast_step``'s."""
+    around the ``inner_steps`` steps, not around each.  On a ``ShardMesh``
+    whose shards share a device the graph holds every shard's steps and the
+    copies between them; on a ``DistMesh`` ``multi`` stays an eager loop (its
+    exchanges are not captured).  The other arguments are
+    ``make_fast_step``'s."""
     first_step, step, fg = _fast_fns(cfg, geom, ref_state, mesh, device,
-                                     plain, fused, dss_merge, swap_ab)
-    run = graph_runner(step, inner_steps)
+                                     plain, fused, dss_merge, swap_ab,
+                                     ntracers)
+    run = graph_runner(step, inner_steps,
+                       graph=getattr(mesh, "graphs", True))
     if not fg.ab_swapped:
         return first_step, run
     return _natural_layout(first_step), _natural_layout(run)

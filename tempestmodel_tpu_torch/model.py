@@ -25,7 +25,12 @@ also holds the walls' halo (``halo_U``, ...: the engine's flat dict of
 tensors), so a restart continues bit for bit from either checkpoint format.
 The shallow-water equation set runs its own step (``models/sw_model``) the
 same way: the 2-D state stays resident and the steps between two firings
-are one graph (its carry is empty).
+are one graph (its carry is empty).  With ``mesh=`` (a ``parallel.mesh``
+transport) the Strang step runs sharded (``fast/mesh_engine``): the
+resident state and carry are the shards' (one graph of every shard's steps
+on a ``ShardMesh``, a loop on a ``DistMesh``), and ``state`` and ``carry``
+gather on read.  ``profile_phases`` times the five phases of the
+reference's FunctionTimer taxonomy one by one.
 """
 
 from __future__ import annotations
@@ -48,7 +53,11 @@ GRAPH_STEPS = 50
 # graphs kept per model (one per run length met); the oldest goes first
 GRAPHS_KEPT = 4
 
-_NOT_PORTED = ("is not ported yet (ROADMAP queue 1 item 3: tracers on "
+_MESH_ROADMAP = ("is not ported yet (ROADMAP queue 1 item 1: mesh outside "
+                 "the z-first envelope; the JAX package runs it on its "
+                 "reference-layout mesh path)")
+
+_NOT_PORTED = ("is not ported yet (ROADMAP queue 1 item 2: tracers on "
                "no-flux grids, with uniform diffusion or on the explicit "
                "vertical path of a Strang or ERK step, walls on both axes, "
                "and under the CPH, LEV and INT staggerings tracers, no-flux "
@@ -124,9 +133,7 @@ class Model:
                  workflow_processes: Sequence[WorkflowProcess] = (),
                  verbose: bool = False, mesh=None, device=None):
         self.device = resolve_device(device)
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh is not ported yet (ROADMAP queue 1 item 2)")
+        self.mesh = mesh
         # test-case physical-constants override (the reference's
         # TestCase::EvaluatePhysicalConstants hook, TestCase.h:103-110)
         if testcase is not None and hasattr(testcase, "physical_constants"):
@@ -141,7 +148,8 @@ class Model:
         self.verbose = verbose
         self.step_count = 0
         self.time = 0.0
-        self.carry = None
+        self._carry = None       # the carry as given, or the engine's own
+        self._carry_view = None  # its gathered form on a mesh
         # registry of named user 2-D diagnostic fields (P, A, B), written
         # by workflow processes and emitted by ReferenceOutput (analog of
         # UserDataMeta, ``UserDataMeta.h:35+``)
@@ -163,7 +171,12 @@ class Model:
         self._zl = None          # reference-layout state, None when stale
         self.reference = None
         self._sw = cfg.equation_set == EquationSet.SHALLOW_WATER
+        self._graphs = True      # the runs are CUDA graphs on the card
+        self._parts = None       # the pieces profile_phases times
         if self._sw:
+            if mesh is not None:
+                raise NotImplementedError(
+                    f"the shallow-water set on a device mesh {_MESH_ROADMAP}")
             self._init_sw(cfg, testcase, topography)
             return
         if cfg.grid_kind == GridKind.CUBED_SPHERE:
@@ -195,7 +208,22 @@ class Model:
                                 TimestepSchemeType.HS)
         # fuse_pallas=False: the engine's unfused path
         fused = None if cfg.fuse_pallas else False
-        if self._split:
+        if mesh is not None:
+            from .fast import mesh_engine
+            if self._split or self._imex or not engine.fast_engine_supported(
+                    cfg, has_tracers=has_tr, mesh=mesh, geom=self.geom):
+                raise NotImplementedError(
+                    f"this configuration on a device mesh (outside "
+                    f"fast_engine_supported(cfg, mesh=mesh), the JAX "
+                    f"package's z-first mesh envelope) {_MESH_ROADMAP}")
+            ntr = self._zl["Tracers"].shape[0] if has_tr else 0
+            self._parts = mesh_engine.mesh_parts(
+                cfg, self.geom, self.reference, mesh, self.device, False,
+                fused, None, ntracers=ntr)
+            first, step = self._parts.first_fn, self._parts.step_fn
+            fg = self._parts.fg
+            self._graphs = mesh.graphs
+        elif self._split:
             from .models.split_explicit import split_supported
             if not split_supported(cfg, has_tracers=has_tr, geom=self.geom):
                 raise NotImplementedError(
@@ -292,8 +320,8 @@ class Model:
         device), unpacked from the resident z-first state at the first read
         after a step."""
         if self._zl is None and self._d is not None:
-            self._zl = (dict(self._d) if self._sw
-                        else engine.unpack_state(self._d))
+            d = self._d if self.mesh is None else self.mesh.gather(self._d)
+            self._zl = dict(d) if self._sw else engine.unpack_state(d)
             self._snap = _snapshot(self._zl)
         return self._zl
 
@@ -302,6 +330,24 @@ class Model:
         # a hook that replaces the dict, replaces a key or changes a tensor
         # in place leaves _zl unlike its snapshot: the next step repacks
         self._zl = value
+
+    @property
+    def carry(self):
+        """The Strang carry as the engine keeps it (z-first; None before the
+        first step), or as it was given (``set_state``); on a mesh the
+        engine's carry is gathered at its first read after a step."""
+        c = self._carry
+        if self.mesh is not None and c is not None \
+                and c is self._carry_seen:
+            if self._carry_view is None:
+                self._carry_view = self.mesh.gather(c)
+            return self._carry_view
+        return c
+
+    @carry.setter
+    def carry(self, value):
+        self._carry = value
+        self._carry_view = None
 
     def set_state(self, state, carry=None, time=0.0, step=0):
         self.state = state
@@ -355,6 +401,9 @@ class Model:
         return {k: torch.as_tensor(v).to(self.device)
                 for k, v in carry.items()}
 
+    def _shard(self, d):
+        return d if self.mesh is None else self.mesh.shard(d)
+
     def _pack_sw(self, state):
         """The shallow-water state as the step keeps it: contiguous tensors
         on the device (fresh where the given one was not)."""
@@ -366,7 +415,7 @@ class Model:
         if n not in self._runs:
             if len(self._runs) >= GRAPHS_KEPT:
                 del self._runs[next(iter(self._runs))]
-            run = engine.graph_runner(self._step, n)
+            run = engine.graph_runner(self._step, n, graph=self._graphs)
             self._runs[n] = (engine._natural_layout(run) if self._swapped
                              else run)
         return self._runs[n]
@@ -374,16 +423,13 @@ class Model:
     def _advance(self, n: int):
         """``n`` steps from the resident state: ``first_step`` where there
         is no carry (Strang), then one run of the rest."""
-        if self._zl is not None and not _unchanged(self._zl, self._snap):
-            self._d = (self._pack_sw(self._zl) if self._sw
-                       else engine.pack_state(self._zl, device=self.device))
-            self._snap = _snapshot(self._zl)
+        self._resident()
         if self._imex or self._sw or self._split:
             self._c = {}      # no carry: a restart's (zero) carry is unused
-        elif self.carry is None:
+        elif self._carry is None:
             self._c = None
-        elif self.carry is not self._carry_seen:
-            self._c = self._pack_carry(self.carry)
+        elif self._carry is not self._carry_seen:
+            self._c = self._shard(self._pack_carry(self._carry))
         d, c, left = self._d, self._c, n
         if c is None:
             d, c = self._first(d)
@@ -397,6 +443,16 @@ class Model:
         self.step_count += n
         for _ in range(n):
             self.time += self.cfg.dt
+
+    def _resident(self):
+        """The resident state (z-first; sharded on a mesh), packed again
+        from ``state`` where that was replaced or changed since."""
+        if self._zl is not None and not _unchanged(self._zl, self._snap):
+            self._d = (self._pack_sw(self._zl) if self._sw
+                       else self._shard(engine.pack_state(
+                           self._zl, device=self.device)))
+            self._snap = _snapshot(self._zl)
+        return self._d
 
     def _coming_times(self, n: int):
         """Model times after each of the next ``n`` steps, summed as the
@@ -460,12 +516,95 @@ class Model:
 
     # ------------------------------------------------------------------
     def profile_phases(self, reps: int = 5):
-        """Per-phase timing in the reference FunctionTimer taxonomy.  It
-        times the reference-layout operators phase by phase, which are not
-        ported yet (ROADMAP queue 1 item 1)."""
-        raise NotImplementedError(
-            "profile_phases needs the reference-layout operators, which are "
-            "not ported yet (ROADMAP queue 1 item 1)")
+        """Per-phase timing in the reference FunctionTimer taxonomy
+        (``Model.cpp:520-689``; the JAX package's ``profile_phases``):
+        ``{phase: ms}`` over the model's current state (z-first, sharded on
+        a mesh), which it leaves unchanged.  Each phase is called on its own:
+
+        - ``HorizontalStep``: one explicit stage (base and evaluation state
+          both the state, the full dt) through the fused stage kernel where
+          the model's path takes it, else ``engine.horizontal_tendency``;
+        - ``VerticalStepExplicit``: ``implicit.vertical_explicit_tendency``;
+        - ``VerticalStepImplicit``: the implicit solve at ``0.5 * dt`` with
+          the model's solver (under CPH, LEV and INT the dense staggered
+          solve), tracers included;
+        - ``Communicate``: the DSS of the state (the mesh DSS on a mesh);
+        - ``StepAfterSubCycle``: ``engine.step_after_subcycle``, the nu4
+          tail with its two DSS and the Rayleigh finish.
+
+        The pieces are those of the model's Strang path (made once, at the
+        first call; an IMEX, SPEX or HS model times the Strang pieces of
+        its configuration).  Each phase runs once first (which builds its
+        kernels), then ``reps`` times: timed by CUDA events on the card, by
+        ``time.perf_counter`` after a synchronize on the CPU.  Standalone
+        timings over-count what a whole step shares: use them to rank
+        phases.  The shallow-water set raises ``ValueError``."""
+        import time as _time
+        from .fast import implicit as fimp
+        if self._sw:
+            raise ValueError("phase profile targets the nonhydro step")
+        cfg, constants, dt = self.cfg, self.cfg.constants, self.cfg.dt
+        if self._parts is None:
+            self._parts = engine.strang_parts(
+                cfg, self.geom, self.reference, self.device, False,
+                None if cfg.fuse_pallas else False, None, None)
+        parts = self._parts
+        d = self._resident()
+        if d is None:
+            raise ValueError("the model has no state")
+        if self.mesh is None and parts.fg.ab_swapped:
+            d = engine._swap_ab_state(d)
+
+        def phases(p):
+            s = p.setup
+            return {
+                "HorizontalStep": (
+                    (lambda x: p.stage_fn(x, x, dt, defer_w=p.use_wfold))
+                    if p.stage_fn is not None else
+                    (lambda x: engine.horizontal_tendency(x, p.fg,
+                                                          constants))),
+                "VerticalStepExplicit":
+                    lambda x: fimp.vertical_explicit_tendency(
+                        x, p.fg, constants, s.saux),
+                "VerticalStepImplicit":
+                    lambda x: s.implicit_fn(x, 0.5 * dt),
+                "Communicate": lambda x: s.dss_fn(x),
+                "StepAfterSubCycle":
+                    lambda x: engine.step_after_subcycle(
+                        x, dt, cfg, p.fg, rayleigh=s.rayleigh,
+                        dss_fn=s.dss_fn,
+                        use_fused_hyper=s.hyper_fns is not None,
+                        hyper_fns=s.hyper_fns),
+            }
+
+        if self.mesh is None:
+            table = phases(parts)
+            calls = {k: (lambda f=f: f(d)) for k, f in table.items()}
+        else:
+            tables = {r: phases(p) for r, p in parts.shards.items()}
+            calls = {k: (lambda k=k: parts.run(
+                lambda r, x: tables[r][k](x), d)) for k in tables[
+                    next(iter(tables))]}
+        cuda = self.device.type == "cuda"
+        out = {}
+        for name, call in calls.items():
+            call()                                  # warm-up: builds
+            if cuda:
+                torch.cuda.synchronize(self.device)
+                ev0 = torch.cuda.Event(enable_timing=True)
+                ev1 = torch.cuda.Event(enable_timing=True)
+                ev0.record()
+                for _ in range(reps):
+                    call()
+                ev1.record()
+                ev1.synchronize()
+                out[name] = ev0.elapsed_time(ev1) / reps
+            else:
+                t0 = _time.perf_counter()
+                for _ in range(reps):
+                    call()
+                out[name] = (_time.perf_counter() - t0) / reps * 1e3
+        return out
 
     # ------------------------------------------------------------------
     def compute_error_norms(self, reference=None):

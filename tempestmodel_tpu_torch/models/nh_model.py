@@ -82,7 +82,13 @@ def make_nh_step(cfg: ModelConfig, geom, ref_state=None, mesh=None,
     ``plain=True`` runs every kernel's plain version."""
     from ..fast import engine
     if mesh is not None:
-        raise NotImplementedError("a device mesh is not ported yet")
+        # the JAX package's make_nh_step runs its reference-layout mesh
+        # path; the sharded z-first engine is make_fast_step(mesh=)
+        raise NotImplementedError(
+            "make_nh_step on a device mesh is not ported yet (ROADMAP queue "
+            "1 item 1: mesh outside the z-first envelope; the z-first "
+            "engine takes a mesh through fast.make_fast_step(mesh=) and "
+            "Model(mesh=))")
     first_fn, step_fn, fg = _step_fns(cfg, geom, ref_state, device, plain)
     dev = fg.inv_mult.device
 
@@ -112,5 +118,7 @@ def make_nh_imex_step(cfg: ModelConfig, geom, ref_state=None, mesh=None,
     plain version."""
     from ..fast import engine
     if mesh is not None:
-        raise NotImplementedError("a device mesh is not ported yet")
+        raise NotImplementedError(
+            "IMEX on a device mesh is not ported yet (ROADMAP queue 1 item "
+            "1: mesh outside the z-first envelope)")
     return engine.imex_step(cfg, geom, ref_state, device, plain, fused=fused)

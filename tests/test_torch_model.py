@@ -334,9 +334,17 @@ def test_unported_configurations_raise(what):
 
 
 def test_profile_phases_is_not_ported():
+    """It is ported: the JAX package's five phases, each a positive time in
+    ms, over the model's state, which stays as it was."""
     m = t_model.Model(torch_cfg(), TorchUMJS(pert="exp"), device=CPU)
-    with pytest.raises(NotImplementedError, match="queue 1 item 1"):
-        m.profile_phases()
+    before = {k: v.clone() for k, v in m.state.items()}
+    out = m.profile_phases(reps=1)
+    assert tuple(out) == ("HorizontalStep", "VerticalStepExplicit",
+                          "VerticalStepImplicit", "Communicate",
+                          "StepAfterSubCycle")
+    assert all(v > 0 for v in out.values())
+    for k, v in m.state.items():
+        assert torch.equal(v, before[k]), k
 
 
 @pytest.mark.gpu
